@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of pcg_mpi_solver_tpu: matrix-free PCG for
+structured-cube elastostatics on an NVIDIA Hopper card.
+
+The JAX package ``pcg_mpi_solver_tpu`` is the reference; this package
+imports nothing of it and no JAX.  Ported so far: the structured-cube
+solve end to end (``models.make_cube_model`` -> ``parallel.structured``
+-> scalar Jacobi -> classic ``pcg`` inside the mixed f32/f64 refinement
+shell -> ``solver.Solver``), with a hand-written CUDA kernel for the slab
+stencil matvec (``csrc/structured_matvec.cu``).
+"""
+
+from pcg_mpi_solver_tpu_torch.config import (
+    RunConfig, SolverConfig, TimeHistoryConfig)
+
+__all__ = ["RunConfig", "SolverConfig", "TimeHistoryConfig"]
