@@ -8,19 +8,25 @@ Run from the repository root with no arguments:
 
 Phases (any failed check raises, so the script exits non-zero):
   1. device   — the card's name and power limit;
-  2. build    — compile every CUDA kernel of the port from csrc/;
-  3. kernels  — each kernel against its plain PyTorch version on the card,
-                in float32 and float64, on ragged shapes, two parts, and
-                every slab shape phases 4 and 5 give it in that dtype,
-                with CUDA-event times and the card's bound;
+  2. build    — compile every CUDA kernel of the port from csrc/, all at
+                once, and echo each one's registers, spills and shared
+                memory;
+  3. kernels  — each kernel against its plain PyTorch version on the card:
+                every ported float32 variant (v6, v1, v2, v3, v7) and v6's
+                float64 kernel, on ragged shapes, two parts, and every
+                slab shape phases 4 and 5 give it in that dtype, two
+                launches bitwise equal, with CUDA-event times and the
+                card's bound; v3 and v7 also at 16 planes a chunk;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
-                dofs) solved in mixed precision through ``Solver``, with
-                the kernel launch counts of that solve; then a profiled
-                window of inner f32 iterations;
+                dofs) solved in mixed precision through ``Solver`` once
+                under each float32 variant (``PCG_TPU_PALLAS_V``), with
+                the kernel launch counts of each solve; then a profiled
+                window of inner f32 iterations under v6;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
                 solves on the CPU (the plain path).
-The line before the last is the per-kernel JSON record, the last line
+The line before the last is the per-kernel JSON record (one per variant
+and dtype, launch counts from the solve under that variant), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -28,6 +34,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -46,6 +53,17 @@ CARD_VS_CPU_CELLS = (12, 6, 5)      # phase 5's card-against-CPU solves
 JAX_FLAGSHIP_ITERS = 3334
 
 KERNEL_TOL = {"float32": 2e-5, "float64": 1e-12}   # x max|y_plain|
+# The ported float32 kernels, v6 (the default) first, and the JAX wrapper
+# each replaces; float64 runs v6's double kernel under every variant.
+F32_VARIANTS = ("v6", "v1", "v2", "v3", "v7")
+PALLAS = "pcg_mpi_solver_tpu/ops/pallas_matvec.py"
+REPLACES = {"v1": f"{PALLAS}:214", "v2": f"{PALLAS}:324",
+            "v3": f"{PALLAS}:456", "v6": f"{PALLAS}:940",
+            "v7": f"{PALLAS}:1094"}
+# phase 3 runs the chunked variants at 16 planes a chunk on this shape too,
+# so the ragged tail chunk is exercised (34 node planes)
+RAGGED_PLANES = ((2, 33, 17, 9), 16)
+ITERS_TOL = 0.05        # flagship iterations within 5 % of JAX's
 
 
 def say(msg: str) -> None:
@@ -114,9 +132,11 @@ def kernel_shapes():
 
 
 def phase_kernels(torch, np, rates):
+    """Each kernel against the plain version at every shape of
+    kernel_shapes(); returns the flagship record per (variant, dtype)."""
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        structured_matvec, structured_matvec_plain)
+        VARIANTS, structured_matvec, structured_matvec_plain)
 
     _label, bw, f32_rate, f64_rate = rates
     rng = np.random.default_rng(2024)
@@ -126,6 +146,7 @@ def phase_kernels(torch, np, rates):
     for dtype, rate in ((torch.float32, f32_rate), (torch.float64, f64_rate)):
         name = str(dtype).removeprefix("torch.")
         tol = KERNEL_TOL[name]
+        variants = F32_VARIANTS if dtype == torch.float32 else ("v6",)
         for shape in shapes[name]:
             P, nx, ny, nz = shape
             x = torch.as_tensor(rng.standard_normal((P, 3, nx + 1, ny + 1,
@@ -134,35 +155,53 @@ def phase_kernels(torch, np, rates):
             ck = torch.as_tensor(rng.uniform(1.0, 10.0, (P, nx, ny, nz)),
                                  dtype=dtype, device="cuda")
             K = torch.as_tensor(Ke, dtype=dtype, device="cuda")
-            y = structured_matvec(x, ck, K)
             y_plain = structured_matvec_plain(x, ck, K)
-            torch.cuda.synchronize()
-            err = (y - y_plain).abs().max().item()
             scale = y_plain.abs().max().item()
-            ok = err <= tol * scale
-            say(f"kernel structured_matvec {name} P={P} cells=({nx},{ny},"
-                f"{nz}): max|err| {err:.3e} vs tol {tol:g} x max|y| "
-                f"{scale:.3e} -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"structured_matvec {name} {shape} "
-                                     f"disagrees with its plain version")
-            ms = time_ms(torch, lambda: structured_matvec(x, ck, K))
             plain_ms = time_ms(torch,
                                lambda: structured_matvec_plain(x, ck, K))
             bound_ms, bound_by = matvec_bound_ms(
                 shape, x.element_size(), bw, rate)
-            say(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bound_ms * 1e3:.4g} us ({bound_by}), "
-                f"{bound_ms / ms:.2%} of bound")
-            if shape == shapes[name][-1]:        # the main path's shape
-                out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by)
-            del x, ck, y, y_plain
+            say(f"kernel {name} P={P} cells=({nx},{ny},{nz}): plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.4g} us "
+                f"({bound_by})")
+            plane_runs = [(v, None) for v in variants]
+            if shape == RAGGED_PLANES[0] and dtype == torch.float32:
+                plane_runs += [(v, RAGGED_PLANES[1]) for v in variants
+                               if VARIANTS[v][1]]
+            for v, planes in plane_runs:
+                def run():
+                    return structured_matvec(x, ck, K, variant=v,
+                                             planes=planes)
+                y, y2 = run(), run()
+                torch.cuda.synchronize()
+                err = (y - y_plain).abs().max().item()
+                same = torch.equal(y, y2)
+                ok = err <= tol * scale and same
+                ms = time_ms(torch, run)
+                tag = v if planes is None else f"{v} planes={planes}"
+                say(f"  {tag}: max|err| {err:.3e} vs tol {tol:g} x max|y| "
+                    f"{scale:.3e}, repeat bitwise "
+                    f"{'equal' if same else 'DIFFERENT'} -> "
+                    f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+                    f"{bound_ms / ms:.2%} of bound")
+                if not ok:
+                    raise AssertionError(f"{tag} {name} {shape} disagrees "
+                                         f"with its plain version or with "
+                                         f"itself")
+                if shape == shapes[name][-1] and planes is None:
+                    # the main path's shape
+                    out[(v, name)] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
+                del y, y2
+            del x, ck, y_plain
     torch.cuda.empty_cache()
     return out
 
 
 def phase_main(torch, np):
+    """The flagship mixed solve once under each float32 variant; returns
+    {variant: launch counts of its solve}."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
@@ -174,53 +213,71 @@ def phase_main(torch, np):
     t0 = time.perf_counter()
     model = make_cube_model(nx, **kw)
     model_s = time.perf_counter() - t0
-    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
-    solver = Solver(model, cfg)
     say(f"main: cube {nx}^3, {model.n_dof} dofs; model build {model_s:.2f} "
-        f"s, partition {solver.partition_build_s:.2f} s, solver setup "
-        f"{solver.setup_s:.2f} s")
-
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    results = solver.solve()
-    launches = dict(LAUNCHES)
-    res = results[-1]
-    wall = sum(r.wall_s for r in results)
-    iters = sum(r.iters for r in results)
-    say(f"main: flag {res.flag}, iterations {res.iters}, relres "
-        f"{res.relres:.4e}, solve wall {wall:.3f} s, "
-        f"{wall / iters * 1e3:.4f} ms/iter, "
-        f"{model.n_dof * iters / wall:.4e} dof*iter/s")
+        f"s")
     say(f"main: the JAX package recorded flag 0 and {JAX_FLAGSHIP_ITERS} "
         f"iterations for this configuration")
-    say(f"main: kernel launches during the solve: {launches}")
-    if res.flag != 0 or not res.relres <= 1e-7:
-        raise AssertionError(f"flagship solve did not converge: {res}")
-
-    u = solver.displacement_global()
-    if u.shape != (model.n_dof,) or not np.isfinite(u).all():
-        raise AssertionError("flagship displacement not finite or misshapen")
+    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
     # physics: tip displacement against the 1-D bar estimate sigma*L/E,
     # a 3x window for the two-phase material
-    ny = nz = nx
-    sigma = FLAGSHIP["load_value"] * (ny + 1) * (nz + 1) / (ny * nz)
+    sigma = FLAGSHIP["load_value"] * (nx + 1) ** 2 / nx ** 2
     bar = sigma * nx / FLAGSHIP["E"]
-    tip = float(u[0::3].max())
-    say(f"main: tip ux {tip:.4e} m vs bar estimate {bar:.4e} m "
-        f"(ratio {tip / bar:.3f}, window [1/3, 3])")
-    if not bar / 3 <= tip <= 3 * bar:
-        raise AssertionError("flagship tip displacement outside the "
-                             "physics window")
-    if launches["float32"] < res.iters or launches["float64"] < 2:
-        raise AssertionError(f"the solve did not go through the kernel: "
-                             f"{launches} for {res.iters} iterations")
-
-    profile_inner(torch, solver)
-    main = dict(n_dof=model.n_dof, iters=res.iters, wall=wall,
-                launches=launches)
-    del solver, model
-    torch.cuda.empty_cache()
-    return main
+    launches_by = {}
+    # v6 last: its profiled window follows its solve, and the torch.profiler
+    # window slows every solve run after it (PERF.md, Findings)
+    for variant in sorted(F32_VARIANTS, key=lambda v: v == "v6"):
+        os.environ["PCG_TPU_PALLAS_V"] = variant.removeprefix("v")
+        try:
+            solver = Solver(model, cfg)
+        finally:
+            del os.environ["PCG_TPU_PALLAS_V"]
+        if solver.kernel_variant != variant:
+            raise AssertionError(f"Solver chose {solver.kernel_variant} "
+                                 f"under PCG_TPU_PALLAS_V for {variant}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        results = solver.solve()
+        launches = dict(LAUNCHES)
+        res = results[-1]
+        wall = sum(r.wall_s for r in results)
+        iters = sum(r.iters for r in results)
+        shown = {f"{v} {d}": n for (v, d), n in launches.items()}
+        say(f"main {variant}: partition {solver.partition_build_s:.2f} s, "
+            f"setup {solver.setup_s:.2f} s; flag {res.flag}, iterations "
+            f"{res.iters}, relres {res.relres:.4e}, solve wall {wall:.3f} "
+            f"s, {wall / iters * 1e3:.4f} ms/iter, "
+            f"{model.n_dof * iters / wall:.4e} dof*iter/s; launches "
+            f"{shown}")
+        if res.flag != 0 or not res.relres <= 1e-7:
+            raise AssertionError(f"flagship solve under {variant} did not "
+                                 f"converge: {res}")
+        if abs(res.iters - JAX_FLAGSHIP_ITERS) > ITERS_TOL * JAX_FLAGSHIP_ITERS:
+            raise AssertionError(f"flagship solve under {variant} took "
+                                 f"{res.iters} iterations, not within "
+                                 f"{ITERS_TOL:.0%} of {JAX_FLAGSHIP_ITERS}")
+        others = {k: n for k, n in launches.items()
+                  if k[1] == "float32" and k[0] != variant and n}
+        if (launches[(variant, "float32")] < res.iters or others
+                or launches[("v6", "float64")] < 2):
+            raise AssertionError(f"the solve under {variant} did not go "
+                                 f"through its kernel: {shown} for "
+                                 f"{res.iters} iterations")
+        u = solver.displacement_global()
+        if u.shape != (model.n_dof,) or not np.isfinite(u).all():
+            raise AssertionError("flagship displacement not finite or "
+                                 "misshapen")
+        tip = float(u[0::3].max())
+        say(f"main {variant}: tip ux {tip:.4e} m vs bar estimate "
+            f"{bar:.4e} m (ratio {tip / bar:.3f}, window [1/3, 3])")
+        if not bar / 3 <= tip <= 3 * bar:
+            raise AssertionError("flagship tip displacement outside the "
+                                 "physics window")
+        if variant == "v6":
+            profile_inner(torch, solver)
+        launches_by[variant] = launches
+        del solver, u
+        torch.cuda.empty_cache()
+    return launches_by
 
 
 def profile_inner(torch, solver, iters: int = 100):
@@ -285,8 +342,9 @@ def phase_checks(torch, np):
     cells = "x".join(map(str, DIRECT_F64_CELLS))
     say(f"direct f64 {cells} ({model.n_dof} dofs): flag {res.flag}, "
         f"iterations {res.iters}, relres {res.relres:.4e}, wall "
-        f"{res.wall_s:.3f} s, launches {dict(LAUNCHES)}")
-    if res.flag != 0 or LAUNCHES["float64"] < res.iters:
+        f"{res.wall_s:.3f} s, launches "
+        f"{ {f'{v} {d}': n for (v, d), n in LAUNCHES.items()} }")
+    if res.flag != 0 or LAUNCHES[("v6", "float64")] < res.iters:
         raise AssertionError(f"direct f64 solve failed: {res}")
 
     # the whole path on the card against the same solve on the CPU
@@ -343,25 +401,31 @@ def main() -> int:
     say(f"build: {len(built)} kernel(s) compiled in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, rep in built.items():
+        say(f"build: {name}: {rep['seconds']:.2f} s")
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "smem")):
                 say(f"build: {name}: {line.strip()}")
 
     # 3. kernels against their plain versions
     kern = phase_kernels(torch, np, rates)
-    # 4. main path at full size
-    main_run = phase_main(torch, np)
+    # 4. main path at full size, once per float32 variant
+    launches_by = phase_main(torch, np)
     # 5. direct f64 and card-vs-cpu checks
     phase_checks(torch, np)
 
     records = []
-    for dtype in ("float32", "float64"):
-        records.append(dict(
-            name=f"structured_matvec_{dtype}", route="cuda",
-            source="pcg_mpi_solver_tpu_torch/csrc/structured_matvec.cu",
-            replaces="pcg_mpi_solver_tpu/ops/pallas_matvec.py:940",
-            launches=main_run["launches"][dtype],
-            library_ms=None, **kern[dtype]))
+    for variant in F32_VARIANTS:
+        for dtype in ("float32", "float64"):
+            if (variant, dtype) not in kern:
+                continue
+            lib = "structured_matvec" + ("" if variant == "v6"
+                                         else f"_{variant}")
+            records.append(dict(
+                name=f"{lib}_{dtype}", route="cuda",
+                source=f"pcg_mpi_solver_tpu_torch/csrc/{lib}.cu",
+                replaces=REPLACES[variant],
+                launches=launches_by[variant][(variant, dtype)],
+                library_ms=None, **kern[(variant, dtype)]))
     say(smi)
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 // f32 matvec) and its per-part dispatch loop batched_structured_matvec: one
 // launch here covers the whole leading part axis.  The double instantiation
 // also takes the f64 matvecs the JAX package left to XLA (Dirichlet lifting,
-// the refinement refreshes of pcg_mixed, every matvec of a direct f64 solve).
+// the refinement refreshes of pcg_mixed, every matvec of a direct f64 solve),
+// whichever variant PCG_TPU_PALLAS_V selects for float.
 //
 // Function (StructuredOps.matvec_local, one slab per part p):
 //   y[p] = sum_b shift_b( sum_a Ke[3b:3b+3, 3a:3a+3] . (ck[p] * x[p]_a) )
@@ -42,18 +43,15 @@
 
 #include <cuda_runtime.h>
 
+#include "structured_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+using smv::corner_x;
+using smv::corner_y;
+using smv::corner_z;
 
-// VTK hexahedron corner offsets (models/element.py HEX_CORNERS).
-__host__ __device__ constexpr int corner_x(int a) {
-  return (a == 1 || a == 2 || a == 5 || a == 6) ? 1 : 0;
-}
-__host__ __device__ constexpr int corner_y(int a) {
-  return (a == 2 || a == 3 || a == 6 || a == 7) ? 1 : 0;
-}
-__host__ __device__ constexpr int corner_z(int a) { return a >= 4 ? 1 : 0; }
+constexpr int kThreads = 128;
 
 __constant__ float ke_f32[24 * 24];
 __constant__ double ke_f64[24 * 24];
@@ -152,43 +150,10 @@ int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Makes `device` current for the life of the object, then restores the
-// caller's device.
-class DeviceScope {
- public:
-  explicit DeviceScope(int device) {
-    err_ = cudaGetDevice(&prev_);
-    if (err_ == cudaSuccess && prev_ != device) {
-      err_ = cudaSetDevice(device);
-      switched_ = err_ == cudaSuccess;
-    }
-  }
-  ~DeviceScope() {
-    if (switched_) cudaSetDevice(prev_);
-  }
-  int error() const { return static_cast<int>(err_); }
-
- private:
-  int prev_ = 0;
-  bool switched_ = false;
-  cudaError_t err_;
-};
-
-template <typename T>
-int stage(const T& symbol, const void* ke, int device, void* stream) {
-  DeviceScope scope(device);
-  if (scope.error() != 0) return scope.error();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemcpyToSymbolAsync(symbol, ke, sizeof(symbol), 0,
-                                          cudaMemcpyDeviceToDevice, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaStreamSynchronize(s));
-}
-
 template <typename T>
 int launch_on(const void* x, const void* ck, void* y, int parts, int nx,
               int ny, int nz, int device, void* stream) {
-  DeviceScope scope(device);
+  smv::DeviceScope scope(device);
   if (scope.error() != 0) return scope.error();
   return launch<T>(x, ck, y, parts, nx, ny, nz,
                    static_cast<cudaStream_t>(stream));
@@ -205,12 +170,12 @@ int launch_on(const void* x, const void* ck, void* y, int parts, int nx,
 // CUDA error code of its copy or launch (0 = done / launched).
 extern "C" int structured_matvec_stage_f32(const void* ke, int device,
                                            void* stream) {
-  return stage(ke_f32, ke, device, stream);
+  return smv::stage(ke_f32, ke, device, stream);
 }
 
 extern "C" int structured_matvec_stage_f64(const void* ke, int device,
                                            void* stream) {
-  return stage(ke_f64, ke, device, stream);
+  return smv::stage(ke_f64, ke, device, stream);
 }
 
 extern "C" int structured_matvec_f32(const void* x, const void* ck, void* y,
@@ -225,6 +190,4 @@ extern "C" int structured_matvec_f64(const void* x, const void* ck, void* y,
   return launch_on<double>(x, ck, y, parts, nx, ny, nz, device, stream);
 }
 
-extern "C" const char* structured_matvec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+SMV_ERROR_STRING(structured_matvec)

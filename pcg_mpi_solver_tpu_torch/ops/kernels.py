@@ -5,8 +5,9 @@ Each source under ``pcg_mpi_solver_tpu_torch/csrc/`` is compiled by
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries are
 built at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` at the repository root, keyed by a hash of the
-source and the compiler flags: a changed source builds anew, an unchanged
-one loads the existing library.
+source, the shared headers (``csrc/*.cuh``) and the compiler flags: a
+changed source builds anew, an unchanged one loads the existing library.
+The sources are compiled in parallel, one ``nvcc`` each.
 
 Nothing here runs when the module is imported; a machine without ``nvcc``
 can import every module of the port.
@@ -31,8 +32,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel name -> source file under csrc/
-KERNEL_SOURCES = {"structured_matvec": "structured_matvec.cu"}
+# kernel name -> source file under csrc/; each is its own shared library
+KERNEL_SOURCES = {"structured_matvec": "structured_matvec.cu",
+                  "structured_matvec_v1": "structured_matvec_v1.cu",
+                  "structured_matvec_v2": "structured_matvec_v2.cu",
+                  "structured_matvec_v3": "structured_matvec_v3.cu",
+                  "structured_matvec_v7": "structured_matvec_v7.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -52,35 +57,48 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / KERNEL_SOURCES[name]
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256((CSRC / KERNEL_SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
 def build_kernels(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile every named kernel (default: all) that is not built yet.
-    Returns ``{name: {"seconds": wall, "log": compiler output}}`` for the
-    kernels it compiled; raises if a compile failed."""
+    """Compile every named kernel (default: all) that is not built yet, all
+    at once.  Returns ``{name: {"seconds": wall, "log": compiler output}}``
+    for the kernels it compiled; raises if a compile failed."""
     names = list(KERNEL_SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    report = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        t0 = time.perf_counter()
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / KERNEL_SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-        # atomic publish: a concurrent build of the same source writes its
-        # own tmp file and replaces with identical bytes
-        os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0,
-                        "log": proc.stdout}
+    started = {}
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            proc = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / KERNEL_SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            started[name] = (proc, tmp, out, time.perf_counter())
+        report, failed = {}, []
+        for name, (proc, tmp, out, t0) in started.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}:\n{log}")
+                continue
+            # atomic publish: a concurrent build of the same source writes
+            # its own tmp file and replaces with identical bytes
+            os.replace(tmp, out)
+            report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    finally:
+        for proc, _tmp, _out, _t0 in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return report
 
 

@@ -216,20 +216,27 @@ def device_data_structured(sp: StructuredPartition, dtype: torch.dtype,
 
 @dataclasses.dataclass(frozen=True)
 class StructuredOps(Ops):
-    """The operator protocol on slab-structured parts."""
+    """The operator protocol on slab-structured parts.  ``variant`` and
+    ``planes`` name the kernel its float32 matvecs launch on the card
+    (``ops.structured_matvec.structured_matvec``); float64 matvecs take
+    v6's double kernel whatever they say."""
 
     nxc: int = 0
     ny: int = 0
     nz: int = 0
     n_parts: int = 1
+    variant: str = "v6"
+    planes: Optional[int] = None
 
     @classmethod
     def from_partition(cls, sp: StructuredPartition,
-                       dot_dtype: torch.dtype = torch.float64):
+                       dot_dtype: torch.dtype = torch.float64,
+                       variant: str = "v6", planes: Optional[int] = None):
         return cls(n_loc=sp.n_loc, n_iface=0,
                    n_node_loc=sp.n_node_loc, n_node_iface=0,
                    dot_dtype=dot_dtype,
-                   nxc=sp.nxc, ny=sp.ny, nz=sp.nz, n_parts=sp.n_parts)
+                   nxc=sp.nxc, ny=sp.ny, nz=sp.nz, n_parts=sp.n_parts,
+                   variant=variant, planes=planes)
 
     def _grid(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(x.shape[0], 3, self.nxc + 1, self.ny + 1,
@@ -256,7 +263,8 @@ class StructuredOps(Ops):
                 "blocked right-hand sides are not ported yet (ROADMAP "
                 "queue 1 item 6)")
         blk = data["blocks"][0]
-        y = structured_matvec(self._grid(x), blk["ck"], blk["Ke"])
+        y = structured_matvec(self._grid(x), blk["ck"], blk["Ke"],
+                              variant=self.variant, planes=self.planes)
         return y.reshape(x.shape)
 
     def matvec(self, data: dict, x: torch.Tensor) -> torch.Tensor:

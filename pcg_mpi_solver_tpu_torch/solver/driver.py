@@ -22,6 +22,8 @@ import torch
 from pcg_mpi_solver_tpu_torch.config import RunConfig
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+    VARIANTS, pallas_planes, selected_variant)
 from pcg_mpi_solver_tpu_torch.parallel.structured import (
     StructuredOps, device_data_structured, partition_structured)
 from pcg_mpi_solver_tpu_torch.solver.pcg import pcg, pcg_mixed
@@ -96,18 +98,27 @@ class Solver:
         self.mixed = sc.precision_mode == "mixed"
         self.dtype = torch.float64 if self.mixed else _DTYPES[sc.dtype]
         dot_dtype = _DTYPES[sc.dot_dtype]
+        # The float32 matvec kernel, read once (PCG_TPU_PALLAS_V and, for
+        # the chunked variants, PCG_TPU_PALLAS_PLANES) as the JAX Solver
+        # records pallas_variant: build a new Solver to switch.
+        self.kernel_variant = selected_variant()
+        self.kernel_planes = (pallas_planes()
+                              if VARIANTS[self.kernel_variant][1] else None)
+        kernel = dict(variant=self.kernel_variant, planes=self.kernel_planes)
 
         t_part = time.perf_counter()
         self.pm = partition_structured(model, n_parts)
         self.partition_build_s = time.perf_counter() - t_part
-        self.ops = StructuredOps.from_partition(self.pm, dot_dtype=dot_dtype)
+        self.ops = StructuredOps.from_partition(
+            self.pm, dot_dtype=dot_dtype,
+            **(kernel if self.dtype == torch.float32 else {}))
         self.data = device_data_structured(self.pm, self.dtype, self.device)
         if self.mixed:
             # f32 shadow of the float leaves (the f32 inner cycles' data);
             # their dots accumulate in f32
             self.data32 = _cast_tree(self.data, torch.float32)
             self.ops32 = StructuredOps.from_partition(
-                self.pm, dot_dtype=torch.float32)
+                self.pm, dot_dtype=torch.float32, **kernel)
 
         # Initial state: deterministic zeros.
         self.un = torch.zeros((self.pm.n_parts, self.pm.n_loc),

@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the CUDA kernel against its plain
-PyTorch version, and a whole solve on the card against the same solve on
-the CPU.  They carry the ``cuda`` marker and skip with a reason where
+"""Tests of the port that need the card: each CUDA kernel against its plain
+PyTorch version, the kernel a solve's launches go to under each
+``PCG_TPU_PALLAS_V``, and a whole solve on the card against the same solve
+on the CPU.  They carry the ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
 JAX conftest:
@@ -45,12 +46,72 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol):
                             dtype=dtype, device=cuda_device)
         ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
                              dtype=dtype, device=cuda_device)
-        before = smv.LAUNCHES[name]
+        before = smv.LAUNCHES[("v6", name)]
         y = smv.structured_matvec(x, ck, Ke)
         torch.cuda.synchronize()
-        assert smv.LAUNCHES[name] == before + 1
+        assert smv.LAUNCHES[("v6", name)] == before + 1
         y_plain = smv.structured_matvec_plain(x, ck, Ke)
         assert (y - y_plain).abs().max() <= tol * y_plain.abs().max()
+
+
+NEW_VARIANTS = [("v1", None), ("v2", None), ("v3", 8), ("v3", 16),
+                ("v7", 8), ("v7", 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,planes", NEW_VARIANTS,
+                         ids=[f"{v}-planes{p}" for v, p in NEW_VARIANTS])
+def test_variant_kernel_matches_plain_on_card(cuda_device, variant, planes):
+    """Each float32 variant on ragged shapes (34 node planes leave a ragged
+    tail chunk at 8 and 16 planes) and two parts: within 2e-5 * max|y| of
+    the plain version, two launches bitwise equal (no kernel uses
+    atomics), one launch counted under its own name.  v6 runs first with
+    the same Ke tensor: each library stages Ke into its own constant
+    bank."""
+    rng = np.random.default_rng(2)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
+                         dtype=torch.float32, device=cuda_device)
+    for P, (nx, ny, nz) in [(1, (7, 3, 5)), (2, (33, 17, 9)),
+                            (1, (1, 1, 1)), (2, (6, 5, 40))]:
+        x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
+                            dtype=torch.float32, device=cuda_device)
+        ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
+                             dtype=torch.float32, device=cuda_device)
+        y_plain = smv.structured_matvec_plain(x, ck, Ke)
+        tol = 2e-5 * y_plain.abs().max()
+        assert (smv.structured_matvec(x, ck, Ke) - y_plain).abs().max() \
+            <= tol
+        before = dict(smv.LAUNCHES)
+        y = smv.structured_matvec(x, ck, Ke, variant=variant, planes=planes)
+        y2 = smv.structured_matvec(x, ck, Ke, variant=variant, planes=planes)
+        torch.cuda.synchronize()
+        assert smv.LAUNCHES[(variant, "float32")] \
+            == before[(variant, "float32")] + 2
+        assert (y - y_plain).abs().max() <= tol
+        assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", ["1", "2", "3", "7"])
+def test_solver_routes_launches_to_its_variant(cuda_device, monkeypatch,
+                                               value):
+    """A Solver built under PCG_TPU_PALLAS_V=k sends every float32 matvec
+    of a mixed solve to kernel vk and every float64 one to v6's double
+    kernel; no other kernel is launched."""
+    monkeypatch.setenv("PCG_TPU_PALLAS_V", value)
+    model = make_cube_model(12, 6, 5, E=30e9, heterogeneous=True, seed=4,
+                            load="dirichlet", load_value=1e-3)
+    s = Solver(model, RunConfig(solver=SolverConfig(
+        tol=1e-9, precision_mode="mixed", max_iter=500)))
+    assert s.kernel_variant == f"v{value}"
+    smv.reset_launch_counts()
+    (res,) = s.solve()
+    assert res.flag == 0
+    variant = f"v{value}"
+    assert smv.LAUNCHES[(variant, "float32")] >= res.iters
+    assert smv.LAUNCHES[("v6", "float64")] >= 2
+    assert all(n == 0 for (v, d), n in smv.LAUNCHES.items()
+               if d == "float32" and v != variant)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ import torch
 
 from pcg_mpi_solver_tpu.models.synthetic import make_cube_model as jax_cube
 from pcg_mpi_solver_tpu.ops.matvec import Ops as JaxOps
+from pcg_mpi_solver_tpu.ops import pallas_matvec as jax_pallas
 from pcg_mpi_solver_tpu.ops.pallas_matvec import structured_matvec_pallas_v6
 from pcg_mpi_solver_tpu.parallel.structured import (
     StructuredOps as JaxStructuredOps, device_data_structured as jax_data,
@@ -79,6 +80,42 @@ def test_plain_matches_pallas_v6_interpret(dims, planes):
     tb = td["blocks"][0]
     y = smv.structured_matvec_plain(torch.from_numpy(xg)[None], tb["ck"],
                                     tb["Ke"])[0].numpy()
+    np.testing.assert_allclose(y, y_ref, **F32)
+
+
+# the TPU kernels each ported variant replaces, with the chunk sizes that
+# apply (v1 and v2 march one plane a step and take none)
+PORTED_PALLAS = [("v1", jax_pallas.structured_matvec_pallas, None),
+                 ("v2", jax_pallas.structured_matvec_pallas_v2, None),
+                 ("v3", jax_pallas.structured_matvec_pallas_v3, 8),
+                 ("v3", jax_pallas.structured_matvec_pallas_v3, 16),
+                 ("v7", jax_pallas.structured_matvec_pallas_v7, 8),
+                 ("v7", jax_pallas.structured_matvec_pallas_v7, 16)]
+
+
+@pytest.mark.parametrize("variant,fn,planes", PORTED_PALLAS,
+                         ids=[f"{v}-planes{p}" for v, _f, p in PORTED_PALLAS])
+@pytest.mark.parametrize("dims,masked", [(d, False) for d in DIMS]
+                         + [((4, 3, 3), True)])
+def test_plain_matches_ported_pallas_variants_interpret(variant, fn, planes,
+                                                        dims, masked):
+    """The plain version (every ported kernel's reference) against the TPU
+    kernels v1, v2, v3 and v7 through the Pallas interpreter, on the
+    shapes of tests/test_pallas.py; ``masked`` zeroes the far-z cells, as
+    its isolation case does."""
+    nx, ny, nz = dims
+    (_jops, jd), (_tops, td) = both(dims, dtype="float32")
+    ck = np.asarray(jd["blocks"][0]["ck"]).copy()
+    if masked:
+        ck[:, :, :, -1] = 0.0
+    xg = np.random.default_rng(3).normal(
+        size=(3, nx + 1, ny + 1, nz + 1)).astype(np.float32)
+    kw = {} if planes is None else dict(planes=planes)
+    y_ref = np.asarray(fn(jnp.asarray(xg), jnp.asarray(ck[0]),
+                          jd["blocks"][0]["Ke"], interpret=True, **kw))
+    y = smv.structured_matvec_plain(torch.from_numpy(xg)[None],
+                                    torch.from_numpy(ck),
+                                    td["blocks"][0]["Ke"])[0].numpy()
     np.testing.assert_allclose(y, y_ref, **F32)
 
 
@@ -166,6 +203,22 @@ def test_wrapper_cpu_takes_plain_path_and_counts_nothing():
                                                       blk["Ke"]))
 
 
+@pytest.mark.parametrize("variant", sorted(smv.VARIANTS))
+def test_wrapper_cpu_plain_path_for_every_variant(variant):
+    """On a CPU tensor every variant (and any planes) takes the plain
+    version and launches nothing."""
+    (_jops, _jd), (_tops, td) = both((5, 4, 3), dtype="float32")
+    blk = td["blocks"][0]
+    xg = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(1, 3, 6, 5, 4)).astype(np.float32))
+    before = dict(smv.LAUNCHES)
+    y = smv.structured_matvec(xg, blk["ck"], blk["Ke"], variant=variant,
+                              planes=16)
+    assert smv.LAUNCHES == before
+    assert torch.equal(y, smv.structured_matvec_plain(xg, blk["ck"],
+                                                      blk["Ke"]))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     (_jops, _jd), (_tops, td) = both((4, 4, 4))
     blk = td["blocks"][0]
@@ -180,3 +233,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         smv.structured_matvec(xg, blk["ck"], blk["Ke"][:8])
     with pytest.raises(TypeError, match="dtype"):
         smv.structured_matvec(xg.half(), blk["ck"].half(), blk["Ke"].half())
+    for bad in ("v4", "v9", "6", "xla"):
+        with pytest.raises(ValueError, match="variant must be"):
+            smv.structured_matvec(xg, blk["ck"], blk["Ke"], variant=bad)
