@@ -12,16 +12,18 @@ Phases (any failed check raises, so the script exits non-zero):
                 once, and echo each one's registers, spills and shared
                 memory;
   3. kernels  — each kernel against its plain PyTorch version on the card:
-                every ported float32 variant (v6, v1, v2, v3, v7) and v6's
+                the nine float32 variants (v6, v1-v5, v7-v9) and v6's
                 float64 kernel, on ragged shapes, two parts, and every
                 slab shape phases 4 and 5 give it in that dtype, two
                 launches bitwise equal, with CUDA-event times and the
-                card's bound; v3 and v7 also at 16 planes a chunk;
+                card's bound; the chunked variants (v3, v4, v5, v7, v8,
+                v9) also at 16 planes a chunk;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
-                under each float32 variant (``PCG_TPU_PALLAS_V``), with
-                the kernel launch counts of each solve; then a profiled
-                window of inner f32 iterations under v6;
+                under each of the nine float32 variants
+                (``PCG_TPU_PALLAS_V``), v6 last, with the kernel launch
+                counts of each solve; then a profiled window of inner f32
+                iterations under v6;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
                 solves on the CPU (the plain path).
@@ -33,6 +35,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -53,13 +56,15 @@ CARD_VS_CPU_CELLS = (12, 6, 5)      # phase 5's card-against-CPU solves
 JAX_FLAGSHIP_ITERS = 3334
 
 KERNEL_TOL = {"float32": 2e-5, "float64": 1e-12}   # x max|y_plain|
-# The ported float32 kernels, v6 (the default) first, and the JAX wrapper
-# each replaces; float64 runs v6's double kernel under every variant.
-F32_VARIANTS = ("v6", "v1", "v2", "v3", "v7")
+# The float32 kernels, v6 (the default) first, and the JAX wrapper each
+# replaces; float64 runs v6's double kernel under every variant.
+F32_VARIANTS = ("v6", "v1", "v2", "v3", "v4", "v5", "v7", "v8", "v9")
 PALLAS = "pcg_mpi_solver_tpu/ops/pallas_matvec.py"
 REPLACES = {"v1": f"{PALLAS}:214", "v2": f"{PALLAS}:324",
-            "v3": f"{PALLAS}:456", "v6": f"{PALLAS}:940",
-            "v7": f"{PALLAS}:1094"}
+            "v3": f"{PALLAS}:456", "v4": f"{PALLAS}:774",
+            "v5": f"{PALLAS}:730", "v6": f"{PALLAS}:940",
+            "v7": f"{PALLAS}:1094", "v8": f"{PALLAS}:1227",
+            "v9": f"{PALLAS}:1410"}
 # phase 3 runs the chunked variants at 16 planes a chunk on this shape too,
 # so the ragged tail chunk is exercised (34 node planes)
 RAGGED_PLANES = ((2, 33, 17, 9), 16)
@@ -199,6 +204,29 @@ def phase_kernels(torch, np, rates):
     return out
 
 
+@contextlib.contextmanager
+def inner_cycles():
+    """Records (flag, iterations) of every f32 inner cycle that
+    ``pcg_mixed`` runs inside the block.  The flagship's cycles end on
+    stagnation exits (flag 3), whose iteration depends on round-off, so
+    this is where the variants' totals part."""
+    import pcg_mpi_solver_tpu_torch.solver.pcg as pcg_mod
+
+    cycles, inner = [], pcg_mod.pcg
+
+    def recorded(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        res = out[0] if isinstance(out, tuple) else out
+        cycles.append((res.flag, res.iters))
+        return out
+
+    pcg_mod.pcg = recorded
+    try:
+        yield cycles
+    finally:
+        pcg_mod.pcg = inner
+
+
 def phase_main(torch, np):
     """The flagship mixed solve once under each float32 variant; returns
     {variant: launch counts of its solve}."""
@@ -236,7 +264,8 @@ def phase_main(torch, np):
                                  f"under PCG_TPU_PALLAS_V for {variant}")
         torch.cuda.synchronize()
         reset_launch_counts()
-        results = solver.solve()
+        with inner_cycles() as cycles:
+            results = solver.solve()
         launches = dict(LAUNCHES)
         res = results[-1]
         wall = sum(r.wall_s for r in results)
@@ -246,8 +275,8 @@ def phase_main(torch, np):
             f"setup {solver.setup_s:.2f} s; flag {res.flag}, iterations "
             f"{res.iters}, relres {res.relres:.4e}, solve wall {wall:.3f} "
             f"s, {wall / iters * 1e3:.4f} ms/iter, "
-            f"{model.n_dof * iters / wall:.4e} dof*iter/s; launches "
-            f"{shown}")
+            f"{model.n_dof * iters / wall:.4e} dof*iter/s; inner cycles "
+            f"(flag, iterations) {cycles}; launches {shown}")
         if res.flag != 0 or not res.relres <= 1e-7:
             raise AssertionError(f"flagship solve under {variant} did not "
                                  f"converge: {res}")
@@ -372,6 +401,7 @@ def phase_checks(torch, np):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -426,6 +456,7 @@ def main() -> int:
                 replaces=REPLACES[variant],
                 launches=launches_by[variant][(variant, dtype)],
                 library_ms=None, **kern[(variant, dtype)]))
+    say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {

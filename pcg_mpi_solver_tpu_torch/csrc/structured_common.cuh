@@ -1,8 +1,9 @@
 // Pieces shared by the structured-slab matvec kernels (structured_matvec*.cu):
 // the VTK hexahedron corner offsets, the device scope every C entry point
-// runs its CUDA calls in, and the staging of Ke into a library's constant
-// bank.  Each .cu is built into its own shared library, so each holds its
-// own constant bank and stages its own copy of Ke.
+// runs its CUDA calls in, the staging of Ke into a library's constant
+// bank, the dynamic shared memory opt-in and the cp.async helpers.  Each
+// .cu is built into its own shared library, so each holds its own
+// constant bank and stages its own copy of Ke.
 
 #pragma once
 
@@ -56,14 +57,40 @@ int stage(const T& symbol, const void* ke, int device, void* stream) {
   return static_cast<int>(cudaStreamSynchronize(s));
 }
 
+// The shared memory a Hopper block can have: 227 KB.
+constexpr size_t kMaxSmemBytes = 232448;
+
 // Sets a kernel's dynamic shared memory to `bytes` (needed above 48 KB) or
-// refuses a size above the 227 KB a Hopper block can have.
+// refuses a size above kMaxSmemBytes.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes > 232448) return cudaErrorInvalidConfiguration;
+  if (bytes > kMaxSmemBytes) return cudaErrorInvalidConfiguration;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// cp.async of one float into shared memory; src_ok false fills the
+// destination with 0 (src must still be a valid address).
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool src_ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_ok ? 4 : 0)
+               : "memory");
+}
+
+// Closes the group of cp.asyncs issued since the last commit.
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `Pending` committed groups of this thread are still
+// in flight (a __syncthreads must follow before other threads' copies are
+// read).
+template <int Pending>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
 }  // namespace smv

@@ -47,6 +47,7 @@
 
 namespace {
 
+using smv::copy4;
 using smv::corner_x;
 using smv::corner_y;
 using smv::corner_z;
@@ -60,15 +61,6 @@ constexpr int kChunks = 4;              // chunks per segment
 __constant__ float ke_v3[24 * 24];
 
 int stage_floats(int C) { return 3 * (C + 1) * kNy * kNz + C * kCy * kCz; }
-
-// cp.async of one float; src_ok false fills the destination with 0
-__device__ __forceinline__ void copy4(float* dst, const float* src,
-                                      bool src_ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_ok ? 4 : 0)
-               : "memory");
-}
 
 __global__ void __launch_bounds__(kThreads)
 matvec_v3_kernel(const float* __restrict__ x, const float* __restrict__ ck,
@@ -126,7 +118,7 @@ matvec_v3_kernel(const float* __restrict__ x, const float* __restrict__ ck,
                       gz < nz;
       copy4(cs + e, ok ? ckp + (gi * ny + gy) * nz + gz : ckp, ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    smv::commit_copies();
   };
 
   // the cells around this node: (iy - ey, iz - ez)
@@ -143,9 +135,9 @@ matvec_v3_kernel(const float* __restrict__ x, const float* __restrict__ ck,
   for (int k = 0; k < n_chunks; ++k) {
     if (k + 1 < n_chunks) {
       issue(k + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      smv::wait_copies<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      smv::wait_copies<0>();
     }
     __syncthreads();
     const float* xs = smem + (k & 1) * st_floats;

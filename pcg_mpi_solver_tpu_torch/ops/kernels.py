@@ -37,7 +37,11 @@ KERNEL_SOURCES = {"structured_matvec": "structured_matvec.cu",
                   "structured_matvec_v1": "structured_matvec_v1.cu",
                   "structured_matvec_v2": "structured_matvec_v2.cu",
                   "structured_matvec_v3": "structured_matvec_v3.cu",
-                  "structured_matvec_v7": "structured_matvec_v7.cu"}
+                  "structured_matvec_v4": "structured_matvec_v4.cu",
+                  "structured_matvec_v5": "structured_matvec_v5.cu",
+                  "structured_matvec_v7": "structured_matvec_v7.cu",
+                  "structured_matvec_v8": "structured_matvec_v8.cu",
+                  "structured_matvec_v9": "structured_matvec_v9.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -14,7 +14,11 @@ of the JAX package, one slab per part.
   ``batched_structured_matvec``), and raises if the launch is refused.
   float32 goes to the kernel of the named variant, each replacing the
   TPU kernel of the same name in ``pcg_mpi_solver_tpu/ops/pallas_matvec.py``
-  (:data:`VARIANTS`); float64 goes to the double instantiation of v6's
+  (:data:`VARIANTS`): v1 ``structured_matvec_pallas`` :214, v2
+  ``structured_matvec_pallas_v2`` :324, v3 ``_v3`` :456, v4 ``_v4`` :774,
+  v5 ``_v5`` :730, v6 ``_v6`` :940, v7 ``_v7`` :1094, v8 ``_v8`` :1227 and
+  v9 ``_v9`` :1410 — every ``pallas_call`` of the JAX package has its
+  CUDA kernel here.  float64 goes to the double instantiation of v6's
   kernel whatever the variant (the TPU kernels are float32 only, and the
   JAX package leaves float64 matvecs to XLA).  On a CPU tensor it runs the
   plain version.
@@ -46,18 +50,22 @@ from pcg_mpi_solver_tpu_torch.ops.kernels import load_kernel
 # (dx, dy, dz) offset of each hex corner, VTK order; element dof 3*a + comp
 CORNERS = tuple(tuple(int(v) for v in c) for c in HEX_CORNERS)
 
-# Ported variant -> (kernel library under csrc/, whether its launch takes
+# Variant -> (kernel library under csrc/, whether its launch takes
 # pallas_planes()).  The TPU kernel each replaces, in pallas_matvec.py:
 # v1 structured_matvec_pallas :214, v2 structured_matvec_pallas_v2 :324,
-# v3 structured_matvec_pallas_v3 :456, v6 structured_matvec_pallas_v6 :940,
-# v7 structured_matvec_pallas_v7 :1094.
+# v3 structured_matvec_pallas_v3 :456, v4 structured_matvec_pallas_v4 :774,
+# v5 structured_matvec_pallas_v5 :730, v6 structured_matvec_pallas_v6 :940,
+# v7 structured_matvec_pallas_v7 :1094, v8 structured_matvec_pallas_v8
+# :1227, v9 structured_matvec_pallas_v9 :1410.
 VARIANTS = {"v1": ("structured_matvec_v1", False),
             "v2": ("structured_matvec_v2", False),
             "v3": ("structured_matvec_v3", True),
+            "v4": ("structured_matvec_v4", True),
+            "v5": ("structured_matvec_v5", True),
             "v6": ("structured_matvec", False),
-            "v7": ("structured_matvec_v7", True)}
-# JAX variants with no kernel in the port yet (ROADMAP queue 2)
-UNPORTED = ("v4", "v5", "v8", "v9")
+            "v7": ("structured_matvec_v7", True),
+            "v8": ("structured_matvec_v8", True),
+            "v9": ("structured_matvec_v9", True)}
 F64_VARIANT = "v6"          # the one kernel with a double instantiation
 
 # Launches per (variant, dtype): incremented where a kernel is launched and
@@ -78,19 +86,12 @@ def selected_variant() -> str:
     """The kernel variant ``PCG_TPU_PALLAS_V`` selects (default ``"6"``),
     as the JAX package's ``selected_variant`` (pallas_matvec.py:159-195)
     names it.  ``Solver`` reads it once, at construction: build a new
-    Solver to switch.  A value the JAX package refuses raises ValueError;
-    a JAX variant the port has no kernel for yet raises
-    NotImplementedError."""
+    Solver to switch.  A value the JAX package refuses raises ValueError."""
     v = os.environ.get("PCG_TPU_PALLAS_V", "6")
     if v not in tuple("123456789"):
         raise ValueError(
             f"PCG_TPU_PALLAS_V must be 1|2|3|4|5|6|7|8|9, got {v!r}")
-    name = f"v{v}"
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"PCG_TPU_PALLAS_V={v}: the {name} kernel is not ported yet "
-            f"(ROADMAP queue 2); ported: {', '.join(sorted(VARIANTS))}")
-    return name
+    return f"v{v}"
 
 
 def pallas_planes() -> int:
@@ -202,7 +203,8 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
     """y = K_slab . x per part.  CUDA tensors launch the kernel of
     ``variant`` in float32, v6's double kernel in float64 (or raise); CPU
     tensors run :func:`structured_matvec_plain`.  ``planes`` is the chunk
-    of the chunked variants (v3, v7); None reads :func:`pallas_planes`."""
+    of the chunked variants (v3, v4, v5, v7, v8, v9); None reads
+    :func:`pallas_planes`."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got "
                          f"{variant!r}")

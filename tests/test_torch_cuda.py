@@ -54,8 +54,9 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol):
         assert (y - y_plain).abs().max() <= tol * y_plain.abs().max()
 
 
-NEW_VARIANTS = [("v1", None), ("v2", None), ("v3", 8), ("v3", 16),
-                ("v7", 8), ("v7", 16)]
+NEW_VARIANTS = [("v1", None), ("v2", None)] + [
+    (v, planes) for v in ("v3", "v4", "v5", "v7", "v8", "v9")
+    for planes in (8, 16)]
 
 
 @pytest.mark.cuda
@@ -92,7 +93,7 @@ def test_variant_kernel_matches_plain_on_card(cuda_device, variant, planes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("value", ["1", "2", "3", "7"])
+@pytest.mark.parametrize("value", ["1", "2", "3", "4", "5", "7", "8", "9"])
 def test_solver_routes_launches_to_its_variant(cuda_device, monkeypatch,
                                                value):
     """A Solver built under PCG_TPU_PALLAS_V=k sends every float32 matvec
@@ -112,6 +113,22 @@ def test_solver_routes_launches_to_its_variant(cuda_device, monkeypatch,
     assert smv.LAUNCHES[("v6", "float64")] >= 2
     assert all(n == 0 for (v, d), n in smv.LAUNCHES.items()
                if d == "float32" and v != variant)
+
+
+@pytest.mark.cuda
+def test_chunk_too_large_for_shared_memory_is_refused(cuda_device):
+    """v9 stages two slots of C + 1 float4 node planes of its tile: at 32
+    planes that is above the 227 KB a block can have, so the launch is
+    refused with the CUDA error named, and nothing is counted."""
+    x = torch.zeros((1, 3, 41, 5, 4), dtype=torch.float32,
+                    device=cuda_device)
+    ck = torch.ones((1, 40, 4, 3), dtype=torch.float32, device=cuda_device)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
+                         dtype=torch.float32, device=cuda_device)
+    before = dict(smv.LAUNCHES)
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        smv.structured_matvec(x, ck, Ke, variant="v9", planes=32)
+    assert smv.LAUNCHES == before
 
 
 @pytest.mark.cuda

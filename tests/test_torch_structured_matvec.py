@@ -84,13 +84,12 @@ def test_plain_matches_pallas_v6_interpret(dims, planes):
 
 
 # the TPU kernels each ported variant replaces, with the chunk sizes that
-# apply (v1 and v2 march one plane a step and take none)
+# apply (v1 and v2 march one plane a step and take none; v6 has its own
+# test above)
 PORTED_PALLAS = [("v1", jax_pallas.structured_matvec_pallas, None),
-                 ("v2", jax_pallas.structured_matvec_pallas_v2, None),
-                 ("v3", jax_pallas.structured_matvec_pallas_v3, 8),
-                 ("v3", jax_pallas.structured_matvec_pallas_v3, 16),
-                 ("v7", jax_pallas.structured_matvec_pallas_v7, 8),
-                 ("v7", jax_pallas.structured_matvec_pallas_v7, 16)]
+                 ("v2", jax_pallas.structured_matvec_pallas_v2, None)] + [
+    (v, getattr(jax_pallas, f"structured_matvec_pallas_{v}"), planes)
+    for v in ("v3", "v4", "v5", "v7", "v8", "v9") for planes in (8, 16)]
 
 
 @pytest.mark.parametrize("variant,fn,planes", PORTED_PALLAS,
@@ -99,10 +98,10 @@ PORTED_PALLAS = [("v1", jax_pallas.structured_matvec_pallas, None),
                          + [((4, 3, 3), True)])
 def test_plain_matches_ported_pallas_variants_interpret(variant, fn, planes,
                                                         dims, masked):
-    """The plain version (every ported kernel's reference) against the TPU
-    kernels v1, v2, v3 and v7 through the Pallas interpreter, on the
-    shapes of tests/test_pallas.py; ``masked`` zeroes the far-z cells, as
-    its isolation case does."""
+    """The plain version (every kernel's reference) against the TPU
+    kernels v1-v5 and v7-v9 through the Pallas interpreter, on the shapes
+    of tests/test_pallas.py; ``masked`` zeroes the far-z cells, as its
+    isolation case does."""
     nx, ny, nz = dims
     (_jops, jd), (_tops, td) = both(dims, dtype="float32")
     ck = np.asarray(jd["blocks"][0]["ck"]).copy()
@@ -233,6 +232,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         smv.structured_matvec(xg, blk["ck"], blk["Ke"][:8])
     with pytest.raises(TypeError, match="dtype"):
         smv.structured_matvec(xg.half(), blk["ck"].half(), blk["Ke"].half())
-    for bad in ("v4", "v9", "6", "xla"):
+    for bad in ("v0", "v10", "6", "xla"):
         with pytest.raises(ValueError, match="variant must be"):
             smv.structured_matvec(xg, blk["ck"], blk["Ke"], variant=bad)

@@ -24,8 +24,7 @@ from pcg_mpi_solver_tpu_torch.models import make_cube_model
 from pcg_mpi_solver_tpu_torch.ops import structured_matvec as smv
 from pcg_mpi_solver_tpu_torch.solver import Solver
 
-PORTED = ["1", "2", "3", "6", "7"]
-UNPORTED = ["4", "5", "8", "9"]
+PORTED = list("123456789")
 
 
 @pytest.mark.parametrize("value", [None] + PORTED)
@@ -47,16 +46,20 @@ def test_selected_variant_refuses_what_jax_refuses(monkeypatch, value):
         smv.selected_variant()
 
 
-@pytest.mark.parametrize("value", UNPORTED)
-def test_unported_variants_raise_not_implemented(monkeypatch, value):
-    """A variant JAX has and the port has no kernel for yet raises (no
-    fallback to another kernel), at Solver construction too."""
+@pytest.mark.parametrize("value", PORTED)
+def test_every_jax_variant_has_a_kernel(monkeypatch, value):
+    """Each variant the JAX selector names has a kernel in the port, and a
+    Solver built under it carries it.  The port's launch takes
+    pallas_planes() where the JAX wrapper reads it (``_planes_env``), except
+    v6: the JAX v6 uses the chunk only to size its VMEM slabs, and the
+    port's v6 is one thread per node with no chunk."""
     monkeypatch.setenv("PCG_TPU_PALLAS_V", value)
-    assert jax_pallas.selected_variant()[0] == f"v{value}"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        smv.selected_variant()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        Solver(make_cube_model(4, 3, 3), RunConfig(), device="cpu")
+    name, fn = jax_pallas.selected_variant()
+    assert name in smv.VARIANTS
+    reads_planes = fn.__qualname__.startswith("_planes_env.")
+    assert smv.VARIANTS[name][1] == (reads_planes and name != "v6")
+    s = Solver(make_cube_model(4, 3, 3), RunConfig(), device="cpu")
+    assert s.kernel_variant == name
 
 
 @pytest.mark.parametrize("value", [None, "8", "16", "64", "0"])
@@ -98,7 +101,7 @@ def test_solver_resolves_variant_once(monkeypatch, value, dtype):
         assert (s.ops.variant, s.ops.planes) == ("v6", None)
 
 
-@pytest.mark.parametrize("value", ["1", "2", "3", "7"])
+@pytest.mark.parametrize("value", ["1", "2", "3", "4", "5", "7", "8", "9"])
 def test_mixed_solve_under_variant_matches_jax_interpret(monkeypatch, value):
     """A Dirichlet cube solved in mixed precision under the same
     PCG_TPU_PALLAS_V: the JAX Solver through that variant's Pallas kernel
