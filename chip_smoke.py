@@ -16,8 +16,10 @@ Phases (any failed check raises, so the script exits non-zero):
                 float64 kernel, on ragged shapes, two parts, and every
                 slab shape phases 4 and 5 give it in that dtype, two
                 launches bitwise equal, with CUDA-event times and the
-                card's bound; the chunked variants (v3, v4, v5, v7, v8,
-                v9) also at 16 planes a chunk;
+                card's bound (bytes, CUDA-core and tensor-core terms); the
+                chunked variants (v3, v4, v5, v7, v8, v9) also at 16
+                planes a chunk; v6 in both dtypes also on a single cell
+                and on shapes that cross its tile and segment edges;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
@@ -44,8 +46,10 @@ import sys
 import time
 
 # NVIDIA data-sheet rates of the H100 SXM (dense, no sparsity, at the full
-# power limit): memory bytes/s, float32 and float64 FLOP/s on the CUDA cores.
-H100_SXM = ("H100 80GB HBM3", 3.35e12, 67e12, 34e12)
+# power limit): memory bytes/s; FLOP/s of float32 and float64 on the CUDA
+# cores, of TF32 and float64 on the tensor cores.
+H100_SXM = dict(name="H100 80GB HBM3", bw=3.35e12, fp32=67e12, fp64=34e12,
+                tf32_tc=495e12, fp64_tc=67e12)
 
 FLAGSHIP = dict(nx=150, E=30e9, nu=0.2, load="traction", load_value=1e6,
                 heterogeneous=True)
@@ -56,6 +60,10 @@ CARD_VS_CPU_CELLS = (12, 6, 5)      # phase 5's card-against-CPU solves
 JAX_FLAGSHIP_ITERS = 3334
 
 KERNEL_TOL = {"float32": 2e-5, "float64": 1e-12}   # x max|y_plain|
+# phase 3 also holds v6 (both dtypes) at these: a single cell, and shapes
+# whose ny+1 and nz+1 cross several of its (y, z) tiles without filling
+# the last and whose nx+1 spans several x segments, one of them two parts
+V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
 # The float32 kernels, v6 (the default) first, and the JAX wrapper each
 # replaces; float64 runs v6's double kernel under every variant.
 F32_VARIANTS = ("v6", "v1", "v2", "v3", "v4", "v5", "v7", "v8", "v9")
@@ -76,9 +84,9 @@ def say(msg: str) -> None:
 
 
 def card_rates(name: str):
-    if H100_SXM[0] not in name:
+    if H100_SXM["name"] not in name:
         raise RuntimeError(f"no data-sheet rates for card {name!r}; the "
-                           f"bounds are written for {H100_SXM[0]}")
+                           f"bounds are written for {H100_SXM['name']}")
     return H100_SXM
 
 
@@ -110,17 +118,29 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def matvec_bound_ms(shape, itemsize: int, bw: float, flops: float):
+def matvec_bound_ms(shape, itemsize: int, rates: dict):
     """Least time for one slab matvec on this card: each input read once
-    (x, ck, Ke), each output written once (y), against 24*24 FMAs per
-    cell at the CUDA-core rate.  Returns (ms, "bytes"|"operations")."""
+    (x, ck, Ke) and each output written once (y), against 24*24 FMAs per
+    cell by the fastest arithmetic that keeps the dtype's accuracy - float
+    on the CUDA cores or as 3xTF32 on the tensor cores (three TF32
+    products a product), double on the FP64 tensor cores.  Returns (ms,
+    "bytes"|"operations", {term: ms}) with the bytes, CUDA-core and
+    tensor-core terms."""
     P, nx, ny, nz = shape
     nodes = P * (nx + 1) * (ny + 1) * (nz + 1)
     cells = P * nx * ny * nz
     nbytes = itemsize * (2 * 3 * nodes + cells + 24 * 24)
     nops = 2 * 24 * 24 * cells
-    t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    if itemsize == 4:
+        core, tensor = nops / rates["fp32"], 3 * nops / rates["tf32_tc"]
+    else:
+        core, tensor = nops / rates["fp64"], nops / rates["fp64_tc"]
+    terms = {"bytes": nbytes / rates["bw"] * 1e3,
+             "cuda_cores": core * 1e3, "tensor_cores": tensor * 1e3}
+    t_ops = min(terms["cuda_cores"], terms["tensor_cores"])
+    if t_ops >= terms["bytes"]:
+        return t_ops, "operations", terms
+    return terms["bytes"], "bytes", terms
 
 
 def kernel_shapes():
@@ -130,7 +150,7 @@ def kernel_shapes():
     phase 5's card-against-CPU cube in both, as its direct solve runs
     float64 and its mixed solve both; phase 5's direct solve in float64)."""
     n = FLAGSHIP["nx"]
-    ragged = [(1, 7, 3, 5), (2, 33, 17, 9)]
+    ragged = list(V6_EDGE_SHAPES) + [(1, 7, 3, 5), (2, 33, 17, 9)]
     small, flag = (1, *CARD_VS_CPU_CELLS), (1, n, n, n)
     return {"float32": ragged + [small, flag],
             "float64": ragged + [small, (1, *DIRECT_F64_CELLS), flag]}
@@ -141,19 +161,29 @@ def phase_kernels(torch, np, rates):
     kernel_shapes(); returns the flagship record per (variant, dtype)."""
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        VARIANTS, structured_matvec, structured_matvec_plain)
+        VARIANTS, structured_matvec, structured_matvec_plain, v6_geometry)
 
-    _label, bw, f32_rate, f64_rate = rates
     rng = np.random.default_rng(2024)
     Ke = unit_element_library(FLAGSHIP["nu"])["Ke"]
     shapes = kernel_shapes()
     out = {}
-    for dtype, rate in ((torch.float32, f32_rate), (torch.float64, f64_rate)):
+    for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
         tol = KERNEL_TOL[name]
-        variants = F32_VARIANTS if dtype == torch.float32 else ("v6",)
         for shape in shapes[name]:
             P, nx, ny, nz = shape
+            geo = v6_geometry(P, nx, ny, nz, dtype,
+                              sms=torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+            if shape in V6_EDGE_SHAPES:
+                variants = ("v6",)
+                if shape != (1, 1, 1, 1) and min(geo.n_ty, geo.n_tz,
+                                                 geo.n_seg) < 2:
+                    raise AssertionError(f"{shape} {name} crosses no v6 "
+                                         f"tile or segment edge: {geo}")
+            else:
+                variants = F32_VARIANTS if dtype == torch.float32 \
+                    else ("v6",)
             x = torch.as_tensor(rng.standard_normal((P, 3, nx + 1, ny + 1,
                                                      nz + 1)),
                                 dtype=dtype, device="cuda")
@@ -164,11 +194,17 @@ def phase_kernels(torch, np, rates):
             scale = y_plain.abs().max().item()
             plain_ms = time_ms(torch,
                                lambda: structured_matvec_plain(x, ck, K))
-            bound_ms, bound_by = matvec_bound_ms(
-                shape, x.element_size(), bw, rate)
+            bound_ms, bound_by, terms = matvec_bound_ms(
+                shape, x.element_size(), rates)
             say(f"kernel {name} P={P} cells=({nx},{ny},{nz}): plain "
                 f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.4g} us "
-                f"({bound_by})")
+                f"({bound_by}; bytes {terms['bytes'] * 1e3:.4g} us, CUDA "
+                f"cores {terms['cuda_cores'] * 1e3:.4g} us, tensor cores "
+                f"{terms['tensor_cores'] * 1e3:.4g} us); v6 tiles "
+                f"{geo.n_ty}x{geo.n_tz} of {geo.tile_nodes[0]}x"
+                f"{geo.tile_nodes[1]} nodes, {geo.n_seg} segments of "
+                f"{geo.seg_len} planes, {geo.blocks} blocks, "
+                f"{geo.smem_bytes} B shared")
             plane_runs = [(v, None) for v in variants]
             if shape == RAGGED_PLANES[0] and dtype == torch.float32:
                 plane_runs += [(v, RAGGED_PLANES[1]) for v in variants
@@ -421,9 +457,11 @@ def main() -> int:
     say(f"device: {kind} ({torch.cuda.device_count()} visible); "
         f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
-    say(f"device: H100 SXM data-sheet rates: {rates[1] / 1e12:g} TB/s,"
-        f" {rates[2] / 1e12:g} TFLOP/s fp32, {rates[3] / 1e12:g} TFLOP/s "
-        f"fp64 (CUDA cores)")
+    say(f"device: H100 SXM data-sheet rates: {rates['bw'] / 1e12:g} "
+        f"TB/s; CUDA cores {rates['fp32'] / 1e12:g} TFLOP/s fp32, "
+        f"{rates['fp64'] / 1e12:g} fp64; tensor cores "
+        f"{rates['tf32_tc'] / 1e12:g} TFLOP/s tf32, "
+        f"{rates['fp64_tc'] / 1e12:g} fp64")
 
     # 2. build
     t0 = time.perf_counter()

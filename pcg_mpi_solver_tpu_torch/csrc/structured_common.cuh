@@ -80,6 +80,25 @@ __device__ __forceinline__ void copy4(float* dst, const float* src,
                : "memory");
 }
 
+// cp.async of one double into shared memory; src_ok false fills the
+// destination with 0 (src must still be a valid address).
+__device__ __forceinline__ void copy8(double* dst, const double* src,
+                                      bool src_ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_ok ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool src_ok) {
+  copy4(dst, src, src_ok);
+}
+__device__ __forceinline__ void copy_async(double* dst, const double* src,
+                                           bool src_ok) {
+  copy8(dst, src, src_ok);
+}
+
 // Closes the group of cp.asyncs issued since the last commit.
 __device__ __forceinline__ void commit_copies() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -91,6 +110,20 @@ __device__ __forceinline__ void commit_copies() {
 template <int Pending>
 __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// wait_copies for a pending count known only at run time; above 6 it
+// waits for more than asked, which is only slower.
+__device__ __forceinline__ void wait_copies(int pending) {
+  switch (pending) {
+    case 0: wait_copies<0>(); break;
+    case 1: wait_copies<1>(); break;
+    case 2: wait_copies<2>(); break;
+    case 3: wait_copies<3>(); break;
+    case 4: wait_copies<4>(); break;
+    case 5: wait_copies<5>(); break;
+    default: wait_copies<6>(); break;
+  }
 }
 
 }  // namespace smv

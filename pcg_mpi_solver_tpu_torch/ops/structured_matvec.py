@@ -29,6 +29,9 @@ of the JAX package, one slab per part.
   of eight zero-padded translates.  The CPU tests hold it against the JAX
   package and its Pallas kernels, and ``chip_smoke.py`` holds each kernel
   against it on the card.
+- :func:`v6_geometry` is the launch of the v6 kernel: its (y, z) tiles,
+  the x segments that fill the card, the ring depth and the shared memory
+  it needs; the CPU tests check it, the wrapper passes it to the kernel.
 - :func:`selected_variant` and :func:`pallas_planes` read the JAX
   package's knobs, ``PCG_TPU_PALLAS_V`` and ``PCG_TPU_PALLAS_PLANES``, with
   the same defaults and the same refusals, so a setting means the same in
@@ -38,6 +41,8 @@ of the JAX package, one slab per part.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
 from typing import Optional
 
@@ -112,6 +117,101 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+# The v6 kernel's tiles and shared-memory layout, mirrored from
+# csrc/structured_matvec.cu (Layout<T>): a block computes V6_CELLS_Y[dtype]
+# x V6_CELLS_Z cells a plane and owns the nodes inside them, (cells - 1) in
+# each axis; its ring has `stages` slots of one node plane and one ck
+# plane (V6_STAGES by default, chosen by timing at 150^3, PERF.md).
+# V6_BLOCKS_PER_SM is the kernel's __launch_bounds__ minimum.
+V6_CELLS_Y = {torch.float32: 32, torch.float64: 8}
+V6_CELLS_Z = 32
+V6_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 2}
+V6_STAGES = {torch.float32: 3, torch.float64: 4}
+SMEM_LIMIT = 232448         # the 227 KB of shared memory a Hopper block has
+SM_SMEM = 233472            # an SM's 228 KB; each resident block takes 1 KB
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class V6Geometry:
+    """One launch of the v6 kernel: ``n_ty`` x ``n_tz`` (y, z) tiles of
+    ``tile_nodes`` owned nodes, ``n_seg`` x segments of ``seg_len`` node
+    planes (the last one ragged), ``blocks`` in all."""
+    tile_nodes: tuple
+    n_ty: int
+    n_tz: int
+    seg_len: int
+    n_seg: int
+    blocks: int
+    stages: int
+    smem_bytes: int
+
+
+def _pad_to(n: int, rem: int, mod: int) -> int:
+    return n + (rem - n) % mod
+
+
+def v6_smem_bytes(dtype: torch.dtype, stages: int) -> int:
+    """Dynamic shared memory of one v6 block: ``stages`` x (node slot + ck
+    plane) + 24 rows of the scaled cell products (with the kernel's
+    bank-spreading pads) + Ke (float) + the table of a plane's copies (two
+    int32 each)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    cy, words = V6_CELLS_Y[dtype], 128 // item
+    row = _pad_to(V6_CELLS_Z + 1, words // 4, words)
+    slot = _pad_to(3 * (cy + 1) * row, words // 2, words)
+    ck_plane = cy * V6_CELLS_Z
+    f_row = _pad_to(ck_plane, words // 8, words // 2)
+    ke = 24 * 24 if dtype == torch.float32 else 0
+    copies = 3 * (cy + 1) * (V6_CELLS_Z + 1) + ck_plane
+    return item * (stages * (slot + ck_plane) + 24 * f_row + ke) \
+        + 8 * copies
+
+
+@functools.lru_cache(maxsize=256)
+def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
+                stages: Optional[int] = None, sms: int = H100_SMS,
+                check: bool = True) -> V6Geometry:
+    """Launch geometry of the v6 kernel for a (parts, nx, ny, nz) slab.
+
+    The x segment length minimises waves x (seg_len + 3), a wave being the
+    blocks the card holds at once (``sms`` x the blocks an SM holds): the
+    planes of the longest chain of blocks on one SM, each segment's
+    recomputed carry plane and two planes of ring fill included; ties go
+    to fewer segments.  ``stages`` None takes :data:`V6_STAGES`.
+    ``check`` refuses (ValueError) a block whose shared memory is above
+    227 KB; the wrapper passes False, so the kernel library refuses such
+    a launch with the CUDA error named."""
+    stages = V6_STAGES[dtype] if stages is None else stages
+    if stages < 2:
+        raise ValueError(f"stages must be >= 2, got {stages}")
+    cy = V6_CELLS_Y[dtype]
+    tile = (cy - 1, V6_CELLS_Z - 1)
+    n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
+    smem = v6_smem_bytes(dtype, stages)
+    if check and smem > SMEM_LIMIT:
+        raise ValueError(f"v6 at {stages} stages needs {smem} bytes of "
+                         f"shared memory a block, above {SMEM_LIMIT}")
+    per_sm = max(1, min(V6_BLOCKS_PER_SM[dtype], SM_SMEM // (smem + 1024)))
+    nxn, tiles = nx + 1, parts * n_ty * n_tz
+    best = None
+    for n in range(1, nxn + 1):
+        seg_len = -(-nxn // n)
+        n_seg = -(-nxn // seg_len)
+        cost = -(-tiles * n_seg // (sms * per_sm)) * (seg_len + 3)
+        if best is None or cost < best[0]:
+            best = (cost, seg_len, n_seg)
+    _cost, seg_len, n_seg = best
+    return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg,
+                      stages, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
+
+
 def gather_cells(xg: torch.Tensor) -> torch.Tensor:
     """(P, 3, cx+1, cy+1, cz+1) -> (P, 24, cx, cy, cz) via 8 contiguous
     slices, in element-dof order 3*corner + comp."""
@@ -173,16 +273,21 @@ def _library(variant: str) -> ctypes.CDLL:
     lib = load_kernel(name)
     err_fn = getattr(lib, f"{name}_error_string")
     if err_fn.restype is not ctypes.c_char_p:
-        sfxs = ("f32", "f64") if variant == F64_VARIANT else ("f32",)
-        for sfx in sfxs:
+        v6 = variant == F64_VARIANT
+        for sfx in ("f32", "f64") if v6 else ("f32",):
             stage = getattr(lib, f"{name}_stage_{sfx}")
             stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             stage.restype = ctypes.c_int
             fn = getattr(lib, f"{name}_{sfx}")
-            # x, ck, y; P, nx, ny, nz[, planes], device; stream
+            # x, ck, y; P, nx, ny, nz[, planes | seg_len, stages], device;
+            # stream
             fn.argtypes = [ctypes.c_void_p] * 3 \
-                + [ctypes.c_int] * (6 if chunked else 5) + [ctypes.c_void_p]
+                + [ctypes.c_int] * (5 + chunked + 2 * v6) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        if v6:
+            smem = getattr(lib, f"{name}_smem_bytes")
+            smem.argtypes = [ctypes.c_int, ctypes.c_int]
+            smem.restype = ctypes.c_longlong
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
     return lib
@@ -199,23 +304,28 @@ def _raise_on(lib: ctypes.CDLL, name: str, err: int, what: str,
 
 def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
                       variant: str = "v6",
-                      planes: Optional[int] = None) -> torch.Tensor:
+                      planes: Optional[int] = None,
+                      stages: Optional[int] = None) -> torch.Tensor:
     """y = K_slab . x per part.  CUDA tensors launch the kernel of
     ``variant`` in float32, v6's double kernel in float64 (or raise); CPU
     tensors run :func:`structured_matvec_plain`.  ``planes`` is the chunk
     of the chunked variants (v3, v4, v5, v7, v8, v9); None reads
-    :func:`pallas_planes`."""
+    :func:`pallas_planes`.  ``stages`` is the ring depth of the v6 kernel
+    (:func:`v6_geometry`); None takes the dtype's :data:`V6_STAGES`."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got "
                          f"{variant!r}")
     _check(xg, ck, Ke)
+    if xg.dtype == torch.float64:
+        variant = F64_VARIANT
+    if stages is not None and variant != F64_VARIANT:
+        raise ValueError(f"stages applies to the v6 kernel only, not "
+                         f"{variant}")
     if xg.device.type == "cpu":
         return structured_matvec_plain(xg, ck, Ke)
     if xg.device.type != "cuda":
         raise ValueError(f"structured_matvec runs on cuda or cpu tensors, "
                          f"got {xg.device}")
-    if xg.dtype == torch.float64:
-        variant = F64_VARIANT
     name, chunked = VARIANTS[variant]
     lib = _library(variant)
     sfx = _SUFFIX[xg.dtype]
@@ -229,8 +339,13 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
         _STAGED[key] = (Ke, Ke._version)
     y = torch.empty_like(xg)
     P, _, nxn, nyn, nzn = xg.shape
-    extra = (pallas_planes() if planes is None else planes,) if chunked \
-        else ()
+    if variant == F64_VARIANT:
+        geom = v6_geometry(P, nxn - 1, nyn - 1, nzn - 1, xg.dtype, stages,
+                           _sm_count(dev), check=False)
+        extra = (geom.seg_len, geom.stages)
+    else:
+        extra = (pallas_planes() if planes is None else planes,) \
+            if chunked else ()
     err = getattr(lib, f"{name}_{sfx}")(
         xg.data_ptr(), ck.data_ptr(), y.data_ptr(),
         P, nxn - 1, nyn - 1, nzn - 1, *extra, dev, stream)

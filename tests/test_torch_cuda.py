@@ -131,6 +131,73 @@ def test_chunk_too_large_for_shared_memory_is_refused(cuda_device):
     assert smv.LAUNCHES == before
 
 
+V6_EDGE = [(1, (1, 1, 1)), (2, (40, 37, 70)), (1, (20, 70, 40))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,cells", V6_EDGE,
+                         ids=["x".join(map(str, c)) for _p, c in V6_EDGE])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)],
+                         ids=["float32", "float64"])
+def test_v6_kernel_across_tile_and_segment_edges(cuda_device, dtype, tol, P,
+                                                 cells):
+    """v6 on a single cell and on shapes whose ny+1 and nz+1 cross several
+    of its (y, z) tiles without filling the last one and whose nx+1 spans
+    several x segments (two parts in one): within tol * max|y| of the plain
+    version, two launches bitwise equal, each launch counted once."""
+    geo = smv.v6_geometry(P, *cells, dtype)
+    if cells != (1, 1, 1):
+        assert min(geo.n_ty, geo.n_tz, geo.n_seg) >= 2
+        assert (cells[1] + 1) % geo.tile_nodes[0] \
+            and (cells[2] + 1) % geo.tile_nodes[1]
+    rng = np.random.default_rng(3)
+    nx, ny, nz = cells
+    x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
+                        dtype=dtype, device=cuda_device)
+    ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)), dtype=dtype,
+                         device=cuda_device)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"], dtype=dtype,
+                         device=cuda_device)
+    name = str(dtype).removeprefix("torch.")
+    before = smv.LAUNCHES[("v6", name)]
+    y = smv.structured_matvec(x, ck, Ke)
+    y2 = smv.structured_matvec(x, ck, Ke)
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES[("v6", name)] == before + 2
+    y_plain = smv.structured_matvec_plain(x, ck, Ke)
+    assert (y - y_plain).abs().max() <= tol * y_plain.abs().max()
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_v6_ring_too_deep_for_shared_memory_is_refused(cuda_device, dtype):
+    """A v6 ring of 40 stages needs more than the 227 KB a block can have:
+    the kernel library refuses the launch with the CUDA error named, and
+    nothing is counted."""
+    x = torch.zeros((1, 3, 6, 5, 4), dtype=dtype, device=cuda_device)
+    ck = torch.ones((1, 5, 4, 3), dtype=dtype, device=cuda_device)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"], dtype=dtype,
+                         device=cuda_device)
+    assert smv.v6_smem_bytes(dtype, 40) > smv.SMEM_LIMIT
+    before = dict(smv.LAUNCHES)
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        smv.structured_matvec(x, ck, Ke, stages=40)
+    assert smv.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_v6_shared_memory_matches_python_mirror(cuda_device):
+    """The kernel library's shared-memory size per launch equals
+    v6_smem_bytes, the Python mirror the launch geometry is tested on."""
+    lib = smv._library("v6")
+    for dtype, item in ((torch.float32, 4), (torch.float64, 8)):
+        for stages in range(2, 7):
+            assert lib.structured_matvec_smem_bytes(item, stages) \
+                == smv.v6_smem_bytes(dtype, stages)
+
+
 @pytest.mark.cuda
 def test_kernel_reads_the_ke_it_is_given(cuda_device):
     """Ke is staged into the constant bank only when it changes: an

@@ -83,6 +83,137 @@ def test_plain_matches_pallas_v6_interpret(dims, planes):
     np.testing.assert_allclose(y, y_ref, **F32)
 
 
+def tf32(v: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does."""
+    return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def v6_float_arithmetic(xg, ck, Ke, arithmetic):
+    """The float32 cell product of the v6 kernel, emulated: ``"ffma"`` (the
+    kernel's: float32 products summed in float32), ``"3xtf32"`` (u and Ke
+    split into hi = tf32(v) and lo = tf32(v - hi); lo.hi + hi.lo, then
+    hi.hi; float32 sums) or ``"1xtf32"`` (hi.hi alone).  ck scales the
+    product, as in the kernel; the placement sums in float32."""
+    u = smv.gather_cells(xg)
+
+    def prod(k, v):
+        return torch.einsum("de,pexyz->pdxyz", k, v)
+
+    if arithmetic == "ffma":
+        f = prod(Ke, u)
+    else:
+        uh, kh = tf32(u), tf32(Ke)
+        f = prod(kh, uh)
+        if arithmetic == "3xtf32":
+            f = (prod(kh, tf32(u - uh)) + prod(tf32(Ke - kh), uh)) + f
+    return smv.scatter_cells(ck[:, None] * f)
+
+
+@pytest.mark.parametrize("reference", ["jax_f64", "pallas_v6"])
+@pytest.mark.parametrize("arithmetic", ["ffma", "3xtf32"])
+@pytest.mark.parametrize("dims", DIMS)
+def test_v6_float_arithmetic_within_kernel_tolerance(dims, arithmetic,
+                                                     reference):
+    """The float32 arithmetic the v6 kernel ships (FFMA) and the 3xTF32
+    tensor-core product measured before it both stay within the card's
+    kernel tolerance, 2e-5 x max|y|, of the JAX package's matvec_local in
+    float64 and of its TPU kernel (Pallas interpreter), on ragged shapes."""
+    nx, ny, nz = dims
+    (_j, jd32), (_t, td) = both(dims, dtype="float32")
+    tb = td["blocks"][0]
+    xg = np.random.default_rng(3).normal(
+        size=(3, nx + 1, ny + 1, nz + 1)).astype(np.float32)
+    y = v6_float_arithmetic(torch.from_numpy(xg)[None], tb["ck"], tb["Ke"],
+                            arithmetic)[0].numpy()
+    if reference == "jax_f64":
+        (jops, jd), _ = both(dims)
+        y_ref = np.asarray(jops.matvec_local(
+            jd, jnp.asarray(xg.reshape(1, -1), jnp.float64))).reshape(
+                xg.shape)
+    else:
+        blk = jd32["blocks"][0]
+        y_ref = np.asarray(structured_matvec_pallas_v6(
+            jnp.asarray(xg), blk["ck"][0], blk["Ke"], interpret=True))
+    assert np.abs(y - y_ref).max() <= 2e-5 * np.abs(y_ref).max()
+
+
+@pytest.mark.parametrize("dims", DIMS)
+def test_v6_1xtf32_misses_kernel_tolerance(dims):
+    """A single TF32 product (10 mantissa bits) misses the 2e-5 x max|y|
+    kernel tolerance against the float64 matvec, which is why the
+    tensor-core float product was 3xTF32 and not 1xTF32."""
+    nx, ny, nz = dims
+    (jops, jd), (_t, td) = both(dims)
+    tb = td["blocks"][0]
+    xg = np.random.default_rng(3).normal(
+        size=(3, nx + 1, ny + 1, nz + 1)).astype(np.float32)
+    y = v6_float_arithmetic(torch.from_numpy(xg)[None], tb["ck"].float(),
+                            tb["Ke"].float(), "1xtf32")[0].numpy()
+    y_ref = np.asarray(jops.matvec_local(
+        jd, jnp.asarray(xg.reshape(1, -1), jnp.float64))).reshape(xg.shape)
+    assert np.abs(y - y_ref).max() > 2e-5 * np.abs(y_ref).max()
+
+
+GEOMETRY_SHAPES = [(1, 1, 1, 1), (1, 7, 3, 5), (2, 33, 17, 9),
+                   (2, 40, 37, 70), (1, 20, 70, 40), (1, 150, 150, 150)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v6_geometry_covers_every_node_once(shape, dtype):
+    """The v6 launch geometry: the (y, z) tiles own every node exactly
+    once, the x segments cover every node plane exactly once, and the
+    blocks are parts x tiles x segments."""
+    P, nx, ny, nz = shape
+    g = smv.v6_geometry(P, nx, ny, nz, dtype)
+    ty, tz = g.tile_nodes
+    assert (ty + 1, tz + 1) == (smv.V6_CELLS_Y[dtype], smv.V6_CELLS_Z)
+    for n_nodes, tile, n_tiles in ((ny + 1, ty, g.n_ty),
+                                   (nz + 1, tz, g.n_tz),
+                                   (nx + 1, g.seg_len, g.n_seg)):
+        owned = np.zeros(n_nodes, int)
+        for t in range(n_tiles):
+            owned[t * tile:(t + 1) * tile] += 1
+        assert (owned == 1).all()
+        assert (n_tiles - 1) * tile < n_nodes    # no tile owns nothing
+    assert g.blocks == P * g.n_ty * g.n_tz * g.n_seg
+    assert g.stages == smv.V6_STAGES[dtype]
+
+
+@pytest.mark.parametrize("dtype,item,default_bytes",
+                         [(torch.float32, 4, 195416),
+                          (torch.float64, 8, 98392)])
+def test_v6_shared_memory_matches_its_stages(dtype, item, default_bytes):
+    """Each ring stage adds one node slot and one ck plane; the defaults
+    fit the 227 KB of a block; a ring that does not fit is refused."""
+    cy = smv.V6_CELLS_Y[dtype]
+    words = 128 // item
+    row = smv._pad_to(smv.V6_CELLS_Z + 1, words // 4, words)
+    slot = smv._pad_to(3 * (cy + 1) * row, words // 2, words)
+    stage = item * (slot + cy * smv.V6_CELLS_Z)
+    for s in range(2, 8):
+        assert smv.v6_smem_bytes(dtype, s + 1) \
+            - smv.v6_smem_bytes(dtype, s) == stage
+    g = smv.v6_geometry(1, 150, 150, 150, dtype)
+    assert g.smem_bytes == default_bytes <= smv.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        smv.v6_geometry(1, 150, 150, 150, dtype, stages=40)
+    with pytest.raises(ValueError, match="stages"):
+        smv.v6_geometry(1, 150, 150, 150, dtype, stages=1)
+    unchecked = smv.v6_geometry(1, 150, 150, 150, dtype, stages=40,
+                                check=False)
+    assert unchecked.smem_bytes > smv.SMEM_LIMIT
+
+
+def test_v6_geometry_flagship_fills_the_card():
+    """At the flagship slab the x segments give nearly every SM of an H100
+    SXM a block, where the (y, z) tiles alone do not."""
+    for dtype in (torch.float32, torch.float64):
+        g = smv.v6_geometry(1, 150, 150, 150, dtype)
+        assert g.n_ty * g.n_tz < 0.9 * smv.H100_SMS < g.blocks
+
+
 # the TPU kernels each ported variant replaces, with the chunk sizes that
 # apply (v1 and v2 march one plane a step and take none; v6 has its own
 # test above)
