@@ -161,7 +161,8 @@ def phase_kernels(torch, np, rates):
     kernel_shapes(); returns the flagship record per (variant, dtype)."""
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        VARIANTS, structured_matvec, structured_matvec_plain, v6_geometry)
+        VARIANTS, _library, structured_matvec, structured_matvec_plain,
+        v6_geometry)
 
     rng = np.random.default_rng(2024)
     Ke = unit_element_library(FLAGSHIP["nu"])["Ke"]
@@ -196,6 +197,8 @@ def phase_kernels(torch, np, rates):
                                lambda: structured_matvec_plain(x, ck, K))
             bound_ms, bound_by, terms = matvec_bound_ms(
                 shape, x.element_size(), rates)
+            smem = _library("v6").structured_matvec_smem_bytes(
+                x.element_size())
             say(f"kernel {name} P={P} cells=({nx},{ny},{nz}): plain "
                 f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.4g} us "
                 f"({bound_by}; bytes {terms['bytes'] * 1e3:.4g} us, CUDA "
@@ -203,8 +206,8 @@ def phase_kernels(torch, np, rates):
                 f"{terms['tensor_cores'] * 1e3:.4g} us); v6 tiles "
                 f"{geo.n_ty}x{geo.n_tz} of {geo.tile_nodes[0]}x"
                 f"{geo.tile_nodes[1]} nodes, {geo.n_seg} segments of "
-                f"{geo.seg_len} planes, {geo.blocks} blocks, "
-                f"{geo.smem_bytes} B shared")
+                f"{geo.seg_len} planes, {geo.blocks} blocks, {smem} B "
+                f"shared")
             plane_runs = [(v, None) for v in variants]
             if shape == RAGGED_PLANES[0] and dtype == torch.float32:
                 plane_runs += [(v, RAGGED_PLANES[1]) for v in variants

@@ -112,20 +112,6 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
-// wait_copies for a pending count known only at run time; above 6 it
-// waits for more than asked, which is only slower.
-__device__ __forceinline__ void wait_copies(int pending) {
-  switch (pending) {
-    case 0: wait_copies<0>(); break;
-    case 1: wait_copies<1>(); break;
-    case 2: wait_copies<2>(); break;
-    case 3: wait_copies<3>(); break;
-    case 4: wait_copies<4>(); break;
-    case 5: wait_copies<5>(); break;
-    default: wait_copies<6>(); break;
-  }
-}
-
 }  // namespace smv
 
 // The C error-string entry point of one kernel library.

@@ -34,15 +34,18 @@
 //     threads, two blocks an SM (1.25x).  The dx = 1 half of each cell
 //     plane's product is the carry into the next node plane, kept in
 //     registers (the TPU kernel's acc scratch).  The x segments fill the
-//     card (their length is chosen by the wrapper,
-//     ops/structured_matvec.py::v6_geometry); each first recomputes the
-//     cell plane before it for its carry.  No atomics and a fixed summation
-//     order: two launches give the same bits.
+//     card (the wrapper, ops/structured_matvec.py::v6_geometry, chooses
+//     their length and passes the tile and segment counts to the entry
+//     point); each first recomputes the cell plane before it for its
+//     carry.  No atomics and a fixed summation order: two launches give
+//     the same bits.
 //   * Node planes (3 components, (kCy+1) x 33 nodes) and ck planes (kCy x 32
-//     cells) go into a ring of `stages` slots in shared memory by cp.async,
-//     stages - 2 planes ahead of the one computed.  A table built when the
-//     block starts holds each copy's source offset within a plane and its
-//     destination, so a copy costs a table load, an add and the cp.async.
+//     cells) go into a ring of kStages slots in shared memory by cp.async,
+//     kStages - 2 planes ahead of the one computed (float 3, double 4:
+//     the depths chosen by timing at 150^3, PERF.md, Findings).  A table
+//     built when the block starts holds each copy's source offset within a
+//     plane and its destination, so a copy costs a table load, an add and
+//     the cp.async.
 //     Off-grid nodes and cells are zero-filled: a cell off the grid has ck
 //     = 0, so its product vanishes and no compute step checks a bound.  The
 //     first kernel made 81 bounds-checked x loads and 8 ck loads per node
@@ -63,9 +66,9 @@
 //     - float: unrolled FFMAs, two cells a thread.  3xTF32 on the tensor
 //       cores (hi = tf32(v), lo = tf32(v - hi), lo.hi + hi.lo then hi.hi in
 //       a float accumulator; 1xTF32's 10 mantissa bits miss the 2e-5 x
-//       max|y| tolerance) was built first and measured on the card
-//       (tools/v6_3xtf32_product.cuh): within the tolerance and 4 %
-//       faster, but its larger round-off moved the flagship solve's second
+//       max|y| tolerance) was built first and measured on the card:
+//       within the tolerance and 4 % faster, but its larger round-off
+//       moved the flagship solve's second
 //       stagnation exit from 1568 to 1349 iterations, 3112 in all, 6.7 %
 //       under the JAX package's 3334 (PERF.md, Findings).
 //     The first kernel's ceiling was the CUDA cores' 58 us; its index and
@@ -79,11 +82,13 @@
 //     and starts the next plane's carry from its 4 dx = 1 entries.  Each
 //     output plane is written once, 31 consecutive z nodes per warp.
 //   * Shared-memory strides are padded so the double's fragment loads and
-//     stores hit 16 distinct 8-byte banks per half warp (with an even
-//     `stages`); the float's loads and stores are 32 consecutive values.
-// Shared memory: stages x (node slot + ck plane) + 24 rows of F + Ke
-// (float) + the copy table: 195,416 bytes (float, 3 stages) and 98,392
-// (double, 4 stages).  The launch is refused above 227 KB.
+//     stores hit 16 distinct 8-byte banks per half warp (its ring depth is
+//     even); the float's loads and stores are 32 consecutive values.
+// Shared memory: kStages x (node slot + ck plane) + 24 rows of F + Ke
+// (float) + the copy table: 195,416 bytes (float) and 98,392 (double),
+// fixed at compile time and held below a block's 227 KB there.  This file
+// owns the layout; the wrapper knows only the tile shape and the blocks
+// an SM holds.
 //
 // Ke is staged into the constant bank by its own entry point, once per Ke:
 // the wrapper (ops/structured_matvec.py) restages only when it is handed
@@ -114,9 +119,19 @@ __host__ __device__ constexpr int pad_to(int n, int rem, int mod) {
   return n + ((rem - n % mod) % mod + mod) % mod;
 }
 
-// The tile and shared-memory layout of one dtype (mirrored by
-// ops/structured_matvec.py::v6_smem_bytes).  kWords values of T fill one
-// pass of the 32 four-byte banks; the pads serve the double's fragments.
+// Ring slots per dtype.  tools/v6_kernel_compare.py --sweep builds the
+// kernel at other depths to time them against these.
+#ifndef V6_STAGES_F32
+#define V6_STAGES_F32 3
+#endif
+#ifndef V6_STAGES_F64
+#define V6_STAGES_F64 4
+#endif
+
+// The tile and shared-memory layout of one dtype (the tile shape and
+// blocks an SM are also ops/structured_matvec.py's V6_CELLS_Y/Z and
+// V6_BLOCKS_PER_SM).  kWords values of T fill one pass of the 32 four-byte
+// banks; the pads serve the double's fragments.
 template <typename T>
 struct Layout {
   // float: 512 threads, one block an SM, 32 x 32 cells (1.14x the cells
@@ -140,16 +155,16 @@ struct Layout {
   // the copies of one plane: node values, then ck values
   static constexpr int kNodeCopies = 3 * (kCy + 1) * kNodesZ;
   static constexpr int kCopies = kNodeCopies + kCk;
+  static constexpr int kStages = kFloat ? V6_STAGES_F32 : V6_STAGES_F64;
+  static_assert(kStages >= 2, "the ring holds node planes k and k+1");
+  // dynamic shared memory: the ring, fs, Ke (float) and the copy table
+  static constexpr size_t kSmemBytes =
+      sizeof(T) * (static_cast<size_t>(kStages) * (kSlot + kCk) +
+                   24 * static_cast<size_t>(kF) + kKe) +
+      sizeof(int2) * kCopies;
+  static_assert(kSmemBytes <= smv::kMaxSmemBytes,
+                "above the 227 KB of shared memory a block can have");
 };
-
-// Dynamic shared memory: the ring, fs, Ke (float) and the copy table.
-template <typename T>
-size_t smem_bytes(int stages) {
-  using L = Layout<T>;
-  return sizeof(T) * (static_cast<size_t>(stages) * (L::kSlot + L::kCk) +
-                      24 * static_cast<size_t>(L::kF) + L::kKe) +
-         sizeof(int2) * L::kCopies;
-}
 
 // Element dof of k column p (0..7) of k step ks: component ks, corner
 // (dx, dy, dz) = (p & 1, (p >> 1) & 1, p >> 2), VTK numbered.
@@ -294,13 +309,13 @@ __global__ void
 __launch_bounds__(Layout<T>::kThreads, Layout<T>::kMinBlocks)
 structured_matvec_kernel(const T* __restrict__ x, const T* __restrict__ ck,
                          T* __restrict__ y, int nx, int ny, int nz,
-                         int seg_len, int stages, int n_ty, int n_tz,
-                         int n_seg) {
+                         int seg_len, int n_ty, int n_tz, int n_seg) {
   using L = Layout<T>;
+  constexpr int kStages = L::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const nodes = reinterpret_cast<T*>(smem_raw);   // [stages][kSlot]
-  T* const cks = nodes + stages * L::kSlot;          // [stages][kCk]
-  T* const fs = cks + stages * L::kCk;               // [24][kF]
+  T* const nodes = reinterpret_cast<T*>(smem_raw);   // [kStages][kSlot]
+  T* const cks = nodes + kStages * L::kSlot;         // [kStages][kCk]
+  T* const fs = cks + kStages * L::kCk;              // [24][kF]
   T* const ke_s = fs + 24 * L::kF;                   // [24 * 24], float
   int2* const table = reinterpret_cast<int2*>(ke_s + L::kKe);  // [kCopies]
 
@@ -353,12 +368,12 @@ structured_matvec_kernel(const T* __restrict__ x, const T* __restrict__ ck,
     for (int e = threadIdx.x; e < L::kKe; e += L::kThreads) ke_s[e] = ke_f32[e];
   }
 
-  // node plane x0-1+j and ck plane x0-1+j into slot j % stages; one commit
-  // group per j, empty past the segment
+  // node plane x0-1+j and ck plane x0-1+j into slot j % kStages; one
+  // commit group per j, empty past the segment
   auto issue = [&](int j) {
     if (j < n_node) {
       const int gp = x0 - 1 + j;
-      const int s = j % stages;
+      const int s = j % kStages;
       const bool plane_ok = gp >= 0 && gp < nxn;
       const bool plane_c = gp >= 0 && gp < nx && j < n_steps;
       const T* const xq = xp + (plane_ok ? gp * nyn * nzn : 0);
@@ -388,18 +403,18 @@ structured_matvec_kernel(const T* __restrict__ x, const T* __restrict__ ck,
 #pragma unroll
     for (int c = 0; c < 3; ++c) carry[jr][c] = T(0);
 
-  for (int j = 0; j < stages - 1; ++j) issue(j);
+  for (int j = 0; j < kStages - 1; ++j) issue(j);
   for (int k = 0; k < n_steps; ++k) {
-    // slot (k-1) % stages was last read before the previous step's second
+    // slot (k-1) % kStages was last read before the previous step's second
     // barrier
-    issue(k + stages - 1);
-    smv::wait_copies(stages - 2);          // node planes k, k+1, ck plane k
+    issue(k + kStages - 1);
+    smv::wait_copies<kStages - 2>();       // node planes k, k+1, ck plane k
     __syncthreads();
 
     // 1. the cell products of cell plane x0-1+k, scaled by ck, into fs
-    prod.plane(nodes + (k % stages) * L::kSlot,
-               nodes + ((k + 1) % stages) * L::kSlot,
-               cks + (k % stages) * L::kCk, fs, warp, lane);
+    prod.plane(nodes + (k % kStages) * L::kSlot,
+               nodes + ((k + 1) % kStages) * L::kSlot,
+               cks + (k % kStages) * L::kCk, fs, warp, lane);
     __syncthreads();
 
     // 2. placement: node plane x0-1+k gets the carry plus its dx = 0
@@ -435,34 +450,31 @@ structured_matvec_kernel(const T* __restrict__ x, const T* __restrict__ ck,
 
 template <typename T>
 int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
-           int nz, int seg_len, int stages, cudaStream_t stream) {
+           int nz, int seg_len, int n_ty, int n_tz, int n_seg,
+           cudaStream_t stream) {
   using L = Layout<T>;
-  if (seg_len < 1 || stages < 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int n_ty = (ny + L::kCy - 1) / (L::kCy - 1);       // ceil(nyn / ..)
-  const int n_tz = (nz + kCellsZ - 1) / (kCellsZ - 1);
-  const int n_seg = (nx + seg_len) / seg_len;               // ceil(nxn / ..)
   const long long blocks =
       static_cast<long long>(parts) * n_seg * n_ty * n_tz;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<T>(stages);
-  cudaError_t e = smv::allow_smem(structured_matvec_kernel<T>, smem);
+  if (seg_len < 1 || n_ty < 1 || n_tz < 1 || n_seg < 1 ||
+      blocks >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = smv::allow_smem(structured_matvec_kernel<T>, L::kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  structured_matvec_kernel<T><<<static_cast<int>(blocks), L::kThreads, smem,
-                                stream>>>(
+  structured_matvec_kernel<T><<<static_cast<int>(blocks), L::kThreads,
+                                L::kSmemBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(ck), static_cast<T*>(y),
-      nx, ny, nz, seg_len, stages, n_ty, n_tz, n_seg);
+      nx, ny, nz, seg_len, n_ty, n_tz, n_seg);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_on(const void* x, const void* ck, void* y, int parts, int nx,
-              int ny, int nz, int seg_len, int stages, int device,
-              void* stream) {
+              int ny, int nz, int seg_len, int n_ty, int n_tz, int n_seg,
+              int device, void* stream) {
   smv::DeviceScope scope(device);
   if (scope.error() != 0) return scope.error();
-  return launch<T>(x, ck, y, parts, nx, ny, nz, seg_len, stages,
+  return launch<T>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty, n_tz, n_seg,
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -472,11 +484,12 @@ int launch_on(const void* x, const void* ck, void* y, int parts, int nx,
 // device buffer of the entry's dtype, into the constant bank of `device`.
 // The matvec takes x (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous
 // device buffers of the entry's dtype, and writes y, allocated by the caller
-// with x's shape, using the Ke staged last; seg_len is the node planes of an
-// x segment, stages the slots of the shared-memory ring (>= 2; even keeps
-// the fragment loads free of bank conflicts).  The wrapper checks shapes,
-// dtype and contiguity and keeps every index below 2^31.  Each returns the
-// CUDA error code of its copy or launch (0 = done / launched).
+// with x's shape, using the Ke staged last.  The launch geometry comes from
+// ops/structured_matvec.py::v6_geometry: seg_len node planes an x segment,
+// n_ty x n_tz (y, z) tiles of (kCy - 1) x 31 nodes, n_seg segments.  The
+// wrapper checks shapes, dtype and contiguity and keeps every index below
+// 2^31.  Each returns the CUDA error code of its copy or launch (0 = done /
+// launched).
 extern "C" int structured_matvec_stage_f32(const void* ke, int device,
                                            void* stream) {
   return smv::stage(ke_f32, ke, device, stream);
@@ -489,26 +502,25 @@ extern "C" int structured_matvec_stage_f64(const void* ke, int device,
 
 extern "C" int structured_matvec_f32(const void* x, const void* ck, void* y,
                                      int parts, int nx, int ny, int nz,
-                                     int seg_len, int stages, int device,
-                                     void* stream) {
-  return launch_on<float>(x, ck, y, parts, nx, ny, nz, seg_len, stages,
-                          device, stream);
+                                     int seg_len, int n_ty, int n_tz,
+                                     int n_seg, int device, void* stream) {
+  return launch_on<float>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty, n_tz,
+                          n_seg, device, stream);
 }
 
 extern "C" int structured_matvec_f64(const void* x, const void* ck, void* y,
                                      int parts, int nx, int ny, int nz,
-                                     int seg_len, int stages, int device,
-                                     void* stream) {
-  return launch_on<double>(x, ck, y, parts, nx, ny, nz, seg_len, stages,
-                           device, stream);
+                                     int seg_len, int n_ty, int n_tz,
+                                     int n_seg, int device, void* stream) {
+  return launch_on<double>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty, n_tz,
+                           n_seg, device, stream);
 }
 
-// The dynamic shared memory of one launch: itemsize 4 (float) or 8
-// (double), `stages` ring slots.  ops/structured_matvec.py::v6_geometry
-// computes the same number; the card tests hold the two together.
-extern "C" long long structured_matvec_smem_bytes(int itemsize, int stages) {
-  return static_cast<long long>(itemsize == 8 ? smem_bytes<double>(stages)
-                                              : smem_bytes<float>(stages));
+// The dynamic shared memory of a block, itemsize 4 (float) or 8 (double),
+// for reports (chip_smoke.py prints it).
+extern "C" long long structured_matvec_smem_bytes(int itemsize) {
+  return static_cast<long long>(itemsize == 8 ? Layout<double>::kSmemBytes
+                                              : Layout<float>::kSmemBytes);
 }
 
 SMV_ERROR_STRING(structured_matvec)

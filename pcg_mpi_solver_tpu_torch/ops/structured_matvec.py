@@ -29,9 +29,10 @@ of the JAX package, one slab per part.
   of eight zero-padded translates.  The CPU tests hold it against the JAX
   package and its Pallas kernels, and ``chip_smoke.py`` holds each kernel
   against it on the card.
-- :func:`v6_geometry` is the launch of the v6 kernel: its (y, z) tiles,
-  the x segments that fill the card, the ring depth and the shared memory
-  it needs; the CPU tests check it, the wrapper passes it to the kernel.
+- :func:`v6_geometry` is the launch grid of the v6 kernel: its (y, z)
+  tiles and the x segments that fill the card; the CPU tests check it,
+  the wrapper passes it to the kernel.  The kernel's shared-memory layout
+  is its own (``csrc/structured_matvec.cu``, ``Layout``).
 - :func:`selected_variant` and :func:`pallas_planes` read the JAX
   package's knobs, ``PCG_TPU_PALLAS_V`` and ``PCG_TPU_PALLAS_PLANES``, with
   the same defaults and the same refusals, so a setting means the same in
@@ -117,18 +118,14 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-# The v6 kernel's tiles and shared-memory layout, mirrored from
-# csrc/structured_matvec.cu (Layout<T>): a block computes V6_CELLS_Y[dtype]
-# x V6_CELLS_Z cells a plane and owns the nodes inside them, (cells - 1) in
-# each axis; its ring has `stages` slots of one node plane and one ck
-# plane (V6_STAGES by default, chosen by timing at 150^3, PERF.md).
-# V6_BLOCKS_PER_SM is the kernel's __launch_bounds__ minimum.
+# The v6 kernel's tile shape, as csrc/structured_matvec.cu (Layout<T>)
+# compiles it: a block computes V6_CELLS_Y[dtype] x V6_CELLS_Z cells a
+# plane and owns the nodes inside them, (cells - 1) in each axis; an SM
+# holds V6_BLOCKS_PER_SM[dtype] blocks (the kernel's __launch_bounds__
+# minimum, which its shared memory also allows).
 V6_CELLS_Y = {torch.float32: 32, torch.float64: 8}
 V6_CELLS_Z = 32
 V6_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 2}
-V6_STAGES = {torch.float32: 3, torch.float64: 4}
-SMEM_LIMIT = 232448         # the 227 KB of shared memory a Hopper block has
-SM_SMEM = 233472            # an SM's 228 KB; each resident block takes 1 KB
 H100_SMS = 132
 
 
@@ -143,56 +140,22 @@ class V6Geometry:
     seg_len: int
     n_seg: int
     blocks: int
-    stages: int
-    smem_bytes: int
-
-
-def _pad_to(n: int, rem: int, mod: int) -> int:
-    return n + (rem - n) % mod
-
-
-def v6_smem_bytes(dtype: torch.dtype, stages: int) -> int:
-    """Dynamic shared memory of one v6 block: ``stages`` x (node slot + ck
-    plane) + 24 rows of the scaled cell products (with the kernel's
-    bank-spreading pads) + Ke (float) + the table of a plane's copies (two
-    int32 each)."""
-    item = torch.empty((), dtype=dtype).element_size()
-    cy, words = V6_CELLS_Y[dtype], 128 // item
-    row = _pad_to(V6_CELLS_Z + 1, words // 4, words)
-    slot = _pad_to(3 * (cy + 1) * row, words // 2, words)
-    ck_plane = cy * V6_CELLS_Z
-    f_row = _pad_to(ck_plane, words // 8, words // 2)
-    ke = 24 * 24 if dtype == torch.float32 else 0
-    copies = 3 * (cy + 1) * (V6_CELLS_Z + 1) + ck_plane
-    return item * (stages * (slot + ck_plane) + 24 * f_row + ke) \
-        + 8 * copies
 
 
 @functools.lru_cache(maxsize=256)
 def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
-                stages: Optional[int] = None, sms: int = H100_SMS,
-                check: bool = True) -> V6Geometry:
+                sms: int = H100_SMS) -> V6Geometry:
     """Launch geometry of the v6 kernel for a (parts, nx, ny, nz) slab.
 
     The x segment length minimises waves x (seg_len + 3), a wave being the
     blocks the card holds at once (``sms`` x the blocks an SM holds): the
     planes of the longest chain of blocks on one SM, each segment's
     recomputed carry plane and two planes of ring fill included; ties go
-    to fewer segments.  ``stages`` None takes :data:`V6_STAGES`.
-    ``check`` refuses (ValueError) a block whose shared memory is above
-    227 KB; the wrapper passes False, so the kernel library refuses such
-    a launch with the CUDA error named."""
-    stages = V6_STAGES[dtype] if stages is None else stages
-    if stages < 2:
-        raise ValueError(f"stages must be >= 2, got {stages}")
+    to fewer segments."""
     cy = V6_CELLS_Y[dtype]
     tile = (cy - 1, V6_CELLS_Z - 1)
     n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
-    smem = v6_smem_bytes(dtype, stages)
-    if check and smem > SMEM_LIMIT:
-        raise ValueError(f"v6 at {stages} stages needs {smem} bytes of "
-                         f"shared memory a block, above {SMEM_LIMIT}")
-    per_sm = max(1, min(V6_BLOCKS_PER_SM[dtype], SM_SMEM // (smem + 1024)))
+    per_sm = V6_BLOCKS_PER_SM[dtype]
     nxn, tiles = nx + 1, parts * n_ty * n_tz
     best = None
     for n in range(1, nxn + 1):
@@ -202,8 +165,7 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
         if best is None or cost < best[0]:
             best = (cost, seg_len, n_seg)
     _cost, seg_len, n_seg = best
-    return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg,
-                      stages, smem)
+    return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,14 +241,14 @@ def _library(variant: str) -> ctypes.CDLL:
             stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             stage.restype = ctypes.c_int
             fn = getattr(lib, f"{name}_{sfx}")
-            # x, ck, y; P, nx, ny, nz[, planes | seg_len, stages], device;
-            # stream
+            # x, ck, y; P, nx, ny, nz[, planes | seg_len, n_ty, n_tz,
+            # n_seg], device; stream
             fn.argtypes = [ctypes.c_void_p] * 3 \
-                + [ctypes.c_int] * (5 + chunked + 2 * v6) + [ctypes.c_void_p]
+                + [ctypes.c_int] * (5 + chunked + 4 * v6) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         if v6:
             smem = getattr(lib, f"{name}_smem_bytes")
-            smem.argtypes = [ctypes.c_int, ctypes.c_int]
+            smem.argtypes = [ctypes.c_int]
             smem.restype = ctypes.c_longlong
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
@@ -304,23 +266,18 @@ def _raise_on(lib: ctypes.CDLL, name: str, err: int, what: str,
 
 def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
                       variant: str = "v6",
-                      planes: Optional[int] = None,
-                      stages: Optional[int] = None) -> torch.Tensor:
+                      planes: Optional[int] = None) -> torch.Tensor:
     """y = K_slab . x per part.  CUDA tensors launch the kernel of
     ``variant`` in float32, v6's double kernel in float64 (or raise); CPU
     tensors run :func:`structured_matvec_plain`.  ``planes`` is the chunk
     of the chunked variants (v3, v4, v5, v7, v8, v9); None reads
-    :func:`pallas_planes`.  ``stages`` is the ring depth of the v6 kernel
-    (:func:`v6_geometry`); None takes the dtype's :data:`V6_STAGES`."""
+    :func:`pallas_planes`."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got "
                          f"{variant!r}")
     _check(xg, ck, Ke)
     if xg.dtype == torch.float64:
         variant = F64_VARIANT
-    if stages is not None and variant != F64_VARIANT:
-        raise ValueError(f"stages applies to the v6 kernel only, not "
-                         f"{variant}")
     if xg.device.type == "cpu":
         return structured_matvec_plain(xg, ck, Ke)
     if xg.device.type != "cuda":
@@ -340,9 +297,9 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
     y = torch.empty_like(xg)
     P, _, nxn, nyn, nzn = xg.shape
     if variant == F64_VARIANT:
-        geom = v6_geometry(P, nxn - 1, nyn - 1, nzn - 1, xg.dtype, stages,
-                           _sm_count(dev), check=False)
-        extra = (geom.seg_len, geom.stages)
+        geom = v6_geometry(P, nxn - 1, nyn - 1, nzn - 1, xg.dtype,
+                           _sm_count(dev))
+        extra = (geom.seg_len, geom.n_ty, geom.n_tz, geom.n_seg)
     else:
         extra = (pallas_planes() if planes is None else planes,) \
             if chunked else ()

@@ -171,34 +171,6 @@ def test_v6_kernel_across_tile_and_segment_edges(cuda_device, dtype, tol, P,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_v6_ring_too_deep_for_shared_memory_is_refused(cuda_device, dtype):
-    """A v6 ring of 40 stages needs more than the 227 KB a block can have:
-    the kernel library refuses the launch with the CUDA error named, and
-    nothing is counted."""
-    x = torch.zeros((1, 3, 6, 5, 4), dtype=dtype, device=cuda_device)
-    ck = torch.ones((1, 5, 4, 3), dtype=dtype, device=cuda_device)
-    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"], dtype=dtype,
-                         device=cuda_device)
-    assert smv.v6_smem_bytes(dtype, 40) > smv.SMEM_LIMIT
-    before = dict(smv.LAUNCHES)
-    with pytest.raises(RuntimeError, match="invalid configuration"):
-        smv.structured_matvec(x, ck, Ke, stages=40)
-    assert smv.LAUNCHES == before
-
-
-@pytest.mark.cuda
-def test_v6_shared_memory_matches_python_mirror(cuda_device):
-    """The kernel library's shared-memory size per launch equals
-    v6_smem_bytes, the Python mirror the launch geometry is tested on."""
-    lib = smv._library("v6")
-    for dtype, item in ((torch.float32, 4), (torch.float64, 8)):
-        for stages in range(2, 7):
-            assert lib.structured_matvec_smem_bytes(item, stages) \
-                == smv.v6_smem_bytes(dtype, stages)
-
-
-@pytest.mark.cuda
 def test_kernel_reads_the_ke_it_is_given(cuda_device):
     """Ke is staged into the constant bank only when it changes: an
     in-place change of the same tensor and another tensor are both seen.

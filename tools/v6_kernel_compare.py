@@ -1,34 +1,33 @@
 #!/usr/bin/env python3
 """Compare the port's v6 structured-matvec kernel with other builds of it on
-one NVIDIA card: an earlier source, the 3xTF32 float product, and the ring
-depths and x-segment lengths of the launch.
+one NVIDIA card: an earlier source, and the same source at other ring
+depths; and time it at other x-segment lengths.
 
 Run from the repository root, on a machine with the card and nvcc:
 
     git show 2e8a00f:pcg_mpi_solver_tpu_torch/csrc/structured_matvec.cu \\
         > build/v6_pr3.cu              # the first v6 kernel (optional)
-    python3 tools/v6_kernel_compare.py --old build/v6_pr3.cu --tf32 \\
-        --sweep --flagship
+    python3 tools/v6_kernel_compare.py --old build/v6_pr3.cu --sweep
 
 Prints, at the flagship slab (1 part, 150^3 cells):
   * each build's error against the float64 plain version (max, rms and
     mean, over max|y|) and its CUDA-event time with L2 flushed, the builds
-    timed in turns (old, this, alternative, alternative, this, old);
-  * with --sweep, this build's time at other ring depths and segment
-    lengths (the wrapper's choice named);
-  * each build's SASS instruction mix (cuobjdump, static counts per
-    kernel);
-  * with --flagship, the flagship mixed solve under this build and, with
-    --tf32, under the 3xTF32 build: flag, iterations, inner cycles.
+    timed in turns (old, this, depth builds, then the reverse order), each
+    launched through its C entry point;
+  * with --sweep, builds of this source at ring depths 2, 3 and 4
+    (-DV6_STAGES_F32 / -DV6_STAGES_F64) in those turns, and this build's
+    time at other segment lengths (the wrapper's choice named);
+  * each build's registers, spills and shared memory, and its SASS
+    instruction mix (cuobjdump, static counts per kernel).
 --old takes a source with the first kernel's C interface (P, nx, ny, nz,
-device); --tf32 splices tools/v6_3xtf32_product.cuh into this source in
-place of the float FFMA product.  Builds go to build/v6_compare/.
+device).  Builds go to build/v6_compare/.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import ctypes
 import re
 import statistics
@@ -42,6 +41,7 @@ sys.path.insert(0, str(ROOT))
 CSRC = ROOT / "pcg_mpi_solver_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "v6_compare"
 N = 150
+DEPTHS = (2, 3, 4)
 # SASS opcodes counted as integer and address arithmetic
 INTEGER = ("IMAD", "IADD3", "LEA", "ISETP", "LOP3", "SHF", "VIADD", "IABS",
            "SEL", "IMNMX", "VIMNMX", "PRMT", "UIMAD", "UIADD3", "ULEA")
@@ -54,13 +54,13 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def build(src: Path, name: str) -> Path:
+def build(src: Path, name: str, defines=()) -> Path:
     from pcg_mpi_solver_tpu_torch.ops.kernels import NVCC_FLAGS, nvcc_path
     OUT.mkdir(parents=True, exist_ok=True)
     lib = OUT / f"{name}.so"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-                           str(lib), str(src)], capture_output=True,
-                          text=True)
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, *defines, "-I",
+                           str(CSRC), "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
                            f"{proc.stderr}")
@@ -124,12 +124,8 @@ def sass_mix(lib: Path, tag: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, help="an earlier v6 source")
-    ap.add_argument("--tf32", action="store_true",
-                    help="also build the 3xTF32 float product")
     ap.add_argument("--sweep", action="store_true",
                     help="time ring depths and segment lengths")
-    ap.add_argument("--flagship", action="store_true",
-                    help="solve the flagship under each float build")
     args = ap.parse_args()
 
     import numpy as np
@@ -148,25 +144,31 @@ def main() -> int:
     kernels.build_kernels(["structured_matvec"])
     libs = {"this": (kernels.library_path("structured_matvec"),
                      smv._library("v6"))}
-    if args.old is not None:
-        path = build(args.old, "old")
-        libs["old"] = (path, load(path, 5))
-    if args.tf32:
-        src = (CSRC / "structured_matvec.cu").read_text()
-        a = src.index("// Float: unrolled FFMAs")
-        b = src.index("// Double: DMMA")
-        OUT.mkdir(parents=True, exist_ok=True)
-        spliced = OUT / "structured_matvec_3xtf32.cu"
-        spliced.write_text(src[:a] + (ROOT / "tools" /
-                                      "v6_3xtf32_product.cuh").read_text()
-                           + src[b:])
-        path = build(spliced, "3xtf32")
-        libs["3xtf32"] = (path, load(path, 7))
+    src = CSRC / "structured_matvec.cu"
+    jobs = {}
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        if args.old is not None:
+            jobs["old"] = pool.submit(build, args.old, "old")
+        for d in DEPTHS if args.sweep else ():
+            jobs[f"depth{d}"] = pool.submit(
+                build, src, f"depth{d}",
+                (f"-DV6_STAGES_F32={d}", f"-DV6_STAGES_F64={d}"))
+        for tag, job in jobs.items():
+            libs[tag] = (job.result(), load(job.result(),
+                                            5 if tag == "old" else 9))
+    for tag, (_path, h) in libs.items():
+        if tag != "old":
+            h.structured_matvec_smem_bytes.argtypes = [ctypes.c_int]
+            h.structured_matvec_smem_bytes.restype = ctypes.c_longlong
+            print(f"shared memory {tag}: float "
+                  f"{h.structured_matvec_smem_bytes(4)} B, double "
+                  f"{h.structured_matvec_smem_bytes(8)} B")
 
     Ke = unit_element_library(0.2)["Ke"]
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+    for dtype, sfx, default in ((torch.float32, "f32", 3),
+                                (torch.float64, "f64", 4)):
         K = torch.as_tensor(Ke, dtype=dtype, device="cuda")
         xd = torch.as_tensor(rng.standard_normal((1, 3, N + 1, N + 1,
                                                   N + 1)), device="cuda")
@@ -177,26 +179,23 @@ def main() -> int:
                                             K.double())
         scale = y_ref.abs().max().item()
         geo = smv.v6_geometry(1, N, N, N, dtype)
+        grid = (geo.n_ty, geo.n_tz)
         runs = {}
         for tag, (_path, h) in libs.items():
-            if tag == "3xtf32" and dtype == torch.float64:
-                continue               # the double product is the same
-            if tag == "this":
-                def run():
-                    return smv.structured_matvec(x, ck, K)
-            else:
-                getattr(h, f"structured_matvec_stage_{sfx}")(
-                    K.data_ptr(), 0, stream)
-                fn = getattr(h, f"structured_matvec_{sfx}")
-                extra = () if tag == "old" else (geo.seg_len, geo.stages)
-                y = torch.empty_like(x)
+            if tag == f"depth{default}":
+                continue               # the same build as this
+            getattr(h, f"structured_matvec_stage_{sfx}")(K.data_ptr(), 0,
+                                                         stream)
+            fn = getattr(h, f"structured_matvec_{sfx}")
+            extra = () if tag == "old" else (geo.seg_len, *grid, geo.n_seg)
+            y = torch.empty_like(x)
 
-                def run(fn=fn, y=y, extra=extra):
-                    err = fn(x.data_ptr(), ck.data_ptr(), y.data_ptr(), 1,
-                             N, N, N, *extra, 0, stream)
-                    if err:
-                        raise RuntimeError(f"launch failed: {err}")
-                    return y
+            def run(fn=fn, y=y, extra=extra):
+                err = fn(x.data_ptr(), ck.data_ptr(), y.data_ptr(), 1,
+                         N, N, N, *extra, 0, stream)
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+                return y
             e = run().double() - y_ref
             print(f"{sfx} {tag}: max|err|/max|y| "
                   f"{e.abs().max().item() / scale:.3e}, rms "
@@ -207,63 +206,23 @@ def main() -> int:
         times = collections.defaultdict(list)
         for tag in order:
             times[tag].append(round(time_ms(torch, runs[tag]), 4))
-        print(f"{sfx} kernel ms at {N}^3, L2 flushed, in turns: "
-              f"{dict(times)}")
+        print(f"{sfx} kernel ms at {N}^3, L2 flushed, in turns (this = "
+              f"depth {default}): {dict(times)}")
         if args.sweep:
             fn = getattr(libs["this"][1], f"structured_matvec_{sfx}")
             y = torch.empty_like(x)
-            stages = {}
-            for st in (2, 3, 4, 6):
-                if smv.v6_smem_bytes(dtype, st) > smv.SMEM_LIMIT:
-                    continue           # refused: above 227 KB a block
-                stages[st] = round(time_ms(torch, lambda st=st: (
-                    smv.structured_matvec(x, ck, K, stages=st))), 4)
-            print(f"{sfx} stages (default {geo.stages}): {stages}")
             segs = {}
             for seg in (8, 11, 13, 16, 19, 22, 26, 31, 38, 51, 76):
-                segs[seg] = round(time_ms(torch, lambda seg=seg: fn(
+                a = (seg, *grid, -(-(N + 1) // seg))
+                segs[seg] = round(time_ms(torch, lambda a=a: fn(
                     x.data_ptr(), ck.data_ptr(), y.data_ptr(), 1, N, N, N,
-                    seg, geo.stages, 0, stream)), 4)
+                    *a, 0, stream)), 4)
             print(f"{sfx} segment length (chosen {geo.seg_len}): {segs}")
         del x, ck, xd, ckd, y_ref
         torch.cuda.empty_cache()
 
     for tag, (path, _h) in libs.items():
         sass_mix(path, tag)
-
-    if args.flagship:
-        import chip_smoke
-        from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
-        from pcg_mpi_solver_tpu_torch.models import make_cube_model
-        from pcg_mpi_solver_tpu_torch.solver import Solver
-        kw = dict(chip_smoke.FLAGSHIP)
-        model = make_cube_model(kw.pop("nx"), **kw)
-        load_kernel = smv.load_kernel
-        for tag in [t for t in ("this", "3xtf32") if t in libs]:
-            h = libs[tag][1]
-            smv.load_kernel = lambda name, h=h: (
-                h if name == "structured_matvec" else load_kernel(name))
-            smv._STAGED.clear()
-            try:
-                solver = Solver(model, RunConfig(solver=SolverConfig(
-                    tol=1e-7, precision_mode="mixed")))
-                smv.reset_launch_counts()
-                torch.cuda.synchronize()
-                with chip_smoke.inner_cycles() as cycles:
-                    results = solver.solve()
-            finally:
-                smv.load_kernel = load_kernel
-                smv._STAGED.clear()
-            res = results[-1]
-            wall = sum(r.wall_s for r in results)
-            iters = sum(r.iters for r in results)
-            print(f"flagship {tag}: flag {res.flag}, iterations {res.iters},"
-                  f" relres {res.relres:.4e}, {wall / iters * 1e3:.4f} "
-                  f"ms/iter, inner cycles {cycles}, launches v6 f32 "
-                  f"{smv.LAUNCHES[('v6', 'float32')]}, f64 "
-                  f"{smv.LAUNCHES[('v6', 'float64')]}")
-            del solver
-            torch.cuda.empty_cache()
     print(nvidia_smi())
     return 0
 
