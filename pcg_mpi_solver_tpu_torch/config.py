@@ -1,10 +1,12 @@
 """Typed configuration of the PyTorch port.
 
-The fields and defaults of ``pcg_mpi_solver_tpu/config.py`` that the
-structured-cube solve reads.  Options the JAX package offers beyond this
-slice keep their names here so a config that asks for one fails loudly
-(``Solver`` raises ``NotImplementedError`` naming the ROADMAP queue item
-that brings it) instead of being silently ignored.
+Every field of ``pcg_mpi_solver_tpu/config.py``, with the JAX package's
+default, so a config written for the JAX package builds here too.  A
+field whose option is not ported yet keeps its name: ``Solver`` raises
+``NotImplementedError`` naming the ROADMAP queue item that brings it when
+the value asks for that option (``solver/driver.py``, ``UNPORTED``),
+instead of ignoring it.  Names and paths that do not change the solve are
+accepted as they are.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Sequence
 PCG_VARIANTS = ("classic", "fused", "pipelined")
 PRECONDS = ("jacobi", "block3", "mg")
 PRECISION_MODES = ("direct", "mixed")
+PALLAS_MODES = ("auto", "on", "off", "interpret")
 
 
 @dataclasses.dataclass
@@ -32,15 +35,33 @@ class SolverConfig:
     dtype: str = "float64"        # storage dtype: "float32" | "float64"
     dot_dtype: str = "float64"    # accumulation dtype for reductions
     inner_tol: float = 1e-5       # per-refinement-cycle residual reduction (mixed)
+    # early exits of the mixed shell's f32 cycles (0 = off)
+    mixed_plateau_window: int = 0
+    mixed_progress_window: int = 0
+    mixed_progress_ratio: float = 0.7
+    mixed_progress_min_gain: float = 30.0
     max_stag_steps: int = 3
     pcg_variant: str = "classic"
     nrhs: int = 1
     precond: str = "jacobi"
+    # MG V-cycle shape (precond="mg")
+    mg_levels: int = 0
+    mg_smooth_degree: int = 2
+    mg_max_replicated_dofs: int = 32_000_000
     # Accepted for config compatibility and ignored: the port always runs
     # a solve as one host-driven loop (the JAX package's chunked dispatch
     # is bit-identical to its one-shot solve by contract, so the math is
     # the same either way).
     iters_per_dispatch: int = -1
+    trace_resid: int = 0          # in-solve residual trace ring (0 = off)
+    # Accepted and ignored: carry donation is numerically a no-op in the
+    # JAX package (bit-identical on and off), and torch updates in place.
+    donate_carry: bool = True
+    max_recoveries: int = 2       # recovery-ladder attempts
+    dispatch_retries: int = 2     # device-loss dispatch retries
+    # The JAX package's Pallas switch.  "auto" and "on" both mean the
+    # port's CUDA kernels on the card; there is no other path to switch to.
+    pallas: str = "auto"
 
     def __post_init__(self):
         if self.pcg_variant not in PCG_VARIANTS:
@@ -52,6 +73,9 @@ class SolverConfig:
         if self.precision_mode not in PRECISION_MODES:
             raise ValueError(f"SolverConfig.precision_mode must be one of "
                              f"{PRECISION_MODES}, got {self.precision_mode!r}")
+        if self.pallas not in PALLAS_MODES:
+            raise ValueError(f"SolverConfig.pallas must be one of "
+                             f"{PALLAS_MODES}, got {self.pallas!r}")
         for name in ("dtype", "dot_dtype"):
             if getattr(self, name) not in ("float32", "float64"):
                 raise ValueError(f"SolverConfig.{name} must be 'float32' or "
@@ -65,17 +89,43 @@ class TimeHistoryConfig:
     (Dirichlet lifting); step 0 is skipped."""
 
     time_step_delta: Sequence[float] = (0.0, 1.0)
+    # Result export.  The port writes no result files yet, so export_flag
+    # changes nothing either way; the other export fields raise unless at
+    # their defaults.
+    export_flag: bool = True
+    export_frame_rate: int = 1
+    export_frames: Sequence[int] = ()
+    plot_flag: bool = False
+    export_vars: str = "U"
+    dt: float = 1.0
+    probe_dofs: Sequence[int] = ()
 
 
 @dataclasses.dataclass
 class RunConfig:
-    """Top-level run description: partitioning + solver + schedule."""
+    """Top-level run description: paths + partitioning + solver +
+    schedule."""
 
+    scratch_path: str = "./scratch"
+    model_name: str = "model"
+    run_id: str = "1"
     n_parts: int = 1
+    # "rcb" and "auto" give the structured slabs; "graph" needs the general
+    # backend
+    partition_method: str = "rcb"
+    speed_test: bool = False      # the port does no I/O either way
     # Resumable state (checkpoints every N steps, mid-solve snapshots every
     # N dispatches) is not ported yet; nonzero values raise.
     checkpoint_every: int = 0
     snapshot_every: int = 0
+    setup_shard: str = "auto"
+    preflight: str = ""
+    cache_dir: str = ""
+    telemetry_path: str = ""
+    flight_path: str = ""
+    telemetry_profile: bool = False
+    profile_dir: str = ""
+    comm_probe_iters: int = 30
     solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
     time_history: TimeHistoryConfig = dataclasses.field(
         default_factory=TimeHistoryConfig)

@@ -19,7 +19,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from pcg_mpi_solver_tpu_torch.config import RunConfig
+from pcg_mpi_solver_tpu_torch.config import (
+    RunConfig, SolverConfig, TimeHistoryConfig)
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
@@ -51,25 +52,68 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# Config fields whose option is not ported yet: (section, field) -> the
+# ROADMAP queue 1 item that brings it.  A value other than the JAX
+# package's default raises NotImplementedError naming the item.
+UNPORTED = {
+    **{("solver", f): 3 for f in (
+        "mixed_plateau_window", "mixed_progress_window",
+        "mixed_progress_ratio", "mixed_progress_min_gain")},
+    **{("solver", f): 5 for f in (
+        "mg_levels", "mg_smooth_degree", "mg_max_replicated_dofs")},
+    **{("solver", f): 9 for f in ("max_recoveries", "dispatch_retries")},
+    ("solver", "trace_resid"): 14,
+    ("time_history", "dt"): 10,
+    **{("time_history", f): 11 for f in (
+        "export_frame_rate", "export_frames", "plot_flag", "export_vars",
+        "probe_dofs")},
+    ("run", "setup_shard"): 12,
+    **{("run", f): 14 for f in (
+        "preflight", "cache_dir", "telemetry_path", "flight_path",
+        "telemetry_profile", "profile_dir", "comm_probe_iters")},
+}
+_DEFAULTS = {"run": RunConfig(), "solver": SolverConfig(),
+             "time_history": TimeHistoryConfig()}
+
+
 def _check_slice(model: ModelData, config: RunConfig, n_parts: int) -> None:
     """Raise NotImplementedError for anything outside the ported slice,
-    naming the ROADMAP queue item that brings it."""
+    naming the ROADMAP queue 1 item that brings it."""
+    sections = {"run": config, "solver": config.solver,
+                "time_history": config.time_history}
+    for (section, field), item in UNPORTED.items():
+        value = getattr(sections[section], field)
+        if value != getattr(_DEFAULTS[section], field):
+            raise NotImplementedError(
+                f"{section}.{field}={value!r} is not ported yet (ROADMAP "
+                f"queue 1 item {item}); only the default "
+                f"{getattr(_DEFAULTS[section], field)!r} is")
     sc = config.solver
+    if sc.pallas in ("off", "interpret"):
+        raise NotImplementedError(
+            f"pallas={sc.pallas!r}: the port has no XLA path and no "
+            f"interpreter; it always runs its CUDA kernels on the card and "
+            f"their plain version on the CPU ('auto' or 'on')")
     if sc.pcg_variant != "classic":
         raise NotImplementedError(
             f"pcg_variant={sc.pcg_variant!r} is not ported yet (ROADMAP "
-            f"queue 1 item 6: PCG variants and blocked right-hand sides)")
+            f"queue 1 item 6: PCG variants)")
     if sc.nrhs > 1:
         raise NotImplementedError(
-            "nrhs > 1 is not ported yet (ROADMAP queue 1 item 6)")
+            "nrhs > 1 is not ported yet (ROADMAP queue 1 item 7: blocked "
+            "right-hand sides)")
     if sc.precond != "jacobi":
         raise NotImplementedError(
             f"precond={sc.precond!r} is not ported yet (block3: ROADMAP "
-            f"queue 1 item 4; mg: item 8)")
+            f"queue 1 item 4; mg: item 5)")
     if config.checkpoint_every or config.snapshot_every:
         raise NotImplementedError(
             "checkpoints and snapshots are not ported yet (ROADMAP queue 1 "
-            "item 7: chunked dispatch and resilience)")
+            "item 9: chunked dispatch and resilience)")
+    if config.partition_method not in ("rcb", "auto"):
+        raise NotImplementedError(
+            f"partition_method={config.partition_method!r} needs the "
+            f"general backend (ROADMAP queue 1 item 8)")
     structured = (model.grid is not None
                   and not np.asarray(model.elem_sign_flat).any()
                   and not model.intfc_elems
@@ -79,7 +123,7 @@ def _check_slice(model: ModelData, config: RunConfig, n_parts: int) -> None:
             "only the structured slab backend is ported (a model with "
             "grid metadata, no reflected elements or interfaces, and "
             "nx divisible by n_parts); the general backend is ROADMAP "
-            "queue 1 item 4 and the hybrid backend item 9")
+            "queue 1 item 8 and the hybrid backend item 13")
 
 
 class Solver:
