@@ -18,8 +18,10 @@ Phases (any failed check raises, so the script exits non-zero):
                 launches bitwise equal, with CUDA-event times and the
                 card's bound (bytes, CUDA-core and tensor-core terms); the
                 chunked variants (v3, v4, v5, v7, v8, v9) also at 16
-                planes a chunk; v6 in both dtypes also on a single cell
-                and on shapes that cross its tile and segment edges;
+                planes a chunk; v6 in both dtypes and v5 (at 8 and 16
+                planes) also on a single cell and on shapes that cross
+                their tile and segment edges, each with its launch
+                geometry;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
@@ -64,6 +66,10 @@ KERNEL_TOL = {"float32": 2e-5, "float64": 1e-12}   # x max|y_plain|
 # whose ny+1 and nz+1 cross several of its (y, z) tiles without filling
 # the last and whose nx+1 spans several x segments, one of them two parts
 V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
+# and v5 (float32, at 8 and 16 planes) at these: v6's, and one whose x
+# segments are longer than two chunks, so its shared-memory ring wraps
+V5_EDGE_SHAPES = V6_EDGE_SHAPES + ((1, 100, 200, 200),)
+V5_EDGE_PLANES = (8, 16)
 # The float32 kernels, v6 (the default) first, and the JAX wrapper each
 # replaces; float64 runs v6's double kernel under every variant.
 F32_VARIANTS = ("v6", "v1", "v2", "v3", "v4", "v5", "v7", "v8", "v9")
@@ -152,7 +158,8 @@ def kernel_shapes():
     n = FLAGSHIP["nx"]
     ragged = list(V6_EDGE_SHAPES) + [(1, 7, 3, 5), (2, 33, 17, 9)]
     small, flag = (1, *CARD_VS_CPU_CELLS), (1, n, n, n)
-    return {"float32": ragged + [small, flag],
+    v5_only = [s for s in V5_EDGE_SHAPES if s not in V6_EDGE_SHAPES]
+    return {"float32": ragged + v5_only + [small, flag],
             "float64": ragged + [small, (1, *DIRECT_F64_CELLS), flag]}
 
 
@@ -161,8 +168,8 @@ def phase_kernels(torch, np, rates):
     kernel_shapes(); returns the flagship record per (variant, dtype)."""
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        VARIANTS, _library, structured_matvec, structured_matvec_plain,
-        v6_geometry)
+        VARIANTS, _library, pallas_planes, structured_matvec,
+        structured_matvec_plain, v5_geometry, v6_geometry)
 
     rng = np.random.default_rng(2024)
     Ke = unit_element_library(FLAGSHIP["nu"])["Ke"]
@@ -173,13 +180,17 @@ def phase_kernels(torch, np, rates):
         tol = KERNEL_TOL[name]
         for shape in shapes[name]:
             P, nx, ny, nz = shape
-            geo = v6_geometry(P, nx, ny, nz, dtype,
-                              sms=torch.cuda.get_device_properties(0)
-                              .multi_processor_count)
-            if shape in V6_EDGE_SHAPES:
-                variants = ("v6",)
-                if shape != (1, 1, 1, 1) and min(geo.n_ty, geo.n_tz,
-                                                 geo.n_seg) < 2:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            geo = v6_geometry(P, nx, ny, nz, dtype, sms=sms)
+            edge = shape in V6_EDGE_SHAPES or shape in V5_EDGE_SHAPES
+            if edge:
+                variants = tuple(
+                    v for v, edges in (("v6", V6_EDGE_SHAPES),
+                                       ("v5", V5_EDGE_SHAPES))
+                    if shape in edges and (v == "v6"
+                                           or dtype == torch.float32))
+                if shape in V6_EDGE_SHAPES and shape != (1, 1, 1, 1) \
+                        and min(geo.n_ty, geo.n_tz, geo.n_seg) < 2:
                     raise AssertionError(f"{shape} {name} crosses no v6 "
                                          f"tile or segment edge: {geo}")
             else:
@@ -212,6 +223,22 @@ def phase_kernels(torch, np, rates):
             if shape == RAGGED_PLANES[0] and dtype == torch.float32:
                 plane_runs += [(v, RAGGED_PLANES[1]) for v in variants
                                if VARIANTS[v][1]]
+            if "v5" in variants:
+                if edge:
+                    plane_runs = [r for r in plane_runs if r[0] != "v5"] \
+                        + [("v5", pl) for pl in V5_EDGE_PLANES]
+                for pl in sorted({pl or pallas_planes() for v, pl in plane_runs
+                                  if v == "v5"}):
+                    g5 = v5_geometry(P, nx, ny, nz, pl, sms=sms)
+                    lib_smem = _library("v5").structured_matvec_v5_smem_bytes(
+                        pl, g5.rows)
+                    if lib_smem != g5.smem_bytes:
+                        raise AssertionError(f"v5 shared memory {lib_smem} "
+                                             f"B, v5_geometry says {g5}")
+                    say(f"  v5 planes={pl}: tiles {g5.n_ty}x{g5.n_tz} of "
+                        f"{g5.rows}x32 nodes, {g5.n_seg} segments of "
+                        f"{g5.seg_len} planes, {g5.blocks} blocks of "
+                        f"{g5.threads} threads, {g5.smem_bytes} B shared")
             for v, planes in plane_runs:
                 def run():
                     return structured_matvec(x, ck, K, variant=v,

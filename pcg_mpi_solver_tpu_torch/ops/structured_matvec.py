@@ -33,6 +33,8 @@ of the JAX package, one slab per part.
   tiles and the x segments that fill the card; the CPU tests check it,
   the wrapper passes it to the kernel.  The kernel's shared-memory layout
   is its own (``csrc/structured_matvec.cu``, ``Layout``).
+  :func:`v5_geometry` is the same for the v5 kernel, whose tile height
+  depends on the chunk (``planes``) its shared-memory ring holds.
 - :func:`selected_variant` and :func:`pallas_planes` read the JAX
   package's knobs, ``PCG_TPU_PALLAS_V`` and ``PCG_TPU_PALLAS_PLANES``, with
   the same defaults and the same refusals, so a setting means the same in
@@ -168,6 +170,77 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
     return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
 
 
+# The v5 kernel (csrc/structured_matvec_v5.cu): tiles of V5_ROWS[k] x
+# V5_LANES_Z owned nodes, two rows a warp; the ring holds 2 * planes + 2
+# slots of node and ck planes.  8 rows at most: at 8 planes two 8-row
+# blocks an SM ran 4.6 % faster than one 16-row block (PERF.md, PR 6).  An SM has SM_SMEM bytes of shared memory,
+# a block at most BLOCK_SMEM and the runtime reserves SMEM_RESERVED a block.
+V5_ROWS = (8, 4, 2)
+V5_LANES_Z = 32
+BLOCK_SMEM = 232448
+SM_SMEM = 233472
+SMEM_RESERVED = 1024
+
+
+def v5_smem_bytes(planes: int, rows: int) -> int:
+    """Dynamic shared memory of a v5 launch (the kernel's ``smem_bytes``):
+    2 * planes + 2 slots of 3 x (rows + 2) x 34 node values and (rows + 1)
+    x 33 ck values, Ke, and one copy-table entry (8 bytes) per slot
+    value."""
+    slot = 3 * (rows + 2) * (V5_LANES_Z + 2) + (rows + 1) * (V5_LANES_Z + 1)
+    return 4 * ((2 * planes + 2) * slot + 576) + 8 * slot
+
+
+@dataclasses.dataclass(frozen=True)
+class V5Geometry:
+    """One launch of the v5 kernel: ``n_ty`` x ``n_tz`` (y, z) tiles of
+    ``rows`` x 32 owned nodes (``threads`` = 16 x rows), ``n_seg`` x
+    segments of ``seg_len`` node planes (the last one ragged), ``blocks``
+    in all, ``smem_bytes`` of dynamic shared memory each (above BLOCK_SMEM
+    the kernel refuses the launch)."""
+    rows: int
+    n_ty: int
+    n_tz: int
+    seg_len: int
+    n_seg: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
+                sms: int = H100_SMS,
+                rows: Optional[int] = None) -> V5Geometry:
+    """Launch geometry of the v5 kernel for a (parts, nx, ny, nz) slab at
+    ``planes`` cell planes a chunk.
+
+    The tile is ``rows`` high (one of V5_ROWS), by default the tallest
+    whose ring fits a block's shared memory (the shortest if none does:
+    the kernel then refuses).  The x
+    segment length minimises waves x (seg_len + 2), a wave being the
+    blocks the card holds at once (``sms`` x the blocks an SM's shared
+    memory holds), each segment's two extra node planes included; ties go
+    to fewer segments."""
+    if rows is None:
+        rows = next((r for r in V5_ROWS
+                     if v5_smem_bytes(planes, r) <= BLOCK_SMEM), V5_ROWS[-1])
+    smem = v5_smem_bytes(planes, rows)
+    n_ty, n_tz = -(-(ny + 1) // rows), -(-(nz + 1) // V5_LANES_Z)
+    per_sm = max(1, SM_SMEM // (smem + SMEM_RESERVED))
+    nxn, tiles = nx + 1, parts * n_ty * n_tz
+    best = None
+    for n in range(1, nxn + 1):
+        seg_len = -(-nxn // n)
+        n_seg = -(-nxn // seg_len)
+        cost = -(-tiles * n_seg // (sms * per_sm)) * (seg_len + 2)
+        if best is None or cost < best[0]:
+            best = (cost, seg_len, n_seg)
+    _cost, seg_len, n_seg = best
+    return V5Geometry(rows, n_ty, n_tz, seg_len, n_seg, tiles * n_seg,
+                      16 * rows, smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index) \
@@ -236,19 +309,26 @@ def _library(variant: str) -> ctypes.CDLL:
     err_fn = getattr(lib, f"{name}_error_string")
     if err_fn.restype is not ctypes.c_char_p:
         v6 = variant == F64_VARIANT
+        # launch geometry after (P, nx, ny, nz): v6 (seg_len, n_ty, n_tz,
+        # n_seg), v5 (planes, rows, seg_len, n_ty, n_tz, n_seg), the other
+        # chunked variants (planes,)
+        n_geom = 4 if v6 else 6 if variant == "v5" else int(chunked)
         for sfx in ("f32", "f64") if v6 else ("f32",):
             stage = getattr(lib, f"{name}_stage_{sfx}")
             stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             stage.restype = ctypes.c_int
             fn = getattr(lib, f"{name}_{sfx}")
-            # x, ck, y; P, nx, ny, nz[, planes | seg_len, n_ty, n_tz,
-            # n_seg], device; stream
+            # x, ck, y; P, nx, ny, nz, geometry, device; stream
             fn.argtypes = [ctypes.c_void_p] * 3 \
-                + [ctypes.c_int] * (5 + chunked + 4 * v6) + [ctypes.c_void_p]
+                + [ctypes.c_int] * (5 + n_geom) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         if v6:
             smem = getattr(lib, f"{name}_smem_bytes")
             smem.argtypes = [ctypes.c_int]
+            smem.restype = ctypes.c_longlong
+        if variant == "v5":
+            smem = getattr(lib, f"{name}_smem_bytes")
+            smem.argtypes = [ctypes.c_int, ctypes.c_int]
             smem.restype = ctypes.c_longlong
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
@@ -300,6 +380,12 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
         geom = v6_geometry(P, nxn - 1, nyn - 1, nzn - 1, xg.dtype,
                            _sm_count(dev))
         extra = (geom.seg_len, geom.n_ty, geom.n_tz, geom.n_seg)
+    elif variant == "v5":
+        planes = pallas_planes() if planes is None else planes
+        geom = v5_geometry(P, nxn - 1, nyn - 1, nzn - 1, planes,
+                           _sm_count(dev))
+        extra = (planes, geom.rows, geom.seg_len, geom.n_ty, geom.n_tz,
+                 geom.n_seg)
     else:
         extra = (pallas_planes() if planes is None else planes,) \
             if chunked else ()

@@ -116,8 +116,11 @@ def test_solver_routes_launches_to_its_variant(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
-def test_chunk_too_large_for_shared_memory_is_refused(cuda_device):
-    """v9 stages two slots of C + 1 float4 node planes of its tile: at 32
+@pytest.mark.parametrize("variant,planes", [("v9", 32), ("v5", 56)])
+def test_chunk_too_large_for_shared_memory_is_refused(cuda_device, variant,
+                                                      planes):
+    """v9 stages two slots of C + 1 float4 node planes of its tile, v5 a
+    ring of 2C + 2 node and ck planes of its shortest tile: at these
     planes that is above the 227 KB a block can have, so the launch is
     refused with the CUDA error named, and nothing is counted."""
     x = torch.zeros((1, 3, 41, 5, 4), dtype=torch.float32,
@@ -127,8 +130,53 @@ def test_chunk_too_large_for_shared_memory_is_refused(cuda_device):
                          dtype=torch.float32, device=cuda_device)
     before = dict(smv.LAUNCHES)
     with pytest.raises(RuntimeError, match="invalid configuration"):
-        smv.structured_matvec(x, ck, Ke, variant="v9", planes=32)
+        smv.structured_matvec(x, ck, Ke, variant=variant, planes=planes)
     assert smv.LAUNCHES == before
+
+
+# v5 at a single cell and at shapes whose ny+1 and nz+1 cross its (y, z)
+# tiles without filling the last; the first two span several x segments,
+# the last has segments longer than two chunks, so its ring wraps
+V5_EDGE = [(1, (1, 1, 1)), (2, (40, 37, 70)), (1, (20, 70, 40)),
+           (1, (100, 200, 200))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [8, 16])
+@pytest.mark.parametrize("P,cells", V5_EDGE,
+                         ids=["x".join(map(str, c)) for _p, c in V5_EDGE])
+def test_v5_kernel_across_tile_and_segment_edges(cuda_device, P, cells,
+                                                 planes):
+    """v5 within 2e-5 * max|y| of the plain version, two launches bitwise
+    equal, each counted once; its shared memory as v5_smem_bytes says."""
+    nx, ny, nz = cells
+    geo = smv.v5_geometry(P, nx, ny, nz, planes,
+                          smv._sm_count(cuda_device.index or 0))
+    if cells != (1, 1, 1):
+        assert min(geo.n_ty, geo.n_tz) >= 2
+        assert (ny + 1) % geo.rows and (nz + 1) % smv.V5_LANES_Z
+        if P == 2:
+            assert geo.n_seg >= 2
+        if nx == 100:
+            assert geo.seg_len > 2 * planes
+    lib = smv._library("v5")
+    assert lib.structured_matvec_v5_smem_bytes(planes, geo.rows) \
+        == geo.smem_bytes
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
+                        dtype=torch.float32, device=cuda_device)
+    ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
+                         dtype=torch.float32, device=cuda_device)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
+                         dtype=torch.float32, device=cuda_device)
+    before = smv.LAUNCHES[("v5", "float32")]
+    y = smv.structured_matvec(x, ck, Ke, variant="v5", planes=planes)
+    y2 = smv.structured_matvec(x, ck, Ke, variant="v5", planes=planes)
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES[("v5", "float32")] == before + 2
+    y_plain = smv.structured_matvec_plain(x, ck, Ke)
+    assert (y - y_plain).abs().max() <= 2e-5 * y_plain.abs().max()
+    assert torch.equal(y, y2)
 
 
 V6_EDGE = [(1, (1, 1, 1)), (2, (40, 37, 70)), (1, (20, 70, 40))]

@@ -195,6 +195,51 @@ def test_v6_geometry_flagship_fills_the_card():
         assert g.n_ty * g.n_tz < 0.9 * smv.H100_SMS < g.blocks
 
 
+@pytest.mark.parametrize("planes", [8, 16])
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v5_geometry_covers_every_node_once(shape, planes):
+    """The v5 launch geometry: its (y, z) tiles of rows x 32 nodes own
+    every node exactly once, its x segments cover every node plane exactly
+    once, the blocks are parts x tiles x segments, and the tile is the
+    tallest whose ring fits a block's shared memory."""
+    P, nx, ny, nz = shape
+    g = smv.v5_geometry(P, nx, ny, nz, planes)
+    for n_nodes, tile, n_tiles in ((ny + 1, g.rows, g.n_ty),
+                                   (nz + 1, smv.V5_LANES_Z, g.n_tz),
+                                   (nx + 1, g.seg_len, g.n_seg)):
+        owned = np.zeros(n_nodes, int)
+        for t in range(n_tiles):
+            owned[t * tile:(t + 1) * tile] += 1
+        assert (owned == 1).all()
+        assert (n_tiles - 1) * tile < n_nodes    # no tile owns nothing
+    assert g.blocks == P * g.n_ty * g.n_tz * g.n_seg
+    assert g.threads == 16 * g.rows
+    assert g.smem_bytes == smv.v5_smem_bytes(planes, g.rows) \
+        <= smv.BLOCK_SMEM
+    taller = [r for r in smv.V5_ROWS if r > g.rows]
+    assert all(smv.v5_smem_bytes(planes, r) > smv.BLOCK_SMEM
+               for r in taller)
+
+
+@pytest.mark.parametrize("planes", [8, 16])
+def test_v5_geometry_flagship_fills_the_card(planes):
+    """At the flagship slab the x segments give nearly every SM of an H100
+    SXM a block where the tiles alone do not, and the ring fits 227 KB."""
+    g = smv.v5_geometry(1, 150, 150, 150, planes)
+    assert g.n_ty * g.n_tz < 0.9 * smv.H100_SMS <= g.blocks
+    assert g.smem_bytes <= smv.BLOCK_SMEM == 232448
+    # nearly full waves: the last wave of blocks is at least 3/4 full
+    waves = g.blocks / smv.H100_SMS
+    assert waves / -(-g.blocks // smv.H100_SMS) >= 0.75
+
+
+def test_v5_geometry_past_the_shared_memory_takes_the_shortest_tile():
+    """A chunk whose ring does not fit even at two rows keeps the shortest
+    tile; the kernel then refuses the launch (tests/test_torch_cuda.py)."""
+    g = smv.v5_geometry(1, 40, 4, 3, 56)
+    assert g.rows == smv.V5_ROWS[-1] and g.smem_bytes > smv.BLOCK_SMEM
+
+
 # the TPU kernels each ported variant replaces, with the chunk sizes that
 # apply (v1 and v2 march one plane a step and take none; v6 has its own
 # test above)
