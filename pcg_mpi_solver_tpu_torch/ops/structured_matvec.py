@@ -173,8 +173,9 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
 # The v5 kernel (csrc/structured_matvec_v5.cu): tiles of V5_ROWS[k] x
 # V5_LANES_Z owned nodes, two rows a warp; the ring holds 2 * planes + 2
 # slots of node and ck planes.  8 rows at most: at 8 planes two 8-row
-# blocks an SM ran 4.6 % faster than one 16-row block (PERF.md, PR 6).  An SM has SM_SMEM bytes of shared memory,
-# a block at most BLOCK_SMEM and the runtime reserves SMEM_RESERVED a block.
+# blocks an SM ran 4.6 % faster than one 16-row block (PERF.md, PR 6).
+# An SM has SM_SMEM bytes of shared memory, a block at most BLOCK_SMEM,
+# and the runtime reserves SMEM_RESERVED a block.
 V5_ROWS = (8, 4, 2)
 V5_LANES_Z = 32
 BLOCK_SMEM = 232448
@@ -217,11 +218,10 @@ def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
 
     The tile is ``rows`` high (one of V5_ROWS), by default the tallest
     whose ring fits a block's shared memory (the shortest if none does:
-    the kernel then refuses).  The x
-    segment length minimises waves x (seg_len + 2), a wave being the
-    blocks the card holds at once (``sms`` x the blocks an SM's shared
-    memory holds), each segment's two extra node planes included; ties go
-    to fewer segments."""
+    the kernel then refuses).  The x segment length minimises waves x
+    (seg_len + 2), a wave being the blocks the card holds at once
+    (``sms`` x the blocks an SM's shared memory holds), each segment's two
+    extra node planes included; ties go to fewer segments."""
     if rows is None:
         rows = next((r for r in V5_ROWS
                      if v5_smem_bytes(planes, r) <= BLOCK_SMEM), V5_ROWS[-1])

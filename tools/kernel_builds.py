@@ -1,0 +1,82 @@
+"""Helpers of the kernel comparison tools (tools/v5_kernel_compare.py,
+tools/v6_kernel_compare.py): build a kernel source with nvcc under other
+flags, time a launch with CUDA events, count a build's SASS instructions,
+and read the card's name and power limit."""
+
+from __future__ import annotations
+
+import collections
+import re
+import statistics
+import subprocess
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "pcg_mpi_solver_tpu_torch" / "csrc"
+# SASS opcodes counted as integer and address arithmetic
+INTEGER = ("IMAD", "IADD3", "LEA", "ISETP", "LOP3", "SHF", "VIADD", "IABS",
+           "SEL", "IMNMX", "VIMNMX", "PRMT", "UIMAD", "UIADD3", "ULEA")
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def build(src: Path, out_dir: Path, name: str, defines=()) -> Path:
+    """Compiles ``src`` with the port's flags plus ``defines`` into
+    ``out_dir/name.so`` and prints its registers and spills."""
+    from pcg_mpi_solver_tpu_torch.ops.kernels import NVCC_FLAGS, nvcc_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"{name}.so"
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, *defines, "-I",
+                           str(CSRC), "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"build {name}: {line.strip()}")
+    return lib
+
+
+def time_ms(torch, fn, reps: int = 25) -> float:
+    """Median CUDA-event time of one call, L2 flushed before each."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def sass_mix(lib: Path, tag: str, label, keys) -> None:
+    """Prints the static count of each opcode in ``keys`` (and of integer
+    arithmetic) per kernel of ``lib``; ``label(mangled name)`` names it."""
+    from pcg_mpi_solver_tpu_torch.ops.kernels import nvcc_path
+    dump = Path(nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(dump), "-sass", str(lib)], capture_output=True,
+                         text=True).stdout
+    for body in re.split(r"\n\s*Function : ", out)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        ops = collections.Counter()
+        for line in body.splitlines():
+            m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)", line)
+            if m:
+                ops[m.group(2)] += 1
+        shown = {k: ops[k] for k in keys if ops[k]}
+        shown["integer"] = sum(ops[k] for k in INTEGER)
+        print(f"sass {tag}{label(name)}: {sum(ops.values())} instructions; "
+              f"{shown}")

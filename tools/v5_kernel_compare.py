@@ -20,8 +20,8 @@ Prints, at the flagship slab (1 part, 150^3 cells), at 8 and 16 planes:
   * each build's registers, spills and SASS instruction mix (cuobjdump,
     static counts per kernel).
 --src TAG=PATH builds another source with this one's C interface (a
-variant kept under build/); --old takes a source with PR 3's C interface (P, nx, ny, nz, planes,
-device).  Builds go to build/v5_compare/.
+variant kept under build/); --old takes a source with PR 3's C interface
+(P, nx, ny, nz, planes, device).  Builds go to build/v5_compare/.
 """
 
 from __future__ import annotations
@@ -31,43 +31,26 @@ import collections
 import concurrent.futures
 import ctypes
 import re
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
-CSRC = ROOT / "pcg_mpi_solver_tpu_torch" / "csrc"
+from kernel_builds import (  # noqa: E402
+    CSRC, build, nvidia_smi, sass_mix, time_ms)
+
 OUT = ROOT / "build" / "v5_compare"
 N = 150
 PLANES = (8, 16)
-INTEGER = ("IMAD", "IADD3", "LEA", "ISETP", "LOP3", "SHF", "VIADD", "IABS",
-           "SEL", "IMNMX", "VIMNMX", "PRMT", "UIMAD", "UIADD3", "ULEA")
+SASS_KEYS = ("FFMA", "FMUL", "FADD", "MOV", "LDG", "LDGSTS", "LDS", "STS",
+             "STG", "ULDC", "LDC", "LDL", "STL", "BAR")
 
 
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def build(src: Path, name: str, defines=()) -> Path:
-    from pcg_mpi_solver_tpu_torch.ops.kernels import NVCC_FLAGS, nvcc_path
-    OUT.mkdir(parents=True, exist_ok=True)
-    lib = OUT / f"{name}.so"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, *defines, "-I",
-                           str(CSRC), "-o", str(lib), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build {name}: {line.strip()}")
-    return lib
+def rows_label(name: str) -> str:
+    m = re.search(r"kernelILi(\d+)E", name)
+    return f" rows {m.group(1)}" if m else ""
 
 
 def load(lib: Path, n_ints: int) -> ctypes.CDLL:
@@ -79,46 +62,6 @@ def load(lib: Path, n_ints: int) -> ctypes.CDLL:
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return h
-
-
-def time_ms(torch, fn, reps: int = 25) -> float:
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
-
-def sass_mix(lib: Path, tag: str) -> None:
-    from pcg_mpi_solver_tpu_torch.ops.kernels import nvcc_path
-    dump = Path(nvcc_path()).with_name("cuobjdump")
-    out = subprocess.run([str(dump), "-sass", str(lib)], capture_output=True,
-                         text=True).stdout
-    for body in re.split(r"\n\s*Function : ", out)[1:]:
-        name = body.split("\n", 1)[0].strip()
-        m = re.search(r"kernelILi(\d+)E", name)
-        ops = collections.Counter()
-        for line in body.splitlines():
-            m2 = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?"
-                          r"([A-Z][A-Z0-9_]*)", line)
-            if m2:
-                ops[m2.group(2)] += 1
-        keys = ("FFMA", "FMUL", "FADD", "MOV", "LDG", "LDGSTS", "LDS",
-                "STS", "STG", "ULDC", "LDC", "LDL", "STL", "BAR")
-        shown = {k: ops[k] for k in keys if ops[k]}
-        shown["integer"] = sum(ops[k] for k in INTEGER)
-        rows = f" rows {m.group(1)}" if m else ""
-        print(f"sass {tag}{rows}: {sum(ops.values())} instructions; "
-              f"{shown}")
 
 
 def main() -> int:
@@ -158,13 +101,14 @@ def main() -> int:
     jobs = {}
     with concurrent.futures.ThreadPoolExecutor() as pool:
         if args.old is not None:
-            jobs["old"] = pool.submit(build, args.old, "old")
+            jobs["old"] = pool.submit(build, args.old, OUT, "old")
         for spec in args.build:
             tag, flags = spec.split("=", 1)
-            jobs[tag] = pool.submit(build, src, tag, tuple(flags.split(",")))
+            jobs[tag] = pool.submit(build, src, OUT, tag,
+                                    tuple(flags.split(",")))
         for spec in args.src:
             tag, path = spec.split("=", 1)
-            jobs[tag] = pool.submit(build, Path(path), tag)
+            jobs[tag] = pool.submit(build, Path(path), OUT, tag)
         for tag, job in jobs.items():
             libs[tag] = (job.result(),
                          load(job.result(), 6 if tag == "old" else 11))
@@ -225,7 +169,7 @@ def main() -> int:
                   f"{by_rows}")
 
     for tag, (path, _h) in libs.items():
-        sass_mix(path, tag)
+        sass_mix(path, tag, rows_label, SASS_KEYS)
     print(nvidia_smi())
     return 0
 

@@ -29,45 +29,21 @@ import argparse
 import collections
 import concurrent.futures
 import ctypes
-import re
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
-CSRC = ROOT / "pcg_mpi_solver_tpu_torch" / "csrc"
+from kernel_builds import (  # noqa: E402
+    CSRC, build, nvidia_smi, sass_mix, time_ms)
+
 OUT = ROOT / "build" / "v6_compare"
 N = 150
 DEPTHS = (2, 3, 4)
-# SASS opcodes counted as integer and address arithmetic
-INTEGER = ("IMAD", "IADD3", "LEA", "ISETP", "LOP3", "SHF", "VIADD", "IABS",
-           "SEL", "IMNMX", "VIMNMX", "PRMT", "UIMAD", "UIADD3", "ULEA")
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def build(src: Path, name: str, defines=()) -> Path:
-    from pcg_mpi_solver_tpu_torch.ops.kernels import NVCC_FLAGS, nvcc_path
-    OUT.mkdir(parents=True, exist_ok=True)
-    lib = OUT / f"{name}.so"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, *defines, "-I",
-                           str(CSRC), "-o", str(lib), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build {name}: {line.strip()}")
-    return lib
+SASS_KEYS = ("FFMA", "DFMA", "HMMA", "DMMA", "LDG", "LDGSTS", "LDS", "STS",
+             "STG", "ULDC", "LDC")
 
 
 def load(lib: Path, n_ints: int) -> ctypes.CDLL:
@@ -80,45 +56,6 @@ def load(lib: Path, n_ints: int) -> ctypes.CDLL:
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return h
-
-
-def time_ms(torch, fn, reps: int = 25) -> float:
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
-
-def sass_mix(lib: Path, tag: str) -> None:
-    from pcg_mpi_solver_tpu_torch.ops.kernels import nvcc_path
-    dump = Path(nvcc_path()).with_name("cuobjdump")
-    out = subprocess.run([str(dump), "-sass", str(lib)], capture_output=True,
-                         text=True).stdout
-    for body in re.split(r"\n\s*Function : ", out)[1:]:
-        name = body.split("\n", 1)[0].strip()
-        dtype = "double" if "IdE" in name else "float"
-        ops = collections.Counter()
-        for line in body.splitlines():
-            m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_]*)", line)
-            if m:
-                ops[m.group(2)] += 1
-        keys = ("FFMA", "DFMA", "HMMA", "DMMA", "LDG", "LDGSTS", "LDS",
-                "STS", "STG", "ULDC", "LDC")
-        shown = {k: ops[k] for k in keys if ops[k]}
-        shown["integer"] = sum(ops[k] for k in INTEGER)
-        print(f"sass {tag} {dtype}: {sum(ops.values())} instructions; "
-              f"{shown}")
 
 
 def main() -> int:
@@ -148,10 +85,10 @@ def main() -> int:
     jobs = {}
     with concurrent.futures.ThreadPoolExecutor() as pool:
         if args.old is not None:
-            jobs["old"] = pool.submit(build, args.old, "old")
+            jobs["old"] = pool.submit(build, args.old, OUT, "old")
         for d in DEPTHS if args.sweep else ():
             jobs[f"depth{d}"] = pool.submit(
-                build, src, f"depth{d}",
+                build, src, OUT, f"depth{d}",
                 (f"-DV6_STAGES_F32={d}", f"-DV6_STAGES_F64={d}"))
         for tag, job in jobs.items():
             libs[tag] = (job.result(), load(job.result(),
@@ -222,7 +159,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     for tag, (path, _h) in libs.items():
-        sass_mix(path, tag)
+        sass_mix(path, tag, lambda name: " double" if "IdE" in name
+                 else " float", SASS_KEYS)
     print(nvidia_smi())
     return 0
 
