@@ -17,16 +17,18 @@ Phases (any failed check raises, so the script exits non-zero):
                 slab shape phases 4 and 5 give it in that dtype, two
                 launches bitwise equal, with CUDA-event times and the
                 card's bound (bytes, CUDA-core and tensor-core terms); the
-                chunked variants (v3, v4, v5, v7, v8, v9) also at 16
-                planes a chunk; v6 in both dtypes and v5 (at 8 and 16
-                planes) also on a single cell and on shapes that cross
+                chunked variants (v3, v5, v7, v8, v9) also at 16 planes a
+                chunk; v6 in both dtypes, v4 (float32 on v6's tiles) and
+                v5 (at 8 and 16 planes) also on a single cell and on
+                shapes that cross
                 their tile and segment edges, each with its launch
                 geometry;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
                 (``PCG_TPU_PALLAS_V``), v6 last, with the kernel launch
-                counts of each solve; then a profiled window of inner f32
+                counts and inner cycles of each solve (v4's beside v6's
+                at the end); then a profiled window of inner f32
                 iterations under v6;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
@@ -62,14 +64,17 @@ CARD_VS_CPU_CELLS = (12, 6, 5)      # phase 5's card-against-CPU solves
 JAX_FLAGSHIP_ITERS = 3334
 
 KERNEL_TOL = {"float32": 2e-5, "float64": 1e-12}   # x max|y_plain|
-# phase 3 also holds v6 (both dtypes) at these: a single cell, and shapes
-# whose ny+1 and nz+1 cross several of its (y, z) tiles without filling
-# the last and whose nx+1 spans several x segments, one of them two parts
+# phase 3 also holds v6 (both dtypes) and v4 (float32, on v6's tiles) at
+# these: a single cell, and shapes whose ny+1 and nz+1 cross several of
+# their (y, z) tiles without filling the last and whose nx+1 spans several
+# x segments, one of them two parts
 V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
 # and v5 (float32, at 8 and 16 planes) at these: v6's, and one whose x
 # segments are longer than two chunks, so its shared-memory ring wraps
 V5_EDGE_SHAPES = V6_EDGE_SHAPES + ((1, 100, 200, 200),)
 V5_EDGE_PLANES = (8, 16)
+EDGE_SHAPES = {"v6": V6_EDGE_SHAPES, "v4": V6_EDGE_SHAPES,
+               "v5": V5_EDGE_SHAPES}
 # The float32 kernels, v6 (the default) first, and the JAX wrapper each
 # replaces; float64 runs v6's double kernel under every variant.
 F32_VARIANTS = ("v6", "v1", "v2", "v3", "v4", "v5", "v7", "v8", "v9")
@@ -168,7 +173,7 @@ def phase_kernels(torch, np, rates):
     kernel_shapes(); returns the flagship record per (variant, dtype)."""
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        VARIANTS, _library, pallas_planes, structured_matvec,
+        TILED, VARIANTS, _library, pallas_planes, structured_matvec,
         structured_matvec_plain, v5_geometry, v6_geometry)
 
     rng = np.random.default_rng(2024)
@@ -182,17 +187,12 @@ def phase_kernels(torch, np, rates):
             P, nx, ny, nz = shape
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             geo = v6_geometry(P, nx, ny, nz, dtype, sms=sms)
-            edge = shape in V6_EDGE_SHAPES or shape in V5_EDGE_SHAPES
+            edge = any(shape in e for e in EDGE_SHAPES.values())
             if edge:
                 variants = tuple(
-                    v for v, edges in (("v6", V6_EDGE_SHAPES),
-                                       ("v5", V5_EDGE_SHAPES))
+                    v for v, edges in EDGE_SHAPES.items()
                     if shape in edges and (v == "v6"
                                            or dtype == torch.float32))
-                if shape in V6_EDGE_SHAPES and shape != (1, 1, 1, 1) \
-                        and min(geo.n_ty, geo.n_tz, geo.n_seg) < 2:
-                    raise AssertionError(f"{shape} {name} crosses no v6 "
-                                         f"tile or segment edge: {geo}")
             else:
                 variants = F32_VARIANTS if dtype == torch.float32 \
                     else ("v6",)
@@ -219,6 +219,20 @@ def phase_kernels(torch, np, rates):
                 f"{geo.tile_nodes[1]} nodes, {geo.n_seg} segments of "
                 f"{geo.seg_len} planes, {geo.blocks} blocks, {smem} B "
                 f"shared")
+            for v in TILED:
+                if v not in variants:
+                    continue
+                g = v6_geometry(P, nx, ny, nz, dtype, sms=sms, variant=v)
+                if shape in V6_EDGE_SHAPES and shape != (1, 1, 1, 1) \
+                        and min(g.n_ty, g.n_tz, g.n_seg) < 2:
+                    raise AssertionError(f"{shape} {name} crosses no {v} "
+                                         f"tile or segment edge: {g}")
+                if v == "v4":
+                    lib_smem = _library("v4").structured_matvec_v4_smem_bytes()
+                    say(f"  v4 tiles {g.n_ty}x{g.n_tz} of "
+                        f"{g.tile_nodes[0]}x{g.tile_nodes[1]} nodes, "
+                        f"{g.n_seg} segments of {g.seg_len} planes, "
+                        f"{g.blocks} blocks, {lib_smem} B shared")
             plane_runs = [(v, None) for v in variants]
             if shape == RAGGED_PLANES[0] and dtype == torch.float32:
                 plane_runs += [(v, RAGGED_PLANES[1]) for v in variants
@@ -295,7 +309,11 @@ def inner_cycles():
 
 def phase_main(torch, np):
     """The flagship mixed solve once under each float32 variant; returns
-    {variant: launch counts of its solve}."""
+    {variant: launch counts of its solve}.  Ends with v4's inner cycles
+    beside v6's: the stagnation exits that end the cycles move with the
+    round-off of the cell product (v4 runs v6 float's FFMA product on its
+    tiles; a DMMA product moved the second exit by 200 iterations,
+    tools/v4_kernel_compare.py --flagship)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
@@ -316,7 +334,7 @@ def phase_main(torch, np):
     # a 3x window for the two-phase material
     sigma = FLAGSHIP["load_value"] * (nx + 1) ** 2 / nx ** 2
     bar = sigma * nx / FLAGSHIP["E"]
-    launches_by = {}
+    launches_by, cycles_by = {}, {}
     # v6 last: its profiled window follows its solve, and the torch.profiler
     # window slows every solve run after it (PERF.md, Findings)
     for variant in sorted(F32_VARIANTS, key=lambda v: v == "v6"):
@@ -370,8 +388,12 @@ def phase_main(torch, np):
         if variant == "v6":
             profile_inner(torch, solver)
         launches_by[variant] = launches
+        cycles_by[variant] = (cycles, res.iters)
         del solver, u
         torch.cuda.empty_cache()
+    say(f"main: inner cycles (flag, iterations) v4 {cycles_by['v4'][0]}, "
+        f"{cycles_by['v4'][1]} in all; v6 {cycles_by['v6'][0]}, "
+        f"{cycles_by['v6'][1]} in all")
     return launches_by
 
 

@@ -29,10 +29,12 @@ of the JAX package, one slab per part.
   of eight zero-padded translates.  The CPU tests hold it against the JAX
   package and its Pallas kernels, and ``chip_smoke.py`` holds each kernel
   against it on the card.
-- :func:`v6_geometry` is the launch grid of the v6 kernel: its (y, z)
-  tiles and the x segments that fill the card; the CPU tests check it,
-  the wrapper passes it to the kernel.  The kernel's shared-memory layout
-  is its own (``csrc/structured_matvec.cu``, ``Layout``).
+- :func:`v6_geometry` is the launch grid of the kernels on v6's tiles
+  (v6 in both dtypes, and v4, whose float32 kernel is v6 float's tiles
+  and FFMA product in a library of its own): their (y, z) tiles and the
+  x segments that fill the card; the CPU tests check it, the wrapper
+  passes it to the kernel.  The kernels' shared-memory layout is their
+  own (``csrc/structured_tiles.cuh``, ``Layout``).
   :func:`v5_geometry` is the same for the v5 kernel, whose tile height
   depends on the chunk (``planes``) its shared-memory ring holds.
 - :func:`selected_variant` and :func:`pallas_planes` read the JAX
@@ -68,7 +70,7 @@ CORNERS = tuple(tuple(int(v) for v in c) for c in HEX_CORNERS)
 VARIANTS = {"v1": ("structured_matvec_v1", False),
             "v2": ("structured_matvec_v2", False),
             "v3": ("structured_matvec_v3", True),
-            "v4": ("structured_matvec_v4", True),
+            "v4": ("structured_matvec_v4", False),
             "v5": ("structured_matvec_v5", True),
             "v6": ("structured_matvec", False),
             "v7": ("structured_matvec_v7", True),
@@ -120,22 +122,27 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-# The v6 kernel's tile shape, as csrc/structured_matvec.cu (Layout<T>)
-# compiles it: a block computes V6_CELLS_Y[dtype] x V6_CELLS_Z cells a
+# The tile shape of the kernels on v6's tiles, per (variant, dtype), as
+# csrc/structured_matvec.cu and csrc/structured_matvec_v4.cu compile it
+# (smv::Layout): a block computes V6_CELLS_Y[key] x V6_CELLS_Z cells a
 # plane and owns the nodes inside them, (cells - 1) in each axis; an SM
-# holds V6_BLOCKS_PER_SM[dtype] blocks (the kernel's __launch_bounds__
-# minimum, which its shared memory also allows).
-V6_CELLS_Y = {torch.float32: 32, torch.float64: 8}
+# holds V6_BLOCKS_PER_SM[key] blocks (the kernel's __launch_bounds__
+# minimum, which its shared memory also allows).  A launch whose grid does
+# not match the library's tile is refused.
+V6_CELLS_Y = {("v6", torch.float32): 32, ("v6", torch.float64): 8,
+              ("v4", torch.float32): 32}
 V6_CELLS_Z = 32
-V6_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 2}
+V6_BLOCKS_PER_SM = {("v6", torch.float32): 1, ("v6", torch.float64): 2,
+                    ("v4", torch.float32): 1}
+TILED = ("v6", "v4")        # the variants whose launch takes v6_geometry
 H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
 class V6Geometry:
-    """One launch of the v6 kernel: ``n_ty`` x ``n_tz`` (y, z) tiles of
-    ``tile_nodes`` owned nodes, ``n_seg`` x segments of ``seg_len`` node
-    planes (the last one ragged), ``blocks`` in all."""
+    """One launch of a kernel on v6's tiles: ``n_ty`` x ``n_tz`` (y, z)
+    tiles of ``tile_nodes`` owned nodes, ``n_seg`` x segments of
+    ``seg_len`` node planes (the last one ragged), ``blocks`` in all."""
     tile_nodes: tuple
     n_ty: int
     n_tz: int
@@ -146,18 +153,22 @@ class V6Geometry:
 
 @functools.lru_cache(maxsize=256)
 def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
-                sms: int = H100_SMS) -> V6Geometry:
-    """Launch geometry of the v6 kernel for a (parts, nx, ny, nz) slab.
+                sms: int = H100_SMS, variant: str = "v6",
+                tile: Optional[tuple] = None) -> V6Geometry:
+    """Launch geometry of the kernel of ``variant`` on v6's tiles (v6 or
+    v4) for a (parts, nx, ny, nz) slab.  ``tile`` = (cells a tile column,
+    blocks an SM) overrides the variant's table entry, for builds of
+    another tile (tools/v4_kernel_compare.py).
 
     The x segment length minimises waves x (seg_len + 3), a wave being the
     blocks the card holds at once (``sms`` x the blocks an SM holds): the
     planes of the longest chain of blocks on one SM, each segment's
     recomputed carry plane and two planes of ring fill included; ties go
     to fewer segments."""
-    cy = V6_CELLS_Y[dtype]
-    tile = (cy - 1, V6_CELLS_Z - 1)
-    n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
-    per_sm = V6_BLOCKS_PER_SM[dtype]
+    cy, per_sm = tile or (V6_CELLS_Y[(variant, dtype)],
+                          V6_BLOCKS_PER_SM[(variant, dtype)])
+    nodes = (cy - 1, V6_CELLS_Z - 1)
+    n_ty, n_tz = -(-(ny + 1) // nodes[0]), -(-(nz + 1) // nodes[1])
     nxn, tiles = nx + 1, parts * n_ty * n_tz
     best = None
     for n in range(1, nxn + 1):
@@ -167,7 +178,7 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
         if best is None or cost < best[0]:
             best = (cost, seg_len, n_seg)
     _cost, seg_len, n_seg = best
-    return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
+    return V6Geometry(nodes, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
 
 
 # The v5 kernel (csrc/structured_matvec_v5.cu): tiles of V5_ROWS[k] x
@@ -309,10 +320,11 @@ def _library(variant: str) -> ctypes.CDLL:
     err_fn = getattr(lib, f"{name}_error_string")
     if err_fn.restype is not ctypes.c_char_p:
         v6 = variant == F64_VARIANT
-        # launch geometry after (P, nx, ny, nz): v6 (seg_len, n_ty, n_tz,
-        # n_seg), v5 (planes, rows, seg_len, n_ty, n_tz, n_seg), the other
-        # chunked variants (planes,)
-        n_geom = 4 if v6 else 6 if variant == "v5" else int(chunked)
+        # launch geometry after (P, nx, ny, nz): v6 and v4 (seg_len, n_ty,
+        # n_tz, n_seg), v5 (planes, rows, seg_len, n_ty, n_tz, n_seg), the
+        # other chunked variants (planes,)
+        n_geom = 4 if variant in TILED else 6 if variant == "v5" \
+            else int(chunked)
         for sfx in ("f32", "f64") if v6 else ("f32",):
             stage = getattr(lib, f"{name}_stage_{sfx}")
             stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -322,9 +334,9 @@ def _library(variant: str) -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 3 \
                 + [ctypes.c_int] * (5 + n_geom) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        if v6:
+        if variant in TILED:
             smem = getattr(lib, f"{name}_smem_bytes")
-            smem.argtypes = [ctypes.c_int]
+            smem.argtypes = [ctypes.c_int] if v6 else []
             smem.restype = ctypes.c_longlong
         if variant == "v5":
             smem = getattr(lib, f"{name}_smem_bytes")
@@ -350,8 +362,9 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
     """y = K_slab . x per part.  CUDA tensors launch the kernel of
     ``variant`` in float32, v6's double kernel in float64 (or raise); CPU
     tensors run :func:`structured_matvec_plain`.  ``planes`` is the chunk
-    of the chunked variants (v3, v4, v5, v7, v8, v9); None reads
-    :func:`pallas_planes`."""
+    of the chunked variants (v3, v5, v7, v8, v9); None reads
+    :func:`pallas_planes`.  The other variants (v1, v2, v4, v6) ignore
+    it."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got "
                          f"{variant!r}")
@@ -376,9 +389,9 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
         _STAGED[key] = (Ke, Ke._version)
     y = torch.empty_like(xg)
     P, _, nxn, nyn, nzn = xg.shape
-    if variant == F64_VARIANT:
+    if variant in TILED:
         geom = v6_geometry(P, nxn - 1, nyn - 1, nzn - 1, xg.dtype,
-                           _sm_count(dev))
+                           _sm_count(dev), variant)
         extra = (geom.seg_len, geom.n_ty, geom.n_tz, geom.n_seg)
     elif variant == "v5":
         planes = pallas_planes() if planes is None else planes

@@ -219,6 +219,46 @@ def test_v6_kernel_across_tile_and_segment_edges(cuda_device, dtype, tol, P,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P,cells", V6_EDGE,
+                         ids=["x".join(map(str, c)) for _p, c in V6_EDGE])
+def test_v4_kernel_across_tile_and_segment_edges(cuda_device, P, cells):
+    """v4 (float32 on v6's tiles, in a library of its own) on a single
+    cell and on shapes that cross several of its (y, z)
+    tiles without filling the last one and span several x segments (two
+    parts in one): within 2e-5 * max|y| of the plain version, two launches
+    bitwise equal, each launch counted once; a grid that is not the
+    library's tile is refused by its entry point."""
+    nx, ny, nz = cells
+    geo = smv.v6_geometry(P, nx, ny, nz, torch.float32, variant="v4")
+    if cells != (1, 1, 1):
+        assert min(geo.n_ty, geo.n_tz, geo.n_seg) >= 2
+        assert (ny + 1) % geo.tile_nodes[0] and (nz + 1) % geo.tile_nodes[1]
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
+                        dtype=torch.float32, device=cuda_device)
+    ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
+                         dtype=torch.float32, device=cuda_device)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
+                         dtype=torch.float32, device=cuda_device)
+    before = smv.LAUNCHES[("v4", "float32")]
+    y = smv.structured_matvec(x, ck, Ke, variant="v4")
+    y2 = smv.structured_matvec(x, ck, Ke, variant="v4")
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES[("v4", "float32")] == before + 2
+    y_plain = smv.structured_matvec_plain(x, ck, Ke)
+    assert (y - y_plain).abs().max() <= 2e-5 * y_plain.abs().max()
+    assert torch.equal(y, y2)
+    lib = smv._library("v4")
+    bad = (geo.seg_len, geo.n_ty + 1, geo.n_tz, geo.n_seg)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    err = lib.structured_matvec_v4_f32(
+        x.data_ptr(), ck.data_ptr(), y.data_ptr(), P, nx, ny, nz, *bad,
+        cuda_device.index or 0, stream)
+    assert lib.structured_matvec_v4_error_string(err).decode() \
+        == "invalid argument"
+
+
+@pytest.mark.cuda
 def test_kernel_reads_the_ke_it_is_given(cuda_device):
     """Ke is staged into the constant bank only when it changes: an
     in-place change of the same tensor and another tensor are both seen.

@@ -15,7 +15,8 @@ import torch
 from pcg_mpi_solver_tpu.models.synthetic import make_cube_model as jax_cube
 from pcg_mpi_solver_tpu.ops.matvec import Ops as JaxOps
 from pcg_mpi_solver_tpu.ops import pallas_matvec as jax_pallas
-from pcg_mpi_solver_tpu.ops.pallas_matvec import structured_matvec_pallas_v6
+from pcg_mpi_solver_tpu.ops.pallas_matvec import (
+    structured_matvec_pallas_v4, structured_matvec_pallas_v6)
 from pcg_mpi_solver_tpu.parallel.structured import (
     StructuredOps as JaxStructuredOps, device_data_structured as jax_data,
     partition_structured as jax_partition)
@@ -89,18 +90,25 @@ def tf32(v: torch.Tensor) -> torch.Tensor:
     return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def v6_float_arithmetic(xg, ck, Ke, arithmetic):
-    """A float32 cell product of the v6 kernel, emulated: ``"ffma"`` (the
-    one the kernel ships: float32 products summed in float32) or one of
-    the tensor-core products weighed against it, ``"3xtf32"`` (u and Ke
-    split into hi = tf32(v) and lo = tf32(v - hi); lo.hi + hi.lo, then
-    hi.hi; float32 sums) and ``"1xtf32"`` (hi.hi alone).  ck scales the
-    product, as in the kernel; the placement sums in float32."""
+def cell_products(xg, ck, Ke, arithmetic):
+    """The (P, 24, cx, cy, cz) float32 cell products ck * (Ke . u) of a
+    float32 kernel on v6's tiles, emulated: ``"ffma"`` (the one the v6
+    and v4 kernels ship: float32 products summed in float32) or one of the
+    tensor-core products weighed against it, ``"dmma"`` (v4's V4_DMMA
+    build, on the FP64 tensor cores: u, Ke and ck widened to float64, each
+    cell's sum scaled by its ck in float64 and rounded to float32 once),
+    ``"3xtf32"`` (u and Ke split into hi = tf32(v) and lo =
+    tf32(v - hi); lo.hi + hi.lo, then hi.hi; float32 sums) and
+    ``"1xtf32"`` (hi.hi alone).  ck scales the product, as in the
+    kernels."""
     u = smv.gather_cells(xg)
 
     def prod(k, v):
         return torch.einsum("de,pexyz->pdxyz", k, v)
 
+    if arithmetic == "dmma":
+        f = ck.double()[:, None] * prod(Ke.double(), u.double())
+        return f.float()
     if arithmetic == "ffma":
         f = prod(Ke, u)
     else:
@@ -108,20 +116,27 @@ def v6_float_arithmetic(xg, ck, Ke, arithmetic):
         f = prod(kh, uh)
         if arithmetic == "3xtf32":
             f = (prod(kh, tf32(u - uh)) + prod(tf32(Ke - kh), uh)) + f
-    return smv.scatter_cells(ck[:, None] * f)
+    return ck[:, None] * f
 
 
-@pytest.mark.parametrize("reference", ["jax_f64", "pallas_v6"])
-@pytest.mark.parametrize("arithmetic", ["ffma", "3xtf32"])
+def v6_float_arithmetic(xg, ck, Ke, arithmetic):
+    """The float32 matvec of a kernel on v6's tiles, emulated: its
+    cell_products placed onto the nodes by float32 sums."""
+    return smv.scatter_cells(cell_products(xg, ck, Ke, arithmetic))
+
+
+@pytest.mark.parametrize("reference", ["jax_f64", "pallas_v6", "pallas_v4"])
+@pytest.mark.parametrize("arithmetic", ["ffma", "3xtf32", "dmma"])
 @pytest.mark.parametrize("dims", DIMS)
 def test_v6_float_arithmetic_within_kernel_tolerance(dims, arithmetic,
                                                      reference):
-    """The float32 arithmetic the v6 kernel ships (FFMA) stays within the
-    card's kernel tolerance, 2e-5 x max|y|, of the JAX package's
-    matvec_local in float64 and of its TPU kernel (Pallas interpreter), on
-    ragged shapes.  The 3xTF32 case is a record of why the kernel is not
-    on the tensor cores although that product passes too: the tolerance
-    does not decide it, the flagship solve's iterations did (PERF.md)."""
+    """The float32 arithmetic the v6 and v4 kernels ship (FFMA) stays
+    within the card's kernel tolerance, 2e-5 x max|y|, of the JAX
+    package's matvec_local in float64 and of its TPU kernels v6 and v4
+    (Pallas interpreter), on ragged shapes.  The 3xTF32 and DMMA cases are
+    a record of why neither kernel is on the tensor cores although those
+    products pass too: the tolerance does not decide it, the flagship
+    solve's iterations did (PERF.md)."""
     nx, ny, nz = dims
     (_j, jd32), (_t, td) = both(dims, dtype="float32")
     tb = td["blocks"][0]
@@ -136,9 +151,47 @@ def test_v6_float_arithmetic_within_kernel_tolerance(dims, arithmetic,
                 xg.shape)
     else:
         blk = jd32["blocks"][0]
-        y_ref = np.asarray(structured_matvec_pallas_v6(
-            jnp.asarray(xg), blk["ck"][0], blk["Ke"], interpret=True))
+        pallas = {"pallas_v6": structured_matvec_pallas_v6,
+                  "pallas_v4": structured_matvec_pallas_v4}[reference]
+        y_ref = np.asarray(pallas(jnp.asarray(xg), blk["ck"][0], blk["Ke"],
+                                  interpret=True))
     assert np.abs(y - y_ref).max() <= 2e-5 * np.abs(y_ref).max()
+
+
+@pytest.mark.parametrize("dims", DIMS)
+def test_v4_dmma_round_off_no_larger_than_ffma(dims):
+    """The cell products of v4's V4_DMMA build (each result rounded to
+    float32 once) are no further from float64 than the FFMA products the
+    kernels ship (24 roundings a result), value by value.  Less round-off
+    all the same moved the flagship's second stagnation exit as far as
+    3xTF32's larger round-off did (PERF.md), so this does not decide the
+    product; it records that the DMMA build is the more accurate one.  The
+    float64 reference takes the float32 kernels' ck and Ke, so only the
+    arithmetic's round-off is compared; it is checked against the JAX
+    package's float64 matvec_local first.  The comparison is of the cell
+    products because the placement's float32 sums, the same code in both
+    kernels, add a round-off of their own that can hide the products' in
+    max|y - y64|."""
+    nx, ny, nz = dims
+    (jops, jd), (_t, td) = both(dims)
+    ck, Ke = td["blocks"][0]["ck"].float(), td["blocks"][0]["Ke"].float()
+    xg = np.random.default_rng(3).normal(
+        size=(3, nx + 1, ny + 1, nz + 1)).astype(np.float32)
+    x = torch.from_numpy(xg)[None]
+    f64 = ck.double()[:, None] * torch.einsum(
+        "de,pexyz->pdxyz", Ke.double(), smv.gather_cells(x.double()))
+    jd = dict(jd, blocks=[{**jd["blocks"][0],
+                           "ck": jnp.asarray(ck.double().numpy()),
+                           "Ke": jnp.asarray(Ke.double().numpy())}])
+    y_ref = np.asarray(jops.matvec_local(
+        jd, jnp.asarray(xg.reshape(1, -1), jnp.float64))).reshape(xg.shape)
+    np.testing.assert_allclose(smv.scatter_cells(f64)[0].numpy(), y_ref,
+                               rtol=0, atol=1e-12 * np.abs(y_ref).max())
+    err = {a: (cell_products(x, ck, Ke, a).double() - f64).abs()
+           for a in ("ffma", "dmma")}
+    assert (err["dmma"] <= err["ffma"]).all()
+    assert err["dmma"].max() <= 2.0 ** -24 * f64.abs().max()
+    assert err["dmma"].pow(2).mean() < err["ffma"].pow(2).mean()
 
 
 @pytest.mark.parametrize("dims", DIMS)
@@ -166,16 +219,15 @@ GEOMETRY_SHAPES = [(1, 1, 1, 1), (1, 7, 3, 5), (2, 33, 17, 9),
                    (3, 12, 61, 30), (1, 150, 150, 150)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
-def test_v6_geometry_covers_every_node_once(shape, dtype):
-    """The v6 launch geometry: the (y, z) tiles own every node exactly
-    once, the x segments cover every node plane exactly once, and the
-    blocks are parts x tiles x segments."""
+def check_tile_geometry(shape, dtype, variant):
+    """The launch geometry of a kernel on v6's tiles: the (y, z) tiles own
+    every node exactly once, the x segments cover every node plane exactly
+    once, and the blocks are parts x tiles x segments."""
     P, nx, ny, nz = shape
-    g = smv.v6_geometry(P, nx, ny, nz, dtype)
+    g = smv.v6_geometry(P, nx, ny, nz, dtype, variant=variant)
     ty, tz = g.tile_nodes
-    assert (ty + 1, tz + 1) == (smv.V6_CELLS_Y[dtype], smv.V6_CELLS_Z)
+    assert (ty + 1, tz + 1) == (smv.V6_CELLS_Y[(variant, dtype)],
+                                smv.V6_CELLS_Z)
     for n_nodes, tile, n_tiles in ((ny + 1, ty, g.n_ty),
                                    (nz + 1, tz, g.n_tz),
                                    (nx + 1, g.seg_len, g.n_seg)):
@@ -187,12 +239,36 @@ def test_v6_geometry_covers_every_node_once(shape, dtype):
     assert g.blocks == P * g.n_ty * g.n_tz * g.n_seg
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v6_geometry_covers_every_node_once(shape, dtype):
+    """v6's launch geometry in both dtypes (check_tile_geometry)."""
+    check_tile_geometry(shape, dtype, "v6")
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v4_geometry_covers_every_node_once(shape):
+    """v4's launch geometry, float32 on v6's tiles (check_tile_geometry)."""
+    check_tile_geometry(shape, torch.float32, "v4")
+
+
 def test_v6_geometry_flagship_fills_the_card():
     """At the flagship slab the x segments give nearly every SM of an H100
     SXM a block, where the (y, z) tiles alone do not."""
     for dtype in (torch.float32, torch.float64):
         g = smv.v6_geometry(1, 150, 150, 150, dtype)
         assert g.n_ty * g.n_tz < 0.9 * smv.H100_SMS < g.blocks
+
+
+def test_v4_geometry_flagship_fills_the_card():
+    """v4 at the flagship slab: the x segments give nearly every SM of an
+    H100 SXM its blocks where the (y, z) tiles alone do not, and the last
+    wave is at least 3/4 full."""
+    g = smv.v6_geometry(1, 150, 150, 150, torch.float32, variant="v4")
+    per_sm = smv.V6_BLOCKS_PER_SM[("v4", torch.float32)]
+    assert g.n_ty * g.n_tz < 0.9 * smv.H100_SMS * per_sm < g.blocks
+    waves = g.blocks / (smv.H100_SMS * per_sm)
+    assert waves / -(-g.blocks // (smv.H100_SMS * per_sm)) >= 0.75
 
 
 @pytest.mark.parametrize("planes", [8, 16])

@@ -1,11 +1,13 @@
-"""Helpers of the kernel comparison tools (tools/v5_kernel_compare.py,
-tools/v6_kernel_compare.py): build a kernel source with nvcc under other
-flags, time a launch with CUDA events, count a build's SASS instructions,
-and read the card's name and power limit."""
+"""Helpers of the kernel comparison tools (tools/v4_kernel_compare.py,
+tools/v5_kernel_compare.py, tools/v6_kernel_compare.py): build a kernel
+source with nvcc under other flags, load a build's C entry points, time a
+launch with CUDA events, count a build's SASS instructions, and read the
+card's name and power limit."""
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import re
 import statistics
 import subprocess
@@ -41,6 +43,21 @@ def build(src: Path, out_dir: Path, name: str, defines=()) -> Path:
         if "registers" in line or "spill" in line:
             print(f"build {name}: {line.strip()}")
     return lib
+
+
+def load(lib: Path, prefix: str, suffixes, n_ints: int) -> ctypes.CDLL:
+    """Loads a built library and declares, for each dtype suffix, its
+    ``{prefix}_stage_{sfx}(ke, device, stream)`` and
+    ``{prefix}_{sfx}(x, ck, y, <n_ints ints>, stream)`` entry points."""
+    h = ctypes.CDLL(str(lib))
+    for sfx in suffixes:
+        stage = getattr(h, f"{prefix}_stage_{sfx}")
+        stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(h, f"{prefix}_{sfx}")
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return h
 
 
 def time_ms(torch, fn, reps: int = 25) -> float:

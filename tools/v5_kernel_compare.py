@@ -29,7 +29,6 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
-import ctypes
 import re
 import sys
 from pathlib import Path
@@ -39,7 +38,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from kernel_builds import (  # noqa: E402
-    CSRC, build, nvidia_smi, sass_mix, time_ms)
+    CSRC, build, load, nvidia_smi, sass_mix, time_ms)
 
 OUT = ROOT / "build" / "v5_compare"
 N = 150
@@ -51,17 +50,6 @@ SASS_KEYS = ("FFMA", "FMUL", "FADD", "MOV", "LDG", "LDGSTS", "LDS", "STS",
 def rows_label(name: str) -> str:
     m = re.search(r"kernelILi(\d+)E", name)
     return f" rows {m.group(1)}" if m else ""
-
-
-def load(lib: Path, n_ints: int) -> ctypes.CDLL:
-    h = ctypes.CDLL(str(lib))
-    h.structured_matvec_v5_stage_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn = h.structured_matvec_v5_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return h
 
 
 def main() -> int:
@@ -111,7 +99,8 @@ def main() -> int:
             jobs[tag] = pool.submit(build, Path(path), OUT, tag)
         for tag, job in jobs.items():
             libs[tag] = (job.result(),
-                         load(job.result(), 6 if tag == "old" else 11))
+                         load(job.result(), "structured_matvec_v5",
+                              ("f32",), 6 if tag == "old" else 11))
 
     Ke = unit_element_library(0.2)["Ke"]
     rng = np.random.default_rng(0)

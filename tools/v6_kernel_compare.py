@@ -37,25 +37,13 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from kernel_builds import (  # noqa: E402
-    CSRC, build, nvidia_smi, sass_mix, time_ms)
+    CSRC, build, load, nvidia_smi, sass_mix, time_ms)
 
 OUT = ROOT / "build" / "v6_compare"
 N = 150
 DEPTHS = (2, 3, 4)
 SASS_KEYS = ("FFMA", "DFMA", "HMMA", "DMMA", "LDG", "LDGSTS", "LDS", "STS",
              "STG", "ULDC", "LDC")
-
-
-def load(lib: Path, n_ints: int) -> ctypes.CDLL:
-    h = ctypes.CDLL(str(lib))
-    for sfx in ("f32", "f64"):
-        stage = getattr(h, f"structured_matvec_stage_{sfx}")
-        stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        fn = getattr(h, f"structured_matvec_{sfx}")
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return h
 
 
 def main() -> int:
@@ -91,8 +79,9 @@ def main() -> int:
                 build, src, OUT, f"depth{d}",
                 (f"-DV6_STAGES_F32={d}", f"-DV6_STAGES_F64={d}"))
         for tag, job in jobs.items():
-            libs[tag] = (job.result(), load(job.result(),
-                                            5 if tag == "old" else 9))
+            libs[tag] = (job.result(), load(
+                job.result(), "structured_matvec", ("f32", "f64"),
+                5 if tag == "old" else 9))
     for tag, (_path, h) in libs.items():
         if tag != "old":
             h.structured_matvec_smem_bytes.argtypes = [ctypes.c_int]
@@ -159,8 +148,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     for tag, (path, _h) in libs.items():
-        sass_mix(path, tag, lambda name: " double" if "IdE" in name
-                 else " float", SASS_KEYS)
+        sass_mix(path, tag, lambda name: " double"
+                 if "IdE" in name or "LayoutId" in name else " float",
+                 SASS_KEYS)
     print(nvidia_smi())
     return 0
 
