@@ -173,7 +173,7 @@ def phase_kernels(torch, np, rates):
     kernel_shapes(); returns the flagship record per (variant, dtype)."""
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        TILED, VARIANTS, _library, pallas_planes, structured_matvec,
+        VARIANTS, _library, pallas_planes, structured_matvec,
         structured_matvec_plain, v5_geometry, v6_geometry)
 
     rng = np.random.default_rng(2024)
@@ -219,20 +219,17 @@ def phase_kernels(torch, np, rates):
                 f"{geo.tile_nodes[1]} nodes, {geo.n_seg} segments of "
                 f"{geo.seg_len} planes, {geo.blocks} blocks, {smem} B "
                 f"shared")
-            for v in TILED:
-                if v not in variants:
-                    continue
-                g = v6_geometry(P, nx, ny, nz, dtype, sms=sms, variant=v)
-                if shape in V6_EDGE_SHAPES and shape != (1, 1, 1, 1) \
-                        and min(g.n_ty, g.n_tz, g.n_seg) < 2:
-                    raise AssertionError(f"{shape} {name} crosses no {v} "
-                                         f"tile or segment edge: {g}")
-                if v == "v4":
-                    lib_smem = _library("v4").structured_matvec_v4_smem_bytes()
-                    say(f"  v4 tiles {g.n_ty}x{g.n_tz} of "
-                        f"{g.tile_nodes[0]}x{g.tile_nodes[1]} nodes, "
-                        f"{g.n_seg} segments of {g.seg_len} planes, "
-                        f"{g.blocks} blocks, {lib_smem} B shared")
+            if shape in V6_EDGE_SHAPES and shape != (1, 1, 1, 1) \
+                    and min(geo.n_ty, geo.n_tz, geo.n_seg) < 2:
+                raise AssertionError(f"{shape} {name} crosses no v6 tile "
+                                     f"or segment edge: {geo}")
+            if "v4" in variants:
+                # v4 launches v6 float's kernel from a library of its own
+                v4_smem = _library("v4").structured_matvec_v4_smem_bytes(
+                    x.element_size())
+                if v4_smem != smem:
+                    raise AssertionError(f"v4 shared memory {v4_smem} B, "
+                                         f"v6 float's {smem} B")
             plane_runs = [(v, None) for v in variants]
             if shape == RAGGED_PLANES[0] and dtype == torch.float32:
                 plane_runs += [(v, RAGGED_PLANES[1]) for v in variants
@@ -313,7 +310,7 @@ def phase_main(torch, np):
     beside v6's: the stagnation exits that end the cycles move with the
     round-off of the cell product (v4 runs v6 float's FFMA product on its
     tiles; a DMMA product moved the second exit by 200 iterations,
-    tools/v4_kernel_compare.py --flagship)."""
+    PERF.md, Findings)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (

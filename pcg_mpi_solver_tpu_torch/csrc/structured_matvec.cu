@@ -69,11 +69,11 @@
 //       3xTF32 (hi = tf32(v), lo = tf32(v - hi), lo.hi + hi.lo then hi.hi
 //       in a float accumulator; 1xTF32's 10 mantissa bits miss the 2e-5 x
 //       max|y| tolerance), within the tolerance and 4 % faster, and DMMA
-//       over float nodes (v4's V4_DMMA build: one rounding a cell result,
-//       less round-off than FFMA's), 6 % faster.  Under each the flagship
-//       solve's second stagnation exit moved from 1568 to ~1350-1370
-//       iterations, 3112 and 3131 in all, outside 5 % of the JAX
-//       package's 3334 (PERF.md, Findings).
+//       over float nodes (one rounding a cell result, less round-off than
+//       FFMA's), 6 % faster.  Under each the flagship solve's second
+//       stagnation exit moved from 1568 to ~1350-1370 iterations, 3112
+//       and 3131 in all, outside 5 % of the JAX package's 3334 (PERF.md,
+//       Findings, which names the commits that hold their sources).
 //     The first kernel's ceiling was the CUDA cores' 58 us; its index and
 //     bounds arithmetic also took the FMAs' issue slots.  Here a cell's
 //     FMAs come with 24 shared-memory loads and no index arithmetic.
@@ -91,9 +91,9 @@
 // (float) + the copy table: 195,416 bytes (float) and 98,392 (double),
 // fixed at compile time and held below a block's 227 KB there.  The
 // kernel, its launch, smv::Layout and both products live in
-// structured_tiles.cuh, shared with v4 (structured_matvec_v4.cu); this
-// file chooses v6's two layouts and products.  The wrapper knows only the
-// tile shape and the blocks an SM holds.
+// structured_tiles.cuh, shared with v4 (structured_matvec_v4.cu, v6's
+// float kernel in a library of its own).  The wrapper knows only the tile
+// shape and the blocks an SM holds.
 //
 // Ke is staged into the constant bank by its own entry point, once per Ke:
 // the wrapper (ops/structured_matvec.py) restages only when it is handed
@@ -112,34 +112,19 @@ namespace {
 __constant__ float ke_f32[24 * 24];
 __constant__ double ke_f64[24 * 24];
 
-// Ring slots per dtype.  tools/v6_kernel_compare.py --sweep builds the
-// kernel at other depths to time them against these.
-#ifndef V6_STAGES_F32
-#define V6_STAGES_F32 3
-#endif
-#ifndef V6_STAGES_F64
-#define V6_STAGES_F64 4
-#endif
-
-// float: 512 threads, one block an SM, 32 x 32 cells (1.14x the cells of
-// the nodes at 150^3), Ke in shared memory; double: 256 threads, two
-// blocks an SM, 8 x 32
-using FloatTiles = smv::Layout<float, 512, 1, 32, V6_STAGES_F32, 24 * 24>;
-using DoubleTiles = smv::Layout<double, 256, 2, 8, V6_STAGES_F64, 0>;
-
 // Float: unrolled FFMAs on the CUDA cores (smv::FfmaProduct), Ke copied
 // into shared memory from the constant bank when a block starts.
 struct KeF32 {
   __device__ static float at(int i) { return ke_f32[i]; }
 };
-using FfmaF32Product = smv::FfmaProduct<FloatTiles, KeF32>;
+using FfmaF32Product = smv::FfmaProduct<KeF32>;
 
 // Double: DMMA on the tensor cores (smv::DmmaProduct), Ke's B fragments
 // from the constant bank.
 struct KeF64 {
   __device__ static double at(int i) { return ke_f64[i]; }
 };
-using DmmaF64Product = smv::DmmaProduct<DoubleTiles, KeF64>;
+using DmmaF64Product = smv::DmmaProduct<KeF64>;
 
 }  // namespace
 
@@ -184,8 +169,9 @@ extern "C" int structured_matvec_f64(const void* x, const void* ck, void* y,
 // The dynamic shared memory of a block, itemsize 4 (float) or 8 (double),
 // for reports (chip_smoke.py prints it).
 extern "C" long long structured_matvec_smem_bytes(int itemsize) {
-  return static_cast<long long>(itemsize == 8 ? DoubleTiles::kSmemBytes
-                                              : FloatTiles::kSmemBytes);
+  return static_cast<long long>(itemsize == 8
+                                    ? smv::Layout<double>::kSmemBytes
+                                    : smv::Layout<float>::kSmemBytes);
 }
 
 SMV_ERROR_STRING(structured_matvec)

@@ -1,7 +1,6 @@
 // Structured-slab block-stencil matvec for Hopper (sm_90a), float: v6's
-// cell-centred tiles (structured_tiles.cuh) with v6's FFMA cell product;
-// built with -DV4_DMMA, the same tiles with the cell product on the FP64
-// tensor cores, each cell's sum rounded to float once.
+// float kernel (structured_tiles.cuh: v6 float's cell-centred tiles and
+// FFMA cell product) in a library of its own.
 //
 // Replaces pcg_mpi_solver_tpu/ops/pallas_matvec.py::structured_matvec_pallas_v4
 // (kernel _matvec_kernel_v4), which the JAX package's structured backend
@@ -16,11 +15,9 @@
 // What bounds it on an H100 SXM (chip_smoke.py::matvec_bound_ms): at the
 // flagship 150^3 slab the bytes (x and y once per node, ck once per cell:
 // 96.13 MB) take 28.7 us at 3.35 TB/s, the bound of any float-accurate
-// kernel.  The product has a second ceiling either way: 3.888 GFLOP at 67
-// TFLOP/s, the rate of the CUDA cores in float and of the FP64 tensor
-// cores alike, take 58.0 us (66 us at the 1.14x cells of these tiles).
-// DMMA cannot win on rate, only on issue slots: one DMMA does 2048 flops
-// where a warp's FFMA does 64.
+// kernel.  The product has a second ceiling: 3.888 GFLOP at 67 TFLOP/s,
+// the rate of the CUDA cores in float and of the FP64 tensor cores alike,
+// take 58.0 us (66 us at the 1.14x cells of these tiles).
 //
 // The TPU kernel's defining step is one (24,24)@(24,m) MXU product per cell
 // plane of a chunk.  Here it runs on v6 float's tiles, not the TPU's lane
@@ -29,31 +26,21 @@
 // depth, placement through shared memory, no atomics and a fixed
 // summation order, so two launches give the same bits).
 // PCG_TPU_PALLAS_PLANES, the TPU kernel's chunk, does not apply.
-//   * The product this file ships is v6 float's, smv::FfmaProduct: the
-//     counterpart of the MXU step on the tensor cores was built and
-//     measured first and is kept as the V4_DMMA build.  It is
-//     smv::DmmaProduct over float storage, the code v6 double runs: the
-//     float values widened to double in registers (exact), Ke's B
-//     fragments doubles in registers for the block's life, ck applied in
-//     double, each of a cell's 24 results rounded to float once.  It is
-//     within the kernel tolerance, less round-off than FFMA's, and 6 %
-//     faster on these tiles, but the flagship solve under it stopped its
-//     second f32 cycle at 1368 iterations instead of 1568, 3131 in all,
-//     outside 5 % of the JAX package's 3334 (PERF.md, Findings), as
-//     3xTF32 did under v6.
+//   * The product is v6 float's, smv::FfmaProduct.  Its counterpart on the
+//     FP64 tensor cores (DMMA over the float nodes, widened to double in
+//     registers, ck applied in double, each cell result rounded to float
+//     once) was built and measured first: within the kernel tolerance,
+//     less round-off and 6 % faster on these tiles, but the flagship solve
+//     under it stopped its second f32 cycle at 1368 iterations instead of
+//     1568, 3131 in all, outside 5 % of the JAX package's 3334, as 3xTF32
+//     did under v6 (PERF.md, Findings, which names the commit that holds
+//     its source).
 //   * ck scales the product, not the inputs: the earlier lane-run v4
 //     kernel found that input scaling moves the flagship's stagnation exit
 //     by ~200 iterations (PERF.md, Findings).
-//   * With DMMA the pads of smv::Layout put a fragment load's 32 lanes and
-//     an F store's on distinct 4-byte banks, except on the ring's wrap at
-//     depth 3 (the dx = 1 slot 32 banks from the dx = 0 one, one step in
-//     three: no pad of three equal slots avoids it); depth 4 timed slower.
-// Tile (V4_* below; ops/structured_matvec.py's V6_CELLS_Y and
-// V6_BLOCKS_PER_SM hold the same under "v4"): v6 float's 32 x 32 cells,
-// 512 threads, one block an SM, ring depth 3.  tools/v4_kernel_compare.py
-// builds the others it was timed against (depths 2 and 4; with V4_DMMA,
-// 8 x 32 and 16 x 32 cells at two blocks an SM; PERF.md, Findings); the
-// FFMA product takes only tiles of two cell rows a warp.
+// Tile: smv::Layout<float>, v6 float's 32 x 32 cells, 512 threads, one
+// block an SM, ring depth 3 (ops/structured_matvec.py's float32 entries of
+// V6_CELLS_Y and V6_BLOCKS_PER_SM).
 //
 // Ke is staged into this library's constant bank as float by its own
 // entry point (the wrapper restages only for another Ke or one changed in
@@ -64,19 +51,6 @@
 
 #include "structured_tiles.cuh"
 
-#ifndef V4_THREADS
-#define V4_THREADS 512
-#endif
-#ifndef V4_MIN_BLOCKS
-#define V4_MIN_BLOCKS 1
-#endif
-#ifndef V4_CY
-#define V4_CY 32
-#endif
-#ifndef V4_STAGES
-#define V4_STAGES 3
-#endif
-
 namespace {
 
 __constant__ float ke_f32[24 * 24];
@@ -85,15 +59,7 @@ struct KeF32 {
   __device__ static float at(int i) { return ke_f32[i]; }
 };
 
-#ifdef V4_DMMA
-using Tiles = smv::Layout<float, V4_THREADS, V4_MIN_BLOCKS, V4_CY, V4_STAGES,
-                          0>;
-using Product = smv::DmmaProduct<Tiles, KeF32>;
-#else
-using Tiles = smv::Layout<float, V4_THREADS, V4_MIN_BLOCKS, V4_CY, V4_STAGES,
-                          24 * 24>;
-using Product = smv::FfmaProduct<Tiles, KeF32>;
-#endif
+using Product = smv::FfmaProduct<KeF32>;
 
 }  // namespace
 
@@ -102,7 +68,7 @@ using Product = smv::FfmaProduct<Tiles, KeF32>;
 // (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float device
 // buffers, and writes y, allocated by the caller with x's shape, using the
 // Ke staged last; the launch geometry (seg_len, n_ty, n_tz, n_seg) comes
-// from ops/structured_matvec.py::v6_geometry(..., variant="v4").  Each
+// from ops/structured_matvec.py::v6_geometry, as v6 float's.  Each
 // returns the CUDA error code of its copy or launch (0 = done / launched).
 extern "C" int structured_matvec_v4_stage_f32(const void* ke, int device,
                                               void* stream) {
@@ -118,10 +84,13 @@ extern "C" int structured_matvec_v4_f32(const void* x, const void* ck,
                                  n_tz, n_seg, device, stream);
 }
 
-// The dynamic shared memory of a block, for reports (chip_smoke.py prints
-// it).
-extern "C" long long structured_matvec_v4_smem_bytes() {
-  return static_cast<long long>(Tiles::kSmemBytes);
+// The dynamic shared memory of a block of itemsize 4 (float; 0 for
+// another itemsize: v4 has no other kernel), for reports (chip_smoke.py
+// checks it against v6's).
+extern "C" long long structured_matvec_v4_smem_bytes(int itemsize) {
+  return itemsize == 4
+             ? static_cast<long long>(smv::Layout<float>::kSmemBytes)
+             : 0;
 }
 
 SMV_ERROR_STRING(structured_matvec_v4)

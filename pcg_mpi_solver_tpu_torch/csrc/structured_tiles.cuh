@@ -1,11 +1,11 @@
 // The cell-centred tile kernel of the structured-slab matvec, shared by
 // structured_matvec.cu (v6, float and double) and structured_matvec_v4.cu
-// (v4): (y, z) node tiles marching x segments, node and ck planes staged in
-// a cp.async ring, a cell product chosen at compile time, placement through
-// shared memory.  structured_matvec.cu's note says how the tiles work and
-// why; this header holds the layout, the kernel, its launch and the two
-// cell products, FFMA (float) and DMMA (float or double).  A source
-// chooses a layout and a product, with its constant bank of Ke, and
+// (v4, float): (y, z) node tiles marching x segments, node and ck planes
+// staged in a cp.async ring, a cell product chosen at compile time,
+// placement through shared memory.  structured_matvec.cu's note says how
+// the tiles work and why; this header holds the layout of each dtype, the
+// kernel, its launch and the two cell products, FFMA (float) and DMMA
+// (double).  A source chooses a product, with its constant bank of Ke, and
 // launches it through launch_on<Product>.
 
 #pragma once
@@ -13,6 +13,15 @@
 #include <cuda_runtime.h>
 
 #include "structured_common.cuh"
+
+// Ring slots per dtype.  tools/v6_kernel_compare.py --sweep builds the
+// kernel at other depths to time them against these.
+#ifndef V6_STAGES_F32
+#define V6_STAGES_F32 3
+#endif
+#ifndef V6_STAGES_F64
+#define V6_STAGES_F64 4
+#endif
 
 namespace smv {
 
@@ -24,23 +33,19 @@ __host__ __device__ constexpr int pad_to(int n, int rem, int mod) {
   return n + ((rem - n % mod) % mod + mod) % mod;
 }
 
-// The tile and shared-memory layout of one kernel: values of type T,
-// Threads threads a block, MinBlocks blocks an SM, Cy x 32 cells a plane,
-// a ring of Stages slots, KeValues values of Ke in shared memory.  The
-// tile shape and blocks an SM are also ops/structured_matvec.py's
-// V6_CELLS_Y/Z and V6_BLOCKS_PER_SM.  kWords values of T fill one pass of
-// the 32 four-byte banks; the pads serve the DMMA fragments in either
-// type: a fragment load (lane (g, t): row t >> 1, value g, slot t & 1) and
-// an F store (lane (g, t): dof 2t, cell g) hit distinct banks (for 8-byte
-// values, a half warp's), the slots of a ring of even depth included.
-template <typename T, int Threads, int MinBlocks, int Cy, int Stages,
-          int KeValues>
+// The tile and shared-memory layout of one dtype (the tile shape and
+// blocks an SM are also ops/structured_matvec.py's V6_CELLS_Y/Z and
+// V6_BLOCKS_PER_SM).  kWords values of T fill one pass of the 32 four-byte
+// banks; the pads serve the double's fragments.
+template <typename T>
 struct Layout {
-  using Value = T;
-  static constexpr int kThreads = Threads;
+  // float: 512 threads, one block an SM, 32 x 32 cells (1.14x the cells
+  // of the nodes at 150^3); double: 256 threads, two blocks an SM, 8 x 32
+  static constexpr bool kFloat = sizeof(T) == 4;
+  static constexpr int kThreads = kFloat ? 512 : 256;
   static constexpr int kWarps = kThreads / 32;
-  static constexpr int kMinBlocks = MinBlocks;     // an SM
-  static constexpr int kCy = Cy;                   // cells a tile col
+  static constexpr int kMinBlocks = kFloat ? 1 : 2;       // an SM
+  static constexpr int kCy = kFloat ? 32 : 8;             // cells a tile col
   static constexpr int kWords = 128 / sizeof(T);
   // node slot [c][yy][zz]: rows kWords/4 apart mod kWords, the dx = 1
   // slot kWords/2 from the dx = 0 one
@@ -50,15 +55,14 @@ struct Layout {
   static constexpr int kCk = kCy * kCellsZ;        // ck plane [cy][cz]
   // F [dof][cell]: dofs 2t and 2t' land kWords/4 apart
   static constexpr int kF = pad_to(kCk, kWords / 8, kWords / 2);
-  static_assert(kCy % kWarps == 0, "whole owned rows a warp");
   static constexpr int kRowsPerWarp = kCy / kWarps;        // owned rows
-  static constexpr int kKe = KeValues;
+  static constexpr int kKe = kFloat ? 24 * 24 : 0;        // Ke, float
   // the copies of one plane: node values, then ck values
   static constexpr int kNodeCopies = 3 * (kCy + 1) * kNodesZ;
   static constexpr int kCopies = kNodeCopies + kCk;
-  static constexpr int kStages = Stages;
+  static constexpr int kStages = kFloat ? V6_STAGES_F32 : V6_STAGES_F64;
   static_assert(kStages >= 2, "the ring holds node planes k and k+1");
-  // dynamic shared memory: the ring, fs, Ke and the copy table
+  // dynamic shared memory: the ring, fs, Ke (float) and the copy table
   static constexpr size_t kSmemBytes =
       sizeof(T) * (static_cast<size_t>(kStages) * (kSlot + kCk) +
                    24 * static_cast<size_t>(kF) + kKe) +
@@ -91,11 +95,10 @@ __device__ __forceinline__ void mma(double (&d)[4], const double (&a)[4],
 // library's constant bank (Ke::at(i), element i of the row-major Ke) when
 // the block starts: as constant-bank operands the compiler spends a
 // uniform load (ULDC) on every two FFMAs.
-template <class Tiles, class Ke>
+template <class Ke>
 struct FfmaProduct {
-  using L = Tiles;
+  using L = Layout<float>;
   using T = float;
-  static_assert(sizeof(typename L::Value) == 4, "float nodes");
   static_assert(L::kCy == 2 * L::kWarps, "two cells a thread");
   static_assert(L::kKe == 24 * 24, "Ke in shared memory");
   const float4* ke4;
@@ -145,23 +148,20 @@ struct FfmaProduct {
 };
 
 // The cell product on the FP64 tensor cores (mma.sync m16n8k8 .f64),
-// over node and ck values stored as L::Value (float or double): fs[d][cell]
-// = ck[cell] * sum_e Ke[d][e] . u[cell][e], u gathered from the node
-// planes n0 (dx = 0) and n1 (dx = 1), ck from the ck plane ckk.  Every
-// value is widened to double (exact from float), each cell's 24 products
-// are summed and scaled by its ck in double, and the result is rounded to
-// L::Value once, as it is stored.  An M tile is 16 cells along z; warp w
-// takes M tiles w + kWarps q.  acc[nt] += U . Ke^T for output dofs
-// 8nt..8nt+7 over three k steps; B[k][n] = Ke[8nt + n][k_dof(ks, k)], so
+// double only: fs[d][cell] = ck[cell] * sum_e Ke[d][e] . u[cell][e], u
+// gathered from the node planes n0 (dx = 0) and n1 (dx = 1), ck from the ck
+// plane ckk.  An M tile is 16 cells along z; warp w takes M tiles w +
+// kWarps q.  acc[nt] += U . Ke^T for output dofs 8nt..8nt+7 over three k
+// steps; B[k][n] = Ke[8nt + n][k_dof(ks, k)], so
 // lane (g, t) = (lane / 4, lane % 4) holds k = t, t + 4 at n = g in
 // registers for the block's life (Ke::at(i), element i of the row-major
 // Ke, from its library's constant bank), and reads its A fragment -
 // corner (dx, dy) = (t & 1, t >> 1), dz = 0 and 1, cells g and g + 8 - at
 // offsets fixed per lane.
-template <class Tiles, class Ke>
+template <class Ke>
 struct DmmaProduct {
-  using L = Tiles;
-  using T = typename L::Value;
+  using L = Layout<double>;
+  using T = double;
   static_assert((2 * L::kCy) % L::kWarps == 0, "whole M tiles a warp");
   double b[3][3][2];                     // [ks][nt][k half]
   int g, t;
@@ -208,10 +208,10 @@ struct DmmaProduct {
 #pragma unroll
       for (int nt = 0; nt < 3; ++nt) {
         T* const f = fs + (8 * nt + 2 * t) * L::kF + cell;
-        f[0] = static_cast<T>(s0 * acc[nt][0]);           // (g, 2t)
-        f[L::kF] = static_cast<T>(s0 * acc[nt][1]);       // (g, 2t + 1)
-        f[8] = static_cast<T>(s1 * acc[nt][2]);           // (g + 8, 2t)
-        f[L::kF + 8] = static_cast<T>(s1 * acc[nt][3]);   // (g + 8, 2t + 1)
+        f[0] = s0 * acc[nt][0];                   // (g, 2t)
+        f[L::kF] = s0 * acc[nt][1];               // (g, 2t + 1)
+        f[8] = s1 * acc[nt][2];                   // (g + 8, 2t)
+        f[L::kF + 8] = s1 * acc[nt][3];           // (g + 8, 2t + 1)
       }
     }
   }

@@ -30,11 +30,11 @@ of the JAX package, one slab per part.
   package and its Pallas kernels, and ``chip_smoke.py`` holds each kernel
   against it on the card.
 - :func:`v6_geometry` is the launch grid of the kernels on v6's tiles
-  (v6 in both dtypes, and v4, whose float32 kernel is v6 float's tiles
-  and FFMA product in a library of its own): their (y, z) tiles and the
-  x segments that fill the card; the CPU tests check it, the wrapper
-  passes it to the kernel.  The kernels' shared-memory layout is their
-  own (``csrc/structured_tiles.cuh``, ``Layout``).
+  (v6 in both dtypes, and v4, whose kernel is v6's float kernel in a
+  library of its own): their (y, z) tiles and the x segments that fill
+  the card; the CPU tests check it, the wrapper passes it to the kernel.
+  The kernels' shared-memory layout is their own
+  (``csrc/structured_tiles.cuh``, ``Layout``).
   :func:`v5_geometry` is the same for the v5 kernel, whose tile height
   depends on the chunk (``planes``) its shared-memory ring holds.
 - :func:`selected_variant` and :func:`pallas_planes` read the JAX
@@ -122,18 +122,15 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-# The tile shape of the kernels on v6's tiles, per (variant, dtype), as
-# csrc/structured_matvec.cu and csrc/structured_matvec_v4.cu compile it
-# (smv::Layout): a block computes V6_CELLS_Y[key] x V6_CELLS_Z cells a
-# plane and owns the nodes inside them, (cells - 1) in each axis; an SM
-# holds V6_BLOCKS_PER_SM[key] blocks (the kernel's __launch_bounds__
-# minimum, which its shared memory also allows).  A launch whose grid does
-# not match the library's tile is refused.
-V6_CELLS_Y = {("v6", torch.float32): 32, ("v6", torch.float64): 8,
-              ("v4", torch.float32): 32}
+# The tile shape of the kernels on v6's tiles, as csrc/structured_tiles.cuh
+# compiles it (smv::Layout<T>): a block computes V6_CELLS_Y[dtype] x
+# V6_CELLS_Z cells a plane and owns the nodes inside them, (cells - 1) in
+# each axis; an SM holds V6_BLOCKS_PER_SM[dtype] blocks (the kernel's
+# __launch_bounds__ minimum, which its shared memory also allows).  A
+# launch whose grid does not match the library's tile is refused.
+V6_CELLS_Y = {torch.float32: 32, torch.float64: 8}
 V6_CELLS_Z = 32
-V6_BLOCKS_PER_SM = {("v6", torch.float32): 1, ("v6", torch.float64): 2,
-                    ("v4", torch.float32): 1}
+V6_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 2}
 TILED = ("v6", "v4")        # the variants whose launch takes v6_geometry
 H100_SMS = 132
 
@@ -153,22 +150,19 @@ class V6Geometry:
 
 @functools.lru_cache(maxsize=256)
 def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
-                sms: int = H100_SMS, variant: str = "v6",
-                tile: Optional[tuple] = None) -> V6Geometry:
-    """Launch geometry of the kernel of ``variant`` on v6's tiles (v6 or
-    v4) for a (parts, nx, ny, nz) slab.  ``tile`` = (cells a tile column,
-    blocks an SM) overrides the variant's table entry, for builds of
-    another tile (tools/v4_kernel_compare.py).
+                sms: int = H100_SMS) -> V6Geometry:
+    """Launch geometry of the kernels on v6's tiles (v6 in ``dtype``, v4
+    in float32) for a (parts, nx, ny, nz) slab.
 
     The x segment length minimises waves x (seg_len + 3), a wave being the
     blocks the card holds at once (``sms`` x the blocks an SM holds): the
     planes of the longest chain of blocks on one SM, each segment's
     recomputed carry plane and two planes of ring fill included; ties go
     to fewer segments."""
-    cy, per_sm = tile or (V6_CELLS_Y[(variant, dtype)],
-                          V6_BLOCKS_PER_SM[(variant, dtype)])
-    nodes = (cy - 1, V6_CELLS_Z - 1)
-    n_ty, n_tz = -(-(ny + 1) // nodes[0]), -(-(nz + 1) // nodes[1])
+    cy = V6_CELLS_Y[dtype]
+    tile = (cy - 1, V6_CELLS_Z - 1)
+    n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
+    per_sm = V6_BLOCKS_PER_SM[dtype]
     nxn, tiles = nx + 1, parts * n_ty * n_tz
     best = None
     for n in range(1, nxn + 1):
@@ -178,7 +172,7 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
         if best is None or cost < best[0]:
             best = (cost, seg_len, n_seg)
     _cost, seg_len, n_seg = best
-    return V6Geometry(nodes, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
+    return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
 
 
 # The v5 kernel (csrc/structured_matvec_v5.cu): tiles of V5_ROWS[k] x
@@ -336,7 +330,7 @@ def _library(variant: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         if variant in TILED:
             smem = getattr(lib, f"{name}_smem_bytes")
-            smem.argtypes = [ctypes.c_int] if v6 else []
+            smem.argtypes = [ctypes.c_int]
             smem.restype = ctypes.c_longlong
         if variant == "v5":
             smem = getattr(lib, f"{name}_smem_bytes")
@@ -391,7 +385,7 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
     P, _, nxn, nyn, nzn = xg.shape
     if variant in TILED:
         geom = v6_geometry(P, nxn - 1, nyn - 1, nzn - 1, xg.dtype,
-                           _sm_count(dev), variant)
+                           _sm_count(dev))
         extra = (geom.seg_len, geom.n_ty, geom.n_tz, geom.n_seg)
     elif variant == "v5":
         planes = pallas_planes() if planes is None else planes

@@ -229,7 +229,7 @@ def test_v4_kernel_across_tile_and_segment_edges(cuda_device, P, cells):
     bitwise equal, each launch counted once; a grid that is not the
     library's tile is refused by its entry point."""
     nx, ny, nz = cells
-    geo = smv.v6_geometry(P, nx, ny, nz, torch.float32, variant="v4")
+    geo = smv.v6_geometry(P, nx, ny, nz, torch.float32)
     if cells != (1, 1, 1):
         assert min(geo.n_ty, geo.n_tz, geo.n_seg) >= 2
         assert (ny + 1) % geo.tile_nodes[0] and (nz + 1) % geo.tile_nodes[1]

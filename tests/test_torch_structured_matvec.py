@@ -94,9 +94,9 @@ def cell_products(xg, ck, Ke, arithmetic):
     """The (P, 24, cx, cy, cz) float32 cell products ck * (Ke . u) of a
     float32 kernel on v6's tiles, emulated: ``"ffma"`` (the one the v6
     and v4 kernels ship: float32 products summed in float32) or one of the
-    tensor-core products weighed against it, ``"dmma"`` (v4's V4_DMMA
-    build, on the FP64 tensor cores: u, Ke and ck widened to float64, each
-    cell's sum scaled by its ck in float64 and rounded to float32 once),
+    tensor-core products weighed against it, ``"dmma"`` (on the FP64
+    tensor cores: u, Ke and ck widened to float64, each cell's sum scaled
+    by its ck in float64 and rounded to float32 once),
     ``"3xtf32"`` (u and Ke split into hi = tf32(v) and lo =
     tf32(v - hi); lo.hi + hi.lo, then hi.hi; float32 sums) and
     ``"1xtf32"`` (hi.hi alone).  ck scales the product, as in the
@@ -159,42 +159,6 @@ def test_v6_float_arithmetic_within_kernel_tolerance(dims, arithmetic,
 
 
 @pytest.mark.parametrize("dims", DIMS)
-def test_v4_dmma_round_off_no_larger_than_ffma(dims):
-    """The cell products of v4's V4_DMMA build (each result rounded to
-    float32 once) are no further from float64 than the FFMA products the
-    kernels ship (24 roundings a result), value by value.  Less round-off
-    all the same moved the flagship's second stagnation exit as far as
-    3xTF32's larger round-off did (PERF.md), so this does not decide the
-    product; it records that the DMMA build is the more accurate one.  The
-    float64 reference takes the float32 kernels' ck and Ke, so only the
-    arithmetic's round-off is compared; it is checked against the JAX
-    package's float64 matvec_local first.  The comparison is of the cell
-    products because the placement's float32 sums, the same code in both
-    kernels, add a round-off of their own that can hide the products' in
-    max|y - y64|."""
-    nx, ny, nz = dims
-    (jops, jd), (_t, td) = both(dims)
-    ck, Ke = td["blocks"][0]["ck"].float(), td["blocks"][0]["Ke"].float()
-    xg = np.random.default_rng(3).normal(
-        size=(3, nx + 1, ny + 1, nz + 1)).astype(np.float32)
-    x = torch.from_numpy(xg)[None]
-    f64 = ck.double()[:, None] * torch.einsum(
-        "de,pexyz->pdxyz", Ke.double(), smv.gather_cells(x.double()))
-    jd = dict(jd, blocks=[{**jd["blocks"][0],
-                           "ck": jnp.asarray(ck.double().numpy()),
-                           "Ke": jnp.asarray(Ke.double().numpy())}])
-    y_ref = np.asarray(jops.matvec_local(
-        jd, jnp.asarray(xg.reshape(1, -1), jnp.float64))).reshape(xg.shape)
-    np.testing.assert_allclose(smv.scatter_cells(f64)[0].numpy(), y_ref,
-                               rtol=0, atol=1e-12 * np.abs(y_ref).max())
-    err = {a: (cell_products(x, ck, Ke, a).double() - f64).abs()
-           for a in ("ffma", "dmma")}
-    assert (err["dmma"] <= err["ffma"]).all()
-    assert err["dmma"].max() <= 2.0 ** -24 * f64.abs().max()
-    assert err["dmma"].pow(2).mean() < err["ffma"].pow(2).mean()
-
-
-@pytest.mark.parametrize("dims", DIMS)
 def test_v6_1xtf32_misses_kernel_tolerance(dims):
     """A single TF32 product (10 mantissa bits) misses the 2e-5 x max|y|
     kernel tolerance against the float64 matvec: the record of why a
@@ -219,15 +183,14 @@ GEOMETRY_SHAPES = [(1, 1, 1, 1), (1, 7, 3, 5), (2, 33, 17, 9),
                    (3, 12, 61, 30), (1, 150, 150, 150)]
 
 
-def check_tile_geometry(shape, dtype, variant):
-    """The launch geometry of a kernel on v6's tiles: the (y, z) tiles own
-    every node exactly once, the x segments cover every node plane exactly
-    once, and the blocks are parts x tiles x segments."""
+def check_tile_geometry(shape, dtype):
+    """The launch geometry of the kernels on v6's tiles: the (y, z) tiles
+    own every node exactly once, the x segments cover every node plane
+    exactly once, and the blocks are parts x tiles x segments."""
     P, nx, ny, nz = shape
-    g = smv.v6_geometry(P, nx, ny, nz, dtype, variant=variant)
+    g = smv.v6_geometry(P, nx, ny, nz, dtype)
     ty, tz = g.tile_nodes
-    assert (ty + 1, tz + 1) == (smv.V6_CELLS_Y[(variant, dtype)],
-                                smv.V6_CELLS_Z)
+    assert (ty + 1, tz + 1) == (smv.V6_CELLS_Y[dtype], smv.V6_CELLS_Z)
     for n_nodes, tile, n_tiles in ((ny + 1, ty, g.n_ty),
                                    (nz + 1, tz, g.n_tz),
                                    (nx + 1, g.seg_len, g.n_seg)):
@@ -243,13 +206,14 @@ def check_tile_geometry(shape, dtype, variant):
 @pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
 def test_v6_geometry_covers_every_node_once(shape, dtype):
     """v6's launch geometry in both dtypes (check_tile_geometry)."""
-    check_tile_geometry(shape, dtype, "v6")
+    check_tile_geometry(shape, dtype)
 
 
 @pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
 def test_v4_geometry_covers_every_node_once(shape):
-    """v4's launch geometry, float32 on v6's tiles (check_tile_geometry)."""
-    check_tile_geometry(shape, torch.float32, "v4")
+    """v4 launches with v6's float32 geometry (check_tile_geometry)."""
+    assert "v4" in smv.TILED
+    check_tile_geometry(shape, torch.float32)
 
 
 def test_v6_geometry_flagship_fills_the_card():
@@ -264,8 +228,9 @@ def test_v4_geometry_flagship_fills_the_card():
     """v4 at the flagship slab: the x segments give nearly every SM of an
     H100 SXM its blocks where the (y, z) tiles alone do not, and the last
     wave is at least 3/4 full."""
-    g = smv.v6_geometry(1, 150, 150, 150, torch.float32, variant="v4")
-    per_sm = smv.V6_BLOCKS_PER_SM[("v4", torch.float32)]
+    assert "v4" in smv.TILED
+    g = smv.v6_geometry(1, 150, 150, 150, torch.float32)
+    per_sm = smv.V6_BLOCKS_PER_SM[torch.float32]
     assert g.n_ty * g.n_tz < 0.9 * smv.H100_SMS * per_sm < g.blocks
     waves = g.blocks / (smv.H100_SMS * per_sm)
     assert waves / -(-g.blocks // (smv.H100_SMS * per_sm)) >= 0.75

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Compare the port's v4 structured-matvec kernel (float32 on v6's tiles)
-with other builds on one NVIDIA card, its FFMA cell product with the DMMA
-one on the same tiles, and check that v6's kernels still give the bits of
-an earlier source.
+"""Compare the port's v4 structured-matvec kernel (v6's float kernel in a
+library of its own) with the lane-run v4 kernel it replaced and with v6's
+float kernel on one NVIDIA card, and check that v6's kernels still give
+the bits of an earlier source.
 
 Run from the repository root, on a machine with the card and nvcc:
 
@@ -11,30 +11,22 @@ Run from the repository root, on a machine with the card and nvcc:
     git show 63669da:pcg_mpi_solver_tpu_torch/csrc/structured_matvec.cu \\
         > build/v6_parent.cu           # v6 before the tile header (optional)
     python3 tools/v4_kernel_compare.py --old build/v4_lanerun.cu \\
-        --v6-parent build/v6_parent.cu --build dmma=-DV4_DMMA \\
-        --build cy8=-DV4_DMMA,-DV4_CY=8,-DV4_THREADS=256,-DV4_MIN_BLOCKS=2 \\
-        --flagship this,dmma
+        --v6-parent build/v6_parent.cu
 
 Prints, at the flagship slab (1 part, 150^3 cells):
-  * each v4 build's error against the float64 plain version (max, rms and
-    mean, over max|y|), whether two launches give the same bits, and its
-    CUDA-event time with L2 flushed, the builds timed in turns (this, the
-    --build ones, old, v6's float kernel and its --v6-stages builds, then
-    the reverse order), each launched through its C entry point; the old
-    kernel at 8 planes a chunk;
+  * whether v4 and v6's float kernel give the same bits; each kernel's
+    error against the float64 plain version (max, rms and mean, over
+    max|y|), whether two launches give the same bits, and its
+    CUDA-event time with L2 flushed, the kernels timed in turns (v4, old,
+    v6's float kernel, then the reverse order), each launched through its
+    C entry point; the old kernel at 8 planes a chunk;
   * with --v6-parent, whether v6's float and double kernels give the same
     bits as that source's, at the card tests' shapes and at 150^3, and
     both timed in turns at 150^3;
-  * with --flagship, the flagship mixed solve (chip_smoke.py's) under
-    PCG_TPU_PALLAS_V=4 once with each v4 build named: flag, iterations,
-    each inner cycle's (flag, iterations) and ms/iter;
   * each build's registers, spills and SASS instruction mix (cuobjdump,
     static counts per kernel: DMMA, F2F, LDS, FFMA among them).
---build TAG=FLAGS builds this source with nvcc FLAGS (comma-separated):
--DV4_DMMA for the product on the FP64 tensor cores, -DV4_CY, -DV4_THREADS,
--DV4_MIN_BLOCKS and -DV4_STAGES for another tile.  --old takes a source
-with the lane-run kernel's C interface (P, nx, ny, nz, planes, device).
-Builds go to build/v4_compare/.
+--old takes a source with the lane-run kernel's C interface (P, nx, ny,
+nz, planes, device).  Builds go to build/v4_compare/.
 """
 
 from __future__ import annotations
@@ -42,8 +34,6 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
-import os
-import re
 import sys
 from pathlib import Path
 
@@ -52,7 +42,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from kernel_builds import (  # noqa: E402
-    CSRC, build, load, nvidia_smi, sass_mix, time_ms)
+    build, load, nvidia_smi, sass_mix, time_ms)
 
 OUT = ROOT / "build" / "v4_compare"
 N = 150
@@ -64,54 +54,8 @@ SASS_KEYS = ("DMMA", "F2F", "LDS", "FFMA", "DMUL", "FADD", "LDGSTS", "STS",
              "STG", "LDC", "ULDC", "LDL", "STL", "BAR")
 
 
-def tile_of(flags) -> tuple:
-    """(cells a tile column, blocks an SM) of a build, from its -D flags
-    (the source's defaults 32 and 1)."""
-    d = dict(re.fullmatch(r"-D(\w+)(?:=(\d+))?", f).groups() for f in flags)
-    return int(d.get("V4_CY") or 32), int(d.get("V4_MIN_BLOCKS") or 1)
-
-
 def product_label(name: str) -> str:
-    return " dmma" if "Dmma" in name or "IdE" in name else " ffma"
-
-
-def flagship(torch, kernels, smv, libs) -> None:
-    """The flagship mixed solve under v4 once with each library of
-    ``libs`` ({tag: handle}) in the wrapper's place."""
-    from chip_smoke import FLAGSHIP, JAX_FLAGSHIP_ITERS, inner_cycles
-    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
-    from pcg_mpi_solver_tpu_torch.models import make_cube_model
-    from pcg_mpi_solver_tpu_torch.solver import Solver
-
-    kw = dict(FLAGSHIP)
-    model = make_cube_model(kw.pop("nx"), **kw)
-    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
-    name = smv.VARIANTS["v4"][0]
-    shipped = kernels._LIBS[name]
-    os.environ["PCG_TPU_PALLAS_V"] = "4"
-    try:
-        for tag, h in libs.items():
-            kernels._LIBS[name] = h
-            smv._STAGED.clear()        # stage Ke into this library's bank
-            solver = Solver(model, cfg)
-            torch.cuda.synchronize()
-            smv.reset_launch_counts()
-            with inner_cycles() as cycles:
-                results = solver.solve()
-            res = results[-1]
-            wall = sum(r.wall_s for r in results)
-            iters = sum(r.iters for r in results)
-            print(f"flagship v4 {tag}: flag {res.flag}, iterations "
-                  f"{res.iters} (JAX {JAX_FLAGSHIP_ITERS}), relres "
-                  f"{res.relres:.4e}, {wall / iters * 1e3:.4f} ms/iter; "
-                  f"inner cycles (flag, iterations) {cycles}; v4 launches "
-                  f"{smv.LAUNCHES[('v4', 'float32')]}")
-            del solver
-    finally:
-        del os.environ["PCG_TPU_PALLAS_V"]
-        kernels._LIBS[name] = shipped
-        smv._STAGED.clear()
-    torch.cuda.empty_cache()
+    return " dmma" if "Dmma" in name else " ffma"
 
 
 def main() -> int:
@@ -120,16 +64,6 @@ def main() -> int:
     ap.add_argument("--v6-parent", type=Path,
                     help="an earlier structured_matvec.cu to check v6's "
                          "bits against")
-    ap.add_argument("--build", action="append", default=[],
-                    metavar="TAG=FLAGS",
-                    help="another build of this source with nvcc FLAGS "
-                         "(comma-separated)")
-    ap.add_argument("--v6-stages", type=int, action="append", default=[],
-                    metavar="DEPTH",
-                    help="a build of v6's float kernel at that ring depth")
-    ap.add_argument("--flagship", metavar="TAGS",
-                    help="solve the flagship under v4 with these v4 builds "
-                         "(comma-separated: this, --build tags)")
     args = ap.parse_args()
 
     import numpy as np
@@ -150,46 +84,27 @@ def main() -> int:
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build {name}: {line.strip()}")
-    # tag -> (library path, handle, (cells a tile column, blocks an SM);
-    # None for the old kernel)
+    # tag -> (library path, handle, launch arguments after (P, nx, ny, nz):
+    # None for v6's geometry, (planes,) for the old kernel)
     v4 = {"this": (kernels.library_path("structured_matvec_v4"),
-                   smv._library("v4"),
-                   (smv.V6_CELLS_Y[("v4", torch.float32)],
-                    smv.V6_BLOCKS_PER_SM[("v4", torch.float32)]))}
-    v6 = {"v6": (kernels.library_path("structured_matvec"),
-                 smv._library("v6"))}
+                   smv._library("v4"), None)}
+    v6 = (kernels.library_path("structured_matvec"), smv._library("v6"))
     parent = None
-    jobs, tiles = {}, {}
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        for spec in args.build:
-            tag, flags = spec.split("=", 1)
-            flags = tuple(flags.split(","))
-            tiles[tag] = tile_of(flags)
-            jobs[tag] = pool.submit(build, CSRC / "structured_matvec_v4.cu",
-                                    OUT, tag, flags)
-        if args.old is not None:
-            jobs["old"] = pool.submit(build, args.old, OUT, "old")
-        for d in args.v6_stages:
-            jobs[f"v6 stages {d}"] = pool.submit(
-                build, CSRC / "structured_matvec.cu", OUT, f"v6_stages{d}",
-                (f"-DV6_STAGES_F32={d}",))
-        if args.v6_parent is not None:
-            jobs["v6 parent"] = pool.submit(build, args.v6_parent, OUT,
-                                            "v6_parent")
-        for tag, job in jobs.items():
-            path = job.result()
-            if tag in tiles or tag == "old":
-                v4[tag] = (path, load(path, "structured_matvec_v4", ("f32",),
-                                      6 if tag == "old" else 9),
-                           tiles.get(tag))
-            elif tag == "v6 parent":
-                parent = (path, load(path, "structured_matvec",
-                                     ("f32", "f64"), 9))
-            else:
-                v6[tag] = (path, load(path, "structured_matvec",
-                                      ("f32", "f64"), 9))
+        old = None if args.old is None else pool.submit(build, args.old,
+                                                        OUT, "old")
+        par = None if args.v6_parent is None else pool.submit(
+            build, args.v6_parent, OUT, "v6_parent")
+        if old is not None:
+            path = old.result()
+            v4["old"] = (path, load(path, "structured_matvec_v4", ("f32",),
+                                    6), (OLD_PLANES,))
+        if par is not None:
+            path = par.result()
+            parent = (path, load(path, "structured_matvec", ("f32", "f64"),
+                                 9))
     print(f"shared memory this: "
-          f"{smv._library('v4').structured_matvec_v4_smem_bytes()} B")
+          f"{smv._library('v4').structured_matvec_v4_smem_bytes(4)} B")
 
     Ke = unit_element_library(0.2)["Ke"]
     rng = np.random.default_rng(0)
@@ -215,35 +130,33 @@ def main() -> int:
             return y
         return run
 
-    def geometry(shape, dtype, tile):
-        g = smv.v6_geometry(*shape, dtype, sms, tile=tile)
+    def geometry(shape, dtype):
+        g = smv.v6_geometry(*shape, dtype, sms)
         return (g.seg_len, g.n_ty, g.n_tz, g.n_seg), g
 
-    # v4 builds and v6's float kernel on the same tiles, at 150^3
+    # v4, the old kernel and v6's float kernel, at 150^3
     shape = (1, N, N, N)
     K = torch.as_tensor(Ke, dtype=torch.float32, device="cuda")
     x, ck = data(shape, torch.float32)
     y_ref = smv.structured_matvec_plain(x.double(), ck.double(), K.double())
     scale = y_ref.abs().max().item()
+    tiles, g = geometry(shape, torch.float32)
     runs, what = {}, {}
-    for tag, (_path, h, tile) in v4.items():
+    for tag, (_path, h, extra) in v4.items():
         h.structured_matvec_v4_stage_f32(K.data_ptr(), 0, stream)
-        if tile is None:
-            extra, what[tag] = (OLD_PLANES,), f"planes {OLD_PLANES}"
-        else:
-            extra, g = geometry(shape, torch.float32, tile)
-            what[tag] = (f"{g.n_ty}x{g.n_tz} tiles of {g.tile_nodes[0]}x"
-                         f"{g.tile_nodes[1]} nodes, {g.n_seg} segments of "
-                         f"{g.seg_len}, {g.blocks} blocks")
+        what[f"v4 {tag}"] = (
+            f"{g.n_ty}x{g.n_tz} tiles of {g.tile_nodes[0]}x"
+            f"{g.tile_nodes[1]} nodes, {g.n_seg} segments of {g.seg_len}, "
+            f"{g.blocks} blocks" if extra is None
+            else f"planes {OLD_PLANES}")
         runs[f"v4 {tag}"] = launcher(h.structured_matvec_v4_f32, x, ck,
-                                     torch.empty_like(x), shape, extra)
-    v6_tile = (smv.V6_CELLS_Y[("v6", torch.float32)],
-               smv.V6_BLOCKS_PER_SM[("v6", torch.float32)])
-    for tag, (_path, h) in v6.items():
-        h.structured_matvec_stage_f32(K.data_ptr(), 0, stream)
-        extra, _g = geometry(shape, torch.float32, v6_tile)
-        runs[tag] = launcher(h.structured_matvec_f32, x, ck,
-                             torch.empty_like(x), shape, extra)
+                                     torch.empty_like(x), shape,
+                                     extra or tiles)
+    v6[1].structured_matvec_stage_f32(K.data_ptr(), 0, stream)
+    runs["v6"] = launcher(v6[1].structured_matvec_f32, x, ck,
+                          torch.empty_like(x), shape, tiles)
+    print(f"v4 and v6 float give the same bits: "
+          f"{torch.equal(runs['v4 this']().clone(), runs['v6']())}")
     for tag, run in runs.items():
         y1 = run().clone()
         same = torch.equal(y1, run())
@@ -252,7 +165,7 @@ def main() -> int:
               f"rms {e.pow(2).mean().sqrt().item() / scale:.3e}, mean "
               f"{e.mean().item() / scale:.3e}; repeat bitwise "
               f"{'equal' if same else 'DIFFERENT'}; "
-              f"{what.get(tag.removeprefix('v4 '), 'v6 tiles')}")
+              f"{what.get(tag, 'v6 tiles')}")
     order = list(runs) + list(runs)[::-1]
     times = collections.defaultdict(list)
     for tag in order:
@@ -263,18 +176,16 @@ def main() -> int:
 
     # v6 against the parent source: the same bits, and the times in turns
     if parent is not None:
-        this = v6["v6"][1]
+        this = v6[1]
         for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
             K = torch.as_tensor(Ke, dtype=dtype, device="cuda")
             for h in (this, parent[1]):
                 getattr(h, f"structured_matvec_stage_{sfx}")(
                     K.data_ptr(), 0, stream)
-            tile = (smv.V6_CELLS_Y[("v6", dtype)],
-                    smv.V6_BLOCKS_PER_SM[("v6", dtype)])
             verdicts = []
             for s in BITWISE_SHAPES:
                 x, ck = data(s, dtype)
-                extra, _g = geometry(s, dtype, tile)
+                extra, _g = geometry(s, dtype)
                 pair = {t: launcher(getattr(h, f"structured_matvec_{sfx}"),
                                     x, ck, torch.empty_like(x), s, extra)
                         for t, h in (("this", this), ("parent", parent[1]))}
@@ -290,14 +201,9 @@ def main() -> int:
                   f"{'; '.join(verdicts)}")
         torch.cuda.empty_cache()
 
-    if args.flagship:
-        flagship(torch, kernels, smv, {tag: v4[tag][1] for tag
-                                       in args.flagship.split(",")})
-
-    for tag, (path, _h, _tile) in v4.items():
+    for tag, (path, _h, _extra) in v4.items():
         sass_mix(path, f"v4 {tag}", product_label, SASS_KEYS)
-    for tag, (path, _h) in v6.items():
-        sass_mix(path, tag, product_label, SASS_KEYS)
+    sass_mix(v6[0], "v6", product_label, SASS_KEYS)
     print(nvidia_smi())
     return 0
 
