@@ -18,18 +18,17 @@ Phases (any failed check raises, so the script exits non-zero):
                 launches bitwise equal, with CUDA-event times and the
                 card's bound (bytes, CUDA-core and tensor-core terms); the
                 chunked variants (v3, v5, v7, v8, v9) also at 16 planes a
-                chunk; v6 in both dtypes, v4 (float32 on v6's tiles) and
-                v5 (at 8 and 16 planes) also on a single cell and on
-                shapes that cross
-                their tile and segment edges, each with its launch
-                geometry;
+                chunk; v6 in both dtypes, v4 (float32 on v6's tiles), v5
+                (at 8 and 16 planes) and v9 also on a single cell and on
+                shapes that cross their strip, tile and segment edges,
+                each with its launch geometry;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
                 (``PCG_TPU_PALLAS_V``), v6 last, with the kernel launch
-                counts and inner cycles of each solve (v4's beside v6's
-                at the end); then a profiled window of inner f32
-                iterations under v6;
+                counts and inner cycles of each solve (v4's and v9's
+                beside v6's at the end); then a profiled window of inner
+                f32 iterations under v6;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
                 solves on the CPU (the plain path).
@@ -73,8 +72,13 @@ V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
 # segments are longer than two chunks, so its shared-memory ring wraps
 V5_EDGE_SHAPES = V6_EDGE_SHAPES + ((1, 100, 200, 200),)
 V5_EDGE_PLANES = (8, 16)
+# and v9 (float32) at these: v6's, two parts whose nodes end exactly on
+# its tile edges (56 x 31 nodes), one whose nodes end on a strip and tile
+# edge, and one whose 12-plane segments wrap its three-slot ring
+V9_EDGE_SHAPES = V6_EDGE_SHAPES + ((2, 9, 111, 61), (1, 30, 55, 30),
+                                   (1, 100, 200, 200))
 EDGE_SHAPES = {"v6": V6_EDGE_SHAPES, "v4": V6_EDGE_SHAPES,
-               "v5": V5_EDGE_SHAPES}
+               "v5": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}
 # The float32 kernels, v6 (the default) first, and the JAX wrapper each
 # replaces; float64 runs v6's double kernel under every variant.
 F32_VARIANTS = ("v6", "v1", "v2", "v3", "v4", "v5", "v7", "v8", "v9")
@@ -163,8 +167,9 @@ def kernel_shapes():
     n = FLAGSHIP["nx"]
     ragged = list(V6_EDGE_SHAPES) + [(1, 7, 3, 5), (2, 33, 17, 9)]
     small, flag = (1, *CARD_VS_CPU_CELLS), (1, n, n, n)
-    v5_only = [s for s in V5_EDGE_SHAPES if s not in V6_EDGE_SHAPES]
-    return {"float32": ragged + v5_only + [small, flag],
+    edge_only = [s for s in dict.fromkeys(V5_EDGE_SHAPES + V9_EDGE_SHAPES)
+                 if s not in V6_EDGE_SHAPES]
+    return {"float32": ragged + edge_only + [small, flag],
             "float64": ragged + [small, (1, *DIRECT_F64_CELLS), flag]}
 
 
@@ -174,7 +179,7 @@ def phase_kernels(torch, np, rates):
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
         VARIANTS, _library, pallas_planes, structured_matvec,
-        structured_matvec_plain, v5_geometry, v6_geometry)
+        structured_matvec_plain, v5_geometry, v6_geometry, v9_geometry)
 
     rng = np.random.default_rng(2024)
     Ke = unit_element_library(FLAGSHIP["nu"])["Ke"]
@@ -250,6 +255,24 @@ def phase_kernels(torch, np, rates):
                         f"{g5.rows}x32 nodes, {g5.n_seg} segments of "
                         f"{g5.seg_len} planes, {g5.blocks} blocks of "
                         f"{g5.threads} threads, {g5.smem_bytes} B shared")
+            if "v9" in variants:
+                g9 = v9_geometry(P, nx, ny, nz, sms=sms)
+                lib_smem = _library("v9").structured_matvec_v9_smem_bytes()
+                if lib_smem != g9.smem_bytes:
+                    raise AssertionError(f"v9 shared memory {lib_smem} B, "
+                                         f"v9_geometry says {g9}")
+                exact = (ny + 1) % g9.tile_nodes[0] == 0 \
+                    and (nz + 1) % g9.tile_nodes[1] == 0
+                if shape in V9_EDGE_SHAPES and shape != (1, 1, 1, 1) and (
+                        g9.n_seg < 2 or (g9.n_ty * g9.n_tz < 2
+                                         and not exact)):
+                    raise AssertionError(f"{shape} crosses no v9 tile or "
+                                         f"segment edge: {g9}")
+                say(f"  v9: tiles {g9.n_ty}x{g9.n_tz} of {g9.tile_nodes[0]}x"
+                    f"{g9.tile_nodes[1]} nodes (strips of {g9.rows} cell "
+                    f"rows), {g9.n_seg} segments of {g9.seg_len} planes, "
+                    f"{g9.blocks} blocks of {g9.threads} threads, "
+                    f"{g9.smem_bytes} B shared")
             for v, planes in plane_runs:
                 def run():
                     return structured_matvec(x, ck, K, variant=v,
@@ -306,11 +329,11 @@ def inner_cycles():
 
 def phase_main(torch, np):
     """The flagship mixed solve once under each float32 variant; returns
-    {variant: launch counts of its solve}.  Ends with v4's inner cycles
-    beside v6's: the stagnation exits that end the cycles move with the
-    round-off of the cell product (v4 runs v6 float's FFMA product on its
-    tiles; a DMMA product moved the second exit by 200 iterations,
-    PERF.md, Findings)."""
+    {variant: launch counts of its solve}.  Ends with v4's and v9's inner
+    cycles beside v6's: the stagnation exits that end the cycles move with
+    the round-off of the cell product (v4 runs v6 float's FFMA product on
+    its tiles; a DMMA product moved the second exit by 200 iterations,
+    PERF.md, Findings; v9 sums in its own order)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
@@ -388,9 +411,9 @@ def phase_main(torch, np):
         cycles_by[variant] = (cycles, res.iters)
         del solver, u
         torch.cuda.empty_cache()
-    say(f"main: inner cycles (flag, iterations) v4 {cycles_by['v4'][0]}, "
-        f"{cycles_by['v4'][1]} in all; v6 {cycles_by['v6'][0]}, "
-        f"{cycles_by['v6'][1]} in all")
+    for v in ("v4", "v9", "v6"):
+        say(f"main: inner cycles (flag, iterations) {v} {cycles_by[v][0]}, "
+            f"{cycles_by[v][1]} in all")
     return launches_by
 
 

@@ -1,6 +1,6 @@
-// Structured-slab block-stencil matvec for Hopper (sm_90a), float: nodes
-// staged as float4 (x, y, z, 0), the cell product accumulated over input
-// corners, ck applied once, corner blocks extracted as register selects.
+// Structured-slab block-stencil matvec for Hopper (sm_90a), float: warp
+// strips marching x, several cells a thread sharing each Ke load, placement
+// in registers and warp shuffles.
 //
 // Replaces pcg_mpi_solver_tpu/ops/pallas_matvec.py::structured_matvec_pallas_v9
 // (kernel _matvec_kernel_v9), which the JAX package's structured backend
@@ -12,210 +12,366 @@
 // x, y: (P, 3, nx+1, ny+1, nz+1); ck: (P, nx, ny, nz); Ke: (24, 24) in
 // element-dof order 3*corner + comp, corners in VTK order.
 //
-// What bounds it on an H100 SXM: 576 FMAs per cell against ~28 bytes per
-// cell, so the operations (58.0 us at 150^3 at 67 TFLOP/s fp32, against
-// 28.7 us for the bytes at 3.35 TB/s).
+// What bounds it on an H100 SXM (chip_smoke.py::matvec_bound_ms): at the
+// flagship 150^3 slab the bytes (x and y once per node, ck once per cell:
+// 96.13 MB) take 28.7 us at 3.35 TB/s, the bound of any float-accurate
+// kernel.  This kernel does its 576 FMAs a cell on the CUDA cores, and
+// those take 58.0 us at 67 TFLOP/s at 1.0x the cells, so they set its
+// floor; every instruction that is not an FFMA takes an issue slot from
+// them.  The design keeps the non-FFMA instructions few.
 //
-// The TPU kernel reads a plane-major slab (planes, 4, lanes) with a dead
-// 4th component, so a corner read is one whole block; it never builds the
-// gathered (24, m) array but accumulates v = sum_a Ke[:, 3a:3a+3] . x_a
-// over the eight input corners (eight (24,3) dots), scales v by ck once,
-// extracts each output corner's 3 rows by a one-hot (3,24) dot, rotates
-// them to their lane offset and adds them, carrying dx = 1 rows to the
-// next plane; chunks of C = PCG_TPU_PALLAS_PLANES cell planes (C + 1 node
-// planes) are double-buffered.  The host pads and transposes x into that
-// layout, one more round trip of x per matvec.  Here, with no host pad or
-// transpose (the layout lives in shared memory only):
-//   * a block of kCy x kCz threads owns one cell each of a kCy x kCz cell
-//     tile, (iy0 - 1 .. iy0 + kCy - 2, iz0 - 1 .. iz0 + kCz - 2), and the
-//     (kCy-1) x (kCz-1) node tile those cells surround (every cell of an
-//     owned node is in the tile; the outer ring of nodes belongs to the
-//     neighbouring blocks, which compute those cells again: 1.18x the
-//     product's FMAs, no atomics), over one x segment of kChunks * C - 1
-//     node planes;
-//   * a chunk's C + 1 node planes of the tile and its halo are staged
-//     plane-major as float4 (x, y, z, 0) - three 4-byte cp.asyncs a node,
-//     zero-filled off the grid, the 4th lane zeroed once - in a two-slot
-//     ring: chunk k + 1's copies are in flight while chunk k computes, and
-//     a corner read is one 16-byte shared load;
-//   * per cell plane each thread accumulates its cell's 24-vector over the
-//     eight input corners (3 x 24 FMAs each, so the gathered 24 values are
-//     never held), scales it once by ck, and places output corner b's
-//     three values - register selects v[3b .. 3b+2], not products - into
-//     two shared node accumulators over the owned tile, one per node plane
-//     (slot i & 1 for node plane i: dx = 0 rows to this plane, dx = 1 rows
-//     to the next, the carry).  The eight placements are separated by
-//     __syncthreads; each maps cells one to one onto nodes, so no two
-//     threads add to one value and the sum order is fixed (the same result
-//     bit for bit run to run);
-//   * a node plane is written once its last cell plane is placed, z
-//     fastest, and its slot zeroed; a segment first recomputes the carry
-//     of the cell plane before it; node planes past nx are zero-filled,
-//     cell planes past nx - 1 skipped;
-//   * Ke lives in the constant bank with every loop unrolled.
-// Shared memory: 2 (C+1) (kCy+1)(kCz+1) float4 + 2 * 3 (kCy-1)(kCz-1)
-// floats, 88.6 KB at C = 8 and 162.9 KB at C = 16; the launch is refused
-// above 227 KB (C above 22).
+// What the TPU kernel computes, kept here with its order of arithmetic: per
+// cell v = sum_a KeT[a] . x_a over the eight input corners a (eight (24,3)
+// dots; the gathered 24-vector is never built), v scaled by ck once after
+// the product, output corner b's three values v[3b .. 3b+2] (the TPU's
+// one-hot sel dot, a register select here), dx = 1 values carried to the
+// next plane.  Nodes are staged in shared memory as float4 (x, y, z, 0),
+// the TPU's 4-row plane-major slab, so a corner read is one 16-byte shared
+// load; nothing is padded or transposed on the host.  Each cell's v and
+// each node's sum are formed in the same order as in PR 3's kernel of this
+// file (Ke[d][e] . x_e summed e = 0..23 by FMAs, then ck; a node adds its
+// dx = 1 corners b = 1, 2, 5, 6 of the plane before, then its dx = 0
+// corners b = 0, 3, 4, 7), so the two give the same values.
+//
+// The design:
+//   * A block of kWarps warps owns a (kWarps (kRows - 1)) x 31 tile of
+//     output nodes in (y, z) and marches an x segment of node planes.
+//     Warp w owns a strip of kRows cell rows x 32 cell columns, lane l the
+//     cell column iz0 - 1 + l, and computes every cell of the strip in
+//     each cell plane, kCells rows at a time: each Ke value (a float4
+//     broadcast from shared memory over four output dofs, KeT[e][d..d+3])
+//     feeds 4 kCells FFMAs.  Ke is not a constant-bank operand (a ULDC per
+//     two FFMAs, PR 4's SASS), and a compiler barrier before each input
+//     corner keeps its loads from being hoisted out of the x march and
+//     spilled (v5's trap).
+//   * Placement never leaves the registers.  A lane's node column is its
+//     cell's dz = 0 column: its cell's dz = 1 corners (12 values) go to
+//     lane + 1 by __shfl_up_sync; the dy = 1 corners (own and shuffled)
+//     stay in the lane for the next cell row; the dx = 1 sums of each
+//     node row of the strip are carried in registers to the next cell
+//     plane (kRows x 3 values, rotated by kCells rows a step so the row
+//     loop need not be unrolled).  A lane writes each finished node
+//     straight to y, 31 consecutive z values a warp row.  No shared-memory
+//     accumulators, no placement barrier, no atomics, a fixed summation
+//     order: two launches give the same bits.
+//   * Recompute instead of exchange: lane 0 of a strip (its cell column
+//     serves lane 1's node only) and the strip's first cell row (it serves
+//     the second node row only) are computed by the neighbouring strip
+//     too, kRows / (kRows - 1) x 32 / 31 = 1.18x the cells at kRows = 8;
+//     each x segment also recomputes the cell plane before it, (seg_len +
+//     1) / seg_len more (10/9 at 150^3, where ops/structured_matvec.py's
+//     v9_geometry makes 9-plane segments to fill the SMs).  A strip with
+//     no node row on the grid and a cell plane off the grid skip the
+//     product.
+//   * The staging ring is the only thing the block shares: kStages slots
+//     of (kWarps (kRows - 1) + 2) x 33 nodes of the tile and its halo, by
+//     cp.async (three 4-byte copies a node, zero-filled off the grid; the
+//     4th lane zeroed once).  One block-wide barrier a cell plane: after
+//     it, node plane k + 2 is issued into the slot of plane k - 1, which
+//     every warp has finished with, and lands while plane k is computed.
+//     ck is read with __ldg, kCells values a lane per step, before the
+//     product.
+//   * 256 threads, two blocks an SM (16 warps), kRows = 8 and kCells = 2:
+//     48 accumulators, 24 carried sums and 12 held corner values a thread
+//     stay under the 128 registers two blocks allow.  94.2 KB of shared
+//     memory a block.  tools/v9_kernel_compare.py builds other kRows and
+//     kCells with -DV9_ROWS / -DV9_CELLS for its sweep; the shipped
+//     library uses the defaults.
 
 #include <cuda_runtime.h>
 
 #include "structured_common.cuh"
 
+#ifndef V9_ROWS
+#define V9_ROWS 8          // cell rows a warp strip
+#endif
+#ifndef V9_CELLS
+#define V9_CELLS 2         // cell rows a thread computes at once
+#endif
+// 1: the product in two passes over the inputs, output dofs 0-11 then
+// 12-23 (half the accumulators, the node loads twice)
+#ifndef V9_HALF
+#define V9_HALF 0
+#endif
+// 1: ck read after the product, not before
+#ifndef V9_CK_LATE
+#define V9_CK_LATE 0
+#endif
+// where the product reads Ke: 0 shared memory, KeT as float4 over four
+// output dofs; 1 the constant bank; 2 shared memory, one float a load
+#ifndef V9_KE
+#define V9_KE 0
+#endif
+
 namespace {
 
-using smv::copy4;
 using smv::corner_x;
 using smv::corner_y;
 using smv::corner_z;
 
-constexpr int kCy = 8, kCz = 32;              // cell tile: a thread a cell
-constexpr int kThreads = kCy * kCz;
-constexpr int kTy = kCy - 1, kTz = kCz - 1;   // owned node tile
-constexpr int kNy = kCy + 1, kNz = kCz + 1;   // staged node tile
-constexpr int kChunks = 2;                    // chunks per segment
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 2;                  // blocks an SM
+constexpr int kRows = V9_ROWS;
+constexpr int kCells = V9_CELLS;
+static_assert(kRows >= 2 && kRows % kCells == 0,
+              "a strip is whole steps of kCells rows");
+constexpr int kPasses = V9_HALF ? 2 : 1;       // passes over the inputs
+constexpr int kDofs = 24 / kPasses;            // output dofs a pass
+constexpr int kTy = kWarps * (kRows - 1);      // owned node rows a block
+constexpr int kTz = 31;                        // owned node columns
+constexpr int kNy = kTy + 2, kNz = kTz + 2;    // staged node rows, columns
+constexpr int kStages = 3;                     // ring slots of node planes
+constexpr int kSlot = kNy * kNz;               // float4 a slot
+// dynamic shared memory: the ring and KeT (ops/structured_matvec.py::
+// v9_smem_bytes mirrors it)
+constexpr int kKeRow = V9_KE == 2 ? 25 : 24;   // KeT row pitch (floats)
+constexpr int kKe = V9_KE == 1 ? 0 : 24 * kKeRow;
+constexpr size_t kSmemBytes =
+    sizeof(float4) * kStages * static_cast<size_t>(kSlot) +
+    sizeof(float) * kKe;
+static_assert(kMinBlocks * (kSmemBytes + 1024) <= 233472,
+              "two blocks an SM: 228 KB less 1 KB reserved a block");
 
 __constant__ float ke_v9[24 * 24];
 
-size_t smem_bytes(int C) {
-  return sizeof(float4) * 2 * (C + 1) * static_cast<size_t>(kNy * kNz) +
-         sizeof(float) * 2 * 3 * kTy * kTz;
+// Ke[4 d4 .. 4 d4 + 3][e] (KeT row e, output dofs 4 d4 ..)
+__device__ __forceinline__ float4 ke_at(const float* ke_s, int e, int d4) {
+#if V9_KE == 0
+  return reinterpret_cast<const float4*>(ke_s)[e * 6 + d4];
+#elif V9_KE == 1
+  return make_float4(ke_v9[(4 * d4) * 24 + e], ke_v9[(4 * d4 + 1) * 24 + e],
+                     ke_v9[(4 * d4 + 2) * 24 + e],
+                     ke_v9[(4 * d4 + 3) * 24 + e]);
+#else
+  const float* k = ke_s + e * kKeRow + 4 * d4;
+  return make_float4(k[0], k[1], k[2], k[3]);
+#endif
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
-                 float* __restrict__ y, int nx, int ny, int nz, int C,
+                 float* __restrict__ y, int nx, int ny, int nz, int seg_len,
                  int n_ty, int n_tz, int n_seg) {
-  extern __shared__ float4 smem4[];
+  extern __shared__ __align__(16) float4 smem4[];
+  float4* const nodes = smem4;                 // [kStages][kNy][kNz]
+  float* const ke_s = reinterpret_cast<float*>(smem4 + kStages * kSlot);
+
   const int nxn = nx + 1, nyn = ny + 1, nzn = nz + 1;
   const int grid = nxn * nyn * nzn;
   int blk = blockIdx.x;
-  const int iz0 = (blk % n_tz) * kTz;
+  const int tz = blk % n_tz;
   blk /= n_tz;
-  const int iy0 = (blk % n_ty) * kTy;
+  const int ty = blk % n_ty;
   blk /= n_ty;
   const int seg = blk % n_seg;
   const int p = blk / n_seg;
-  const float* xp = x + static_cast<size_t>(p) * 3 * grid;
-  const float* ckp = ck + static_cast<size_t>(p) * nx * ny * nz;
-  float* yp = y + static_cast<size_t>(p) * 3 * grid;
-  const int tid = threadIdx.x;
-  const int ty = tid / kCz, tz = tid % kCz;
-  const int cy = iy0 - 1 + ty, cz = iz0 - 1 + tz;   // this thread's cell
-  const bool cell_ok = cy >= 0 && cy < ny && cz >= 0 && cz < nz;
-  // the node this thread writes: (iy0 + ty, iz0 + tz) of the owned tile
-  const bool writer = ty < kTy && tz < kTz && iy0 + ty < nyn &&
-                      iz0 + tz < nzn;
+  // staged node (yy, zz) is global (iy0 - 1 + yy, iz0 - 1 + zz); the block
+  // owns yy in [1, kTy], zz in [1, 31]
+  const int iy0 = ty * kTy, iz0 = tz * kTz;
+  const int x0 = seg * seg_len, x_end = min(x0 + seg_len, nxn);
+  const int n_steps = x_end - x0 + 1;    // cell planes x0-1 .. x_end-1
+  const int n_node = n_steps + 1;        // node planes x0-1 .. x_end
+  const float* const xp = x + static_cast<size_t>(p) * 3 * grid;
+  const float* const ckp = ck + static_cast<size_t>(p) * nx * ny * nz;
+  float* const yp = y + static_cast<size_t>(p) * 3 * grid;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  const int seg_len = kChunks * C - 1;
-  const int x0 = seg * seg_len;
-  const int x_end = min(x0 + seg_len, nxn);
-  // cell planes x0-1 .. x_end-1, C a chunk
-  const int n_chunks = (x_end - x0 + C) / C;
-  const int slot = (C + 1) * kNy * kNz;       // float4 a ring slot
-  // acc [node plane & 1][comp][oy][oz]: node (i, iy0 + oy, iz0 + oz)
-  float* acc = reinterpret_cast<float*>(smem4 + 2 * slot);
-  constexpr int kOut = kTy * kTz;
+  // the 4th lanes, and KeT: ke_s[kKeRow e + d] = Ke[d][e]
+  for (int e = tid; e < kStages * kSlot; e += kThreads) nodes[e].w = 0.f;
+  for (int q = tid; q < kKe; q += kThreads) {
+    const int e = q / kKeRow, d = q % kKeRow;
+    if (d < 24) ke_s[q] = ke_v9[d * 24 + e];
+  }
 
-  // slot [r][yy][zz] holds node (pbase + r, iy0 - 1 + yy, iz0 - 1 + zz)
-  auto issue = [&](int k) {
-    float4* xs = smem4 + (k & 1) * slot;
-    const int pbase = x0 - 1 + k * C;
-    for (int e = tid; e < slot; e += kThreads) {
-      const int zz = e % kNz;
-      const int t = e / kNz;
-      const int yy = t % kNy, r = t / kNy;
-      const int gp = pbase + r, gy = iy0 - 1 + yy, gz = iz0 - 1 + zz;
-      const bool ok = gp >= 0 && gp < nxn && gy >= 0 && gy < nyn &&
-                      gz >= 0 && gz < nzn;
-      const float* src = ok ? xp + (gp * nyn + gy) * nzn + gz : xp;
-      float* dst = &xs[e].x;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) copy4(dst + c, ok ? src + c * grid : xp, ok);
+  // node plane x0-1+j into slot j % kStages, a warp a (component, row),
+  // the lanes along z; one commit group
+  auto issue = [&](int j) {
+    const int gp = x0 - 1 + j;
+    const bool plane_ok = gp >= 0 && gp < nxn;
+    float* const s = reinterpret_cast<float*>(nodes + (j % kStages) * kSlot);
+    for (int row = warp; row < 3 * kNy; row += kWarps) {
+      const int c = row / kNy, yy = row - c * kNy;
+      const int gy = iy0 - 1 + yy;
+      const bool row_ok = plane_ok && gy >= 0 && gy < nyn;
+      const float* const src =
+          xp + (row_ok ? c * grid + (gp * nyn + gy) * nzn : 0);
+      for (int zz = lane; zz < kNz; zz += 32) {
+        const int gz = iz0 - 1 + zz;
+        const bool ok = row_ok && gz >= 0 && gz < nzn;
+        smv::copy4(s + 4 * (yy * kNz + zz) + c, ok ? src + gz : xp, ok);
+      }
     }
     smv::commit_copies();
   };
 
-  for (int e = tid; e < 2 * slot; e += kThreads) smem4[e].w = 0.f;
-  for (int e = tid; e < 2 * 3 * kOut; e += kThreads) acc[e] = 0.f;
-  issue(0);
-  for (int k = 0; k < n_chunks; ++k) {
-    if (k + 1 < n_chunks) {
-      issue(k + 1);
-      smv::wait_copies<1>();
-    } else {
-      smv::wait_copies<0>();
-    }
-    __syncthreads();
-    const float4* xs = smem4 + (k & 1) * slot;
-    const int pbase = x0 - 1 + k * C;
-    for (int r = 0; r < C && pbase + r < x_end; ++r) {
-      const int i = pbase + r;
-      if (i >= 0 && i < nx) {         // the same for the whole block
-        float v[24];
+  // strip row r is staged node row wy + r, cell row cy0 + r and node row
+  // cy0 + r (global); the warp owns node rows r = 1 .. kRows-1, lanes
+  // 1 .. 31 (the lane's node column is its cell column gz)
+  const int wy = warp * (kRows - 1);
+  const int cy0 = iy0 - 1 + wy;
+  const int gz = iz0 - 1 + lane;
+  const bool strip_live = cy0 + 1 < nyn;
+  const bool cell_z = gz >= 0 && gz < nz;
+  const bool node_z = lane >= 1 && gz < nzn;
+
+  // carry[q]: the dx = 1 sums for the next node plane, strip row q (+ r0
+  // of the step, rotated)
+  float carry[kRows][3];
 #pragma unroll
-        for (int d = 0; d < 24; ++d) v[d] = 0.f;
-        if (cell_ok) {
+  for (int q = 0; q < kRows; ++q)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) carry[q][c] = 0.f;
+
+  issue(0);
+  issue(1);
+  for (int k = 0; k < n_steps; ++k) {
+    smv::wait_copies<0>();                 // node planes k, k+1
+    __syncthreads();
+    if (k + 2 < n_node) issue(k + 2);      // into plane k-1's slot
+    if (!strip_live) continue;             // the same for the whole warp
+    const int i = x0 - 1 + k;              // cell plane
+    const bool plane_live = i >= 0 && i < nx;
+    const float4* const n0 = nodes + (k % kStages) * kSlot + wy * kNz + lane;
+    const float4* const n1 =
+        nodes + ((k + 1) % kStages) * kSlot + wy * kNz + lane;
+    // ck of cell rows r0 .. r0 + kCells - 1 of this plane, 0 off the grid
+    auto load_ck = [&](float (&s)[kCells], int r0) {
+#pragma unroll
+      for (int j = 0; j < kCells; ++j) {
+        const int cy = cy0 + r0 + j;
+        s[j] = cell_z && cy >= 0 && cy < ny
+                   ? __ldg(ckp + (i * ny + cy) * nz + gz) : 0.f;
+      }
+    };
+    // corners 2, 3 (own) and 6, 7 (lane - 1's) of the cell row before
+    float prev[4][3];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) prev[q][c] = 0.f;
+
+#pragma unroll 1
+    for (int r0 = 0; r0 < kRows; r0 += kCells) {
+      // node row r0 + j gets, in this order, the carried c1 + c2 + c5 + c6
+      // of the plane before, then c0 (own cell), c3 (own, row r-1), c4
+      // (lane-1), c7 (lane-1, row r-1); part 1 adds what corners 0-3 give
+      // (pass 0), part 2 what corners 4-7 give (the last pass)
+      float next[kCells][3], out[kCells][3];
+      float s[kCells];
+#pragma unroll
+      for (int pass = 0; pass < kPasses; ++pass) {
+        // v[j][d - pass kDofs]: output dof d of cell row r0 + j
+        float v[kCells][kDofs];
+#pragma unroll
+        for (int j = 0; j < kCells; ++j)
+#pragma unroll
+          for (int d = 0; d < kDofs; ++d) v[j][d] = 0.f;
+        if (plane_live) {                  // the same for the whole block
+          if (pass == 0 && !V9_CK_LATE) load_ck(s, r0);
 #pragma unroll
           for (int a = 0; a < 8; ++a) {
-            const float4 n = xs[((r + corner_x(a)) * kNy + ty + corner_y(a)) *
-                                    kNz + tz + corner_z(a)];
+            asm volatile("" ::: "memory");
+            float4 n[kCells];
 #pragma unroll
-            for (int d = 0; d < 24; ++d) {
-              v[d] += ke_v9[d * 24 + 3 * a + 0] * n.x;
-              v[d] += ke_v9[d * 24 + 3 * a + 1] * n.y;
-              v[d] += ke_v9[d * 24 + 3 * a + 2] * n.z;
+            for (int j = 0; j < kCells; ++j) {
+              n[j] = (corner_x(a) ? n1 : n0)[(r0 + j + corner_y(a)) * kNz +
+                                             corner_z(a)];
+            }
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+#pragma unroll
+              for (int d4 = 0; d4 < kDofs / 4; ++d4) {
+                const float4 kv =
+                    ke_at(ke_s, 3 * a + c, pass * kDofs / 4 + d4);
+#pragma unroll
+                for (int j = 0; j < kCells; ++j) {
+                  const float u = c == 0 ? n[j].x : c == 1 ? n[j].y : n[j].z;
+                  v[j][4 * d4] = fmaf(kv.x, u, v[j][4 * d4]);
+                  v[j][4 * d4 + 1] = fmaf(kv.y, u, v[j][4 * d4 + 1]);
+                  v[j][4 * d4 + 2] = fmaf(kv.z, u, v[j][4 * d4 + 2]);
+                  v[j][4 * d4 + 3] = fmaf(kv.w, u, v[j][4 * d4 + 3]);
+                }
+              }
             }
           }
-          const float s = __ldg(ckp + (i * ny + cy) * nz + cz);
+          if (pass == 0 && V9_CK_LATE) load_ck(s, r0);
 #pragma unroll
-          for (int d = 0; d < 24; ++d) v[d] *= s;
+          for (int j = 0; j < kCells; ++j)
+#pragma unroll
+            for (int d = 0; d < kDofs; ++d) v[j][d] *= s[j];
         }
-        // corner b of this cell is the node (i + dx, cy + dy, cz + dz)
 #pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          __syncthreads();
-          const int oy = ty - 1 + corner_y(b), oz = tz - 1 + corner_z(b);
-          if (cell_ok && oy >= 0 && oy < kTy && oz >= 0 && oz < kTz) {
-            float* o = acc + ((i + corner_x(b)) & 1) * 3 * kOut + oy * kTz + oz;
-            o[0] += v[3 * b];
-            o[kOut] += v[3 * b + 1];
-            o[2 * kOut] += v[3 * b + 2];
+        for (int j = 0; j < kCells; ++j) {
+          // value of output dof d of cell row r0 + j (d in this pass)
+          auto at = [&](int d) { return v[j][d - pass * kDofs]; };
+          if (pass == 0) {                 // part 1: corners 0-3
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              next[j][c] = at(3 + c) + prev[0][c];
+              out[j][c] = (carry[j][c] + at(c)) + prev[1][c];
+              prev[0][c] = at(6 + c);
+              prev[1][c] = at(9 + c);
+            }
+          }
+          if (pass == kPasses - 1) {       // part 2: corners 4-7
+            float sh[4][3];                // corners 4..7 of lane - 1's cell
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                sh[q][c] = __shfl_up_sync(0xffffffffu, at(3 * (4 + q) + c),
+                                          1);
+            const int r = r0 + j;
+            const int gy = cy0 + r;
+            const bool write = k > 0 && r > 0 && node_z && gy < nyn;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              next[j][c] = (next[j][c] + sh[1][c]) + prev[2][c];
+              const float o = (out[j][c] + sh[0][c]) + prev[3][c];
+              if (write) {
+                yp[c * grid + (i * nyn + gy) * nzn + gz] = o;
+              }
+              prev[2][c] = sh[2][c];
+              prev[3][c] = sh[3][c];
+            }
           }
         }
       }
-      __syncthreads();
-      // node plane i has all its cells: write it, free its slot
-      if (writer) {
-        float* o = acc + (i & 1) * 3 * kOut + ty * kTz + tz;
-        if (i >= x0) {
-          float* yi = yp + (i * nyn + iy0 + ty) * nzn + iz0 + tz;
-          yi[0] = o[0];
-          yi[grid] = o[kOut];
-          yi[2 * grid] = o[2 * kOut];
-        }
-        o[0] = o[kOut] = o[2 * kOut] = 0.f;
-      }
-      // the next plane's first placement starts with a barrier
+      // rotate: the rows of the next step to the front, this step's
+      // carries (for the next plane) to the back
+#pragma unroll
+      for (int q = 0; q < kRows - kCells; ++q)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) carry[q][c] = carry[q + kCells][c];
+#pragma unroll
+      for (int j = 0; j < kCells; ++j)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) carry[kRows - kCells + j][c] = next[j][c];
     }
-    __syncthreads();          // this slot is refilled by chunk k + 2
   }
 }
 
-int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
-           int nz, int planes, cudaStream_t stream) {
-  const int C = max(1, min(planes, nx + 1));
-  const int n_ty = (ny + 1 + kTy - 1) / kTy, n_tz = (nz + 1 + kTz - 1) / kTz;
-  const int seg_len = kChunks * C - 1;
-  const int n_seg = (nx + 1 + seg_len - 1) / seg_len;
+// Launches the kernel on the current device with the grid of
+// ops/structured_matvec.py::v9_geometry: n_ty x n_tz tiles of kTy x 31
+// nodes, n_seg x segments of seg_len node planes; a grid that does not
+// cover the slab with this build's tile (a wrapper out of step with the
+// source) is refused.
+int launch(const float* x, const float* ck, float* y, int parts, int nx,
+           int ny, int nz, int seg_len, int n_ty, int n_tz, int n_seg,
+           cudaStream_t stream) {
   const long long blocks =
       static_cast<long long>(parts) * n_seg * n_ty * n_tz;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(C);
-  cudaError_t e = smv::allow_smem(matvec_v9_kernel, smem);
+  if (seg_len < 1 || n_ty != (ny + kTy) / kTy || n_tz != (nz + kTz) / kTz ||
+      n_seg != (nx + seg_len) / seg_len || blocks < 1 ||
+      blocks >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = smv::allow_smem(matvec_v9_kernel, kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  matvec_v9_kernel<<<static_cast<int>(blocks), kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(ck),
-      static_cast<float*>(y), nx, ny, nz, C, n_ty, n_tz, n_seg);
+  matvec_v9_kernel<<<static_cast<int>(blocks), kThreads, kSmemBytes,
+                     stream>>>(x, ck, y, nx, ny, nz, seg_len, n_ty, n_tz,
+                               n_seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -225,10 +381,10 @@ int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
 // buffer, into this library's constant bank on `device`.  The matvec takes
 // x (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float device
 // buffers, and writes y, allocated by the caller with x's shape, using the
-// Ke staged last; `planes` is C (PCG_TPU_PALLAS_PLANES, clamped to
-// [1, nx+1]).  The wrapper (ops/structured_matvec.py) checks shapes, dtype
-// and contiguity and keeps every index below 2^31.  Each returns the CUDA
-// error code of its copy or launch (0 = done / launched).
+// Ke staged last; the launch geometry (seg_len, n_ty, n_tz, n_seg) comes
+// from ops/structured_matvec.py::v9_geometry.  The wrapper checks shapes,
+// dtype and contiguity and keeps every index below 2^31.  Each returns the
+// CUDA error code of its copy or launch (0 = done / launched).
 extern "C" int structured_matvec_v9_stage_f32(const void* ke, int device,
                                               void* stream) {
   return smv::stage(ke_v9, ke, device, stream);
@@ -236,12 +392,20 @@ extern "C" int structured_matvec_v9_stage_f32(const void* ke, int device,
 
 extern "C" int structured_matvec_v9_f32(const void* x, const void* ck,
                                         void* y, int parts, int nx, int ny,
-                                        int nz, int planes, int device,
+                                        int nz, int seg_len, int n_ty,
+                                        int n_tz, int n_seg, int device,
                                         void* stream) {
   smv::DeviceScope scope(device);
   if (scope.error() != 0) return scope.error();
-  return launch(x, ck, y, parts, nx, ny, nz, planes,
-                static_cast<cudaStream_t>(stream));
+  return launch(static_cast<const float*>(x), static_cast<const float*>(ck),
+                static_cast<float*>(y), parts, nx, ny, nz, seg_len, n_ty,
+                n_tz, n_seg, static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory of a block, for reports and the wrapper's
+// mirror check (ops/structured_matvec.py::v9_smem_bytes).
+extern "C" long long structured_matvec_v9_smem_bytes() {
+  return static_cast<long long>(kSmemBytes);
 }
 
 SMV_ERROR_STRING(structured_matvec_v9)

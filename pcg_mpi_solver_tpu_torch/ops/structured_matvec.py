@@ -36,7 +36,8 @@ of the JAX package, one slab per part.
   The kernels' shared-memory layout is their own
   (``csrc/structured_tiles.cuh``, ``Layout``).
   :func:`v5_geometry` is the same for the v5 kernel, whose tile height
-  depends on the chunk (``planes``) its shared-memory ring holds.
+  depends on the chunk (``planes``) its shared-memory ring holds, and
+  :func:`v9_geometry` for the v9 kernel's warp-strip tiles.
 - :func:`selected_variant` and :func:`pallas_planes` read the JAX
   package's knobs, ``PCG_TPU_PALLAS_V`` and ``PCG_TPU_PALLAS_PLANES``, with
   the same defaults and the same refusals, so a setting means the same in
@@ -75,7 +76,7 @@ VARIANTS = {"v1": ("structured_matvec_v1", False),
             "v6": ("structured_matvec", False),
             "v7": ("structured_matvec_v7", True),
             "v8": ("structured_matvec_v8", True),
-            "v9": ("structured_matvec_v9", True)}
+            "v9": ("structured_matvec_v9", False)}
 F64_VARIANT = "v6"          # the one kernel with a double instantiation
 
 # Launches per (variant, dtype): incremented where a kernel is launched and
@@ -246,6 +247,72 @@ def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
                       16 * rows, smem)
 
 
+# The v9 kernel (csrc/structured_matvec_v9.cu): V9_WARPS warps a block,
+# each a strip of V9_ROWS cell rows x 32 cell columns that owns V9_ROWS - 1
+# node rows x 31 node columns, so a block owns V9_WARPS (V9_ROWS - 1) x 31
+# nodes; V9_STAGES ring slots of its node planes and halo as float4, and
+# KeT; V9_BLOCKS_PER_SM blocks an SM (its __launch_bounds__ minimum, which
+# its shared memory also allows).  V9_ROWS is the library's compile-time
+# strip height (V9_ROWS in the source; tools/v9_kernel_compare.py builds
+# others for its sweep and passes ``rows``).
+V9_WARPS = 8
+V9_ROWS = 8
+V9_LANES_Z = 32
+V9_STAGES = 3
+V9_BLOCKS_PER_SM = 2
+
+
+def v9_smem_bytes(rows: int = V9_ROWS) -> int:
+    """Dynamic shared memory of a v9 block (the kernel's ``kSmemBytes``):
+    V9_STAGES slots of (V9_WARPS (rows - 1) + 2) x 33 float4 nodes, and
+    the 576 floats of KeT."""
+    slot = (V9_WARPS * (rows - 1) + 2) * (V9_LANES_Z + 1)
+    return 16 * V9_STAGES * slot + 4 * 576
+
+
+@dataclasses.dataclass(frozen=True)
+class V9Geometry:
+    """One launch of the v9 kernel: ``n_ty`` x ``n_tz`` (y, z) tiles of
+    ``tile_nodes`` owned nodes, ``n_seg`` x segments of ``seg_len`` node
+    planes (the last one ragged), ``blocks`` of ``threads`` in all,
+    ``smem_bytes`` of dynamic shared memory each."""
+    rows: int
+    tile_nodes: tuple
+    n_ty: int
+    n_tz: int
+    seg_len: int
+    n_seg: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def v9_geometry(parts: int, nx: int, ny: int, nz: int,
+                sms: int = H100_SMS, rows: int = V9_ROWS) -> V9Geometry:
+    """Launch geometry of the v9 kernel for a (parts, nx, ny, nz) slab with
+    strips of ``rows`` cell rows (the library's V9_ROWS unless a sweep
+    build says otherwise).
+
+    The x segment length minimises waves x (seg_len + 2), a wave being the
+    blocks the card holds at once (``sms`` x V9_BLOCKS_PER_SM): the planes
+    of the longest chain of blocks on one SM, each segment's recomputed
+    cell plane and its ring fill included; ties go to fewer segments."""
+    tile = (V9_WARPS * (rows - 1), V9_LANES_Z - 1)
+    n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
+    nxn, tiles = nx + 1, parts * n_ty * n_tz
+    best = None
+    for n in range(1, nxn + 1):
+        seg_len = -(-nxn // n)
+        n_seg = -(-nxn // seg_len)
+        cost = -(-tiles * n_seg // (sms * V9_BLOCKS_PER_SM)) * (seg_len + 2)
+        if best is None or cost < best[0]:
+            best = (cost, seg_len, n_seg)
+    _cost, seg_len, n_seg = best
+    return V9Geometry(rows, tile, n_ty, n_tz, seg_len, n_seg,
+                      tiles * n_seg, 32 * V9_WARPS, v9_smem_bytes(rows))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index) \
@@ -314,11 +381,11 @@ def _library(variant: str) -> ctypes.CDLL:
     err_fn = getattr(lib, f"{name}_error_string")
     if err_fn.restype is not ctypes.c_char_p:
         v6 = variant == F64_VARIANT
-        # launch geometry after (P, nx, ny, nz): v6 and v4 (seg_len, n_ty,
-        # n_tz, n_seg), v5 (planes, rows, seg_len, n_ty, n_tz, n_seg), the
-        # other chunked variants (planes,)
-        n_geom = 4 if variant in TILED else 6 if variant == "v5" \
-            else int(chunked)
+        # launch geometry after (P, nx, ny, nz): v6, v4 and v9 (seg_len,
+        # n_ty, n_tz, n_seg), v5 (planes, rows, seg_len, n_ty, n_tz,
+        # n_seg), the other chunked variants (planes,)
+        n_geom = 4 if variant in TILED or variant == "v9" \
+            else 6 if variant == "v5" else int(chunked)
         for sfx in ("f32", "f64") if v6 else ("f32",):
             stage = getattr(lib, f"{name}_stage_{sfx}")
             stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -335,6 +402,10 @@ def _library(variant: str) -> ctypes.CDLL:
         if variant == "v5":
             smem = getattr(lib, f"{name}_smem_bytes")
             smem.argtypes = [ctypes.c_int, ctypes.c_int]
+            smem.restype = ctypes.c_longlong
+        if variant == "v9":
+            smem = getattr(lib, f"{name}_smem_bytes")
+            smem.argtypes = []
             smem.restype = ctypes.c_longlong
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
@@ -356,8 +427,8 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
     """y = K_slab . x per part.  CUDA tensors launch the kernel of
     ``variant`` in float32, v6's double kernel in float64 (or raise); CPU
     tensors run :func:`structured_matvec_plain`.  ``planes`` is the chunk
-    of the chunked variants (v3, v5, v7, v8, v9); None reads
-    :func:`pallas_planes`.  The other variants (v1, v2, v4, v6) ignore
+    of the chunked variants (v3, v5, v7, v8); None reads
+    :func:`pallas_planes`.  The other variants (v1, v2, v4, v6, v9) ignore
     it."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got "
@@ -393,6 +464,9 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
                            _sm_count(dev))
         extra = (planes, geom.rows, geom.seg_len, geom.n_ty, geom.n_tz,
                  geom.n_seg)
+    elif variant == "v9":
+        geom = v9_geometry(P, nxn - 1, nyn - 1, nzn - 1, _sm_count(dev))
+        extra = (geom.seg_len, geom.n_ty, geom.n_tz, geom.n_seg)
     else:
         extra = (pallas_planes() if planes is None else planes,) \
             if chunked else ()

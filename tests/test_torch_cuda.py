@@ -116,13 +116,13 @@ def test_solver_routes_launches_to_its_variant(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant,planes", [("v9", 32), ("v5", 56)])
+@pytest.mark.parametrize("variant,planes", [("v5", 56)])
 def test_chunk_too_large_for_shared_memory_is_refused(cuda_device, variant,
                                                       planes):
-    """v9 stages two slots of C + 1 float4 node planes of its tile, v5 a
-    ring of 2C + 2 node and ck planes of its shortest tile: at these
-    planes that is above the 227 KB a block can have, so the launch is
-    refused with the CUDA error named, and nothing is counted."""
+    """v5 stages a ring of 2C + 2 node and ck planes of its shortest tile:
+    at these planes that is above the 227 KB a block can have, so the
+    launch is refused with the CUDA error named, and nothing is
+    counted."""
     x = torch.zeros((1, 3, 41, 5, 4), dtype=torch.float32,
                     device=cuda_device)
     ck = torch.ones((1, 40, 4, 3), dtype=torch.float32, device=cuda_device)
@@ -255,6 +255,56 @@ def test_v4_kernel_across_tile_and_segment_edges(cuda_device, P, cells):
         x.data_ptr(), ck.data_ptr(), y.data_ptr(), P, nx, ny, nz, *bad,
         cuda_device.index or 0, stream)
     assert lib.structured_matvec_v4_error_string(err).decode() \
+        == "invalid argument"
+
+
+# v9 at a single cell, at shapes that cross its warp strips, (y, z) tiles
+# (56 x 31 nodes) and x segments without filling the last (two parts in
+# one), at two whose nodes end exactly on a tile edge (two parts in one),
+# and at one whose 12-plane segments wrap the three-slot ring
+V9_EDGE = [(1, (1, 1, 1)), (2, (40, 37, 70)), (1, (20, 70, 40)),
+           (2, (9, 111, 61)), (1, (30, 55, 30)), (1, (100, 200, 200))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,cells", V9_EDGE,
+                         ids=["x".join(map(str, c)) for _p, c in V9_EDGE])
+def test_v9_kernel_across_strip_tile_and_segment_edges(cuda_device, P,
+                                                       cells):
+    """v9 within 2e-5 * max|y| of the plain version, two launches bitwise
+    equal (no atomics), each counted once; its shared memory as
+    v9_geometry says, and a grid that is not the library's tile is
+    refused by its entry point."""
+    nx, ny, nz = cells
+    geo = smv.v9_geometry(P, nx, ny, nz,
+                          smv._sm_count(cuda_device.index or 0))
+    if cells != (1, 1, 1):
+        exact = (ny + 1) % geo.tile_nodes[0] == 0 \
+            and (nz + 1) % geo.tile_nodes[1] == 0
+        assert geo.n_seg >= 2 and (geo.n_ty * geo.n_tz >= 2 or exact)
+    lib = smv._library("v9")
+    assert lib.structured_matvec_v9_smem_bytes() == geo.smem_bytes
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
+                        dtype=torch.float32, device=cuda_device)
+    ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
+                         dtype=torch.float32, device=cuda_device)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
+                         dtype=torch.float32, device=cuda_device)
+    before = smv.LAUNCHES[("v9", "float32")]
+    y = smv.structured_matvec(x, ck, Ke, variant="v9")
+    y2 = smv.structured_matvec(x, ck, Ke, variant="v9")
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES[("v9", "float32")] == before + 2
+    y_plain = smv.structured_matvec_plain(x, ck, Ke)
+    assert (y - y_plain).abs().max() <= 2e-5 * y_plain.abs().max()
+    assert torch.equal(y, y2)
+    bad = (geo.seg_len, geo.n_ty + 1, geo.n_tz, geo.n_seg)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    err = lib.structured_matvec_v9_f32(
+        x.data_ptr(), ck.data_ptr(), y.data_ptr(), P, nx, ny, nz, *bad,
+        cuda_device.index or 0, stream)
+    assert lib.structured_matvec_v9_error_string(err).decode() \
         == "invalid argument"
 
 

@@ -281,6 +281,186 @@ def test_v5_geometry_past_the_shared_memory_takes_the_shortest_tile():
     assert g.rows == smv.V5_ROWS[-1] and g.smem_bytes > smv.BLOCK_SMEM
 
 
+def v9_owner_counts(shape, geom):
+    """How many times the v9 kernel's ownership map writes each node, by
+    simulating it: every block (part, segment, y tile, z tile), every warp
+    strip with a node row on the grid, strip rows 1 .. rows-1, lanes
+    1 .. 31, node planes x0 .. x_end-1, nodes on the grid only."""
+    P, nx, ny, nz = shape
+    nxn, nyn, nzn = nx + 1, ny + 1, nz + 1
+    counts = np.zeros((P, nxn, nyn, nzn), int)
+    ty_nodes, tz_nodes = geom.tile_nodes
+    for p in range(P):
+        for seg in range(geom.n_seg):
+            x0 = seg * geom.seg_len
+            xs = slice(x0, min(x0 + geom.seg_len, nxn))
+            for ty in range(geom.n_ty):
+                for tz in range(geom.n_tz):
+                    gz = tz * tz_nodes - 1 + np.arange(1, 32)
+                    gz = gz[gz < nzn]
+                    for w in range(smv.V9_WARPS):
+                        cy0 = ty * ty_nodes - 1 + w * (geom.rows - 1)
+                        gy = cy0 + np.arange(1, geom.rows)
+                        gy = gy[gy < nyn]
+                        counts[p, xs, gy[:, None], gz[None, :]] += 1
+    return counts
+
+
+V9_SHAPES = GEOMETRY_SHAPES + [(1, 8, 55, 30), (1, 8, 56, 31),
+                               (2, 17, 112, 62), (1, 5, 113, 63)]
+
+
+@pytest.mark.parametrize("rows", [smv.V9_ROWS, 4, 6])
+@pytest.mark.parametrize("shape", V9_SHAPES)
+def test_v9_geometry_covers_every_node_once(shape, rows):
+    """The v9 launch geometry at the library's strip height and the
+    sweep's: simulating the kernel's ownership map (warp strips, lanes,
+    y and z tiles, x segments) writes every node of every part exactly
+    once, at ragged shapes and at shapes that end exactly on a tile or
+    strip edge; the blocks are parts x tiles x segments and no tile or
+    segment owns nothing."""
+    P, nx, ny, nz = shape
+    g = smv.v9_geometry(P, nx, ny, nz, rows=rows)
+    assert g.tile_nodes == (smv.V9_WARPS * (rows - 1), smv.V9_LANES_Z - 1)
+    assert (v9_owner_counts(shape, g) == 1).all()
+    assert g.blocks == P * g.n_ty * g.n_tz * g.n_seg
+    assert (g.n_ty - 1) * g.tile_nodes[0] < ny + 1
+    assert (g.n_tz - 1) * g.tile_nodes[1] < nz + 1
+    assert (g.n_seg - 1) * g.seg_len < nx + 1
+    assert g.threads == 32 * smv.V9_WARPS
+
+
+def test_v9_geometry_flagship_fills_the_card():
+    """At the flagship slab v9's blocks fill every SM of an H100 SXM to
+    its V9_BLOCKS_PER_SM resident blocks at least once (the tiles alone
+    do not), and the last wave is at least 3/4 full."""
+    g = smv.v9_geometry(1, 150, 150, 150)
+    slots = smv.H100_SMS * smv.V9_BLOCKS_PER_SM
+    assert g.n_ty * g.n_tz < 0.9 * slots
+    assert g.blocks >= 0.95 * slots
+    waves = g.blocks / slots
+    assert waves / -(-g.blocks // slots) >= 0.75
+
+
+@pytest.mark.parametrize("rows", [smv.V9_ROWS, 4, 6])
+def test_v9_shared_memory_fits_two_blocks_an_sm(rows):
+    """v9's shared memory (the ring and KeT) stays under the 227 KB a
+    block can have, and two blocks (16 warps) fit an SM with the runtime's
+    1 KB a block; v9_geometry reports v9_smem_bytes."""
+    smem = smv.v9_smem_bytes(rows)
+    assert smem <= smv.BLOCK_SMEM
+    assert smv.V9_BLOCKS_PER_SM * (smem + smv.SMEM_RESERVED) \
+        <= smv.SM_SMEM
+    assert smv.V9_BLOCKS_PER_SM * smv.V9_WARPS >= 16
+    assert smv.v9_geometry(1, 150, 150, 150, rows=rows).smem_bytes == smem
+    assert smv.v9_smem_bytes() == 94176
+
+
+def emulate_v9(xg, ck, Ke, geom, cells):
+    """The v9 kernel's algorithm in float64 numpy, step for step: the
+    blocks of ``geom``, warp strips of geom.rows cell rows, ``cells`` rows
+    a step, lanes along z with the dz = 1 corners moved one lane up (lane
+    0 keeps its own, as __shfl_up_sync does), the dy = 1 corners held for
+    the next row, the dx = 1 sums carried in a rotated array, writes of
+    owned nodes only.  Returns y and how often each node was written."""
+    P, _, nxn, nyn, nzn = xg.shape
+    nx, ny, nz = nxn - 1, nyn - 1, nzn - 1
+    rows = geom.rows
+    ty_nodes, tz_nodes = geom.tile_nodes
+    y = np.zeros(xg.shape)
+    writes = np.zeros(xg.shape, int)
+    corners = [tuple(c) for c in smv.CORNERS]
+    lanes = np.arange(32)
+
+    def node(p, gp, gy, gz):
+        out = np.zeros((3, 32))
+        if 0 <= gp < nxn and 0 <= gy < nyn:
+            ok = (gz >= 0) & (gz < nzn)
+            out[:, ok] = xg[p, :, gp, gy, gz[ok]].T
+        return out
+
+    for p in range(P):
+        for seg in range(geom.n_seg):
+            x0 = seg * geom.seg_len
+            x_end = min(x0 + geom.seg_len, nxn)
+            for ty in range(geom.n_ty):
+                for tz in range(geom.n_tz):
+                    gz = tz * tz_nodes - 1 + lanes
+                    cell_z = (gz >= 0) & (gz < nz)
+                    node_z = (lanes >= 1) & (gz < nzn)
+                    for w in range(smv.V9_WARPS):
+                        cy0 = ty * ty_nodes - 1 + w * (rows - 1)
+                        if not cy0 + 1 < nyn:
+                            continue
+                        carry = np.zeros((rows, 3, 32))
+                        for k in range(x_end - x0 + 1):
+                            i = x0 - 1 + k
+                            prev = np.zeros((4, 3, 32))
+                            for r0 in range(0, rows, cells):
+                                v = np.zeros((cells, 24, 32))
+                                for j in range(cells):
+                                    cy = cy0 + r0 + j
+                                    if not (0 <= i < nx):
+                                        continue
+                                    s = np.zeros(32)
+                                    if 0 <= cy < ny:
+                                        s[cell_z] = ck[p, i, cy, gz[cell_z]]
+                                    u = np.concatenate([
+                                        node(p, i + dx, cy + dy, gz + dz)
+                                        for dx, dy, dz in corners])
+                                    v[j] = (Ke @ u) * s
+                                nxt = np.zeros((cells, 3, 32))
+                                for j in range(cells):
+                                    sh = np.stack([
+                                        np.concatenate([v[j, 3 * b:3 * b + 3,
+                                                          :1],
+                                                        v[j, 3 * b:3 * b + 3,
+                                                          :-1]], axis=1)
+                                        for b in range(4, 8)])
+                                    r = r0 + j
+                                    gy = cy0 + r
+                                    nxt[j] = v[j, 3:6] + prev[0] + sh[1] \
+                                        + prev[2]
+                                    out = carry[j] + v[j, 0:3] + prev[1] \
+                                        + sh[0] + prev[3]
+                                    if k > 0 and r > 0 and gy < nyn:
+                                        zw = gz[node_z]
+                                        y[p, :, i, gy, zw] = out[:, node_z].T
+                                        writes[p, :, i, gy, zw] += 1
+                                    prev = np.stack([v[j, 6:9], v[j, 9:12],
+                                                     sh[2], sh[3]])
+                                carry = np.concatenate([carry[cells:], nxt])
+    return y, writes
+
+
+@pytest.mark.parametrize("rows,cells", [(smv.V9_ROWS, 2), (4, 1), (6, 3),
+                                        (4, 4)])
+@pytest.mark.parametrize("shape", [(1, 4, 3, 5), (2, 7, 30, 33),
+                                   (1, 9, 15, 70)])
+def test_v9_algorithm_matches_plain(shape, rows, cells):
+    """The v9 kernel's algorithm (emulate_v9: strips, cells a step,
+    shuffles, held dy = 1 corners, rotated dx carries, recomputed edges)
+    against the plain version in float64 at 1e-12 x max|y|, with every
+    node written exactly once, across strip, y/z tile and x segment edges
+    (a 9-plane segment length forced where the geometry would choose one
+    segment)."""
+    P, nx, ny, nz = shape
+    rng = np.random.default_rng(12)
+    xg = rng.standard_normal((P, 3, nx + 1, ny + 1, nz + 1))
+    ck = rng.uniform(1.0, 10.0, (P, nx, ny, nz))
+    Ke = np.asarray(both((4, 4, 4))[1][1]["blocks"][0]["Ke"])
+    g = smv.v9_geometry(P, nx, ny, nz, rows=rows)
+    seg_len = min(g.seg_len, 3)
+    g = dataclasses.replace(g, seg_len=seg_len,
+                            n_seg=-(-(nx + 1) // seg_len))
+    y, writes = emulate_v9(xg, ck, Ke, g, cells)
+    y_ref = smv.structured_matvec_plain(torch.from_numpy(xg),
+                                        torch.from_numpy(ck),
+                                        torch.from_numpy(Ke)).numpy()
+    assert (writes == 1).all()
+    assert np.abs(y - y_ref).max() <= 1e-12 * np.abs(y_ref).max()
+
+
 # the TPU kernels each ported variant replaces, with the chunk sizes that
 # apply (v1 and v2 march one plane a step and take none; v6 has its own
 # test above)

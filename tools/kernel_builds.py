@@ -1,8 +1,9 @@
 """Helpers of the kernel comparison tools (tools/v4_kernel_compare.py,
-tools/v5_kernel_compare.py, tools/v6_kernel_compare.py): build a kernel
-source with nvcc under other flags, load a build's C entry points, time a
-launch with CUDA events, count a build's SASS instructions, and read the
-card's name and power limit."""
+tools/v5_kernel_compare.py, tools/v6_kernel_compare.py,
+tools/v9_kernel_compare.py): build a kernel source with nvcc under other
+flags, load a build's C entry points, time a launch with CUDA events,
+count a build's SASS instructions (whole kernels or their hottest loop),
+and read the card's name and power limit."""
 
 from __future__ import annotations
 
@@ -78,21 +79,74 @@ def time_ms(torch, fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def sass_mix(lib: Path, tag: str, label, keys) -> None:
-    """Prints the static count of each opcode in ``keys`` (and of integer
-    arithmetic) per kernel of ``lib``; ``label(mangled name)`` names it."""
+def sass_functions(lib: Path) -> dict:
+    """{kernel (mangled name): [(address, opcode, line), ...]} of ``lib``'s
+    SASS (cuobjdump -sass)."""
     from pcg_mpi_solver_tpu_torch.ops.kernels import nvcc_path
     dump = Path(nvcc_path()).with_name("cuobjdump")
     out = subprocess.run([str(dump), "-sass", str(lib)], capture_output=True,
                          text=True).stdout
+    funcs = {}
     for body in re.split(r"\n\s*Function : ", out)[1:]:
         name = body.split("\n", 1)[0].strip()
-        ops = collections.Counter()
+        code = []
         for line in body.splitlines():
-            m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?"
+            m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9_]*)", line)
             if m:
-                ops[m.group(2)] += 1
+                code.append((int(m.group(1), 16), m.group(3), line))
+        funcs[name] = code
+    return funcs
+
+
+def opcode_counts(code) -> collections.Counter:
+    """Opcode (without its modifiers) -> count, over ``code``."""
+    return collections.Counter(op for _addr, op, _line in code)
+
+
+def loop_body(code):
+    """The instructions of the loop of ``code`` that holds the most FFMAs
+    (the smallest such loop), a loop being the span from a backward
+    branch's target to the branch; None if there is no backward branch."""
+    best = None
+    for addr, op, line in code:
+        m = re.search(r"\bBRA[.\w]*\s+(?:`?\(?)0x([0-9a-f]+)", line)
+        if op != "BRA" or not m or int(m.group(1), 16) > addr:
+            continue
+        span = [c for c in code if int(m.group(1), 16) <= c[0] <= addr]
+        key = (opcode_counts(span)["FFMA"], -len(span))
+        if best is None or key > best[0]:
+            best = (key, span)
+    return None if best is None else best[1]
+
+
+def shared_widths(code) -> collections.Counter:
+    """Shared-memory loads and stores of ``code`` by opcode with its width
+    (LDS, LDS.64, LDS.128, STS.128, ...)."""
+    widths = collections.Counter()
+    for _addr, op, line in code:
+        if op in ("LDS", "STS"):
+            m = re.search(r"\b(%s(?:\.[A-Z0-9]+)*)" % op, line)
+            width = re.search(r"\.(64|128)\b", m.group(1))
+            widths[op + (f".{width.group(1)}" if width else "")] += 1
+    return widths
+
+
+def mix_line(ops: collections.Counter, keys) -> str:
+    """Total, instructions per FFMA and the counts of ``keys`` (and of
+    integer arithmetic) in ``ops``."""
+    total = sum(ops.values())
+    shown = {k: ops[k] for k in keys if ops[k]}
+    shown["integer"] = sum(ops[k] for k in INTEGER)
+    per = f"{total / ops['FFMA']:.3f}" if ops["FFMA"] else "n/a"
+    return f"{total} instructions, {per} per FFMA; {shown}"
+
+
+def sass_mix(lib: Path, tag: str, label, keys) -> None:
+    """Prints the static count of each opcode in ``keys`` (and of integer
+    arithmetic) per kernel of ``lib``; ``label(mangled name)`` names it."""
+    for name, code in sass_functions(lib).items():
+        ops = opcode_counts(code)
         shown = {k: ops[k] for k in keys if ops[k]}
         shown["integer"] = sum(ops[k] for k in INTEGER)
         print(f"sass {tag}{label(name)}: {sum(ops.values())} instructions; "
