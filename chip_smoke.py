@@ -73,9 +73,9 @@ V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
 V5_EDGE_SHAPES = V6_EDGE_SHAPES + ((1, 100, 200, 200),)
 V5_EDGE_PLANES = (8, 16)
 # and v9 (float32) at these: v6's, two parts whose nodes end exactly on
-# its tile edges (56 x 31 nodes), one whose nodes end on a strip and tile
-# edge, and one whose 12-plane segments wrap its three-slot ring
-V9_EDGE_SHAPES = V6_EDGE_SHAPES + ((2, 9, 111, 61), (1, 30, 55, 30),
+# its tile edges (40 x 31 nodes), one whose nodes end on a strip and tile
+# edge, and one whose segments wrap its three-slot ring
+V9_EDGE_SHAPES = V6_EDGE_SHAPES + ((2, 9, 79, 61), (1, 30, 39, 30),
                                    (1, 100, 200, 200))
 EDGE_SHAPES = {"v6": V6_EDGE_SHAPES, "v4": V6_EDGE_SHAPES,
                "v5": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}

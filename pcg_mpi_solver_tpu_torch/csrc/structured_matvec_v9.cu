@@ -28,8 +28,9 @@
 // next plane.  Nodes are staged in shared memory as float4 (x, y, z, 0),
 // the TPU's 4-row plane-major slab, so a corner read is one 16-byte shared
 // load; nothing is padded or transposed on the host.  Each cell's v and
-// each node's sum are formed in the same order as in PR 3's kernel of this
-// file (Ke[d][e] . x_e summed e = 0..23 by FMAs, then ck; a node adds its
+// each node's sum are formed in the same order as in the earlier kernel of
+// this file, one thread a cell with placement through shared memory
+// (Ke[d][e] . x_e summed e = 0..23 by FMAs, then ck; a node adds its
 // dx = 1 corners b = 1, 2, 5, 6 of the plane before, then its dx = 0
 // corners b = 0, 3, 4, 7), so the two give the same values.
 //
@@ -38,12 +39,14 @@
 //     output nodes in (y, z) and marches an x segment of node planes.
 //     Warp w owns a strip of kRows cell rows x 32 cell columns, lane l the
 //     cell column iz0 - 1 + l, and computes every cell of the strip in
-//     each cell plane, kCells rows at a time: each Ke value (a float4
+//     each cell plane, kCells rows a step: each Ke value (a float4
 //     broadcast from shared memory over four output dofs, KeT[e][d..d+3])
-//     feeds 4 kCells FFMAs.  Ke is not a constant-bank operand (a ULDC per
-//     two FFMAs, PR 4's SASS), and a compiler barrier before each input
-//     corner keeps its loads from being hoisted out of the x march and
-//     spilled (v5's trap).
+//     feeds 4 kCells FFMAs.  A step runs the product in two passes over
+//     the inputs, output dofs 0-11 (corners 0-3) then 12-23 (corners
+//     4-7): half the accumulators, so no registers spill, for twice the
+//     node loads (one 16-byte load a corner and cell a pass).  A compiler
+//     barrier before each input corner keeps Ke's loads from being hoisted
+//     out of the x march and spilled (v5's trap).
 //   * Placement never leaves the registers.  A lane's node column is its
 //     cell's dz = 0 column: its cell's dz = 1 corners (12 values) go to
 //     lane + 1 by __shfl_up_sync; the dy = 1 corners (own and shuffled)
@@ -57,12 +60,13 @@
 //   * Recompute instead of exchange: lane 0 of a strip (its cell column
 //     serves lane 1's node only) and the strip's first cell row (it serves
 //     the second node row only) are computed by the neighbouring strip
-//     too, kRows / (kRows - 1) x 32 / 31 = 1.18x the cells at kRows = 8;
+//     too, kRows / (kRows - 1) x 32 / 31 = 1.24x the cells at kRows = 6;
 //     each x segment also recomputes the cell plane before it, (seg_len +
-//     1) / seg_len more (10/9 at 150^3, where ops/structured_matvec.py's
-//     v9_geometry makes 9-plane segments to fill the SMs).  A strip with
-//     no node row on the grid and a cell plane off the grid skip the
-//     product.
+//     1) / seg_len more (13/12 at 150^3, where ops/structured_matvec.py's
+//     v9_geometry makes 12-plane segments to fill the SMs).  With the
+//     tiles' fill, the kernel executes 1.43x the cells' FMAs at 150^3
+//     (tools/v9_kernel_compare.py::fmas_v9).  A strip with no node row on
+//     the grid and a cell plane off the grid skip the product.
 //   * The staging ring is the only thing the block shares: kStages slots
 //     of (kWarps (kRows - 1) + 2) x 33 nodes of the tile and its halo, by
 //     cp.async (three 4-byte copies a node, zero-filled off the grid; the
@@ -71,36 +75,33 @@
 //     every warp has finished with, and lands while plane k is computed.
 //     ck is read with __ldg, kCells values a lane per step, before the
 //     product.
-//   * 256 threads, two blocks an SM (16 warps), kRows = 8 and kCells = 2:
-//     48 accumulators, 24 carried sums and 12 held corner values a thread
-//     stay under the 128 registers two blocks allow.  94.2 KB of shared
-//     memory a block.  tools/v9_kernel_compare.py builds other kRows and
-//     kCells with -DV9_ROWS / -DV9_CELLS for its sweep; the shipped
-//     library uses the defaults.
+//   * 256 threads, two blocks an SM (16 warps), kRows = 6 and kCells = 2:
+//     24 accumulators, 6 partial node sums, 18 carried sums and 12 held
+//     corner values a thread fit the 128 registers two blocks allow with
+//     no spill.  68.8 KB of shared memory a block.
+// Measured on the card (tools/v9_kernel_compare.py, PERF.md, Findings):
+// 0.24 ms at 150^3, the earlier kernel 0.39, v6 float 0.19.  Its loop issues 1.44
+// instructions per FFMA against v6's 1.73, yet it is slower: issue does
+// not bound it.  Builds not kept (source in git history, PERF.md): one
+// pass with 48 accumulators (spills 24 B, 4-9 % slower), 8-row and 4-row
+// strips (5 % and 11 % slower), Ke from the constant bank (a ULDC per two
+// FFMAs, 64 % slower), ck read after the product (2 % slower).
+// tools/v9_kernel_compare.py builds other kRows and kCells with
+// -DV9_ROWS / -DV9_CELLS for its sweep; the shipped library uses the
+// defaults.
 
 #include <cuda_runtime.h>
 
 #include "structured_common.cuh"
 
 #ifndef V9_ROWS
-#define V9_ROWS 8          // cell rows a warp strip
+#define V9_ROWS 6          // cell rows a warp strip
 #endif
 #ifndef V9_CELLS
 #define V9_CELLS 2         // cell rows a thread computes at once
 #endif
-// 1: the product in two passes over the inputs, output dofs 0-11 then
-// 12-23 (half the accumulators, the node loads twice)
-#ifndef V9_HALF
-#define V9_HALF 0
-#endif
-// 1: ck read after the product, not before
-#ifndef V9_CK_LATE
-#define V9_CK_LATE 0
-#endif
-// where the product reads Ke: 0 shared memory, KeT as float4 over four
-// output dofs; 1 the constant bank; 2 shared memory, one float a load
-#ifndef V9_KE
-#define V9_KE 0
+#ifndef V9_BLOCKS
+#define V9_BLOCKS 2        // blocks an SM (__launch_bounds__ minimum)
 #endif
 
 namespace {
@@ -111,12 +112,12 @@ using smv::corner_z;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMinBlocks = 2;                  // blocks an SM
+constexpr int kMinBlocks = V9_BLOCKS;          // blocks an SM
 constexpr int kRows = V9_ROWS;
 constexpr int kCells = V9_CELLS;
 static_assert(kRows >= 2 && kRows % kCells == 0,
               "a strip is whole steps of kCells rows");
-constexpr int kPasses = V9_HALF ? 2 : 1;       // passes over the inputs
+constexpr int kPasses = 2;                     // passes over the inputs
 constexpr int kDofs = 24 / kPasses;            // output dofs a pass
 constexpr int kTy = kWarps * (kRows - 1);      // owned node rows a block
 constexpr int kTz = 31;                        // owned node columns
@@ -125,29 +126,13 @@ constexpr int kStages = 3;                     // ring slots of node planes
 constexpr int kSlot = kNy * kNz;               // float4 a slot
 // dynamic shared memory: the ring and KeT (ops/structured_matvec.py::
 // v9_smem_bytes mirrors it)
-constexpr int kKeRow = V9_KE == 2 ? 25 : 24;   // KeT row pitch (floats)
-constexpr int kKe = V9_KE == 1 ? 0 : 24 * kKeRow;
 constexpr size_t kSmemBytes =
     sizeof(float4) * kStages * static_cast<size_t>(kSlot) +
-    sizeof(float) * kKe;
+    sizeof(float) * 24 * 24;
 static_assert(kMinBlocks * (kSmemBytes + 1024) <= 233472,
-              "two blocks an SM: 228 KB less 1 KB reserved a block");
+              "kMinBlocks blocks an SM: 228 KB less 1 KB reserved a block");
 
 __constant__ float ke_v9[24 * 24];
-
-// Ke[4 d4 .. 4 d4 + 3][e] (KeT row e, output dofs 4 d4 ..)
-__device__ __forceinline__ float4 ke_at(const float* ke_s, int e, int d4) {
-#if V9_KE == 0
-  return reinterpret_cast<const float4*>(ke_s)[e * 6 + d4];
-#elif V9_KE == 1
-  return make_float4(ke_v9[(4 * d4) * 24 + e], ke_v9[(4 * d4 + 1) * 24 + e],
-                     ke_v9[(4 * d4 + 2) * 24 + e],
-                     ke_v9[(4 * d4 + 3) * 24 + e]);
-#else
-  const float* k = ke_s + e * kKeRow + 4 * d4;
-  return make_float4(k[0], k[1], k[2], k[3]);
-#endif
-}
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
@@ -156,6 +141,7 @@ matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
   extern __shared__ __align__(16) float4 smem4[];
   float4* const nodes = smem4;                 // [kStages][kNy][kNz]
   float* const ke_s = reinterpret_cast<float*>(smem4 + kStages * kSlot);
+  const float4* const ke4 = reinterpret_cast<const float4*>(ke_s);
 
   const int nxn = nx + 1, nyn = ny + 1, nzn = nz + 1;
   const int grid = nxn * nyn * nzn;
@@ -177,11 +163,10 @@ matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
   float* const yp = y + static_cast<size_t>(p) * 3 * grid;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // the 4th lanes, and KeT: ke_s[kKeRow e + d] = Ke[d][e]
+  // the 4th lanes, and KeT: ke_s[24 e + d] = Ke[d][e]
   for (int e = tid; e < kStages * kSlot; e += kThreads) nodes[e].w = 0.f;
-  for (int q = tid; q < kKe; q += kThreads) {
-    const int e = q / kKeRow, d = q % kKeRow;
-    if (d < 24) ke_s[q] = ke_v9[d * 24 + e];
+  for (int e = tid; e < 24 * 24; e += kThreads) {
+    ke_s[e] = ke_v9[(e % 24) * 24 + e / 24];
   }
 
   // node plane x0-1+j into slot j % kStages, a warp a (component, row),
@@ -235,15 +220,6 @@ matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
     const float4* const n0 = nodes + (k % kStages) * kSlot + wy * kNz + lane;
     const float4* const n1 =
         nodes + ((k + 1) % kStages) * kSlot + wy * kNz + lane;
-    // ck of cell rows r0 .. r0 + kCells - 1 of this plane, 0 off the grid
-    auto load_ck = [&](float (&s)[kCells], int r0) {
-#pragma unroll
-      for (int j = 0; j < kCells; ++j) {
-        const int cy = cy0 + r0 + j;
-        s[j] = cell_z && cy >= 0 && cy < ny
-                   ? __ldg(ckp + (i * ny + cy) * nz + gz) : 0.f;
-      }
-    };
     // corners 2, 3 (own) and 6, 7 (lane - 1's) of the cell row before
     float prev[4][3];
 #pragma unroll
@@ -258,7 +234,7 @@ matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
       // (lane-1), c7 (lane-1, row r-1); part 1 adds what corners 0-3 give
       // (pass 0), part 2 what corners 4-7 give (the last pass)
       float next[kCells][3], out[kCells][3];
-      float s[kCells];
+      float s[kCells];                     // ck of the rows, 0 off the grid
 #pragma unroll
       for (int pass = 0; pass < kPasses; ++pass) {
         // v[j][d - pass kDofs]: output dof d of cell row r0 + j
@@ -268,7 +244,14 @@ matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
 #pragma unroll
           for (int d = 0; d < kDofs; ++d) v[j][d] = 0.f;
         if (plane_live) {                  // the same for the whole block
-          if (pass == 0 && !V9_CK_LATE) load_ck(s, r0);
+          if (pass == 0) {
+#pragma unroll
+            for (int j = 0; j < kCells; ++j) {
+              const int cy = cy0 + r0 + j;
+              s[j] = cell_z && cy >= 0 && cy < ny
+                         ? __ldg(ckp + (i * ny + cy) * nz + gz) : 0.f;
+            }
+          }
 #pragma unroll
           for (int a = 0; a < 8; ++a) {
             asm volatile("" ::: "memory");
@@ -283,7 +266,7 @@ matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
 #pragma unroll
               for (int d4 = 0; d4 < kDofs / 4; ++d4) {
                 const float4 kv =
-                    ke_at(ke_s, 3 * a + c, pass * kDofs / 4 + d4);
+                    ke4[(3 * a + c) * 6 + pass * kDofs / 4 + d4];
 #pragma unroll
                 for (int j = 0; j < kCells; ++j) {
                   const float u = c == 0 ? n[j].x : c == 1 ? n[j].y : n[j].z;
@@ -295,7 +278,6 @@ matvec_v9_kernel(const float* __restrict__ x, const float* __restrict__ ck,
               }
             }
           }
-          if (pass == 0 && V9_CK_LATE) load_ck(s, r0);
 #pragma unroll
           for (int j = 0; j < kCells; ++j)
 #pragma unroll

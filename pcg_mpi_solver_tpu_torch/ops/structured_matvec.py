@@ -256,7 +256,7 @@ def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
 # strip height (V9_ROWS in the source; tools/v9_kernel_compare.py builds
 # others for its sweep and passes ``rows``).
 V9_WARPS = 8
-V9_ROWS = 8
+V9_ROWS = 6
 V9_LANES_Z = 32
 V9_STAGES = 3
 V9_BLOCKS_PER_SM = 2

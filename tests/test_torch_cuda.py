@@ -259,11 +259,11 @@ def test_v4_kernel_across_tile_and_segment_edges(cuda_device, P, cells):
 
 
 # v9 at a single cell, at shapes that cross its warp strips, (y, z) tiles
-# (56 x 31 nodes) and x segments without filling the last (two parts in
+# (40 x 31 nodes) and x segments without filling the last (two parts in
 # one), at two whose nodes end exactly on a tile edge (two parts in one),
-# and at one whose 12-plane segments wrap the three-slot ring
+# and at one whose segments wrap the three-slot ring
 V9_EDGE = [(1, (1, 1, 1)), (2, (40, 37, 70)), (1, (20, 70, 40)),
-           (2, (9, 111, 61)), (1, (30, 55, 30)), (1, (100, 200, 200))]
+           (2, (9, 79, 61)), (1, (30, 39, 30)), (1, (100, 200, 200))]
 
 
 @pytest.mark.cuda

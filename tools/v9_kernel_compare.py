@@ -18,8 +18,9 @@ Prints, at the flagship slab (1 part, 150^3 cells):
   * CUDA-event times with L2 flushed, in turns (v9, old v9, v6 float, v1,
     then the reverse order), each launched through its C entry point;
   * with --sweep, builds of this source at other strip heights, cells a
-    thread and sources of Ke (-DV9_ROWS, -DV9_CELLS, -DV9_KE), each
-    checked against the shipped build and timed in turns with it;
+    thread and blocks an SM (-DV9_ROWS, -DV9_CELLS, -DV9_BLOCKS; the
+    segments stay v9_geometry's for two blocks an SM), each checked
+    against the shipped build and timed in turns with it;
   * each build's registers and spills (ptxas), and the SASS instruction
     mix (cuobjdump, static counts) of the loop that holds each kernel's
     FFMAs: FFMA, LDS, SHFL, ULDC, integer, BAR, instructions per FFMA;
@@ -28,10 +29,11 @@ Prints, at the flagship slab (1 part, 150^3 cells):
     this slab (its recomputed cells and idle lanes counted) at 33.5e12
     FMA/s, the 67 TFLOP/s of the CUDA cores.  Near 1 the schedulers are
     busy issuing for the whole kernel;
-  * a shared-memory model beside it: wavefronts of the loop (a 16-byte
-    shared load of a warp counted as four, a shuffle as one) per FFMA x 4
-    x FFMA floor / time, near 1 if the shared-memory pipe (one wavefront
-    a cycle an SM) is what the kernel waits on;
+  * the cycles of an SM's shared-memory pipe that a warp's shared load
+    or shuffle takes, measured by tools/smem_probe.cu, and a shared-memory
+    model beside the issue model: the loop's shared loads and shuffles
+    priced at those cycles, per FFMA x 4 x FFMA floor / time, near 1 if
+    that pipe is what the kernel waits on;
   * with --flagship, the 150^3 mixed solve under v9 and then v6, each with
     flag, iterations, relres, inner cycles and ms/iter.
 --old takes a source with the old kernel's C interface (P, nx, ny, nz,
@@ -60,25 +62,23 @@ from kernel_builds import (  # noqa: E402
 OUT = ROOT / "build" / "v9_compare"
 N = 150
 OLD_PLANES = 8
-# builds of --sweep: tag -> defines (the shipped build: V9_ROWS 8,
-# V9_CELLS 2, V9_KE 0)
-SWEEP = {"rows8_cells1": ("-DV9_CELLS=1",),
-         "rows6_cells2": ("-DV9_ROWS=6",),
-         "ck_late": ("-DV9_CK_LATE=1",),
-         "rows6_ck_late": ("-DV9_ROWS=6", "-DV9_CK_LATE=1"),
-         "half_cells2": ("-DV9_HALF=1",),
-         "half_cells4": ("-DV9_HALF=1", "-DV9_CELLS=4"),
-         "half_cells4_ck_late": ("-DV9_HALF=1", "-DV9_CELLS=4",
-                                 "-DV9_CK_LATE=1"),
-         "half_rows6_cells3": ("-DV9_HALF=1", "-DV9_ROWS=6",
-                               "-DV9_CELLS=3"),
-         "half_rows4_cells4": ("-DV9_HALF=1", "-DV9_ROWS=4",
-                               "-DV9_CELLS=4"),
-         "half_rows6_cells2": ("-DV9_HALF=1", "-DV9_ROWS=6")}
+# builds of --sweep: tag -> defines (the shipped build: V9_ROWS 6,
+# V9_CELLS 2)
+SWEEP = {"rows8": ("-DV9_ROWS=8",),
+         "rows4": ("-DV9_ROWS=4",),
+         "cells1": ("-DV9_CELLS=1",),
+         "cells3": ("-DV9_CELLS=3",),
+         "rows4_cells4": ("-DV9_ROWS=4", "-DV9_CELLS=4"),
+         "rows8_cells4": ("-DV9_ROWS=8", "-DV9_CELLS=4"),
+         "blocks3": ("-DV9_BLOCKS=3",),
+         "cells1_blocks3": ("-DV9_CELLS=1", "-DV9_BLOCKS=3"),
+         "rows4_cells1_blocks4": ("-DV9_ROWS=4", "-DV9_CELLS=1",
+                                  "-DV9_BLOCKS=4"),
+         "rows4_blocks3": ("-DV9_ROWS=4", "-DV9_BLOCKS=3")}
 # the card tests' shapes (tests/test_torch_cuda.py) and the flagship slab
 SHAPES = ((1, 7, 3, 5), (2, 6, 5, 4), (1, 1, 1, 1), (2, 33, 17, 9),
-          (2, 40, 37, 70), (1, 20, 70, 40), (2, 9, 111, 61),
-          (1, 30, 55, 30), (1, 100, 200, 200), (1, N, N, N))
+          (2, 40, 37, 70), (1, 20, 70, 40), (2, 9, 79, 61),
+          (1, 30, 39, 30), (1, 100, 200, 200), (1, N, N, N))
 SASS_KEYS = ("FFMA", "FMUL", "FADD", "LDS", "LDG", "LDGSTS", "STG", "SHFL",
              "ULDC", "LDC", "MOV", "BAR", "LDL", "STL")
 FMA_RATE = 67e12 / 2        # FMA/s of the CUDA cores (H100 SXM data sheet)
@@ -103,7 +103,7 @@ def fmas_v9(shape, geo) -> int:
 
 
 def fmas_v9_old(shape, planes=OLD_PLANES) -> int:
-    """FMAs PR 7's v9 kernel executed: 8 x 32 threads a block, one cell
+    """FMAs the earlier v9 kernel executes: 8 x 32 threads a block, one cell
     each, every cell plane of its segment (2 planes - 1 node planes) on
     the grid."""
     P, nx, ny, nz = shape
@@ -139,9 +139,52 @@ def fmas_v1(shape) -> int:
     return 582 * -(-P * cols // 32) * 32 * planes
 
 
+PROBE_MODES = ("LDS.32 broadcast", "LDS.128 broadcast", "LDS.32 lanes",
+               "LDS.128 lanes", "SHFL.UP", "FFMA")
+
+
+def smem_probe(torch, sms: int) -> dict:
+    """SM cycles one warp instruction takes, per tools/smem_probe.cu mode:
+    two 256-thread blocks an SM, each thread issuing 16 x 2048 of them;
+    for each SM, the span from its first block's start to its last
+    block's end over its warps' instructions; the median over the SMs."""
+    import ctypes
+    path = build(ROOT / "tools" / "smem_probe.cu", OUT, "smem_probe")
+    h = ctypes.CDLL(str(path))
+    h.smem_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    h.smem_probe.restype = ctypes.c_int
+    blocks, iters = 2 * sms, 2048
+    out = torch.empty(blocks * 256, device="cuda")
+    clocks = torch.empty(2 * blocks, dtype=torch.int64, device="cuda")
+    sm = torch.empty(blocks, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    costs = {}
+    for mode, name in enumerate(PROBE_MODES):
+        for _ in range(2):                       # the second run counts
+            err = h.smem_probe(mode, iters, blocks, out.data_ptr(),
+                               clocks.data_ptr(), sm.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"smem_probe mode {mode}: error {err}")
+        torch.cuda.synchronize()
+        c = clocks.view(-1, 2).cpu().tolist()
+        spans = collections.defaultdict(list)
+        for (t0, t1), s in zip(c, sm.cpu().tolist()):
+            spans[s].append((t0, t1))
+        per_sm = [(max(t1 for _t0, t1 in v) - min(t0 for t0, _t1 in v))
+                  / (8 * len(v) * iters * 16) for v in spans.values()]
+        costs[name] = statistics.median(per_sm)
+        if mode == 0:
+            counts = collections.Counter(len(v) for v in spans.values())
+            print(f"probe: blocks an SM {dict(counts)} over {len(spans)} "
+                  f"SMs")
+    print(f"probe, SM cycles a warp instruction: "
+          f"{ {k: round(v, 3) for k, v in costs.items()} }")
+    return costs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", type=Path, help="PR 7's v9 source")
+    ap.add_argument("--old", type=Path, help="the earlier v9 source")
     ap.add_argument("--sweep", action="store_true",
                     help="time builds at other V9_ROWS / V9_CELLS")
     ap.add_argument("--flagship", action="store_true",
@@ -303,7 +346,9 @@ def main() -> int:
     del y_ref, y32
     torch.cuda.empty_cache()
 
-    # SASS of each kernel's hottest loop and the issue model
+    # SASS of each kernel's hottest loop, the issue model and the
+    # shared-memory model
+    probe = smem_probe(torch, sms)
     fmas = {"v9": fmas_v9(shape, g9), "old": fmas_v9_old(shape),
             "v6": fmas_v6(shape, g6), "v1": fmas_v1(shape)}
     floor_1x = 576 * N ** 3 / FMA_RATE * 1e3
@@ -326,15 +371,24 @@ def main() -> int:
                   f"instructions per FFMA x {floor:.4f} / {ms:.4f} ms = "
                   f"{per * floor / ms:.3f} of the kernel's time spent "
                   f"issuing")
-            # the shared-memory pipe: one 128-byte wavefront a cycle an
-            # SM, a 16-byte load of a warp taking four even when all its
-            # lanes read one address (a hypothesis the V9_KE builds test)
+            # the shared-memory pipe: the loop's shared loads and shuffles
+            # priced at the probe's cycles (v9's and v6's loops read Ke's
+            # 144 float4s once, as broadcasts; their other 16-byte loads
+            # are lanes on consecutive words; 64-bit loads and stores are
+            # priced as 32-bit lanes)
             w = shared_widths(body)
-            wf = sum(n * {"128": 4, "64": 2}.get(k.split(".")[-1], 1)
-                     for k, n in w.items()) + ops["SHFL"]
-            print(f"shared-memory model {tag}: {wf} wavefronts, "
-                  f"{wf / ops['FFMA']:.3f} per FFMA x 4 x {floor:.4f} / "
-                  f"{ms:.4f} ms = {4 * wf / ops['FFMA'] * floor / ms:.3f}")
+            n128 = w["LDS.128"]
+            bcast = 144 if tag in ("v9", "v6") else 0
+            cyc = (bcast * probe["LDS.128 broadcast"]
+                   + (n128 - bcast) * probe["LDS.128 lanes"]
+                   + sum(n for k, n in w.items() if k != "LDS.128")
+                   * probe["LDS.32 lanes"]
+                   + ops["SHFL"] * probe["SHFL.UP"])
+            print(f"shared-memory model {tag}: {cyc:.0f} pipe cycles a "
+                  f"loop, {cyc / ops['FFMA']:.3f} per FFMA x 4 x "
+                  f"{floor:.4f} / {ms:.4f} ms = "
+                  f"{4 * cyc / ops['FFMA'] * floor / ms:.3f} of the "
+                  f"kernel's time in the shared-memory pipe")
 
     if args.flagship:
         flagship(torch, np)
