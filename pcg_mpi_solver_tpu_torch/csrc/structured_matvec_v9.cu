@@ -79,16 +79,18 @@
 //     24 accumulators, 6 partial node sums, 18 carried sums and 12 held
 //     corner values a thread fit the 128 registers two blocks allow with
 //     no spill.  68.8 KB of shared memory a block.
-// Measured on the card (tools/v9_kernel_compare.py, PERF.md, Findings):
-// 0.24 ms at 150^3, the earlier kernel 0.39, v6 float 0.19.  Its loop issues 1.44
-// instructions per FFMA against v6's 1.73, yet it is slower: issue does
-// not bound it.  Builds not kept (source in git history, PERF.md): one
-// pass with 48 accumulators (spills 24 B, 4-9 % slower), 8-row and 4-row
-// strips (5 % and 11 % slower), Ke from the constant bank (a ULDC per two
-// FFMAs, 64 % slower), ck read after the product (2 % slower).
-// tools/v9_kernel_compare.py builds other kRows and kCells with
-// -DV9_ROWS / -DV9_CELLS for its sweep; the shipped library uses the
-// defaults.
+// Measured on the card (tools/v9_kernel_compare.py; PERF.md, Findings):
+// 0.236 ms at 150^3, the earlier kernel 0.391, v6 float 0.186.  Its loop
+// issues 1.44 instructions per FFMA against v6's 1.73, yet it is slower,
+// so issue does not bound it.  The sweep (-DV9_ROWS / -DV9_CELLS): 8- and
+// 4-row strips 5 % and 14 % slower, 1 and 3 cells a step 31 % and 7 %
+// slower (3 spills).  Built, measured and not kept (source in git
+// history, PERF.md names the commits): one pass with 48 accumulators
+// (spills 24 B, 4 % slower), three or four blocks an SM under fewer
+// registers (spill, 19-72 % slower), Ke from the constant bank (a ULDC
+// per two FFMAs, 65 % slower), ck read after the product (2 % slower),
+// the compiler barrier once a pass or every two corners instead of every
+// corner (the same SASS counts and time).
 
 #include <cuda_runtime.h>
 
@@ -100,9 +102,6 @@
 #ifndef V9_CELLS
 #define V9_CELLS 2         // cell rows a thread computes at once
 #endif
-#ifndef V9_BLOCKS
-#define V9_BLOCKS 2        // blocks an SM (__launch_bounds__ minimum)
-#endif
 
 namespace {
 
@@ -112,7 +111,7 @@ using smv::corner_z;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMinBlocks = V9_BLOCKS;          // blocks an SM
+constexpr int kMinBlocks = 2;                  // blocks an SM
 constexpr int kRows = V9_ROWS;
 constexpr int kCells = V9_CELLS;
 static_assert(kRows >= 2 && kRows % kCells == 0,
@@ -130,7 +129,7 @@ constexpr size_t kSmemBytes =
     sizeof(float4) * kStages * static_cast<size_t>(kSlot) +
     sizeof(float) * 24 * 24;
 static_assert(kMinBlocks * (kSmemBytes + 1024) <= 233472,
-              "kMinBlocks blocks an SM: 228 KB less 1 KB reserved a block");
+              "two blocks an SM: 228 KB less 1 KB reserved a block");
 
 __constant__ float ke_v9[24 * 24];
 

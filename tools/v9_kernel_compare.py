@@ -17,10 +17,9 @@ Prints, at the flagship slab (1 part, 150^3 cells):
     old kernel's values at the card tests' shapes and at 150^3;
   * CUDA-event times with L2 flushed, in turns (v9, old v9, v6 float, v1,
     then the reverse order), each launched through its C entry point;
-  * with --sweep, builds of this source at other strip heights, cells a
-    thread and blocks an SM (-DV9_ROWS, -DV9_CELLS, -DV9_BLOCKS; the
-    segments stay v9_geometry's for two blocks an SM), each checked
-    against the shipped build and timed in turns with it;
+  * with --sweep, builds of this source at other strip heights and cells
+    a thread (-DV9_ROWS, -DV9_CELLS), each checked against the shipped
+    build and timed in turns with it;
   * each build's registers and spills (ptxas), and the SASS instruction
     mix (cuobjdump, static counts) of the loop that holds each kernel's
     FFMAs: FFMA, LDS, SHFL, ULDC, integer, BAR, instructions per FFMA;
@@ -69,12 +68,7 @@ SWEEP = {"rows8": ("-DV9_ROWS=8",),
          "cells1": ("-DV9_CELLS=1",),
          "cells3": ("-DV9_CELLS=3",),
          "rows4_cells4": ("-DV9_ROWS=4", "-DV9_CELLS=4"),
-         "rows8_cells4": ("-DV9_ROWS=8", "-DV9_CELLS=4"),
-         "blocks3": ("-DV9_BLOCKS=3",),
-         "cells1_blocks3": ("-DV9_CELLS=1", "-DV9_BLOCKS=3"),
-         "rows4_cells1_blocks4": ("-DV9_ROWS=4", "-DV9_CELLS=1",
-                                  "-DV9_BLOCKS=4"),
-         "rows4_blocks3": ("-DV9_ROWS=4", "-DV9_BLOCKS=3")}
+         "rows8_cells4": ("-DV9_ROWS=8", "-DV9_CELLS=4")}
 # the card tests' shapes (tests/test_torch_cuda.py) and the flagship slab
 SHAPES = ((1, 7, 3, 5), (2, 6, 5, 4), (1, 1, 1, 1), (2, 33, 17, 9),
           (2, 40, 37, 70), (1, 20, 70, 40), (2, 9, 79, 61),
