@@ -17,7 +17,7 @@ Phases (any failed check raises, so the script exits non-zero):
                 slab shape phases 4 and 5 give it in that dtype, two
                 launches bitwise equal, with CUDA-event times and the
                 card's bound (bytes, CUDA-core and tensor-core terms); the
-                chunked variants (v3, v5, v7, v8, v9) also at 16 planes a
+                chunked variants (v3, v5, v7, v8) also at 16 planes a
                 chunk; v6 in both dtypes, v4 (float32 on v6's tiles), v5
                 (at 8 and 16 planes) and v9 also on a single cell and on
                 shapes that cross their strip, tile and segment edges,
@@ -333,7 +333,7 @@ def phase_main(torch, np):
     cycles beside v6's: the stagnation exits that end the cycles move with
     the round-off of the cell product (v4 runs v6 float's FFMA product on
     its tiles; a DMMA product moved the second exit by 200 iterations,
-    PERF.md, Findings; v9 sums in its own order)."""
+    PERF.md, Findings; v9 sums in another order than v6)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (

@@ -76,7 +76,7 @@
 //     ck is read with __ldg, kCells values a lane per step, before the
 //     product.
 //   * 256 threads, two blocks an SM (16 warps), kRows = 6 and kCells = 2:
-//     24 accumulators, 6 partial node sums, 18 carried sums and 12 held
+//     24 accumulators, 12 partial node sums, 18 carried sums and 12 held
 //     corner values a thread fit the 128 registers two blocks allow with
 //     no spill.  68.8 KB of shared memory a block.
 // Measured on the card (tools/v9_kernel_compare.py; PERF.md, Findings):
@@ -88,9 +88,9 @@
 // history, PERF.md names the commits): one pass with 48 accumulators
 // (spills 24 B, 4 % slower), three or four blocks an SM under fewer
 // registers (spill, 19-72 % slower), Ke from the constant bank (a ULDC
-// per two FFMAs, 65 % slower), ck read after the product (2 % slower),
-// the compiler barrier once a pass or every two corners instead of every
-// corner (the same SASS counts and time).
+// per two FFMAs, 65 % slower), ck read after the product (2 % slower).
+// The compiler barrier once a pass or every two corners instead of every
+// corner changes neither the SASS counts nor the time.
 
 #include <cuda_runtime.h>
 

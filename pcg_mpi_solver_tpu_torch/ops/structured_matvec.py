@@ -136,6 +136,22 @@ TILED = ("v6", "v4")        # the variants whose launch takes v6_geometry
 H100_SMS = 132
 
 
+def _segments(nxn: int, tiles: int, slots: int, extra: int) -> tuple:
+    """(seg_len, n_seg): the x segments of ``nxn`` node planes that
+    minimise waves x (seg_len + extra), a wave being ``slots`` blocks (the
+    card's SMs x the blocks an SM holds) of ``tiles`` x n_seg, ``extra``
+    the planes a segment costs beyond its own; ties go to fewer
+    segments."""
+    best = None
+    for n in range(1, nxn + 1):
+        seg_len = -(-nxn // n)
+        n_seg = -(-nxn // seg_len)
+        cost = -(-tiles * n_seg // slots) * (seg_len + extra)
+        if best is None or cost < best[0]:
+            best = (cost, seg_len, n_seg)
+    return best[1], best[2]
+
+
 @dataclasses.dataclass(frozen=True)
 class V6Geometry:
     """One launch of a kernel on v6's tiles: ``n_ty`` x ``n_tz`` (y, z)
@@ -163,16 +179,9 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
     cy = V6_CELLS_Y[dtype]
     tile = (cy - 1, V6_CELLS_Z - 1)
     n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
-    per_sm = V6_BLOCKS_PER_SM[dtype]
-    nxn, tiles = nx + 1, parts * n_ty * n_tz
-    best = None
-    for n in range(1, nxn + 1):
-        seg_len = -(-nxn // n)
-        n_seg = -(-nxn // seg_len)
-        cost = -(-tiles * n_seg // (sms * per_sm)) * (seg_len + 3)
-        if best is None or cost < best[0]:
-            best = (cost, seg_len, n_seg)
-    _cost, seg_len, n_seg = best
+    tiles = parts * n_ty * n_tz
+    seg_len, n_seg = _segments(nx + 1, tiles, sms * V6_BLOCKS_PER_SM[dtype],
+                               3)
     return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
 
 
@@ -234,15 +243,8 @@ def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
     smem = v5_smem_bytes(planes, rows)
     n_ty, n_tz = -(-(ny + 1) // rows), -(-(nz + 1) // V5_LANES_Z)
     per_sm = max(1, SM_SMEM // (smem + SMEM_RESERVED))
-    nxn, tiles = nx + 1, parts * n_ty * n_tz
-    best = None
-    for n in range(1, nxn + 1):
-        seg_len = -(-nxn // n)
-        n_seg = -(-nxn // seg_len)
-        cost = -(-tiles * n_seg // (sms * per_sm)) * (seg_len + 2)
-        if best is None or cost < best[0]:
-            best = (cost, seg_len, n_seg)
-    _cost, seg_len, n_seg = best
+    tiles = parts * n_ty * n_tz
+    seg_len, n_seg = _segments(nx + 1, tiles, sms * per_sm, 2)
     return V5Geometry(rows, n_ty, n_tz, seg_len, n_seg, tiles * n_seg,
                       16 * rows, smem)
 
@@ -300,15 +302,8 @@ def v9_geometry(parts: int, nx: int, ny: int, nz: int,
     cell plane and its ring fill included; ties go to fewer segments."""
     tile = (V9_WARPS * (rows - 1), V9_LANES_Z - 1)
     n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
-    nxn, tiles = nx + 1, parts * n_ty * n_tz
-    best = None
-    for n in range(1, nxn + 1):
-        seg_len = -(-nxn // n)
-        n_seg = -(-nxn // seg_len)
-        cost = -(-tiles * n_seg // (sms * V9_BLOCKS_PER_SM)) * (seg_len + 2)
-        if best is None or cost < best[0]:
-            best = (cost, seg_len, n_seg)
-    _cost, seg_len, n_seg = best
+    tiles = parts * n_ty * n_tz
+    seg_len, n_seg = _segments(nx + 1, tiles, sms * V9_BLOCKS_PER_SM, 2)
     return V9Geometry(rows, tile, n_ty, n_tz, seg_len, n_seg,
                       tiles * n_seg, 32 * V9_WARPS, v9_smem_bytes(rows))
 
