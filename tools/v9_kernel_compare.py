@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the port's v9 structured-matvec kernel with its earlier source,
-with other builds of it, and with the v6 float and v1 kernels on one NVIDIA
-card, and test one model of instruction issue across them.
+with other builds of it, and with the v6 float, v1 and v5 kernels on one
+NVIDIA card, and test one model of instruction issue across them.
 
 Run from the repository root, on a machine with the card and nvcc:
 
@@ -16,7 +16,8 @@ Prints, at the flagship slab (1 part, 150^3 cells):
     two launches give the same bits, and, with --old, whether it gives the
     old kernel's values at the card tests' shapes and at 150^3;
   * CUDA-event times with L2 flushed, in turns (v9, old v9, v6 float, v1,
-    then the reverse order), each launched through its C entry point;
+    v5 at PCG_TPU_PALLAS_PLANES, then the reverse order), each launched
+    through its C entry point;
   * with --sweep, builds of this source at other strip heights and cells
     a thread (-DV9_ROWS, -DV9_CELLS), each checked against the shipped
     build and timed in turns with it;
@@ -120,6 +121,15 @@ def fmas_v6(shape, geo) -> int:
     return 576 * 1024 * P * geo.n_ty * geo.n_tz * steps
 
 
+def fmas_v5(shape, geo) -> int:
+    """FMAs v5 executes: 16 x rows threads a block, two nodes a thread,
+    576 (+24 scale) a node and output plane of its segment."""
+    P, nx, ny, nz = shape
+    steps = sum(min(x0 + geo.seg_len, nx + 1) - x0
+                for x0 in range(0, nx + 1, geo.seg_len))
+    return 600 * 2 * geo.threads * P * geo.n_ty * geo.n_tz * steps
+
+
 def fmas_v1(shape) -> int:
     """FMAs v1 executes: a thread a node column and 16-plane segment,
     threads rounded up to warps, 576 (+6 scale) a cell plane on the grid
@@ -199,7 +209,7 @@ def main() -> int:
           f"{nvidia_smi()}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     names = ["structured_matvec_v9", "structured_matvec",
-             "structured_matvec_v1"]
+             "structured_matvec_v1", "structured_matvec_v5"]
     for name, rep in kernels.build_kernels(names).items():
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -209,7 +219,9 @@ def main() -> int:
             "v6": (kernels.library_path("structured_matvec"),
                    smv._library("v6")),
             "v1": (kernels.library_path("structured_matvec_v1"),
-                   smv._library("v1"))}
+                   smv._library("v1")),
+            "v5": (kernels.library_path("structured_matvec_v5"),
+                   smv._library("v5"))}
     sweep = {}
     with concurrent.futures.ThreadPoolExecutor() as pool:
         old = None if args.old is None else pool.submit(build, args.old,
@@ -240,6 +252,7 @@ def main() -> int:
                                                         stream)
     libs["v6"][1].structured_matvec_stage_f32(K.data_ptr(), 0, stream)
     libs["v1"][1].structured_matvec_v1_stage_f32(K.data_ptr(), 0, stream)
+    libs["v5"][1].structured_matvec_v5_stage_f32(K.data_ptr(), 0, stream)
     for _path, h in sweep.values():
         h.structured_matvec_v9_stage_f32(K.data_ptr(), 0, stream)
 
@@ -297,6 +310,10 @@ def main() -> int:
                           (g6.seg_len, g6.n_ty, g6.n_tz, g6.n_seg))
     runs["v1"] = launcher(libs["v1"][1].structured_matvec_v1_f32, x, ck,
                           shape, ())
+    g5 = smv.v5_geometry(*shape, smv.pallas_planes(), sms)
+    runs["v5"] = launcher(libs["v5"][1].structured_matvec_v5_f32, x, ck,
+                          shape, (smv.pallas_planes(), g5.rows, g5.seg_len,
+                                  g5.n_ty, g5.n_tz, g5.n_seg))
     print(f"v9 geometry at {N}^3: {g9}")
     for tag, run in runs.items():
         y1 = run().clone()
@@ -344,12 +361,14 @@ def main() -> int:
     # shared-memory model
     probe = smem_probe(torch, sms)
     fmas = {"v9": fmas_v9(shape, g9), "old": fmas_v9_old(shape),
+            "v5": fmas_v5(shape, g5),
             "v6": fmas_v6(shape, g6), "v1": fmas_v1(shape)}
     floor_1x = 576 * N ** 3 / FMA_RATE * 1e3
     for tag, (path, _h) in libs.items():
         for name, code in sass_functions(path).items():
-            if "Dmma" in name:
-                continue                       # v6's double kernel
+            if "Dmma" in name or (tag == "v5"
+                                  and f"ILi{g5.rows}E" not in name):
+                continue             # v6's double kernel, v5's other tiles
             whole = opcode_counts(code)
             body = loop_body(code) or code
             ops = opcode_counts(body)
@@ -366,13 +385,13 @@ def main() -> int:
                   f"{per * floor / ms:.3f} of the kernel's time spent "
                   f"issuing")
             # the shared-memory pipe: the loop's shared loads and shuffles
-            # priced at the probe's cycles (v9's and v6's loops read Ke's
-            # 144 float4s once, as broadcasts; their other 16-byte loads
-            # are lanes on consecutive words; 64-bit loads and stores are
-            # priced as 32-bit lanes)
+            # priced at the probe's cycles (v9's, v6's and v5's loops read
+            # Ke's 144 float4s once, as broadcasts; their other 16-byte
+            # loads are lanes on consecutive words; 64-bit loads and
+            # stores are priced as 32-bit lanes)
             w = shared_widths(body)
             n128 = w["LDS.128"]
-            bcast = 144 if tag in ("v9", "v6") else 0
+            bcast = 144 if tag in ("v9", "v6", "v5") else 0
             cyc = (bcast * probe["LDS.128 broadcast"]
                    + (n128 - bcast) * probe["LDS.128 lanes"]
                    + sum(n for k, n in w.items() if k != "LDS.128")
