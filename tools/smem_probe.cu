@@ -9,7 +9,10 @@
 // consecutive 16-byte words (512 bytes a warp); 4 SHFL.UP by one lane;
 // 5 FFMA on registers (the clock's check: 0.25 cycles at 128 FMA lanes an
 // SM).  Each instruction feeds one FADD (modes 0-4), 16 independent
-// chains a thread.
+// chains a thread.  Modes 6 and 7 count FFMAs: v9's product pattern, a
+// float4 of Ke broadcast from shared memory feeding 8 FFMAs into 24
+// accumulators (two cells x 12 dofs; 6), and the same FFMAs with Ke from
+// registers (7).
 
 #include <cuda_runtime.h>
 
@@ -33,8 +36,39 @@ probe_kernel(int iters, float* out, long long* clocks, int* sm) {
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) acc[u] = static_cast<float>(u + lane);
   const float k1 = 1.0001f, k2 = static_cast<float>(lane) * 1e-7f;
+  float cell[2][12];                     // modes 6, 7
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int d = 0; d < 12; ++d) cell[j][d] = 0.f;
+  const float u0 = 1.f + 1e-3f * lane, u1 = 2.f - 1e-3f * lane;
   const long long t0 = clock64();
-  for (int i = 0; i < iters; ++i) {
+  if (Mode >= 6) {
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float4 k;
+        if (Mode == 6) {
+          const unsigned a = base + 16u * ((i * kUnroll + u) & 1023);
+          asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                       : "=f"(k.x), "=f"(k.y), "=f"(k.z), "=f"(k.w)
+                       : "r"(a));
+        } else {
+          k = make_float4(acc[u], k1, k2, acc[(u + 1) % kUnroll]);
+        }
+        const int d = 4 * (u % 3);
+        cell[0][d] = fmaf(k.x, u0, cell[0][d]);
+        cell[1][d] = fmaf(k.x, u1, cell[1][d]);
+        cell[0][d + 1] = fmaf(k.y, u0, cell[0][d + 1]);
+        cell[1][d + 1] = fmaf(k.y, u1, cell[1][d + 1]);
+        cell[0][d + 2] = fmaf(k.z, u0, cell[0][d + 2]);
+        cell[1][d + 2] = fmaf(k.z, u1, cell[1][d + 2]);
+        cell[0][d + 3] = fmaf(k.w, u0, cell[0][d + 3]);
+        cell[1][d + 3] = fmaf(k.w, u1, cell[1][d + 3]);
+      }
+    }
+  }
+  for (int i = 0; i < (Mode >= 6 ? 0 : iters); ++i) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const unsigned row = base + 512u * ((i * kUnroll + u) & 31);
@@ -62,6 +96,10 @@ probe_kernel(int iters, float* out, long long* clocks, int* sm) {
   float sum = 0.f;
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) sum += acc[u];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int d = 0; d < 12; ++d) sum += cell[j][d];
   out[blockIdx.x * kThreads + threadIdx.x] = sum;
   if (threadIdx.x == 0) {
     unsigned id;
@@ -103,6 +141,8 @@ extern "C" int smem_probe(int mode, int iters, int blocks, void* out,
     case 3: return run<3>(iters, blocks, o, c, m, s);
     case 4: return run<4>(iters, blocks, o, c, m, s);
     case 5: return run<5>(iters, blocks, o, c, m, s);
+    case 6: return run<6>(iters, blocks, o, c, m, s);
+    case 7: return run<7>(iters, blocks, o, c, m, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -144,12 +144,18 @@ def fmas_v1(shape) -> int:
 
 
 PROBE_MODES = ("LDS.32 broadcast", "LDS.128 broadcast", "LDS.32 lanes",
-               "LDS.128 lanes", "SHFL.UP", "FFMA")
+               "LDS.128 lanes", "SHFL.UP", "FFMA",
+               "FFMA of Ke broadcast", "FFMA of Ke in registers")
+# warp instructions a thread issues per probe iteration: 16, or 128 FFMAs
+# in the modes that time v9's product pattern
+PROBE_COUNT = {"FFMA of Ke broadcast": 128, "FFMA of Ke in registers": 128}
 
 
 def smem_probe(torch, sms: int) -> dict:
     """SM cycles one warp instruction takes, per tools/smem_probe.cu mode:
-    two 256-thread blocks an SM, each thread issuing 16 x 2048 of them;
+    two 256-thread blocks an SM, each thread issuing 16 x 2048 of them
+    (128 x 2048 FFMAs in the modes of v9's product pattern, which count
+    the cycles an FFMA);
     for each SM, the span from its first block's start to its last
     block's end over its warps' instructions; the median over the SMs."""
     import ctypes
@@ -174,8 +180,9 @@ def smem_probe(torch, sms: int) -> dict:
         spans = collections.defaultdict(list)
         for (t0, t1), s in zip(c, sm.cpu().tolist()):
             spans[s].append((t0, t1))
+        count = PROBE_COUNT.get(name, 16)
         per_sm = [(max(t1 for _t0, t1 in v) - min(t0 for t0, _t1 in v))
-                  / (8 * len(v) * iters * 16) for v in spans.values()]
+                  / (8 * len(v) * iters * count) for v in spans.values()]
         costs[name] = statistics.median(per_sm)
         if mode == 0:
             counts = collections.Counter(len(v) for v in spans.values())
