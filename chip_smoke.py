@@ -18,10 +18,12 @@ Phases (any failed check raises, so the script exits non-zero):
                 launches bitwise equal, with CUDA-event times and the
                 card's bound (bytes, CUDA-core and tensor-core terms); the
                 chunked variants (v3, v5, v7, v8) also at 16 planes a
-                chunk; v6 in both dtypes, v4 (float32 on v6's tiles), v5
-                (at 8 and 16 planes) and v9 also on a single cell and on
-                shapes that cross their strip, tile and segment edges,
-                each with its launch geometry;
+                chunk; v6 in both dtypes, v4 and v2 (float32 on v6's
+                tiles), v5 and v3 (the node-owned gather, at 8 and 16
+                planes) and v9 also on a single cell and on shapes that
+                cross their strip, tile and segment edges, each with its
+                launch geometry; v2 gives v6 float's bits and v3 v5's at
+                every shape both run;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
@@ -63,13 +65,14 @@ CARD_VS_CPU_CELLS = (12, 6, 5)      # phase 5's card-against-CPU solves
 JAX_FLAGSHIP_ITERS = 3334
 
 KERNEL_TOL = {"float32": 2e-5, "float64": 1e-12}   # x max|y_plain|
-# phase 3 also holds v6 (both dtypes) and v4 (float32, on v6's tiles) at
-# these: a single cell, and shapes whose ny+1 and nz+1 cross several of
+# phase 3 also holds v6 (both dtypes), v4 and v2 (float32, on v6's tiles)
+# at these: a single cell, and shapes whose ny+1 and nz+1 cross several of
 # their (y, z) tiles without filling the last and whose nx+1 spans several
 # x segments, one of them two parts
 V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
-# and v5 (float32, at 8 and 16 planes) at these: v6's, and one whose x
-# segments are longer than two chunks, so its shared-memory ring wraps
+# and v5 and v3 (float32, the node-owned gather, at 8 and 16 planes) at
+# these: v6's, and one whose x segments are longer than two chunks, so its
+# shared-memory ring wraps
 V5_EDGE_SHAPES = V6_EDGE_SHAPES + ((1, 100, 200, 200),)
 V5_EDGE_PLANES = (8, 16)
 # and v9 (float32) at these: v6's, two parts whose nodes end exactly on
@@ -78,7 +81,11 @@ V5_EDGE_PLANES = (8, 16)
 V9_EDGE_SHAPES = V6_EDGE_SHAPES + ((2, 9, 79, 61), (1, 30, 39, 30),
                                    (1, 100, 200, 200))
 EDGE_SHAPES = {"v6": V6_EDGE_SHAPES, "v4": V6_EDGE_SHAPES,
-               "v5": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}
+               "v2": V6_EDGE_SHAPES, "v5": V5_EDGE_SHAPES,
+               "v3": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}
+# variants that share another's kernel design and give its bits: v2 runs
+# v6 float's tiles with another Ke source, v3 v5's gather
+SAME_BITS = (("v2", "v6"), ("v3", "v5"))
 # The float32 kernels, v6 (the default) first, and the JAX wrapper each
 # replaces; float64 runs v6's double kernel under every variant.
 F32_VARIANTS = ("v6", "v1", "v2", "v3", "v4", "v5", "v7", "v8", "v9")
@@ -178,7 +185,7 @@ def phase_kernels(torch, np, rates):
     kernel_shapes(); returns the flagship record per (variant, dtype)."""
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        VARIANTS, _library, pallas_planes, structured_matvec,
+        GATHER, VARIANTS, _library, pallas_planes, structured_matvec,
         structured_matvec_plain, v5_geometry, v6_geometry, v9_geometry)
 
     rng = np.random.default_rng(2024)
@@ -228,30 +235,36 @@ def phase_kernels(torch, np, rates):
                     and min(geo.n_ty, geo.n_tz, geo.n_seg) < 2:
                 raise AssertionError(f"{shape} {name} crosses no v6 tile "
                                      f"or segment edge: {geo}")
-            if "v4" in variants:
-                # v4 launches v6 float's kernel from a library of its own
-                v4_smem = _library("v4").structured_matvec_v4_smem_bytes(
+            for tv in ("v4", "v2"):
+                if tv not in variants:
+                    continue
+                # v4 and v2 launch v6 float's tiles from libraries of their
+                # own
+                tv_smem = getattr(_library(tv),
+                                  f"{VARIANTS[tv][0]}_smem_bytes")(
                     x.element_size())
-                if v4_smem != smem:
-                    raise AssertionError(f"v4 shared memory {v4_smem} B, "
+                if tv_smem != smem:
+                    raise AssertionError(f"{tv} shared memory {tv_smem} B, "
                                          f"v6 float's {smem} B")
             plane_runs = [(v, None) for v in variants]
             if shape == RAGGED_PLANES[0] and dtype == torch.float32:
                 plane_runs += [(v, RAGGED_PLANES[1]) for v in variants
                                if VARIANTS[v][1]]
-            if "v5" in variants:
+            for gv in [v for v in variants if v in GATHER]:
                 if edge:
-                    plane_runs = [r for r in plane_runs if r[0] != "v5"] \
-                        + [("v5", pl) for pl in V5_EDGE_PLANES]
+                    plane_runs = [r for r in plane_runs if r[0] != gv] \
+                        + [(gv, pl) for pl in V5_EDGE_PLANES]
                 for pl in sorted({pl or pallas_planes() for v, pl in plane_runs
-                                  if v == "v5"}):
+                                  if v == gv}):
                     g5 = v5_geometry(P, nx, ny, nz, pl, sms=sms)
-                    lib_smem = _library("v5").structured_matvec_v5_smem_bytes(
+                    lib_smem = getattr(_library(gv),
+                                       f"{VARIANTS[gv][0]}_smem_bytes")(
                         pl, g5.rows)
                     if lib_smem != g5.smem_bytes:
-                        raise AssertionError(f"v5 shared memory {lib_smem} "
-                                             f"B, v5_geometry says {g5}")
-                    say(f"  v5 planes={pl}: tiles {g5.n_ty}x{g5.n_tz} of "
+                        raise AssertionError(f"{gv} shared memory "
+                                             f"{lib_smem} B, v5_geometry "
+                                             f"says {g5}")
+                    say(f"  {gv} planes={pl}: tiles {g5.n_ty}x{g5.n_tz} of "
                         f"{g5.rows}x32 nodes, {g5.n_seg} segments of "
                         f"{g5.seg_len} planes, {g5.blocks} blocks of "
                         f"{g5.threads} threads, {g5.smem_bytes} B shared")
@@ -273,6 +286,7 @@ def phase_kernels(torch, np, rates):
                     f"rows), {g9.n_seg} segments of {g9.seg_len} planes, "
                     f"{g9.blocks} blocks of {g9.threads} threads, "
                     f"{g9.smem_bytes} B shared")
+            ys = {}
             for v, planes in plane_runs:
                 def run():
                     return structured_matvec(x, ck, K, variant=v,
@@ -298,8 +312,24 @@ def phase_kernels(torch, np, rates):
                     out[(v, name)] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
-                del y, y2
-            del x, ck, y_plain
+                ys[(v, (planes or pallas_planes()) if VARIANTS[v][1]
+                    else None)] = y
+                del y2
+            for a, b in SAME_BITS:
+                pairs = [(k, (b, k[1])) for k in ys
+                         if k[0] == a and (b, k[1]) in ys]
+                if a in variants and b in variants and not pairs:
+                    raise AssertionError(f"{a} and {b} ran at {shape} but "
+                                         f"were not compared")
+                for ka, kb in pairs:
+                    same = torch.equal(ys[ka], ys[kb])
+                    at = "" if ka[1] is None else f" planes={ka[1]}"
+                    say(f"  {a} against {b}{at}: "
+                        f"{'the same bits' if same else 'DIFFERENT bits'}")
+                    if not same:
+                        raise AssertionError(f"{a}{at} {name} {shape} does "
+                                             f"not give {b}'s bits")
+            del x, ck, y_plain, ys
     torch.cuda.empty_cache()
     return out
 

@@ -1,5 +1,6 @@
-// Structured-slab block-stencil matvec for Hopper (sm_90a), float: flat
-// lanes, each cell plane's product staged in shared memory.
+// Structured-slab block-stencil matvec for Hopper (sm_90a), float: v6's
+// float tiles (structured_tiles.cuh) with a cell product whose FFMAs take
+// Ke as a constant operand.
 //
 // Replaces pcg_mpi_solver_tpu/ops/pallas_matvec.py::structured_matvec_pallas_v2
 // (kernel _matvec_kernel_v2), which the JAX package's structured backend
@@ -11,198 +12,129 @@
 // x, y: (P, 3, nx+1, ny+1, nz+1); ck: (P, nx, ny, nz); Ke: (24, 24) in
 // element-dof order 3*corner + comp, corners in VTK order.
 //
-// What bounds it on an H100 SXM: 576 FMAs per cell against ~28 bytes per
-// cell, so the operations (58.0 us at 150^3 at 67 TFLOP/s fp32, against
-// 28.7 us for the bytes at 3.35 TB/s).
+// What bounds it on an H100 SXM (chip_smoke.py::matvec_bound_ms): at the
+// flagship 150^3 slab the bytes (x and y once per node, ck once per cell:
+// 96.13 MB) take 28.7 us at 3.35 TB/s, the bound of any float-accurate
+// kernel.  The FMAs of the cells (3.888 GFLOP) take 58.0 us on the CUDA
+// cores at 67 TFLOP/s, 66 us at the 1.14x cells these tiles compute.
 //
-// The TPU kernel flattens a node plane into m = (ny+1)(nz+1) lanes and
-// indexes the cells at node strides (ck = 0 on the pad lanes), so corner a
-// of the cell at lane q is the node at lane q + off_a, off_a in {0, 1,
-// nz+1, nz+2}; per plane it does one (24,24)@(24,m) product V = Ke . (ck *
-// U), then adds V's eight corner rows at those offsets, carrying the dx=1
-// rows to the next plane.  Here:
-//   * a block owns kLanes output lanes of one x segment and marches its
-//     cell planes in a loop (the TPU's sequential grid); the dx=1 rows are
-//     carried in registers, three per thread;
-//   * per plane the two node planes are staged in shared memory over the
-//     lanes the block needs, and each thread builds the 24 gathered values
-//     of one cell lane from them at the flat offsets and multiplies by Ke
-//     (constant bank, unrolled) - a column of T = ck * U is read only by
-//     the thread that built it, so it stays in registers;
-//   * V is what crosses lanes, so V is staged in shared memory: 24 rows
-//     over the block's kLanes lanes and the nz+2 lanes before them, whose
-//     cells also feed the block's nodes.  That halo is recomputed by the
-//     block that owns it too (owner computes, no atomics: the same result
-//     bit for bit run to run), which costs (kLanes + nz + 2) / kLanes of
-//     the product's FMAs - 1.6x at 150^3;
-//   * each thread then sums its own lane's eight corner rows of V;
-//   * x is cut into segments of kSegment node planes for parallelism; a
-//     segment first recomputes the carry of the cell plane before it.
-// Shared memory: 4 * (6 * (kLanes + 2 nz + 4) + 24 * (kLanes + nz + 2))
-// bytes, 52.6 KB at nz = 150; the launch is refused above 227 KB
-// (nz above ~1,900).
+// How the TPU kernel maps onto this one: it flattens a node plane into
+// lanes, does one (24,24)@(24,m) product V = Ke . (ck * U) a cell plane,
+// then adds V's eight corner rows onto the node lanes at their offsets,
+// carrying the dx = 1 rows into the next plane.  That is a cell product
+// followed by placement, which is what v6's tiles do: (y, z) node tiles
+// marching x segments, node and ck planes staged by cp.async in a ring,
+// the cell product of a plane into shared memory, each owned node summing
+// its corners' rows in a fixed order with the dx = 1 half carried in
+// registers (structured_matvec.cu's note).  No atomics and a fixed
+// summation order: two launches give the same bits.  The TPU kernel takes
+// no chunk, and neither does this one.
+//
+// The cell product is smv::ConstFfmaProduct: v6 float's FFMA product
+// (FfmaProduct, two cells a thread, each output dof an e-ordered FFMA
+// chain, ck after the sum; the same bits as v6 float) with Ke[d][e] as the
+// FFMA's constant operand at an immediate address instead of a float4
+// broadcast from shared memory.  The float4 broadcast feeding 8
+// register x register + register FFMAs runs at 0.430 SM cycles a warp
+// FFMA (tools/smem_probe.cu mode 6), 1.64x the cores' rate, and that
+// pattern is the largest measured part of v6's time (PERF.md, Findings).
+//
+// Ke is staged by its own entry point (the wrapper restages only for
+// another Ke or one changed in place; staging ends with a stream sync).
+// V2_KE_ROUTE picks where the FFMAs read it: 1, this library's
+// __constant__ bank; 2, a 2304-byte kernel parameter (bank 0), copied to
+// the host when staged.  The entry points make the tensor's device
+// current and restore the caller's before they return.
 
 #include <cuda_runtime.h>
 
-#include "structured_common.cuh"
+#include "structured_tiles.cuh"
+
+#ifndef V2_KE_ROUTE
+#define V2_KE_ROUTE 1
+#endif
+#ifndef V2_APART
+#define V2_APART 0
+#endif
 
 namespace {
 
-using smv::corner_x;
-using smv::corner_y;
-using smv::corner_z;
-
-constexpr int kLanes = 256;    // output lanes of a block, one per thread
-constexpr int kSegment = 16;   // node planes a block finishes
-
+#if V2_KE_ROUTE == 1
 __constant__ float ke_v2[24 * 24];
 
-size_t smem_bytes(int nz) {
-  const int sy = nz + 1;
-  const int nq = kLanes + sy + 1, xw = nq + sy + 1;
-  return sizeof(float) * (6 * static_cast<size_t>(xw) + 24 * nq);
-}
+struct KeV2 {
+  using Arg = smv::NoArg;
+  __device__ static float at(const Arg& /*arg*/, int i) { return ke_v2[i]; }
+};
+#else
+struct KeParam {
+  float v[24 * 24];
+};
 
-__global__ void __launch_bounds__(kLanes)
-matvec_v2_kernel(const float* __restrict__ x, const float* __restrict__ ck,
-                 float* __restrict__ y, int nx, int ny, int nz, int n_tiles,
-                 int n_seg) {
-  extern __shared__ float smem[];
-  const int nxn = nx + 1, nyn = ny + 1, nzn = nz + 1;
-  const int sy = nzn, m = nyn * nzn, grid = nxn * m;
-  int blk = blockIdx.x;
-  const int tile = blk % n_tiles;
-  blk /= n_tiles;
-  const int seg = blk % n_seg;
-  const int p = blk / n_seg;
-  const float* xp = x + static_cast<size_t>(p) * 3 * grid;
-  const float* ckp = ck + static_cast<size_t>(p) * nx * ny * nz;
-  float* yp = y + static_cast<size_t>(p) * 3 * grid;
-  const int tid = threadIdx.x;
-  const int l0 = tile * kLanes;
-  const int l = l0 + tid;                // this thread's output lane
-  const int halo = sy + 1;               // cell lanes before the tile
-  const int q0 = l0 - halo;              // first cell lane of the block
-  const int nq = kLanes + halo;          // cell lanes per plane
-  const int xw = nq + sy + 1;            // node lanes [q0, q0 + xw)
-  float* xs = smem;                      // [2][3][xw]: node plane j in slot j&1
-  float* vs = smem + 6 * xw;             // [24][nq]: V of one cell plane
-  const int x0 = seg * kSegment;
-  const int x1 = min(x0 + kSegment, nxn);
+struct KeV2 {
+  using Arg = KeParam;
+  __device__ static float at(const Arg& arg, int i) { return arg.v[i]; }
+};
 
-  auto stage_plane = [&](int px) {
-    float* dst = xs + (px & 1) * 3 * xw;
-    for (int k = tid; k < 3 * xw; k += kLanes) {
-      const int c = k / xw, gl = q0 + k - c * xw;
-      dst[k] = (px >= 0 && px < nxn && gl >= 0 && gl < m)
-                   ? xp[c * grid + px * m + gl] : 0.f;
-    }
-  };
+constexpr int kMaxDevices = 64;
+KeParam host_ke[kMaxDevices];   // the Ke staged last, per device
+#endif
 
-  stage_plane(x0 - 1);
-  stage_plane(x0);
-  __syncthreads();
-  float carry[3] = {0.f, 0.f, 0.f};
-  for (int i = x0 - 1; i < x1; ++i) {
-    const bool plane_ok = i >= 0 && i < nx;   // the same for the block
-    if (plane_ok) {
-      const float* xa[2] = {xs + (i & 1) * 3 * xw, xs + ((i + 1) & 1) * 3 * xw};
-      for (int q = tid; q < nq; q += kLanes) {
-        const int gq = q0 + q;
-        const int cy = gq >= 0 ? gq / sy : -1;
-        const int cz = gq - cy * sy;
-        if (gq >= 0 && cy < ny && cz < nz) {
-          const float s = ckp[(i * ny + cy) * nz + cz];
-          float u[24];
-#pragma unroll
-          for (int a = 0; a < 8; ++a) {
-            const int off = corner_y(a) * sy + corner_z(a);
-#pragma unroll
-            for (int c = 0; c < 3; ++c)
-              u[3 * a + c] = xa[corner_x(a)][c * xw + q + off];
-          }
-#pragma unroll
-          for (int r = 0; r < 24; ++r) {
-            float acc = 0.f;
-#pragma unroll
-            for (int e = 0; e < 24; ++e) acc += ke_v2[r * 24 + e] * u[e];
-            vs[r * nq + q] = s * acc;
-          }
-        } else {
-#pragma unroll
-          for (int r = 0; r < 24; ++r) vs[r * nq + q] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
-    float lo[3] = {0.f, 0.f, 0.f}, hi[3] = {0.f, 0.f, 0.f};
-    if (plane_ok) {
-      // corner b of the cell at lane l - off_b is this thread's node
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int qq = tid + halo - corner_y(b) * sy - corner_z(b);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float v = vs[(3 * b + c) * nq + qq];
-          if (corner_x(b)) {
-            hi[c] += v;
-          } else {
-            lo[c] += v;
-          }
-        }
-      }
-    }
-    if (i >= x0 && l < m) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) yp[c * grid + i * m + l] = carry[c] + lo[c];
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) carry[c] = hi[c];
-    if (i + 1 < x1) {
-      __syncthreads();        // V and the slot of plane i are free again
-      stage_plane(i + 2);
-      __syncthreads();
-    }
-  }
-}
-
-int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
-           int nz, cudaStream_t stream) {
-  const int m = (ny + 1) * (nz + 1);
-  const int n_tiles = (m + kLanes - 1) / kLanes;
-  const int n_seg = (nx + 1 + kSegment - 1) / kSegment;
-  const long long blocks = static_cast<long long>(parts) * n_seg * n_tiles;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(nz);
-  cudaError_t e = smv::allow_smem(matvec_v2_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  matvec_v2_kernel<<<static_cast<int>(blocks), kLanes, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(ck),
-      static_cast<float*>(y), nx, ny, nz, n_tiles, n_seg);
-  return static_cast<int>(cudaGetLastError());
-}
+using Product = smv::ConstFfmaProduct<KeV2, V2_APART != 0>;
 
 }  // namespace
 
 // C entry points.  stage copies ke (24,24), a contiguous float device
-// buffer, into this library's constant bank on `device`.  The matvec takes
-// x (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float device
-// buffers, and writes y, allocated by the caller with x's shape, using the
-// Ke staged last.  The wrapper (ops/structured_matvec.py) checks shapes,
-// dtype and contiguity and keeps every index below 2^31.  Each returns the
+// buffer, to where this library's kernel reads Ke on `device`.  The matvec
+// takes x (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float
+// device buffers, and writes y, allocated by the caller with x's shape,
+// using the Ke staged last; the launch geometry (seg_len, n_ty, n_tz,
+// n_seg) comes from ops/structured_matvec.py::v6_geometry, as v6 float's,
+// and a grid that is not this library's tile is refused.  Each returns the
 // CUDA error code of its copy or launch (0 = done / launched).
 extern "C" int structured_matvec_v2_stage_f32(const void* ke, int device,
                                               void* stream) {
+#if V2_KE_ROUTE == 1
   return smv::stage(ke_v2, ke, device, stream);
+#else
+  if (device < 0 || device >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  smv::DeviceScope scope(device);
+  if (scope.error() != 0) return scope.error();
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemcpyAsync(host_ke[device].v, ke, sizeof(KeParam),
+                                  cudaMemcpyDeviceToHost, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaStreamSynchronize(s));
+#endif
 }
 
 extern "C" int structured_matvec_v2_f32(const void* x, const void* ck,
                                         void* y, int parts, int nx, int ny,
-                                        int nz, int device, void* stream) {
-  smv::DeviceScope scope(device);
-  if (scope.error() != 0) return scope.error();
-  return launch(x, ck, y, parts, nx, ny, nz,
-                static_cast<cudaStream_t>(stream));
+                                        int nz, int seg_len, int n_ty,
+                                        int n_tz, int n_seg, int device,
+                                        void* stream) {
+#if V2_KE_ROUTE == 1
+  return smv::launch_on<Product>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty,
+                                 n_tz, n_seg, device, stream);
+#else
+  if (device < 0 || device >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  return smv::launch_on<Product>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty,
+                                 n_tz, n_seg, device, stream,
+                                 host_ke[device]);
+#endif
+}
+
+// The dynamic shared memory of a block of itemsize 4 (float; 0 for
+// another itemsize: v2 has no other kernel), for reports (chip_smoke.py
+// checks it against v6 float's: the same tiles and ring).
+extern "C" long long structured_matvec_v2_smem_bytes(int itemsize) {
+  return itemsize == 4
+             ? static_cast<long long>(smv::Layout<float>::kSmemBytes)
+             : 0;
 }
 
 SMV_ERROR_STRING(structured_matvec_v2)

@@ -1,6 +1,7 @@
-// Structured-slab block-stencil matvec for Hopper (sm_90a), float: a
-// node-owned gather.  Each thread owns two output nodes and gathers the
-// eight corner products that land on them; no placement pass, no barrier
+// Structured-slab block-stencil matvec for Hopper (sm_90a), float: the
+// node-owned gather of structured_gather.cuh with this library's constant
+// bank of Ke.  Each thread owns two output nodes and gathers the eight
+// corner products that land on them; no placement pass, no barrier
 // between corners, no atomics.
 //
 // Replaces pcg_mpi_solver_tpu/ops/pallas_matvec.py::structured_matvec_pallas_v5
@@ -13,13 +14,9 @@
 // x, y: (P, 3, nx+1, ny+1, nz+1); ck: (P, nx, ny, nz); Ke: (24, 24) in
 // element-dof order 3*corner + comp, corners in VTK order.
 //
-// What bounds it on an H100 SXM (chip_smoke.py::matvec_bound_ms): about 28
-// bytes per cell (x and y once per node, ck once per cell) against 576
-// FMAs.  At 150^3 the bytes take 28.7 us at 3.35 TB/s, the FMAs 58.0 us on
-// the CUDA cores (67 TFLOP/s) or 23.6 us as 3xTF32, so the bound is the
-// bytes', 28.7 us.  This kernel does its FMAs on the CUDA cores (the 3xTF32
-// product moves the flagship out of its iteration window, PERF.md), so
-// they set its floor: 151^3 nodes x 576 FMAs, 59 us.
+// What bounds it (structured_gather.cuh): the bytes, 28.7 us at 150^3 on
+// an H100 SXM; its FMAs on the CUDA cores set its floor, 59 us (1.07x the
+// cells' 58.0 us with the idle lanes of its tiles).
 //
 // How it maps onto the TPU kernel: the TPU kernel takes, per cell plane and
 // per output corner b, the (3,24)@(24,m) product Ke[3b:3b+3] . u of every
@@ -44,290 +41,21 @@
 //     FFMAs): Ke is read from shared memory as float4 broadcasts, each value
 //     feeding the FMAs of both nodes of the thread.
 //
-// The design:
-//   * A block owns a kRows x 32 tile of output nodes in (y, z) and marches
-//     an x segment of node planes.  Warp w owns rows 2w and 2w + 1, lane l
-//     the z column l: a thread's two nodes are neighbours in y, so a warp's
-//     shared-memory reads are 32 consecutive floats and a tile is 32 nodes
-//     wide in z (151 = 5 x 32 - 9 at 150^3; 64-wide z pairs would waste 41).
-//   * Node planes ((kRows + 2) x 34 nodes x 3 components) and ck planes
-//     ((kRows + 1) x 33 cells) come into a ring of two chunks by cp.async
-//     (C = PCG_TPU_PALLAS_PLANES planes a chunk, 2C + 2 slots: a chunk's C
-//     steps read C + 2 node planes while the next chunk's C planes land),
-//     zero-filled off the grid: an off-grid cell has ck = 0, so its products
-//     vanish and no compute step checks a bound.  A table built when the
-//     block starts holds each copy's source offset within a plane and its
-//     destination, as in structured_matvec.cu.  Two barriers per chunk.
-//   * A thread keeps its 3 x 4 x 3 node window (x, y, z; 3 components) and
-//     2 x 3 x 2 ck window in registers and slides it along x: a step loads
-//     one node plane of the window (36 values) and one ck plane (6) from
-//     shared memory for 1152 FMAs.  The step loop is not unrolled (unrolled
-//     by 3, the moves would become renames, but the registers spill), and a
-//     compiler barrier before each corner keeps Ke's loads inside the loop.
-//   * The x segments fill the card's SMs; each starts from the node plane
-//     and the cell plane before it (no carry).  The wrapper
-//     (ops/structured_matvec.py::v5_geometry) chooses kRows (the tallest of
-//     8, 4, 2 whose ring fits 227 KB at this C: 8 at C = 8 and 16), the
-//     tiles and the segment length and passes them in; a C whose ring does
-//     not fit even at 2 rows is refused (cudaErrorInvalidConfiguration).
-//     At C = 8 two 128-thread blocks share an SM (107.7 KB each).
-//   * Each output node plane is written once, 32 consecutive z nodes a
-//     warp row.  A fixed summation order: two launches give the same bits.
-// Builds timed on the card (tools/v5_kernel_compare.py, PERF.md, PR 6):
-// this one 0.187 ms at 150^3 and C = 8, PR 3's 0.603.  Its instructions
-// (about 1950 a step for 1152 FMAs) would take ~0.12 ms at one a cycle on
-// every scheduler, so what is left is latency at eight warps an SM (181
-// registers a thread): Ke from the
-// constant bank (3 % faster at C = 8, 9 % slower at 16), two output planes
-// a step (2 % faster at 8, 35 % slower at 16) and a window rotated by
-// renaming (no gain at 8, 38 % slower at 16) were built and not kept.
+// The design (tiles of two-node threads, a ring of two chunks, the node
+// window in registers) is in structured_gather.cuh, shared with v3
+// (structured_matvec_v3.cu).
 
 #include <cuda_runtime.h>
 
-#include "structured_common.cuh"
+#include "structured_gather.cuh"
 
 namespace {
 
-using smv::corner_x;
-using smv::corner_y;
-using smv::corner_z;
-
-constexpr int kLanesZ = 32;               // owned z nodes a tile row
-constexpr int kNodesZ = kLanesZ + 2;      // staged nodes a row
-constexpr int kCellsZ = kLanesZ + 1;      // staged cells a row
-
 __constant__ float ke_v5[24 * 24];
 
-// The layout of a tile of kRows owned node rows.
-template <int kRows>
-struct Tile {
-  static_assert(kRows % 2 == 0, "two rows a warp");
-  static constexpr int kThreads = 16 * kRows;
-  static constexpr int kComp = (kRows + 2) * kNodesZ;   // [c][yy][zz]
-  static constexpr int kNodeSlot = 3 * kComp;
-  static constexpr int kCkSlot = (kRows + 1) * kCellsZ; // [cy][cz]
-  static constexpr int kSlot = kNodeSlot + kCkSlot;
-  static constexpr int kCopies = kSlot;                 // one per value
+struct KeV5 {
+  __device__ static float at(int i) { return ke_v5[i]; }
 };
-
-// Dynamic shared memory: the ring of 2C + 2 slots, Ke and the copy table
-// (ops/structured_matvec.py::v5_smem_bytes mirrors it).
-size_t smem_bytes(int C, int rows) {
-  const size_t slot = 3 * static_cast<size_t>(rows + 2) * kNodesZ +
-                      static_cast<size_t>(rows + 1) * kCellsZ;
-  return sizeof(float) * ((2 * static_cast<size_t>(C) + 2) * slot + 576) +
-         sizeof(int2) * slot;
-}
-
-template <int kRows>
-__global__ void __launch_bounds__(Tile<kRows>::kThreads, 1)
-matvec_v5_kernel(const float* __restrict__ x, const float* __restrict__ ck,
-                 float* __restrict__ y, int nx, int ny, int nz, int C,
-                 int seg_len, int n_ty, int n_tz, int n_seg) {
-  using T = Tile<kRows>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ring = 2 * C + 2;
-  float* const ke_s = reinterpret_cast<float*>(smem_raw);     // [576]
-  float* const slots = ke_s + 576;                            // [ring][kSlot]
-  int2* const table =
-      reinterpret_cast<int2*>(slots + static_cast<size_t>(ring) * T::kSlot);
-
-  const int nxn = nx + 1, nyn = ny + 1, nzn = nz + 1;
-  const int grid = nxn * nyn * nzn;
-  int blk = blockIdx.x;
-  const int tz = blk % n_tz;
-  blk /= n_tz;
-  const int ty = blk % n_ty;
-  blk /= n_ty;
-  const int seg = blk % n_seg;
-  const int p = blk / n_seg;
-  // local node (yy, zz) is global (iy0 - 1 + yy, iz0 - 1 + zz), local cell
-  // (cy, cz) likewise; the block owns yy in [1, kRows], zz in [1, 32]
-  const int iy0 = ty * kRows, iz0 = tz * kLanesZ;
-  const int x0 = seg * seg_len, x_end = min(x0 + seg_len, nxn);
-  const int n_steps = x_end - x0;          // output node planes
-  const int n_node = n_steps + 2;          // node planes x0-1 .. x_end
-  const float* const xp = x + static_cast<size_t>(p) * 3 * grid;
-  const float* const ckp = ck + static_cast<size_t>(p) * nx * ny * nz;
-  float* const yp = y + static_cast<size_t>(p) * 3 * grid;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-
-  // copy e of a plane: source offset within the plane (-1 off the grid in
-  // y or z) and destination within a slot; node values first, then ck
-  for (int e = tid; e < T::kCopies; e += T::kThreads) {
-    int src, dst = e;
-    if (e < T::kNodeSlot) {
-      const int r = e / kNodesZ, zz = e % kNodesZ;
-      const int c = r / (kRows + 2), yy = r % (kRows + 2);
-      const int gy = iy0 - 1 + yy, gz = iz0 - 1 + zz;
-      src = gy >= 0 && gy < nyn && gz >= 0 && gz < nzn
-                ? c * grid + gy * nzn + gz : -1;
-    } else {
-      const int cy = (e - T::kNodeSlot) / kCellsZ;
-      const int cz = (e - T::kNodeSlot) % kCellsZ;
-      const int gy = iy0 - 1 + cy, gz = iz0 - 1 + cz;
-      src = gy >= 0 && gy < ny && gz >= 0 && gz < nz ? gy * nz + gz : -1;
-    }
-    table[e] = make_int2(src, dst);
-  }
-  for (int e = tid; e < 576; e += T::kThreads) ke_s[e] = ke_v5[e];
-  __syncthreads();
-
-  // slots [j0, j1) of the segment: node plane and ck plane x0-1+j into
-  // ring slot j % ring (no ck plane past the last cell plane); one commit
-  // group, empty past the segment
-  auto issue = [&](int j0, int j1) {
-    for (int j = j0; j < min(j1, n_node); ++j) {
-      const int gp = x0 - 1 + j;
-      const bool node_ok = gp >= 0 && gp < nxn;
-      const bool ck_ok = gp >= 0 && gp < nx;
-      const float* const xq = xp + (node_ok ? gp * nyn * nzn : 0);
-      const float* const cq = ckp + (ck_ok ? gp * ny * nz : 0);
-      float* const s = slots + static_cast<size_t>(j % ring) * T::kSlot;
-      const int n_copies = j <= n_steps ? T::kCopies : T::kNodeSlot;
-      for (int e = tid; e < n_copies; e += T::kThreads) {
-        const int2 d = table[e];
-        if (e < T::kNodeSlot) {
-          const bool ok = node_ok && d.x >= 0;
-          smv::copy4(s + d.y, ok ? xq + d.x : xp, ok);
-        } else {
-          const bool ok = ck_ok && d.x >= 0;
-          smv::copy4(s + d.y, ok ? cq + d.x : ckp, ok);
-        }
-      }
-    }
-    smv::commit_copies();
-  };
-
-  // the thread's windows: w[px][ry][rz][c] = node (i - 1 + px, gy - 1 + ry,
-  // gz - 1 + rz) component c, gy = iy0 + 2 warp the first owned row, gz =
-  // iz0 + lane; s[px][ry][rz] = ck of cell (i - 1 + px, gy - 1 + ry,
-  // gz - 1 + rz); i is the output node plane
-  float w[3][4][3][3];
-  float s[2][3][2];
-  const int node0 = 2 * warp * kNodesZ + lane;   // slot offset of (ry, rz) 0
-  const int cell0 = T::kNodeSlot + 2 * warp * kCellsZ + lane;
-  auto load_nodes = [&](int px, int j) {
-    const float* const n = slots + static_cast<size_t>(j % ring) * T::kSlot +
-                           node0;
-#pragma unroll
-    for (int ry = 0; ry < 4; ++ry)
-#pragma unroll
-      for (int rz = 0; rz < 3; ++rz)
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          w[px][ry][rz][c] = n[c * T::kComp + ry * kNodesZ + rz];
-  };
-  auto load_cks = [&](int px, int j) {
-    const float* const q = slots + static_cast<size_t>(j % ring) * T::kSlot +
-                           cell0;
-#pragma unroll
-    for (int ry = 0; ry < 3; ++ry)
-#pragma unroll
-      for (int rz = 0; rz < 2; ++rz) s[px][ry][rz] = q[ry * kCellsZ + rz];
-  };
-  const float4* const ke4 = reinterpret_cast<const float4*>(ke_s);
-  const int gy = iy0 + 2 * warp, gz = iz0 + lane;
-
-  const int n_chunks = (n_steps + C - 1) / C;
-  issue(0, C + 2);
-  for (int q = 0; q < n_chunks; ++q) {
-    // the slots of chunk q - 1's first C steps, read before its last
-    // barrier
-    issue(q * C + C + 2, q * C + 2 * C + 2);
-    smv::wait_copies<1>();
-    __syncthreads();
-    if (q == 0) {
-      load_nodes(1, 0);
-      load_nodes(2, 1);
-      load_cks(1, 0);
-    }
-    const int k_end = min(q * C + C, n_steps);
-    for (int k = q * C; k < k_end; ++k) {
-      // slide: node planes k, k+1, k+2 and cell planes k, k+1 of the slots
-#pragma unroll
-      for (int ry = 0; ry < 4; ++ry)
-#pragma unroll
-        for (int rz = 0; rz < 3; ++rz)
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            w[0][ry][rz][c] = w[1][ry][rz][c];
-            w[1][ry][rz][c] = w[2][ry][rz][c];
-          }
-#pragma unroll
-      for (int ry = 0; ry < 3; ++ry)
-#pragma unroll
-        for (int rz = 0; rz < 2; ++rz) s[0][ry][rz] = s[1][ry][rz];
-      load_nodes(2, k + 2);
-      load_cks(1, k + 1);
-
-      float acc[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        // node (row j) is corner b of cell (i - dxb, gy + j - dyb, gz - dzb)
-        const int dxb = corner_x(b), dyb = corner_y(b), dzb = corner_z(b);
-        // Ke is invariant across the steps: without this compiler barrier
-        // its 576 values are hoisted out of the x march and spilled
-        asm volatile("" ::: "memory");
-        float t[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int e4 = 0; e4 < 6; ++e4) {
-#pragma unroll
-          for (int r = 0; r < 3; ++r) {
-            const float4 kv = ke4[(3 * b + r) * 6 + e4];
-            const float kq[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-            for (int qq = 0; qq < 4; ++qq) {
-              const int e = 4 * e4 + qq, a = e / 3, c = e % 3;
-              const int px = 1 - dxb + corner_x(a);
-              const int rz = 1 - dzb + corner_z(a);
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                const int ry = j + 1 - dyb + corner_y(a);
-                t[j][r] = fmaf(kq[qq], w[px][ry][rz][c], t[j][r]);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float sc = s[1 - dxb][j + 1 - dyb][1 - dzb];
-#pragma unroll
-          for (int r = 0; r < 3; ++r) acc[j][r] = fmaf(sc, t[j][r], acc[j][r]);
-        }
-      }
-      const int i = x0 + k;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (gy + j < nyn && gz < nzn) {
-          float* const out = yp + (static_cast<size_t>(i) * nyn + gy + j) *
-                                      nzn + gz;
-#pragma unroll
-          for (int r = 0; r < 3; ++r) out[static_cast<size_t>(r) * grid] =
-              acc[j][r];
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int kRows>
-int launch_rows(const float* x, const float* ck, float* y, int parts, int nx,
-                int ny, int nz, int C, int seg_len, int n_ty, int n_tz,
-                int n_seg, cudaStream_t stream) {
-  const long long blocks =
-      static_cast<long long>(parts) * n_seg * n_ty * n_tz;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(C, kRows);
-  cudaError_t e = smv::allow_smem(matvec_v5_kernel<kRows>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  matvec_v5_kernel<kRows><<<static_cast<int>(blocks), Tile<kRows>::kThreads,
-                            smem, stream>>>(x, ck, y, nx, ny, nz, C, seg_len,
-                                            n_ty, n_tz, n_seg);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -351,34 +79,15 @@ extern "C" int structured_matvec_v5_f32(const void* x, const void* ck,
                                         int nz, int planes, int rows,
                                         int seg_len, int n_ty, int n_tz,
                                         int n_seg, int device, void* stream) {
-  smv::DeviceScope scope(device);
-  if (scope.error() != 0) return scope.error();
-  if (planes < 1 || seg_len < 1 || n_ty < 1 || n_tz < 1 || n_seg < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* xf = static_cast<const float*>(x);
-  const auto* cf = static_cast<const float*>(ck);
-  auto* yf = static_cast<float*>(y);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 8:
-      return launch_rows<8>(xf, cf, yf, parts, nx, ny, nz, planes, seg_len,
-                            n_ty, n_tz, n_seg, s);
-    case 4:
-      return launch_rows<4>(xf, cf, yf, parts, nx, ny, nz, planes, seg_len,
-                            n_ty, n_tz, n_seg, s);
-    case 2:
-      return launch_rows<2>(xf, cf, yf, parts, nx, ny, nz, planes, seg_len,
-                            n_ty, n_tz, n_seg, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return smv::gather::launch<KeV5>(x, ck, y, parts, nx, ny, nz, planes, rows,
+                                   seg_len, n_ty, n_tz, n_seg, device,
+                                   stream);
 }
 
 // The dynamic shared memory of a launch at `planes` and `rows`, for
 // reports and the wrapper's mirror check.
 extern "C" long long structured_matvec_v5_smem_bytes(int planes, int rows) {
-  return static_cast<long long>(smem_bytes(planes, rows));
+  return static_cast<long long>(smv::gather::smem_bytes(planes, rows));
 }
 
 SMV_ERROR_STRING(structured_matvec_v5)

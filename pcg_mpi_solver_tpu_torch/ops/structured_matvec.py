@@ -30,14 +30,17 @@ of the JAX package, one slab per part.
   package and its Pallas kernels, and ``chip_smoke.py`` holds each kernel
   against it on the card.
 - :func:`v6_geometry` is the launch grid of the kernels on v6's tiles
-  (v6 in both dtypes, and v4, whose kernel is v6's float kernel in a
-  library of its own): their (y, z) tiles and the x segments that fill
-  the card; the CPU tests check it, the wrapper passes it to the kernel.
-  The kernels' shared-memory layout is their own
-  (``csrc/structured_tiles.cuh``, ``Layout``).
-  :func:`v5_geometry` is the same for the v5 kernel, whose tile height
-  depends on the chunk (``planes``) its shared-memory ring holds, and
+  (v6 in both dtypes, and v4 and v2, whose kernels are v6's float kernel
+  in libraries of their own, v2 with another cell product): their (y, z)
+  tiles and the x segments that fill the card; the CPU tests check it,
+  the wrapper passes it to the kernel.  The kernels' shared-memory layout
+  is their own (``csrc/structured_tiles.cuh``, ``Layout``).
+  :func:`v5_geometry` is the same for the node-owned gather of v5 and v3
+  (``csrc/structured_gather.cuh``), whose tile height depends on the
+  chunk (``planes``) its shared-memory ring holds, and
   :func:`v9_geometry` for the v9 kernel's warp-strip tiles.
+  :func:`launch_args` gives any variant's launch arguments, through one
+  code path per kernel design.
 - :func:`selected_variant` and :func:`pallas_planes` read the JAX
   package's knobs, ``PCG_TPU_PALLAS_V`` and ``PCG_TPU_PALLAS_PLANES``, with
   the same defaults and the same refusals, so a setting means the same in
@@ -132,7 +135,10 @@ def reset_launch_counts() -> None:
 V6_CELLS_Y = {torch.float32: 32, torch.float64: 8}
 V6_CELLS_Z = 32
 V6_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 2}
-TILED = ("v6", "v4")        # the variants whose launch takes v6_geometry
+# the variants whose launch takes v6_geometry (v6's tile kernel) and
+# v5_geometry (the node-owned gather)
+TILED = ("v6", "v4", "v2")
+GATHER = ("v5", "v3")
 H100_SMS = 132
 
 
@@ -169,7 +175,7 @@ class V6Geometry:
 def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
                 sms: int = H100_SMS) -> V6Geometry:
     """Launch geometry of the kernels on v6's tiles (v6 in ``dtype``, v4
-    in float32) for a (parts, nx, ny, nz) slab.
+    and v2 in float32) for a (parts, nx, ny, nz) slab.
 
     The x segment length minimises waves x (seg_len + 3), a wave being the
     blocks the card holds at once (``sms`` x the blocks an SM holds): the
@@ -185,12 +191,12 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
     return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
 
 
-# The v5 kernel (csrc/structured_matvec_v5.cu): tiles of V5_ROWS[k] x
-# V5_LANES_Z owned nodes, two rows a warp; the ring holds 2 * planes + 2
-# slots of node and ck planes.  8 rows at most: at 8 planes two 8-row
-# blocks an SM ran 4.6 % faster than one 16-row block (PERF.md, PR 6).
-# An SM has SM_SMEM bytes of shared memory, a block at most BLOCK_SMEM,
-# and the runtime reserves SMEM_RESERVED a block.
+# The node-owned gather of v5 and v3 (csrc/structured_gather.cuh): tiles
+# of V5_ROWS[k] x V5_LANES_Z owned nodes, two rows a warp; the ring holds
+# 2 * planes + 2 slots of node and ck planes.  8 rows at most: at 8 planes
+# two 8-row blocks an SM ran 4.6 % faster than one 16-row block (PERF.md,
+# PR 6).  An SM has SM_SMEM bytes of shared memory, a block at most
+# BLOCK_SMEM, and the runtime reserves SMEM_RESERVED a block.
 V5_ROWS = (8, 4, 2)
 V5_LANES_Z = 32
 BLOCK_SMEM = 232448
@@ -199,17 +205,17 @@ SMEM_RESERVED = 1024
 
 
 def v5_smem_bytes(planes: int, rows: int) -> int:
-    """Dynamic shared memory of a v5 launch (the kernel's ``smem_bytes``):
-    2 * planes + 2 slots of 3 x (rows + 2) x 34 node values and (rows + 1)
-    x 33 ck values, Ke, and one copy-table entry (8 bytes) per slot
-    value."""
+    """Dynamic shared memory of a v5 or v3 launch (the kernel's
+    ``smem_bytes``): 2 * planes + 2 slots of 3 x (rows + 2) x 34 node
+    values and (rows + 1) x 33 ck values, Ke, and one copy-table entry (8
+    bytes) per slot value."""
     slot = 3 * (rows + 2) * (V5_LANES_Z + 2) + (rows + 1) * (V5_LANES_Z + 1)
     return 4 * ((2 * planes + 2) * slot + 576) + 8 * slot
 
 
 @dataclasses.dataclass(frozen=True)
 class V5Geometry:
-    """One launch of the v5 kernel: ``n_ty`` x ``n_tz`` (y, z) tiles of
+    """One launch of the gather kernel: ``n_ty`` x ``n_tz`` (y, z) tiles of
     ``rows`` x 32 owned nodes (``threads`` = 16 x rows), ``n_seg`` x
     segments of ``seg_len`` node planes (the last one ragged), ``blocks``
     in all, ``smem_bytes`` of dynamic shared memory each (above BLOCK_SMEM
@@ -228,8 +234,8 @@ class V5Geometry:
 def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
                 sms: int = H100_SMS,
                 rows: Optional[int] = None) -> V5Geometry:
-    """Launch geometry of the v5 kernel for a (parts, nx, ny, nz) slab at
-    ``planes`` cell planes a chunk.
+    """Launch geometry of the node-owned gather (v5 and v3) for a (parts,
+    nx, ny, nz) slab at ``planes`` cell planes a chunk.
 
     The tile is ``rows`` high (one of V5_ROWS), by default the tallest
     whose ring fits a block's shared memory (the shortest if none does:
@@ -308,6 +314,31 @@ def v9_geometry(parts: int, nx: int, ny: int, nz: int,
                       tiles * n_seg, 32 * V9_WARPS, v9_smem_bytes(rows))
 
 
+def launch_args(variant: str, parts: int, nx: int, ny: int, nz: int,
+                dtype: torch.dtype, planes: Optional[int] = None,
+                sms: int = H100_SMS) -> tuple:
+    """The launch arguments after (P, nx, ny, nz) of ``variant``'s kernel
+    entry point in ``dtype`` for a (parts, nx, ny, nz) slab on a card of
+    ``sms`` SMs: the tiled variants (TILED) and v9 (seg_len, n_ty, n_tz,
+    n_seg), the gather variants (GATHER) (planes, rows, seg_len, n_ty,
+    n_tz, n_seg), the other chunked variants (planes,), the rest ().
+    ``planes`` None reads :func:`pallas_planes` where the variant takes
+    it."""
+    if variant in TILED:
+        g = v6_geometry(parts, nx, ny, nz, dtype, sms)
+        return (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
+    if variant == "v9":
+        g = v9_geometry(parts, nx, ny, nz, sms)
+        return (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
+    if not VARIANTS[variant][1]:
+        return ()
+    planes = pallas_planes() if planes is None else planes
+    if variant in GATHER:
+        g = v5_geometry(parts, nx, ny, nz, planes, sms)
+        return (planes, g.rows, g.seg_len, g.n_ty, g.n_tz, g.n_seg)
+    return (planes,)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index) \
@@ -376,11 +407,9 @@ def _library(variant: str) -> ctypes.CDLL:
     err_fn = getattr(lib, f"{name}_error_string")
     if err_fn.restype is not ctypes.c_char_p:
         v6 = variant == F64_VARIANT
-        # launch geometry after (P, nx, ny, nz): v6, v4 and v9 (seg_len,
-        # n_ty, n_tz, n_seg), v5 (planes, rows, seg_len, n_ty, n_tz,
-        # n_seg), the other chunked variants (planes,)
+        # launch geometry after (P, nx, ny, nz): launch_args
         n_geom = 4 if variant in TILED or variant == "v9" \
-            else 6 if variant == "v5" else int(chunked)
+            else 6 if variant in GATHER else int(chunked)
         for sfx in ("f32", "f64") if v6 else ("f32",):
             stage = getattr(lib, f"{name}_stage_{sfx}")
             stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -394,7 +423,7 @@ def _library(variant: str) -> ctypes.CDLL:
             smem = getattr(lib, f"{name}_smem_bytes")
             smem.argtypes = [ctypes.c_int]
             smem.restype = ctypes.c_longlong
-        if variant == "v5":
+        if variant in GATHER:
             smem = getattr(lib, f"{name}_smem_bytes")
             smem.argtypes = [ctypes.c_int, ctypes.c_int]
             smem.restype = ctypes.c_longlong
@@ -436,7 +465,7 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
     if xg.device.type != "cuda":
         raise ValueError(f"structured_matvec runs on cuda or cpu tensors, "
                          f"got {xg.device}")
-    name, chunked = VARIANTS[variant]
+    name = VARIANTS[variant][0]
     lib = _library(variant)
     sfx = _SUFFIX[xg.dtype]
     dev = xg.device.index
@@ -449,22 +478,8 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
         _STAGED[key] = (Ke, Ke._version)
     y = torch.empty_like(xg)
     P, _, nxn, nyn, nzn = xg.shape
-    if variant in TILED:
-        geom = v6_geometry(P, nxn - 1, nyn - 1, nzn - 1, xg.dtype,
-                           _sm_count(dev))
-        extra = (geom.seg_len, geom.n_ty, geom.n_tz, geom.n_seg)
-    elif variant == "v5":
-        planes = pallas_planes() if planes is None else planes
-        geom = v5_geometry(P, nxn - 1, nyn - 1, nzn - 1, planes,
-                           _sm_count(dev))
-        extra = (planes, geom.rows, geom.seg_len, geom.n_ty, geom.n_tz,
-                 geom.n_seg)
-    elif variant == "v9":
-        geom = v9_geometry(P, nxn - 1, nyn - 1, nzn - 1, _sm_count(dev))
-        extra = (geom.seg_len, geom.n_ty, geom.n_tz, geom.n_seg)
-    else:
-        extra = (pallas_planes() if planes is None else planes,) \
-            if chunked else ()
+    extra = launch_args(variant, P, nxn - 1, nyn - 1, nzn - 1, xg.dtype,
+                        planes, _sm_count(dev))
     err = getattr(lib, f"{name}_{sfx}")(
         xg.data_ptr(), ck.data_ptr(), y.data_ptr(),
         P, nxn - 1, nyn - 1, nzn - 1, *extra, dev, stream)

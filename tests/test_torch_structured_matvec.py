@@ -281,6 +281,33 @@ def test_v5_geometry_past_the_shared_memory_takes_the_shortest_tile():
     assert g.rows == smv.V5_ROWS[-1] and g.smem_bytes > smv.BLOCK_SMEM
 
 
+@pytest.mark.parametrize("planes", [8, 16])
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v3_launches_with_the_gather_arguments_of_v5(shape, planes):
+    """v3 runs v5's node-owned gather: its launch arguments are v5's
+    (planes, rows, seg_len, n_ty, n_tz, n_seg) at every shape, the
+    flagship's included, and at any number of SMs."""
+    assert set(smv.GATHER) == {"v3", "v5"}
+    for sms in (smv.H100_SMS, 114):
+        args = smv.launch_args("v3", *shape, torch.float32, planes, sms)
+        g = smv.v5_geometry(*shape, planes, sms)
+        assert args == smv.launch_args("v5", *shape, torch.float32, planes,
+                                       sms)
+        assert args == (planes, g.rows, g.seg_len, g.n_ty, g.n_tz, g.n_seg)
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v2_launches_on_v6_float_tiles(shape):
+    """v2 runs v6 float's tiles, as v4 does: its launch arguments are v6
+    float's (seg_len, n_ty, n_tz, n_seg), whatever ``planes`` says."""
+    assert {"v2", "v4", "v6"} <= set(smv.TILED)
+    g = smv.v6_geometry(*shape, torch.float32)
+    args = smv.launch_args("v2", *shape, torch.float32, 16)
+    assert args == smv.launch_args("v4", *shape, torch.float32) \
+        == smv.launch_args("v6", *shape, torch.float32) \
+        == (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
+
+
 def v9_owner_counts(shape, geom):
     """How many times the v9 kernel's ownership map writes each node, by
     simulating it: every block (part, segment, y tile, z tile), every warp

@@ -1,8 +1,9 @@
 """Helpers of the kernel comparison tools (tools/v4_kernel_compare.py,
 tools/v5_kernel_compare.py, tools/v6_kernel_compare.py,
-tools/v9_kernel_compare.py): build a kernel source with nvcc under other
-flags, load a build's C entry points, time a launch with CUDA events,
-count a build's SASS instructions (whole kernels or their hottest loop),
+tools/v9_kernel_compare.py, tools/v2v3_kernel_compare.py): build a kernel
+source with nvcc under other flags, load a build's C entry points, time a
+launch with CUDA events, count a build's SASS instructions (whole kernels
+or their hottest loop), run the SM throughput probe (tools/smem_probe.cu)
 and read the card's name and power limit."""
 
 from __future__ import annotations
@@ -151,3 +152,58 @@ def sass_mix(lib: Path, tag: str, label, keys) -> None:
         shown["integer"] = sum(ops[k] for k in INTEGER)
         print(f"sass {tag}{label(name)}: {sum(ops.values())} instructions; "
               f"{shown}")
+
+
+PROBE_MODES = ("LDS.32 broadcast", "LDS.128 broadcast", "LDS.32 lanes",
+               "LDS.128 lanes", "SHFL.UP", "FFMA",
+               "FFMA of Ke broadcast", "FFMA of Ke in registers",
+               "FFMA of Ke in a constant bank",
+               "FFMA of Ke as a kernel parameter")
+# warp instructions a thread issues per probe iteration: 16, or the FFMAs
+# of the modes that time a cell product's pattern
+PROBE_COUNT = {"FFMA of Ke broadcast": 128, "FFMA of Ke in registers": 128,
+               "FFMA of Ke in a constant bank": 1152,
+               "FFMA of Ke as a kernel parameter": 1152}
+
+
+def smem_probe(torch, sms: int, out_dir: Path, modes=PROBE_MODES) -> dict:
+    """SM cycles one warp instruction takes, per tools/smem_probe.cu mode
+    named in ``modes``: two 256-thread blocks an SM, each thread issuing 16
+    x 2048 of them (PROBE_COUNT x 2048 FFMAs in the modes of a cell
+    product's pattern, which count the cycles an FFMA); for each SM, the
+    span from its first block's start to its last block's end over its
+    warps' instructions; the median over the SMs.  Builds the probe into
+    ``out_dir``."""
+    path = build(ROOT / "tools" / "smem_probe.cu", out_dir, "smem_probe")
+    h = ctypes.CDLL(str(path))
+    h.smem_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    h.smem_probe.restype = ctypes.c_int
+    blocks, iters = 2 * sms, 2048
+    out = torch.empty(blocks * 256, device="cuda")
+    clocks = torch.empty(2 * blocks, dtype=torch.int64, device="cuda")
+    sm = torch.empty(blocks, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    costs = {}
+    for name in modes:
+        mode = PROBE_MODES.index(name)
+        for _ in range(2):                       # the second run counts
+            err = h.smem_probe(mode, iters, blocks, out.data_ptr(),
+                               clocks.data_ptr(), sm.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"smem_probe mode {mode}: error {err}")
+        torch.cuda.synchronize()
+        c = clocks.view(-1, 2).cpu().tolist()
+        spans = collections.defaultdict(list)
+        for (t0, t1), s in zip(c, sm.cpu().tolist()):
+            spans[s].append((t0, t1))
+        count = PROBE_COUNT.get(name, 16)
+        per_sm = [(max(t1 for _t0, t1 in v) - min(t0 for t0, _t1 in v))
+                  / (8 * len(v) * iters * count) for v in spans.values()]
+        costs[name] = statistics.median(per_sm)
+        if name == modes[0]:
+            counts = collections.Counter(len(v) for v in spans.values())
+            print(f"probe: blocks an SM {dict(counts)} over {len(spans)} "
+                  f"SMs")
+    print(f"probe, SM cycles a warp instruction: "
+          f"{ {k: round(v, 3) for k, v in costs.items()} }")
+    return costs

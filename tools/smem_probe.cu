@@ -1,18 +1,22 @@
 // Throughput probes of one SM, read with the SM's own clock: how many
 // cycles of an SM one warp instruction takes when two 256-thread blocks on
 // every SM (16 warps; dynamic shared memory keeps it at two) issue little
-// else.  tools/v9_kernel_compare.py builds and runs it to price the
-// instructions of the matvec kernels (PERF.md, Findings).
+// else.  tools/kernel_builds.py::smem_probe builds and runs it for
+// tools/v9_kernel_compare.py, which prices the instructions of the matvec
+// kernels with it, and tools/v2v3_kernel_compare.py (PERF.md, Findings).
 //
 // Modes: 0 LDS.32, all lanes one address (broadcast); 1 LDS.128
 // broadcast; 2 LDS.32, lanes on consecutive words; 3 LDS.128, lanes on
 // consecutive 16-byte words (512 bytes a warp); 4 SHFL.UP by one lane;
 // 5 FFMA on registers (the clock's check: 0.25 cycles at 128 FMA lanes an
 // SM).  Each instruction feeds one FADD (modes 0-4), 16 independent
-// chains a thread.  Modes 6 and 7 count FFMAs: v9's product pattern, a
+// chains a thread.  Modes 6 to 9 count FFMAs: v9's product pattern, a
 // float4 of Ke broadcast from shared memory feeding 8 FFMAs into 24
 // accumulators (two cells x 12 dofs; 6), and the same FFMAs with Ke from
-// registers (7).
+// registers (7), with Ke as the FFMA's constant operand from a
+// __constant__ bank (8) and from a kernel parameter (9).  Modes 8 and 9
+// read all 576 values of a Ke (144 float4s) once a loop trip, as a cell
+// product does, each value feeding the FFMAs of both cells.
 
 #include <cuda_runtime.h>
 
@@ -22,9 +26,16 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 16;
 constexpr int kSmemBytes = 100 * 1024;   // two blocks an SM, not three
 
+__constant__ float ke_bank[576];         // mode 8
+
+struct KeParam {                         // mode 9
+  float v[576];
+};
+
 template <int Mode>
 __global__ void __launch_bounds__(kThreads, 2)
-probe_kernel(int iters, float* out, long long* clocks, int* sm) {
+probe_kernel(int iters, float* out, long long* clocks, int* sm,
+             const __grid_constant__ KeParam ke) {
   extern __shared__ float4 buf[];        // the first 16 KB are read
   for (int e = threadIdx.x; e < 32 * 32; e += kThreads) {
     buf[e] = make_float4(e, e + 1, e + 2, e + 3);
@@ -36,14 +47,27 @@ probe_kernel(int iters, float* out, long long* clocks, int* sm) {
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) acc[u] = static_cast<float>(u + lane);
   const float k1 = 1.0001f, k2 = static_cast<float>(lane) * 1e-7f;
-  float cell[2][12];                     // modes 6, 7
+  float cell[2][12];                     // modes 6 to 9
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int d = 0; d < 12; ++d) cell[j][d] = 0.f;
   const float u0 = 1.f + 1e-3f * lane, u1 = 2.f - 1e-3f * lane;
   const long long t0 = clock64();
-  if (Mode >= 6) {
+  if (Mode >= 8) {
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+      for (int u = 0; u < 144; ++u) {
+        const int d = 4 * (u % 3);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float k = Mode == 8 ? ke_bank[4 * u + q] : ke.v[4 * u + q];
+          cell[0][d + q] = fmaf(k, u0, cell[0][d + q]);
+          cell[1][d + q] = fmaf(k, u1, cell[1][d + q]);
+        }
+      }
+    }
+  } else if (Mode >= 6) {
     for (int i = 0; i < iters; ++i) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -117,17 +141,24 @@ int run(int iters, int blocks, float* out, long long* clocks, int* sm,
       probe_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
+  KeParam ke;
+  for (int i = 0; i < 576; ++i) ke.v[i] = 1.f + 1e-3f * (i % 7);
+  if (Mode == 8) {
+    e = cudaMemcpyToSymbolAsync(ke_bank, ke.v, sizeof(ke.v), 0,
+                                cudaMemcpyHostToDevice, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   probe_kernel<Mode><<<blocks, kThreads, kSmemBytes, s>>>(iters, out,
-                                                          clocks, sm);
+                                                          clocks, sm, ke);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Runs mode `mode` for `iters` x 16 instructions a thread on `blocks`
-// blocks of 256 threads.  out: blocks x 256 floats; clocks: each block's
-// start and end (SM clock); sm: each block's SM.  Returns the CUDA error
-// code.
+// Runs mode `mode` for `iters` loop trips a thread on `blocks` blocks of
+// 256 threads: 16 instructions a trip (128 FFMAs in modes 6 and 7, 1152 in
+// modes 8 and 9).  out: blocks x 256 floats; clocks: each block's start
+// and end (SM clock); sm: each block's SM.  Returns the CUDA error code.
 extern "C" int smem_probe(int mode, int iters, int blocks, void* out,
                           void* clocks, void* sm, void* stream) {
   auto* o = static_cast<float*>(out);
@@ -143,6 +174,8 @@ extern "C" int smem_probe(int mode, int iters, int blocks, void* out,
     case 5: return run<5>(iters, blocks, o, c, m, s);
     case 6: return run<6>(iters, blocks, o, c, m, s);
     case 7: return run<7>(iters, blocks, o, c, m, s);
+    case 8: return run<8>(iters, blocks, o, c, m, s);
+    case 9: return run<9>(iters, blocks, o, c, m, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -48,7 +48,7 @@ SASS_KEYS = ("FFMA", "FMUL", "FADD", "MOV", "LDG", "LDGSTS", "LDS", "STS",
 
 
 def rows_label(name: str) -> str:
-    m = re.search(r"kernelILi(\d+)E", name)
+    m = re.search(r"kernelI.*?Li(\d+)E", name)
     return f" rows {m.group(1)}" if m else ""
 
 

@@ -57,7 +57,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 from kernel_builds import (  # noqa: E402
     CSRC, build, load, loop_body, mix_line, nvidia_smi, opcode_counts,
-    sass_functions, shared_widths, time_ms)
+    sass_functions, shared_widths, smem_probe, time_ms)
 
 OUT = ROOT / "build" / "v9_compare"
 N = 150
@@ -141,56 +141,6 @@ def fmas_v1(shape) -> int:
         x1 = min(x0 + 16, nx + 1)
         planes += min(x1, nx) - max(x0 - 1, 0)
     return 582 * -(-P * cols // 32) * 32 * planes
-
-
-PROBE_MODES = ("LDS.32 broadcast", "LDS.128 broadcast", "LDS.32 lanes",
-               "LDS.128 lanes", "SHFL.UP", "FFMA",
-               "FFMA of Ke broadcast", "FFMA of Ke in registers")
-# warp instructions a thread issues per probe iteration: 16, or 128 FFMAs
-# in the modes that time v9's product pattern
-PROBE_COUNT = {"FFMA of Ke broadcast": 128, "FFMA of Ke in registers": 128}
-
-
-def smem_probe(torch, sms: int) -> dict:
-    """SM cycles one warp instruction takes, per tools/smem_probe.cu mode:
-    two 256-thread blocks an SM, each thread issuing 16 x 2048 of them
-    (128 x 2048 FFMAs in the modes of v9's product pattern, which count
-    the cycles an FFMA);
-    for each SM, the span from its first block's start to its last
-    block's end over its warps' instructions; the median over the SMs."""
-    import ctypes
-    path = build(ROOT / "tools" / "smem_probe.cu", OUT, "smem_probe")
-    h = ctypes.CDLL(str(path))
-    h.smem_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-    h.smem_probe.restype = ctypes.c_int
-    blocks, iters = 2 * sms, 2048
-    out = torch.empty(blocks * 256, device="cuda")
-    clocks = torch.empty(2 * blocks, dtype=torch.int64, device="cuda")
-    sm = torch.empty(blocks, dtype=torch.int32, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    costs = {}
-    for mode, name in enumerate(PROBE_MODES):
-        for _ in range(2):                       # the second run counts
-            err = h.smem_probe(mode, iters, blocks, out.data_ptr(),
-                               clocks.data_ptr(), sm.data_ptr(), stream)
-            if err:
-                raise RuntimeError(f"smem_probe mode {mode}: error {err}")
-        torch.cuda.synchronize()
-        c = clocks.view(-1, 2).cpu().tolist()
-        spans = collections.defaultdict(list)
-        for (t0, t1), s in zip(c, sm.cpu().tolist()):
-            spans[s].append((t0, t1))
-        count = PROBE_COUNT.get(name, 16)
-        per_sm = [(max(t1 for _t0, t1 in v) - min(t0 for t0, _t1 in v))
-                  / (8 * len(v) * iters * count) for v in spans.values()]
-        costs[name] = statistics.median(per_sm)
-        if mode == 0:
-            counts = collections.Counter(len(v) for v in spans.values())
-            print(f"probe: blocks an SM {dict(counts)} over {len(spans)} "
-                  f"SMs")
-    print(f"probe, SM cycles a warp instruction: "
-          f"{ {k: round(v, 3) for k, v in costs.items()} }")
-    return costs
 
 
 def main() -> int:
@@ -366,7 +316,7 @@ def main() -> int:
 
     # SASS of each kernel's hottest loop, the issue model and the
     # shared-memory model
-    probe = smem_probe(torch, sms)
+    probe = smem_probe(torch, sms, OUT)
     fmas = {"v9": fmas_v9(shape, g9), "old": fmas_v9_old(shape),
             "v5": fmas_v5(shape, g5),
             "v6": fmas_v6(shape, g6), "v1": fmas_v1(shape)}
@@ -374,7 +324,7 @@ def main() -> int:
     for tag, (path, _h) in libs.items():
         for name, code in sass_functions(path).items():
             if "Dmma" in name or (tag == "v5"
-                                  and f"ILi{g5.rows}E" not in name):
+                                  and f"Li{g5.rows}E" not in name):
                 continue             # v6's double kernel, v5's other tiles
             whole = opcode_counts(code)
             body = loop_body(code) or code
