@@ -1,6 +1,6 @@
 // Structured-slab block-stencil matvec for Hopper (sm_90a), float: v6's
-// float tiles (structured_tiles.cuh) with a cell product whose FFMAs take
-// Ke as a constant operand.
+// float kernel (structured_tiles.cuh: v6 float's cell-centred tiles and
+// FFMA cell product) in a library of its own.
 //
 // Replaces pcg_mpi_solver_tpu/ops/pallas_matvec.py::structured_matvec_pallas_v2
 // (kernel _matvec_kernel_v2), which the JAX package's structured backend
@@ -27,87 +27,60 @@
 // the cell product of a plane into shared memory, each owned node summing
 // its corners' rows in a fixed order with the dx = 1 half carried in
 // registers (structured_matvec.cu's note).  No atomics and a fixed
-// summation order: two launches give the same bits.  The TPU kernel takes
-// no chunk, and neither does this one.
+// summation order: two launches give the same bits, and they are v6
+// float's.  The TPU kernel takes no chunk, and neither does this one.
 //
-// The cell product is smv::ConstFfmaProduct: v6 float's FFMA product
-// (FfmaProduct, two cells a thread, each output dof an e-ordered FFMA
-// chain, ck after the sum; the same bits as v6 float) with Ke[d][e] as the
-// FFMA's constant operand at an immediate address instead of a float4
-// broadcast from shared memory.  The float4 broadcast feeding 8
-// register x register + register FFMAs runs at 0.430 SM cycles a warp
-// FFMA (tools/smem_probe.cu mode 6), 1.64x the cores' rate, and that
-// pattern is the largest measured part of v6's time (PERF.md, Findings).
+// What the kernel this one replaced spent and this one does not: 1.59x
+// the product's FMAs at 150^3 (each 256-lane block also computed the
+// nz + 2 halo lanes before it; here 1.14x), a second pass of 152 of 256
+// threads over 408 cells, a division a staged value and three barriers a
+// plane with synchronous loads (here a copy table, cp.async and two
+// barriers), all 24 V rows through shared memory for one lane each.
 //
-// Ke is staged by its own entry point (the wrapper restages only for
-// another Ke or one changed in place; staging ends with a stream sync).
-// V2_KE_ROUTE picks where the FFMAs read it: 1, this library's
-// __constant__ bank; 2, a 2304-byte kernel parameter (bank 0), copied to
-// the host when staged.  The entry points make the tensor's device
-// current and restore the caller's before they return.
+// The cell product is smv::FfmaProduct, as v6 float's and v4's.  A product
+// with v6 float's arithmetic (the same bits) but Ke as each FFMA's
+// constant operand at a compile-time index was built for v2 and timed in
+// turns against this one on the same tiles (PERF.md, Findings, PR 9, which
+// names the commit that holds its source): from the library's __constant__
+// bank and from a 2304-byte kernel parameter alike, ptxas loads Ke into
+// uniform registers (a ULDC.64 every four FFMAs; no FFMA took a
+// c[bank][offset] operand), and the kernel was 1.2 % slower with the bank
+// (128 registers against 104) and 28 % slower with the parameter.  So v2
+// ships the FFMA product with Ke as float4 broadcasts from shared memory.
+//
+// Ke is staged into this library's constant bank as float by its own
+// entry point (the wrapper restages only for another Ke or one changed in
+// place; staging ends with a stream sync) and copied into shared memory
+// when a block starts.  The entry points make the tensor's device current
+// and restore the caller's before they return.
 
 #include <cuda_runtime.h>
 
 #include "structured_tiles.cuh"
 
-#ifndef V2_KE_ROUTE
-#define V2_KE_ROUTE 1
-#endif
-#ifndef V2_APART
-#define V2_APART 0
-#endif
-
 namespace {
 
-#if V2_KE_ROUTE == 1
 __constant__ float ke_v2[24 * 24];
 
 struct KeV2 {
-  using Arg = smv::NoArg;
-  __device__ static float at(const Arg& /*arg*/, int i) { return ke_v2[i]; }
-};
-#else
-struct KeParam {
-  float v[24 * 24];
+  __device__ static float at(int i) { return ke_v2[i]; }
 };
 
-struct KeV2 {
-  using Arg = KeParam;
-  __device__ static float at(const Arg& arg, int i) { return arg.v[i]; }
-};
-
-constexpr int kMaxDevices = 64;
-KeParam host_ke[kMaxDevices];   // the Ke staged last, per device
-#endif
-
-using Product = smv::ConstFfmaProduct<KeV2, V2_APART != 0>;
+using Product = smv::FfmaProduct<KeV2>;
 
 }  // namespace
 
 // C entry points.  stage copies ke (24,24), a contiguous float device
-// buffer, to where this library's kernel reads Ke on `device`.  The matvec
-// takes x (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float
-// device buffers, and writes y, allocated by the caller with x's shape,
-// using the Ke staged last; the launch geometry (seg_len, n_ty, n_tz,
-// n_seg) comes from ops/structured_matvec.py::v6_geometry, as v6 float's,
-// and a grid that is not this library's tile is refused.  Each returns the
-// CUDA error code of its copy or launch (0 = done / launched).
+// buffer, into the constant bank of `device`.  The matvec takes x
+// (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float device
+// buffers, and writes y, allocated by the caller with x's shape, using the
+// Ke staged last; the launch geometry (seg_len, n_ty, n_tz, n_seg) comes
+// from ops/structured_matvec.py::v6_geometry, as v6 float's, and a grid
+// that is not this library's tile is refused.  Each returns the CUDA error
+// code of its copy or launch (0 = done / launched).
 extern "C" int structured_matvec_v2_stage_f32(const void* ke, int device,
                                               void* stream) {
-#if V2_KE_ROUTE == 1
   return smv::stage(ke_v2, ke, device, stream);
-#else
-  if (device < 0 || device >= kMaxDevices) {
-    return static_cast<int>(cudaErrorInvalidDevice);
-  }
-  smv::DeviceScope scope(device);
-  if (scope.error() != 0) return scope.error();
-  const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemcpyAsync(host_ke[device].v, ke, sizeof(KeParam),
-                                  cudaMemcpyDeviceToHost, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaStreamSynchronize(s));
-#endif
 }
 
 extern "C" int structured_matvec_v2_f32(const void* x, const void* ck,
@@ -115,17 +88,8 @@ extern "C" int structured_matvec_v2_f32(const void* x, const void* ck,
                                         int nz, int seg_len, int n_ty,
                                         int n_tz, int n_seg, int device,
                                         void* stream) {
-#if V2_KE_ROUTE == 1
   return smv::launch_on<Product>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty,
                                  n_tz, n_seg, device, stream);
-#else
-  if (device < 0 || device >= kMaxDevices) {
-    return static_cast<int>(cudaErrorInvalidDevice);
-  }
-  return smv::launch_on<Product>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty,
-                                 n_tz, n_seg, device, stream,
-                                 host_ke[device]);
-#endif
 }
 
 // The dynamic shared memory of a block of itemsize 4 (float; 0 for

@@ -4,10 +4,9 @@
 // marching x segments, node and ck planes staged in a cp.async ring, a
 // cell product chosen at compile time, placement through shared memory.
 // structured_matvec.cu's note says how the tiles work and why; this header
-// holds the layout of each dtype, the kernel, its launch and the three
-// cell products: FFMA with Ke from shared memory (float), FFMA with Ke as
-// a constant operand (float) and DMMA (double).  A source chooses a
-// product, with its constant bank of Ke, and launches it through
+// holds the layout of each dtype, the kernel, its launch and the two cell
+// products, FFMA (float) and DMMA (double).  A source chooses a product,
+// with its constant bank of Ke, and launches it through
 // launch_on<Product>.
 
 #pragma once
@@ -79,9 +78,6 @@ __host__ __device__ constexpr int k_dof(int ks, int p) {
   return 3 * (4 * (p >> 2) + (((p >> 1) & 1) ? 3 - (p & 1) : (p & 1))) + ks;
 }
 
-// The kernel argument of a product that takes none.
-struct NoArg {};
-
 __device__ __forceinline__ void mma(double (&d)[4], const double (&a)[4],
                                     const double (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
@@ -98,18 +94,19 @@ __device__ __forceinline__ void mma(double (&d)[4], const double (&a)[4],
 // stores are 32 consecutive values and every Ke value feeds two FMAs.  Ke
 // is read from shared memory as float4 broadcasts, copied there from its
 // library's constant bank (Ke::at(i), element i of the row-major Ke) when
-// the block starts: as constant-bank operands the compiler spends a
-// uniform load (ULDC) on every two FFMAs.
+// the block starts.  Read from the constant bank at compile-time indices
+// instead, ptxas loads Ke into uniform registers (a ULDC.64 every four
+// FFMAs, from a __constant__ bank and from a kernel parameter alike), and
+// the kernel ran 1.2 % slower (PERF.md, Findings, PR 9).
 template <class Ke>
 struct FfmaProduct {
   using L = Layout<float>;
   using T = float;
   static_assert(L::kCy == 2 * L::kWarps, "two cells a thread");
   static_assert(L::kKe == 24 * 24, "Ke in shared memory");
-  using Arg = NoArg;
   const float4* ke4;
 
-  __device__ FfmaProduct(int /*lane*/, float* ke_s, const Arg& /*arg*/)
+  __device__ FfmaProduct(int /*lane*/, float* ke_s)
       : ke4(reinterpret_cast<const float4*>(ke_s)) {
     for (int e = threadIdx.x; e < L::kKe; e += L::kThreads) {
       ke_s[e] = Ke::at(e);
@@ -153,68 +150,6 @@ struct FfmaProduct {
   }
 };
 
-// The cell product as unrolled FFMAs with Ke as each FFMA's constant
-// operand, float only.  Its arithmetic is FfmaProduct's: the two cells
-// (warp, lane) and (warp + kWarps, lane) a thread, d outer, e inner, each
-// fs[d][cell] the e-ordered FFMA chain of Ke[d][e] . u[cell][e] from 0,
-// scaled by ck after the sum, so the two products give the same bits.
-// Only Ke's source differs: Ke::at(arg, 24 d + e) at an index known at
-// compile time, which ptxas can fold into the FFMA as a constant-bank
-// operand c[bank][imm], with no shared-memory load or uniform load spent
-// on it.  Ke::Arg is what the kernel takes by value for Ke
-// (__grid_constant__): NoArg where Ke::at reads its library's __constant__
-// bank, the 576 values where Ke is a kernel parameter (bank 0).
-template <class Ke, bool kApart = false>
-struct ConstFfmaProduct {
-  using L = Layout<float>;
-  using T = float;
-  using Arg = typename Ke::Arg;
-  static_assert(L::kCy == 2 * L::kWarps, "two cells a thread");
-  const Arg& arg;
-
-  __device__ ConstFfmaProduct(int /*lane*/, float* /*ke_s*/, const Arg& a)
-      : arg(a) {}
-
-  __device__ void plane(const float* n0, const float* n1, const float* ckk,
-                        float* fs, int warp, int lane) const {
-    constexpr int kDc = L::kWarps * kCellsZ, kDn = L::kWarps * L::kRow;
-    const int cell = warp * kCellsZ + lane;
-    const int node = warp * L::kRow + lane;
-    float u[2][24];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          u[j][3 * a + c] =
-              (corner_x(a) ? n1 : n0)[c * L::kComp + node + j * kDn +
-                                      corner_y(a) * L::kRow + corner_z(a)];
-    const float s0 = ckk[cell], s1 = ckk[cell + kDc];
-#pragma unroll
-    for (int d = 0; d < 24; ++d) {
-      float f0 = 0.f, f1 = 0.f;
-      if (kApart) {
-#pragma unroll
-        for (int e = 0; e < 24; ++e) f0 = fmaf(Ke::at(arg, 24 * d + e),
-                                               u[0][e], f0);
-#pragma unroll
-        for (int e = 0; e < 24; ++e) f1 = fmaf(Ke::at(arg, 24 * d + e),
-                                               u[1][e], f1);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 24; ++e) {
-          const float k = Ke::at(arg, 24 * d + e);
-          f0 = fmaf(k, u[0][e], f0);
-          f1 = fmaf(k, u[1][e], f1);
-        }
-      }
-      fs[d * L::kF + cell] = s0 * f0;
-      fs[d * L::kF + cell + kDc] = s1 * f1;
-    }
-  }
-};
-
 // The cell product on the FP64 tensor cores (mma.sync m16n8k8 .f64),
 // double only: fs[d][cell] = ck[cell] * sum_e Ke[d][e] . u[cell][e], u
 // gathered from the node planes n0 (dx = 0) and n1 (dx = 1), ck from the ck
@@ -231,11 +166,10 @@ struct DmmaProduct {
   using L = Layout<double>;
   using T = double;
   static_assert((2 * L::kCy) % L::kWarps == 0, "whole M tiles a warp");
-  using Arg = NoArg;
   double b[3][3][2];                     // [ks][nt][k half]
   int g, t;
 
-  __device__ DmmaProduct(int lane, T* /*ke_s*/, const Arg& /*arg*/)
+  __device__ DmmaProduct(int lane, T* /*ke_s*/)
       : g(lane >> 2), t(lane & 3) {
 #pragma unroll
     for (int ks = 0; ks < 3; ++ks)
@@ -292,8 +226,7 @@ __launch_bounds__(Product::L::kThreads, Product::L::kMinBlocks)
 structured_matvec_kernel(const typename Product::T* __restrict__ x,
                          const typename Product::T* __restrict__ ck,
                          typename Product::T* __restrict__ y, int nx, int ny,
-                         int nz, int seg_len, int n_ty, int n_tz, int n_seg,
-                         const __grid_constant__ typename Product::Arg arg) {
+                         int nz, int seg_len, int n_ty, int n_tz, int n_seg) {
   using L = typename Product::L;
   using T = typename Product::T;
   constexpr int kStages = L::kStages;
@@ -379,7 +312,7 @@ structured_matvec_kernel(const typename Product::T* __restrict__ x,
 
   // stages Ke into ke_s if the product reads it from there (read after the
   // first barrier below)
-  const Product prod(lane, ke_s, arg);
+  const Product prod(lane, ke_s);
 
   T carry[L::kRowsPerWarp][3];
 #pragma unroll
@@ -438,13 +371,12 @@ structured_matvec_kernel(const typename Product::T* __restrict__ x,
 // the wrapper's (ops/structured_matvec.py::v6_geometry): seg_len node
 // planes an x segment, n_ty x n_tz (y, z) tiles of (kCy - 1) x 31 nodes,
 // n_seg segments; a grid that does not cover the slab with this build's
-// tile (a wrapper out of step with the source) is refused.  `arg` is the
-// product's kernel argument.  Returns the CUDA error code of the launch (0
-// = launched).
+// tile (a wrapper out of step with the source) is refused.  Returns the
+// CUDA error code of the launch (0 = launched).
 template <class Product>
 int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
            int nz, int seg_len, int n_ty, int n_tz, int n_seg,
-           cudaStream_t stream, const typename Product::Arg& arg) {
+           cudaStream_t stream) {
   using L = typename Product::L;
   using T = typename Product::T;
   const long long blocks =
@@ -460,7 +392,7 @@ int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
   structured_matvec_kernel<Product><<<static_cast<int>(blocks), L::kThreads,
                                       L::kSmemBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(ck), static_cast<T*>(y),
-      nx, ny, nz, seg_len, n_ty, n_tz, n_seg, arg);
+      nx, ny, nz, seg_len, n_ty, n_tz, n_seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,12 +400,11 @@ int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
 template <class Product>
 int launch_on(const void* x, const void* ck, void* y, int parts, int nx,
               int ny, int nz, int seg_len, int n_ty, int n_tz, int n_seg,
-              int device, void* stream,
-              const typename Product::Arg& arg = typename Product::Arg()) {
+              int device, void* stream) {
   DeviceScope scope(device);
   if (scope.error() != 0) return scope.error();
   return launch<Product>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty, n_tz,
-                         n_seg, static_cast<cudaStream_t>(stream), arg);
+                         n_seg, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace smv
