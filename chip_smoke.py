@@ -83,8 +83,8 @@ V9_EDGE_SHAPES = V6_EDGE_SHAPES + ((2, 9, 79, 61), (1, 30, 39, 30),
 EDGE_SHAPES = {"v6": V6_EDGE_SHAPES, "v4": V6_EDGE_SHAPES,
                "v2": V6_EDGE_SHAPES, "v5": V5_EDGE_SHAPES,
                "v3": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}
-# variants that share another's kernel design and give its bits: v2 runs
-# v6 float's tiles with another Ke source, v3 v5's gather
+# variants that run another's kernel from a library of their own and give
+# its bits: v2 runs v6 float's tile kernel, v3 v5's gather
 SAME_BITS = (("v2", "v6"), ("v3", "v5"))
 # The float32 kernels, v6 (the default) first, and the JAX wrapper each
 # replaces; float64 runs v6's double kernel under every variant.

@@ -55,7 +55,7 @@
 //     share an SM (107.7 KB each).
 //   * Each output node plane is written once, 32 consecutive z nodes a
 //     warp row.  A fixed summation order: two launches give the same bits.
-// Builds timed on the card (tools/v5_kernel_compare.py, PERF.md, PR 6):
+// Builds timed on the card (tools/v5_kernel_compare.py, PERF.md, Findings):
 // 0.187 ms at 150^3 and C = 8.  Its instructions (about 1950 a step for
 // 1152 FMAs) would take ~0.12 ms at one a cycle on every scheduler, so
 // what is left is latency at eight warps an SM (181 registers a thread):

@@ -40,8 +40,8 @@
 // The cell product is smv::FfmaProduct, as v6 float's and v4's.  A product
 // with v6 float's arithmetic (the same bits) but Ke as each FFMA's
 // constant operand at a compile-time index was built for v2 and timed in
-// turns against this one on the same tiles (PERF.md, Findings, PR 9, which
-// names the commit that holds its source): from the library's __constant__
+// turns against this one on the same tiles (PERF.md, Findings, which names
+// the commit that holds its source): from the library's __constant__
 // bank and from a 2304-byte kernel parameter alike, ptxas loads Ke into
 // uniform registers (a ULDC.64 every four FFMAs; no FFMA took a
 // c[bank][offset] operand), and the kernel was 1.2 % slower with the bank

@@ -97,7 +97,7 @@ __device__ __forceinline__ void mma(double (&d)[4], const double (&a)[4],
 // the block starts.  Read from the constant bank at compile-time indices
 // instead, ptxas loads Ke into uniform registers (a ULDC.64 every four
 // FFMAs, from a __constant__ bank and from a kernel parameter alike), and
-// the kernel ran 1.2 % slower (PERF.md, Findings, PR 9).
+// the kernel ran 1.2 % slower (PERF.md, Findings).
 template <class Ke>
 struct FfmaProduct {
   using L = Layout<float>;

@@ -30,11 +30,11 @@ of the JAX package, one slab per part.
   package and its Pallas kernels, and ``chip_smoke.py`` holds each kernel
   against it on the card.
 - :func:`v6_geometry` is the launch grid of the kernels on v6's tiles
-  (v6 in both dtypes, and v4 and v2, whose kernels are v6's float kernel
-  in libraries of their own, v2 with another cell product): their (y, z)
-  tiles and the x segments that fill the card; the CPU tests check it,
-  the wrapper passes it to the kernel.  The kernels' shared-memory layout
-  is their own (``csrc/structured_tiles.cuh``, ``Layout``).
+  (v6 in both dtypes, and v4 and v2, each v6's float kernel in a library
+  of its own): their (y, z) tiles and the x segments that fill the card;
+  the CPU tests check it, the wrapper passes it to the kernel.  The
+  kernels' shared-memory layout is their own
+  (``csrc/structured_tiles.cuh``, ``Layout``).
   :func:`v5_geometry` is the same for the node-owned gather of v5 and v3
   (``csrc/structured_gather.cuh``), whose tile height depends on the
   chunk (``planes``) its shared-memory ring holds, and
@@ -195,7 +195,7 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
 # of V5_ROWS[k] x V5_LANES_Z owned nodes, two rows a warp; the ring holds
 # 2 * planes + 2 slots of node and ck planes.  8 rows at most: at 8 planes
 # two 8-row blocks an SM ran 4.6 % faster than one 16-row block (PERF.md,
-# PR 6).  An SM has SM_SMEM bytes of shared memory, a block at most
+# Findings).  An SM has SM_SMEM bytes of shared memory, a block at most
 # BLOCK_SMEM, and the runtime reserves SMEM_RESERVED a block.
 V5_ROWS = (8, 4, 2)
 V5_LANES_Z = 32
@@ -402,14 +402,15 @@ def _check(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor) -> None:
 
 
 def _library(variant: str) -> ctypes.CDLL:
-    name, chunked = VARIANTS[variant]
+    name = VARIANTS[variant][0]
     lib = load_kernel(name)
     err_fn = getattr(lib, f"{name}_error_string")
     if err_fn.restype is not ctypes.c_char_p:
         v6 = variant == F64_VARIANT
-        # launch geometry after (P, nx, ny, nz): launch_args
-        n_geom = 4 if variant in TILED or variant == "v9" \
-            else 6 if variant in GATHER else int(chunked)
+        # the launch arguments after (P, nx, ny, nz), as launch_args gives
+        # them for any slab
+        n_geom = len(launch_args(variant, 1, 1, 1, 1, torch.float32,
+                                 planes=8))
         for sfx in ("f32", "f64") if v6 else ("f32",):
             stage = getattr(lib, f"{name}_stage_{sfx}")
             stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]

@@ -258,8 +258,8 @@ def test_v4_kernel_across_tile_and_segment_edges(cuda_device, P, cells):
         == "invalid argument"
 
 
-# v2 runs v6 float's tiles with Ke as the FFMA's constant operand, v3 v5's
-# node-owned gather: each gives the bits of the kernel it shares, at the
+# v2 runs v6 float's tile kernel, v3 v5's node-owned gather, each from a
+# library of its own: each gives the bits of the kernel it shares, at the
 # shapes of test_variant_kernel_matches_plain_on_card and at that design's
 # edge shapes (V6_EDGE, V5_EDGE), v3 at 8 and 16 planes
 SAME_BITS = [("v2", "v6", None), ("v3", "v5", 8), ("v3", "v5", 16)]

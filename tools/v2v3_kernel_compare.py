@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
 """Compare the port's v2 and v3 structured-matvec kernels with the kernels
 they replaced and with the kernels they share a design with, on one NVIDIA
-card: v2 (v6's float tiles with Ke as the FFMA's constant operand) against
-v6 float and v4 (the same tiles with v6's FFMA product), v3 (the
-node-owned gather) against v5.
+card: v2 (v6 float's tile kernel and FFMA product, as v4) against v6
+float and v4 and against other builds of it (--src), v3 (the node-owned
+gather) against v5.
 
 Run from the repository root, on a machine with the card and nvcc:
 
     git show 186f735:pcg_mpi_solver_tpu_torch/csrc/structured_matvec_v2.cu \\
-        > build/v2_pr8.cu              # v2 before its redesign
+        > build/v2_old.cu              # v2 before its redesign
     git show 186f735:pcg_mpi_solver_tpu_torch/csrc/structured_matvec_v3.cu \\
-        > build/v3_pr8.cu              # v3 before its redesign
+        > build/v3_old.cu              # v3 before its redesign
     mkdir -p build/parent && git archive 186f735 \\
         pcg_mpi_solver_tpu_torch/csrc | tar -x -C build/parent
-    python3 tools/v2v3_kernel_compare.py --old-v2 build/v2_pr8.cu \\
-        --old-v3 build/v3_pr8.cu \\
-        --parent build/parent/pcg_mpi_solver_tpu_torch/csrc --flagship
+    mkdir -p build/v2_const && git archive 4d187a5 \\
+        pcg_mpi_solver_tpu_torch/csrc | tar -x -C build/v2_const
+    python3 tools/v2v3_kernel_compare.py --old-v2 build/v2_old.cu \\
+        --old-v3 build/v3_old.cu \\
+        --parent build/parent/pcg_mpi_solver_tpu_torch/csrc \\
+        --src const=build/v2_const/pcg_mpi_solver_tpu_torch/csrc/structured_matvec_v2.cu \\
+        --flagship
+
+(4d187a5 holds v2 with Ke as the FFMA's constant operand.)
 
 Prints:
   * whether v2 gives v6 float's bits and v3 gives v5's, at the card tests'
@@ -26,9 +32,8 @@ Prints:
     against the float32 plain version (2e-5 x max|y|), whether two
     launches give the same bits, and CUDA-event times with L2 flushed, in
     turns (then the reverse order), each launched through its C entry
-    point: v2, v4 (v2's tiles with v6's FFMA product), the old v2, v6
-    float and the --src builds; v3, the old v3 and v5 at 8 planes, then at
-    16;
+    point: v2, v4, the old v2, v6 float and the --src builds; v3, the old
+    v3 and v5 at 8 planes, then at 16;
   * each build's registers and spills (ptxas) and the SASS instruction mix
     (cuobjdump, static counts) of the loop that holds each kernel's FFMAs
     and of the whole kernel: FFMA, FFMAs with a constant-bank operand
