@@ -17,20 +17,21 @@ Phases (any failed check raises, so the script exits non-zero):
                 slab shape phases 4 and 5 give it in that dtype, two
                 launches bitwise equal, with CUDA-event times and the
                 card's bound (bytes, CUDA-core and tensor-core terms); the
-                chunked variants (v3, v5, v7, v8) also at 16 planes a
-                chunk; v6 in both dtypes, v4 and v2 (float32 on v6's
-                tiles), v5 and v3 (the node-owned gather, at 8 and 16
-                planes) and v9 also on a single cell and on shapes that
-                cross their strip, tile and segment edges, each with its
-                launch geometry; v2 gives v6 float's bits and v3 v5's at
-                every shape both run;
+                chunked variants (v3, v5, v7) also at 16 planes a
+                chunk; v6 in both dtypes, v4, v2 and v8
+                (float32 on v6's tile kernel, v8 on its split-phase
+                schedule and 24-row tile), v5, v3 and v7 (the node-owned
+                gather, at 8 and 16 planes) and v9 also on a single cell
+                and on shapes that cross their strip, tile and segment
+                edges, each with its launch geometry; v2 and v8 give v6
+                float's bits and v3 and v7 v5's at every shape both run;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
                 (``PCG_TPU_PALLAS_V``), v6 last, with the kernel launch
-                counts and inner cycles of each solve (v4's and v9's
-                beside v6's at the end); then a profiled window of inner
-                f32 iterations under v6;
+                counts and inner cycles of each solve (v4's, v7's, v8's
+                and v9's beside v6's at the end); then a profiled window
+                of inner f32 iterations under v6;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
                 solves on the CPU (the plain path).
@@ -65,14 +66,14 @@ CARD_VS_CPU_CELLS = (12, 6, 5)      # phase 5's card-against-CPU solves
 JAX_FLAGSHIP_ITERS = 3334
 
 KERNEL_TOL = {"float32": 2e-5, "float64": 1e-12}   # x max|y_plain|
-# phase 3 also holds v6 (both dtypes), v4 and v2 (float32, on v6's tiles)
-# at these: a single cell, and shapes whose ny+1 and nz+1 cross several of
-# their (y, z) tiles without filling the last and whose nx+1 spans several
-# x segments, one of them two parts
+# phase 3 also holds v6 (both dtypes), v4, v2 and v8 (float32, on v6's
+# tile kernel) at these: a single cell, and shapes whose ny+1 and nz+1
+# cross several of their (y, z) tiles without filling the last and whose
+# nx+1 spans several x segments, one of them two parts
 V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
-# and v5 and v3 (float32, the node-owned gather, at 8 and 16 planes) at
-# these: v6's, and one whose x segments are longer than two chunks, so its
-# shared-memory ring wraps
+# and v5, v3 and v7 (float32, the node-owned gather, at 8 and 16 planes)
+# at these: v6's, and one whose x segments are longer than two chunks, so
+# its shared-memory ring wraps
 V5_EDGE_SHAPES = V6_EDGE_SHAPES + ((1, 100, 200, 200),)
 V5_EDGE_PLANES = (8, 16)
 # and v9 (float32) at these: v6's, two parts whose nodes end exactly on
@@ -81,11 +82,13 @@ V5_EDGE_PLANES = (8, 16)
 V9_EDGE_SHAPES = V6_EDGE_SHAPES + ((2, 9, 79, 61), (1, 30, 39, 30),
                                    (1, 100, 200, 200))
 EDGE_SHAPES = {"v6": V6_EDGE_SHAPES, "v4": V6_EDGE_SHAPES,
-               "v2": V6_EDGE_SHAPES, "v5": V5_EDGE_SHAPES,
-               "v3": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}
+               "v2": V6_EDGE_SHAPES, "v8": V6_EDGE_SHAPES,
+               "v5": V5_EDGE_SHAPES, "v3": V5_EDGE_SHAPES,
+               "v7": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}
 # variants that run another's kernel from a library of their own and give
-# its bits: v2 runs v6 float's tile kernel, v3 v5's gather
-SAME_BITS = (("v2", "v6"), ("v3", "v5"))
+# its bits: v2 runs v6 float's tile kernel, v8 the same on its split-phase
+# schedule (the same cell chains and node sums), v3 and v7 v5's gather
+SAME_BITS = (("v2", "v6"), ("v8", "v6"), ("v3", "v5"), ("v7", "v5"))
 # The float32 kernels, v6 (the default) first, and the JAX wrapper each
 # replaces; float64 runs v6's double kernel under every variant.
 F32_VARIANTS = ("v6", "v1", "v2", "v3", "v4", "v5", "v7", "v8", "v9")
@@ -268,6 +271,19 @@ def phase_kernels(torch, np, rates):
                         f"{g5.rows}x32 nodes, {g5.n_seg} segments of "
                         f"{g5.seg_len} planes, {g5.blocks} blocks of "
                         f"{g5.threads} threads, {g5.smem_bytes} B shared")
+            if "v8" in variants:
+                g8 = v6_geometry(P, nx, ny, nz, dtype, sms=sms,
+                                 variant="v8")
+                if shape in V6_EDGE_SHAPES and shape != (1, 1, 1, 1) \
+                        and min(g8.n_ty, g8.n_tz, g8.n_seg) < 2:
+                    raise AssertionError(f"{shape} crosses no v8 tile or "
+                                         f"segment edge: {g8}")
+                v8_smem = _library("v8").structured_matvec_v8_smem_bytes(
+                    x.element_size())
+                say(f"  v8: tiles {g8.n_ty}x{g8.n_tz} of "
+                    f"{g8.tile_nodes[0]}x{g8.tile_nodes[1]} nodes, "
+                    f"{g8.n_seg} segments of {g8.seg_len} planes, "
+                    f"{g8.blocks} blocks, {v8_smem} B shared")
             if "v9" in variants:
                 g9 = v9_geometry(P, nx, ny, nz, sms=sms)
                 lib_smem = _library("v9").structured_matvec_v9_smem_bytes()
@@ -359,11 +375,12 @@ def inner_cycles():
 
 def phase_main(torch, np):
     """The flagship mixed solve once under each float32 variant; returns
-    {variant: launch counts of its solve}.  Ends with v4's and v9's inner
-    cycles beside v6's: the stagnation exits that end the cycles move with
-    the round-off of the cell product (v4 runs v6 float's FFMA product on
-    its tiles; a DMMA product moved the second exit by 200 iterations,
-    PERF.md, Findings; v9 sums in another order than v6)."""
+    {variant: launch counts of its solve}.  Ends with v4's, v7's, v8's and
+    v9's inner cycles beside v6's: the stagnation exits that end the
+    cycles move with the round-off of the cell product (v4 and v8 run v6
+    float's FFMA product and node sums; a DMMA product moved the second
+    exit by 200 iterations, PERF.md, Findings; v7 runs v5's gather, v9
+    sums in another order than v6)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
@@ -441,7 +458,7 @@ def phase_main(torch, np):
         cycles_by[variant] = (cycles, res.iters)
         del solver, u
         torch.cuda.empty_cache()
-    for v in ("v4", "v9", "v6"):
+    for v in ("v4", "v7", "v8", "v9", "v6"):
         say(f"main: inner cycles (flag, iterations) {v} {cycles_by[v][0]}, "
             f"{cycles_by[v][1]} in all")
     return launches_by

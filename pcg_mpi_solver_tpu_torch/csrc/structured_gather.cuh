@@ -1,5 +1,6 @@
 // The node-owned gather of the structured-slab matvec, shared by
-// structured_matvec_v5.cu (v5) and structured_matvec_v3.cu (v3), float:
+// structured_matvec_v5.cu (v5), structured_matvec_v3.cu (v3) and
+// structured_matvec_v7.cu (v7), float:
 // each thread owns two output nodes and gathers the eight corner products
 // that land on them; no placement pass, no barrier between corners, no
 // atomics.  A source chooses its constant bank of Ke (a Ke accessor,

@@ -43,7 +43,7 @@
 //
 // The design (tiles of two-node threads, a ring of two chunks, the node
 // window in registers) is in structured_gather.cuh, shared with v3
-// (structured_matvec_v3.cu).
+// (structured_matvec_v3.cu) and v7 (structured_matvec_v7.cu).
 
 #include <cuda_runtime.h>
 

@@ -1,6 +1,6 @@
-// Structured-slab block-stencil matvec for Hopper (sm_90a), float: (y, z)
-// cell tiles marching x one plane a step, one single-buffered stage a
-// chunk, the chunk's output planes kept in shared memory and written once.
+// Structured-slab block-stencil matvec for Hopper (sm_90a), float: v6
+// float's tile kernel (structured_tiles.cuh) on a split-phase plane
+// schedule, one barrier a plane.
 //
 // Replaces pcg_mpi_solver_tpu/ops/pallas_matvec.py::structured_matvec_pallas_v8
 // (kernel _matvec_kernel_v8), which the JAX package's structured backend
@@ -12,209 +12,99 @@
 // x, y: (P, 3, nx+1, ny+1, nz+1); ck: (P, nx, ny, nz); Ke: (24, 24) in
 // element-dof order 3*corner + comp, corners in VTK order.
 //
-// What bounds it on an H100 SXM: 576 FMAs per cell against ~28 bytes per
-// cell, so the operations (58.0 us at 150^3 at 67 TFLOP/s fp32, against
-// 28.7 us for the bytes at 3.35 TB/s).
+// What bounds it on an H100 SXM (chip_smoke.py::matvec_bound_ms): at the
+// flagship 150^3 slab the bytes (x and y once per node, ck once per cell:
+// 96.13 MB) take 28.7 us at 3.35 TB/s, the bound of any float-accurate
+// kernel.  The FMAs of the cells (3.888 GFLOP) take 58.0 us on the CUDA
+// cores at 67 TFLOP/s, 69 us at the 1.19x cells of these tiles at 150^3.
 //
-// The TPU kernel is v6's compute (per cell plane, per output corner b a
-// (3,24)@(24,m) product of the unscaled gathered corners, scaled by ck
-// afterwards, rotated to its lane offset and added, dx = 1 rows carried to
-// the next plane) with the plane loop made a grid axis, grid (g, C): the
-// output block of C = PCG_TPU_PALLAS_PLANES planes stays resident across
-// the C inner steps and is written once; the slab of the chunk's planes
-// is copied once per chunk into a single buffer, with no prefetch.  Here:
-//   * a block of kCy x kCz threads owns one cell each of a kCy x kCz cell
-//     tile, (iy0 - 1 .. iy0 + kCy - 2, iz0 - 1 .. iz0 + kCz - 2), and the
-//     (kCy-1) x (kCz-1) node tile those cells surround (every cell of an
-//     owned node is in the tile; the tile's outer ring of nodes belongs to
-//     the neighbouring blocks, which compute those cells again: kCy kCz /
-//     ((kCy-1)(kCz-1)) = 1.18x the product's FMAs, no atomics);
-//   * the block marches one x segment of kChunks * C - 1 node planes in
-//     chunks of C cell planes, one plane a step (the TPU's inner grid
-//     axis).  A chunk loads its C + 1 node planes of the tile and its halo
-//     into one shared buffer with plain loads, synchronises and computes:
-//     no overlap of copy and compute, as the TPU kernel chose;
-//   * per cell plane each thread gathers its cell's 24 corner values and,
-//     per output corner b, does the 3 x 24 product with Ke[3b:3b+3],
-//     scales the 3 results by ck (ck scales the product, not the 24
-//     inputs) and adds them to the node (r + dx_b, y + dy_b, z + dz_b) of a
-//     shared output block of C + 1 node planes.  The eight additions are
-//     separated by __syncthreads; each maps cells one to one onto nodes, so
-//     no two threads add to one value and the sum order is fixed (the same
-//     result bit for bit run to run);
-//   * after the chunk's C planes the block writes output planes 0 .. C-1
-//     to device memory at once, z fastest (coalesced stores), moves plane C
-//     (the dx = 1 carry) to plane 0 and zeroes the rest;
-//   * a segment first recomputes the carry of the cell plane before it;
-//     node planes past nx are zero-filled, cell planes past nx - 1 skipped;
-//   * Ke lives in the constant bank with every loop unrolled.
-// Shared memory: 4 * 3 (C+1) ((kCy+1)(kCz+1) + (kCy-1)(kCz-1)) bytes, 54.2
-// KB at C = 8 and 102.4 KB at C = 16; the launch is refused above 227 KB
-// (C above 36).
+// How the TPU kernel maps onto this one: it is v6's kernel with the plane
+// loop made a grid axis, so that its compiler keeps one plane's
+// temporaries live instead of a chunk's, and the output block stays
+// resident across a chunk's planes.  On Hopper the plane loop is already
+// a loop inside the block (v6's tiles march x segments with the carry in
+// registers, structured_matvec.cu's note), so v8 keeps v6's tile
+// machinery - the cp.async ring of node and ck planes, the copy table,
+// the x march, the segment's recomputed first plane, smv::FfmaProduct's
+// FFMA chains and the b-ordered placement - and changes only the plane
+// schedule.  v6 runs each plane as wait, barrier, product (FFMAs), barrier,
+// placement (shared-memory loads and stores): no warp starts a placement
+// before every warp ends its product, and nothing else on the SM (one
+// block an SM) fills the drain of either barrier.  Here the products go
+// into two buffers: step k computes plane k's products into fs[k % 2],
+// then places plane k - 1 from fs[(k - 1) % 2], with one barrier a step,
+// so a warp that ends its FFMAs goes on to loads and stores while other
+// warps still run FFMAs (structured_tiles.cuh holds the schedule and the
+// hazards it keeps apart).  Each cell's FFMA chain and each node's sum
+// are v6's, so v8 gives v6 float's bits, and a time against the same
+// tile on v6's schedule tests the schedule alone.
+//
+// What the card showed (tools/v7v8_kernel_compare.py, PERF.md, Findings):
+// the hypothesis behind the schedule does not hold.  A clock64 probe of
+// v6 float at 150^3 puts 0.3 % of its warp-cycles in its two barriers and
+// ring waits (the product 73 %, the copies' issue 12.5 %, the placement
+// 12.6 %): all warps run the same work on shared pipes and reach each
+// barrier together, so there is no drain to fill.  On this tile the
+// split schedule runs at the time of v6's schedule (0.2116 against 0.2110
+// ms), 14 % slower than v6 float's 32-row tile (0.1852 ms: one wave of
+// blocks, 5 % fewer cells) and 28 % faster than the kernel it replaced
+// (0.2931).  No height does better with two buffers (16 rows 0.2424, 12
+// rows 0.2153, 8 rows 0.2425), so v8 keeps 24.
+//
+// Tile: two product buffers do not fit v6's 32 x 32 cells (about 295 KB),
+// so v8's tile is 24 x 32 cells (smv::Layout<float, 24, 2>: 12 warps, 384
+// threads, one block an SM, ring depth 3, 221,976 bytes of shared memory);
+// ops/structured_matvec.py's TILES holds its shape for the launch
+// geometry, and a grid that is not this tile is refused.  The TPU kernel's
+// chunk (PCG_TPU_PALLAS_PLANES) does not apply.
+//
+// What the kernel this one replaced (a thread a cell of 8 x 32
+// cell tiles) spent and this one does not: a chunk's planes loaded by
+// plain loads with div/mod index math into one buffer, then a barrier (no
+// overlap of copy and compute); eight read-modify-write placement passes
+// a plane into a shared output block, each behind a barrier; one FMA a Ke
+// value; 1.18x the product's FMAs on 8 x 32 tiles; 20 bytes spilled.
+//
+// Ke is staged into this library's constant bank as float by its own
+// entry point (the wrapper restages only for another Ke or one changed in
+// place; staging ends with a stream sync) and copied into shared memory
+// when a block starts.  The entry points make the tensor's device current
+// and restore the caller's before they return.
 
 #include <cuda_runtime.h>
 
-#include "structured_common.cuh"
+#include "structured_tiles.cuh"
 
 namespace {
 
-using smv::corner_x;
-using smv::corner_y;
-using smv::corner_z;
-
-constexpr int kCy = 8, kCz = 32;              // cell tile: a thread a cell
-constexpr int kThreads = kCy * kCz;
-constexpr int kTy = kCy - 1, kTz = kCz - 1;   // owned node tile
-constexpr int kNy = kCy + 1, kNz = kCz + 1;   // staged node tile
-constexpr int kChunks = 2;                    // chunks per segment
-
 __constant__ float ke_v8[24 * 24];
 
-size_t smem_bytes(int C) {
-  return sizeof(float) * 3 * (C + 1) *
-         static_cast<size_t>(kNy * kNz + kTy * kTz);
-}
+struct KeV8 {
+  __device__ static float at(int i) { return ke_v8[i]; }
+};
 
-__global__ void __launch_bounds__(kThreads)
-matvec_v8_kernel(const float* __restrict__ x, const float* __restrict__ ck,
-                 float* __restrict__ y, int nx, int ny, int nz, int C,
-                 int n_ty, int n_tz, int n_seg) {
-  extern __shared__ float smem[];
-  const int nxn = nx + 1, nyn = ny + 1, nzn = nz + 1;
-  const int grid = nxn * nyn * nzn;
-  int blk = blockIdx.x;
-  const int iz0 = (blk % n_tz) * kTz;
-  blk /= n_tz;
-  const int iy0 = (blk % n_ty) * kTy;
-  blk /= n_ty;
-  const int seg = blk % n_seg;
-  const int p = blk / n_seg;
-  const float* xp = x + static_cast<size_t>(p) * 3 * grid;
-  const float* ckp = ck + static_cast<size_t>(p) * nx * ny * nz;
-  float* yp = y + static_cast<size_t>(p) * 3 * grid;
-  const int tid = threadIdx.x;
-  const int ty = tid / kCz, tz = tid % kCz;
-  const int cy = iy0 - 1 + ty, cz = iz0 - 1 + tz;   // this thread's cell
-  const bool cell_ok = cy >= 0 && cy < ny && cz >= 0 && cz < nz;
-
-  const int seg_len = kChunks * C - 1;
-  const int x0 = seg * seg_len;
-  const int x_end = min(x0 + seg_len, nxn);
-  // cell planes x0-1 .. x_end-1, C a chunk
-  const int n_chunks = (x_end - x0 + C) / C;
-  // xs [c][r][yy][zz]: node (pbase + r, iy0 - 1 + yy, iz0 - 1 + zz);
-  // out [c][r][oy][oz]: node (pbase + r, iy0 + oy, iz0 + oz)
-  float* xs = smem;
-  float* out = smem + 3 * (C + 1) * kNy * kNz;
-  const int out_plane = kTy * kTz;
-
-  for (int e = tid; e < 3 * (C + 1) * out_plane; e += kThreads) out[e] = 0.f;
-  for (int k = 0; k < n_chunks; ++k) {
-    const int pbase = x0 - 1 + k * C;
-    for (int e = tid; e < 3 * (C + 1) * kNy * kNz; e += kThreads) {
-      const int zz = e % kNz;
-      int t = e / kNz;
-      const int yy = t % kNy;
-      t /= kNy;
-      const int r = t % (C + 1), c = t / (C + 1);
-      const int gp = pbase + r, gy = iy0 - 1 + yy, gz = iz0 - 1 + zz;
-      const bool ok = gp >= 0 && gp < nxn && gy >= 0 && gy < nyn &&
-                      gz >= 0 && gz < nzn;
-      xs[e] = ok ? xp[c * grid + (gp * nyn + gy) * nzn + gz] : 0.f;
-    }
-    __syncthreads();
-    for (int r = 0; r < C && pbase + r < x_end; ++r) {
-      const int i = pbase + r;
-      if (i < 0 || i >= nx) continue;       // the same for the whole block
-      float u[24];
-      float s = 0.f;
-      if (cell_ok) {
-        s = __ldg(ckp + (i * ny + cy) * nz + cz);
-#pragma unroll
-        for (int a = 0; a < 8; ++a) {
-          const float* xa =
-              xs + ((r + corner_x(a)) * kNy + ty + corner_y(a)) * kNz + tz +
-              corner_z(a);
-#pragma unroll
-          for (int c = 0; c < 3; ++c)
-            u[3 * a + c] = xa[c * (C + 1) * kNy * kNz];
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        float t0 = 0.f, t1 = 0.f, t2 = 0.f;
-        if (cell_ok) {
-#pragma unroll
-          for (int e = 0; e < 24; ++e) {
-            t0 += ke_v8[(3 * b + 0) * 24 + e] * u[e];
-            t1 += ke_v8[(3 * b + 1) * 24 + e] * u[e];
-            t2 += ke_v8[(3 * b + 2) * 24 + e] * u[e];
-          }
-        }
-        __syncthreads();
-        // corner b of this cell is the node (i + dx, cy + dy, cz + dz)
-        const int oy = ty - 1 + corner_y(b), oz = tz - 1 + corner_z(b);
-        if (cell_ok && oy >= 0 && oy < kTy && oz >= 0 && oz < kTz) {
-          float* o = out + (r + corner_x(b)) * out_plane + oy * kTz + oz;
-          o[0] += s * t0;
-          o[(C + 1) * out_plane] += s * t1;
-          o[2 * (C + 1) * out_plane] += s * t2;
-        }
-      }
-    }
-    __syncthreads();
-    // output planes 0 .. C-1 are node planes pbase .. pbase + C - 1, done
-    for (int e = tid; e < 3 * C * out_plane; e += kThreads) {
-      const int oz = e % kTz;
-      int t = e / kTz;
-      const int oy = t % kTy;
-      t /= kTy;
-      const int r = t % C, c = t / C;
-      const int gp = pbase + r, gy = iy0 + oy, gz = iz0 + oz;
-      if (gp >= x0 && gp < x_end && gy < nyn && gz < nzn)
-        yp[c * grid + (gp * nyn + gy) * nzn + gz] =
-            out[(c * (C + 1) + r) * out_plane + oy * kTz + oz];
-    }
-    __syncthreads();
-    // plane C (the carry) becomes plane 0; one thread per (c, node) column
-    for (int e = tid; e < 3 * out_plane; e += kThreads) {
-      const int c = e / out_plane, n = e - c * out_plane;
-      float* col = out + c * (C + 1) * out_plane + n;
-      col[0] = col[C * out_plane];
-      for (int r = 1; r <= C; ++r) col[r * out_plane] = 0.f;
-    }
-    __syncthreads();          // before the next chunk's loads and adds
-  }
-}
-
-int launch(const void* x, const void* ck, void* y, int parts, int nx, int ny,
-           int nz, int planes, cudaStream_t stream) {
-  const int C = max(1, min(planes, nx + 1));
-  const int n_ty = (ny + 1 + kTy - 1) / kTy, n_tz = (nz + 1 + kTz - 1) / kTz;
-  const int seg_len = kChunks * C - 1;
-  const int n_seg = (nx + 1 + seg_len - 1) / seg_len;
-  const long long blocks =
-      static_cast<long long>(parts) * n_seg * n_ty * n_tz;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(C);
-  cudaError_t e = smv::allow_smem(matvec_v8_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  matvec_v8_kernel<<<static_cast<int>(blocks), kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(ck),
-      static_cast<float*>(y), nx, ny, nz, C, n_ty, n_tz, n_seg);
-  return static_cast<int>(cudaGetLastError());
-}
+// 24 x 32 cells, two product buffers: the split-phase schedule.
+// tools/v7v8_kernel_compare.py --sweep builds other tile heights, and one
+// buffer (v6's schedule on this tile), to time them against these.
+#ifndef V8_CELLS_Y
+#define V8_CELLS_Y 24
+#endif
+#ifndef V8_FS_BUFFERS
+#define V8_FS_BUFFERS 2
+#endif
+using Tile = smv::Layout<float, V8_CELLS_Y, V8_FS_BUFFERS>;
+using Product = smv::FfmaProduct<KeV8, Tile>;
 
 }  // namespace
 
 // C entry points.  stage copies ke (24,24), a contiguous float device
-// buffer, into this library's constant bank on `device`.  The matvec takes
-// x (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float device
+// buffer, into the constant bank of `device`.  The matvec takes x
+// (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float device
 // buffers, and writes y, allocated by the caller with x's shape, using the
-// Ke staged last; `planes` is C (PCG_TPU_PALLAS_PLANES, clamped to
-// [1, nx+1]).  The wrapper (ops/structured_matvec.py) checks shapes, dtype
-// and contiguity and keeps every index below 2^31.  Each returns the CUDA
-// error code of its copy or launch (0 = done / launched).
+// Ke staged last; the launch geometry (seg_len, n_ty, n_tz, n_seg) comes
+// from ops/structured_matvec.py::v6_geometry at v8's tile, and a grid that
+// is not this library's tile is refused.  Each returns the CUDA error code
+// of its copy or launch (0 = done / launched).
 extern "C" int structured_matvec_v8_stage_f32(const void* ke, int device,
                                               void* stream) {
   return smv::stage(ke_v8, ke, device, stream);
@@ -222,12 +112,17 @@ extern "C" int structured_matvec_v8_stage_f32(const void* ke, int device,
 
 extern "C" int structured_matvec_v8_f32(const void* x, const void* ck,
                                         void* y, int parts, int nx, int ny,
-                                        int nz, int planes, int device,
+                                        int nz, int seg_len, int n_ty,
+                                        int n_tz, int n_seg, int device,
                                         void* stream) {
-  smv::DeviceScope scope(device);
-  if (scope.error() != 0) return scope.error();
-  return launch(x, ck, y, parts, nx, ny, nz, planes,
-                static_cast<cudaStream_t>(stream));
+  return smv::launch_on<Product>(x, ck, y, parts, nx, ny, nz, seg_len, n_ty,
+                                 n_tz, n_seg, device, stream);
+}
+
+// The dynamic shared memory of a block of itemsize 4 (float; 0 for
+// another itemsize: v8 has no other kernel), for reports.
+extern "C" long long structured_matvec_v8_smem_bytes(int itemsize) {
+  return itemsize == 4 ? static_cast<long long>(Tile::kSmemBytes) : 0;
 }
 
 SMV_ERROR_STRING(structured_matvec_v8)

@@ -29,15 +29,16 @@ of the JAX package, one slab per part.
   of eight zero-padded translates.  The CPU tests hold it against the JAX
   package and its Pallas kernels, and ``chip_smoke.py`` holds each kernel
   against it on the card.
-- :func:`v6_geometry` is the launch grid of the kernels on v6's tiles
-  (v6 in both dtypes, and v4 and v2, each v6's float kernel in a library
-  of its own): their (y, z) tiles and the x segments that fill the card;
-  the CPU tests check it, the wrapper passes it to the kernel.  The
-  kernels' shared-memory layout is their own
+- :func:`v6_geometry` is the launch grid of the kernels on v6's tile
+  kernel (v6 in both dtypes; v4 and v2, each v6's float kernel in a
+  library of its own; v8, the same kernel on a split-phase schedule and a
+  shorter tile): their (y, z) tiles (:data:`TILES`) and the x segments
+  that fill the card; the CPU tests check it, the wrapper passes it to
+  the kernel.  The kernels' shared-memory layout is their own
   (``csrc/structured_tiles.cuh``, ``Layout``).
-  :func:`v5_geometry` is the same for the node-owned gather of v5 and v3
-  (``csrc/structured_gather.cuh``), whose tile height depends on the
-  chunk (``planes``) its shared-memory ring holds, and
+  :func:`v5_geometry` is the same for the node-owned gather of v5, v3
+  and v7 (``csrc/structured_gather.cuh``), whose tile height depends on
+  the chunk (``planes``) its shared-memory ring holds, and
   :func:`v9_geometry` for the v9 kernel's warp-strip tiles.
   :func:`launch_args` gives any variant's launch arguments, through one
   code path per kernel design.
@@ -78,7 +79,7 @@ VARIANTS = {"v1": ("structured_matvec_v1", False),
             "v5": ("structured_matvec_v5", True),
             "v6": ("structured_matvec", False),
             "v7": ("structured_matvec_v7", True),
-            "v8": ("structured_matvec_v8", True),
+            "v8": ("structured_matvec_v8", False),
             "v9": ("structured_matvec_v9", False)}
 F64_VARIANT = "v6"          # the one kernel with a double instantiation
 
@@ -126,19 +127,23 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-# The tile shape of the kernels on v6's tiles, as csrc/structured_tiles.cuh
-# compiles it (smv::Layout<T>): a block computes V6_CELLS_Y[dtype] x
+# The tiles of the kernels on v6's tile kernel, by variant and dtype, as
+# each library compiles csrc/structured_tiles.cuh's smv::Layout<T, CellsY>:
+# (cells a tile column, blocks an SM).  A block computes CellsY x
 # V6_CELLS_Z cells a plane and owns the nodes inside them, (cells - 1) in
-# each axis; an SM holds V6_BLOCKS_PER_SM[dtype] blocks (the kernel's
-# __launch_bounds__ minimum, which its shared memory also allows).  A
-# launch whose grid does not match the library's tile is refused.
-V6_CELLS_Y = {torch.float32: 32, torch.float64: 8}
+# each axis; an SM holds the blocks (the kernel's __launch_bounds__
+# minimum, which its shared memory also allows).  v4 and v2 compile v6
+# float's tile; v8's two product buffers fit only a shorter one.  A launch
+# whose grid does not match the library's tile is refused.
 V6_CELLS_Z = 32
-V6_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 2}
+TILES = {"v6": {torch.float32: (32, 1), torch.float64: (8, 2)},
+         "v4": {torch.float32: (32, 1)},
+         "v2": {torch.float32: (32, 1)},
+         "v8": {torch.float32: (24, 1)}}
 # the variants whose launch takes v6_geometry (v6's tile kernel) and
 # v5_geometry (the node-owned gather)
-TILED = ("v6", "v4", "v2")
-GATHER = ("v5", "v3")
+TILED = tuple(TILES)
+GATHER = ("v5", "v3", "v7")
 H100_SMS = 132
 
 
@@ -173,25 +178,25 @@ class V6Geometry:
 
 @functools.lru_cache(maxsize=256)
 def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
-                sms: int = H100_SMS) -> V6Geometry:
-    """Launch geometry of the kernels on v6's tiles (v6 in ``dtype``, v4
-    and v2 in float32) for a (parts, nx, ny, nz) slab.
+                sms: int = H100_SMS, variant: str = "v6") -> V6Geometry:
+    """Launch geometry of ``variant``'s kernel on v6's tile kernel (v6 in
+    ``dtype``, v4, v2 and v8 in float32) for a (parts, nx, ny, nz) slab,
+    at its tile in :data:`TILES`.
 
     The x segment length minimises waves x (seg_len + 3), a wave being the
     blocks the card holds at once (``sms`` x the blocks an SM holds): the
     planes of the longest chain of blocks on one SM, each segment's
     recomputed carry plane and two planes of ring fill included; ties go
     to fewer segments."""
-    cy = V6_CELLS_Y[dtype]
+    cy, per_sm = TILES[variant][dtype]
     tile = (cy - 1, V6_CELLS_Z - 1)
     n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
     tiles = parts * n_ty * n_tz
-    seg_len, n_seg = _segments(nx + 1, tiles, sms * V6_BLOCKS_PER_SM[dtype],
-                               3)
+    seg_len, n_seg = _segments(nx + 1, tiles, sms * per_sm, 3)
     return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
 
 
-# The node-owned gather of v5 and v3 (csrc/structured_gather.cuh): tiles
+# The node-owned gather of v5, v3 and v7 (csrc/structured_gather.cuh): tiles
 # of V5_ROWS[k] x V5_LANES_Z owned nodes, two rows a warp; the ring holds
 # 2 * planes + 2 slots of node and ck planes.  8 rows at most: at 8 planes
 # two 8-row blocks an SM ran 4.6 % faster than one 16-row block (PERF.md,
@@ -205,7 +210,7 @@ SMEM_RESERVED = 1024
 
 
 def v5_smem_bytes(planes: int, rows: int) -> int:
-    """Dynamic shared memory of a v5 or v3 launch (the kernel's
+    """Dynamic shared memory of a gather launch (v5, v3, v7; the kernel's
     ``smem_bytes``): 2 * planes + 2 slots of 3 x (rows + 2) x 34 node
     values and (rows + 1) x 33 ck values, Ke, and one copy-table entry (8
     bytes) per slot value."""
@@ -234,7 +239,7 @@ class V5Geometry:
 def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
                 sms: int = H100_SMS,
                 rows: Optional[int] = None) -> V5Geometry:
-    """Launch geometry of the node-owned gather (v5 and v3) for a (parts,
+    """Launch geometry of the node-owned gather (v5, v3, v7) for a (parts,
     nx, ny, nz) slab at ``planes`` cell planes a chunk.
 
     The tile is ``rows`` high (one of V5_ROWS), by default the tallest
@@ -320,23 +325,20 @@ def launch_args(variant: str, parts: int, nx: int, ny: int, nz: int,
     """The launch arguments after (P, nx, ny, nz) of ``variant``'s kernel
     entry point in ``dtype`` for a (parts, nx, ny, nz) slab on a card of
     ``sms`` SMs: the tiled variants (TILED) and v9 (seg_len, n_ty, n_tz,
-    n_seg), the gather variants (GATHER) (planes, rows, seg_len, n_ty,
-    n_tz, n_seg), the other chunked variants (planes,), the rest ().
-    ``planes`` None reads :func:`pallas_planes` where the variant takes
-    it."""
+    n_seg), the gather variants (GATHER, the chunked ones) (planes, rows,
+    seg_len, n_ty, n_tz, n_seg), v1 ().  ``planes`` None reads
+    :func:`pallas_planes` where the variant takes it."""
     if variant in TILED:
-        g = v6_geometry(parts, nx, ny, nz, dtype, sms)
+        g = v6_geometry(parts, nx, ny, nz, dtype, sms, variant)
         return (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
     if variant == "v9":
         g = v9_geometry(parts, nx, ny, nz, sms)
         return (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
-    if not VARIANTS[variant][1]:
-        return ()
-    planes = pallas_planes() if planes is None else planes
     if variant in GATHER:
+        planes = pallas_planes() if planes is None else planes
         g = v5_geometry(parts, nx, ny, nz, planes, sms)
         return (planes, g.rows, g.seg_len, g.n_ty, g.n_tz, g.n_seg)
-    return (planes,)
+    return ()
 
 
 @functools.lru_cache(maxsize=None)
@@ -452,9 +454,9 @@ def structured_matvec(xg: torch.Tensor, ck: torch.Tensor, Ke: torch.Tensor,
     """y = K_slab . x per part.  CUDA tensors launch the kernel of
     ``variant`` in float32, v6's double kernel in float64 (or raise); CPU
     tensors run :func:`structured_matvec_plain`.  ``planes`` is the chunk
-    of the chunked variants (v3, v5, v7, v8); None reads
-    :func:`pallas_planes`.  The other variants (v1, v2, v4, v6, v9) ignore
-    it."""
+    of the chunked variants (v3, v5, v7); None reads
+    :func:`pallas_planes`.  The other variants (v1, v2, v4, v6, v8, v9)
+    ignore it."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got "
                          f"{variant!r}")

@@ -116,13 +116,14 @@ def test_solver_routes_launches_to_its_variant(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant,planes", [("v5", 56), ("v3", 56)])
+@pytest.mark.parametrize("variant,planes", [("v5", 56), ("v3", 56),
+                                            ("v7", 55)])
 def test_chunk_too_large_for_shared_memory_is_refused(cuda_device, variant,
                                                       planes):
-    """v5 and v3 (the node-owned gather) stage a ring of 2C + 2 node and
-    ck planes of their shortest tile: at these planes that is above the
-    227 KB a block can have, so the launch is refused with the CUDA error
-    named, and nothing is counted."""
+    """v5, v3 and v7 (the node-owned gather) stage a ring of 2C + 2 node
+    and ck planes of their shortest tile: at these planes (55 is the first
+    above 54) that is above the 227 KB a block can have, so the launch is
+    refused with the CUDA error named, and nothing is counted."""
     x = torch.zeros((1, 3, 41, 5, 4), dtype=torch.float32,
                     device=cuda_device)
     ck = torch.ones((1, 40, 4, 3), dtype=torch.float32, device=cuda_device)
@@ -258,11 +259,13 @@ def test_v4_kernel_across_tile_and_segment_edges(cuda_device, P, cells):
         == "invalid argument"
 
 
-# v2 runs v6 float's tile kernel, v3 v5's node-owned gather, each from a
+# v2 runs v6 float's tile kernel, v8 the same kernel on a split-phase
+# schedule and a 24-row tile, v3 and v7 v5's node-owned gather, each from a
 # library of its own: each gives the bits of the kernel it shares, at the
 # shapes of test_variant_kernel_matches_plain_on_card and at that design's
-# edge shapes (V6_EDGE, V5_EDGE), v3 at 8 and 16 planes
-SAME_BITS = [("v2", "v6", None), ("v3", "v5", 8), ("v3", "v5", 16)]
+# edge shapes (V6_EDGE, V5_EDGE), v3 and v7 at 8 and 16 planes
+SAME_BITS = [("v2", "v6", None), ("v3", "v5", 8), ("v3", "v5", 16),
+             ("v8", "v6", None), ("v7", "v5", 8), ("v7", "v5", 16)]
 
 
 @pytest.mark.cuda
@@ -271,14 +274,15 @@ SAME_BITS = [("v2", "v6", None), ("v3", "v5", 8), ("v3", "v5", 16)]
 def test_variant_gives_the_bits_of_the_kernel_it_shares(cuda_device,
                                                         variant, like,
                                                         planes):
-    """v2 gives v6 float's bits and v3 v5's (two parts included); two
-    launches of each are bitwise equal (no atomics), each counted once
-    under its own name; v2's entry point refuses a grid that is not its
-    library's tile, as v4's does."""
+    """v2 and v8 give v6 float's bits, v3 and v7 v5's (two parts
+    included); two launches of each are bitwise equal (no atomics), each
+    counted once under its own name; the entry points of v2 and v8 refuse
+    a grid that is not their library's tile, as v4's does (v8's tile is not
+    v6's: v6's grid is refused too)."""
     rng = np.random.default_rng(7)
     Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
                          dtype=torch.float32, device=cuda_device)
-    edge = V6_EDGE if variant == "v2" else V5_EDGE
+    edge = V6_EDGE if variant in smv.TILED else V5_EDGE
     shapes = [(1, (7, 3, 5)), (2, (33, 17, 9)), (2, (6, 5, 40))] + edge
     for P, (nx, ny, nz) in shapes:
         x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
@@ -294,16 +298,22 @@ def test_variant_gives_the_bits_of_the_kernel_it_shares(cuda_device,
         assert smv.LAUNCHES[(variant, "float32")] == before + 2
         assert torch.equal(y, y2)
         assert torch.equal(y, y_like), (P, nx, ny, nz)
-    if variant == "v2":
-        g = smv.v6_geometry(P, nx, ny, nz, torch.float32)
-        bad = (g.seg_len, g.n_ty + 1, g.n_tz, g.n_seg)
-        lib = smv._library("v2")
-        err = lib.structured_matvec_v2_f32(
-            x.data_ptr(), ck.data_ptr(), y.data_ptr(), P, nx, ny, nz, *bad,
-            cuda_device.index or 0,
-            torch.cuda.current_stream(cuda_device).cuda_stream)
-        assert lib.structured_matvec_v2_error_string(err).decode() \
-            == "invalid argument"
+    if variant in smv.TILED:
+        g = smv.v6_geometry(P, nx, ny, nz, torch.float32, variant=variant)
+        g6 = smv.v6_geometry(P, nx, ny, nz, torch.float32)
+        bads = [(g.seg_len, g.n_ty + 1, g.n_tz, g.n_seg)]
+        if g6.n_ty != g.n_ty:
+            bads.append((g6.seg_len, g6.n_ty, g6.n_tz, g6.n_seg))
+        assert len(bads) == (2 if variant == "v8" else 1)
+        name = smv.VARIANTS[variant][0]
+        lib = smv._library(variant)
+        for bad in bads:
+            err = getattr(lib, f"{name}_f32")(
+                x.data_ptr(), ck.data_ptr(), y.data_ptr(), P, nx, ny, nz,
+                *bad, cuda_device.index or 0,
+                torch.cuda.current_stream(cuda_device).cuda_stream)
+            assert getattr(lib, f"{name}_error_string")(err).decode() \
+                == "invalid argument"
 
 
 # v9 at a single cell, at shapes that cross its warp strips, (y, z) tiles

@@ -183,14 +183,18 @@ GEOMETRY_SHAPES = [(1, 1, 1, 1), (1, 7, 3, 5), (2, 33, 17, 9),
                    (3, 12, 61, 30), (1, 150, 150, 150)]
 
 
-def check_tile_geometry(shape, dtype):
-    """The launch geometry of the kernels on v6's tiles: the (y, z) tiles
-    own every node exactly once, the x segments cover every node plane
-    exactly once, and the blocks are parts x tiles x segments."""
+def check_tile_geometry(shape, dtype, variant="v6"):
+    """The launch geometry of a kernel on v6's tile kernel: its tile is the
+    library's (TILES), the (y, z) tiles own every node exactly once, the x
+    segments cover every node plane exactly once, and the blocks are parts
+    x tiles x segments; ``launch_args`` passes exactly this grid."""
     P, nx, ny, nz = shape
-    g = smv.v6_geometry(P, nx, ny, nz, dtype)
+    g = smv.v6_geometry(P, nx, ny, nz, dtype, variant=variant)
     ty, tz = g.tile_nodes
-    assert (ty + 1, tz + 1) == (smv.V6_CELLS_Y[dtype], smv.V6_CELLS_Z)
+    assert (ty + 1, tz + 1) == (smv.TILES[variant][dtype][0],
+                                smv.V6_CELLS_Z)
+    assert smv.launch_args(variant, *shape, dtype) \
+        == (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
     for n_nodes, tile, n_tiles in ((ny + 1, ty, g.n_ty),
                                    (nz + 1, tz, g.n_tz),
                                    (nx + 1, g.seg_len, g.n_seg)):
@@ -216,6 +220,18 @@ def test_v4_geometry_covers_every_node_once(shape):
     check_tile_geometry(shape, torch.float32)
 
 
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v8_geometry_covers_every_node_once(shape):
+    """v8 runs v6's tile kernel on its own 24 x 32-cell tile
+    (check_tile_geometry at v8's entry of TILES), and its launch arguments
+    are that tile's grid whatever ``planes`` says: v8 takes no chunk."""
+    assert not smv.VARIANTS["v8"][1]
+    check_tile_geometry(shape, torch.float32, "v8")
+    assert smv.TILES["v8"][torch.float32] == (24, 1)
+    assert smv.launch_args("v8", *shape, torch.float32, 16) \
+        == smv.launch_args("v8", *shape, torch.float32, 8)
+
+
 def test_v6_geometry_flagship_fills_the_card():
     """At the flagship slab the x segments give nearly every SM of an H100
     SXM a block, where the (y, z) tiles alone do not."""
@@ -230,7 +246,7 @@ def test_v4_geometry_flagship_fills_the_card():
     wave is at least 3/4 full."""
     assert "v4" in smv.TILED
     g = smv.v6_geometry(1, 150, 150, 150, torch.float32)
-    per_sm = smv.V6_BLOCKS_PER_SM[torch.float32]
+    per_sm = smv.TILES["v4"][torch.float32][1]
     assert g.n_ty * g.n_tz < 0.9 * smv.H100_SMS * per_sm < g.blocks
     waves = g.blocks / (smv.H100_SMS * per_sm)
     assert waves / -(-g.blocks // (smv.H100_SMS * per_sm)) >= 0.75
@@ -287,13 +303,41 @@ def test_v3_launches_with_the_gather_arguments_of_v5(shape, planes):
     """v3 runs v5's node-owned gather: its launch arguments are v5's
     (planes, rows, seg_len, n_ty, n_tz, n_seg) at every shape, the
     flagship's included, and at any number of SMs."""
-    assert set(smv.GATHER) == {"v3", "v5"}
+    assert {"v3", "v5"} <= set(smv.GATHER)
     for sms in (smv.H100_SMS, 114):
         args = smv.launch_args("v3", *shape, torch.float32, planes, sms)
         g = smv.v5_geometry(*shape, planes, sms)
         assert args == smv.launch_args("v5", *shape, torch.float32, planes,
                                        sms)
         assert args == (planes, g.rows, g.seg_len, g.n_ty, g.n_tz, g.n_seg)
+
+
+@pytest.mark.parametrize("planes", [8, 16])
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v7_launches_with_the_gather_arguments_of_v5(shape, planes):
+    """v7 runs v5's node-owned gather, as v3 does: its launch arguments are
+    v5's at every shape, the flagship's included, and at any number of
+    SMs."""
+    assert set(smv.GATHER) == {"v3", "v5", "v7"}
+    for sms in (smv.H100_SMS, 114):
+        assert smv.launch_args("v7", *shape, torch.float32, planes, sms) \
+            == smv.launch_args("v5", *shape, torch.float32, planes, sms)
+
+
+@pytest.mark.parametrize("planes,fits", [(48, True), (54, True),
+                                         (55, False), (56, False)])
+def test_v7_chunk_fits_up_to_54_planes(planes, fits):
+    """v7's ring of 2C + 2 slots fits a block's shared memory at 2-row
+    tiles up to C = 54 and not above, so its kernel refuses C above 54
+    (the card test test_chunk_too_large_for_shared_memory_is_refused);
+    the shuffle kernel v7 replaced used no shared memory and refused no
+    C."""
+    args = smv.launch_args("v7", 1, 40, 4, 3, torch.float32, planes)
+    g = smv.v5_geometry(1, 40, 4, 3, planes)
+    assert args[:2] == (planes, g.rows)
+    assert (g.smem_bytes <= smv.BLOCK_SMEM) == fits
+    if not fits:
+        assert g.rows == smv.V5_ROWS[-1]
 
 
 @pytest.mark.parametrize("shape", GEOMETRY_SHAPES)

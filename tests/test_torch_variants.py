@@ -51,15 +51,16 @@ def test_every_jax_variant_has_a_kernel(monkeypatch, value):
     """Each variant the JAX selector names has a kernel in the port, and a
     Solver built under it carries it.  The port's launch takes
     pallas_planes() where the JAX wrapper reads it (``_planes_env``), except
-    v6, v4 and v9: the JAX v6 uses the chunk only to size its VMEM slabs,
-    and the port's v6, v4 and v9 run tiles whose ring depth is fixed at
-    compile time, with no chunk."""
+    v6, v4, v8 and v9: the JAX v6 uses the chunk only to size its VMEM
+    slabs, and the port's v6, v4, v8 and v9 run tiles whose ring depth is
+    fixed at compile time, with no chunk."""
     monkeypatch.setenv("PCG_TPU_PALLAS_V", value)
     name, fn = jax_pallas.selected_variant()
     assert name in smv.VARIANTS
     reads_planes = fn.__qualname__.startswith("_planes_env.")
     assert smv.VARIANTS[name][1] == (reads_planes
-                                     and name not in ("v6", "v4", "v9"))
+                                     and name not in ("v6", "v4", "v8",
+                                                      "v9"))
     s = Solver(make_cube_model(4, 3, 3), RunConfig(), device="cpu")
     assert s.kernel_variant == name
 

@@ -1,18 +1,22 @@
 """Helpers of the kernel comparison tools (tools/v4_kernel_compare.py,
 tools/v5_kernel_compare.py, tools/v6_kernel_compare.py,
-tools/v9_kernel_compare.py, tools/v2v3_kernel_compare.py): build a kernel
-source with nvcc under other flags, load a build's C entry points, time a
-launch with CUDA events, count a build's SASS instructions (whole kernels
-or their hottest loop), run the SM throughput probe (tools/smem_probe.cu)
-and read the card's name and power limit."""
+tools/v9_kernel_compare.py, tools/v2v3_kernel_compare.py,
+tools/v7v8_kernel_compare.py): build a kernel source with nvcc under
+other flags, load a build's C entry points, time a launch with CUDA
+events, count a build's SASS instructions (whole kernels or their hottest
+loop), run the SM throughput probe (tools/smem_probe.cu), solve the
+flagship under chosen variants and read the card's name and power
+limit."""
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import os
 import re
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -207,3 +211,41 @@ def smem_probe(torch, sms: int, out_dir: Path, modes=PROBE_MODES) -> dict:
     print(f"probe, SM cycles a warp instruction: "
           f"{ {k: round(v, 3) for k, v in costs.items()} }")
     return costs
+
+
+def flagship(torch, variants) -> None:
+    """The 150^3 mixed solve of chip_smoke.py under each of ``variants`` in
+    turn, each with flag, iterations, relres, inner cycles, ms/iter and
+    launch counts."""
+    import chip_smoke
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    kw = dict(chip_smoke.FLAGSHIP)
+    model = make_cube_model(kw.pop("nx"), **kw)
+    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
+    for variant in variants:
+        os.environ["PCG_TPU_PALLAS_V"] = variant.removeprefix("v")
+        try:
+            solver = Solver(model, cfg)
+        finally:
+            del os.environ["PCG_TPU_PALLAS_V"]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with chip_smoke.inner_cycles() as cycles:
+            results = solver.solve()
+        total = time.perf_counter() - t0
+        res = results[-1]
+        wall = sum(r.wall_s for r in results)
+        iters = sum(r.iters for r in results)
+        print(f"flagship {variant}: flag {res.flag}, iterations {res.iters}, "
+              f"relres {res.relres:.4e}, inner cycles {cycles}, solve wall "
+              f"{wall:.3f} s ({total:.3f} s around solve()), "
+              f"{wall / iters * 1e3:.4f} ms/iter; launches "
+              f"{ {f'{v} {d}': n for (v, d), n in LAUNCHES.items() if n} }")
+        del solver
+        torch.cuda.empty_cache()

@@ -60,10 +60,8 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
-import os
 import re
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,7 +69,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from kernel_builds import (  # noqa: E402
-    build, load, loop_body, mix_line, nvidia_smi, opcode_counts,
+    build, flagship, load, loop_body, mix_line, nvidia_smi, opcode_counts,
     sass_functions, shared_widths, smem_probe, time_ms)
 
 OUT = ROOT / "build" / "v2v3_compare"
@@ -260,7 +258,7 @@ def main() -> int:
         parent(torch, np, args.parent, sms)
     smem_probe(torch, sms, OUT, PROBE)
     if args.flagship:
-        flagship(torch)
+        flagship(torch, ("v2", "v3", "v6"))
     print(nvidia_smi())
     return 0
 
@@ -343,42 +341,6 @@ def parent(torch, np, csrc: Path, sms: int) -> None:
             verdict = f"DIFFERENT at {bad}" if bad \
                 else f"same at all {len(vs)} shapes"
             print(f"parent bits {v} {sfx}{at}: {verdict}")
-        torch.cuda.empty_cache()
-
-
-def flagship(torch) -> None:
-    """The 150^3 mixed solve of chip_smoke.py under v2, v3, then v6."""
-    import chip_smoke
-    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
-    from pcg_mpi_solver_tpu_torch.models import make_cube_model
-    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        LAUNCHES, reset_launch_counts)
-    from pcg_mpi_solver_tpu_torch.solver import Solver
-
-    kw = dict(chip_smoke.FLAGSHIP)
-    model = make_cube_model(kw.pop("nx"), **kw)
-    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
-    for variant in ("v2", "v3", "v6"):
-        os.environ["PCG_TPU_PALLAS_V"] = variant.removeprefix("v")
-        try:
-            solver = Solver(model, cfg)
-        finally:
-            del os.environ["PCG_TPU_PALLAS_V"]
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        with chip_smoke.inner_cycles() as cycles:
-            results = solver.solve()
-        total = time.perf_counter() - t0
-        res = results[-1]
-        wall = sum(r.wall_s for r in results)
-        iters = sum(r.iters for r in results)
-        print(f"flagship {variant}: flag {res.flag}, iterations {res.iters}, "
-              f"relres {res.relres:.4e}, inner cycles {cycles}, solve wall "
-              f"{wall:.3f} s ({total:.3f} s around solve()), "
-              f"{wall / iters * 1e3:.4f} ms/iter; launches "
-              f"{ {f'{v} {d}': n for (v, d), n in LAUNCHES.items() if n} }")
-        del solver
         torch.cuda.empty_cache()
 
 
