@@ -18,13 +18,12 @@ Phases (any failed check raises, so the script exits non-zero):
                 launches bitwise equal, with CUDA-event times and the
                 card's bound (bytes, CUDA-core and tensor-core terms); the
                 chunked variants (v3, v5, v7) also at 16 planes a
-                chunk; v6 in both dtypes, v4, v2 and v8
-                (float32 on v6's tile kernel, v8 on its split-phase
-                schedule and 24-row tile), v5, v3 and v7 (the node-owned
-                gather, at 8 and 16 planes) and v9 also on a single cell
-                and on shapes that cross their strip, tile and segment
-                edges, each with its launch geometry; v2 and v8 give v6
-                float's bits and v3 and v7 v5's at every shape both run;
+                chunk; v6 in both dtypes, v4, v2 and v8 (float32 on
+                v6's tiles), v5, v3 and v7 (the node-owned gather, at 8
+                and 16 planes) and v9 also on a single cell and on shapes
+                that cross their strip, tile and segment edges, each with
+                its launch geometry; v2 and v8 give v6 float's bits and
+                v3 and v7 v5's at every shape both run;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
@@ -67,7 +66,7 @@ JAX_FLAGSHIP_ITERS = 3334
 
 KERNEL_TOL = {"float32": 2e-5, "float64": 1e-12}   # x max|y_plain|
 # phase 3 also holds v6 (both dtypes), v4, v2 and v8 (float32, on v6's
-# tile kernel) at these: a single cell, and shapes whose ny+1 and nz+1
+# tiles) at these: a single cell, and shapes whose ny+1 and nz+1
 # cross several of their (y, z) tiles without filling the last and whose
 # nx+1 spans several x segments, one of them two parts
 V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
@@ -86,8 +85,7 @@ EDGE_SHAPES = {"v6": V6_EDGE_SHAPES, "v4": V6_EDGE_SHAPES,
                "v5": V5_EDGE_SHAPES, "v3": V5_EDGE_SHAPES,
                "v7": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}
 # variants that run another's kernel from a library of their own and give
-# its bits: v2 runs v6 float's tile kernel, v8 the same on its split-phase
-# schedule (the same cell chains and node sums), v3 and v7 v5's gather
+# its bits: v2 and v8 run v6 float's tile kernel, v3 and v7 v5's gather
 SAME_BITS = (("v2", "v6"), ("v8", "v6"), ("v3", "v5"), ("v7", "v5"))
 # The float32 kernels, v6 (the default) first, and the JAX wrapper each
 # replaces; float64 runs v6's double kernel under every variant.
@@ -238,11 +236,11 @@ def phase_kernels(torch, np, rates):
                     and min(geo.n_ty, geo.n_tz, geo.n_seg) < 2:
                 raise AssertionError(f"{shape} {name} crosses no v6 tile "
                                      f"or segment edge: {geo}")
-            for tv in ("v4", "v2"):
+            for tv in ("v4", "v2", "v8"):
                 if tv not in variants:
                     continue
-                # v4 and v2 launch v6 float's tiles from libraries of their
-                # own
+                # v4, v2 and v8 launch v6 float's tiles from libraries of
+                # their own
                 tv_smem = getattr(_library(tv),
                                   f"{VARIANTS[tv][0]}_smem_bytes")(
                     x.element_size())
@@ -271,19 +269,6 @@ def phase_kernels(torch, np, rates):
                         f"{g5.rows}x32 nodes, {g5.n_seg} segments of "
                         f"{g5.seg_len} planes, {g5.blocks} blocks of "
                         f"{g5.threads} threads, {g5.smem_bytes} B shared")
-            if "v8" in variants:
-                g8 = v6_geometry(P, nx, ny, nz, dtype, sms=sms,
-                                 variant="v8")
-                if shape in V6_EDGE_SHAPES and shape != (1, 1, 1, 1) \
-                        and min(g8.n_ty, g8.n_tz, g8.n_seg) < 2:
-                    raise AssertionError(f"{shape} crosses no v8 tile or "
-                                         f"segment edge: {g8}")
-                v8_smem = _library("v8").structured_matvec_v8_smem_bytes(
-                    x.element_size())
-                say(f"  v8: tiles {g8.n_ty}x{g8.n_tz} of "
-                    f"{g8.tile_nodes[0]}x{g8.tile_nodes[1]} nodes, "
-                    f"{g8.n_seg} segments of {g8.seg_len} planes, "
-                    f"{g8.blocks} blocks, {v8_smem} B shared")
             if "v9" in variants:
                 g9 = v9_geometry(P, nx, ny, nz, sms=sms)
                 lib_smem = _library("v9").structured_matvec_v9_smem_bytes()

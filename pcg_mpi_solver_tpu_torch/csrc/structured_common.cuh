@@ -57,11 +57,8 @@ int stage(const T& symbol, const void* ke, int device, void* stream) {
   return static_cast<int>(cudaStreamSynchronize(s));
 }
 
-// The shared memory a Hopper block can have: 227 KB; an SM has 228 KB
-// for its blocks, and the runtime reserves 1 KB of it a block.
+// The shared memory a Hopper block can have: 227 KB.
 constexpr size_t kMaxSmemBytes = 232448;
-constexpr size_t kSmSmemBytes = 233472;
-constexpr size_t kSmemReserved = 1024;
 
 // Sets a kernel's dynamic shared memory to `bytes` (needed above 48 KB) or
 // refuses a size above kMaxSmemBytes.

@@ -91,11 +91,10 @@
 // (float) + the copy table: 195,416 bytes (float) and 98,392 (double),
 // fixed at compile time and held below a block's 227 KB there.  The
 // kernel, its launch, smv::Layout and both products live in
-// structured_tiles.cuh, shared with v4 and v2 (structured_matvec_v4.cu,
-// _v2.cu: v6's float kernel in libraries of their own) and v8
-// (structured_matvec_v8.cu: the same kernel on a split-phase plane
-// schedule and a 24-row tile).  The wrapper knows only the tile shape and
-// the blocks an SM holds.
+// structured_tiles.cuh, shared with v4, v2 and v8
+// (structured_matvec_v4.cu, _v2.cu, _v8.cu: v6's float kernel in
+// libraries of their own).  The wrapper knows only the tile shape and the
+// blocks an SM holds.
 //
 // Ke is staged into the constant bank by its own entry point, once per Ke:
 // the wrapper (ops/structured_matvec.py) restages only when it is handed

@@ -1,6 +1,6 @@
-// Structured-slab block-stencil matvec for Hopper (sm_90a), float: v6
-// float's tile kernel (structured_tiles.cuh) on a split-phase plane
-// schedule, one barrier a plane.
+// Structured-slab block-stencil matvec for Hopper (sm_90a), float: v6's
+// float kernel (structured_tiles.cuh: v6 float's cell-centred tiles and
+// FFMA cell product) in a library of its own.
 //
 // Replaces pcg_mpi_solver_tpu/ops/pallas_matvec.py::structured_matvec_pallas_v8
 // (kernel _matvec_kernel_v8), which the JAX package's structured backend
@@ -16,54 +16,39 @@
 // flagship 150^3 slab the bytes (x and y once per node, ck once per cell:
 // 96.13 MB) take 28.7 us at 3.35 TB/s, the bound of any float-accurate
 // kernel.  The FMAs of the cells (3.888 GFLOP) take 58.0 us on the CUDA
-// cores at 67 TFLOP/s, 69 us at the 1.19x cells of these tiles at 150^3.
+// cores at 67 TFLOP/s, 66 us at the 1.14x cells of these tiles at 150^3.
 //
 // How the TPU kernel maps onto this one: it is v6's kernel with the plane
 // loop made a grid axis, so that its compiler keeps one plane's
 // temporaries live instead of a chunk's, and the output block stays
 // resident across a chunk's planes.  On Hopper the plane loop is already
-// a loop inside the block (v6's tiles march x segments with the carry in
-// registers, structured_matvec.cu's note), so v8 keeps v6's tile
-// machinery - the cp.async ring of node and ck planes, the copy table,
-// the x march, the segment's recomputed first plane, smv::FfmaProduct's
-// FFMA chains and the b-ordered placement - and changes only the plane
-// schedule.  v6 runs each plane as wait, barrier, product (FFMAs), barrier,
-// placement (shared-memory loads and stores): no warp starts a placement
-// before every warp ends its product, and nothing else on the SM (one
-// block an SM) fills the drain of either barrier.  Here the products go
-// into two buffers: step k computes plane k's products into fs[k % 2],
-// then places plane k - 1 from fs[(k - 1) % 2], with one barrier a step,
-// so a warp that ends its FFMAs goes on to loads and stores while other
-// warps still run FFMAs (structured_tiles.cuh holds the schedule and the
-// hazards it keeps apart).  Each cell's FFMA chain and each node's sum
-// are v6's, so v8 gives v6 float's bits, and a time against the same
-// tile on v6's schedule tests the schedule alone.
+// a loop inside the block: v6's tiles march x segments with the carry in
+// registers and node and ck planes staged by cp.async in a ring of fixed
+// depth (structured_matvec.cu's note), so v8 is that kernel, and gives v6
+// float's bits.  PCG_TPU_PALLAS_PLANES, the TPU kernel's chunk, does not
+// apply.
 //
-// What the card showed (tools/v7v8_kernel_compare.py, PERF.md, Findings):
-// the hypothesis behind the schedule does not hold.  A clock64 probe of
-// v6 float at 150^3 puts 0.3 % of its warp-cycles in its two barriers and
-// ring waits (the product 73 %, the copies' issue 12.5 %, the placement
-// 12.6 %): all warps run the same work on shared pipes and reach each
-// barrier together, so there is no drain to fill.  On this tile the
-// split schedule runs at the time of v6's schedule (0.2116 against 0.2110
-// ms), 14 % slower than v6 float's 32-row tile (0.1852 ms: one wave of
-// blocks, 5 % fewer cells) and 28 % faster than the kernel it replaced
-// (0.2931).  No height does better with two buffers (16 rows 0.2424, 12
-// rows 0.2153, 8 rows 0.2425), so v8 keeps 24.
+// A split-phase plane schedule on these tiles (two product buffers, the
+// product of plane k beside the placement of plane k - 1, one barrier a
+// plane) was built and measured first, on a 24 x 32-cell tile, since two
+// buffers do not fit v6's: it ran at the time of v6's schedule on that
+// tile and 14 % slower than v6's 32-row tile.  A clock64 probe of v6 float
+// at 150^3 (the SMV_PHASE hooks of structured_tiles.cuh) puts 0.3 % of
+// its warp-cycles in its two barriers and ring waits: every warp runs the
+// same work and reaches each barrier with the others, so there is no
+// drain for a split schedule to fill.  PERF.md, Findings, holds the times
+// and names the commit that holds that source.
 //
-// Tile: two product buffers do not fit v6's 32 x 32 cells (about 295 KB),
-// so v8's tile is 24 x 32 cells (smv::Layout<float, 24, 2>: 12 warps, 384
-// threads, one block an SM, ring depth 3, 221,976 bytes of shared memory);
-// ops/structured_matvec.py's TILES holds its shape for the launch
-// geometry, and a grid that is not this tile is refused.  The TPU kernel's
-// chunk (PCG_TPU_PALLAS_PLANES) does not apply.
-//
-// What the kernel this one replaced (a thread a cell of 8 x 32
-// cell tiles) spent and this one does not: a chunk's planes loaded by
-// plain loads with div/mod index math into one buffer, then a barrier (no
+// What the kernel this one replaced (a thread a cell of 8 x 32 cell
+// tiles) spent and this one does not: a chunk's planes loaded by plain
+// loads with div/mod index math into one buffer, then a barrier (no
 // overlap of copy and compute); eight read-modify-write placement passes
 // a plane into a shared output block, each behind a barrier; one FMA a Ke
 // value; 1.18x the product's FMAs on 8 x 32 tiles; 20 bytes spilled.
+// Tile: smv::Layout<float>, v6 float's 32 x 32 cells, 512 threads, one
+// block an SM, ring depth 3 (ops/structured_matvec.py's float32 entries of
+// V6_CELLS_Y and V6_BLOCKS_PER_SM); a grid that is not this tile is
+// refused.
 //
 // Ke is staged into this library's constant bank as float by its own
 // entry point (the wrapper restages only for another Ke or one changed in
@@ -83,17 +68,7 @@ struct KeV8 {
   __device__ static float at(int i) { return ke_v8[i]; }
 };
 
-// 24 x 32 cells, two product buffers: the split-phase schedule.
-// tools/v7v8_kernel_compare.py --sweep builds other tile heights, and one
-// buffer (v6's schedule on this tile), to time them against these.
-#ifndef V8_CELLS_Y
-#define V8_CELLS_Y 24
-#endif
-#ifndef V8_FS_BUFFERS
-#define V8_FS_BUFFERS 2
-#endif
-using Tile = smv::Layout<float, V8_CELLS_Y, V8_FS_BUFFERS>;
-using Product = smv::FfmaProduct<KeV8, Tile>;
+using Product = smv::FfmaProduct<KeV8>;
 
 }  // namespace
 
@@ -102,9 +77,8 @@ using Product = smv::FfmaProduct<KeV8, Tile>;
 // (P,3,nx+1,ny+1,nz+1) and ck (P,nx,ny,nz), contiguous float device
 // buffers, and writes y, allocated by the caller with x's shape, using the
 // Ke staged last; the launch geometry (seg_len, n_ty, n_tz, n_seg) comes
-// from ops/structured_matvec.py::v6_geometry at v8's tile, and a grid that
-// is not this library's tile is refused.  Each returns the CUDA error code
-// of its copy or launch (0 = done / launched).
+// from ops/structured_matvec.py::v6_geometry, as v6 float's.  Each
+// returns the CUDA error code of its copy or launch (0 = done / launched).
 extern "C" int structured_matvec_v8_stage_f32(const void* ke, int device,
                                               void* stream) {
   return smv::stage(ke_v8, ke, device, stream);
@@ -120,9 +94,12 @@ extern "C" int structured_matvec_v8_f32(const void* x, const void* ck,
 }
 
 // The dynamic shared memory of a block of itemsize 4 (float; 0 for
-// another itemsize: v8 has no other kernel), for reports.
+// another itemsize: v8 has no other kernel), for reports (chip_smoke.py
+// checks it against v6's).
 extern "C" long long structured_matvec_v8_smem_bytes(int itemsize) {
-  return itemsize == 4 ? static_cast<long long>(Tile::kSmemBytes) : 0;
+  return itemsize == 4
+             ? static_cast<long long>(smv::Layout<float>::kSmemBytes)
+             : 0;
 }
 
 SMV_ERROR_STRING(structured_matvec_v8)

@@ -4,14 +4,11 @@
 // structured_matvec_v8.cu (v8, float): (y, z) node tiles marching x
 // segments, node and ck planes staged in a cp.async ring, a cell product
 // chosen at compile time, placement through shared memory.
-// structured_matvec.cu's note says how the tiles work and why;
-// structured_matvec_v8.cu's note says why v8 runs them split-phase.  This
-// header holds the layout (a dtype, a tile height and one or two product
-// buffers), the kernel with both plane schedules, its launch, the two
-// cell products, FFMA (float) and DMMA (double), and the phase probe of
+// structured_matvec.cu's note says how the tiles work and why; this header
+// holds the layout of each dtype, the kernel, its launch, the two cell
+// products, FFMA (float) and DMMA (double), and the phase probe of
 // tools/v7v8_kernel_compare.py.  A source chooses a product, with its
-// constant bank of Ke and its layout, and launches it through
-// launch_on<Product>.
+// constant bank of Ke, and launches it through launch_on<Product>.
 
 #pragma once
 
@@ -38,23 +35,19 @@ __host__ __device__ constexpr int pad_to(int n, int rem, int mod) {
   return n + ((rem - n % mod) % mod + mod) % mod;
 }
 
-// The tile and shared-memory layout of a dtype, a tile height CellsY and
-// FsBuffers product buffers (the tile shape and blocks an SM are also
-// ops/structured_matvec.py's TILES).  One buffer runs v6's schedule (two
-// barriers a plane), two the split-phase schedule (one barrier a plane:
-// the product of plane k beside the placement of plane k - 1).  kWords
-// values of T fill one pass of the 32 four-byte banks; the pads serve the
-// double's fragments.
-template <typename T, int CellsY = (sizeof(T) == 4 ? 32 : 8),
-          int FsBuffers = 1>
+// The tile and shared-memory layout of one dtype (the tile shape and
+// blocks an SM are also ops/structured_matvec.py's V6_CELLS_Y/Z and
+// V6_BLOCKS_PER_SM).  kWords values of T fill one pass of the 32 four-byte
+// banks; the pads serve the double's fragments.
+template <typename T>
 struct Layout {
-  // float: two cell rows a warp (v6 32 x 32 cells, 512 threads, one block
-  // an SM: 1.14x the cells of the nodes at 150^3); double: 256 threads,
-  // two blocks an SM, 8 x 32 (kMinBlocks below)
+  // float: 512 threads, one block an SM, 32 x 32 cells (1.14x the cells
+  // of the nodes at 150^3); double: 256 threads, two blocks an SM, 8 x 32
   static constexpr bool kFloat = sizeof(T) == 4;
-  static constexpr int kCy = CellsY;                      // cells a tile col
-  static constexpr int kThreads = kFloat ? 16 * kCy : 256;
+  static constexpr int kThreads = kFloat ? 512 : 256;
   static constexpr int kWarps = kThreads / 32;
+  static constexpr int kMinBlocks = kFloat ? 1 : 2;       // an SM
+  static constexpr int kCy = kFloat ? 32 : 8;             // cells a tile col
   static constexpr int kWords = 128 / sizeof(T);
   // node slot [c][yy][zz]: rows kWords/4 apart mod kWords, the dx = 1
   // slot kWords/2 from the dx = 0 one
@@ -64,7 +57,6 @@ struct Layout {
   static constexpr int kCk = kCy * kCellsZ;        // ck plane [cy][cz]
   // F [dof][cell]: dofs 2t and 2t' land kWords/4 apart
   static constexpr int kF = pad_to(kCk, kWords / 8, kWords / 2);
-  static constexpr int kFsBuffers = FsBuffers;
   static constexpr int kRowsPerWarp = kCy / kWarps;        // owned rows
   static constexpr int kKe = kFloat ? 24 * 24 : 0;        // Ke, float
   // the copies of one plane: node values, then ck values
@@ -72,24 +64,17 @@ struct Layout {
   static constexpr int kCopies = kNodeCopies + kCk;
   static constexpr int kStages = kFloat ? V6_STAGES_F32 : V6_STAGES_F64;
   static_assert(kStages >= 2, "the ring holds node planes k and k+1");
-  static_assert(kFsBuffers == 1 || kFsBuffers == 2, "one or two F buffers");
   // dynamic shared memory: the ring, fs, Ke (float) and the copy table
   static constexpr size_t kSmemBytes =
       sizeof(T) * (static_cast<size_t>(kStages) * (kSlot + kCk) +
-                   24 * static_cast<size_t>(kFsBuffers) * kF + kKe) +
+                   24 * static_cast<size_t>(kF) + kKe) +
       sizeof(int2) * kCopies;
   static_assert(kSmemBytes <= kMaxSmemBytes,
                 "above the 227 KB of shared memory a block can have");
-  // blocks an SM (the kernel's __launch_bounds__ minimum): float as many
-  // as the SM's shared memory holds (one at v6's and v8's tiles), double 2
-  static constexpr int kMinBlocks =
-      kFloat ? static_cast<int>(kSmSmemBytes / (kSmemBytes + kSmemReserved))
-             : 2;
 };
 
-// The phases of a plane that the probe times, in the order a plane of
-// v6's schedule runs them (the split-phase schedule has no second
-// barrier), and the block's start (the copy table, Ke, the first copies).
+// The phases of a plane that the probe times, in the order a plane runs
+// them, and the block's start (the copy table, Ke, the first copies).
 enum Phase {
   kPrologue, kIssue, kWait, kBarrier, kProduct, kBarrier2, kPlace, kPhases
 };
@@ -146,8 +131,7 @@ __device__ __forceinline__ void mma(double (&d)[4], const double (&a)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-// The cell product as unrolled FFMAs on the CUDA cores, float only, on
-// the tile of a float Layout (v6's by default):
+// The cell product as unrolled FFMAs on the CUDA cores, float only:
 // fs[d][cell] = ck[cell] * sum_e Ke[d][e] . u[cell][e], u gathered from the
 // node planes n0 (dx = 0) and n1 (dx = 1), ck from the ck plane ckk, each
 // result summed and scaled in float.  A thread computes the two cells
@@ -159,9 +143,9 @@ __device__ __forceinline__ void mma(double (&d)[4], const double (&a)[4],
 // instead, ptxas loads Ke into uniform registers (a ULDC.64 every four
 // FFMAs, from a __constant__ bank and from a kernel parameter alike), and
 // the kernel ran 1.2 % slower (PERF.md, Findings).
-template <class Ke, class Tile = Layout<float>>
+template <class Ke>
 struct FfmaProduct {
-  using L = Tile;
+  using L = Layout<float>;
   using T = float;
   static_assert(L::kCy == 2 * L::kWarps, "two cells a thread");
   static_assert(L::kKe == 24 * 24, "Ke in shared memory");
@@ -294,8 +278,8 @@ structured_matvec_kernel(const typename Product::T* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const nodes = reinterpret_cast<T*>(smem_raw);   // [kStages][kSlot]
   T* const cks = nodes + kStages * L::kSlot;         // [kStages][kCk]
-  T* const fs = cks + kStages * L::kCk;         // [kFsBuffers][24][kF]
-  T* const ke_s = fs + L::kFsBuffers * 24 * L::kF;   // [kKe]
+  T* const fs = cks + kStages * L::kCk;              // [24][kF]
+  T* const ke_s = fs + 24 * L::kF;                   // [kKe]
   int2* const table = reinterpret_cast<int2*>(ke_s + L::kKe);  // [kCopies]
 
   const int nxn = nx + 1, nyn = ny + 1, nzn = nz + 1;
@@ -382,11 +366,28 @@ structured_matvec_kernel(const typename Product::T* __restrict__ x,
 #pragma unroll
     for (int c = 0; c < 3; ++c) carry[jr][c] = T(0);
 
-  // placement of cell plane x0-1+k's products f: node plane x0-1+k gets
-  // the carry plus its dx = 0 corners, summed in b order; the dx = 1
-  // corners start the next plane's carry.  A segment's first plane only
-  // makes the carry.
-  auto place = [&](int k, const T* f) {
+  for (int j = 0; j < kStages - 1; ++j) issue(j);
+  SMV_PHASE(kPrologue);
+  for (int k = 0; k < n_steps; ++k) {
+    // slot (k-1) % kStages was last read before the previous step's second
+    // barrier
+    issue(k + kStages - 1);
+    SMV_PHASE(kIssue);
+    wait_copies<kStages - 2>();            // node planes k, k+1, ck plane k
+    SMV_PHASE(kWait);
+    __syncthreads();
+    SMV_PHASE(kBarrier);
+
+    // 1. the cell products of cell plane x0-1+k, scaled by ck, into fs
+    prod.plane(nodes + (k % kStages) * L::kSlot,
+               nodes + ((k + 1) % kStages) * L::kSlot,
+               cks + (k % kStages) * L::kCk, fs, warp, lane);
+    SMV_PHASE(kProduct);
+    __syncthreads();
+    SMV_PHASE(kBarrier2);
+
+    // 2. placement: node plane x0-1+k gets the carry plus its dx = 0
+    // corners; the dx = 1 corners start the next plane's carry
     const int i = x0 - 1 + k;
     const int zz = 1 + lane, gz = iz0 + lane;
 #pragma unroll
@@ -399,8 +400,8 @@ structured_matvec_kernel(const typename Product::T* __restrict__ x,
         T out = carry[jr][c], next = T(0);
 #pragma unroll
         for (int b = 0; b < 8; ++b) {
-          const T v = f[(3 * b + c) * L::kF +
-                        (yy - corner_y(b)) * kCellsZ + zz - corner_z(b)];
+          const T v = fs[(3 * b + c) * L::kF +
+                         (yy - corner_y(b)) * kCellsZ + zz - corner_z(b)];
           if (corner_x(b)) {
             next += v;
           } else {
@@ -413,65 +414,7 @@ structured_matvec_kernel(const typename Product::T* __restrict__ x,
         carry[jr][c] = next;
       }
     }
-  };
-
-  for (int j = 0; j < kStages - 1; ++j) issue(j);
-  SMV_PHASE(kPrologue);
-  if constexpr (L::kFsBuffers == 1) {
-    // v6's schedule: a plane's product, a barrier, its placement
-    for (int k = 0; k < n_steps; ++k) {
-      // slot (k-1) % kStages was last read before the previous step's
-      // second barrier
-      issue(k + kStages - 1);
-      SMV_PHASE(kIssue);
-      wait_copies<kStages - 2>();          // node planes k, k+1, ck plane k
-      SMV_PHASE(kWait);
-      __syncthreads();
-      SMV_PHASE(kBarrier);
-      // the cell products of cell plane x0-1+k, scaled by ck, into fs
-      prod.plane(nodes + (k % kStages) * L::kSlot,
-                 nodes + ((k + 1) % kStages) * L::kSlot,
-                 cks + (k % kStages) * L::kCk, fs, warp, lane);
-      SMV_PHASE(kProduct);
-      __syncthreads();
-      SMV_PHASE(kBarrier2);
-      place(k, fs);
-      SMV_PHASE(kPlace);
-    }
-  } else {
-    // The split-phase schedule: step k computes the products of cell plane
-    // k into fs[k % 2], then places plane k - 1 from fs[(k - 1) % 2], with
-    // one barrier a step, so a warp's placement runs beside other warps'
-    // products.  One barrier separates each write from the reads it could
-    // clobber:
-    //  - product(k + 1) overwrites fs[(k - 1) % 2], which placement(k - 1)
-    //    read in step k: barrier k + 1 lies between;
-    //  - issue(k + kStages - 1) overwrites ring slot (k - 1) % kStages,
-    //    which product(k - 1) read in step k - 1: it is issued after
-    //    barrier k;
-    //  - placement(k - 1) reads fs[(k - 1) % 2], written by product(k - 1)
-    //    before barrier k.
-    // Step n_steps only drains the last placement.
-    static_assert(L::kStages >= 3, "planes k, k+1 and the one in flight");
-    constexpr int kFs = 24 * L::kF;
-    for (int k = 0; k <= n_steps; ++k) {
-      // node planes k, k+1 and ck plane k, issued before the last barrier
-      wait_copies<kStages - 3>();
-      SMV_PHASE(kWait);
-      __syncthreads();
-      SMV_PHASE(kBarrier);
-      issue(k + kStages - 1);
-      SMV_PHASE(kIssue);
-      if (k < n_steps) {
-        prod.plane(nodes + (k % kStages) * L::kSlot,
-                   nodes + ((k + 1) % kStages) * L::kSlot,
-                   cks + (k % kStages) * L::kCk, fs + (k & 1) * kFs, warp,
-                   lane);
-      }
-      SMV_PHASE(kProduct);
-      if (k > 0) place(k - 1, fs + ((k - 1) & 1) * kFs);
-      SMV_PHASE(kPlace);
-    }
+    SMV_PHASE(kPlace);
   }
   SMV_PHASE_END(L::kWarps, warp, lane);
 }

@@ -29,12 +29,11 @@ of the JAX package, one slab per part.
   of eight zero-padded translates.  The CPU tests hold it against the JAX
   package and its Pallas kernels, and ``chip_smoke.py`` holds each kernel
   against it on the card.
-- :func:`v6_geometry` is the launch grid of the kernels on v6's tile
-  kernel (v6 in both dtypes; v4 and v2, each v6's float kernel in a
-  library of its own; v8, the same kernel on a split-phase schedule and a
-  shorter tile): their (y, z) tiles (:data:`TILES`) and the x segments
-  that fill the card; the CPU tests check it, the wrapper passes it to
-  the kernel.  The kernels' shared-memory layout is their own
+- :func:`v6_geometry` is the launch grid of the kernels on v6's tiles
+  (v6 in both dtypes, and v4, v2 and v8, each v6's float kernel in a
+  library of its own): their (y, z) tiles and the x segments that fill
+  the card; the CPU tests check it, the wrapper passes it to the kernel.
+  The kernels' shared-memory layout is their own
   (``csrc/structured_tiles.cuh``, ``Layout``).
   :func:`v5_geometry` is the same for the node-owned gather of v5, v3
   and v7 (``csrc/structured_gather.cuh``), whose tile height depends on
@@ -127,22 +126,18 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-# The tiles of the kernels on v6's tile kernel, by variant and dtype, as
-# each library compiles csrc/structured_tiles.cuh's smv::Layout<T, CellsY>:
-# (cells a tile column, blocks an SM).  A block computes CellsY x
+# The tile shape of the kernels on v6's tiles, as csrc/structured_tiles.cuh
+# compiles it (smv::Layout<T>): a block computes V6_CELLS_Y[dtype] x
 # V6_CELLS_Z cells a plane and owns the nodes inside them, (cells - 1) in
-# each axis; an SM holds the blocks (the kernel's __launch_bounds__
-# minimum, which its shared memory also allows).  v4 and v2 compile v6
-# float's tile; v8's two product buffers fit only a shorter one.  A launch
-# whose grid does not match the library's tile is refused.
+# each axis; an SM holds V6_BLOCKS_PER_SM[dtype] blocks (the kernel's
+# __launch_bounds__ minimum, which its shared memory also allows).  A
+# launch whose grid does not match the library's tile is refused.
+V6_CELLS_Y = {torch.float32: 32, torch.float64: 8}
 V6_CELLS_Z = 32
-TILES = {"v6": {torch.float32: (32, 1), torch.float64: (8, 2)},
-         "v4": {torch.float32: (32, 1)},
-         "v2": {torch.float32: (32, 1)},
-         "v8": {torch.float32: (24, 1)}}
+V6_BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 2}
 # the variants whose launch takes v6_geometry (v6's tile kernel) and
 # v5_geometry (the node-owned gather)
-TILED = tuple(TILES)
+TILED = ("v6", "v4", "v2", "v8")
 GATHER = ("v5", "v3", "v7")
 H100_SMS = 132
 
@@ -178,21 +173,21 @@ class V6Geometry:
 
 @functools.lru_cache(maxsize=256)
 def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
-                sms: int = H100_SMS, variant: str = "v6") -> V6Geometry:
-    """Launch geometry of ``variant``'s kernel on v6's tile kernel (v6 in
-    ``dtype``, v4, v2 and v8 in float32) for a (parts, nx, ny, nz) slab,
-    at its tile in :data:`TILES`.
+                sms: int = H100_SMS) -> V6Geometry:
+    """Launch geometry of the kernels on v6's tiles (v6 in ``dtype``, v4,
+    v2 and v8 in float32) for a (parts, nx, ny, nz) slab.
 
     The x segment length minimises waves x (seg_len + 3), a wave being the
     blocks the card holds at once (``sms`` x the blocks an SM holds): the
     planes of the longest chain of blocks on one SM, each segment's
     recomputed carry plane and two planes of ring fill included; ties go
     to fewer segments."""
-    cy, per_sm = TILES[variant][dtype]
+    cy = V6_CELLS_Y[dtype]
     tile = (cy - 1, V6_CELLS_Z - 1)
     n_ty, n_tz = -(-(ny + 1) // tile[0]), -(-(nz + 1) // tile[1])
     tiles = parts * n_ty * n_tz
-    seg_len, n_seg = _segments(nx + 1, tiles, sms * per_sm, 3)
+    seg_len, n_seg = _segments(nx + 1, tiles, sms * V6_BLOCKS_PER_SM[dtype],
+                               3)
     return V6Geometry(tile, n_ty, n_tz, seg_len, n_seg, tiles * n_seg)
 
 
@@ -329,7 +324,7 @@ def launch_args(variant: str, parts: int, nx: int, ny: int, nz: int,
     seg_len, n_ty, n_tz, n_seg), v1 ().  ``planes`` None reads
     :func:`pallas_planes` where the variant takes it."""
     if variant in TILED:
-        g = v6_geometry(parts, nx, ny, nz, dtype, sms, variant)
+        g = v6_geometry(parts, nx, ny, nz, dtype, sms)
         return (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
     if variant == "v9":
         g = v9_geometry(parts, nx, ny, nz, sms)

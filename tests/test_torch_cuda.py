@@ -259,9 +259,8 @@ def test_v4_kernel_across_tile_and_segment_edges(cuda_device, P, cells):
         == "invalid argument"
 
 
-# v2 runs v6 float's tile kernel, v8 the same kernel on a split-phase
-# schedule and a 24-row tile, v3 and v7 v5's node-owned gather, each from a
-# library of its own: each gives the bits of the kernel it shares, at the
+# v2 and v8 run v6 float's tile kernel, v3 and v7 v5's node-owned gather,
+# each from a library of its own: each gives the bits of the kernel it shares, at the
 # shapes of test_variant_kernel_matches_plain_on_card and at that design's
 # edge shapes (V6_EDGE, V5_EDGE), v3 and v7 at 8 and 16 planes
 SAME_BITS = [("v2", "v6", None), ("v3", "v5", 8), ("v3", "v5", 16),
@@ -277,8 +276,7 @@ def test_variant_gives_the_bits_of_the_kernel_it_shares(cuda_device,
     """v2 and v8 give v6 float's bits, v3 and v7 v5's (two parts
     included); two launches of each are bitwise equal (no atomics), each
     counted once under its own name; the entry points of v2 and v8 refuse
-    a grid that is not their library's tile, as v4's does (v8's tile is not
-    v6's: v6's grid is refused too)."""
+    a grid that is not their library's tile, as v4's does."""
     rng = np.random.default_rng(7)
     Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
                          dtype=torch.float32, device=cuda_device)
@@ -299,21 +297,16 @@ def test_variant_gives_the_bits_of_the_kernel_it_shares(cuda_device,
         assert torch.equal(y, y2)
         assert torch.equal(y, y_like), (P, nx, ny, nz)
     if variant in smv.TILED:
-        g = smv.v6_geometry(P, nx, ny, nz, torch.float32, variant=variant)
-        g6 = smv.v6_geometry(P, nx, ny, nz, torch.float32)
-        bads = [(g.seg_len, g.n_ty + 1, g.n_tz, g.n_seg)]
-        if g6.n_ty != g.n_ty:
-            bads.append((g6.seg_len, g6.n_ty, g6.n_tz, g6.n_seg))
-        assert len(bads) == (2 if variant == "v8" else 1)
+        g = smv.v6_geometry(P, nx, ny, nz, torch.float32)
+        bad = (g.seg_len, g.n_ty + 1, g.n_tz, g.n_seg)
         name = smv.VARIANTS[variant][0]
         lib = smv._library(variant)
-        for bad in bads:
-            err = getattr(lib, f"{name}_f32")(
-                x.data_ptr(), ck.data_ptr(), y.data_ptr(), P, nx, ny, nz,
-                *bad, cuda_device.index or 0,
-                torch.cuda.current_stream(cuda_device).cuda_stream)
-            assert getattr(lib, f"{name}_error_string")(err).decode() \
-                == "invalid argument"
+        err = getattr(lib, f"{name}_f32")(
+            x.data_ptr(), ck.data_ptr(), y.data_ptr(), P, nx, ny, nz, *bad,
+            cuda_device.index or 0,
+            torch.cuda.current_stream(cuda_device).cuda_stream)
+        assert getattr(lib, f"{name}_error_string")(err).decode() \
+            == "invalid argument"
 
 
 # v9 at a single cell, at shapes that cross its warp strips, (y, z) tiles

@@ -183,18 +183,14 @@ GEOMETRY_SHAPES = [(1, 1, 1, 1), (1, 7, 3, 5), (2, 33, 17, 9),
                    (3, 12, 61, 30), (1, 150, 150, 150)]
 
 
-def check_tile_geometry(shape, dtype, variant="v6"):
-    """The launch geometry of a kernel on v6's tile kernel: its tile is the
-    library's (TILES), the (y, z) tiles own every node exactly once, the x
-    segments cover every node plane exactly once, and the blocks are parts
-    x tiles x segments; ``launch_args`` passes exactly this grid."""
+def check_tile_geometry(shape, dtype):
+    """The launch geometry of the kernels on v6's tiles: the (y, z) tiles
+    own every node exactly once, the x segments cover every node plane
+    exactly once, and the blocks are parts x tiles x segments."""
     P, nx, ny, nz = shape
-    g = smv.v6_geometry(P, nx, ny, nz, dtype, variant=variant)
+    g = smv.v6_geometry(P, nx, ny, nz, dtype)
     ty, tz = g.tile_nodes
-    assert (ty + 1, tz + 1) == (smv.TILES[variant][dtype][0],
-                                smv.V6_CELLS_Z)
-    assert smv.launch_args(variant, *shape, dtype) \
-        == (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
+    assert (ty + 1, tz + 1) == (smv.V6_CELLS_Y[dtype], smv.V6_CELLS_Z)
     for n_nodes, tile, n_tiles in ((ny + 1, ty, g.n_ty),
                                    (nz + 1, tz, g.n_tz),
                                    (nx + 1, g.seg_len, g.n_seg)):
@@ -222,14 +218,15 @@ def test_v4_geometry_covers_every_node_once(shape):
 
 @pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
 def test_v8_geometry_covers_every_node_once(shape):
-    """v8 runs v6's tile kernel on its own 24 x 32-cell tile
-    (check_tile_geometry at v8's entry of TILES), and its launch arguments
-    are that tile's grid whatever ``planes`` says: v8 takes no chunk."""
-    assert not smv.VARIANTS["v8"][1]
-    check_tile_geometry(shape, torch.float32, "v8")
-    assert smv.TILES["v8"][torch.float32] == (24, 1)
-    assert smv.launch_args("v8", *shape, torch.float32, 16) \
-        == smv.launch_args("v8", *shape, torch.float32, 8)
+    """v8 runs v6 float's tiles, as v4 and v2 do (check_tile_geometry), and
+    its launch arguments are that grid whatever ``planes`` says: v8 takes
+    no chunk."""
+    assert "v8" in smv.TILED and not smv.VARIANTS["v8"][1]
+    check_tile_geometry(shape, torch.float32)
+    g = smv.v6_geometry(*shape, torch.float32)
+    for planes in (8, 16):
+        assert smv.launch_args("v8", *shape, torch.float32, planes) \
+            == (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
 
 
 def test_v6_geometry_flagship_fills_the_card():
@@ -246,7 +243,7 @@ def test_v4_geometry_flagship_fills_the_card():
     wave is at least 3/4 full."""
     assert "v4" in smv.TILED
     g = smv.v6_geometry(1, 150, 150, 150, torch.float32)
-    per_sm = smv.TILES["v4"][torch.float32][1]
+    per_sm = smv.V6_BLOCKS_PER_SM[torch.float32]
     assert g.n_ty * g.n_tz < 0.9 * smv.H100_SMS * per_sm < g.blocks
     waves = g.blocks / (smv.H100_SMS * per_sm)
     assert waves / -(-g.blocks // (smv.H100_SMS * per_sm)) >= 0.75

@@ -4,13 +4,15 @@ tools/v9_kernel_compare.py, tools/v2v3_kernel_compare.py,
 tools/v7v8_kernel_compare.py): build a kernel source with nvcc under
 other flags, load a build's C entry points, time a launch with CUDA
 events, count a build's SASS instructions (whole kernels or their hottest
-loop), run the SM throughput probe (tools/smem_probe.cu), solve the
-flagship under chosen variants and read the card's name and power
+loop), run the SM throughput probe (tools/smem_probe.cu), hold kernels
+against the same kernels built from an earlier commit's sources, solve
+the flagship under chosen variants and read the card's name and power
 limit."""
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import os
 import re
@@ -211,6 +213,87 @@ def smem_probe(torch, sms: int, out_dir: Path, modes=PROBE_MODES) -> dict:
     print(f"probe, SM cycles a warp instruction: "
           f"{ {k: round(v, 3) for k, v in costs.items()} }")
     return costs
+
+
+def parent(torch, np, csrc: Path, variants, sms: int, out_dir: Path,
+           timed=(("v6", None),)) -> dict:
+    """Each of ``variants`` against the same kernel built from ``csrc`` (an
+    earlier commit's csrc directory, with this one's C interface): bits at
+    every shape chip_smoke.py holds it to (the chunked ones at 8 and 16
+    planes, v6 in both dtypes), and the float32 times at 150^3 of the
+    ``timed`` (variant, planes) in turns (parent, this, this, parent).
+    Returns {variant: the path of the parent's build}."""
+    import chip_smoke
+    from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
+    from pcg_mpi_solver_tpu_torch.ops import structured_matvec as smv
+
+    sources = {v: csrc / f"{smv.VARIANTS[v][0]}.cu" for v in variants}
+    dtypes = {v: ("f32", "f64") if v == smv.F64_VARIANT else ("f32",)
+              for v in variants}
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        jobs = {v: pool.submit(build, src, out_dir, f"parent_{v}")
+                for v, src in sources.items()}
+        paths = {v: job.result() for v, job in jobs.items()}
+    # the pointers, then (P, nx, ny, nz), the launch arguments, the device
+    libs = {v: load(paths[v], smv.VARIANTS[v][0], dtypes[v],
+                    5 + len(smv.launch_args(v, 1, 1, 1, 1, torch.float32,
+                                            8)))
+            for v in variants}
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(1)
+    Ke = unit_element_library(0.2)["Ke"]
+    shapes = chip_smoke.kernel_shapes()
+    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+        K = torch.as_tensor(Ke, dtype=dtype, device="cuda")
+        runs = [(v, pl) for v in variants
+                for pl in ((8, 16) if smv.VARIANTS[v][1] else (None,))
+                if sfx in dtypes[v]]
+        for v in dict(runs):
+            for h in (libs[v], smv._library(v)):
+                getattr(h, f"{smv.VARIANTS[v][0]}_stage_{sfx}")(
+                    K.data_ptr(), 0, stream)
+        verdicts = collections.defaultdict(list)
+        for shape in shapes[str(dtype).removeprefix("torch.")]:
+            P, nx, ny, nz = shape
+            x = torch.as_tensor(rng.standard_normal((P, 3, nx + 1, ny + 1,
+                                                     nz + 1)),
+                                dtype=dtype, device="cuda")
+            ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
+                                 dtype=dtype, device="cuda")
+            for v, pl in runs:
+                extra = smv.launch_args(v, *shape, dtype, pl, sms)
+                pair = {}
+                for tag, h in (("this", smv._library(v)),
+                               ("parent", libs[v])):
+                    fn = getattr(h, f"{smv.VARIANTS[v][0]}_{sfx}")
+                    y = torch.empty_like(x)
+
+                    def run(fn=fn, y=y, v=v, extra=extra):
+                        err = fn(x.data_ptr(), ck.data_ptr(), y.data_ptr(),
+                                 P, nx, ny, nz, *extra, 0, stream)
+                        if err:
+                            raise RuntimeError(f"{v} launch failed: {err}")
+                        return y
+                    pair[tag] = run
+                verdicts[(v, pl)].append(
+                    (shape, torch.equal(pair["this"](), pair["parent"]())))
+                if shape == (1, 150, 150, 150) and sfx == "f32" \
+                        and (v, pl) in timed:
+                    t = collections.defaultdict(list)
+                    for tag in ("parent", "this", "this", "parent"):
+                        t[tag].append(round(time_ms(torch, pair[tag]), 4))
+                    at = "" if pl is None else f" at {pl} planes"
+                    print(f"parent {v} {sfx}{at} ms at 150^3 in turns: "
+                          f"{dict(t)}")
+            del x, ck
+        for (v, pl), vs in verdicts.items():
+            at = "" if pl is None else f" at {pl} planes"
+            bad = [s for s, same in vs if not same]
+            verdict = f"DIFFERENT at {bad}" if bad \
+                else f"same at all {len(vs)} shapes"
+            print(f"parent bits {v} {sfx}{at}: {verdict}")
+        torch.cuda.empty_cache()
+    return paths
 
 
 def flagship(torch, variants) -> None:

@@ -70,7 +70,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 from kernel_builds import (  # noqa: E402
     build, flagship, load, loop_body, mix_line, nvidia_smi, opcode_counts,
-    sass_functions, shared_widths, smem_probe, time_ms)
+    parent, sass_functions, shared_widths, smem_probe, time_ms)
 
 OUT = ROOT / "build" / "v2v3_compare"
 N = 150
@@ -255,93 +255,13 @@ def main() -> int:
                   f"a constant operand {const_ffmas(code)}")
 
     if args.parent is not None:
-        parent(torch, np, args.parent, sms)
+        parent(torch, np, args.parent, ("v4", "v5", "v6", "v9"), sms, OUT,
+               timed=(("v5", 8), ("v6", None)))
     smem_probe(torch, sms, OUT, PROBE)
     if args.flagship:
         flagship(torch, ("v2", "v3", "v6"))
     print(nvidia_smi())
     return 0
-
-
-# the parent's libraries: variant -> (source, C prefix, dtypes, ints after
-# the three pointers)
-PARENT = {"v4": ("structured_matvec_v4.cu", "structured_matvec_v4",
-                 ("f32",), 9),
-          "v5": ("structured_matvec_v5.cu", "structured_matvec_v5",
-                 ("f32",), 11),
-          "v6": ("structured_matvec.cu", "structured_matvec", ("f32", "f64"),
-                 9),
-          "v9": ("structured_matvec_v9.cu", "structured_matvec_v9",
-                 ("f32",), 9)}
-
-
-def parent(torch, np, csrc: Path, sms: int) -> None:
-    """v4, v5, v6 and v9 against the same kernels built from ``csrc``:
-    bits at chip_smoke.py's shapes (v5 at 8 and 16 planes, v6 in both
-    dtypes), and the v5 (8 planes) and v6 float times in turns."""
-    import chip_smoke
-    from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
-    from pcg_mpi_solver_tpu_torch.ops import structured_matvec as smv
-
-    with concurrent.futures.ThreadPoolExecutor() as pool:
-        jobs = {v: pool.submit(build, csrc / src, OUT, f"parent_{v}")
-                for v, (src, _p, _d, _n) in PARENT.items()}
-        libs = {v: load(job.result(), PARENT[v][1], PARENT[v][2],
-                        PARENT[v][3]) for v, job in jobs.items()}
-    stream = torch.cuda.current_stream().cuda_stream
-    rng = np.random.default_rng(1)
-    Ke = unit_element_library(0.2)["Ke"]
-    shapes = chip_smoke.kernel_shapes()
-    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
-        K = torch.as_tensor(Ke, dtype=dtype, device="cuda")
-        runs = [(v, pl) for v in PARENT for pl in
-                ((8, 16) if v == "v5" else (None,))
-                if sfx in PARENT[v][2]]
-        for v, _pl in runs:
-            getattr(libs[v], f"{PARENT[v][1]}_stage_{sfx}")(K.data_ptr(), 0,
-                                                            stream)
-            getattr(smv._library(v), f"{PARENT[v][1]}_stage_{sfx}")(
-                K.data_ptr(), 0, stream)
-        verdicts = collections.defaultdict(list)
-        for shape in shapes[str(dtype).removeprefix("torch.")]:
-            P, nx, ny, nz = shape
-            x = torch.as_tensor(rng.standard_normal((P, 3, nx + 1, ny + 1,
-                                                     nz + 1)),
-                                dtype=dtype, device="cuda")
-            ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
-                                 dtype=dtype, device="cuda")
-            for v, pl in runs:
-                extra = smv.launch_args(v, *shape, dtype, pl, sms)
-                pair = {}
-                for tag, h in (("this", smv._library(v)),
-                               ("parent", libs[v])):
-                    fn = getattr(h, f"{PARENT[v][1]}_{sfx}")
-                    y = torch.empty_like(x)
-
-                    def run(fn=fn, y=y):
-                        err = fn(x.data_ptr(), ck.data_ptr(), y.data_ptr(),
-                                 P, nx, ny, nz, *extra, 0, stream)
-                        if err:
-                            raise RuntimeError(f"{v} launch failed: {err}")
-                        return y
-                    pair[tag] = run
-                verdicts[(v, pl)].append(
-                    (shape, torch.equal(pair["this"](), pair["parent"]())))
-                if shape == (1, N, N, N) and (v, pl, sfx) in (
-                        ("v5", 8, "f32"), ("v6", None, "f32")):
-                    t = collections.defaultdict(list)
-                    for tag in ("parent", "this", "this", "parent"):
-                        t[tag].append(round(time_ms(torch, pair[tag]), 4))
-                    print(f"parent {v} {sfx} ms at {N}^3 in turns: "
-                          f"{dict(t)}")
-            del x, ck
-        for (v, pl), vs in verdicts.items():
-            at = "" if pl is None else f" at {pl} planes"
-            bad = [s for s, same in vs if not same]
-            verdict = f"DIFFERENT at {bad}" if bad \
-                else f"same at all {len(vs)} shapes"
-            print(f"parent bits {v} {sfx}{at}: {verdict}")
-        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

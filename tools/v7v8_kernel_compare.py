@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Compare the port's v7 and v8 structured-matvec kernels with the kernels
-they replaced and with the kernels they share a design with, on one NVIDIA
-card, and apportion the time of the tile kernels (v6 float and v8) among
-the phases of a plane.
+they replaced and with the kernels they share a design with (v7 v5's
+node-owned gather, v8 v6 float's tile kernel), on one NVIDIA card, and
+apportion the time of the tile kernel among the phases of a plane.
 
 Run from the repository root, on a machine with the card and nvcc:
 
@@ -11,18 +11,20 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 tools/v7v8_kernel_compare.py \\
         --old-v7 build/parent/pcg_mpi_solver_tpu_torch/csrc/structured_matvec_v7.cu \\
         --old-v8 build/parent/pcg_mpi_solver_tpu_torch/csrc/structured_matvec_v8.cu \\
-        --parent build/parent/pcg_mpi_solver_tpu_torch/csrc --sweep --flagship
+        --parent build/parent/pcg_mpi_solver_tpu_torch/csrc --flagship
 
 (97506cc holds v7 as warp shuffles and v8 as a thread a cell of 8 x 32
-tiles with eight placement barriers a plane.)
+tiles with eight placement barriers a plane.  7117d72 holds v8 as a
+split-phase tile, two product buffers and one barrier a plane on a 24 x
+32-cell tile, and this tool's sweep of it.)
 
 Prints:
   * whether v8 gives v6 float's bits and v7 gives v5's (8 and 16 planes),
     at the card tests' shapes, the edge shapes of chip_smoke.py and 150^3,
-    and whether the phase-probe builds of v6 float and v8 give the
-    shipped builds' bits;
-  * whether the shipped v6 and v8 libraries have the SASS of builds whose
-    source has the probe's hook lines taken out (the hook compiles to
+    and whether the phase-probe build of v6 gives the shipped build's
+    bits (v8 compiles the same kernel);
+  * whether the shipped v6 library has the SASS of a build whose source
+    has the probe's hook lines taken out (the hook compiles to
     nothing), and, with --parent, whether v6's SASS is the parent's (the
     first differing instructions where not);
   * at the flagship slab (1 part, 150^3 cells), each kernel's error
@@ -31,17 +33,13 @@ Prints:
     launches give the same bits, and CUDA-event times with L2 flushed,
     median of 25, in turns (then the reverse order), each launched through
     its C entry point: v8, the old v8 (8 planes) and v6 float; v7, the old
-    v7 and v5 at 8 planes, then at 16; then the probe builds of v6 and v8
-    (the probe's own cost); then v6, v8 and v5 each with four output
+    v7 and v5 at 8 planes, then at 16; then the probe build of v6 (the
+    probe's own cost); then v6 and v5 each with four output
     buffers of its own (whether where y lies moves the time);
-  * with --sweep, v8 built at other tile heights (V8_CELLS_Y: 16, 12 and 8
-    cell rows; at 12 and 8 two blocks or more share an SM) and with one
-    product buffer (V8_FS_BUFFERS=1: v6's two-barrier schedule on v8's
-    tile), each timed in turns with v8 and v6 and apportioned by phase;
-  * the phase apportionment: from the probe builds at 150^3, each warp's
+  * the phase apportionment: from the probe build at 150^3, each warp's
     SM-clock cycles in each phase of its planes (the block's start; the
     copies' issue; the ring wait; the barrier before the product; the
-    product; v6's barrier after it; placement and stores), the median
+    product; the barrier after it; placement and stores), the median
     over blocks of each phase's share of the block's warp-cycles and of
     its cycles a plane, and the verdict on the barrier hypothesis (v6's
     barriers and ring waits under 15 % of its time refute it);
@@ -51,8 +49,9 @@ Prints:
     (barriers a plane in the loop), integer, instructions per FFMA;
   * with --parent, whether every other kernel (v1-v6, v9; v6 in both
     dtypes; the chunked ones at 8 and 16 planes) gives the bits of that
-    directory's sources at every shape chip_smoke.py holds it to, and the
-    v6 float time of both in turns (parent, this, this, parent);
+    directory's sources at every shape chip_smoke.py holds it to
+    (kernel_builds.parent), the v6 float time of both in turns (parent,
+    this, this, parent), and whether v6's SASS is the parent's;
   * with --flagship, the 150^3 mixed solve under v7, v8 and v6, each with
     flag, iterations, relres, inner cycles, ms/iter and launch counts.
 --old-v7 and --old-v8 take sources with the replaced kernels' C
@@ -80,7 +79,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 from kernel_builds import (  # noqa: E402
     CSRC, build, flagship, load, loop_body, mix_line, nvidia_smi,
-    opcode_counts, sass_functions, shared_widths, time_ms)
+    opcode_counts, parent, sass_functions, shared_widths, time_ms)
 
 OUT = ROOT / "build" / "v7v8_compare"
 N = 150
@@ -97,9 +96,9 @@ PHASES = ("start", "issue", "wait", "barrier", "product", "barrier 2",
 # a probe line: a statement of the hook, taken out for the no-hook builds
 HOOK = re.compile(r"^\s*SMV_PHASE\w*\(.*\);\s*$")
 # the probe builds: variant -> source
-PROBED = {"v6": "structured_matvec.cu", "v8": "structured_matvec_v8.cu"}
-# --sweep: v8 at (cells a tile column, product buffers)
-SWEEP = ((24, 1), (16, 2), (16, 1), (12, 2), (12, 1), (8, 2), (8, 1))
+PROBED = {"v6": "structured_matvec.cu"}
+# --parent: the kernels other than v7 and v8
+PARENT = ("v1", "v2", "v3", "v4", "v5", "v6", "v9")
 
 
 def sass_text(path: Path) -> dict:
@@ -148,7 +147,7 @@ def no_hook_csrc() -> Path:
         if src.name == "structured_tiles.cuh":
             lines = text.splitlines(keepends=True)
             kept = [ln for ln in lines if not HOOK.match(ln)]
-            if len(lines) - len(kept) < 10:
+            if len(lines) - len(kept) != 9:
                 raise RuntimeError(f"found {len(lines) - len(kept)} hook "
                                    f"lines in {src.name}")
             text = "".join(kept)
@@ -163,9 +162,6 @@ def main() -> int:
     ap.add_argument("--parent", type=Path,
                     help="a csrc directory of an earlier commit whose "
                          "other kernels' bits and v6 time to compare")
-    ap.add_argument("--sweep", action="store_true",
-                    help="time and apportion v8 at other tile heights and "
-                         "with one product buffer")
     ap.add_argument("--flagship", action="store_true",
                     help="solve the 150^3 flagship under v7, v8 and v6")
     args = ap.parse_args()
@@ -205,15 +201,6 @@ def main() -> int:
             if path is not None:
                 jobs[f"old {v}"] = (pool.submit(build, path, OUT, f"old_{v}"),
                                     names[v], None)
-        for cy, bufs in SWEEP if args.sweep else ():
-            tag = f"v8 {cy} rows {bufs} buffer{'s' * (bufs > 1)}"
-            flags = (f"-DV8_CELLS_Y={cy}", f"-DV8_FS_BUFFERS={bufs}")
-            stem = f"v8_{cy}_{bufs}"
-            jobs[tag] = (pool.submit(build, CSRC / PROBED["v8"], OUT, stem,
-                                     flags), names["v8"], tag)
-            jobs[f"probe {tag}"] = (pool.submit(
-                build, CSRC / PROBED["v8"], OUT, f"probe_{stem}",
-                flags + ("-DSMV_PHASE_PROBE",)), names["v8"], tag)
         for tag, (job, prefix, like) in jobs.items():
             path = job.result()
             # the old kernels take (P, nx, ny, nz, planes, device), the
@@ -221,18 +208,6 @@ def main() -> int:
             # device)
             h = load(path, prefix, ("f32", "f64") if like == "v6"
                      else ("f32",), 6 if like is None else 9)
-            if like and like.startswith("v8 ") and like not in smv.TILES:
-                # the sweep build's tile and the blocks its shared memory
-                # lets an SM hold, for v6_geometry
-                smem_fn = h.structured_matvec_v8_smem_bytes
-                smem_fn.argtypes = [ctypes.c_int]
-                smem_fn.restype = ctypes.c_longlong
-                smem = smem_fn(4)
-                per_sm = smv.SM_SMEM // (smem + smv.SMEM_RESERVED)
-                smv.TILES[like] = {torch.float32: (int(like.split()[1]),
-                                                   per_sm)}
-                print(f"sweep {like}: {smem} B shared, {per_sm} blocks an "
-                      f"SM")
             libs[tag] = (path, h, prefix, like)
     print(f"shared memory: v8 "
           f"{libs['v8'][1].structured_matvec_v8_smem_bytes(4)} B, v6 float "
@@ -274,13 +249,8 @@ def main() -> int:
     def runner(tag, x, ck, shape, planes=None):
         _path, h, prefix, like = libs[tag]
         P, nx, ny, nz = shape
-        if like in smv.TILES:
-            g = smv.v6_geometry(*shape, torch.float32, sms, like)
-            extra = (g.seg_len, g.n_ty, g.n_tz, g.n_seg)
-        elif like:
-            extra = smv.launch_args(like, *shape, torch.float32, planes, sms)
-        else:
-            extra = (planes,)
+        extra = (smv.launch_args(like, *shape, torch.float32, planes, sms)
+                 if like else (planes,))
         fn = getattr(h, f"{prefix}_f32")
         y = torch.empty_like(x)
 
@@ -299,9 +269,8 @@ def main() -> int:
         y6 = runner("v6", x, ck, s)().clone()
         y8 = runner("v8", x, ck, s)().clone()
         verdicts["v8 = v6 float"].append((s, torch.equal(y8, y6)))
-        for v, y in (("v6", y6), ("v8", y8)):
-            verdicts[f"probe {v} = {v}"].append(
-                (s, torch.equal(y, runner(f"probe {v}", x, ck, s)())))
+        verdicts["probe v6 = v6"].append(
+            (s, torch.equal(y6, runner("probe v6", x, ck, s)())))
         for pl in PLANES:
             verdicts[f"v7 = v5 at {pl} planes"].append(
                 (s, torch.equal(runner("v7", x, ck, s, pl)(),
@@ -323,10 +292,7 @@ def main() -> int:
     for pl in PLANES:
         groups[f"v7 at {pl} planes"] = [
             t for t in ("v7", "old v7", "v5") if t in libs]
-    groups["probe builds"] = ["probe v6", "v6", "probe v8", "v8"]
-    if args.sweep:
-        groups["v8 sweep"] = ["v8", "v6"] + [
-            t for t in libs if t.startswith("v8 ")]
+    groups["probe build"] = ["probe v6", "v6"]
     for group, tags in groups.items():
         pl = int(group.split()[2]) if group.startswith("v7") else 8
         runs = {t: runner(t, x, ck, shape, pl) for t in tags}
@@ -348,7 +314,7 @@ def main() -> int:
               f"{dict(t)}")
 
     # where y lies: four output buffers a kernel, in turns
-    for tag in ("v6", "v8", "v5"):
+    for tag in ("v6", "v5"):
         runs = [runner(tag, x, ck, shape, 8) for _ in range(4)]
         t = collections.defaultdict(list)
         for i in list(range(4)) + list(range(4))[::-1]:
@@ -357,16 +323,14 @@ def main() -> int:
               f"{x.data_ptr():#x}): " + "; ".join(
                   f"y at {runs[i].y.data_ptr():#x} {t[i]}" for i in t))
         del runs
-    for v in [t[len("probe "):] for t in libs if t.startswith("probe ")]:
-        phases(torch, np, smv, libs, runner, probe_buf, x, ck, shape, v,
-               sms)
+    phases(torch, np, smv, libs, runner, probe_buf, x, ck, shape, "v6", sms)
     del x, ck, y_ref, y32
     torch.cuda.empty_cache()
 
     # SASS: the loop that holds each kernel's FFMAs, and the whole kernel
     g5 = smv.v5_geometry(*shape, PLANES[0], sms)
     for tag, (path, _h, _prefix, _like) in libs.items():
-        if tag.startswith(("nohook", "probe v8 ")):
+        if tag.startswith("nohook"):
             continue
         for name, code in sass_functions(path).items():
             if "Dmma" in name or (tag in ("v5", "v7")
@@ -380,7 +344,9 @@ def main() -> int:
                   f"{mix_line(opcode_counts(code), SASS_KEYS)}")
 
     if args.parent is not None:
-        parent(torch, np, args.parent, libs, sms)
+        paths = parent(torch, np, args.parent, PARENT, sms, OUT)
+        print(f"sass v6 against the parent's: "
+              f"{sass_verdict(paths['v6'], libs['v6'][0])}")
     if args.flagship:
         flagship(torch, ("v7", "v8", "v6"))
     print(nvidia_smi())
@@ -391,8 +357,8 @@ def phases(torch, np, smv, libs, runner, buf, x, ck, shape, v, sms) -> None:
     """Runs the probe build of ``v`` at ``shape`` and prints the median
     over blocks of each phase's share of the block's warp-cycles and of
     its cycles a plane (a warp's, averaged over the block's warps)."""
-    g = smv.v6_geometry(*shape, torch.float32, sms, variant=v)
-    warps = smv.TILES[v][torch.float32][0] // 2
+    g = smv.v6_geometry(*shape, torch.float32, sms)
+    warps = smv.V6_CELLS_Y[torch.float32] // 2
     n = g.blocks * warps * len(PHASES)
     if n > buf.numel():
         raise RuntimeError(f"probe buffer too small for {g}")
@@ -430,95 +396,6 @@ def phases(torch, np, smv, libs, runner, buf, x, ck, shape, v, sms) -> None:
                    "the split-phase hypothesis stands")
         print(f"phases verdict: v6's barriers and ring waits hold "
               f"{held:.2%} of its warp-cycles (threshold 15 %): {verdict}")
-
-
-# the parent's libraries: variant -> (source, C prefix, dtypes)
-PARENT = {"v1": ("structured_matvec_v1.cu", "structured_matvec_v1",
-                 ("f32",)),
-          "v2": ("structured_matvec_v2.cu", "structured_matvec_v2",
-                 ("f32",)),
-          "v3": ("structured_matvec_v3.cu", "structured_matvec_v3",
-                 ("f32",)),
-          "v4": ("structured_matvec_v4.cu", "structured_matvec_v4",
-                 ("f32",)),
-          "v5": ("structured_matvec_v5.cu", "structured_matvec_v5",
-                 ("f32",)),
-          "v6": ("structured_matvec.cu", "structured_matvec", ("f32", "f64")),
-          "v9": ("structured_matvec_v9.cu", "structured_matvec_v9",
-                 ("f32",))}
-
-
-def parent(torch, np, csrc: Path, libs, sms: int) -> None:
-    """Every kernel but v7 and v8 against the same kernel built from
-    ``csrc``: bits at chip_smoke.py's shapes (the chunked ones at 8 and 16
-    planes, v6 in both dtypes), v6's SASS, and the v6 float time of both
-    in turns."""
-    import chip_smoke
-    from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
-    from pcg_mpi_solver_tpu_torch.ops import structured_matvec as smv
-
-    with concurrent.futures.ThreadPoolExecutor() as pool:
-        jobs = {v: pool.submit(build, csrc / src, OUT, f"parent_{v}")
-                for v, (src, _p, _d) in PARENT.items()}
-        paths = {v: job.result() for v, job in jobs.items()}
-    plib = {v: load(paths[v], PARENT[v][1], PARENT[v][2],
-                    5 + len(smv.launch_args(v, 1, 1, 1, 1, torch.float32,
-                                            8)))
-            for v in PARENT}
-    print(f"sass v6 against the parent's: "
-          f"{sass_verdict(paths['v6'], libs['v6'][0])}")
-    stream = torch.cuda.current_stream().cuda_stream
-    rng = np.random.default_rng(1)
-    Ke = unit_element_library(0.2)["Ke"]
-    shapes = chip_smoke.kernel_shapes()
-    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
-        K = torch.as_tensor(Ke, dtype=dtype, device="cuda")
-        runs = [(v, pl) for v in PARENT
-                for pl in (PLANES if smv.VARIANTS[v][1] else (None,))
-                if sfx in PARENT[v][2]]
-        for v in dict(runs):
-            for h in (plib[v], smv._library(v)):
-                getattr(h, f"{PARENT[v][1]}_stage_{sfx}")(K.data_ptr(), 0,
-                                                          stream)
-        verdicts = collections.defaultdict(list)
-        for shape in shapes[str(dtype).removeprefix("torch.")]:
-            P, nx, ny, nz = shape
-            x = torch.as_tensor(rng.standard_normal((P, 3, nx + 1, ny + 1,
-                                                     nz + 1)),
-                                dtype=dtype, device="cuda")
-            ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
-                                 dtype=dtype, device="cuda")
-            for v, pl in runs:
-                extra = smv.launch_args(v, *shape, dtype, pl, sms)
-                pair = {}
-                for tag, h in (("this", smv._library(v)),
-                               ("parent", plib[v])):
-                    fn = getattr(h, f"{PARENT[v][1]}_{sfx}")
-                    y = torch.empty_like(x)
-
-                    def run(fn=fn, y=y):
-                        err = fn(x.data_ptr(), ck.data_ptr(), y.data_ptr(),
-                                 P, nx, ny, nz, *extra, 0, stream)
-                        if err:
-                            raise RuntimeError(f"{v} launch failed: {err}")
-                        return y
-                    pair[tag] = run
-                verdicts[(v, pl)].append(
-                    (shape, torch.equal(pair["this"](), pair["parent"]())))
-                if shape == (1, N, N, N) and (v, sfx) == ("v6", "f32"):
-                    t = collections.defaultdict(list)
-                    for tag in ("parent", "this", "this", "parent"):
-                        t[tag].append(round(time_ms(torch, pair[tag]), 4))
-                    print(f"parent {v} {sfx} ms at {N}^3 in turns: "
-                          f"{dict(t)}")
-            del x, ck
-        for (v, pl), vs in verdicts.items():
-            at = "" if pl is None else f" at {pl} planes"
-            bad = [s for s, same in vs if not same]
-            verdict = f"DIFFERENT at {bad}" if bad \
-                else f"same at all {len(vs)} shapes"
-            print(f"parent bits {v} {sfx}{at}: {verdict}")
-        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
