@@ -22,8 +22,10 @@ Phases (any failed check raises, so the script exits non-zero):
                 v6's tiles), v5, v3 and v7 (the node-owned gather, at 8
                 and 16 planes) and v9 also on a single cell and on shapes
                 that cross their strip, tile and segment edges, each with
-                its launch geometry; v2 and v8 give v6 float's bits and
-                v3 and v7 v5's at every shape both run;
+                its launch geometry, v1 on shapes whose block runs cross
+                its column tiles in mid-run and end on a ragged tile, with
+                its launch split; v2 and v8 give v6 float's bits and v3
+                and v7 v5's at every shape both run;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
@@ -80,10 +82,17 @@ V5_EDGE_PLANES = (8, 16)
 # edge, and one whose segments wrap its three-slot ring
 V9_EDGE_SHAPES = V6_EDGE_SHAPES + ((2, 9, 79, 61), (1, 30, 39, 30),
                                    (1, 100, 200, 200))
+# and v1 (float32, the x-march) at these: a single cell, and shapes (two
+# of them two parts, whose tiles straddle the parts) where the card's
+# resident blocks march runs that cross from one column tile into the next
+# in mid-run, the last tile ragged
+V1_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (2, 60, 70, 40),
+                  (1, 100, 200, 200))
 EDGE_SHAPES = {"v6": V6_EDGE_SHAPES, "v4": V6_EDGE_SHAPES,
                "v2": V6_EDGE_SHAPES, "v8": V6_EDGE_SHAPES,
                "v5": V5_EDGE_SHAPES, "v3": V5_EDGE_SHAPES,
-               "v7": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES}
+               "v7": V5_EDGE_SHAPES, "v9": V9_EDGE_SHAPES,
+               "v1": V1_EDGE_SHAPES}
 # variants that run another's kernel from a library of their own and give
 # its bits: v2 and v8 run v6 float's tile kernel, v3 and v7 v5's gather
 SAME_BITS = (("v2", "v6"), ("v8", "v6"), ("v3", "v5"), ("v7", "v5"))
@@ -175,7 +184,8 @@ def kernel_shapes():
     n = FLAGSHIP["nx"]
     ragged = list(V6_EDGE_SHAPES) + [(1, 7, 3, 5), (2, 33, 17, 9)]
     small, flag = (1, *CARD_VS_CPU_CELLS), (1, n, n, n)
-    edge_only = [s for s in dict.fromkeys(V5_EDGE_SHAPES + V9_EDGE_SHAPES)
+    edge_only = [s for s in dict.fromkeys(V5_EDGE_SHAPES + V9_EDGE_SHAPES
+                                          + V1_EDGE_SHAPES)
                  if s not in V6_EDGE_SHAPES]
     return {"float32": ragged + edge_only + [small, flag],
             "float64": ragged + [small, (1, *DIRECT_F64_CELLS), flag]}
@@ -186,9 +196,19 @@ def phase_kernels(torch, np, rates):
     kernel_shapes(); returns the flagship record per (variant, dtype)."""
     from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-        GATHER, VARIANTS, _library, pallas_planes, structured_matvec,
-        structured_matvec_plain, v5_geometry, v6_geometry, v9_geometry)
+        GATHER, V1_BLOCKS_PER_SM, V1_NODES, V1_THREADS, VARIANTS, _library,
+        pallas_planes, structured_matvec, structured_matvec_plain,
+        v1_geometry, v1_runs, v5_geometry, v6_geometry, v9_geometry)
 
+    v1_lib = _library("v1")
+    v1_per_sm = v1_lib.structured_matvec_v1_blocks_per_sm(0)
+    v1_regs = v1_lib.structured_matvec_v1_registers(0)
+    say(f"kernel v1: {v1_regs} registers, {v1_per_sm} blocks of "
+        f"{V1_THREADS} threads an SM ({V1_BLOCKS_PER_SM} by its launch "
+        f"bounds and v1_geometry)")
+    if v1_per_sm != V1_BLOCKS_PER_SM:
+        raise AssertionError(f"v1 holds {v1_per_sm} blocks an SM; "
+                             f"v1_geometry launches {V1_BLOCKS_PER_SM}")
     rng = np.random.default_rng(2024)
     Ke = unit_element_library(FLAGSHIP["nu"])["Ke"]
     shapes = kernel_shapes()
@@ -287,6 +307,24 @@ def phase_kernels(torch, np, rates):
                     f"rows), {g9.n_seg} segments of {g9.seg_len} planes, "
                     f"{g9.blocks} blocks of {g9.threads} threads, "
                     f"{g9.smem_bytes} B shared")
+            if "v1" in variants:
+                g1 = v1_geometry(P, nx, ny, nz, sms=sms)
+                runs = [v1_runs(g1, k) for k in range(g1.blocks)]
+                crossing = sum(len(r) > 1 for r in runs)
+                ragged = g1.cols % V1_THREADS
+                if shape in V1_EDGE_SHAPES and shape != (1, 1, 1, 1) and (
+                        not crossing or not ragged):
+                    raise AssertionError(f"{shape}: no v1 run crosses a "
+                                         f"column tile or the last tile is "
+                                         f"whole: {g1}")
+                say(f"  v1: {g1.blocks} blocks of {V1_THREADS} threads "
+                    f"({V1_NODES} node columns a thread), {g1.tiles} "
+                    f"column tiles ({g1.cols} thread columns, the last "
+                    f"tile {ragged or V1_THREADS}) x {g1.planes} planes, "
+                    f"{g1.per}-{g1.per + (g1.more > 0)} planes a block, "
+                    f"{crossing} blocks crossing a tile, "
+                    f"{sum(r[0][1] > 0 for r in runs)} recomputing a "
+                    f"carry")
             ys = {}
             for v, planes in plane_runs:
                 def run():
@@ -313,6 +351,9 @@ def phase_kernels(torch, np, rates):
                     out[(v, name)] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
+                    if v == "v1":
+                        out[(v, name)].update(registers=v1_regs,
+                                              blocks_per_sm=v1_per_sm)
                 ys[(v, (planes or pallas_planes()) if VARIANTS[v][1]
                     else None)] = y
                 del y2

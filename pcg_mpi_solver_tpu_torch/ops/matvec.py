@@ -28,7 +28,7 @@ class Ops:
 
     def _psum(self, x: torch.Tensor) -> torch.Tensor:
         """Cross-process sum: the identity while the port runs in one
-        process (multi-process sharding is ROADMAP queue 1 item 5)."""
+        process (multi-process sharding is ROADMAP queue 1 item 12)."""
         return x
 
     def apply_prec(self, m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -36,8 +36,8 @@ class Ops:
         if not isinstance(m, torch.Tensor) or m.dim() != 2 or r.dim() != 2:
             raise NotImplementedError(
                 "only the scalar Jacobi preconditioner on one right-hand "
-                "side is ported (block3: ROADMAP queue 1 item 4; mg: item 8; "
-                "blocked right-hand sides: item 6)")
+                "side is ported (block3: ROADMAP queue 1 item 4; mg: item 5; "
+                "blocked right-hand sides: item 7)")
         return m * r
 
     # -- reductions -----------------------------------------------------

@@ -19,7 +19,7 @@ def make_prec(ops, data: dict, kind: str) -> torch.Tensor:
     if kind != "jacobi":
         raise NotImplementedError(
             f"precond {kind!r} is not ported yet (block3: ROADMAP queue 1 "
-            f"item 4; mg: item 8)")
+            f"item 4; mg: item 5)")
     diag_k = ops.diag(data)
     return torch.where(data["eff"] > 0, 1.0 / diag_k,
                        torch.zeros((), dtype=diag_k.dtype,

@@ -38,7 +38,9 @@ of the JAX package, one slab per part.
   :func:`v5_geometry` is the same for the node-owned gather of v5, v3
   and v7 (``csrc/structured_gather.cuh``), whose tile height depends on
   the chunk (``planes``) its shared-memory ring holds, and
-  :func:`v9_geometry` for the v9 kernel's warp-strip tiles.
+  :func:`v9_geometry` for the v9 kernel's warp-strip tiles, and
+  :func:`v1_geometry` for v1's x-march: the card's resident blocks, each
+  marching the same number of node planes within one.
   :func:`launch_args` gives any variant's launch arguments, through one
   code path per kernel design.
 - :func:`selected_variant` and :func:`pallas_planes` read the JAX
@@ -314,6 +316,63 @@ def v9_geometry(parts: int, nx: int, ny: int, nz: int,
                       tiles * n_seg, 32 * V9_WARPS, v9_smem_bytes(rows))
 
 
+# The v1 kernel (csrc/structured_matvec_v1.cu): V1_THREADS threads a
+# block, each owning V1_NODES z-adjacent node columns of one part and
+# marching them in x; V1_BLOCKS_PER_SM blocks an SM (its __launch_bounds__
+# minimum; no shared memory).  A column tile is V1_THREADS threads'
+# columns, in (part, y, z) order.
+V1_THREADS = 128
+V1_NODES = 2
+V1_BLOCKS_PER_SM = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class V1Geometry:
+    """One launch of the v1 kernel: ``cols`` thread columns (parts x (ny +
+    1) x ceil((nz + 1) / V1_NODES)) in ``tiles`` tiles of V1_THREADS, each
+    tile ``planes`` node planes deep; ``blocks`` blocks, block k marching
+    the run of the (tile, plane) work from k x per + min(k, more), ``per``
+    planes long and one more for the first ``more`` blocks."""
+    cols: int
+    tiles: int
+    planes: int
+    blocks: int
+    per: int
+    more: int
+
+
+@functools.lru_cache(maxsize=256)
+def v1_geometry(parts: int, nx: int, ny: int, nz: int,
+                sms: int = H100_SMS) -> V1Geometry:
+    """Launch geometry of the v1 kernel for a (parts, nx, ny, nz) slab: as
+    many blocks as the card holds at once (``sms`` x V1_BLOCKS_PER_SM; no
+    more than there are planes of work), the work split among them in
+    runs that differ by at most one plane.  The kernel computes each
+    block's run from the block count alone (its launch argument)."""
+    cols = parts * (ny + 1) * -(-(nz + 1) // V1_NODES)
+    tiles = -(-cols // V1_THREADS)
+    work = tiles * (nx + 1)
+    blocks = min(sms * V1_BLOCKS_PER_SM, work)
+    return V1Geometry(cols, tiles, nx + 1, blocks, work // blocks,
+                      work % blocks)
+
+
+def v1_runs(g: V1Geometry, block: int) -> list:
+    """The runs block ``block`` of a v1 launch marches, in order, as the
+    kernel walks them: (tile, s, e), node planes s .. e - 1 of that column
+    tile.  Only a first run can start past plane 0, and only such a run
+    recomputes a carry (of cell plane s - 1)."""
+    u = block * g.per + min(block, g.more)
+    end = u + g.per + (block < g.more)
+    runs = []
+    while u < end:
+        tile, s = divmod(u, g.planes)
+        e = min(g.planes, s + end - u)
+        runs.append((tile, s, e))
+        u += e - s
+    return runs
+
+
 def launch_args(variant: str, parts: int, nx: int, ny: int, nz: int,
                 dtype: torch.dtype, planes: Optional[int] = None,
                 sms: int = H100_SMS) -> tuple:
@@ -321,7 +380,7 @@ def launch_args(variant: str, parts: int, nx: int, ny: int, nz: int,
     entry point in ``dtype`` for a (parts, nx, ny, nz) slab on a card of
     ``sms`` SMs: the tiled variants (TILED) and v9 (seg_len, n_ty, n_tz,
     n_seg), the gather variants (GATHER, the chunked ones) (planes, rows,
-    seg_len, n_ty, n_tz, n_seg), v1 ().  ``planes`` None reads
+    seg_len, n_ty, n_tz, n_seg), v1 (blocks,).  ``planes`` None reads
     :func:`pallas_planes` where the variant takes it."""
     if variant in TILED:
         g = v6_geometry(parts, nx, ny, nz, dtype, sms)
@@ -333,7 +392,10 @@ def launch_args(variant: str, parts: int, nx: int, ny: int, nz: int,
         planes = pallas_planes() if planes is None else planes
         g = v5_geometry(parts, nx, ny, nz, planes, sms)
         return (planes, g.rows, g.seg_len, g.n_ty, g.n_tz, g.n_seg)
-    return ()
+    if variant == "v1":
+        return (v1_geometry(parts, nx, ny, nz, sms).blocks,)
+    raise ValueError(f"variant must be one of {sorted(VARIANTS)}, got "
+                     f"{variant!r}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -429,6 +491,11 @@ def _library(variant: str) -> ctypes.CDLL:
             smem = getattr(lib, f"{name}_smem_bytes")
             smem.argtypes = []
             smem.restype = ctypes.c_longlong
+        if variant == "v1":
+            for what in ("blocks_per_sm", "registers"):
+                fn = getattr(lib, f"{name}_{what}")
+                fn.argtypes = [ctypes.c_int]
+                fn.restype = ctypes.c_int
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
     return lib

@@ -261,7 +261,7 @@ class StructuredOps(Ops):
         if x.dim() != 2:
             raise NotImplementedError(
                 "blocked right-hand sides are not ported yet (ROADMAP "
-                "queue 1 item 6)")
+                "queue 1 item 7)")
         blk = data["blocks"][0]
         y = structured_matvec(self._grid(x), blk["ck"], blk["Ke"],
                               variant=self.variant, planes=self.planes)

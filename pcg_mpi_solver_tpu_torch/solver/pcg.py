@@ -104,7 +104,7 @@ def pcg(
     if variant != "classic":
         raise NotImplementedError(
             f"pcg variant {variant!r} is not ported yet (ROADMAP queue 1 "
-            f"item 6: PCG variants and blocked right-hand sides)")
+            f"item 6: PCG variants)")
     dd = ops.dot_dtype
     dt = fext.dtype
     f = _np_type(dd)          # host scalars in the dot dtype

@@ -359,6 +359,59 @@ def test_v9_kernel_across_strip_tile_and_segment_edges(cuda_device, P,
         == "invalid argument"
 
 
+V1_EDGE = [(1, (1, 1, 1)), (2, (40, 37, 70)), (2, (60, 70, 40)),
+           (1, (100, 200, 200))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,cells", V1_EDGE,
+                         ids=["x".join(map(str, c)) for _p, c in V1_EDGE])
+def test_v1_kernel_across_column_tiles(cuda_device, P, cells):
+    """v1 on a single cell and on shapes where the card's resident blocks
+    march runs that cross from one column tile into the next in mid-run,
+    the last tile ragged (two parts in two of them): within 2e-5 * max|y|
+    of the plain version, two launches bitwise equal, each counted once;
+    an SM holds the blocks v1_geometry launches; the same bits from other
+    block counts (the split only moves work between blocks), and a launch
+    of no blocks refused by its entry point."""
+    nx, ny, nz = cells
+    dev = cuda_device.index or 0
+    geo = smv.v1_geometry(P, nx, ny, nz, smv._sm_count(dev))
+    if cells != (1, 1, 1):
+        assert geo.cols % smv.V1_THREADS
+        assert any(len(smv.v1_runs(geo, k)) > 1 for k in range(geo.blocks))
+    lib = smv._library("v1")
+    assert lib.structured_matvec_v1_blocks_per_sm(dev) \
+        == smv.V1_BLOCKS_PER_SM
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
+                        dtype=torch.float32, device=cuda_device)
+    ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
+                         dtype=torch.float32, device=cuda_device)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
+                         dtype=torch.float32, device=cuda_device)
+    before = smv.LAUNCHES[("v1", "float32")]
+    y = smv.structured_matvec(x, ck, Ke, variant="v1")
+    y2 = smv.structured_matvec(x, ck, Ke, variant="v1")
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES[("v1", "float32")] == before + 2
+    y_plain = smv.structured_matvec_plain(x, ck, Ke)
+    assert (y - y_plain).abs().max() <= 2e-5 * y_plain.abs().max()
+    assert torch.equal(y, y2)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for blocks in (1, 7, geo.blocks + 5, 0):
+        y3 = torch.empty_like(x)
+        err = lib.structured_matvec_v1_f32(
+            x.data_ptr(), ck.data_ptr(), y3.data_ptr(), P, nx, ny, nz,
+            blocks, dev, stream)
+        if blocks == 0:
+            assert lib.structured_matvec_v1_error_string(err).decode() \
+                == "invalid argument"
+        else:
+            torch.cuda.synchronize()
+            assert err == 0 and torch.equal(y3, y)
+
+
 @pytest.mark.cuda
 def test_kernel_reads_the_ke_it_is_given(cuda_device):
     """Ke is staged into the constant bank only when it changes: an

@@ -10,6 +10,8 @@ which moves the refinement sequence a little), relres <= tol,
 displacements within 1e-5 relative.  max_iter stays below n_eff - 5 so
 MATLAB's MoreSteps budget is 5, as at the flagship."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -109,3 +111,47 @@ def test_unported_backends_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         Solver(make_cube_model(5, 3, 3), RunConfig(), n_parts=2,
                device="cpu")
+
+
+def _refuse(where):
+    """Triggers the port's refusal at ``where`` on a small one-part cube
+    (or, for the single-process psum, returns its docstring)."""
+    from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
+    from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+    from pcg_mpi_solver_tpu_torch.parallel.structured import (
+        StructuredOps, device_data_structured, partition_structured)
+    from pcg_mpi_solver_tpu_torch.solver.pcg import pcg
+
+    if where == "psum":
+        return Ops._psum.__doc__
+    sp = partition_structured(make_cube_model(4, 3, 3), 1)
+    data = device_data_structured(sp, torch.float64, "cpu")
+    ops = StructuredOps.from_partition(sp)
+    v = torch.zeros(1, ops.n_loc, dtype=torch.float64)
+    calls = {
+        "apply_prec": lambda: ops.apply_prec(v, v[..., None]),
+        "make_prec": lambda: make_prec(ops, data, "mg"),
+        "matvec_local": lambda: ops.matvec_local(data, v[..., None]),
+        "pcg": lambda: pcg(ops, data, v, v, v, 1e-8, 10, ops.n_loc,
+                           variant="pipelined"),
+    }
+    with pytest.raises(NotImplementedError) as info:
+        calls[where]()
+    return str(info.value)
+
+
+@pytest.mark.parametrize("where,items", [
+    ("psum", [r"sharding is ROADMAP queue 1 item 12\b"]),
+    ("apply_prec", [r"mg: item 5\b", r"blocked right-hand sides: item 7\b"]),
+    ("make_prec", [r"mg: item 5\b"]),
+    ("matvec_local", [r"blocked right-hand sides .*item 7\b"]),
+    ("pcg", [r"item 6: PCG variants\)"]),
+])
+def test_module_refusals_name_their_queue_items(where, items):
+    """Each refusal inside the port's modules (outside solver/driver.py's,
+    which test_unported_options_raise checks) names the ROADMAP queue 1 item
+    that owns what it refuses: sharding 12, mg 5, PCG variants 6, blocked
+    right-hand sides 7."""
+    text = " ".join(_refuse(where).split())
+    for item in items:
+        assert re.search(item, text), (where, text)

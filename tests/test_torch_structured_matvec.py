@@ -337,6 +337,178 @@ def test_v7_chunk_fits_up_to_54_planes(planes, fits):
         assert g.rows == smv.V5_ROWS[-1]
 
 
+# the cards the v1 split is held on: an H100 SXM (132 SMs) and one of 114
+V1_SMS = (smv.H100_SMS, 114)
+
+
+def v1_columns(g, tile, ny, nz):
+    """(part, node row, first node column) of each thread of column tile
+    ``tile`` that owns nodes, as the v1 kernel numbers its threads: id =
+    (p (ny + 1) + iy) zcols + jz owns node columns V1_NODES jz + n."""
+    zcols = -(-(nz + 1) // smv.V1_NODES)
+    ids = tile * smv.V1_THREADS + np.arange(smv.V1_THREADS)
+    ids = ids[ids < g.cols]
+    return ids // zcols // (ny + 1), ids // zcols % (ny + 1), \
+        ids % zcols * smv.V1_NODES
+
+
+def v1_walk(shape, sms):
+    """The v1 launch at ``shape`` on ``sms`` SMs as the kernel walks it:
+    the times each (part, node plane, node row, node column) is written,
+    the node planes each block marches and the carry planes each block
+    recomputes (one for each run that starts past plane 0)."""
+    P, nx, ny, nz = shape
+    g = smv.v1_geometry(*shape, sms)
+    written = np.zeros((P, nx + 1, ny + 1, nz + 1), int)
+    marched, recomputed = [], []
+    for k in range(g.blocks):
+        runs = smv.v1_runs(g, k)
+        marched.append(sum(e - s for _t, s, e in runs))
+        recomputed.append(sum(s > 0 for _t, s, _e in runs))
+        assert all(s == 0 for _t, s, _e in runs[1:])
+        for tile, s, e in runs:
+            p, iy, iz0 = v1_columns(g, tile, ny, nz)
+            for n in range(smv.V1_NODES):
+                ok = iz0 + n <= nz
+                planes = np.arange(s, e)[None, :]
+                np.add.at(written, (p[ok, None], planes, iy[ok, None],
+                                    iz0[ok, None] + n), 1)
+    return g, written, marched, recomputed
+
+
+@pytest.mark.parametrize("sms", V1_SMS)
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_v1_geometry_covers_every_node_once(shape, sms):
+    """The v1 launch split: the kernel's walk of its block runs writes
+    every (part, node plane, node row, node column) exactly once; every
+    block recomputes at most one carry plane (where its first run starts
+    past plane 0: a run that crosses into the next column tile starts it
+    at plane 0); the blocks march the same number of planes within one;
+    the launch is the card's resident blocks unless the work is smaller,
+    and launch_args passes that count."""
+    g, written, marched, recomputed = v1_walk(shape, sms)
+    assert (written == 1).all()
+    assert max(recomputed) <= 1
+    assert max(marched) - min(marched) <= 1
+    assert sum(marched) == g.tiles * g.planes
+    assert g.blocks == min(sms * smv.V1_BLOCKS_PER_SM, g.tiles * g.planes)
+    assert smv.launch_args("v1", *shape, torch.float32, 8, sms) \
+        == (g.blocks,)
+    assert not smv.VARIANTS["v1"][1]
+
+
+@pytest.mark.parametrize("sms", V1_SMS)
+def test_v1_geometry_flagship_is_one_wave(sms):
+    """At the flagship slab v1 launches exactly the blocks the card holds
+    at once, each marching 34 or 35 of the 90 x 151 (tile, plane) steps
+    (132 SMs), so no wave has a tail; a block recomputes at most one carry
+    plane, half a step of product, where the 16-plane segments of the
+    v1 before it (commit 1aab56a) recomputed one in 16."""
+    g, _written, marched, recomputed = v1_walk((1, 150, 150, 150), sms)
+    assert g.blocks == sms * smv.V1_BLOCKS_PER_SM
+    assert max(marched) - min(marched) <= 1
+    assert sum(recomputed) <= g.blocks
+    assert min(marched) >= 16 * 2
+
+
+def emulate_v1(xg, ck, Ke, g):
+    """The v1 kernel's algorithm in float64 numpy, as csrc/
+    structured_matvec_v1.cu writes it: each block walks its runs
+    (v1_runs); a thread's window of 3 x (V1_NODES + 2) nodes, its rows
+    clamped onto the slab and its columns off the slab holding whatever
+    the window held (here: large garbage), and its cells' ck (0 for a
+    missing cell); the dx = 0 corners of cell plane i finish node plane
+    i, the dx = 1 corners are carried; a run past plane 0 first
+    recomputes its carry; node plane nx is the carry.  Returns y and the
+    writes of each node."""
+    P, _, nxn, nyn, nzn = xg.shape
+    nx, ny, nz = nxn - 1, nyn - 1, nzn - 1
+    kw = smv.V1_NODES + 2
+    y = np.zeros_like(xg)
+    writes = np.zeros(xg.shape, int)
+    garbage = np.random.default_rng(0)
+    for k in range(g.blocks):
+        for tile, s, e in smv.v1_runs(g, k):
+            p, iy, iz0 = v1_columns(g, tile, ny, nz)
+            jy = np.clip(iy[:, None] + np.arange(3) - 1, 0, ny)
+            jz = iz0[:, None] + np.arange(kw) - 1
+            zout = (jz < 0) | (jz > nz)
+            jz = np.clip(jz, 0, nz)
+            cy = iy[:, None] - np.arange(2)
+            cz = iz0[:, None] + np.arange(kw - 1) - 1
+            live = ((cy >= 0) & (cy < ny))[:, :, None] \
+                & ((cz >= 0) & (cz < nz))[:, None, :]
+            cyc, czc = np.clip(cy, 0, ny - 1), np.clip(cz, 0, nz - 1)
+
+            def window(px):         # [lane, c, dy, kz]
+                w = xg[p[:, None, None, None], np.arange(3)[:, None, None],
+                       px, jy[:, None, :, None], jz[:, None, None, :]]
+                return np.where(zout[:, None, None, :],
+                                garbage.uniform(-1e6, 1e6, w.shape), w)
+
+            def cells(i):           # [lane, ey, k]
+                return ck[p[:, None, None], i, cyc[:, :, None],
+                          czc[:, None, :]] * live
+
+            def corners(lo, hi, sc, dx):    # [lane, n, r]
+                acc = np.zeros((len(p), smv.V1_NODES, 3))
+                for b, (bx, ey, ez) in enumerate(CORNERS_XYZ):
+                    if bx != dx:
+                        continue
+                    for n in range(smv.V1_NODES):
+                        u = np.stack([
+                            (hi if ax else lo)[:, c, ay - ey + 1,
+                                               n - ez + az + 1]
+                            for ax, ay, az in CORNERS_XYZ
+                            for c in range(3)], axis=1)
+                        acc[:, n] += sc[:, ey, n - ez + 1, None] \
+                            * (u @ Ke[3 * b:3 * b + 3].T)
+                return acc
+
+            def store(i, v):
+                for n in range(smv.V1_NODES):
+                    ok = iz0 + n <= nz
+                    y[p[ok], :, i, iy[ok], iz0[ok] + n] = v[ok, n]
+                    writes[p[ok], :, i, iy[ok], iz0[ok] + n] += 1
+
+            carry = np.zeros((len(p), smv.V1_NODES, 3))
+            if s > 0:
+                carry = corners(window(s - 1), window(s), cells(s - 1), 1)
+            for i in range(s, min(e, nx)):
+                lo, hi, sc = window(i), window(i + 1), cells(i)
+                store(i, carry + corners(lo, hi, sc, 0))
+                if i + 1 < e:
+                    carry = corners(lo, hi, sc, 1)
+            if e > nx:
+                store(nx, carry)
+    return y, writes
+
+
+CORNERS_XYZ = smv.CORNERS
+
+
+@pytest.mark.parametrize("sms", [1, smv.H100_SMS])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (1, 7, 3, 5),
+                                   (2, 33, 17, 9), (1, 5, 2, 40)])
+def test_v1_algorithm_matches_plain(shape, sms):
+    """The v1 kernel's algorithm (emulate_v1: block runs across column
+    tiles, clamped windows, missing cells at ck = 0, dx = 0 / 1 corners,
+    recomputed carries) against the plain version in float64 at 1e-12 x
+    max|y|, every node written exactly once; on 1 SM the runs cross
+    column tiles in mid-run, on 132 most runs start past plane 0."""
+    P, nx, ny, nz = shape
+    rng = np.random.default_rng(13)
+    xg = rng.standard_normal((P, 3, nx + 1, ny + 1, nz + 1))
+    ck = rng.uniform(1.0, 10.0, (P, nx, ny, nz))
+    Ke = np.asarray(both((4, 4, 4))[1][1]["blocks"][0]["Ke"])
+    y, writes = emulate_v1(xg, ck, Ke, smv.v1_geometry(*shape, sms))
+    y_ref = smv.structured_matvec_plain(torch.from_numpy(xg),
+                                        torch.from_numpy(ck),
+                                        torch.from_numpy(Ke)).numpy()
+    assert (writes == 1).all()
+    assert np.abs(y - y_ref).max() <= 1e-12 * np.abs(y_ref).max()
+
+
 @pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
 def test_v2_launches_on_v6_float_tiles(shape):
     """v2 runs v6 float's tiles, as v4 does: its launch arguments are v6

@@ -1,13 +1,15 @@
 """Helpers of the kernel comparison tools (tools/v4_kernel_compare.py,
 tools/v5_kernel_compare.py, tools/v6_kernel_compare.py,
 tools/v9_kernel_compare.py, tools/v2v3_kernel_compare.py,
-tools/v7v8_kernel_compare.py): build a kernel source with nvcc under
-other flags, load a build's C entry points, time a launch with CUDA
-events, count a build's SASS instructions (whole kernels or their hottest
-loop), run the SM throughput probe (tools/smem_probe.cu), hold kernels
-against the same kernels built from an earlier commit's sources, solve
-the flagship under chosen variants and read the card's name and power
-limit."""
+tools/v7v8_kernel_compare.py, tools/v1_kernel_compare.py): build a
+kernel source with nvcc under other flags, load a build's C entry
+points, time a launch with CUDA events, count a build's SASS
+instructions (whole kernels, their hottest loop or innermost FFMA loop)
+and their opcode classes, read a build's registers, run the SM
+throughput probe (tools/smem_probe.cu), hold kernels against the same
+kernels built from an earlier commit's sources (with this tree's C
+interface or, for v1, the one of commit 1aab56a), solve the flagship
+under chosen variants and read the card's name and power limit."""
 
 from __future__ import annotations
 
@@ -68,6 +70,60 @@ def load(lib: Path, prefix: str, suffixes, n_ints: int) -> ctypes.CDLL:
     return h
 
 
+def entry_ints(src: Path, prefix: str, sfx: str = "f32") -> int:
+    """The int parameters of the C entry point ``{prefix}_{sfx}`` in
+    ``src``: (P, nx, ny, nz), its launch arguments, the device."""
+    m = re.search(rf'extern "C" int {prefix}_{sfx}\((.*?)\)',
+                  src.read_text(), re.S)
+    if m is None:
+        raise RuntimeError(f"{src} has no entry point {prefix}_{sfx}")
+    return len(re.findall(r"\bint\b", m.group(1)))
+
+
+def source_launch_args(torch, src: Path, variant: str):
+    """``launch_args``-like function for a build of ``src``, an earlier
+    commit's source of ``variant``: this tree's ``launch_args`` where the
+    source's entry point takes them, none where it takes only (P, nx, ny,
+    nz, device), as the v1 of commit 1aab56a does."""
+    from pcg_mpi_solver_tpu_torch.ops import structured_matvec as smv
+    n = entry_ints(src, smv.VARIANTS[variant][0])
+    if n == 5:
+        return lambda *args, **kw: ()
+    this = 5 + len(smv.launch_args(variant, 1, 1, 1, 1, torch.float32, 8))
+    if n != this:
+        raise RuntimeError(f"{src} takes {n} ints, neither the old v1's "
+                           f"interface (5) nor this tree's ({this})")
+    return smv.launch_args
+
+
+def resource_usage(lib: Path) -> dict:
+    """{kernel (mangled name): {"REG": registers, "STACK", "SHARED",
+    "LOCAL", ...}} of ``lib`` (cuobjdump -res-usage)."""
+    from pcg_mpi_solver_tpu_torch.ops.kernels import nvcc_path
+    dump = Path(nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(dump), "-res-usage", str(lib)],
+                         capture_output=True, text=True).stdout
+    usage, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in
+                           re.findall(r"(\w+):(\d+)", line)}
+            name = None
+    return usage
+
+
+def blocks_by_registers(regs: int, threads: int) -> int:
+    """Blocks of ``threads`` an H100 SM holds at ``regs`` registers a
+    thread, with no shared memory: 65,536 registers given out a warp at
+    a time in units of 256, at most 64 warps and 32 blocks."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(32, 64 // warps, 65536 // (per_warp * warps))
+
+
 def time_ms(torch, fn, reps: int = 25) -> float:
     """Median CUDA-event time of one call, L2 flushed before each."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
@@ -125,6 +181,50 @@ def loop_body(code):
         if best is None or key > best[0]:
             best = (key, span)
     return None if best is None else best[1]
+
+
+# opcode -> class, for the mix of a loop by class (the rest: "other")
+CLASSES = {"FFMA": "FFMA", "FMUL": "float", "FADD": "float",
+           "LDG": "LDG", "STG": "STG", "MOV": "MOV", "ULDC": "ULDC",
+           "LDC": "LDC", "BRA": "branch", "BSSY": "branch",
+           "BSYNC": "branch", "WARPSYNC": "branch", "EXIT": "branch",
+           "BREAK": "branch", "CALL": "branch", "RET": "branch"}
+
+
+def opcode_classes(code) -> collections.Counter:
+    """Instructions of ``code`` by class: FFMA, float (FMUL, FADD), integer
+    and address arithmetic (INTEGER; an IMAD.MOV counts as MOV), LDG, STG,
+    MOV, ULDC, LDC, branch, other; and "FFMA c[]", the FFMAs with a
+    constant-bank operand."""
+    out = collections.Counter()
+    for _addr, op, line in code:
+        if op == "IMAD" and "IMAD.MOV" in line:
+            cls = "MOV"
+        elif op in INTEGER:
+            cls = "integer"
+        else:
+            cls = CLASSES.get(op, "other")
+        out[cls] += 1
+        if op == "FFMA" and re.search(r"\bc\[0x[0-9a-f]+\]", line):
+            out["FFMA c[]"] += 1
+    return out
+
+
+def inner_loop(code):
+    """The instructions of the innermost loop of ``code`` (one that holds
+    no other loop) with the most FFMAs; None if there is no backward
+    branch.  Where a kernel nests its FFMA loop in another (v1's march
+    in its walk of runs), loop_body picks the outer one."""
+    loops = []
+    for addr, op, line in code:
+        m = re.search(r"\bBRA[.\w]*\s+(?:`?\(?)0x([0-9a-f]+)", line)
+        if op == "BRA" and m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [(lo, hi) for lo, hi in loops
+             if not any((lo, hi) != (a, b) and lo <= a and b <= hi
+                        for a, b in loops)]
+    spans = [[c for c in code if lo <= c[0] <= hi] for lo, hi in inner]
+    return max(spans, key=lambda s: opcode_counts(s)["FFMA"], default=None)
 
 
 def shared_widths(code) -> collections.Counter:
@@ -218,7 +318,8 @@ def smem_probe(torch, sms: int, out_dir: Path, modes=PROBE_MODES) -> dict:
 def parent(torch, np, csrc: Path, variants, sms: int, out_dir: Path,
            timed=(("v6", None),)) -> dict:
     """Each of ``variants`` against the same kernel built from ``csrc`` (an
-    earlier commit's csrc directory, with this one's C interface): bits at
+    earlier commit's csrc directory, with this one's C interface or, for
+    v1, the old one's: ``source_launch_args``): bits at
     every shape chip_smoke.py holds it to (the chunked ones at 8 and 16
     planes, v6 in both dtypes), and the float32 times at 150^3 of the
     ``timed`` (variant, planes) in turns (parent, this, this, parent).
@@ -235,9 +336,10 @@ def parent(torch, np, csrc: Path, variants, sms: int, out_dir: Path,
                 for v, src in sources.items()}
         paths = {v: job.result() for v, job in jobs.items()}
     # the pointers, then (P, nx, ny, nz), the launch arguments, the device
+    args = {v: source_launch_args(torch, src, v)
+            for v, src in sources.items()}
     libs = {v: load(paths[v], smv.VARIANTS[v][0], dtypes[v],
-                    5 + len(smv.launch_args(v, 1, 1, 1, 1, torch.float32,
-                                            8)))
+                    5 + len(args[v](v, 1, 1, 1, 1, torch.float32, 8)))
             for v in variants}
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(1)
@@ -261,12 +363,13 @@ def parent(torch, np, csrc: Path, variants, sms: int, out_dir: Path,
             ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
                                  dtype=dtype, device="cuda")
             for v, pl in runs:
-                extra = smv.launch_args(v, *shape, dtype, pl, sms)
                 pair = {}
-                for tag, h in (("this", smv._library(v)),
-                               ("parent", libs[v])):
+                for tag, h, launch_args in (
+                        ("this", smv._library(v), smv.launch_args),
+                        ("parent", libs[v], args[v])):
                     fn = getattr(h, f"{smv.VARIANTS[v][0]}_{sfx}")
                     y = torch.empty_like(x)
+                    extra = launch_args(v, *shape, dtype, pl, sms)
 
                     def run(fn=fn, y=y, v=v, extra=extra):
                         err = fn(x.data_ptr(), ck.data_ptr(), y.data_ptr(),

@@ -128,17 +128,21 @@ def fmas_v5(shape, geo) -> int:
     return 600 * 2 * geo.threads * P * geo.n_ty * geo.n_tz * steps
 
 
-def fmas_v1(shape) -> int:
-    """FMAs v1 executes: a thread a node column and 16-plane segment,
-    threads rounded up to warps, 576 (+6 scale) a cell plane on the grid
-    (a warp issues the FMAs of its off-grid cells too)."""
+def fmas_v1(shape, sms: int) -> int:
+    """FMAs v1 executes: a thread V1_NODES node columns, threads rounded up
+    to warps, 576 + 6 (the scales) a node and cell plane, half of that for
+    a run's recomputed carry plane and for the carry a run's last plane
+    skips (a warp issues the FMAs of missing cells too)."""
+    from pcg_mpi_solver_tpu_torch.ops import structured_matvec as smv
     P, nx, ny, nz = shape
-    cols = (ny + 1) * (nz + 1)
-    planes = 0
-    for x0 in range(0, nx + 1, 16):
-        x1 = min(x0 + 16, nx + 1)
-        planes += min(x1, nx) - max(x0 - 1, 0)
-    return 582 * -(-P * cols // 32) * 32 * planes
+    g = smv.v1_geometry(P, nx, ny, nz, sms)
+    warps = 0.0
+    for k in range(g.blocks):
+        for tile, s, e in smv.v1_runs(g, k):
+            lanes = min(smv.V1_THREADS, g.cols - tile * smv.V1_THREADS)
+            cells = min(e, nx) - s + (s > 0) / 2 - (e <= nx) / 2
+            warps += -(-lanes // 32) * cells
+    return round(582 * smv.V1_NODES * 32 * warps)
 
 
 def main() -> int:
@@ -264,7 +268,8 @@ def main() -> int:
     runs["v6"] = launcher(libs["v6"][1].structured_matvec_f32, x, ck, shape,
                           (g6.seg_len, g6.n_ty, g6.n_tz, g6.n_seg))
     runs["v1"] = launcher(libs["v1"][1].structured_matvec_v1_f32, x, ck,
-                          shape, ())
+                          shape, smv.launch_args("v1", *shape, torch.float32,
+                                                 None, sms))
     g5 = smv.v5_geometry(*shape, smv.pallas_planes(), sms)
     runs["v5"] = launcher(libs["v5"][1].structured_matvec_v5_f32, x, ck,
                           shape, (smv.pallas_planes(), g5.rows, g5.seg_len,
@@ -317,7 +322,7 @@ def main() -> int:
     probe = smem_probe(torch, sms, OUT)
     fmas = {"v9": fmas_v9(shape, g9), "old": fmas_v9_old(shape),
             "v5": fmas_v5(shape, g5),
-            "v6": fmas_v6(shape, g6), "v1": fmas_v1(shape)}
+            "v6": fmas_v6(shape, g6), "v1": fmas_v1(shape, sms)}
     floor_1x = 576 * N ** 3 / FMA_RATE * 1e3
     for tag, (path, _h) in libs.items():
         for name, code in sass_functions(path).items():
