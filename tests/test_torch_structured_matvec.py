@@ -452,14 +452,14 @@ def emulate_v1(xg, ck, Ke, g):
 
             def corners(lo, hi, sc, dx):    # [lane, n, r]
                 acc = np.zeros((len(p), smv.V1_NODES, 3))
-                for b, (bx, ey, ez) in enumerate(CORNERS_XYZ):
+                for b, (bx, ey, ez) in enumerate(smv.CORNERS):
                     if bx != dx:
                         continue
                     for n in range(smv.V1_NODES):
                         u = np.stack([
                             (hi if ax else lo)[:, c, ay - ey + 1,
                                                n - ez + az + 1]
-                            for ax, ay, az in CORNERS_XYZ
+                            for ax, ay, az in smv.CORNERS
                             for c in range(3)], axis=1)
                         acc[:, n] += sc[:, ey, n - ez + 1, None] \
                             * (u @ Ke[3 * b:3 * b + 3].T)
@@ -482,9 +482,6 @@ def emulate_v1(xg, ck, Ke, g):
             if e > nx:
                 store(nx, carry)
     return y, writes
-
-
-CORNERS_XYZ = smv.CORNERS
 
 
 @pytest.mark.parametrize("sms", [1, smv.H100_SMS])
