@@ -33,11 +33,22 @@ Phases (any failed check raises, so the script exits non-zero):
                 counts and inner cycles of each solve (v4's, v7's, v8's
                 and v9's beside v6's at the end); then a profiled window
                 of inner f32 iterations under v6;
+  4b. preconditioners — mixed solves (tol 1e-7, v6) of the 128^3 cube
+                (6,440,067 dofs; the flagship's other arguments) under
+                jacobi and mg, and of the 150^3 flagship under block3 and
+                mg: levels, Chebyshev bounds, setup seconds, iterations,
+                ms/iter, time to tol, inner cycles and launches of each
+                (under mg at least 5 float32 launches an iteration and the
+                16 float64 power-iteration matvecs), two V-cycles at 128^3
+                bitwise equal, a profiled window of mg iterations at each
+                size;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
-                solves on the CPU (the plain path).
+                solves on the CPU (the plain path), under jacobi, block3
+                and mg.
 The line before the last is the per-kernel JSON record (one per variant
-and dtype, launch counts from the solve under that variant), the last line
+and dtype, launch counts from the solve under that variant; v6's also by
+preconditioner solve of phase 4b), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -62,6 +73,14 @@ FLAGSHIP = dict(nx=150, E=30e9, nu=0.2, load="traction", load_value=1e6,
                 heterogeneous=True)
 DIRECT_F64_CELLS = (48, 32, 32)     # phase 5's direct float64 solve
 CARD_VS_CPU_CELLS = (12, 6, 5)      # phase 5's card-against-CPU solves
+MG_CARD_VS_CPU_CELLS = (12, 8, 8)   # and its mg one (even: two levels)
+# phase 4b: (cells a side, preconditioner) of each mixed solve; 150 is the
+# flagship, whose mg hierarchy has one level (75 is odd), 128 the even cube
+# that gives mg six (64 ... 2)
+PRECOND_SOLVES = ((128, "jacobi"), (128, "mg"), (150, "block3"),
+                  (150, "mg"))
+MG_ITER_RATIO = 5       # RUNBOOK: mg >= 5x fewer iterations than jacobi
+MG_BITS_CELLS = 128     # phase 4b holds two V-cycles bitwise equal here
 # The JAX package's record of the same solve (docs/HW_SESSION.log:134):
 # flag 0, 3334 iterations, relres 4.989e-08.
 JAX_FLAGSHIP_ITERS = 3334
@@ -179,16 +198,24 @@ def kernel_shapes():
     """(P, nx, ny, nz) the kernel is held to its plain version at, per
     dtype: two ragged ones (one with two parts), then every slab shape a
     driven path gives the kernel in that dtype (phase 4's flagship in both;
-    phase 5's card-against-CPU cube in both, as its direct solve runs
-    float64 and its mixed solve both; phase 5's direct solve in float64)."""
+    phase 4b's 128^3 cube in both; phase 5's card-against-CPU cubes in
+    both, as its direct solves run float64 and its mixed solves both;
+    phase 5's direct solve in float64)."""
     n = FLAGSHIP["nx"]
     ragged = list(V6_EDGE_SHAPES) + [(1, 7, 3, 5), (2, 33, 17, 9)]
     small, flag = (1, *CARD_VS_CPU_CELLS), (1, n, n, n)
+    small_mg = (1, *MG_CARD_VS_CPU_CELLS)
+    # phase 4b's other cube, in both dtypes (f32 solves, f64 lifting,
+    # refreshes and power iterations)
+    cube = [(1, c, c, c) for c in sorted({c for c, _ in PRECOND_SOLVES})
+            if c != n]
     edge_only = [s for s in dict.fromkeys(V5_EDGE_SHAPES + V9_EDGE_SHAPES
                                           + V1_EDGE_SHAPES)
                  if s not in V6_EDGE_SHAPES]
-    return {"float32": ragged + edge_only + [small, flag],
-            "float64": ragged + [small, (1, *DIRECT_F64_CELLS), flag]}
+    return {"float32": ragged + edge_only + [small, small_mg] + cube
+            + [flag],
+            "float64": ragged + [small, small_mg, (1, *DIRECT_F64_CELLS)]
+            + cube + [flag]}
 
 
 def phase_kernels(torch, np, rates):
@@ -401,7 +428,7 @@ def inner_cycles():
 
 def phase_main(torch, np):
     """The flagship mixed solve once under each float32 variant; returns
-    {variant: launch counts of its solve}.  Ends with v4's, v7's, v8's and
+    {variant: launch counts of its solve} and the flagship model.  Ends with v4's, v7's, v8's and
     v9's inner cycles beside v6's: the stagnation exits that end the
     cycles move with the round-off of the cell product (v4 and v8 run v6
     float's FFMA product and node sums; a DMMA product moved the second
@@ -487,13 +514,13 @@ def phase_main(torch, np):
     for v in ("v4", "v7", "v8", "v9", "v6"):
         say(f"main: inner cycles (flag, iterations) {v} {cycles_by[v][0]}, "
             f"{cycles_by[v][1]} in all")
-    return launches_by
+    return launches_by, model
 
 
-def profile_inner(torch, solver, iters: int = 100):
-    """Device time by kernel over a window of f32 inner iterations of the
-    flagship (the body of the mixed solve), and the device-busy share of
-    the window's wall time."""
+def profile_inner(torch, solver, iters: int = 100, tag: str = "profile"):
+    """Device time by kernel over a window of f32 inner iterations of a
+    mixed solver (the body of the mixed solve) under its preconditioner,
+    and the device-busy share of the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -503,7 +530,7 @@ def profile_inner(torch, solver, iters: int = 100):
     ops, data = solver.ops32, solver.data32
     rhs = (data["eff"] * data["F"])
     rhs = rhs / rhs.norm()
-    inv = make_prec(ops, data, "jacobi")
+    inv = make_prec(ops, data, solver.config.solver.precond)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -527,12 +554,124 @@ def profile_inner(torch, solver, iters: int = 100):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     n = carry["exec"]
-    say(f"profile: {n} inner f32 iterations, wall {wall * 1e3 / n:.4f} "
+    say(f"{tag}: {n} inner f32 iterations, wall {wall * 1e3 / n:.4f} "
         f"ms/iter, device busy {busy * 1e3 / n:.4f} ms/iter "
-        f"({busy / wall:.1%} of wall; idle {1 - busy / wall:.1%})")
+        f"({busy / wall:.1%} of wall; idle {1 - busy / wall:.1%}); "
+        f"{sum(r[2] for r in rows) / n:.1f} device kernels an iteration")
     for dev_us, key, count in rows[:12]:
-        say(f"profile:   {dev_us / n / 1e3:9.4f} ms/iter  {count:6d} calls"
+        say(f"{tag}:   {dev_us / n / 1e3:9.4f} ms/iter  {count:6d} calls"
             f"  {key[:90]}")
+
+
+def phase_preconditioners(torch, np, flagship_model):
+    """Phase 4b: the mixed solves of ``PRECOND_SOLVES`` through ``Solver``
+    (tol 1e-7, v6), each with the launch counts set to 0 just before the
+    Solver is built and read just after its solve; two V-cycle applies at 128^3 held bitwise equal;
+    a profiled window of mg inner iterations at each size.  Returns
+    {"<cells> <precond>": launch counts of that solve}."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    kw = dict(FLAGSHIP)
+    models = {kw.pop("nx"): flagship_model}
+    launches_by, iters_by = {}, {}
+    for cells, precond in PRECOND_SOLVES:
+        if cells not in models:
+            t0 = time.perf_counter()
+            models[cells] = make_cube_model(cells, **kw)
+            say(f"precond: cube {cells}^3, {models[cells].n_dof} dofs; "
+                f"model build {time.perf_counter() - t0:.2f} s")
+        model = models[cells]
+        cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed",
+                                            precond=precond))
+        tag = f"precond {cells}^3 {precond}"
+        # the path is the Solver's construction (mg: the power-iteration
+        # matvecs) and its solve
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        solver = Solver(model, cfg)
+        if solver.kernel_variant != "v6":
+            raise AssertionError(f"{tag}: Solver chose "
+                                 f"{solver.kernel_variant}, not v6")
+        if precond == "mg":
+            meta = solver.mg_setup.meta
+            say(f"{tag}: {meta['levels']} coarse levels "
+                f"{[tuple(lv['ck'].shape) for lv in solver.data['mg']['levels']]}"
+                f" cells, {sum(3 * lv['idiag'].shape[0] for lv in solver.data['mg']['levels'])}"
+                f" coarse dofs, degree {meta['degree']}; lam "
+                f"{[float(v) for v in solver.mg_lam]}; hierarchy setup "
+                f"{solver.mg_setup_s:.3f} s, lam setup {solver.mg_lam_s:.3f} s")
+        with inner_cycles() as cycles:
+            results = solver.solve()
+        launches = dict(LAUNCHES)
+        res = results[-1]
+        wall = sum(r.wall_s for r in results)
+        iters = sum(r.iters for r in results)
+        shown = {f"{v} {d}": n for (v, d), n in launches.items() if n}
+        say(f"{tag}: partition {solver.partition_build_s:.2f} s, setup "
+            f"{solver.setup_s:.2f} s; flag {res.flag}, iterations "
+            f"{res.iters}, relres {res.relres:.4e}, solve wall {wall:.3f} s "
+            f"= time to tol ({solver.setup_s + wall:.3f} s with setup), "
+            f"{wall / iters * 1e3:.4f} ms/iter, "
+            f"{model.n_dof * iters / wall:.4e} dof*iter/s; inner cycles "
+            f"(flag, iterations) {cycles}; launches {shown}")
+        if res.flag != 0 or not res.relres <= 1e-7:
+            raise AssertionError(f"{tag} did not converge: {res}")
+        f32, f64 = launches[("v6", "float32")], launches[("v6", "float64")]
+        others = {k: n for k, n in launches.items()
+                  if n and k not in (("v6", "float32"), ("v6", "float64"))}
+        need = 2 * solver.ops32.mg_degree + 1 if precond == "mg" else 1
+        if f32 < need * res.iters or others or f64 < (
+                16 if precond == "mg" else 2):
+            raise AssertionError(f"{tag} did not go through v6 as its "
+                                 f"preconditioner needs: {shown} for "
+                                 f"{res.iters} iterations")
+        u = solver.displacement_global()
+        if u.shape != (model.n_dof,) or not np.isfinite(u).all():
+            raise AssertionError(f"{tag}: displacement not finite or "
+                                 f"misshapen")
+        sigma = FLAGSHIP["load_value"] * (cells + 1) ** 2 / cells ** 2
+        bar = sigma * cells / FLAGSHIP["E"]
+        tip = float(u[0::3].max())
+        say(f"{tag}: tip ux {tip:.4e} m vs bar estimate {bar:.4e} m (ratio "
+            f"{tip / bar:.3f}, window [1/3, 3])")
+        if not bar / 3 <= tip <= 3 * bar:
+            raise AssertionError(f"{tag}: tip displacement outside the "
+                                 f"physics window")
+        if precond == "mg":
+            if cells == MG_BITS_CELLS:
+                # the preconditioner must be one fixed operator: two
+                # applies, same bits (not counted: the path's counts are
+                # read above)
+                m = make_prec(solver.ops32, solver.data32, "mg")
+                r = solver.data32["eff"] * solver.data32["F"]
+                r = r / r.norm()
+                z1 = solver.ops32.apply_prec(m, r, solver.data32)
+                z2 = solver.ops32.apply_prec(m, r, solver.data32)
+                torch.cuda.synchronize()
+                same = torch.equal(z1, z2)
+                say(f"{tag}: two V-cycle applies "
+                    f"{'bitwise equal' if same else 'DIFFERENT'}")
+                if not same or not torch.isfinite(z1).all():
+                    raise AssertionError(f"{tag}: the V-cycle is not one "
+                                         f"fixed operator")
+                del m, r, z1, z2
+            profile_inner(torch, solver, iters=20, tag=f"{tag} profile")
+        launches_by[f"{cells} {precond}"] = launches
+        iters_by[(cells, precond)] = res.iters
+        del solver, u
+        torch.cuda.empty_cache()
+    for cells in sorted({c for c, _ in PRECOND_SOLVES}):
+        if (cells, "jacobi") in iters_by and (cells, "mg") in iters_by:
+            ij, im = iters_by[(cells, "jacobi")], iters_by[(cells, "mg")]
+            say(f"precond: {cells}^3 jacobi/mg iterations {ij}/{im} = "
+                f"{ij / im:.2f}x against RUNBOOK's >= {MG_ITER_RATIO}x: "
+                f"{'held' if ij >= MG_ITER_RATIO * im else 'missed'}")
+    return launches_by
 
 
 def phase_checks(torch, np):
@@ -557,28 +696,49 @@ def phase_checks(torch, np):
     if res.flag != 0 or LAUNCHES[("v6", "float64")] < res.iters:
         raise AssertionError(f"direct f64 solve failed: {res}")
 
-    # the whole path on the card against the same solve on the CPU
-    small = make_cube_model(*CARD_VS_CPU_CELLS, seed=4,
-                            **dict(kw, load="dirichlet", load_value=1e-3))
+    # the whole path on the card against the same solve on the CPU, under
+    # each preconditioner (mg on an even cube: 12x6x5 cannot coarsen)
     th = TimeHistoryConfig(time_step_delta=(0.0, 0.5, 1.0))
-    for mode, rtol in (("direct", 1e-8), ("mixed", 1e-5)):
-        cfg = RunConfig(solver=SolverConfig(tol=1e-9, precision_mode=mode),
-                        time_history=th)
-        out = {}
-        for dev in ("cuda", "cpu"):
-            s = Solver(small, cfg, device=dev)
-            rs = s.solve()
-            out[dev] = ([(r.flag, r.iters) for r in rs],
-                        s.displacement_global())
-        (steps_g, u_g), (steps_c, u_c) = out["cuda"], out["cpu"]
-        rel = float(np.abs(u_g - u_c).max() / np.abs(u_c).max())
-        say(f"card vs cpu, {mode}, dirichlet "
-            f"{'x'.join(map(str, CARD_VS_CPU_CELLS))}, 2 steps: "
-            f"(flag, iters) card {steps_g} cpu {steps_c}, max rel diff "
-            f"{rel:.3e} (tol {rtol:g})")
-        if any(f != 0 for f, _ in steps_g) or not rel <= rtol:
-            raise AssertionError(f"{mode} solve on the card disagrees with "
-                                 f"the CPU")
+    for precond, cells_cpu in (("jacobi", CARD_VS_CPU_CELLS),
+                               ("block3", CARD_VS_CPU_CELLS),
+                               ("mg", MG_CARD_VS_CPU_CELLS)):
+        small = make_cube_model(*cells_cpu, seed=4,
+                                **dict(kw, load="dirichlet",
+                                       load_value=1e-3))
+        for mode, rtol in (("direct", 1e-8), ("mixed", 1e-5)):
+            cfg = RunConfig(solver=SolverConfig(tol=1e-9,
+                                                precision_mode=mode,
+                                                precond=precond),
+                            time_history=th)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                s = Solver(small, cfg, device=dev)
+                with inner_cycles() as cycles:
+                    rs = s.solve()
+                out[dev] = ([(r.flag, r.iters) for r in rs],
+                            s.displacement_global(), cycles)
+            (steps_g, u_g, cyc_g), (steps_c, u_c, cyc_c) = (out["cuda"],
+                                                            out["cpu"])
+            rel = float(np.abs(u_g - u_c).max() / np.abs(u_c).max())
+            say(f"card vs cpu, {precond}, {mode}, dirichlet "
+                f"{'x'.join(map(str, cells_cpu))}, 2 steps: "
+                f"(flag, iters) card {steps_g} cpu {steps_c}, max rel diff "
+                f"{rel:.3e} (tol {rtol:g})"
+                + (f"; inner cycles card {cyc_g} cpu {cyc_c}"
+                   if mode == "mixed" else ""))
+            if any(f != 0 for f, _ in steps_g) or not rel <= rtol:
+                raise AssertionError(f"{precond} {mode} solve on the card "
+                                     f"disagrees with the CPU")
+            if precond != "jacobi" and mode == "direct":
+                # reduction order alone moves a direct count by at most
+                # one; a mixed total moves further wherever an f32 cycle
+                # ends on a stagnation exit, whose iteration is round-off
+                # (the inner cycles printed above show which)
+                for (fg, ig), (fc, ic) in zip(steps_g, steps_c):
+                    if fg != fc or abs(ig - ic) > 1:
+                        raise AssertionError(
+                            f"{precond} {mode} on the card took (flag, "
+                            f"iterations) {steps_g}, on the CPU {steps_c}")
 
 
 def main() -> int:
@@ -622,7 +782,10 @@ def main() -> int:
     # 3. kernels against their plain versions
     kern = phase_kernels(torch, np, rates)
     # 4. main path at full size, once per float32 variant
-    launches_by = phase_main(torch, np)
+    launches_by, flagship_model = phase_main(torch, np)
+    # 4b. the block3 and mg preconditioners at full size
+    precond_launches = phase_preconditioners(torch, np, flagship_model)
+    del flagship_model
     # 5. direct f64 and card-vs-cpu checks
     phase_checks(torch, np)
 
@@ -639,6 +802,10 @@ def main() -> int:
                 replaces=REPLACES[variant],
                 launches=launches_by[variant][(variant, dtype)],
                 library_ms=None, **kern[(variant, dtype)]))
+            if variant == "v6":
+                records[-1]["launches_preconditioners"] = {
+                    path: counts[("v6", dtype)]
+                    for path, counts in precond_launches.items()}
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": records}))

@@ -23,8 +23,9 @@ import torch
 
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
+from pcg_mpi_solver_tpu_torch.ops.precond import corner_block_field
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-    scatter_cells, structured_matvec)
+    CORNERS, scatter_cells, structured_matvec)
 
 
 @dataclasses.dataclass
@@ -162,7 +163,10 @@ _INT_FIELDS = ("n_parts", "n_loc", "n_iface", "n_node_loc", "glob_n_dof",
 def partition_from_numpy(arrays: dict) -> StructuredPartition:
     """A partition from the fields of a ``StructuredPartition`` given as a
     dict of numpy arrays and ints — e.g. one built by the JAX package — so
-    both packages can run on bit-identical inputs."""
+    both packages can run on bit-identical inputs.  Its mg hierarchy
+    carries across the same way: ``ops.mg.tree_from_numpy`` takes the
+    JAX package's ``MGSetup.tree`` as numpy arrays into the port's device
+    tree."""
     names = [f.name for f in dataclasses.fields(StructuredPartition)]
     missing = [n for n in names if n not in arrays and n != "part_range"]
     if missing:
@@ -231,10 +235,11 @@ class StructuredOps(Ops):
     @classmethod
     def from_partition(cls, sp: StructuredPartition,
                        dot_dtype: torch.dtype = torch.float64,
-                       variant: str = "v6", planes: Optional[int] = None):
+                       variant: str = "v6", planes: Optional[int] = None,
+                       mg_degree: int = 2):
         return cls(n_loc=sp.n_loc, n_iface=0,
                    n_node_loc=sp.n_node_loc, n_node_iface=0,
-                   dot_dtype=dot_dtype,
+                   dot_dtype=dot_dtype, mg_degree=mg_degree,
                    nxc=sp.nxc, ny=sp.ny, nz=sp.nz, n_parts=sp.n_parts,
                    variant=variant, planes=planes)
 
@@ -279,3 +284,22 @@ class StructuredOps(Ops):
     def diag(self, data: dict) -> torch.Tensor:
         yg = self._grid(self.diag_local(data))
         return self._halo(yg).reshape(-1, self.n_loc)
+
+    # -- node-block (3x3) diagonal for block-Jacobi ---------------------
+    def node_block_diag(self, data: dict) -> torch.Tensor:
+        """Per-node 3x3 blocks (P, n_node_loc, 3, 3), assembled as 9
+        channels on the node grid (``corner_block_field``); slab-boundary
+        planes combine through the halo like any other field."""
+        blk = data["blocks"][0]
+        ck = blk["ck"]
+        P = ck.shape[0]
+        g = self._halo(corner_block_field(blk["Ke"], ck, CORNERS))
+        return g.reshape(P, 9, self.n_node_loc).transpose(1, 2) \
+            .reshape(P, self.n_node_loc, 3, 3)
+
+    def _as_node3(self, v: torch.Tensor) -> torch.Tensor:
+        # the structured dof layout is component-major: (P, 3, nodes)
+        return v.reshape(v.shape[0], 3, self.n_node_loc).transpose(1, 2)
+
+    def _from_node3(self, z3: torch.Tensor) -> torch.Tensor:
+        return z3.transpose(1, 2).reshape(z3.shape[0], self.n_loc)

@@ -3,8 +3,11 @@
 Port of the structured core of ``pcg_mpi_solver_tpu/solver/driver.py``
 (``Solver`` in direct and mixed precision, ``StepResult``,
 ``displacement_global``).  For each time step: Dirichlet lifting ->
-Jacobi rebuild -> PCG (direct, or the mixed f32/f64 refinement shell) ->
-u = x + Ud * delta.
+preconditioner rebuild (scalar Jacobi, 3x3 block Jacobi or the mg
+V-cycle's operand) -> PCG (direct, or the mixed f32/f64 refinement
+shell) -> u = x + Ud * delta.  Under ``precond="mg"`` the constructor
+also builds the level hierarchy (``ops/mg.py``) into ``data["mg"]`` and
+estimates the fine level's Chebyshev bound on the uploaded operator.
 
 The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card, the default raises instead of quietly running on the CPU.
@@ -22,6 +25,7 @@ import torch
 from pcg_mpi_solver_tpu_torch.config import (
     RunConfig, SolverConfig, TimeHistoryConfig)
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
+from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
 from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
@@ -59,8 +63,6 @@ UNPORTED = {
     **{("solver", f): 3 for f in (
         "mixed_plateau_window", "mixed_progress_window",
         "mixed_progress_ratio", "mixed_progress_min_gain")},
-    **{("solver", f): 5 for f in (
-        "mg_levels", "mg_smooth_degree", "mg_max_replicated_dofs")},
     **{("solver", f): 9 for f in ("max_recoveries", "dispatch_retries")},
     ("solver", "trace_resid"): 14,
     ("time_history", "dt"): 10,
@@ -102,10 +104,6 @@ def _check_slice(model: ModelData, config: RunConfig, n_parts: int) -> None:
         raise NotImplementedError(
             "nrhs > 1 is not ported yet (ROADMAP queue 1 item 7: blocked "
             "right-hand sides)")
-    if sc.precond != "jacobi":
-        raise NotImplementedError(
-            f"precond={sc.precond!r} is not ported yet (block3: ROADMAP "
-            f"queue 1 item 4; mg: item 5)")
     if config.checkpoint_every or config.snapshot_every:
         raise NotImplementedError(
             "checkpoints and snapshots are not ported yet (ROADMAP queue 1 "
@@ -153,16 +151,40 @@ class Solver:
         t_part = time.perf_counter()
         self.pm = partition_structured(model, n_parts)
         self.partition_build_s = time.perf_counter() - t_part
+        mg_degree = int(sc.mg_smooth_degree)
         self.ops = StructuredOps.from_partition(
-            self.pm, dot_dtype=dot_dtype,
+            self.pm, dot_dtype=dot_dtype, mg_degree=mg_degree,
             **(kernel if self.dtype == torch.float32 else {}))
         self.data = device_data_structured(self.pm, self.dtype, self.device)
+        # MG hierarchy (precond="mg"): host-built levels and transfers into
+        # the device tree, float leaves at the storage dtype
+        self.mg_setup = None
+        if sc.precond == "mg":
+            t_mg = time.perf_counter()
+            self.mg_setup = mgmod.build_mg_host(
+                model, self.pm, n_levels=int(sc.mg_levels),
+                degree=mg_degree,
+                max_replicated_dofs=int(sc.mg_max_replicated_dofs))
+            self.data["mg"] = mgmod.tree_from_numpy(
+                self.mg_setup.tree, self.dtype, self.device)
+            self.mg_setup_s = time.perf_counter() - t_mg
         if self.mixed:
             # f32 shadow of the float leaves (the f32 inner cycles' data);
             # their dots accumulate in f32
-            self.data32 = _cast_tree(self.data, torch.float32)
+            self.data32 = mgmod.cast_tree(self.data, torch.float32)
             self.ops32 = StructuredOps.from_partition(
-                self.pm, dot_dtype=torch.float32, **kernel)
+                self.pm, dot_dtype=torch.float32, mg_degree=mg_degree,
+                **kernel)
+        if self.mg_setup is not None:
+            # the fine level's Chebyshev bound: power-iteration matvecs on
+            # the uploaded storage-dtype operator, installed with the
+            # coarse bounds into every tree
+            t_lam = time.perf_counter()
+            lam_fine = mgmod.estimate_fine_lam(self.ops, self.data)
+            self.mg_lam = mgmod.install_lam(
+                self.mg_setup, lam_fine,
+                [self.data] + ([self.data32] if self.mixed else []))
+            self.mg_lam_s = time.perf_counter() - t_lam
 
         # Initial state: deterministic zeros.
         self.un = torch.zeros((self.pm.n_parts, self.pm.n_loc),
@@ -240,11 +262,3 @@ class Solver:
         m = (pm.weight > 0) & (pm.dof_gid >= 0)
         out[pm.dof_gid[m]] = un[m]
         return out
-
-
-def _cast_tree(tree, dtype: torch.dtype):
-    if isinstance(tree, dict):
-        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_cast_tree(v, dtype) for v in tree]
-    return tree.to(dtype)

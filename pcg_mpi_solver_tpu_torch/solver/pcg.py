@@ -82,7 +82,7 @@ def pcg(
     data: dict,
     fext: torch.Tensor,       # (P, n_loc) rhs, already restricted to eff dofs
     x0: torch.Tensor,         # (P, n_loc) initial guess (eff-restricted)
-    inv_diag: torch.Tensor,   # scalar Jacobi inverse on eff dofs (P, n_loc)
+    inv_diag,                 # preconditioner operand (ops/precond.make_prec)
     tol,
     max_iter: int,
     glob_n_dof_eff: int,
@@ -171,7 +171,7 @@ def pcg(
             continue
 
         i = c.i
-        z = ops.apply_prec(inv_diag, c.r)
+        z = ops.apply_prec(inv_diag, c.r, data)
         inf_loc = torch.isinf(z).any()
         red = ops.wdots(w, [(z, c.r)], extra=[inf_loc])
         rho = red[0]
@@ -244,7 +244,7 @@ def pcg_mixed(
     data64: dict,
     fext: torch.Tensor,       # (P, n_loc) f64 rhs on eff dofs
     x0: torch.Tensor,         # (P, n_loc) f64 initial guess
-    inv_diag32: torch.Tensor,  # f32 scalar Jacobi inverse (P, n_loc)
+    inv_diag32,               # f32 preconditioner operand
     tol: float,
     max_iter: int,
     glob_n_dof_eff: int,

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: each CUDA kernel against its plain
 PyTorch version, the kernel a solve's launches go to under each
-``PCG_TPU_PALLAS_V``, and a whole solve on the card against the same solve
-on the CPU.  They carry the ``cuda`` marker and skip with a reason where
+``PCG_TPU_PALLAS_V``, a whole solve on the card against the same solve
+on the CPU, and the block3 and mg preconditioners' applies on the card
+against the CPU (two V-cycles bitwise equal).  They carry the ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
 JAX conftest:
@@ -455,3 +456,67 @@ def test_solve_on_card_matches_cpu(cuda_device, mode, rtol):
     u_g, u_c = out["cuda"][1], out["cpu"][1]
     np.testing.assert_allclose(u_g, u_c, rtol=0,
                                atol=rtol * np.abs(u_c).max())
+
+
+def _precond_solvers(precond, dtype, n_parts=2):
+    """The same mg- or block3-configured cube on the card and on the CPU
+    (two parts, so the halo and the owner-weighted restriction run)."""
+    model = make_cube_model(12, 8, 6, E=30e9, heterogeneous=True, seed=4)
+    cfg = RunConfig(solver=SolverConfig(precond=precond, dtype=dtype))
+    return {dev: Solver(model, cfg, n_parts=n_parts, device=dev)
+            for dev in ("cuda", "cpu")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["block3", "mg"])
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-10),
+                                       ("float32", 1e-5)])
+def test_preconditioner_apply_on_card_matches_cpu(cuda_device, precond,
+                                                  dtype, tol):
+    """block3's inverse and apply and one V-cycle on the card (the fine
+    matvecs through the kernel, the coarse levels as torch ops) against
+    the plain path on the CPU, within tol * max|z| (the kernel and the
+    card's reductions sum in another order).  Under mg the fine level
+    launches the kernel 2 * mg_smooth_degree times an apply."""
+    from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+
+    solvers = _precond_solvers(precond, dtype)
+    r = np.random.default_rng(9).normal(size=solvers["cpu"].un.shape) \
+        * solvers["cpu"].pm.eff
+    z = {}
+    for dev, s in solvers.items():
+        m = make_prec(s.ops, s.data, precond)
+        if dev == "cuda":
+            smv.reset_launch_counts()
+        z[dev] = s.ops.apply_prec(
+            m, torch.as_tensor(r, dtype=s.dtype, device=dev), s.data)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = smv.LAUNCHES[("v6", dtype)]
+            assert launched == (2 * s.ops.mg_degree if precond == "mg"
+                                else 0)
+    if precond == "mg":
+        np.testing.assert_allclose(solvers["cuda"].mg_lam,
+                                   solvers["cpu"].mg_lam, rtol=tol)
+    zc = z["cpu"].numpy()
+    np.testing.assert_allclose(z["cuda"].cpu().numpy(), zc, rtol=0,
+                               atol=tol * np.abs(zc).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_vcycle_applies_are_bitwise_equal_on_card(cuda_device, dtype):
+    """Two V-cycles on the same vector give the same bits on the card: the
+    restrictions are fixed-order gathers, not float atomics, so the
+    preconditioner is the one fixed operator plain CG needs."""
+    from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+
+    s = _precond_solvers("mg", dtype)["cuda"]
+    m = make_prec(s.ops, s.data, "mg")
+    r = torch.randn(s.un.shape, dtype=s.dtype, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3))
+    r = r * s.data["eff"]
+    z1 = s.ops.apply_prec(m, r, s.data)
+    z2 = s.ops.apply_prec(m, r, s.data)
+    torch.cuda.synchronize()
+    assert torch.isfinite(z1).all() and torch.equal(z1, z2)

@@ -93,8 +93,6 @@ def test_solver_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(solver=SolverConfig(precond="block3")), "item 4"),
-    (dict(solver=SolverConfig(precond="mg")), "item 5"),
     (dict(solver=SolverConfig(pcg_variant="pipelined")), "item 6"),
     (dict(solver=SolverConfig(nrhs=2)), "item 7"),
     (dict(snapshot_every=5), "item 9"),
@@ -117,7 +115,6 @@ def _refuse(where):
     """Triggers the port's refusal at ``where`` on a small one-part cube
     (or, for the single-process psum, returns its docstring)."""
     from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
-    from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
     from pcg_mpi_solver_tpu_torch.parallel.structured import (
         StructuredOps, device_data_structured, partition_structured)
     from pcg_mpi_solver_tpu_torch.solver.pcg import pcg
@@ -129,8 +126,7 @@ def _refuse(where):
     ops = StructuredOps.from_partition(sp)
     v = torch.zeros(1, ops.n_loc, dtype=torch.float64)
     calls = {
-        "apply_prec": lambda: ops.apply_prec(v, v[..., None]),
-        "make_prec": lambda: make_prec(ops, data, "mg"),
+        "apply_prec": lambda: ops.apply_prec(v, v[..., None], data),
         "matvec_local": lambda: ops.matvec_local(data, v[..., None]),
         "pcg": lambda: pcg(ops, data, v, v, v, 1e-8, 10, ops.n_loc,
                            variant="pipelined"),
@@ -142,15 +138,14 @@ def _refuse(where):
 
 @pytest.mark.parametrize("where,items", [
     ("psum", [r"sharding is ROADMAP queue 1 item 12\b"]),
-    ("apply_prec", [r"mg: item 5\b", r"blocked right-hand sides: item 7\b"]),
-    ("make_prec", [r"mg: item 5\b"]),
+    ("apply_prec", [r"blocked right-hand sides: item 7\b"]),
     ("matvec_local", [r"blocked right-hand sides .*item 7\b"]),
     ("pcg", [r"item 6: PCG variants\)"]),
 ])
 def test_module_refusals_name_their_queue_items(where, items):
     """Each refusal inside the port's modules (outside solver/driver.py's,
     which test_unported_options_raise checks) names the ROADMAP queue 1 item
-    that owns what it refuses: sharding 12, mg 5, PCG variants 6, blocked
+    that owns what it refuses: sharding 12, PCG variants 6, blocked
     right-hand sides 7."""
     text = " ".join(_refuse(where).split())
     for item in items:
