@@ -42,13 +42,23 @@ Phases (any failed check raises, so the script exits non-zero):
                 16 float64 power-iteration matvecs), two V-cycles at 128^3
                 bitwise equal, a profiled window of mg iterations at each
                 size;
+  4c. variants — the fused and pipelined PCG variants (tol 1e-7, v6): the
+                150^3 flagship mixed under jacobi with each, the 128^3 cube
+                mixed under pipelined and mg, the flagship direct float64
+                under pipelined; iterations against the classic solve of
+                phase 4 or 4b, ms/iter, time to tol, inner cycles, launches
+                of each; 100 profiled inner iterations of each 150^3 mixed
+                variant beside classic's; two pipelined mixed 12x6x5 solves
+                bitwise equal.  The pipelined mixed flagship is held to the
+                stall the JAX package's own algorithm shows (``STALLS``);
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
-                solves on the CPU (the plain path), under jacobi, block3
-                and mg.
+                solves on the CPU (the plain path): classic under jacobi,
+                block3 and mg, fused and pipelined under jacobi and mg.
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
-preconditioner solve of phase 4b), the last line
+preconditioner solve of phase 4b and by variant solve of phase 4c), the
+last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -74,11 +84,33 @@ FLAGSHIP = dict(nx=150, E=30e9, nu=0.2, load="traction", load_value=1e6,
 DIRECT_F64_CELLS = (48, 32, 32)     # phase 5's direct float64 solve
 CARD_VS_CPU_CELLS = (12, 6, 5)      # phase 5's card-against-CPU solves
 MG_CARD_VS_CPU_CELLS = (12, 8, 8)   # and its mg one (even: two levels)
+# phase 5's (PCG variant, preconditioner, cells) of each card-against-CPU
+# solve, in direct and mixed precision
+CARD_VS_CPU_SOLVES = tuple(
+    (v, pc, MG_CARD_VS_CPU_CELLS if pc == "mg" else CARD_VS_CPU_CELLS)
+    for v, pcs in (("classic", ("jacobi", "block3", "mg")),
+                   ("fused", ("jacobi", "mg")),
+                   ("pipelined", ("jacobi", "mg")))
+    for pc in pcs)
 # phase 4b: (cells a side, preconditioner) of each mixed solve; 150 is the
 # flagship, whose mg hierarchy has one level (75 is odd), 128 the even cube
 # that gives mg six (64 ... 2)
 PRECOND_SOLVES = ((128, "jacobi"), (128, "mg"), (150, "block3"),
                   (150, "mg"))
+# phase 4c: (cells a side, preconditioner, PCG variant, precision) of each
+# solve: the bench's variant legs on the flagship, RUNBOOK's pipelined +
+# mg composition at 128^3, and the pipelined body in float64 at the
+# flagship's width, where its recurrence holds
+VARIANT_SOLVES = ((150, "jacobi", "fused", "mixed"),
+                  (150, "jacobi", "pipelined", "mixed"),
+                  (128, "mg", "pipelined", "mixed"),
+                  (150, "jacobi", "pipelined", "direct"))
+# Solves that the JAX package's own algorithm does not converge: its
+# pipelined mixed solve stalls on this model family from 48^3 up (flag 3:
+# every f32 GV cycle ends on a flag-4 breakdown, and a refresh fails to
+# halve the f64 residual; both packages on the CPU at 48^3, 64^3 and
+# 96^3, PERF.md, Findings).  Phase 4c holds the port to that outcome.
+STALLS = {(150, "jacobi", "pipelined", "mixed")}
 MG_ITER_RATIO = 5       # RUNBOOK: mg >= 5x fewer iterations than jacobi
 MG_BITS_CELLS = 128     # phase 4b holds two V-cycles bitwise equal here
 # The JAX package's record of the same solve (docs/HW_SESSION.log:134):
@@ -428,7 +460,8 @@ def inner_cycles():
 
 def phase_main(torch, np):
     """The flagship mixed solve once under each float32 variant; returns
-    {variant: launch counts of its solve} and the flagship model.  Ends with v4's, v7's, v8's and
+    {variant: launch counts of its solve}, the flagship model and v6's
+    iterations and inner-loop profile.  Ends with v4's, v7's, v8's and
     v9's inner cycles beside v6's: the stagnation exits that end the
     cycles move with the round-off of the cell product (v4 and v8 run v6
     float's FFMA product and node sums; a DMMA product moved the second
@@ -454,7 +487,7 @@ def phase_main(torch, np):
     # a 3x window for the two-phase material
     sigma = FLAGSHIP["load_value"] * (nx + 1) ** 2 / nx ** 2
     bar = sigma * nx / FLAGSHIP["E"]
-    launches_by, cycles_by = {}, {}
+    launches_by, cycles_by, classic = {}, {}, {}
     # v6 last: its profiled window follows its solve, and the torch.profiler
     # window slows every solve run after it (PERF.md, Findings)
     for variant in sorted(F32_VARIANTS, key=lambda v: v == "v6"):
@@ -506,7 +539,8 @@ def phase_main(torch, np):
             raise AssertionError("flagship tip displacement outside the "
                                  "physics window")
         if variant == "v6":
-            profile_inner(torch, solver)
+            classic = dict(iters=res.iters, profile=profile_inner(torch,
+                                                                  solver))
         launches_by[variant] = launches
         cycles_by[variant] = (cycles, res.iters)
         del solver, u
@@ -514,33 +548,41 @@ def phase_main(torch, np):
     for v in ("v4", "v7", "v8", "v9", "v6"):
         say(f"main: inner cycles (flag, iterations) {v} {cycles_by[v][0]}, "
             f"{cycles_by[v][1]} in all")
-    return launches_by, model
+    return launches_by, model, classic
 
 
 def profile_inner(torch, solver, iters: int = 100, tag: str = "profile"):
     """Device time by kernel over a window of f32 inner iterations of a
-    mixed solver (the body of the mixed solve) under its preconditioner,
-    and the device-busy share of the window's wall time."""
+    mixed solver (the body of the mixed solve) under its preconditioner
+    and PCG variant, and the device-busy share of the window's wall time.
+    Returns {"wall", "busy" (ms/iter), "idle" (share), "kernels" (an
+    iteration), "per_trip" (kernels a trip: a trip launches one float32
+    matvec)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import LAUNCHES
     from pcg_mpi_solver_tpu_torch.solver.pcg import pcg
 
     ops, data = solver.ops32, solver.data32
     rhs = (data["eff"] * data["F"])
     rhs = rhs / rhs.norm()
     inv = make_prec(ops, data, solver.config.solver.precond)
+    f32 = (solver.kernel_variant, "float32")
     torch.cuda.synchronize()
+    before = LAUNCHES[f32]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _res, carry = pcg(ops, data, rhs, torch.zeros_like(rhs), inv,
                           tol=1e-30, max_iter=iters,
                           glob_n_dof_eff=solver.pm.glob_n_dof_eff,
-                          return_carry=True)
+                          return_carry=True,
+                          variant=solver.config.solver.pcg_variant)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    matvecs = LAUNCHES[f32] - before
     rows = []
     for ev in prof.key_averages():
         # device-side events only (kernels, copies); the aten ops that
@@ -554,13 +596,23 @@ def profile_inner(torch, solver, iters: int = 100, tag: str = "profile"):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     n = carry["exec"]
-    say(f"{tag}: {n} inner f32 iterations, wall {wall * 1e3 / n:.4f} "
-        f"ms/iter, device busy {busy * 1e3 / n:.4f} ms/iter "
-        f"({busy / wall:.1%} of wall; idle {1 - busy / wall:.1%}); "
-        f"{sum(r[2] for r in rows) / n:.1f} device kernels an iteration")
+    kernels = sum(r[2] for r in rows)
+    # a trip's matvecs: one, and the smoothing's under mg (whose check
+    # trips have one), so trips are counted only without mg
+    trips = None if solver.config.solver.precond == "mg" else matvecs
+    out = dict(wall=wall * 1e3 / n, busy=busy * 1e3 / n,
+               idle=1 - busy / wall, kernels=kernels / n,
+               per_trip=kernels / trips if trips else None)
+    say(f"{tag}: {n} inner f32 iterations"
+        + (f" ({trips} trips)" if trips else "")
+        + f", wall {out['wall']:.4f} ms/iter, device busy {out['busy']:.4f} "
+        f"ms/iter ({busy / wall:.1%} of wall; idle {out['idle']:.1%}); "
+        f"{out['kernels']:.1f} device kernels an iteration"
+        + (f", {out['per_trip']:.1f} a trip" if trips else ""))
     for dev_us, key, count in rows[:12]:
         say(f"{tag}:   {dev_us / n / 1e3:9.4f} ms/iter  {count:6d} calls"
             f"  {key[:90]}")
+    return out
 
 
 def phase_preconditioners(torch, np, flagship_model):
@@ -568,7 +620,8 @@ def phase_preconditioners(torch, np, flagship_model):
     (tol 1e-7, v6), each with the launch counts set to 0 just before the
     Solver is built and read just after its solve; two V-cycle applies at 128^3 held bitwise equal;
     a profiled window of mg inner iterations at each size.  Returns
-    {"<cells> <precond>": launch counts of that solve}."""
+    {"<cells> <precond>": launch counts of that solve}, {(cells, precond):
+    iterations} and the models by cells."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
@@ -671,6 +724,143 @@ def phase_preconditioners(torch, np, flagship_model):
             say(f"precond: {cells}^3 jacobi/mg iterations {ij}/{im} = "
                 f"{ij / im:.2f}x against RUNBOOK's >= {MG_ITER_RATIO}x: "
                 f"{'held' if ij >= MG_ITER_RATIO * im else 'missed'}")
+    return launches_by, iters_by, models
+
+
+def phase_variants(torch, np, models, classic_iters, classic_profile):
+    """Phase 4c: the solves of ``VARIANT_SOLVES`` through ``Solver`` (tol
+    1e-7, v6), each with the launch counts set to 0 just before the Solver
+    is built and read just after its solve; then 100 inner f32 iterations
+    of each 150^3 mixed variant under the profiler beside classic's (phase
+    4), and two 12x6x5 pipelined mixed solves held bitwise equal.
+    ``classic_iters`` maps (cells, precond) to the classic mixed solve's
+    iterations (phases 4 and 4b).  Returns {"<cells> <precond> <variant>
+    <mode>": launch counts of that solve}."""
+    from pcg_mpi_solver_tpu_torch import (
+        RunConfig, SolverConfig, TimeHistoryConfig)
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    kw = dict(FLAGSHIP)
+    kw.pop("nx")
+    launches_by, profiled = {}, {}
+    for cells, precond, variant, mode in VARIANT_SOLVES:
+        if cells not in models:
+            models[cells] = make_cube_model(cells, **kw)
+        model = models[cells]
+        cfg = RunConfig(solver=SolverConfig(
+            tol=1e-7, precision_mode=mode, precond=precond,
+            pcg_variant=variant))
+        tag = f"variant {cells}^3 {precond} {variant} {mode}"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        solver = Solver(model, cfg)
+        if solver.kernel_variant != "v6":
+            raise AssertionError(f"{tag}: Solver chose "
+                                 f"{solver.kernel_variant}, not v6")
+        with inner_cycles() as cycles:
+            results = solver.solve()
+        launches = dict(LAUNCHES)
+        res = results[-1]
+        wall = sum(r.wall_s for r in results)
+        iters = sum(r.iters for r in results)
+        f32, f64 = launches[("v6", "float32")], launches[("v6", "float64")]
+        base = classic_iters.get((cells, precond)) if mode == "mixed" \
+            else None
+        ratio = (f"{iters / base:.3f}x classic's {base} (same cells, "
+                 f"preconditioner, mixed)" if base else
+                 "no classic solve of this size and precision in this run")
+        say(f"{tag}: setup {solver.setup_s:.2f} s; flag {res.flag}, "
+            f"iterations {res.iters}, relres {res.relres:.4e}, solve wall "
+            f"{wall:.3f} s = time to tol ({solver.setup_s + wall:.3f} s "
+            f"with setup), {wall / iters * 1e3:.4f} ms/iter, "
+            f"{model.n_dof * iters / wall:.4e} dof*iter/s; inner cycles "
+            f"(flag, iterations) {cycles}; launches f32 {f32}, f64 {f64} "
+            f"({(f32 or f64) / iters:.3f} a {'f32' if f32 else 'f64'} "
+            f"iteration); iterations {ratio}")
+        if (cells, precond, variant, mode) in STALLS:
+            # the reference's outcome on this input (STALLS): a refresh
+            # that fails to halve the f64 residual after f32 cycles that
+            # each end on a breakdown
+            stalled = res.flag == 3 and cycles and all(
+                f == 4 for f, _ in cycles)
+            say(f"{tag}: NOT CONVERGED, as the JAX package's pipelined "
+                f"mixed solve is not on this model family from 48^3 up "
+                f"(flag 3 after f32 cycles that end on flag 4): "
+                f"{'the same outcome' if stalled else 'ANOTHER outcome'}")
+            if not stalled:
+                raise AssertionError(f"{tag}: {res} with inner cycles "
+                                     f"{cycles}, not the reference's stall")
+        elif res.flag != 0 or not res.relres <= 1e-7:
+            raise AssertionError(f"{tag} did not converge: {res}")
+        need = (2 * solver.ops32.mg_degree + 1 if precond == "mg" else 1)
+        others = {k: n for k, n in launches.items()
+                  if n and k not in (("v6", "float32"), ("v6", "float64"))}
+        if (mode == "mixed" and (f32 < need * res.iters or f64 < 2)) \
+                or (mode == "direct" and (f32 != 0 or f64 < res.iters)) \
+                or others:
+            raise AssertionError(f"{tag} did not go through v6: "
+                                 f"{launches} for {res.iters} iterations")
+        u = solver.displacement_global()
+        if u.shape != (model.n_dof,) or not np.isfinite(u).all():
+            raise AssertionError(f"{tag}: displacement not finite or "
+                                 f"misshapen")
+        if res.flag == 0:
+            sigma = FLAGSHIP["load_value"] * (cells + 1) ** 2 / cells ** 2
+            bar = sigma * cells / FLAGSHIP["E"]
+            tip = float(u[0::3].max())
+            say(f"{tag}: tip ux {tip:.4e} m vs bar estimate {bar:.4e} m "
+                f"(ratio {tip / bar:.3f}, window [1/3, 3])")
+            if not bar / 3 <= tip <= 3 * bar:
+                raise AssertionError(f"{tag}: tip displacement outside the "
+                                     f"physics window")
+        launches_by[f"{cells} {precond} {variant} {mode}"] = launches
+        if cells == FLAGSHIP["nx"] and mode == "mixed":
+            profiled[variant] = solver
+        else:
+            del solver
+        del u
+        torch.cuda.empty_cache()
+    # the profiles after every solve: a profiler window slows the solves
+    # run after it
+    p = classic_profile
+    say(f"variant profile classic (phase 4): busy {p['busy']:.4f} ms/iter, "
+        f"idle {p['idle']:.1%}, {p['kernels']:.1f} kernels an iteration, "
+        f"{p['per_trip']:.1f} a trip")
+    for variant in list(profiled):
+        solver = profiled.pop(variant)
+        p = profile_inner(torch, solver, tag=f"variant profile {variant}")
+        say(f"variant profile {variant}: busy {p['busy']:.4f} ms/iter, "
+            f"idle {p['idle']:.1%}, {p['kernels']:.1f} kernels an "
+            f"iteration, {p['per_trip']:.1f} a trip (classic: "
+            f"{classic_profile['busy']:.4f}, {classic_profile['idle']:.1%}, "
+            f"{classic_profile['kernels']:.1f}, "
+            f"{classic_profile['per_trip']:.1f})")
+        del solver
+    torch.cuda.empty_cache()
+
+    # the early read of the pipelined reduction changes no value: two
+    # solves, the same bits
+    small = make_cube_model(*CARD_VS_CPU_CELLS, seed=4,
+                            **dict(kw, load="dirichlet", load_value=1e-3))
+    cfg = RunConfig(solver=SolverConfig(tol=1e-9, precision_mode="mixed",
+                                        pcg_variant="pipelined"),
+                    time_history=TimeHistoryConfig(
+                        time_step_delta=(0.0, 0.5, 1.0)))
+    runs = []
+    for _ in range(2):
+        s = Solver(small, cfg)
+        rs = s.solve()
+        runs.append(([(r.flag, r.iters, r.relres) for r in rs], s.un.clone()))
+    same = runs[0][0] == runs[1][0] and torch.equal(runs[0][1], runs[1][1])
+    say(f"variant bits: two pipelined mixed "
+        f"{'x'.join(map(str, CARD_VS_CPU_CELLS))} solves {runs[0][0]}: "
+        f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not same or any(f != 0 for f, _, _ in runs[0][0]):
+        raise AssertionError("two pipelined solves on the card differ or "
+                             "did not converge")
     return launches_by
 
 
@@ -697,18 +887,18 @@ def phase_checks(torch, np):
         raise AssertionError(f"direct f64 solve failed: {res}")
 
     # the whole path on the card against the same solve on the CPU, under
-    # each preconditioner (mg on an even cube: 12x6x5 cannot coarsen)
+    # each preconditioner (mg on an even cube: 12x6x5 cannot coarsen), the
+    # classic body under each, the fused and pipelined under jacobi and mg
     th = TimeHistoryConfig(time_step_delta=(0.0, 0.5, 1.0))
-    for precond, cells_cpu in (("jacobi", CARD_VS_CPU_CELLS),
-                               ("block3", CARD_VS_CPU_CELLS),
-                               ("mg", MG_CARD_VS_CPU_CELLS)):
+    for variant, precond, cells_cpu in CARD_VS_CPU_SOLVES:
         small = make_cube_model(*cells_cpu, seed=4,
                                 **dict(kw, load="dirichlet",
                                        load_value=1e-3))
         for mode, rtol in (("direct", 1e-8), ("mixed", 1e-5)):
             cfg = RunConfig(solver=SolverConfig(tol=1e-9,
                                                 precision_mode=mode,
-                                                precond=precond),
+                                                precond=precond,
+                                                pcg_variant=variant),
                             time_history=th)
             out = {}
             for dev in ("cuda", "cpu"):
@@ -720,16 +910,18 @@ def phase_checks(torch, np):
             (steps_g, u_g, cyc_g), (steps_c, u_c, cyc_c) = (out["cuda"],
                                                             out["cpu"])
             rel = float(np.abs(u_g - u_c).max() / np.abs(u_c).max())
-            say(f"card vs cpu, {precond}, {mode}, dirichlet "
+            say(f"card vs cpu, {variant}, {precond}, {mode}, dirichlet "
                 f"{'x'.join(map(str, cells_cpu))}, 2 steps: "
                 f"(flag, iters) card {steps_g} cpu {steps_c}, max rel diff "
                 f"{rel:.3e} (tol {rtol:g})"
                 + (f"; inner cycles card {cyc_g} cpu {cyc_c}"
                    if mode == "mixed" else ""))
-            if any(f != 0 for f, _ in steps_g) or not rel <= rtol:
-                raise AssertionError(f"{precond} {mode} solve on the card "
-                                     f"disagrees with the CPU")
-            if precond != "jacobi" and mode == "direct":
+            if any(f != 0 for f, _ in steps_g) or not rel <= rtol \
+                    or [f for f, _ in steps_g] != [f for f, _ in steps_c]:
+                raise AssertionError(f"{variant} {precond} {mode} solve on "
+                                     f"the card disagrees with the CPU")
+            if (precond != "jacobi" or variant != "classic") \
+                    and mode == "direct":
                 # reduction order alone moves a direct count by at most
                 # one; a mixed total moves further wherever an f32 cycle
                 # ends on a stagnation exit, whose iteration is round-off
@@ -737,8 +929,9 @@ def phase_checks(torch, np):
                 for (fg, ig), (fc, ic) in zip(steps_g, steps_c):
                     if fg != fc or abs(ig - ic) > 1:
                         raise AssertionError(
-                            f"{precond} {mode} on the card took (flag, "
-                            f"iterations) {steps_g}, on the CPU {steps_c}")
+                            f"{variant} {precond} {mode} on the card took "
+                            f"(flag, iterations) {steps_g}, on the CPU "
+                            f"{steps_c}")
 
 
 def main() -> int:
@@ -782,10 +975,17 @@ def main() -> int:
     # 3. kernels against their plain versions
     kern = phase_kernels(torch, np, rates)
     # 4. main path at full size, once per float32 variant
-    launches_by, flagship_model = phase_main(torch, np)
+    launches_by, flagship_model, classic = phase_main(torch, np)
     # 4b. the block3 and mg preconditioners at full size
-    precond_launches = phase_preconditioners(torch, np, flagship_model)
+    precond_launches, precond_iters, models = phase_preconditioners(
+        torch, np, flagship_model)
     del flagship_model
+    # 4c. the fused and pipelined PCG variants at full size
+    classic_iters = dict(precond_iters)
+    classic_iters[(FLAGSHIP["nx"], "jacobi")] = classic["iters"]
+    variant_launches = phase_variants(torch, np, models, classic_iters,
+                                      classic["profile"])
+    del models
     # 5. direct f64 and card-vs-cpu checks
     phase_checks(torch, np)
 
@@ -806,6 +1006,9 @@ def main() -> int:
                 records[-1]["launches_preconditioners"] = {
                     path: counts[("v6", dtype)]
                     for path, counts in precond_launches.items()}
+                records[-1]["launches_variants"] = {
+                    path: counts[("v6", dtype)]
+                    for path, counts in variant_launches.items()}
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": records}))

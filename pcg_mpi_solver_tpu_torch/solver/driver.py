@@ -4,10 +4,12 @@ Port of the structured core of ``pcg_mpi_solver_tpu/solver/driver.py``
 (``Solver`` in direct and mixed precision, ``StepResult``,
 ``displacement_global``).  For each time step: Dirichlet lifting ->
 preconditioner rebuild (scalar Jacobi, 3x3 block Jacobi or the mg
-V-cycle's operand) -> PCG (direct, or the mixed f32/f64 refinement
-shell) -> u = x + Ud * delta.  Under ``precond="mg"`` the constructor
-also builds the level hierarchy (``ops/mg.py``) into ``data["mg"]`` and
-estimates the fine level's Chebyshev bound on the uploaded operator.
+V-cycle's operand) -> PCG (``SolverConfig.pcg_variant``: classic, fused
+or pipelined; direct, or the mixed f32/f64 refinement shell) -> u = x +
+Ud * delta.  A flag-6 exit (recurrence drift) is returned as it is.
+Under ``precond="mg"`` the constructor also builds the level hierarchy
+(``ops/mg.py``) into ``data["mg"]`` and estimates the fine level's
+Chebyshev bound on the uploaded operator.
 
 The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card, the default raises instead of quietly running on the CPU.
@@ -96,10 +98,6 @@ def _check_slice(model: ModelData, config: RunConfig, n_parts: int) -> None:
             f"pallas={sc.pallas!r}: the port has no XLA path and no "
             f"interpreter; it always runs its CUDA kernels on the card and "
             f"their plain version on the CPU ('auto' or 'on')")
-    if sc.pcg_variant != "classic":
-        raise NotImplementedError(
-            f"pcg_variant={sc.pcg_variant!r} is not ported yet (ROADMAP "
-            f"queue 1 item 6: PCG variants)")
     if sc.nrhs > 1:
         raise NotImplementedError(
             "nrhs > 1 is not ported yet (ROADMAP queue 1 item 7: blocked "

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: each CUDA kernel against its plain
 PyTorch version, the kernel a solve's launches go to under each
 ``PCG_TPU_PALLAS_V``, a whole solve on the card against the same solve
-on the CPU, and the block3 and mg preconditioners' applies on the card
+on the CPU (classic, fused and pipelined; two pipelined solves bitwise
+equal), and the block3 and mg preconditioners' applies on the card
 against the CPU (two V-cycles bitwise equal).  They carry the ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
@@ -520,3 +521,73 @@ def test_vcycle_applies_are_bitwise_equal_on_card(cuda_device, dtype):
     z2 = s.ops.apply_prec(m, r, s.data)
     torch.cuda.synchronize()
     assert torch.isfinite(z1).all() and torch.equal(z1, z2)
+
+
+def _variant_solver(variant, mode, device, precond="jacobi"):
+    """The 12x6x5 card-against-CPU model under a PCG variant."""
+    model = make_cube_model(12, 6, 5, E=30e9, heterogeneous=True, seed=4,
+                            load="dirichlet", load_value=1e-3)
+    cfg = RunConfig(solver=SolverConfig(tol=1e-9, precision_mode=mode,
+                                        max_iter=500, precond=precond,
+                                        pcg_variant=variant),
+                    time_history=TimeHistoryConfig(
+                        time_step_delta=(0.0, 0.5, 1.0)))
+    return Solver(model, cfg, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,rtol", [("direct", 1e-8), ("mixed", 1e-5)])
+@pytest.mark.parametrize("variant", ["fused", "pipelined"])
+def test_variant_solve_on_card_matches_cpu(cuda_device, variant, mode,
+                                           rtol):
+    """A fused or pipelined solve on the card against the same solve on the
+    CPU: flag 0 both steps on both, direct iterations within +-1 (the
+    reduction order alone), displacements within the solve's scale."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = _variant_solver(variant, mode, dev)
+        out[dev] = ([(r.flag, r.iters) for r in s.solve()],
+                    s.displacement_global())
+    (steps_g, u_g), (steps_c, u_c) = out["cuda"], out["cpu"]
+    assert [f for f, _ in steps_g] == [f for f, _ in steps_c] == [0, 0]
+    if mode == "direct":
+        assert all(abs(a[1] - b[1]) <= 1 for a, b in zip(steps_g, steps_c))
+    np.testing.assert_allclose(u_g, u_c, rtol=0,
+                               atol=rtol * np.abs(u_c).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["jacobi", "mg"])
+def test_pipelined_solves_repeat_bitwise_on_card(cuda_device, precond):
+    """Two pipelined mixed solves give the same bits: the reduction's early
+    read into pinned memory changes no value (mg on an even cube, whose
+    V-cycle is one fixed operator)."""
+    runs = []
+    for _ in range(2):
+        if precond == "mg":
+            model = make_cube_model(12, 8, 8, E=30e9, heterogeneous=True,
+                                    seed=4, load="dirichlet",
+                                    load_value=1e-3)
+            s = Solver(model, RunConfig(solver=SolverConfig(
+                tol=1e-9, precision_mode="mixed", max_iter=500,
+                precond="mg", pcg_variant="pipelined")), device=cuda_device)
+        else:
+            s = _variant_solver("pipelined", "mixed", cuda_device)
+        r = s.step(1.0)
+        runs.append(((r.flag, r.iters, r.relres), s.un.clone()))
+    assert runs[0][0] == runs[1][0] and runs[0][0][0] == 0
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fused", "pipelined"])
+def test_variant_solve_launches_the_float32_kernel(cuda_device, variant):
+    """Each inner iteration of a mixed solve under a variant launches v6's
+    float32 kernel at least once (pipelined also on its priming trips)."""
+    s = _variant_solver(variant, "mixed", cuda_device)
+    torch.cuda.synchronize()
+    smv.reset_launch_counts()
+    r = s.step(1.0)
+    assert r.flag == 0
+    assert smv.LAUNCHES[("v6", "float32")] >= r.iters
+    assert smv.LAUNCHES[("v6", "float64")] >= 2

@@ -227,11 +227,3 @@ def test_mixed_inner_cycle_matches_jax_on_identical_input(tol):
     np.testing.assert_allclose(rt.x.numpy(), xj, rtol=0,
                                atol=1e-4 * np.abs(xj).max())
 
-
-def test_unported_variant_raises():
-    sp, _js, (tops, tdat), fext = setup()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        pcg(tops["64"], tdat["64"], torch.from_numpy(fext),
-            torch.from_numpy(np.zeros_like(fext)),
-            make_prec(tops["64"], tdat["64"], "jacobi"), tol=1e-8,
-            max_iter=10, glob_n_dof_eff=sp.glob_n_dof_eff, variant="fused")

@@ -93,7 +93,6 @@ def test_solver_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(solver=SolverConfig(pcg_variant="pipelined")), "item 6"),
     (dict(solver=SolverConfig(nrhs=2)), "item 7"),
     (dict(snapshot_every=5), "item 9"),
 ])
@@ -117,7 +116,6 @@ def _refuse(where):
     from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
     from pcg_mpi_solver_tpu_torch.parallel.structured import (
         StructuredOps, device_data_structured, partition_structured)
-    from pcg_mpi_solver_tpu_torch.solver.pcg import pcg
 
     if where == "psum":
         return Ops._psum.__doc__
@@ -128,8 +126,6 @@ def _refuse(where):
     calls = {
         "apply_prec": lambda: ops.apply_prec(v, v[..., None], data),
         "matvec_local": lambda: ops.matvec_local(data, v[..., None]),
-        "pcg": lambda: pcg(ops, data, v, v, v, 1e-8, 10, ops.n_loc,
-                           variant="pipelined"),
     }
     with pytest.raises(NotImplementedError) as info:
         calls[where]()
@@ -140,13 +136,11 @@ def _refuse(where):
     ("psum", [r"sharding is ROADMAP queue 1 item 12\b"]),
     ("apply_prec", [r"blocked right-hand sides: item 7\b"]),
     ("matvec_local", [r"blocked right-hand sides .*item 7\b"]),
-    ("pcg", [r"item 6: PCG variants\)"]),
 ])
 def test_module_refusals_name_their_queue_items(where, items):
     """Each refusal inside the port's modules (outside solver/driver.py's,
     which test_unported_options_raise checks) names the ROADMAP queue 1 item
-    that owns what it refuses: sharding 12, PCG variants 6, blocked
-    right-hand sides 7."""
+    that owns what it refuses: sharding 12, blocked right-hand sides 7."""
     text = " ".join(_refuse(where).split())
     for item in items:
         assert re.search(item, text), (where, text)
