@@ -51,13 +51,29 @@ Phases (any failed check raises, so the script exits non-zero):
                 variant beside classic's; two pipelined mixed 12x6x5 solves
                 bitwise equal.  The pipelined mixed flagship is held to the
                 stall the JAX package's own algorithm shows (``STALLS``);
+  4d. many    — blocked right-hand sides through ``Solver.solve_many``
+                (mixed, tol 1e-7, v6; ``MANY_SOLVES``): the 150^3 flagship
+                as the width-1 block [F] and the width-4 block [F, 2F,
+                F_y, F_z] under jacobi (F_y, F_z: F's face forces on y and
+                z), and [F, F_y] at 128^3 under mg; per-column flag,
+                iterations, relres and tip against its bar or shear
+                estimate, lockstep trips, ms a trip, dof*iter*rhs/s
+                against the width-1 rate, launches (float32 >= trips);
+                x(2F) = 2 x(F) bit for bit; one blocked float32 matvec at
+                R = 4 against four single launches (time, bits); 100
+                profiled lockstep trips at R = 4 beside classic's phase-4
+                window, 20 of the mg block; two 12x6x5 blocks bitwise
+                equal;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
                 solves on the CPU (the plain path): classic under jacobi,
-                block3 and mg, fused and pipelined under jacobi and mg.
+                block3 and mg, fused and pipelined under jacobi and mg;
+                then blocks [F, F_y, F_z] (12x6x5, mg 12x8x8) under
+                classic, fused and pipelined with jacobi and mg.
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
-preconditioner solve of phase 4b and by variant solve of phase 4c), the
+preconditioner solve of phase 4b, by variant solve of phase 4c and by
+block of phase 4d), the
 last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
@@ -111,6 +127,18 @@ VARIANT_SOLVES = ((150, "jacobi", "fused", "mixed"),
 # halve the f64 residual; both packages on the CPU at 48^3, 64^3 and
 # 96^3, PERF.md, Findings).  Phase 4c holds the port to that outcome.
 STALLS = {(150, "jacobi", "pipelined", "mixed")}
+# phase 4d: (cells a side, preconditioner, columns) of each blocked mixed
+# solve through Solver.solve_many; F is the flagship's traction load, 2F
+# twice it, F_y and F_z its +x face forces moved onto y and z (shear load
+# cases).  The two 150^3 blocks share one Solver.
+MANY_SOLVES = ((150, "jacobi", ("F",)),
+               (150, "jacobi", ("F", "2F", "F_y", "F_z")),
+               (128, "mg", ("F", "F_y")))
+# phase 5's blocked card-against-CPU solves, [F, F_y, F_z] on the traction
+# cube, in direct and mixed precision
+MANY_CARD_VS_CPU = tuple(
+    (v, pc, MG_CARD_VS_CPU_CELLS if pc == "mg" else CARD_VS_CPU_CELLS)
+    for v in ("classic", "fused", "pipelined") for pc in ("jacobi", "mg"))
 MG_ITER_RATIO = 5       # RUNBOOK: mg >= 5x fewer iterations than jacobi
 MG_BITS_CELLS = 128     # phase 4b holds two V-cycles bitwise equal here
 # The JAX package's record of the same solve (docs/HW_SESSION.log:134):
@@ -551,42 +579,14 @@ def phase_main(torch, np):
     return launches_by, model, classic
 
 
-def profile_inner(torch, solver, iters: int = 100, tag: str = "profile"):
-    """Device time by kernel over a window of f32 inner iterations of a
-    mixed solver (the body of the mixed solve) under its preconditioner
-    and PCG variant, and the device-busy share of the window's wall time.
-    Returns {"wall", "busy" (ms/iter), "idle" (share), "kernels" (an
-    iteration), "per_trip" (kernels a trip: a trip launches one float32
-    matvec)}."""
+def _device_rows(prof):
+    """(device us, kernel name, calls) of every device-side event of a
+    torch.profiler window (kernels, copies; the aten ops that launched
+    them carry the same time again), longest first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
-    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import LAUNCHES
-    from pcg_mpi_solver_tpu_torch.solver.pcg import pcg
-
-    ops, data = solver.ops32, solver.data32
-    rhs = (data["eff"] * data["F"])
-    rhs = rhs / rhs.norm()
-    inv = make_prec(ops, data, solver.config.solver.precond)
-    f32 = (solver.kernel_variant, "float32")
-    torch.cuda.synchronize()
-    before = LAUNCHES[f32]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _res, carry = pcg(ops, data, rhs, torch.zeros_like(rhs), inv,
-                          tol=1e-30, max_iter=iters,
-                          glob_n_dof_eff=solver.pm.glob_n_dof_eff,
-                          return_carry=True,
-                          variant=solver.config.solver.pcg_variant)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    matvecs = LAUNCHES[f32] - before
     rows = []
     for ev in prof.key_averages():
-        # device-side events only (kernels, copies); the aten ops that
-        # launched them carry the same time again
         if ev.device_type != DeviceType.CUDA:
             continue
         dev_us = getattr(ev, "self_device_time_total",
@@ -594,23 +594,70 @@ def profile_inner(torch, solver, iters: int = 100, tag: str = "profile"):
         if dev_us > 0:
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
+    return rows
+
+
+def profile_inner(torch, solver, iters: int = 100, tag: str = "profile",
+                  nrhs: int = 0):
+    """Device time by kernel over a window of f32 inner iterations of a
+    mixed solver (the body of the mixed solve) under its preconditioner
+    and PCG variant, and the device-busy share of the window's wall time.
+    ``nrhs`` > 0 profiles ``iters`` lockstep trips of ``pcg_many`` on a
+    block of that many columns (the normalised F repeated, each scaled by
+    a power of two) instead, counted a trip.  Returns {"wall", "busy"
+    (ms/iter, ms/trip for a block), "idle" (share), "kernels" (an
+    iteration or a trip), "per_trip" (kernels a trip: a trip launches one
+    float32 matvec)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import LAUNCHES
+    from pcg_mpi_solver_tpu_torch.parallel.structured import block_data
+    from pcg_mpi_solver_tpu_torch.solver.pcg import pcg, pcg_many
+
+    ops, data = solver.ops32, solver.data32
+    rhs = (data["eff"] * data["F"])
+    rhs = rhs / rhs.norm()
+    inv = make_prec(ops, data, solver.config.solver.precond)
+    variant = solver.config.solver.pcg_variant
+    kw = dict(tol=1e-30, max_iter=iters,
+              glob_n_dof_eff=solver.pm.glob_n_dof_eff, return_carry=True,
+              variant=variant)
+    if nrhs:
+        rhs = torch.stack([rhs * 2.0 ** -j for j in range(nrhs)])
+        data = block_data(data, nrhs)
+    f32 = (solver.kernel_variant, "float32")
+    torch.cuda.synchronize()
+    before = LAUNCHES[f32]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run = pcg_many if nrhs else pcg
+        res, carry = run(ops, data, rhs, torch.zeros_like(rhs), inv, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    matvecs = LAUNCHES[f32] - before
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
-    n = carry["exec"]
+    n = res.trips if nrhs else carry["exec"]
     kernels = sum(r[2] for r in rows)
     # a trip's matvecs: one, and the smoothing's under mg (whose check
     # trips have one), so trips are counted only without mg
     trips = None if solver.config.solver.precond == "mg" else matvecs
+    unit = "trip" if nrhs else "iter"
     out = dict(wall=wall * 1e3 / n, busy=busy * 1e3 / n,
                idle=1 - busy / wall, kernels=kernels / n,
                per_trip=kernels / trips if trips else None)
-    say(f"{tag}: {n} inner f32 iterations"
-        + (f" ({trips} trips)" if trips else "")
-        + f", wall {out['wall']:.4f} ms/iter, device busy {out['busy']:.4f} "
-        f"ms/iter ({busy / wall:.1%} of wall; idle {out['idle']:.1%}); "
-        f"{out['kernels']:.1f} device kernels an iteration"
-        + (f", {out['per_trip']:.1f} a trip" if trips else ""))
+    say(f"{tag}: {n} " + (f"lockstep trips of {nrhs} columns"
+                          if nrhs else "inner f32 iterations")
+        + (f" ({trips} trips)" if trips and not nrhs else "")
+        + f", wall {out['wall']:.4f} ms/{unit}, device busy "
+        f"{out['busy']:.4f} ms/{unit} ({busy / wall:.1%} of wall; idle "
+        f"{out['idle']:.1%}); {out['kernels']:.1f} device kernels an "
+        f"{'trip' if nrhs else 'iteration'}"
+        + (f", {out['per_trip']:.1f} a trip" if trips and not nrhs else ""))
     for dev_us, key, count in rows[:12]:
-        say(f"{tag}:   {dev_us / n / 1e3:9.4f} ms/iter  {count:6d} calls"
+        say(f"{tag}:   {dev_us / n / 1e3:9.4f} ms/{unit}  {count:6d} calls"
             f"  {key[:90]}")
     return out
 
@@ -864,6 +911,196 @@ def phase_variants(torch, np, models, classic_iters, classic_profile):
     return launches_by
 
 
+def shear_loads(np, model):
+    """F_y and F_z: the flagship's +x face forces moved onto the y and z
+    components (two shear load cases of the same magnitude)."""
+    F = np.asarray(model.F)
+    out = []
+    for comp in (1, 2):
+        g = np.zeros_like(F)
+        g[comp::3] = F[0::3]
+        out.append(g)
+    return out
+
+
+def tip_estimate(cells: int, shear: bool) -> float:
+    """The traction cube's tip estimate: the 1-D bar sigma*L/E along x,
+    or, under a shear load, a Timoshenko cantilever's bending plus shear
+    deflection (square section of side L: P L^3 / (3 E I) + P L / (kappa
+    G A) = sigma L / E * (4 + 2 (1 + nu) / kappa), kappa = 5/6)."""
+    sigma = FLAGSHIP["load_value"] * (cells + 1) ** 2 / cells ** 2
+    base = sigma * cells / FLAGSHIP["E"]
+    if not shear:
+        return base
+    return base * (4 + 2 * (1 + FLAGSHIP["nu"]) / (5 / 6))
+
+
+def phase_many(torch, np, models, classic_iters, classic_profile):
+    """Phase 4d: blocked right-hand sides through ``Solver.solve_many``
+    (mixed, tol 1e-7, v6; ``MANY_SOLVES``), each with the launch counts
+    set to 0 just before its Solver is built (or, for a second block on
+    one Solver, just before the solve) and read just after; one blocked
+    float32 matvec at R = 4 against four single launches at 150^3; 100
+    lockstep trips at R = 4 under the profiler beside classic's phase-4
+    window, and 20 of the mg block; two 12x6x5 blocks on the card
+    bitwise equal.  Returns
+    {"<cells> <precond> R=<width>": launch counts of that solve}."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts, structured_matvec)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    kw = dict(FLAGSHIP)
+    kw.pop("nx")
+    launches_by, solvers, width1 = {}, {}, {}
+    for cells, precond, cols in MANY_SOLVES:
+        if cells not in models:
+            models[cells] = make_cube_model(cells, **kw)
+        model = models[cells]
+        F = np.asarray(model.F)
+        Fy, Fz = shear_loads(np, model)
+        named = {"F": F, "2F": 2 * F, "F_y": Fy, "F_z": Fz}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        if (cells, precond) not in solvers:
+            solvers[(cells, precond)] = Solver(model, RunConfig(
+                solver=SolverConfig(tol=1e-7, precision_mode="mixed",
+                                    precond=precond)))
+        solver = solvers[(cells, precond)]
+        if solver.kernel_variant != "v6":
+            raise AssertionError(f"many: Solver chose "
+                                 f"{solver.kernel_variant}, not v6")
+        R = len(cols)
+        tag = f"many {cells}^3 {precond} R={R} [{', '.join(cols)}]"
+        res = solver.solve_many(np.stack([named[c] for c in cols], -1))
+        launches = dict(LAUNCHES)
+        f32, f64 = launches[("v6", "float32")], launches[("v6", "float64")]
+        u = solver.displacement_global_many(res.x)
+        n_it = int(res.iters.max())
+        rate = model.n_dof * n_it * R / res.solve_wall_s
+        for j, c in enumerate(cols):
+            shear = c in ("F_y", "F_z")
+            comp = {"F_y": 1, "F_z": 2}.get(c, 0)
+            est = tip_estimate(cells, shear) * (2 if c == "2F" else 1)
+            tip = float(u[comp::3, j].max())
+            say(f"{tag}: column {c}: flag {res.flags[j]}, iterations "
+                f"{res.iters[j]}, relres {res.relres[j]:.4e}, tip "
+                f"u{'xyz'[comp]} {tip:.4e} m vs "
+                f"{'shear' if shear else 'bar'} estimate {est:.4e} m "
+                f"(ratio {tip / est:.3f}, window [1/3, 3])")
+            if res.flags[j] != 0 or not res.relres[j] <= 1e-7:
+                raise AssertionError(f"{tag}: column {c} did not converge")
+            if not est / 3 <= tip <= 3 * est:
+                raise AssertionError(f"{tag}: column {c} tip outside the "
+                                     f"physics window")
+        if not np.isfinite(u).all() or u.shape != (model.n_dof, R):
+            raise AssertionError(f"{tag}: displacement not finite or "
+                                 f"misshapen")
+        if R == 1:
+            width1[(cells, precond)] = rate
+        base = width1.get((cells, precond))
+        base_txt = (f"{rate / base:.3f}x the width-1 block's "
+                    f"{base:.4e} dof*iter/s" if base and R > 1 else
+                    "the width-1 rate" if R == 1 else
+                    "no width-1 block of this cell in this run")
+        classic = classic_iters.get((cells, precond))
+        say(f"{tag}: wall {res.wall_s:.3f} s, solve wall "
+            f"{res.solve_wall_s:.3f} s, {res.trips} lockstep trips, "
+            f"{res.solve_wall_s / res.trips * 1e3:.4f} ms a trip, "
+            f"{rate:.4e} dof*iter*rhs/s ({base_txt}); launches f32 {f32}, "
+            f"f64 {f64}"
+            + (f"; classic step of phase 4/4b: {classic} iterations"
+               if classic else ""))
+        if f32 < res.trips or f64 < 1 or {
+                k: n for k, n in launches.items()
+                if n and k not in (("v6", "float32"), ("v6", "float64"))}:
+            raise AssertionError(f"{tag}: did not go through v6, one "
+                                 f"launch a trip: {launches} for "
+                                 f"{res.trips} trips")
+        if "2F" in cols:
+            jF, j2 = cols.index("F"), cols.index("2F")
+            exact = (res.iters[j2] == res.iters[jF]
+                     and torch.equal(res.x[..., j2], 2 * res.x[..., jF]))
+            say(f"{tag}: column 2F {'takes' if exact else 'DOES NOT take'}"
+                f" F's iterations with x = 2 x(F) bit for bit")
+            if not exact:
+                raise AssertionError(f"{tag}: 2F is not exactly 2 x(F)")
+        launches_by[f"{cells} {precond} R={R}"] = launches
+        del res, u
+
+    # one blocked float32 launch over R * P slabs against R single ones
+    n, R = FLAGSHIP["nx"], 4
+    solver = solvers.pop((n, "jacobi"))
+    blk = solver.data32["blocks"][0]
+    ck4 = blk["ck"].repeat(R, 1, 1, 1)
+    g = torch.Generator("cuda").manual_seed(4)
+    x = torch.randn((R, 3, n + 1, n + 1, n + 1), generator=g,
+                    device="cuda", dtype=torch.float32)
+
+    def blocked():
+        return structured_matvec(x.reshape(-1, 3, n + 1, n + 1, n + 1),
+                                 ck4, blk["Ke"])
+
+    singles = [lambda j=j: structured_matvec(x[j:j + 1], blk["ck"],
+                                             blk["Ke"]) for j in range(R)]
+    yb = blocked()
+    ys = [fn() for fn in singles]
+    torch.cuda.synchronize()
+    same = all(torch.equal(yb[j], ys[j][0]) for j in range(R))
+    err = max((yb[j] - ys[j][0]).abs().max().item() for j in range(R))
+    scale = max(y.abs().max().item() for y in ys)
+    ms_b = time_ms(torch, blocked)
+    ms_s = time_ms(torch, lambda: [fn() for fn in singles])
+    say(f"many matvec {n}^3 float32 R={R}: one launch over {R} slabs "
+        f"{ms_b:.4f} ms, {R} single launches {ms_s:.4f} ms "
+        f"({ms_s / ms_b:.3f}x); columns "
+        + ("bit for bit the single launches" if same else
+           f"DIFFER from the single launches by {err:.3e} (v6's geometry "
+           f"changes its order with the slab count; phase 3's tolerance "
+           f"{KERNEL_TOL['float32']:g} x max|y| {scale:.3e})"))
+    if not same and not err <= KERNEL_TOL["float32"] * scale:
+        raise AssertionError("the blocked matvec disagrees with its single "
+                             "launches")
+    del x, ck4, yb, ys
+
+    prof = profile_inner(torch, solver, tag=f"many profile R={R}", nrhs=R)
+    p = classic_profile
+    say(f"many profile R={R}: busy {prof['busy']:.4f} ms a trip "
+        f"({prof['busy'] / R:.4f} a column), idle {prof['idle']:.1%}, "
+        f"{prof['kernels']:.1f} kernels a trip (classic R=1, phase 4: "
+        f"{p['busy']:.4f} ms/iter, idle {p['idle']:.1%}, "
+        f"{p['per_trip']:.1f} kernels a trip)")
+    del solver
+    # the mg block's trip: the V-cycle's ops carry both columns, so its
+    # kernels a trip are the width-1 iteration's (phase 4b's mg profile)
+    mg_cells, _, mg_cols = MANY_SOLVES[-1]
+    profile_inner(torch, solvers.pop((mg_cells, "mg")), iters=20,
+                  tag=f"many profile {mg_cells}^3 mg R={len(mg_cols)}",
+                  nrhs=len(mg_cols))
+    solvers.clear()
+    torch.cuda.empty_cache()
+
+    # two blocks on the card, the same bits
+    small = make_cube_model(*CARD_VS_CPU_CELLS, seed=4, **kw)
+    F = np.asarray(small.F)
+    runs = []
+    for _ in range(2):
+        s = Solver(small, RunConfig(solver=SolverConfig(
+            tol=1e-9, precision_mode="mixed")))
+        r = s.solve_many(np.stack([F, 2 * F] + shear_loads(np, small), -1))
+        runs.append(((r.flags.tolist(), r.iters.tolist(),
+                      r.relres.tolist()), r.x.clone()))
+    same = runs[0][0] == runs[1][0] and torch.equal(runs[0][1], runs[1][1])
+    say(f"many bits: two {'x'.join(map(str, CARD_VS_CPU_CELLS))} blocks "
+        f"(flags, iterations) {runs[0][0][:2]}: "
+        f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not same or any(runs[0][0][0]):
+        raise AssertionError("two blocked solves on the card differ or did "
+                             "not converge")
+    return launches_by
+
+
 def phase_checks(torch, np):
     from pcg_mpi_solver_tpu_torch import (
         RunConfig, SolverConfig, TimeHistoryConfig)
@@ -934,6 +1171,35 @@ def phase_checks(torch, np):
                             f"{steps_c}")
 
 
+    # blocks of load cases on the card against the same blocks on the CPU
+    for variant, precond, cells_cpu in MANY_CARD_VS_CPU:
+        small = make_cube_model(*cells_cpu, seed=4, **kw)
+        blk = np.stack([np.asarray(small.F)] + shear_loads(np, small), -1)
+        for mode, rtol in (("direct", 1e-8), ("mixed", 1e-5)):
+            cfg = RunConfig(solver=SolverConfig(tol=1e-9,
+                                                precision_mode=mode,
+                                                precond=precond,
+                                                pcg_variant=variant))
+            out = {}
+            for dev in ("cuda", "cpu"):
+                s = Solver(small, cfg, device=dev)
+                r = s.solve_many(blk)
+                out[dev] = (r.flags.tolist(), r.iters.tolist(),
+                            s.displacement_global_many(r.x))
+            (fg, ig, u_g), (fc, ic, u_c) = out["cuda"], out["cpu"]
+            rel = float(np.abs(u_g - u_c).max() / np.abs(u_c).max())
+            say(f"card vs cpu, blocked R=3 [F, F_y, F_z], {variant}, "
+                f"{precond}, {mode}, traction "
+                f"{'x'.join(map(str, cells_cpu))}: flags card {fg} cpu "
+                f"{fc}, iterations card {ig} cpu {ic}, max rel diff "
+                f"{rel:.3e} (tol {rtol:g})")
+            if any(fg) or fg != fc or not rel <= rtol or (
+                    mode == "direct"
+                    and max(abs(a - b) for a, b in zip(ig, ic)) > 1):
+                raise AssertionError(f"blocked {variant} {precond} {mode} "
+                                     f"on the card disagrees with the CPU")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -972,22 +1238,38 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "smem")):
                 say(f"build: {name}: {line.strip()}")
 
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        say(f"phase {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     # 3. kernels against their plain versions
     kern = phase_kernels(torch, np, rates)
+    lap("3 kernels")
     # 4. main path at full size, once per float32 variant
     launches_by, flagship_model, classic = phase_main(torch, np)
+    lap("4 main")
     # 4b. the block3 and mg preconditioners at full size
     precond_launches, precond_iters, models = phase_preconditioners(
         torch, np, flagship_model)
     del flagship_model
+    lap("4b preconditioners")
     # 4c. the fused and pipelined PCG variants at full size
     classic_iters = dict(precond_iters)
     classic_iters[(FLAGSHIP["nx"], "jacobi")] = classic["iters"]
     variant_launches = phase_variants(torch, np, models, classic_iters,
                                       classic["profile"])
+    lap("4c variants")
+    # 4d. blocked right-hand sides at full size
+    many_launches = phase_many(torch, np, models, classic_iters,
+                               classic["profile"])
     del models
+    lap("4d many")
     # 5. direct f64 and card-vs-cpu checks
     phase_checks(torch, np)
+    lap("5 checks")
 
     records = []
     for variant in F32_VARIANTS:
@@ -1009,6 +1291,9 @@ def main() -> int:
                 records[-1]["launches_variants"] = {
                     path: counts[("v6", dtype)]
                     for path, counts in variant_launches.items()}
+                records[-1]["launches_many"] = {
+                    path: counts[("v6", dtype)]
+                    for path, counts in many_launches.items()}
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": records}))

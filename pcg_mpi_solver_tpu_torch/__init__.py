@@ -6,7 +6,9 @@ imports nothing of it and no JAX.  Ported so far: the structured-cube
 solve end to end (``models.make_cube_model`` -> ``parallel.structured``
 -> scalar Jacobi, 3x3 block Jacobi or the geometric multigrid V-cycle
 (``ops.mg``) -> ``pcg`` (classic, fused or pipelined) inside the mixed
-f32/f64 refinement shell -> ``solver.Solver``), with hand-written CUDA
+f32/f64 refinement shell -> ``solver.Solver``), blocks of load cases in
+one lockstep loop (``pcg_many``, ``Solver.solve_many``; request checks
+in ``validate``), with hand-written CUDA
 kernels for the slab stencil matvec (``csrc/structured_matvec*.cu``, one
 per ported Pallas variant, chosen by ``PCG_TPU_PALLAS_V``).
 """

@@ -42,6 +42,8 @@ class SolverConfig:
     mixed_progress_min_gain: float = 30.0
     max_stag_steps: int = 3
     pcg_variant: str = "classic"
+    # block width metadata, as in the JAX package: the width of the block
+    # passed to Solver.solve_many decides the run
     nrhs: int = 1
     precond: str = "jacobi"
     # MG V-cycle shape (precond="mg")

@@ -26,7 +26,11 @@ The design is the JAX package's:
   needs that one fixed SPD preconditioner.
 
 Per V-cycle the fine level costs ``2 * mg_degree`` matvecs (degree - 1
-pre-smoothing from zero, one defect, degree post-smoothing).
+pre-smoothing from zero, one defect, degree post-smoothing).  A block of
+right-hand sides (R, P, n_loc) runs one V-cycle for all its columns, each
+on its own: every level's ops carry the columns on a leading axis (the
+JAX package vmaps the cycle, ``ops/mg.py:639-647``), so a fine matvec is
+one kernel launch for the block and no level loops over columns.
 
 Host-side setup (:func:`build_mg_host`) is numpy and gives the JAX
 package's ``MGSetup.tree`` field for field, so a hierarchy built by either
@@ -480,29 +484,32 @@ def cast_tree(tree, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 
 def _to_grid(flat: torch.Tensor, dims_c) -> torch.Tensor:
-    """(n_nodes, 3) flat level vector -> (3, cx+1, cy+1, cz+1) grid view
-    (node id C-order over (ix, iy, iz), as :func:`_ravel`)."""
+    """([R,] n_nodes, 3) flat level vector -> ([R,] 3, cx+1, cy+1, cz+1)
+    grid view (node id C-order over (ix, iy, iz), as :func:`_ravel`)."""
     cx, cy, cz = dims_c
-    return flat.reshape(cx + 1, cy + 1, cz + 1, 3).movedim(3, 0)
+    return flat.reshape(*flat.shape[:-2], cx + 1, cy + 1, cz + 1,
+                        3).movedim(-1, -4)
 
 
 def _to_flat(grid: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`_to_grid`."""
-    return grid.movedim(0, 3).reshape(-1, 3)
+    return grid.movedim(-4, -1).reshape(*grid.shape[:-4], -1, 3)
 
 
 def _level_matvec(Ke, ck, effg, x_flat):
-    """Coarse-level assembled stencil matvec, flat (n, 3) -> (n, 3),
-    eff-masked in and out: 8 slices -> one (24, 24) einsum -> 8 translate
-    adds in corner order (the JAX package's ``_level_matvec``)."""
+    """Coarse-level assembled stencil matvec, flat ([R,] n, 3) -> ([R,] n,
+    3), eff-masked in and out: 8 slices -> one (24, 24) einsum -> 8
+    translate adds in corner order (the JAX package's ``_level_matvec``);
+    a block's columns ride the leading axis of every op."""
     cx, cy, cz = ck.shape
     xg = _to_grid(x_flat, (cx, cy, cz)) * effg
-    u = torch.cat([xg[:, dx:dx + cx, dy:dy + cy, dz:dz + cz]
-                   for dx, dy, dz in CORNERS], dim=0)
-    v = torch.einsum("de,exyz->dxyz", Ke, ck[None] * u)
+    u = torch.cat([xg[..., dx:dx + cx, dy:dy + cy, dz:dz + cz]
+                   for dx, dy, dz in CORNERS], dim=-4)
+    v = torch.einsum("de,...exyz->...dxyz", Ke, ck * u)
     y = torch.zeros_like(xg)
     for a, (dx, dy, dz) in enumerate(CORNERS):
-        y[:, dx:dx + cx, dy:dy + cy, dz:dz + cz] += v[3 * a:3 * a + 3]
+        y[..., dx:dx + cx, dy:dy + cy, dz:dz + cz] += v[..., 3 * a:3 * a + 3,
+                                                         :, :, :]
     return _to_flat(y * effg)
 
 
@@ -544,13 +551,14 @@ def _cheb_smooth(amul, idiag_mul, r, z0, lam, degree: int, alpha: float):
 
 
 def _restrict(t: dict, s_flat: torch.Tensor) -> torch.Tensor:
-    """R s: the fixed-order gather of the transposed stencil."""
-    return (t["rw"][..., None] * s_flat[t["ridx"]]).sum(dim=1)
+    """R s: the fixed-order gather of the transposed stencil, ([R,] n_fine,
+    3) -> ([R,] n_coarse, 3)."""
+    return (t["rw"][..., None] * s_flat[..., t["ridx"], :]).sum(dim=-2)
 
 
 def _prolong(t: dict, zc: torch.Tensor) -> torch.Tensor:
-    """P zc: (..., 8) stencil -> (..., 3)."""
-    return (t["gw"][..., None] * zc[t["gidx"]]).sum(dim=-2)
+    """P zc: (..., 8) stencil -> (..., 3); ``zc`` ([R,] n_coarse, 3)."""
+    return (t["gw"][..., None] * zc[..., t["gidx"], :]).sum(dim=-2)
 
 
 def _coarse_vcycle(mg: dict, lidx: int, rc: torch.Tensor, degree: int):
@@ -580,8 +588,11 @@ def _coarse_vcycle(mg: dict, lidx: int, rc: torch.Tensor, degree: int):
                         MG_SMOOTH_ALPHA)
 
 
-def _vcycle_single(ops, data: dict, m: dict, r: torch.Tensor):
-    """One symmetric V-cycle on one fine column (P, n_loc)."""
+def _vcycle(ops, data: dict, m: dict, r: torch.Tensor):
+    """One symmetric V-cycle on a fine column (P, n_loc) or on a block of
+    columns (R, P, n_loc), each column on its own: every level's ops
+    carry the block on their leading axis, so each fine smoothing matvec
+    is one kernel launch for the whole block."""
     mg = data["mg"]
     eff = data["eff"]
     degree = int(ops.mg_degree)
@@ -599,7 +610,7 @@ def _vcycle_single(ops, data: dict, m: dict, r: torch.Tensor):
     # defect, owner-weighted, restricted into the first coarse level
     s = r - amul(z)
     s3 = ops._as_node3(s) * data["node_weight"][..., None]
-    sc = _restrict(mg["fine"], s3.reshape(-1, 3))
+    sc = _restrict(mg["fine"], s3.reshape(*r.shape[:-2], -1, 3))
     zc = _coarse_vcycle(mg, 0, sc, degree)
     # prolongation back to the part-local fine layout: a local gather
     z = z + eff * ops._from_node3(_prolong(mg["fine"], zc))
@@ -609,10 +620,12 @@ def _vcycle_single(ops, data: dict, m: dict, r: torch.Tensor):
 
 def mg_apply(ops, data: dict, m: dict, r: torch.Tensor) -> torch.Tensor:
     """Apply the MG preconditioner: ``z = M^-1 r`` for one column (P,
-    n_loc).  ``m`` is ``make_prec(ops, data, "mg")``; the hierarchy rides
-    ``data["mg"]``.  The port has no recovery ladder (ROADMAP queue 1
-    item 9), so ``m["fb"]`` is never set and the cycle always runs."""
-    return _vcycle_single(ops, data, m, r)
+    n_loc) or a block (R, P, n_loc) (then ``data`` is the tree of
+    ``parallel.structured.block_data`` for that width).  ``m`` is
+    ``make_prec(ops, data, "mg")``; the hierarchy rides ``data["mg"]``.
+    The port has no recovery ladder (ROADMAP queue 1 item 9), so
+    ``m["fb"]`` is never set and the cycle always runs."""
+    return _vcycle(ops, data, m, r)
 
 
 # ---------------------------------------------------------------------------

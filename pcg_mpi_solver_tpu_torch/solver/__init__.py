@@ -1,3 +1,4 @@
-from pcg_mpi_solver_tpu_torch.solver.driver import Solver, StepResult
+from pcg_mpi_solver_tpu_torch.solver.driver import (
+    ManySolveResult, Solver, StepResult, normalize_rhs_block)
 
-__all__ = ["Solver", "StepResult"]
+__all__ = ["ManySolveResult", "Solver", "StepResult", "normalize_rhs_block"]

@@ -2,14 +2,19 @@
 
 Port of the structured core of ``pcg_mpi_solver_tpu/solver/driver.py``
 (``Solver`` in direct and mixed precision, ``StepResult``,
-``displacement_global``).  For each time step: Dirichlet lifting ->
+``displacement_global``; ``solve_many``, ``ManySolveResult``,
+``normalize_rhs_block`` and ``displacement_global_many`` for blocks of
+load cases).  For each time step: Dirichlet lifting ->
 preconditioner rebuild (scalar Jacobi, 3x3 block Jacobi or the mg
 V-cycle's operand) -> PCG (``SolverConfig.pcg_variant``: classic, fused
 or pipelined; direct, or the mixed f32/f64 refinement shell) -> u = x +
 Ud * delta.  A flag-6 exit (recurrence drift) is returned as it is.
 Under ``precond="mg"`` the constructor also builds the level hierarchy
 (``ops/mg.py``) into ``data["mg"]`` and estimates the fine level's
-Chebyshev bound on the uploaded operator.
+Chebyshev bound on the uploaded operator.  ``solve_many`` solves a block
+of load cases against the one operator in one lockstep loop
+(``pcg_many``, or ``pcg_mixed_many`` in mixed precision) on the one-shot
+path: homogeneous Dirichlet, x0 = 0, breakdown columns quarantined.
 
 The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card, the default raises instead of quietly running on the CPU.
@@ -32,8 +37,11 @@ from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
 from pcg_mpi_solver_tpu_torch.parallel.structured import (
-    StructuredOps, device_data_structured, partition_structured)
-from pcg_mpi_solver_tpu_torch.solver.pcg import pcg, pcg_mixed
+    StructuredOps, block_data, device_data_structured, partition_structured)
+from pcg_mpi_solver_tpu_torch.solver.pcg import (
+    BREAKDOWN_FLAGS, QUARANTINE_FLAG, pcg, pcg_many, pcg_mixed,
+    pcg_mixed_many)
+from pcg_mpi_solver_tpu_torch.validate import PreflightError, check_rhs_block
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -44,6 +52,48 @@ class StepResult:
     relres: float
     iters: int
     wall_s: float
+
+
+def normalize_rhs_block(fexts, n_dof: int, dtype=None) -> np.ndarray:
+    """A ``solve_many`` request as the (n_dof, nrhs) column block: a single
+    (n_dof,) vector is one column, a stacked (nrhs, n_dof) array
+    transposes when unambiguous.  ``dtype=None`` keeps the input dtype."""
+    fb = np.asarray(fexts) if dtype is None \
+        else np.asarray(fexts, dtype=dtype)
+    if fb.ndim == 1:
+        fb = fb[:, None]
+    elif fb.ndim == 2 and fb.shape[0] != n_dof and fb.shape[1] == n_dof:
+        fb = fb.T
+    return fb
+
+
+@dataclasses.dataclass
+class ManySolveResult:
+    """Per-column outcome of :meth:`Solver.solve_many`: flags, relres and
+    iters are (nrhs,) arrays (MATLAB's flag taxonomy per column, plus
+    ``QUARANTINE_FLAG`` 5), ``x`` the blocked solution (n_parts, n_loc,
+    nrhs) on effective dofs on the solver's device (a permuted view of
+    the port's (nrhs, n_parts, n_loc) block); fetch global columns with
+    :meth:`Solver.displacement_global_many`.  ``solve_wall_s`` is the
+    Krylov work alone (validation and upload excluded), ``trips`` the
+    lockstep trips (one blocked matvec each), ``quarantined`` the
+    quarantined columns.  ``recoveries`` and ``drift`` are the JAX
+    package's ladder counts: 0 on the one-shot path, the port's only one
+    (the ladder is ROADMAP queue 1 item 9)."""
+    flags: np.ndarray
+    relres: np.ndarray
+    iters: np.ndarray
+    wall_s: float
+    x: object = None
+    solve_wall_s: float = 0.0
+    quarantined: tuple = ()
+    recoveries: int = 0
+    drift: int = 0
+    trips: int = 0
+
+    @property
+    def nrhs(self) -> int:
+        return int(len(self.flags))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -98,10 +148,6 @@ def _check_slice(model: ModelData, config: RunConfig, n_parts: int) -> None:
             f"pallas={sc.pallas!r}: the port has no XLA path and no "
             f"interpreter; it always runs its CUDA kernels on the card and "
             f"their plain version on the CPU ('auto' or 'on')")
-    if sc.nrhs > 1:
-        raise NotImplementedError(
-            "nrhs > 1 is not ported yet (ROADMAP queue 1 item 7: blocked "
-            "right-hand sides)")
     if config.checkpoint_every or config.snapshot_every:
         raise NotImplementedError(
             "checkpoints and snapshots are not ported yet (ROADMAP queue 1 "
@@ -187,6 +233,7 @@ class Solver:
         # Initial state: deterministic zeros.
         self.un = torch.zeros((self.pm.n_parts, self.pm.n_loc),
                               dtype=self.dtype, device=self.device)
+        self._many_data = None          # (width, f64-or-storage tree, f32)
         self.flags: List[int] = []
         self.relres: List[float] = []
         self.iters: List[int] = []
@@ -250,6 +297,116 @@ class Solver:
             if on_step is not None:
                 on_step(t, res)
         return results
+
+    def max_block_width(self) -> int:
+        """The widest block ``solve_many`` takes for this model: a blocked
+        matvec's node grid (R * n_parts * n_loc entries) must stay below
+        2^31, the kernels' 32-bit indexing."""
+        return (2**31 - 1) // (self.pm.n_parts * self.pm.n_loc)
+
+    def _block_trees(self, R: int):
+        """The device trees of blocks of width ``R`` (cell scales repeated
+        per column, ``block_data``), built once per width and kept for the
+        last width only."""
+        if self._many_data is None or self._many_data[0] != R:
+            self._many_data = None
+            trees = (block_data(self.data, R),
+                     block_data(self.data32, R) if self.mixed else None)
+            self._many_data = (R,) + trees
+        return self._many_data[1:]
+
+    def solve_many(self, fexts, resume: bool = False) -> ManySolveResult:
+        """Solve K.x_j = fext_j for a block of load cases against the one
+        operator, in one lockstep loop with a per-column convergence mask.
+
+        ``fexts``: global loads as (n_dof, nrhs) (a single (n_dof,) vector
+        or an (nrhs, n_dof) stack also works).  Homogeneous Dirichlet: the
+        loads act on the effective dofs and x0 = 0 (no lifting; lift
+        prescribed displacements into the columns yourself).  Each column
+        is validated first (``validate.check_rhs_block``: a NaN column
+        raises ``PreflightError`` naming it).  Mixed precision runs
+        ``pcg_mixed_many``, direct ``pcg_many``, under the configured
+        variant and preconditioner; one-shot, so a breakdown (flags 2, 4,
+        6), a non-finite residual or ``QUARANTINE_FLAG`` reports the
+        column quarantined (flag 5) with its min-residual iterate.
+        ``resume`` and snapshots need the chunked blocked path (ROADMAP
+        queue 1 item 9)."""
+        if resume:
+            raise NotImplementedError(
+                "solve_many(resume=True) is not ported yet: the chunked "
+                "blocked path and its snapshots are ROADMAP queue 1 item 9")
+        t0 = time.perf_counter()
+        sc = self.config.solver
+        pm = self.pm
+        n_dof = pm.glob_n_dof
+        fb = normalize_rhs_block(fexts, n_dof, np.float64)
+        bad = [c for c in check_rhs_block(fb, n_dof) if c.status == "fail"]
+        if bad:
+            raise PreflightError(
+                "solve_many rejected the rhs block: " + "; ".join(
+                    f"[{c.name}] {c.detail}" for c in bad))
+        R = fb.shape[1]
+        if R > self.max_block_width():
+            raise ValueError(
+                f"a block of {R} right-hand sides needs a {R} x "
+                f"{pm.n_parts} x {pm.n_loc} node grid, past the kernels' "
+                f"32-bit indexing; this model takes at most "
+                f"{self.max_block_width()} columns a block")
+        # global columns -> the port's (R, P, n_loc) block; shared slab
+        # planes carry their value on both parts, padded slots read 0
+        gid = pm.dof_gid
+        loc = fb[np.clip(gid, 0, None), :] * (gid >= 0)[..., None]
+        fb_dev = torch.as_tensor(np.ascontiguousarray(np.moveaxis(loc, -1, 0)),
+                                 dtype=self.dtype, device=self.device)
+        data, data32 = self._block_trees(R)
+        t_solve0 = time.perf_counter()
+        fext = self.data["eff"] * fb_dev
+        x0 = torch.zeros_like(fext)
+        glob_n_eff = pm.glob_n_dof_eff
+        if self.mixed:
+            res = pcg_mixed_many(
+                self.ops32, data32, self.ops, data, fext, x0,
+                make_prec(self.ops32, self.data32, sc.precond),
+                tol=sc.tol, max_iter=sc.max_iter,
+                glob_n_dof_eff=glob_n_eff,
+                max_stag_steps=sc.max_stag_steps,
+                inner_tol=sc.inner_tol, variant=sc.pcg_variant)
+        else:
+            res = pcg_many(
+                self.ops, data, fext, x0,
+                make_prec(self.ops, self.data, sc.precond),
+                tol=sc.tol, max_iter=sc.max_iter,
+                glob_n_dof_eff=glob_n_eff,
+                max_stag_steps=sc.max_stag_steps, x0_zero=True,
+                variant=sc.pcg_variant)
+        flags = np.asarray(res.flag, np.int64)
+        relres = np.asarray(res.relres, np.float64)
+        # one-shot quarantine: breakdowns, poisoned columns and non-finite
+        # residuals report flag 5 (their min-residual iterate is already
+        # in x)
+        quar = (np.isin(flags, BREAKDOWN_FLAGS + (QUARANTINE_FLAG,))
+                | ~np.isfinite(relres))
+        flags = np.where(quar, QUARANTINE_FLAG, flags)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        return ManySolveResult(
+            flags=flags, relres=relres, iters=np.asarray(res.iters, np.int64),
+            wall_s=t1 - t0, x=res.x.permute(1, 2, 0),
+            solve_wall_s=t1 - t_solve0,
+            quarantined=tuple(int(j) for j in np.flatnonzero(quar)),
+            trips=int(res.trips))
+
+    def displacement_global_many(self, x) -> np.ndarray:
+        """A blocked solution (n_parts, n_loc, nrhs) (``ManySolveResult.x``)
+        as global host columns (n_dof, nrhs): one fetch, owner-masked."""
+        pm = self.pm
+        xn = x.cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+        out = np.zeros((pm.glob_n_dof, xn.shape[-1]), dtype=xn.dtype)
+        m = (pm.weight > 0) & (pm.dof_gid >= 0)
+        out[pm.dof_gid[m]] = xn[m]
+        return out
 
     def displacement_global(self) -> np.ndarray:
         """Full global solution vector (n_dof,), assembled on the host from

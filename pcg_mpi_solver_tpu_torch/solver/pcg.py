@@ -1,7 +1,10 @@
 """MATLAB-``pcg``-compatible preconditioned conjugate gradients.
 
 Port of ``pcg_mpi_solver_tpu/solver/pcg.py`` (``pcg`` with its three loop
-formulations, ``pcg_mixed``, ``refine_tol``, ``PCGResult``).  The JAX
+formulations, ``pcg_mixed``, ``refine_tol``, ``PCGResult``, and their
+blocked twins ``pcg_many`` and ``pcg_mixed_many`` for a block of
+right-hand sides, held as (R, P, n_loc) with the column axis leading;
+section "Blocked right-hand sides" below).  The JAX
 package runs the loop as one ``lax.while_loop`` whose decisions are
 traced ``cond``/``where``; here the host drives the loop and branches on
 scalars.  Each trip's vector work is queued on the device first and its
@@ -11,7 +14,8 @@ square roots and divisions round exactly as the device program's would.
 
 Flags: 0 converged; 1 max-iterations; 2 inf preconditioner; 3 stagnation /
 tolerance too small; 4 rho/pq breakdown; 6 sustained residual drift of a
-recurrence variant (``DRIFT_FLAG``).
+recurrence variant (``DRIFT_FLAG``); 5 a quarantined column of a blocked
+solve (``QUARANTINE_FLAG``).
 
 Variants (``VALID_PCG_VARIANTS``):
 
@@ -94,6 +98,9 @@ class PCGResult(NamedTuple):
     flag: int
     relres: np.float32
     iters: int            # 1-based, MATLAB-compatible
+    # blocked solves (pcg_many, pcg_mixed_many): the lockstep trips, one
+    # blocked storage-dtype matvec each
+    trips: int = 0
 
 
 def _np_type(dtype: torch.dtype):
@@ -135,10 +142,13 @@ def refine_tol(tolb, normr, inner_tol) -> np.float32:
     """Adaptive inner tolerance for one mixed-precision refinement cycle:
     the final cycle only needs to contract the residual by tolb/normr — a
     fixed inner_tol would overshoot the outer tolerance.  Computed in the
-    precision of ``tolb``/``normr``, returned as float32."""
-    f = type(tolb)
-    val = f(0.5) * tolb / max(normr, tolb * f(1e-30))
-    return np.float32(min(max(val, f(inner_tol)), f(0.25)))
+    precision of ``tolb``/``normr``, returned as float32; elementwise on
+    the (R,) arrays of a blocked solve."""
+    f = np.asarray(tolb).dtype.type
+    with np.errstate(divide="ignore", invalid="ignore"):
+        # a zero-rhs column (tolb = normr = 0) takes no inner cycle
+        val = f(0.5) * tolb / np.maximum(normr, tolb * f(1e-30))
+    return np.float32(np.minimum(np.maximum(val, f(inner_tol)), f(0.25)))
 
 
 @dataclasses.dataclass
@@ -588,3 +598,642 @@ def pcg_mixed(
     relres = np.float32(0.0) if zero_rhs else np.float32(normr / n2b)
     x = torch.zeros_like(x) if zero_rhs else x
     return PCGResult(x=x, flag=flag, relres=relres, iters=total)
+
+
+# ---------------------------------------------------------------------------
+# Blocked right-hand sides: pcg_many, pcg_mixed_many
+# ---------------------------------------------------------------------------
+
+# Terminal flag of a quarantined column of a blocked solve: on the one-shot
+# path a column whose residual went non-finite without converging, and in
+# Solver.solve_many every breakdown column (flags 2, 4, 6).  Its reported
+# solution is the tracked min-residual iterate.
+QUARANTINE_FLAG = 5
+
+
+def _colsel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+            ) -> torch.Tensor:
+    """Per-column select: ``mask`` (R,) over blocks (R, P, n_loc) or over
+    (R,) device scalars."""
+    return torch.where(mask.reshape(-1, *[1] * (a.dim() - 1)), a, b)
+
+
+class _Masks:
+    """The per-column boolean masks of one blocked trip, held on the host
+    and uploaded together: ONE copy from pinned memory, non-blocking (not
+    a sync), and none at all when every mask is all-true or all-false,
+    where :meth:`sel` picks a side without a device select."""
+
+    def __init__(self, device: torch.device, **masks):
+        self.host = {k: np.asarray(m, bool) for k, m in masks.items()}
+        mixed = [k for k, m in self.host.items() if m.any() and not m.all()]
+        self.dev = {}
+        if mixed:
+            t = torch.from_numpy(np.stack([self.host[k] for k in mixed]))
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            self.dev = {k: t[j] for j, k in enumerate(mixed)}
+
+    def sel(self, key: str, a, b):
+        """``a`` on the columns of mask ``key``, ``b`` elsewhere; ``a`` and
+        ``b`` may be callables, evaluated only when their side is taken."""
+        m = self.host[key]
+        if m.all():
+            return a() if callable(a) else a
+        if not m.any():
+            return b() if callable(b) else b
+        return _colsel(self.dev[key], a() if callable(a) else a,
+                       b() if callable(b) else b)
+
+
+def _read_rows(R: int, *ts: torch.Tensor) -> np.ndarray:
+    """ONE device->host read of (R,) and (k, R) tensors: (rows, R) float64."""
+    return _read(*ts).reshape(-1, R)
+
+
+def cold_carry_many(x0: torch.Tensor, r0: torch.Tensor, normr0,
+                    dot_dtype: torch.dtype, variant: str = "classic"
+                    ) -> dict:
+    """The cold carry of a blocked solve: x0 and r0 are (R, P, n_loc)
+    blocks, the bookkeeping (R,) host numpy arrays in the dot dtype's
+    precision (``normr0``), the recurrence scalars (R,) device tensors
+    with host mirrors (``*_h``).  Every column starts running (``flag``
+    1); ``prec_sel`` (the recovery ladder's per-column fallback selector,
+    ROADMAP queue 1 item 9) stays 0."""
+    R = x0.shape[0]
+    f = _np_type(dot_dtype)
+    zi = np.zeros(R, np.int64)
+    n0 = np.asarray(normr0, f)
+    out = dict(
+        x=x0, r=r0, p=torch.zeros_like(x0),
+        rho=torch.ones(R, dtype=dot_dtype, device=x0.device),
+        rho_h=np.ones(R, f), i=zi.copy(),
+        stag=zi.copy(), moresteps=zi.copy(), iter_out=zi.copy(),
+        normrmin=n0.copy(), xmin=x0, imin=zi.copy(), normr_act=n0.copy(),
+        exec=zi.copy(), flag=np.ones(R, np.int64), mode=zi.copy(),
+        prec_sel=zi.copy())
+    if variant in LAGGED_VARIANTS:
+        out["q"] = torch.zeros_like(x0)
+        out["alpha"] = torch.full((R,), np.inf, dtype=dot_dtype,
+                                  device=x0.device)
+        out["alpha_h"] = np.full(R, np.inf, f)
+        out["fresh"] = np.ones(R, np.int64)
+        out["drift"] = zi.copy()
+        out["chk_normr"] = np.zeros(R, f)
+    if variant == "pipelined":
+        for k in ("u", "w", "s", "z"):
+            out[k] = torch.zeros_like(x0)
+        out["init"] = np.ones(R, np.int64)
+        out["sc"] = zi.copy()
+        out["chk_forced"] = zi.copy()
+    return out
+
+
+def pcg_many(
+    ops: Ops,
+    data: dict,
+    fext: torch.Tensor,       # (R, P, n_loc) rhs block on eff dofs
+    x0: torch.Tensor,         # (R, P, n_loc) initial guesses
+    inv_diag,                 # preconditioner operand, shared by columns
+    tol,                      # scalar or (R,) per-column tolerance
+    max_iter,                 # int or (R,) per-column budget
+    glob_n_dof_eff: int,
+    max_stag_steps: int = 3,
+    max_iter_nominal: Optional[int] = None,
+    return_carry: bool = False,
+    x0_zero: bool = False,
+    variant: str = "classic",
+):
+    """Blocked ``pcg``: K.x_j = fext_j for every column j of the block in
+    ONE lockstep loop.  ``data`` is the tree of
+    ``parallel.structured.block_data`` for this width.  Returns a
+    PCGResult whose ``x`` is (R, P, n_loc) and whose flag, relres and
+    iters are (R,) numpy arrays, or (result, carry) with
+    ``return_carry`` (the carry's ``exec``, ``normrmin``, ``normr_act``
+    and ``xmin`` are what ``pcg_mixed_many`` reads).
+
+    Each column keeps ``pcg``'s semantics: its own mode-0 iterate /
+    mode-1 deferred-check sequence, stagnation, MoreSteps, min-residual
+    bookkeeping and flag taxonomy; a column that stops (converged, broken
+    down, out of budget) freezes while the others iterate.  A trip runs
+    ONE blocked matvec (check columns put x in its operand, iterate
+    columns their direction), queues every reduction of the trip, reads
+    them back in ONE host read, takes each column's decision on the host
+    in numpy, and commits through per-column selects against masks
+    uploaded once a trip (:class:`_Masks`).  Under fused the speculative
+    update is queued before the read; under pipelined the reduction is
+    read early (:class:`_EarlyRead`) while the preconditioner and the
+    stencil run, and a trip with a deferred check reads its true residual
+    after them.
+
+    Finalize: a failed column returns its min-residual iterate (lagged
+    variants unconditionally), a zero-rhs column zeros with flag 0 and 0
+    iterations, and on the one-shot path a non-converged column whose
+    residual went non-finite ``QUARANTINE_FLAG``."""
+    if variant not in VALID_PCG_VARIANTS:
+        raise ValueError(f"pcg variant must be one of "
+                         f"{VALID_PCG_VARIANTS}, got {variant!r}")
+    lagged = variant in LAGGED_VARIANTS
+    pipelined = variant == "pipelined"
+    drift_limit = drift_limit_for(variant)
+    dd = ops.dot_dtype
+    dt = fext.dtype
+    dev = fext.device
+    f = _np_type(dd)          # host scalars in the dot dtype
+    fs = _np_type(dt)         # host scalars in the storage dtype
+    R = fext.shape[0]
+    eff = data["eff"]
+    w = data["weight"] * eff
+    eps = f(np.finfo(fs).eps)
+    max_iter = np.broadcast_to(np.asarray(max_iter, np.int64), (R,))
+
+    nominal = max_iter_nominal if max_iter_nominal is not None else max_iter
+    maxmsteps = np.minimum(min(glob_n_dof_eff // 50, 5),
+                           glob_n_dof_eff - np.asarray(nominal, np.int64))
+
+    def norms(*ts):
+        """sqrt of squared norms read back, in the dot dtype."""
+        return np.sqrt(_read_rows(R, *ts).astype(f))
+
+    n2b = norms(ops.wdot_many(w, fext, fext))[0]
+    tolb = np.asarray(tol, f) * n2b
+
+    def amul(v):
+        """Assembled K.v restricted to effective dofs."""
+        return eff * ops.matvec(data, v)
+
+    if x0_zero:
+        r0, normr0 = fext, n2b
+    else:
+        r0 = fext - amul(x0)
+        normr0 = norms(ops.wdot_many(w, r0, r0))[0]
+
+    zero_rhs = n2b == 0
+    initial_ok = normr0 <= tolb
+    c = cold_carry_many(x0, r0, normr0, dd, variant)
+    c["flag"] = np.where(zero_rhs | initial_ok, 0, 1)
+    if pipelined:
+        early = _EarlyRead(dev, 6 * R)
+
+    def active():
+        return (c["flag"] == 1) & (c["i"] < max_iter)
+
+    def pre_masks():
+        """The masks a trip needs before its read: deferred-check
+        columns, first iterations (classic), priming sources (pipelined)."""
+        m = dict(chk=(c["mode"] == 1) & active())
+        if variant == "classic":
+            m["i0"] = c["i"] == 0
+        if pipelined:
+            m["init"] = c["init"] > 0
+        return m
+
+    def resolve(normr_act, candidate, stag, i):
+        """Per-column iteration epilogue (``pcg``'s ``resolve``): the
+        stag reset, MoreSteps, min-residual bookkeeping and the flag, as
+        (R,) arrays; ``better`` marks columns whose min-residual iterate
+        moves to the resolved one."""
+        candidate = np.broadcast_to(candidate, (R,))
+        converged = candidate & (normr_act <= tolb)
+        failed = candidate & ~converged
+        stag = np.where(failed & (stag >= max_stag_steps)
+                        & (c["moresteps"] == 0), 0, stag)
+        moresteps = np.where(failed, c["moresteps"] + 1, c["moresteps"])
+        toosmall = failed & (moresteps >= maxmsteps)
+        better = normr_act < c["normrmin"]
+        stagnated = (stag >= max_stag_steps) & ~converged & ~toosmall
+        flag = np.where(converged, 0,
+                        np.where(toosmall | stagnated, 3, 1))
+        return dict(flag=flag, stag=stag, moresteps=moresteps,
+                    normrmin=np.where(better, normr_act, c["normrmin"]),
+                    imin=np.where(better, i, c["imin"]),
+                    i=np.where(flag != 1, i, i + 1), iter_out=i.copy(),
+                    normr_act=np.asarray(normr_act, f),
+                    mode=np.zeros(R, np.int64), better=better)
+
+    def merge(cases):
+        """Per-column merge of the host outcomes: ``cases`` is a list of
+        (mask, fields) with disjoint masks; other columns keep theirs."""
+        for m, d in cases:
+            for k, v in d.items():
+                if k != "better":
+                    c[k] = np.where(m, v, c[k])
+
+    def breakdown_of(rho, beta, pq, alpha, first=False):
+        """Per-column breakdown of the recurrence's scalars (classic's
+        taxonomy); ``first`` columns (a classic first iteration, whose
+        direction takes no beta) skip the beta test."""
+        bad_beta = ~np.asarray(first) & ((beta == 0) | np.isinf(beta))
+        return ((rho == 0) | np.isinf(rho) | bad_beta
+                | (pq <= 0) | np.isinf(pq) | np.isinf(alpha))
+
+    def check_norm(kop):
+        """The deferred check's true residual fext - A.x and its squared
+        norm (queued; ``kop`` is A.x on the check columns)."""
+        r_true = fext - kop
+        return r_true, ops.wdot_many(w, r_true, r_true)
+
+    def drift_check(chk, normr_chk):
+        """The drift guard of the lagged variants on the check columns'
+        resolved fields ``chk``: a non-converged check whose true residual
+        exceeds FUSED_DRIFT_FACTOR x the recurrence norm that prompted it
+        counts one drift; at the variant's limit the column exits 6."""
+        disagree = ((normr_chk > tolb)
+                    & (normr_chk > f(FUSED_DRIFT_FACTOR) * c["chk_normr"]))
+        drift = c["drift"] + disagree
+        chk["drift"] = drift
+        chk["flag"] = np.where((chk["flag"] == 1) & (drift >= drift_limit),
+                               DRIFT_FLAG, chk["flag"])
+
+    masks = _Masks(dev, **pre_masks())
+
+    def commit(nxt, fields):
+        """Device commits of one trip: ``fields`` maps a carry leaf to a
+        list of (mask key, new value or callable) applied in order, the
+        first matching mask winning; the masks are in ``nxt``."""
+        for k, sources in fields.items():
+            v = c[k]
+            for key, new in reversed(sources):
+                v = nxt.sel(key, new, v)
+            c[k] = v
+
+    def classic_trip():
+        act = active()
+        is_check = (c["mode"] == 1) & act
+        it_m = act & ~is_check
+        x, r, p = c["x"], c["r"], c["p"]
+        z = ops.apply_prec(inv_diag, r, data)
+        inf_col = torch.isinf(z).any(dim=(-2, -1))
+        red = ops.wdots_many(w, [(z, r)], extra=[inf_col])
+        rho_new = red[0]
+        beta = (rho_new / c["rho"]).to(dt)
+        p_new = masks.sel("i0", z, lambda: z + beta[:, None, None] * p)
+        # the ONE blocked stencil application: check columns ride their
+        # committed iterate through it (q_j = A.x_j there)
+        q = amul(masks.sel("chk", x, p_new))
+        pq = ops.wdot_many(w, p_new, q)
+        alpha = (rho_new / pq).to(dt)
+        r_upd = r - alpha[:, None, None] * q
+        sq = ops.wdots_many(w, [(p_new, p_new), (x, x), (r_upd, r_upd)])
+        x_upd = x + alpha[:, None, None] * p_new
+        ts = [red, beta, pq, alpha, sq]
+        if is_check.any():
+            r_true, nchk = check_norm(q)
+            ts.append(nchk)
+        v = _read_rows(R, *ts)
+        with np.errstate(all="ignore"):
+            rho_h, flag2 = v[0].astype(f), v[1] > 0
+            beta_h, pq_h, alpha_h = v[2].astype(fs), v[3].astype(f), \
+                v[4].astype(fs)
+            normp, normx, normr = np.sqrt(v[5:8].astype(f))
+            breakdown = breakdown_of(rho_h, beta_h, pq_h, alpha_h,
+                                     first=c["i"] == 0)
+            stag_upd = np.where(normp * np.abs(alpha_h).astype(f)
+                                < eps * normx, c["stag"] + 1, 0)
+            cand_new = ((normr <= tolb) | (stag_upd >= max_stag_steps)
+                        | (c["moresteps"] > 0))
+            new_flag = np.where(flag2, 2, 4)
+            i = c["i"]
+            res = resolve(normr, False, stag_upd, i)
+            stop = flag2 | breakdown
+            m_brk = it_m & stop
+            m_pend = it_m & ~stop & cand_new
+            m_res = it_m & ~stop & ~cand_new
+            cases = [(m_brk, dict(flag=new_flag, iter_out=i)),
+                     (m_pend, dict(stag=stag_upd, iter_out=i,
+                                   mode=np.ones(R, np.int64))),
+                     (m_res, res)]
+            chk_better = np.zeros(R, bool)
+            if is_check.any():
+                chk = resolve(np.sqrt(v[8].astype(f)), True, c["stag"], i)
+                chk_better = is_check & chk["better"]
+                cases.append((is_check, chk))
+        upd = m_pend | m_res
+        merge(cases)
+        nxt = _Masks(dev, xmin_x=chk_better, xmin_upd=m_res & res["better"],
+                     upd=upd, chk_r=is_check, rho=m_brk | upd,
+                     **pre_masks())
+        commit(nxt, dict(
+            xmin=[("xmin_x", x), ("xmin_upd", x_upd)],
+            x=[("upd", x_upd)],
+            r=[("chk_r", lambda: r_true), ("upd", r_upd)],
+            p=[("upd", p_new)],
+            rho=[("rho", rho_new)]))
+        return nxt
+
+    def fused_trip():
+        act = active()
+        is_check = (c["mode"] == 1) & act
+        it_m = act & ~is_check
+        x, r, p = c["x"], c["r"], c["p"]
+        z = ops.apply_prec(inv_diag, r, data)
+        kop = amul(masks.sel("chk", x, z))  # A.z; A.x on check columns
+        inf_col = torch.isinf(z).any(dim=(-2, -1))
+        red = ops.wdots_many(w, [(r, z), (z, kop), (r, r), (p, p), (x, x)],
+                             extra=[inf_col])
+        rho, mu = red[0], red[1]
+        # Chronopoulos–Gear scalars on the device, in the dot dtype
+        beta = rho / c["rho"]
+        pq = mu - beta * rho / c["alpha"]
+        alpha = rho / pq
+        # the update, queued speculatively (dropped on all but the
+        # resolved columns)
+        beta_dt = beta.to(dt)[:, None, None]
+        alpha_dt = alpha.to(dt)[:, None, None]
+        p2 = z + beta_dt * p
+        q2 = kop + beta_dt * c["q"]
+        x2 = x + alpha_dt * p2
+        r2 = r - alpha_dt * q2
+        ts = [red, beta, pq, alpha]
+        if is_check.any():
+            r_true, nchk = check_norm(kop)
+            ts.append(nchk)
+        v = _read_rows(R, *ts)
+        i = c["i"]
+        with np.errstate(all="ignore"):
+            normr, normp, normx = np.sqrt(v[2:5].astype(f))
+            flag2 = v[5] > 0
+            already = c["fresh"] == 0
+            small = normp * np.abs(c["alpha_h"]) < eps * normx
+            stag = np.where(already, c["stag"],
+                            np.where(small, c["stag"] + 1, 0))
+            candidate = ((normr <= tolb) | (stag >= max_stag_steps)
+                         | (c["moresteps"] > 0)) & ~already
+            alpha_h = v[8].astype(f)
+            breakdown = breakdown_of(v[0].astype(f), v[6].astype(f),
+                                     v[7].astype(f), alpha_h)
+            res = resolve(normr, False, stag, i)
+            res.update(alpha_h=alpha_h, fresh=np.ones(R, np.int64))
+            m_brk = it_m & (flag2 | breakdown) & ~candidate
+            m_pend = it_m & candidate
+            m_res = it_m & ~candidate & ~(flag2 | breakdown)
+            cases = [(m_brk, dict(flag=np.where(flag2, 2, 4), iter_out=i)),
+                     (m_pend, dict(stag=stag, iter_out=i,
+                                   mode=np.ones(R, np.int64),
+                                   chk_normr=normr)),
+                     (m_res, res)]
+            chk_better = np.zeros(R, bool)
+            if is_check.any():
+                normr_chk = np.sqrt(v[9].astype(f))
+                chk = resolve(normr_chk, True, c["stag"], i)
+                chk.update(i=i, fresh=np.zeros(R, np.int64))
+                drift_check(chk, normr_chk)
+                chk_better = is_check & chk["better"]
+                cases.append((is_check, chk))
+        merge(cases)
+        nxt = _Masks(dev, xmin=chk_better | (m_res & res["better"]),
+                     upd=m_res, chk_r=is_check, rho=m_res | m_brk,
+                     **pre_masks())
+        commit(nxt, dict(
+            xmin=[("xmin", x)], x=[("upd", x2)],
+            r=[("chk_r", lambda: r_true), ("upd", r2)],
+            p=[("upd", p2)], q=[("upd", q2)], alpha=[("upd", alpha)],
+            rho=[("rho", rho)]))
+        return nxt
+
+    def pipelined_trip():
+        act = active()
+        is_check = (c["mode"] == 1) & act
+        is_prime = (c["init"] > 0) & act & ~is_check
+        it_m = act & ~is_check & ~is_prime
+        x, r, p, u, wv = c["x"], c["r"], c["p"], c["u"], c["w"]
+        # the ONE reduction, on carry leaves only, queued first and read
+        # back while the trip's preconditioner and stencil run
+        inf_col = torch.isinf(u).any(dim=(-2, -1))
+        red = ops.wdots_many(w, [(r, u), (wv, u), (r, r), (p, p), (x, x)],
+                             extra=[inf_col])
+        early.start(red.reshape(-1))
+        # priming columns precondition their residual, the others w
+        m = ops.apply_prec(inv_diag, masks.sel("init", r, wv), data)
+        kop = amul(masks.sel("chk", x, m))
+        if it_m.any():
+            # GV scalars on the device (the host takes the same IEEE
+            # operations on the read values below) and the update, queued
+            # speculatively
+            gamma, delta = red[0], red[1]
+            beta = gamma / c["rho"]
+            alpha = gamma / (delta - beta * gamma / c["alpha"])
+            b = beta.to(dt)[:, None, None]
+            a = alpha.to(dt)[:, None, None]
+            p2 = u + b * p              # p = 0 cold => p = u
+            s2 = wv + b * c["s"]        # A.p by recurrence
+            q2 = m + b * c["q"]         # M^-1.s by recurrence
+            z2 = kop + b * c["z"]       # A.q by recurrence
+            x2, r2 = x + a * p2, r - a * s2
+            u2, w2 = u - a * q2, wv - a * z2
+        if is_check.any():
+            r_true, nchk = check_norm(kop)
+        v = early.wait().reshape(-1, R)
+        i = c["i"]
+        with np.errstate(all="ignore"):
+            gamma_h, delta_h = v[0].astype(f), v[1].astype(f)
+            normr, normp, normx = np.sqrt(v[2:5].astype(f))
+            flag2 = v[5] > 0
+            already = c["fresh"] == 0
+            small = normp * np.abs(c["alpha_h"]) < eps * normx
+            stag = np.where(already, c["stag"],
+                            np.where(small, c["stag"] + 1, 0))
+            natural = ((normr <= tolb) | (stag >= max_stag_steps)
+                       | (c["moresteps"] > 0))
+            forced = c["sc"] >= PIPELINED_REPLACE_EVERY
+            candidate = (natural | forced) & ~already
+            beta_h = gamma_h / c["rho_h"]
+            pq_h = delta_h - beta_h * gamma_h / c["alpha_h"]
+            alpha_h = gamma_h / pq_h
+            breakdown = breakdown_of(gamma_h, beta_h, pq_h, alpha_h)
+            res = resolve(normr, False, stag, i)
+            res.update(alpha_h=alpha_h, rho_h=gamma_h,
+                       fresh=np.ones(R, np.int64), sc=c["sc"] + 1)
+            m_brk = it_m & (flag2 | breakdown) & ~candidate
+            m_pend = it_m & candidate
+            m_res = it_m & ~candidate & ~(flag2 | breakdown)
+            cases = [(is_prime, dict(init=np.zeros(R, np.int64))),
+                     (m_brk, dict(flag=np.where(flag2, 2, 4), iter_out=i,
+                                  rho_h=gamma_h)),
+                     (m_pend, dict(stag=stag, iter_out=i,
+                                   mode=np.ones(R, np.int64),
+                                   chk_normr=normr,
+                                   chk_forced=(forced & ~natural
+                                               ).astype(np.int64))),
+                     (m_res, res)]
+            chk_better = np.zeros(R, bool)
+            if is_check.any():
+                # the deferred check with true-residual replacement: the
+                # column re-primes u and w next trip; a check forced by
+                # the cadence alone is no candidate
+                normr_chk = np.sqrt(_read_rows(R, nchk)[0].astype(f))
+                chk = resolve(normr_chk, c["chk_forced"] == 0, c["stag"], i)
+                chk.update(i=i, fresh=np.zeros(R, np.int64),
+                           init=np.ones(R, np.int64),
+                           sc=np.zeros(R, np.int64),
+                           chk_forced=np.zeros(R, np.int64))
+                drift_check(chk, normr_chk)
+                chk_better = is_check & chk["better"]
+                cases.append((is_check, chk))
+        merge(cases)
+        nxt = _Masks(dev, xmin=chk_better | (m_res & res["better"]),
+                     upd=m_res, prime=is_prime, chk_r=is_check,
+                     rho=m_res | m_brk, **pre_masks())
+        commit(nxt, dict(
+            xmin=[("xmin", x)], x=[("upd", lambda: x2)],
+            r=[("chk_r", lambda: r_true), ("upd", lambda: r2)],
+            p=[("upd", lambda: p2)], s=[("upd", lambda: s2)],
+            q=[("upd", lambda: q2)], z=[("upd", lambda: z2)],
+            u=[("upd", lambda: u2), ("prime", m)],
+            w=[("upd", lambda: w2), ("prime", kop)],
+            alpha=[("upd", lambda: alpha)],
+            rho=[("rho", red[0])]))
+        return nxt
+
+    trip = {"classic": classic_trip, "fused": fused_trip,
+            "pipelined": pipelined_trip}[variant]
+    trips = 0
+    while active().any():
+        masks = trip()
+        trips += 1
+
+    # ---- finalize, per column: a failed column returns its min-residual
+    # iterate where its true residual is the smaller one or its own went
+    # non-finite (a lagged variant's last iterate was never evaluated, so
+    # unconditionally there); return_carry returns the raw carry
+    ok = c["flag"] == 0
+    skip = zero_rhs | initial_ok
+    normr_min, use_min = c["normr_act"], np.zeros(R, bool)
+    if not return_carry and (~ok & ~zero_rhs).any():
+        r_min = fext - amul(c["xmin"])
+        normr_min = norms(ops.wdot_many(w, r_min, r_min))[0]
+        use_min = ~ok & (lagged | (normr_min < c["normr_act"])
+                         | ~np.isfinite(c["normr_act"]))
+    fin = _Masks(dev, use_min=use_min, zero=zero_rhs)
+    x = fin.sel("zero", lambda: torch.zeros_like(c["x"]),
+                lambda: fin.sel("use_min", c["xmin"], c["x"]))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        relres = np.where(zero_rhs, 0.0,
+                          np.where(use_min, normr_min, c["normr_act"]) / n2b
+                          ).astype(np.float32)
+    iters = np.where(skip, 0,
+                     np.where(use_min, c["imin"], c["iter_out"]) + 1)
+    flag = np.where(zero_rhs, 0, c["flag"])
+    if not return_carry:
+        # one-shot reporting: a non-finite residual trips no MATLAB flag;
+        # the column already took its min-residual iterate above
+        poisoned = ~np.isfinite(c["normr_act"]) & (flag != 0) & ~zero_rhs
+        flag = np.where(poisoned, QUARANTINE_FLAG, flag)
+    result = PCGResult(x=x, flag=flag, relres=relres, iters=iters,
+                       trips=trips)
+    if return_carry:
+        keys = ["x", "r", "p", "rho", "stag", "moresteps", "normrmin",
+                "xmin", "imin", "normr_act", "prec_sel"]
+        if lagged:
+            keys += ["q", "alpha", "fresh", "drift"]
+        if pipelined:
+            keys += ["u", "w", "s", "z", "init", "sc"]
+        carry = {k: c[k] for k in keys}
+        carry.update(flag=flag, exec=np.where(skip, 0, c["iter_out"] + 1))
+        return result, carry
+    return result
+
+
+def pcg_mixed_many(
+    ops32: Ops,
+    data32: dict,
+    ops64: Ops,
+    data64: dict,
+    fext: torch.Tensor,       # (R, P, n_loc) f64 rhs block on eff dofs
+    x0: torch.Tensor,         # (R, P, n_loc) f64 initial guesses
+    inv_diag32,               # f32 preconditioner operand, shared
+    tol: float,
+    max_iter: int,
+    glob_n_dof_eff: int,
+    max_stag_steps: int = 3,
+    inner_tol: float = 1e-5,
+    max_outer: int = 12,
+    variant: str = "classic",
+) -> PCGResult:
+    """Blocked ``pcg_mixed``: f32 ``pcg_many`` cycles on each column's
+    normalised residual (zeroed for the columns not running this cycle,
+    whose inner solve then exits at once), the true residual refreshed by
+    ONE blocked f64 matvec a cycle and the solution accumulated in f64.
+    Each column's inner budget is its own ``max_iter - total``.  Per
+    column: flag 0 at tol, 3 when a cycle failed to halve its residual, 2
+    after an inner inf-preconditioner exit, 1 when ``max_outer`` cycles or
+    ``max_iter`` inner iterations are spent; ``iters`` the executed inner
+    iterations.  ``data32`` and ``data64`` are the trees of
+    ``parallel.structured.block_data`` for this width."""
+    eff64 = data64["eff"]
+    w64 = data64["weight"] * eff64
+    f = _np_type(ops64.dot_dtype)
+    R = fext.shape[0]
+    dev = fext.device
+
+    def amul64(v):
+        return eff64 * ops64.matvec(data64, v)
+
+    def norms(t):
+        return np.sqrt(_read_rows(R, t)[0].astype(f))
+
+    n2b = norms(ops64.wdot_many(w64, fext, fext))
+    tolb = f(tol) * n2b
+
+    x = x0
+    normr_prev = np.full(R, np.inf, f)
+    outer = np.zeros(R, np.int64)
+    total = np.zeros(R, np.int64)
+    flag = np.where(n2b == 0, 0, -1)
+    fatal2 = np.zeros(R, bool)
+    trips = 0
+    while (flag == -1).any():
+        # the f64 residual of the CURRENT x, refreshed at the top
+        r = fext - amul64(x)
+        normr = norms(ops64.wdot_many(w64, r, r))
+        live = flag == -1
+        converged = normr <= tolb
+        # refinement must contract the residual (first cycle: never trips)
+        stalled = normr > f(0.5) * normr_prev
+        exhausted = (outer >= max_outer) | (total >= max_iter)
+        run = live & ~(converged | stalled | fatal2 | exhausted)
+        inner_flag = np.ones(R, np.int64)
+        exec_n = np.zeros(R, np.int64)
+        if run.any():
+            scale = torch.from_numpy(np.where(run, normr, f(1)))
+            if dev.type == "cuda":
+                scale = scale.pin_memory().to(dev, non_blocking=True)
+            scale = scale[:, None, None]
+            sel = _Masks(dev, run=run)
+            rhat32 = sel.sel("run", lambda: r / scale,
+                             torch.zeros_like(r)).to(torch.float32)
+            inner, ic = pcg_many(
+                ops32, data32, fext=rhat32, x0=torch.zeros_like(rhat32),
+                inv_diag=inv_diag32,
+                tol=refine_tol(tolb, normr, inner_tol),
+                max_iter=np.maximum(max_iter - total, 1),
+                glob_n_dof_eff=glob_n_dof_eff,
+                max_stag_steps=max_stag_steps, max_iter_nominal=max_iter,
+                return_carry=True, x0_zero=True, variant=variant)
+            # return_carry skips the min-residual finalize: a
+            # non-converged column takes its tracked min-residual iterate
+            # when its recurrence norm is the smaller one
+            use_min = (inner.flag != 0) & (ic["normrmin"] < ic["normr_act"])
+            pick = _Masks(dev, use_min=use_min, run=run)
+            xbest = pick.sel("use_min", ic["xmin"], inner.x)
+            x = pick.sel("run", lambda: x + xbest.to(fext.dtype) * scale, x)
+            exec_n = np.where(run, np.maximum(ic["exec"], 1), 0)
+            inner_flag = np.where(run, inner.flag, 1)
+            trips += inner.trips
+        flag = np.where(~live, flag,
+                        np.where(converged, 0,
+                                 np.where(stalled, 3,
+                                          np.where(fatal2, 2,
+                                                   np.where(exhausted, 1,
+                                                            -1)))))
+        normr_prev = np.where(live, normr, normr_prev)
+        outer = outer + run
+        total = total + exec_n
+        fatal2 = inner_flag == 2
+
+    zero_rhs = n2b == 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        relres = np.where(zero_rhs, 0.0, normr_prev / n2b).astype(np.float32)
+    x = _Masks(dev, zero=zero_rhs).sel("zero", lambda: torch.zeros_like(x),
+                                       x)
+    return PCGResult(x=x, flag=flag, relres=relres, iters=total, trips=trips)

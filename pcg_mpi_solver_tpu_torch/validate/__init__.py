@@ -1,0 +1,7 @@
+"""Request validation (port of ``pcg_mpi_solver_tpu/validate``): the
+per-column checks of a blocked right-hand side."""
+
+from pcg_mpi_solver_tpu_torch.validate.preflight import (
+    CheckResult, PreflightError, check_rhs_block)
+
+__all__ = ["CheckResult", "PreflightError", "check_rhs_block"]

@@ -2,8 +2,11 @@
 PyTorch version, the kernel a solve's launches go to under each
 ``PCG_TPU_PALLAS_V``, a whole solve on the card against the same solve
 on the CPU (classic, fused and pipelined; two pipelined solves bitwise
-equal), and the block3 and mg preconditioners' applies on the card
-against the CPU (two V-cycles bitwise equal).  They carry the ``cuda`` marker and skip with a reason where
+equal), the block3 and mg preconditioners' applies on the card
+against the CPU (two V-cycles bitwise equal), and blocked right-hand
+sides (``solve_many`` on the card against the CPU under each variant, a
+blocked matvec's columns bit for bit its single launches, two blocks
+bitwise equal, one kernel launch a lockstep trip).  They carry the ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
 JAX conftest:
@@ -591,3 +594,117 @@ def test_variant_solve_launches_the_float32_kernel(cuda_device, variant):
     assert r.flag == 0
     assert smv.LAUNCHES[("v6", "float32")] >= r.iters
     assert smv.LAUNCHES[("v6", "float64")] >= 2
+
+
+def _many_solver(variant, mode, device, n_parts=2):
+    """The 12x8x6 traction cube for blocked solves (two parts: the halo
+    runs within each column), under jacobi, and under mg for pipelined
+    mixed: its f32 cycles under jacobi end on breakdowns at round-off-set
+    iterations, so its totals part between the card and the CPU."""
+    model = make_cube_model(12, 8, 6, E=30e9, heterogeneous=True, seed=4,
+                            load="traction", load_value=1e6)
+    precond = "mg" if (variant, mode) == ("pipelined", "mixed") \
+        else "jacobi"
+    cfg = RunConfig(solver=SolverConfig(tol=1e-9, precision_mode=mode,
+                                        max_iter=1000, precond=precond,
+                                        pcg_variant=variant))
+    return model, Solver(model, cfg, n_parts=n_parts, device=device)
+
+
+def _many_block(model):
+    """[F, 2F, a random load on the effective dofs]."""
+    F = np.asarray(model.F)
+    hard = np.zeros(model.n_dof)
+    eff = np.asarray(model.dof_eff)
+    hard[eff] = np.random.default_rng(3).standard_normal(eff.size) \
+        * np.abs(F).max()
+    return np.stack([F, 2 * F, hard], axis=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,rtol", [("direct", 1e-8), ("mixed", 1e-5)])
+@pytest.mark.parametrize("variant", ["classic", "fused", "pipelined"])
+def test_blocked_solve_on_card_matches_cpu(cuda_device, variant, mode, rtol):
+    """solve_many of a three-column block on the card against the same
+    block on the CPU: flag 0 on every column on both, direct iterations
+    within +-1 (the reduction order alone), the columns within the solve's
+    scale; the 2F column takes F's iterations with x = 2 x(F) bit for bit
+    on the card."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, s = _many_solver(variant, mode, dev)
+        r = s.solve_many(_many_block(model))
+        out[dev] = (r, s.displacement_global_many(r.x))
+    (rg, ug), (rc, uc) = out["cuda"], out["cpu"]
+    assert list(rg.flags) == list(rc.flags) == [0, 0, 0]
+    if mode == "direct":
+        assert np.abs(rg.iters - rc.iters).max() <= 1
+    np.testing.assert_allclose(ug, uc, rtol=0, atol=rtol * np.abs(uc).max())
+    assert rg.iters[1] == rg.iters[0]
+    assert torch.equal(rg.x[..., 1], 2 * rg.x[..., 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_blocked_matvec_columns_equal_single_launches(cuda_device, dtype):
+    """A blocked matvec is ONE launch of v6 over the R * P slabs (cell
+    scales repeated per column), and each column of it is, bit for bit,
+    the single launch on that column."""
+    from pcg_mpi_solver_tpu_torch.parallel.structured import (
+        StructuredOps, block_data, device_data_structured,
+        partition_structured)
+
+    sp = partition_structured(make_cube_model(12, 6, 5, heterogeneous=True,
+                                              seed=4), 2)
+    ops = StructuredOps.from_partition(sp)
+    data = device_data_structured(sp, dtype, cuda_device)
+    x = torch.randn((4,) + tuple(sp.eff.shape), dtype=dtype,
+                    device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    blk = block_data(data, 4)
+    name = str(dtype).removeprefix("torch.")
+    before = smv.LAUNCHES[("v6", name)]
+    y = ops.matvec_local(blk, x)
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES[("v6", name)] == before + 1
+    for j in range(4):
+        assert torch.equal(y[j], ops.matvec_local(data, x[j]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "mixed"])
+def test_blocked_solves_repeat_bitwise_on_card(cuda_device, mode):
+    runs = []
+    for _ in range(2):
+        model, s = _many_solver("classic", mode, cuda_device)
+        r = s.solve_many(_many_block(model))
+        runs.append((list(r.flags), list(r.iters), list(r.relres),
+                     r.x.clone()))
+    assert runs[0][:3] == runs[1][:3] and runs[0][0] == [0, 0, 0]
+    assert torch.equal(runs[0][3], runs[1][3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "mixed"])
+@pytest.mark.parametrize("variant", ["classic", "fused", "pipelined"])
+def test_blocked_solve_launches_one_kernel_a_trip(cuda_device, variant,
+                                                  mode):
+    """Each lockstep trip (iterations, deferred checks and priming trips
+    of all columns at once) is one launch of the storage dtype's kernel,
+    and under mg also the V-cycle's 2 * mg_smooth_degree fine ones, each
+    over the whole block: v6 float64 for a direct solve, v6 float32 for
+    the inner cycles of a mixed one, whose float64 refreshes are one
+    blocked launch a cycle."""
+    model, s = _many_solver(variant, mode, cuda_device)
+    torch.cuda.synchronize()
+    smv.reset_launch_counts()
+    r = s.solve_many(_many_block(model))
+    assert list(r.flags) == [0, 0, 0] and r.trips >= r.iters.max()
+    f32, f64 = smv.LAUNCHES[("v6", "float32")], smv.LAUNCHES[("v6",
+                                                              "float64")]
+    a_trip = 1 + (2 * s.ops.mg_degree
+                  if s.config.solver.precond == "mg" else 0)
+    if mode == "direct":
+        assert (f32, f64) == (0, a_trip * r.trips)
+    else:
+        assert f32 == a_trip * r.trips and 1 <= f64 <= 13
