@@ -64,6 +64,23 @@ Phases (any failed check raises, so the script exits non-zero):
                 profiled lockstep trips at R = 4 beside classic's phase-4
                 window, 20 of the mg block; two 12x6x5 blocks bitwise
                 equal;
+  4e. general — the general (pattern-type) backend (mixed, jacobi,
+                classic, tol 1e-7), run right after phase 3, before any
+                profiler window (one slows every solve after it): the
+                150^3 flagship cube through Solver(backend="general")
+                (iterations within 5 % of the JAX package's 3334, no
+                structured kernel launched); the 22^3/L4 octree flagship
+                (5,670,981 dofs, auto backend) with build, partition and
+                upload seconds, its bucket layout, flag, relres,
+                iterations, inner cycles, time to tol and ms/iter; its
+                operator on the card against the CPU's float64 (float64
+                1e-12, float32 2e-5 of max|y|; two card matvecs bitwise
+                equal; times) and the same at two parts on a 3^3 octree;
+                the bucket groupings of ``BUCKET_VALUES_CHOICES`` timed;
+                the 6^3 octree within max(3, 5 %) of the JAX package's
+                1144 iterations.  After phase 4d: the cube's ms/iter
+                beside phase 4's v6, kernels and launches a float32
+                octree matvec, and 100 profiled inner iterations;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
                 solves on the CPU (the plain path): classic under jacobi,
@@ -188,6 +205,25 @@ REPLACES = {"v1": f"{PALLAS}:214", "v2": f"{PALLAS}:324",
 # so the ragged tail chunk is exercised (34 node planes)
 RAGGED_PLANES = ((2, 33, 17, 9), 16)
 ITERS_TOL = 0.05        # flagship iterations within 5 % of JAX's
+# phase 4e: the octree flagship, bench.py's BENCH_MODEL=octree model at
+# its first rung (pcg_mpi_solver_tpu/bench.py:288-293, ladder "22,18,12"):
+# 5,670,981 dofs
+OCTREE_FLAGSHIP = dict(n=22, max_level=4, n_incl=6, seed=2, E=30e9, nu=0.2,
+                       load="traction", load_value=1e6)
+# its two-part operator check on a small octree of the same arguments
+OCTREE_P2 = dict(n=3, max_level=3)
+# the octree whose iterations are held to the JAX package's count
+OCTREE_PARITY_N = 6
+# The JAX package's count for that octree (385,056 dofs; mixed, jacobi,
+# classic, tol 1e-7, one part, iters_per_dispatch=0): flag 0 in 1144
+# iterations, relres 4.9305e-08 (tools/octree_jax_count.py, the JAX
+# Solver on the CPU)
+JAX_OCTREE6_ITERS = 1144
+# the general matvec on the card against the CPU's float64, x max|y|
+OPERATOR_TOL = {"float64": 1e-12, "float32": 2e-5}
+# bucket groupings (plan_buckets' cost of a bucket, in element values)
+# timed on the octree's operator; 0 = one bucket a sign sub-type
+BUCKET_VALUES_CHOICES = (0, 500_000, 2_000_000, 8_000_000)
 
 
 def say(msg: str) -> None:
@@ -486,28 +522,21 @@ def inner_cycles():
         pcg_mod.pcg = inner
 
 
-def phase_main(torch, np):
-    """The flagship mixed solve once under each float32 variant; returns
-    {variant: launch counts of its solve}, the flagship model and v6's
-    iterations and inner-loop profile.  Ends with v4's, v7's, v8's and
+def phase_main(torch, np, model):
+    """The flagship mixed solve of ``model`` once under each float32
+    variant; returns {variant: launch counts of its solve} and v6's
+    iterations, ms/iter and inner-loop profile.  Ends with v4's, v7's, v8's and
     v9's inner cycles beside v6's: the stagnation exits that end the
     cycles move with the round-off of the cell product (v4 and v8 run v6
     float's FFMA product and node sums; a DMMA product moved the second
     exit by 200 iterations, PERF.md, Findings; v7 runs v5's gather, v9
     sums in another order than v6)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
-    from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
         LAUNCHES, reset_launch_counts)
     from pcg_mpi_solver_tpu_torch.solver import Solver
 
-    kw = dict(FLAGSHIP)
-    nx = kw.pop("nx")
-    t0 = time.perf_counter()
-    model = make_cube_model(nx, **kw)
-    model_s = time.perf_counter() - t0
-    say(f"main: cube {nx}^3, {model.n_dof} dofs; model build {model_s:.2f} "
-        f"s")
+    nx = FLAGSHIP["nx"]
     say(f"main: the JAX package recorded flag 0 and {JAX_FLAGSHIP_ITERS} "
         f"iterations for this configuration")
     cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
@@ -567,7 +596,8 @@ def phase_main(torch, np):
             raise AssertionError("flagship tip displacement outside the "
                                  "physics window")
         if variant == "v6":
-            classic = dict(iters=res.iters, profile=profile_inner(torch,
+            classic = dict(iters=res.iters, ms_iter=wall / iters * 1e3,
+                           profile=profile_inner(torch,
                                                                   solver))
         launches_by[variant] = launches
         cycles_by[variant] = (cycles, res.iters)
@@ -576,7 +606,7 @@ def phase_main(torch, np):
     for v in ("v4", "v7", "v8", "v9", "v6"):
         say(f"main: inner cycles (flag, iterations) {v} {cycles_by[v][0]}, "
             f"{cycles_by[v][1]} in all")
-    return launches_by, model, classic
+    return launches_by, classic
 
 
 def _device_rows(prof):
@@ -1101,6 +1131,255 @@ def phase_many(torch, np, models, classic_iters, classic_profile):
     return launches_by
 
 
+def _matvec_kernels(torch, fn, reps: int = 5):
+    """(device kernels, kernel launches) a call of ``fn`` makes: every
+    CUDA-side event of a torch.profiler window over ``reps`` calls, and
+    its cudaLaunchKernel calls, each divided by ``reps``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    kernels = sum(ev.count for ev in evs
+                  if ev.device_type == DeviceType.CUDA)
+    launches = sum(ev.count for ev in evs if ev.key == "cudaLaunchKernel")
+    return kernels / reps, launches / reps
+
+
+def _general_solve(torch, np, solver, tag, bar):
+    """One step of a general-backend mixed Solver with the structured
+    kernels' launch counts set to 0 just before it; fails unless flag 0,
+    relres <= 1e-7, the tip within [1/3, 3] of ``bar`` and no structured
+    kernel launched.  Returns (result, ms/iter, inner cycles)."""
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+
+    if solver.backend != "general":
+        raise AssertionError(f"{tag}: Solver took the {solver.backend} "
+                             f"backend")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with inner_cycles() as cycles:
+        res = solver.step(1.0)
+    used = {f"{v} {d}": n for (v, d), n in LAUNCHES.items() if n}
+    ms = res.wall_s / res.iters * 1e3
+    u = solver.displacement_global()
+    tip = float(u[0::3].max())
+    say(f"{tag}: flag {res.flag}, iterations {res.iters}, relres "
+        f"{res.relres:.4e}; time to tol {res.wall_s:.3f} s, {ms:.4f} "
+        f"ms/iter, {solver.pm.glob_n_dof * res.iters / res.wall_s:.4e} "
+        f"dof*iter/s; inner cycles (flag, iterations) {cycles}; tip ux "
+        f"{tip:.4e} m vs bar estimate {bar:.4e} m (ratio {tip / bar:.3f}, "
+        f"window [1/3, 3]); structured kernel launches {used or 0}")
+    if res.flag != 0 or not res.relres <= 1e-7:
+        raise AssertionError(f"{tag}: did not converge: {res}")
+    if not np.isfinite(u).all() or not bar / 3 <= tip <= 3 * bar:
+        raise AssertionError(f"{tag}: tip displacement outside the "
+                             f"physics window")
+    if used:
+        raise AssertionError(f"{tag}: the general backend launched "
+                             f"structured kernels: {used}")
+    return res, ms, cycles
+
+
+def _tree_to(tree, device):
+    """A device tree moved to ``device`` (tensors; lists and dicts kept)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _operator_checks(torch, np, pm, tag, trees=None, timed=False):
+    """One seeded x through the card's float64 and float32 general
+    matvec and the CPU's float64 one on the same partition (the card's
+    float64 tree moved to the CPU): within ``OPERATOR_TOL`` x max|y_cpu|,
+    two card matvecs bitwise equal.  ``trees``: the card's (float64,
+    float32) trees of ``pm`` at the default grouping (built when None).
+    With ``timed``, each dtype's CUDA-event ms a matvec."""
+    from pcg_mpi_solver_tpu_torch.ops.matvec import Ops, device_data
+
+    ops = Ops.from_model(pm)
+    if trees is None:
+        trees = (device_data(pm, torch.float64, "cuda"),
+                 device_data(pm, torch.float32, "cuda"))
+    x = np.where(pm.dof_gid >= 0, np.random.default_rng(7).standard_normal(
+        pm.dof_gid.shape), 0.0)
+    t0 = time.perf_counter()
+    y_cpu = ops.matvec(_tree_to(trees[0], "cpu"), torch.as_tensor(x))
+    cpu_s = time.perf_counter() - t0
+    scale = float(y_cpu.abs().max())
+    out = {}
+    for (name, dtype), data in zip((("float64", torch.float64),
+                                    ("float32", torch.float32)), trees):
+        xc = torch.as_tensor(x, dtype=dtype, device="cuda")
+        y1 = ops.matvec(data, xc)
+        y2 = ops.matvec(data, xc)
+        err = float((y1.cpu().double() - y_cpu).abs().max()) / scale
+        same = bool(torch.equal(y1, y2))
+        line = (f"{tag}: {name} matvec on the card vs the CPU's float64: "
+                f"max err {err:.3e} x max|y| (tol {OPERATOR_TOL[name]:g}); "
+                f"two card matvecs bitwise equal: {same}")
+        if timed:
+            ms = time_ms(torch, lambda: ops.matvec(data, xc))
+            out[name] = ms
+            line += f"; {ms:.4f} ms a matvec"
+        say(line)
+        if not err <= OPERATOR_TOL[name] or not same:
+            raise AssertionError(f"{tag}: {name} general matvec on the "
+                                 f"card failed its check")
+        del xc, y1, y2
+    say(f"{tag}: CPU float64 matvec {cpu_s:.2f} s")
+    return out
+
+
+def _bucket_stats(pm, bucket_values):
+    """(buckets, sub-types, padded / real product FLOPs, padded / real
+    element values, real GFLOP) of the stacked layout at
+    ``bucket_values``; real = each element's own d^2 (d) once."""
+    from pcg_mpi_solver_tpu_torch.ops.matvec import _layout
+
+    lay = _layout(pm, bucket_values)
+    n_el = [int(tb.n_elem.sum()) for tb in pm.type_blocks]
+    real = sum(2 * n * tb.d * tb.d for n, tb in zip(n_el, pm.type_blocks))
+    vals = sum(n * tb.d for n, tb in zip(n_el, pm.type_blocks))
+    pad = sum(2 * T * M * d * d for T, M, _nr, d, _b in lay.shapes)
+    pval = sum(T * M * d for T, M, _nr, d, _b in lay.shapes)
+    return len(lay.shapes), len(lay.subs), pad / real, pval / vals, \
+        real / 1e9
+
+
+def phase_general(torch, np, cube_model):
+    """Phase 4e: the general (pattern-type) backend on the card, run
+    before phase 4 (no profiler window has run yet: one slows every solve
+    after it, PERF.md).
+    1. the 150^3 flagship cube through Solver(backend="general") (mixed,
+       jacobi, classic): iterations within 5 % of the JAX package's 3334;
+    2. the 22^3/L4 octree flagship (bench.py's octree model, auto backend
+       -> general): build, partition and upload seconds, its bucket
+       layout and its solve;
+    3. its operator at full size on the card against the CPU, and at two
+       parts on a small octree; the bucket groupings of
+       ``BUCKET_VALUES_CHOICES`` timed on its float32 matvec;
+    4. the 6^3 octree against the JAX package's count.
+    Returns what :func:`phase_general_profile` reads after phase 4d: the
+    cube's ms/iter and the octree's Solver."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
+    from pcg_mpi_solver_tpu_torch.ops.matvec import (
+        BUCKET_VALUES, Ops, device_data)
+    from pcg_mpi_solver_tpu_torch.parallel.partition import partition_model
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
+    smi = nvidia_smi_line()
+    # 1. the flagship cube on the general operator
+    nx = FLAGSHIP["nx"]
+    sigma = FLAGSHIP["load_value"] * (nx + 1) ** 2 / nx ** 2
+    solver = Solver(cube_model, cfg, backend="general")
+    say(f"general cube {nx}^3: partition {solver.partition_build_s:.2f} s, "
+        f"upload {solver.upload_s:.2f} s, setup {solver.setup_s:.2f} s; "
+        f"{len(solver.ops.buckets)} bucket(s), {solver.ops.n_vrows} value "
+        f"rows, ELL K {solver.ops.ell_k}")
+    res, cube_ms, _c = _general_solve(torch, np, solver,
+                                      f"general cube {nx}^3",
+                                      sigma * nx / FLAGSHIP["E"])
+    say(f"general cube {nx}^3: {res.iters} iterations (JAX package "
+        f"{JAX_FLAGSHIP_ITERS}, window {ITERS_TOL:.0%}); {smi}")
+    if abs(res.iters - JAX_FLAGSHIP_ITERS) > ITERS_TOL * JAX_FLAGSHIP_ITERS:
+        raise AssertionError(f"general cube: {res.iters} iterations, not "
+                             f"within {ITERS_TOL:.0%} of "
+                             f"{JAX_FLAGSHIP_ITERS}")
+    del solver
+    torch.cuda.empty_cache()
+
+    # 2. the octree flagship
+    kw = dict(OCTREE_FLAGSHIP)
+    n = kw.pop("n")
+    t0 = time.perf_counter()
+    model = make_octree_model(n, n, n, **kw)
+    build_s = time.perf_counter() - t0
+    say(f"octree {n}^3/L{kw['max_level']}: {model.n_dof} dofs, "
+        f"{model.n_elem} elements, {len(model.elem_lib)} pattern types; "
+        f"model build {build_s:.2f} s")
+    solver = Solver(model, cfg)
+    pm = solver.pm
+    nb, nsub, pad, pval, real = _bucket_stats(pm, BUCKET_VALUES)
+    say(f"octree {n}^3: backend {solver.backend}; partition "
+        f"{solver.partition_build_s:.2f} s, upload {solver.upload_s:.2f} s "
+        f"(layout + device tree), setup {solver.setup_s:.2f} s; n_loc "
+        f"{pm.n_loc}, ELL {pm.ell.shape}; {len(pm.type_blocks)} types, "
+        f"{nsub} sign sub-types, in {nb} buckets at BUCKET_VALUES "
+        f"{BUCKET_VALUES:g}: padded product {pad:.3f}x of {real:.3f} "
+        f"GFLOP, element values {pval:.3f}x")
+    _general_solve(torch, np, solver, f"octree {n}^3",
+                   OCTREE_FLAGSHIP["load_value"] * n / OCTREE_FLAGSHIP["E"])
+
+    # 3. the operator at full size, and the bucket groupings
+    _operator_checks(torch, np, pm, f"octree {n}^3 operator",
+                     trees=(solver.data, solver.data32), timed=True)
+    x = torch.as_tensor(np.where(pm.dof_gid >= 0, 1.0, 0.0),
+                        dtype=torch.float32, device="cuda")
+    for bv in BUCKET_VALUES_CHOICES:
+        if bv == BUCKET_VALUES:
+            ops, data = solver.ops32, solver.data32
+        else:
+            ops = Ops.from_model(pm, bucket_values=bv)
+            data = device_data(pm, torch.float32, "cuda", bucket_values=bv)
+        nb, _ns, pad, pval, _r = _bucket_stats(pm, bv)
+        t_ms = time_ms(torch, lambda: ops.matvec(data, x))
+        say(f"octree {n}^3 buckets: BUCKET_VALUES {bv:g}: {nb} buckets, "
+            f"padded product {pad:.3f}x, element values {pval:.3f}x; "
+            f"float32 matvec {t_ms:.4f} ms"
+            + (" (the default)" if bv == BUCKET_VALUES else ""))
+        del data
+    torch.cuda.empty_cache()
+    kw2 = dict(OCTREE_FLAGSHIP, **OCTREE_P2)
+    n2 = kw2.pop("n")
+    small = make_octree_model(n2, n2, n2, **kw2)
+    _operator_checks(torch, np, partition_model(small, 2),
+                     f"octree {n2}^3/L{kw2['max_level']} at 2 parts (rcb)")
+
+    # 4. the 6^3 octree against the JAX package's count
+    n6 = OCTREE_PARITY_N
+    s6 = Solver(make_octree_model(n6, n6, n6, **kw), cfg)
+    res6, _ms6, _cyc6 = _general_solve(
+        torch, np, s6, f"octree {n6}^3",
+        OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
+    win = max(3, ITERS_TOL * JAX_OCTREE6_ITERS)
+    say(f"octree {n6}^3: {res6.iters} iterations against the JAX "
+        f"package's {JAX_OCTREE6_ITERS} (window +-{win:g})")
+    if abs(res6.iters - JAX_OCTREE6_ITERS) > win:
+        raise AssertionError(f"octree {n6}^3: {res6.iters} iterations, "
+                             f"outside max(3, 5 %) of {JAX_OCTREE6_ITERS}")
+    del s6
+    torch.cuda.empty_cache()
+    return dict(cube_ms=cube_ms, octree=solver, n=n)
+
+
+def phase_general_profile(torch, general, v6_ms_iter):
+    """Phase 4e, after phase 4d (its profiler windows slow the solves
+    after them): the general cube's ms/iter beside phase 4's v6, kernels
+    and launches a float32 octree matvec, and 100 profiled inner
+    iterations on the 22^3 octree."""
+    solver, n, ms = general["octree"], general["n"], general["cube_ms"]
+    say(f"general cube {FLAGSHIP['nx']}^3: {ms:.4f} ms/iter against phase "
+        f"4's v6 {v6_ms_iter:.4f} ({ms / v6_ms_iter:.2f}x)")
+    kern, launches = _matvec_kernels(torch, lambda: solver.ops32.matvec(
+        solver.data32, solver.data32["F"]))
+    say(f"octree {n}^3: {kern:.1f} device kernels and {launches:.1f} "
+        f"kernel launches a float32 matvec (torch.profiler over 5); "
+        f"{nvidia_smi_line()}")
+    profile_inner(torch, solver, tag=f"general profile octree {n}^3")
+
+
 def phase_checks(torch, np):
     from pcg_mpi_solver_tpu_torch import (
         RunConfig, SolverConfig, TimeHistoryConfig)
@@ -1248,8 +1527,20 @@ def main() -> int:
     # 3. kernels against their plain versions
     kern = phase_kernels(torch, np, rates)
     lap("3 kernels")
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+
+    kw = dict(FLAGSHIP)
+    nx = kw.pop("nx")
+    t0 = time.perf_counter()
+    flagship_model = make_cube_model(nx, **kw)
+    say(f"main: cube {nx}^3, {flagship_model.n_dof} dofs; model build "
+        f"{time.perf_counter() - t0:.2f} s")
+    # 4e. the general (pattern-type) backend: the flagship cube and the
+    # octree flagship, before any profiler window
+    general = phase_general(torch, np, flagship_model)
+    lap("4e general")
     # 4. main path at full size, once per float32 variant
-    launches_by, flagship_model, classic = phase_main(torch, np)
+    launches_by, classic = phase_main(torch, np, flagship_model)
     lap("4 main")
     # 4b. the block3 and mg preconditioners at full size
     precond_launches, precond_iters, models = phase_preconditioners(
@@ -1267,6 +1558,10 @@ def main() -> int:
                                classic["profile"])
     del models
     lap("4d many")
+    # 4e's kernel counts and profile, after every other profiled window
+    phase_general_profile(torch, general, classic["ms_iter"])
+    del general
+    lap("4e profile")
     # 5. direct f64 and card-vs-cpu checks
     phase_checks(torch, np)
     lap("5 checks")

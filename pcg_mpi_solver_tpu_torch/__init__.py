@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of pcg_mpi_solver_tpu: matrix-free PCG for
-structured-cube elastostatics on an NVIDIA Hopper card.
+elastostatics (and scalar Poisson) on octree and structured hexahedral
+meshes, on an NVIDIA Hopper card.
 
 The JAX package ``pcg_mpi_solver_tpu`` is the reference; this package
 imports nothing of it and no JAX.  Ported so far: the structured-cube
@@ -10,7 +11,11 @@ f32/f64 refinement shell -> ``solver.Solver``), blocks of load cases in
 one lockstep loop (``pcg_many``, ``Solver.solve_many``; request checks
 in ``validate``), with hand-written CUDA
 kernels for the slab stencil matvec (``csrc/structured_matvec*.cu``, one
-per ported Pallas variant, chosen by ``PCG_TPU_PALLAS_V``).
+per ported Pallas variant, chosen by ``PCG_TPU_PALLAS_V``); and the
+general (pattern-type) backend for every model the slab cannot take
+(``models.make_octree_model``, ``make_glued_blocks_model``,
+``make_poisson_model`` -> ``parallel.partition_model`` -> the bucketed
+general operator of ``ops.matvec``), under Jacobi or block Jacobi.
 """
 
 from pcg_mpi_solver_tpu_torch.config import (

@@ -1,9 +1,9 @@
 """Hexahedral element matrices (host-side prep, numpy).
 
-A numpy copy of the parts of ``pcg_mpi_solver_tpu/models/element.py`` the
-structured-cube solve needs.  Every cell of a structured cube is a scaled
-copy of one unit element, so ``Ke(elem) = Ck(elem) * Ke_unit`` with
-``Ck = E * h``.
+A numpy copy of ``pcg_mpi_solver_tpu/models/element.py``.  Every cell is
+a scaled copy of one unit element of its pattern type, so ``Ke(elem) =
+Ck(elem) * Ke_unit(type)`` with ``Ck = E * h`` for elasticity (``k * h``
+for the scalar Poisson element).
 
 Node ordering is VTK_HEXAHEDRON: (0,0,0),(1,0,0),(1,1,0),(0,1,0),
 (0,0,1),(1,0,1),(1,1,1),(0,1,1); dofs are interleaved (ux,uy,uz) per node,
@@ -118,6 +118,49 @@ def hex_strain_mode(h: float = 1.0) -> np.ndarray:
     dN_dxi = shape_grad_natural(np.zeros(3))
     dN_dx = dN_dxi / (h / 2.0)
     return b_matrix(dN_dx)
+
+
+def hex_laplacian(h: float = 1.0, k: float = 1.0,
+                  n_gauss: int = 2) -> np.ndarray:
+    """Scalar diffusion (Poisson) element stiffness (8 x 8) of an h-sized
+    cube: Ke_ij = int k grad N_i . grad N_j dV.  Scales linearly with h,
+    so the pattern-type scaling applies with Ck = k*h."""
+    Ke = np.zeros((N_NODES, N_NODES))
+    J = h / 2.0
+    detJ = J**3
+    pts, wts = gauss_points_3d(n_gauss)
+    for xi, w in zip(pts, wts):
+        dN_dx = shape_grad_natural(xi) / J      # (8, 3)
+        Ke += k * w * (dN_dx @ dN_dx.T) * detJ
+    return Ke
+
+
+def hex_scalar_mass(h: float = 1.0, n_gauss: int = 2) -> np.ndarray:
+    """Consistent scalar mass/capacity matrix (8 x 8): int N_i N_j dV."""
+    Me = np.zeros((N_NODES, N_NODES))
+    J = h / 2.0
+    detJ = J**3
+    s = 2.0 * HEX_CORNERS - 1.0
+    pts, wts = gauss_points_3d(n_gauss)
+    for xi, w in zip(pts, wts):
+        N = np.prod(0.5 * (1.0 + s * xi), axis=1)
+        Me += w * np.outer(N, N) * detJ
+    return Me
+
+
+def scalar_element_library():
+    """Unit (h=1, k=1) element library of the scalar Poisson problem (1
+    dof per node, d=8): Ke, Me, the center-point gradient mode Se (3 x 8)
+    and diagKe."""
+    Ke = hex_laplacian(1.0, 1.0)
+    dN_dx = shape_grad_natural(np.zeros(3)) / 0.5
+    return {
+        "Ke": Ke,
+        "Me": hex_scalar_mass(1.0),
+        "Se": dN_dx.T.copy(),                    # (3, 8)
+        "diagKe": np.diag(Ke).copy(),
+        "n_nodes": N_NODES,
+    }
 
 
 def unit_element_library(nu: float = 0.2):

@@ -2,8 +2,10 @@
 
 A numpy copy of ``ModelData`` from ``pcg_mpi_solver_tpu/models/model_data.py``
 with the same fields, so a model built by either package can be compared
-field by field.  Element connectivity is CSR-style (flat + offsets); dof
-ids and reflection sign flags are stored per element-dof.
+field by field.  Element connectivity is CSR-style (flat + offsets, since
+octree pattern types have differing node counts); dof ids and reflection
+sign flags are stored per element-dof (the matvec is S.Ke.(S.u) with
+S = diag(+-1)).
 """
 
 from __future__ import annotations
@@ -61,6 +63,61 @@ class ModelData:
     # requires it; None for general models.
     grid: Optional[tuple] = None
 
-    # Cohesive interface elements (None for the cube generator); a model
-    # that has them is outside the structured slab backend.
+    # Octree lattice metadata (set by models/octree.py): {"leaves": (n_elem,
+    # 4) lattice origin + size in finest units, "dims": (X, Y, Z),
+    # "node_keys": (n_node,) lattice keys, "strides": (stride_y, stride_z),
+    # "brick_type": type id of the pure 8-node pattern (or None),
+    # "brick_corners": (8, 3) corner offsets in that type's node order}.
+    # It is what the hybrid backend (ROADMAP queue 1 item 13) reads; the
+    # general backend ignores it.
+    octree: Optional[dict] = None
+
+    # Cohesive interface elements: each a zero-thickness 4+4-node quad
+    # {'NodeIdList': (2, 4) int [side-a nodes, side-b nodes], 'adj_elem':
+    # a volume element adjacent to side a (anchors partitioning), 'kn',
+    # 'kt': normal/tangential penalty stiffness per unit area, 'area',
+    # 'normal_axis': 0/1/2}.  A model that has them is outside the
+    # structured slab backend.
     intfc_elems: Optional[List[dict]] = None
+
+    # Slab-ingest view (the MDF reader's, ROADMAP queue 1 item 11): the
+    # per-element arrays cover only the slab's elements and elem_ids[i] is
+    # element i's global id.  None for a full model (every generator here).
+    elem_ids: Optional[np.ndarray] = None
+    glob_n_elem: Optional[int] = None
+
+    def elem_nodes(self, e: int) -> np.ndarray:
+        return self.elem_nodes_flat[
+            self.elem_nodes_offset[e]:self.elem_nodes_offset[e + 1]]
+
+    def elem_dofs(self, e: int) -> np.ndarray:
+        return self.elem_dofs_flat[
+            self.elem_dofs_offset[e]:self.elem_dofs_offset[e + 1]]
+
+    def elem_signs(self, e: int) -> np.ndarray:
+        return self.elem_sign_flat[
+            self.elem_dofs_offset[e]:self.elem_dofs_offset[e + 1]]
+
+    def interface_springs(self):
+        """Interface elements flattened to per-dof penalty springs: each
+        coincident node pair contributes, per component c, a spring of
+        stiffness area/4 * (kn if c == normal_axis else kt) on the jump
+        u_a - u_b.  Returns flat (dof_a, dof_b, k, adj_elem) arrays, empty
+        without interface elements."""
+        if not self.intfc_elems:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z, np.zeros(0), z
+        dof_a, dof_b, k, adj = [], [], [], []
+        for ie in self.intfc_elems:
+            nodes = np.asarray(ie["NodeIdList"])
+            per_pair = ie["area"] / nodes.shape[1]
+            for c in range(3):
+                kc = per_pair * (ie["kn"] if c == ie["normal_axis"]
+                                 else ie["kt"])
+                dof_a.append(3 * nodes[0] + c)
+                dof_b.append(3 * nodes[1] + c)
+                k.append(np.full(nodes.shape[1], kc))
+                adj.append(np.full(nodes.shape[1], ie["adj_elem"],
+                                   dtype=np.int64))
+        return (np.concatenate(dof_a), np.concatenate(dof_b),
+                np.concatenate(k), np.concatenate(adj))

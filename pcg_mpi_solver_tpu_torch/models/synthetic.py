@@ -1,16 +1,20 @@
-"""Synthetic structured-cube elastostatic models (host-side, numpy).
+"""Synthetic structured-mesh models (host-side, numpy).
 
-A numpy copy of ``make_cube_model`` from
-``pcg_mpi_solver_tpu/models/synthetic.py``: it must reproduce the JAX
-package's arrays bit for bit (tests/test_torch_models.py), so the two
-solvers can be held against each other on identical inputs.
+A numpy copy of ``pcg_mpi_solver_tpu/models/synthetic.py``:
+``make_cube_model`` (elastic block), ``make_glued_blocks_model`` (two
+blocks joined by cohesive interface springs) and ``make_poisson_model``
+(scalar diffusion, one dof per node).  They must reproduce the JAX
+package's arrays bit for bit (tests/test_torch_models.py,
+tests/test_torch_partition.py), so the two solvers can be held against
+each other on identical inputs.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pcg_mpi_solver_tpu_torch.models.element import unit_element_library
+from pcg_mpi_solver_tpu_torch.models.element import (
+    scalar_element_library, unit_element_library)
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 
 
@@ -176,6 +180,116 @@ def make_cube_model(
     )
 
 
+def make_glued_blocks_model(
+    nx_a: int,
+    nx_b: int,
+    ny: int,
+    nz: int,
+    h: float = 1.0,
+    E: float = 1.0,
+    nu: float = 0.2,
+    rho: float = 1.0,
+    load_value: float = 1.0,
+    penalty: float = 1e3,
+    kt_factor: float = 1.0,
+) -> ModelData:
+    """Two elastic blocks stacked along x, joined by zero-thickness cohesive
+    interface elements (reference type -1/-2 scaffolding,
+    partition_mesh.py:603-650) at the shared plane.
+
+    The interface plane nodes are DUPLICATED (one set per block); each
+    interface element carries the 4+4 coincident nodes, penalty stiffnesses
+    kn = penalty*E/h (normal) and kt = kt_factor*kn (tangential) per unit
+    area, and is anchored to the adjacent block-a element for partitioning.
+    Clamped at x=0, +x traction on the far face of block b.
+    """
+    a = make_cube_model(nx_a, ny, nz, h=h, E=E, nu=nu, rho=rho,
+                        load="traction", load_value=0.0)
+    b = make_cube_model(nx_b, ny, nz, h=h, E=E, nu=nu, rho=rho,
+                        load="traction", load_value=0.0)
+    nn_a, nd_a, ne_a = a.n_node, a.n_dof, a.n_elem
+
+    coords_b = b.node_coords + np.array([nx_a * h, 0.0, 0.0])
+    n_node = nn_a + b.n_node
+    n_dof = 3 * n_node
+    n_elem = ne_a + b.n_elem
+
+    # merged element arrays (block b ids offset)
+    conn = np.concatenate([a.elem_nodes_flat, b.elem_nodes_flat + nn_a])
+    dofs = np.concatenate([a.elem_dofs_flat, b.elem_dofs_flat + nd_a])
+
+    F = np.zeros(n_dof)
+    nnx_b, nny_b = nx_b + 1, ny + 1
+    nid_b = np.arange(b.n_node)
+    far = nid_b[(nid_b % nnx_b) == nx_b]          # block-b x = L face
+    F[3 * (far + nn_a)] = load_value
+
+    fixed = a.fixed_dof                           # block-a x = 0 clamp
+    dof_eff = np.setdiff1d(np.arange(n_dof), fixed, assume_unique=True)
+
+    # interface elements on the shared plane
+    nnx_a, nny_a = nx_a + 1, ny + 1
+
+    def gid_a(i, j, k):
+        return i + nnx_a * (j + nny_a * k)
+
+    def gid_b(i, j, k):
+        return i + nnx_b * (j + nny_b * k)
+
+    kn = penalty * E / h
+    intfc = []
+    for k in range(nz):
+        for j in range(ny):
+            quad_a = np.array([gid_a(nx_a, j, k), gid_a(nx_a, j + 1, k),
+                               gid_a(nx_a, j + 1, k + 1), gid_a(nx_a, j, k + 1)])
+            quad_b = np.array([gid_b(0, j, k), gid_b(0, j + 1, k),
+                               gid_b(0, j + 1, k + 1), gid_b(0, j, k + 1)]) + nn_a
+            adj = (nx_a - 1) + nx_a * (j + ny * k)   # block-a element at the plane
+            intfc.append({
+                "NodeIdList": np.stack([quad_a, quad_b]),
+                "adj_elem": adj,
+                "kn": kn,
+                "kt": kt_factor * kn,
+                "area": h * h,
+                "normal_axis": 0,
+            })
+
+    diag_M = np.concatenate([a.diag_M, b.diag_M])
+    faces = np.concatenate([a.faces_flat, b.faces_flat + nn_a])
+
+    return ModelData(
+        n_elem=n_elem,
+        n_node=n_node,
+        n_dof=n_dof,
+        node_coords=np.concatenate([a.node_coords, coords_b]),
+        F=F,
+        Ud=np.zeros(n_dof),
+        Vd=np.zeros(n_dof),
+        diag_M=diag_M,
+        fixed_dof=fixed,
+        dof_eff=dof_eff,
+        elem_type=np.concatenate([a.elem_type, b.elem_type]),
+        elem_nodes_flat=conn,
+        elem_nodes_offset=np.arange(n_elem + 1) * 8,
+        elem_dofs_flat=dofs,
+        elem_dofs_offset=np.arange(n_elem + 1) * 24,
+        elem_sign_flat=np.zeros(n_elem * 24, dtype=bool),
+        ck=np.concatenate([a.ck, b.ck]),
+        cm=np.concatenate([a.cm, b.cm]),
+        ce=np.concatenate([a.ce, b.ce]),
+        level=np.concatenate([a.level, b.level]),
+        poly_mat=np.concatenate([a.poly_mat, b.poly_mat]),
+        sctrs=np.concatenate([a.sctrs, b.sctrs + np.array([nx_a * h, 0.0, 0.0])]),
+        elem_lib=a.elem_lib,
+        mat_prop=a.mat_prop,
+        dt=1.0,
+        faces_flat=faces,
+        faces_offset=np.arange(len(a.faces_offset) - 1 + len(b.faces_offset) - 1 + 1) * 4,
+        grid=None,
+        intfc_elems=intfc,
+    )
+
+
 def _boundary_quads(nx, ny, nz, nnx, nny) -> np.ndarray:
     """Quad faces on the 6 boundary planes of the structured mesh."""
     def grid_id(i, j, k):
@@ -198,3 +312,117 @@ def _boundary_quads(nx, ny, nz, nnx, nny) -> np.ndarray:
         quads.append(np.stack([grid_id(I, J, k), grid_id(I + 1, J, k),
                                grid_id(I + 1, J + 1, k), grid_id(I, J + 1, k)], axis=1))
     return np.concatenate(quads, axis=0)
+
+
+def make_poisson_model(
+    nx: int,
+    ny: int = 0,
+    nz: int = 0,
+    h: float = 1.0,
+    k: float = 1.0,
+    source: float = 1.0,
+    load: str = "source",
+    load_value: float = 1.0,
+    heterogeneous: bool = False,
+    seed: int = 0,
+) -> ModelData:
+    """Structured hex mesh of a SCALAR diffusion (Poisson) problem —
+    the framework's second problem class (BASELINE.json config 2: "3D
+    Poisson ... on structured cube, Jacobi-PCG"): 1 dof per node, d=8
+    trilinear elements, same pattern-type machinery (Ck = k*h).
+
+    - u = 0 on the x=0 face.
+    - ``load='source'``: uniform volumetric source f (consistent nodal
+      load F_i = f * sum_e h^3 (Me_unit . 1)_i).
+    - ``load='dirichlet'``: u = load_value prescribed on the x=L face.
+    - ``heterogeneous``: two-phase conductivity (10x k, seeded).
+
+    Runs on the general backend's flat-dof scatter (the node-ELL and
+    structured paths assume 3 dofs per node).
+    """
+    ny = ny or nx
+    nz = nz or nx
+    n_elem = nx * ny * nz
+    nnx, nny, nnz = nx + 1, ny + 1, nz + 1
+    n_node = nnx * nny * nnz
+    n_dof = n_node                      # 1 dof per node
+
+    nid, coords, conn = _structured_hex_mesh(nx, ny, nz, h)
+    cx = coords[:, 0]
+    centers = coords[conn].mean(axis=1)
+
+    if heterogeneous:
+        rng = np.random.default_rng(seed)
+        phase = rng.random(n_elem) < 0.2
+        k_elem = np.where(phase, 10.0 * k, k)
+        mat = phase.astype(np.int32)
+        mat_prop = [
+            {"E": k, "Pos": 0.0, "Rho": 1.0,
+             "NonLocStressParam": {"Lc": 2.0 * h}},
+            {"E": 10.0 * k, "Pos": 0.0, "Rho": 1.0,
+             "NonLocStressParam": {"Lc": 2.0 * h}},
+        ]
+    else:
+        k_elem = np.full(n_elem, k)
+        mat = np.zeros(n_elem, dtype=np.int32)
+        mat_prop = [{"E": k, "Pos": 0.0, "Rho": 1.0,
+                     "NonLocStressParam": {"Lc": 2.0 * h}}]
+
+    lib0 = scalar_element_library()
+    me_rowsum = lib0["Me"].sum(axis=1)  # ∫ N_i dV on the unit cell
+
+    ck = k_elem * h
+    cm = np.full(n_elem, h**3)
+    ce = np.full(n_elem, 1.0 / h)
+
+    diag_M = np.bincount(conn.ravel(),
+                         weights=(cm[:, None] * me_rowsum[None, :]).ravel(),
+                         minlength=n_dof)
+
+    F = np.zeros(n_dof)
+    Ud = np.zeros(n_dof)
+    fixed = nid[cx == 0.0]
+    if load == "source":
+        F = source * diag_M.copy()      # f * ∫ N_i dV (same row sums)
+    elif load == "dirichlet":
+        xL = nid[cx == nx * h]
+        Ud[xL] = load_value
+        fixed = np.concatenate([fixed, xL])
+    else:
+        raise ValueError(f"unknown load mode {load!r}")
+    fixed = np.unique(fixed)
+    F[fixed] = 0.0
+    dof_eff = np.setdiff1d(np.arange(n_dof), fixed, assume_unique=True)
+
+    faces = _boundary_quads(nx, ny, nz, nnx, nny)
+
+    return ModelData(
+        n_elem=n_elem,
+        n_node=n_node,
+        n_dof=n_dof,
+        node_coords=coords,
+        F=F,
+        Ud=Ud,
+        Vd=np.zeros(n_dof),
+        diag_M=diag_M,
+        fixed_dof=fixed,
+        dof_eff=dof_eff,
+        elem_type=np.zeros(n_elem, dtype=np.int32),
+        elem_nodes_flat=conn.ravel(),
+        elem_nodes_offset=np.arange(n_elem + 1) * 8,
+        elem_dofs_flat=conn.ravel().copy(),
+        elem_dofs_offset=np.arange(n_elem + 1) * 8,
+        elem_sign_flat=np.zeros(n_elem * 8, dtype=bool),
+        ck=ck,
+        cm=cm,
+        ce=ce,
+        level=np.full(n_elem, h),
+        poly_mat=mat,
+        sctrs=centers,
+        elem_lib={0: lib0},
+        mat_prop=mat_prop,
+        dt=1.0,
+        faces_flat=faces.ravel(),
+        faces_offset=np.arange(len(faces) + 1) * 4,
+        grid=None,
+    )

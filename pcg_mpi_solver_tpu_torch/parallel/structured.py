@@ -244,7 +244,6 @@ class StructuredOps(Ops):
     nxc: int = 0
     ny: int = 0
     nz: int = 0
-    n_parts: int = 1
     variant: str = "v6"
     planes: Optional[int] = None
 
@@ -258,6 +257,9 @@ class StructuredOps(Ops):
                    dot_dtype=dot_dtype, mg_degree=mg_degree,
                    nxc=sp.nxc, ny=sp.ny, nz=sp.nz, n_parts=sp.n_parts,
                    variant=variant, planes=planes)
+
+    def block_data(self, data: dict, R: int) -> dict:
+        return block_data(data, R)
 
     def _grid(self, x: torch.Tensor) -> torch.Tensor:
         """([R,] P, n_loc) -> ([R,] P, 3, nx+1, ny+1, nz+1)."""

@@ -1,10 +1,15 @@
-"""Quasi-static solve driver on the structured slab backend.
+"""Quasi-static solve driver on the structured slab and general backends.
 
-Port of the structured core of ``pcg_mpi_solver_tpu/solver/driver.py``
-(``Solver`` in direct and mixed precision, ``StepResult``,
+Port of the core of ``pcg_mpi_solver_tpu/solver/driver.py`` (``Solver``
+in direct and mixed precision, its backend selection, ``StepResult``,
 ``displacement_global``; ``solve_many``, ``ManySolveResult``,
 ``normalize_rhs_block`` and ``displacement_global_many`` for blocks of
-load cases).  For each time step: Dirichlet lifting ->
+load cases).  A model the structured slab cannot take (octree meshes with
+reflected pattern types, cohesive interface springs, a grid not divisible
+by the part count, ``partition_method="slab2"`` or an explicit
+``elem_part``) runs on the general backend (``parallel/partition.py`` +
+the general operator of ``ops/matvec.py``), as in the JAX package; the
+hybrid backend is ROADMAP queue 1 item 13.  For each time step: Dirichlet lifting ->
 preconditioner rebuild (scalar Jacobi, 3x3 block Jacobi or the mg
 V-cycle's operand) -> PCG (``SolverConfig.pcg_variant``: classic, fused
 or pipelined; direct, or the mixed f32/f64 refinement shell) -> u = x +
@@ -23,6 +28,7 @@ without a card, the default raises instead of quietly running on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, List, Optional
 
@@ -33,11 +39,14 @@ from pcg_mpi_solver_tpu_torch.config import (
     RunConfig, SolverConfig, TimeHistoryConfig)
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
+from pcg_mpi_solver_tpu_torch.ops.matvec import Ops, device_data
 from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
+from pcg_mpi_solver_tpu_torch.parallel.partition import (
+    GRAPH_ITEM, partition_model)
 from pcg_mpi_solver_tpu_torch.parallel.structured import (
-    StructuredOps, block_data, device_data_structured, partition_structured)
+    StructuredOps, device_data_structured, partition_structured)
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
     BREAKDOWN_FLAGS, QUARANTINE_FLAG, pcg, pcg_many, pcg_mixed,
     pcg_mixed_many)
@@ -130,7 +139,7 @@ _DEFAULTS = {"run": RunConfig(), "solver": SolverConfig(),
              "time_history": TimeHistoryConfig()}
 
 
-def _check_slice(model: ModelData, config: RunConfig, n_parts: int) -> None:
+def _check_slice(config: RunConfig) -> None:
     """Raise NotImplementedError for anything outside the ported slice,
     naming the ROADMAP queue 1 item that brings it."""
     sections = {"run": config, "solver": config.solver,
@@ -152,35 +161,91 @@ def _check_slice(model: ModelData, config: RunConfig, n_parts: int) -> None:
         raise NotImplementedError(
             "checkpoints and snapshots are not ported yet (ROADMAP queue 1 "
             "item 9: chunked dispatch and resilience)")
-    if config.partition_method not in ("rcb", "auto"):
+    if config.partition_method == "graph":
         raise NotImplementedError(
-            f"partition_method={config.partition_method!r} needs the "
-            f"general backend (ROADMAP queue 1 item 8)")
-    structured = (model.grid is not None
-                  and not np.asarray(model.elem_sign_flat).any()
-                  and not model.intfc_elems
-                  and model.grid[0] % n_parts == 0)
-    if not structured:
+            f"partition_method='graph' needs the native graph partitioner "
+            f"(ROADMAP queue 1 item {GRAPH_ITEM})")
+
+
+# ROADMAP queue 1 items of the backends and options the general backend
+# does not take yet
+HYBRID_ITEM = 13
+MG_GENERAL_ITEM = 16
+BACKENDS = ("auto", "structured", "hybrid", "general")
+
+
+def can_structured(model: ModelData, config: RunConfig, n_parts: int,
+                   elem_part=None) -> bool:
+    """The JAX package's structured-slab eligibility: grid metadata, no
+    reflected elements or interfaces, nx divisible by the part count, and
+    no explicitly requested non-default partition (``partition_method``
+    other than rcb/auto, or an ``elem_part``)."""
+    return (model.grid is not None
+            and not np.asarray(model.elem_sign_flat).any()
+            and not model.intfc_elems
+            and config.partition_method in ("rcb", "auto")
+            and elem_part is None
+            and model.grid[0] % n_parts == 0)
+
+
+def can_hybrid(model: ModelData) -> bool:
+    """Hybrid-backend eligibility: octree lattice metadata with a brick
+    type."""
+    return (model.octree is not None
+            and model.octree.get("brick_type") is not None)
+
+
+def select_backend(model: ModelData, config: RunConfig, n_parts: int,
+                   backend: str = "auto", elem_part=None) -> str:
+    """The JAX package's backend choice: the structured slab when the
+    model allows it, else the general backend.  The hybrid backend (asked
+    for, or auto-selected under ``PCG_TPU_ENABLE_HYBRID=1`` on a model that
+    can take it) is not ported yet and raises."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be 'auto'|'structured'|'hybrid'|"
+                         f"'general', got {backend!r}")
+    structured = can_structured(model, config, n_parts, elem_part)
+    if backend == "structured" and not structured:
+        raise ValueError("structured backend requested but model/partition "
+                         "layout does not allow it")
+    if backend == "hybrid" and not can_hybrid(model):
+        raise ValueError("hybrid backend requested but model has no "
+                         "octree/brick metadata")
+    if backend in ("auto", "structured") and structured:
+        return "structured"
+    if backend == "hybrid" or (
+            backend == "auto" and can_hybrid(model)
+            and os.environ.get("PCG_TPU_ENABLE_HYBRID") == "1"):
         raise NotImplementedError(
-            "only the structured slab backend is ported (a model with "
-            "grid metadata, no reflected elements or interfaces, and "
-            "nx divisible by n_parts); the general backend is ROADMAP "
-            "queue 1 item 8 and the hybrid backend item 13")
+            f"the hybrid (octree level-grid) backend is not ported yet "
+            f"(ROADMAP queue 1 item {HYBRID_ITEM}); backend='general' "
+            f"solves the same model")
+    return "general"
 
 
 class Solver:
     """Owns the partitioned model on one device and runs time steps."""
 
     def __init__(self, model: ModelData, config: Optional[RunConfig] = None,
-                 n_parts: Optional[int] = None, device=None):
+                 n_parts: Optional[int] = None, device=None,
+                 backend: str = "auto",
+                 elem_part: Optional[np.ndarray] = None):
         t0 = time.perf_counter()
         self.config = config or RunConfig()
         self.device = resolve_device(device)
         n_parts = self.config.n_parts if n_parts is None else n_parts
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
-        _check_slice(model, self.config, n_parts)
+        _check_slice(self.config)
+        self.backend = select_backend(model, self.config, n_parts, backend,
+                                      elem_part)
         sc = self.config.solver
+        general = self.backend == "general"
+        if general and sc.precond == "mg":
+            raise NotImplementedError(
+                f"precond='mg' on the general backend (mg on octree "
+                f"lattices) is not ported yet (ROADMAP queue 1 item "
+                f"{MG_GENERAL_ITEM}); use 'jacobi' or 'block3'")
         self.mixed = sc.precision_mode == "mixed"
         self.dtype = torch.float64 if self.mixed else _DTYPES[sc.dtype]
         dot_dtype = _DTYPES[sc.dot_dtype]
@@ -193,13 +258,29 @@ class Solver:
         kernel = dict(variant=self.kernel_variant, planes=self.kernel_planes)
 
         t_part = time.perf_counter()
-        self.pm = partition_structured(model, n_parts)
-        self.partition_build_s = time.perf_counter() - t_part
         mg_degree = int(sc.mg_smooth_degree)
-        self.ops = StructuredOps.from_partition(
-            self.pm, dot_dtype=dot_dtype, mg_degree=mg_degree,
-            **(kernel if self.dtype == torch.float32 else {}))
-        self.data = device_data_structured(self.pm, self.dtype, self.device)
+        if general:
+            self.pm = partition_model(model, n_parts, elem_part=elem_part,
+                                      method=self.config.partition_method)
+        else:
+            self.pm = partition_structured(model, n_parts)
+        self.partition_build_s = time.perf_counter() - t_part
+        t_up = time.perf_counter()
+        if general:
+            self.ops = Ops.from_model(self.pm, dot_dtype=dot_dtype,
+                                      mg_degree=mg_degree)
+            self.data = device_data(self.pm, self.dtype, self.device)
+        else:
+            self.ops = StructuredOps.from_partition(
+                self.pm, dot_dtype=dot_dtype, mg_degree=mg_degree,
+                **(kernel if self.dtype == torch.float32 else {}))
+            self.data = device_data_structured(self.pm, self.dtype,
+                                               self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # host layout + upload of the device tree (the general backend's
+        # bucket and ELL maps are built here)
+        self.upload_s = time.perf_counter() - t_up
         # MG hierarchy (precond="mg"): host-built levels and transfers into
         # the device tree, float leaves at the storage dtype
         self.mg_setup = None
@@ -216,9 +297,11 @@ class Solver:
             # f32 shadow of the float leaves (the f32 inner cycles' data);
             # their dots accumulate in f32
             self.data32 = mgmod.cast_tree(self.data, torch.float32)
-            self.ops32 = StructuredOps.from_partition(
-                self.pm, dot_dtype=torch.float32, mg_degree=mg_degree,
-                **kernel)
+            self.ops32 = (
+                dataclasses.replace(self.ops, dot_dtype=torch.float32)
+                if general else StructuredOps.from_partition(
+                    self.pm, dot_dtype=torch.float32, mg_degree=mg_degree,
+                    **kernel))
         if self.mg_setup is not None:
             # the fine level's Chebyshev bound: power-iteration matvecs on
             # the uploaded storage-dtype operator, installed with the
@@ -310,8 +393,9 @@ class Solver:
         last width only."""
         if self._many_data is None or self._many_data[0] != R:
             self._many_data = None
-            trees = (block_data(self.data, R),
-                     block_data(self.data32, R) if self.mixed else None)
+            trees = (self.ops.block_data(self.data, R),
+                     self.ops.block_data(self.data32, R) if self.mixed
+                     else None)
             self._many_data = (R,) + trees
         return self._many_data[1:]
 

@@ -87,7 +87,7 @@ def test_unported_field_raises_with_its_item(key, item):
 @pytest.mark.parametrize("section,field,value,match", [
     ("solver", "pallas", "off", "no XLA path"),
     ("solver", "pallas", "interpret", "no XLA path"),
-    ("run", "partition_method", "graph", "item 8"),
+    ("run", "partition_method", "graph", "item 15"),
 ])
 def test_other_unported_values_raise(section, field, value, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -708,3 +708,83 @@ def test_blocked_solve_launches_one_kernel_a_trip(cuda_device, variant,
         assert (f32, f64) == (0, a_trip * r.trips)
     else:
         assert f32 == a_trip * r.trips and 1 <= f64 <= 13
+
+
+# -- the general (pattern-type) backend --------------------------------------
+
+def _general_case(name):
+    """A small model of the general backend and its partition at 1 part:
+    an octree (reflected pattern types, several buckets) or the glued
+    blocks (cohesive springs)."""
+    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
+    from pcg_mpi_solver_tpu_torch.models.synthetic import (
+        make_glued_blocks_model)
+    from pcg_mpi_solver_tpu_torch.parallel.partition import partition_model
+
+    if name == "octree":
+        m = make_octree_model(2, 2, 2, max_level=3, n_incl=2, seed=3,
+                              E=30e9, load_value=1e6)
+    else:
+        m = make_glued_blocks_model(2, 3, 2, 2, E=3.0, penalty=50.0)
+    return m, partition_model(m, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["octree", "glued"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+def test_general_matvec_on_card_matches_cpu(cuda_device, name, dtype, tol):
+    """matvec, diag and the node blocks on the card against the CPU's
+    float64, tol * max|y|; two card matvecs bitwise equal (no float
+    atomics: the ELL, interface and spring sums are fixed-order
+    gathers)."""
+    from pcg_mpi_solver_tpu_torch.ops.matvec import Ops, device_data
+
+    _m, pm = _general_case(name)
+    ops = Ops.from_model(pm)
+    cpu = device_data(pm, torch.float64, "cpu")
+    card = device_data(pm, dtype, cuda_device)
+    x = np.where(pm.dof_gid >= 0,
+                 np.random.default_rng(4).standard_normal(pm.dof_gid.shape),
+                 0.0)
+    y_cpu = ops.matvec(cpu, torch.as_tensor(x))
+    xc = torch.as_tensor(x, dtype=dtype, device=cuda_device)
+    y1, y2 = ops.matvec(card, xc), ops.matvec(card, xc)
+    assert torch.equal(y1, y2)
+    scale = y_cpu.abs().max()
+    assert (y1.cpu().double() - y_cpu).abs().max() <= tol * scale
+    d = ops.diag(card).cpu().double()
+    d_cpu = ops.diag(cpu)
+    assert (d - d_cpu).abs().max() <= tol * d_cpu.abs().max()
+    b = ops.node_block_diag(card).cpu().double()
+    b_cpu = ops.node_block_diag(cpu)
+    assert (b - b_cpu).abs().max() <= tol * b_cpu.abs().max()
+    # one bucket a sign sub-type: the stacked layout at many buckets
+    ops0 = Ops.from_model(pm, bucket_values=0)
+    y0 = ops0.matvec(device_data(pm, dtype, cuda_device, bucket_values=0),
+                     xc)
+    assert (y0.cpu().double() - y_cpu).abs().max() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,rtol", [("direct", 1e-8), ("mixed", 1e-5)])
+def test_general_octree_solve_on_card_matches_cpu(cuda_device, mode, rtol):
+    """A small octree through Solver(backend="general") on the card and
+    on the CPU: flag 0, iterations within 1 (direct: the reductions sum in
+    another order) or max(3, 5 %) (mixed), displacements within rtol; no
+    structured kernel launches."""
+    m, _pm = _general_case("octree")
+    cfg = RunConfig(solver=SolverConfig(tol=1e-8, max_iter=800,
+                                        precision_mode=mode))
+    smv.reset_launch_counts()
+    card = Solver(m, cfg, backend="general")
+    rc = card.step(1.0)
+    assert card.backend == "general"
+    assert not any(smv.LAUNCHES.values()), dict(smv.LAUNCHES)
+    cpu = Solver(m, cfg, device="cpu", backend="general")
+    rp = cpu.step(1.0)
+    assert rc.flag == rp.flag == 0 and rc.relres <= 1e-8
+    tol_it = 1 if mode == "direct" else max(3, 0.05 * rp.iters)
+    assert abs(rc.iters - rp.iters) <= tol_it
+    uc, up = card.displacement_global(), cpu.displacement_global()
+    assert np.abs(uc - up).max() <= rtol * np.abs(up).max()

@@ -21,7 +21,13 @@ bad = sorted(m for m in sys.modules
              or m == "pcg_mpi_solver_tpu" or m.startswith("pcg_mpi_solver_tpu."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
+
+# the general backend's modules, which the walk above must reach
+GENERAL_MODULES = ("pcg_mpi_solver_tpu_torch.models.octree",
+                   "pcg_mpi_solver_tpu_torch.parallel.partition",
+                   "pcg_mpi_solver_tpu_torch.ops.matvec")
 
 
 def is_forbidden(module: str) -> bool:
@@ -37,6 +43,7 @@ def test_port_imports_no_jax():
     lines = out.stdout.splitlines()
     n_modules, bad = int(lines[0]), lines[1]
     assert n_modules >= 12, out.stdout
+    assert set(GENERAL_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
 
 

@@ -100,30 +100,89 @@ def test_unported_options_raise(change, item):
         Solver(make_cube_model(4, 3, 3), RunConfig(**change), device="cpu")
 
 
-def test_unported_backends_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Solver(make_cube_model(4, 3, 3, n_types=2), RunConfig(),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Solver(make_cube_model(5, 3, 3), RunConfig(), n_parts=2,
-               device="cpu")
+def test_unported_backends_raise(monkeypatch):
+    """The hybrid backend (asked for, or auto-selected under
+    PCG_TPU_ENABLE_HYBRID=1 on an octree model) is ROADMAP queue 1 item
+    13; every other model solves (test_general_backend_models_solve)."""
+    from pcg_mpi_solver_tpu_torch.models import make_octree_model
+
+    octree = make_octree_model(2, 2, 2, max_level=2, n_incl=2, seed=3)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        Solver(octree, RunConfig(), device="cpu", backend="hybrid")
+    monkeypatch.setenv("PCG_TPU_ENABLE_HYBRID", "1")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        Solver(octree, RunConfig(), device="cpu")
+
+
+@pytest.mark.parametrize("dims,kw,n_parts", [
+    ((4, 3, 3), dict(n_types=2), 1),    # two pattern types: no grid
+    ((5, 3, 3), {}, 2),                 # nx not divisible by the parts
+], ids=["n_types2", "nx5_parts2"])
+def test_general_backend_models_solve(dims, kw, n_parts):
+    """The two models the structured-only port refused (until the general
+    backend came) now solve on it, against the JAX Solver on the same
+    model: direct float64, the same flag, iterations within +-1 (the f64
+    reductions sum in another order than XLA's), displacements within
+    1e-8."""
+    sc = dict(tol=1e-8, max_iter=100)
+    mk = dict(E=30e9, nu=0.2, load_value=1e6, heterogeneous=True, seed=4,
+              **kw)
+    js = JaxSolver(jax_cube(*dims, **mk), JaxRunConfig(
+        solver=JaxSolverConfig(iters_per_dispatch=0, **sc)),
+        mesh=make_mesh(1), n_parts=n_parts)
+    ts = Solver(make_cube_model(*dims, **mk),
+                RunConfig(solver=SolverConfig(**sc)), n_parts=n_parts,
+                device="cpu")
+    assert js.backend == ts.backend == "general"
+    assert ts.pm.glob_n_dof_eff - sc["max_iter"] >= 5
+    rj, rt = js.step(1.0), ts.step(1.0)
+    assert rt.flag == rj.flag == 0 and rt.relres <= sc["tol"]
+    assert abs(rt.iters - rj.iters) <= 1
+    uj, ut = js.displacement_global(), ts.displacement_global()
+    np.testing.assert_allclose(ut, uj, rtol=0, atol=1e-8 * np.abs(uj).max())
 
 
 def _refuse(where):
     """The text of the port's refusal at ``where``: for the single-process
-    psum, its docstring."""
+    psum, its docstring; for the others, the message they raise."""
+    from pcg_mpi_solver_tpu_torch.models import make_octree_model
     from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
+    from pcg_mpi_solver_tpu_torch.parallel.partition import partition_model
 
-    return {"psum": Ops._psum.__doc__}[where]
+    if where == "psum":
+        return Ops._psum.__doc__
+    octree = make_octree_model(2, 2, 2, max_level=2, n_incl=2, seed=3)
+    calls = {
+        "block_filter": lambda: partition_model(
+            octree, 2, block_filter=np.ones(octree.n_elem, bool)),
+        "part_range": lambda: partition_model(octree, 2, part_range=(0, 1)),
+        "comm": lambda: partition_model(octree, 2, comm=object()),
+        "layout": lambda: partition_model(octree, 2, layout=object()),
+        "graph": lambda: partition_model(octree, 2, method="graph"),
+        "mg_general": lambda: Solver(
+            octree, RunConfig(solver=SolverConfig(precond="mg")),
+            device="cpu"),
+    }
+    with pytest.raises(NotImplementedError) as err:
+        calls[where]()
+    return str(err.value)
 
 
 @pytest.mark.parametrize("where,items", [
     ("psum", [r"sharding is ROADMAP queue 1 item 12\b"]),
+    ("block_filter", [r"ROADMAP queue 1 item 13\b"]),
+    ("part_range", [r"ROADMAP queue 1 item 12\b"]),
+    ("comm", [r"ROADMAP queue 1 item 12\b"]),
+    ("layout", [r"ROADMAP queue 1 item 12\b"]),
+    ("graph", [r"graph partitioner.*ROADMAP queue 1 item 15\b"]),
+    ("mg_general", [r"mg on octree lattices.*ROADMAP queue 1 item 16\b"]),
 ])
 def test_module_refusals_name_their_queue_items(where, items):
-    """Each refusal inside the port's modules (outside solver/driver.py's,
-    which test_unported_options_raise checks) names the ROADMAP queue 1 item
-    that owns what it refuses: sharding 12."""
+    """Each refusal inside the port's modules (outside solver/driver.py's
+    option refusals, which test_unported_options_raise checks) names the
+    ROADMAP queue 1 item that owns what it refuses: sharding 12, the
+    hybrid backend 13, the native graph partitioner 15, mg on the general
+    backend 16."""
     text = " ".join(_refuse(where).split())
     for item in items:
         assert re.search(item, text), (where, text)

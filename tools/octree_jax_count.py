@@ -1,0 +1,46 @@
+"""The JAX package's iteration count on an octree of chip_smoke.py's
+phase 4e (bench.py's octree arguments at n0 cells a side): a mixed
+Jacobi-PCG solve, classic, tol 1e-7, one part, on the CPU.
+
+    python tools/octree_jax_count.py [n0]      # default 6
+
+Prints the model size, the backend the JAX Solver chose, and flag,
+iterations and relres; chip_smoke.py's JAX_OCTREE6_ITERS is its n0 = 6
+count.  Needs JAX (the port does not); takes about a minute at n0 = 6.
+"""
+
+import sys
+import time
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+
+from pcg_mpi_solver_tpu import RunConfig, SolverConfig  # noqa: E402
+from pcg_mpi_solver_tpu.models.octree import make_octree_model  # noqa: E402
+from pcg_mpi_solver_tpu.parallel.mesh import make_mesh  # noqa: E402
+from pcg_mpi_solver_tpu.solver import Solver  # noqa: E402
+
+
+def main() -> None:
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 6
+    t0 = time.perf_counter()
+    model = make_octree_model(n, n, n, max_level=4, n_incl=6, seed=2,
+                              E=30e9, nu=0.2, load="traction",
+                              load_value=1e6)
+    print(f"octree {n}^3/L4: {model.n_dof} dofs, {len(model.elem_lib)} "
+          f"types, build {time.perf_counter() - t0:.1f} s", flush=True)
+    # iters_per_dispatch=0: the one-shot loop (the port has no chunked
+    # dispatch, ROADMAP queue 1 item 9)
+    cfg = RunConfig(solver=SolverConfig(
+        tol=1e-7, precision_mode="mixed", precond="jacobi",
+        pcg_variant="classic", iters_per_dispatch=0))
+    solver = Solver(model, cfg, mesh=make_mesh(1), n_parts=1)
+    res = solver.step(1.0)
+    print(f"backend {solver.backend}: flag {res.flag}, iterations "
+          f"{res.iters}, relres {res.relres:.4e}, {res.wall_s:.1f} s")
+
+
+if __name__ == "__main__":
+    main()
