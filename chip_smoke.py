@@ -29,10 +29,18 @@ Phases (any failed check raises, so the script exits non-zero):
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
-                (``PCG_TPU_PALLAS_V``), v6 last, with the kernel launch
-                counts and inner cycles of each solve (v4's, v7's, v8's
-                and v9's beside v6's at the end); then a profiled window
-                of inner f32 iterations under v6;
+                (``PCG_TPU_PALLAS_V``), v6 last, on the chunked path at
+                the JAX package's auto cap (every solve of 4 M dofs or
+                more in phases 4-4e takes it: its cap, dispatches,
+                refinement cycles and iterations a dispatch are printed),
+                with the kernel launch counts and inner cycles of each
+                solve (v4's, v7's, v8's and v9's beside v6's at the end);
+                then v6 once more on the one-shot path
+                (``iters_per_dispatch=0``: the chunked path's overhead in
+                ms/iter) and once with a NaN poisoned into the carry
+                (``nan@0``: one min-residual restart, its cost beside
+                the clean solve); then a profiled window of inner f32
+                iterations under v6;
   4b. preconditioners — mixed solves (tol 1e-7, v6) of the 128^3 cube
                 (6,440,067 dofs; the flagship's other arguments) under
                 jacobi and mg, and of the 150^3 flagship under block3 and
@@ -81,6 +89,14 @@ Phases (any failed check raises, so the script exits non-zero):
                 1144 iterations.  After phase 4d: the cube's ms/iter
                 beside phase 4's v6, kernels and launches a float32
                 octree matvec, and 100 profiled inner iterations;
+  4f. resilience — on the 48x32x32 cube at cap 100: direct float64
+                chunked against one-shot (classic, fused, pipelined: x
+                bitwise); mixed ``inf@0,inf@1`` escalating to f64 (the
+                float64 v6 counter covers the escalated iterations);
+                block3 ``rho0@1,rho0@2`` taking the fallback
+                preconditioner; ``exc@3`` re-dispatched from a snapshot
+                (bitwise the clean solve); ``kill@2`` on two steps,
+                resumed in a new Solver (bitwise the whole run);
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
                 solves on the CPU (the plain path): classic under jacobi,
@@ -89,8 +105,9 @@ Phases (any failed check raises, so the script exits non-zero):
                 classic, fused and pipelined with jacobi and mg.
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
-preconditioner solve of phase 4b, by variant solve of phase 4c and by
-block of phase 4d), the
+preconditioner solve of phase 4b, by variant solve of phase 4c, by
+block of phase 4d, float32 of phase 4's one-shot solve and of phase 4f's
+escalating solve), the
 last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
@@ -140,9 +157,12 @@ VARIANT_SOLVES = ((150, "jacobi", "fused", "mixed"),
                   (150, "jacobi", "pipelined", "direct"))
 # Solves that the JAX package's own algorithm does not converge: its
 # pipelined mixed solve stalls on this model family from 48^3 up (flag 3:
-# every f32 GV cycle ends on a flag-4 breakdown, and a refresh fails to
-# halve the f64 residual; both packages on the CPU at 48^3, 64^3 and
-# 96^3, PERF.md, Findings).  Phase 4c holds the port to that outcome.
+# every f32 GV cycle ends on a flag-4 breakdown; on the one-shot path a
+# refresh fails to halve the f64 residual, both packages on the CPU at
+# 48^3, 64^3 and 96^3; on the chunked path, which the flagship takes,
+# two refreshes in a row fail to cut it by 10 %, both packages on the CPU
+# at 48^3 with the flagship's cap; PERF.md, Findings).  Phase 4c holds
+# the port to that outcome.
 STALLS = {(150, "jacobi", "pipelined", "mixed")}
 # phase 4d: (cells a side, preconditioner, columns) of each blocked mixed
 # solve through Solver.solve_many; F is the flagship's traction load, 2F
@@ -500,11 +520,13 @@ def phase_kernels(torch, np, rates):
 
 
 @contextlib.contextmanager
-def inner_cycles():
-    """Records (flag, iterations) of every f32 inner cycle that
-    ``pcg_mixed`` runs inside the block.  The flagship's cycles end on
-    stagnation exits (flag 3), whose iteration depends on round-off, so
-    this is where the variants' totals part."""
+def inner_cycles(solver):
+    """Records (flag, iterations) of every f32 inner cycle of ``solver``'s
+    solve inside the block: on the chunked path (dispatch cap > 0) its
+    refinement cycles from the solver's dispatch log (the last step's),
+    else each ``pcg`` call of the one-shot ``pcg_mixed``.  The flagship's
+    cycles end on stagnation exits (flag 3), whose iteration depends on
+    round-off, so this is where the variants' totals part."""
     import pcg_mpi_solver_tpu_torch.solver.pcg as pcg_mod
 
     cycles, inner = [], pcg_mod.pcg
@@ -520,6 +542,22 @@ def inner_cycles():
         yield cycles
     finally:
         pcg_mod.pcg = inner
+        if solver._dispatch_cap > 0:
+            cycles[:] = [(f, n) for k, f, n in solver.dispatch_log
+                         if k == "refine"]
+
+
+def dispatches(solver) -> str:
+    """The chunked path's record of ``solver``'s last step: the cap, the
+    capped calls, the refinement cycles and the iterations of each
+    call; "one-shot" at cap 0."""
+    cap = solver._dispatch_cap
+    if cap <= 0:
+        return "one-shot (cap 0)"
+    calls = [n for k, n, _f in solver.dispatch_log if k != "refine"]
+    cycles = sum(k == "refine" for k, _n, _f in solver.dispatch_log)
+    return (f"cap {cap}: {len(calls)} dispatches, {cycles} refinement "
+            f"cycles, iterations a dispatch {calls}")
 
 
 def phase_main(torch, np, model):
@@ -536,10 +574,18 @@ def phase_main(torch, np, model):
         LAUNCHES, reset_launch_counts)
     from pcg_mpi_solver_tpu_torch.solver import Solver
 
+    from pcg_mpi_solver_tpu_torch.solver.chunked import auto_dispatch_cap
+
     nx = FLAGSHIP["nx"]
     say(f"main: the JAX package recorded flag 0 and {JAX_FLAGSHIP_ITERS} "
         f"iterations for this configuration")
     cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
+    # the JAX package's rule: chunked above 4 M dofs, one device holding
+    # every row
+    auto_cap = auto_dispatch_cap(cfg.solver, model.n_dof, model.n_dof)
+    say(f"main: {model.n_dof} dofs >= 4,000,000: the chunked path at the "
+        f"auto cap max(200, int(45 / (4e-9 x {model.n_dof}))) = "
+        f"{auto_cap} iterations a dispatch")
     # physics: tip displacement against the 1-D bar estimate sigma*L/E,
     # a 3x window for the two-phase material
     sigma = FLAGSHIP["load_value"] * (nx + 1) ** 2 / nx ** 2
@@ -558,7 +604,7 @@ def phase_main(torch, np, model):
                                  f"under PCG_TPU_PALLAS_V for {variant}")
         torch.cuda.synchronize()
         reset_launch_counts()
-        with inner_cycles() as cycles:
+        with inner_cycles(solver) as cycles:
             results = solver.solve()
         launches = dict(LAUNCHES)
         res = results[-1]
@@ -570,10 +616,15 @@ def phase_main(torch, np, model):
             f"{res.iters}, relres {res.relres:.4e}, solve wall {wall:.3f} "
             f"s, {wall / iters * 1e3:.4f} ms/iter, "
             f"{model.n_dof * iters / wall:.4e} dof*iter/s; inner cycles "
-            f"(flag, iterations) {cycles}; launches {shown}")
+            f"(flag, iterations) {cycles}; launches {shown}; "
+            f"{dispatches(solver)}")
         if res.flag != 0 or not res.relres <= 1e-7:
             raise AssertionError(f"flagship solve under {variant} did not "
                                  f"converge: {res}")
+        if solver._dispatch_cap != auto_cap:
+            raise AssertionError(f"flagship solve under {variant}: cap "
+                                 f"{solver._dispatch_cap}, not the JAX "
+                                 f"package's auto cap {auto_cap}")
         if abs(res.iters - JAX_FLAGSHIP_ITERS) > ITERS_TOL * JAX_FLAGSHIP_ITERS:
             raise AssertionError(f"flagship solve under {variant} took "
                                  f"{res.iters} iterations, not within "
@@ -597,8 +648,14 @@ def phase_main(torch, np, model):
                                  "physics window")
         if variant == "v6":
             classic = dict(iters=res.iters, ms_iter=wall / iters * 1e3,
-                           profile=profile_inner(torch,
-                                                                  solver))
+                           wall=wall)
+            # the chunked path's cost and its resilience, on the card,
+            # before the profiler window (one slows every solve after it)
+            classic["oneshot"] = oneshot_flagship(torch, np, model, cfg,
+                                                  classic)
+            classic["faulted"] = faulted_flagship(torch, np, model, cfg,
+                                                  classic)
+            classic["profile"] = profile_inner(torch, solver)
         launches_by[variant] = launches
         cycles_by[variant] = (cycles, res.iters)
         del solver, u
@@ -607,6 +664,224 @@ def phase_main(torch, np, model):
         say(f"main: inner cycles (flag, iterations) {v} {cycles_by[v][0]}, "
             f"{cycles_by[v][1]} in all")
     return launches_by, classic
+
+
+def oneshot_flagship(torch, np, model, cfg, chunked):
+    """The v6 flagship solve of phase 4 once more on the one-shot path
+    (``iters_per_dispatch=0``: one ``pcg_mixed`` call), right after the
+    chunked one and before any profiler window: the chunked path's
+    overhead is the gap between the two solves' ms/iter (predicted under
+    1 %).  Returns {"ms_iter", "wall", "iters"}."""
+    import dataclasses
+
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    cfg0 = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, iters_per_dispatch=0))
+    solver = Solver(model, cfg0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with inner_cycles(solver) as cycles:
+        res = solver.solve()[-1]
+    f32 = LAUNCHES[("v6", "float32")]
+    ms = res.wall_s / res.iters * 1e3
+    gap = chunked["ms_iter"] / ms - 1
+    say(f"main v6 one-shot: flag {res.flag}, iterations {res.iters}, relres "
+        f"{res.relres:.4e}, time to tol {res.wall_s:.3f} s, {ms:.4f} "
+        f"ms/iter; inner cycles (flag, iterations) {cycles}; launches f32 "
+        f"{f32}; {dispatches(solver)}")
+    say(f"main v6 chunked against one-shot: {chunked['ms_iter']:.4f} "
+        f"against {ms:.4f} ms/iter (chunked {gap * 100:+.2f} %), time to "
+        f"tol {chunked['wall']:.3f} against {res.wall_s:.3f} s, iterations "
+        f"{chunked['iters']} against {res.iters}")
+    if res.flag != 0 or not res.relres <= 1e-7 or f32 < res.iters or abs(
+            res.iters - JAX_FLAGSHIP_ITERS) > ITERS_TOL * JAX_FLAGSHIP_ITERS:
+        raise AssertionError(f"one-shot flagship solve: {res}, {f32} "
+                             f"float32 launches")
+    del solver
+    torch.cuda.empty_cache()
+    return dict(ms_iter=ms, wall=res.wall_s, iters=res.iters, f32=f32)
+
+
+class _Events:
+    """Metrics sink collecting the recorder's events."""
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, ev):
+        self.events.append(ev)
+
+    def rungs(self):
+        return [(e["action"], e["trigger"]) for e in self.events
+                if e["kind"] == "recovery"]
+
+
+def faulted_flagship(torch, np, model, cfg, clean):
+    """Phase 4f's flagship case, run in phase 4 beside the clean chunked
+    solve (before the profiler window): the v6 flagship with a NaN
+    poisoned into the carry at the first chunk boundary
+    (``FaultPlan("nan@0")``) recovers through one min-residual restart to
+    flag 0 and relres <= 1e-7.  Returns {"iters", "wall"}."""
+    from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
+    from pcg_mpi_solver_tpu_torch.resilience import FaultPlan
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    ev = _Events()
+    solver = Solver(model, cfg, recorder=MetricsRecorder(sinks=[ev]))
+    solver.fault_plan = FaultPlan("nan@0", recorder=solver.recorder)
+    res = solver.solve()[-1]
+    say(f"resilience flagship nan@0: flag {res.flag}, iterations "
+        f"{res.iters}, relres {res.relres:.4e}, wall {res.wall_s:.3f} s "
+        f"(clean chunked: {clean['iters']} iterations, {clean['wall']:.3f} "
+        f"s; {res.wall_s - clean['wall']:+.3f} s); recovery "
+        f"{ev.rungs()}; {dispatches(solver)}")
+    if res.flag != 0 or not res.relres <= 1e-7 \
+            or ev.rungs() != [("restart_minres", "nan_carry")]:
+        raise AssertionError(f"faulted flagship: {res}, rungs {ev.rungs()}")
+    del solver
+    torch.cuda.empty_cache()
+    return dict(iters=res.iters, wall=res.wall_s)
+
+
+def phase_resilience(torch, np):
+    """Phase 4f: the chunked path and its recovery ladder on the 48x32x32
+    cube (``DIRECT_F64_CELLS``, cap 100), each check raising: direct f64
+    chunked against one-shot under classic, fused and pipelined (flag,
+    iterations, x bitwise); mixed with ``inf@0,inf@1`` at 3 recoveries
+    escalating to f64 (tol 1e-9, inner_tol 0.1; the float64 v6 counter
+    grows by at least the escalated iterations); direct block3 with ``rho0@1,rho0@2`` taking the
+    fallback preconditioner; ``exc@3`` re-dispatched from a snapshot,
+    bitwise the clean solve; a two-step solve killed at boundary 2 and
+    resumed in a new Solver, bitwise the uninterrupted run.  Checkpoints
+    go under ``build/`` of the checkout.  Returns the v6 launch counts of
+    the escalating solve."""
+    import dataclasses
+    import shutil
+
+    from pcg_mpi_solver_tpu_torch import (
+        RunConfig, SolverConfig, TimeHistoryConfig)
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.resilience import (
+        FaultPlan, SimulatedKill)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    kw = dict(FLAGSHIP)
+    kw.pop("nx")
+    model = make_cube_model(*DIRECT_F64_CELLS, **kw)
+    cells = "x".join(map(str, DIRECT_F64_CELLS))
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_checkpoints")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    def run(cap, fault=None, deltas=(0.0, 1.0), run_id="1", **solver_kw):
+        solver_kw = dict(dict(tol=1e-7, dtype="float64"), **solver_kw)
+        rkw = {k: solver_kw.pop(k) for k in ("snapshot_every",
+                                             "checkpoint_every")
+               if k in solver_kw}
+        cfg = RunConfig(scratch_path=scratch, run_id=run_id,
+                        solver=SolverConfig(iters_per_dispatch=cap,
+                                            **solver_kw),
+                        time_history=TimeHistoryConfig(
+                            time_step_delta=deltas), **rkw)
+        ev = _Events()
+        s = Solver(model, cfg, recorder=MetricsRecorder(sinks=[ev]))
+        if fault is not None:
+            s.fault_plan = FaultPlan(fault, recorder=s.recorder)
+        return s, ev
+
+    # 1. chunked against one-shot, bitwise, under each variant
+    clean = {}
+    for variant in ("classic", "fused", "pipelined"):
+        out = []
+        for cap in (100, 0):
+            s, _ = run(cap, pcg_variant=variant)
+            r = s.solve()[-1]
+            out.append((r, s.un.clone(), dispatches(s)))
+        (rc, uc, dc), (ro, uo, _) = out
+        same = (rc.flag, rc.iters, rc.relres) == (ro.flag, ro.iters,
+                                                   ro.relres) \
+            and torch.equal(uc, uo)
+        say(f"resilience {cells} direct f64 {variant}: cap 100 flag "
+            f"{rc.flag}, {rc.iters} iterations, {rc.wall_s:.3f} s; cap 0 "
+            f"flag {ro.flag}, {ro.iters} iterations, {ro.wall_s:.3f} s; x "
+            f"{'bitwise equal' if same else 'DIFFERENT'}; {dc}")
+        if not same or rc.flag != 0:
+            raise AssertionError(f"{cells} {variant}: chunked is not the "
+                                 f"one-shot solve")
+        clean[variant] = (rc, uc)
+    clean_r, clean_u = clean["classic"]
+
+    # 3. mixed, inf twice: restart, then f64 escalation
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    # (tol 1e-9, inner_tol 0.1, as the JAX package's test of the rung: a
+    # short cycle, so the second inf lands after the restart)
+    s, ev = run(100, "inf@0,inf@1", precision_mode="mixed",
+                max_recoveries=3, tol=1e-9, inner_tol=0.1)
+    r = s.solve()[-1]
+    f64 = LAUNCHES[("v6", "float64")]
+    escalated = sum(n for k, n, _f in s.dispatch_log if k == "cycle")
+    launches = dict(LAUNCHES)
+    say(f"resilience {cells} mixed inf@0,inf@1: flag {r.flag}, "
+        f"{r.iters} iterations ({escalated} escalated to f64), relres "
+        f"{r.relres:.4e}; recovery {ev.rungs()}; float64 v6 launches {f64}")
+    if r.flag != 0 or ("escalate_f64", "nan_carry") not in ev.rungs() \
+            or escalated == 0 or f64 < escalated:
+        raise AssertionError(f"mixed escalation: {r}, {ev.rungs()}, "
+                             f"{f64} float64 launches")
+
+    # 4. block3, rho = 0 twice: restart, then the fallback preconditioner
+    s, ev = run(100, "rho0@1,rho0@2", precond="block3")
+    r = s.solve()[-1]
+    say(f"resilience {cells} direct block3 rho0@1,rho0@2: flag {r.flag}, "
+        f"{r.iters} iterations, relres {r.relres:.4e}; recovery "
+        f"{ev.rungs()}")
+    if r.flag != 0 or ev.rungs() != [("restart_minres", "flag4"),
+                                     ("fallback_prec", "flag4")]:
+        raise AssertionError(f"block3 fallback: {r}, {ev.rungs()}")
+
+    # 5. device loss before dispatch 3, re-dispatched from the snapshot
+    s, ev = run(100, "exc@3", snapshot_every=1, run_id="exc")
+    r = s.solve()[-1]
+    same = (r.flag, r.iters, r.relres) == (clean_r.flag, clean_r.iters,
+                                           clean_r.relres) \
+        and torch.equal(s.un, clean_u)
+    say(f"resilience {cells} exc@3 with snapshots: flag {r.flag}, "
+        f"{r.iters} iterations; recovery {ev.rungs()}; against the clean "
+        f"solve {'bitwise equal' if same else 'DIFFERENT'}")
+    if not same or ev.rungs() != [("redispatch", "device_loss")]:
+        raise AssertionError(f"re-dispatch: {r}, {ev.rungs()}")
+
+    # 6. kill at boundary 2 of a two-step solve, resume in a new Solver
+    two = dict(deltas=(0.0, 0.5, 1.0), snapshot_every=1, checkpoint_every=1)
+    sa, _ = run(100, run_id="whole", **two)
+    sa.solve()
+    sk, _ = run(100, "kill@2", run_id="killed", **two)
+    try:
+        sk.solve()
+        killed = False
+    except SimulatedKill:
+        killed = True
+    sr, ev = run(100, run_id="killed", **two)
+    sr.solve(resume=True)
+    same = (sr.flags, sr.iters, sr.relres) == (sa.flags, sa.iters,
+                                               sa.relres) \
+        and torch.equal(sr.un, sa.un)
+    ops = [e["op"] for e in ev.events if e["kind"] == "snapshot"]
+    say(f"resilience {cells} kill@2 and resume: killed {killed}, resumed "
+        f"(flags, iterations) {list(zip(sr.flags, sr.iters))} against "
+        f"{list(zip(sa.flags, sa.iters))}, snapshot ops {ops[:1]}...; "
+        f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not (killed and same and ops[:1] == ["restore"]):
+        raise AssertionError("kill and resume is not the uninterrupted run")
+    shutil.rmtree(scratch, ignore_errors=True)
+    return launches
 
 
 def _device_rows(prof):
@@ -735,7 +1010,7 @@ def phase_preconditioners(torch, np, flagship_model):
                 f" coarse dofs, degree {meta['degree']}; lam "
                 f"{[float(v) for v in solver.mg_lam]}; hierarchy setup "
                 f"{solver.mg_setup_s:.3f} s, lam setup {solver.mg_lam_s:.3f} s")
-        with inner_cycles() as cycles:
+        with inner_cycles(solver) as cycles:
             results = solver.solve()
         launches = dict(LAUNCHES)
         res = results[-1]
@@ -748,7 +1023,8 @@ def phase_preconditioners(torch, np, flagship_model):
             f"= time to tol ({solver.setup_s + wall:.3f} s with setup), "
             f"{wall / iters * 1e3:.4f} ms/iter, "
             f"{model.n_dof * iters / wall:.4e} dof*iter/s; inner cycles "
-            f"(flag, iterations) {cycles}; launches {shown}")
+            f"(flag, iterations) {cycles}; launches {shown}; "
+            f"{dispatches(solver)}")
         if res.flag != 0 or not res.relres <= 1e-7:
             raise AssertionError(f"{tag} did not converge: {res}")
         f32, f64 = launches[("v6", "float32")], launches[("v6", "float64")]
@@ -837,7 +1113,7 @@ def phase_variants(torch, np, models, classic_iters, classic_profile):
         if solver.kernel_variant != "v6":
             raise AssertionError(f"{tag}: Solver chose "
                                  f"{solver.kernel_variant}, not v6")
-        with inner_cycles() as cycles:
+        with inner_cycles(solver) as cycles:
             results = solver.solve()
         launches = dict(LAUNCHES)
         res = results[-1]
@@ -856,7 +1132,7 @@ def phase_variants(torch, np, models, classic_iters, classic_profile):
             f"{model.n_dof * iters / wall:.4e} dof*iter/s; inner cycles "
             f"(flag, iterations) {cycles}; launches f32 {f32}, f64 {f64} "
             f"({(f32 or f64) / iters:.3f} a {'f32' if f32 else 'f64'} "
-            f"iteration); iterations {ratio}")
+            f"iteration); iterations {ratio}; {dispatches(solver)}")
         if (cells, precond, variant, mode) in STALLS:
             # the reference's outcome on this input (STALLS): a refresh
             # that fails to halve the f64 residual after f32 cycles that
@@ -1165,7 +1441,7 @@ def _general_solve(torch, np, solver, tag, bar):
                              f"backend")
     torch.cuda.synchronize()
     reset_launch_counts()
-    with inner_cycles() as cycles:
+    with inner_cycles(solver) as cycles:
         res = solver.step(1.0)
     used = {f"{v} {d}": n for (v, d), n in LAUNCHES.items() if n}
     ms = res.wall_s / res.iters * 1e3
@@ -1176,7 +1452,8 @@ def _general_solve(torch, np, solver, tag, bar):
         f"ms/iter, {solver.pm.glob_n_dof * res.iters / res.wall_s:.4e} "
         f"dof*iter/s; inner cycles (flag, iterations) {cycles}; tip ux "
         f"{tip:.4e} m vs bar estimate {bar:.4e} m (ratio {tip / bar:.3f}, "
-        f"window [1/3, 3]); structured kernel launches {used or 0}")
+        f"window [1/3, 3]); structured kernel launches {used or 0}; "
+        f"{dispatches(solver)}")
     if res.flag != 0 or not res.relres <= 1e-7:
         raise AssertionError(f"{tag}: did not converge: {res}")
     if not np.isfinite(u).all() or not bar / 3 <= tip <= 3 * bar:
@@ -1419,7 +1696,7 @@ def phase_checks(torch, np):
             out = {}
             for dev in ("cuda", "cpu"):
                 s = Solver(small, cfg, device=dev)
-                with inner_cycles() as cycles:
+                with inner_cycles(s) as cycles:
                     rs = s.solve()
                 out[dev] = ([(r.flag, r.iters) for r in rs],
                             s.displacement_global(), cycles)
@@ -1562,6 +1839,10 @@ def main() -> int:
     phase_general_profile(torch, general, classic["ms_iter"])
     del general
     lap("4e profile")
+    # 4f. the chunked path's ladder, snapshots and resume (its flagship
+    # case ran in phase 4)
+    resilience_launches = phase_resilience(torch, np)
+    lap("4f resilience")
     # 5. direct f64 and card-vs-cpu checks
     phase_checks(torch, np)
     lap("5 checks")
@@ -1589,6 +1870,11 @@ def main() -> int:
                 records[-1]["launches_many"] = {
                     path: counts[("v6", dtype)]
                     for path, counts in many_launches.items()}
+                records[-1]["launches_resilience_escalation"] = \
+                    resilience_launches[("v6", dtype)]
+                if dtype == "float32":
+                    records[-1]["launches_oneshot"] = \
+                        classic["oneshot"]["f32"]
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": records}))

@@ -15,7 +15,12 @@ per ported Pallas variant, chosen by ``PCG_TPU_PALLAS_V``); and the
 general (pattern-type) backend for every model the slab cannot take
 (``models.make_octree_model``, ``make_glued_blocks_model``,
 ``make_poisson_model`` -> ``parallel.partition_model`` -> the bucketed
-general operator of ``ops.matvec``), under Jacobi or block Jacobi.
+general operator of ``ops.matvec``), under Jacobi or block Jacobi; and
+the chunked path that ``Solver.step`` takes at 4 M dofs and above
+(``solver.chunked``: capped dispatches of the resumable ``pcg``) with the
+recovery ladder, the dispatch guard, mid-solve snapshots, step
+checkpoints and fault injection (``resilience``, ``utils.checkpoint``,
+``obs.metrics``).
 """
 
 from pcg_mpi_solver_tpu_torch.config import (

@@ -5,8 +5,9 @@ default, so a config written for the JAX package builds here too.  A
 field whose option is not ported yet keeps its name: ``Solver`` raises
 ``NotImplementedError`` naming the ROADMAP queue item that brings it when
 the value asks for that option (``solver/driver.py``, ``UNPORTED``),
-instead of ignoring it.  Names and paths that do not change the solve are
-accepted as they are.
+instead of ignoring it.  Names that do not change the solve are accepted
+as they are; ``RunConfig.checkpoint_path`` (under ``scratch_path``) is
+where step checkpoints and mid-solve snapshots go.
 """
 
 from __future__ import annotations
@@ -50,17 +51,19 @@ class SolverConfig:
     mg_levels: int = 0
     mg_smooth_degree: int = 2
     mg_max_replicated_dofs: int = 32_000_000
-    # Accepted for config compatibility and ignored: the port always runs
-    # a solve as one host-driven loop (the JAX package's chunked dispatch
-    # is bit-identical to its one-shot solve by contract, so the math is
-    # the same either way).
+    # Krylov iterations per dispatch of the chunked path
+    # (solver/chunked.py): -1 engages it at 4 M dofs and above with an
+    # automatic cap, 0 keeps the one-shot solve, N > 0 caps dispatches at
+    # N iterations at any size
     iters_per_dispatch: int = -1
     trace_resid: int = 0          # in-solve residual trace ring (0 = off)
     # Accepted and ignored: carry donation is numerically a no-op in the
     # JAX package (bit-identical on and off), and torch updates in place.
     donate_carry: bool = True
-    max_recoveries: int = 2       # recovery-ladder attempts
-    dispatch_retries: int = 2     # device-loss dispatch retries
+    # chunked path only: recovery-ladder attempts a step (0 reports a
+    # breakdown as it is) and device-loss re-dispatches from a snapshot
+    max_recoveries: int = 2
+    dispatch_retries: int = 2
     # The JAX package's Pallas switch.  "auto" and "on" both mean the
     # port's CUDA kernels on the card; there is no other path to switch to.
     pallas: str = "auto"
@@ -115,9 +118,11 @@ class RunConfig:
     # "rcb" and "auto" give the structured slabs; "graph" needs the general
     # backend
     partition_method: str = "rcb"
-    speed_test: bool = False      # the port does no I/O either way
-    # Resumable state (checkpoints every N steps, mid-solve snapshots every
-    # N dispatches) is not ported yet; nonzero values raise.
+    # names the result directory "..._SpeedTest" (result_path); the port
+    # writes no result exports, checkpoints and snapshots either way
+    speed_test: bool = False
+    # step checkpoints every N completed steps (Solver.solve) and mid-solve
+    # snapshots every N chunks of the chunked path, under checkpoint_path
     checkpoint_every: int = 0
     snapshot_every: int = 0
     setup_shard: str = "auto"
@@ -131,3 +136,12 @@ class RunConfig:
     solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
     time_history: TimeHistoryConfig = dataclasses.field(
         default_factory=TimeHistoryConfig)
+
+    @property
+    def result_path(self) -> str:
+        suffix = "_SpeedTest" if self.speed_test else ""
+        return f"{self.scratch_path}/Results_Run{self.run_id}{suffix}"
+
+    @property
+    def checkpoint_path(self) -> str:
+        return f"{self.result_path}/Checkpoints"

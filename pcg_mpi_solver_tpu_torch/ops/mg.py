@@ -35,9 +35,9 @@ one kernel launch for the block and no level loops over columns.
 Host-side setup (:func:`build_mg_host`) is numpy and gives the JAX
 package's ``MGSetup.tree`` field for field, so a hierarchy built by either
 package goes to the device through :func:`tree_from_numpy`.  The JAX
-package's octree lattices (ROADMAP queue 1 items 8 and 13), its recovery
-ladder's demotion (``fb``, item 9) and its setup telemetry (item 14) are
-not ported.
+package's octree lattices (ROADMAP queue 1 items 8 and 13) and its setup
+telemetry (item 14) are not ported.  The recovery ladder's demotion to
+scalar Jacobi is :func:`fallback_operand`.
 """
 
 from __future__ import annotations
@@ -623,9 +623,20 @@ def mg_apply(ops, data: dict, m: dict, r: torch.Tensor) -> torch.Tensor:
     n_loc) or a block (R, P, n_loc) (then ``data`` is the tree of
     ``parallel.structured.block_data`` for that width).  ``m`` is
     ``make_prec(ops, data, "mg")``; the hierarchy rides ``data["mg"]``.
-    The port has no recovery ladder (ROADMAP queue 1 item 9), so
-    ``m["fb"]`` is never set and the cycle always runs."""
+    With ``m["fb"]`` set (the recovery ladder's demotion,
+    :func:`fallback_operand`) the apply is scalar Jacobi on
+    ``m["mg_diag"]`` instead of the V-cycle (JAX ``ops/mg.py:673-680``);
+    ``fb`` is a host int, so the choice costs no device read."""
+    if m.get("fb"):
+        return (m["mg_diag"] * r).to(r.dtype)
     return _vcycle(ops, data, m, r)
+
+
+def fallback_operand(inv: torch.Tensor) -> dict:
+    """The recovery ladder's demoted operand for an mg-configured solver:
+    the scalar-Jacobi inverse in the mg operand's shape with the ``fb``
+    switch set, so :func:`mg_apply` takes the scalar branch."""
+    return {"mg_diag": inv, "fb": 1}
 
 
 # ---------------------------------------------------------------------------

@@ -95,8 +95,9 @@ def invert_node_blocks(B: torch.Tensor, eff3: torch.Tensor) -> torch.Tensor:
 def fallback_kind(kind: str):
     """The next-weaker-but-safer preconditioner of the JAX package's
     recovery ladder: scalar Jacobi for block3 and mg, None for Jacobi
-    (nothing weaker is still a preconditioner).  The port has no ladder
-    yet (ROADMAP queue 1 item 9); this names its rung."""
+    (nothing weaker is still a preconditioner).  ``RecoveryLadder``
+    (resilience/recovery.py) takes its fallback rung only when this is
+    not None."""
     return "jacobi" if kind in ("block3", "mg") else None
 
 
@@ -122,9 +123,9 @@ def make_prec(ops, data: dict, kind: str):
     (P, n_loc), the block-Jacobi inverse (P, n_node_loc, 3, 3), or for
     "mg" the prec dict ``{"mg_diag": scalar Jacobi inverse, "fb": 0}``
     the V-cycle reads (its hierarchy rides ``data["mg"]``).  ``fb`` is
-    the JAX package's demotion switch; the port keeps it at 0 and never
-    reads it (the recovery ladder that sets it is ROADMAP queue 1 item
-    9)."""
+    the demotion switch, a host int: the recovery ladder's
+    ``ops/mg.fallback_operand`` sets it, and ``mg_apply`` then applies
+    scalar Jacobi."""
     if kind not in PRECONDS:
         raise ValueError(f"precond must be one of {PRECONDS}, got {kind!r}")
     if kind == "block3":
@@ -134,7 +135,5 @@ def make_prec(ops, data: dict, kind: str):
                       torch.zeros((), dtype=diag_k.dtype,
                                   device=diag_k.device))
     if kind == "mg":
-        return {"mg_diag": inv,
-                "fb": torch.zeros((), dtype=torch.int32,
-                                  device=diag_k.device)}
+        return {"mg_diag": inv, "fb": 0}
     return inv

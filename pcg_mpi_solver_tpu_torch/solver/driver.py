@@ -13,13 +13,25 @@ hybrid backend is ROADMAP queue 1 item 13.  For each time step: Dirichlet liftin
 preconditioner rebuild (scalar Jacobi, 3x3 block Jacobi or the mg
 V-cycle's operand) -> PCG (``SolverConfig.pcg_variant``: classic, fused
 or pipelined; direct, or the mixed f32/f64 refinement shell) -> u = x +
-Ud * delta.  A flag-6 exit (recurrence drift) is returned as it is.
+Ud * delta.
 Under ``precond="mg"`` the constructor also builds the level hierarchy
 (``ops/mg.py``) into ``data["mg"]`` and estimates the fine level's
 Chebyshev bound on the uploaded operator.  ``solve_many`` solves a block
 of load cases against the one operator in one lockstep loop
 (``pcg_many``, or ``pcg_mixed_many`` in mixed precision) on the one-shot
 path: homogeneous Dirichlet, x0 = 0, breakdown columns quarantined.
+
+Above 4 M dofs (``solver/chunked.auto_dispatch_cap``), or at any size
+when ``SolverConfig.iters_per_dispatch`` names a cap, ``step`` runs the
+chunked path as the JAX package does: the start step (lifting, r0, the
+preconditioner built once), then capped dispatches of the resumable
+``pcg`` (``solver/chunked.ChunkedEngine``) inside the recovery ladder
+(``resilience/engine.run_with_recovery``: restart from the min-residual
+iterate, the scalar-Jacobi fallback preconditioner, f64 escalation),
+with mid-solve snapshots (``RunConfig.snapshot_every``), step
+checkpoints (``checkpoint_every``, ``solve(resume=True)``) and
+deterministic fault injection (``fault_plan``, ``PCG_TPU_FAULTS``).  The
+one-shot path returns a breakdown flag (2, 4, 6) as it is.
 
 The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card, the default raises instead of quietly running on the CPU.
@@ -38,6 +50,7 @@ import torch
 from pcg_mpi_solver_tpu_torch.config import (
     RunConfig, SolverConfig, TimeHistoryConfig)
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
+from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
 from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
 from pcg_mpi_solver_tpu_torch.ops.matvec import Ops, device_data
 from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
@@ -47,9 +60,16 @@ from pcg_mpi_solver_tpu_torch.parallel.partition import (
     GRAPH_ITEM, partition_model)
 from pcg_mpi_solver_tpu_torch.parallel.structured import (
     StructuredOps, device_data_structured, partition_structured)
+from pcg_mpi_solver_tpu_torch.resilience import (
+    DispatchGuard, FaultPlan, RecoveryHooks, ResilienceContext,
+    retry_deadline_s, run_with_recovery)
+from pcg_mpi_solver_tpu_torch.solver.chunked import (
+    ChunkedEngine, auto_dispatch_cap)
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
-    BREAKDOWN_FLAGS, QUARANTINE_FLAG, pcg, pcg_many, pcg_mixed,
-    pcg_mixed_many)
+    BREAKDOWN_FLAGS, QUARANTINE_FLAG, _np_type, _read, cold_carry, pcg,
+    pcg_many, pcg_mixed, pcg_mixed_many)
+from pcg_mpi_solver_tpu_torch.utils.checkpoint import (
+    CheckpointManager, SnapshotStore)
 from pcg_mpi_solver_tpu_torch.validate import PreflightError, check_rhs_block
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -87,8 +107,9 @@ class ManySolveResult:
     Krylov work alone (validation and upload excluded), ``trips`` the
     lockstep trips (one blocked matvec each), ``quarantined`` the
     quarantined columns.  ``recoveries`` and ``drift`` are the JAX
-    package's ladder counts: 0 on the one-shot path, the port's only one
-    (the ladder is ROADMAP queue 1 item 9)."""
+    package's ladder counts of its chunked blocked path: 0 on the
+    one-shot path, the port's only blocked path (the chunked blocked
+    path and its per-column ladder are ROADMAP queue 1 item 9)."""
     flags: np.ndarray
     relres: np.ndarray
     iters: np.ndarray
@@ -124,7 +145,6 @@ UNPORTED = {
     **{("solver", f): 3 for f in (
         "mixed_plateau_window", "mixed_progress_window",
         "mixed_progress_ratio", "mixed_progress_min_gain")},
-    **{("solver", f): 9 for f in ("max_recoveries", "dispatch_retries")},
     ("solver", "trace_resid"): 14,
     ("time_history", "dt"): 10,
     **{("time_history", f): 11 for f in (
@@ -157,10 +177,6 @@ def _check_slice(config: RunConfig) -> None:
             f"pallas={sc.pallas!r}: the port has no XLA path and no "
             f"interpreter; it always runs its CUDA kernels on the card and "
             f"their plain version on the CPU ('auto' or 'on')")
-    if config.checkpoint_every or config.snapshot_every:
-        raise NotImplementedError(
-            "checkpoints and snapshots are not ported yet (ROADMAP queue 1 "
-            "item 9: chunked dispatch and resilience)")
     if config.partition_method == "graph":
         raise NotImplementedError(
             f"partition_method='graph' needs the native graph partitioner "
@@ -229,9 +245,16 @@ class Solver:
     def __init__(self, model: ModelData, config: Optional[RunConfig] = None,
                  n_parts: Optional[int] = None, device=None,
                  backend: str = "auto",
-                 elem_part: Optional[np.ndarray] = None):
+                 elem_part: Optional[np.ndarray] = None,
+                 recorder: Optional[MetricsRecorder] = None):
         t0 = time.perf_counter()
         self.config = config or RunConfig()
+        # telemetry of the chunked path: dispatch spans, recovery,
+        # snapshot and fault events (a recorder without sinks by default)
+        self.recorder = recorder if recorder is not None \
+            else MetricsRecorder()
+        self._rec = self.recorder
+        self._model = model              # the checkpoint fingerprint's
         self.device = resolve_device(device)
         n_parts = self.config.n_parts if n_parts is None else n_parts
         if n_parts < 1:
@@ -314,33 +337,84 @@ class Solver:
             self.mg_lam_s = time.perf_counter() - t_lam
 
         # Initial state: deterministic zeros.
-        self.un = torch.zeros((self.pm.n_parts, self.pm.n_loc),
-                              dtype=self.dtype, device=self.device)
+        self.reset_state()
         self._many_data = None          # (width, f64-or-storage tree, f32)
+
+        # ---- the chunked path (solver/chunked.py) and the resilience
+        # subsystem (resilience/): the JAX package's auto cap engages at
+        # 4 M dofs; one device holds every part's rows
+        self._dispatch_cap = auto_dispatch_cap(
+            sc, self.pm.glob_n_dof, self.pm.n_loc * self.pm.n_parts)
+        # settable: tests inject programmatically, PCG_TPU_FAULTS drives
+        # drills
+        self.fault_plan = FaultPlan.from_env(recorder=self._rec)
+        self._resume_pending = False     # solve(resume=True) arms the
+        #                                  mid-step snapshot resume
+        self._snap_store = None          # lazy: fingerprints the model once
+        self._esc_engine = None          # lazy: the f64 escalation engine
+        # one entry per capped call and refinement cycle of the last step
+        # (ChunkedEngine.log), over every engine the ladder ran
+        self.dispatch_log: List[tuple] = []
+        self._engine = None
+        if self._dispatch_cap > 0:
+            self._engine = ChunkedEngine(
+                ops=self.ops, scfg=sc, glob_n_dof_eff=self.pm.glob_n_dof_eff,
+                cap=self._dispatch_cap, mixed=self.mixed,
+                ops32=self.ops32 if self.mixed else None,
+                recorder=self._rec, log=self.dispatch_log)
         self.flags: List[int] = []
         self.relres: List[float] = []
         self.iters: List[int] = []
         self.step_times: List[float] = []
         self.setup_s = time.perf_counter() - t0
 
-    def step(self, delta: float) -> StepResult:
-        """One quasi-static step at load factor ``delta``."""
-        t0 = time.perf_counter()
-        sc = self.config.solver
+    def reset_state(self) -> None:
+        """Zero the solution (the state before the first step)."""
+        self.un = torch.zeros((self.pm.n_parts, self.pm.n_loc),
+                              dtype=self.dtype, device=self.device)
+
+    def _lift(self, delta: float):
+        """Dirichlet lifting of a step: (u_d = Ud * delta, Fext = eff *
+        (F * delta - K.u_d), x0 = eff * u_prev)."""
         data64 = self.data
         eff = data64["eff"]
-        # Dirichlet lifting: Fext = F*delta - K.(Ud*delta)
-        delta = float(delta)
         udi = data64["Ud"] * delta
-        fdi = self.ops.matvec(data64, udi)
-        fext = eff * (data64["F"] * delta - fdi)
-        x0 = eff * self.un
+        fext = eff * (data64["F"] * delta - self.ops.matvec(data64, udi))
+        return udi, fext, eff * self.un
+
+    def _amul64(self, v: torch.Tensor) -> torch.Tensor:
+        """eff * K.v on the storage-dtype (float64 in mixed) operator."""
+        return self.data["eff"] * self.ops.matvec(self.data, v)
+
+    def step(self, delta: float) -> StepResult:
+        """One quasi-static step at load factor ``delta``: the chunked
+        path when the dispatch cap is set (module docstring), else one
+        ``pcg`` / ``pcg_mixed`` call."""
+        t0 = time.perf_counter()
+        delta = float(delta)
+        if self._dispatch_cap > 0:
+            flag, relres, iters = self._step_chunked(delta)
+        else:
+            flag, relres, iters = self._step_oneshot(delta)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        out = StepResult(int(flag), float(relres), int(iters), wall)
+        self.flags.append(out.flag)
+        self.relres.append(out.relres)
+        self.iters.append(out.iters)
+        self.step_times.append(wall)
+        return out
+
+    def _step_oneshot(self, delta: float):
+        sc = self.config.solver
+        udi, fext, x0 = self._lift(delta)
         glob_n_eff = self.pm.glob_n_dof_eff
+        prec = self._make_prec(sc.precond)
         if self.mixed:
-            inv_diag32 = make_prec(self.ops32, self.data32, sc.precond)
             res = pcg_mixed(
-                self.ops32, self.data32, self.ops, data64,
-                fext, x0, inv_diag32,
+                self.ops32, self.data32, self.ops, self.data,
+                fext, x0, prec,
                 tol=sc.tol, max_iter=sc.max_iter,
                 glob_n_dof_eff=glob_n_eff,
                 max_stag_steps=sc.max_stag_steps,
@@ -348,37 +422,181 @@ class Solver:
                 variant=sc.pcg_variant,
             )
         else:
-            inv_diag = make_prec(self.ops, data64, sc.precond)
             res = pcg(
-                self.ops, data64, fext, x0, inv_diag,
+                self.ops, self.data, fext, x0, prec,
                 tol=sc.tol, max_iter=sc.max_iter,
                 glob_n_dof_eff=glob_n_eff,
                 max_stag_steps=sc.max_stag_steps,
                 variant=sc.pcg_variant,
             )
         self.un = res.x + udi
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.perf_counter() - t0
-        out = StepResult(int(res.flag), float(res.relres), int(res.iters),
-                         wall)
-        self.flags.append(out.flag)
-        self.relres.append(out.relres)
-        self.iters.append(out.iters)
-        self.step_times.append(wall)
-        return out
+        return res.flag, res.relres, res.iters
+
+    def _step_chunked(self, delta: float):
+        """The chunked step (JAX ``driver.py:1295-1367``): the start step
+        (lifting, r0, ||b||, the preconditioner built once), then
+        ``run_with_recovery`` over the engine with this solver's recovery
+        pieces as ``RecoveryHooks``."""
+        rec = self._rec
+        sc = self.config.solver
+        data64 = self.data
+        w = data64["weight"] * data64["eff"]
+        f = _np_type(self.ops.dot_dtype)
+        del self.dispatch_log[:]
+        with rec.dispatch("start"):
+            udi, fext, x0 = self._lift(delta)
+            r0 = fext - self._amul64(x0)
+            v = _read(self.ops.wdot(w, fext, fext), self.ops.wdot(w, r0, r0))
+            n2b, normr0 = np.sqrt(f(v[0])), np.sqrt(f(v[1]))
+            carry = cold_carry(x0, r0, normr0, self.ops.dot_dtype,
+                               variant=sc.pcg_variant)
+            prec = self._make_prec(sc.precond)
+        if n2b == 0:
+            self.un = torch.zeros_like(x0) + udi
+            return 0, 0.0, 0
+        ctx = self._make_resilience()
+
+        def restart(x):
+            # a cold Krylov carry at the best iterate seen
+            with rec.dispatch("restart"):
+                r = fext - self._amul64(x)
+                nr = np.sqrt(f(_read(self.ops.wdot(w, r, r))[0]))
+            return cold_carry(x, r, nr, self.ops.dot_dtype,
+                              variant=sc.pcg_variant), nr
+
+        def cold_restart():
+            # device loss: the step's cold start state (fext, x0 and r0
+            # are intact) and a rebuilt preconditioner
+            with rec.dispatch("start"):
+                c = cold_carry(x0, r0, normr0, self.ops.dot_dtype,
+                               variant=sc.pcg_variant)
+                return c, normr0, self._make_prec(sc.precond)
+
+        data = {"f64": self.data, "f32": self.data32} if self.mixed \
+            else self.data
+        _engine, x_fin, flag, relres, total = run_with_recovery(
+            self._engine, data, fext, carry, normr0, n2b, prec,
+            scfg=sc, mixed=self.mixed, recorder=rec,
+            hooks=RecoveryHooks(restart=restart, cold_restart=cold_restart,
+                                fallback_prec=self._fallback_prec,
+                                escalation=self._escalation),
+            resilience=ctx)
+        if ctx is not None:
+            ctx.discard()       # the step is complete: its snapshot goes
+        self.un = x_fin + udi
+        return flag, relres, total
+
+    def _make_prec(self, kind: str):
+        """The step's preconditioner operand: f32 for the mixed inner
+        solves, else in the storage dtype."""
+        if self.mixed:
+            return make_prec(self.ops32, self.data32, kind)
+        return make_prec(self.ops, self.data, kind)
+
+    # ------------------------------------------------------------------
+    # Resilience (resilience/): the context and the recovery pieces
+    # ------------------------------------------------------------------
+    def _snapshot_store(self) -> SnapshotStore:
+        if self._snap_store is None:
+            self._snap_store = SnapshotStore.for_solver(self)
+        return self._snap_store
+
+    def _make_resilience(self) -> Optional[ResilienceContext]:
+        """The step's resilience context, or None when the subsystem is
+        off (no ladder budget, no snapshot cadence, no fault plan)."""
+        sc = self.config.solver
+        every = int(self.config.snapshot_every)
+        plan = self.fault_plan
+        if sc.max_recoveries <= 0 and every <= 0 and plan is None:
+            return None
+        return ResilienceContext(
+            store=self._snapshot_store() if every > 0 else None,
+            step=len(self.flags) + 1, snapshot_every=every,
+            fetch_state=self._fetch_state, put_state=self._put_state,
+            guard=DispatchGuard(retries=sc.dispatch_retries,
+                                deadline_s=retry_deadline_s(),
+                                recorder=self._rec),
+            faults=plan, recorder=self._rec, resume=self._resume_pending,
+            ladder_armed=sc.max_recoveries > 0)
+
+    def _fetch_state(self, state):
+        """Device state tree -> host numpy (tensors copied off the
+        device; numbers and tags as they are)."""
+        if isinstance(state, dict):
+            return {k: self._fetch_state(v) for k, v in state.items()}
+        if isinstance(state, torch.Tensor):
+            return state.detach().to("cpu", copy=True).numpy()
+        if isinstance(state, (int, float, bool, str)):
+            return state
+        return np.asarray(state)
+
+    def _put_state(self, state):
+        """Host numpy state tree -> the solver's device: (n_parts, ...)
+        arrays become tensors in their own dtype, bitwise; scalars stay
+        host numbers, tags pass through."""
+        if isinstance(state, dict):
+            return {k: self._put_state(v) for k, v in state.items()}
+        a = np.asarray(state)
+        if a.ndim >= 2 and a.shape[0] == self.pm.n_parts:
+            return torch.as_tensor(a.copy(), device=self.device)
+        return state
+
+    def _fallback_prec(self):
+        """The ladder's scalar-Jacobi fallback (rung 2): under mg the mg
+        operand with its ``fb`` switch set (``ops/mg.fallback_operand``),
+        so the apply demotes to scalar Jacobi."""
+        with self._rec.dispatch("fallback_prec"):
+            inv = self._make_prec("jacobi")
+            if self.config.solver.precond == "mg":
+                return mgmod.fallback_operand(inv)
+            return inv
+
+    def _escalation(self):
+        """The ladder's f64 escalation (rung 3, mixed mode): a direct-f64
+        ``ChunkedEngine`` on the solver's float64 operator under scalar
+        Jacobi, built on first use.  Returns (engine, data, prec)."""
+        if self._esc_engine is None:
+            self._esc_engine = ChunkedEngine(
+                ops=self.ops, scfg=self.config.solver,
+                glob_n_dof_eff=self.pm.glob_n_dof_eff,
+                cap=self._dispatch_cap, mixed=False, recorder=self._rec,
+                log=self.dispatch_log)
+        with self._rec.dispatch("esc_prec"):
+            prec = make_prec(self.ops, self.data, "jacobi")
+        return self._esc_engine, self.data, prec
 
     def solve(self, on_step: Optional[Callable[[int, StepResult], None]]
-              = None) -> List[StepResult]:
+              = None, resume: bool = False) -> List[StepResult]:
         """Run the quasi-static schedule ``time_step_delta``, skipping
-        step 0."""
+        step 0.  With ``resume=True``, restore the latest step checkpoint
+        under ``config.checkpoint_path`` (if any), continue from the step
+        after it, and let that step resume its mid-solve snapshot (only
+        then: a fresh solve never continues a stale snapshot); with
+        ``config.checkpoint_every > 0``, checkpoint every N completed
+        steps and after the last.  Returns the results of the steps this
+        call ran."""
         deltas = self.config.time_history.time_step_delta
+        every = self.config.checkpoint_every
+        ckpt = None
+        t_start = 1
+        if every > 0 or resume:
+            ckpt = CheckpointManager(self.config.checkpoint_path)
+        if resume:
+            t_done = ckpt.restore(self)
+            if t_done is not None:
+                t_start = t_done + 1
+        self._resume_pending = bool(resume)
         results = []
-        for t in range(1, len(deltas)):
-            res = self.step(deltas[t])
-            results.append(res)
-            if on_step is not None:
-                on_step(t, res)
+        try:
+            for t in range(t_start, len(deltas)):
+                res = self.step(deltas[t])
+                results.append(res)
+                if every > 0 and (t % every == 0 or t == len(deltas) - 1):
+                    ckpt.save(self, t)
+                if on_step is not None:
+                    on_step(t, res)
+        finally:
+            self._resume_pending = False
         return results
 
     def max_block_width(self) -> int:
@@ -412,13 +630,17 @@ class Solver:
         ``pcg_mixed_many``, direct ``pcg_many``, under the configured
         variant and preconditioner; one-shot, so a breakdown (flags 2, 4,
         6), a non-finite residual or ``QUARANTINE_FLAG`` reports the
-        column quarantined (flag 5) with its min-residual iterate.
-        ``resume`` and snapshots need the chunked blocked path (ROADMAP
-        queue 1 item 9)."""
-        if resume:
+        column quarantined (flag 5) with its min-residual iterate; so
+        does a direct block above the dispatch cap, where the JAX package
+        runs its chunked blocked path.  ``resume`` and blocked snapshots
+        (``snapshot_every > 0``) need that path (ROADMAP queue 1 item
+        9) and raise."""
+        if resume or self.config.snapshot_every > 0:
             raise NotImplementedError(
-                "solve_many(resume=True) is not ported yet: the chunked "
-                "blocked path and its snapshots are ROADMAP queue 1 item 9")
+                "solve_many(resume=True) and blocked snapshots "
+                "(snapshot_every > 0) are not ported yet: the chunked "
+                "blocked path and its many_*.npz snapshots are ROADMAP "
+                "queue 1 item 9")
         t0 = time.perf_counter()
         sc = self.config.solver
         pm = self.pm

@@ -62,7 +62,9 @@ from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
 
 # Flags that mean the Krylov recurrence collapsed, not that the system is
 # unsolvable: a restart from the min-residual iterate routinely completes
-# the solve (the JAX package's recovery ladder; not ported yet).
+# the solve (the recovery ladder, resilience/engine.py).  Flags 1 and 3
+# are not in the set, and a NaN carry trips no flag at all (the chunked
+# budget loop, solver/chunked.py, detects it).
 BREAKDOWN_FLAGS = (2, 4, 6)
 
 # Residual-drift guard of the recurrence variants: a non-converged
@@ -138,6 +140,64 @@ class _EarlyRead:
         return self.host.numpy().copy()
 
 
+def _host(v):
+    """A carry scalar as a host number: 0-d tensors and arrays, numpy
+    scalars and Python numbers alike (a snapshot restores numpy)."""
+    return v.item() if isinstance(v, torch.Tensor) else np.asarray(v).item()
+
+
+def cold_carry(x0: torch.Tensor, r0: torch.Tensor, normr0,
+               dot_dtype: torch.dtype, variant: str = "classic") -> dict:
+    """The cold carry of a resumable ``pcg`` call (``carry_in``), with the
+    JAX package's key set (``pcg_mpi_solver_tpu/solver/pcg.py:177-240``):
+    vectors are tensors, the scalars host numbers (``rho``, ``alpha`` and
+    the norms numpy scalars of the dot dtype, counters ints).  p = 0 and
+    rho = 1 make the first resumed trip the textbook first CG step; the
+    recurrence variants add q = 0, alpha = inf (which zeroes the
+    denominator's correction), the ``fresh`` gate and the drift count;
+    pipelined the four GV vectors, the armed priming bit and the
+    replacement cadence.  ``since_best``, ``best_at_reset``,
+    ``win_start`` and ``win_count`` are the plateau and progress windows'
+    state (ROADMAP queue 1 item 3): tracked, and read by nothing while
+    the windows are off."""
+    f = _np_type(dot_dtype)
+    n0 = f(_host(normr0))
+    out = dict(x=x0, r=r0, p=torch.zeros_like(x0), rho=f(1), stag=0,
+               moresteps=0, normrmin=n0, xmin=x0, imin=0, since_best=0,
+               best_at_reset=n0, win_start=n0, win_count=0, normr_act=n0,
+               exec=0)
+    if variant in LAGGED_VARIANTS:
+        out.update(q=torch.zeros_like(x0), alpha=f(np.inf), fresh=1,
+                   drift=0)
+    if variant == "pipelined":
+        out.update({k: torch.zeros_like(x0) for k in ("u", "w", "s", "z")})
+        out.update(init=1, sc=0)
+    return out
+
+
+def select_best(ops: Ops, data: dict, fext: torch.Tensor, carry: dict,
+                always_min: bool = False):
+    """Min-residual fallback of a terminally failed resumable solve (JAX
+    ``solver/pcg.py:281-307``): (x, relres) of whichever of the carry's
+    last iterate and its min-residual iterate has the smaller residual,
+    the latter's recomputed (one matvec and ONE read).  ``always_min``
+    (the recurrence variants, whose last iterate was never evaluated):
+    the min-residual iterate unconditionally.  ``relres`` is a host
+    scalar of the dot dtype."""
+    eff = data["eff"]
+    w = data["weight"] * eff
+    f = _np_type(ops.dot_dtype)
+    r_min = fext - eff * ops.matvec(data, carry["xmin"])
+    v = _read(ops.wdot(w, fext, fext), ops.wdot(w, r_min, r_min))
+    n2b, normr_min = np.sqrt(f(v[0])), np.sqrt(f(v[1]))
+    den = max(n2b, f(np.finfo(np.float32).tiny))
+    if always_min:
+        return carry["xmin"], normr_min / den
+    use_min = bool(normr_min < f(carry["normr_act"]))
+    return ((carry["xmin"], normr_min / den) if use_min
+            else (carry["x"], f(carry["normr_act"]) / den))
+
+
 def refine_tol(tolb, normr, inner_tol) -> np.float32:
     """Adaptive inner tolerance for one mixed-precision refinement cycle:
     the final cycle only needs to contract the residual by tolb/normr — a
@@ -168,6 +228,11 @@ class _Carry:
     xmin: torch.Tensor
     imin: int
     mode: int                 # 1 = the next trip is the deferred check
+    # the plateau and progress windows' state (cold_carry), carried
+    since_best: int = 0
+    best_at_reset: object = None
+    win_start: object = None
+    win_count: int = 0
     # -- the recurrence variants (LAGGED_VARIANTS) --
     q: Optional[torch.Tensor] = None   # fused: A.p; pipelined: M^-1.s
     alpha: Optional[torch.Tensor] = None  # fused: the last step, device
@@ -196,6 +261,7 @@ def pcg(
     glob_n_dof_eff: int,
     max_stag_steps: int = 3,
     max_iter_nominal: Optional[int] = None,
+    carry_in: Optional[dict] = None,
     return_carry: bool = False,
     x0_zero: bool = False,
     variant: str = "classic",
@@ -203,17 +269,23 @@ def pcg(
     """Returns PCGResult, or (PCGResult, carry) with ``return_carry``.
 
     ``return_carry`` skips the min-residual finalize and returns the raw
-    continuation state (the last iterate, the tracked min-residual iterate
-    and norms, the recurrence state of a lagged variant, and ``exec``, the
-    executed trip count that the refinement shell budgets with).
-    ``x0_zero`` declares ``x0`` all zeros, so r0 = fext and ||r0|| =
-    ||fext|| without a matvec.  ``max_iter_nominal`` sets the MoreSteps
-    budget when ``max_iter`` is a remaining-iterations cap.  ``variant``
-    is one of ``VALID_PCG_VARIANTS`` (module docstring); every call is a
-    cold start."""
+    continuation state with :func:`cold_carry`'s keys (the last iterate,
+    the tracked min-residual iterate and norms, the recurrence state of a
+    lagged variant, and ``exec``, the executed trip count that the
+    budget loops count with).  ``carry_in`` resumes from such a carry
+    (it overrides ``x0`` and the initial-residual matvec), so capped
+    calls in sequence are bit for bit one long solve: the loop never
+    exits with a deferred check pending (a candidate trip does not
+    advance ``i``, so its check runs in the same call), and ``i``,
+    ``iter_out`` and ``imin`` count from 0 in each call, as in the JAX
+    package.  ``x0_zero`` declares ``x0`` all zeros, so r0 = fext and
+    ||r0|| = ||fext|| without a matvec.  ``max_iter_nominal`` sets the
+    MoreSteps budget when ``max_iter`` is a remaining-iterations cap.
+    ``variant`` is one of ``VALID_PCG_VARIANTS`` (module docstring)."""
     if variant not in VALID_PCG_VARIANTS:
         raise ValueError(f"pcg variant must be one of "
                          f"{VALID_PCG_VARIANTS}, got {variant!r}")
+    warm = carry_in is not None
     lagged = variant in LAGGED_VARIANTS
     pipelined = variant == "pipelined"
     drift_limit = drift_limit_for(variant)
@@ -236,34 +308,51 @@ def pcg(
         """Assembled K.v restricted to effective dofs."""
         return eff * ops.matvec(data, v)
 
-    if x0_zero:
+    if warm:
+        x0, r0 = carry_in["x"], carry_in["r"]
+        normr0 = f(_host(carry_in["normr_act"]))
+    elif x0_zero:
         r0, normr0 = fext, n2b
     else:
         r0 = fext - amul(x0)
         normr0 = np.sqrt(f(_read(ops.wdot(w, r0, r0))[0]))
 
     zero_rhs = bool(n2b == 0)
-    initial_ok = bool(normr0 <= tolb)
-    c = _Carry(x=x0, r=r0, p=torch.zeros_like(x0),
-               rho=torch.ones((), dtype=dd, device=fext.device), i=0,
+    # a resumed recurrence variant's norm is its predecessor iterate's
+    # (the lag): never flag 0 the unevaluated resumed iterate off it
+    initial_ok = False if (warm and lagged) else bool(normr0 <= tolb)
+    st = carry_in if warm else cold_carry(x0, r0, normr0, dd, variant)
+
+    def dev_scalar(v):
+        return torch.tensor(_host(v), dtype=dd, device=fext.device)
+
+    c = _Carry(x=x0, r=r0, p=st["p"], rho=dev_scalar(st["rho"]), i=0,
                flag=0 if (zero_rhs or initial_ok) else 1,
-               stag=0, moresteps=0, iter_out=0, normr_act=normr0,
-               normrmin=normr0, xmin=x0, imin=0, mode=0)
+               stag=int(_host(st["stag"])),
+               moresteps=int(_host(st["moresteps"])), iter_out=0,
+               normr_act=normr0, normrmin=f(_host(st["normrmin"])),
+               xmin=st["xmin"], imin=int(_host(st["imin"])), mode=0,
+               since_best=int(_host(st["since_best"])),
+               best_at_reset=f(_host(st["best_at_reset"])),
+               win_start=f(_host(st["win_start"])),
+               win_count=int(_host(st["win_count"])))
     if lagged:
         # cold values make the first trip the textbook first CG step:
         # p = q = 0 collapse the recurrences, and alpha_prev = inf zeroes
         # the denominator's correction (beta*rho/inf == 0)
-        c.q = torch.zeros_like(x0)
-        c.alpha = torch.full((), np.inf, dtype=dd, device=fext.device)
-        c.alpha_h = f(np.inf)
+        c.q = st["q"]
+        c.alpha = dev_scalar(st["alpha"])
+        c.alpha_h = f(_host(st["alpha"]))
+        c.fresh, c.drift = int(_host(st["fresh"])), int(_host(st["drift"]))
         c.chk_normr = f(0)
     if pipelined:
-        c.u, c.w, c.s, c.z = (torch.zeros_like(x0) for _ in range(4))
-        c.rho = f(1)
+        c.u, c.w, c.s, c.z = (st[k] for k in ("u", "w", "s", "z"))
+        c.init, c.sc = int(_host(st["init"])), int(_host(st["sc"]))
+        c.rho = f(_host(st["rho"]))
         early = _EarlyRead(fext.device, 6)
 
     def resolve(x, r, p, rho, stag, normr_act, candidate, advance=True,
-                extra=None):
+                extra=None, tick=True):
         """Iteration epilogue: stag reset / MoreSteps / min-residual
         bookkeeping and the flag decision; ``candidate`` marks a
         true-residual check (then ``normr_act`` is the recomputed actual
@@ -271,7 +360,8 @@ def pcg(
         fields AFTER the bookkeeping: a lagged trip tracks the min
         residual against the lagged iterate ``x`` while it commits the
         fresh update.  ``advance=False`` keeps ``i`` (a lagged check
-        committed no update)."""
+        committed no update).  ``tick=False`` (a check forced by the
+        pipelined cadence alone) freezes the plateau window's clock."""
         i = c.i
         converged = candidate and bool(normr_act <= tolb)
         failed_check = candidate and not converged
@@ -282,6 +372,13 @@ def pcg(
         toosmall = failed_check and c.moresteps >= maxmsteps
         if normr_act < c.normrmin:
             c.normrmin, c.xmin, c.imin = normr_act, x, i
+        if tick:
+            # the plateau window's clock: a 0.1 % better residual than at
+            # its last reset restarts it
+            if normr_act < c.best_at_reset * f(1 - 1e-3):
+                c.since_best, c.best_at_reset = 0, normr_act
+            else:
+                c.since_best += 1
         stagnated = stag >= max_stag_steps and not converged and not toosmall
         c.flag = 0 if converged else 3 if (toosmall or stagnated) else 1
         c.x, c.r, c.p, c.rho, c.stag = x, r, p, rho, stag
@@ -310,7 +407,10 @@ def pcg(
         red = ops.wdots(w, [(z, c.r)], extra=[inf_loc])
         rho = red[0]
         beta = (rho / c.rho).to(dt)
-        p = z if i == 0 else z + beta * c.p
+        # a resumed call continues the direction recurrence on its first
+        # trip (and tests its beta there)
+        first = i == 0 and not warm
+        p = z if first else z + beta * c.p
         q = amul(p)
         pq = ops.wdot(w, p, q)
         alpha = (rho / pq).to(dt)
@@ -320,7 +420,7 @@ def pcg(
         rho_h, beta_h, pq_h, alpha_h = f(v[0]), fs(v[2]), f(v[3]), fs(v[4])
         flag2 = bool(v[1] > 0)
         breakdown = (rho_h == 0 or np.isinf(rho_h)
-                     or (i > 0 and (beta_h == 0 or np.isinf(beta_h)))
+                     or (not first and (beta_h == 0 or np.isinf(beta_h)))
                      or pq_h <= 0 or np.isinf(pq_h) or np.isinf(alpha_h))
         if flag2 or breakdown:
             c.flag = 2 if flag2 else 4
@@ -393,8 +493,9 @@ def pcg(
         extra = dict(fresh=0, drift=drift)
         if pipelined:
             extra.update(init=1, sc=0, chk_forced=0)
-        resolve(c.x, r_true, c.p, c.rho, c.stag, normr_act,
-                c.chk_forced == 0, advance=False, extra=extra)
+        natural = c.chk_forced == 0
+        resolve(c.x, r_true, c.p, c.rho, c.stag, normr_act, natural,
+                advance=False, extra=extra, tick=natural)
         if c.flag == 1 and drift >= drift_limit:
             c.flag = DRIFT_FLAG
 
@@ -501,9 +602,11 @@ def pcg(
     result = PCGResult(x=x, flag=0 if zero_rhs else c.flag, relres=relres,
                        iters=0 if early_exit else iters + 1)
     if return_carry:
-        carry = dict(x=c.x, r=c.r, p=c.p, rho=c.rho, stag=c.stag,
+        carry = dict(x=c.x, r=c.r, p=c.p, rho=f(_host(c.rho)), stag=c.stag,
                      moresteps=c.moresteps, normrmin=c.normrmin,
-                     xmin=c.xmin, imin=c.imin, normr_act=c.normr_act,
+                     xmin=c.xmin, imin=c.imin, since_best=c.since_best,
+                     best_at_reset=c.best_at_reset, win_start=c.win_start,
+                     win_count=c.win_count, normr_act=c.normr_act,
                      exec=0 if early_exit else c.iter_out + 1)
         if lagged:
             carry.update(q=c.q, alpha=c.alpha_h, fresh=c.fresh,

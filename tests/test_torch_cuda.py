@@ -6,7 +6,9 @@ equal), the block3 and mg preconditioners' applies on the card
 against the CPU (two V-cycles bitwise equal), and blocked right-hand
 sides (``solve_many`` on the card against the CPU under each variant, a
 blocked matvec's columns bit for bit its single launches, two blocks
-bitwise equal, one kernel launch a lockstep trip).  They carry the ``cuda`` marker and skip with a reason where
+bitwise equal, one kernel launch a lockstep trip), and the chunked path
+(capped dispatches bitwise the one-shot solve, a NaN-carry recovery,
+kill-and-resume bitwise).  They carry the ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
 JAX conftest:
@@ -788,3 +790,87 @@ def test_general_octree_solve_on_card_matches_cpu(cuda_device, mode, rtol):
     assert abs(rc.iters - rp.iters) <= tol_it
     uc, up = card.displacement_global(), cpu.displacement_global()
     assert np.abs(uc - up).max() <= rtol * np.abs(up).max()
+
+
+# ----------------------------------------------------------------------
+# The chunked path and the resilience subsystem on the card
+# ----------------------------------------------------------------------
+
+def _chunked_solver(device, cap, mode, tmp_path=None, run_id="1",
+                    deltas=(0.0, 1.0), fault=None, **extra):
+    from pcg_mpi_solver_tpu_torch.resilience import FaultPlan
+
+    kw = dict(tol=1e-8, max_iter=4000, iters_per_dispatch=cap)
+    if mode == "mixed":
+        kw.update(precision_mode="mixed", inner_tol=0.1, tol=1e-9)
+    cfg = RunConfig(solver=SolverConfig(**kw),
+                    time_history=TimeHistoryConfig(
+                        time_step_delta=list(deltas)), **extra)
+    if tmp_path is not None:
+        cfg.scratch_path, cfg.run_id = str(tmp_path), run_id
+    s = Solver(make_cube_model(12, 6, 5, heterogeneous=True, seed=4), cfg,
+               device=device)
+    if fault is not None:
+        s.fault_plan = FaultPlan(fault)
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "mixed"])
+def test_chunked_is_bitwise_one_shot_on_card(cuda_device, mode):
+    """Direct f64: capped dispatches are the one-shot solve bit for bit.
+    Mixed: the chunked refinement loop at cap 12 is bit for bit the same
+    loop at a cap no inner cycle reaches (one dispatch a cycle)."""
+    ref_cap = 0 if mode == "direct" else 4000
+    out = []
+    for cap in (12, ref_cap):
+        s = _chunked_solver(cuda_device, cap, mode)
+        r = s.step(1.0)
+        out.append((r.flag, r.iters, r.relres, s.displacement_global()))
+    assert out[0][0] == 0 and out[0][:3] == out[1][:3]
+    np.testing.assert_array_equal(out[0][3], out[1][3])
+
+
+@pytest.mark.cuda
+def test_nan_carry_recovers_on_card(cuda_device):
+    from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
+
+    class Capture:
+        events = []
+
+        def emit(self, ev):
+            self.events.append(ev)
+
+    cap = Capture()
+    s = _chunked_solver(cuda_device, 12, "direct", fault="nan@1")
+    s.recorder.sinks.append(cap)
+    r = s.step(1.0)
+    assert r.flag == 0 and r.relres <= 1e-8
+    assert [(e["action"], e["trigger"]) for e in cap.events
+            if e["kind"] == "recovery"] == [("restart_minres", "nan_carry")]
+    assert isinstance(s.recorder, MetricsRecorder)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "mixed"])
+def test_kill_and_resume_bitwise_on_card(cuda_device, tmp_path, mode):
+    from pcg_mpi_solver_tpu_torch.resilience import (
+        FaultPlan, SimulatedKill)
+
+    kw = dict(checkpoint_every=1, snapshot_every=1)
+    deltas = (0.0, 0.5, 1.0)
+    sa = _chunked_solver(cuda_device, 12, mode, tmp_path, "a", deltas, **kw)
+    sa.fault_plan = FaultPlan("")
+    seen = {}
+    sa.solve(on_step=lambda t, r: seen.setdefault(t,
+                                                  sa.fault_plan.boundaries))
+    sk = _chunked_solver(cuda_device, 12, mode, tmp_path, "b", deltas,
+                         fault=f"kill@{seen[1] + 1}", **kw)
+    with pytest.raises(SimulatedKill):
+        sk.solve()
+    sr = _chunked_solver(cuda_device, 12, mode, tmp_path, "b", deltas, **kw)
+    sr.solve(resume=True)
+    assert sr.flags == sa.flags and sr.iters == sa.iters
+    assert sr.relres == sa.relres
+    np.testing.assert_array_equal(sr.displacement_global(),
+                                  sa.displacement_global())

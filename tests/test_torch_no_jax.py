@@ -24,10 +24,14 @@ print(",".join(bad))
 print(",".join(names))
 """
 
-# the general backend's modules, which the walk above must reach
+# the general backend's modules, and the chunked path's and resilience
+# subsystem's, which the walk above must reach
 GENERAL_MODULES = ("pcg_mpi_solver_tpu_torch.models.octree",
                    "pcg_mpi_solver_tpu_torch.parallel.partition",
                    "pcg_mpi_solver_tpu_torch.ops.matvec")
+CHUNKED_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
+    "solver.chunked", "resilience.recovery", "resilience.faultinject",
+    "resilience.engine", "utils.checkpoint", "obs.metrics"))
 
 
 def is_forbidden(module: str) -> bool:
@@ -44,6 +48,7 @@ def test_port_imports_no_jax():
     n_modules, bad = int(lines[0]), lines[1]
     assert n_modules >= 12, out.stdout
     assert set(GENERAL_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(CHUNKED_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
 
 

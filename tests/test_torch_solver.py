@@ -72,7 +72,10 @@ def test_solver_matches_jax(mode, load):
     np.testing.assert_allclose(ut, uj, rtol=0, atol=rel * np.abs(uj).max())
 
 
-def test_iters_per_dispatch_is_accepted_and_ignored():
+def test_explicit_dispatch_cap_is_bitwise_one_shot():
+    """iters_per_dispatch=7 engages the chunked path on a model far below
+    the automatic 4 M-dof threshold (where -1 keeps the one-shot solve);
+    the capped dispatches are bit for bit the one-shot solve."""
     m = make_cube_model(8, 4, 4, **model_kw("traction"))
     runs = []
     for ipd in (-1, 7):
@@ -96,8 +99,12 @@ def test_solver_defaults_to_cuda_and_raises_without_it(monkeypatch):
     (dict(snapshot_every=5), "item 9"),
 ])
 def test_unported_options_raise(change, item):
+    """Mid-solve snapshots of a blocked solve need the chunked blocked
+    path and raise in solve_many (the step path takes them)."""
+    model = make_cube_model(4, 3, 3)
+    s = Solver(model, RunConfig(**change), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        Solver(make_cube_model(4, 3, 3), RunConfig(**change), device="cpu")
+        s.solve_many(np.asarray(model.F))
 
 
 def test_unported_backends_raise(monkeypatch):
