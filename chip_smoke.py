@@ -86,9 +86,26 @@ Phases (any failed check raises, so the script exits non-zero):
                 equal; times) and the same at two parts on a 3^3 octree;
                 the bucket groupings of ``BUCKET_VALUES_CHOICES`` timed;
                 the 6^3 octree within max(3, 5 %) of the JAX package's
-                1144 iterations.  After phase 4d: the cube's ms/iter
-                beside phase 4's v6, kernels and launches a float32
-                octree matvec, and 100 profiled inner iterations;
+                1144 iterations; then the 22^3 octree under mg (the
+                hierarchy from its 352^3 lattice: level dims, replicated
+                dofs, host seconds of the hierarchy and of the fine bound,
+                iterations, ms/iter and time to tol beside jacobi's, the
+                solutions' difference) and the 6^3 octree under mg within
+                max(3, 5 %) of the JAX package's 28.  After phase 4d: the
+                cube's ms/iter beside phase 4's v6, kernels and launches a
+                float32 octree matvec, 100 profiled inner iterations, and
+                20 of the octree's mg solve;
+  4g. many chunked — run right after phase 4e: the chunked blocked path
+                of ``Solver.solve_many`` on the 150^3 flagship, direct
+                float64, classic, jacobi, [F, F_y] at the auto cap: cap,
+                dispatches, per-column flag, iterations and tip, ms a
+                trip, dof*iter*rhs/s, float64 v6 launches (>= trips); the
+                same block one-shot (iterations equal, max|dx| <= 1e-12
+                max|x|, bitwise printed); ``nan@col:1`` (one restart of
+                column 1, column 0 bitwise the clean block's) and at
+                ``max_recoveries=0`` (column 1 quarantined, flag 5); on
+                the 48x32x32 cube a block of 3 killed at boundary 2 and
+                resumed with ``solve_many(resume=True)``, bitwise;
   4f. resilience — on the 48x32x32 cube at cap 100: direct float64
                 chunked against one-shot (classic, fused, pipelined: x
                 bitwise); mixed ``inf@0,inf@1`` escalating to f64 (the
@@ -107,7 +124,7 @@ The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
 preconditioner solve of phase 4b, by variant solve of phase 4c, by
 block of phase 4d, float32 of phase 4's one-shot solve and of phase 4f's
-escalating solve), the
+escalating solve, float64 of phase 4g's chunked block), the
 last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
@@ -234,11 +251,20 @@ OCTREE_FLAGSHIP = dict(n=22, max_level=4, n_incl=6, seed=2, E=30e9, nu=0.2,
 OCTREE_P2 = dict(n=3, max_level=3)
 # the octree whose iterations are held to the JAX package's count
 OCTREE_PARITY_N = 6
+# phase 4g: the chunked blocked flagship's tolerance, and the terminal
+# flag of a quarantined column (solver/pcg.QUARANTINE_FLAG)
+MANY_CHUNKED_TOL = 1e-7
+QUARANTINE = 5
 # The JAX package's count for that octree (385,056 dofs; mixed, jacobi,
 # classic, tol 1e-7, one part, iters_per_dispatch=0): flag 0 in 1144
 # iterations, relres 4.9305e-08 (tools/octree_jax_count.py, the JAX
 # Solver on the CPU)
 JAX_OCTREE6_ITERS = 1144
+# ... and under mg (the hierarchy from the 96^3 octree lattice, levels 48
+# ... 3): flag 0 in 28 iterations, relres 2.4393e-08
+# (``python tools/octree_jax_count.py 6 --precond mg``, the JAX Solver on
+# the CPU)
+JAX_OCTREE6_MG_ITERS = 28
 # the general matvec on the card against the CPU's float64, x max|y|
 OPERATOR_TOL = {"float64": 1e-12, "float32": 2e-5}
 # bucket groupings (plan_buckets' cost of a bucket, in element values)
@@ -1596,8 +1622,9 @@ def phase_general(torch, np, cube_model):
         f"{nsub} sign sub-types, in {nb} buckets at BUCKET_VALUES "
         f"{BUCKET_VALUES:g}: padded product {pad:.3f}x of {real:.3f} "
         f"GFLOP, element values {pval:.3f}x")
-    _general_solve(torch, np, solver, f"octree {n}^3",
-                   OCTREE_FLAGSHIP["load_value"] * n / OCTREE_FLAGSHIP["E"])
+    bar = OCTREE_FLAGSHIP["load_value"] * n / OCTREE_FLAGSHIP["E"]
+    res_j, ms_j, _c = _general_solve(torch, np, solver, f"octree {n}^3",
+                                     bar)
 
     # 3. the operator at full size, and the bucket groupings
     _operator_checks(torch, np, pm, f"octree {n}^3 operator",
@@ -1638,7 +1665,71 @@ def phase_general(torch, np, cube_model):
                              f"outside max(3, 5 %) of {JAX_OCTREE6_ITERS}")
     del s6
     torch.cuda.empty_cache()
-    return dict(cube_ms=cube_ms, octree=solver, n=n)
+
+    # 5. mg on the octree lattices: the flagship octree and the 6^3 one
+    octree_mg = phase_general_mg(torch, np, model, n, solver, res_j, ms_j,
+                                 bar, kw)
+    return dict(cube_ms=cube_ms, octree=solver, n=n, octree_mg=octree_mg)
+
+
+def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar, kw):
+    """Phase 4e, its mg part: the octree flagship under precond="mg"
+    (mixed, classic, auto backend -> general; the hierarchy from the
+    octree lattice): lattice and level dims, replicated dofs, the
+    hierarchy's host seconds and the fine bound's, iterations, ms/iter
+    and time to tol beside jacobi's, the two solutions' difference; then
+    the 6^3 octree under mg within max(3, 5 %) of the JAX package's
+    count.  Returns the flagship's mg Solver (profiled after phase 4d)."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
+    from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed",
+                                        precond="mg"))
+    t0 = time.perf_counter()
+    smg = Solver(model, cfg)
+    build = time.perf_counter() - t0
+    dims = tuple(smg.mg_setup.meta["dims"])
+    levels = [tuple(lev["ck"].shape) for lev in smg.mg_setup.tree["levels"]]
+    rep_dofs = sum(mgmod.level_replicated_dofs(levels))
+    say(f"octree {n}^3 mg: backend {smg.backend}; lattice {dims}, levels "
+        f"{levels}, replicated coarse dofs {rep_dofs} "
+        f"({rep_dofs / model.n_dof:.2f}x the fine mesh's {model.n_dof}); "
+        f"hierarchy host {smg.mg_setup_s:.2f} s, fine bound "
+        f"{smg.mg_lam_s:.2f} s (lam {smg.mg_lam[0]:.4e}), partition "
+        f"{smg.partition_build_s:.2f} s, upload {smg.upload_s:.2f} s, "
+        f"Solver {build:.2f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    res_m, ms_m, _c = _general_solve(torch, np, smg, f"octree {n}^3 mg",
+                                     bar)
+    um, uj = smg.displacement_global(), jacobi.displacement_global()
+    du = float(np.abs(um - uj).max() / np.abs(uj).max())
+    say(f"octree {n}^3 mg against jacobi: {res_m.iters} against "
+        f"{res_j.iters} iterations, {ms_m:.4f} against {ms_j:.4f} ms/iter, "
+        f"time to tol {res_m.wall_s:.3f} against {res_j.wall_s:.3f} s "
+        f"({res_j.wall_s / res_m.wall_s:.2f}x), with setup "
+        f"{res_m.wall_s + smg.mg_setup_s + smg.mg_lam_s:.3f} s; solutions "
+        f"differ by {du:.3e} of max|u|; {nvidia_smi_line()}")
+    if not du <= 1e-4:
+        raise AssertionError(f"octree mg: solution differs from jacobi's by "
+                             f"{du:.3e} of max|u|")
+    n6 = OCTREE_PARITY_N
+    s6 = Solver(make_octree_model(n6, n6, n6, **kw), cfg)
+    res6, _ms6, _cyc6 = _general_solve(
+        torch, np, s6, f"octree {n6}^3 mg",
+        OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
+    win = max(3, ITERS_TOL * JAX_OCTREE6_MG_ITERS)
+    say(f"octree {n6}^3 mg: {res6.iters} iterations against the JAX "
+        f"package's {JAX_OCTREE6_MG_ITERS} (window +-{win:g}); levels "
+        f"{[tuple(lev['ck'].shape) for lev in s6.mg_setup.tree['levels']]}")
+    if abs(res6.iters - JAX_OCTREE6_MG_ITERS) > win:
+        raise AssertionError(f"octree {n6}^3 mg: {res6.iters} iterations, "
+                             f"outside max(3, 5 %) of "
+                             f"{JAX_OCTREE6_MG_ITERS}")
+    del s6
+    torch.cuda.empty_cache()
+    return smg
 
 
 def phase_general_profile(torch, general, v6_ms_iter):
@@ -1655,6 +1746,159 @@ def phase_general_profile(torch, general, v6_ms_iter):
         f"kernel launches a float32 matvec (torch.profiler over 5); "
         f"{nvidia_smi_line()}")
     profile_inner(torch, solver, tag=f"general profile octree {n}^3")
+    profile_inner(torch, general["octree_mg"], iters=20,
+                  tag=f"general profile octree {n}^3 mg")
+
+
+def phase_many_chunked(torch, np, model):
+    """Phase 4g: the chunked blocked path of ``Solver.solve_many`` on the
+    150^3 flagship, direct float64, classic, jacobi, the block [F, F_y]
+    at the auto cap, each check raising:
+    1. the chunked block (cap, dispatches, per-column flag, iterations and
+       tip, ms a trip, dof*iter*rhs/s; flags 0, relres <= tol, the float64
+       v6 launches cover the trips) against the same block one-shot
+       (iterations equal, max|dx| <= 1e-12 max|x|, bitwise printed);
+    2. ``nan@col:1`` at the default ``max_recoveries``: column 1 takes one
+       restart and ends at flag 0, column 0 bit for bit the clean block's;
+    3. the same at ``max_recoveries=0``: column 1 quarantined (flag 5),
+       one ``rhs_quarantine`` event;
+    4. on the 48x32x32 cube (cap 100) a block of 3 with
+       ``snapshot_every=1`` killed at boundary 2 and resumed with
+       ``solve_many(resume=True)`` in a new Solver: bitwise the
+       uninterrupted block.
+    Returns the launch counts of the chunked flagship block."""
+    import shutil
+
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.resilience import (
+        FaultPlan, SimulatedKill)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    nx, tol = FLAGSHIP["nx"], MANY_CHUNKED_TOL
+    f64 = ("v6", "float64")
+    smi = nvidia_smi_line()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_checkpoints", "many")
+    shutil.rmtree(scratch, ignore_errors=True)
+
+    def solver(m, cap=-1, run_id="1", **rkw):
+        ev = _Events()
+        cfg = RunConfig(scratch_path=scratch, run_id=run_id, solver=(
+            SolverConfig(tol=tol, precision_mode="direct", dtype="float64",
+                         iters_per_dispatch=cap)), **rkw)
+        return Solver(m, cfg, recorder=MetricsRecorder(sinks=[ev])), ev
+
+    fb = np.stack([np.asarray(model.F), shear_loads(np, model)[0]], -1)
+    s, ev = solver(model)
+    if s._dispatch_cap <= 0:
+        raise AssertionError("the flagship block did not take the chunked "
+                             "path")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    r = s.solve_many(fb)
+    launches = dict(LAUNCHES)
+    n_disp = sum(1 for e in s.dispatch_log if e[0] == "many")
+    x = s.displacement_global_many(r.x)
+    tips = (float(x[0::3, 0].max()), float(x[1::3, 1].max()))
+    bars = (tip_estimate(nx, False), tip_estimate(nx, True))
+    iters = [int(v) for v in r.iters]
+    ms_trip = r.solve_wall_s / r.trips * 1e3
+    rate = model.n_dof * sum(iters) / r.solve_wall_s
+    say(f"many chunked {nx}^3 direct f64 [F, F_y]: cap {s._dispatch_cap}, "
+        f"{n_disp} dispatches; flags {list(map(int, r.flags))}, iterations "
+        f"{iters}, relres {[float(f'{v:.4e}') for v in r.relres]}; tips "
+        f"{tips[0]:.4e} (bar {bars[0]:.4e}), {tips[1]:.4e} (shear "
+        f"{bars[1]:.4e}) m; {r.trips} trips, {r.solve_wall_s:.3f} s, "
+        f"{ms_trip:.4f} ms a trip, {rate:.4e} dof*iter*rhs/s; float64 v6 "
+        f"launches {launches[f64]}; {smi}")
+    if (r.flags != 0).any() or not (r.relres <= tol).all():
+        raise AssertionError(f"many chunked: {r.flags}, {r.relres}")
+    if launches[f64] < r.trips:
+        raise AssertionError(f"many chunked: {launches[f64]} float64 "
+                             f"launches for {r.trips} trips")
+    for tip, bar in zip(tips, bars):
+        if not bar / 3 <= tip <= 3 * bar:
+            raise AssertionError(f"many chunked: tip {tip} outside "
+                                 f"[1/3, 3] x {bar}")
+    # 1. the same block one-shot
+    s1, _ = solver(model, cap=0)
+    r1 = s1.solve_many(fb)
+    dx = float((r1.x - r.x).abs().max() / r.x.abs().max())
+    same = torch.equal(r1.x, r.x)
+    say(f"many chunked {nx}^3 one-shot: flags {list(map(int, r1.flags))}, "
+        f"iterations {list(map(int, r1.iters))}, {r1.trips} trips, "
+        f"{r1.solve_wall_s:.3f} s, {r1.solve_wall_s / r1.trips * 1e3:.4f} "
+        f"ms a trip; chunked against one-shot max|dx| {dx:.3e} of max|x| "
+        f"({'bitwise equal' if same else 'not bitwise'})")
+    if list(r1.iters) != iters or not dx <= 1e-12:
+        raise AssertionError("many chunked: not the one-shot block")
+    del s1, r1
+    torch.cuda.empty_cache()
+    # 2. a NaN in column 1's carry: one restart of that column
+    n0 = len(ev.events)
+    s.fault_plan = FaultPlan("nan@col:1", recorder=s.recorder)
+    r2 = s.solve_many(fb)
+    recs = [(e["action"], e["trigger"], e["rhs"])
+            for e in ev.events[n0:] if e["kind"] == "recovery"]
+    keep = torch.equal(r2.x[..., 0], r.x[..., 0]) \
+        and int(r2.iters[0]) == iters[0]
+    say(f"many chunked {nx}^3 nan@col:1: flags "
+        f"{list(map(int, r2.flags))}, iterations "
+        f"{list(map(int, r2.iters))}, recoveries {r2.recoveries} {recs}, "
+        f"{r2.solve_wall_s:.3f} s (+{r2.solve_wall_s - r.solve_wall_s:.3f} "
+        f"s); column 0 against the clean block "
+        f"{'bitwise equal' if keep else 'DIFFERENT'}")
+    if list(r2.flags) != [0, 0] or recs != [("restart_minres", "nan_carry",
+                                             1)] or not keep:
+        raise AssertionError(f"many chunked nan@col:1: {r2.flags}, {recs}")
+    # 3. the ladder off: column 1 quarantined
+    s.config.solver.max_recoveries = 0
+    n0 = len(ev.events)
+    s.fault_plan = FaultPlan("nan@col:1", recorder=s.recorder)
+    r3 = s.solve_many(fb)
+    quar = [(e["rhs"], e["trigger"]) for e in ev.events[n0:]
+            if e["kind"] == "rhs_quarantine"]
+    say(f"many chunked {nx}^3 nan@col:1 max_recoveries=0: flags "
+        f"{list(map(int, r3.flags))}, quarantined {list(r3.quarantined)}, "
+        f"rhs_quarantine events {quar}, relres[1] {r3.relres[1]:.4e}")
+    if list(r3.flags) != [0, QUARANTINE] or quar != [(1, "nan_carry")]:
+        raise AssertionError(f"many chunked quarantine: {r3.flags}, {quar}")
+    del s, r, r2, r3
+    torch.cuda.empty_cache()
+    # 4. kill at boundary 2 and resume, on the 48x32x32 cube
+    kw = dict(FLAGSHIP)
+    kw.pop("nx")
+    small = make_cube_model(*DIRECT_F64_CELLS, **kw)
+    cells = "x".join(map(str, DIRECT_F64_CELLS))
+    fb3 = np.stack([np.asarray(small.F)] + shear_loads(np, small), -1)
+    sa, _ = solver(small, 100, run_id="whole", snapshot_every=1)
+    ra = sa.solve_many(fb3)
+    sk, _ = solver(small, 100, run_id="killed", snapshot_every=1)
+    sk.fault_plan = FaultPlan("kill@2", recorder=sk.recorder)
+    try:
+        sk.solve_many(fb3)
+        killed = False
+    except SimulatedKill:
+        killed = True
+    sr, evr = solver(small, 100, run_id="killed", snapshot_every=1)
+    rr = sr.solve_many(fb3, resume=True)
+    ops = [e["op"] for e in evr.events if e["kind"] == "snapshot"]
+    same = torch.equal(rr.x, ra.x) and list(rr.iters) == list(ra.iters)
+    say(f"many chunked {cells} kill@2 and resume (R=3, cap 100): killed "
+        f"{killed}, resumed flags {list(map(int, rr.flags))}, iterations "
+        f"{list(map(int, rr.iters))} against {list(map(int, ra.iters))}, "
+        f"snapshot ops {ops[:1]}...; "
+        f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not (killed and same and ops[:1] == ["restore"]) \
+            or (ra.flags != 0).any():
+        raise AssertionError("many chunked: kill and resume is not the "
+                             "uninterrupted block")
+    shutil.rmtree(scratch, ignore_errors=True)
+    return launches
 
 
 def phase_checks(torch, np):
@@ -1816,6 +2060,9 @@ def main() -> int:
     # octree flagship, before any profiler window
     general = phase_general(torch, np, flagship_model)
     lap("4e general")
+    # 4g. the chunked blocked path, before any profiler window
+    many_chunked_launches = phase_many_chunked(torch, np, flagship_model)
+    lap("4g many chunked")
     # 4. main path at full size, once per float32 variant
     launches_by, classic = phase_main(torch, np, flagship_model)
     lap("4 main")
@@ -1872,6 +2119,8 @@ def main() -> int:
                     for path, counts in many_launches.items()}
                 records[-1]["launches_resilience_escalation"] = \
                     resilience_launches[("v6", dtype)]
+                records[-1]["launches_many_chunked"] = \
+                    many_chunked_launches[("v6", dtype)]
                 if dtype == "float32":
                     records[-1]["launches_oneshot"] = \
                         classic["oneshot"]["f32"]

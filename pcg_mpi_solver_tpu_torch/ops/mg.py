@@ -1,7 +1,8 @@
 """Matrix-free geometric multigrid V-cycle preconditioner
 (``precond="mg"``).
 
-Port of ``pcg_mpi_solver_tpu/ops/mg.py`` for the structured slab backend.
+Port of ``pcg_mpi_solver_tpu/ops/mg.py`` for the structured slab and the
+general backends.
 The design is the JAX package's:
 
 * **Levels** — the fine cell lattice (``ModelData.grid``) is coarsened by
@@ -34,9 +35,12 @@ one kernel launch for the block and no level loops over columns.
 
 Host-side setup (:func:`build_mg_host`) is numpy and gives the JAX
 package's ``MGSetup.tree`` field for field, so a hierarchy built by either
-package goes to the device through :func:`tree_from_numpy`.  The JAX
-package's octree lattices (ROADMAP queue 1 items 8 and 13) and its setup
-telemetry (item 14) are not ported.  The recovery ladder's demotion to
+package goes to the device through :func:`tree_from_numpy`.  The lattice
+is a structured grid's (``model.grid``) or an octree's (``model.octree``:
+its leaves paint the unit-lattice stiffness field, and the hierarchy
+serves the general backend, whose node rows are ``Ops._as_node3``'s).
+The JAX package's setup telemetry (ROADMAP queue 1 item 14) is not
+ported.  The recovery ladder's demotion to
 scalar Jacobi is :func:`fallback_operand`.
 """
 
@@ -87,8 +91,19 @@ class MGSetupError(ValueError):
 def fine_lattice(model) -> Tuple[Optional[Tuple[int, int, int]],
                                  Optional[np.ndarray]]:
     """The fine cell-lattice dims and per-node integer lattice coords of a
-    structured-grid model (coords from ``node_coords / h``), or ``(None,
-    None)``."""
+    lattice-structured model, or ``(None, None)``.  Octree models carry
+    exact lattice metadata (``model.octree``: ``dims``, ``strides``,
+    ``node_keys``); structured-grid models (``model.grid``) recover the
+    coords from ``node_coords / h``.  The one eligibility probe of the
+    preflight checks and the hierarchy builder."""
+    ot = getattr(model, "octree", None)
+    if ot:
+        X, Y, Z = (int(d) for d in ot["dims"])
+        sy, sz = (int(s) for s in ot["strides"])
+        keys = np.asarray(ot["node_keys"])
+        lat = np.stack([keys % sy, (keys // sy) % (Y + 1), keys // sz],
+                       axis=1).astype(np.int64)
+        return (X, Y, Z), lat
     if getattr(model, "grid", None) is None:
         return None, None
     nx, ny, nz, h = model.grid
@@ -288,6 +303,11 @@ def build_mg_host(model, pm, n_levels: int = 0, degree: int = 2,
         raise MGSetupError(
             "precond='mg' needs the vector (3-dof/node) problem class; "
             f"this model has n_dof={model.n_dof}, n_node={model.n_node}")
+    if not getattr(pm, "node_layout", True):
+        raise MGSetupError(
+            "precond='mg' needs the node-contiguous dof layout "
+            "(PartitionedModel.node_layout); this partition broke it "
+            "(e.g. node-less spring ghost dofs)")
     dims, node_lat = fine_lattice(model)
     if dims is None:
         raise MGSetupError(
@@ -296,11 +316,25 @@ def build_mg_host(model, pm, n_levels: int = 0, degree: int = 2,
     level_dims = apply_replication_cutoff(
         plan_levels(dims, n_levels), n_levels, max_replicated_dofs)
 
-    # unit-lattice stiffness-density field E(x); element id x-fastest
+    # unit-lattice stiffness-density field E(x)
     X, Y, Z = dims
     E = np.asarray(model.ck, float) * np.asarray(model.ce, float)
-    E_unit = E.reshape(Z, Y, X).transpose(2, 1, 0)
-    hf = float(model.grid[3])
+    if getattr(model, "octree", None):
+        # every octree leaf (x, y, z, size) paints its s^3 unit cells
+        leaves = np.asarray(model.octree["leaves"])
+        E_unit = np.zeros((X, Y, Z))
+        for s in np.unique(leaves[:, 3]):
+            sel = leaves[:, 3] == s
+            lx, ly, lz = (leaves[sel, 0], leaves[sel, 1], leaves[sel, 2])
+            for dx in range(int(s)):
+                for dy in range(int(s)):
+                    for dz in range(int(s)):
+                        E_unit[lx + dx, ly + dy, lz + dz] = E[sel]
+        hf = float(model.level.min() / leaves[:, 3].min())
+    else:
+        # structured grid: element id x-fastest
+        E_unit = E.reshape(Z, Y, X).transpose(2, 1, 0)
+        hf = float(model.grid[3])
 
     # per-node Dirichlet mask on the fine lattice
     fixed = np.zeros(model.n_dof, bool)
@@ -380,8 +414,12 @@ def build_mg_host(model, pm, n_levels: int = 0, degree: int = 2,
 
 def _brick_Ke(model) -> np.ndarray:
     """The 24x24 unit (h=1, E=1) brick stiffness every coarse level
-    rediscretizes with: the model's own 8-node brick when it has one,
-    else the canonical hex element."""
+    rediscretizes with: the octree's brick type, else the model's own
+    8-node brick when it has one, else the canonical hex element."""
+    ot = getattr(model, "octree", None)
+    bt = ot.get("brick_type") if ot else None
+    if bt is not None and bt in model.elem_lib:
+        return np.asarray(model.elem_lib[bt]["Ke"], float)
     for lib in model.elem_lib.values():
         if np.asarray(lib["Ke"]).shape == (24, 24):
             return np.asarray(lib["Ke"], float)

@@ -4,7 +4,8 @@ deterministic fault injection (ports of
 ``pcg_mpi_solver_tpu/resilience/{recovery,faultinject,engine}.py``)."""
 
 from pcg_mpi_solver_tpu_torch.resilience.engine import (
-    RecoveryHooks, run_with_recovery)
+    ManyRecoveryHooks, RecoveryHooks, run_many_with_recovery,
+    run_with_recovery)
 from pcg_mpi_solver_tpu_torch.resilience.faultinject import (
     MODES, FaultPlan, InjectedDispatchError, SimulatedKill)
 from pcg_mpi_solver_tpu_torch.resilience.recovery import (
@@ -13,7 +14,8 @@ from pcg_mpi_solver_tpu_torch.resilience.recovery import (
 
 __all__ = [
     "MODES", "DispatchGuard", "FaultPlan", "InjectedDispatchError",
-    "RecoveryHooks", "RecoveryLadder", "ResilienceContext",
-    "SimulatedKill", "breakdown_trigger", "column_trigger",
-    "is_device_loss", "retry_deadline_s", "run_with_recovery",
+    "ManyRecoveryHooks", "RecoveryHooks", "RecoveryLadder",
+    "ResilienceContext", "SimulatedKill", "breakdown_trigger",
+    "column_trigger", "is_device_loss", "retry_deadline_s",
+    "run_many_with_recovery", "run_with_recovery",
 ]

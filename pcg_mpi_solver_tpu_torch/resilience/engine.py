@@ -1,21 +1,24 @@
-"""The recovery ladder around a chunked solve.
+"""The recovery ladders around a chunked solve.
 
-Port of ``pcg_mpi_solver_tpu/resilience/engine.py:42-162``
-(:class:`RecoveryHooks`, :func:`run_with_recovery`).  The blocked twin
-(``run_many_with_recovery``), the time-history guard and the kinematic
-state transfers wait for the blocked chunked path and the dynamics
-drivers (ROADMAP queue 1 items 9 and 10).  The group consensus of a
-multi-process run (every rank takes the same ladder branch) is the
+Port of ``pcg_mpi_solver_tpu/resilience/engine.py:42-416``
+(:class:`RecoveryHooks` and :func:`run_with_recovery` for a single
+right-hand side; :class:`ManyRecoveryHooks`, :func:`_upgrade_many_carry`
+and :func:`run_many_with_recovery`, its blocked twin with one ladder a
+column).  The time-history guard and the kinematic state transfers wait
+for the dynamics drivers (ROADMAP queue 1 item 10).  The group consensus
+of a multi-process run (every rank takes the same ladder branch) is the
 identity in the port's one process.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
 
 from pcg_mpi_solver_tpu_torch.resilience.recovery import (
-    RecoveryLadder, breakdown_trigger, is_device_loss)
+    RecoveryLadder, breakdown_trigger, column_trigger, is_device_loss)
 
 
 @dataclasses.dataclass
@@ -104,3 +107,194 @@ def run_with_recovery(engine, data, fext, carry, normr0, n2b, prec, *,
                   attempts=ladder.attempt,
                   actions=list(ladder.actions_taken))
     return eng, x_fin, flag, relres, total
+
+
+# ----------------------------------------------------------------------
+# Per-column recovery of a blocked (multi right-hand side) solve
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ManyRecoveryHooks:
+    """Driver-supplied pieces of a blocked chunked solve for
+    :func:`run_many_with_recovery`.
+
+    ``cycle(carry, budget) -> (x, carry)``: one capped resumable blocked
+    call (``budget``: the iterations left).  ``recover(carry,
+    restart_mask, fallback_mask, quarantine_mask) -> carry``: the masked
+    per-column surgery (``solver/pcg.restart_carry_many``).
+    ``has_fallback``: whether the cycle carries the scalar-Jacobi
+    fallback operand; without it the ladder's fallback rung repeats the
+    plain restart."""
+
+    cycle: Callable[[Any, int], Tuple[Any, Any]]
+    recover: Callable[[Any, Any, Any, Any], Any]
+    has_fallback: bool = False
+
+
+def _upgrade_many_carry(carry: Dict[str, Any], nrhs: int,
+                        lagged: bool) -> Dict[str, Any]:
+    """A blocked carry from a snapshot written before the per-column
+    recovery state existed, with its ``prec_sel`` (and a recurrence
+    variant's ``drift``) at their cold values, zeros, so it resumes."""
+    carry = dict(carry)
+    carry.setdefault("prec_sel", np.zeros(nrhs, np.int64))
+    if lagged:
+        carry.setdefault("drift", np.zeros(nrhs, np.int64))
+    return carry
+
+
+def run_many_with_recovery(carry, *, scfg, nrhs: int, hooks, recorder,
+                           resilience=None, resume: bool = False,
+                           lagged: bool = False, total0: int = 0,
+                           iters_cols0=None):
+    """Run a blocked chunked solve to termination with the columns'
+    faults kept apart (JAX ``resilience/engine.py:214-416``).
+
+    After each capped call every running column is classified
+    (:func:`~pcg_mpi_solver_tpu_torch.resilience.recovery.column_trigger`):
+    a flag-2/4/6 breakdown or a NaN/Inf carry spends one attempt of that
+    column's own :class:`RecoveryLadder` (restart from its min-residual
+    iterate, then the scalar-Jacobi fallback) while the other columns run
+    on bit for bit; a column whose budget is spent (or absent,
+    ``scfg.max_recoveries <= 0``) is quarantined: ``QUARANTINE_FLAG``,
+    one ``rhs_quarantine`` event, and the block completes.  The dispatch
+    guard, the ``many_*.npz`` snapshots, the resume and the faults thread
+    through ``resilience`` (``ResilienceContext``) as on the scalar path;
+    column faults (``mode@col:k``) land at the chunk boundaries.
+
+    Returns ``(x, carry, flags, total, iters_cols, quarantined,
+    recoveries, drift_cols)``."""
+    from pcg_mpi_solver_tpu_torch.solver.pcg import QUARANTINE_FLAG
+
+    rec = recorder
+    note = rec.note if rec is not None else (lambda s: None)
+    R = int(nrhs)
+    total = int(total0)
+    iters_cols = (np.zeros(R, np.int64) if iters_cols0 is None
+                  else np.asarray(iters_cols0, np.int64).copy())
+    faults = resilience.faults if resilience is not None else None
+    max_iter = int(scfg.max_iter)
+    ladders: Dict[int, RecoveryLadder] = {}
+    actions_taken: list = []
+
+    def restore(st):
+        """Snapshot state -> (carry, total, iters_cols)."""
+        c = resilience.restore_device(
+            {"carry": _upgrade_many_carry(st["carry"], R, lagged)})["carry"]
+        return (c, int(np.asarray(st["total"])),
+                np.asarray(st["iters_cols"], np.int64).copy())
+
+    st = resilience.load_resume_state() if resilience is not None else None
+    if st is not None and str(np.asarray(st.get("kind", ""))) == "many":
+        carry, total, iters_cols = restore(st)
+        note(f"resumed blocked solve (nrhs={R}) at {total} iterations")
+    elif resume:
+        note(f"solve_many resume requested but no usable blocked "
+             f"snapshot found (nrhs={R}); starting cold")
+
+    flags = np.asarray(carry["flag"])
+    quarantined = {k for k in range(R) if flags[k] == QUARANTINE_FLAG}
+    # drift accumulates per call: a ladder restart zeroes the carry's
+    # drift leaf, so reading it once at the end would miss the drift that
+    # triggered the restart
+    drift_cols = np.zeros(R, np.int64)
+    drift_prev = np.zeros(R, np.int64)
+    x_fin = carry["x"]
+    while np.any(flags == 1) and total < max_iter:
+        if resilience is not None:
+            resilience.sync_boundary()
+        try:
+            if faults is not None:
+                faults.on_dispatch()
+            x_fin, carry = hooks.cycle(carry, max_iter - total)
+            execv = np.asarray(carry["exec"])
+            flags = np.asarray(carry["flag"])
+            normr = np.asarray(carry["normr_act"], dtype=np.float64)
+        except Exception as e:          # noqa: BLE001 — classified below
+            st = (resilience.handle_dispatch_failure(e, "many")
+                  if resilience is not None else None)
+            if st is None:
+                raise
+            # re-dispatch from the snapshot; a column quarantined after
+            # it is classified again from the restored carry
+            carry, total, iters_cols = restore(st)
+            flags = np.asarray(carry["flag"])
+            quarantined = {k for k in range(R)
+                           if flags[k] == QUARANTINE_FLAG}
+            if lagged and "drift" in carry:
+                drift_prev = np.asarray(carry["drift"], dtype=np.int64)
+            continue
+        if faults is not None:
+            faults.on_dispatch_done()
+        iters_cols += execv.astype(np.int64)
+        total += int(execv.max()) if execv.size else 0
+        if lagged and "drift" in carry:
+            cur = np.asarray(carry["drift"], dtype=np.int64)
+            drift_cols += np.maximum(cur - drift_prev, 0)
+            drift_prev = cur
+
+        triggers = {}
+        for k in range(R):
+            if k in quarantined:
+                continue
+            t = column_trigger(int(flags[k]), float(normr[k]))
+            if t is not None:
+                triggers[k] = t
+        if triggers:
+            restart_m = np.zeros(R, bool)
+            fb_m = np.zeros(R, bool)
+            quar_m = np.zeros(R, bool)
+            for k, trig in sorted(triggers.items()):
+                lad = ladders.get(k)
+                if lad is None and scfg.max_recoveries > 0:
+                    # the fallback rung only where the cycle carries the
+                    # fallback operand (else it would announce a
+                    # fallback_prec that is a second plain restart)
+                    lad = ladders[k] = RecoveryLadder(
+                        precond=(scfg.precond if hooks.has_fallback
+                                 else "jacobi"), mixed=False,
+                        max_recoveries=scfg.max_recoveries,
+                        recorder=rec, extra={"rhs": k})
+                action = lad.next_action(trig) if lad is not None else None
+                if action is None:
+                    quar_m[k] = True
+                    quarantined.add(k)
+                    if rec is not None:
+                        rec.event("rhs_quarantine", rhs=k, trigger=trig,
+                                  flag=QUARANTINE_FLAG,
+                                  attempts=lad.attempt if lad else 0)
+                        rec.inc("resilience.rhs_quarantine")
+                    note(f"solve_many: column {k} quarantined "
+                         f"({trig}, attempts="
+                         f"{lad.attempt if lad else 0})")
+                else:
+                    actions_taken.append(action)
+                    restart_m[k] = True
+                    if action == "fallback_prec" and hooks.has_fallback:
+                        fb_m[k] = True
+                    note(f"solve_many recovery: column {k} {action} "
+                         f"after {trig} (total={total})")
+            carry = hooks.recover(carry, restart_m, fb_m, quar_m)
+            flags = np.asarray(carry["flag"])
+            if lagged and "drift" in carry:
+                # restarted columns come back with a zeroed drift leaf
+                drift_prev = np.asarray(carry["drift"], dtype=np.int64)
+        if not np.any(flags == 1):
+            break
+        if resilience is not None:
+            resilience.after_chunk(lambda: dict(
+                kind="many", total=total, iters_cols=iters_cols,
+                carry=carry))
+            if faults is not None:
+                carry = faults.at_boundary(carry, blocked=True)
+    recoveries = sum(lad.attempt for lad in ladders.values())
+    if recoveries and rec is not None:
+        rec.event("recovery_done", flag=[int(v) for v in flags],
+                  relres=None, attempts=recoveries,
+                  actions=actions_taken)
+    if rec is not None and int(drift_cols.sum()) > 0:
+        rec.event("resid_drift", drift=int(drift_cols.sum()),
+                  cols=[int(v) for v in drift_cols])
+        rec.gauge("resid.drift", int(drift_cols.sum()))
+    return (x_fin, carry, flags, total, iters_cols,
+            sorted(quarantined), recoveries, drift_cols)

@@ -16,21 +16,30 @@ the JAX package's grammar:
     count    := consecutive firings (default 1; "exc@3*2" also fails the
                 first retry of dispatch 3)
 
-Two counter domains fire on the port's step path, both monotone over the
-life of the plan (they keep running across recovery restarts, so a
+Three counter domains fire in the port.  The first two are monotone over
+the life of the plan (they keep running across recovery restarts, so a
 second fault can be aimed at a later ladder rung):
 
 * the DISPATCH counter advances once per successfully completed Krylov
   dispatch ("exc" fires *before* the dispatch with that index runs);
 * the BOUNDARY counter advances once per chunk boundary: after a direct
-  chunk or a mixed refinement cycle completes and any due snapshot is
-  taken ("kill" / "nan" / "inf" / "rho0" / "sleep" fire *at* it).
+  chunk, a mixed refinement cycle or a blocked chunk completes and any
+  due snapshot is taken ("kill" / "nan" / "inf" / "rho0" / "sleep" fire
+  *at* it);
+* the COLUMN domain (``col:``, as ``nan@col:2`` or ``rho0@col:0``) is
+  indexed by the column of a blocked solve's block
+  (``Solver.solve_many`` on its chunked path): the fault fires at the
+  next blocked chunk boundary, after any due snapshot, and poisons only
+  that column of the carry (``nan`` and ``inf`` its residual, ``rho0``
+  its rho), every other column staying bit for bit as it was;
+  ``*count`` fires it at that many consecutive boundaries.  The one-shot
+  blocked path has no boundary, so a column fault stays pending there.
 
-The step (``s:``), column (``col:``) and job (``job:``) domains parse
-as in the JAX package and count towards :attr:`FaultPlan.armed`, but no
-path of the port consumes them yet: they belong to the dynamics drivers,
-the blocked chunked path and the solve service (ROADMAP queue 1 items
-10, 9 and 14).  The rank (``rank:``) domain rides the dispatch and
+The step (``s:``) and job (``job:``) domains parse as in the JAX package
+and count towards :attr:`FaultPlan.armed`, but no path of the port
+consumes them yet: they belong to the dynamics drivers and the solve
+service (ROADMAP queue 1 items 10 and 14).  The rank (``rank:``) domain
+rides the dispatch and
 boundary counters of one process: the port runs in one (index 0), so a
 fault aimed at rank 0 fires as its unprefixed twin and one aimed at any
 other rank never lands (multi-process runs are item 12).
@@ -178,6 +187,11 @@ class FaultPlan:
             self._faults, self._step_faults, self._col_faults,
             self._job_faults, self._rank_faults))
 
+    @property
+    def col_armed(self) -> bool:
+        """Any column-domain fault still pending."""
+        return any(self._col_faults.values())
+
     def _take(self, mode: str, idx: int) -> bool:
         pending = self._faults.get(mode, {})
         if pending.get(idx, 0) <= 0:
@@ -226,7 +240,7 @@ class FaultPlan:
         """Called after a dispatch completes successfully."""
         self.dispatches += 1
 
-    def at_boundary(self, carry: dict) -> dict:
+    def at_boundary(self, carry: dict, blocked: bool = False) -> dict:
         """Called at a chunk boundary AFTER any snapshot was taken (the
         snapshot holds the clean state; corruption happens to the live
         carry).  Returns the (possibly poisoned) carry, whose poisoned
@@ -234,7 +248,9 @@ class FaultPlan:
         poison mode whose target leaf is absent (``rho0`` on the mixed
         outer state, which has no rho) is neither consumed nor recorded:
         a drill must never read "exercised" off a fault that could not
-        land."""
+        land.  ``blocked`` marks a blocked solve's boundary, where the
+        pending column faults fire too (a column past the block's width
+        cannot land, and stays pending)."""
         idx = self.boundaries
         self.boundaries += 1
         if self._take("sleep", idx):
@@ -251,6 +267,16 @@ class FaultPlan:
             if leaf in carry and self._take_rank(mode, idx):
                 self._fire(mode, "rank-boundary", idx)
                 carry = _poison(carry, mode)
+        if blocked:
+            width = int(np.asarray(carry["flag"]).shape[0]) \
+                if "flag" in carry else 0
+            for mode, leaf in (("nan", "r"), ("inf", "r"),
+                               ("rho0", "rho")):
+                for col in sorted(self._col_faults.get(mode, {})):
+                    if col < width and leaf in carry \
+                            and self._take_col(mode, col):
+                        self._fire(mode, "col", col)
+                        carry = _poison_col(carry, mode, col)
         if self._take("kill", idx):
             self._fire("kill", "boundary", idx)
             raise SimulatedKill(
@@ -261,6 +287,16 @@ class FaultPlan:
                 f"injected kill at chunk boundary {idx} on this process "
                 "(PCG_TPU_FAULTS rank domain)")
         return carry
+
+
+    def _take_col(self, mode: str, col: int) -> bool:
+        pending = self._col_faults.get(mode, {})
+        if pending.get(col, 0) <= 0:
+            return False
+        pending[col] -= 1
+        if pending[col] <= 0:
+            del pending[col]
+        return True
 
 
 def _poison(carry: dict, mode: str, leaf: str = "r") -> dict:
@@ -281,4 +317,26 @@ def _poison(carry: dict, mode: str, leaf: str = "r") -> dict:
         out[leaf] = r * float("nan")
     elif mode == "inf":
         out[leaf] = torch.where(r != 0, torch.full_like(r, float("inf")), r)
+    return out
+
+
+def _poison_col(carry: dict, mode: str, col: int) -> dict:
+    """Column-domain poisoner of a blocked carry ((R, P, n_loc) vectors,
+    (R,) host scalars): corrupt only column ``col`` into new leaves, the
+    other columns copied bit for bit.  ``rho0`` zeroes the column's rho,
+    ``nan`` multiplies its residual by NaN, ``inf`` sets its residual's
+    nonzero entries to inf."""
+    out = dict(carry)
+    if mode == "rho0":
+        rho = np.array(out["rho"])
+        rho[col] = 0
+        out["rho"] = rho
+        return out
+    r = out["r"].clone()
+    if mode == "nan":
+        r[col] = r[col] * float("nan")
+    elif mode == "inf":
+        r[col] = torch.where(r[col] != 0,
+                             torch.full_like(r[col], float("inf")), r[col])
+    out["r"] = r
     return out

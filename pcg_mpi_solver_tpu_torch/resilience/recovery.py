@@ -127,6 +127,20 @@ class DispatchGuard:
     def backoff(self) -> None:
         time.sleep(min(self._backoff0 * (2 ** (self.failures - 1)), 30.0))
 
+    def redispatch(self, exc: BaseException) -> bool:
+        """The guard's whole answer to a failed dispatch: False to
+        propagate, else the ``recovery``/``redispatch`` event and count on
+        the recorder, the backoff, and True (dispatch again)."""
+        if not self.should_retry(exc):
+            return False
+        if self.recorder is not None:
+            self.recorder.event(
+                "recovery", action="redispatch", attempt=self.failures,
+                trigger="device_loss", error=f"{type(exc).__name__}: {exc}")
+            self.recorder.inc("resilience.recovery.redispatch")
+        self.backoff()
+        return True
+
 
 class RecoveryLadder:
     """Bounded escalation ladder for breakdown/NaN/device-loss triggers:
@@ -269,15 +283,8 @@ class ResilienceContext:
         if kind is not None and str(
                 np.asarray(self._mem.get("kind", ""))) != kind:
             return None
-        if not self.guard.should_retry(exc):
+        if not self.guard.redispatch(exc):
             return None
-        if self.recorder is not None:
-            self.recorder.event(
-                "recovery", action="redispatch",
-                attempt=self.guard.failures, trigger="device_loss",
-                error=f"{type(exc).__name__}: {exc}")
-            self.recorder.inc("resilience.recovery.redispatch")
-        self.guard.backoff()
         return self._mem
 
     def restore_device(self, state: Dict[str, Any]) -> Dict[str, Any]:

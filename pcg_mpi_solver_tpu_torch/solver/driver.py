@@ -18,8 +18,11 @@ Under ``precond="mg"`` the constructor also builds the level hierarchy
 (``ops/mg.py``) into ``data["mg"]`` and estimates the fine level's
 Chebyshev bound on the uploaded operator.  ``solve_many`` solves a block
 of load cases against the one operator in one lockstep loop
-(``pcg_many``, or ``pcg_mixed_many`` in mixed precision) on the one-shot
-path: homogeneous Dirichlet, x0 = 0, breakdown columns quarantined.
+(``pcg_many``, or ``pcg_mixed_many`` in mixed precision): homogeneous
+Dirichlet, x0 = 0; one-shot below the dispatch cap and in mixed
+precision (breakdown columns quarantined), else chunked with one
+recovery ladder a column (``resilience/engine.run_many_with_recovery``),
+``many_*.npz`` snapshots and ``solve_many(resume=True)``.
 
 Above 4 M dofs (``solver/chunked.auto_dispatch_cap``), or at any size
 when ``SolverConfig.iters_per_dispatch`` names a cap, ``step`` runs the
@@ -53,7 +56,7 @@ from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
 from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
 from pcg_mpi_solver_tpu_torch.ops.matvec import Ops, device_data
-from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+from pcg_mpi_solver_tpu_torch.ops.precond import fallback_kind, make_prec
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
 from pcg_mpi_solver_tpu_torch.parallel.partition import (
@@ -61,16 +64,19 @@ from pcg_mpi_solver_tpu_torch.parallel.partition import (
 from pcg_mpi_solver_tpu_torch.parallel.structured import (
     StructuredOps, device_data_structured, partition_structured)
 from pcg_mpi_solver_tpu_torch.resilience import (
-    DispatchGuard, FaultPlan, RecoveryHooks, ResilienceContext,
-    retry_deadline_s, run_with_recovery)
+    DispatchGuard, FaultPlan, ManyRecoveryHooks, RecoveryHooks,
+    ResilienceContext, retry_deadline_s, run_many_with_recovery,
+    run_with_recovery)
 from pcg_mpi_solver_tpu_torch.solver.chunked import (
     ChunkedEngine, auto_dispatch_cap)
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
-    BREAKDOWN_FLAGS, QUARANTINE_FLAG, _np_type, _read, cold_carry, pcg,
-    pcg_many, pcg_mixed, pcg_mixed_many)
+    BREAKDOWN_FLAGS, LAGGED_VARIANTS, QUARANTINE_FLAG, _np_type, _read,
+    cold_carry, cold_carry_many, pcg, pcg_many, pcg_mixed, pcg_mixed_many,
+    restart_carry_many, select_best_many)
 from pcg_mpi_solver_tpu_torch.utils.checkpoint import (
-    CheckpointManager, SnapshotStore)
-from pcg_mpi_solver_tpu_torch.validate import PreflightError, check_rhs_block
+    CheckpointManager, SnapshotStore, array_hash)
+from pcg_mpi_solver_tpu_torch.validate import (
+    PreflightError, check_rhs_block, run_mg_preflight)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -106,10 +112,9 @@ class ManySolveResult:
     :meth:`Solver.displacement_global_many`.  ``solve_wall_s`` is the
     Krylov work alone (validation and upload excluded), ``trips`` the
     lockstep trips (one blocked matvec each), ``quarantined`` the
-    quarantined columns.  ``recoveries`` and ``drift`` are the JAX
-    package's ladder counts of its chunked blocked path: 0 on the
-    one-shot path, the port's only blocked path (the chunked blocked
-    path and its per-column ladder are ROADMAP queue 1 item 9)."""
+    quarantined columns.  ``recoveries`` (ladder attempts over every
+    column) and ``drift`` (drifted checks of a recurrence variant) are
+    the counts of the chunked blocked path, 0 on the one-shot path."""
     flags: np.ndarray
     relres: np.ndarray
     iters: np.ndarray
@@ -183,10 +188,8 @@ def _check_slice(config: RunConfig) -> None:
             f"(ROADMAP queue 1 item {GRAPH_ITEM})")
 
 
-# ROADMAP queue 1 items of the backends and options the general backend
-# does not take yet
+# the ROADMAP queue 1 item of the hybrid backend, not ported yet
 HYBRID_ITEM = 13
-MG_GENERAL_ITEM = 16
 BACKENDS = ("auto", "structured", "hybrid", "general")
 
 
@@ -260,15 +263,13 @@ class Solver:
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
         _check_slice(self.config)
+        if self.config.solver.precond == "mg":
+            # the mg hierarchy's preflight, before the partition is built
+            run_mg_preflight(model, self.config)
         self.backend = select_backend(model, self.config, n_parts, backend,
                                       elem_part)
         sc = self.config.solver
         general = self.backend == "general"
-        if general and sc.precond == "mg":
-            raise NotImplementedError(
-                f"precond='mg' on the general backend (mg on octree "
-                f"lattices) is not ported yet (ROADMAP queue 1 item "
-                f"{MG_GENERAL_ITEM}); use 'jacobi' or 'block3'")
         self.mixed = sc.precision_mode == "mixed"
         self.dtype = torch.float64 if self.mixed else _DTYPES[sc.dtype]
         dot_dtype = _DTYPES[sc.dot_dtype]
@@ -502,21 +503,30 @@ class Solver:
         return self._snap_store
 
     def _make_resilience(self) -> Optional[ResilienceContext]:
-        """The step's resilience context, or None when the subsystem is
-        off (no ladder budget, no snapshot cadence, no fault plan)."""
+        """The step's resilience context (its snapshots ``snap_*.npz`` at
+        the step's index)."""
+        store = (self._snapshot_store()
+                 if self.config.snapshot_every > 0 else None)
+        return self._resilience(store, len(self.flags) + 1,
+                                self._resume_pending)
+
+    def _resilience(self, store, step: int,
+                    resume: bool) -> Optional[ResilienceContext]:
+        """A resilience context over ``store`` at ``step``, or None when
+        the subsystem is off (no store, no ladder budget, no fault
+        plan)."""
         sc = self.config.solver
-        every = int(self.config.snapshot_every)
-        plan = self.fault_plan
-        if sc.max_recoveries <= 0 and every <= 0 and plan is None:
+        if store is None and sc.max_recoveries <= 0 \
+                and self.fault_plan is None:
             return None
         return ResilienceContext(
-            store=self._snapshot_store() if every > 0 else None,
-            step=len(self.flags) + 1, snapshot_every=every,
+            store=store, step=step,
+            snapshot_every=int(self.config.snapshot_every),
             fetch_state=self._fetch_state, put_state=self._put_state,
             guard=DispatchGuard(retries=sc.dispatch_retries,
                                 deadline_s=retry_deadline_s(),
                                 recorder=self._rec),
-            faults=plan, recorder=self._rec, resume=self._resume_pending,
+            faults=self.fault_plan, recorder=self._rec, resume=resume,
             ladder_armed=sc.max_recoveries > 0)
 
     def _fetch_state(self, state):
@@ -531,13 +541,14 @@ class Solver:
         return np.asarray(state)
 
     def _put_state(self, state):
-        """Host numpy state tree -> the solver's device: (n_parts, ...)
-        arrays become tensors in their own dtype, bitwise; scalars stay
-        host numbers, tags pass through."""
+        """Host numpy state tree -> the solver's device: the vectors ((P,
+        n_loc), or (R, P, n_loc) in a blocked carry) become tensors in
+        their own dtype, bitwise; scalars and (R,) leaves stay on the
+        host, tags pass through."""
         if isinstance(state, dict):
             return {k: self._put_state(v) for k, v in state.items()}
         a = np.asarray(state)
-        if a.ndim >= 2 and a.shape[0] == self.pm.n_parts:
+        if a.ndim >= 2:
             return torch.as_tensor(a.copy(), device=self.device)
         return state
 
@@ -628,24 +639,25 @@ class Solver:
         is validated first (``validate.check_rhs_block``: a NaN column
         raises ``PreflightError`` naming it).  Mixed precision runs
         ``pcg_mixed_many``, direct ``pcg_many``, under the configured
-        variant and preconditioner; one-shot, so a breakdown (flags 2, 4,
-        6), a non-finite residual or ``QUARANTINE_FLAG`` reports the
-        column quarantined (flag 5) with its min-residual iterate; so
-        does a direct block above the dispatch cap, where the JAX package
-        runs its chunked blocked path.  ``resume`` and blocked snapshots
-        (``snapshot_every > 0``) need that path (ROADMAP queue 1 item
-        9) and raise."""
-        if resume or self.config.snapshot_every > 0:
-            raise NotImplementedError(
-                "solve_many(resume=True) and blocked snapshots "
-                "(snapshot_every > 0) are not ported yet: the chunked "
-                "blocked path and its many_*.npz snapshots are ROADMAP "
-                "queue 1 item 9")
+        variant and preconditioner.
+
+        A direct block at or above the dispatch cap (the cap of ``step``:
+        4 M dofs, or ``iters_per_dispatch`` > 0) runs the chunked path
+        (``_solve_many_chunked``): capped resumable calls with one
+        recovery ladder a column, mid-solve ``many_*.npz`` snapshots every
+        ``config.snapshot_every`` chunks, ``resume=True`` continuing a
+        killed block bit for bit, and column faults (``mode@col:k``).
+        Every other block runs one-shot, inside the dispatch guard: a
+        breakdown (flags 2, 4, 6), a non-finite residual or
+        ``QUARANTINE_FLAG`` reports the column quarantined (flag 5) with
+        its min-residual iterate, and a snapshot or resume request is
+        noted, as the JAX package does, since no chunk boundary exists."""
         t0 = time.perf_counter()
         sc = self.config.solver
         pm = self.pm
         n_dof = pm.glob_n_dof
-        fb = normalize_rhs_block(fexts, n_dof, np.float64)
+        rdt = np.float64 if self.mixed else _np_type(self.dtype)
+        fb = normalize_rhs_block(fexts, n_dof, rdt)
         bad = [c for c in check_rhs_block(fb, n_dof) if c.status == "fail"]
         if bad:
             raise PreflightError(
@@ -666,42 +678,188 @@ class Solver:
                                  dtype=self.dtype, device=self.device)
         data, data32 = self._block_trees(R)
         t_solve0 = time.perf_counter()
+        every = int(self.config.snapshot_every)
+        if self._dispatch_cap > 0 and not self.mixed:
+            # the hash fingerprints snapshots only: never scan the block
+            # when neither snapshots nor a resume can use it
+            rhs_hash = array_hash(fb) if (resume or every > 0) else ""
+            (x, flags, relres, iters, quarantined, recoveries, drift,
+             trips) = self._solve_many_chunked(fb_dev, data, R, resume,
+                                               rhs_hash)
+        else:
+            if resume or every > 0:
+                self._rec.note(
+                    "solve_many: snapshot/resume requested but this "
+                    "blocked solve runs as ONE dispatch (mixed precision, "
+                    "or below the dispatch cap) — no mid-solve snapshots "
+                    "exist on this path")
+            res = self._dispatch_with_retry(
+                "solve_many", lambda: self._solve_many_oneshot(
+                    fb_dev, data, data32))
+            flags = np.asarray(res.flag, np.int64)
+            relres = np.asarray(res.relres, np.float64)
+            iters = np.asarray(res.iters, np.int64)
+            x, trips, recoveries, drift = res.x, int(res.trips), 0, 0
+            # one-shot quarantine: breakdowns, poisoned columns and
+            # non-finite residuals report flag 5 (their min-residual
+            # iterate is already in x)
+            quar = (np.isin(flags, BREAKDOWN_FLAGS + (QUARANTINE_FLAG,))
+                    | ~np.isfinite(relres))
+            for j in np.flatnonzero(quar):
+                trig = ("nan_carry" if not np.isfinite(relres[j])
+                        or int(flags[j]) == QUARANTINE_FLAG
+                        else f"flag{int(flags[j])}")
+                self._rec.event("rhs_quarantine", rhs=int(j), trigger=trig,
+                                flag=QUARANTINE_FLAG, attempts=0)
+                self._rec.inc("resilience.rhs_quarantine")
+            flags = np.where(quar, QUARANTINE_FLAG, flags)
+            quarantined = tuple(int(j) for j in np.flatnonzero(quar))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        out = ManySolveResult(
+            flags=flags, relres=relres, iters=iters, wall_s=t1 - t0,
+            x=x.permute(1, 2, 0), solve_wall_s=t1 - t_solve0,
+            quarantined=tuple(quarantined), recoveries=int(recoveries),
+            drift=int(drift), trips=int(trips))
+        self._rec.event("solve_many", nrhs=R, wall_s=round(out.wall_s, 6),
+                        flags=[int(v) for v in flags],
+                        iters_max=int(iters.max()) if R else 0,
+                        quarantined=list(out.quarantined),
+                        recoveries=out.recoveries)
+        for j in range(R):
+            self._rec.event("rhs_solve", rhs=j, flag=int(flags[j]),
+                            relres=float(relres[j]), iters=int(iters[j]),
+                            quarantined=bool(j in out.quarantined))
+        return out
+
+    def _solve_many_oneshot(self, fb_dev, data, data32):
+        """The one-shot blocked solve: one ``pcg_many`` or
+        ``pcg_mixed_many`` call from x0 = 0."""
+        sc = self.config.solver
         fext = self.data["eff"] * fb_dev
         x0 = torch.zeros_like(fext)
-        glob_n_eff = pm.glob_n_dof_eff
+        glob_n_eff = self.pm.glob_n_dof_eff
         if self.mixed:
-            res = pcg_mixed_many(
+            return pcg_mixed_many(
                 self.ops32, data32, self.ops, data, fext, x0,
                 make_prec(self.ops32, self.data32, sc.precond),
                 tol=sc.tol, max_iter=sc.max_iter,
                 glob_n_dof_eff=glob_n_eff,
                 max_stag_steps=sc.max_stag_steps,
                 inner_tol=sc.inner_tol, variant=sc.pcg_variant)
-        else:
-            res = pcg_many(
-                self.ops, data, fext, x0,
-                make_prec(self.ops, self.data, sc.precond),
-                tol=sc.tol, max_iter=sc.max_iter,
-                glob_n_dof_eff=glob_n_eff,
-                max_stag_steps=sc.max_stag_steps, x0_zero=True,
-                variant=sc.pcg_variant)
-        flags = np.asarray(res.flag, np.int64)
-        relres = np.asarray(res.relres, np.float64)
-        # one-shot quarantine: breakdowns, poisoned columns and non-finite
-        # residuals report flag 5 (their min-residual iterate is already
-        # in x)
-        quar = (np.isin(flags, BREAKDOWN_FLAGS + (QUARANTINE_FLAG,))
-                | ~np.isfinite(relres))
-        flags = np.where(quar, QUARANTINE_FLAG, flags)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        return ManySolveResult(
-            flags=flags, relres=relres, iters=np.asarray(res.iters, np.int64),
-            wall_s=t1 - t0, x=res.x.permute(1, 2, 0),
-            solve_wall_s=t1 - t_solve0,
-            quarantined=tuple(int(j) for j in np.flatnonzero(quar)),
-            trips=int(res.trips))
+        return pcg_many(
+            self.ops, data, fext, x0,
+            make_prec(self.ops, self.data, sc.precond),
+            tol=sc.tol, max_iter=sc.max_iter,
+            glob_n_dof_eff=glob_n_eff,
+            max_stag_steps=sc.max_stag_steps, x0_zero=True,
+            variant=sc.pcg_variant)
+
+    def _dispatch_with_retry(self, name: str, fn):
+        """Run a stateless dispatch inside the fault plan's dispatch hooks
+        and the retry guard (JAX ``driver.py:1764-1802``): a device-loss
+        failure runs ``fn`` again after backoff, within
+        ``solver.dispatch_retries`` and ``PCG_TPU_RETRY_DEADLINE_S``."""
+        plan = self.fault_plan
+        guard = None
+        while True:
+            try:
+                if plan is not None:
+                    plan.on_dispatch()
+                with self._rec.dispatch(name):
+                    out = fn()
+                if plan is not None:
+                    plan.on_dispatch_done()
+                return out
+            except Exception as e:      # noqa: BLE001 — classified below
+                if guard is None:
+                    guard = DispatchGuard(
+                        retries=self.config.solver.dispatch_retries,
+                        deadline_s=retry_deadline_s(), recorder=self._rec)
+                if not guard.redispatch(e):
+                    raise
+
+    def _many_use_fb(self) -> bool:
+        """Whether the blocked cycle carries the scalar-Jacobi fallback
+        operand (the per-column ladder's rung 2): the ladder is armed and
+        the configured preconditioner has a weaker one.  Shared by the
+        chunked path and its snapshot fingerprint."""
+        sc = self.config.solver
+        return bool(sc.max_recoveries > 0
+                    and fallback_kind(sc.precond) is not None)
+
+    def _solve_many_chunked(self, fb_dev, data, R: int, resume: bool,
+                            rhs_hash: str = ""):
+        """The chunked blocked solve (JAX ``driver.py:1816-1970``,
+        ``:2086-2149``): the start (fext, ||b||, the cold carry, the
+        preconditioner and, when the ladder can use it, the scalar-Jacobi
+        fallback, built once), then ``run_many_with_recovery`` over capped
+        ``pcg_many`` calls and the masked ``restart_carry_many``, then the
+        terminal per-column selection (``select_best_many``).  The
+        snapshot is discarded only when the block completes.  Returns
+        (x, flags, relres, iters, quarantined, recoveries, drift,
+        trips)."""
+        sc = self.config.solver
+        rec = self._rec
+        variant = sc.pcg_variant
+        lagged = variant in LAGGED_VARIANTS
+        cap = self._dispatch_cap
+        use_fb = self._many_use_fb()
+        every = int(self.config.snapshot_every)
+        store = (SnapshotStore.for_many_solver(self, R, rhs_hash=rhs_hash)
+                 if (every > 0 or resume) else None)
+        f = _np_type(self.ops.dot_dtype)
+        trips = [0]
+        with rec.dispatch("many_start"):
+            eff = self.data["eff"]
+            fext = eff * fb_dev
+            w = data["weight"] * data["eff"]
+            normr0 = np.sqrt(_read(self.ops.wdot_many(w, fext, fext))
+                             .astype(f))
+            carry = cold_carry_many(torch.zeros_like(fext), fext, normr0,
+                                    self.ops.dot_dtype, variant=variant)
+            prec = make_prec(self.ops, self.data, sc.precond)
+            prec_fb = (make_prec(self.ops, self.data, "jacobi") if use_fb
+                       else None)
+        # kind="many" states at the fixed pseudo-step 1
+        ctx = self._resilience(store, 1, resume)
+
+        def cycle(carry, budget):
+            with rec.dispatch("many_cycle"):
+                res, c2 = pcg_many(
+                    self.ops, data, fext, carry["x"], prec, tol=sc.tol,
+                    max_iter=min(cap, budget),
+                    glob_n_dof_eff=self.pm.glob_n_dof_eff,
+                    max_stag_steps=sc.max_stag_steps,
+                    max_iter_nominal=sc.max_iter, carry_in=carry,
+                    return_carry=True, variant=variant,
+                    inv_diag_fb=prec_fb)
+            trips[0] += int(res.trips)
+            self.dispatch_log.append(("many", int(c2["exec"].max()),
+                                      tuple(int(v) for v in c2["flag"])))
+            return res.x, c2
+
+        def recover(carry, restart_m, fb_m, quar_m):
+            with rec.dispatch("many_recover"):
+                return restart_carry_many(self.ops, data, fext, carry,
+                                          restart_m, fb_m, quar_m,
+                                          variant=variant)
+
+        del self.dispatch_log[:]
+        (_x, carry, flags, _total, iters, quarantined, recoveries,
+         drift_cols) = run_many_with_recovery(
+            carry, scfg=sc, nrhs=R, recorder=rec,
+            hooks=ManyRecoveryHooks(cycle=cycle, recover=recover,
+                                    has_fallback=use_fb),
+            resilience=ctx, resume=resume, lagged=lagged)
+        with rec.dispatch("many_final"):
+            x, relres = select_best_many(self.ops, data, fext, carry,
+                                         always_min=lagged)
+        if ctx is not None:
+            ctx.discard()       # the block completed: its snapshot goes
+        return (x, np.asarray(flags, np.int64), relres, iters,
+                quarantined, recoveries, int(drift_cols.sum()), trips[0])
 
     def displacement_global_many(self, x) -> np.ndarray:
         """A blocked solution (n_parts, n_loc, nrhs) (``ManySolveResult.x``)

@@ -4,7 +4,9 @@ Port of ``pcg_mpi_solver_tpu/solver/pcg.py`` (``pcg`` with its three loop
 formulations, ``pcg_mixed``, ``refine_tol``, ``PCGResult``, and their
 blocked twins ``pcg_many`` and ``pcg_mixed_many`` for a block of
 right-hand sides, held as (R, P, n_loc) with the column axis leading;
-section "Blocked right-hand sides" below).  The JAX
+section "Blocked right-hand sides" below, with the resumable blocked
+carry, ``select_best_many`` and the per-column ladder's
+``restart_carry_many``).  The JAX
 package runs the loop as one ``lax.while_loop`` whose decisions are
 traced ``cond``/``where``; here the host drives the loop and branches on
 scalars.  Each trip's vector work is queued on the device first and its
@@ -757,39 +759,68 @@ def _read_rows(R: int, *ts: torch.Tensor) -> np.ndarray:
 def cold_carry_many(x0: torch.Tensor, r0: torch.Tensor, normr0,
                     dot_dtype: torch.dtype, variant: str = "classic"
                     ) -> dict:
-    """The cold carry of a blocked solve: x0 and r0 are (R, P, n_loc)
-    blocks, the bookkeeping (R,) host numpy arrays in the dot dtype's
-    precision (``normr0``), the recurrence scalars (R,) device tensors
-    with host mirrors (``*_h``).  Every column starts running (``flag``
-    1); ``prec_sel`` (the recovery ladder's per-column fallback selector,
-    ROADMAP queue 1 item 9) stays 0."""
+    """The cold carry of a resumable blocked solve (``pcg_many``'s
+    ``carry_in``), with the JAX package's key set
+    (``pcg_mpi_solver_tpu/solver/pcg.py:1425-1461``): x0 and r0 are (R, P,
+    n_loc) blocks, every other leaf an (R,) host numpy array (the norms,
+    ``rho`` and ``alpha`` in the dot dtype, counters int64).  Every column
+    starts running (``flag`` 1) under the primary preconditioner
+    (``prec_sel`` 0); p = 0 and rho = 1 make the first trip the textbook
+    first CG step, and the recurrence variants add q = 0, alpha = inf,
+    the ``fresh`` gate and the drift count, pipelined the four GV vectors
+    and the armed priming bit."""
     R = x0.shape[0]
     f = _np_type(dot_dtype)
     zi = np.zeros(R, np.int64)
     n0 = np.asarray(normr0, f)
     out = dict(
-        x=x0, r=r0, p=torch.zeros_like(x0),
-        rho=torch.ones(R, dtype=dot_dtype, device=x0.device),
-        rho_h=np.ones(R, f), i=zi.copy(),
-        stag=zi.copy(), moresteps=zi.copy(), iter_out=zi.copy(),
-        normrmin=n0.copy(), xmin=x0, imin=zi.copy(), normr_act=n0.copy(),
-        exec=zi.copy(), flag=np.ones(R, np.int64), mode=zi.copy(),
-        prec_sel=zi.copy())
+        x=x0, r=r0, p=torch.zeros_like(x0), rho=np.ones(R, f),
+        stag=zi.copy(), moresteps=zi.copy(), normrmin=n0.copy(), xmin=x0,
+        imin=zi.copy(), since_best=zi.copy(), best_at_reset=n0.copy(),
+        win_start=n0.copy(), win_count=zi.copy(), normr_act=n0.copy(),
+        exec=zi.copy(), flag=np.ones(R, np.int64), prec_sel=zi.copy())
     if variant in LAGGED_VARIANTS:
-        out["q"] = torch.zeros_like(x0)
-        out["alpha"] = torch.full((R,), np.inf, dtype=dot_dtype,
-                                  device=x0.device)
-        out["alpha_h"] = np.full(R, np.inf, f)
-        out["fresh"] = np.ones(R, np.int64)
-        out["drift"] = zi.copy()
-        out["chk_normr"] = np.zeros(R, f)
+        out.update(q=torch.zeros_like(x0), alpha=np.full(R, np.inf, f),
+                   fresh=np.ones(R, np.int64), drift=zi.copy())
     if variant == "pipelined":
-        for k in ("u", "w", "s", "z"):
-            out[k] = torch.zeros_like(x0)
-        out["init"] = np.ones(R, np.int64)
-        out["sc"] = zi.copy()
-        out["chk_forced"] = zi.copy()
+        out.update({k: torch.zeros_like(x0) for k in ("u", "w", "s", "z")})
+        out.update(init=np.ones(R, np.int64), sc=zi.copy())
     return out
+
+
+_INT_LEAVES = ("stag", "moresteps", "imin", "since_best", "win_count",
+               "flag", "prec_sel", "exec", "fresh", "drift", "init", "sc")
+_NORM_LEAVES = ("normrmin", "best_at_reset", "win_start", "normr_act")
+
+
+def _loop_state(carry: dict, dot_dtype: torch.dtype, variant: str) -> dict:
+    """``pcg_many``'s loop state from a carry (cold or resumed): host
+    copies of the (R,) leaves, the recurrence scalars rho and alpha as
+    device tensors built from their host values bit for bit (with host
+    mirrors ``rho_h`` and ``alpha_h``), and the per-call counters ``i``,
+    ``iter_out`` and ``mode`` at 0."""
+    f = _np_type(dot_dtype)
+    dev = carry["x"].device
+    R = carry["x"].shape[0]
+    zi = np.zeros(R, np.int64)
+    c = {k: carry[k] for k in ("x", "r", "p", "xmin")}
+    for k in _INT_LEAVES:
+        if k in carry:
+            c[k] = np.array(carry[k], np.int64).reshape(R)
+    for k in _NORM_LEAVES:
+        c[k] = np.array(carry[k], f).reshape(R)
+    c["rho_h"] = np.array(carry["rho"], f).reshape(R)
+    c["rho"] = torch.as_tensor(c["rho_h"].copy(), device=dev)
+    c.update(i=zi.copy(), iter_out=zi.copy(), mode=zi.copy())
+    if variant in LAGGED_VARIANTS:
+        c["q"] = carry["q"]
+        c["alpha_h"] = np.array(carry["alpha"], f).reshape(R)
+        c["alpha"] = torch.as_tensor(c["alpha_h"].copy(), device=dev)
+        c["chk_normr"] = np.zeros(R, f)
+    if variant == "pipelined":
+        c.update({k: carry[k] for k in ("u", "w", "s", "z")})
+        c["chk_forced"] = zi.copy()
+    return c
 
 
 def pcg_many(
@@ -803,17 +834,26 @@ def pcg_many(
     glob_n_dof_eff: int,
     max_stag_steps: int = 3,
     max_iter_nominal: Optional[int] = None,
+    carry_in: Optional[dict] = None,
     return_carry: bool = False,
     x0_zero: bool = False,
     variant: str = "classic",
+    inv_diag_fb=None,
 ):
     """Blocked ``pcg``: K.x_j = fext_j for every column j of the block in
     ONE lockstep loop.  ``data`` is the tree of
     ``parallel.structured.block_data`` for this width.  Returns a
     PCGResult whose ``x`` is (R, P, n_loc) and whose flag, relres and
     iters are (R,) numpy arrays, or (result, carry) with
-    ``return_carry`` (the carry's ``exec``, ``normrmin``, ``normr_act``
-    and ``xmin`` are what ``pcg_mixed_many`` reads).
+    ``return_carry``: the raw carry, :func:`cold_carry_many`'s keys, with
+    ``exec`` the per-column executed iterations (0 for a column frozen at
+    entry).  ``carry_in`` resumes from such a carry (it overrides ``x0``):
+    a column whose carry flag is not 1 stays frozen, and capped calls in
+    sequence are, column by column, bit for bit one long solve, since a
+    column's deferred check runs in the call that made it a candidate.
+    ``inv_diag_fb``, the scalar-Jacobi fallback operand of the recovery
+    ladder, preconditions the columns whose carry ``prec_sel`` is set;
+    the others keep ``inv_diag``, and their bits.
 
     Each column keeps ``pcg``'s semantics: its own mode-0 iterate /
     mode-1 deferred-check sequence, stagnation, MoreSteps, min-residual
@@ -865,18 +905,42 @@ def pcg_many(
         """Assembled K.v restricted to effective dofs."""
         return eff * ops.matvec(data, v)
 
-    if x0_zero:
+    warm = carry_in is not None
+    frozen0 = np.zeros(R, bool)
+    if warm:
+        x0, r0 = carry_in["x"], carry_in["r"]
+        normr0 = np.asarray(carry_in["normr_act"], f)
+        frozen0 = np.asarray(carry_in["flag"]) != 1
+    elif x0_zero:
         r0, normr0 = fext, n2b
     else:
         r0 = fext - amul(x0)
         normr0 = norms(ops.wdot_many(w, r0, r0))[0]
 
     zero_rhs = n2b == 0
-    initial_ok = normr0 <= tolb
-    c = cold_carry_many(x0, r0, normr0, dd, variant)
-    c["flag"] = np.where(zero_rhs | initial_ok, 0, 1)
+    # a resumed recurrence variant's norm is its predecessor iterate's
+    # (the lag): never flag 0 the unevaluated resumed iterate off it
+    initial_ok = (np.zeros(R, bool) if (warm and lagged)
+                  else normr0 <= tolb)
+    c = _loop_state(carry_in if warm
+                    else cold_carry_many(x0, r0, normr0, dd, variant),
+                    dd, variant)
+    c["flag"] = np.where(zero_rhs | initial_ok, 0, c["flag"])
     if pipelined:
         early = _EarlyRead(dev, 6 * R)
+    # the ladder's per-column fallback: prec_sel is fixed for the call
+    on_fb = np.asarray(c["prec_sel"]) > 0
+    fb_masks = (_Masks(dev, fb=on_fb)
+                if inv_diag_fb is not None and on_fb.any() else None)
+
+    def precond(src):
+        """M^-1 src: the primary operand, and the fallback on the columns
+        the ladder moved to it."""
+        if fb_masks is None:
+            return ops.apply_prec(inv_diag, src, data)
+        return fb_masks.sel(
+            "fb", lambda: ops.apply_prec(inv_diag_fb, src, data),
+            lambda: ops.apply_prec(inv_diag, src, data))
 
     def active():
         return (c["flag"] == 1) & (c["i"] < max_iter)
@@ -886,16 +950,20 @@ def pcg_many(
         columns, first iterations (classic), priming sources (pipelined)."""
         m = dict(chk=(c["mode"] == 1) & active())
         if variant == "classic":
-            m["i0"] = c["i"] == 0
+            # a resumed call continues the direction recurrence on its
+            # first trip (and tests its beta there)
+            m["i0"] = (c["i"] == 0) & (not warm)
         if pipelined:
             m["init"] = c["init"] > 0
         return m
 
-    def resolve(normr_act, candidate, stag, i):
+    def resolve(normr_act, candidate, stag, i, tick=True):
         """Per-column iteration epilogue (``pcg``'s ``resolve``): the
-        stag reset, MoreSteps, min-residual bookkeeping and the flag, as
-        (R,) arrays; ``better`` marks columns whose min-residual iterate
-        moves to the resolved one."""
+        stag reset, MoreSteps, min-residual bookkeeping, the plateau
+        window's clock (frozen where ``tick`` is False: a check forced by
+        the pipelined cadence alone) and the flag, as (R,) arrays;
+        ``better`` marks columns whose min-residual iterate moves to the
+        resolved one."""
         candidate = np.broadcast_to(candidate, (R,))
         converged = candidate & (normr_act <= tolb)
         failed = candidate & ~converged
@@ -904,6 +972,13 @@ def pcg_many(
         moresteps = np.where(failed, c["moresteps"] + 1, c["moresteps"])
         toosmall = failed & (moresteps >= maxmsteps)
         better = normr_act < c["normrmin"]
+        improved = normr_act < c["best_at_reset"] * f(1 - 1e-3)
+        tick = np.broadcast_to(tick, (R,))
+        since_best = np.where(tick, np.where(improved, 0,
+                                             c["since_best"] + 1),
+                              c["since_best"])
+        best_at_reset = np.where(tick & improved, normr_act,
+                                 c["best_at_reset"])
         stagnated = (stag >= max_stag_steps) & ~converged & ~toosmall
         flag = np.where(converged, 0,
                         np.where(toosmall | stagnated, 3, 1))
@@ -912,6 +987,8 @@ def pcg_many(
                     imin=np.where(better, i, c["imin"]),
                     i=np.where(flag != 1, i, i + 1), iter_out=i.copy(),
                     normr_act=np.asarray(normr_act, f),
+                    since_best=since_best,
+                    best_at_reset=np.asarray(best_at_reset, f),
                     mode=np.zeros(R, np.int64), better=better)
 
     def merge(cases):
@@ -965,7 +1042,7 @@ def pcg_many(
         is_check = (c["mode"] == 1) & act
         it_m = act & ~is_check
         x, r, p = c["x"], c["r"], c["p"]
-        z = ops.apply_prec(inv_diag, r, data)
+        z = precond(r)
         inf_col = torch.isinf(z).any(dim=(-2, -1))
         red = ops.wdots_many(w, [(z, r)], extra=[inf_col])
         rho_new = red[0]
@@ -990,7 +1067,7 @@ def pcg_many(
                 v[4].astype(fs)
             normp, normx, normr = np.sqrt(v[5:8].astype(f))
             breakdown = breakdown_of(rho_h, beta_h, pq_h, alpha_h,
-                                     first=c["i"] == 0)
+                                     first=(c["i"] == 0) & (not warm))
             stag_upd = np.where(normp * np.abs(alpha_h).astype(f)
                                 < eps * normx, c["stag"] + 1, 0)
             cand_new = ((normr <= tolb) | (stag_upd >= max_stag_steps)
@@ -998,12 +1075,13 @@ def pcg_many(
             new_flag = np.where(flag2, 2, 4)
             i = c["i"]
             res = resolve(normr, False, stag_upd, i)
+            res["rho_h"] = rho_h
             stop = flag2 | breakdown
             m_brk = it_m & stop
             m_pend = it_m & ~stop & cand_new
             m_res = it_m & ~stop & ~cand_new
-            cases = [(m_brk, dict(flag=new_flag, iter_out=i)),
-                     (m_pend, dict(stag=stag_upd, iter_out=i,
+            cases = [(m_brk, dict(flag=new_flag, iter_out=i, rho_h=rho_h)),
+                     (m_pend, dict(stag=stag_upd, iter_out=i, rho_h=rho_h,
                                    mode=np.ones(R, np.int64))),
                      (m_res, res)]
             chk_better = np.zeros(R, bool)
@@ -1029,7 +1107,7 @@ def pcg_many(
         is_check = (c["mode"] == 1) & act
         it_m = act & ~is_check
         x, r, p = c["x"], c["r"], c["p"]
-        z = ops.apply_prec(inv_diag, r, data)
+        z = precond(r)
         kop = amul(masks.sel("chk", x, z))  # A.z; A.x on check columns
         inf_col = torch.isinf(z).any(dim=(-2, -1))
         red = ops.wdots_many(w, [(r, z), (z, kop), (r, r), (p, p), (x, x)],
@@ -1063,14 +1141,17 @@ def pcg_many(
             candidate = ((normr <= tolb) | (stag >= max_stag_steps)
                          | (c["moresteps"] > 0)) & ~already
             alpha_h = v[8].astype(f)
-            breakdown = breakdown_of(v[0].astype(f), v[6].astype(f),
+            rho_h = v[0].astype(f)
+            breakdown = breakdown_of(rho_h, v[6].astype(f),
                                      v[7].astype(f), alpha_h)
             res = resolve(normr, False, stag, i)
-            res.update(alpha_h=alpha_h, fresh=np.ones(R, np.int64))
+            res.update(alpha_h=alpha_h, rho_h=rho_h,
+                       fresh=np.ones(R, np.int64))
             m_brk = it_m & (flag2 | breakdown) & ~candidate
             m_pend = it_m & candidate
             m_res = it_m & ~candidate & ~(flag2 | breakdown)
-            cases = [(m_brk, dict(flag=np.where(flag2, 2, 4), iter_out=i)),
+            cases = [(m_brk, dict(flag=np.where(flag2, 2, 4), iter_out=i,
+                                  rho_h=rho_h)),
                      (m_pend, dict(stag=stag, iter_out=i,
                                    mode=np.ones(R, np.int64),
                                    chk_normr=normr)),
@@ -1107,7 +1188,7 @@ def pcg_many(
                              extra=[inf_col])
         early.start(red.reshape(-1))
         # priming columns precondition their residual, the others w
-        m = ops.apply_prec(inv_diag, masks.sel("init", r, wv), data)
+        m = precond(masks.sel("init", r, wv))
         kop = amul(masks.sel("chk", x, m))
         if it_m.any():
             # GV scalars on the device (the host takes the same IEEE
@@ -1165,7 +1246,9 @@ def pcg_many(
                 # column re-primes u and w next trip; a check forced by
                 # the cadence alone is no candidate
                 normr_chk = np.sqrt(_read_rows(R, nchk)[0].astype(f))
-                chk = resolve(normr_chk, c["chk_forced"] == 0, c["stag"], i)
+                natural_chk = c["chk_forced"] == 0
+                chk = resolve(normr_chk, natural_chk, c["stag"], i,
+                              tick=natural_chk)
                 chk.update(i=i, fresh=np.zeros(R, np.int64),
                            init=np.ones(R, np.int64),
                            sc=np.zeros(R, np.int64),
@@ -1200,7 +1283,7 @@ def pcg_many(
     # non-finite (a lagged variant's last iterate was never evaluated, so
     # unconditionally there); return_carry returns the raw carry
     ok = c["flag"] == 0
-    skip = zero_rhs | initial_ok
+    skip = zero_rhs | initial_ok | frozen0
     normr_min, use_min = c["normr_act"], np.zeros(R, bool)
     if not return_carry and (~ok & ~zero_rhs).any():
         r_min = fext - amul(c["xmin"])
@@ -1225,16 +1308,92 @@ def pcg_many(
     result = PCGResult(x=x, flag=flag, relres=relres, iters=iters,
                        trips=trips)
     if return_carry:
-        keys = ["x", "r", "p", "rho", "stag", "moresteps", "normrmin",
-                "xmin", "imin", "normr_act", "prec_sel"]
+        keys = ["x", "r", "p", "stag", "moresteps", "normrmin", "xmin",
+                "imin", "since_best", "best_at_reset", "win_start",
+                "win_count", "normr_act", "prec_sel"]
         if lagged:
-            keys += ["q", "alpha", "fresh", "drift"]
+            keys += ["q", "fresh", "drift"]
         if pipelined:
             keys += ["u", "w", "s", "z", "init", "sc"]
         carry = {k: c[k] for k in keys}
+        # the recurrence scalars leave as host values of the dot dtype,
+        # equal to the device's bit for bit (a resume rebuilds them)
+        carry["rho"] = c["rho_h"].copy()
+        if lagged:
+            carry["alpha"] = c["alpha_h"].copy()
         carry.update(flag=flag, exec=np.where(skip, 0, c["iter_out"] + 1))
         return result, carry
     return result
+
+
+def select_best_many(ops: Ops, data: dict, fext: torch.Tensor, carry: dict,
+                     always_min: bool = False):
+    """The terminal per-column selection of a resumable blocked solve
+    (JAX ``solver/pcg.py:1464-1502`` with ``respect_flags``): one blocked
+    matvec and ONE read.  Converged columns (carry flag 0) keep their
+    accepted iterate, zero-rhs columns return zeros, and a failed column
+    takes its min-residual iterate where that residual is the smaller or
+    its own is not finite (``always_min``, the recurrence variants:
+    unconditionally).  Returns (x (R, P, n_loc), relres (R,) host
+    float64)."""
+    eff = data["eff"]
+    w = data["weight"] * eff
+    f = _np_type(ops.dot_dtype)
+    R = fext.shape[0]
+    r_min = fext - eff * ops.matvec(data, carry["xmin"])
+    v = np.sqrt(_read_rows(R, ops.wdot_many(w, fext, fext),
+                           ops.wdot_many(w, r_min, r_min)).astype(f))
+    n2b, normr_min = v[0], v[1]
+    den = np.maximum(n2b, f(np.finfo(np.float32).tiny))
+    normr_act = np.asarray(carry["normr_act"], f)
+    if always_min:
+        use_min = np.ones(R, bool)
+    else:
+        use_min = (normr_min < normr_act) | ~np.isfinite(normr_act)
+    ok = np.asarray(carry["flag"]) == 0
+    use_min &= ~ok
+    zero = n2b == 0
+    relres = np.where(zero, f(0), np.where(use_min, normr_min, normr_act)
+                      / den)
+    sel = _Masks(fext.device, use_min=use_min, zero=zero)
+    x = sel.sel("zero", lambda: torch.zeros_like(carry["x"]),
+                lambda: sel.sel("use_min", carry["xmin"], carry["x"]))
+    return x, relres.astype(np.float64)
+
+
+def restart_carry_many(ops: Ops, data: dict, fext: torch.Tensor,
+                       carry: dict, restart_mask, fallback_mask,
+                       quarantine_mask, variant: str = "classic") -> dict:
+    """Per-column recovery surgery on a blocked carry (JAX
+    ``solver/pcg.py:1504-1566``): ``restart_mask`` columns get a cold
+    Krylov carry at their min-residual iterate (one blocked matvec for the
+    block), ``fallback_mask`` columns also move to the scalar-Jacobi
+    fallback preconditioner (``prec_sel`` 1), ``quarantine_mask`` columns
+    take the terminal ``QUARANTINE_FLAG``.  Every other column's leaves
+    pass through bit for bit (per-column selects, never a rescale)."""
+    eff = data["eff"]
+    w = data["weight"] * eff
+    f = _np_type(ops.dot_dtype)
+    R = fext.shape[0]
+    m = np.asarray(restart_mask, bool)
+    xmin = carry["xmin"]
+    r_new = fext - eff * ops.matvec(data, xmin)
+    normr_new = np.sqrt(_read_rows(R, ops.wdot_many(w, r_new, r_new))[0]
+                        .astype(f))
+    cold = cold_carry_many(xmin, r_new, normr_new, ops.dot_dtype, variant)
+    sel = _Masks(fext.device, m=m)
+    out = dict(carry)
+    for k, v in cold.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = sel.sel("m", v, carry[k])
+        else:
+            out[k] = np.where(m, v, np.asarray(carry[k], v.dtype))
+    # the cold carry's prec_sel 0 would undo an earlier fallback
+    out["prec_sel"] = np.where(np.asarray(fallback_mask, bool), 1,
+                               np.asarray(carry["prec_sel"], np.int64))
+    out["flag"] = np.where(np.asarray(quarantine_mask, bool),
+                           QUARANTINE_FLAG, out["flag"])
+    return out
 
 
 def pcg_mixed_many(

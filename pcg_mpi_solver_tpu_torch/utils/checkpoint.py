@@ -11,14 +11,18 @@ Port of ``pcg_mpi_solver_tpu/utils/checkpoint.py`` (:53-437, :441-671):
   every N chunks, so a killed process loses at most N chunks and
   ``solve(resume=True)`` continues with bit-identical history.  Retention
   keeps the newest ``PCG_TPU_SNAP_KEEP`` files (default 2).
+* ``many_{t:06d}.npz``: the same for a blocked solve
+  (:meth:`SnapshotStore.for_many_solver`, ``solve_many(resume=True)``):
+  the blocked carry in the port's (R, P, n_loc) layout, the fingerprint
+  extended by the block width, a hash of the block's loads and whether
+  the cycle carries the fallback preconditioner.
 
-A fingerprint of the model and the solver configuration guards both:
+A fingerprint of the model and the solver configuration guards them:
 :func:`_fingerprint` has the JAX package's field names, and wherever a
 field means the same thing in the port, its value; so the port resumes a
 snapshot the JAX package wrote, and refuses one of other numerics.  The
-blocked (``many_*``) and time-history (``step_*``) stores wait for the
-blocked chunked path and the dynamics drivers (ROADMAP queue 1 items 9
-and 10).
+time-history (``step_*``) store waits for the dynamics drivers (ROADMAP
+queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -56,6 +60,16 @@ def _model_hash(solver) -> str:
     if ep is not None:
         h.update(np.ascontiguousarray(ep).tobytes())
     return h.hexdigest()
+
+
+def array_hash(arr) -> str:
+    """Short content hash of one array (shape, dtype and bytes), the JAX
+    package's ``cache.keys.array_hash``: the blocked snapshot's
+    ``rhs_hash``."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    h = hashlib.sha256(f"{a.shape}:{a.dtype}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()[:16]
 
 
 def _np_dtype_name(dtype) -> str:
@@ -290,6 +304,22 @@ class SnapshotStore:
     def for_solver(cls, solver) -> "SnapshotStore":
         return cls(solver.config.checkpoint_path, _fingerprint(solver))
 
+    @classmethod
+    def for_many_solver(cls, solver, nrhs: int,
+                        rhs_hash: str = "") -> "SnapshotStore":
+        """The blocked solve's store (``many_*.npz``): the solver's
+        fingerprint with the block width, the load block's content hash
+        and ``many_fallback`` (whether the cycle carries the fallback
+        preconditioner, ``Solver._many_use_fb``), so a resume at another
+        width, of other loads, or into a cycle without the fallback a
+        column was moved to, fails naming the field."""
+        fp = dict(_fingerprint(solver))
+        fp["nrhs"] = int(nrhs)
+        fp["rhs_hash"] = str(rhs_hash)
+        fp["many_fallback"] = bool(
+            getattr(solver, "_many_use_fb", lambda: False)())
+        return cls(solver.config.checkpoint_path, fp, prefix="many")
+
     def _file(self, t: int) -> str:
         return os.path.join(self.path, f"{self.prefix}_{t:06d}.npz")
 
@@ -368,6 +398,11 @@ class SnapshotStore:
                           "step from its start state")
             return None
         flat.pop("__t", None)
+        if self.fingerprint is not None and \
+                "many_fallback" in self.fingerprint:
+            # a blocked record older than the field came from a cycle
+            # without the fallback operand (the JAX package's default)
+            saved.setdefault("many_fallback", False)
         if self.fingerprint is not None and saved != self.fingerprint:
             diffs = {k: (saved.get(k), self.fingerprint[k])
                      for k in self.fingerprint

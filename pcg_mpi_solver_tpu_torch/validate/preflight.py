@@ -1,20 +1,30 @@
-"""Preflight checks of a blocked right-hand side.
+"""Preflight checks of a blocked right-hand side and of an mg hierarchy.
 
-Port of ``CheckResult``, ``PreflightError`` and ``check_rhs_block`` of
-``pcg_mpi_solver_tpu/validate/preflight.py`` (:36-48, :386-452): the gate
-``Solver.solve_many`` puts in front of a block of load cases.  A check
-returns a :class:`CheckResult` of severity ``fail`` (the block is
-unusable: the solve raises :class:`PreflightError`), ``warn`` (usable but
-suspicious) or ``ok``.  The model preflight of the JAX package (its other
-checks and the policy knob) is not ported (ROADMAP queue 1 item 14).
+Port of ``CheckResult``, ``PreflightError``, ``check_rhs_block`` and the
+construction-time mg checks of ``pcg_mpi_solver_tpu/validate/preflight.py``
+(:36-59, :290-363, :386-452): the gate ``Solver.solve_many`` puts in front
+of a block of load cases, and the gate ``Solver`` puts in front of an mg
+hierarchy (:func:`run_mg_preflight`: a lattice that cannot coarsen, or
+coarsen ``mg_levels`` times, or whose replicated levels exceed
+``mg_max_replicated_dofs``, fails before the partition is built).  A check
+returns a :class:`CheckResult` of severity ``fail`` (the input is
+unusable: :class:`PreflightError`), ``warn`` (usable but suspicious) or
+``ok``.  The policy is ``PCG_TPU_PREFLIGHT`` (fail, warn or off; default
+fail), as in the JAX package; its ``RunConfig.preflight`` knob and the
+model checks (shapes, finiteness, materials, connectivity) are ROADMAP
+queue 1 item 14.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import Any, List
 
 import numpy as np
+
+POLICIES = ("fail", "warn", "off")
 
 
 class PreflightError(ValueError):
@@ -89,4 +99,100 @@ def check_rhs_block(fexts: Any, n_dof: int) -> List[CheckResult]:
                 "blocked solve — consider solving it separately"))
         else:
             results.append(CheckResult("rhs_block_spread", "ok"))
+    return results
+
+
+def resolve_policy() -> str:
+    """The effective policy: ``PCG_TPU_PREFLIGHT``, else fail; a
+    malformed value raises rather than disabling the gate."""
+    p = os.environ.get("PCG_TPU_PREFLIGHT", "").strip() or "fail"
+    if p not in POLICIES:
+        raise ValueError(f"preflight policy must be one of {POLICIES}, "
+                         f"got {p!r} (PCG_TPU_PREFLIGHT / --preflight)")
+    return p
+
+
+def _check_mg_hierarchy(model, scfg) -> CheckResult:
+    """precond='mg' eligibility: a vector problem with a lattice that
+    coarsens (``mg_levels`` times when set), the reasons
+    ``ops/mg.build_mg_host`` raises."""
+    if getattr(scfg, "precond", "jacobi") != "mg":
+        return CheckResult("mg_hierarchy", "ok")
+    if int(model.n_dof) != 3 * int(model.n_node):
+        return CheckResult(
+            "mg_hierarchy", "fail",
+            "precond='mg' needs the vector (3-dof/node) problem class; "
+            f"this model has n_dof={model.n_dof}, n_node={model.n_node}")
+    from pcg_mpi_solver_tpu_torch.ops.mg import (
+        MGSetupError, fine_lattice, plan_levels)
+
+    dims, _lat = fine_lattice(model)
+    if dims is None:
+        return CheckResult(
+            "mg_hierarchy", "fail",
+            "precond='mg' needs lattice metadata (ModelData.grid or "
+            ".octree); this model has neither — use precond='jacobi'")
+    try:
+        plan_levels(dims, int(getattr(scfg, "mg_levels", 0)))
+    except MGSetupError as e:
+        return CheckResult("mg_hierarchy", "fail", str(e))
+    return CheckResult("mg_hierarchy", "ok")
+
+
+def _check_mg_replication(model, scfg) -> CheckResult:
+    """The replicated coarse levels against
+    ``SolverConfig.mg_max_replicated_dofs``: fail where
+    ``ops/mg.apply_replication_cutoff`` raises, warn where it truncates
+    an auto-depth hierarchy."""
+    if getattr(scfg, "precond", "jacobi") != "mg":
+        return CheckResult("mg_replication", "ok")
+    cap = int(getattr(scfg, "mg_max_replicated_dofs", 0))
+    if cap <= 0:
+        return CheckResult("mg_replication", "ok")
+    from pcg_mpi_solver_tpu_torch.ops.mg import (
+        MGSetupError, apply_replication_cutoff, fine_lattice,
+        level_replicated_dofs, plan_levels)
+
+    dims, _lat = fine_lattice(model)
+    if dims is None:
+        return CheckResult("mg_replication", "ok")   # mg_hierarchy fails
+    n_levels = int(getattr(scfg, "mg_levels", 0))
+    try:
+        planned = plan_levels(dims, n_levels)
+    except MGSetupError:
+        return CheckResult("mg_replication", "ok")   # mg_hierarchy fails
+    try:
+        kept = apply_replication_cutoff(planned, n_levels, cap)
+    except MGSetupError as e:
+        return CheckResult("mg_replication", "fail", str(e))
+    if len(kept) < len(planned):
+        total = sum(level_replicated_dofs(planned))
+        return CheckResult(
+            "mg_replication", "warn",
+            f"mg hierarchy will be truncated from {len(planned)} to "
+            f"{len(kept)} coarse level(s): the full hierarchy needs "
+            f"{total} replicated dofs per device, over the "
+            f"mg_max_replicated_dofs={cap} cutoff")
+    return CheckResult("mg_replication", "ok")
+
+
+def run_mg_preflight(model, config) -> List[CheckResult]:
+    """The mg checks under the preflight policy (:func:`resolve_policy`):
+    under ``fail`` a failed check raises :class:`PreflightError` with the
+    JAX package's message, under ``warn`` it warns; ``off`` scans
+    nothing."""
+    pol = resolve_policy()
+    if pol == "off":
+        return []
+    scfg = config.solver
+    results = [_check_mg_hierarchy(model, scfg),
+               _check_mg_replication(model, scfg)]
+    failed = [r for r in results if r.status == "fail"]
+    if failed:
+        msg = "preflight rejected the model/config: " + "; ".join(
+            f"[{r.name}] {r.detail}" for r in failed) + \
+            "  (set PCG_TPU_PREFLIGHT=warn/off or --preflight= to bypass)"
+        if pol == "fail":
+            raise PreflightError(msg)
+        warnings.warn(msg, stacklevel=3)
     return results

@@ -23,8 +23,8 @@ Windows:
   against one at +-1; the glued blocks (mixed) and Poisson (direct);
   ``solve_many`` columns against the JAX package's.
 - The backend choice as the JAX Solver makes it, and the refusals:
-  hybrid (ROADMAP queue 1 item 13), mg on the general backend (item 16),
-  the graph partitioner (item 15).
+  hybrid (ROADMAP queue 1 item 13) and the graph partitioner (item 15);
+  mg on the general backend is ``tests/test_torch_mg_general.py``.
 """
 
 import dataclasses
@@ -298,7 +298,7 @@ def test_backend_choice_follows_jax():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("hybrid", 13), ("hybrid_auto", 13), ("mg", 16), ("graph", 15)])
+    ("hybrid", 13), ("hybrid_auto", 13), ("graph", 15)])
 def test_general_refusals_name_their_items(case, item, monkeypatch):
     args, kw = OCTREE
     octree = make_octree_model(*args, **kw)
@@ -307,8 +307,6 @@ def test_general_refusals_name_their_items(case, item, monkeypatch):
         skw["backend"] = "hybrid"
     elif case == "hybrid_auto":
         monkeypatch.setenv("PCG_TPU_ENABLE_HYBRID", "1")
-    elif case == "mg":
-        cfg = RunConfig(solver=SolverConfig(precond="mg"))
     else:
         cfg = RunConfig(partition_method="graph")
     with pytest.raises(NotImplementedError,

@@ -31,8 +31,9 @@ R); the tests move the axis at the boundary.  Windows:
 - A budget exit (each failed column's min-residual iterate), the drift
   guard on one column (flag 6, then quarantined as flag 5 by the
   one-shot post-pass, as in the JAX Solver), ``check_rhs_block`` and
-  ``normalize_rhs_block`` against the JAX package's, and the refusals
-  that remain (resume and snapshots, ROADMAP queue 1 item 9).
+  ``normalize_rhs_block`` against the JAX package's, and the block-width
+  bound.  The chunked blocked path (resume, snapshots, the per-column
+  ladder) is ``tests/test_torch_many_chunked.py``.
 """
 
 import dataclasses
@@ -565,15 +566,6 @@ def test_normalize_rhs_block_shapes(shape):
     out = normalize_rhs_block(a, n, np.float64)
     np.testing.assert_array_equal(out, jax_normalize(a, n, np.float64))
     assert out.shape == ((n, 1) if shape == "vector" else (n, R))
-
-
-def test_resume_and_snapshots_raise_naming_item_9(direct2):
-    model, s = direct2
-    with pytest.raises(NotImplementedError, match="item 9"):
-        s.solve_many(np.asarray(model.F), resume=True)
-    s5 = Solver(model, RunConfig(snapshot_every=5), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        s5.solve_many(np.asarray(model.F))
 
 
 def test_nrhs_is_metadata():

@@ -365,9 +365,11 @@ def test_nondefault_mg_fields_match_jax(field, value):
 @pytest.mark.parametrize("dims,field,value", [
     ((5, 4, 4), "mg_levels", 0), ((8, 4, 4), "mg_levels", 3),
     ((8, 4, 4), "mg_max_replicated_dofs", 100)])
-def test_mg_setup_errors_match_jax(dims, field, value):
-    """Both Solvers raise MGSetupError with the same reason (the JAX
-    package's preflight, which raises the same reasons earlier, off)."""
+def test_mg_setup_errors_match_jax(dims, field, value, monkeypatch):
+    """Both Solvers raise MGSetupError with the same reason (both
+    packages' preflight, which raises the same reasons earlier as
+    PreflightError, off: tests/test_torch_mg_general.py holds that)."""
+    monkeypatch.setenv("PCG_TPU_PREFLIGHT", "off")
     sc = dict(SOLVE, precond="mg", **{field: value})
     with pytest.raises(jmg.MGSetupError) as jinfo:
         JaxSolver(jax_cube(*dims, **CUBE),

@@ -31,7 +31,8 @@ GENERAL_MODULES = ("pcg_mpi_solver_tpu_torch.models.octree",
                    "pcg_mpi_solver_tpu_torch.ops.matvec")
 CHUNKED_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
     "solver.chunked", "resilience.recovery", "resilience.faultinject",
-    "resilience.engine", "utils.checkpoint", "obs.metrics"))
+    "resilience.engine", "utils.checkpoint", "obs.metrics",
+    "validate.preflight", "ops.mg"))
 
 
 def is_forbidden(module: str) -> bool:

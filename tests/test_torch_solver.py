@@ -95,18 +95,6 @@ def test_solver_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert Solver(m, RunConfig(), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(snapshot_every=5), "item 9"),
-])
-def test_unported_options_raise(change, item):
-    """Mid-solve snapshots of a blocked solve need the chunked blocked
-    path and raise in solve_many (the step path takes them)."""
-    model = make_cube_model(4, 3, 3)
-    s = Solver(model, RunConfig(**change), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        s.solve_many(np.asarray(model.F))
-
-
 def test_unported_backends_raise(monkeypatch):
     """The hybrid backend (asked for, or auto-selected under
     PCG_TPU_ENABLE_HYBRID=1 on an octree model) is ROADMAP queue 1 item
@@ -166,9 +154,6 @@ def _refuse(where):
         "comm": lambda: partition_model(octree, 2, comm=object()),
         "layout": lambda: partition_model(octree, 2, layout=object()),
         "graph": lambda: partition_model(octree, 2, method="graph"),
-        "mg_general": lambda: Solver(
-            octree, RunConfig(solver=SolverConfig(precond="mg")),
-            device="cpu"),
     }
     with pytest.raises(NotImplementedError) as err:
         calls[where]()
@@ -182,14 +167,12 @@ def _refuse(where):
     ("comm", [r"ROADMAP queue 1 item 12\b"]),
     ("layout", [r"ROADMAP queue 1 item 12\b"]),
     ("graph", [r"graph partitioner.*ROADMAP queue 1 item 15\b"]),
-    ("mg_general", [r"mg on octree lattices.*ROADMAP queue 1 item 16\b"]),
 ])
 def test_module_refusals_name_their_queue_items(where, items):
     """Each refusal inside the port's modules (outside solver/driver.py's
-    option refusals, which test_unported_options_raise checks) names the
+    option refusals, which tests/test_torch_config.py checks) names the
     ROADMAP queue 1 item that owns what it refuses: sharding 12, the
-    hybrid backend 13, the native graph partitioner 15, mg on the general
-    backend 16."""
+    hybrid backend 13, the native graph partitioner 15."""
     text = " ".join(_refuse(where).split())
     for item in items:
         assert re.search(item, text), (where, text)

@@ -1,15 +1,18 @@
 """The JAX package's iteration count on an octree of chip_smoke.py's
-phase 4e (bench.py's octree arguments at n0 cells a side): a mixed
-Jacobi-PCG solve, classic, tol 1e-7, one part, on the CPU.
+phase 4e (bench.py's octree arguments at n0 cells a side): a mixed PCG
+solve, classic, tol 1e-7, one part, on the CPU, under the preconditioner
+``--precond`` (jacobi by default; mg builds its hierarchy from the
+octree lattice).
 
-    python tools/octree_jax_count.py [n0]      # default 6
+    python tools/octree_jax_count.py [n0] [--precond jacobi|mg]
 
 Prints the model size, the backend the JAX Solver chose, and flag,
 iterations and relres; chip_smoke.py's JAX_OCTREE6_ITERS is its n0 = 6
-count.  Needs JAX (the port does not); takes about a minute at n0 = 6.
+count, JAX_OCTREE6_MG_ITERS its n0 = 6 count under ``--precond mg``.
+Needs JAX (the port does not); takes about a minute at n0 = 6.
 """
 
-import sys
+import argparse
 import time
 
 import jax
@@ -24,21 +27,27 @@ from pcg_mpi_solver_tpu.solver import Solver  # noqa: E402
 
 
 def main() -> None:
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 6
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("n0", nargs="?", type=int, default=6)
+    ap.add_argument("--precond", default="jacobi",
+                    choices=("jacobi", "block3", "mg"))
+    args = ap.parse_args()
+    n = args.n0
     t0 = time.perf_counter()
     model = make_octree_model(n, n, n, max_level=4, n_incl=6, seed=2,
                               E=30e9, nu=0.2, load="traction",
                               load_value=1e6)
     print(f"octree {n}^3/L4: {model.n_dof} dofs, {len(model.elem_lib)} "
           f"types, build {time.perf_counter() - t0:.1f} s", flush=True)
-    # iters_per_dispatch=0: the one-shot loop (the port has no chunked
-    # dispatch, ROADMAP queue 1 item 9)
+    # iters_per_dispatch=0: the one-shot loop, which the port's auto cap
+    # also gives a model below 4 M dofs
     cfg = RunConfig(solver=SolverConfig(
-        tol=1e-7, precision_mode="mixed", precond="jacobi",
+        tol=1e-7, precision_mode="mixed", precond=args.precond,
         pcg_variant="classic", iters_per_dispatch=0))
     solver = Solver(model, cfg, mesh=make_mesh(1), n_parts=1)
     res = solver.step(1.0)
-    print(f"backend {solver.backend}: flag {res.flag}, iterations "
+    print(f"precond {args.precond}, backend {solver.backend}: flag "
+          f"{res.flag}, iterations "
           f"{res.iters}, relres {res.relres:.4e}, {res.wall_s:.1f} s")
 
 
