@@ -95,7 +95,28 @@ Phases (any failed check raises, so the script exits non-zero):
                 cube's ms/iter beside phase 4's v6, kernels and launches a
                 float32 octree matvec, 100 profiled inner iterations, and
                 20 of the octree's mg solve;
-  4g. many chunked — run right after phase 4e: the chunked blocked path
+  4h. hybrid  — run right after phase 4e, on its 22^3/L4 octree model
+                object: Solver(backend="hybrid") (mixed, jacobi, classic,
+                tol 1e-7) with the seconds of ``partition_hybrid``, of
+                the float64 refresh's general partition and of the upload,
+                the level table (size, nb, dims, bricks, grid cells), the
+                transition cells and combine maps; flag, relres,
+                iterations, inner cycles, dispatches, time to tol and
+                ms/iter beside 4e's general solve, the solution within
+                1e-6 of max|u| of 4e's, the selected float32 kernel
+                launched at least levels x iterations times; the float32
+                and float64 hybrid operators on the card against the CPU's
+                float64 (2e-5, 1e-12 of max|y|; two card matvecs bitwise
+                equal; times) and the bucketed refresh (1e-12, bitwise
+                twice); every kernel against its plain version on the
+                flagship's level batches (one launch a level), timed
+                beside the batches' bound (v6 and v1 among them); the 6^3
+                octree's level batches (1x1x1, 12^3 and 22x24x24 dense
+                levels) likewise, and its solve within max(3, 5 %) of the
+                JAX package's 1145 iterations.  After phase 4d: kernels
+                and launches a float32 hybrid matvec, 100 profiled inner
+                iterations;
+  4g. many chunked — run right after phase 4h: the chunked blocked path
                 of ``Solver.solve_many`` on the 150^3 flagship, direct
                 float64, classic, jacobi, [F, F_y] at the auto cap: cap,
                 dispatches, per-column flag, iterations and tip, ms a
@@ -124,8 +145,9 @@ The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
 preconditioner solve of phase 4b, by variant solve of phase 4c, by
 block of phase 4d, float32 of phase 4's one-shot solve and of phase 4f's
-escalating solve, float64 of phase 4g's chunked block), the
-last line
+escalating solve, float64 of phase 4g's chunked block; every record's
+``launches_hybrid`` from phase 4h's flagship solve and ``hybrid_levels``
+from its level batches), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -265,6 +287,12 @@ JAX_OCTREE6_ITERS = 1144
 # (``python tools/octree_jax_count.py 6 --precond mg``, the JAX Solver on
 # the CPU)
 JAX_OCTREE6_MG_ITERS = 28
+# ... and on the hybrid backend (the 1x1x1, 12^3 and 22x24x24 levels
+# beside the tiled 8^3 ones): flag 0 in 1145 iterations, relres 4.8499e-08
+# (``PCG_TPU_ENABLE_HYBRID=1 python tools/octree_jax_count.py 6``, or
+# ``--backend hybrid``; the JAX Solver on the CPU, one-shot; its chunked
+# path, which both packages take on this backend, counts 1149)
+JAX_OCTREE6_HYBRID_ITERS = 1145
 # the general matvec on the card against the CPU's float64, x max|y|
 OPERATOR_TOL = {"float64": 1e-12, "float32": 2e-5}
 # bucket groupings (plan_buckets' cost of a bucket, in element values)
@@ -1669,7 +1697,8 @@ def phase_general(torch, np, cube_model):
     # 5. mg on the octree lattices: the flagship octree and the 6^3 one
     octree_mg = phase_general_mg(torch, np, model, n, solver, res_j, ms_j,
                                  bar, kw)
-    return dict(cube_ms=cube_ms, octree=solver, n=n, octree_mg=octree_mg)
+    return dict(cube_ms=cube_ms, octree=solver, n=n, octree_mg=octree_mg,
+                model=model, res=res_j, ms=ms_j)
 
 
 def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar, kw):
@@ -1748,6 +1777,282 @@ def phase_general_profile(torch, general, v6_ms_iter):
     profile_inner(torch, solver, tag=f"general profile octree {n}^3")
     profile_inner(torch, general["octree_mg"], iters=20,
                   tag=f"general profile octree {n}^3 mg")
+    hy = general.get("hybrid")
+    if hy is not None:
+        kern, launches = _matvec_kernels(torch, lambda: hy.ops32.matvec(
+            hy.data32, hy.data32["F"]))
+        say(f"hybrid octree {n}^3: {kern:.1f} device kernels and "
+            f"{launches:.1f} kernel launches a float32 matvec "
+            f"(torch.profiler over 5); {nvidia_smi_line()}")
+        profile_inner(torch, hy, tag=f"hybrid profile octree {n}^3")
+
+
+def _level_batches(torch, np, solver, dtype, seed=11):
+    """Each level's kernel inputs of a hybrid Solver at ``dtype``: (xg, ck)
+    gathered from a seeded x through the Solver's own level gathers, as
+    its matvec gives them to the kernel."""
+    data = solver.data32 if dtype == torch.float32 else solver.data
+    if data["levels"][0]["ck"].dtype != dtype:
+        data = {"levels": [dict(lv, ck=lv["ck"].to(dtype))
+                           for lv in data["levels"]]}
+    pm = solver.pm
+    x = torch.as_tensor(np.where(pm.dof_gid >= 0, np.random.default_rng(
+        seed).standard_normal(pm.dof_gid.shape), 0.0), dtype=dtype,
+        device="cuda")
+    xf = torch.cat([x.reshape(1, -1), x.new_zeros((1, 3))], dim=1)
+    out = []
+    for lv, (nb, bx, by, bz) in zip(data["levels"], solver.ops.level_dims):
+        xg = xf.index_select(1, lv["gx"]).view(
+            pm.n_parts * nb, 3, bx + 1, by + 1, bz + 1)
+        out.append((xg, lv["ck"]))
+    return out
+
+
+def _hybrid_kernel_checks(torch, np, solver, tag, rates, timed=False):
+    """Every float32 variant and v6's float64 kernel against the plain
+    version on ``solver``'s level batches (one launch a level; the
+    tolerances of phase 3, x max|y| of the level), two launches bitwise
+    equal.  With ``timed``, each kernel's CUDA-event ms for all levels
+    (one pass: a launch a level, in turn), the plain version's, and the
+    level batches' bound (bytes of each level's x, y and ck once).
+    Returns {(variant, dtype): {"max_err_of_max_y", "ms", "plain_ms",
+    "bound_ms", "bound_by"}}."""
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        structured_matvec, structured_matvec_plain)
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        tol = KERNEL_TOL[name]
+        batches = _level_batches(torch, np, solver, dtype)
+        K = solver.data["brick_Ke"].to(dtype)
+        plains = [structured_matvec_plain(xg, ck, K) for xg, ck in batches]
+        shapes = [tuple(ck.shape) for _xg, ck in batches]
+        terms = {}
+        for (xg, ck) in batches:
+            _ms, _by, t = matvec_bound_ms(tuple(ck.shape),
+                                          xg.element_size(), rates)
+            for k, v in t.items():
+                terms[k] = terms.get(k, 0.0) + v
+        ops_ms = min(terms["cuda_cores"], terms["tensor_cores"])
+        b = ((ops_ms, "operations") if ops_ms >= terms["bytes"]
+             else (terms["bytes"], "bytes"))
+        plain_ms = (time_ms(torch, lambda: [structured_matvec_plain(
+            xg, ck, K) for xg, ck in batches], reps=5) if timed else None)
+        for v in (F32_VARIANTS if dtype == torch.float32 else ("v6",)):
+            def run(v=v):
+                return [structured_matvec(xg, ck, K, variant=v)
+                        for xg, ck in batches]
+            ys, ys2 = run(), run()
+            torch.cuda.synchronize()
+            err = max((y - yp).abs().max().item()
+                      / max(yp.abs().max().item(), 1e-300)
+                      for y, yp in zip(ys, plains))
+            same = all(torch.equal(a, c) for a, c in zip(ys, ys2))
+            ms = time_ms(torch, run, reps=10) if timed else None
+            out[(v, name)] = dict(max_err_of_max_y=err, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b[0],
+                                  bound_by=b[1])
+            say(f"{tag} levels {shapes} {name} {v}: max err {err:.3e} x "
+                f"max|y| (tol {tol:g}), repeat bitwise "
+                f"{'equal' if same else 'DIFFERENT'}"
+                + (f"; {ms:.4f} ms for the levels (plain {plain_ms:.4f}; "
+                   f"bound {b[0] * 1e3:.4g} us, {b[1]}: bytes "
+                   f"{terms['bytes'] * 1e3:.4g} us; {b[0] / ms:.2%} of "
+                   f"it)" if timed else ""))
+            if not err <= tol or not same:
+                raise AssertionError(f"{tag}: {v} {name} on the level "
+                                     f"batches disagrees with its plain "
+                                     f"version or with itself")
+            del ys, ys2
+        del batches, plains
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hybrid_solve(torch, np, solver, tag, bar):
+    """One step of a hybrid mixed Solver with the kernel counts set to 0
+    just before it; fails unless flag 0, relres <= 1e-7, the tip within
+    [1/3, 3] of ``bar`` and the selected float32 kernel launched at least
+    levels x iterations times.  Returns (result, ms/iter, inner cycles,
+    launch counts)."""
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+
+    if solver.backend != "hybrid":
+        raise AssertionError(f"{tag}: Solver took the {solver.backend} "
+                             f"backend")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with inner_cycles(solver) as cycles:
+        res = solver.step(1.0)
+    counts = dict(LAUNCHES)
+    used = {f"{v} {d}": n for (v, d), n in counts.items() if n}
+    ms = res.wall_s / res.iters * 1e3
+    u = solver.displacement_global()
+    tip = float(u[0::3].max())
+    n_lv = len(solver.ops.level_dims)
+    f32 = counts[(solver.kernel_variant, "float32")]
+    say(f"{tag}: flag {res.flag}, iterations {res.iters}, relres "
+        f"{res.relres:.4e}; time to tol {res.wall_s:.3f} s, {ms:.4f} "
+        f"ms/iter, {solver.pm.glob_n_dof * res.iters / res.wall_s:.4e} "
+        f"dof*iter/s; inner cycles (flag, iterations) {cycles}; tip ux "
+        f"{tip:.4e} m vs bar estimate {bar:.4e} m (ratio {tip / bar:.3f}); "
+        f"kernel launches {used} ({solver.kernel_variant} float32 "
+        f"{f32} >= {n_lv} levels x {res.iters} iterations); "
+        f"{dispatches(solver)}")
+    if res.flag != 0 or not res.relres <= 1e-7:
+        raise AssertionError(f"{tag}: did not converge: {res}")
+    if not np.isfinite(u).all() or not bar / 3 <= tip <= 3 * bar:
+        raise AssertionError(f"{tag}: tip displacement outside the "
+                             f"physics window")
+    if f32 < n_lv * res.iters:
+        raise AssertionError(f"{tag}: {f32} float32 launches, fewer than "
+                             f"{n_lv} levels x {res.iters} iterations")
+    return res, ms, cycles, counts
+
+
+def phase_hybrid(torch, np, general, rates):
+    """Phase 4h: the hybrid level-grid backend on 4e's 22^3/L4 octree
+    model (mixed, jacobi, classic, tol 1e-7, one part), before any
+    profiler window:
+    1. Solver(model, cfg, backend="hybrid"): the seconds of
+       partition_hybrid, of the refresh's general partition and of the
+       upload; the level table (size, nb, dims, bricks, grid cells), the
+       transition cells and the combine maps; flag, relres, iterations,
+       inner cycles, dispatches, time to tol and ms/iter beside 4e's
+       general solve, the solution within 1e-6 of max|u| of 4e's; the
+       selected float32 kernel's launches >= levels x iterations;
+    2. the operator: float32 and float64 on the card against the CPU's
+       float64 (2e-5 and 1e-12 of max|y|), two card matvecs bitwise equal,
+       the float32 matvec's time; the bucketed refresh's two matvecs
+       bitwise equal;
+    3. every kernel against its plain version on the flagship's level
+       batches, timed (v6 and v1 among them) beside the batches' bound;
+    4. the 6^3 octree (levels of 1^3, 12^3 and 22x24x24 cells beside the
+       tiled 8^3 ones) within max(3, 5 %) of the JAX package's 1145
+       iterations, every kernel on its level batches.
+    Returns the flagship's Solver, its launch counts and the level
+    kernel records."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
+    model, n = general["model"], general["n"]
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    s = Solver(model, cfg, backend="hybrid")
+    build = time.perf_counter() - t0
+    hp = s.pm
+    say(f"hybrid octree {n}^3: partition_hybrid {s.partition_build_s:.2f} "
+        f"s")
+    say(f"hybrid octree {n}^3: refresh partition ({s.f64_refresh}) "
+        f"{s.refresh_partition_s:.2f} s")
+    say(f"hybrid octree {n}^3: upload {s.upload_s:.2f} s (Solver "
+        f"{build:.2f} s in all); device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    grid = 0
+    for lv in hp.levels:
+        cells = hp.n_parts * lv.nb * lv.bx * lv.by * lv.bz
+        grid += cells
+        say(f"hybrid octree {n}^3 level: size {lv.size}, nb {lv.nb}, dims "
+            f"({lv.bx}, {lv.by}, {lv.bz}), bricks {int(lv.n_cells.sum())}, "
+            f"grid cells {cells}")
+    bricks = sum(int(lv.n_cells.sum()) for lv in hp.levels)
+    trans = sum(int(tb.n_elem.sum()) for tb in hp.pm.type_blocks)
+    cm = hp.combine
+    say(f"hybrid octree {n}^3: {bricks} bricks in {grid} grid cells "
+        f"({bricks / grid:.1%}); {trans} transition cells over "
+        f"{len(hp.pm.type_blocks)} types on the general operator "
+        f"({len(s.ops.buckets)} buckets); combine {s.ops.combine}: "
+        f"{hp.n_parts * cm.n_slots} slots, KD {cm.gidx.shape[-1]}, "
+        f"{int((cm.hnode < hp.n_node_loc).sum())} heavy nodes, KE "
+        f"{cm.hgidx.shape[-1]}")
+    bar = OCTREE_FLAGSHIP["load_value"] * n / OCTREE_FLAGSHIP["E"]
+    res, ms, _cyc, counts = _hybrid_solve(torch, np, s,
+                                          f"hybrid octree {n}^3", bar)
+    res_g, ms_g = general["res"], general["ms"]
+    uh = s.displacement_global()
+    ug = general["octree"].displacement_global()
+    du = float(np.abs(uh - ug).max() / np.abs(ug).max())
+    say(f"hybrid octree {n}^3 against 4e's general: {res.iters} against "
+        f"{res_g.iters} iterations, {ms:.4f} against {ms_g:.4f} ms/iter, "
+        f"time to tol {res.wall_s:.3f} against {res_g.wall_s:.3f} s; "
+        f"solutions differ by {du:.3e} of max|u| (tol 1e-6); {smi}")
+    if not du <= 1e-6:
+        raise AssertionError(f"hybrid octree: solution differs from the "
+                             f"general backend's by {du:.3e} of max|u|")
+
+    # 2. the operator
+    pm = hp.pm
+    x = np.where(pm.dof_gid >= 0, np.random.default_rng(7).standard_normal(
+        pm.dof_gid.shape), 0.0)
+    t1 = time.perf_counter()
+    y_cpu = s.ops.matvec(_tree_to(s.data, "cpu"), torch.as_tensor(x))
+    cpu_s = time.perf_counter() - t1
+    scale = float(y_cpu.abs().max())
+    for name, ops, data in (("float64", s.ops, s.data),
+                            ("float32", s.ops32, s.data32)):
+        xc = torch.as_tensor(x, dtype=data["F"].dtype, device="cuda")
+        y1, y2 = ops.matvec(data, xc), ops.matvec(data, xc)
+        err = float((y1.cpu().double() - y_cpu).abs().max()) / scale
+        same = bool(torch.equal(y1, y2))
+        t_ms = time_ms(torch, lambda: ops.matvec(data, xc))
+        say(f"hybrid octree {n}^3 operator: {name} matvec on the card vs "
+            f"the CPU's float64: max err {err:.3e} x max|y| (tol "
+            f"{OPERATOR_TOL[name]:g}); two card matvecs bitwise equal: "
+            f"{same}; {t_ms:.4f} ms a matvec")
+        if not err <= OPERATOR_TOL[name] or not same:
+            raise AssertionError(f"hybrid octree: {name} matvec on the card "
+                                 f"failed its check")
+        del xc, y1, y2
+    if s._refresh64 is not None:
+        xc = torch.as_tensor(x, dtype=torch.float64, device="cuda")
+        r1, r2 = s._k64(xc), s._k64(xc)
+        err = float((r1.cpu() - y_cpu).abs().max()) / scale
+        same = bool(torch.equal(r1, r2))
+        t_ms = time_ms(torch, lambda: s._k64(xc), reps=5)
+        say(f"hybrid octree {n}^3 refresh ({s.f64_refresh}): max err "
+            f"{err:.3e} x max|y| (tol 1e-12); two card matvecs bitwise "
+            f"equal: {same}; {t_ms:.4f} ms a matvec")
+        if not err <= 1e-12 or not same:
+            raise AssertionError("hybrid octree: the refresh matvec failed "
+                                 "its check")
+        del xc, r1, r2
+    say(f"hybrid octree {n}^3 operator: CPU float64 matvec {cpu_s:.2f} s")
+    del y_cpu
+    torch.cuda.empty_cache()
+
+    # 3. every kernel on the flagship's level batches
+    levels = _hybrid_kernel_checks(torch, np, s, f"hybrid octree {n}^3",
+                                   rates, timed=True)
+    v6, v1 = levels[("v6", "float32")], levels[("v1", "float32")]
+    say(f"hybrid octree {n}^3 level passes: v6 {v6['ms']:.4f} ms, v1 "
+        f"{v1['ms']:.4f} ms against the bound {v6['bound_ms'] * 1e3:.4g} "
+        f"us ({v6['bound_by']}); {smi}")
+
+    # 4. the 6^3 octree
+    kw = dict(OCTREE_FLAGSHIP)
+    kw.pop("n")
+    n6 = OCTREE_PARITY_N
+    s6 = Solver(make_octree_model(n6, n6, n6, **kw), cfg, backend="hybrid")
+    say(f"hybrid octree {n6}^3 levels: "
+        f"{[(lv.size, lv.nb, (lv.bx, lv.by, lv.bz)) for lv in s6.pm.levels]}")
+    _hybrid_kernel_checks(torch, np, s6, f"hybrid octree {n6}^3", rates)
+    res6, _ms6, _c6, _n6 = _hybrid_solve(
+        torch, np, s6, f"hybrid octree {n6}^3",
+        OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
+    win = max(3, ITERS_TOL * JAX_OCTREE6_HYBRID_ITERS)
+    say(f"hybrid octree {n6}^3: {res6.iters} iterations against the JAX "
+        f"package's {JAX_OCTREE6_HYBRID_ITERS} (window +-{win:g})")
+    if abs(res6.iters - JAX_OCTREE6_HYBRID_ITERS) > win:
+        raise AssertionError(f"hybrid octree {n6}^3: {res6.iters} "
+                             f"iterations, outside max(3, 5 %) of "
+                             f"{JAX_OCTREE6_HYBRID_ITERS}")
+    del s6
+    torch.cuda.empty_cache()
+    return dict(solver=s, launches=counts, levels=levels)
 
 
 def phase_many_chunked(torch, np, model):
@@ -2060,6 +2365,12 @@ def main() -> int:
     # octree flagship, before any profiler window
     general = phase_general(torch, np, flagship_model)
     lap("4e general")
+    # 4h. the hybrid level-grid backend on 4e's octree model, before any
+    # profiler window
+    hybrid = phase_hybrid(torch, np, general, rates)
+    general["hybrid"] = hybrid["solver"]
+    del general["model"]
+    lap("4h hybrid")
     # 4g. the chunked blocked path, before any profiler window
     many_chunked_launches = phase_many_chunked(torch, np, flagship_model)
     lap("4g many chunked")
@@ -2107,6 +2418,12 @@ def main() -> int:
                 replaces=REPLACES[variant],
                 launches=launches_by[variant][(variant, dtype)],
                 library_ms=None, **kern[(variant, dtype)]))
+            # phase 4h: the flagship octree's level batches (one launch a
+            # level), and the hybrid solve's launches
+            records[-1]["hybrid_levels"] = hybrid["levels"][(variant,
+                                                             dtype)]
+            records[-1]["launches_hybrid"] = \
+                hybrid["launches"][(variant, dtype)]
             if variant == "v6":
                 records[-1]["launches_preconditioners"] = {
                     path: counts[("v6", dtype)]

@@ -15,7 +15,10 @@ per ported Pallas variant, chosen by ``PCG_TPU_PALLAS_V``); and the
 general (pattern-type) backend for every model the slab cannot take
 (``models.make_octree_model``, ``make_glued_blocks_model``,
 ``make_poisson_model`` -> ``parallel.partition_model`` -> the bucketed
-general operator of ``ops.matvec``), under Jacobi or block Jacobi; and
+general operator of ``ops.matvec``), under Jacobi or block Jacobi; the
+hybrid level-grid backend for octree models (``parallel.hybrid``: each
+refinement level's brick cells through the slab kernels, the transition
+cells on the general operator, the bucketed float64 refresh); and
 the chunked path that ``Solver.step`` takes at 4 M dofs and above
 (``solver.chunked``: capped dispatches of the resumable ``pcg``) with the
 recovery ladder, the dispatch guard, mid-solve snapshots, step

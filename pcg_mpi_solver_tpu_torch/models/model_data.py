@@ -68,7 +68,7 @@ class ModelData:
     # "node_keys": (n_node,) lattice keys, "strides": (stride_y, stride_z),
     # "brick_type": type id of the pure 8-node pattern (or None),
     # "brick_corners": (8, 3) corner offsets in that type's node order}.
-    # It is what the hybrid backend (ROADMAP queue 1 item 13) reads; the
+    # It is what the hybrid backend (parallel/hybrid.py) reads; the
     # general backend ignores it.
     octree: Optional[dict] = None
 

@@ -530,8 +530,8 @@ def make_octree_model(
 
 
 def _octree_meta(leaves, dims, node_keys, strides, mask_to_type):
-    """Lattice metadata of the hybrid level-grid backend (ROADMAP queue 1
-    item 13).  The "brick" pattern is mask 0 (no mid-edge/face
+    """Lattice metadata of the hybrid level-grid backend
+    (``parallel/hybrid.py``).  The "brick" pattern is mask 0 (no mid-edge/face
     nodes); its canonical reflection is the identity (canonical_mask(0) ==
     (0, (0,0,0))), so brick connectivity has zero signs and its node order
     is _slot_layout(0)'s corner order recorded here."""

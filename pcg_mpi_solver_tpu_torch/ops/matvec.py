@@ -350,13 +350,18 @@ class Ops:
     def _local_dots_many(self, w, pairs) -> torch.Tensor:
         """(len(pairs), R) local weighted dots of blocks (R, P, n_loc),
         cast to the dot dtype before multiplying as :meth:`_local_dot`
-        does, in ONE sum over the rows of one buffer of products.  On the
+        does, summed over the rows of one buffer of products.  On the
         card its row stride is padded with zeros to a multiple of
         ``_ROW_ALIGN`` elements: a CUDA sum starts its vectorised loads
         where a row's alignment lets it, so rows at other offsets would be
         summed in other orders; padded, every column is summed in the same
-        order (a column 2F gives exactly twice F's dots).  The CPU's sum
-        does not depend on alignment, and its rows are not padded."""
+        order (a column 2F gives exactly twice F's dots).  And on the card
+        each column's rows take a sum of their own: a CUDA sum shares a
+        row among thread blocks by the number of rows it is given, so one
+        sum over every column would sum a column in another order at
+        another width; per column, each column of a block gets the bits
+        of its width-1 block.  The CPU's sum does not depend on alignment,
+        and its rows are neither padded nor summed apart."""
         dd = self.dot_dtype
         a0 = pairs[0][0]
         R, n = a0.shape[0], a0[0].numel()
@@ -368,7 +373,9 @@ class Ops:
         for i, (a, b) in enumerate(pairs):
             torch.mul(a.to(dd) * b.to(dd), wd,
                       out=buf[i, :, :n].view(a.shape))
-        return buf.sum(dim=-1)
+        if not a0.is_cuda:
+            return buf.sum(dim=-1)
+        return torch.stack([buf[:, j].sum(dim=-1) for j in range(R)], dim=1)
 
     def wdot_many(self, w: torch.Tensor, a: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
@@ -653,8 +660,16 @@ def _spring_map(pm: PartitionedModel, put, dtype) -> dict:
     return out
 
 
+def _putter(device):
+    def put(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+    return put
+
+
 def device_data(pm: PartitionedModel, dtype: torch.dtype, device,
-                bucket_values: Optional[float] = None) -> dict:
+                bucket_values: Optional[float] = None,
+                blocks: bool = True) -> dict:
     """Pack a ``PartitionedModel`` into the device tree the general
     operator reads: per bucket of :func:`plan_buckets` (over the sign
     sub-types of :func:`_sub_types`) the element-row gather ``gidx``, the
@@ -662,15 +677,32 @@ def device_data(pm: PartitionedModel, dtype: torch.dtype, device,
     (T, d, d), ``ck`` (T, M, 1), ``dKe`` (T, 1, d), the node-block
     diagonals ``D9`` (T, 1, nr, 9) on the node path; the ELL map over the
     stacked value rows; the interface, node-interface and spring maps;
-    and the per-part weight, eff, F and Ud vectors.  Float leaves at ``dtype`` on ``device``, index leaves
-    int32 (int64 where ``index_copy_`` needs it)."""
+    and the per-part weight, eff, F and Ud vectors.  Float leaves at
+    ``dtype`` on ``device``, index leaves int32 (int64 where
+    ``index_copy_`` needs it).  ``blocks=False`` leaves out the buckets
+    and the ELL (the tree of :func:`build_bucketed_blocks`'s
+    operator)."""
+    put = _putter(device)
+    data = {
+        "weight": put(pm.weight, dtype),
+        "node_weight": put(pm.node_weight, dtype),
+        "eff": put(pm.eff, dtype),
+        "F": put(pm.F, dtype),
+        "Ud": put(pm.Ud, dtype),
+    }
+    if pm.n_iface:
+        data["iface"] = _assembly_map(pm.iface_local, pm.iface_slot,
+                                      pm.n_loc, pm.n_iface, put)
+    if pm.n_node_iface:
+        data["niface"] = _assembly_map(pm.niface_local, pm.niface_slot,
+                                       pm.n_node_loc, pm.n_node_iface, put)
+    if pm.spr_a is not None:
+        data["springs"] = _spring_map(pm, put, dtype)
+    if not blocks:
+        return data
     lay = _layout(pm, bucket_values)
     P, w = pm.n_parts, lay.width
     n_rows = pm.n_node_loc if w == 3 else pm.n_loc
-
-    def put(a, dt):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device=device)
 
     buckets = []
     for g, (T, M, nr, d, _base) in zip(lay.groups, lay.shapes):
@@ -715,22 +747,133 @@ def device_data(pm: PartitionedModel, dtype: torch.dtype, device,
         if w == 3:
             b["D9"] = put(D9, dtype)
         buckets.append(b)
-
-    data = {
-        "buckets": buckets,
-        "ell": put(_ell_map(pm, lay), torch.int32),
-        "weight": put(pm.weight, dtype),
-        "node_weight": put(pm.node_weight, dtype),
-        "eff": put(pm.eff, dtype),
-        "F": put(pm.F, dtype),
-        "Ud": put(pm.Ud, dtype),
-    }
-    if pm.n_iface:
-        data["iface"] = _assembly_map(pm.iface_local, pm.iface_slot,
-                                      pm.n_loc, pm.n_iface, put)
-    if pm.n_node_iface:
-        data["niface"] = _assembly_map(pm.niface_local, pm.niface_slot,
-                                       pm.n_node_loc, pm.n_node_iface, put)
-    if pm.spr_a is not None:
-        data["springs"] = _spring_map(pm, put, dtype)
+    data["buckets"] = buckets
+    data["ell"] = put(_ell_map(pm, lay), torch.int32)
     return data
+
+
+# ---------------------------------------------------------------------------
+# The bucketed float64 refresh operator (the hybrid backend's default)
+# ---------------------------------------------------------------------------
+#
+# Port of ``pcg_mpi_solver_tpu/ops/matvec.py:796-881``.  The JAX package
+# stacks the type blocks into a few buckets by element-count size class
+# only (power-of-16 boundaries), with the element arity zero-padded to
+# each bucket's largest, for the few float64 matvecs a mixed hybrid solve
+# runs outside its loop.  Its node sum is an unordered ``at[].add``; here
+# each node row sums its contributions over the partition's node ELL
+# (``pm.ell``, remapped into the bucketed value rows), a fixed order with
+# no float atomics, so two refresh matvecs on the card give the same
+# bits.
+
+def _size_class(n: int) -> int:
+    """The JAX package's bucket key: N <= 16, 256, 4096, 65536, ..."""
+    c = 0
+    while 16 ** (c + 1) < n:
+        c += 1
+    return c
+
+
+def build_bucketed_blocks(pm: PartitionedModel, dtype: torch.dtype,
+                          device) -> dict:
+    """The bucketed refresh's device tree: :func:`device_data` without the
+    general buckets (``blocks=False``) plus ``bucketed``, one dict a
+    bucket (size classes ascending, types in partition order): the node
+    row gather ``gidx`` (T * P * Nmax * nn; padded slots read the appended
+    zero row P * n_node_loc), ``sck`` (T, P * Nmax, d) = ck * (-1)^sign,
+    ``sgn`` (T, P * Nmax, d) = (-1)^sign on the product, ``KeT`` (T, d,
+    d) and the shape (T, M, nn, base); and ``bell``, the node ELL over the
+    bucketed value rows (row (t, p, n, a) at base + ((t * P + p) * Nmax +
+    n) * nn + a, pad the trailing zero row)."""
+    if pm.ell is None:
+        raise ValueError("bucketed matvec requires the 3-dof node layout "
+                         "(PartitionedModel.ell)")
+    put = _putter(device)
+    P, nnl = pm.n_parts, pm.n_node_loc
+    groups: dict = {}
+    for pos, tb in enumerate(pm.type_blocks):
+        if tb.d != 3 * tb.n_nodes:
+            raise ValueError(f"type {tb.type_id}: d={tb.d} is not "
+                             f"3*n_nodes={tb.n_nodes} — not node layout")
+        groups.setdefault(_size_class(tb.node.shape[2]), []).append(pos)
+    # per type: its bucket's base row, position, Nmax and nn
+    where = {}
+    buckets, shapes, base = [], [], 0
+    for _cls, members in sorted(groups.items()):
+        tbs = [pm.type_blocks[i] for i in members]
+        T = len(tbs)
+        nmax = max(tb.node.shape[2] for tb in tbs)
+        nn = max(tb.n_nodes for tb in tbs)
+        d = 3 * nn
+        KeT = np.zeros((T, d, d))
+        gidx = np.full((T, P, nmax, nn), P * nnl, dtype=np.int64)
+        sgn = np.ones((T, P, nmax, d))
+        ck = np.zeros((T, P, nmax))
+        for t, (i, tb) in enumerate(zip(members, tbs)):
+            n = tb.node.shape[2]
+            KeT[t, :tb.d, :tb.d] = tb.Ke.T
+            node = tb.node.astype(np.int64)                 # (P, nn_t, n)
+            rows = np.where(node < nnl,
+                            node + (np.arange(P) * nnl)[:, None, None],
+                            P * nnl)
+            gidx[t, :, :n, :tb.n_nodes] = rows.transpose(0, 2, 1)
+            sgn[t, :, :n, :tb.d] = np.where(tb.sign, -1.0, 1.0) \
+                .transpose(0, 2, 1)
+            ck[t, :, :n] = tb.ck
+            where[i] = (base, t, nmax, nn)
+        M = P * nmax
+        sgn = sgn.reshape(T, M, d)
+        buckets.append({"gidx": put(gidx.reshape(-1), torch.int32),
+                        "sck": put(ck.reshape(T, M, 1) * sgn, dtype),
+                        "sgn": put(sgn, dtype),
+                        "KeT": put(KeT, dtype)})
+        shapes.append((T, M, nn, base))
+        base += T * M * nn
+    # the node ELL's JAX slots (type base + node slot * N_t + element) ->
+    # bucketed value rows
+    jb, j = [], 0
+    for tb in pm.type_blocks:
+        jb.append(j)
+        j += tb.n_nodes * tb.node.shape[2]
+    jb = np.asarray(jb, dtype=np.int64)
+    Ns = np.array([tb.node.shape[2] for tb in pm.type_blocks], np.int64)
+    info = np.array([where[i] for i in range(len(pm.type_blocks))],
+                    dtype=np.int64).reshape(-1, 4)
+    ell = np.full(pm.ell.shape, base, dtype=np.int64)
+    for p in range(P):
+        s = pm.ell[p].astype(np.int64)
+        real = s < j
+        sr = s[real]
+        t = np.searchsorted(jb, sr, side="right") - 1
+        off = sr - jb[t]
+        a, e = off // Ns[t], off % Ns[t]
+        b0, tpos, nmax, nn = info[t].T
+        ell[p][real] = b0 + ((tpos * P + p) * nmax + e) * nn + a
+    data = device_data(pm, dtype, device, blocks=False)
+    data["bucketed"] = buckets
+    data["bucketed_shapes"] = shapes
+    data["bell"] = put(ell.reshape(P * nnl, -1), torch.int32)
+    return data
+
+
+def bucketed_matvec(ops: Ops, data: dict, x: torch.Tensor) -> torch.Tensor:
+    """Assembled K.x through :func:`build_bucketed_blocks`'s tree (the
+    contract of ``Ops.matvec``; ``ops`` supplies the springs and the
+    interface assembly).  Per bucket one node-row gather, the sign-folded
+    ck scale, one batched product and the output signs; then each node row
+    sums its value rows over ``bell`` in a fixed order."""
+    R = x.shape[0] if x.dim() == 3 else 1
+    xr = torch.cat([x.reshape(R, -1, 3), x.new_zeros((R, 1, 3))], dim=1)
+    shapes = data["bucketed_shapes"]
+    n_vrows = sum(T * M * nn for T, M, nn, _b in shapes)
+    vbuf = torch.empty((R, n_vrows + 1, 3), dtype=x.dtype, device=x.device)
+    vbuf[:, -1].zero_()
+    for bkt, (T, M, nn, base) in zip(data["bucketed"], shapes):
+        u = xr.index_select(1, bkt["gidx"]).view(R, T, M, 3 * nn)
+        v = torch.matmul(u * bkt["sck"], bkt["KeT"])
+        torch.mul(v, bkt["sgn"], out=vbuf[:, base:base + T * M * nn]
+                  .view(R, T, M, 3 * nn))
+    g = vbuf.index_select(1, data["bell"].reshape(-1))
+    y = g.view(R, ops.n_parts * ops.n_node_loc, -1, 3).sum(dim=2) \
+        .reshape(x.shape)
+    return ops.iface_assemble(data, ops._apply_springs(data, x, y))

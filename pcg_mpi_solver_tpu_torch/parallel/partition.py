@@ -437,12 +437,16 @@ def partition_model(
     ``elem_part`` is an explicit element -> part map; without it the map
     comes from ``make_elem_part(model, n_parts, method)`` with ``n_slabs =
     slab2_slabs``.  ``pad_multiple`` pads the local node/dof counts and
-    each type's per-part element count.  The JAX package's sharded-setup
-    arguments are refused: ``part_range``, ``comm`` and ``layout`` belong
-    to multi-process sharding (ROADMAP queue 1 item 12), ``block_filter``
-    to the hybrid backend (item 13)."""
-    for name, value, item in (("block_filter", block_filter, 13),
-                              ("part_range", part_range, 12),
+    each type's per-part element count.  ``block_filter`` (bool, n_elem):
+    elements with False still belong to their part (their nodes, dofs,
+    weights and interface maps are local) but leave the type blocks and
+    the ELL; the hybrid backend (``parallel/hybrid.py``) applies their
+    stiffness through its level grids.  A filter that leaves no type block
+    gives ``ell`` None and empty ``type_blocks``, as in the JAX package.
+    The JAX package's sharded-setup arguments are refused: ``part_range``,
+    ``comm`` and ``layout`` belong to multi-process sharding (ROADMAP
+    queue 1 item 12)."""
+    for name, value, item in (("part_range", part_range, 12),
                               ("comm", comm, 12), ("layout", layout, 12)):
         if value is not None:
             raise NotImplementedError(
@@ -517,6 +521,8 @@ def partition_model(
         per_t = {}
         for t in type_ids:
             e = part_elems[p][et == t]
+            if block_filter is not None:
+                e = e[block_filter[e]]
             per_t[t] = e
         type_elems[p] = per_t
 

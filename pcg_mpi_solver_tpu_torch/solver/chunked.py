@@ -53,12 +53,17 @@ class ChunkedEngine:
     operand is f32.  ``log``, when given, collects one tuple per piece
     run: ``("cycle" | "inner", executed iterations, flag)`` for each
     capped call and ``("refine", inner flag, cycle iterations)`` for each
-    refinement cycle (the chip smoke test prints them)."""
+    refinement cycle (the chip smoke test prints them).  ``kmul64``,
+    when given, computes the refinement's float64 K.x as ``kmul64(data64,
+    x)`` in place of ``ops.matvec`` (the hybrid backend's refresh
+    operator, as the JAX package's ``_amul64_fn``)."""
 
     def __init__(self, *, ops, scfg, glob_n_dof_eff: int, cap: int,
                  mixed: bool, ops32=None, recorder=None,
-                 log: Optional[List[tuple]] = None):
+                 log: Optional[List[tuple]] = None,
+                 kmul64: Optional[Callable] = None):
         self.ops, self.ops32 = ops, ops32
+        self.kmul64 = kmul64 if kmul64 is not None else ops.matvec
         self.scfg = scfg
         self.glob_n_dof_eff = int(glob_n_dof_eff)
         self.cap = int(cap)
@@ -209,7 +214,7 @@ class ChunkedEngine:
                 vlog("refine dispatch (f64 true-residual matvec)")
                 with self._disp("refine"):
                     x = x + xin.to(x.dtype) * float(normr)
-                    r = fext - eff * ops.matvec(data64, x)
+                    r = fext - eff * self.kmul64(data64, x)
                     normr = np.sqrt(f(_read(ops.wdot(w, r, r))[0]))
                     cur = float(normr)
                 self.log.append(("refine", inner_flag, cycle_iters))

@@ -8,8 +8,15 @@ load cases).  A model the structured slab cannot take (octree meshes with
 reflected pattern types, cohesive interface springs, a grid not divisible
 by the part count, ``partition_method="slab2"`` or an explicit
 ``elem_part``) runs on the general backend (``parallel/partition.py`` +
-the general operator of ``ops/matvec.py``), as in the JAX package; the
-hybrid backend is ROADMAP queue 1 item 13.  For each time step: Dirichlet lifting ->
+the general operator of ``ops/matvec.py``), as in the JAX package.  An
+octree model with brick metadata runs on the hybrid level-grid backend
+(``parallel/hybrid.py``: the brick cells of each refinement level through
+the slab kernels, the transition cells on the general operator) when
+asked for (``backend="hybrid"``), or under auto with
+``PCG_TPU_ENABLE_HYBRID=1``; it always takes the chunked path, and in
+mixed precision its float64 matvecs there run on the refresh operator of
+``PCG_TPU_HYBRID_F64_REFRESH`` (the bucketed general blocks by default).
+For each time step: Dirichlet lifting ->
 preconditioner rebuild (scalar Jacobi, 3x3 block Jacobi or the mg
 V-cycle's operand) -> PCG (``SolverConfig.pcg_variant``: classic, fused
 or pipelined; direct, or the mixed f32/f64 refinement shell) -> u = x +
@@ -45,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import warnings
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -55,10 +63,13 @@ from pcg_mpi_solver_tpu_torch.config import (
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
 from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
-from pcg_mpi_solver_tpu_torch.ops.matvec import Ops, device_data
+from pcg_mpi_solver_tpu_torch.ops.matvec import (
+    Ops, bucketed_matvec, build_bucketed_blocks, device_data)
 from pcg_mpi_solver_tpu_torch.ops.precond import fallback_kind, make_prec
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
+from pcg_mpi_solver_tpu_torch.parallel.hybrid import (
+    HybridOps, can_hybrid, device_data_hybrid, partition_hybrid)
 from pcg_mpi_solver_tpu_torch.parallel.partition import (
     GRAPH_ITEM, partition_model)
 from pcg_mpi_solver_tpu_torch.parallel.structured import (
@@ -188,9 +199,13 @@ def _check_slice(config: RunConfig) -> None:
             f"(ROADMAP queue 1 item {GRAPH_ITEM})")
 
 
-# the ROADMAP queue 1 item of the hybrid backend, not ported yet
-HYBRID_ITEM = 13
 BACKENDS = ("auto", "structured", "hybrid", "general")
+# the float64 refresh operators of a mixed hybrid solve
+F64_REFRESH = ("bucketed", "general", "stencil")
+HYBRID_GATE_NOTE = (
+    "model is hybrid-backend eligible but auto-selection is gated (set "
+    "PCG_TPU_ENABLE_HYBRID=1 or pass backend='hybrid'); using the general "
+    "backend")
 
 
 def can_structured(model: ModelData, config: RunConfig, n_parts: int,
@@ -207,19 +222,12 @@ def can_structured(model: ModelData, config: RunConfig, n_parts: int,
             and model.grid[0] % n_parts == 0)
 
 
-def can_hybrid(model: ModelData) -> bool:
-    """Hybrid-backend eligibility: octree lattice metadata with a brick
-    type."""
-    return (model.octree is not None
-            and model.octree.get("brick_type") is not None)
-
-
 def select_backend(model: ModelData, config: RunConfig, n_parts: int,
                    backend: str = "auto", elem_part=None) -> str:
     """The JAX package's backend choice: the structured slab when the
-    model allows it, else the general backend.  The hybrid backend (asked
-    for, or auto-selected under ``PCG_TPU_ENABLE_HYBRID=1`` on a model that
-    can take it) is not ported yet and raises."""
+    model allows it; else the hybrid level-grid backend when asked for, or
+    under auto with ``PCG_TPU_ENABLE_HYBRID=1`` on a model that can take
+    it; else the general backend."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be 'auto'|'structured'|'hybrid'|"
                          f"'general', got {backend!r}")
@@ -235,11 +243,20 @@ def select_backend(model: ModelData, config: RunConfig, n_parts: int,
     if backend == "hybrid" or (
             backend == "auto" and can_hybrid(model)
             and os.environ.get("PCG_TPU_ENABLE_HYBRID") == "1"):
-        raise NotImplementedError(
-            f"the hybrid (octree level-grid) backend is not ported yet "
-            f"(ROADMAP queue 1 item {HYBRID_ITEM}); backend='general' "
-            f"solves the same model")
+        return "hybrid"
     return "general"
+
+
+def hybrid_f64_refresh() -> str:
+    """``PCG_TPU_HYBRID_F64_REFRESH``, validated: the operator of a mixed
+    hybrid solve's float64 matvecs on the chunked path (lifting, r0, the
+    refinement residuals): ``bucketed`` (default), ``general`` or
+    ``stencil`` (the level grids themselves)."""
+    knob = os.environ.get("PCG_TPU_HYBRID_F64_REFRESH", "bucketed")
+    if knob not in F64_REFRESH:
+        raise ValueError(f"PCG_TPU_HYBRID_F64_REFRESH={knob!r}: expected "
+                         f"'bucketed' (default), 'stencil' or 'general'")
+    return knob
 
 
 class Solver:
@@ -268,8 +285,17 @@ class Solver:
             run_mg_preflight(model, self.config)
         self.backend = select_backend(model, self.config, n_parts, backend,
                                       elem_part)
+        if (backend == "auto" and self.backend == "general"
+                and can_hybrid(model)):
+            self._rec.note(HYBRID_GATE_NOTE)
         sc = self.config.solver
         general = self.backend == "general"
+        hybrid = self.backend == "hybrid"
+        if hybrid and sc.precond == "mg":
+            raise ValueError(
+                "precond='mg' is not supported on the hybrid level-grid "
+                "backend; use backend='general' or 'structured' (or "
+                "precond='jacobi'|'block3')")
         self.mixed = sc.precision_mode == "mixed"
         self.dtype = torch.float64 if self.mixed else _DTYPES[sc.dtype]
         dot_dtype = _DTYPES[sc.dot_dtype]
@@ -281,19 +307,44 @@ class Solver:
                               if VARIANTS[self.kernel_variant][1] else None)
         kernel = dict(variant=self.kernel_variant, planes=self.kernel_planes)
 
+        # the float64 refresh of a mixed hybrid solve (the JAX package
+        # records "stencil" everywhere else)
+        self.f64_refresh = "stencil"
+        if hybrid:
+            knob = hybrid_f64_refresh()
+            if self.mixed and knob != "stencil":
+                self.f64_refresh = knob
         t_part = time.perf_counter()
         mg_degree = int(sc.mg_smooth_degree)
         if general:
             self.pm = partition_model(model, n_parts, elem_part=elem_part,
                                       method=self.config.partition_method)
+        elif hybrid:
+            self.pm = partition_hybrid(model, n_parts, elem_part=elem_part,
+                                       method=self.config.partition_method)
         else:
             self.pm = partition_structured(model, n_parts)
         self.partition_build_s = time.perf_counter() - t_part
+        # the refresh's full general partition (hybrid, mixed)
+        self.refresh_partition_s = 0.0
+        pm_full = None
+        if self.f64_refresh != "stencil":
+            t_full = time.perf_counter()
+            pm_full = self._refresh_partition(model, n_parts)
+            self.refresh_partition_s = time.perf_counter() - t_full
         t_up = time.perf_counter()
+        self._refresh64 = None
         if general:
             self.ops = Ops.from_model(self.pm, dot_dtype=dot_dtype,
                                       mg_degree=mg_degree)
             self.data = device_data(self.pm, self.dtype, self.device)
+        elif hybrid:
+            self.ops = HybridOps.from_hybrid(
+                self.pm, dot_dtype=dot_dtype, mg_degree=mg_degree,
+                **(kernel if self.dtype == torch.float32 else {}))
+            self.data = device_data_hybrid(self.pm, self.dtype, self.device)
+            if pm_full is not None:
+                self._refresh64 = self._refresh_operator(pm_full)
         else:
             self.ops = StructuredOps.from_partition(
                 self.pm, dot_dtype=dot_dtype, mg_degree=mg_degree,
@@ -321,11 +372,16 @@ class Solver:
             # f32 shadow of the float leaves (the f32 inner cycles' data);
             # their dots accumulate in f32
             self.data32 = mgmod.cast_tree(self.data, torch.float32)
-            self.ops32 = (
-                dataclasses.replace(self.ops, dot_dtype=torch.float32)
-                if general else StructuredOps.from_partition(
+            if general:
+                self.ops32 = dataclasses.replace(self.ops,
+                                                 dot_dtype=torch.float32)
+            elif hybrid:
+                self.ops32 = dataclasses.replace(
+                    self.ops, dot_dtype=torch.float32, **kernel)
+            else:
+                self.ops32 = StructuredOps.from_partition(
                     self.pm, dot_dtype=torch.float32, mg_degree=mg_degree,
-                    **kernel))
+                    **kernel)
         if self.mg_setup is not None:
             # the fine level's Chebyshev bound: power-iteration matvecs on
             # the uploaded storage-dtype operator, installed with the
@@ -345,7 +401,8 @@ class Solver:
         # subsystem (resilience/): the JAX package's auto cap engages at
         # 4 M dofs; one device holds every part's rows
         self._dispatch_cap = auto_dispatch_cap(
-            sc, self.pm.glob_n_dof, self.pm.n_loc * self.pm.n_parts)
+            sc, self.pm.glob_n_dof, self.pm.n_loc * self.pm.n_parts,
+            force_engage=hybrid)
         # settable: tests inject programmatically, PCG_TPU_FAULTS drives
         # drills
         self.fault_plan = FaultPlan.from_env(recorder=self._rec)
@@ -362,7 +419,9 @@ class Solver:
                 ops=self.ops, scfg=sc, glob_n_dof_eff=self.pm.glob_n_dof_eff,
                 cap=self._dispatch_cap, mixed=self.mixed,
                 ops32=self.ops32 if self.mixed else None,
-                recorder=self._rec, log=self.dispatch_log)
+                recorder=self._rec, log=self.dispatch_log,
+                kmul64=(lambda _d, v: self._k64(v))
+                if self._refresh64 is not None else None)
         self.flags: List[int] = []
         self.relres: List[float] = []
         self.iters: List[int] = []
@@ -374,18 +433,61 @@ class Solver:
         self.un = torch.zeros((self.pm.n_parts, self.pm.n_loc),
                               dtype=self.dtype, device=self.device)
 
+    def _refresh_partition(self, model: ModelData, n_parts: int):
+        """The full general partition a hybrid solve's float64 refresh
+        runs on, on the hybrid partition's element map (so the same local
+        numbering, checked)."""
+        pm_full = partition_model(model, n_parts,
+                                  elem_part=self.pm.elem_part)
+        if not (pm_full.n_loc == self.pm.n_loc
+                and np.array_equal(pm_full.node_gid, self.pm.node_gid)):
+            raise RuntimeError(
+                "general-refresh partition numbering diverged from the "
+                "hybrid partition (same elem_part must yield identical "
+                "local dof layouts)")
+        if self.f64_refresh == "bucketed" and pm_full.ell is None:
+            # bucketing moves node rows; a model without the node layout
+            # takes the unbucketed general form
+            warnings.warn("PCG_TPU_HYBRID_F64_REFRESH=bucketed needs the "
+                          "node layout; using 'general' for this model")
+            self.f64_refresh = "general"
+        return pm_full
+
+    def _refresh_operator(self, pm_full) -> Callable:
+        """v -> K.v in float64 on ``pm_full``: the bucketed blocks or the
+        general operator."""
+        if self.f64_refresh == "bucketed":
+            rops = Ops(n_loc=pm_full.n_loc, n_iface=pm_full.n_iface,
+                       n_node_loc=pm_full.n_node_loc,
+                       n_node_iface=pm_full.n_node_iface,
+                       n_parts=pm_full.n_parts)
+            rdata = build_bucketed_blocks(pm_full, torch.float64,
+                                          self.device)
+            return lambda v: bucketed_matvec(rops, rdata, v)
+        rops = Ops.from_model(pm_full)
+        rdata = device_data(pm_full, torch.float64, self.device)
+        return lambda v: rops.matvec(rdata, v)
+
+    def _k64(self, v: torch.Tensor) -> torch.Tensor:
+        """Assembled K.v in the storage dtype (float64 in mixed): through
+        the hybrid refresh operator when one is set, else the solver's."""
+        if self._refresh64 is not None:
+            return self._refresh64(v)
+        return self.ops.matvec(self.data, v)
+
     def _lift(self, delta: float):
         """Dirichlet lifting of a step: (u_d = Ud * delta, Fext = eff *
-        (F * delta - K.u_d), x0 = eff * u_prev)."""
+        (F * delta - K.u_d), x0 = eff * u_prev), K.u_d by :meth:`_k64`."""
         data64 = self.data
         eff = data64["eff"]
         udi = data64["Ud"] * delta
-        fext = eff * (data64["F"] * delta - self.ops.matvec(data64, udi))
+        fext = eff * (data64["F"] * delta - self._k64(udi))
         return udi, fext, eff * self.un
 
     def _amul64(self, v: torch.Tensor) -> torch.Tensor:
-        """eff * K.v on the storage-dtype (float64 in mixed) operator."""
-        return self.data["eff"] * self.ops.matvec(self.data, v)
+        """eff * K.v on the storage-dtype (float64 in mixed) operator, the
+        hybrid refresh's when one is set."""
+        return self.data["eff"] * self._k64(v)
 
     def step(self, delta: float) -> StepResult:
         """One quasi-static step at load factor ``delta``: the chunked

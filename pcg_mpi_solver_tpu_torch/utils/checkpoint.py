@@ -80,22 +80,25 @@ def _fingerprint(solver) -> dict:
     """Everything that must not drift between a checkpoint and its
     resume, under the JAX package's field names.  Fields of options the
     port does not run take their one value (``trace_len`` 0, ``n_procs``
-    1, ``level_dims`` [], ``combine`` and ``combine_kd`` "n/a",
-    ``f64_refresh`` "stencil").  ``matvec_form`` is "gse" on the
-    structured backend (the port's structured product sums each cell's
-    corner contributions per node, the JAX package's default gse form)
-    and "n/a" on the general one; ``pallas`` names the float32 kernel
-    variant when a float32 structured product runs on the card (mixed, or
-    direct float32), else "off" (the plain version on the CPU, and the
-    general operator, have one summation order), as the JAX package's
-    ``_effective_kernel``."""
+    1).  ``matvec_form`` is "gse" on the structured and hybrid backends
+    (the port's slab product sums each cell's corner contributions per
+    node, the JAX package's default gse form) and "n/a" on the general
+    one; ``pallas`` names the float32 kernel variant when a float32 slab
+    product runs on the card (mixed, or direct float32), else "off" (the
+    plain version on the CPU, and the general operator, have one
+    summation order), as the JAX package's ``_effective_kernel``.  The
+    hybrid backend's level block dims, level combine (with its dense
+    width KD under ``gather``) and float64 refresh reorder sums, so they
+    are fields too (``[]``, "n/a", "n/a" and "stencil" on the other
+    backends)."""
     cfg = solver.config
     sc = cfg.solver
     th = cfg.time_history
     meta = solver.mg_setup.meta if solver.mg_setup is not None else None
     kernel = ((solver.mixed or solver.dtype == torch.float32)
-              and solver.backend == "structured"
+              and solver.backend in ("structured", "hybrid")
               and solver.device.type == "cuda")
+    combine = getattr(solver.ops, "combine", "n/a")
     return {
         "model_hash": _model_hash(solver),
         "glob_n_dof": int(solver.pm.glob_n_dof),
@@ -125,11 +128,14 @@ def _fingerprint(solver) -> dict:
         "plot": [bool(th.plot_flag), [int(d) for d in th.probe_dofs]],
         "backend": solver.backend,
         "pallas": solver.kernel_variant if kernel else "off",
-        "matvec_form": "gse" if solver.backend == "structured" else "n/a",
-        "level_dims": [],
-        "combine": "n/a",
-        "combine_kd": "n/a",
-        "f64_refresh": "stencil",
+        "matvec_form": ("gse" if solver.backend in ("structured", "hybrid")
+                        else "n/a"),
+        "level_dims": [list(d) for d in getattr(solver.ops, "level_dims",
+                                                ())],
+        "combine": combine,
+        "combine_kd": (int(solver.ops.combine_k[0]) if combine == "gather"
+                       else "n/a"),
+        "f64_refresh": solver.f64_refresh,
     }
 
 

@@ -8,7 +8,11 @@ sides (``solve_many`` on the card against the CPU under each variant, a
 blocked matvec's columns bit for bit its single launches, two blocks
 bitwise equal, one kernel launch a lockstep trip), and the chunked path
 (capped dispatches bitwise the one-shot solve, a NaN-carry recovery,
-kill-and-resume bitwise).  They carry the ``cuda`` marker and skip with a reason where
+kill-and-resume bitwise), and the hybrid level-grid backend (every
+kernel on level batches, the operator and the bucketed refresh against
+the CPU and bitwise repeatable, the 6^3 octree solve against the CPU, a
+block's columns bit for bit their width-1 solves).  They carry the
+``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
 JAX conftest:
@@ -874,3 +878,162 @@ def test_kill_and_resume_bitwise_on_card(cuda_device, tmp_path, mode):
     assert sr.relres == sa.relres
     np.testing.assert_array_equal(sr.displacement_global(),
                                   sa.displacement_global())
+
+
+# ----------------------------------------------------------------------
+# The hybrid level-grid backend on the card
+# ----------------------------------------------------------------------
+
+# level batches as the hybrid backend gives them: thousands of 8^3-cell
+# blocks in one launch, and the 6^3 octree's 1x1x1, 12^3 and 22x24x24
+# dense levels
+HYBRID_LEVEL_SHAPES = [(3000, 8, 8, 8), (1, 1, 1, 1), (2, 12, 12, 12),
+                       (1, 22, 24, 24)]
+HYBRID_KERNELS = [(v, "float32") for v in
+                  ("v6", "v1", "v2", "v3", "v4", "v5", "v7", "v8", "v9")] \
+    + [("v6", "float64")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,name", HYBRID_KERNELS,
+                         ids=[f"{v}-{d}" for v, d in HYBRID_KERNELS])
+def test_kernels_on_hybrid_level_batches(cuda_device, variant, name):
+    """Each kernel on level batches with holes (ck = 0 on 70 % of the
+    cells, as a level's block holds few bricks): within the kernel
+    tolerance of the plain version, two launches bitwise equal, one
+    launch a batch."""
+    dtype = getattr(torch, name)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    rng = np.random.default_rng(21)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"], dtype=dtype,
+                         device=cuda_device)
+    for P, nx, ny, nz in HYBRID_LEVEL_SHAPES:
+        x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
+                            dtype=dtype, device=cuda_device)
+        ck = rng.uniform(1, 10, (P, nx, ny, nz))
+        ck[rng.uniform(size=ck.shape) < 0.7] = 0.0
+        ck = torch.as_tensor(ck, dtype=dtype, device=cuda_device)
+        before = smv.LAUNCHES[(variant, name)]
+        y = smv.structured_matvec(x, ck, Ke, variant=variant)
+        y2 = smv.structured_matvec(x, ck, Ke, variant=variant)
+        torch.cuda.synchronize()
+        assert smv.LAUNCHES[(variant, name)] == before + 2
+        assert torch.equal(y, y2)
+        y_plain = smv.structured_matvec_plain(x, ck, Ke)
+        assert (y - y_plain).abs().max() <= tol * y_plain.abs().max(), \
+            (P, nx, ny, nz)
+
+
+def _hybrid_octree(n=3, max_level=3):
+    from pcg_mpi_solver_tpu_torch.models import make_octree_model
+
+    return make_octree_model(n, n, n, max_level=max_level, n_incl=2, seed=3,
+                             E=30e9, load_value=1e6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+def test_hybrid_matvec_on_card_matches_cpu(cuda_device, dtype, tol):
+    """Two parts: matvec, diag and node blocks on the card against the
+    CPU's float64 (tol * max|y|); two card matvecs bitwise equal; one
+    kernel launch a level; a structured matvec with another Ke between two
+    hybrid matvecs leaves them equal (each Ke is staged on its own
+    turn)."""
+    from pcg_mpi_solver_tpu_torch.parallel.hybrid import (
+        HybridOps, device_data_hybrid, partition_hybrid)
+
+    hp = partition_hybrid(_hybrid_octree(), 2)
+    ops = HybridOps.from_hybrid(hp)
+    cpu = device_data_hybrid(hp, torch.float64, "cpu")
+    card = device_data_hybrid(hp, dtype, cuda_device)
+    x = np.where(hp.dof_gid >= 0, np.random.default_rng(5).standard_normal(
+        hp.dof_gid.shape), 0.0)
+    y_cpu = ops.matvec(cpu, torch.as_tensor(x))
+    xc = torch.as_tensor(x, dtype=dtype, device=cuda_device)
+    name = str(dtype).removeprefix("torch.")
+    before = smv.LAUNCHES[("v6", name)]
+    y1 = ops.matvec(card, xc)
+    assert smv.LAUNCHES[("v6", name)] == before + len(hp.levels)
+    other = torch.as_tensor(unit_element_library(0.3)["Ke"], dtype=dtype,
+                            device=cuda_device)
+    g = torch.ones((1, 3, 3, 3, 3), dtype=dtype, device=cuda_device)
+    smv.structured_matvec(g, torch.ones((1, 2, 2, 2), dtype=dtype,
+                                        device=cuda_device), other)
+    y2 = ops.matvec(card, xc)
+    assert torch.equal(y1, y2)
+    assert (y1.cpu().double() - y_cpu).abs().max() <= tol * y_cpu.abs().max()
+    for fn in (ops.diag, ops.node_block_diag):
+        a, b = fn(card).cpu().double(), fn(cpu)
+        assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_bucketed_refresh_repeats_bitwise_on_card(cuda_device):
+    """The bucketed float64 refresh: two card matvecs bitwise equal (its
+    node sums are fixed-order gathers), within 1e-12 of the CPU's."""
+    from pcg_mpi_solver_tpu_torch.ops.matvec import (
+        Ops, bucketed_matvec, build_bucketed_blocks)
+    from pcg_mpi_solver_tpu_torch.parallel.partition import partition_model
+
+    pm = partition_model(_hybrid_octree(), 2)
+    ops = Ops(n_loc=pm.n_loc, n_iface=pm.n_iface, n_node_loc=pm.n_node_loc,
+              n_node_iface=pm.n_node_iface, n_parts=pm.n_parts)
+    x = np.where(pm.dof_gid >= 0, np.random.default_rng(6).standard_normal(
+        pm.dof_gid.shape), 0.0)
+    y_cpu = bucketed_matvec(ops, build_bucketed_blocks(
+        pm, torch.float64, "cpu"), torch.as_tensor(x))
+    card = build_bucketed_blocks(pm, torch.float64, cuda_device)
+    xc = torch.as_tensor(x, device=cuda_device)
+    y1, y2 = bucketed_matvec(ops, card, xc), bucketed_matvec(ops, card, xc)
+    assert torch.equal(y1, y2)
+    assert (y1.cpu() - y_cpu).abs().max() <= 1e-12 * y_cpu.abs().max()
+
+
+@pytest.mark.cuda
+def test_hybrid_octree6_solve_on_card_matches_cpu(cuda_device):
+    """The 6^3 cut of the octree flagship (its 1x1x1, 12^3 and 22x24x24
+    levels beside tiled 8^3 ones) through Solver(backend="hybrid"), mixed,
+    tol 1e-7, on the card and on the CPU: flag 0, iterations within
+    max(3, 5 %), displacements within 1e-5 of max|u|; the float32 v6
+    kernel launched at least levels x iterations times."""
+    from pcg_mpi_solver_tpu_torch.models import make_octree_model
+
+    m = make_octree_model(6, 6, 6, max_level=4, n_incl=6, seed=2, E=30e9,
+                          nu=0.2, load="traction", load_value=1e6)
+    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
+    smv.reset_launch_counts()
+    card = Solver(m, cfg, backend="hybrid")
+    rc = card.step(1.0)
+    assert smv.LAUNCHES[("v6", "float32")] >= \
+        len(card.ops.level_dims) * rc.iters
+    cpu = Solver(m, cfg, device="cpu", backend="hybrid")
+    rp = cpu.step(1.0)
+    assert rc.flag == rp.flag == 0 and rc.relres <= 1e-7
+    assert abs(rc.iters - rp.iters) <= max(3, 0.05 * rp.iters)
+    uc, up = card.displacement_global(), cpu.displacement_global()
+    assert np.abs(uc - up).max() <= 1e-5 * np.abs(up).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "mixed"])
+def test_hybrid_block_columns_equal_width1_solves(cuda_device, mode):
+    """A width-2 hybrid block (one launch a level over R * P * nb blocks):
+    each column's flag, iterations and x bit for bit its width-1 solve's
+    on the card."""
+    m = _hybrid_octree()
+    kw = dict(tol=1e-8, max_iter=2000)
+    kw.update(dict(precision_mode="mixed") if mode == "mixed"
+              else dict(dtype="float64"))
+    s = Solver(m, RunConfig(solver=SolverConfig(**kw)), n_parts=2,
+               backend="hybrid")
+    F = np.asarray(m.F)
+    Fr = np.random.default_rng(8).standard_normal(F.shape) * (F != 0)
+    blk = s.solve_many(np.stack([F, Fr], -1))
+    ub = s.displacement_global_many(blk.x)
+    for j, col in enumerate((F, Fr)):
+        one = s.solve_many(col[:, None])
+        assert (int(one.flags[0]), int(one.iters[0])) == \
+            (int(blk.flags[j]), int(blk.iters[j])) and blk.flags[j] == 0
+        np.testing.assert_array_equal(
+            s.displacement_global_many(one.x)[:, 0], ub[:, j])

@@ -22,9 +22,10 @@ Windows:
   x within 1e-5; block3, fused and pipelined one case each; two parts
   against one at +-1; the glued blocks (mixed) and Poisson (direct);
   ``solve_many`` columns against the JAX package's.
-- The backend choice as the JAX Solver makes it, and the refusals:
-  hybrid (ROADMAP queue 1 item 13) and the graph partitioner (item 15);
-  mg on the general backend is ``tests/test_torch_mg_general.py``.
+- The backend choice as the JAX Solver makes it, and the refusal of the
+  graph partitioner (ROADMAP queue 1 item 15); the hybrid backend is
+  ``tests/test_torch_hybrid_solver.py``, mg on the general backend
+  ``tests/test_torch_mg_general.py``.
 """
 
 import dataclasses
@@ -297,18 +298,11 @@ def test_backend_choice_follows_jax():
         Solver(cube, cfg, device="cpu", backend="slab")
 
 
-@pytest.mark.parametrize("case,item", [
-    ("hybrid", 13), ("hybrid_auto", 13), ("graph", 15)])
-def test_general_refusals_name_their_items(case, item, monkeypatch):
+@pytest.mark.parametrize("case,item", [("graph", 15)])
+def test_general_refusals_name_their_items(case, item):
     args, kw = OCTREE
     octree = make_octree_model(*args, **kw)
-    cfg, skw = RunConfig(), dict(device="cpu")
-    if case == "hybrid":
-        skw["backend"] = "hybrid"
-    elif case == "hybrid_auto":
-        monkeypatch.setenv("PCG_TPU_ENABLE_HYBRID", "1")
-    else:
-        cfg = RunConfig(partition_method="graph")
+    cfg = RunConfig(partition_method="graph")
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP queue 1 item {item}\b"):
-        Solver(octree, cfg, **skw)
+        Solver(octree, cfg, device="cpu")

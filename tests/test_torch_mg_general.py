@@ -23,7 +23,7 @@ the JAX package, on the CPU.
   ``mg_levels`` with the JAX package's message, on the octree and on a
   cube; with the preflight off, the builder's ``MGSetupError``; under
   ``warn``, the JAX package's warning and then that ``MGSetupError``.  mg on
-  the hybrid backend stays refused.
+  the hybrid backend stays refused, with the JAX package's ``ValueError``.
 """
 
 import numpy as np
@@ -264,6 +264,7 @@ def test_replication_cap_is_a_preflight_error_like_jax():
 
 def test_mg_on_hybrid_stays_refused():
     tm = make_octree_model(2, 2, 2, max_level=2, **OCT)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="precond='mg' is not supported "
+                                         "on the hybrid"):
         Solver(tm, RunConfig(solver=SolverConfig(precond="mg")),
                device="cpu", backend="hybrid")

@@ -24,8 +24,8 @@ print(",".join(bad))
 print(",".join(names))
 """
 
-# the general backend's modules, and the chunked path's and resilience
-# subsystem's, which the walk above must reach
+# the general backend's modules, the chunked path's and resilience
+# subsystem's, and the hybrid backend's, which the walk above must reach
 GENERAL_MODULES = ("pcg_mpi_solver_tpu_torch.models.octree",
                    "pcg_mpi_solver_tpu_torch.parallel.partition",
                    "pcg_mpi_solver_tpu_torch.ops.matvec")
@@ -33,6 +33,8 @@ CHUNKED_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
     "solver.chunked", "resilience.recovery", "resilience.faultinject",
     "resilience.engine", "utils.checkpoint", "obs.metrics",
     "validate.preflight", "ops.mg"))
+# the hybrid level-grid backend
+HYBRID_MODULES = ("pcg_mpi_solver_tpu_torch.parallel.hybrid",)
 
 
 def is_forbidden(module: str) -> bool:
@@ -50,6 +52,7 @@ def test_port_imports_no_jax():
     assert n_modules >= 12, out.stdout
     assert set(GENERAL_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(CHUNKED_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(HYBRID_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
 
 

@@ -133,7 +133,6 @@ def test_partition_from_numpy_round_trip():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(block_filter=np.ones(1, bool)), 13),
     (dict(part_range=(0, 1)), 12),
     (dict(comm=object()), 12),
     (dict(layout=object()), 12),

@@ -95,20 +95,6 @@ def test_solver_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert Solver(m, RunConfig(), device="cpu").device.type == "cpu"
 
 
-def test_unported_backends_raise(monkeypatch):
-    """The hybrid backend (asked for, or auto-selected under
-    PCG_TPU_ENABLE_HYBRID=1 on an octree model) is ROADMAP queue 1 item
-    13; every other model solves (test_general_backend_models_solve)."""
-    from pcg_mpi_solver_tpu_torch.models import make_octree_model
-
-    octree = make_octree_model(2, 2, 2, max_level=2, n_incl=2, seed=3)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Solver(octree, RunConfig(), device="cpu", backend="hybrid")
-    monkeypatch.setenv("PCG_TPU_ENABLE_HYBRID", "1")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Solver(octree, RunConfig(), device="cpu")
-
-
 @pytest.mark.parametrize("dims,kw,n_parts", [
     ((4, 3, 3), dict(n_types=2), 1),    # two pattern types: no grid
     ((5, 3, 3), {}, 2),                 # nx not divisible by the parts
@@ -148,8 +134,6 @@ def _refuse(where):
         return Ops._psum.__doc__
     octree = make_octree_model(2, 2, 2, max_level=2, n_incl=2, seed=3)
     calls = {
-        "block_filter": lambda: partition_model(
-            octree, 2, block_filter=np.ones(octree.n_elem, bool)),
         "part_range": lambda: partition_model(octree, 2, part_range=(0, 1)),
         "comm": lambda: partition_model(octree, 2, comm=object()),
         "layout": lambda: partition_model(octree, 2, layout=object()),
@@ -162,7 +146,6 @@ def _refuse(where):
 
 @pytest.mark.parametrize("where,items", [
     ("psum", [r"sharding is ROADMAP queue 1 item 12\b"]),
-    ("block_filter", [r"ROADMAP queue 1 item 13\b"]),
     ("part_range", [r"ROADMAP queue 1 item 12\b"]),
     ("comm", [r"ROADMAP queue 1 item 12\b"]),
     ("layout", [r"ROADMAP queue 1 item 12\b"]),
@@ -172,7 +155,7 @@ def test_module_refusals_name_their_queue_items(where, items):
     """Each refusal inside the port's modules (outside solver/driver.py's
     option refusals, which tests/test_torch_config.py checks) names the
     ROADMAP queue 1 item that owns what it refuses: sharding 12, the
-    hybrid backend 13, the native graph partitioner 15."""
+    native graph partitioner 15."""
     text = " ".join(_refuse(where).split())
     for item in items:
         assert re.search(item, text), (where, text)
