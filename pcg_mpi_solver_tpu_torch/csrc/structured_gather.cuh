@@ -30,13 +30,20 @@
 //     shared-memory reads are 32 consecutive floats and a tile is 32 nodes
 //     wide in z (151 = 5 x 32 - 9 at 150^3; 64-wide z pairs would waste 41).
 //   * Node planes ((kRows + 2) x 34 nodes x 3 components) and ck planes
-//     ((kRows + 1) x 33 cells) come into a ring of two chunks by cp.async
-//     (C planes a chunk, 2C + 2 slots: a chunk's C steps read C + 2 node
-//     planes while the next chunk's C planes land), zero-filled off the
+//     ((kRows + 1) x 33 cells) come into a ring of two groups by cp.async
+//     (G planes a group, 2G + 2 slots: a group's G steps read G + 2 node
+//     planes while the next group's G planes land), zero-filled off the
 //     grid: an off-grid cell has ck = 0, so its products vanish and no
-//     compute step checks a bound.  A table built when the block starts
-//     holds each copy's source offset within a plane and its destination,
-//     as in structured_tiles.cuh.  Two barriers per chunk.
+//     compute step checks a bound.  A group is a chunk of C planes (the
+//     JAX package's PCG_TPU_PALLAS_PLANES) where its ring fits 227 KB at
+//     the tile's rows, i.e. G = C up to C = 19 at 8 rows, 35 at 4 and 54
+//     at 2; above that each chunk is staged in groups of G, the largest
+//     whose ring fits (group_planes), the last one of a chunk shorter.
+//     Chunks stay aligned at multiples of C from the segment's start.  The
+//     arithmetic of a step does not depend on C or G: every C gives the
+//     same bits.  A table built when the block starts holds each copy's
+//     source offset within a plane and its destination, as in
+//     structured_tiles.cuh.  Two barriers per group.
 //   * A thread keeps its 3 x 4 x 3 node window (x, y, z; 3 components) and
 //     2 x 3 x 2 ck window in registers and slides it along x: a step loads
 //     one node plane of the window (36 values) and one ck plane (6) from
@@ -50,9 +57,9 @@
 //     and the cell plane before it (no carry).  The wrapper
 //     (ops/structured_matvec.py::v5_geometry) chooses kRows (the tallest of
 //     8, 4, 2 whose ring fits 227 KB at this C: 8 at C = 8 and 16), the
-//     tiles and the segment length and passes them in; a C whose ring does
-//     not fit even at 2 rows (C above 54) is refused
-//     (cudaErrorInvalidConfiguration).  At C = 8 two 128-thread blocks
+//     tiles and the segment length and passes them in; a C whose whole
+//     ring does not fit even at 2 rows (C above 54) keeps the 2-row tile
+//     and is staged in groups of 54.  At C = 8 two 128-thread blocks
 //     share an SM (107.7 KB each).
 //   * Each output node plane is written once, 32 consecutive z nodes a
 //     warp row.  A fixed summation order: two launches give the same bits.
@@ -90,23 +97,43 @@ struct Tile {
   static constexpr int kCopies = kSlot;                 // one per value
 };
 
-// Dynamic shared memory: the ring of 2C + 2 slots, Ke and the copy table
+// The shared memory a block can have on an H100 (227 KB).
+constexpr size_t kBlockSmem = 232448;
+
+// Values of one ring slot of a rows-high tile.
+inline size_t slot_values(int rows) {
+  return 3 * static_cast<size_t>(rows + 2) * kNodesZ +
+         static_cast<size_t>(rows + 1) * kCellsZ;
+}
+
+// G, the planes of a staging group at chunk C: C where the ring of 2C + 2
+// slots, Ke and the copy table fit kBlockSmem, else the largest G whose
+// ring does (ops/structured_matvec.py::v5_group mirrors it).
+inline int group_planes(int C, int rows) {
+  const size_t slot = slot_values(rows);
+  const size_t fixed = sizeof(float) * 576 + sizeof(int2) * slot;
+  const long long fit =
+      (static_cast<long long>((kBlockSmem - fixed) / (sizeof(float) * slot)) -
+       2) / 2;
+  return static_cast<int>(fit < C ? (fit < 1 ? 1 : fit) : C);
+}
+
+// Dynamic shared memory: the ring of 2G + 2 slots, Ke and the copy table
 // (ops/structured_matvec.py::v5_smem_bytes mirrors it).
 inline size_t smem_bytes(int C, int rows) {
-  const size_t slot = 3 * static_cast<size_t>(rows + 2) * kNodesZ +
-                      static_cast<size_t>(rows + 1) * kCellsZ;
-  return sizeof(float) * ((2 * static_cast<size_t>(C) + 2) * slot + 576) +
-         sizeof(int2) * slot;
+  const size_t slot = slot_values(rows);
+  const size_t G = static_cast<size_t>(group_planes(C, rows));
+  return sizeof(float) * ((2 * G + 2) * slot + 576) + sizeof(int2) * slot;
 }
 
 template <class Ke, int kRows>
 __global__ void __launch_bounds__(Tile<kRows>::kThreads, 1)
 matvec_kernel(const float* __restrict__ x, const float* __restrict__ ck,
-              float* __restrict__ y, int nx, int ny, int nz, int C,
+              float* __restrict__ y, int nx, int ny, int nz, int C, int G,
               int seg_len, int n_ty, int n_tz, int n_seg) {
   using T = Tile<kRows>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ring = 2 * C + 2;
+  const int ring = 2 * G + 2;
   float* const ke_s = reinterpret_cast<float*>(smem_raw);     // [576]
   float* const slots = ke_s + 576;                            // [ring][kSlot]
   int2* const table =
@@ -210,12 +237,20 @@ matvec_kernel(const float* __restrict__ x, const float* __restrict__ ck,
   const float4* const ke4 = reinterpret_cast<const float4*>(ke_s);
   const int gy = iy0 + 2 * warp, gz = iz0 + lane;
 
-  const int n_chunks = (n_steps + C - 1) / C;
-  issue(0, C + 2);
-  for (int q = 0; q < n_chunks; ++q) {
-    // the slots of chunk q - 1's first C steps, read before its last
-    // barrier
-    issue(q * C + C + 2, q * C + 2 * C + 2);
+  // group q ends at step group_end(q): groups of G steps from each chunk
+  // start (a multiple of C), the last one of a chunk shorter; with G = C a
+  // group is a chunk
+  const int per_chunk = (C + G - 1) / G;
+  auto group_end = [&](int q) {
+    const int g = q % per_chunk;
+    return min(q / per_chunk * C + min(g * G + G, C), n_steps);
+  };
+  issue(0, group_end(0) + 2);
+  for (int q = 0, k = 0; k < n_steps; ++q) {
+    // the next group's slots, into those of group q - 1's first steps,
+    // read before its last barrier
+    const int k_end = group_end(q);
+    issue(k_end + 2, group_end(q + 1) + 2);
     wait_copies<1>();
     __syncthreads();
     if (q == 0) {
@@ -223,8 +258,7 @@ matvec_kernel(const float* __restrict__ x, const float* __restrict__ ck,
       load_nodes(2, 1);
       load_cks(1, 0);
     }
-    const int k_end = min(q * C + C, n_steps);
-    for (int k = q * C; k < k_end; ++k) {
+    for (; k < k_end; ++k) {
       // slide: node planes k, k+1, k+2 and cell planes k, k+1 of the slots
 #pragma unroll
       for (int ry = 0; ry < 4; ++ry)
@@ -305,7 +339,8 @@ int launch_rows(const float* x, const float* ck, float* y, int parts, int nx,
   if (e != cudaSuccess) return static_cast<int>(e);
   matvec_kernel<Ke, kRows><<<static_cast<int>(blocks),
                              Tile<kRows>::kThreads, smem, stream>>>(
-      x, ck, y, nx, ny, nz, C, seg_len, n_ty, n_tz, n_seg);
+      x, ck, y, nx, ny, nz, C, group_planes(C, kRows), seg_len, n_ty, n_tz,
+      n_seg);
   return static_cast<int>(cudaGetLastError());
 }
 

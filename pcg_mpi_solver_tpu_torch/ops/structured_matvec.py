@@ -36,8 +36,8 @@ of the JAX package, one slab per part.
   The kernels' shared-memory layout is their own
   (``csrc/structured_tiles.cuh``, ``Layout``).
   :func:`v5_geometry` is the same for the node-owned gather of v5, v3
-  and v7 (``csrc/structured_gather.cuh``), whose tile height depends on
-  the chunk (``planes``) its shared-memory ring holds, and
+  and v7 (``csrc/structured_gather.cuh``), whose tile height and staging
+  group depend on the chunk (``planes``) its shared-memory ring holds, and
   :func:`v9_geometry` for the v9 kernel's warp-strip tiles, and
   :func:`v1_geometry` for v1's x-march: the card's resident blocks, each
   marching the same number of node planes within one.
@@ -195,7 +195,9 @@ def v6_geometry(parts: int, nx: int, ny: int, nz: int, dtype: torch.dtype,
 
 # The node-owned gather of v5, v3 and v7 (csrc/structured_gather.cuh): tiles
 # of V5_ROWS[k] x V5_LANES_Z owned nodes, two rows a warp; the ring holds
-# 2 * planes + 2 slots of node and ck planes.  8 rows at most: at 8 planes
+# 2 * G + 2 slots of node and ck planes, G = planes where that fits a
+# block's shared memory, else the largest G that does (v5_group: the chunk
+# is then staged in groups of G planes).  8 rows at most: at 8 planes
 # two 8-row blocks an SM ran 4.6 % faster than one 16-row block (PERF.md,
 # Findings).  An SM has SM_SMEM bytes of shared memory, a block at most
 # BLOCK_SMEM, and the runtime reserves SMEM_RESERVED a block.
@@ -206,13 +208,34 @@ SM_SMEM = 233472
 SMEM_RESERVED = 1024
 
 
+def _v5_slot(rows: int) -> int:
+    """Values of one ring slot: 3 x (rows + 2) x 34 nodes, (rows + 1) x 33
+    cells."""
+    return 3 * (rows + 2) * (V5_LANES_Z + 2) + (rows + 1) * (V5_LANES_Z + 1)
+
+
+def _v5_ring_bytes(slots: int, rows: int) -> int:
+    """A ring of ``slots`` slots, Ke, and one copy-table entry (8 bytes) per
+    slot value."""
+    slot = _v5_slot(rows)
+    return 4 * (slots * slot + 576) + 8 * slot
+
+
+def v5_group(planes: int, rows: int) -> int:
+    """G, the planes the gather stages at once (the kernel's
+    ``group_planes``): ``planes`` where a ring of 2 * planes + 2 slots fits
+    BLOCK_SMEM at ``rows``, else the largest G whose ring does (19 at 8
+    rows, 35 at 4, 54 at 2)."""
+    slot = _v5_slot(rows)
+    fit = ((BLOCK_SMEM - 4 * 576 - 8 * slot) // (4 * slot) - 2) // 2
+    return max(1, min(planes, fit))
+
+
 def v5_smem_bytes(planes: int, rows: int) -> int:
     """Dynamic shared memory of a gather launch (v5, v3, v7; the kernel's
-    ``smem_bytes``): 2 * planes + 2 slots of 3 x (rows + 2) x 34 node
-    values and (rows + 1) x 33 ck values, Ke, and one copy-table entry (8
-    bytes) per slot value."""
-    slot = 3 * (rows + 2) * (V5_LANES_Z + 2) + (rows + 1) * (V5_LANES_Z + 1)
-    return 4 * ((2 * planes + 2) * slot + 576) + 8 * slot
+    ``smem_bytes``): the ring of 2 * G + 2 slots (:func:`v5_group`), Ke
+    and the copy table."""
+    return _v5_ring_bytes(2 * v5_group(planes, rows) + 2, rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,8 +243,8 @@ class V5Geometry:
     """One launch of the gather kernel: ``n_ty`` x ``n_tz`` (y, z) tiles of
     ``rows`` x 32 owned nodes (``threads`` = 16 x rows), ``n_seg`` x
     segments of ``seg_len`` node planes (the last one ragged), ``blocks``
-    in all, ``smem_bytes`` of dynamic shared memory each (above BLOCK_SMEM
-    the kernel refuses the launch)."""
+    in all, ``smem_bytes`` of dynamic shared memory each, a ring of
+    2 * ``group`` + 2 slots."""
     rows: int
     n_ty: int
     n_tz: int
@@ -230,6 +253,7 @@ class V5Geometry:
     blocks: int
     threads: int
     smem_bytes: int
+    group: int
 
 
 @functools.lru_cache(maxsize=256)
@@ -240,21 +264,23 @@ def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
     nx, ny, nz) slab at ``planes`` cell planes a chunk.
 
     The tile is ``rows`` high (one of V5_ROWS), by default the tallest
-    whose ring fits a block's shared memory (the shortest if none does:
-    the kernel then refuses).  The x segment length minimises waves x
+    whose ring of two whole chunks fits a block's shared memory (the
+    shortest if none does: the chunk is then staged in groups,
+    :func:`v5_group`).  The x segment length minimises waves x
     (seg_len + 2), a wave being the blocks the card holds at once
     (``sms`` x the blocks an SM's shared memory holds), each segment's two
     extra node planes included; ties go to fewer segments."""
     if rows is None:
         rows = next((r for r in V5_ROWS
-                     if v5_smem_bytes(planes, r) <= BLOCK_SMEM), V5_ROWS[-1])
+                     if _v5_ring_bytes(2 * planes + 2, r) <= BLOCK_SMEM),
+                    V5_ROWS[-1])
     smem = v5_smem_bytes(planes, rows)
     n_ty, n_tz = -(-(ny + 1) // rows), -(-(nz + 1) // V5_LANES_Z)
     per_sm = max(1, SM_SMEM // (smem + SMEM_RESERVED))
     tiles = parts * n_ty * n_tz
     seg_len, n_seg = _segments(nx + 1, tiles, sms * per_sm, 2)
     return V5Geometry(rows, n_ty, n_tz, seg_len, n_seg, tiles * n_seg,
-                      16 * rows, smem)
+                      16 * rows, smem, v5_group(planes, rows))
 
 
 # The v9 kernel (csrc/structured_matvec_v9.cu): V9_WARPS warps a block,

@@ -131,19 +131,63 @@ def test_solver_routes_launches_to_its_variant(cuda_device, monkeypatch,
                                             ("v7", 55)])
 def test_chunk_too_large_for_shared_memory_is_refused(cuda_device, variant,
                                                       planes):
-    """v5, v3 and v7 (the node-owned gather) stage a ring of 2C + 2 node
-    and ck planes of their shortest tile: at these planes (55 is the first
-    above 54) that is above the 227 KB a block can have, so the launch is
-    refused with the CUDA error named, and nothing is counted."""
-    x = torch.zeros((1, 3, 41, 5, 4), dtype=torch.float32,
-                    device=cuda_device)
-    ck = torch.ones((1, 40, 4, 3), dtype=torch.float32, device=cuda_device)
+    """v5, v3 and v7 (the node-owned gather) at a chunk whose ring of two
+    whole chunks (2C + 2 slots) is above the 227 KB a block can have even
+    at 2 rows (55 is the first C above 54) are no longer refused: they
+    stage each chunk in groups of 54 planes, launch once (counted), and
+    give v5's bits at C = 8."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(1, 3, 131, 5, 4)),
+                        dtype=torch.float32, device=cuda_device)
+    ck = torch.as_tensor(rng.uniform(1, 10, (1, 130, 4, 3)),
+                         dtype=torch.float32, device=cuda_device)
     Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
                          dtype=torch.float32, device=cuda_device)
-    before = dict(smv.LAUNCHES)
-    with pytest.raises(RuntimeError, match="invalid configuration"):
-        smv.structured_matvec(x, ck, Ke, variant=variant, planes=planes)
-    assert smv.LAUNCHES == before
+    before = smv.LAUNCHES[(variant, "float32")]
+    y = smv.structured_matvec(x, ck, Ke, variant=variant, planes=planes)
+    y8 = smv.structured_matvec(x, ck, Ke, variant="v5", planes=8)
+    torch.cuda.synchronize()
+    assert smv.LAUNCHES[(variant, "float32")] == before + 1 + (variant
+                                                               == "v5")
+    assert torch.equal(y, y8)
+
+
+# the chunks JAX's pallas_planes accepts above the 54 a whole ring fits
+BIG_PLANES = (56, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", BIG_PLANES)
+@pytest.mark.parametrize("variant", ["v5", "v3", "v7"])
+@pytest.mark.parametrize("P,cells", [(1, (150, 150, 150)), (2, (40, 37, 70)),
+                                     (1, (100, 200, 200))],
+                         ids=["150^3", "40x37x70", "100x200x200"])
+def test_gather_at_big_chunks_gives_the_bits_of_8_planes(
+        cuda_device, P, cells, variant, planes):
+    """v5, v3 and v7 at C = 56 and 64 (staged in groups of G = 54, the
+    ring within 227 KB as the library reports) give v5's C = 8 bits at
+    the flagship and across tile and segment edges, and the plain
+    version's values within 2e-5 * max|y|."""
+    nx, ny, nz = cells
+    geo = smv.v5_geometry(P, nx, ny, nz, planes,
+                          smv._sm_count(cuda_device.index or 0))
+    lib = smv._library(variant)
+    assert getattr(lib, f"structured_matvec_{variant}_smem_bytes")(
+        planes, geo.rows) == geo.smem_bytes <= smv.BLOCK_SMEM
+    assert geo.group == 54 < planes
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
+                        dtype=torch.float32, device=cuda_device)
+    ck = torch.as_tensor(rng.uniform(1, 10, (P, nx, ny, nz)),
+                         dtype=torch.float32, device=cuda_device)
+    Ke = torch.as_tensor(unit_element_library(0.2)["Ke"],
+                         dtype=torch.float32, device=cuda_device)
+    y = smv.structured_matvec(x, ck, Ke, variant=variant, planes=planes)
+    y8 = smv.structured_matvec(x, ck, Ke, variant="v5", planes=8)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y8)
+    y_plain = smv.structured_matvec_plain(x, ck, Ke)
+    assert (y - y_plain).abs().max() <= 2e-5 * y_plain.abs().max()
 
 
 # v5 at a single cell and at shapes whose ny+1 and nz+1 cross its (y, z)

@@ -288,10 +288,13 @@ def test_v5_geometry_flagship_fills_the_card(planes):
 
 
 def test_v5_geometry_past_the_shared_memory_takes_the_shortest_tile():
-    """A chunk whose ring does not fit even at two rows keeps the shortest
-    tile; the kernel then refuses the launch (tests/test_torch_cuda.py)."""
+    """A chunk whose ring of two whole chunks does not fit even at two rows
+    keeps the shortest tile, and is staged in groups of the largest G whose
+    ring fits (54 at two rows), so the launch fits a block's shared memory
+    (tests/test_torch_cuda.py launches it)."""
     g = smv.v5_geometry(1, 40, 4, 3, 56)
-    assert g.rows == smv.V5_ROWS[-1] and g.smem_bytes > smv.BLOCK_SMEM
+    assert g.rows == smv.V5_ROWS[-1] and g.group == 54
+    assert g.smem_bytes == smv.v5_smem_bytes(54, 2) <= smv.BLOCK_SMEM
 
 
 @pytest.mark.parametrize("planes", [8, 16])
@@ -321,20 +324,94 @@ def test_v7_launches_with_the_gather_arguments_of_v5(shape, planes):
             == smv.launch_args("v5", *shape, torch.float32, planes, sms)
 
 
-@pytest.mark.parametrize("planes,fits", [(48, True), (54, True),
-                                         (55, False), (56, False)])
-def test_v7_chunk_fits_up_to_54_planes(planes, fits):
-    """v7's ring of 2C + 2 slots fits a block's shared memory at 2-row
-    tiles up to C = 54 and not above, so its kernel refuses C above 54
-    (the card test test_chunk_too_large_for_shared_memory_is_refused);
-    the shuffle kernel v7 replaced used no shared memory and refused no
-    C."""
+@pytest.mark.parametrize("planes", list(range(8, 129, 8)) + [54, 55])
+def test_v7_chunk_fits_up_to_54_planes(planes):
+    """v7's ring of two whole chunks (2C + 2 slots) fits a block's shared
+    memory at 2-row tiles up to C = 54; above that the chunk is staged in
+    groups of G = 54 planes, so every multiple of 8 the JAX package's
+    pallas_planes accepts (and any C) launches with its ring inside 227 KB,
+    as PR 2's shuffle kernel, which used no shared memory, refused no C.
+    The launch passes the requested C itself, never a rounded one."""
     args = smv.launch_args("v7", 1, 40, 4, 3, torch.float32, planes)
     g = smv.v5_geometry(1, 40, 4, 3, planes)
     assert args[:2] == (planes, g.rows)
-    assert (g.smem_bytes <= smv.BLOCK_SMEM) == fits
-    if not fits:
-        assert g.rows == smv.V5_ROWS[-1]
+    assert g.smem_bytes <= smv.BLOCK_SMEM
+    assert g.group == min(planes, smv.v5_group(planes, g.rows))
+    assert (g.group == planes) == (planes <= 54)
+    if planes > 54:
+        assert g.rows == smv.V5_ROWS[-1] and g.group == 54
+
+
+@pytest.mark.parametrize("rows,largest", [(8, 19), (4, 35), (2, 54)])
+def test_v5_group_is_the_largest_ring_that_fits(rows, largest):
+    """G at each tile height is the largest group whose 2G + 2 slots, Ke
+    and the copy table fit BLOCK_SMEM; one more plane would not."""
+    assert smv.v5_group(1000, rows) == largest
+    assert smv.v5_group(largest, rows) == largest
+    assert smv.v5_smem_bytes(largest, rows) <= smv.BLOCK_SMEM
+    assert smv._v5_ring_bytes(2 * largest + 4, rows) > smv.BLOCK_SMEM
+
+
+def _gather_schedule(C, G, n_steps):
+    """The gather kernel's staging schedule (structured_gather.cuh,
+    matvec_kernel) replayed on the host: the slots each commit group
+    writes, the waits, and the slots each step reads.  Asserts that every
+    read finds its own plane, landed, and that no copy lands in a slot
+    the running group still reads; returns the groups run."""
+    ring, n_node, per_chunk = 2 * G + 2, n_steps + 2, -(-C // G)
+
+    def group_end(q):
+        g = q % per_chunk
+        return min(q // per_chunk * C + min(g * G + G, C), n_steps)
+
+    slot, landed, issued = {}, set(), []
+
+    def issue(j0, j1, reading):
+        gid = len(issued)
+        issued.append(gid)
+        for j in range(j0, min(j1, n_node)):
+            assert j % ring not in reading
+            slot[j % ring] = (j, gid)
+
+    def read(j):
+        assert slot[j % ring][0] == j and slot[j % ring][1] in landed
+
+    issue(0, group_end(0) + 2, set())
+    q = k = 0
+    ends = []
+    while k < n_steps:
+        k_end = group_end(q)
+        reading = {j % ring for j in range(k, k_end + 2)}
+        assert len(reading) == k_end + 2 - k <= ring
+        issue(k_end + 2, group_end(q + 1) + 2, reading)
+        landed.update(issued[:-1])          # wait_copies<1>
+        if q == 0:
+            read(0), read(1)
+        for kk in range(k, k_end):
+            read(kk + 2), read(kk + 1)
+        ends.append(k_end)
+        k, q = k_end, q + 1
+    return ends
+
+
+@pytest.mark.parametrize("planes", [8, 16, 56, 64, 128])
+def test_gather_groups_stage_every_plane_before_it_is_read(planes):
+    """The grouped staging at the G each tile gives (and a few smaller G)
+    reads each node and ck plane only after it landed and never overwrites
+    a slot in use, over segments shorter and longer than a chunk; at
+    G = C the groups are the chunks (today's schedule), and above G every
+    chunk boundary (a multiple of C) is still a group boundary."""
+    for rows in smv.V5_ROWS:
+        for G in {smv.v5_group(planes, rows), 1, 3, 8}:
+            G = min(G, planes)
+            for n_steps in (1, 2, G, planes - 1, planes + 1, 3 * planes + 5):
+                if n_steps < 1:
+                    continue
+                ends = _gather_schedule(planes, G, n_steps)
+                chunks = list(range(planes, n_steps, planes)) + [n_steps]
+                assert set(chunks) <= set(ends)
+                if G == planes:
+                    assert ends == chunks
 
 
 # the cards the v1 split is held on: an H100 SXM (132 SMs) and one of 114
