@@ -25,7 +25,10 @@ Phases (any failed check raises, so the script exits non-zero):
                 its launch geometry, v1 on shapes whose block runs cross
                 its column tiles in mid-run and end on a ragged tile, with
                 its launch split; v2 and v8 give v6 float's bits and v3
-                and v7 v5's at every shape both run;
+                and v7 v5's at every shape both run; v5, v3 and v7 also at
+                56 and 64 planes (``BIG_PLANES``: staged in groups of 19)
+                on the flagship and their edge shapes, each giving v5's
+                bits at 8 planes, with their times and ring;
   4. main     — the flagship structured cube (150^3 cells, 10,328,853
                 dofs) solved in mixed precision through ``Solver`` once
                 under each of the nine float32 variants
@@ -127,6 +130,22 @@ Phases (any failed check raises, so the script exits non-zero):
                 ``max_recoveries=0`` (column 1 quarantined, flag 5); on
                 the 48x32x32 cube a block of 3 killed at boundary 2 and
                 resumed with ``solve_many(resume=True)``, bitwise;
+  4i. export — run right after phase 4, on the solvers phases 4, 4e and
+                4h hold: the nodal fields D, ES, PS1-3 and PE1-3 of phase
+                4's v6 flagship solution on the card against the host
+                float64 oracle (``elem_strain_host``, ``elem_stress_host``,
+                ``nodal_average_host``), two exports bitwise equal, their
+                card seconds, a Boundary .vtu of U and PS1 written and
+                read back; the 22^3/L4 octree's fields on the general and
+                the hybrid operators from the general solve's solution
+                against the same oracle and each other; NS on a 24^3 cut
+                through ``Solver.solve(store=)`` on the card against the
+                CPU, and the NS operator's device apply against its CSR;
+                the mixed flagship under ``WINDOW_SOLVES`` (iterations,
+                inner cycles, time to tol beside 3334); the CLI in
+                subprocesses: the cube (48^3) and octree demos beside
+                ingest -> partition -> solve -> export of a 48x32x32 cube
+                written by ``write_mdf`` and zipped;
   4f. resilience — on the 48x32x32 cube at cap 100: direct float64
                 chunked against one-shot (classic, fused, pipelined: x
                 bitwise); mixed ``inf@0,inf@1`` escalating to f64 (the
@@ -140,7 +159,10 @@ Phases (any failed check raises, so the script exits non-zero):
                 solves on the CPU (the plain path): classic under jacobi,
                 block3 and mg, fused and pipelined under jacobi and mg;
                 then blocks [F, F_y, F_z] (12x6x5, mg 12x8x8) under
-                classic, fused and pipelined with jacobi and mg.
+                classic, fused and pipelined with jacobi and mg; then the
+                mixed shell's plateau and progress windows, each set so
+                that it fires, on the card against the CPU
+                (``WINDOW_CARD_VS_CPU``).
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
 preconditioner solve of phase 4b, by variant solve of phase 4c, by
@@ -231,7 +253,13 @@ V6_EDGE_SHAPES = ((1, 1, 1, 1), (2, 40, 37, 70), (1, 20, 70, 40))
 # at these: v6's, and one whose x segments are longer than two chunks, so
 # its shared-memory ring wraps
 V5_EDGE_SHAPES = V6_EDGE_SHAPES + ((1, 100, 200, 200),)
-V5_EDGE_PLANES = (8, 16)
+# the chunks the JAX package's pallas_planes accepts above the 54 whose
+# ring of two whole chunks fits a block's shared memory: the gather stages
+# them in groups (v5_group, 19 on the 8-row tile); v5, v3 and v7 run them
+# on the flagship slab too, and every run at them must give v5's bits at
+# 8 planes
+BIG_PLANES = (56, 64)
+V5_EDGE_PLANES = (8, 16) + BIG_PLANES
 # and v9 (float32) at these: v6's, two parts whose nodes end exactly on
 # its tile edges (40 x 31 nodes), one whose nodes end on a strip and tile
 # edge, and one whose segments wrap its three-slot ring
@@ -298,6 +326,40 @@ OPERATOR_TOL = {"float64": 1e-12, "float32": 2e-5}
 # bucket groupings (plan_buckets' cost of a bucket, in element values)
 # timed on the octree's operator; 0 = one bucket a sign sub-type
 BUCKET_VALUES_CHOICES = (0, 500_000, 2_000_000, 8_000_000)
+# phase 4i: the nodal export fields (the export variables D ES PS PE) and
+# their tolerance against the host float64 oracle, x max|field| (both
+# float64; the card sums in another order)
+EXPORT_VARS = ("D", "ES", "PS", "PE")
+EXPORT_FIELDS = ("D", "ES", "PS1", "PS2", "PS3", "PE1", "PE2", "PE3")
+EXPORT_TOL = 1e-10
+# the nonlocal (NS) field on a cut: its operator holds ~13^3 neighbours an
+# element (the box of half-width 3.2 x 2 x median h), ~7e9 nonzeros at the
+# flagship's 3.375 M cells, so it runs on a 24^3 heterogeneous cube
+NS_CUT_CELLS = 24
+NS_TOL = 1e-8           # card against CPU solves at tol 1e-10
+# the mixed shell's windows at the flagship: (name, options, dispatch cap,
+# the flags it may end on): the progress exit at the JAX package's
+# BENCH_PROGRESS=150 target, and a plateau window of 200 on the chunked
+# path (the auto cap) and on the one-shot shell (``pcg_mixed``).  The
+# plateau window stalls the refinement here (flag 3; PERF.md PR 19): its
+# early exits leave a residual the next cycles cannot cut by 0.1 % within
+# 200 iterations, the false trigger the JAX package's config documents for
+# the knob (pcg_mpi_solver_tpu/config.py:61-68; its own A/B diverged with
+# flag 3 at 48^3, window 30, docs/BENCH_LOG.md), so a stall is an outcome
+# of the algorithm and is printed, not refused
+WINDOW_SOLVES = (("progress", dict(mixed_progress_window=150), -1, (0,)),
+                 ("plateau", dict(mixed_plateau_window=200), -1, (0, 3)),
+                 ("plateau one-shot", dict(mixed_plateau_window=200), 0,
+                  (0, 3)))
+# phase 5's windowed mixed solves: the CPU tests' model and settings
+# (tests/test_torch_pcg.py), each window set so that it fires, and the
+# JAX package's flag there (the plateau window stalls the refinement)
+WINDOW_CUBE = ((16, 6, 6), dict(E=30e9, heterogeneous=True, seed=5,
+                                load_value=1e6))
+WINDOW_CARD_VS_CPU = (("plateau", dict(mixed_plateau_window=25), 3),
+                      ("progress", dict(mixed_progress_window=10), 0))
+# phase 4i's CLI run: the cube written as an MDF bundle
+CLI_CELLS = (48, 32, 32)
 
 
 def say(msg: str) -> None:
@@ -472,6 +534,8 @@ def phase_kernels(torch, np, rates):
                 if edge:
                     plane_runs = [r for r in plane_runs if r[0] != gv] \
                         + [(gv, pl) for pl in V5_EDGE_PLANES]
+                elif shape == shapes[name][-1] and dtype == torch.float32:
+                    plane_runs += [(gv, pl) for pl in BIG_PLANES]
                 for pl in sorted({pl or pallas_planes() for v, pl in plane_runs
                                   if v == gv}):
                     g5 = v5_geometry(P, nx, ny, nz, pl, sms=sms)
@@ -485,7 +549,13 @@ def phase_kernels(torch, np, rates):
                     say(f"  {gv} planes={pl}: tiles {g5.n_ty}x{g5.n_tz} of "
                         f"{g5.rows}x32 nodes, {g5.n_seg} segments of "
                         f"{g5.seg_len} planes, {g5.blocks} blocks of "
-                        f"{g5.threads} threads, {g5.smem_bytes} B shared")
+                        f"{g5.threads} threads, {g5.smem_bytes} B shared: "
+                        f"a ring of {2 * g5.group + 2} slots, staged in "
+                        f"groups of {g5.group} planes")
+                    if pl in BIG_PLANES and not (
+                            g5.group < pl
+                            and g5.smem_bytes <= 232448):
+                        raise AssertionError(f"{gv} planes={pl}: {g5}")
             if "v9" in variants:
                 g9 = v9_geometry(P, nx, ny, nz, sms=sms)
                 lib_smem = _library("v9").structured_matvec_v9_smem_bytes()
@@ -554,6 +624,19 @@ def phase_kernels(torch, np, rates):
                 ys[(v, (planes or pallas_planes()) if VARIANTS[v][1]
                     else None)] = y
                 del y2
+            # every chunk staged in groups gives v5's bits at 8 planes
+            for k in [k for k in ys if k[0] in GATHER
+                      and k[1] in BIG_PLANES]:
+                if ("v5", 8) not in ys:
+                    raise AssertionError(f"{k} ran at {shape} without v5 "
+                                         f"at 8 planes")
+                same = torch.equal(ys[k], ys[("v5", 8)])
+                say(f"  {k[0]} planes={k[1]} against v5 planes=8: "
+                    f"{'the same bits' if same else 'DIFFERENT bits'}")
+                if not same:
+                    raise AssertionError(f"{k[0]} planes={k[1]} {name} "
+                                         f"{shape} does not give v5's bits "
+                                         f"at 8 planes")
             for a, b in SAME_BITS:
                 pairs = [(k, (b, k[1])) for k in ys
                          if k[0] == a and (b, k[1]) in ys]
@@ -710,6 +793,8 @@ def phase_main(torch, np, model):
             classic["faulted"] = faulted_flagship(torch, np, model, cfg,
                                                   classic)
             classic["profile"] = profile_inner(torch, solver)
+            # phase 4i exports this solution
+            classic["solver"] = solver
         launches_by[variant] = launches
         cycles_by[variant] = (cycles, res.iters)
         del solver, u
@@ -2055,6 +2140,304 @@ def phase_hybrid(torch, np, general, rates):
     return dict(solver=s, launches=counts, levels=levels)
 
 
+def _host_fields(np, torch, model, u):
+    """The nodal export fields of the global solution ``u`` on the host
+    in float64: element strains and stresses (``elem_strain_host``,
+    ``elem_stress_host``), their principal values and equivalent strain,
+    averaged onto the nodes (``nodal_average_host``)."""
+    from pcg_mpi_solver_tpu_torch.ops.nonlocal_stress import (
+        elem_strain_host, elem_stress_host, nodal_average_host)
+    from pcg_mpi_solver_tpu_torch.ops.stress import (
+        eqv_strain, principal_values)
+
+    eps = torch.from_numpy(elem_strain_host(model, u).T[None])
+    sig = torch.from_numpy(elem_stress_host(model, u).T[None])
+    pe, ps = principal_values(eps)[0].numpy(), principal_values(sig)[0].numpy()
+    out = {"D": nodal_average_host(model, np.zeros(model.n_elem)),
+           "ES": nodal_average_host(model, eqv_strain(eps)[0].numpy())}
+    for i in range(3):
+        out[f"PS{i + 1}"] = nodal_average_host(model, ps[i])
+        out[f"PE{i + 1}"] = nodal_average_host(model, pe[i])
+    return out
+
+
+def _card_fields(torch, np, solver, un=None):
+    """The solver's nodal export fields on the card from the float64
+    solution ``un`` (default its own), as global host arrays, the card
+    seconds, and the per-part tensors."""
+    from pcg_mpi_solver_tpu_torch.ops.stress import nodal_export_fields
+
+    un = solver.un if un is None else un
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = nodal_export_fields(solver.ops, solver.data, un, EXPORT_VARS,
+                                 solver._nu)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    mask, nmap = solver.node_owner_mask(), solver.export_node_map()
+    glob = {}
+    for k, v in fields.items():
+        g = np.zeros(solver.pm.glob_n_node)
+        g[nmap] = v.cpu().numpy()[mask]
+        glob[k] = g
+    return glob, sec, fields
+
+
+def _against(np, tag, got, want, tol=EXPORT_TOL):
+    errs = {}
+    for k in EXPORT_FIELDS:
+        den = max(float(np.abs(want[k]).max()), 1e-300)
+        errs[k] = float(np.abs(got[k] - want[k]).max()) / den
+    say(f"export {tag}: max rel err "
+        f"{ {k: f'{e:.2e}' for k, e in errs.items()} } (tol {tol:g})")
+    if not all(e <= tol for e in errs.values()):
+        raise AssertionError(f"export {tag} disagrees: {errs}")
+
+
+def phase_export(torch, np, flagship, general, flagship_model):
+    """Phase 4i, the export path on the solvers phases 4, 4e and 4h hold:
+    the nodal fields on the card against the host float64 oracle (the
+    flagship's two exports bitwise, a Boundary .vtu written and read
+    back; the 22^3 octree's on the general and hybrid operators from one
+    solution), NS on a 24^3 cut through ``Solver.solve(store=)`` on the
+    card against the CPU, the mixed shell's windows at the flagship, and
+    the CLI's programs in subprocesses."""
+    import shutil
+
+    from pcg_mpi_solver_tpu_torch.utils.io import RunStore
+    from pcg_mpi_solver_tpu_torch.vtk.export import export_vtk
+    from pcg_mpi_solver_tpu_torch.vtk.writer import read_vtu_arrays
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, "build", "chip_smoke_export")
+    shutil.rmtree(scratch, ignore_errors=True)
+    try:
+        # -- the flagship cube: fields, bitwise repeat, a .vtu
+        t0 = time.perf_counter()
+        u = flagship.displacement_global()
+        card, sec, fields = _card_fields(torch, np, flagship)
+        _g, sec2, fields2 = _card_fields(torch, np, flagship)
+        same = all(torch.equal(fields[k], fields2[k]) for k in fields)
+        t1 = time.perf_counter()
+        oracle = _host_fields(np, torch, flagship._model, u)
+        say(f"export flagship 150^3: fields {sorted(card)} on the card in "
+            f"{sec:.3f} s and {sec2:.3f} s (two exports "
+            f"{'bitwise equal' if same else 'DIFFERENT'}); host float64 "
+            f"oracle {time.perf_counter() - t1:.2f} s")
+        if not same:
+            raise AssertionError("two flagship exports differ on the card")
+        _against(np, "flagship 150^3 vs host oracle", card, oracle)
+        store = RunStore(os.path.join(scratch, "flagship"), "flagship")
+        store.prepare()
+        store.write_map("Dof", flagship.export_dof_map())
+        store.write_map("NodeId", flagship.export_node_map())
+        store.write_frame("U", 0, flagship.displacement_owned())
+        store.write_frame("PS1", 0, fields["PS1"].cpu().numpy()[
+            flagship.node_owner_mask()])
+        store.write_time_list([0.0])
+        t1 = time.perf_counter()
+        files = export_vtk(flagship._model, store, ["U", "PS1"], "Boundary")
+        arrays = read_vtu_arrays(files[0])
+        n_cells = len(arrays["offsets"])
+        ok = (np.array_equal(arrays["PS1"], card["PS1"])
+              and np.array_equal(arrays["U"], u.reshape(-1, 3)))
+        say(f"export flagship: Boundary .vtu of U, PS1 "
+            f"({os.path.getsize(files[0]) / 2**20:.1f} MiB, {n_cells} "
+            f"faces) written and read back in "
+            f"{time.perf_counter() - t1:.2f} s: arrays "
+            f"{'equal' if ok else 'DIFFERENT'}")
+        if not ok or n_cells != 6 * FLAGSHIP["nx"] ** 2:
+            raise AssertionError("the flagship .vtu did not read back")
+        shutil.rmtree(os.path.join(scratch, "flagship"))
+        say(f"export flagship: {time.perf_counter() - t0:.1f} s")
+
+        # -- the 22^3/L4 octree on the general and hybrid operators, both
+        # from the general solve's float64 solution
+        t0 = time.perf_counter()
+        gs, hs = general["octree"], general["hybrid"]
+        if not (gs.pm.n_loc == hs.pm.n_loc
+                and np.array_equal(gs.pm.dof_gid, hs.pm.dof_gid)):
+            raise AssertionError("general and hybrid octree layouts differ")
+        g_fields, g_sec, _f = _card_fields(torch, np, gs)
+        h_fields, h_sec, _f = _card_fields(torch, np, hs, un=gs.un)
+        t1 = time.perf_counter()
+        oracle = _host_fields(np, torch, gs._model, gs.displacement_global())
+        say(f"export octree 22^3/L4: general {g_sec:.3f} s, hybrid "
+            f"{h_sec:.3f} s on the card; host oracle "
+            f"{time.perf_counter() - t1:.2f} s")
+        _against(np, "octree general vs host oracle", g_fields, oracle)
+        _against(np, "octree hybrid vs host oracle", h_fields, oracle)
+        _against(np, "octree hybrid vs general", h_fields, g_fields)
+        say(f"export octree: {time.perf_counter() - t0:.1f} s")
+        del g_fields, h_fields, oracle
+
+        phase_export_ns(torch, np, scratch)
+        phase_export_windows(torch, np, flagship_model)
+        phase_export_cli(np, root, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def phase_export_ns(torch, np, scratch):
+    """NS on the 24^3 cut: ``Solver.solve(store=)`` with U, PS and NS on
+    the card and on the CPU (frames within NS_TOL), and the operator's
+    device apply on the card against its CSR on the host."""
+    from pcg_mpi_solver_tpu_torch import (
+        RunConfig, SolverConfig, TimeHistoryConfig)
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.ops.nonlocal_stress import (
+        apply_padded, elem_stress_host, von_mises_stress)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+    from pcg_mpi_solver_tpu_torch.utils.io import RunStore
+
+    t0 = time.perf_counter()
+    kw = dict(FLAGSHIP)
+    kw.pop("nx")
+    model = make_cube_model(NS_CUT_CELLS, **kw)
+    cfg = RunConfig(solver=SolverConfig(tol=1e-10, dtype="float64"),
+                    time_history=TimeHistoryConfig(export_vars="U PS NS"))
+    frames, solvers = {}, {}
+    for dev in ("cuda", "cpu"):
+        s = Solver(model, cfg, device=dev)
+        if solvers:
+            # the host-built NS operator once: both solves smooth with it
+            s._nonlocal = solvers["cuda"]._nonlocal
+        store = RunStore(os.path.join(scratch, f"ns_{dev}"), "ns")
+        t1 = time.perf_counter()
+        (res,) = s.solve(store=store)
+        say(f"export NS cut {NS_CUT_CELLS}^3 on {dev}: flag {res.flag}, "
+            f"iterations {res.iters}; solve + export "
+            f"{time.perf_counter() - t1:.2f} s")
+        if res.flag != 0:
+            raise AssertionError(f"NS cut solve on {dev}: {res}")
+        frames[dev] = {v: store.read_frame(v, 1) for v in ("U", "PS1",
+                                                           "NS")}
+        solvers[dev] = s
+    for v in ("U", "PS1", "NS"):
+        a, b = frames["cuda"][v], frames["cpu"][v]
+        rel = float(np.abs(a - b).max() / np.abs(b).max())
+        say(f"export NS cut: {v} card vs cpu max rel diff {rel:.3e} (tol "
+            f"{NS_TOL:g})")
+        if not rel <= NS_TOL:
+            raise AssertionError(f"NS cut {v} on the card disagrees")
+    W = solvers["cuda"]._nonlocal
+    vm = von_mises_stress(elem_stress_host(model, solvers[
+        "cuda"].displacement_global()), axis=1)
+    cols, w = W.padded_arrays()
+    dev_args = [torch.as_tensor(a, device="cuda") for a in (cols, w, vm)]
+    ns_card = apply_padded(*dev_args)
+    torch.cuda.synchronize()
+    ms = time_ms(torch, lambda: apply_padded(*dev_args), reps=5, warmup=1)
+    ref = W.apply(vm)
+    rel = float(np.abs(ns_card.cpu().numpy() - ref).max()
+                / np.abs(ref).max())
+    say(f"export NS cut: {W.csr.nnz} weights ({cols.shape[1]} a row "
+        f"padded), apply_padded on the card {ms:.3f} ms, against the host "
+        f"CSR max rel diff {rel:.3e} (tol 1e-12); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= 1e-12:
+        raise AssertionError("apply_padded on the card disagrees with the "
+                             "CSR")
+
+
+def phase_export_windows(torch, np, model):
+    """The mixed flagship with each window of WINDOW_SOLVES: one of its
+    flags, relres <= 1e-7 at flag 0 (nothing gated on speed), iterations,
+    inner cycles and time to tol beside the JAX package's 3334."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    for name, opts, cap, flags in WINDOW_SOLVES:
+        cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed",
+                                            iters_per_dispatch=cap, **opts))
+        t0 = time.perf_counter()
+        s = Solver(model, cfg)
+        setup = time.perf_counter() - t0
+        with inner_cycles(s) as cycles:
+            (res,) = s.solve()
+        say(f"window {name} {opts}: flag {res.flag}, iterations "
+            f"{res.iters} (JAX's default solve {JAX_FLAGSHIP_ITERS}), relres "
+            f"{res.relres:.4e}, time to tol {res.wall_s:.3f} s, "
+            f"{res.wall_s / max(res.iters, 1) * 1e3:.4f} ms/iter (setup "
+            f"{setup:.2f} s); inner cycles (flag, iterations) {cycles}; "
+            f"{dispatches(s)}")
+        if res.flag not in flags or (res.flag == 0
+                                     and not res.relres <= 1e-7) \
+                or not np.isfinite(res.relres):
+            raise AssertionError(f"flagship with the {name} window: {res}")
+        del s
+        torch.cuda.empty_cache()
+
+
+def phase_export_cli(np, root, scratch):
+    """The CLI's programs as a user runs them, in subprocesses on the
+    card: the cube and octree demos beside ingest -> partition -> solve
+    -> export of the CLI_CELLS cube written by ``write_mdf`` and zipped.
+    Each must exit 0; the solves print flag 0."""
+    import shutil
+
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.models.mdf import write_mdf
+
+    t0 = time.perf_counter()
+    kw = dict(FLAGSHIP)
+    kw.pop("nx")
+    cli = os.path.join(scratch, "cli")
+    write_mdf(make_cube_model(*CLI_CELLS, **kw), os.path.join(cli, "src"))
+    archive = shutil.make_archive(os.path.join(cli, "cube"), "zip",
+                                  os.path.join(cli, "src"))
+    settings = os.path.join(cli, "settings.json")
+    with open(settings, "w") as f:
+        json.dump({"TimeHistoryParam": {"ExportVars": "U PS ES"},
+                   "SolverParam": {"Tol": 1e-8}}, f)
+    env = dict(os.environ, PYTHONPATH=root)
+    base = [sys.executable, "-m", "pcg_mpi_solver_tpu_torch.cli"]
+    sc = os.path.join(cli, "scratch")
+    demos = {"demo cube": ["demo", "--nx", "48", "--scratch",
+                           os.path.join(cli, "d1")],
+             "demo octree": ["demo", "--octree", "--nx", "4", "--max-level",
+                             "3", "--scratch", os.path.join(cli, "d2")]}
+    chain = {"ingest": ["ingest", archive, sc],
+             "partition": ["partition", sc, "1"],
+             "solve": ["solve", sc, "1", "--settings", settings],
+             "export": ["export", sc, "1", "U PS1 ES", "Full"]}
+    procs = {}
+    outs = {}
+    try:
+        for tag, args in demos.items():
+            log = open(os.path.join(cli, tag.replace(" ", "_") + ".log"),
+                       "w+")
+            procs[tag] = (subprocess.Popen(base + args, cwd=root, env=env,
+                                           stdout=log,
+                                           stderr=subprocess.STDOUT), log)
+        for tag, args in chain.items():
+            r = subprocess.run(base + args, cwd=root, env=env,
+                               capture_output=True, text=True, timeout=300)
+            outs[tag] = (r.returncode, r.stdout + r.stderr)
+            if r.returncode:
+                break
+        for tag, (proc, log) in procs.items():
+            rc = proc.wait(timeout=300)
+            log.seek(0)
+            outs[tag] = (rc, log.read())
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for tag, (rc, text) in outs.items():
+        lines = [ln for ln in text.splitlines() if ln.startswith(">")]
+        say(f"cli {tag}: exit {rc}; {' | '.join(lines[-4:])}")
+        solves = tag in ("solve", "demo cube", "demo octree")
+        if rc != 0 or (solves and not ("flag=0" in text
+                                       and ">success!" in text)):
+            raise AssertionError(f"cli {tag} failed (exit {rc}):\n{text}")
+    if set(outs) != set(demos) | set(chain):
+        raise AssertionError(f"cli: not every program ran: {sorted(outs)}")
+    say(f"cli: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_many_chunked(torch, np, model):
     """Phase 4g: the chunked blocked path of ``Solver.solve_many`` on the
     150^3 flagship, direct float64, classic, jacobi, the block [F, F_y]
@@ -2304,6 +2687,30 @@ def phase_checks(torch, np):
                 raise AssertionError(f"blocked {variant} {precond} {mode} "
                                      f"on the card disagrees with the CPU")
 
+    # the mixed shell's windows, each set so that it fires: the card's
+    # flag and iterations against the CPU's (the mixed rule, max(3, 5 %))
+    wcells, wkw = WINDOW_CUBE
+    wmodel = make_cube_model(*wcells, **wkw)
+    for name, opts, want in WINDOW_CARD_VS_CPU:
+        cfg = RunConfig(solver=SolverConfig(
+            tol=1e-8, max_iter=2000, precision_mode="mixed", inner_tol=1e-6,
+            **opts))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            s = Solver(wmodel, cfg, device=dev)
+            with inner_cycles(s) as cycles:
+                (r,) = s.solve()
+            out[dev] = (r.flag, r.iters, cycles)
+        (fg, ig, cg), (fc, ic, cc) = out["cuda"], out["cpu"]
+        say(f"card vs cpu, window {name} {opts}, "
+            f"{'x'.join(map(str, wcells))}: flag card {fg} cpu {fc} (the "
+            f"JAX package's {want}), iterations card {ig} cpu {ic}; inner "
+            f"cycles card {cg} cpu {cc}")
+        if fg != fc or fg != want or abs(ig - ic) > max(3, 0.05 * ic) \
+                or not any(f == 3 for f, _n in cc):
+            raise AssertionError(f"the {name} window on the card disagrees "
+                                 f"with the CPU")
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2377,6 +2784,10 @@ def main() -> int:
     # 4. main path at full size, once per float32 variant
     launches_by, classic = phase_main(torch, np, flagship_model)
     lap("4 main")
+    # 4i. the export path on the solvers of phases 4, 4e and 4h, the
+    # windows at the flagship, the CLI
+    phase_export(torch, np, classic.pop("solver"), general, flagship_model)
+    lap("4i export")
     # 4b. the block3 and mg preconditioners at full size
     precond_launches, precond_iters, models = phase_preconditioners(
         torch, np, flagship_model)

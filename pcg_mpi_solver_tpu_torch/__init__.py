@@ -23,7 +23,13 @@ the chunked path that ``Solver.step`` takes at 4 M dofs and above
 (``solver.chunked``: capped dispatches of the resumable ``pcg``) with the
 recovery ladder, the dispatch guard, mid-solve snapshots, step
 checkpoints and fault injection (``resilience``, ``utils.checkpoint``,
-``obs.metrics``).
+``obs.metrics``); the mixed shell's plateau and progress exits; and the
+export path: ``Solver.solve(store=...)`` writes the displacement and the
+nodal strain/stress fields (``ops.stress``, ``ops.nonlocal_stress``) in
+the JAX package's run-directory layout (``utils.io.RunStore``), read back
+as ``.vtu`` files (``vtk``) and post-processed (``utils.postproc``), with
+the MDF bundle reader/writer (``models.mdf``) and the command line
+(``python -m pcg_mpi_solver_tpu_torch.cli``).
 """
 
 from pcg_mpi_solver_tpu_torch.config import (

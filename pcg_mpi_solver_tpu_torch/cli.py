@@ -1,0 +1,442 @@
+"""Command-line interface of the port: the reference's five entry-point
+programs (read_input_model / run_metis / partition_mesh / pcg_solver /
+export_vtk, orchestrated by examples/run_basic_script.bash) as one typed
+CLI, the JAX package's ``pcg_mpi_solver_tpu/cli.py`` with its flags.
+
+    python -m pcg_mpi_solver_tpu_torch.cli ingest    <archive.zip> <scratch>
+    python -m pcg_mpi_solver_tpu_torch.cli partition <scratch> <n_parts>
+    python -m pcg_mpi_solver_tpu_torch.cli solve     <scratch> <run_id> [options]
+    python -m pcg_mpi_solver_tpu_torch.cli solve-many <scratch> <run_id> [options]
+    python -m pcg_mpi_solver_tpu_torch.cli export    <scratch> <run_id> <vars> <mode>
+    python -m pcg_mpi_solver_tpu_torch.cli demo      [--nx ...] [--octree|--poisson]
+
+``solve``, ``solve-many`` and ``demo`` run on the card unless
+``--device cpu`` is given.  Settings come from ``--settings
+settings.json`` (the shape of the reference's GlobSettings:
+TimeHistoryParam/SolverParam, run_basic_script.bash:30-49) or per-flag
+overrides.  The JAX package's other subcommands are refused with the
+ROADMAP queue 1 item that brings them (:data:`REFUSED`); so are its
+telemetry, profiling, cache and preflight flags, by the solver's own
+refusal of those settings (item 14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+# subcommand -> the ROADMAP queue 1 item that ports it
+REFUSED = {
+    "dynamics": 10, "newmark": 10,
+    "bench": 1,
+    **{c: 14 for c in (
+        "serve", "submit", "jobs", "warmup", "cache-stats", "lint",
+        "perf-report", "prof-report", "fleet-report", "watch", "trend",
+        "summary", "telemetry-merge", "validate")},
+}
+# the multi-process build (Solver.resume_elastic, the sharded ingest)
+ELASTIC_ITEM = 12
+
+
+def _load_settings(path, args):
+    from pcg_mpi_solver_tpu_torch.config import (
+        RunConfig, SolverConfig, TimeHistoryConfig)
+
+    th, sp = {}, {}
+    if path and os.path.exists(path):
+        with open(path) as f:
+            raw = json.load(f)
+        th = raw.get("TimeHistoryParam", {})
+        sp = raw.get("SolverParam", {})
+    # default precision is "direct" (f64, reference parity): a reference
+    # settings file without PrecisionMode must not change the numerics
+    solver = SolverConfig(
+        tol=float(getattr(args, "tol", None) or sp.get("Tol", 1e-7)),
+        max_iter=int(getattr(args, "max_iter", None)
+                     or sp.get("MaxIter", 10000)),
+        precision_mode=(getattr(args, "precision", None)
+                        or sp.get("PrecisionMode", "direct")),
+        precond=getattr(args, "precond", None) or sp.get("Precond", "jacobi"),
+        pcg_variant=(getattr(args, "pcg_variant", None)
+                     or sp.get("PcgVariant", "classic")),
+        # dispatch cap override (settings only; -1 = auto)
+        iters_per_dispatch=int(sp.get("ItersPerDispatch", -1)),
+    )
+    time_history = TimeHistoryConfig(
+        time_step_delta=th.get("TimeStepDelta", [0.0, 1.0]),
+        export_flag=bool(th.get("ExportFlag", True)),
+        export_frame_rate=int(th.get("ExportFrmRate", 1)),
+        export_frames=th.get("ExportFrms", []),
+        plot_flag=bool(th.get("PlotFlag", False)),
+        export_vars=th.get("ExportVars", "U"),
+    )
+    cfg = RunConfig(solver=solver, time_history=time_history)
+    _apply_telemetry_flags(cfg, args)
+    return cfg
+
+
+def _apply_telemetry_flags(cfg, args) -> None:
+    """The JAX package's shared per-run flags into the RunConfig; the
+    Solver refuses each one that is set (ROADMAP queue 1 item 14)."""
+    cfg.telemetry_path = getattr(args, "telemetry_out", None) or ""
+    cfg.flight_path = getattr(args, "flight_out", None) or ""
+    cfg.solver.trace_resid = int(getattr(args, "trace_resid", None) or 0)
+    if getattr(args, "profile_spans", False):
+        cfg.telemetry_profile = True
+    cfg.cache_dir = getattr(args, "cache_dir", None) or ""
+    cfg.preflight = getattr(args, "preflight", None) or ""
+
+
+def _mdf_path(scratch: str) -> str:
+    return os.path.join(scratch, "ModelData", "MDF")
+
+
+def _elem_part(n_parts: int, scratch: str):
+    """The scratch MeshPart_<n>.npy element->part map, if partitioned."""
+    part_file = os.path.join(scratch, "ModelData", f"MeshPart_{n_parts}.npy")
+    return np.load(part_file) if os.path.exists(part_file) else None
+
+
+def cmd_ingest(args):
+    from pcg_mpi_solver_tpu_torch.models.mdf import ingest_archive, read_mdf
+
+    mdf = ingest_archive(args.archive, args.scratch)
+    model = read_mdf(mdf)
+    print(f">extracted to {mdf}")
+    print(f">elements:  {model.n_elem}")
+    print(f">nodes:     {model.n_node}")
+    print(f">dofs:      {model.n_dof}")
+
+
+def cmd_partition(args):
+    from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+    from pcg_mpi_solver_tpu_torch.parallel.partition import make_elem_part
+
+    model = read_mdf(_mdf_path(args.scratch))
+    print(f">partitioning {model.n_elem} elements into {args.n_parts} parts "
+          f"({args.method})..")
+    part = make_elem_part(model, args.n_parts, method=args.method)
+    out = os.path.join(args.scratch, "ModelData",
+                       f"MeshPart_{args.n_parts}.npy")
+    np.save(out, part)
+    print(f">saved {out}")
+
+
+def cmd_solve(args):
+    from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+    from pcg_mpi_solver_tpu_torch.solver.driver import Solver
+    from pcg_mpi_solver_tpu_torch.utils.io import RunStore
+
+    if args.resume_elastic is not None:
+        raise NotImplementedError(
+            f"--resume-elastic resumes a multi-process run (ROADMAP queue "
+            f"1 item {ELASTIC_ITEM})")
+    cfg = _load_settings(args.settings, args)
+    cfg.scratch_path = args.scratch
+    cfg.run_id = args.run_id
+    cfg.speed_test = bool(args.speed_test)
+    cfg.checkpoint_every = int(args.checkpoint_every or 0)
+    cfg.snapshot_every = int(args.snapshot_every or 0)
+    if args.max_recoveries is not None:
+        cfg.solver.max_recoveries = int(args.max_recoveries)
+    cfg.profile_dir = args.profile_dir or ""
+    model = read_mdf(_mdf_path(args.scratch))
+    cfg.time_history.dt = model.dt   # frame timestamps follow the model's dt
+    n_parts = args.n_parts or 1
+    print(f">solving on {args.device or 'cuda'}, {n_parts} parts "
+          f"({cfg.solver.precision_mode} precision)..")
+    s = Solver(model, cfg, n_parts=n_parts,
+               elem_part=_elem_part(n_parts, args.scratch),
+               backend=args.backend, device=args.device)
+    print(f">backend: {s.backend}")
+    store = RunStore(cfg.result_path, cfg.model_name)
+    res = s.solve(store=None if cfg.speed_test else store,
+                  resume=bool(args.resume))
+    # with --resume, earlier steps were restored: label the ones run
+    t_first = len(s.flags) - len(res) + 1
+    for t, r in enumerate(res, t_first):
+        print(f">step {t}: flag={r.flag} iters={r.iters} "
+              f"relres={r.relres:.3e} wall={r.wall_s:.2f}s")
+    td = s.time_data()
+    print(f">calculation time: {td['Mean_CalcTime']:.2f} sec")
+    print(">success!")
+
+
+def cmd_solve_many(args):
+    """A block of load cases against one partitioned operator
+    (``Solver.solve_many``): ``--rhs loads.npy`` ((n_dof, nrhs) or (nrhs,
+    n_dof)) or ``--scales "1.0,0.5"`` (columns = scale * the model's
+    reference load F); per-column flags, relres and iterations printed,
+    the solutions saved as ``u_many.npy`` under the run directory."""
+    from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+    from pcg_mpi_solver_tpu_torch.solver.driver import (
+        Solver, normalize_rhs_block)
+
+    cfg = _load_settings(args.settings, args)
+    cfg.scratch_path = args.scratch
+    cfg.run_id = args.run_id
+    cfg.snapshot_every = int(args.snapshot_every or 0)
+    if args.max_recoveries is not None:
+        cfg.solver.max_recoveries = int(args.max_recoveries)
+    model = read_mdf(_mdf_path(args.scratch))
+    if args.rhs:
+        fb = normalize_rhs_block(np.load(args.rhs), model.n_dof)
+    elif args.scales:
+        try:
+            scales = [float(v) for v in args.scales.split(",")
+                      if v.strip()]
+        except ValueError:
+            raise SystemExit(f"solve-many: --scales {args.scales!r} is "
+                             "not a comma-separated list of numbers")
+        if not scales:
+            raise SystemExit("solve-many: --scales parsed to zero load "
+                             "cases; pass e.g. --scales \"1.0,0.5\"")
+        fb = np.stack([np.asarray(model.F) * sc for sc in scales], axis=-1)
+    else:
+        raise SystemExit("solve-many: pass --rhs FILE.npy (columns = load "
+                         "cases) or --scales \"1.0,0.5,...\"")
+    cfg.solver.nrhs = fb.shape[1]
+    n_parts = args.n_parts or 1
+    print(f">solving {fb.shape[1]} load cases on {args.device or 'cuda'}, "
+          f"{n_parts} parts ({cfg.solver.precision_mode} precision, "
+          f"{cfg.solver.pcg_variant} variant)..")
+    s = Solver(model, cfg, n_parts=n_parts,
+               elem_part=_elem_part(n_parts, args.scratch),
+               backend=args.backend, device=args.device)
+    print(f">backend: {s.backend}  setup: {s.setup_s:.2f}s")
+    res = s.solve_many(fb, resume=bool(args.resume))
+    for j in range(res.nrhs):
+        tag = "  [QUARANTINED]" if j in res.quarantined else ""
+        print(f">rhs {j}: flag={int(res.flags[j])} "
+              f"iters={int(res.iters[j])} relres={res.relres[j]:.3e}{tag}")
+    print(f">block wall: {res.wall_s:.2f}s ({res.nrhs} load cases, "
+          f"one operator)")
+    if res.quarantined:
+        print(f">quarantined columns: {list(res.quarantined)} (flag 5, "
+              f"their min-residual iterates)")
+    out = os.path.join(cfg.result_path, "u_many")
+    os.makedirs(cfg.result_path, exist_ok=True)
+    np.save(out, s.displacement_global_many(res.x))
+    print(f">solutions (n_dof, nrhs) -> {out}.npy")
+    print(">success!")
+
+
+def cmd_export(args):
+    from pcg_mpi_solver_tpu_torch.config import RunConfig
+    from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+    from pcg_mpi_solver_tpu_torch.utils.io import RunStore
+    from pcg_mpi_solver_tpu_torch.vtk.export import export_vtk
+
+    model = read_mdf(_mdf_path(args.scratch))
+    cfg = RunConfig(scratch_path=args.scratch, run_id=args.run_id)
+    store = RunStore(cfg.result_path, "model")
+    files = export_vtk(model, store, args.vars.split(), args.mode)
+    print(f">wrote {len(files)} vtu files to {store.vtk_path}")
+
+
+def cmd_demo(args):
+    from pcg_mpi_solver_tpu_torch.models import (
+        make_cube_model, make_octree_model, make_poisson_model)
+    from pcg_mpi_solver_tpu_torch.solver.driver import Solver
+    from pcg_mpi_solver_tpu_torch.utils.io import RunStore
+    from pcg_mpi_solver_tpu_torch.vtk.export import export_vtk
+
+    cfg = _load_settings(args.settings, args)
+    cfg.scratch_path = args.scratch
+    cfg.time_history.export_vars = "U D ES PS PE"
+    vtk_vars, vtk_mode = ["U", "PS1", "PS3", "ES"], "Full"
+    if args.poisson:
+        cfg.model_name = "demo_poisson"
+        cfg.time_history.export_vars = "U"      # scalar class: U only
+        vtk_vars, vtk_mode = ["U"], "Boundary"
+        model = make_poisson_model(args.nx, args.ny or 0, args.nz or 0,
+                                   heterogeneous=True, seed=1)
+        print(f">demo poisson: {model.n_elem} elems / {model.n_dof} dofs "
+              "(scalar diffusion)")
+    elif args.octree:
+        cfg.model_name = "demo_octree"
+        model = make_octree_model(
+            args.nx, args.ny or args.nx, args.nz or args.nx,
+            max_level=args.max_level, n_incl=3, seed=1,
+            E=30e9, nu=0.2, load="traction", load_value=1e6)
+        print(f">demo octree: {model.n_elem} elems / {model.n_dof} dofs / "
+              f"{len(model.elem_lib)} pattern types")
+    else:
+        cfg.model_name = "demo_cube"
+        model = make_cube_model(args.nx, args.ny or 0, args.nz or 0,
+                                E=30e9, nu=0.2, load="traction",
+                                load_value=1e6, heterogeneous=True)
+        print(f">demo model: {model.n_elem} elems / {model.n_dof} dofs")
+    # the octree demo runs the hybrid level-grid backend, asked for by
+    # name (auto selects it only under PCG_TPU_ENABLE_HYBRID=1)
+    s = Solver(model, cfg, backend="hybrid" if args.octree else "auto",
+               device=args.device)
+    store = RunStore(cfg.result_path, cfg.model_name)
+    res = s.solve(store=store)
+    for t, r in enumerate(res, 1):
+        print(f">step {t}: flag={r.flag} iters={r.iters} "
+              f"relres={r.relres:.3e} wall={r.wall_s:.2f}s  "
+              f"[{s.backend} backend]")
+    files = export_vtk(model, store, vtk_vars, vtk_mode)
+    print(f">wrote {len(files)} vtu files to {store.vtk_path}")
+    print(">success!")
+
+
+def cmd_refused(args):
+    item = REFUSED[args.cmd]
+    raise NotImplementedError(
+        f"subcommand {args.cmd!r} is not ported yet (ROADMAP queue 1 item "
+        f"{item})")
+
+
+def _add_solver_flags(p, precision_default=None) -> None:
+    from pcg_mpi_solver_tpu_torch.config import PCG_VARIANTS, PRECONDS
+
+    p.add_argument("--settings", default=None)
+    p.add_argument("--tol", type=float, default=None)
+    p.add_argument("--max-iter", type=int, default=None)
+    p.add_argument("--precision", choices=["direct", "mixed"],
+                   default=precision_default)
+    p.add_argument("--precond", choices=list(PRECONDS), default=None,
+                   help="scalar Jacobi (reference parity), 3x3 node-block "
+                        "Jacobi, or the mg V-cycle")
+    p.add_argument("--pcg-variant", choices=list(PCG_VARIANTS),
+                   default=None, dest="pcg_variant",
+                   help="classic (the MATLAB-compatible loop, default), "
+                        "fused (Chronopoulos-Gear) or pipelined "
+                        "(Ghysels-Vanroose)")
+    p.add_argument("--device", default=None,
+                   help="torch device to solve on (default: the card, "
+                        "'cuda'; 'cpu' runs the plain versions of the "
+                        "kernels)")
+
+
+def _add_run_flags(p) -> None:
+    """The JAX package's telemetry, cache and preflight flags: accepted,
+    and refused by the Solver when set (ROADMAP queue 1 item 14)."""
+    p.add_argument("--telemetry-out", default=None, metavar="FILE.jsonl")
+    p.add_argument("--trace-resid", type=int, default=0, metavar="N")
+    p.add_argument("--flight-out", default=None, metavar="FILE.jsonl")
+    p.add_argument("--profile-spans", action="store_true")
+    p.add_argument("--cache-dir", default=None, metavar="DIR")
+    p.add_argument("--preflight", choices=["fail", "warn", "off"],
+                   default=None)
+
+
+def _add_resilience_flags(p, granularity: str) -> None:
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help=f"resumable snapshots every N {granularity} "
+                        f"(0 = off)")
+    p.add_argument("--max-recoveries", type=int, default=None,
+                   help="recovery budget for breakdowns and NaN/Inf "
+                        "corruption (default 2; 0 = report and stop)")
+    p.add_argument("--resume", action="store_true",
+                   help=f"continue from the latest snapshot/checkpoint "
+                        f"of this run ({granularity} granularity)")
+
+
+BACKENDS = ["auto", "structured", "hybrid", "general"]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m pcg_mpi_solver_tpu_torch.cli",
+                                 description=__doc__)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("ingest", help="unpack a reference MDF model archive")
+    p.add_argument("archive")
+    p.add_argument("scratch")
+    p.set_defaults(fn=cmd_ingest)
+
+    p = sub.add_parser("partition", help="compute element->part map")
+    p.add_argument("scratch")
+    p.add_argument("n_parts", type=int)
+    p.add_argument("--method", choices=["rcb", "slab2", "graph", "auto"],
+                   default="rcb",
+                   help="rcb = coordinate bisection, slab2 = the two-level "
+                        "split; graph (and auto, which takes it) needs the "
+                        "native graph partitioner, ROADMAP queue 1 item 15")
+    p.set_defaults(fn=cmd_partition)
+
+    p = sub.add_parser("solve", help="run the PCG solve")
+    p.add_argument("scratch")
+    p.add_argument("run_id")
+    p.add_argument("--n-parts", type=int, default=None)
+    _add_solver_flags(p)
+    p.add_argument("--speed-test", action="store_true",
+                   help="disable all exports for clean timing "
+                        "(reference SpeedTestFlag)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="write a solver checkpoint every N time steps")
+    _add_resilience_flags(p, "mid-Krylov chunk boundaries")
+    p.add_argument("--resume-elastic", default=None, metavar="DIR",
+                   nargs="?", const="",
+                   help="resume a multi-process run on this process count "
+                        f"(ROADMAP queue 1 item {ELASTIC_ITEM})")
+    p.add_argument("--backend", choices=BACKENDS, default="auto")
+    p.add_argument("--profile-dir", default=None)
+    _add_run_flags(p)
+    p.set_defaults(fn=cmd_solve)
+
+    p = sub.add_parser("solve-many",
+                       help="many load cases against one partitioned "
+                            "operator")
+    p.add_argument("scratch")
+    p.add_argument("run_id")
+    p.add_argument("--rhs", default=None, metavar="FILE.npy")
+    p.add_argument("--scales", default=None, metavar="S0,S1,...")
+    p.add_argument("--n-parts", type=int, default=None)
+    _add_solver_flags(p)
+    p.add_argument("--backend", choices=BACKENDS, default="auto")
+    _add_resilience_flags(p, "blocked-solve chunk boundaries")
+    _add_run_flags(p)
+    p.set_defaults(fn=cmd_solve_many)
+
+    p = sub.add_parser("export", help="export result frames to VTK")
+    p.add_argument("scratch")
+    p.add_argument("run_id")
+    p.add_argument("vars", help='e.g. "U PS1 ES"')
+    p.add_argument("mode", choices=["Full", "Boundary", "MidSlices",
+                                    "Delaunay"])
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("demo", help="synthetic end-to-end demo")
+    p.add_argument("--nx", type=int, default=16)
+    p.add_argument("--ny", type=int, default=0)
+    p.add_argument("--nz", type=int, default=0)
+    p.add_argument("--scratch", default="./scratch")
+    _add_solver_flags(p, precision_default="mixed")
+    p.add_argument("--octree", action="store_true",
+                   help="graded octree model with transition pattern types "
+                        "(nx/ny/nz = base cells; solved on the hybrid "
+                        "level-grid backend)")
+    p.add_argument("--max-level", type=int, default=2,
+                   help="octree refinement levels (with --octree)")
+    p.add_argument("--poisson", action="store_true",
+                   help="scalar Poisson/diffusion model (1 dof per node, "
+                        "heterogeneous conductivity)")
+    _add_run_flags(p)
+    p.set_defaults(fn=cmd_demo)
+
+    for name, item in REFUSED.items():
+        p = sub.add_parser(name, help=f"not ported (ROADMAP queue 1 item "
+                                      f"{item})")
+        p.set_defaults(fn=cmd_refused)
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
+    # a refused subcommand takes whatever arguments the JAX package's does
+    args, extra = ap.parse_known_args(argv)
+    if extra and args.fn is not cmd_refused:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -94,9 +94,10 @@ class TimeHistoryConfig:
     (Dirichlet lifting); step 0 is skipped."""
 
     time_step_delta: Sequence[float] = (0.0, 1.0)
-    # Result export.  The port writes no result files yet, so export_flag
-    # changes nothing either way; the other export fields raise unless at
-    # their defaults.
+    # Result export (Solver.solve(store=...)): frames every
+    # export_frame_rate steps and at export_frames, of export_vars (U D ES
+    # PS PE NS or PS1..PS3 PE1..PE3), timestamped t * dt; plot_flag keeps
+    # the probe_dofs' displacement history
     export_flag: bool = True
     export_frame_rate: int = 1
     export_frames: Sequence[int] = ()

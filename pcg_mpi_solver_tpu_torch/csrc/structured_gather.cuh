@@ -58,9 +58,10 @@
 //     (ops/structured_matvec.py::v5_geometry) chooses kRows (the tallest of
 //     8, 4, 2 whose ring fits 227 KB at this C: 8 at C = 8 and 16), the
 //     tiles and the segment length and passes them in; a C whose whole
-//     ring does not fit even at 2 rows (C above 54) keeps the 2-row tile
-//     and is staged in groups of 54.  At C = 8 two 128-thread blocks
-//     share an SM (107.7 KB each).
+//     ring does not fit even at 2 rows (C above 54) takes the 8-row tile
+//     and is staged in groups of 19 (4.8x faster at 150^3 than 2 rows in
+//     groups of 54, PERF.md).  At C = 8 two 128-thread blocks share an
+//     SM (107.7 KB each).
 //   * Each output node plane is written once, 32 consecutive z nodes a
 //     warp row.  A fixed summation order: two launches give the same bits.
 // Builds timed on the card (tools/v5_kernel_compare.py, PERF.md, Findings):
@@ -115,7 +116,7 @@ inline int group_planes(int C, int rows) {
   const long long fit =
       (static_cast<long long>((kBlockSmem - fixed) / (sizeof(float) * slot)) -
        2) / 2;
-  return static_cast<int>(fit < C ? (fit < 1 ? 1 : fit) : C);
+  return static_cast<int>(fit < C ? fit : C);
 }
 
 // Dynamic shared memory: the ring of 2G + 2 slots, Ke and the copy table

@@ -16,6 +16,17 @@ from typing import Dict, List, Optional
 import numpy as np
 
 
+class SparseVec:
+    """A nodal array restricted to one slab's ids (the JAX package's
+    ``SparseVec``), which only the sharded slab ingest builds: ROADMAP
+    queue 1 item 12."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SparseVec belongs to the sharded (multi-process) ingest, "
+            "ROADMAP queue 1 item 12")
+
+
 @dataclasses.dataclass
 class ModelData:
     # Counts

@@ -35,9 +35,9 @@ sub-quads), so interior faces appear exactly twice and the exporter's
 Boundary mode can keep incidence-1 faces (reference export_vtk.py:105-113).
 
 A numpy copy of ``pcg_mpi_solver_tpu/models/octree.py`` (the generator and
-everything it calls), array for array (tests/test_torch_partition.py).
-``reconstruct_lattice_meta``, which serves models read from MDF bundles,
-comes with the MDF reader (ROADMAP queue 1 item 11).
+everything it calls), array for array (tests/test_torch_partition.py),
+and of its ``reconstruct_lattice_meta``, which rebuilds this metadata for
+a model read from an MDF bundle (models/mdf.py).
 """
 
 from __future__ import annotations
@@ -527,6 +527,142 @@ def make_octree_model(
         octree=_octree_meta(leaves, (X, Y, Z), node_keys,
                             (stride_y, stride_z), mask_to_type),
     )
+
+
+def reconstruct_lattice_meta(model: ModelData) -> bool:
+    """Rebuild ``Octree.npz``-equivalent lattice metadata from the
+    reference schema's OWN fields, so a genuine reference MDF bundle
+    (which has no fast-path sidecars) routes to the hybrid level-grid
+    backend instead of the general gather/scatter path .
+
+    Fully geometric — per-element bounding boxes from connectivity +
+    node coords (schema-independent: does not trust ``Level``'s unit
+    convention), cell sizes snapped to the finest size ``hf``, node
+    coords snapped to the finest lattice.  Engages only when EVERY check
+    passes exactly (cubic cells, power-of-two size ratios, size-aligned
+    min corners, lattice-aligned nodes, unique node keys, an 8-corner
+    brick type with zero sign bits); returns False (model untouched)
+    otherwise — a non-octree model must silently keep its general-path
+    eligibility.  Sets ``model.octree`` (and ``model.grid`` when the
+    lattice is a trivially-uniform full box).
+    """
+    nc = np.asarray(model.node_coords, float)
+    conn = np.asarray(model.elem_nodes_flat)
+    off = np.asarray(model.elem_nodes_offset)
+    n_elem = int(model.n_elem)
+    if n_elem == 0 or len(conn) == 0 or nc.ndim != 2 or nc.shape[1] != 3:
+        return False
+    pts = nc[conn]                                  # (n_flat, 3)
+    mins = np.minimum.reduceat(pts, off[:-1], axis=0)
+    maxs = np.maximum.reduceat(pts, off[:-1], axis=0)
+    ext = maxs - mins                               # (n_elem, 3)
+    scale = float(np.max(ext))
+    if scale <= 0:
+        return False
+    tol = 1e-6 * scale
+    # cubic cells of positive size
+    if (np.any(ext <= 0) or np.any(np.abs(ext[:, 0] - ext[:, 1]) > tol)
+            or np.any(np.abs(ext[:, 0] - ext[:, 2]) > tol)):
+        return False
+    h = ext.mean(axis=1)
+    hf = float(h.min())
+    s_f = h / hf
+    s_int = np.rint(s_f).astype(np.int64)
+    # power-of-two size ratios (2:1-graded octree sizes in finest units)
+    if (np.any(np.abs(s_f - s_int) * hf > tol) or np.any(s_int < 1)
+            or np.any(s_int & (s_int - 1))):
+        return False
+    origin = nc.min(axis=0)
+    lo_f = (mins - origin) / hf
+    leaf_xyz = np.rint(lo_f).astype(np.int64)
+    if np.any(np.abs(lo_f - leaf_xyz) * hf > tol) or np.any(leaf_xyz < 0):
+        return False
+    if np.any(leaf_xyz % s_int[:, None]):           # octree cells are
+        return False                                # size-aligned
+    # cross-check the schema's own cell centers where present
+    if model.sctrs is not None and len(model.sctrs):
+        centers = mins + 0.5 * h[:, None]
+        if np.any(np.abs(np.asarray(model.sctrs, float) - centers)
+                  > 10 * tol):
+            return False
+    nlat_f = (nc - origin) / hf
+    nlat = np.rint(nlat_f).astype(np.int64)
+    if np.any(np.abs(nlat_f - nlat) * hf > tol) or np.any(nlat < 0):
+        return False
+    dims = (leaf_xyz + s_int[:, None]).max(axis=0)
+    if np.any(nlat > dims[None, :]) or np.any(nlat.max(axis=0) != dims):
+        return False
+    X, Y, Z = (int(d) for d in dims)
+    sy, sz = X + 1, (X + 1) * (Y + 1)
+    node_keys = nlat[:, 0] + sy * nlat[:, 1] + sz * nlat[:, 2]
+    if len(np.unique(node_keys)) != len(node_keys):
+        return False
+
+    # ---- brick type: the 8-node type whose connectivity is exactly the
+    # 8 cell corners, for EVERY element of the type, in the level-grid
+    # stencil's corner order, with no sign flips.  All checks are GLOBAL
+    # (vectorized over every element of the candidate type): a sampled
+    # check that misses one mis-oriented element would make the hybrid
+    # stencil apply Ke with the wrong orientation — a silently wrong
+    # solution, the one failure mode reconstruction must never risk. ----
+    # the level-grid stencil's corner order (parallel/hybrid.py _CORNERS)
+    _CORNERS = HEX_CORNERS.astype(np.int64)
+
+    nn_per = np.diff(off)
+    brick_type = None
+    brick_corners = None
+    best_count = 0
+    sign_off = np.asarray(model.elem_dofs_offset)
+    sflat = np.asarray(model.elem_sign_flat)
+    for t, lib in model.elem_lib.items():
+        if lib.get("n_nodes") != 8:
+            continue
+        sel = np.where(np.asarray(model.elem_type) == t)[0]
+        if not len(sel) or np.any(nn_per[sel] != 8):
+            continue
+        nodes = conn[off[sel, None] + np.arange(8)[None]]       # (k, 8)
+        offs = ((nlat[nodes] - leaf_xyz[sel, None, :])
+                // s_int[sel, None, None])                      # (k, 8, 3)
+        # partition_hybrid hard-requires _CORNERS order;
+        # any other constant order must DECLINE (general path), not
+        # engage-and-crash
+        if not np.array_equal(offs, np.broadcast_to(_CORNERS, offs.shape)):
+            continue
+        # brick rows must be unsigned (sign flips would re-orient Ke)
+        segs = sflat[sign_off[sel, None] + np.arange(24)[None]]
+        if segs.any():
+            continue
+        if len(sel) > best_count:
+            best_count = len(sel)
+            brick_type = int(t)
+            brick_corners = np.asarray(_CORNERS, np.int64).copy()
+    if brick_type is None:
+        return False
+
+    leaves = np.concatenate([leaf_xyz, s_int[:, None]], axis=1)
+    model.octree = {
+        "leaves": leaves,
+        "dims": (X, Y, Z),
+        "node_keys": node_keys,
+        "strides": (sy, sz),
+        "brick_type": brick_type,
+        "brick_corners": brick_corners,
+    }
+    if (model.grid is None and np.all(s_int == 1)
+            and n_elem == X * Y * Z and best_count == n_elem
+            # the structured backend additionally hardcodes the lattice
+            # ORDERINGS (parallel/structured.py:88,94): element id
+            # x-fastest over (z, y, x) and node id = lattice raveling —
+            # engage the grid fast path only when the bundle matches
+            and np.array_equal(node_keys,
+                               np.arange((X + 1) * (Y + 1) * (Z + 1)))
+            and np.array_equal(
+                leaf_xyz,
+                np.stack(np.meshgrid(np.arange(X), np.arange(Y),
+                                     np.arange(Z), indexing="ij"),
+                         axis=-1).transpose(2, 1, 0, 3).reshape(-1, 3))):
+        model.grid = (X, Y, Z, hf)      # trivially-uniform full box
+    return True
 
 
 def _octree_meta(leaves, dims, node_keys, strides, mask_to_type):

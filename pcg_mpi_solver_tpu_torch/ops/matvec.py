@@ -283,6 +283,71 @@ class Ops:
     def diag(self, data: dict) -> torch.Tensor:
         return self.iface_assemble(data, self.diag_local(data))
 
+    # -- element strain + nodal averaging (export path) -----------------
+    def elem_strain(self, data: dict, x: torch.Tensor) -> list:
+        """Per-bucket center-point strain eps = Se.(ce * S.u_e) in each
+        pattern's local frame (reference updateElemStrain,
+        pcg_solver.py:601-618): one (T, 6, M) tensor a bucket, element
+        slot (t, m) as the matvec's (padded slots give 0).  Each element
+        takes its sub-type's Se with the sign row folded in (``SeT``), so
+        the signs flip no gathered value."""
+        if not all("SeT" in b for b in data["buckets"]):
+            raise ValueError("strain export unavailable: an element type "
+                             "has no strain-mode matrix Se")
+        xr = x.reshape(1, -1, self.row_width)
+        out = []
+        for bkt, shape in zip(data["buckets"], self.buckets):
+            u = self._gather_u(xr, bkt, shape)[0]
+            out.append(torch.matmul(u * bkt["ce"], bkt["SeT"])
+                       .transpose(1, 2))
+        return out
+
+    def elem_scale(self, data: dict) -> list:
+        """Per-bucket elastic modulus E = ck * ce (ck = E*h, ce = 1/h),
+        (T, M)."""
+        return [(b["ck"] * b["ce"])[..., 0] for b in data["buckets"]]
+
+    def _node_sums(self, data: dict, vals_list) -> torch.Tensor:
+        """Element values (a (T, k, M) tensor a bucket) -> per local node
+        the sums of its elements' values and their count, (1, P *
+        n_node_loc, k + 1): every element node row of the stacked layout
+        holds its element's values and a 1, and each node sums its rows
+        over the node ELL in the matvec's fixed order (padded slots are
+        in no ELL row, so they count nothing)."""
+        if not self.use_node_ell:
+            raise ValueError(
+                "nodal averaging needs the node-contiguous dof layout "
+                "(PartitionedModel.ell); this model/partition lacks it")
+        k = vals_list[0].shape[1] if vals_list else 1
+        ref = data["weight"]
+        vbuf = self._value_rows(1, k + 1, ref.dtype, ref.device)
+        for vals, shape in zip(vals_list, self.buckets):
+            T, M, nr, _d, _base = shape
+            rows = self._bucket_rows(vbuf, shape)[0].view(T, M, nr, k + 1)
+            rows[..., :k] = vals.transpose(1, 2)[:, :, None, :]
+            rows[..., k] = 1
+        return self._scatter_rows(data, vbuf)
+
+    def _node_average(self, data: dict, sums: torch.Tensor,
+                      k: int) -> torch.Tensor:
+        """(1, P * n_node_loc, k + 1) local sums and counts -> the
+        averaged nodal field (P, k, n_node_loc), shared nodes' sums and
+        counts assembled across parts first (the reference's +1e-15
+        guard, pcg_solver.py:724)."""
+        both = self.niface_assemble(
+            data, sums.reshape(self.n_parts, self.n_node_loc, k + 1))
+        return (both[..., :k] / (both[..., k:] + 1e-15)).transpose(1, 2)
+
+    def nodal_average(self, data: dict, vals_list) -> torch.Tensor:
+        """Element values -> averaged nodal field (P, k, n_node_loc).
+
+        ``vals_list``: per bucket (T, k, M) element-constant values
+        (:meth:`elem_strain`'s layout).  Sums and counts over each node's
+        elements, assembled across the parts sharing the node, divided
+        (reference getNodalScalarVar/getNodalPS, pcg_solver.py:655-814)."""
+        k = vals_list[0].shape[1]
+        return self._node_average(data, self._node_sums(data, vals_list), k)
+
     # -- node-block (3x3) diagonal for block-Jacobi ---------------------
     def _node_block_local(self, data: dict) -> torch.Tensor:
         """Part-local per-node 3x3 diagonal blocks of K, (P * n_node_loc,
@@ -675,7 +740,11 @@ def device_data(pm: PartitionedModel, dtype: torch.dtype, device,
     sub-types of :func:`_sub_types`) the element-row gather ``gidx``, the
     transposed padded unit stiffnesses with the signs folded in ``KeT``
     (T, d, d), ``ck`` (T, M, 1), ``dKe`` (T, 1, d), the node-block
-    diagonals ``D9`` (T, 1, nr, 9) on the node path; the ELL map over the
+    diagonals ``D9`` (T, 1, nr, 9) on the node path, and for the strain
+    export ``ce`` (T, M, 1) and ``SeT`` (T, d, 6; 3 for the scalar
+    class's gradient), the transposed
+    sign-folded strain modes (only when every type has its ``Se``); the
+    ELL map over the
     stacked value rows; the interface, node-interface and spring maps;
     and the per-part weight, eff, F and Ud vectors.  Float leaves at
     ``dtype`` on ``device``, index leaves int32 (int64 where
@@ -712,6 +781,13 @@ def device_data(pm: PartitionedModel, dtype: torch.dtype, device,
         KeT = np.zeros((T, d, d))
         dKe = np.zeros((T, 1, d))
         D9 = np.zeros((T, 1, nr, 9))
+        ce = np.zeros((T, P, nmax))
+        has_se = all(pm.type_blocks[lay.subs[si].t].Se is not None
+                     for si in g)
+        # strain components: 6 (Voigt), 3 for the scalar class's gradient
+        n_se = max((pm.type_blocks[lay.subs[si].t].Se.shape[0] for si in g),
+                   default=0) if has_se else 0
+        SeT = np.zeros((T, d, n_se))
         for i, si in enumerate(g):
             st = lay.subs[si]
             tb = pm.type_blocks[st.t]
@@ -731,7 +807,10 @@ def device_data(pm: PartitionedModel, dtype: torch.dtype, device,
                 full[:, :rows] = el
                 gidx[i, p, :len(sel)] += full
                 ck[i, p, :len(sel)] = tb.ck[p, sel]
+                ce[i, p, :len(sel)] = tb.ce[p, sel]
             sv = np.where(st.sign, -1.0, 1.0)
+            if has_se:
+                SeT[i, :dt_] = (tb.Se * sv[None, :]).T         # (Se S)^T
             Ke = sv[:, None] * tb.Ke * sv[None, :]             # S Ke S
             KeT[i, :dt_, :dt_] = Ke.T
             dKe[i, 0, :dt_] = np.diag(Ke)
@@ -746,6 +825,9 @@ def device_data(pm: PartitionedModel, dtype: torch.dtype, device,
              "dKe": put(dKe, dtype)}
         if w == 3:
             b["D9"] = put(D9, dtype)
+        if has_se:
+            b["ce"] = put(ce.reshape(T, M, 1), dtype)
+            b["SeT"] = put(SeT, dtype)
         buckets.append(b)
     data["buckets"] = buckets
     data["ell"] = put(_ell_map(pm, lay), torch.int32)

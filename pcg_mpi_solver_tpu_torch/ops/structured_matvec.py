@@ -228,7 +228,7 @@ def v5_group(planes: int, rows: int) -> int:
     rows, 35 at 4, 54 at 2)."""
     slot = _v5_slot(rows)
     fit = ((BLOCK_SMEM - 4 * 576 - 8 * slot) // (4 * slot) - 2) // 2
-    return max(1, min(planes, fit))
+    return min(planes, fit)
 
 
 def v5_smem_bytes(planes: int, rows: int) -> int:
@@ -264,16 +264,18 @@ def v5_geometry(parts: int, nx: int, ny: int, nz: int, planes: int,
     nx, ny, nz) slab at ``planes`` cell planes a chunk.
 
     The tile is ``rows`` high (one of V5_ROWS), by default the tallest
-    whose ring of two whole chunks fits a block's shared memory (the
-    shortest if none does: the chunk is then staged in groups,
-    :func:`v5_group`).  The x segment length minimises waves x
+    whose ring of two whole chunks fits a block's shared memory; where
+    none does (above 54 planes) the tallest, 8 rows, staging each chunk
+    in groups of 19 (:func:`v5_group`): 0.236 ms at 150^3 and 56 planes
+    against 0.479 at 4 rows and 1.141 at 2 (PERF.md, PR 19 run D).  The
+    x segment length minimises waves x
     (seg_len + 2), a wave being the blocks the card holds at once
     (``sms`` x the blocks an SM's shared memory holds), each segment's two
     extra node planes included; ties go to fewer segments."""
     if rows is None:
         rows = next((r for r in V5_ROWS
                      if _v5_ring_bytes(2 * planes + 2, r) <= BLOCK_SMEM),
-                    V5_ROWS[-1])
+                    V5_ROWS[0])
     smem = v5_smem_bytes(planes, rows)
     n_ty, n_tz = -(-(ny + 1) // rows), -(-(nz + 1) // V5_LANES_Z)
     per_sm = max(1, SM_SMEM // (smem + SMEM_RESERVED))

@@ -32,7 +32,10 @@ a block of R right-hand sides), at any nb.  ``hybrid_pallas_enabled``,
 ``pallas_levels``, ``pallas_interpret`` and the XLA stencil forms
 (``gse``, ``gsplit``, ``corner``) have no counterpart: the port has no
 probe, no XLA stencil and no fallback.  The export half (``elem_strain``,
-``elem_scale``, ``nodal_average``) is ROADMAP queue 1 item 11.
+``elem_scale``, ``nodal_average``) runs the transition buckets as the
+general backend does and each level as a slab (``brick_Se`` on the
+gathered node lattices; node sums as the eight corner translates, holes
+masked out), the levels' sums added through the same combine.
 
 A lattice point of a level grid that is not a local mesh node maps to the
 pad row: its gathered value (0) multiplies only cells with ck = 0, and
@@ -52,7 +55,7 @@ from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.ops.matvec import Ops, device_data
 from pcg_mpi_solver_tpu_torch.ops.precond import corner_block_field
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-    CORNERS, scatter_cells, structured_matvec)
+    CORNERS, gather_cells, scatter_cells, structured_matvec)
 from pcg_mpi_solver_tpu_torch.parallel.partition import (
     PartitionedModel, make_elem_part, partition_model)
 
@@ -394,7 +397,8 @@ def _device_slots(hp: HybridPartition, slots: np.ndarray,
 def device_data_hybrid(hp: HybridPartition, dtype: torch.dtype,
                        device) -> dict:
     """The general device tree of the transition blocks plus, per level,
-    the cell scales ``ck`` (P * nb, bx, by, bz) and the component-major
+    the cell scales ``ck`` and strain scales ``ce`` (P * nb, bx, by, bz)
+    and the component-major
     node-lattice gather ``gx`` (P * nb * 3 * nodes, int32: flat dof
     3 * (p * n_node_loc + node) + c, the pad node P * n_node_loc reading
     an appended zero); ``brick_Ke``, ``brick_diag``, ``brick_Se``; and the
@@ -416,6 +420,7 @@ def device_data_hybrid(hp: HybridPartition, dtype: torch.dtype,
         gx = rows[:, :, None, :] * 3 + np.arange(3)[None, None, :, None]
         levels.append({
             "ck": put(lv.ck.reshape((P * lv.nb,) + lv.ck.shape[2:]), dtype),
+            "ce": put(lv.ce.reshape((P * lv.nb,) + lv.ce.shape[2:]), dtype),
             "gx": put(gx.reshape(-1), torch.int32)})
     d["levels"] = levels
     d["brick_Ke"] = put(hp.brick_Ke, dtype)
@@ -599,3 +604,62 @@ class HybridOps(Ops):
         grids = [corner_block_field(data["brick_Ke"], lv["ck"], CORNERS)
                  for lv in data["levels"]]
         return self._combine(data, y[None], grids)[0]
+
+    # -- export path (strain + nodal averaging over buckets + levels) ----
+    def _level_grids(self, data: dict, x: torch.Tensor):
+        """Each level's gathered node lattices (P * nb, 3, bx+1, by+1,
+        bz+1) of ``x`` (P, n_loc)."""
+        xf = torch.cat([x.reshape(1, -1), x.new_zeros((1, 3))], dim=1)
+        for lv, (nb, bx, by, bz) in zip(data["levels"], self.level_dims):
+            yield lv, xf.index_select(1, lv["gx"]).view(
+                self.n_parts * nb, 3, bx + 1, by + 1, bz + 1)
+
+    def elem_strain(self, data: dict, x: torch.Tensor) -> list:
+        """The transition buckets' strains (:meth:`Ops.elem_strain`), then
+        one (P * nb, 6, cells) tensor a level: ``brick_Se`` on the level's
+        cells (holes give 0)."""
+        out = Ops.elem_strain(self, data, x) if self.buckets else []
+        if data["levels"] and "brick_Se" not in data:
+            raise ValueError("strain export unavailable: the brick element "
+                             "library has no Se strain mode")
+        for lv, xg in self._level_grids(data, x):
+            eps = torch.einsum("sd,bdxyz->bsxyz", data["brick_Se"],
+                               lv["ce"][:, None] * gather_cells(xg))
+            out.append(eps.reshape(eps.shape[0], 6, -1))
+        return out
+
+    def elem_scale(self, data: dict) -> list:
+        out = Ops.elem_scale(self, data) if self.buckets else []
+        return out + [(lv["ck"] * lv["ce"]).reshape(lv["ck"].shape[0], -1)
+                      for lv in data["levels"]]
+
+    def nodal_average(self, data: dict, vals_list) -> torch.Tensor:
+        """Buckets then levels (:meth:`elem_strain`'s order) -> averaged
+        nodal field (P, k, n_node_loc): the buckets' node sums over the
+        node ELL, each level's sums and valid-cell counts (holes, ck = 0,
+        count nothing) as its eight corner translates, added into the node
+        rows by the level combine; no float atomics on the gather
+        combine."""
+        nbk = len(self.buckets)
+        k = vals_list[0].shape[1]
+        ref = data["weight"]
+        if nbk:
+            sums = self._node_sums(data, vals_list[:nbk])
+        else:
+            sums = ref.new_zeros((1, self.n_parts * self.n_node_loc, k + 1))
+        grids = []
+        for lv, (nb, bx, by, bz), vals in zip(data["levels"],
+                                              self.level_dims,
+                                              vals_list[nbk:]):
+            valid = (lv["ck"] != 0).to(vals.dtype)[:, None]
+            vg = vals.reshape(-1, k, bx, by, bz) * valid
+            both = torch.cat([vg, valid], dim=1)
+            g = None
+            for dx, dy, dz in CORNERS:
+                t = torch.nn.functional.pad(both, (dz, 1 - dz, dy, 1 - dy,
+                                                   dx, 1 - dx))
+                g = t if g is None else g + t
+            grids.append(g)
+        if grids:
+            sums = self._combine(data, sums, grids)
+        return self._node_average(data, sums, k)

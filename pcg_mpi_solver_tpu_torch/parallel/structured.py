@@ -28,7 +28,7 @@ from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
 from pcg_mpi_solver_tpu_torch.ops.precond import corner_block_field
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
-    CORNERS, scatter_cells, structured_matvec)
+    CORNERS, gather_cells, scatter_cells, structured_matvec)
 
 
 @dataclasses.dataclass
@@ -324,6 +324,37 @@ class StructuredOps(Ops):
         g = self._halo(corner_block_field(blk["Ke"], ck, CORNERS))
         return g.reshape(P, 9, self.n_node_loc).transpose(1, 2) \
             .reshape(P, self.n_node_loc, 3, 3)
+
+    # -- export path ----------------------------------------------------
+    def elem_strain(self, data: dict, x: torch.Tensor) -> list:
+        """Cell strains eps = Se.(ce * u_cell), one (P, 6, cells) tensor,
+        cells in (x, y, z) row-major order of the part's slab."""
+        blk = data["blocks"][0]
+        u = gather_cells(self._grid(x))                    # (P, 24, cells)
+        eps = torch.einsum("sd,pdxyz->psxyz", blk["Se"],
+                           blk["ce"][:, None] * u)
+        return [eps.reshape(eps.shape[0], 6, -1)]
+
+    def elem_scale(self, data: dict) -> list:
+        blk = data["blocks"][0]
+        return [(blk["ck"] * blk["ce"]).reshape(blk["ck"].shape[0], -1)]
+
+    def nodal_average(self, data: dict, vals_list) -> torch.Tensor:
+        """Cell values -> averaged nodal grid (P, k, n_node_loc): sums and
+        counts as the eight zero-padded corner translates, added in corner
+        order, the slab planes combined by the halo as extra channels."""
+        vals = vals_list[0]
+        P, k = vals.shape[0], vals.shape[1]
+        vg = vals.reshape(P, k, self.nxc, self.ny, self.nz)
+        both = torch.cat([vg, torch.ones_like(vg[:, :1])], dim=1)
+        y = None
+        for dx, dy, dz in CORNERS:
+            t = torch.nn.functional.pad(both, (dz, 1 - dz, dy, 1 - dy,
+                                               dx, 1 - dx))
+            y = t if y is None else y + t
+        y = self._halo(y)
+        avg = y[:, :k] / (y[:, k:] + 1e-15)
+        return avg.reshape(P, k, -1)
 
     def _as_node3(self, v: torch.Tensor) -> torch.Tensor:
         # the structured dof layout is component-major: ([R,] P, 3, nodes)

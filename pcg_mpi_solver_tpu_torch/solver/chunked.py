@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
-    LAGGED_VARIANTS, _read, cold_carry, pcg, refine_tol, select_best)
+    LAGGED_VARIANTS, _read, cold_carry, mixed_windows, pcg, refine_tol,
+    select_best)
 
 
 def _state_kind(state) -> str:
@@ -80,17 +81,21 @@ class ChunkedEngine:
             return contextlib.nullcontext()
         return self._rec.dispatch(name)
 
-    def _capped(self, ops, data, fext, prec, carry, tol, total):
+    def _capped(self, ops, data, fext, prec, carry, tol, total,
+                windows=None):
         """One capped call of the resumable ``pcg``: at most ``cap``
         iterations and the budget's remainder; MoreSteps sized by the
-        nominal ``max_iter``."""
+        nominal ``max_iter``; ``windows`` the mixed shell's plateau and
+        progress exits (an inner f32 cycle's only), whose clocks ride
+        the carry across calls."""
         scfg = self.scfg
         return pcg(ops, data, fext, carry["x"], prec, tol=tol,
                    max_iter=min(self.cap, scfg.max_iter - total),
                    glob_n_dof_eff=self.glob_n_dof_eff,
                    max_stag_steps=scfg.max_stag_steps,
                    max_iter_nominal=scfg.max_iter, carry_in=carry,
-                   return_carry=True, variant=self.variant)
+                   return_carry=True, variant=self.variant,
+                   **(windows or {}))
 
     def run(self, data, fext, carry, normr0, n2b, prec,
             vlog: Optional[Callable[[str], None]] = None,
@@ -179,7 +184,8 @@ class ChunkedEngine:
                         faults.on_dispatch()
                     with self._disp("inner_cycle"):
                         res, c32 = self._capped(ops32, data32, rhat32, prec,
-                                                c32, tol_cycle, total)
+                                                c32, tol_cycle, total,
+                                                mixed_windows(scfg))
                         exec_n = int(c32["exec"])
                         total += exec_n
                         inner_flag = int(res.flag)

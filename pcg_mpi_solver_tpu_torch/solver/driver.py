@@ -43,6 +43,14 @@ checkpoints (``checkpoint_every``, ``solve(resume=True)``) and
 deterministic fault injection (``fault_plan``, ``PCG_TPU_FAULTS``).  The
 one-shot path returns a breakdown flag (2, 4, 6) as it is.
 
+``solve(store=...)`` runs the schedule with the JAX package's exports
+(``driver.py:2246-2628``): the owner-masked displacement and nodal field
+frames (D, ES, PS1-3, PE1-3 on the solver's device from the storage-dtype
+solution, ``ops/stress.py``; NS on the host), the maps, the time list,
+the probe history and the timing data, into a ``utils.io.RunStore``.
+The mixed shell's plateau and progress windows (``SolverConfig.mixed_*``)
+run in every inner f32 cycle, one-shot and chunked.
+
 The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card, the default raises instead of quietly running on the CPU.
 """
@@ -65,7 +73,11 @@ from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
 from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
 from pcg_mpi_solver_tpu_torch.ops.matvec import (
     Ops, bucketed_matvec, build_bucketed_blocks, device_data)
+from pcg_mpi_solver_tpu_torch.ops.nonlocal_stress import (
+    build_nonlocal_weights, elem_stress_host, nodal_average_host,
+    von_mises_stress)
 from pcg_mpi_solver_tpu_torch.ops.precond import fallback_kind, make_prec
+from pcg_mpi_solver_tpu_torch.ops.stress import nodal_export_fields
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
 from pcg_mpi_solver_tpu_torch.parallel.hybrid import (
@@ -82,8 +94,8 @@ from pcg_mpi_solver_tpu_torch.solver.chunked import (
     ChunkedEngine, auto_dispatch_cap)
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
     BREAKDOWN_FLAGS, LAGGED_VARIANTS, QUARANTINE_FLAG, _np_type, _read,
-    cold_carry, cold_carry_many, pcg, pcg_many, pcg_mixed, pcg_mixed_many,
-    restart_carry_many, select_best_many)
+    cold_carry, cold_carry_many, mixed_windows, pcg, pcg_many, pcg_mixed,
+    pcg_mixed_many, restart_carry_many, select_best_many)
 from pcg_mpi_solver_tpu_torch.utils.checkpoint import (
     CheckpointManager, SnapshotStore, array_hash)
 from pcg_mpi_solver_tpu_torch.validate import (
@@ -158,19 +170,18 @@ def resolve_device(device=None) -> torch.device:
 # ROADMAP queue 1 item that brings it.  A value other than the JAX
 # package's default raises NotImplementedError naming the item.
 UNPORTED = {
-    **{("solver", f): 3 for f in (
-        "mixed_plateau_window", "mixed_progress_window",
-        "mixed_progress_ratio", "mixed_progress_min_gain")},
     ("solver", "trace_resid"): 14,
-    ("time_history", "dt"): 10,
-    **{("time_history", f): 11 for f in (
-        "export_frame_rate", "export_frames", "plot_flag", "export_vars",
-        "probe_dofs")},
     ("run", "setup_shard"): 12,
     **{("run", f): 14 for f in (
         "preflight", "cache_dir", "telemetry_path", "flight_path",
         "telemetry_profile", "profile_dir", "comm_probe_iters")},
 }
+# The JAX package's calc vs comm-wait split (``measure_comm_split``) of a
+# one-device mesh, which the time data records: every part lives on the
+# one device, no collective runs, all is calc (the measured probe of a
+# multi-device mesh is ROADMAP queue 1 item 14)
+ONE_DEVICE_COMM = {"comm_frac": 0.0, "full_s_per_iter": 0.0,
+                   "calc_s_per_iter": 0.0}
 _DEFAULTS = {"run": RunConfig(), "solver": SolverConfig(),
              "time_history": TimeHistoryConfig()}
 
@@ -267,7 +278,7 @@ class Solver:
                  backend: str = "auto",
                  elem_part: Optional[np.ndarray] = None,
                  recorder: Optional[MetricsRecorder] = None):
-        t0 = time.perf_counter()
+        t0 = self._t_init0 = time.perf_counter()
         self.config = config or RunConfig()
         # telemetry of the chunked path: dispatch spans, recovery,
         # snapshot and fault events (a recorder without sinks by default)
@@ -426,6 +437,18 @@ class Solver:
         self.relres: List[float] = []
         self.iters: List[int] = []
         self.step_times: List[float] = []
+        # the steps this process ran (a restored checkpoint's are not)
+        self._proc_step_times: List[float] = []
+        # the export path (solve(store=...)): Poisson's ratio of the
+        # stress fields, the nonlocal operator (built at the first NS
+        # frame), frame count, frame times, seconds spent exporting
+        self._nu = float(model.mat_prop[0]["Pos"]) if model.mat_prop \
+            else 0.2
+        self._nonlocal = None
+        self._export_count = 0
+        self._export_times: List[float] = []
+        self._export_wall = 0.0
+        self._probe_u: List[np.ndarray] = []
         self.setup_s = time.perf_counter() - t0
 
     def reset_state(self) -> None:
@@ -507,6 +530,7 @@ class Solver:
         self.relres.append(out.relres)
         self.iters.append(out.iters)
         self.step_times.append(wall)
+        self._proc_step_times.append(wall)
         return out
 
     def _step_oneshot(self, delta: float):
@@ -523,6 +547,7 @@ class Solver:
                 max_stag_steps=sc.max_stag_steps,
                 inner_tol=sc.inner_tol,
                 variant=sc.pcg_variant,
+                **mixed_windows(sc),
             )
         else:
             res = pcg(
@@ -679,16 +704,33 @@ class Solver:
         return self._esc_engine, self.data, prec
 
     def solve(self, on_step: Optional[Callable[[int, StepResult], None]]
-              = None, resume: bool = False) -> List[StepResult]:
+              = None, store=None, resume: bool = False) -> List[StepResult]:
         """Run the quasi-static schedule ``time_step_delta``, skipping
-        step 0.  With ``resume=True``, restore the latest step checkpoint
-        under ``config.checkpoint_path`` (if any), continue from the step
-        after it, and let that step resume its mid-solve snapshot (only
-        then: a fresh solve never continues a stale snapshot); with
+        step 0 (the reference's ``range(1, RefMaxTimeStepCount)``,
+        pcg_solver.py:1002), exporting contour frames, the probe history
+        and the timing data into ``store`` (``utils.io.RunStore``) when
+        exports are enabled, in the JAX package's layout on disk.
+
+        With ``resume=True``, restore the latest step checkpoint under
+        ``config.checkpoint_path`` (if any), continue from the step after
+        it, and let that step resume its mid-solve snapshot (only then: a
+        fresh solve never continues a stale snapshot); with
         ``config.checkpoint_every > 0``, checkpoint every N completed
         steps and after the last.  Returns the results of the steps this
         call ran."""
-        deltas = self.config.time_history.time_step_delta
+        th = self.config.time_history
+        deltas = th.time_step_delta
+        speed = self.config.speed_test
+        do_export = store is not None and th.export_flag and not speed
+        do_plot = store is not None and th.plot_flag and not speed
+        if do_export and self._model.n_dof == self._model.n_node:
+            bad = self._nodal_vars()            # includes NS
+            if bad:
+                # the strain/stress/nonlocal fields need 6 Voigt
+                # components: refuse up front, not mid-solve
+                raise ValueError(
+                    f"export vars {bad} (strain/stress nodal fields) are "
+                    "not available for the scalar problem class; export 'U'")
         every = self.config.checkpoint_every
         ckpt = None
         t_start = 1
@@ -699,18 +741,174 @@ class Solver:
             if t_done is not None:
                 t_start = t_done + 1
         self._resume_pending = bool(resume)
+
+        t_prep = time.perf_counter() - self._t_init0
+        if do_export and t_start == 1:
+            # on resume the run dir (maps and frames so far) must survive;
+            # prepare() would rotate it away
+            store.prepare()
+            store.write_map("Dof", self.export_dof_map())
+            if self._nodal_vars():
+                store.write_map("NodeId", self.export_node_map())
+            self._export_count = 0
+            self._export_times = []
+            self._maybe_export(store, 0)
+        if t_start == 1:
+            self._probe_u = []
         results = []
         try:
             for t in range(t_start, len(deltas)):
                 res = self.step(deltas[t])
                 results.append(res)
+                if do_export:
+                    self._maybe_export(store, t)
+                if do_plot and len(th.probe_dofs) > 0:
+                    u = self.displacement_global()
+                    self._probe_u.append(u[np.asarray(th.probe_dofs)])
                 if every > 0 and (t % every == 0 or t == len(deltas) - 1):
                     ckpt.save(self, t)
                 if on_step is not None:
                     on_step(t, res)
         finally:
             self._resume_pending = False
+        if do_export:
+            store.write_time_list(self._export_times)
+        if do_plot and self._probe_u:
+            times = [i * th.dt for i in range(1, len(deltas))]
+            store.write_plot_data(times, np.stack(self._probe_u, axis=1),
+                                  th.probe_dofs)
+        if store is not None and not speed:
+            store.write_time_data(self.pm.n_parts,
+                                  self.time_data(t_prep, ONE_DEVICE_COMM))
         return results
+
+    def _maybe_export(self, store, t: int) -> None:
+        """Key-frame contour export (reference exportContourData,
+        pcg_solver.py:841-896): U as the owner-masked dofs, the nodal
+        fields as the owner-masked nodes, NS from the host build."""
+        th = self.config.time_history
+        due = th.export_frame_rate > 0 and t % th.export_frame_rate == 0
+        if t in tuple(th.export_frames):
+            due = True
+        if not due:
+            return
+        t0 = time.perf_counter()
+        k = self._export_count
+        if "U" in self._export_vars():
+            store.write_frame("U", k, self.displacement_owned())
+        if [v for v in self._nodal_vars() if v != "NS"]:
+            mask = self.node_owner_mask()
+            for var, arr in self._nodal_fields().items():
+                store.write_frame(var, k, arr.cpu().numpy()[mask])
+        if "NS" in self._export_vars():
+            store.write_frame("NS", k,
+                              self._nonlocal_field()[self.export_node_map()])
+        self._export_times.append(t * th.dt)
+        self._export_count = k + 1
+        self._export_wall += time.perf_counter() - t0
+
+    def _export_vars(self) -> List[str]:
+        ev = self.config.time_history.export_vars
+        return ev.split() if " " in ev else [
+            v for v in ("U", "D", "ES", "PS", "PE", "NS") if v in ev]
+
+    def _nodal_vars(self) -> List[str]:
+        return [v for v in self._export_vars() if v != "U"]
+
+    def _nonlocal_field(self) -> np.ndarray:
+        """Nonlocal von Mises stress, node-averaged, as a global (n_node,)
+        host field: element stresses of the global solution smoothed by
+        the Gaussian neighbourhood operator (reference
+        config_NonlocalNeighbours, partition_mesh.py:1000-1299), as the
+        JAX package computes it on the host."""
+        if self._nonlocal is None:
+            self._nonlocal = build_nonlocal_weights(self._model)
+        sig = elem_stress_host(self._model, self.displacement_global())
+        ns = self._nonlocal.apply(von_mises_stress(sig, axis=1))
+        return nodal_average_host(self._model, ns)
+
+    def _nodal_fields(self) -> dict:
+        """The nodal export fields of the current solution, {var: (P,
+        n_node_loc) tensor} on the solver's device: computed from the
+        storage-dtype solution (float64 in mixed precision) on the
+        storage-dtype tree, never from an f32 inner iterate."""
+        nodal = tuple(v for v in self._nodal_vars() if v != "NS")
+        if self._model.n_dof == self._model.n_node:
+            raise ValueError(
+                f"export vars {nodal} (strain/stress nodal fields) are "
+                "not available for the scalar problem class; export 'U'")
+        return nodal_export_fields(self.ops, self.data, self.un, nodal,
+                                   self._nu)
+
+    def time_data(self, t_prep: float = 0.0,
+                  comm_split: Optional[dict] = None) -> dict:
+        """Solve metadata in the reference's TimeData schema
+        (file_operations.py:72-172, pcg_solver.py:943-961) with the JAX
+        package's extensions: a first-step overhead estimate, the export
+        seconds and per-part load-unbalance stats."""
+        steps = np.asarray(self.step_times)
+        proc = np.asarray(self._proc_step_times)
+        compile_est = (float(proc[0] - np.median(proc[1:]))
+                       if len(proc) > 1 else 0.0)
+        type_blocks = getattr(self.pm, "type_blocks", None)
+        if type_blocks:
+            elems_pp = np.sum([tb.n_elem for tb in type_blocks], axis=0)
+        else:   # structured slab partition: the same cell count a part
+            elems_pp = np.full(self.pm.n_parts,
+                               self.pm.nxc * self.pm.ny * self.pm.nz)
+        dofs_pp = np.asarray(self.pm.ndof_p)
+        unbalance = {
+            "ElemsPerPart": elems_pp,
+            "DofsPerPart": dofs_pp,
+            "MaxByMeanElems": float(elems_pp.max() / max(elems_pp.mean(), 1))
+            if elems_pp.size else 1.0,
+            "MaxByMeanDofs": float(dofs_pp.max() / max(dofs_pp.mean(), 1)),
+            "IfaceDofFrac": float(self.pm.n_iface
+                                  / max(self.pm.glob_n_dof, 1)),
+        }
+        total = float(np.sum(self.step_times))
+        comm_frac = comm_split["comm_frac"] if comm_split else 0.0
+        return {
+            "Mean_FileReadTime": t_prep,
+            "Mean_CalcTime": total * (1.0 - comm_frac),
+            "Mean_CommWaitTime": total * comm_frac,
+            "CommProbe": comm_split or {},
+            "Compile_Time_Est": max(compile_est, 0.0),
+            "Export_Time": float(self._export_wall),
+            "TotalTime": t_prep + total,
+            "Flag": np.asarray(self.flags),
+            "Iter": np.asarray(self.iters),
+            "RelRes": np.asarray(self.relres),
+            "StepTimes": steps,
+            "LoadUnbalanceData": unbalance,
+            "MP_NDOF": self.pm.n_loc,
+            "N_Parts": self.pm.n_parts,
+        }
+
+    # -- host-side views for export -------------------------------------
+    def owner_mask(self) -> np.ndarray:
+        """(P, n_loc) bool: the dofs each part owns (reference
+        DofWeightVector_Export, pcg_solver.py:198)."""
+        return (self.pm.weight > 0) & (self.pm.dof_gid >= 0)
+
+    def node_owner_mask(self) -> np.ndarray:
+        """(P, n_node_loc) bool: the nodes each part owns."""
+        return (self.pm.node_weight > 0) & (self.pm.node_gid >= 0)
+
+    def export_node_map(self) -> np.ndarray:
+        """Global node ids in export order (reference 'NodeId' map,
+        pcg_solver.py:202)."""
+        return self.pm.node_gid[self.node_owner_mask()]
+
+    def export_dof_map(self) -> np.ndarray:
+        """Global dof ids in export order (the reference's 'Dof' map,
+        pcg_solver.py:201)."""
+        return self.pm.dof_gid[self.owner_mask()]
+
+    def displacement_owned(self) -> np.ndarray:
+        """Owner-masked local solution values, in part order (the frame's
+        'U_i' payload, pcg_solver.py:869)."""
+        return self.un.cpu().numpy()[self.owner_mask()]
 
     def max_block_width(self) -> int:
         """The widest block ``solve_many`` takes for this model: a blocked
@@ -849,7 +1047,8 @@ class Solver:
                 tol=sc.tol, max_iter=sc.max_iter,
                 glob_n_dof_eff=glob_n_eff,
                 max_stag_steps=sc.max_stag_steps,
-                inner_tol=sc.inner_tol, variant=sc.pcg_variant)
+                inner_tol=sc.inner_tol, variant=sc.pcg_variant,
+                **mixed_windows(sc))
         return pcg_many(
             self.ops, data, fext, x0,
             make_prec(self.ops, self.data, sc.precond),

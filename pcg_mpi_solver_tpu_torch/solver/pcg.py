@@ -200,6 +200,15 @@ def select_best(ops: Ops, data: dict, fext: torch.Tensor, carry: dict,
             else (carry["x"], f(carry["normr_act"]) / den))
 
 
+def mixed_windows(scfg) -> dict:
+    """The mixed shell's window options of a ``SolverConfig`` as the
+    keywords of ``pcg`` / ``pcg_many`` (their inner f32 cycles only)."""
+    return dict(plateau_window=scfg.mixed_plateau_window,
+                progress_window=scfg.mixed_progress_window,
+                progress_ratio=scfg.mixed_progress_ratio,
+                progress_min_gain=scfg.mixed_progress_min_gain)
+
+
 def refine_tol(tolb, normr, inner_tol) -> np.float32:
     """Adaptive inner tolerance for one mixed-precision refinement cycle:
     the final cycle only needs to contract the residual by tolb/normr — a
@@ -267,6 +276,10 @@ def pcg(
     return_carry: bool = False,
     x0_zero: bool = False,
     variant: str = "classic",
+    plateau_window: int = 0,
+    progress_window: int = 0,
+    progress_ratio: float = 0.7,
+    progress_min_gain: float = 30.0,
 ):
     """Returns PCGResult, or (PCGResult, carry) with ``return_carry``.
 
@@ -283,7 +296,19 @@ def pcg(
     package.  ``x0_zero`` declares ``x0`` all zeros, so r0 = fext and
     ||r0|| = ||fext|| without a matvec.  ``max_iter_nominal`` sets the
     MoreSteps budget when ``max_iter`` is a remaining-iterations cap.
-    ``variant`` is one of ``VALID_PCG_VARIANTS`` (module docstring)."""
+    ``variant`` is one of ``VALID_PCG_VARIANTS`` (module docstring).
+
+    The mixed shell's two extra flag-3 exits (the JAX package's ``pcg``
+    :362-395; both off at 0, as for every direct solve):
+    ``plateau_window`` > 0 exits when no 0.1 % better residual than at
+    the window's last reset came for that many iterations;
+    ``progress_window`` > 0 compares, every that many iterations, the
+    monotone min residual with its value a window ago and exits when the
+    window contracted it by less than 1 / ``progress_ratio`` after the
+    cycle already contracted ||fext|| by ``progress_min_gain``.  Their
+    clocks ride the carry (``since_best``, ``best_at_reset``,
+    ``win_start``, ``win_count``), so capped calls resume them exactly;
+    a check forced by the pipelined cadence alone does not tick them."""
     if variant not in VALID_PCG_VARIANTS:
         raise ValueError(f"pcg variant must be one of "
                          f"{VALID_PCG_VARIANTS}, got {variant!r}")
@@ -363,7 +388,8 @@ def pcg(
         residual against the lagged iterate ``x`` while it commits the
         fresh update.  ``advance=False`` keeps ``i`` (a lagged check
         committed no update).  ``tick=False`` (a check forced by the
-        pipelined cadence alone) freezes the plateau window's clock."""
+        pipelined cadence alone) freezes the windows' clocks and their
+        verdicts."""
         i = c.i
         converged = candidate and bool(normr_act <= tolb)
         failed_check = candidate and not converged
@@ -374,6 +400,8 @@ def pcg(
         toosmall = failed_check and c.moresteps >= maxmsteps
         if normr_act < c.normrmin:
             c.normrmin, c.xmin, c.imin = normr_act, x, i
+        live = not converged and not toosmall
+        plateaued = no_progress = False
         if tick:
             # the plateau window's clock: a 0.1 % better residual than at
             # its last reset restarts it
@@ -381,8 +409,19 @@ def pcg(
                 c.since_best, c.best_at_reset = 0, normr_act
             else:
                 c.since_best += 1
-        stagnated = stag >= max_stag_steps and not converged and not toosmall
-        c.flag = 0 if converged else 3 if (toosmall or stagnated) else 1
+            plateaued = bool(plateau_window) and live \
+                and c.since_best > plateau_window
+            if progress_window:
+                # the progress window rolls over when it elapses
+                c.win_count += 1
+                if c.win_count >= progress_window:
+                    no_progress = live and bool(
+                        c.normrmin > f(progress_ratio) * c.win_start
+                        and c.normrmin * f(progress_min_gain) < n2b)
+                    c.win_start, c.win_count = c.normrmin, 0
+        stagnated = stag >= max_stag_steps and live
+        c.flag = 0 if converged else 3 if (
+            toosmall or stagnated or plateaued or no_progress) else 1
         c.x, c.r, c.p, c.rho, c.stag = x, r, p, rho, stag
         c.iter_out = i
         c.i = i if (c.flag != 1 or not advance) else i + 1
@@ -634,6 +673,10 @@ def pcg_mixed(
     inner_tol: float = 1e-5,
     max_outer: int = 12,
     variant: str = "classic",
+    plateau_window: int = 0,
+    progress_window: int = 0,
+    progress_ratio: float = 0.7,
+    progress_min_gain: float = 30.0,
 ) -> PCGResult:
     """Mixed-precision PCG by iterative refinement: f32 Krylov cycles on
     the NORMALIZED residual r/||r||, with the true residual recomputed and
@@ -642,10 +685,15 @@ def pcg_mixed(
     Exits: flag 0 when the f64 residual meets tol; 3 when a refinement
     cycle failed to halve it (stall); 2 after an inner inf-preconditioner
     exit; 1 when ``max_outer`` cycles or ``max_iter`` inner iterations are
-    spent.  ``iters`` is the total of executed inner iterations."""
+    spent.  ``iters`` is the total of executed inner iterations.  The
+    windows (``pcg``) run in every inner cycle."""
     eff64 = data64["eff"]
     w64 = data64["weight"] * eff64
     f = _np_type(ops64.dot_dtype)
+    windows = dict(plateau_window=plateau_window,
+                   progress_window=progress_window,
+                   progress_ratio=progress_ratio,
+                   progress_min_gain=progress_min_gain)
 
     def amul64(v):
         return eff64 * ops64.matvec(data64, v)
@@ -684,6 +732,7 @@ def pcg_mixed(
                 return_carry=True,
                 x0_zero=True,
                 variant=variant,
+                **windows,
             )
             # return_carry skips the min-residual finalize: on a
             # non-converged exit take the tracked min-residual iterate
@@ -839,6 +888,10 @@ def pcg_many(
     x0_zero: bool = False,
     variant: str = "classic",
     inv_diag_fb=None,
+    plateau_window: int = 0,
+    progress_window: int = 0,
+    progress_ratio: float = 0.7,
+    progress_min_gain: float = 30.0,
 ):
     """Blocked ``pcg``: K.x_j = fext_j for every column j of the block in
     ONE lockstep loop.  ``data`` is the tree of
@@ -857,8 +910,9 @@ def pcg_many(
 
     Each column keeps ``pcg``'s semantics: its own mode-0 iterate /
     mode-1 deferred-check sequence, stagnation, MoreSteps, min-residual
-    bookkeeping and flag taxonomy; a column that stops (converged, broken
-    down, out of budget) freezes while the others iterate.  A trip runs
+    bookkeeping, plateau and progress windows and flag taxonomy; a column
+    that stops (converged, broken down, out of budget) freezes while the
+    others iterate.  A trip runs
     ONE blocked matvec (check columns put x in its operand, iterate
     columns their direction), queues every reduction of the trip, reads
     them back in ONE host read, takes each column's decision on the host
@@ -959,9 +1013,10 @@ def pcg_many(
 
     def resolve(normr_act, candidate, stag, i, tick=True):
         """Per-column iteration epilogue (``pcg``'s ``resolve``): the
-        stag reset, MoreSteps, min-residual bookkeeping, the plateau
-        window's clock (frozen where ``tick`` is False: a check forced by
-        the pipelined cadence alone) and the flag, as (R,) arrays;
+        stag reset, MoreSteps, min-residual bookkeeping, the plateau and
+        progress windows' clocks (frozen, with their verdicts, where
+        ``tick`` is False: a check forced by the pipelined cadence alone)
+        and the flag, as (R,) arrays;
         ``better`` marks columns whose min-residual iterate moves to the
         resolved one."""
         candidate = np.broadcast_to(candidate, (R,))
@@ -972,23 +1027,40 @@ def pcg_many(
         moresteps = np.where(failed, c["moresteps"] + 1, c["moresteps"])
         toosmall = failed & (moresteps >= maxmsteps)
         better = normr_act < c["normrmin"]
+        normrmin = np.where(better, normr_act, c["normrmin"])
         improved = normr_act < c["best_at_reset"] * f(1 - 1e-3)
         tick = np.broadcast_to(tick, (R,))
+        live = ~converged & ~toosmall
         since_best = np.where(tick, np.where(improved, 0,
                                              c["since_best"] + 1),
                               c["since_best"])
         best_at_reset = np.where(tick & improved, normr_act,
                                  c["best_at_reset"])
-        stagnated = (stag >= max_stag_steps) & ~converged & ~toosmall
+        plateaued = (tick & live & (since_best > plateau_window)
+                     if plateau_window else np.zeros(R, bool))
+        win_start, win_count = c["win_start"], c["win_count"]
+        no_progress = np.zeros(R, bool)
+        if progress_window:
+            count = win_count + 1
+            at_window = tick & (count >= progress_window)
+            no_progress = (at_window & live
+                           & (normrmin > f(progress_ratio) * win_start)
+                           & (normrmin * f(progress_min_gain) < n2b))
+            win_start = np.where(at_window, normrmin, win_start)
+            win_count = np.where(tick, np.where(at_window, 0, count),
+                                 win_count)
+        stagnated = (stag >= max_stag_steps) & live
         flag = np.where(converged, 0,
-                        np.where(toosmall | stagnated, 3, 1))
+                        np.where(toosmall | stagnated | plateaued
+                                 | no_progress, 3, 1))
         return dict(flag=flag, stag=stag, moresteps=moresteps,
-                    normrmin=np.where(better, normr_act, c["normrmin"]),
+                    normrmin=normrmin,
                     imin=np.where(better, i, c["imin"]),
                     i=np.where(flag != 1, i, i + 1), iter_out=i.copy(),
                     normr_act=np.asarray(normr_act, f),
                     since_best=since_best,
                     best_at_reset=np.asarray(best_at_reset, f),
+                    win_start=np.asarray(win_start, f), win_count=win_count,
                     mode=np.zeros(R, np.int64), better=better)
 
     def merge(cases):
@@ -1411,6 +1483,10 @@ def pcg_mixed_many(
     inner_tol: float = 1e-5,
     max_outer: int = 12,
     variant: str = "classic",
+    plateau_window: int = 0,
+    progress_window: int = 0,
+    progress_ratio: float = 0.7,
+    progress_min_gain: float = 30.0,
 ) -> PCGResult:
     """Blocked ``pcg_mixed``: f32 ``pcg_many`` cycles on each column's
     normalised residual (zeroed for the columns not running this cycle,
@@ -1471,7 +1547,11 @@ def pcg_mixed_many(
                 max_iter=np.maximum(max_iter - total, 1),
                 glob_n_dof_eff=glob_n_dof_eff,
                 max_stag_steps=max_stag_steps, max_iter_nominal=max_iter,
-                return_carry=True, x0_zero=True, variant=variant)
+                return_carry=True, x0_zero=True, variant=variant,
+                plateau_window=plateau_window,
+                progress_window=progress_window,
+                progress_ratio=progress_ratio,
+                progress_min_gain=progress_min_gain)
             # return_carry skips the min-residual finalize: a
             # non-converged column takes its tracked min-residual iterate
             # when its recurrence norm is the smaller one

@@ -141,18 +141,19 @@ def _fingerprint(solver) -> dict:
 
 def state_dict(solver) -> dict:
     """Everything needed to continue ``solve()`` after a step (the JAX
-    package's keys; the port exports nothing, so the export counters are
-    0 and the probe history empty)."""
+    package's keys): the solution, the step history and the export
+    counters, frame times and probe history."""
     return {
         "un": solver.un.cpu().numpy(),
         "flags": np.asarray(solver.flags, dtype=np.int64),
         "relres": np.asarray(solver.relres, dtype=np.float64),
         "iters": np.asarray(solver.iters, dtype=np.int64),
         "step_times": np.asarray(solver.step_times, dtype=np.float64),
-        "export_count": np.int64(0),
-        "export_times": np.zeros(0, np.float64),
-        "export_wall": np.float64(0.0),
-        "probe_u": np.zeros((0, 0)),
+        "export_count": np.int64(solver._export_count),
+        "export_times": np.asarray(solver._export_times, dtype=np.float64),
+        "export_wall": np.float64(solver._export_wall),
+        "probe_u": (np.stack(solver._probe_u) if solver._probe_u
+                    else np.zeros((0, 0))),
     }
 
 
@@ -163,6 +164,11 @@ def load_state_dict(solver, state: dict) -> None:
     solver.relres = [float(v) for v in state["relres"]]
     solver.iters = [int(v) for v in state["iters"]]
     solver.step_times = [float(v) for v in state["step_times"]]
+    solver._export_count = int(state["export_count"])
+    solver._export_times = [float(v) for v in state["export_times"]]
+    solver._export_wall = float(state.get("export_wall", 0.0))
+    probe = np.asarray(state["probe_u"])
+    solver._probe_u = [] if probe.size == 0 else [row for row in probe]
 
 
 def write_atomic(filename: str, write) -> None:

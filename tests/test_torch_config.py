@@ -56,11 +56,7 @@ def changed(section, field, value):
 
 
 # a non-default value for each unported field
-OTHER = {"mixed_plateau_window": 5, "mixed_progress_window": 150,
-         "mixed_progress_ratio": 0.5, "mixed_progress_min_gain": 10.0,
-         "trace_resid": 64, "dt": 0.01,
-         "export_frame_rate": 2, "export_frames": (1,), "plot_flag": True,
-         "export_vars": "U D", "probe_dofs": (3,), "setup_shard": "off",
+OTHER = {"trace_resid": 64, "setup_shard": "off",
          "preflight": "off", "cache_dir": "cache",
          "telemetry_path": "t.jsonl", "flight_path": "f.jsonl",
          "telemetry_profile": True, "profile_dir": "prof",

@@ -11,7 +11,10 @@ bitwise equal, one kernel launch a lockstep trip), and the chunked path
 kill-and-resume bitwise), and the hybrid level-grid backend (every
 kernel on level batches, the operator and the bucketed refresh against
 the CPU and bitwise repeatable, the 6^3 octree solve against the CPU, a
-block's columns bit for bit their width-1 solves).  They carry the
+block's columns bit for bit their width-1 solves), the node-owned
+gather at chunks above 54 planes (v5's bits at 8), the export path's
+nodal fields against the CPU's (two exports bitwise), and the mixed
+shell's windows against the CPU.  They carry the
 ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
@@ -134,8 +137,8 @@ def test_chunk_too_large_for_shared_memory_is_refused(cuda_device, variant,
     """v5, v3 and v7 (the node-owned gather) at a chunk whose ring of two
     whole chunks (2C + 2 slots) is above the 227 KB a block can have even
     at 2 rows (55 is the first C above 54) are no longer refused: they
-    stage each chunk in groups of 54 planes, launch once (counted), and
-    give v5's bits at C = 8."""
+    stage each chunk in groups (of 19 on the 8-row tile), launch once
+    (counted), and give v5's bits at C = 8."""
     rng = np.random.default_rng(5)
     x = torch.as_tensor(rng.normal(size=(1, 3, 131, 5, 4)),
                         dtype=torch.float32, device=cuda_device)
@@ -164,8 +167,9 @@ BIG_PLANES = (56, 64)
                          ids=["150^3", "40x37x70", "100x200x200"])
 def test_gather_at_big_chunks_gives_the_bits_of_8_planes(
         cuda_device, P, cells, variant, planes):
-    """v5, v3 and v7 at C = 56 and 64 (staged in groups of G = 54, the
-    ring within 227 KB as the library reports) give v5's C = 8 bits at
+    """v5, v3 and v7 at C = 56 and 64 (staged in groups of G = 19 on the
+    8-row tile, the ring within 227 KB as the library reports) give v5's
+    C = 8 bits at
     the flagship and across tile and segment edges, and the plain
     version's values within 2e-5 * max|y|."""
     nx, ny, nz = cells
@@ -174,7 +178,7 @@ def test_gather_at_big_chunks_gives_the_bits_of_8_planes(
     lib = smv._library(variant)
     assert getattr(lib, f"structured_matvec_{variant}_smem_bytes")(
         planes, geo.rows) == geo.smem_bytes <= smv.BLOCK_SMEM
-    assert geo.group == 54 < planes
+    assert geo.group == 19 < planes
     rng = np.random.default_rng(6)
     x = torch.as_tensor(rng.normal(size=(P, 3, nx + 1, ny + 1, nz + 1)),
                         dtype=torch.float32, device=cuda_device)
@@ -1081,3 +1085,62 @@ def test_hybrid_block_columns_equal_width1_solves(cuda_device, mode):
             (int(blk.flags[j]), int(blk.iters[j])) and blk.flags[j] == 0
         np.testing.assert_array_equal(
             s.displacement_global_many(one.x)[:, 0], ub[:, j])
+
+
+# the export path: (backend, model) of each card-against-CPU field check
+EXPORT_CASES = ("structured", "general", "hybrid")
+
+
+def _export_solver(backend, device):
+    if backend == "structured":
+        m = make_cube_model(12, 6, 5, E=30e9, heterogeneous=True, seed=4,
+                            load_value=1e6)
+    else:
+        m = _hybrid_octree()
+    cfg = RunConfig(solver=SolverConfig(tol=1e-10, dtype="float64",
+                                        max_iter=3000),
+                    time_history=TimeHistoryConfig(export_vars="D ES PS PE"))
+    return Solver(m, cfg, n_parts=2, device=device, backend=backend)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", EXPORT_CASES)
+def test_nodal_fields_on_card_match_cpu(cuda_device, backend):
+    """The nodal export fields of one float64 solution on the card
+    against the CPU path's from the same solution (within 1e-12 of
+    max|field|: sums in another order), two card exports bitwise equal."""
+    card = _export_solver(backend, None)
+    assert card.step(1.0).flag == 0
+    cpu = _export_solver(backend, "cpu")
+    cpu.un = card.un.cpu()
+    a, b = card._nodal_fields(), card._nodal_fields()
+    c = cpu._nodal_fields()
+    assert sorted(a) == sorted(c) == ["D", "ES", "PE1", "PE2", "PE3", "PS1",
+                                      "PS2", "PS3"]
+    for k in a:
+        assert a[k].is_cuda and a[k].dtype == torch.float64
+        assert torch.equal(a[k], b[k])
+        ref = c[k].numpy()
+        got = a[k].cpu().numpy()
+        assert np.abs(got - ref).max() <= 1e-12 * max(np.abs(ref).max(),
+                                                      1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,opts,flag", [
+    ("plateau", dict(mixed_plateau_window=25), 3),
+    ("progress", dict(mixed_progress_window=10), 0)])
+def test_windowed_mixed_solve_on_card_matches_cpu(cuda_device, window, opts,
+                                                  flag):
+    """The mixed shell with each window set so that it fires (the CPU
+    tests' model and settings): the card's flag is the CPU's (the JAX
+    package's), iterations within max(3, 5 %)."""
+    m = make_cube_model(16, 6, 6, E=30e9, heterogeneous=True, seed=5,
+                        load_value=1e6)
+    cfg = RunConfig(solver=SolverConfig(tol=1e-8, max_iter=2000,
+                                        precision_mode="mixed",
+                                        inner_tol=1e-6, **opts))
+    rc = Solver(m, cfg).step(1.0)
+    rp = Solver(m, cfg, device="cpu").step(1.0)
+    assert rc.flag == rp.flag == flag
+    assert abs(rc.iters - rp.iters) <= max(3, 0.05 * rp.iters)

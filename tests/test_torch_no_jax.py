@@ -35,6 +35,20 @@ CHUNKED_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
     "validate.preflight", "ops.mg"))
 # the hybrid level-grid backend
 HYBRID_MODULES = ("pcg_mpi_solver_tpu_torch.parallel.hybrid",)
+# the export path and the CLI
+EXPORT_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
+    "cli", "vtk.writer", "vtk.export", "utils.io", "utils.postproc",
+    "models.mdf", "ops.stress", "ops.nonlocal_stress"))
+
+# what a spawned VTK export worker imports (vtk/export.py's pool): numpy
+# only, so a worker never loads torch or initialises CUDA
+WORKER_PROBE = r"""
+import sys
+import pcg_mpi_solver_tpu_torch.vtk.export
+import pcg_mpi_solver_tpu_torch.utils.postproc
+print(",".join(sorted(m for m in sys.modules
+                      if m == "torch" or m.startswith("torch."))))
+"""
 
 
 def is_forbidden(module: str) -> bool:
@@ -53,7 +67,16 @@ def test_port_imports_no_jax():
     assert set(GENERAL_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(CHUNKED_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(HYBRID_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(EXPORT_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
+
+
+def test_export_worker_imports_no_torch():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", WORKER_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert out.stdout.strip() == "", out.stdout
 
 
 def test_chip_smoke_imports_no_jax():

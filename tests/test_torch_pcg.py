@@ -26,11 +26,18 @@ from pcg_mpi_solver_tpu.parallel.structured import (
     partition_structured as jax_partition)
 from pcg_mpi_solver_tpu.solver.pcg import pcg as jax_pcg
 from pcg_mpi_solver_tpu.solver.pcg import pcg_mixed as jax_pcg_mixed
+from pcg_mpi_solver_tpu.solver.pcg import pcg_many as jax_pcg_many
+from pcg_mpi_solver_tpu.solver.pcg import \
+    pcg_mixed_many as jax_pcg_mixed_many
 from pcg_mpi_solver_tpu.solver.pcg import refine_tol as jax_refine_tol
+from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+from pcg_mpi_solver_tpu_torch.models import make_cube_model
 from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
 from pcg_mpi_solver_tpu_torch.parallel.structured import (
-    StructuredOps, device_data_structured, partition_from_numpy)
-from pcg_mpi_solver_tpu_torch.solver.pcg import pcg, pcg_mixed, refine_tol
+    StructuredOps, block_data, device_data_structured, partition_from_numpy)
+from pcg_mpi_solver_tpu_torch.solver import Solver
+from pcg_mpi_solver_tpu_torch.solver.pcg import (
+    pcg, pcg_many, pcg_mixed, pcg_mixed_many, refine_tol)
 
 
 def setup(dims=(8, 4, 4), n_parts=1, load="traction", heterogeneous=True):
@@ -227,3 +234,180 @@ def test_mixed_inner_cycle_matches_jax_on_identical_input(tol):
     np.testing.assert_allclose(rt.x.numpy(), xj, rtol=0,
                                atol=1e-4 * np.abs(xj).max())
 
+
+
+# ----------------------------------------------------------------------
+# The mixed shell's plateau and progress windows
+# ----------------------------------------------------------------------
+
+# each window set so that it fires on the f32 inner cycle below (tol at
+# the f32 floor): the plateau window on CG's non-monotone start, the
+# progress window at the floor, after the 30x gain
+WINDOWS = {"plateau": dict(plateau_window=5),
+           "progress": dict(progress_window=10)}
+# the clock each window reads (exact in both packages; the other one runs
+# on round-off at the f32 floor)
+WINDOW_CLOCK = {"plateau": "since_best", "progress": "win_count"}
+# on the mixed solve below: the plateau window fires in the first cycles
+# and stalls the refinement (flag 3, as in the JAX package: a window this
+# short false-triggers on CG's non-monotone residual), the progress window
+# fires at the floor and the solve converges
+MIXED_WINDOWS = {"plateau": (dict(plateau_window=25), 3),
+                 "progress": (dict(progress_window=10), 0)}
+
+
+@pytest.fixture(scope="module")
+def floor_case():
+    """The 12x8x8 heterogeneous cube and its unit-norm f32 rhs."""
+    sp, jax_side, port_side, fext = setup(dims=(12, 8, 8))
+    w = np.asarray(jax_side[1]["64"]["weight"] * jax_side[1]["64"]["eff"])
+    rhat = (fext / np.sqrt(np.sum(fext * fext * w))).astype(np.float32)
+    return sp, jax_side, port_side, fext, rhat
+
+
+def _inner_cycles(floor_case, variant, win, rhs):
+    """The f32 inner cycle of both packages on the same input (tol 1e-7,
+    below the f32 floor): JAX's (result, carry) and the port's."""
+    sp, (jops, jdat), (tops, tdat), _f, _r = floor_case
+    kw = dict(max_iter=1000, glob_n_dof_eff=sp.glob_n_dof_eff,
+              max_iter_nominal=1000, return_carry=True, x0_zero=True,
+              variant=variant, **win)
+    if rhs.ndim == 3:
+        jf = jnp.asarray(np.moveaxis(rhs, 0, -1))
+        j = jax_pcg_many(jops["32"], jdat["32"], jf, jnp.zeros_like(jf),
+                         jax_make_prec(jops["32"], jdat["32"], "jacobi"),
+                         tol=jnp.float32(1e-7), **kw)
+        tf = torch.from_numpy(rhs)
+        t = pcg_many(tops["32"], block_data(tdat["32"], rhs.shape[0]), tf,
+                     torch.zeros_like(tf),
+                     make_prec(tops["32"], tdat["32"], "jacobi"),
+                     tol=np.float32(1e-7), **kw)
+        return j, t
+    j = jax_pcg(jops["32"], jdat["32"], jnp.asarray(rhs),
+                jnp.zeros(rhs.shape, jnp.float32),
+                jax_make_prec(jops["32"], jdat["32"], "jacobi"),
+                tol=jnp.float32(1e-7), **kw)
+    t = pcg(tops["32"], tdat["32"], torch.from_numpy(rhs),
+            torch.zeros(rhs.shape, dtype=torch.float32),
+            make_prec(tops["32"], tdat["32"], "jacobi"),
+            tol=np.float32(1e-7), **kw)
+    return j, t
+
+
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+@pytest.mark.parametrize("variant", ["classic", "fused", "pipelined"])
+def test_windowed_inner_cycle_matches_jax(floor_case, variant, window):
+    """One f32 inner cycle with the window set: it fires in both packages
+    (flag 3) at the same executed iteration, with the same window clock;
+    without the window the same cycle runs longer (so the window made the
+    exit)."""
+    (rj, cj), (rt, ct) = _inner_cycles(floor_case, variant,
+                                       WINDOWS[window], floor_case[4])
+    assert rt.flag == int(rj.flag) == 3
+    assert ct["exec"] == int(cj["exec"])
+    k = WINDOW_CLOCK[window]
+    assert int(ct[k]) == int(cj[k])
+    (_rj, cj0), _t = _inner_cycles(floor_case, variant, {}, floor_case[4])
+    assert int(cj0["exec"]) > ct["exec"]
+
+
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+@pytest.mark.parametrize("variant", ["classic", "pipelined"])
+def test_windowed_blocked_cycle_matches_jax(floor_case, variant, window):
+    """``pcg_many`` with the window on a block of the rhs, half of it and
+    zero: per column the flags, executed iterations and window clocks of
+    the JAX package's ``pcg_many`` (a zero column never ticks)."""
+    rhat = floor_case[4]
+    blk = np.stack([rhat, 0.5 * rhat, np.zeros_like(rhat)]).astype(
+        np.float32)
+    (rj, cj), (rt, ct) = _inner_cycles(floor_case, variant, WINDOWS[window],
+                                       blk)
+    np.testing.assert_array_equal(rt.flag, np.asarray(rj.flag))
+    assert list(rt.flag[:2]) == [3, 3]
+    np.testing.assert_array_equal(ct["exec"], np.asarray(cj["exec"]))
+    k = WINDOW_CLOCK[window]
+    np.testing.assert_array_equal(ct[k], np.asarray(cj[k]))
+
+
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+def test_pcg_mixed_with_windows_matches_jax(window):
+    """``pcg_mixed`` with each window firing in its inner cycles: the JAX
+    package's flag (MIXED_WINDOWS) and totals within the mixed rule,
+    max(3, 5 %) (module docstring); the same solve without the window
+    takes another total, so the window shaped the cycles."""
+    sp, (jops, jdat), (tops, tdat), fext = setup(dims=(16, 6, 6))
+    kw = dict(tol=1e-8, max_iter=1000, glob_n_dof_eff=sp.glob_n_dof_eff,
+              inner_tol=1e-6)
+
+    def both(win):
+        rj = jax_pcg_mixed(jops["32"], jdat["32"], jops["64"], jdat["64"],
+                           jnp.asarray(fext), jnp.zeros(fext.shape),
+                           jax_make_prec(jops["32"], jdat["32"], "jacobi"),
+                           **kw, **win)
+        rt = pcg_mixed(tops["32"], tdat["32"], tops["64"], tdat["64"],
+                       torch.from_numpy(fext),
+                       torch.zeros(fext.shape, dtype=torch.float64),
+                       make_prec(tops["32"], tdat["32"], "jacobi"),
+                       **kw, **win)
+        return rj, rt
+
+    win, flag = MIXED_WINDOWS[window]
+    rj, rt = both(win)
+    assert rt.flag == int(rj.flag) == flag
+    assert flag != 0 or rt.relres <= 1e-8
+    assert abs(rt.iters - int(rj.iters)) <= max(3, 0.05 * int(rj.iters))
+    rj0, _rt0 = both({})
+    assert int(rj0.iters) != int(rj.iters)
+
+
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+def test_pcg_mixed_many_with_windows_matches_jax(window):
+    """``pcg_mixed_many`` with the window on (F, 0.5 F): per column the
+    JAX package's flags (MIXED_WINDOWS), and totals within the mixed
+    rule."""
+    sp, (jops, jdat), (tops, tdat), fext = setup(dims=(16, 6, 6))
+    blk = np.stack([fext, 0.5 * fext])
+    win, flag = MIXED_WINDOWS[window]
+    kw = dict(tol=1e-8, max_iter=1000, glob_n_dof_eff=sp.glob_n_dof_eff,
+              inner_tol=1e-6, **win)
+    jf = jnp.asarray(np.moveaxis(blk, 0, -1))
+    rj = jax_pcg_mixed_many(jops["32"], jdat["32"], jops["64"], jdat["64"],
+                            jf, jnp.zeros_like(jf),
+                            jax_make_prec(jops["32"], jdat["32"], "jacobi"),
+                            **kw)
+    tf = torch.from_numpy(blk)
+    rt = pcg_mixed_many(tops["32"], block_data(tdat["32"], 2), tops["64"],
+                        block_data(tdat["64"], 2), tf, torch.zeros_like(tf),
+                        make_prec(tops["32"], tdat["32"], "jacobi"), **kw)
+    np.testing.assert_array_equal(rt.flag, np.asarray(rj.flag))
+    assert (rt.flag == flag).all()
+    for it, ij in zip(rt.iters, np.asarray(rj.iters)):
+        assert abs(int(it) - int(ij)) <= max(3, 0.05 * int(ij))
+
+
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+def test_windowed_chunked_solve_is_bitwise_one_long_dispatch(window):
+    """Through ``Solver`` on the chunked refinement loop: capped calls of
+    7 iterations resume the windows' clocks from the carry, so the solve
+    (flag, iterations, relres, displacement) and every refinement cycle's
+    exit equal, bit for bit, the same loop with a cap no cycle reaches;
+    at least one cycle ends on the window's flag 3, and the solve ends on
+    the flag of MIXED_WINDOWS."""
+    win, flag = MIXED_WINDOWS[window]
+    kw = dict(tol=1e-8, max_iter=2000, precision_mode="mixed",
+              inner_tol=1e-6, **{f"mixed_{k}": v for k, v in win.items()})
+    model = make_cube_model(16, 6, 6, E=30e9, heterogeneous=True, seed=5,
+                            load_value=1e6)
+
+    def run(cap):
+        s = Solver(model, RunConfig(solver=SolverConfig(
+            iters_per_dispatch=cap, **kw)), device="cpu")
+        r = s.step(1.0)
+        return r, s.displacement_global(), [
+            e for e in s.dispatch_log if e[0] == "refine"]
+
+    (rc, uc, cyc), (rb, ub, cyb) = run(7), run(2000)
+    assert (rc.flag, rc.iters, rc.relres) == (rb.flag, rb.iters, rb.relres)
+    assert rc.flag == flag
+    np.testing.assert_array_equal(uc, ub)
+    assert cyc == cyb and any(e[1] == 3 for e in cyc)

@@ -287,14 +287,14 @@ def test_v5_geometry_flagship_fills_the_card(planes):
     assert waves / -(-g.blocks // smv.H100_SMS) >= 0.75
 
 
-def test_v5_geometry_past_the_shared_memory_takes_the_shortest_tile():
-    """A chunk whose ring of two whole chunks does not fit even at two rows
-    keeps the shortest tile, and is staged in groups of the largest G whose
-    ring fits (54 at two rows), so the launch fits a block's shared memory
-    (tests/test_torch_cuda.py launches it)."""
+def test_v5_geometry_past_the_shared_memory_takes_the_tallest_tile():
+    """A chunk whose ring of two whole chunks does not fit even at two
+    rows takes the tallest tile (8 rows) and is staged in groups of the
+    largest G whose ring fits there (19), so the launch fits a block's
+    shared memory (tests/test_torch_cuda.py launches it)."""
     g = smv.v5_geometry(1, 40, 4, 3, 56)
-    assert g.rows == smv.V5_ROWS[-1] and g.group == 54
-    assert g.smem_bytes == smv.v5_smem_bytes(54, 2) <= smv.BLOCK_SMEM
+    assert g.rows == smv.V5_ROWS[0] == 8 and g.group == 19
+    assert g.smem_bytes == smv.v5_smem_bytes(19, 8) <= smv.BLOCK_SMEM
 
 
 @pytest.mark.parametrize("planes", [8, 16])
@@ -328,10 +328,11 @@ def test_v7_launches_with_the_gather_arguments_of_v5(shape, planes):
 def test_v7_chunk_fits_up_to_54_planes(planes):
     """v7's ring of two whole chunks (2C + 2 slots) fits a block's shared
     memory at 2-row tiles up to C = 54; above that the chunk is staged in
-    groups of G = 54 planes, so every multiple of 8 the JAX package's
-    pallas_planes accepts (and any C) launches with its ring inside 227 KB,
-    as PR 2's shuffle kernel, which used no shared memory, refused no C.
-    The launch passes the requested C itself, never a rounded one."""
+    groups on the 8-row tile (G = 19), so every multiple of 8 the JAX
+    package's pallas_planes accepts (and any C) launches with its ring
+    inside 227 KB, as PR 2's shuffle kernel, which used no shared memory,
+    refused no C.  The launch passes the requested C itself, never a
+    rounded one."""
     args = smv.launch_args("v7", 1, 40, 4, 3, torch.float32, planes)
     g = smv.v5_geometry(1, 40, 4, 3, planes)
     assert args[:2] == (planes, g.rows)
@@ -339,7 +340,7 @@ def test_v7_chunk_fits_up_to_54_planes(planes):
     assert g.group == min(planes, smv.v5_group(planes, g.rows))
     assert (g.group == planes) == (planes <= 54)
     if planes > 54:
-        assert g.rows == smv.V5_ROWS[-1] and g.group == 54
+        assert g.rows == smv.V5_ROWS[0] and g.group == 19
 
 
 @pytest.mark.parametrize("rows,largest", [(8, 19), (4, 35), (2, 54)])
