@@ -119,7 +119,28 @@ Phases (any failed check raises, so the script exits non-zero):
                 JAX package's 1145 iterations.  After phase 4d: kernels
                 and launches a float32 hybrid matvec, 100 profiled inner
                 iterations;
-  4g. many chunked — run right after phase 4h: the chunked blocked path
+  4j. time   — run right after phase 4h, on 4e's 22^3/L4 octree model
+                object: ``NewmarkSolver`` (mixed, jacobi, classic, tol
+                1e-7, dt = 50 x ``stable_dt``, load factors 0.5, 1, 1) on
+                the auto backend (general) and on backend="hybrid", both
+                chunked at the auto cap: each step's flag, relres,
+                iterations, ms/iter and seconds, partition and upload
+                seconds, cap and dispatches; the hybrid's iterations
+                within max(3, 5 %) of the general's a step, its u within
+                1e-6 of max|u|, its selected float32 kernel launched at
+                least levels x inner iterations times and v6's float64
+                kernel at least once; ``DynamicsSolver`` (dt =
+                stable_dt, 500 steps, damping 0.1, two probes, a frame
+                every 250) in float64 on the auto backend and in float32
+                on the hybrid one: finite, two frames, seconds a step,
+                chunks and their host reads (torch's sync debug mode
+                counts every synchronising call: one a chunk, one a frame
+                and the final fetch), the hybrid's selected kernel
+                launched exactly levels x 500 times, its probes against
+                the float64 ones; the 6^3 octree's float64 explicit
+                hybrid against general over 200 steps (1e-9 of max|u|,
+                v6's double kernel levels x steps times);
+  4g. many chunked — run right after phase 4j: the chunked blocked path
                 of ``Solver.solve_many`` on the 150^3 flagship, direct
                 float64, classic, jacobi, [F, F_y] at the auto cap: cap,
                 dispatches, per-column flag, iterations and tip, ms a
@@ -145,7 +166,9 @@ Phases (any failed check raises, so the script exits non-zero):
                 inner cycles, time to tol beside 3334); the CLI in
                 subprocesses: the cube (48^3) and octree demos beside
                 ingest -> partition -> solve -> export of a 48x32x32 cube
-                written by ``write_mdf`` and zipped;
+                written by ``write_mdf`` and zipped, and ``newmark`` (3
+                steps, every one flag 0) and ``dynamics`` (100 steps) on
+                the ingested bundle;
   4f. resilience — on the 48x32x32 cube at cap 100: direct float64
                 chunked against one-shot (classic, fused, pipelined: x
                 bitwise); mixed ``inf@0,inf@1`` escalating to f64 (the
@@ -153,7 +176,10 @@ Phases (any failed check raises, so the script exits non-zero):
                 block3 ``rho0@1,rho0@2`` taking the fallback
                 preconditioner; ``exc@3`` re-dispatched from a snapshot
                 (bitwise the clean solve); ``kill@2`` on two steps,
-                resumed in a new Solver (bitwise the whole run);
+                resumed in a new Solver (bitwise the whole run); on the
+                12x6x5 cube, Newmark killed by ``kill@s:2`` and resumed
+                in a new solver, explicit dynamics with ``nan@s:3``
+                rolled back, each bitwise its uninterrupted run;
   5. checks   — a direct float64 solve (48x32x32) to flag 0, and small
                 mixed and direct solves on the card against the same
                 solves on the CPU (the plain path): classic under jacobi,
@@ -162,14 +188,19 @@ Phases (any failed check raises, so the script exits non-zero):
                 classic, fused and pipelined with jacobi and mg; then the
                 mixed shell's plateau and progress windows, each set so
                 that it fires, on the card against the CPU
-                (``WINDOW_CARD_VS_CPU``).
+                (``WINDOW_CARD_VS_CPU``); then Newmark (direct block3,
+                mixed jacobi; tol 1e-12) and float64 explicit dynamics on
+                the 12x6x5 cube, the card against the CPU (1e-10 of
+                max|u|; Newmark iterations +-1 a step direct, max(3,
+                5 %) in total mixed).
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
 preconditioner solve of phase 4b, by variant solve of phase 4c, by
 block of phase 4d, float32 of phase 4's one-shot solve and of phase 4f's
 escalating solve, float64 of phase 4g's chunked block; every record's
 ``launches_hybrid`` from phase 4h's flagship solve and ``hybrid_levels``
-from its level batches), the last line
+from its level batches, ``launches_newmark`` and ``launches_dynamics``
+from phase 4j's Newmark runs and explicit runs), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -358,8 +389,25 @@ WINDOW_CUBE = ((16, 6, 6), dict(E=30e9, heterogeneous=True, seed=5,
                                 load_value=1e6))
 WINDOW_CARD_VS_CPU = (("plateau", dict(mixed_plateau_window=25), 3),
                       ("progress", dict(mixed_progress_window=10), 0))
-# phase 4i's CLI run: the cube written as an MDF bundle
+# phase 4i's CLI run: the cube written as an MDF bundle, and the time
+# integrators' steps on it
 CLI_CELLS = (48, 32, 32)
+CLI_NEWMARK_STEPS = 3
+CLI_EXPLICIT_STEPS = 100
+# phases 4f and 5: the time integrators on the 12x6x5 cube: Newmark's load
+# factors, and the explicit steps
+TIME_CHECK_DELTAS = (0.5, 1.0, 1.0, 0.7, 0.3)
+TIME_CHECK_STEPS = 100
+# phase 4j: the time integrators on the octree flagship.  Newmark's dt is
+# 50 x the explicit CFL bound (tests/test_newmark.py::
+# test_newmark_unconditional_stability's factor) over three load factors;
+# the explicit runs take the CFL dt over 500 steps with a frame every 250;
+# the 6^3 octree's hybrid against general over 200 steps
+TIME_NEWMARK_DT_FACTOR = 50.0
+TIME_NEWMARK_DELTAS = (0.5, 1.0, 1.0)
+TIME_EXPLICIT_STEPS = 500
+TIME_EXPLICIT_EXPORT = 250
+TIME_SMALL_STEPS = 200
 
 
 def say(msg: str) -> None:
@@ -1019,8 +1067,87 @@ def phase_resilience(torch, np):
         f"{'bitwise equal' if same else 'DIFFERENT'}")
     if not (killed and same and ops[:1] == ["restore"]):
         raise AssertionError("kill and resume is not the uninterrupted run")
+    phase_time_resilience(torch, np, scratch)
     shutil.rmtree(scratch, ignore_errors=True)
     return launches
+
+
+def phase_time_resilience(torch, np, scratch):
+    """Phase 4f, the time integrators on the 12x6x5 cube (general
+    backend, step snapshots under ``scratch``): Newmark (direct, jacobi,
+    tol 1e-10, dt 0.2, ``TIME_CHECK_DELTAS``) killed by ``kill@s:2`` at
+    snapshot_every=1 and resumed in a new solver, and explicit dynamics
+    (float64, half the CFL dt, ``TIME_CHECK_STEPS`` steps) with
+    ``nan@s:3`` rolled back at snapshot_every=3: each bitwise its
+    uninterrupted run."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
+    from pcg_mpi_solver_tpu_torch.resilience import (
+        FaultPlan, SimulatedKill)
+    from pcg_mpi_solver_tpu_torch.solver import (
+        DynamicsSolver, NewmarkSolver, stable_dt)
+
+    kw = dict(FLAGSHIP)
+    kw.pop("nx")
+    model = make_cube_model(*CARD_VS_CPU_CELLS, **kw)
+    cells = "x".join(map(str, CARD_VS_CPU_CELLS))
+
+    def cfg(run_id, snap=0, **solver_kw):
+        c = RunConfig(scratch_path=scratch, run_id=run_id,
+                      solver=SolverConfig(**solver_kw))
+        c.snapshot_every = snap
+        return c
+
+    def newmark(run_id, snap=0):
+        return NewmarkSolver(model, cfg(run_id, snap, tol=1e-10), dt=0.2)
+
+    whole = newmark("nm-whole")
+    whole.run(TIME_CHECK_DELTAS)
+    killed = newmark("nm-killed", 1)
+    killed.fault_plan = FaultPlan("kill@s:2")
+    try:
+        killed.run(TIME_CHECK_DELTAS)
+        died = False
+    except SimulatedKill:
+        died = True
+    ev = _Events()
+    resumed = NewmarkSolver(model, cfg("nm-killed", 1, tol=1e-10), dt=0.2,
+                            recorder=MetricsRecorder(sinks=[ev]))
+    rest = resumed.run(TIME_CHECK_DELTAS, resume=True)
+    same = ((resumed.flags, resumed.iters, resumed.relres)
+            == (whole.flags, whole.iters, whole.relres)
+            and all(torch.equal(a, b) for a, b in zip(
+                (resumed.u, resumed.v, resumed.w),
+                (whole.u, whole.v, whole.w))))
+    say(f"resilience {cells} newmark kill@s:2 and resume: killed {died}, "
+        f"resumed steps {len(rest)}, iterations {resumed.iters} against "
+        f"{whole.iters}; u, v, w "
+        f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not (died and same and len(rest) == len(TIME_CHECK_DELTAS) - 2):
+        raise AssertionError("newmark kill and resume is not the "
+                             "uninterrupted run")
+
+    def explicit(run_id, snap=0, recorder=None):
+        return DynamicsSolver(model, cfg(run_id, snap),
+                              dt=0.5 * stable_dt(model), damping=0.1,
+                              probe_dofs=(int(np.argmax(model.F)),),
+                              recorder=recorder)
+
+    clean = explicit("dyn-clean").run(TIME_CHECK_STEPS)
+    ev = _Events()
+    d = explicit("dyn-nan", 3, MetricsRecorder(sinks=[ev]))
+    d.fault_plan = FaultPlan("nan@s:3", recorder=d.recorder)
+    res = d.run(TIME_CHECK_STEPS)
+    same = (np.array_equal(res.u, clean.u)
+            and np.array_equal(res.probe_u, clean.probe_u))
+    rolls = [(e["step"], e["to_step"]) for e in ev.events
+             if e["kind"] == "recovery"]
+    say(f"resilience {cells} explicit nan@s:3 at snapshot_every 3: "
+        f"rollbacks (step, to step) {rolls}; u and probes "
+        f"{'bitwise equal' if same else 'DIFFERENT'} to the clean run")
+    if not same or rolls != [(6, 3)]:
+        raise AssertionError("explicit NaN rollback is not the clean run")
 
 
 def _device_rows(prof):
@@ -2140,6 +2267,251 @@ def phase_hybrid(torch, np, general, rates):
     return dict(solver=s, launches=counts, levels=levels)
 
 
+def _time_launches(torch, run):
+    """``run()`` with the slab kernels' launch counts set to 0 just before
+    it and read just after: (its result, the counts)."""
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES)
+
+
+def _newmark_steps(torch, np, solver, tag, tol):
+    """``TIME_NEWMARK_DELTAS`` through ``NewmarkSolver.run`` with the
+    launch counts read around it: every step's flag, iterations, relres,
+    ms/iter and seconds printed; fails unless flag 0 and relres <= tol at
+    every step.  Returns (results, launch counts)."""
+    res, counts = _time_launches(
+        torch, lambda: solver.run(TIME_NEWMARK_DELTAS))
+    for t, r in enumerate(res, 1):
+        say(f"{tag} step {t}: flag {r.flag}, iterations {r.iters}, relres "
+            f"{r.relres:.4e}, {r.wall_s:.3f} s, "
+            f"{r.wall_s / max(r.iters, 1) * 1e3:.4f} ms/iter")
+        if r.flag != 0 or not r.relres <= tol:
+            raise AssertionError(f"{tag} step {t}: did not converge: {r}")
+    used = {f"{v} {d}": n for (v, d), n in counts.items() if n}
+    say(f"{tag}: partition {solver.partition_build_s:.2f} s, upload "
+        f"{solver.upload_s:.2f} s; {dispatches(solver)} (last step); "
+        f"kernel launches {used or 0}")
+    return res, counts
+
+
+def _explicit_run(torch, np, solver, tag, n_steps, export_every):
+    """``DynamicsSolver.run`` with the launch counts read around it and
+    torch's CUDA sync debug mode reporting every synchronising call (each
+    host read) with its Python stack: seconds a step, chunks and reads
+    printed; fails unless the state and probes are finite, the frames are
+    the schedule's and exactly one read happens inside each chunk
+    (``DynamicsSolver._chunk``; the frames and the final fetch come
+    between chunks).  Returns (result, launch counts, seconds)."""
+    import collections
+    import traceback
+    import warnings
+
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            syncs.append(traceback.extract_stack()[:-1])
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = solver.run(n_steps, export_every=export_every)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+
+    def site(stack):
+        # the innermost frame of the port (or of this script)
+        for fr in reversed(stack):
+            if "pcg_mpi_solver_tpu_torch" in fr.filename \
+                    or fr.filename.endswith("chip_smoke.py"):
+                return (f"{os.path.basename(fr.filename)}:{fr.lineno} "
+                        f"{fr.name}")
+        return f"{os.path.basename(stack[-1].filename)}:{stack[-1].lineno}"
+
+    where = collections.Counter(site(st) for st in syncs)
+    reads = sum(any(fr.name == "_chunk" and fr.filename.endswith(
+        "dynamics.py") for fr in st) for st in syncs)
+    frames = n_steps // export_every
+    used = {f"{v} {d}": n for (v, d), n in counts.items() if n}
+    say(f"{tag}: {n_steps} steps in {wall:.3f} s, "
+        f"{wall / n_steps * 1e3:.4f} ms a step; {solver.chunks} chunks, "
+        f"{reads} host reads in them ({reads / max(solver.chunks, 1):g} a "
+        f"chunk); synchronising calls by site {dict(where)}; partition "
+        f"{solver.partition_build_s:.2f} s, upload {solver.upload_s:.2f} s; "
+        f"kernel launches {used or 0}")
+    if not (np.isfinite(res.u).all() and np.isfinite(res.probe_u).all()):
+        raise AssertionError(f"{tag}: non-finite state")
+    if len(res.frames) != frames:
+        raise AssertionError(f"{tag}: {len(res.frames)} frames, not "
+                             f"{frames}")
+    if reads != solver.chunks:
+        raise AssertionError(f"{tag}: {reads} host reads over "
+                             f"{solver.chunks} chunks, not one a chunk")
+    return res, counts, wall
+
+
+def phase_time(torch, np, general):
+    """Phase 4j: the time integrators on 4e's 22^3/L4 octree model object,
+    right after phase 4h, before any profiler window:
+    1. Newmark (mixed, jacobi, classic, tol 1e-7, dt = 50 x stable_dt,
+       steps ``TIME_NEWMARK_DELTAS``) on the auto backend (general) and on
+       backend="hybrid", both on the chunked path at the auto cap: flag 0
+       and relres <= tol every step; the hybrid's iterations a step within
+       max(3, 5 %) of the general's, its u within 1e-6 of max|u|; its
+       selected float32 kernel launched at least levels x inner
+       iterations times, v6's float64 kernel at least once;
+    2. explicit dynamics (dt = stable_dt, ``TIME_EXPLICIT_STEPS`` steps,
+       damping 0.1, two probes, a frame every ``TIME_EXPLICIT_EXPORT``):
+       float64 on the auto backend (general), float32 on the hybrid
+       backend, whose selected kernel must launch exactly levels x steps
+       times; one host read a chunk; the float32 probes against the
+       float64 ones printed;
+    3. the 6^3 octree's explicit float64 hybrid against its general run
+       (``TIME_SMALL_STEPS`` steps, within 1e-9 of max|u|).
+    Returns the launch counts {(variant, dtype): n} of the Newmark runs
+    and of the explicit runs."""
+    import warnings
+
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
+    from pcg_mpi_solver_tpu_torch.solver import (
+        DynamicsSolver, NewmarkSolver, stable_dt)
+
+    model, n = general["model"], general["n"]
+    smi = nvidia_smi_line()
+    tol = 1e-7
+    cfg = RunConfig(solver=SolverConfig(tol=tol, precision_mode="mixed"))
+    dt_cfl = stable_dt(model)
+    say(f"time octree {n}^3: {model.n_dof} dofs, stable_dt {dt_cfl:.4e} "
+        f"s; Newmark dt = {TIME_NEWMARK_DT_FACTOR:g} x stable_dt; {smi}")
+    newmark, explicit = {}, {}
+
+    def add(into, counts):
+        for k, v in counts.items():
+            into[k] = into.get(k, 0) + v
+
+    # 1. Newmark, general (auto) then hybrid
+    runs = {}
+    for backend in ("auto", "hybrid"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the auto gate's note
+            s = NewmarkSolver(model, cfg, dt=TIME_NEWMARK_DT_FACTOR * dt_cfl,
+                              backend=backend)
+        tag = f"time octree {n}^3 newmark {s.backend}"
+        res, counts = _newmark_steps(torch, np, s, tag, tol)
+        add(newmark, counts)
+        runs[s.backend] = (res, s.displacement_global(), counts, s)
+        if backend == "hybrid":
+            n_lv = len(s.ops.level_dims)
+            f32 = counts[(s.kernel_variant, "float32")]
+            f64 = counts[("v6", "float64")]
+            inner = sum(r.iters for r in res)
+            say(f"{tag}: {s.kernel_variant} float32 launches {f32} >= "
+                f"{n_lv} levels x {inner} inner iterations; v6 float64 "
+                f"launches {f64} (the refresh on the level grids, "
+                f"f64_refresh {s.f64_refresh})")
+            if f32 < n_lv * inner or f64 <= 0:
+                raise AssertionError(f"{tag}: launches {f32} float32, "
+                                     f"{f64} float64")
+        del s
+        torch.cuda.empty_cache()
+    (res_g, u_g, _cg, _s), (res_h, u_h, _ch, _s2) = (runs["general"],
+                                                     runs["hybrid"])
+    du = float(np.abs(u_h - u_g).max() / np.abs(u_g).max())
+    its_g, its_h = [r.iters for r in res_g], [r.iters for r in res_h]
+    say(f"time octree {n}^3 newmark hybrid against general: iterations "
+        f"{its_h} against {its_g}, seconds "
+        f"{[round(r.wall_s, 3) for r in res_h]} against "
+        f"{[round(r.wall_s, 3) for r in res_g]}; u differs by {du:.3e} of "
+        f"max|u| (tol 1e-6)")
+    if any(abs(a - b) > max(3, ITERS_TOL * b) for a, b in zip(its_h, its_g)):
+        raise AssertionError("time newmark: hybrid iterations outside "
+                             "max(3, 5 %) of the general backend's")
+    if not du <= 1e-6:
+        raise AssertionError(f"time newmark: hybrid u differs by {du:.3e}")
+    del runs
+
+    # 2. explicit dynamics: float64 general (auto), float32 hybrid
+    probes = (int(np.argmax(np.abs(model.F))),
+              int(model.dof_eff[len(model.dof_eff) // 2]))
+    out = {}
+    for backend, dtype in (("auto", "float64"), ("hybrid", "float32")):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            s = DynamicsSolver(model, RunConfig(solver=SolverConfig(
+                dtype=dtype)), dt=dt_cfl, damping=0.1, probe_dofs=probes,
+                backend=backend)
+        tag = f"time octree {n}^3 explicit {s.backend} {dtype}"
+        res, counts, _w = _explicit_run(torch, np, s, tag,
+                                        TIME_EXPLICIT_STEPS,
+                                        TIME_EXPLICIT_EXPORT)
+        add(explicit, counts)
+        if s.backend == "hybrid":
+            n_lv = len(s.ops.level_dims)
+            got = counts[(s.kernel_variant, dtype)]
+            say(f"{tag}: {s.kernel_variant} {dtype} launches {got} == "
+                f"{n_lv} levels x {TIME_EXPLICIT_STEPS} steps")
+            if got != n_lv * TIME_EXPLICIT_STEPS:
+                raise AssertionError(f"{tag}: {got} launches, not "
+                                     f"{n_lv * TIME_EXPLICIT_STEPS}")
+        out[dtype] = res
+        del s
+        torch.cuda.empty_cache()
+    p64, p32 = out["float64"].probe_u, out["float32"].probe_u
+    dp = float(np.abs(p32 - p64).max() / np.abs(p64).max())
+    say(f"time octree {n}^3 explicit: float32 hybrid probes against "
+        f"float64 general: max difference {dp:.3e} of max|probe| "
+        f"({np.abs(p64).max():.4e} m)")
+
+    # 3. the 6^3 octree: float64 hybrid against general, the v6 double
+    # kernel on its level batches
+    kw = dict(OCTREE_FLAGSHIP)
+    kw.pop("n")
+    n6 = OCTREE_PARITY_N
+    m6 = make_octree_model(n6, n6, n6, **kw)
+    dt6 = stable_dt(m6)
+    u6 = {}
+    for backend in ("general", "hybrid"):
+        s = DynamicsSolver(m6, RunConfig(), dt=dt6, damping=0.1,
+                           backend=backend)
+        res, counts = _time_launches(
+            torch, lambda: s.run(TIME_SMALL_STEPS))
+        add(explicit, counts)
+        u6[backend] = res.u
+        if backend == "hybrid":
+            n_lv = len(s.ops.level_dims)
+            got = counts[("v6", "float64")]
+            if got != n_lv * TIME_SMALL_STEPS:
+                raise AssertionError(f"time octree {n6}^3: {got} v6 "
+                                     f"float64 launches")
+    d6 = float(np.abs(u6["hybrid"] - u6["general"]).max()
+               / np.abs(u6["general"]).max())
+    say(f"time octree {n6}^3 explicit float64: hybrid against general "
+        f"over {TIME_SMALL_STEPS} steps: {d6:.3e} of max|u| (tol 1e-9); "
+        f"v6 float64 launches {n_lv} levels x {TIME_SMALL_STEPS}")
+    if not d6 <= 1e-9:
+        raise AssertionError(f"time octree {n6}^3: hybrid differs by "
+                             f"{d6:.3e}")
+    return newmark, explicit
+
+
 def _host_fields(np, torch, model, u):
     """The nodal export fields of the global solution ``u`` on the host
     in float64: element strains and stresses (``elem_strain_host``,
@@ -2372,18 +2744,24 @@ def phase_export_windows(torch, np, model):
 def phase_export_cli(np, root, scratch):
     """The CLI's programs as a user runs them, in subprocesses on the
     card: the cube and octree demos beside ingest -> partition -> solve
-    -> export of the CLI_CELLS cube written by ``write_mdf`` and zipped.
-    Each must exit 0; the solves print flag 0."""
+    -> export of the CLI_CELLS cube written by ``write_mdf`` and zipped,
+    and, once it is ingested, ``newmark`` (``CLI_NEWMARK_STEPS`` steps at
+    50 x the CFL dt) and ``dynamics`` (``CLI_EXPLICIT_STEPS`` steps at the
+    CFL dt) on it.  Each must exit 0; the solves print flag 0."""
     import shutil
 
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.models.mdf import write_mdf
+    from pcg_mpi_solver_tpu_torch.solver import stable_dt
 
     t0 = time.perf_counter()
     kw = dict(FLAGSHIP)
     kw.pop("nx")
     cli = os.path.join(scratch, "cli")
-    write_mdf(make_cube_model(*CLI_CELLS, **kw), os.path.join(cli, "src"))
+    cube = make_cube_model(*CLI_CELLS, **kw)
+    dt = stable_dt(cube)
+    write_mdf(cube, os.path.join(cli, "src"))
+    del cube
     archive = shutil.make_archive(os.path.join(cli, "cube"), "zip",
                                   os.path.join(cli, "src"))
     settings = os.path.join(cli, "settings.json")
@@ -2401,21 +2779,35 @@ def phase_export_cli(np, root, scratch):
              "partition": ["partition", sc, "1"],
              "solve": ["solve", sc, "1", "--settings", settings],
              "export": ["export", sc, "1", "U PS1 ES", "Full"]}
+    # on the ingested bundle, beside the rest of the chain
+    timed = {"newmark": ["newmark", sc, "2", "--n-steps",
+                         str(CLI_NEWMARK_STEPS), "--dt",
+                         repr(TIME_NEWMARK_DT_FACTOR * dt)],
+             "dynamics": ["dynamics", sc, "3", "--n-steps",
+                          str(CLI_EXPLICIT_STEPS), "--dt", repr(dt),
+                          "--damping", "0.1", "--export-every",
+                          str(CLI_EXPLICIT_STEPS // 2)]}
     procs = {}
     outs = {}
+
+    def start(tag, args):
+        log = open(os.path.join(cli, tag.replace(" ", "_") + ".log"), "w+")
+        procs[tag] = (subprocess.Popen(base + args, cwd=root, env=env,
+                                       stdout=log,
+                                       stderr=subprocess.STDOUT), log)
+
     try:
         for tag, args in demos.items():
-            log = open(os.path.join(cli, tag.replace(" ", "_") + ".log"),
-                       "w+")
-            procs[tag] = (subprocess.Popen(base + args, cwd=root, env=env,
-                                           stdout=log,
-                                           stderr=subprocess.STDOUT), log)
+            start(tag, args)
         for tag, args in chain.items():
             r = subprocess.run(base + args, cwd=root, env=env,
                                capture_output=True, text=True, timeout=300)
             outs[tag] = (r.returncode, r.stdout + r.stderr)
             if r.returncode:
                 break
+            if tag == "ingest":
+                for ttag, targs in timed.items():
+                    start(ttag, targs)
         for tag, (proc, log) in procs.items():
             rc = proc.wait(timeout=300)
             log.seek(0)
@@ -2429,11 +2821,17 @@ def phase_export_cli(np, root, scratch):
     for tag, (rc, text) in outs.items():
         lines = [ln for ln in text.splitlines() if ln.startswith(">")]
         say(f"cli {tag}: exit {rc}; {' | '.join(lines[-4:])}")
-        solves = tag in ("solve", "demo cube", "demo octree")
-        if rc != 0 or (solves and not ("flag=0" in text
-                                       and ">success!" in text)):
+        ok = rc == 0
+        if tag in ("solve", "demo cube", "demo octree"):
+            ok = ok and "flag=0" in text and ">success!" in text
+        elif tag in timed:
+            # every Newmark step converged; the explicit run finished
+            ok = ok and ">success!" in text and (
+                tag != "newmark"
+                or text.count("flag=0") == CLI_NEWMARK_STEPS)
+        if not ok:
             raise AssertionError(f"cli {tag} failed (exit {rc}):\n{text}")
-    if set(outs) != set(demos) | set(chain):
+    if set(outs) != set(demos) | set(chain) | set(timed):
         raise AssertionError(f"cli: not every program ran: {sorted(outs)}")
     say(f"cli: {time.perf_counter() - t0:.1f} s")
 
@@ -2687,6 +3085,9 @@ def phase_checks(torch, np):
                 raise AssertionError(f"blocked {variant} {precond} {mode} "
                                      f"on the card disagrees with the CPU")
 
+    # the time integrators on the card against the CPU
+    time_card_vs_cpu(torch, np, kw)
+
     # the mixed shell's windows, each set so that it fires: the card's
     # flag and iterations against the CPU's (the mixed rule, max(3, 5 %))
     wcells, wkw = WINDOW_CUBE
@@ -2710,6 +3111,61 @@ def phase_checks(torch, np):
                 or not any(f == 3 for f, _n in cc):
             raise AssertionError(f"the {name} window on the card disagrees "
                                  f"with the CPU")
+
+
+def time_card_vs_cpu(torch, np, kw):
+    """Phase 5, the time integrators on the 12x6x5 cube, the card against
+    the CPU: Newmark direct under block3 and mixed under jacobi (tol
+    1e-12, dt 0.2, damping 0.1, ``TIME_CHECK_DELTAS``) and float64
+    explicit dynamics (half the CFL dt, ``TIME_CHECK_STEPS`` steps): u
+    within 1e-10 of max|u|; Newmark's iterations within +-1 a step
+    (direct).  The mixed totals are printed with their inner cycles, not
+    held, as for the quasi-static mixed solves above: this cube's f32
+    cycles end on stagnation exits whose iteration is round-off."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.solver import (
+        DynamicsSolver, NewmarkSolver, stable_dt)
+
+    model = make_cube_model(*CARD_VS_CPU_CELLS, seed=4, **kw)
+    cells = "x".join(map(str, CARD_VS_CPU_CELLS))
+    for name, sc in (("direct block3", dict(precond="block3")),
+                     ("mixed jacobi", dict(precision_mode="mixed"))):
+        cfg = RunConfig(solver=SolverConfig(tol=1e-12, **sc))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            s = NewmarkSolver(model, cfg, dt=0.2, damping=0.1, device=dev)
+            with inner_cycles(s) as cycles:
+                rs = s.run(TIME_CHECK_DELTAS)
+            out[dev] = ([(r.flag, r.iters) for r in rs],
+                        s.displacement_global(), cycles)
+        (st_g, u_g, cyc_g), (st_c, u_c, cyc_c) = out["cuda"], out["cpu"]
+        rel = float(np.abs(u_g - u_c).max() / np.abs(u_c).max())
+        mixed = "mixed" in name
+        say(f"card vs cpu, newmark {name} {cells}: (flag, iters) card "
+            f"{st_g} cpu {st_c}, max rel diff {rel:.3e} (tol 1e-10)"
+            + (f"; inner cycles card {cyc_g} cpu {cyc_c}" if mixed else ""))
+        it_g, it_c = [i for _f, i in st_g], [i for _f, i in st_c]
+        iters_ok = mixed or all(abs(a - b) <= 1 for a, b in zip(it_g, it_c))
+        if any(f for f, _i in st_g + st_c) or not rel <= 1e-10 \
+                or not iters_ok:
+            raise AssertionError(f"newmark {name} on the card disagrees "
+                                 f"with the CPU")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = DynamicsSolver(model, RunConfig(), dt=0.5 * stable_dt(model),
+                           damping=0.1, probe_dofs=(int(np.argmax(model.F)),),
+                           device=dev)
+        out[dev] = s.run(TIME_CHECK_STEPS, export_every=50)
+    g, c = out["cuda"], out["cpu"]
+    rel = float(np.abs(g.u - c.u).max() / np.abs(c.u).max())
+    relp = float(np.abs(g.probe_u - c.probe_u).max()
+                 / np.abs(c.probe_u).max())
+    say(f"card vs cpu, explicit float64 {cells}, {TIME_CHECK_STEPS} steps: "
+        f"u max rel diff {rel:.3e}, probe {relp:.3e} (tol 1e-10)")
+    if not (rel <= 1e-10 and relp <= 1e-10):
+        raise AssertionError("explicit dynamics on the card disagrees with "
+                             "the CPU")
 
 
 def main() -> int:
@@ -2776,8 +3232,12 @@ def main() -> int:
     # profiler window
     hybrid = phase_hybrid(torch, np, general, rates)
     general["hybrid"] = hybrid["solver"]
-    del general["model"]
     lap("4h hybrid")
+    # 4j. the time integrators on 4e's octree model, before any profiler
+    # window
+    time_launches = phase_time(torch, np, general)
+    del general["model"]
+    lap("4j time")
     # 4g. the chunked blocked path, before any profiler window
     many_chunked_launches = phase_many_chunked(torch, np, flagship_model)
     lap("4g many chunked")
@@ -2835,6 +3295,11 @@ def main() -> int:
                                                              dtype)]
             records[-1]["launches_hybrid"] = \
                 hybrid["launches"][(variant, dtype)]
+            # phase 4j: the Newmark runs and the explicit runs
+            records[-1]["launches_newmark"] = \
+                time_launches[0].get((variant, dtype), 0)
+            records[-1]["launches_dynamics"] = \
+                time_launches[1].get((variant, dtype), 0)
             if variant == "v6":
                 records[-1]["launches_preconditioners"] = {
                     path: counts[("v6", dtype)]

@@ -29,7 +29,13 @@ nodal strain/stress fields (``ops.stress``, ``ops.nonlocal_stress``) in
 the JAX package's run-directory layout (``utils.io.RunStore``), read back
 as ``.vtu`` files (``vtk``) and post-processed (``utils.postproc``), with
 the MDF bundle reader/writer (``models.mdf``) and the command line
-(``python -m pcg_mpi_solver_tpu_torch.cli``).
+(``python -m pcg_mpi_solver_tpu_torch.cli``); and the time integrators on
+the general and hybrid backends (``solver.select_time_backend``):
+explicit central-difference dynamics (``solver.DynamicsSolver``,
+``solver.stable_dt``) and implicit Newmark-beta with a PCG solve a step
+(``solver.NewmarkSolver`` on ``solver.MassShiftedOps``), with timestep
+snapshots, step faults and NaN rollback
+(``resilience.TimeHistoryGuard``).
 """
 
 from pcg_mpi_solver_tpu_torch.config import (

@@ -7,11 +7,13 @@ CLI, the JAX package's ``pcg_mpi_solver_tpu/cli.py`` with its flags.
     python -m pcg_mpi_solver_tpu_torch.cli partition <scratch> <n_parts>
     python -m pcg_mpi_solver_tpu_torch.cli solve     <scratch> <run_id> [options]
     python -m pcg_mpi_solver_tpu_torch.cli solve-many <scratch> <run_id> [options]
+    python -m pcg_mpi_solver_tpu_torch.cli dynamics  <scratch> <run_id> --n-steps N [options]
+    python -m pcg_mpi_solver_tpu_torch.cli newmark   <scratch> <run_id> --n-steps N [options]
     python -m pcg_mpi_solver_tpu_torch.cli export    <scratch> <run_id> <vars> <mode>
     python -m pcg_mpi_solver_tpu_torch.cli demo      [--nx ...] [--octree|--poisson]
 
-``solve``, ``solve-many`` and ``demo`` run on the card unless
-``--device cpu`` is given.  Settings come from ``--settings
+``solve``, ``solve-many``, ``dynamics``, ``newmark`` and ``demo`` run on
+the card unless ``--device cpu`` is given.  Settings come from ``--settings
 settings.json`` (the shape of the reference's GlobSettings:
 TimeHistoryParam/SolverParam, run_basic_script.bash:30-49) or per-flag
 overrides.  The JAX package's other subcommands are refused with the
@@ -31,7 +33,6 @@ import numpy as np
 
 # subcommand -> the ROADMAP queue 1 item that ports it
 REFUSED = {
-    "dynamics": 10, "newmark": 10,
     "bench": 1,
     **{c: 14 for c in (
         "serve", "submit", "jobs", "warmup", "cache-stats", "lint",
@@ -225,6 +226,80 @@ def cmd_solve_many(args):
     print(">success!")
 
 
+def _time_config(args):
+    """The settings of a time-history run: the file and flags of
+    ``_load_settings`` plus the run directory and resilience flags."""
+    cfg = _load_settings(args.settings, args)
+    cfg.scratch_path = args.scratch
+    cfg.run_id = args.run_id
+    cfg.snapshot_every = int(args.snapshot_every or 0)
+    if args.max_recoveries is not None:
+        cfg.solver.max_recoveries = int(args.max_recoveries)
+    return cfg
+
+
+def _save_result(cfg, name: str, arr) -> str:
+    os.makedirs(cfg.result_path, exist_ok=True)
+    out = os.path.join(cfg.result_path, name)
+    np.save(out, arr)
+    return out + ".npy"
+
+
+def cmd_dynamics(args):
+    """Explicit central-difference time history (``DynamicsSolver``):
+    ``--snapshot-every N`` checkpoints the full state every N timesteps,
+    ``--resume`` continues mid-history bit for bit."""
+    from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+    from pcg_mpi_solver_tpu_torch.solver.dynamics import DynamicsSolver
+
+    cfg = _time_config(args)
+    model = read_mdf(_mdf_path(args.scratch))
+    n_parts = args.n_parts or 1
+    probe = tuple(int(d) for d in (args.probe_dofs or "").split(",") if d)
+    print(f">explicit dynamics on {args.device or 'cuda'}, {n_parts} parts, "
+          f"{args.n_steps} steps..")
+    dyn = DynamicsSolver(model, cfg, n_parts=n_parts, dt=args.dt,
+                         damping=args.damping, probe_dofs=probe,
+                         backend=args.backend, device=args.device)
+    print(f">backend: {dyn.backend}  dt={dyn.dt:.4e}")
+    res = dyn.run(args.n_steps, export_every=args.export_every,
+                  resume=bool(args.resume))
+    print(f">integrated {args.n_steps} steps ({len(res.frames)} frames, "
+          f"{res.probe_u.shape[0]} probes, {dyn.chunks} chunks)")
+    print(f">final displacement -> {_save_result(cfg, 'u_dynamics', res.u)}")
+    if probe:
+        out = _save_result(cfg, "probe_dynamics", res.probe_u)
+        print(f">probe series -> {out}")
+    print(">success!")
+
+
+def cmd_newmark(args):
+    """Implicit Newmark-beta time history (``NewmarkSolver``), one PCG
+    solve a step: ``--snapshot-every N`` checkpoints the kinematic state
+    every N timesteps, ``--resume`` continues mid-history bit for bit."""
+    from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+    from pcg_mpi_solver_tpu_torch.solver.newmark import NewmarkSolver
+
+    cfg = _time_config(args)
+    model = read_mdf(_mdf_path(args.scratch))
+    n_parts = args.n_parts or 1
+    dt = args.dt if args.dt else (model.dt if model.dt > 0 else 1.0)
+    print(f">Newmark dynamics on {args.device or 'cuda'}, {n_parts} parts, "
+          f"{args.n_steps} steps, dt={dt:.4e}..")
+    s = NewmarkSolver(model, cfg, n_parts=n_parts, dt=dt, beta=args.beta,
+                      gamma=args.gamma, damping=args.damping,
+                      backend=args.backend, device=args.device)
+    print(f">backend: {s.backend}")
+    res = s.run([1.0] * args.n_steps, resume=bool(args.resume))
+    t_first = len(s.flags) - len(res) + 1
+    for t, r in enumerate(res, t_first):
+        print(f">step {t}: flag={r.flag} iters={r.iters} "
+              f"relres={r.relres:.3e} wall={r.wall_s:.2f}s")
+    out = _save_result(cfg, "u_newmark", s.displacement_global())
+    print(f">final displacement -> {out}")
+    print(">success!")
+
+
 def cmd_export(args):
     from pcg_mpi_solver_tpu_torch.config import RunConfig
     from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
@@ -395,6 +470,55 @@ def build_parser() -> argparse.ArgumentParser:
     _add_resilience_flags(p, "blocked-solve chunk boundaries")
     _add_run_flags(p)
     p.set_defaults(fn=cmd_solve_many)
+
+    time_backends = ["auto", "hybrid", "general"]
+    p = sub.add_parser("dynamics",
+                       help="explicit central-difference time history "
+                            "(timestep snapshots + --resume)")
+    p.add_argument("scratch")
+    p.add_argument("run_id")
+    p.add_argument("--n-steps", type=int, required=True,
+                   help="number of explicit timesteps to integrate")
+    p.add_argument("--dt", type=float, default=None,
+                   help="timestep (default: the model's dt, else the CFL "
+                        "estimate; a value above the CFL bound is refused "
+                        "by the preflight)")
+    p.add_argument("--damping", type=float, default=0.0,
+                   help="mass-proportional damping coefficient c_m")
+    p.add_argument("--export-every", type=int, default=0,
+                   help="displacement frames every k steps (0 = none)")
+    p.add_argument("--probe-dofs", default="",
+                   help="comma-separated dof ids sampled every step")
+    p.add_argument("--settings", default=None)
+    p.add_argument("--n-parts", type=int, default=None)
+    p.add_argument("--backend", choices=time_backends, default="auto")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card, 'cuda')")
+    _add_resilience_flags(p, "timesteps")
+    _add_run_flags(p)
+    p.set_defaults(fn=cmd_dynamics)
+
+    p = sub.add_parser("newmark",
+                       help="implicit Newmark-beta time history, one PCG "
+                            "solve a step (timestep snapshots + --resume)")
+    p.add_argument("scratch")
+    p.add_argument("run_id")
+    p.add_argument("--n-steps", type=int, required=True,
+                   help="number of implicit timesteps to integrate")
+    p.add_argument("--dt", type=float, default=None,
+                   help="timestep (default: the model's dt; "
+                        "unconditionally stable at beta=1/4 gamma=1/2, so "
+                        "dt is a resolution choice, not a CFL bound)")
+    p.add_argument("--beta", type=float, default=0.25)
+    p.add_argument("--gamma", type=float, default=0.5)
+    p.add_argument("--damping", type=float, default=0.0,
+                   help="mass-proportional damping coefficient c_m")
+    p.add_argument("--n-parts", type=int, default=None)
+    _add_solver_flags(p)
+    p.add_argument("--backend", choices=time_backends, default="auto")
+    _add_resilience_flags(p, "timesteps")
+    _add_run_flags(p)
+    p.set_defaults(fn=cmd_newmark)
 
     p = sub.add_parser("export", help="export result frames to VTK")
     p.add_argument("scratch")

@@ -1,11 +1,12 @@
 """The recovery ladders around a chunked solve.
 
-Port of ``pcg_mpi_solver_tpu/resilience/engine.py:42-416``
-(:class:`RecoveryHooks` and :func:`run_with_recovery` for a single
-right-hand side; :class:`ManyRecoveryHooks`, :func:`_upgrade_many_carry`
-and :func:`run_many_with_recovery`, its blocked twin with one ladder a
-column).  The time-history guard and the kinematic state transfers wait
-for the dynamics drivers (ROADMAP queue 1 item 10).  The group consensus
+Port of ``pcg_mpi_solver_tpu/resilience/engine.py`` (:class:`RecoveryHooks`
+and :func:`run_with_recovery` for a single right-hand side;
+:class:`ManyRecoveryHooks`, :func:`_upgrade_many_carry` and
+:func:`run_many_with_recovery`, its blocked twin with one ladder a column;
+:func:`kinematic_state_io` and :class:`TimeHistoryGuard`, the timestep
+snapshots, step faults and NaN rollback of the time-history drivers
+``solver/dynamics.py`` and ``solver/newmark.py``).  The group consensus
 of a multi-process run (every rank takes the same ladder branch) is the
 identity in the port's one process.
 """
@@ -16,6 +17,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from pcg_mpi_solver_tpu_torch.resilience.recovery import (
     RecoveryLadder, breakdown_trigger, column_trigger, is_device_loss)
@@ -298,3 +300,121 @@ def run_many_with_recovery(carry, *, scfg, nrhs: int, hooks, recorder,
         rec.gauge("resid.drift", int(drift_cols.sum()))
     return (x_fin, carry, flags, total, iters_cols,
             sorted(quarantined), recoveries, drift_cols)
+
+
+# ----------------------------------------------------------------------
+# Snapshot state transfer and the timestep-granular harness
+# ----------------------------------------------------------------------
+
+def kinematic_state_io(device, dtype: torch.dtype, device_keys):
+    """``(fetch, put)`` closures for a flat state dict whose
+    ``device_keys`` leaves are (n_parts, n_loc) tensors on ``device`` (the
+    kinematic state) and whose other leaves are host numpy (histories,
+    counters, schedules).  ``fetch`` copies the tensors to host numpy;
+    ``put`` uploads them to ``device`` in ``dtype``, bitwise, and passes
+    the host leaves through."""
+    device_keys = frozenset(device_keys)
+
+    def fetch(state: Dict[str, Any]) -> Dict[str, Any]:
+        return {k: (v.detach().to("cpu", copy=True).numpy()
+                    if k in device_keys else np.asarray(v))
+                for k, v in state.items()}
+
+    def put(state: Dict[str, Any]) -> Dict[str, Any]:
+        return {k: (torch.as_tensor(np.array(v), dtype=dtype, device=device)
+                    if k in device_keys else v)
+                for k, v in state.items()}
+
+    return fetch, put
+
+
+class TimeHistoryGuard:
+    """Resilience harness of the time-history drivers (explicit
+    ``solver/dynamics.py`` and implicit ``solver/newmark.py``), driven by
+    their host time loops:
+
+    * :meth:`load_resume` restores the newest step snapshot
+      (``step_*.npz`` under the checkpoint directory), so ``resume=True``
+      continues mid-history with bit-identical histories;
+    * :meth:`boundary`, after each completed timestep, snapshots the full
+      state at cadence (the clean state first), then lets step faults fire
+      (``kill`` raises after the snapshot, as a real preemption would;
+      poisons corrupt the live state the snapshot just protected);
+    * :meth:`rollback` answers a non-finite state found after a step with
+      the last good snapshot (from memory, no disk round trip), within
+      ``max_recoveries`` like the Krylov ladder.
+    """
+
+    def __init__(self, *, store=None, snapshot_every: int = 0,
+                 fetch_state=None, put_state=None, recorder=None,
+                 faults=None, max_recoveries: int = 0):
+        self.store = store
+        self.snapshot_every = int(snapshot_every)
+        self.fetch_state = fetch_state or (lambda s: s)
+        self.put_state = put_state or (lambda s: s)
+        self.recorder = recorder
+        self.faults = faults
+        self.max_recoveries = int(max_recoveries)
+        self.recoveries = 0
+        self._mem: Optional[Tuple[int, Dict[str, Any]]] = None
+
+    def load_resume(self) -> Optional[Tuple[int, Dict[str, Any]]]:
+        """The newest persisted step snapshot as ``(t, device_state)``, or
+        None when there is none.  Its host copy is the first rollback
+        point."""
+        if self.store is None:
+            return None
+        t = self.store.latest()
+        if t is None:
+            return None
+        state = self.store.load(t)
+        if state is None:
+            return None
+        self._mem = (t, state)
+        if self.recorder is not None:
+            self.recorder.event("step_snapshot", op="restore", step=t)
+            self.recorder.inc("resilience.step_snapshot.restore")
+        return t, self.put_state(state)
+
+    def boundary(self, t: int, state_fn: Callable[[], Dict[str, Any]]) \
+            -> Optional[Dict[str, Any]]:
+        """After completed timestep ``t``: ``state_fn`` builds the full
+        device state lazily (nothing is built when snapshots and faults
+        are idle).  Returns the possibly poisoned state the caller must
+        continue with, or None when untouched."""
+        state = None
+        if self.snapshot_every > 0 and t % self.snapshot_every == 0:
+            state = state_fn()
+            host = self.fetch_state(state)
+            self._mem = (t, host)
+            if self.store is not None:
+                self.store.save(t, host)
+                if self.recorder is not None:
+                    self.recorder.event("step_snapshot", op="save", step=t)
+                    self.recorder.inc("resilience.step_snapshot.save")
+        if self.faults is not None and self.faults.step_armed:
+            if state is None:
+                state = state_fn()
+            state = self.faults.at_step(t, state)
+        return state
+
+    def rollback(self, t: int) -> Tuple[int, Dict[str, Any]]:
+        """A non-finite state after timestep ``t``: the state to roll back
+        to as ``(t0, device_state)``.  Spends one recovery; raises
+        :class:`FloatingPointError` when there is no snapshot or the
+        budget is spent (an honest failure beats looping on a
+        deterministic instability)."""
+        if self._mem is None or self.recoveries >= self.max_recoveries:
+            raise FloatingPointError(
+                f"non-finite state after timestep {t} and no rollback "
+                f"available (snapshot={'yes' if self._mem else 'no'}, "
+                f"recoveries={self.recoveries}/{self.max_recoveries}); "
+                "for explicit dynamics check dt against stable_dt()")
+        self.recoveries += 1
+        t0, host = self._mem
+        if self.recorder is not None:
+            self.recorder.event("recovery", action="rollback",
+                                attempt=self.recoveries,
+                                trigger="nan_carry", step=t, to_step=t0)
+            self.recorder.inc("resilience.recovery.rollback")
+        return t0, self.put_state(host)

@@ -16,7 +16,7 @@ the JAX package's grammar:
     count    := consecutive firings (default 1; "exc@3*2" also fails the
                 first retry of dispatch 3)
 
-Three counter domains fire in the port.  The first two are monotone over
+Four counter domains fire in the port.  The first two are monotone over
 the life of the plan (they keep running across recovery restarts, so a
 second fault can be aimed at a later ladder rung):
 
@@ -35,14 +35,22 @@ second fault can be aimed at a later ladder rung):
   ``*count`` fires it at that many consecutive boundaries.  The one-shot
   blocked path has no boundary, so a column fault stays pending there.
 
-The step (``s:``) and job (``job:``) domains parse as in the JAX package
-and count towards :attr:`FaultPlan.armed`, but no path of the port
-consumes them yet: they belong to the dynamics drivers and the solve
-service (ROADMAP queue 1 items 10 and 14).  The rank (``rank:``) domain
-rides the dispatch and
-boundary counters of one process: the port runs in one (index 0), so a
-fault aimed at rank 0 fires as its unprefixed twin and one aimed at any
-other rank never lands (multi-process runs are item 12).
+The STEP domain (``s:``, as ``kill@s:3`` or ``nan@s:5``) is indexed by
+the absolute timestep of a time history (``DynamicsSolver.run``,
+``NewmarkSolver.run``): it fires after completed timestep N and any due
+step snapshot (:meth:`FaultPlan.at_step`, through
+``resilience.engine.TimeHistoryGuard``); ``nan`` and ``inf`` poison the
+kinematic state ``u``, ``kill`` raises.  The explicit driver ends its
+device chunk at the next pending step fault
+(:meth:`FaultPlan.next_step_fault`), so the fault's timestep is a host
+boundary; a rollback or resume that replays past it does not fire it
+again.  The job (``job:``) domain parses as in the JAX package and counts
+towards :attr:`FaultPlan.armed`, but no path of the port consumes it yet:
+it belongs to the solve service (ROADMAP queue 1 item 14).  The rank
+(``rank:``) domain rides the dispatch and boundary counters of one
+process: the port runs in one (index 0), so a fault aimed at rank 0 fires
+as its unprefixed twin and one aimed at any other rank never lands
+(multi-process runs are item 12).
 
 Modes: ``exc`` raises :class:`InjectedDispatchError` (device loss: the
 dispatch guard re-dispatches from a snapshot, else the ladder restarts
@@ -192,6 +200,19 @@ class FaultPlan:
         """Any column-domain fault still pending."""
         return any(self._col_faults.values())
 
+    @property
+    def step_armed(self) -> bool:
+        """Any step-domain fault still pending."""
+        return any(self._step_faults.values())
+
+    def next_step_fault(self, after: int) -> Optional[int]:
+        """Smallest pending step-domain index > ``after``, or None: the
+        explicit time loop ends its device chunk there, so the fault's
+        timestep is a host boundary."""
+        pending = [i for m in self._step_faults.values() for i in m
+                   if i > after]
+        return min(pending) if pending else None
+
     def _take(self, mode: str, idx: int) -> bool:
         pending = self._faults.get(mode, {})
         if pending.get(idx, 0) <= 0:
@@ -288,6 +309,33 @@ class FaultPlan:
                 "(PCG_TPU_FAULTS rank domain)")
         return carry
 
+    def _take_step(self, mode: str, t: int) -> bool:
+        pending = self._step_faults.get(mode, {})
+        if pending.get(t, 0) <= 0:
+            return False
+        pending[t] -= 1
+        if pending[t] <= 0:
+            del pending[t]
+        return True
+
+    def at_step(self, t: int, state: dict) -> dict:
+        """Called after completed timestep ``t`` of a time history, AFTER
+        any due step snapshot (the snapshot holds the clean state; the
+        poison lands on the live run).  ``nan`` and ``inf`` poison the
+        kinematic leaf ``u`` into a new tensor; ``kill`` raises
+        :class:`SimulatedKill` last, so a poison and a kill at one step
+        leave the clean snapshot behind.  Indexed by the ABSOLUTE
+        timestep: a rollback or resume that replays past ``t`` does not
+        fire a consumed fault again."""
+        for mode in ("nan", "inf"):
+            if "u" in state and self._take_step(mode, t):
+                self._fire(mode, "step", t)
+                state = _poison(state, mode, leaf="u")
+        if self._take_step("kill", t):
+            self._fire("kill", "step", t)
+            raise SimulatedKill(
+                f"injected kill at timestep {t} (PCG_TPU_FAULTS)")
+        return state
 
     def _take_col(self, mode: str, col: int) -> bool:
         pending = self._col_faults.get(mode, {})
@@ -302,9 +350,11 @@ class FaultPlan:
 def _poison(carry: dict, mode: str, leaf: str = "r") -> dict:
     """Corrupt a carry dict into a new dict with new leaves (the input's
     tensors are never written in place): ``rho0`` zeroes the host scalar
-    ``rho``, ``nan`` multiplies the residual by NaN, ``inf`` sets its
-    nonzero entries to inf (constrained dofs stay exactly 0, so the inf
-    lands where the preconditioner inverse is > 0)."""
+    ``rho``, ``nan`` multiplies ``leaf`` by NaN, ``inf`` sets its nonzero
+    entries to inf (constrained dofs stay exactly 0, so the inf lands
+    where the preconditioner inverse is > 0).  ``leaf`` is the Krylov
+    residual ``r`` at chunk boundaries, the kinematic state ``u`` at
+    timestep boundaries."""
     out = dict(carry)
     if mode == "rho0":
         if "rho" in out:

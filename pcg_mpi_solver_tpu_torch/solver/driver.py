@@ -90,6 +90,7 @@ from pcg_mpi_solver_tpu_torch.resilience import (
     DispatchGuard, FaultPlan, ManyRecoveryHooks, RecoveryHooks,
     ResilienceContext, retry_deadline_s, run_many_with_recovery,
     run_with_recovery)
+from pcg_mpi_solver_tpu_torch.solver.backends import HYBRID_GATE_NOTE
 from pcg_mpi_solver_tpu_torch.solver.chunked import (
     ChunkedEngine, auto_dispatch_cap)
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
@@ -154,8 +155,20 @@ class ManySolveResult:
         return int(len(self.flags))
 
 
+def owned_global(pm, u) -> np.ndarray:
+    """A part-local vector (n_parts, n_loc) (a tensor or host array) as the
+    global host vector (n_dof,): each dof from the part that owns it."""
+    un = u.cpu().numpy() if isinstance(u, torch.Tensor) else np.asarray(u)
+    out = np.zeros(pm.glob_n_dof, dtype=un.dtype)
+    m = (pm.weight > 0) & (pm.dof_gid >= 0)
+    out[pm.dof_gid[m]] = un[m]
+    return out
+
+
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; a CUDA device without CUDA raises."""
+    """``None`` means the card; a CUDA device without CUDA raises.  The
+    one device rule of ``Solver``, ``DynamicsSolver`` and
+    ``NewmarkSolver``."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -186,9 +199,10 @@ _DEFAULTS = {"run": RunConfig(), "solver": SolverConfig(),
              "time_history": TimeHistoryConfig()}
 
 
-def _check_slice(config: RunConfig) -> None:
+def check_slice(config: RunConfig) -> None:
     """Raise NotImplementedError for anything outside the ported slice,
-    naming the ROADMAP queue 1 item that brings it."""
+    naming the ROADMAP queue 1 item that brings it: the one check of
+    ``Solver``, ``DynamicsSolver`` and ``NewmarkSolver``."""
     sections = {"run": config, "solver": config.solver,
                 "time_history": config.time_history}
     for (section, field), item in UNPORTED.items():
@@ -213,10 +227,6 @@ def _check_slice(config: RunConfig) -> None:
 BACKENDS = ("auto", "structured", "hybrid", "general")
 # the float64 refresh operators of a mixed hybrid solve
 F64_REFRESH = ("bucketed", "general", "stencil")
-HYBRID_GATE_NOTE = (
-    "model is hybrid-backend eligible but auto-selection is gated (set "
-    "PCG_TPU_ENABLE_HYBRID=1 or pass backend='hybrid'); using the general "
-    "backend")
 
 
 def can_structured(model: ModelData, config: RunConfig, n_parts: int,
@@ -270,7 +280,45 @@ def hybrid_f64_refresh() -> str:
     return knob
 
 
-class Solver:
+class LadderPieces:
+    """The preconditioner and the recovery ladder's rungs of a solver
+    that holds ``config``, ``ops``/``data`` (and ``ops32``/``data32`` when
+    ``mixed``), ``pm``, ``_dispatch_cap``, ``dispatch_log``, ``_rec`` and
+    ``_esc_engine``: ``Solver`` on K, ``NewmarkSolver`` on A = K + c M."""
+
+    def _make_prec(self, kind: str):
+        """The preconditioner operand: f32 for the mixed inner solves,
+        else in the storage dtype."""
+        if self.mixed:
+            return make_prec(self.ops32, self.data32, kind)
+        return make_prec(self.ops, self.data, kind)
+
+    def _fallback_prec(self):
+        """The ladder's scalar-Jacobi fallback (rung 2): under mg the mg
+        operand with its ``fb`` switch set (``ops/mg.fallback_operand``),
+        so the apply demotes to scalar Jacobi."""
+        with self._rec.dispatch("fallback_prec"):
+            inv = self._make_prec("jacobi")
+            if self.config.solver.precond == "mg":
+                return mgmod.fallback_operand(inv)
+            return inv
+
+    def _escalation(self):
+        """The ladder's f64 escalation (rung 3, mixed mode): a direct-f64
+        ``ChunkedEngine`` on the solver's float64 operator under scalar
+        Jacobi, built on first use.  Returns (engine, data, prec)."""
+        if self._esc_engine is None:
+            self._esc_engine = ChunkedEngine(
+                ops=self.ops, scfg=self.config.solver,
+                glob_n_dof_eff=self.pm.glob_n_dof_eff,
+                cap=self._dispatch_cap, mixed=False, recorder=self._rec,
+                log=self.dispatch_log)
+        with self._rec.dispatch("esc_prec"):
+            prec = make_prec(self.ops, self.data, "jacobi")
+        return self._esc_engine, self.data, prec
+
+
+class Solver(LadderPieces):
     """Owns the partitioned model on one device and runs time steps."""
 
     def __init__(self, model: ModelData, config: Optional[RunConfig] = None,
@@ -290,7 +338,7 @@ class Solver:
         n_parts = self.config.n_parts if n_parts is None else n_parts
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
-        _check_slice(self.config)
+        check_slice(self.config)
         if self.config.solver.precond == "mg":
             # the mg hierarchy's preflight, before the partition is built
             run_mg_preflight(model, self.config)
@@ -614,13 +662,6 @@ class Solver:
         self.un = x_fin + udi
         return flag, relres, total
 
-    def _make_prec(self, kind: str):
-        """The step's preconditioner operand: f32 for the mixed inner
-        solves, else in the storage dtype."""
-        if self.mixed:
-            return make_prec(self.ops32, self.data32, kind)
-        return make_prec(self.ops, self.data, kind)
-
     # ------------------------------------------------------------------
     # Resilience (resilience/): the context and the recovery pieces
     # ------------------------------------------------------------------
@@ -678,30 +719,6 @@ class Solver:
         if a.ndim >= 2:
             return torch.as_tensor(a.copy(), device=self.device)
         return state
-
-    def _fallback_prec(self):
-        """The ladder's scalar-Jacobi fallback (rung 2): under mg the mg
-        operand with its ``fb`` switch set (``ops/mg.fallback_operand``),
-        so the apply demotes to scalar Jacobi."""
-        with self._rec.dispatch("fallback_prec"):
-            inv = self._make_prec("jacobi")
-            if self.config.solver.precond == "mg":
-                return mgmod.fallback_operand(inv)
-            return inv
-
-    def _escalation(self):
-        """The ladder's f64 escalation (rung 3, mixed mode): a direct-f64
-        ``ChunkedEngine`` on the solver's float64 operator under scalar
-        Jacobi, built on first use.  Returns (engine, data, prec)."""
-        if self._esc_engine is None:
-            self._esc_engine = ChunkedEngine(
-                ops=self.ops, scfg=self.config.solver,
-                glob_n_dof_eff=self.pm.glob_n_dof_eff,
-                cap=self._dispatch_cap, mixed=False, recorder=self._rec,
-                log=self.dispatch_log)
-        with self._rec.dispatch("esc_prec"):
-            prec = make_prec(self.ops, self.data, "jacobi")
-        return self._esc_engine, self.data, prec
 
     def solve(self, on_step: Optional[Callable[[int, StepResult], None]]
               = None, store=None, resume: bool = False) -> List[StepResult]:
@@ -1176,9 +1193,4 @@ class Solver:
     def displacement_global(self) -> np.ndarray:
         """Full global solution vector (n_dof,), assembled on the host from
         the owner-weighted local rows."""
-        pm = self.pm
-        un = self.un.cpu().numpy()
-        out = np.zeros(pm.glob_n_dof, dtype=un.dtype)
-        m = (pm.weight > 0) & (pm.dof_gid >= 0)
-        out[pm.dof_gid[m]] = un[m]
-        return out
+        return owned_global(self.pm, self.un)

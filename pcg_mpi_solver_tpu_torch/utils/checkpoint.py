@@ -16,13 +16,17 @@ Port of ``pcg_mpi_solver_tpu/utils/checkpoint.py`` (:53-437, :441-671):
   the blocked carry in the port's (R, P, n_loc) layout, the fingerprint
   extended by the block width, a hash of the block's loads and whether
   the cycle carries the fallback preconditioner.
+* ``step_{t:06d}.npz``: the full state of a time history after COMPLETED
+  timestep ``t`` (:meth:`SnapshotStore.for_time_solver`: the kinematic
+  vectors, the step histories or probe series and frames, the schedule),
+  written by ``resilience.engine.TimeHistoryGuard`` for
+  ``DynamicsSolver.run`` and ``NewmarkSolver.run``; these records are the
+  resume points and outlive their step, under the same retention.
 
 A fingerprint of the model and the solver configuration guards them:
 :func:`_fingerprint` has the JAX package's field names, and wherever a
 field means the same thing in the port, its value; so the port resumes a
-snapshot the JAX package wrote, and refuses one of other numerics.  The
-time-history (``step_*``) store waits for the dynamics drivers (ROADMAP
-queue 1 item 10).
+snapshot the JAX package wrote, and refuses one of other numerics.
 """
 
 from __future__ import annotations
@@ -304,7 +308,8 @@ class SnapshotStore:
     guarded by the solver fingerprint.  The payload is a numpy state tree
     (the chunked engine's direct carry or mixed outer state) flattened
     with ``/``-joined keys.  The owning step deletes its record when it
-    completes (:meth:`discard`)."""
+    completes (:meth:`discard`); the time-history store's ``step``
+    records are resume points and stay, bounded by :meth:`retention`."""
 
     def __init__(self, path: str, fingerprint: Optional[dict] = None,
                  prefix: str = "snap"):
@@ -331,6 +336,15 @@ class SnapshotStore:
         fp["many_fallback"] = bool(
             getattr(solver, "_many_use_fb", lambda: False)())
         return cls(solver.config.checkpoint_path, fp, prefix="many")
+
+    @classmethod
+    def for_time_solver(cls, solver) -> "SnapshotStore":
+        """The timestep store of the time-history drivers: the same
+        fingerprint guard, the ``step_*.npz`` namespace, so a quasi-static
+        mid-solve snapshot in the same directory is never taken for a
+        completed-timestep state."""
+        return cls(solver.config.checkpoint_path, _fingerprint(solver),
+                   prefix="step")
 
     def _file(self, t: int) -> str:
         return os.path.join(self.path, f"{self.prefix}_{t:06d}.npz")

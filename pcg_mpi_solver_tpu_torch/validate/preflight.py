@@ -1,12 +1,17 @@
-"""Preflight checks of a blocked right-hand side and of an mg hierarchy.
+"""Preflight checks of a blocked right-hand side, of an mg hierarchy and of
+an explicit time step.
 
-Port of ``CheckResult``, ``PreflightError``, ``check_rhs_block`` and the
-construction-time mg checks of ``pcg_mpi_solver_tpu/validate/preflight.py``
-(:36-59, :290-363, :386-452): the gate ``Solver.solve_many`` puts in front
-of a block of load cases, and the gate ``Solver`` puts in front of an mg
-hierarchy (:func:`run_mg_preflight`: a lattice that cannot coarsen, or
-coarsen ``mg_levels`` times, or whose replicated levels exceed
-``mg_max_replicated_dofs``, fails before the partition is built).  A check
+Port of ``CheckResult``, ``PreflightError``, ``check_rhs_block``, the
+construction-time mg checks and the explicit-dt check of
+``pcg_mpi_solver_tpu/validate/preflight.py`` (:36-59, :248-287, :290-363,
+:386-452): the gate ``Solver.solve_many`` puts in front of a block of load
+cases, the gate ``Solver`` puts in front of an mg hierarchy
+(:func:`run_mg_preflight`: a lattice that cannot coarsen, or coarsen
+``mg_levels`` times, or whose replicated levels exceed
+``mg_max_replicated_dofs``, fails before the partition is built), and the
+gate of the time-history drivers (:func:`run_time_preflight`: the mg
+checks, and for ``DynamicsSolver`` its dt against the CFL bound: a
+caller's dt above it fails, a model file's dt above it warns).  A check
 returns a :class:`CheckResult` of severity ``fail`` (the input is
 unusable: :class:`PreflightError`), ``warn`` (usable but suspicious) or
 ``ok``.  The policy is ``PCG_TPU_PREFLIGHT`` (fail, warn or off; default
@@ -18,6 +23,7 @@ queue 1 item 14.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import warnings
 from typing import Any, List
@@ -176,23 +182,95 @@ def _check_mg_replication(model, scfg) -> CheckResult:
     return CheckResult("mg_replication", "ok")
 
 
-def run_mg_preflight(model, config) -> List[CheckResult]:
-    """The mg checks under the preflight policy (:func:`resolve_policy`):
-    under ``fail`` a failed check raises :class:`PreflightError` with the
-    JAX package's message, under ``warn`` it warns; ``off`` scans
-    nothing."""
-    pol = resolve_policy()
-    if pol == "off":
-        return []
-    scfg = config.solver
-    results = [_check_mg_hierarchy(model, scfg),
-               _check_mg_replication(model, scfg)]
+def _check_explicit_dt(model, context) -> CheckResult:
+    """Explicit central-difference stability: dt against the CFL estimate
+    (``solver/dynamics.stable_dt`` at safety 1).  The severity follows
+    ``dt_source``: a caller's dt (``arg``) above the bound fails, a dt
+    from the model file (``model``: legacy bundles carry a 1.0
+    placeholder) warns, the CFL default (``cfl``) is the estimate itself
+    and passes."""
+    ctx = context or {}
+    dt = ctx.get("dt")
+    src = ctx.get("dt_source", "arg")
+    if dt is None or src == "cfl":
+        return CheckResult("explicit_dt", "ok")
+    if not (math.isfinite(dt) and dt > 0):
+        return CheckResult("explicit_dt", "fail",
+                           f"explicit dt={dt} must be a finite positive "
+                           "number")
+    from pcg_mpi_solver_tpu_torch.solver.dynamics import stable_dt
+
+    try:
+        bound = stable_dt(model, safety=1.0)
+    except (ValueError, ZeroDivisionError, KeyError) as e:
+        return CheckResult("explicit_dt", "warn",
+                           f"stable_dt estimate unavailable "
+                           f"({type(e).__name__}: {e})")
+    if not (math.isfinite(bound) and bound > 0):
+        return CheckResult("explicit_dt", "warn",
+                           f"stable_dt estimate non-finite ({bound})")
+    if dt > bound:
+        return CheckResult(
+            "explicit_dt", "fail" if src == "arg" else "warn",
+            f"dt={dt:.3e} ({src}) exceeds the CFL stability estimate "
+            f"{bound:.3e}: the integration diverges within a few steps")
+    if dt > 0.95 * bound:
+        return CheckResult(
+            "explicit_dt", "warn",
+            f"dt={dt:.3e} is within 5% of the CFL estimate {bound:.3e} "
+            "(the estimate is conservative for hexes but not exact)")
+    return CheckResult("explicit_dt", "ok")
+
+
+def _enforce(results: List[CheckResult], pol: str, recorder=None,
+             kind: str = "") -> List[CheckResult]:
+    """Apply the policy to ``results``: under ``fail`` a failed check
+    raises :class:`PreflightError` with the JAX package's message, under
+    ``warn`` it warns.  With a recorder, one ``preflight`` event carries
+    every check (warn-severity findings are reported there only, as in
+    the JAX package)."""
     failed = [r for r in results if r.status == "fail"]
+    if recorder is not None:
+        recorder.event("preflight", policy=pol, context=kind,
+                       failed=len(failed),
+                       warned=sum(r.status == "warn" for r in results),
+                       checks=[r.to_event() for r in results])
     if failed:
         msg = "preflight rejected the model/config: " + "; ".join(
             f"[{r.name}] {r.detail}" for r in failed) + \
             "  (set PCG_TPU_PREFLIGHT=warn/off or --preflight= to bypass)"
         if pol == "fail":
             raise PreflightError(msg)
-        warnings.warn(msg, stacklevel=3)
+        warnings.warn(msg, stacklevel=4)
     return results
+
+
+def _mg_checks(model, config) -> List[CheckResult]:
+    scfg = config.solver
+    return [_check_mg_hierarchy(model, scfg),
+            _check_mg_replication(model, scfg)]
+
+
+def run_mg_preflight(model, config) -> List[CheckResult]:
+    """The mg checks under the preflight policy (:func:`resolve_policy`);
+    ``off`` scans nothing."""
+    pol = resolve_policy()
+    if pol == "off":
+        return []
+    return _enforce(_mg_checks(model, config), pol)
+
+
+def run_time_preflight(model, config, context: dict,
+                       recorder=None) -> List[CheckResult]:
+    """The time-history drivers' gate under the preflight policy: the mg
+    checks and, for ``context["kind"] == "dynamics"``, the explicit dt
+    (``context["dt"]``, ``context["dt_source"]``) against the CFL bound.
+    The model checks (shapes, finiteness, materials, connectivity) are
+    ROADMAP queue 1 item 14."""
+    pol = resolve_policy()
+    if pol == "off":
+        return []
+    results = _mg_checks(model, config)
+    if context.get("kind") == "dynamics":
+        results.append(_check_explicit_dt(model, context))
+    return _enforce(results, pol, recorder, context.get("kind", ""))

@@ -40,6 +40,10 @@ EXPORT_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
     "cli", "vtk.writer", "vtk.export", "utils.io", "utils.postproc",
     "models.mdf", "ops.stress", "ops.nonlocal_stress"))
 
+# the time integrators
+TIME_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.solver.{m}" for m in (
+    "backends", "dynamics", "newmark"))
+
 # what a spawned VTK export worker imports (vtk/export.py's pool): numpy
 # only, so a worker never loads torch or initialises CUDA
 WORKER_PROBE = r"""
@@ -68,6 +72,7 @@ def test_port_imports_no_jax():
     assert set(CHUNKED_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(HYBRID_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(EXPORT_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(TIME_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
 
 
