@@ -94,7 +94,13 @@ Phases (any failed check raises, so the script exits non-zero):
                 dofs, host seconds of the hierarchy and of the fine bound,
                 iterations, ms/iter and time to tol beside jacobi's, the
                 solutions' difference) and the 6^3 octree under mg within
-                max(3, 5 %) of the JAX package's 28.  After phase 4d: the
+                max(3, 5 %) of the JAX package's 28.  The octree
+                models (22^3 and 6^3) are built in child processes
+                started with the run, beside phases 3 and 4e's cube, and
+                shared by phases 4e to 4k.  The octree's
+                jacobi and mg Solvers start the scratch partition cache
+                (``CACHE_DIR``): the mg Solver reads jacobi's partition
+                from it.  After phase 4d: the
                 cube's ms/iter beside phase 4's v6, kernels and launches a
                 float32 octree matvec, 100 profiled inner iterations, and
                 20 of the octree's mg solve;
@@ -140,6 +146,24 @@ Phases (any failed check raises, so the script exits non-zero):
                 the float64 ones; the 6^3 octree's float64 explicit
                 hybrid against general over 200 steps (1e-9 of max|u|,
                 v6's double kernel levels x steps times);
+  4k. graph cache — run right after phase 4j, on 4e's octree model and
+                Solvers: the octree at ``GRAPH_PARTS`` (8) parts under
+                partition_method="graph" (the native partitioner, built
+                with g++ at first use), general backend, mixed, cold into
+                the scratch cache: the seconds of ``part_mesh_dual`` and
+                of the partition beside the one-part RCB's, part sizes
+                (none empty, within 10 % of the ideal), the dual graph's
+                edge cut and the interface dofs beside RCB's at 8 parts,
+                the element map's sha256, flag, iterations (within max(3,
+                5 %) of 4e's one-part solve), ms/iter; the same Solver
+                warm (``setup_cache`` cold then warm, the partition equal
+                array for array, load seconds, the solve bitwise the
+                cold one's); the 6^3 octree on the hybrid backend at 8
+                parts under "graph" (iterations within max(3, 5 %) of the
+                one-part hybrid's 1149, v6 launched at least levels x
+                iterations times); 4e's mg Solver built again warm (the
+                hierarchy's seconds cold and warm, equal array for
+                array); then the scratch cache is removed;
   4g. many chunked — run right after phase 4j: the chunked blocked path
                 of ``Solver.solve_many`` on the 150^3 flagship, direct
                 float64, classic, jacobi, [F, F_y] at the auto cap: cap,
@@ -191,8 +215,8 @@ Phases (any failed check raises, so the script exits non-zero):
                 (``WINDOW_CARD_VS_CPU``); then Newmark (direct block3,
                 mixed jacobi; tol 1e-12) and float64 explicit dynamics on
                 the 12x6x5 cube, the card against the CPU (1e-10 of
-                max|u|; Newmark iterations +-1 a step direct, max(3,
-                5 %) in total mixed).
+                max|u|; Newmark iterations +-1 a step direct, the mixed
+                totals printed with their inner cycles).
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
 preconditioner solve of phase 4b, by variant solve of phase 4c, by
@@ -200,7 +224,8 @@ block of phase 4d, float32 of phase 4's one-shot solve and of phase 4f's
 escalating solve, float64 of phase 4g's chunked block; every record's
 ``launches_hybrid`` from phase 4h's flagship solve and ``hybrid_levels``
 from its level batches, ``launches_newmark`` and ``launches_dynamics``
-from phase 4j's Newmark runs and explicit runs), the last line
+from phase 4j's Newmark runs and explicit runs, ``launches_graph`` from
+phase 4k's 8-part hybrid solve), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -208,8 +233,11 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -408,6 +436,101 @@ TIME_NEWMARK_DELTAS = (0.5, 1.0, 1.0)
 TIME_EXPLICIT_STEPS = 500
 TIME_EXPLICIT_EXPORT = 250
 TIME_SMALL_STEPS = 200
+# phase 4k: the native graph partition and the partition cache.  The
+# octree flagship at 8 parts (BASELINE config 3's 8-way METIS split) under
+# partition_method="graph", beside the one-part RCB partition's 21.42 s
+# (PERF.md §5); the 6^3 octree on the hybrid backend at 8 parts, beside
+# the one-part hybrid's 1149 iterations (PERF.md §5); phase 4e's octree
+# Solvers and 4k's share one scratch cache directory under build/,
+# removed after 4k
+GRAPH_PARTS = 8
+ONE_PART_RCB_PARTITION_S = 21.42
+HYBRID6_ONE_PART_ITERS = 1149
+CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_cache")
+
+
+# The octree models several phases use (the flagship and its 6^3 cut) are
+# built once, in child processes started with the run: the flagship's
+# host build (over a minute) overlaps phases 3 and 4e's cube instead of
+# holding the card idle.  Every phase shares the one object of each (a
+# Solver reads a model and never writes it).  ``OCTREES`` is None when the
+# phases are driven without ``main`` (they then build in process).
+_OCTREE_CHILD = r"""
+import json, os, pickle, sys, time
+from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
+n, path, kw = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+t0 = time.perf_counter()
+model = make_octree_model(n, n, n, **kw)
+seconds = time.perf_counter() - t0
+with open(path + ".tmp", "wb") as f:
+    pickle.dump((model, seconds), f, protocol=pickle.HIGHEST_PROTOCOL)
+os.replace(path + ".tmp", path)
+"""
+
+
+class OctreeModels:
+    """``make_octree_model(n, n, n, **OCTREE_FLAGSHIP-but-n)`` for each n,
+    built in a child process started at construction; :meth:`get` waits
+    for it, loads the model and returns (model, child build seconds,
+    seconds waited)."""
+
+    def __init__(self, sizes):
+        root = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(os.path.join(root, "build"), exist_ok=True)
+        kw = dict(OCTREE_FLAGSHIP)
+        kw.pop("n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.models, self.procs = {}, {}
+        for n in sizes:
+            path = os.path.join(root, "build", f"chip_smoke_octree{n}.pkl")
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _OCTREE_CHILD, str(n), path,
+                 json.dumps(kw)], cwd=root, env=env)
+            self.procs[n] = (proc, path)
+
+    def get(self, n):
+        import pickle
+
+        if n not in self.models:
+            proc, path = self.procs.pop(n)
+            t0 = time.perf_counter()
+            if proc.wait() != 0:
+                raise RuntimeError(f"the octree {n}^3 build failed "
+                                   f"({proc.returncode})")
+            with open(path, "rb") as f:
+                model, seconds = pickle.load(f)
+            os.remove(path)
+            self.models[n] = (model, seconds, time.perf_counter() - t0)
+        return self.models[n]
+
+    def close(self):
+        for proc, path in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for p in (path, path + ".tmp"):
+                if os.path.exists(p):
+                    os.remove(p)
+        self.procs = {}
+
+
+OCTREES = None
+
+
+def octree_model(n):
+    """(the n^3 octree of ``OCTREE_FLAGSHIP``'s arguments, its build
+    seconds, seconds waited for it): from ``OCTREES``, else built here."""
+    if OCTREES is not None:
+        return OCTREES.get(n)
+    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
+
+    kw = dict(OCTREE_FLAGSHIP)
+    kw.pop("n")
+    t0 = time.perf_counter()
+    model = make_octree_model(n, n, n, **kw)
+    return model, time.perf_counter() - t0, 0.0
 
 
 def say(msg: str) -> None:
@@ -1846,13 +1969,14 @@ def phase_general(torch, np, cube_model):
     # 2. the octree flagship
     kw = dict(OCTREE_FLAGSHIP)
     n = kw.pop("n")
-    t0 = time.perf_counter()
-    model = make_octree_model(n, n, n, **kw)
-    build_s = time.perf_counter() - t0
+    model, build_s, wait_s = octree_model(n)
     say(f"octree {n}^3/L{kw['max_level']}: {model.n_dof} dofs, "
         f"{model.n_elem} elements, {len(model.elem_lib)} pattern types; "
-        f"model build {build_s:.2f} s")
-    solver = Solver(model, cfg)
+        f"model build {build_s:.2f} s (in a child process beside phases 3 "
+        f"and 4e's cube; {wait_s:.2f} s waited here)")
+    # the scratch partition cache (phase 4k builds these Solvers again,
+    # warm); the mg Solver below finds this partition in it
+    solver = Solver(model, dataclasses.replace(cfg, cache_dir=CACHE_DIR))
     pm = solver.pm
     nb, nsub, pad, pval, real = _bucket_stats(pm, BUCKET_VALUES)
     say(f"octree {n}^3: backend {solver.backend}; partition "
@@ -1862,6 +1986,8 @@ def phase_general(torch, np, cube_model):
         f"{nsub} sign sub-types, in {nb} buckets at BUCKET_VALUES "
         f"{BUCKET_VALUES:g}: padded product {pad:.3f}x of {real:.3f} "
         f"GFLOP, element values {pval:.3f}x")
+    say(f"octree {n}^3: partition cache {solver.setup_cache} "
+        f"({CACHE_DIR})")
     bar = OCTREE_FLAGSHIP["load_value"] * n / OCTREE_FLAGSHIP["E"]
     res_j, ms_j, _c = _general_solve(torch, np, solver, f"octree {n}^3",
                                      bar)
@@ -1893,7 +2019,7 @@ def phase_general(torch, np, cube_model):
 
     # 4. the 6^3 octree against the JAX package's count
     n6 = OCTREE_PARITY_N
-    s6 = Solver(make_octree_model(n6, n6, n6, **kw), cfg)
+    s6 = Solver(octree_model(n6)[0], cfg)
     res6, _ms6, _cyc6 = _general_solve(
         torch, np, s6, f"octree {n6}^3",
         OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
@@ -1908,12 +2034,12 @@ def phase_general(torch, np, cube_model):
 
     # 5. mg on the octree lattices: the flagship octree and the 6^3 one
     octree_mg = phase_general_mg(torch, np, model, n, solver, res_j, ms_j,
-                                 bar, kw)
+                                 bar)
     return dict(cube_ms=cube_ms, octree=solver, n=n, octree_mg=octree_mg,
                 model=model, res=res_j, ms=ms_j)
 
 
-def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar, kw):
+def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar):
     """Phase 4e, its mg part: the octree flagship under precond="mg"
     (mixed, classic, auto backend -> general; the hierarchy from the
     octree lattice): lattice and level dims, replicated dofs, the
@@ -1922,11 +2048,11 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar, kw):
     the 6^3 octree under mg within max(3, 5 %) of the JAX package's
     count.  Returns the flagship's mg Solver (profiled after phase 4d)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
-    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
     from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
     from pcg_mpi_solver_tpu_torch.solver import Solver
 
-    cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed",
+    cfg = RunConfig(cache_dir=CACHE_DIR,
+                    solver=SolverConfig(tol=1e-7, precision_mode="mixed",
                                         precond="mg"))
     t0 = time.perf_counter()
     smg = Solver(model, cfg)
@@ -1939,7 +2065,8 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar, kw):
         f"({rep_dofs / model.n_dof:.2f}x the fine mesh's {model.n_dof}); "
         f"hierarchy host {smg.mg_setup_s:.2f} s, fine bound "
         f"{smg.mg_lam_s:.2f} s (lam {smg.mg_lam[0]:.4e}), partition "
-        f"{smg.partition_build_s:.2f} s, upload {smg.upload_s:.2f} s, "
+        f"{smg.partition_s:.2f} s ({smg.setup_cache} cache: the "
+        f"partition from jacobi's entry), upload {smg.upload_s:.2f} s, "
         f"Solver {build:.2f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     res_m, ms_m, _c = _general_solve(torch, np, smg, f"octree {n}^3 mg",
@@ -1956,7 +2083,7 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar, kw):
         raise AssertionError(f"octree mg: solution differs from jacobi's by "
                              f"{du:.3e} of max|u|")
     n6 = OCTREE_PARITY_N
-    s6 = Solver(make_octree_model(n6, n6, n6, **kw), cfg)
+    s6 = Solver(octree_model(n6)[0], cfg)
     res6, _ms6, _cyc6 = _general_solve(
         torch, np, s6, f"octree {n6}^3 mg",
         OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
@@ -2147,7 +2274,6 @@ def phase_hybrid(torch, np, general, rates):
     Returns the flagship's Solver, its launch counts and the level
     kernel records."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
-    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
     from pcg_mpi_solver_tpu_torch.solver import Solver
 
     cfg = RunConfig(solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
@@ -2157,7 +2283,7 @@ def phase_hybrid(torch, np, general, rates):
     s = Solver(model, cfg, backend="hybrid")
     build = time.perf_counter() - t0
     hp = s.pm
-    say(f"hybrid octree {n}^3: partition_hybrid {s.partition_build_s:.2f} "
+    say(f"hybrid octree {n}^3: partition_hybrid {s.partition_s:.2f} "
         f"s")
     say(f"hybrid octree {n}^3: refresh partition ({s.f64_refresh}) "
         f"{s.refresh_partition_s:.2f} s")
@@ -2245,10 +2371,8 @@ def phase_hybrid(torch, np, general, rates):
         f"us ({v6['bound_by']}); {smi}")
 
     # 4. the 6^3 octree
-    kw = dict(OCTREE_FLAGSHIP)
-    kw.pop("n")
     n6 = OCTREE_PARITY_N
-    s6 = Solver(make_octree_model(n6, n6, n6, **kw), cfg, backend="hybrid")
+    s6 = Solver(octree_model(n6)[0], cfg, backend="hybrid")
     say(f"hybrid octree {n6}^3 levels: "
         f"{[(lv.size, lv.nb, (lv.bx, lv.by, lv.bz)) for lv in s6.pm.levels]}")
     _hybrid_kernel_checks(torch, np, s6, f"hybrid octree {n6}^3", rates)
@@ -2390,7 +2514,6 @@ def phase_time(torch, np, general):
     import warnings
 
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
-    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
     from pcg_mpi_solver_tpu_torch.solver import (
         DynamicsSolver, NewmarkSolver, stable_dt)
 
@@ -2482,10 +2605,8 @@ def phase_time(torch, np, general):
 
     # 3. the 6^3 octree: float64 hybrid against general, the v6 double
     # kernel on its level batches
-    kw = dict(OCTREE_FLAGSHIP)
-    kw.pop("n")
     n6 = OCTREE_PARITY_N
-    m6 = make_octree_model(n6, n6, n6, **kw)
+    m6 = octree_model(n6)[0]
     dt6 = stable_dt(m6)
     u6 = {}
     for backend in ("general", "hybrid"):
@@ -2510,6 +2631,235 @@ def phase_time(torch, np, general):
         raise AssertionError(f"time octree {n6}^3: hybrid differs by "
                              f"{d6:.3e}")
     return newmark, explicit
+
+
+def _edge_cuts(np, model, maps):
+    """The dual graph's edge cut under each element map of ``maps``
+    ({name: (n_elem,) part map}): elements are adjacent when they share a
+    node (``part_mesh_dual``'s graph at ncommon = 1), an edge counted
+    once.  Vectorised: the elements of each node sorted together, pairs at
+    every offset within a node's run; only the pairs a map cuts are
+    deduplicated."""
+    eptr = np.asarray(model.elem_nodes_offset, dtype=np.int64)
+    eind = np.asarray(model.elem_nodes_flat, dtype=np.int64)
+    src = np.repeat(np.arange(model.n_elem, dtype=np.int64), np.diff(eptr))
+    order = np.argsort(eind, kind="stable")
+    nodes, elems = eind[order], src[order]
+    cut = {name: [] for name in maps}
+    d = 1
+    while True:
+        same = nodes[:-d] == nodes[d:]
+        if not same.any():
+            break
+        a, b = elems[:-d][same], elems[d:][same]
+        for name, m in maps.items():
+            x = m[a] != m[b]
+            cut[name].append(np.minimum(a[x], b[x]) * model.n_elem
+                             + np.maximum(a[x], b[x]))
+        d += 1
+    return {name: len(np.unique(np.concatenate(keys)))
+            for name, keys in cut.items()}
+
+
+def _interface_dofs(np, model, part, n_parts):
+    """Dofs that live in two or more parts under the element map
+    ``part``."""
+    dofs = np.asarray(model.elem_dofs_flat, dtype=np.int64)
+    owner = np.repeat(part, np.diff(np.asarray(model.elem_dofs_offset)))
+    count = np.zeros(model.n_dof, dtype=np.int8)
+    for p in range(n_parts):
+        seen = np.zeros(model.n_dof, dtype=bool)
+        seen[dofs[owner == p]] = True
+        count += seen
+    return int((count >= 2).sum())
+
+
+def _same_arrays(np, a, b, where):
+    """Fail unless two partitions (dataclasses, dicts, lists of numpy
+    arrays and scalars) are equal, array for array."""
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _same_arrays(np, getattr(a, f.name), getattr(b, f.name),
+                         f"{where}.{f.name}")
+    elif isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{where}: keys differ")
+        for k in a:
+            _same_arrays(np, a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_arrays(np, x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{where}: arrays differ")
+    elif a != b:
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+
+
+def phase_graph_cache(torch, np, general):
+    """Phase 4k, the native graph partitioner and the partition cache, on
+    4e's 22^3/L4 octree model object:
+    1. a general mixed Solver (jacobi, classic, tol 1e-7) at
+       ``GRAPH_PARTS`` parts under partition_method="graph", cold into
+       ``CACHE_DIR``: the seconds of ``part_mesh_dual`` and of the whole
+       partition (beside the one-part RCB's, recorded and 4e's), the part sizes
+       (none empty, within the JAX package's 10 % balance), the dual
+       graph's edge cut and the interface dofs beside RCB's at the same
+       parts, the sha256 of the element map; its solve within max(3, 5 %)
+       of 4e's one-part iterations;
+    2. the same Solver again, warm: ``setup_cache`` cold then warm, the
+       partition equal array for array, the load seconds, the solve's
+       flag, iterations and u bitwise the cold one's;
+    3. the 6^3 octree on the hybrid backend at ``GRAPH_PARTS`` parts under
+       "graph": flag, iterations beside the one-part hybrid's, v6 launched
+       at least levels x iterations times;
+    4. 4e's mg Solver built again, warm: the hierarchy's seconds cold and
+       warm, the hierarchy and its bounds equal array for array.
+    Returns the slab kernels' launch counts over step 3 (the only step
+    that launches them)."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig, native
+    from pcg_mpi_solver_tpu_torch.parallel.partition import rcb_partition
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    model, n, P = general["model"], general["n"], GRAPH_PARTS
+    one = general["octree"]
+    smi = nvidia_smi_line()
+    cfg = RunConfig(partition_method="graph", cache_dir=CACHE_DIR,
+                    solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
+    # 1. cold: part_mesh_dual timed inside the Solver's own partition
+    t0 = time.perf_counter()
+    native.load()
+    say(f"graph: native library {native.library_path().name} loaded (built "
+        f"with g++ if new) in {time.perf_counter() - t0:.2f} s")
+    pmd_s = []
+    part_mesh_dual = native.part_mesh_dual
+
+    def timed_pmd(*a, **k):
+        t = time.perf_counter()
+        out = part_mesh_dual(*a, **k)
+        pmd_s.append(time.perf_counter() - t)
+        return out
+
+    native.part_mesh_dual = timed_pmd
+    try:
+        t0 = time.perf_counter()
+        cold = Solver(model, cfg, n_parts=P)
+        cold_s = time.perf_counter() - t0
+    finally:
+        native.part_mesh_dual = part_mesh_dual
+    ep = np.asarray(cold.pm.elem_part)
+    counts = np.bincount(ep, minlength=P)
+    digest = hashlib.sha256(np.ascontiguousarray(ep).tobytes()).hexdigest()
+    say(f"graph octree {n}^3 at {P} parts: part_mesh_dual {pmd_s[0]:.2f} s, "
+        f"partition_model {cold.partition_build_s:.2f} s (one-part RCB "
+        f"{ONE_PART_RCB_PARTITION_S} s recorded, {one.partition_build_s:.2f} "
+        f"s in 4e), "
+        f"upload {cold.upload_s:.2f} s, cold Solver (build + store) "
+        f"{cold_s:.2f} s; part sizes {counts.tolist()} (ideal "
+        f"{model.n_elem / P:.1f}); element map sha256 {digest}")
+    if len(pmd_s) != 1 or counts.min() == 0 \
+            or counts.max() > 1.10 * model.n_elem / P:
+        raise AssertionError(f"graph octree: part_mesh_dual ran "
+                             f"{len(pmd_s)} times, part sizes "
+                             f"{counts.tolist()}")
+    t0 = time.perf_counter()
+    maps = {"graph": ep, "rcb": rcb_partition(model.sctrs, P)}
+    cut = _edge_cuts(np, model, maps)
+    iface = {k: _interface_dofs(np, model, m, P) for k, m in maps.items()}
+    say(f"graph octree {n}^3 at {P} parts: dual graph edge cut graph "
+        f"{cut['graph']}, rcb {cut['rcb']} "
+        f"({cut['graph'] / cut['rcb']:.3f}x); interface dofs graph "
+        f"{iface['graph']}, rcb {iface['rcb']} "
+        f"({iface['graph'] / iface['rcb']:.3f}x); counted in "
+        f"{time.perf_counter() - t0:.2f} s")
+    bar = OCTREE_FLAGSHIP["load_value"] * n / OCTREE_FLAGSHIP["E"]
+    res_c, ms_c, cyc_c = _general_solve(torch, np, cold,
+                                        f"graph octree {n}^3 at {P} parts",
+                                        bar)
+    res1 = general["res"]
+    win = max(3, ITERS_TOL * res1.iters)
+    say(f"graph octree {n}^3 at {P} parts: {res_c.iters} iterations against "
+        f"the one-part solve's {res1.iters} (window +-{win:g}); {ms_c:.4f} "
+        f"against {general['ms']:.4f} ms/iter; {smi}")
+    if abs(res_c.iters - res1.iters) > win:
+        raise AssertionError(f"graph octree: {res_c.iters} iterations, "
+                             f"outside max(3, 5 %) of {res1.iters}")
+    u_c = cold.displacement_global()
+
+    # 2. warm
+    t0 = time.perf_counter()
+    warm = Solver(model, cfg, n_parts=P)
+    warm_s = time.perf_counter() - t0
+    say(f"graph octree {n}^3 at {P} parts: setup cache cold "
+        f"{cold.setup_cache}, then {warm.setup_cache}; warm partition load "
+        f"{warm.partition_s:.2f} s (cold build + store "
+        f"{cold.partition_s:.2f} s), warm Solver {warm_s:.2f} s (cold "
+        f"{cold_s:.2f} s)")
+    if (cold.setup_cache, warm.setup_cache) != ("cold", "warm") \
+            or warm.partition_build_s != 0.0:
+        raise AssertionError("graph octree: the cache did not warm")
+    _same_arrays(np, warm.pm, cold.pm, "warm partition")
+    del cold
+    torch.cuda.empty_cache()
+    res_w, _ms_w, cyc_w = _general_solve(
+        torch, np, warm, f"graph octree {n}^3 at {P} parts, warm", bar)
+    same_u = bool(np.array_equal(warm.displacement_global(), u_c))
+    say(f"graph octree {n}^3 at {P} parts: warm solve (flag, iterations) "
+        f"({res_w.flag}, {res_w.iters}) against cold ({res_c.flag}, "
+        f"{res_c.iters}), inner cycles equal: {cyc_w == cyc_c}, u bitwise "
+        f"equal: {same_u}")
+    if (res_w.flag, res_w.iters) != (res_c.flag, res_c.iters) or not same_u:
+        raise AssertionError("graph octree: the warm solve is not the cold "
+                             "one's")
+    del warm
+    torch.cuda.empty_cache()
+
+    # 3. the 6^3 octree on the hybrid backend at 8 parts
+    n6 = OCTREE_PARITY_N
+    t0 = time.perf_counter()
+    s6 = Solver(octree_model(n6)[0],
+                dataclasses.replace(cfg, cache_dir=""), n_parts=P,
+                backend="hybrid")
+    ep6 = np.ascontiguousarray(s6.pm.elem_part)
+    say(f"graph hybrid octree {n6}^3 at {P} parts: Solver "
+        f"{time.perf_counter() - t0:.2f} s, levels "
+        f"{[(lv.size, lv.nb) for lv in s6.pm.levels]}; element map sha256 "
+        f"{hashlib.sha256(ep6.tobytes()).hexdigest()}")
+    res6, ms6, _c6, launches = _hybrid_solve(
+        torch, np, s6, f"graph hybrid octree {n6}^3 at {P} parts",
+        OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
+    win6 = max(3, ITERS_TOL * HYBRID6_ONE_PART_ITERS)
+    say(f"graph hybrid octree {n6}^3 at {P} parts: {res6.iters} iterations "
+        f"against the one-part hybrid's {HYBRID6_ONE_PART_ITERS} (window "
+        f"+-{win6:g}), {ms6:.4f} ms/iter")
+    if abs(res6.iters - HYBRID6_ONE_PART_ITERS) > win6:
+        raise AssertionError(f"graph hybrid octree {n6}^3: {res6.iters} "
+                             f"iterations, outside max(3, 5 %) of "
+                             f"{HYBRID6_ONE_PART_ITERS}")
+    del s6
+    torch.cuda.empty_cache()
+
+    # 4. 4e's mg Solver again, warm
+    smg = general["octree_mg"]
+    t0 = time.perf_counter()
+    wmg = Solver(model, RunConfig(
+        cache_dir=CACHE_DIR, solver=SolverConfig(
+            tol=1e-7, precision_mode="mixed", precond="mg")))
+    wmg_s = time.perf_counter() - t0
+    say(f"graph octree {n}^3 mg: setup cache {smg.setup_cache}, then "
+        f"{wmg.setup_cache}; hierarchy {smg.mg_setup_s:.2f} s cold (61.76 "
+        f"s recorded), {wmg.mg_setup_s:.2f} s warm; fine bound "
+        f"{smg.mg_lam_s:.2f} s cold, {wmg.mg_lam_s:.2f} s warm; warm Solver "
+        f"{wmg_s:.2f} s")
+    if wmg.setup_cache != "warm":
+        raise AssertionError("octree mg: the cache did not warm")
+    _same_arrays(np, wmg.mg_setup, smg.mg_setup, "warm mg hierarchy")
+    _same_arrays(np, wmg.mg_lam, smg.mg_lam, "warm mg bounds")
+    del wmg
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _host_fields(np, torch, model, u):
@@ -3206,6 +3556,17 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "smem")):
                 say(f"build: {name}: {line.strip()}")
 
+    # the octree models, built beside phases 3 and 4e's cube
+    global OCTREES
+    OCTREES = OctreeModels((OCTREE_FLAGSHIP["n"], OCTREE_PARITY_N))
+    try:
+        return _phases(torch, np, kind, smi, rates, t_start)
+    finally:
+        OCTREES.close()
+
+
+def _phases(torch, np, kind, smi, rates, t_start) -> int:
+    """Phases 3 to 5 and the closing records (see the module docstring)."""
     clock = [time.perf_counter()]
 
     def lap(name):
@@ -3225,7 +3586,9 @@ def main() -> int:
     say(f"main: cube {nx}^3, {flagship_model.n_dof} dofs; model build "
         f"{time.perf_counter() - t0:.2f} s")
     # 4e. the general (pattern-type) backend: the flagship cube and the
-    # octree flagship, before any profiler window
+    # octree flagship, before any profiler window; its octree Solvers
+    # start the scratch partition cache cold
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
     general = phase_general(torch, np, flagship_model)
     lap("4e general")
     # 4h. the hybrid level-grid backend on 4e's octree model, before any
@@ -3236,8 +3599,13 @@ def main() -> int:
     # 4j. the time integrators on 4e's octree model, before any profiler
     # window
     time_launches = phase_time(torch, np, general)
-    del general["model"]
     lap("4j time")
+    # 4k. the native graph partition and the partition cache on 4e's
+    # octree model and Solvers, then the scratch cache goes
+    graph_launches = phase_graph_cache(torch, np, general)
+    del general["model"]
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    lap("4k graph cache")
     # 4g. the chunked blocked path, before any profiler window
     many_chunked_launches = phase_many_chunked(torch, np, flagship_model)
     lap("4g many chunked")
@@ -3300,6 +3668,9 @@ def main() -> int:
                 time_launches[0].get((variant, dtype), 0)
             records[-1]["launches_dynamics"] = \
                 time_launches[1].get((variant, dtype), 0)
+            # phase 4k: the 8-part graph-partitioned hybrid solve
+            records[-1]["launches_graph"] = \
+                graph_launches.get((variant, dtype), 0)
             if variant == "v6":
                 records[-1]["launches_preconditioners"] = {
                     path: counts[("v6", dtype)]

@@ -35,10 +35,17 @@ explicit central-difference dynamics (``solver.DynamicsSolver``,
 ``solver.stable_dt``) and implicit Newmark-beta with a PCG solve a step
 (``solver.NewmarkSolver`` on ``solver.MassShiftedOps``), with timestep
 snapshots, step faults and NaN rollback
-(``resilience.TimeHistoryGuard``).
+(``resilience.TimeHistoryGuard``); the native dual-graph partitioner
+(``native``, built with g++ at first use; ``partition_method="graph"``
+and ``"auto"``) and the content-addressed partition cache behind
+``RunConfig.cache_dir`` (``cache``).
 """
 
 from pcg_mpi_solver_tpu_torch.config import (
     RunConfig, SolverConfig, TimeHistoryConfig)
 
-__all__ = ["RunConfig", "SolverConfig", "TimeHistoryConfig"]
+# the port's own version: it keys the partition cache's entries
+# (cache/keys.py), so a version bump invalidates them
+__version__ = "0.1.0"
+
+__all__ = ["RunConfig", "SolverConfig", "TimeHistoryConfig", "__version__"]

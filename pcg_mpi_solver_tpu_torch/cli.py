@@ -11,15 +11,18 @@ CLI, the JAX package's ``pcg_mpi_solver_tpu/cli.py`` with its flags.
     python -m pcg_mpi_solver_tpu_torch.cli newmark   <scratch> <run_id> --n-steps N [options]
     python -m pcg_mpi_solver_tpu_torch.cli export    <scratch> <run_id> <vars> <mode>
     python -m pcg_mpi_solver_tpu_torch.cli demo      [--nx ...] [--octree|--poisson]
+    python -m pcg_mpi_solver_tpu_torch.cli cache-stats [--cache-dir D]
 
 ``solve``, ``solve-many``, ``dynamics``, ``newmark`` and ``demo`` run on
 the card unless ``--device cpu`` is given.  Settings come from ``--settings
 settings.json`` (the shape of the reference's GlobSettings:
 TimeHistoryParam/SolverParam, run_basic_script.bash:30-49) or per-flag
-overrides.  The JAX package's other subcommands are refused with the
-ROADMAP queue 1 item that brings them (:data:`REFUSED`); so are its
-telemetry, profiling, cache and preflight flags, by the solver's own
-refusal of those settings (item 14).
+overrides.  ``--cache-dir`` (else ``PCG_TPU_CACHE_DIR``) serves the
+partitions from the content-addressed cache (``cache/``).  The JAX
+package's other subcommands are refused with the ROADMAP queue 1 item
+that brings them (:data:`REFUSED`); so are its telemetry, profiling and
+preflight flags, by the solver's own refusal of those settings (item
+14).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 REFUSED = {
     "bench": 1,
     **{c: 14 for c in (
-        "serve", "submit", "jobs", "warmup", "cache-stats", "lint",
+        "serve", "submit", "jobs", "warmup", "lint",
         "perf-report", "prof-report", "fleet-report", "watch", "trend",
         "summary", "telemetry-merge", "validate")},
 }
@@ -82,14 +85,22 @@ def _load_settings(path, args):
 
 def _apply_telemetry_flags(cfg, args) -> None:
     """The JAX package's shared per-run flags into the RunConfig; the
-    Solver refuses each one that is set (ROADMAP queue 1 item 14)."""
+    Solver refuses each one that is set (ROADMAP queue 1 item 14) but the
+    cache directory."""
     cfg.telemetry_path = getattr(args, "telemetry_out", None) or ""
     cfg.flight_path = getattr(args, "flight_out", None) or ""
     cfg.solver.trace_resid = int(getattr(args, "trace_resid", None) or 0)
     if getattr(args, "profile_spans", False):
         cfg.telemetry_profile = True
-    cfg.cache_dir = getattr(args, "cache_dir", None) or ""
+    cfg.cache_dir = _resolve_cache_dir(args)
     cfg.preflight = getattr(args, "preflight", None) or ""
+
+
+def _resolve_cache_dir(args) -> str:
+    """The JAX package's one rule for every subcommand: the --cache-dir
+    flag, else the PCG_TPU_CACHE_DIR environment variable, else off."""
+    return getattr(args, "cache_dir", None) or \
+        os.environ.get("PCG_TPU_CACHE_DIR", "")
 
 
 def _mdf_path(scratch: str) -> str:
@@ -208,7 +219,8 @@ def cmd_solve_many(args):
     s = Solver(model, cfg, n_parts=n_parts,
                elem_part=_elem_part(n_parts, args.scratch),
                backend=args.backend, device=args.device)
-    print(f">backend: {s.backend}  setup: {s.setup_s:.2f}s")
+    print(f">backend: {s.backend}  setup: {s.setup_s:.2f}s "
+          f"({s.setup_cache} partition)")
     res = s.solve_many(fb, resume=bool(args.resume))
     for j in range(res.nrhs):
         tag = "  [QUARANTINED]" if j in res.quarantined else ""
@@ -361,6 +373,16 @@ def cmd_demo(args):
     print(">success!")
 
 
+def cmd_cache_stats(args):
+    from pcg_mpi_solver_tpu_torch.cache.partition_cache import format_stats
+
+    d = _resolve_cache_dir(args)
+    if not d:
+        raise SystemExit("cache-stats: pass --cache-dir DIR (or set "
+                         "PCG_TPU_CACHE_DIR)")
+    print(format_stats(d))
+
+
 def cmd_refused(args):
     item = REFUSED[args.cmd]
     raise NotImplementedError(
@@ -390,14 +412,25 @@ def _add_solver_flags(p, precision_default=None) -> None:
                         "kernels)")
 
 
+def _add_cache_flag(p) -> None:
+    p.add_argument("--cache-dir", default=None, metavar="DIR",
+                   help="partition cache directory (cache/): the "
+                        "partitions, the mg hierarchy and its fine bound "
+                        "are served from a content-addressed on-disk "
+                        "cache, so the second solve of the same model, "
+                        "n_parts and backend skips them (env default: "
+                        "PCG_TPU_CACHE_DIR)")
+
+
 def _add_run_flags(p) -> None:
-    """The JAX package's telemetry, cache and preflight flags: accepted,
-    and refused by the Solver when set (ROADMAP queue 1 item 14)."""
+    """The JAX package's telemetry, cache and preflight flags: the cache
+    directory is served; the others are accepted and refused by the
+    Solver when set (ROADMAP queue 1 item 14)."""
     p.add_argument("--telemetry-out", default=None, metavar="FILE.jsonl")
     p.add_argument("--trace-resid", type=int, default=0, metavar="N")
     p.add_argument("--flight-out", default=None, metavar="FILE.jsonl")
     p.add_argument("--profile-spans", action="store_true")
-    p.add_argument("--cache-dir", default=None, metavar="DIR")
+    _add_cache_flag(p)
     p.add_argument("--preflight", choices=["fail", "warn", "off"],
                    default=None)
 
@@ -431,10 +464,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("scratch")
     p.add_argument("n_parts", type=int)
     p.add_argument("--method", choices=["rcb", "slab2", "graph", "auto"],
-                   default="rcb",
+                   default="auto",
                    help="rcb = coordinate bisection, slab2 = the two-level "
-                        "split; graph (and auto, which takes it) needs the "
-                        "native graph partitioner, ROADMAP queue 1 item 15")
+                        "split; graph = the native multilevel dual-graph "
+                        "partitioner (METIS-equivalent, built with g++ at "
+                        "first use); auto = graph unless PCG_TPU_NO_NATIVE "
+                        "is set, then rcb")
     p.set_defaults(fn=cmd_partition)
 
     p = sub.add_parser("solve", help="run the PCG solve")
@@ -545,6 +580,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "heterogeneous conductivity)")
     _add_run_flags(p)
     p.set_defaults(fn=cmd_demo)
+
+    p = sub.add_parser("cache-stats", help="show the partition cache table")
+    _add_cache_flag(p)
+    p.set_defaults(fn=cmd_cache_stats)
 
     for name, item in REFUSED.items():
         p = sub.add_parser(name, help=f"not ported (ROADMAP queue 1 item "

@@ -6,7 +6,9 @@ structure is a dense array with a leading parts axis ``P``, padded to
 common shapes:
 
 - element -> part assignment by recursive coordinate bisection over
-  element centroids (``rcb``), or its two-level form (``slab2``);
+  element centroids (``rcb``), its two-level form (``slab2``), or the
+  native dual-graph partitioner (``graph``, and ``auto``, which takes it
+  unless ``PCG_TPU_NO_NATIVE`` is set; ``native.py``);
 - local renumbering with np.unique/searchsorted over whole parts;
 - a dof is "interface" iff it lives in >= 2 parts; each part gets
   gather/scatter maps into one global interface vector;
@@ -15,49 +17,73 @@ common shapes:
 - one ``TypeBlock`` per pattern type, and the node-ELL map (each local
   node's <= K element-node contribution slots) the general matvec sums.
 
-The JAX package's native helpers (``native.py``) run here in their numpy
-forms (``_unique``, ``_csr_take``, the stable sort of the flat scatter
-map): the same values.  Its native graph partitioner
-(``method="graph"``, and ``"auto"``, which takes it) is ROADMAP queue 1
-item 15.
+The prep loops go through the port's native library as the JAX
+package's do (``_unique``, ``_csr_take``, the stable sort of the flat
+scatter map, above ``native._PREP_THRESHOLD`` items), and take their
+numpy forms (the same values) below it or without the library.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from pcg_mpi_solver_tpu_torch import native
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
-
-# the ROADMAP queue 1 item of the native graph partitioner
-GRAPH_ITEM = 15
 
 
 # ----------------------------------------------------------------------
 # Element -> part assignment
 # ----------------------------------------------------------------------
 
+def graph_partition(model: ModelData, n_parts: int, ncommon: int = 1,
+                    seed: int = 0, strict: bool = True) -> np.ndarray:
+    """Dual-graph element partition by the native multilevel partitioner
+    (the reference's ``metis.part_mesh_dual``, run_metis.py:84-88).  A
+    library that is off (``PCG_TPU_NO_NATIVE``) or did not build raises.
+    A partition with an empty part raises under ``strict``; without it
+    (``"auto"``) it warns and takes RCB, the JAX package's rule for the
+    solver's need of non-empty parts."""
+    part = native.part_mesh_dual(
+        np.asarray(model.elem_nodes_offset, dtype=np.int64),
+        np.asarray(model.elem_nodes_flat, dtype=np.int64),
+        model.n_node, n_parts, ncommon=ncommon, seed=seed)
+    if len(np.unique(part)) != n_parts:
+        if strict:
+            raise RuntimeError(
+                f"partition method 'graph' produced an empty part "
+                f"(n_parts={n_parts}); the explicitly requested graph "
+                "partition cannot be honored — use method='auto' or 'rcb'")
+        warnings.warn(
+            f"graph partition produced an empty part (n_parts={n_parts}); "
+            "falling back to RCB")
+        return rcb_partition(model.sctrs, n_parts)
+    return part
+
+
 def make_elem_part(model: ModelData, n_parts: int, method: str = "rcb",
-                   n_slabs: int = 1) -> np.ndarray:
-    """Element->part map by method: 'rcb' (coordinate bisection) or
-    'slab2' (the two-level split, :func:`two_level_partition`; ``n_slabs``
-    is the coarse slab count, 1 == plain RCB).  'graph', and 'auto' (the
-    JAX package takes the native graph partition there whenever its
-    library builds), are refused at ``n_parts > 1``: taking RCB silently
-    would give another partition than the JAX package's."""
+                   seed: int = 0, n_slabs: int = 1) -> np.ndarray:
+    """Element->part map by method: 'rcb' (coordinate bisection), 'graph'
+    (the native dual-graph partition, :func:`graph_partition`), 'auto'
+    (the graph unless ``PCG_TPU_NO_NATIVE`` turns the library off, then
+    RCB; a library that fails to build raises, as 'graph' does), or
+    'slab2' (the two-level split, :func:`two_level_partition`;
+    ``n_slabs`` is the coarse slab count, 1 == plain RCB)."""
     if n_parts <= 1:
         return np.zeros(model.n_elem, dtype=np.int32)
     if method == "rcb":
         return rcb_partition(model.sctrs, n_parts)
     if method == "slab2":
         return two_level_partition(model.sctrs, n_parts, n_slabs)
-    if method in ("graph", "auto"):
-        raise NotImplementedError(
-            f"partition method {method!r} needs the native graph "
-            f"partitioner, not ported yet (ROADMAP queue 1 item "
-            f"{GRAPH_ITEM}); use 'rcb', 'slab2' or an explicit elem_part")
+    if method == "graph":
+        return graph_partition(model, n_parts, seed=seed, strict=True)
+    if method == "auto":
+        if native.available():
+            return graph_partition(model, n_parts, seed=seed, strict=False)
+        return rcb_partition(model.sctrs, n_parts)
     raise ValueError(f"unknown partition method {method!r}")
 
 
@@ -654,9 +680,13 @@ def partition_model(
     scat_ids = np.zeros((P, NC), dtype=np.int32)
     for p in (local if type_blocks else ()):
         flat = np.concatenate([tb.dof[p].ravel() for tb in type_blocks])
-        perm = np.argsort(flat, kind="stable")
-        scat_perm[p] = perm
-        scat_ids[p] = flat[perm]
+        nat = native.sort_i32(flat.astype(np.int32))
+        if nat is not None:
+            scat_perm[p], scat_ids[p] = nat
+        else:
+            perm = np.argsort(flat, kind="stable")
+            scat_perm[p] = perm
+            scat_ids[p] = flat[perm]
 
     # ---- node-ELL multiplicities (fill deferred) ---------------------------
     want_ell = node_layout and bool(type_blocks)
@@ -770,15 +800,25 @@ def _pad_to(x: np.ndarray, n: int, fill) -> np.ndarray:
 
 
 def _unique(ids: np.ndarray) -> np.ndarray:
-    """Sorted unique ids as int64 (the JAX package's native prep kernel
-    returns int64; np.unique keeps the input's dtype)."""
+    """Sorted unique ids as int64, by the native prep kernel when it
+    applies (the np.unique half of config_ElemVectors,
+    partition_mesh.py:272-286); the numpy form casts to int64 too, as the
+    native kernel returns."""
+    nat = native.unique_renumber(ids, renumber=False)
+    if nat is not None:
+        return nat[0]
     return np.unique(np.asarray(ids, dtype=np.int64))
 
 
 def _csr_take(flat: np.ndarray, offset: np.ndarray, elems: np.ndarray) -> np.ndarray:
-    """Concatenate flat[offset[e]:offset[e+1]] for e in elems (vectorized)."""
+    """Concatenate flat[offset[e]:offset[e+1]] for e in elems (the native
+    kernel when it applies, else vectorized numpy; the loop the reference
+    marked TODO-Cython, partition_mesh.py:244-255)."""
     if len(elems) == 0:
         return flat[:0]
+    nat = native.csr_take(flat, offset, elems)
+    if nat is not None:
+        return nat
     starts = offset[elems]
     ends = offset[elems + 1]
     lens = ends - starts

@@ -51,6 +51,12 @@ the probe history and the timing data, into a ``utils.io.RunStore``.
 The mixed shell's plateau and progress windows (``SolverConfig.mixed_*``)
 run in every inner f32 cycle, one-shot and chunked.
 
+With ``RunConfig.cache_dir`` set, the partitions (structured, general,
+hybrid and the hybrid's float64 refresh), the mg hierarchy and the mg
+fine bound come from the content-addressed partition cache (``cache/``)
+under the JAX package's monolithic keys; ``setup_cache`` says whether
+they came "cold" or "warm" ("off" without a cache).
+
 The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card, the default raises instead of quietly running on the CPU.
 """
@@ -66,6 +72,10 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from pcg_mpi_solver_tpu_torch import native
+from pcg_mpi_solver_tpu_torch.cache.keys import (
+    array_hash as cache_array_hash, model_fingerprint, partition_cache_key)
+from pcg_mpi_solver_tpu_torch.cache.partition_cache import cached_partition
 from pcg_mpi_solver_tpu_torch.config import (
     RunConfig, SolverConfig, TimeHistoryConfig)
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
@@ -81,9 +91,9 @@ from pcg_mpi_solver_tpu_torch.ops.stress import nodal_export_fields
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
 from pcg_mpi_solver_tpu_torch.parallel.hybrid import (
-    HybridOps, can_hybrid, device_data_hybrid, partition_hybrid)
-from pcg_mpi_solver_tpu_torch.parallel.partition import (
-    GRAPH_ITEM, partition_model)
+    HybridOps, can_hybrid, device_data_hybrid, partition_env_knobs,
+    partition_hybrid)
+from pcg_mpi_solver_tpu_torch.parallel.partition import partition_model
 from pcg_mpi_solver_tpu_torch.parallel.structured import (
     StructuredOps, device_data_structured, partition_structured)
 from pcg_mpi_solver_tpu_torch.resilience import (
@@ -103,6 +113,12 @@ from pcg_mpi_solver_tpu_torch.validate import (
     PreflightError, check_rhs_block, run_mg_preflight)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """'float64' for torch.float64: the dtype as the JAX package's cache
+    keys spell it."""
+    return str(dtype).removeprefix("torch.")
 
 
 @dataclasses.dataclass
@@ -186,7 +202,7 @@ UNPORTED = {
     ("solver", "trace_resid"): 14,
     ("run", "setup_shard"): 12,
     **{("run", f): 14 for f in (
-        "preflight", "cache_dir", "telemetry_path", "flight_path",
+        "preflight", "telemetry_path", "flight_path",
         "telemetry_profile", "profile_dir", "comm_probe_iters")},
 }
 # The JAX package's calc vs comm-wait split (``measure_comm_split``) of a
@@ -218,10 +234,6 @@ def check_slice(config: RunConfig) -> None:
             f"pallas={sc.pallas!r}: the port has no XLA path and no "
             f"interpreter; it always runs its CUDA kernels on the card and "
             f"their plain version on the CPU ('auto' or 'on')")
-    if config.partition_method == "graph":
-        raise NotImplementedError(
-            f"partition_method='graph' needs the native graph partitioner "
-            f"(ROADMAP queue 1 item {GRAPH_ITEM})")
 
 
 BACKENDS = ("auto", "structured", "hybrid", "general")
@@ -373,17 +385,48 @@ class Solver(LadderPieces):
             knob = hybrid_f64_refresh()
             if self.mixed and knob != "stencil":
                 self.f64_refresh = knob
+        # ---- the partition cache (cache/): with RunConfig.cache_dir set,
+        # the partitions, the mg hierarchy and the mg fine bound come from
+        # the content-addressed on-disk cache; the model fingerprint is
+        # the content half of every key.  The counters' baseline is this
+        # construction's: a recorder may carry earlier solvers' hits.
+        self._cache_dir = (self.config.cache_dir or "").strip() or None
+        self._model_fp = None
+        self._partition_cache_id = None
+        self._cache_hm0 = (self._rec.counters.get("cache.partition.hit", 0),
+                           self._rec.counters.get("cache.partition.miss", 0))
+        if self._cache_dir:
+            with self._rec.span("cache_fingerprint"):
+                self._model_fp = model_fingerprint(model)
+            self._rec.gauge("cache.dir", self._cache_dir)
+        # seconds spent building partitions (cold builds only, as the JAX
+        # package counts them: the main partition and the refresh's)
+        self.partition_build_s = 0.0
         t_part = time.perf_counter()
         mg_degree = int(sc.mg_smooth_degree)
+        method = self.config.partition_method
         if general:
-            self.pm = partition_model(model, n_parts, elem_part=elem_part,
-                                      method=self.config.partition_method)
+            self.pm = self._partition_cached(
+                "general",
+                lambda: partition_model(model, n_parts, elem_part=elem_part,
+                                        method=method),
+                n_parts=n_parts, method=method, elem_part=elem_part,
+                # the JAX package keys the two-level split's slab count
+                # (one slab a process: 1 here)
+                extra={"slab2_slabs": 1} if method == "slab2" else None)
         elif hybrid:
-            self.pm = partition_hybrid(model, n_parts, elem_part=elem_part,
-                                       method=self.config.partition_method)
+            self.pm = self._partition_cached(
+                "hybrid",
+                lambda: partition_hybrid(model, n_parts, elem_part=elem_part,
+                                         method=method),
+                n_parts=n_parts, method=method, elem_part=elem_part,
+                extra=partition_env_knobs())
         else:
-            self.pm = partition_structured(model, n_parts)
-        self.partition_build_s = time.perf_counter() - t_part
+            self.pm = self._partition_cached(
+                "structured", lambda: partition_structured(model, n_parts),
+                n_parts=n_parts)
+        # wall of the main partition: its build, or its load when warm
+        self.partition_s = time.perf_counter() - t_part
         # the refresh's full general partition (hybrid, mixed)
         self.refresh_partition_s = 0.0
         pm_full = None
@@ -420,10 +463,7 @@ class Solver(LadderPieces):
         self.mg_setup = None
         if sc.precond == "mg":
             t_mg = time.perf_counter()
-            self.mg_setup = mgmod.build_mg_host(
-                model, self.pm, n_levels=int(sc.mg_levels),
-                degree=mg_degree,
-                max_replicated_dofs=int(sc.mg_max_replicated_dofs))
+            self.mg_setup = self._build_mg_cached(model, sc)
             self.data["mg"] = mgmod.tree_from_numpy(
                 self.mg_setup.tree, self.dtype, self.device)
             self.mg_setup_s = time.perf_counter() - t_mg
@@ -446,7 +486,7 @@ class Solver(LadderPieces):
             # the uploaded storage-dtype operator, installed with the
             # coarse bounds into every tree
             t_lam = time.perf_counter()
-            lam_fine = mgmod.estimate_fine_lam(self.ops, self.data)
+            lam_fine = self._fine_lam_cached()
             self.mg_lam = mgmod.install_lam(
                 self.mg_setup, lam_fine,
                 [self.data] + ([self.data32] if self.mixed else []))
@@ -497,7 +537,93 @@ class Solver(LadderPieces):
         self._export_times: List[float] = []
         self._export_wall = 0.0
         self._probe_u: List[np.ndarray] = []
+        # setup attribution: wall from construction to ready-to-step, and
+        # whether the cached entries came warm (every one a hit) or cold
         self.setup_s = time.perf_counter() - t0
+        hits = self._rec.counters.get("cache.partition.hit", 0) \
+            - self._cache_hm0[0]
+        miss = self._rec.counters.get("cache.partition.miss", 0) \
+            - self._cache_hm0[1]
+        self.setup_cache = ("off" if not self._cache_dir
+                            else "warm" if hits and not miss else "cold")
+        self._rec.gauge("setup_s", round(self.setup_s, 3))
+        self._rec.gauge("setup.cache", self.setup_cache)
+        self._rec.gauge("setup.partition_build_s",
+                        round(self.partition_build_s, 3))
+
+    def _partition_cached(self, label: str, build: Callable, *,
+                          n_parts: int, method: str = "n/a",
+                          elem_part=None, extra=None):
+        """A partition from the cache under the JAX package's monolithic
+        key (``driver.py:1019-1066``), else ``build()``, timed into
+        ``partition_build_s``.  The key covers the model's content,
+        n_parts, backend, dtype, the method ('auto' resolved to whether
+        the native partitioner is on), an explicit elem_part's hash and
+        the backend's layout knobs.  The entry's key is the partition's
+        identity for entries derived from it (the mg hierarchy)."""
+        def timed_build():
+            t0 = time.perf_counter()
+            with self._rec.span("partition_build"):
+                pm = build()
+            self.partition_build_s += time.perf_counter() - t0
+            return pm
+
+        if not self._cache_dir:
+            return timed_build()
+        extra = dict(extra or {})
+        if method == "auto" and elem_part is None:
+            # the resolved choice keys the entry, not the knob
+            extra["native"] = bool(native.available())
+        key = partition_cache_key(
+            self._model_fp, n_parts=int(n_parts), backend=label,
+            dtype=_dtype_name(self.dtype), method=method,
+            elem_part_hash=(cache_array_hash(elem_part)
+                            if elem_part is not None else None),
+            extra=extra)
+        self._partition_cache_id = key
+        return cached_partition(self._cache_dir, key, timed_build,
+                                recorder=self._rec, label=label)
+
+    def _build_mg_cached(self, model: ModelData, sc: SolverConfig):
+        """The host mg hierarchy, from the cache when a cache dir is set
+        (the JAX package's ``_build_mg_cached``, under one monolithic
+        key): the levels, degree and replication cutoff key it, and so
+        does the partition's identity (the fine transfers are laid out in
+        its node order)."""
+        def build():
+            return mgmod.build_mg_host(
+                model, self.pm, n_levels=int(sc.mg_levels),
+                degree=int(sc.mg_smooth_degree),
+                max_replicated_dofs=int(sc.mg_max_replicated_dofs))
+
+        if not self._cache_dir:
+            return build()
+        key = partition_cache_key(
+            self._model_fp, n_parts=int(self.pm.n_parts),
+            backend=f"mg-{self.backend}", dtype=_dtype_name(self.dtype),
+            extra={"levels": int(sc.mg_levels),
+                   "degree": int(sc.mg_smooth_degree),
+                   "max_replicated_dofs": int(sc.mg_max_replicated_dofs),
+                   "partition": self._partition_cache_id})
+        return cached_partition(self._cache_dir, key, build,
+                                recorder=self._rec, label="mg")
+
+    def _fine_lam_cached(self) -> float:
+        """The fine level's Chebyshev bound (power-iteration matvecs on
+        the uploaded operator), from the cache when a cache dir is set:
+        keyed by the hierarchy's meta and the iteration count, as the JAX
+        package keys it."""
+        if not self._cache_dir:
+            return mgmod.estimate_fine_lam(self.ops, self.data)
+        key = partition_cache_key(
+            self._model_fp, n_parts=int(self.pm.n_parts),
+            backend=f"mglam-{self.backend}", dtype=_dtype_name(self.dtype),
+            extra=dict(self.mg_setup.meta, iters=mgmod.MG_POWER_ITERS))
+        entry = cached_partition(
+            self._cache_dir, key,
+            lambda: {"lam": mgmod.estimate_fine_lam(self.ops, self.data)},
+            recorder=self._rec, label="mg_lam")
+        return float(entry["lam"])
 
     def reset_state(self) -> None:
         """Zero the solution (the state before the first step)."""
@@ -508,8 +634,10 @@ class Solver(LadderPieces):
         """The full general partition a hybrid solve's float64 refresh
         runs on, on the hybrid partition's element map (so the same local
         numbering, checked)."""
-        pm_full = partition_model(model, n_parts,
-                                  elem_part=self.pm.elem_part)
+        ep = np.asarray(self.pm.elem_part)
+        pm_full = self._partition_cached(
+            "general", lambda: partition_model(model, n_parts, elem_part=ep),
+            n_parts=n_parts, method="explicit", elem_part=ep)
         if not (pm_full.n_loc == self.pm.n_loc
                 and np.array_equal(pm_full.node_gid, self.pm.node_gid)):
             raise RuntimeError(

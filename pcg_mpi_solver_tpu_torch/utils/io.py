@@ -76,10 +76,12 @@ def write_atomic(filename: str, blob) -> None:
         raise
 
 
-def exportz_atomic(filename: str, data) -> None:
-    """``exportz`` published via :func:`write_atomic`."""
-    write_atomic(filename,
-                 zlib.compress(pickle.dumps(data, pickle.HIGHEST_PROTOCOL)))
+def exportz_atomic(filename: str, data, level: int = -1) -> None:
+    """``exportz`` published via :func:`write_atomic`, at zlib ``level``
+    (-1: zlib's default; 0 stores without compressing; :func:`importz`
+    reads every level)."""
+    write_atomic(filename, zlib.compress(
+        pickle.dumps(data, pickle.HIGHEST_PROTOCOL), level))
 
 
 class RunStore:

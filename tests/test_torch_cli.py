@@ -169,9 +169,7 @@ def test_unported_subcommands_name_their_item(cmd):
 
 @pytest.mark.parametrize("argv,item", [
     (["solve", "sc", "1", "--resume-elastic"], 12),
-    (["partition", "{scratch}", "2", "--method", "graph"], 15),
     (["solve", "{scratch}", "1", "--telemetry-out", "t.jsonl"], 14),
-    (["solve", "{scratch}", "1", "--cache-dir", "c"], 14),
     (["solve", "{scratch}", "1", "--trace-resid", "8"], 14),
 ])
 def test_unported_flags_name_their_item(tmp_path, argv, item):
@@ -180,7 +178,7 @@ def test_unported_flags_name_their_item(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
         main([a.format(scratch=scratch) for a in argv] + (
             CPU if argv[0] == "solve" else []))
-    assert len(REFUSED) == 15 and set(REFUSED.values()) == {1, 14}
+    assert len(REFUSED) == 14 and set(REFUSED.values()) == {1, 14}
 
 
 DYN_CUBE = dict(E=100.0, nu=0.25, rho=1.0, load="traction", load_value=1.0,

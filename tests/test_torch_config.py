@@ -57,7 +57,7 @@ def changed(section, field, value):
 
 # a non-default value for each unported field
 OTHER = {"trace_resid": 64, "setup_shard": "off",
-         "preflight": "off", "cache_dir": "cache",
+         "preflight": "off",
          "telemetry_path": "t.jsonl", "flight_path": "f.jsonl",
          "telemetry_profile": True, "profile_dir": "prof",
          "comm_probe_iters": 0}
@@ -82,7 +82,6 @@ def test_unported_field_raises_with_its_item(key, item):
 @pytest.mark.parametrize("section,field,value,match", [
     ("solver", "pallas", "off", "no XLA path"),
     ("solver", "pallas", "interpret", "no XLA path"),
-    ("run", "partition_method", "graph", "item 15"),
 ])
 def test_other_unported_values_raise(section, field, value, match):
     with pytest.raises(NotImplementedError, match=match):

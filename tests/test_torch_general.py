@@ -22,8 +22,9 @@ Windows:
   x within 1e-5; block3, fused and pipelined one case each; two parts
   against one at +-1; the glued blocks (mixed) and Poisson (direct);
   ``solve_many`` columns against the JAX package's.
-- The backend choice as the JAX Solver makes it, and the refusal of the
-  graph partitioner (ROADMAP queue 1 item 15); the hybrid backend is
+- The backend choice as the JAX Solver makes it (a solve on the native
+  graph partition is ``tests/test_torch_native.py``); the hybrid
+  backend is
   ``tests/test_torch_hybrid_solver.py``, mg on the general backend
   ``tests/test_torch_mg_general.py``.
 """
@@ -297,12 +298,3 @@ def test_backend_choice_follows_jax():
     with pytest.raises(ValueError, match="backend must be"):
         Solver(cube, cfg, device="cpu", backend="slab")
 
-
-@pytest.mark.parametrize("case,item", [("graph", 15)])
-def test_general_refusals_name_their_items(case, item):
-    args, kw = OCTREE
-    octree = make_octree_model(*args, **kw)
-    cfg = RunConfig(partition_method="graph")
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP queue 1 item {item}\b"):
-        Solver(octree, cfg, device="cpu")

@@ -44,6 +44,10 @@ EXPORT_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
 TIME_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.solver.{m}" for m in (
     "backends", "dynamics", "newmark"))
 
+# the native host library's binding and the partition cache
+NATIVE_CACHE_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
+    "native", "cache", "cache.keys", "cache.partition_cache"))
+
 # what a spawned VTK export worker imports (vtk/export.py's pool): numpy
 # only, so a worker never loads torch or initialises CUDA
 WORKER_PROBE = r"""
@@ -73,6 +77,7 @@ def test_port_imports_no_jax():
     assert set(HYBRID_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(EXPORT_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(TIME_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(NATIVE_CACHE_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
 
 

@@ -4,8 +4,10 @@ package's: ``make_octree_model``, ``make_glued_blocks_model``,
 and ``partition_model`` array by array (every ``TypeBlock``, the
 ``PartitionedModel`` and its ``PartitionLayout``), under rcb at one, two
 and three parts, slab2 and an explicit ``elem_part``; the
-``partition_from_numpy`` round trip; and the partition arguments the
-port refuses, each naming its ROADMAP queue 1 item.  Tolerance: none —
+``partition_from_numpy`` round trip; ``partition_model`` and
+``partition_hybrid`` on the native graph partition (``"graph"``, and
+``"auto"``, which takes it) at 2 and 8 parts; and the partition
+arguments the port refuses, each naming its ROADMAP queue 1 item.  Tolerance: none —
 equal bytes, equal dtypes."""
 
 import dataclasses
@@ -17,6 +19,8 @@ from pcg_mpi_solver_tpu.models.octree import make_octree_model as jax_octree
 from pcg_mpi_solver_tpu.models.synthetic import (
     make_cube_model as jax_cube, make_glued_blocks_model as jax_glued,
     make_poisson_model as jax_poisson)
+from pcg_mpi_solver_tpu.parallel.hybrid import (
+    partition_hybrid as jax_partition_hybrid)
 from pcg_mpi_solver_tpu.parallel.partition import (
     partition_model as jax_partition, slab_local_parts as jax_slab_parts,
     two_level_partition as jax_two_level)
@@ -25,8 +29,9 @@ from pcg_mpi_solver_tpu_torch.models import (
     make_poisson_model)
 from pcg_mpi_solver_tpu_torch.parallel import (
     PartitionedModel, partition_from_numpy, partition_model)
+from pcg_mpi_solver_tpu_torch.parallel.hybrid import partition_hybrid
 from pcg_mpi_solver_tpu_torch.parallel.partition import (
-    GRAPH_ITEM, make_elem_part, slab_local_parts, two_level_partition)
+    make_elem_part, slab_local_parts, two_level_partition)
 
 # name -> (JAX generator, port generator, args, kwargs)
 MODELS = {
@@ -109,6 +114,39 @@ def test_partition_model_bitwise(name, n_parts, method):
     assert_same(pt, pj, f"{name}/{n_parts}/{method}")
 
 
+@pytest.mark.parametrize("n_parts", [2, 8])
+@pytest.mark.parametrize("name,method", [("octree_l3", "graph"),
+                                         ("poisson", "graph"),
+                                         ("octree_l2", "auto")])
+def test_graph_partition_model_bitwise(monkeypatch, name, method, n_parts):
+    """The native dual-graph partition (``"auto"`` takes it when the
+    library loads) through the whole build, array for array."""
+    monkeypatch.delenv("PCG_TPU_NO_NATIVE", raising=False)
+    mj, mt = build(name)
+    pj = jax_partition(mj, n_parts, method=method)
+    pt = partition_model(mt, n_parts, method=method)
+    assert_same(pt, pj, f"{name}/{n_parts}/{method}")
+    assert len(np.unique(pt.elem_part)) == n_parts
+
+
+@pytest.mark.parametrize("n_parts", [2, 8])
+def test_graph_partition_hybrid_bitwise(monkeypatch, n_parts):
+    """``partition_hybrid`` under ``"graph"``: every level grid, the
+    combine maps and the transition partition, array for array."""
+    monkeypatch.delenv("PCG_TPU_NO_NATIVE", raising=False)
+    for k in ("PCG_TPU_HYBRID_BLOCK", "PCG_TPU_HYBRID_MERGE",
+              "PCG_TPU_HYBRID_KD", "PCG_TPU_HYBRID_COMBINE"):
+        monkeypatch.delenv(k, raising=False)
+    mj, mt = build("octree_l3")
+    hj = jax_partition_hybrid(mj, n_parts, method="graph")
+    ht = partition_hybrid(mt, n_parts, method="graph")
+    assert len(ht.levels) == len(hj.levels) >= 1
+    for i, (lt, lj) in enumerate(zip(ht.levels, hj.levels)):
+        assert_same(lt, lj, f"graph/{n_parts}/level{i}")
+    assert_same(ht.combine, hj.combine, f"graph/{n_parts}/combine")
+    assert_same(ht.pm, hj.pm, f"graph/{n_parts}/pm")
+
+
 def test_partition_with_explicit_elem_part_bitwise():
     mj, mt = build("octree_l3")
     ep = (np.arange(mt.n_elem) * 7 % 3).astype(np.int32)
@@ -136,8 +174,6 @@ def test_partition_from_numpy_round_trip():
     (dict(part_range=(0, 1)), 12),
     (dict(comm=object()), 12),
     (dict(layout=object()), 12),
-    (dict(method="graph"), GRAPH_ITEM),
-    (dict(method="auto"), GRAPH_ITEM),
 ])
 def test_partition_refusals_name_their_items(kw, item):
     _mj, mt = build("octree_l2")

@@ -137,7 +137,6 @@ def _refuse(where):
         "part_range": lambda: partition_model(octree, 2, part_range=(0, 1)),
         "comm": lambda: partition_model(octree, 2, comm=object()),
         "layout": lambda: partition_model(octree, 2, layout=object()),
-        "graph": lambda: partition_model(octree, 2, method="graph"),
     }
     with pytest.raises(NotImplementedError) as err:
         calls[where]()
@@ -149,13 +148,11 @@ def _refuse(where):
     ("part_range", [r"ROADMAP queue 1 item 12\b"]),
     ("comm", [r"ROADMAP queue 1 item 12\b"]),
     ("layout", [r"ROADMAP queue 1 item 12\b"]),
-    ("graph", [r"graph partitioner.*ROADMAP queue 1 item 15\b"]),
 ])
 def test_module_refusals_name_their_queue_items(where, items):
     """Each refusal inside the port's modules (outside solver/driver.py's
     option refusals, which tests/test_torch_config.py checks) names the
-    ROADMAP queue 1 item that owns what it refuses: sharding 12, the
-    native graph partitioner 15."""
+    ROADMAP queue 1 item that owns what it refuses: sharding 12."""
     text = " ".join(_refuse(where).split())
     for item in items:
         assert re.search(item, text), (where, text)

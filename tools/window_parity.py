@@ -8,8 +8,10 @@ classic, tol 1e-7, one part, on the chunked path at cap ``--cap``
     python tools/window_parity.py [n] [--plateau W] [--progress W]
         [--cap C]
 
-Prints each package's flag, iterations, relres and seconds, and the
-port's refinement cycles (inner flag, iterations).  Needs JAX (the port
+Prints each package's flag, iterations, relres and seconds, the port's
+refinement cycles (inner flag, iterations), and the JAX Solver's
+dispatch counters (``refine`` calls = its refinement cycles,
+``inner_cycle`` calls).  Needs JAX (the port
 does not); at n = 96 each package takes about four minutes.
 """
 
@@ -59,7 +61,9 @@ def main() -> None:
                    mesh=make_mesh(1), n_parts=1)
     r = js.step(1.0)
     print(f"jax: flag {int(r.flag)}, iterations {int(r.iters)}, relres "
-          f"{float(r.relres):.4e}, {time.perf_counter() - t0:.1f} s")
+          f"{float(r.relres):.4e}, {time.perf_counter() - t0:.1f} s; "
+          f"dispatch counters "
+          f"{ {k: v for k, v in js.recorder.counters.items() if k.startswith('dispatch.')} }")
 
 
 if __name__ == "__main__":
