@@ -454,8 +454,7 @@ CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # built once, in child processes started with the run: the flagship's
 # host build (over a minute) overlaps phases 3 and 4e's cube instead of
 # holding the card idle.  Every phase shares the one object of each (a
-# Solver reads a model and never writes it).  ``OCTREES`` is None when the
-# phases are driven without ``main`` (they then build in process).
+# Solver reads a model and never writes it).
 _OCTREE_CHILD = r"""
 import json, os, pickle, sys, time
 from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
@@ -514,23 +513,6 @@ class OctreeModels:
                 if os.path.exists(p):
                     os.remove(p)
         self.procs = {}
-
-
-OCTREES = None
-
-
-def octree_model(n):
-    """(the n^3 octree of ``OCTREE_FLAGSHIP``'s arguments, its build
-    seconds, seconds waited for it): from ``OCTREES``, else built here."""
-    if OCTREES is not None:
-        return OCTREES.get(n)
-    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
-
-    kw = dict(OCTREE_FLAGSHIP)
-    kw.pop("n")
-    t0 = time.perf_counter()
-    model = make_octree_model(n, n, n, **kw)
-    return model, time.perf_counter() - t0, 0.0
 
 
 def say(msg: str) -> None:
@@ -1027,6 +1009,13 @@ class _Events:
     def rungs(self):
         return [(e["action"], e["trigger"]) for e in self.events
                 if e["kind"] == "recovery"]
+
+    def cache_wall(self, label):
+        """Seconds the partition cache spent on its ``label`` entries: the
+        load when warm, the build and store when cold."""
+        return sum(e["wall_s"] for e in self.events
+                   if e["kind"] == "cache"
+                   and e["name"] == f"partition.{label}")
 
 
 def faulted_flagship(torch, np, model, cfg, clean):
@@ -1922,7 +1911,7 @@ def _bucket_stats(pm, bucket_values):
         real / 1e9
 
 
-def phase_general(torch, np, cube_model):
+def phase_general(torch, np, cube_model, octrees):
     """Phase 4e: the general (pattern-type) backend on the card, run
     before phase 4 (no profiler window has run yet: one slows every solve
     after it, PERF.md).
@@ -1969,7 +1958,7 @@ def phase_general(torch, np, cube_model):
     # 2. the octree flagship
     kw = dict(OCTREE_FLAGSHIP)
     n = kw.pop("n")
-    model, build_s, wait_s = octree_model(n)
+    model, build_s, wait_s = octrees.get(n)
     say(f"octree {n}^3/L{kw['max_level']}: {model.n_dof} dofs, "
         f"{model.n_elem} elements, {len(model.elem_lib)} pattern types; "
         f"model build {build_s:.2f} s (in a child process beside phases 3 "
@@ -2019,7 +2008,7 @@ def phase_general(torch, np, cube_model):
 
     # 4. the 6^3 octree against the JAX package's count
     n6 = OCTREE_PARITY_N
-    s6 = Solver(octree_model(n6)[0], cfg)
+    s6 = Solver(octrees.get(n6)[0], cfg)
     res6, _ms6, _cyc6 = _general_solve(
         torch, np, s6, f"octree {n6}^3",
         OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
@@ -2034,12 +2023,13 @@ def phase_general(torch, np, cube_model):
 
     # 5. mg on the octree lattices: the flagship octree and the 6^3 one
     octree_mg = phase_general_mg(torch, np, model, n, solver, res_j, ms_j,
-                                 bar)
+                                 bar, octrees)
     return dict(cube_ms=cube_ms, octree=solver, n=n, octree_mg=octree_mg,
                 model=model, res=res_j, ms=ms_j)
 
 
-def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar):
+def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar,
+                     octrees):
     """Phase 4e, its mg part: the octree flagship under precond="mg"
     (mixed, classic, auto backend -> general; the hierarchy from the
     octree lattice): lattice and level dims, replicated dofs, the
@@ -2048,6 +2038,7 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar):
     the 6^3 octree under mg within max(3, 5 %) of the JAX package's
     count.  Returns the flagship's mg Solver (profiled after phase 4d)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
     from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
     from pcg_mpi_solver_tpu_torch.solver import Solver
 
@@ -2055,7 +2046,8 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar):
                     solver=SolverConfig(tol=1e-7, precision_mode="mixed",
                                         precond="mg"))
     t0 = time.perf_counter()
-    smg = Solver(model, cfg)
+    ev = _Events()
+    smg = Solver(model, cfg, recorder=MetricsRecorder(sinks=[ev]))
     build = time.perf_counter() - t0
     dims = tuple(smg.mg_setup.meta["dims"])
     levels = [tuple(lev["ck"].shape) for lev in smg.mg_setup.tree["levels"]]
@@ -2065,7 +2057,7 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar):
         f"({rep_dofs / model.n_dof:.2f}x the fine mesh's {model.n_dof}); "
         f"hierarchy host {smg.mg_setup_s:.2f} s, fine bound "
         f"{smg.mg_lam_s:.2f} s (lam {smg.mg_lam[0]:.4e}), partition "
-        f"{smg.partition_s:.2f} s ({smg.setup_cache} cache: the "
+        f"{ev.cache_wall('general'):.2f} s ({smg.setup_cache} cache: the "
         f"partition from jacobi's entry), upload {smg.upload_s:.2f} s, "
         f"Solver {build:.2f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -2083,7 +2075,7 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar):
         raise AssertionError(f"octree mg: solution differs from jacobi's by "
                              f"{du:.3e} of max|u|")
     n6 = OCTREE_PARITY_N
-    s6 = Solver(octree_model(n6)[0], cfg)
+    s6 = Solver(octrees.get(n6)[0], cfg)
     res6, _ms6, _cyc6 = _general_solve(
         torch, np, s6, f"octree {n6}^3 mg",
         OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
@@ -2251,7 +2243,7 @@ def _hybrid_solve(torch, np, solver, tag, bar):
     return res, ms, cycles, counts
 
 
-def phase_hybrid(torch, np, general, rates):
+def phase_hybrid(torch, np, general, rates, octrees):
     """Phase 4h: the hybrid level-grid backend on 4e's 22^3/L4 octree
     model (mixed, jacobi, classic, tol 1e-7, one part), before any
     profiler window:
@@ -2283,8 +2275,8 @@ def phase_hybrid(torch, np, general, rates):
     s = Solver(model, cfg, backend="hybrid")
     build = time.perf_counter() - t0
     hp = s.pm
-    say(f"hybrid octree {n}^3: partition_hybrid {s.partition_s:.2f} "
-        f"s")
+    say(f"hybrid octree {n}^3: partition_hybrid "
+        f"{s.partition_build_s - s.refresh_partition_s:.2f} s")
     say(f"hybrid octree {n}^3: refresh partition ({s.f64_refresh}) "
         f"{s.refresh_partition_s:.2f} s")
     say(f"hybrid octree {n}^3: upload {s.upload_s:.2f} s (Solver "
@@ -2372,7 +2364,7 @@ def phase_hybrid(torch, np, general, rates):
 
     # 4. the 6^3 octree
     n6 = OCTREE_PARITY_N
-    s6 = Solver(octree_model(n6)[0], cfg, backend="hybrid")
+    s6 = Solver(octrees.get(n6)[0], cfg, backend="hybrid")
     say(f"hybrid octree {n6}^3 levels: "
         f"{[(lv.size, lv.nb, (lv.bx, lv.by, lv.bz)) for lv in s6.pm.levels]}")
     _hybrid_kernel_checks(torch, np, s6, f"hybrid octree {n6}^3", rates)
@@ -2491,7 +2483,7 @@ def _explicit_run(torch, np, solver, tag, n_steps, export_every):
     return res, counts, wall
 
 
-def phase_time(torch, np, general):
+def phase_time(torch, np, general, octrees):
     """Phase 4j: the time integrators on 4e's 22^3/L4 octree model object,
     right after phase 4h, before any profiler window:
     1. Newmark (mixed, jacobi, classic, tol 1e-7, dt = 50 x stable_dt,
@@ -2606,7 +2598,7 @@ def phase_time(torch, np, general):
     # 3. the 6^3 octree: float64 hybrid against general, the v6 double
     # kernel on its level batches
     n6 = OCTREE_PARITY_N
-    m6 = octree_model(n6)[0]
+    m6 = octrees.get(n6)[0]
     dt6 = stable_dt(m6)
     u6 = {}
     for backend in ("general", "hybrid"):
@@ -2698,7 +2690,7 @@ def _same_arrays(np, a, b, where):
         raise AssertionError(f"{where}: {a!r} != {b!r}")
 
 
-def phase_graph_cache(torch, np, general):
+def phase_graph_cache(torch, np, general, octrees):
     """Phase 4k, the native graph partitioner and the partition cache, on
     4e's 22^3/L4 octree model object:
     1. a general mixed Solver (jacobi, classic, tol 1e-7) at
@@ -2720,6 +2712,7 @@ def phase_graph_cache(torch, np, general):
     Returns the slab kernels' launch counts over step 3 (the only step
     that launches them)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig, native
+    from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
     from pcg_mpi_solver_tpu_torch.parallel.partition import rcb_partition
     from pcg_mpi_solver_tpu_torch.solver import Solver
 
@@ -2745,7 +2738,9 @@ def phase_graph_cache(torch, np, general):
     native.part_mesh_dual = timed_pmd
     try:
         t0 = time.perf_counter()
-        cold = Solver(model, cfg, n_parts=P)
+        ev_c = _Events()
+        cold = Solver(model, cfg, n_parts=P,
+                      recorder=MetricsRecorder(sinks=[ev_c]))
         cold_s = time.perf_counter() - t0
     finally:
         native.part_mesh_dual = part_mesh_dual
@@ -2790,12 +2785,14 @@ def phase_graph_cache(torch, np, general):
 
     # 2. warm
     t0 = time.perf_counter()
-    warm = Solver(model, cfg, n_parts=P)
+    ev_w = _Events()
+    warm = Solver(model, cfg, n_parts=P,
+                  recorder=MetricsRecorder(sinks=[ev_w]))
     warm_s = time.perf_counter() - t0
     say(f"graph octree {n}^3 at {P} parts: setup cache cold "
         f"{cold.setup_cache}, then {warm.setup_cache}; warm partition load "
-        f"{warm.partition_s:.2f} s (cold build + store "
-        f"{cold.partition_s:.2f} s), warm Solver {warm_s:.2f} s (cold "
+        f"{ev_w.cache_wall('general'):.2f} s (cold build + store "
+        f"{ev_c.cache_wall('general'):.2f} s), warm Solver {warm_s:.2f} s (cold "
         f"{cold_s:.2f} s)")
     if (cold.setup_cache, warm.setup_cache) != ("cold", "warm") \
             or warm.partition_build_s != 0.0:
@@ -2819,7 +2816,7 @@ def phase_graph_cache(torch, np, general):
     # 3. the 6^3 octree on the hybrid backend at 8 parts
     n6 = OCTREE_PARITY_N
     t0 = time.perf_counter()
-    s6 = Solver(octree_model(n6)[0],
+    s6 = Solver(octrees.get(n6)[0],
                 dataclasses.replace(cfg, cache_dir=""), n_parts=P,
                 backend="hybrid")
     ep6 = np.ascontiguousarray(s6.pm.elem_part)
@@ -3557,15 +3554,14 @@ def main() -> int:
                 say(f"build: {name}: {line.strip()}")
 
     # the octree models, built beside phases 3 and 4e's cube
-    global OCTREES
-    OCTREES = OctreeModels((OCTREE_FLAGSHIP["n"], OCTREE_PARITY_N))
+    octrees = OctreeModels((OCTREE_FLAGSHIP["n"], OCTREE_PARITY_N))
     try:
-        return _phases(torch, np, kind, smi, rates, t_start)
+        return _phases(torch, np, kind, smi, rates, t_start, octrees)
     finally:
-        OCTREES.close()
+        octrees.close()
 
 
-def _phases(torch, np, kind, smi, rates, t_start) -> int:
+def _phases(torch, np, kind, smi, rates, t_start, octrees) -> int:
     """Phases 3 to 5 and the closing records (see the module docstring)."""
     clock = [time.perf_counter()]
 
@@ -3589,20 +3585,20 @@ def _phases(torch, np, kind, smi, rates, t_start) -> int:
     # octree flagship, before any profiler window; its octree Solvers
     # start the scratch partition cache cold
     shutil.rmtree(CACHE_DIR, ignore_errors=True)
-    general = phase_general(torch, np, flagship_model)
+    general = phase_general(torch, np, flagship_model, octrees)
     lap("4e general")
     # 4h. the hybrid level-grid backend on 4e's octree model, before any
     # profiler window
-    hybrid = phase_hybrid(torch, np, general, rates)
+    hybrid = phase_hybrid(torch, np, general, rates, octrees)
     general["hybrid"] = hybrid["solver"]
     lap("4h hybrid")
     # 4j. the time integrators on 4e's octree model, before any profiler
     # window
-    time_launches = phase_time(torch, np, general)
+    time_launches = phase_time(torch, np, general, octrees)
     lap("4j time")
     # 4k. the native graph partition and the partition cache on 4e's
     # octree model and Solvers, then the scratch cache goes
-    graph_launches = phase_graph_cache(torch, np, general)
+    graph_launches = phase_graph_cache(torch, np, general, octrees)
     del general["model"]
     shutil.rmtree(CACHE_DIR, ignore_errors=True)
     lap("4k graph cache")

@@ -7,7 +7,8 @@ hierarchy and the mg fine bound, each under one monolithic key.
 
 * ``keys``            — content-addressed keys: model fingerprint +
                         (n_parts, backend, dtype, partition knobs),
-                        versioned by ``CACHE_SCHEMA``, the port's
+                        versioned by a hash of the code that shapes an
+                        entry, ``CACHE_SCHEMA``, the port's
                         ``__version__`` and its package name (so a cache
                         directory shared with the JAX package never hands
                         one package the other's pickles).

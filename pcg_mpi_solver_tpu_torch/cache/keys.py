@@ -2,10 +2,12 @@
 
 A cache entry is valid iff everything that shaped its content hashes the
 same: the model bundle, the partition and solver knobs, and the code
-that produced it.  The last part is covered by ``CACHE_SCHEMA`` (bumped
-on any change of what an entry holds or how it is serialized), the
-port's ``__version__`` and its package name in every key.  The package
-name keeps the port's entries apart from the JAX package's in a shared
+that produced it.  The last part is covered by a sha256 of the sources
+that shape an entry (``CODE_SOURCES``, read as ``native.library_path``
+reads its own), ``CACHE_SCHEMA`` (bumped on any change of how an entry
+is serialized), the port's ``__version__`` and its package name in
+every key: a cache directory shared across commits never hands code an
+entry that other code built.  The package name keeps the port's entries apart from the JAX package's in a shared
 directory: each package pickles its own classes, and a JAX entry loaded
 here would import JAX.
 
@@ -20,15 +22,17 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
 
 from pcg_mpi_solver_tpu_torch import __version__
 
-# The port's own schema counter.  Bump on ANY change to what entries
-# contain or how they are serialized; additive key fields need no bump
-# (they change the key hash by themselves).
+# The port's own schema counter.  Bump on any change to how entries are
+# serialized (a change of the code that builds them changes
+# ``code_hash``); additive key fields need no bump (they change the key
+# hash by themselves).
 CACHE_SCHEMA = 1
 
 # the package whose classes an entry pickles
@@ -37,6 +41,19 @@ PACKAGE = "pcg_mpi_solver_tpu_torch"
 # Monkeypatchable in tests to simulate a version bump without editing the
 # package.
 PACKAGE_VERSION = __version__
+
+_PKG = Path(__file__).resolve().parents[1]
+# The sources whose code shapes a cached entry: the partitions
+# (parallel/, the native partitioner and prep), the mg hierarchy
+# (ops/mg.py, the element stiffness it coarsens) and the mg fine bound
+# (power-iteration matvecs on the operators of ops/ and csrc/).
+CODE_SOURCES = tuple(sorted(
+    [_PKG / "models" / "element.py"]
+    + list((_PKG / "parallel").glob("*.py"))
+    + [_PKG / "ops" / f for f in ("matvec.py", "mg.py", "precond.py",
+                                  "structured_matvec.py")]
+    + list((_PKG / "native").glob("*.cpp"))
+    + list((_PKG / "csrc").glob("*.cu*"))))
 
 
 def _hash_update(h, obj: Any) -> None:
@@ -88,8 +105,18 @@ def array_hash(arr) -> str:
     return h.hexdigest()[:16]
 
 
+def code_hash() -> str:
+    """sha256 of ``CODE_SOURCES``' names and contents."""
+    h = hashlib.sha256()
+    for path in CODE_SOURCES:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
 def _digest(payload: Dict[str, Any]) -> str:
     payload = dict(payload)
+    payload["code"] = code_hash()
     payload["cache_schema"] = CACHE_SCHEMA
     payload["version"] = PACKAGE_VERSION
     payload["package"] = PACKAGE

@@ -402,7 +402,6 @@ class Solver(LadderPieces):
         # seconds spent building partitions (cold builds only, as the JAX
         # package counts them: the main partition and the refresh's)
         self.partition_build_s = 0.0
-        t_part = time.perf_counter()
         mg_degree = int(sc.mg_smooth_degree)
         method = self.config.partition_method
         if general:
@@ -425,8 +424,6 @@ class Solver(LadderPieces):
             self.pm = self._partition_cached(
                 "structured", lambda: partition_structured(model, n_parts),
                 n_parts=n_parts)
-        # wall of the main partition: its build, or its load when warm
-        self.partition_s = time.perf_counter() - t_part
         # the refresh's full general partition (hybrid, mixed)
         self.refresh_partition_s = 0.0
         pm_full = None

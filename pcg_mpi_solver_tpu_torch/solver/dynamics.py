@@ -110,6 +110,8 @@ class DynamicsSolver:
             device=self.device, backend=backend,
             kernel=dict(variant=self.kernel_variant,
                         planes=self.kernel_planes))
+        # seconds building the partition (no cache here, as in the JAX
+        # package: every build is cold, as Solver counts its cold builds)
         self.partition_build_s = time.perf_counter() - t_part
         t_up = time.perf_counter()
         pm = self.pm

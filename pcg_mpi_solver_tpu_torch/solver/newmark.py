@@ -174,6 +174,8 @@ class NewmarkSolver(LadderPieces):
             model, n_parts, partition_method=self.config.partition_method,
             device=self.device, backend=backend, kernel=kernel,
             mg_degree=mg_degree)
+        # seconds building the partition (no cache here, as in the JAX
+        # package: every build is cold, as Solver counts its cold builds)
         self.partition_build_s = time.perf_counter() - t_part
         if sc.precond == "mg" and self.backend != "general":
             raise ValueError(

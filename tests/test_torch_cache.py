@@ -95,6 +95,33 @@ def test_key_has_jax_knobs_and_each_changes_it(monkeypatch):
     assert keys.partition_cache_key("fp", **BASE) != base
 
 
+def test_key_changes_with_the_code_that_shapes_an_entry(monkeypatch,
+                                                        tmp_path):
+    """A changed source of the partition, mg or native code gives a new
+    key, so a cache directory shared across commits serves no entry that
+    other code built."""
+    names = {p.relative_to(keys._PKG).as_posix() for p in keys.CODE_SOURCES}
+    assert {"parallel/partition.py", "parallel/hybrid.py",
+            "parallel/structured.py", "ops/mg.py", "native/partition.cpp",
+            "native/prep.cpp"} <= names
+    copies = []
+    for src in keys.CODE_SOURCES:
+        dst = tmp_path / src.relative_to(keys._PKG)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(src.read_bytes())
+        copies.append(dst)
+    monkeypatch.setattr(keys, "CODE_SOURCES", tuple(copies))
+    base = keys.partition_cache_key("fp", **BASE)
+    for dst in (tmp_path / "parallel" / "partition.py",
+                tmp_path / "ops" / "mg.py",
+                tmp_path / "native" / "partition.cpp"):
+        old = dst.read_bytes()
+        dst.write_bytes(old + b"\n")
+        assert keys.partition_cache_key("fp", **BASE) != base, dst.name
+        dst.write_bytes(old)
+    assert keys.partition_cache_key("fp", **BASE) == base
+
+
 def _no_builds(monkeypatch):
     """Replace every partition function the Solver calls with one that
     raises: a warm construction must not reach them."""
