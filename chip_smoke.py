@@ -76,7 +76,7 @@ Phases (any failed check raises, so the script exits non-zero):
                 window, 20 of the mg block; two 12x6x5 blocks bitwise
                 equal;
   4e. general — the general (pattern-type) backend (mixed, jacobi,
-                classic, tol 1e-7), run right after phase 3, before any
+                classic, tol 1e-7), run right after phase 4g, before any
                 profiler window (one slows every solve after it): the
                 150^3 flagship cube through Solver(backend="general")
                 (iterations within 5 % of the JAX package's 3334, no
@@ -87,7 +87,8 @@ Phases (any failed check raises, so the script exits non-zero):
                 operator on the card against the CPU's float64 (float64
                 1e-12, float32 2e-5 of max|y|; two card matvecs bitwise
                 equal; times) and the same at two parts on a 3^3 octree;
-                the bucket groupings of ``BUCKET_VALUES_CHOICES`` timed;
+                the bucket grouping of one bucket a sign sub-type timed
+                beside the default (``BUCKET_VALUES_CHOICES``);
                 the 6^3 octree within max(3, 5 %) of the JAX package's
                 1144 iterations; then the 22^3 octree under mg (the
                 hierarchy from its 352^3 lattice: level dims, replicated
@@ -164,17 +165,20 @@ Phases (any failed check raises, so the script exits non-zero):
                 iterations times); 4e's mg Solver built again warm (the
                 hierarchy's seconds cold and warm, equal array for
                 array); then the scratch cache is removed;
-  4g. many chunked — run right after phase 4j: the chunked blocked path
+  4g. many chunked — run right after phase 3, before 4e (it needs no
+                octree, so it runs while the octree flagship's child
+                builds): the chunked blocked path
                 of ``Solver.solve_many`` on the 150^3 flagship, direct
                 float64, classic, jacobi, [F, F_y] at the auto cap: cap,
                 dispatches, per-column flag, iterations and tip, ms a
-                trip, dof*iter*rhs/s, float64 v6 launches (>= trips); the
+                trip, dof*iter*rhs/s, float64 v6 launches (>= trips);
+                then on the 48x32x32 cube's [F, F_y] at cap 100: the
                 same block one-shot (iterations equal, max|dx| <= 1e-12
                 max|x|, bitwise printed); ``nan@col:1`` (one restart of
                 column 1, column 0 bitwise the clean block's) and at
-                ``max_recoveries=0`` (column 1 quarantined, flag 5); on
-                the 48x32x32 cube a block of 3 killed at boundary 2 and
-                resumed with ``solve_many(resume=True)``, bitwise;
+                ``max_recoveries=0`` (column 1 quarantined, flag 5); a
+                block of 3 killed at boundary 2 and resumed with
+                ``solve_many(resume=True)``, bitwise;
   4i. export — run right after phase 4, on the solvers phases 4, 4e and
                 4h hold: the nodal fields D, ES, PS1-3 and PE1-3 of phase
                 4's v6 flagship solution on the card against the host
@@ -216,7 +220,28 @@ Phases (any failed check raises, so the script exits non-zero):
                 mixed jacobi; tol 1e-12) and float64 explicit dynamics on
                 the 12x6x5 cube, the card against the CPU (1e-10 of
                 max|u|; Newmark iterations +-1 a step direct, the mixed
-                totals printed with their inner cycles).
+                totals printed with their inner cycles);
+  4l. telemetry — last, after every timed solve a profiler window could
+                slow: the flagship (mixed, classic, jacobi, v6, chunked at
+                the auto cap) through two Solvers, the ring off and
+                ``trace_resid`` = ``TELEMETRY_RING`` with the JSONL sink
+                and a flight file: ms/iter of each (the pieces apart:
+                ``tools/telemetry_overhead.py``), then each solve again
+                under torch's sync debug mode (the same number of
+                synchronising calls), flag, iterations and u bitwise
+                equal, the ring holding every iteration with each inner
+                cycle's exit flag where the cycle ends; the JSONL stream
+                valid and ending with the run summary (printed), the
+                flight file clean, a child SIGKILLed inside a 48x32x32
+                dispatch leaving a died verdict with the dispatch in
+                flight; the cost model's prediction beside the phase
+                probe and the measured ms/iter; ``capture_solve_profile``
+                over ``TELEMETRY_WINDOW`` inner iterations in a fresh
+                child process (its flagship Solver built at the start;
+                a long process's trace can miss device events) read back
+                by ``obs/profview.py``: the phase split, every v6 launch
+                of the window in the trace and in matvec, the phase sum
+                plus ``other`` within 2 % of the window's device time.
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
 preconditioner solve of phase 4b, by variant solve of phase 4c, by
@@ -383,8 +408,10 @@ JAX_OCTREE6_HYBRID_ITERS = 1145
 # the general matvec on the card against the CPU's float64, x max|y|
 OPERATOR_TOL = {"float64": 1e-12, "float32": 2e-5}
 # bucket groupings (plan_buckets' cost of a bucket, in element values)
-# timed on the octree's operator; 0 = one bucket a sign sub-type
-BUCKET_VALUES_CHOICES = (0, 500_000, 2_000_000, 8_000_000)
+# timed on the octree's operator; 0 = one bucket a sign sub-type, beside
+# the default (500,000 and 8,000,000 went to make room for the telemetry
+# phase)
+BUCKET_VALUES_CHOICES = (0, 2_000_000)
 # phase 4i: the nodal export fields (the export variables D ES PS PE) and
 # their tolerance against the host float64 oracle, x max|field| (both
 # float64; the card sums in another order)
@@ -1265,12 +1292,14 @@ def phase_time_resilience(torch, np, scratch):
 def _device_rows(prof):
     """(device us, kernel name, calls) of every device-side event of a
     torch.profiler window (kernels, copies; the aten ops that launched
-    them carry the same time again), longest first."""
+    them carry the same time again, and the device lanes' copies of the
+    solver's phase ranges span them again), longest first."""
     from torch.autograd import DeviceType
 
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False):
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
@@ -3183,22 +3212,29 @@ def phase_export_cli(np, root, scratch):
     say(f"cli: {time.perf_counter() - t0:.1f} s")
 
 
+def n_disp_of(solver) -> int:
+    """The capped ``pcg_many`` calls of a solver's last chunked block."""
+    return sum(1 for e in solver.dispatch_log if e[0] == "many")
+
+
 def phase_many_chunked(torch, np, model):
-    """Phase 4g: the chunked blocked path of ``Solver.solve_many`` on the
-    150^3 flagship, direct float64, classic, jacobi, the block [F, F_y]
-    at the auto cap, each check raising:
-    1. the chunked block (cap, dispatches, per-column flag, iterations and
-       tip, ms a trip, dof*iter*rhs/s; flags 0, relres <= tol, the float64
-       v6 launches cover the trips) against the same block one-shot
-       (iterations equal, max|dx| <= 1e-12 max|x|, bitwise printed);
-    2. ``nan@col:1`` at the default ``max_recoveries``: column 1 takes one
+    """Phase 4g: the chunked blocked path of ``Solver.solve_many``,
+    direct float64, classic, jacobi, each check raising:
+    1. the 150^3 flagship's block [F, F_y] at the auto cap (cap,
+       dispatches, per-column flag, iterations and tip, ms a trip,
+       dof*iter*rhs/s; flags 0, relres <= tol, the float64 v6 launches
+       cover the trips);
+    then on the 48x32x32 cube's [F, F_y] at cap 100 (the flagship ran
+    them until the telemetry phase needed its seconds):
+    2. the chunked block against the same block one-shot (iterations
+       equal, max|dx| <= 1e-12 max|x|, bitwise printed);
+    3. ``nan@col:1`` at the default ``max_recoveries``: column 1 takes one
        restart and ends at flag 0, column 0 bit for bit the clean block's;
-    3. the same at ``max_recoveries=0``: column 1 quarantined (flag 5),
+    4. the same at ``max_recoveries=0``: column 1 quarantined (flag 5),
        one ``rhs_quarantine`` event;
-    4. on the 48x32x32 cube (cap 100) a block of 3 with
-       ``snapshot_every=1`` killed at boundary 2 and resumed with
-       ``solve_many(resume=True)`` in a new Solver: bitwise the
-       uninterrupted block.
+    5. a block of 3 with ``snapshot_every=1`` killed at boundary 2 and
+       resumed with ``solve_many(resume=True)`` in a new Solver: bitwise
+       the uninterrupted block.
     Returns the launch counts of the chunked flagship block."""
     import shutil
 
@@ -3234,7 +3270,7 @@ def phase_many_chunked(torch, np, model):
     reset_launch_counts()
     r = s.solve_many(fb)
     launches = dict(LAUNCHES)
-    n_disp = sum(1 for e in s.dispatch_log if e[0] == "many")
+    n_disp = n_disp_of(s)
     x = s.displacement_global_many(r.x)
     tips = (float(x[0::3, 0].max()), float(x[1::3, 1].max()))
     bars = (tip_estimate(nx, False), tip_estimate(nx, True))
@@ -3257,12 +3293,25 @@ def phase_many_chunked(torch, np, model):
         if not bar / 3 <= tip <= 3 * bar:
             raise AssertionError(f"many chunked: tip {tip} outside "
                                  f"[1/3, 3] x {bar}")
-    # 1. the same block one-shot
-    s1, _ = solver(model, cap=0)
+    del s, r
+    torch.cuda.empty_cache()
+    # 2.-4. on the 48x32x32 cube at cap 100: the block one-shot, a NaN
+    # in column 1, the ladder off
+    kw = dict(FLAGSHIP)
+    kw.pop("nx")
+    small = make_cube_model(*DIRECT_F64_CELLS, **kw)
+    cells = "x".join(map(str, DIRECT_F64_CELLS))
+    fb = np.stack([np.asarray(small.F), shear_loads(np, small)[0]], -1)
+    s, ev = solver(small, 100)
+    r = s.solve_many(fb)
+    iters = [int(v) for v in r.iters]
+    s1, _ = solver(small, cap=0)
     r1 = s1.solve_many(fb)
     dx = float((r1.x - r.x).abs().max() / r.x.abs().max())
     same = torch.equal(r1.x, r.x)
-    say(f"many chunked {nx}^3 one-shot: flags {list(map(int, r1.flags))}, "
+    say(f"many chunked {cells} [F, F_y] at cap 100: {n_disp_of(s)} "
+        f"dispatches, flags {list(map(int, r.flags))}, iterations {iters}; "
+        f"one-shot: flags {list(map(int, r1.flags))}, "
         f"iterations {list(map(int, r1.iters))}, {r1.trips} trips, "
         f"{r1.solve_wall_s:.3f} s, {r1.solve_wall_s / r1.trips * 1e3:.4f} "
         f"ms a trip; chunked against one-shot max|dx| {dx:.3e} of max|x| "
@@ -3271,7 +3320,7 @@ def phase_many_chunked(torch, np, model):
         raise AssertionError("many chunked: not the one-shot block")
     del s1, r1
     torch.cuda.empty_cache()
-    # 2. a NaN in column 1's carry: one restart of that column
+    # 3. a NaN in column 1's carry: one restart of that column
     n0 = len(ev.events)
     s.fault_plan = FaultPlan("nan@col:1", recorder=s.recorder)
     r2 = s.solve_many(fb)
@@ -3279,7 +3328,7 @@ def phase_many_chunked(torch, np, model):
             for e in ev.events[n0:] if e["kind"] == "recovery"]
     keep = torch.equal(r2.x[..., 0], r.x[..., 0]) \
         and int(r2.iters[0]) == iters[0]
-    say(f"many chunked {nx}^3 nan@col:1: flags "
+    say(f"many chunked {cells} nan@col:1: flags "
         f"{list(map(int, r2.flags))}, iterations "
         f"{list(map(int, r2.iters))}, recoveries {r2.recoveries} {recs}, "
         f"{r2.solve_wall_s:.3f} s (+{r2.solve_wall_s - r.solve_wall_s:.3f} "
@@ -3288,25 +3337,21 @@ def phase_many_chunked(torch, np, model):
     if list(r2.flags) != [0, 0] or recs != [("restart_minres", "nan_carry",
                                              1)] or not keep:
         raise AssertionError(f"many chunked nan@col:1: {r2.flags}, {recs}")
-    # 3. the ladder off: column 1 quarantined
+    # 4. the ladder off: column 1 quarantined
     s.config.solver.max_recoveries = 0
     n0 = len(ev.events)
     s.fault_plan = FaultPlan("nan@col:1", recorder=s.recorder)
     r3 = s.solve_many(fb)
     quar = [(e["rhs"], e["trigger"]) for e in ev.events[n0:]
             if e["kind"] == "rhs_quarantine"]
-    say(f"many chunked {nx}^3 nan@col:1 max_recoveries=0: flags "
+    say(f"many chunked {cells} nan@col:1 max_recoveries=0: flags "
         f"{list(map(int, r3.flags))}, quarantined {list(r3.quarantined)}, "
         f"rhs_quarantine events {quar}, relres[1] {r3.relres[1]:.4e}")
     if list(r3.flags) != [0, QUARANTINE] or quar != [(1, "nan_carry")]:
         raise AssertionError(f"many chunked quarantine: {r3.flags}, {quar}")
     del s, r, r2, r3
     torch.cuda.empty_cache()
-    # 4. kill at boundary 2 and resume, on the 48x32x32 cube
-    kw = dict(FLAGSHIP)
-    kw.pop("nx")
-    small = make_cube_model(*DIRECT_F64_CELLS, **kw)
-    cells = "x".join(map(str, DIRECT_F64_CELLS))
+    # 5. kill at boundary 2 and resume
     fb3 = np.stack([np.asarray(small.F)] + shear_loads(np, small), -1)
     sa, _ = solver(small, 100, run_id="whole", snapshot_every=1)
     ra = sa.solve_many(fb3)
@@ -3460,6 +3505,414 @@ def phase_checks(torch, np):
                                  f"with the CPU")
 
 
+# phase 4l: the convergence ring's length (>= the flagship's ~3334
+# iterations: the whole trace, not truncated), the window of inner f32
+# iterations the profile capture holds (profile_inner's), the 48x32x32
+# drill's flight file, and the scratch directory of the phase's files
+TELEMETRY_RING = 4000
+TELEMETRY_WINDOW = 100
+TELEMETRY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_telemetry")
+TELEMETRY_CHILD_DIR = os.path.join(os.path.dirname(os.path.abspath(
+    __file__)), "build", "chip_smoke_capture")
+# the killed child: a 48x32x32 direct float64 solve in one dispatch with
+# a flight file, held until the parent's go file appears
+_KILL_CHILD = r"""
+import os, sys, time
+from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+from pcg_mpi_solver_tpu_torch.models import make_cube_model
+from pcg_mpi_solver_tpu_torch.solver import Solver
+flight, go, cells, kw = sys.argv[1], sys.argv[2], eval(sys.argv[3]), \
+    eval(sys.argv[4])
+s = Solver(make_cube_model(*cells, **kw), RunConfig(
+    flight_path=flight, solver=SolverConfig(
+        tol=1e-12, max_iter=20000, precision_mode="direct",
+        iters_per_dispatch=20000)))
+open(go + ".ready", "w").close()
+while not os.path.exists(go):
+    time.sleep(0.01)
+s.step(1.0)
+"""
+
+
+def _count_syncs(torch, run):
+    """``run()`` under torch's CUDA sync debug mode: (its result, the
+    number of synchronising calls it made)."""
+    import warnings
+
+    n = [0]
+
+    def record(message, *args, **kwargs):
+        # one warning a synchronising call (the mode's own notice, once a
+        # process, is not one)
+        if str(message).startswith("called a synchronizing CUDA"):
+            n[0] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, n[0]
+
+
+def _kill_child():
+    """Start the kill drill's child: a 48x32x32 direct float64 solve in one
+    dispatch with a flight file, held until :func:`_kill_drill` lets it
+    go (so its start overlaps the parent's work).  Returns (process,
+    flight path, go file)."""
+    path = os.path.join(TELEMETRY_DIR, "killed.jsonl")
+    go = os.path.join(TELEMETRY_DIR, "go")
+    kw = {k: v for k, v in FLAGSHIP.items() if k != "nx"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.Popen(
+        [sys.executable, "-c", _KILL_CHILD, path, go,
+         repr(DIRECT_F64_CELLS), repr(kw)],
+        env=dict(os.environ, PYTHONPATH=root), cwd=root)
+    return child, path, go
+
+
+def _kill_drill(child, path, go):
+    """Let the child solve and SIGKILL it while its dispatch runs: the
+    flight file's verdict is ``died`` with the dispatch in flight.  (An
+    injected ``kill@N`` is an exception: unwinding, it closes its
+    brackets, and it fires at a chunk boundary, between dispatches; a
+    real kill is what the flight file is for.)  Returns the verdict."""
+    import signal
+
+    from pcg_mpi_solver_tpu_torch.obs.flight import flight_verdict_path
+
+    try:
+        deadline = time.time() + 300
+        while not os.path.exists(go + ".ready"):
+            if child.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"kill drill: the child ended "
+                                     f"({child.returncode}) before its solve")
+            time.sleep(0.05)
+        open(go, "w").close()
+        while "dispatch:cycle" not in flight_verdict_path(path)["in_flight"]:
+            if child.poll() is not None or time.time() > deadline:
+                raise AssertionError("kill drill: no dispatch in flight")
+            time.sleep(0.002)
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    return flight_verdict_path(path)
+
+
+# the capture's child: the flagship's off Solver built in a fresh process
+# (started with the run, beside the octree children, so its host build
+# overlaps phase 3 and 4g), held idle until phase 4l's go file (which
+# carries the phase probe's times) appears; a fresh process's trace holds
+# every device event of the window, a long one's can miss a few
+_CAPTURE_CHILD = r"""
+import sys
+import chip_smoke
+sys.exit(chip_smoke.capture_child(*sys.argv[1:]))
+"""
+
+
+def capture_window(torch, solver, out_dir, recorded):
+    """``capture_solve_profile`` over ``TELEMETRY_WINDOW`` f32 inner
+    iterations of ``solver`` (profile_inner's window) read back by
+    ``obs/profview.py``: a JSON-able dict of the report's lines and the
+    gate numbers (v6 launches counted in the window, v6 kernels in the
+    trace and in matvec, the phase sum plus ``other`` and
+    ``key_averages``' device time in us)."""
+    from pcg_mpi_solver_tpu_torch.obs import profview
+    from pcg_mpi_solver_tpu_torch.ops.precond import make_prec
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import LAUNCHES
+    from pcg_mpi_solver_tpu_torch.solver.pcg import pcg
+
+    ops, data = solver.ops32, solver.data32
+    rhs = data["eff"] * data["F"]
+    rhs = rhs / rhs.norm()
+    inv = make_prec(ops, data, "jacobi")
+    counts = []
+
+    def window():
+        torch.cuda.synchronize()
+        before = LAUNCHES[("v6", "float32")]
+        t1 = time.perf_counter()
+        _res, carry = pcg(ops, data, rhs, torch.zeros_like(rhs), inv,
+                          tol=1e-30, max_iter=TELEMETRY_WINDOW,
+                          glob_n_dof_eff=solver.pm.glob_n_dof_eff,
+                          return_carry=True)
+        torch.cuda.synchronize()
+        counts.append(LAUNCHES[("v6", "float32")] - before)
+        return carry["exec"], time.perf_counter() - t1
+
+    cap = profview.capture_solve_profile(solver, out_dir, fn=window)
+    trace_file = profview.find_trace_files(cap["artifact"])[0]
+    rep = profview.profile_report(cap["artifact"])
+    evs, _p = profview.read_trace_events(trace_file)
+    cats = {}
+    for e in evs:
+        cats[str(e.get("cat"))] = cats.get(str(e.get("cat")), 0) + 1
+    v6 = [op for op in profview.device_ops(evs)
+          if "structured_matvec_kernel" in op["name"]
+          and "FfmaProduct" in op["name"]]
+    return dict(
+        iters=cap["iters"], trace_bytes=os.path.getsize(trace_file),
+        cats=dict(sorted(cats.items())),
+        report=profview.format_report(
+            rep, predicted=solver._cost_model,
+            recorded=recorded).splitlines(),
+        launches=counts[-1], v6_trace=len(v6),
+        v6_matvec=sum(op["label"] == "pcg/matvec" for op in v6),
+        busy_us=sum(r[0] for r in _device_rows(cap["prof"])),
+        split_us=(rep["sum_ms"] + rep["other_ms"]) * 1e3)
+
+
+def capture_child(result, go, out_dir) -> int:
+    """The capture child's body (``_CAPTURE_CHILD``): build the flagship
+    and its mixed Solver (phase 4l's off one), wait for ``go``, run
+    :func:`capture_window` with the probe times ``go`` holds, write the
+    result to ``result`` as JSON."""
+    import torch
+
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    kw = dict(FLAGSHIP)
+    nx = kw.pop("nx")
+    t0 = time.perf_counter()
+    s = Solver(make_cube_model(nx, **kw), RunConfig(
+        solver=SolverConfig(tol=1e-7, precision_mode="mixed")))
+    setup_s = time.perf_counter() - t0
+    open(go + ".ready", "w").close()
+    while not os.path.exists(go):
+        time.sleep(0.01)
+    with open(go) as f:
+        recorded = json.load(f)
+    out = capture_window(torch, s, out_dir, recorded)
+    out["setup_s"] = setup_s
+    with open(result + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(result + ".tmp", result)
+    return 0
+
+
+class CaptureChild:
+    """The capture's child process (``_CAPTURE_CHILD``): :meth:`start`
+    launches it, :meth:`run` lets it capture and returns its result,
+    :meth:`close` ends it whatever happened."""
+
+    def __init__(self):
+        self.proc = None
+        self.result = os.path.join(TELEMETRY_CHILD_DIR, "capture.json")
+        self.go = os.path.join(TELEMETRY_CHILD_DIR, "go")
+
+    def start(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        shutil.rmtree(TELEMETRY_CHILD_DIR, ignore_errors=True)
+        os.makedirs(TELEMETRY_CHILD_DIR)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _CAPTURE_CHILD, self.result, self.go,
+             os.path.join(TELEMETRY_CHILD_DIR, "prof")], cwd=root, env=env)
+
+    def run(self, recorded, timeout: float = 600.0):
+        """Wait for the child's Solver, hand it the probe times, wait for
+        its capture; returns (result, seconds waited for the Solver)."""
+        t0 = time.perf_counter()
+        deadline = time.time() + timeout
+        while not os.path.exists(self.go + ".ready"):
+            if self.proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"telemetry: the capture child ended "
+                                     f"({self.proc.returncode}) before "
+                                     f"its Solver was built")
+            time.sleep(0.05)
+        waited = time.perf_counter() - t0
+        with open(self.go + ".tmp", "w") as f:
+            json.dump(recorded, f)
+        os.replace(self.go + ".tmp", self.go)
+        try:
+            rc = self.proc.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError("telemetry: the capture child timed out")
+        if rc != 0:
+            raise AssertionError(f"telemetry: the capture child failed "
+                                 f"({rc})")
+        with open(self.result) as f:
+            return json.load(f), waited
+
+    def close(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(TELEMETRY_CHILD_DIR, ignore_errors=True)
+
+
+def phase_telemetry(torch, np, model, capture):
+    """Phase 4l: observability on the flagship (150^3, mixed, classic,
+    jacobi, v6, chunked at the auto cap), after every timed solve a
+    profiler window could slow:
+    1. one Solver with the ring off, one with ``trace_resid`` =
+       ``TELEMETRY_RING``, the JSONL sink and a flight file: each solved
+       once timed (ms/iter printed), then once under torch's sync debug
+       mode; flag, iterations and u bitwise equal, the same number of
+       synchronising calls; the ring holds every iteration, not
+       truncated, with flag 1 everywhere but at the inner cycles' exits,
+       where it holds each cycle's flag (the last, 0, ends the ring);
+    2. the JSONL stream passes the port's validator and ends with the run
+       summary (printed, ``summarize_jsonl``); the flight file reads
+       clean; a child killed inside a 48x32x32 dispatch leaves a file
+       whose verdict is died with the dispatch in flight;
+    3. the phase probe and the cost model: predicted, probed and measured
+       ms/iter;
+    4. ``capture`` (a :class:`CaptureChild`, started with the run)
+       runs :func:`capture_window` on its own flagship Solver in a fresh
+       process: the phase split, every v6 launch of the window in the
+       trace and in ``matvec``, the phase sum plus ``other`` within 2 %
+       of the device time of ``key_averages``."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.obs import perf
+    from pcg_mpi_solver_tpu_torch.obs.flight import flight_verdict_path
+    from pcg_mpi_solver_tpu_torch.obs.metrics import summarize_jsonl
+    from pcg_mpi_solver_tpu_torch.obs.phases import run_phase_probe
+    from pcg_mpi_solver_tpu_torch.obs.schema import validate_jsonl_text
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    os.makedirs(TELEMETRY_DIR)
+    smi = nvidia_smi_line()
+    tel = os.path.join(TELEMETRY_DIR, "run.jsonl")
+    fl = os.path.join(TELEMETRY_DIR, "flight.jsonl")
+    sc = SolverConfig(tol=1e-7, precision_mode="mixed")
+    t0 = time.perf_counter()
+    off = Solver(model, RunConfig(solver=sc))
+    on = Solver(model, RunConfig(
+        telemetry_path=tel, flight_path=fl,
+        solver=dataclasses.replace(sc, trace_resid=TELEMETRY_RING)))
+    say(f"telemetry: two flagship Solvers in {time.perf_counter() - t0:.2f} "
+        f"s; ring {on.trace_len} slots, cap {on._dispatch_cap}")
+
+    # 1. ring off against ring on: timed once each (two Solvers' buffers
+    # alone differ by ~1 %: tools/telemetry_overhead.py times the pieces
+    # apart, in turns, on one Solver), then counted
+    runs = {}
+    for name, s in (("off", off), ("on", on)):
+        with inner_cycles(s) as cycles:
+            (r,) = s.solve()
+        runs[name] = dict(res=r, u=s.un.clone(), cycles=list(cycles),
+                          trace=s.last_trace)
+        s.reset_state()
+    # the kill drill's child starts while the counted solves run
+    child = _kill_child()
+    for name, s in (("off", off), ("on", on)):
+        (r,), n = _count_syncs(torch, lambda: s.solve())
+        runs[name]["syncs"] = n
+        runs[name]["res2"] = r
+        s.reset_state()
+    a, b = runs["off"], runs["on"]
+    for name in ("off", "on"):
+        r = runs[name]["res"]
+        say(f"telemetry ring {name}: flag {r.flag}, iterations {r.iters}, "
+            f"{r.wall_s:.3f} s, {r.wall_s / r.iters * 1e3:.4f} ms/iter; "
+            f"synchronising calls in a second solve "
+            f"{runs[name]['syncs']} ({runs[name]['res2'].iters} "
+            f"iterations); inner cycles {runs[name]['cycles']}; {smi}")
+    same = (a["res"].flag == b["res"].flag and a["res"].iters ==
+            b["res"].iters and torch.equal(a["u"], b["u"]))
+    if not same or a["res"].flag != 0:
+        raise AssertionError("telemetry: the traced solve is not the "
+                             "untraced one bit for bit")
+    if a["syncs"] != b["syncs"]:
+        raise AssertionError(f"telemetry: {b['syncs']} synchronising calls "
+                             f"traced against {a['syncs']} untraced")
+    tr = b["trace"]
+    ends = np.cumsum([n for _f, n in b["cycles"]]) - 1
+    exits = np.flatnonzero(tr.flag != 1)
+    say(f"telemetry ring: {tr.n_recorded} records, truncated "
+        f"{tr.truncated}, flags other than 1 at {exits.tolist()} "
+        f"{tr.flag[exits].tolist()} (inner cycles end at {ends.tolist()}); "
+        f"normr {tr.normr[0]:.4e} -> {tr.normr[-1]:.4e}")
+    # the ring's last record is the last cycle's exit: 0 when the last
+    # inner cycle converged (the flagship's does)
+    if (tr.n_recorded != b["res"].iters or tr.truncated
+            or exits.tolist() != ends.tolist()
+            or tr.flag[exits].tolist() != [f for f, _n in b["cycles"]]):
+        raise AssertionError("telemetry: the ring is not the solve's")
+
+    # 2. the streams
+    on.recorder.close()
+    text = open(tel).read()
+    errs = validate_jsonl_text(text)
+    last = json.loads(text.splitlines()[-1])["kind"]
+    say(f"telemetry stream: {len(text.splitlines())} events, "
+        f"{os.path.getsize(tel)} bytes, schema errors {errs[:3]}, last "
+        f"event {last}")
+    for line in summarize_jsonl(tel).splitlines():
+        say(f"telemetry summary: {line}")
+    if errs or last != "run_summary":
+        raise AssertionError("telemetry: the JSONL stream is not valid")
+    v = flight_verdict_path(fl)
+    say(f"telemetry flight: verdict {v['verdict']}, {v['records']} records")
+    if v["verdict"] != "clean":
+        raise AssertionError(f"telemetry: flight verdict {v}")
+    t0 = time.perf_counter()
+    v = _kill_drill(*child)
+    say(f"telemetry kill drill ({'x'.join(map(str, DIRECT_F64_CELLS))}, "
+        f"SIGKILL in the solve's dispatch): verdict {v['verdict']}, in "
+        f"flight {v['in_flight']}, {v['records']} records, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if v["verdict"] != "died" or "dispatch:cycle" not in v["in_flight"]:
+        raise AssertionError(f"telemetry: killed flight verdict {v}")
+
+    # 3. the phase probe and the cost model
+    cm = on._cost_model
+    probe = run_phase_probe(off, reps=3, whole=False)
+    meas = a["res"].wall_s / a["res"].iters * 1e3
+    say(f"telemetry cost model ({cm['profile']}): predicted "
+        f"{cm['predicted_ms_per_iter']:.4f} ms/iter "
+        + " ".join(f"{ph} {cm['phases'][ph]['model_ms']:.4f}"
+                   for ph in perf.PHASES)
+        + f"; probed (float32 inner operator, CUDA events) "
+        f"{probe['sum_ms_per_iter']:.4f} ms/iter "
+        + " ".join(f"{ph} {probe['phases'][ph]:.4f}" for ph in perf.PHASES)
+        + f"; measured {meas:.4f} ms/iter ({meas / cm['predicted_ms_per_iter']:.2f}x "
+        f"the prediction)")
+
+    # 4. the capture, in its fresh child process (its Solver was built
+    # at the start of the run)
+    out, waited = capture.run(probe["phases"])
+    say(f"telemetry capture (a fresh process; its flagship Solver built "
+        f"in {out['setup_s']:.1f} s, {waited:.1f} s waited here): "
+        f"{out['iters']} iterations, {out['trace_bytes']} bytes gzipped, "
+        f"event categories {out['cats']}")
+    for line in out["report"]:
+        say(f"telemetry profile: {line}")
+    busy_us, split_us = out["busy_us"], out["split_us"]
+    if busy_us <= 0:
+        raise AssertionError("telemetry: the capture holds no device time")
+    say(f"telemetry capture gates: v6 launches in the window "
+        f"{out['launches']}, v6 kernels in the trace {out['v6_trace']}, in "
+        f"matvec {out['v6_matvec']}; phase sum + other "
+        f"{split_us / 1e3:.4f} ms against key_averages' device time "
+        f"{busy_us / 1e3:.4f} ms ({split_us / busy_us - 1:+.2%})")
+    # every v6 launch the window counted is in the trace and in matvec
+    if not (out["launches"] > 0 and out["v6_trace"] == out["v6_matvec"]
+            == out["launches"]):
+        raise AssertionError("telemetry: the v6 launches are not all in "
+                             "the matvec phase")
+    if abs(split_us / busy_us - 1) > 0.02:
+        raise AssertionError("telemetry: the phase split is not the "
+                             "window's device time")
+    del off, on
+    torch.cuda.empty_cache()
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+
+
 def time_card_vs_cpu(torch, np, kw):
     """Phase 5, the time integrators on the 12x6x5 cube, the card against
     the CPU: Newmark direct under block3 and mixed under jacobi (tol
@@ -3555,13 +4008,20 @@ def main() -> int:
 
     # the octree models, built beside phases 3 and 4e's cube
     octrees = OctreeModels((OCTREE_FLAGSHIP["n"], OCTREE_PARITY_N))
+    # and phase 4l's capture child, which builds its flagship Solver
+    # beside them and then waits, idle, for 4l
+    capture = CaptureChild()
     try:
-        return _phases(torch, np, kind, smi, rates, t_start, octrees)
+        capture.start()
+        return _phases(torch, np, kind, smi, rates, t_start, octrees,
+                       capture)
     finally:
+        capture.close()
         octrees.close()
 
 
-def _phases(torch, np, kind, smi, rates, t_start, octrees) -> int:
+def _phases(torch, np, kind, smi, rates, t_start, octrees,
+            capture) -> int:
     """Phases 3 to 5 and the closing records (see the module docstring)."""
     clock = [time.perf_counter()]
 
@@ -3581,6 +4041,11 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees) -> int:
     flagship_model = make_cube_model(nx, **kw)
     say(f"main: cube {nx}^3, {flagship_model.n_dof} dofs; model build "
         f"{time.perf_counter() - t0:.2f} s")
+    # 4g. the chunked blocked path, before any profiler window, and
+    # first: it needs no octree, so it runs while the octree flagship's
+    # child builds (4e waited ~30 s for it when 4g ran after 4k)
+    many_chunked_launches = phase_many_chunked(torch, np, flagship_model)
+    lap("4g many chunked")
     # 4e. the general (pattern-type) backend: the flagship cube and the
     # octree flagship, before any profiler window; its octree Solvers
     # start the scratch partition cache cold
@@ -3602,9 +4067,6 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees) -> int:
     del general["model"]
     shutil.rmtree(CACHE_DIR, ignore_errors=True)
     lap("4k graph cache")
-    # 4g. the chunked blocked path, before any profiler window
-    many_chunked_launches = phase_many_chunked(torch, np, flagship_model)
-    lap("4g many chunked")
     # 4. main path at full size, once per float32 variant
     launches_by, classic = phase_main(torch, np, flagship_model)
     lap("4 main")
@@ -3615,7 +4077,6 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees) -> int:
     # 4b. the block3 and mg preconditioners at full size
     precond_launches, precond_iters, models = phase_preconditioners(
         torch, np, flagship_model)
-    del flagship_model
     lap("4b preconditioners")
     # 4c. the fused and pipelined PCG variants at full size
     classic_iters = dict(precond_iters)
@@ -3639,6 +4100,11 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees) -> int:
     # 5. direct f64 and card-vs-cpu checks
     phase_checks(torch, np)
     lap("5 checks")
+    # 4l. observability on the flagship, after every timed solve a
+    # profiler window could slow (its capture comes last)
+    phase_telemetry(torch, np, flagship_model, capture)
+    del flagship_model
+    lap("4l telemetry")
 
     records = []
     for variant in F32_VARIANTS:

@@ -12,17 +12,22 @@ CLI, the JAX package's ``pcg_mpi_solver_tpu/cli.py`` with its flags.
     python -m pcg_mpi_solver_tpu_torch.cli export    <scratch> <run_id> <vars> <mode>
     python -m pcg_mpi_solver_tpu_torch.cli demo      [--nx ...] [--octree|--poisson]
     python -m pcg_mpi_solver_tpu_torch.cli cache-stats [--cache-dir D]
+    python -m pcg_mpi_solver_tpu_torch.cli summary   <run.jsonl> [...]
+    python -m pcg_mpi_solver_tpu_torch.cli telemetry-merge <run.jsonl> --out M.jsonl
+    python -m pcg_mpi_solver_tpu_torch.cli perf-report [scratch] [--nx N] [options]
+    python -m pcg_mpi_solver_tpu_torch.cli prof-report <trace or capture dir>
 
-``solve``, ``solve-many``, ``dynamics``, ``newmark`` and ``demo`` run on
-the card unless ``--device cpu`` is given.  Settings come from ``--settings
-settings.json`` (the shape of the reference's GlobSettings:
-TimeHistoryParam/SolverParam, run_basic_script.bash:30-49) or per-flag
-overrides.  ``--cache-dir`` (else ``PCG_TPU_CACHE_DIR``) serves the
-partitions from the content-addressed cache (``cache/``).  The JAX
-package's other subcommands are refused with the ROADMAP queue 1 item
-that brings them (:data:`REFUSED`); so are its telemetry, profiling and
-preflight flags, by the solver's own refusal of those settings (item
-14).
+``solve``, ``solve-many``, ``dynamics``, ``newmark``, ``demo`` and
+``perf-report`` run on the card unless ``--device cpu`` is given.
+Settings come from ``--settings settings.json`` (the shape of the
+reference's GlobSettings: TimeHistoryParam/SolverParam,
+run_basic_script.bash:30-49) or per-flag overrides.  ``--cache-dir``
+(else ``PCG_TPU_CACHE_DIR``) serves the partitions from the
+content-addressed cache (``cache/``).  The per-run telemetry flags
+(``--telemetry-out``, ``--trace-resid``, ``--flight-out``,
+``--profile-spans``, ``--summary``, ``--preflight``, ``solve``'s
+``--profile-dir``) are the JAX package's.  Its other subcommands are
+refused with the ROADMAP queue 1 item that brings them (:data:`REFUSED`).
 """
 
 from __future__ import annotations
@@ -38,9 +43,8 @@ import numpy as np
 REFUSED = {
     "bench": 1,
     **{c: 14 for c in (
-        "serve", "submit", "jobs", "warmup", "lint",
-        "perf-report", "prof-report", "fleet-report", "watch", "trend",
-        "summary", "telemetry-merge", "validate")},
+        "serve", "submit", "jobs", "warmup", "lint", "fleet-report",
+        "watch", "trend", "validate")},
 }
 # the multi-process build (Solver.resume_elastic, the sharded ingest)
 ELASTIC_ITEM = 12
@@ -84,9 +88,10 @@ def _load_settings(path, args):
 
 
 def _apply_telemetry_flags(cfg, args) -> None:
-    """The JAX package's shared per-run flags into the RunConfig; the
-    Solver refuses each one that is set (ROADMAP queue 1 item 14) but the
-    cache directory."""
+    """The JAX package's shared per-run flags into the RunConfig:
+    --telemetry-out (JSONL sink), --flight-out, --trace-resid (the
+    convergence ring), --profile-spans (profiler ranges around each
+    dispatch), --cache-dir and the --preflight policy."""
     cfg.telemetry_path = getattr(args, "telemetry_out", None) or ""
     cfg.flight_path = getattr(args, "flight_out", None) or ""
     cfg.solver.trace_resid = int(getattr(args, "trace_resid", None) or 0)
@@ -101,6 +106,16 @@ def _resolve_cache_dir(args) -> str:
     flag, else the PCG_TPU_CACHE_DIR environment variable, else off."""
     return getattr(args, "cache_dir", None) or \
         os.environ.get("PCG_TPU_CACHE_DIR", "")
+
+
+def _finish_telemetry(solver, args) -> None:
+    """The end of a run's telemetry: the --summary table, then the
+    recorder's sinks and flight file closed."""
+    if getattr(args, "summary", False):
+        print(solver.recorder.summary())
+    if getattr(args, "telemetry_out", None):
+        print(f">telemetry: {args.telemetry_out}")
+    solver.recorder.close()
 
 
 def _mdf_path(scratch: str) -> str:
@@ -175,6 +190,7 @@ def cmd_solve(args):
               f"relres={r.relres:.3e} wall={r.wall_s:.2f}s")
     td = s.time_data()
     print(f">calculation time: {td['Mean_CalcTime']:.2f} sec")
+    _finish_telemetry(s, args)
     print(">success!")
 
 
@@ -235,6 +251,7 @@ def cmd_solve_many(args):
     os.makedirs(cfg.result_path, exist_ok=True)
     np.save(out, s.displacement_global_many(res.x))
     print(f">solutions (n_dof, nrhs) -> {out}.npy")
+    _finish_telemetry(s, args)
     print(">success!")
 
 
@@ -282,6 +299,7 @@ def cmd_dynamics(args):
     if probe:
         out = _save_result(cfg, "probe_dynamics", res.probe_u)
         print(f">probe series -> {out}")
+    _finish_telemetry(dyn, args)
     print(">success!")
 
 
@@ -309,6 +327,7 @@ def cmd_newmark(args):
               f"relres={r.relres:.3e} wall={r.wall_s:.2f}s")
     out = _save_result(cfg, "u_newmark", s.displacement_global())
     print(f">final displacement -> {out}")
+    _finish_telemetry(s, args)
     print(">success!")
 
 
@@ -370,6 +389,7 @@ def cmd_demo(args):
               f"[{s.backend} backend]")
     files = export_vtk(model, store, vtk_vars, vtk_mode)
     print(f">wrote {len(files)} vtu files to {store.vtk_path}")
+    _finish_telemetry(s, args)
     print(">success!")
 
 
@@ -381,6 +401,192 @@ def cmd_cache_stats(args):
         raise SystemExit("cache-stats: pass --cache-dir DIR (or set "
                          "PCG_TPU_CACHE_DIR)")
     print(format_stats(d))
+
+
+def cmd_summary(args):
+    """Offline summary of on-disk telemetry/flight JSONL files, tolerant
+    of a truncated last line; a base path a multi-process run sharded
+    away (run.jsonl -> run.p<idx>.jsonl) falls back to its shards."""
+    from pcg_mpi_solver_tpu_torch.obs.flight import find_shards
+    from pcg_mpi_solver_tpu_torch.obs.metrics import summarize_jsonl
+
+    first = True
+    for path in args.files:
+        if os.path.exists(path):
+            targets = [path]
+        else:
+            targets = find_shards(path)
+            if not targets:
+                raise SystemExit(f"summary: {path}: no such file (and "
+                                 "no .p<N>.jsonl shard siblings)")
+            if not first:
+                print()
+            print(f">summary: {path}: sharded by a multi-process run — "
+                  f"{len(targets)} per-process shard(s)")
+            first = False
+        for t in targets:
+            if not first:
+                print()
+            first = False
+            if len(targets) > 1:
+                print(f"--- {t}")
+            print(summarize_jsonl(t))
+
+
+def cmd_telemetry_merge(args):
+    """Per-process telemetry/flight shards merged into ONE time-ordered
+    JSONL stream, each event tagged with its source shard; truncated
+    lines are skipped and counted."""
+    from pcg_mpi_solver_tpu_torch.obs.flight import find_shards, merge_shards
+
+    paths = []
+    for p in args.paths:
+        shards = find_shards(p)
+        for sh in (shards or ([p] if os.path.exists(p) else [])):
+            if sh not in paths:
+                paths.append(sh)
+    if not paths:
+        raise SystemExit("telemetry-merge: no shards found for "
+                         f"{args.paths} (expected FILE.jsonl and/or "
+                         "FILE.p<N>.jsonl siblings)")
+    align = None if args.align == "none" else args.align
+    stats = merge_shards(paths, args.out, align=align)
+    for name in sorted(stats["shards"]):
+        st = stats["shards"][name]
+        print(f">shard {name}: {st['events']} event(s), "
+              f"{st['truncated']} truncated line(s) skipped")
+    al = stats.get("align")
+    if al is not None:
+        if al["matched_anchors"]:
+            offs = "  ".join(f"{n}={v:+.6f}s"
+                             for n, v in sorted(al["offsets_s"].items()))
+            print(f">clock alignment ({al['mode']}): "
+                  f"{al['matched_anchors']} matched anchor(s); "
+                  f"offsets vs first shard: {offs}")
+        else:
+            print(">clock alignment: no matched dispatch anchors across "
+                  "shards — falling back to raw t ordering")
+    print(f">merged {stats['events']} event(s) from "
+          f"{len(stats['shards'])} shard(s) -> {args.out}"
+          + (f" ({stats['truncated_lines']} truncated line(s) skipped)"
+             if stats["truncated_lines"] else ""))
+
+
+def cmd_perf_report(args):
+    """Measured-vs-model phase attribution: the matvec, precond,
+    reduction and axpy phases of a live solver timed alone
+    (``obs/phases.py``) beside the cost model's prediction
+    (``obs/perf.py``), anchored by a real solve; with --profile-dir also
+    a profiler capture of one warm solve read back
+    (``obs/profview.py``)."""
+    from pcg_mpi_solver_tpu_torch.obs import perf as _perf
+    from pcg_mpi_solver_tpu_torch.obs.phases import run_phase_probe
+    from pcg_mpi_solver_tpu_torch.solver.driver import Solver
+
+    cfg = _load_settings(args.settings, args)
+    if cfg.solver.precision_mode != "direct":
+        raise SystemExit(
+            "perf-report: phase probes need a direct-mode solver (one "
+            "dtype, one loop) — drop --precision mixed")
+    nrhs = max(1, int(args.nrhs))
+    cfg.solver.nrhs = nrhs
+    elem_part = None
+    n_parts = args.n_parts or 1
+    if args.scratch:
+        from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+
+        cfg.scratch_path = args.scratch
+        model = read_mdf(_mdf_path(args.scratch))
+        elem_part = _elem_part(n_parts, args.scratch)
+    else:
+        from pcg_mpi_solver_tpu_torch.models import make_cube_model
+
+        model = make_cube_model(args.nx, 0, 0, E=30e9, nu=0.2,
+                                load="traction", load_value=1e6,
+                                heterogeneous=True)
+    print(f">perf-report: {model.n_elem} elems / {model.n_dof} dofs on "
+          f"{args.device or 'cuda'}, {n_parts} parts "
+          f"({cfg.solver.pcg_variant} variant, {cfg.solver.precond} "
+          f"precond, nrhs={nrhs})..")
+    s = Solver(model, cfg, n_parts=n_parts, elem_part=elem_part,
+               backend=args.backend, device=args.device)
+    print(f">backend: {s.backend}")
+    cm = s._cost_model
+    probe = run_phase_probe(s, reps=args.reps, nrhs=nrhs,
+                            inner=args.inner)
+    if args.profile_dir:
+        from pcg_mpi_solver_tpu_torch.obs import profview
+
+        cap = profview.capture_solve_profile(s, args.profile_dir,
+                                             nrhs=nrhs, recorder=s.recorder)
+        rep = profview.profile_report(cap["artifact"])
+        profview.emit_prof_report(s.recorder, rep)
+        print()
+        print(profview.format_report(rep, predicted=cm,
+                                     recorded=probe["phases"]))
+        _finish_telemetry(s, args)
+        return
+    print()
+    print(f"{'phase':<10} {'model_ms':>10} {'measured_ms':>12} "
+          f"{'share':>7}")
+    sum_ms = probe["sum_ms_per_iter"] or 0.0
+    model_sum = 0.0
+    for ph in _perf.PHASES:
+        mm = cm["phases"][ph]["model_ms"]
+        model_sum += mm
+        meas = probe["phases"][ph]
+        share = (meas / sum_ms) if sum_ms else 0.0
+        print(f"{ph:<10} {mm:>10.4f} {meas:>12.4f} {share:>6.0%}")
+    print(f"{'sum':<10} {model_sum:>10.4f} {sum_ms:>12.4f}")
+    whole = probe.get("whole_ms_per_iter")
+    if whole:
+        print(f"\n>whole-iteration anchor: {whole:.4f} ms/iter "
+              f"({probe.get('whole_iters', '?')} iters, real solve)")
+        print(f">attribution (phase sum / whole): "
+              f"{probe['attribution']:.2f}")
+        if cm["predicted_ms_per_iter"]:
+            print(f">model ratio (measured whole / predicted): "
+                  f"{whole / cm['predicted_ms_per_iter']:.2f} "
+                  f"(predicted {cm['predicted_ms_per_iter']:.4f} ms/iter, "
+                  f"profile={cm['profile']})")
+    _finish_telemetry(s, args)
+
+
+def cmd_prof_report(args):
+    """Offline device-trace report (``obs/profview.py``): a captured
+    torch.profiler trace — the *.trace.json(.gz) itself, its run dir or a
+    capture root — read back into per-phase device time, the busy share
+    and the tolerant reader's verdict; a truncated file or missing
+    device lanes give a NAMED verdict, never a crash.  With the capture's
+    sidecar the cost model is rebuilt for the predicted column."""
+    from pcg_mpi_solver_tpu_torch.obs import profview
+
+    files = profview.find_trace_files(args.path)
+    meta = profview.load_meta(files[0]) if files else None
+    rep = profview.profile_report(files[0] if files else args.path,
+                                  meta=meta, iters=args.iters)
+    predicted = None
+    try:
+        predicted = profview.predicted_from_meta(meta or {})
+    except KeyError as e:
+        print(f">predicted column unavailable: unknown name {e} in the "
+              "capture sidecar (name tables out of sync?)")
+    if meta:
+        print(f">profile: {meta.get('pcg_variant')} variant, "
+              f"{meta.get('precond')} precond, nrhs={meta.get('nrhs')}, "
+              f"{meta.get('backend')} backend, "
+              f"{meta.get('n_dof')} dofs on "
+              f"{meta.get('n_devices')} device(s) "
+              f"[{meta.get('platform')}]")
+    print(profview.format_report(rep, predicted=predicted))
+    if args.telemetry_out:
+        from pcg_mpi_solver_tpu_torch.obs.metrics import (
+            JsonlSink, MetricsRecorder)
+
+        rec = MetricsRecorder(sinks=[JsonlSink(args.telemetry_out)])
+        profview.emit_prof_report(rec, rep)
+        rec.close()
+        print(f">telemetry: {args.telemetry_out}")
 
 
 def cmd_refused(args):
@@ -422,17 +628,43 @@ def _add_cache_flag(p) -> None:
                         "PCG_TPU_CACHE_DIR)")
 
 
-def _add_run_flags(p) -> None:
-    """The JAX package's telemetry, cache and preflight flags: the cache
-    directory is served; the others are accepted and refused by the
-    Solver when set (ROADMAP queue 1 item 14)."""
-    p.add_argument("--telemetry-out", default=None, metavar="FILE.jsonl")
-    p.add_argument("--trace-resid", type=int, default=0, metavar="N")
-    p.add_argument("--flight-out", default=None, metavar="FILE.jsonl")
-    p.add_argument("--profile-spans", action="store_true")
-    _add_cache_flag(p)
+def _add_telemetry_flags(p) -> None:
+    p.add_argument("--telemetry-out", default=None, metavar="FILE.jsonl",
+                   help="append schema-versioned telemetry events (one "
+                        "JSON object a line: steps, dispatch timings, "
+                        "residual traces, the cost model, the run "
+                        "summary) here")
+    p.add_argument("--trace-resid", type=int, default=0, metavar="N",
+                   help="record the last N per-iteration (normr, rho, "
+                        "stag, flag) samples on the device and surface "
+                        "them once a solve (0 = off; clamped to max_iter)")
+    p.add_argument("--flight-out", default=None, metavar="FILE.jsonl",
+                   help="crash-durable flight recorder: fsync'd "
+                        "begin/end brackets and heartbeats around every "
+                        "dispatch, so a killed run leaves a parseable "
+                        "artifact (read it back with `summary`; env "
+                        "default: PCG_TPU_FLIGHT)")
+    p.add_argument("--summary", action="store_true",
+                   help="print the per-step / per-dispatch telemetry "
+                        "table after the run")
+    p.add_argument("--profile-spans", action="store_true",
+                   help="wrap each dispatch in a torch.profiler "
+                        "record_function range (also "
+                        "PCG_TPU_PROFILE_SPANS=1)")
+
+
+def _add_preflight_flag(p) -> None:
     p.add_argument("--preflight", choices=["fail", "warn", "off"],
-                   default=None)
+                   default=None,
+                   help="preflight policy (default: PCG_TPU_PREFLIGHT, "
+                        "else fail)")
+
+
+def _add_run_flags(p) -> None:
+    """The JAX package's telemetry, cache and preflight flags."""
+    _add_telemetry_flags(p)
+    _add_cache_flag(p)
+    _add_preflight_flag(p)
 
 
 def _add_resilience_flags(p, granularity: str) -> None:
@@ -584,6 +816,78 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("cache-stats", help="show the partition cache table")
     _add_cache_flag(p)
     p.set_defaults(fn=cmd_cache_stats)
+
+    p = sub.add_parser("perf-report",
+                       help="measured-vs-model phase attribution: the "
+                            "matvec/precond/reduction/axpy phases of a "
+                            "live solver timed beside the cost model's "
+                            "prediction")
+    p.add_argument("scratch", nargs="?", default=None,
+                   help="scratch dir with an ingested MDF model "
+                        "(default: a synthetic --nx cube)")
+    p.add_argument("--nx", type=int, default=12,
+                   help="synthetic heterogeneous cube size when no "
+                        "scratch dir is given")
+    p.add_argument("--settings", default=None)
+    p.add_argument("--n-parts", type=int, default=None)
+    p.add_argument("--tol", type=float, default=None)
+    p.add_argument("--max-iter", type=int, default=None)
+    from pcg_mpi_solver_tpu_torch.config import PCG_VARIANTS, PRECONDS
+
+    p.add_argument("--precond", choices=list(PRECONDS), default=None)
+    p.add_argument("--pcg-variant", choices=list(PCG_VARIANTS),
+                   default=None, dest="pcg_variant")
+    p.add_argument("--nrhs", type=int, default=1,
+                   help="probe the blocked programs at this block width")
+    p.add_argument("--inner", type=int, default=16,
+                   help="applications a timed phase")
+    p.add_argument("--reps", type=int, default=5,
+                   help="interleaved measurement rounds")
+    p.add_argument("--backend", choices=BACKENDS, default="general",
+                   help="matvec backend of the probed solver")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="also capture a profiler trace of one warm solve "
+                        "into DIR and read it back: the table gains the "
+                        "measured column")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card, 'cuda')")
+    _add_run_flags(p)
+    p.set_defaults(fn=cmd_perf_report)
+
+    p = sub.add_parser("prof-report",
+                       help="read a captured torch.profiler trace back "
+                            "into per-phase device time (offline, "
+                            "tolerant)")
+    p.add_argument("path", help="the *.trace.json(.gz) file, its run "
+                                "dir, or a capture root")
+    p.add_argument("--iters", type=int, default=None,
+                   help="iteration count for the per-iteration columns "
+                        "(default: the capture sidecar's)")
+    p.add_argument("--telemetry-out", default=None, metavar="FILE.jsonl",
+                   help="also emit the prof_report event and prof.* "
+                        "gauges here")
+    p.set_defaults(fn=cmd_prof_report)
+
+    p = sub.add_parser("summary",
+                       help="offline summary of a telemetry/flight JSONL "
+                            "file, tolerant of a truncated last line")
+    p.add_argument("files", nargs="+", metavar="FILE.jsonl")
+    p.set_defaults(fn=cmd_summary)
+
+    p = sub.add_parser("telemetry-merge",
+                       help="merge per-process telemetry shards "
+                            "(FILE.p<N>.jsonl) into one time-ordered "
+                            "stream")
+    p.add_argument("paths", nargs="+", metavar="FILE.jsonl",
+                   help="base path(s); on-disk .p<N> siblings are found "
+                        "too")
+    p.add_argument("--out", required=True, metavar="MERGED.jsonl")
+    p.add_argument("--align", choices=["none", "collectives"],
+                   default="none",
+                   help="'collectives': clock-align the shards on matched "
+                        "dispatch completions before ordering (events "
+                        "gain t_aligned; t is kept)")
+    p.set_defaults(fn=cmd_telemetry_merge)
 
     for name, item in REFUSED.items():
         p = sub.add_parser(name, help=f"not ported (ROADMAP queue 1 item "

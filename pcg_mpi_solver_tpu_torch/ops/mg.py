@@ -39,9 +39,9 @@ package goes to the device through :func:`tree_from_numpy`.  The lattice
 is a structured grid's (``model.grid``) or an octree's (``model.octree``:
 its leaves paint the unit-lattice stiffness field, and the hierarchy
 serves the general backend, whose node rows are ``Ops._as_node3``'s).
-The JAX package's setup telemetry (ROADMAP queue 1 item 14) is not
-ported.  The recovery ladder's demotion to
-scalar Jacobi is :func:`fallback_operand`.
+The JAX package's setup telemetry (the ``mg_setup`` event and
+``check_mg_interval``; ROADMAP queue 1 item 14.3) is not ported.  The
+recovery ladder's demotion to scalar Jacobi is :func:`fallback_operand`.
 """
 
 from __future__ import annotations

@@ -46,7 +46,7 @@ device chunk at the next pending step fault
 boundary; a rollback or resume that replays past it does not fire it
 again.  The job (``job:``) domain parses as in the JAX package and counts
 towards :attr:`FaultPlan.armed`, but no path of the port consumes it yet:
-it belongs to the solve service (ROADMAP queue 1 item 14).  The rank
+it belongs to the solve service (ROADMAP queue 1 item 14.3).  The rank
 (``rank:``) domain rides the dispatch and boundary counters of one
 process: the port runs in one (index 0), so a fault aimed at rank 0 fires
 as its unprefixed twin and one aimed at any other rank never lands

@@ -35,6 +35,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from pcg_mpi_solver_tpu_torch.obs.trace import trace_init
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
     LAGGED_VARIANTS, _read, cold_carry, mixed_windows, pcg, refine_tol,
     select_best)
@@ -57,12 +58,21 @@ class ChunkedEngine:
     refinement cycle (the chip smoke test prints them).  ``kmul64``,
     when given, computes the refinement's float64 K.x as ``kmul64(data64,
     x)`` in place of ``ops.matvec`` (the hybrid backend's refresh
-    operator, as the JAX package's ``_amul64_fn``)."""
+    operator, as the JAX package's ``_amul64_fn``).
+
+    ``trace_len`` > 0 gives each :meth:`run` a convergence ring
+    (``obs/trace.py``) of that length, of ``trace_dtype``, which every
+    capped call records into (mixed: rescaled by its cycle's refresh
+    norm): the ring rides the calls on the device, rides the snapshots,
+    and is left on ``self.last_trace`` after the run, in the JAX
+    package's slots, so a chunked solve's trace is its one-shot
+    trace."""
 
     def __init__(self, *, ops, scfg, glob_n_dof_eff: int, cap: int,
                  mixed: bool, ops32=None, recorder=None,
                  log: Optional[List[tuple]] = None,
-                 kmul64: Optional[Callable] = None):
+                 kmul64: Optional[Callable] = None, trace_len: int = 0,
+                 trace_dtype: torch.dtype = torch.float32):
         self.ops, self.ops32 = ops, ops32
         self.kmul64 = kmul64 if kmul64 is not None else ops.matvec
         self.scfg = scfg
@@ -74,6 +84,9 @@ class ChunkedEngine:
         self._rec = recorder
         self.log = log if log is not None else []
         self.restart_x = None
+        self.trace_len = int(trace_len)
+        self.trace_dtype = trace_dtype
+        self.last_trace = None
 
     def _disp(self, name: str):
         """A ``dispatch`` span when a recorder is attached."""
@@ -82,20 +95,23 @@ class ChunkedEngine:
         return self._rec.dispatch(name)
 
     def _capped(self, ops, data, fext, prec, carry, tol, total,
-                windows=None):
+                windows=None, scale=None):
         """One capped call of the resumable ``pcg``: at most ``cap``
         iterations and the budget's remainder; MoreSteps sized by the
         nominal ``max_iter``; ``windows`` the mixed shell's plateau and
         progress exits (an inner f32 cycle's only), whose clocks ride
-        the carry across calls."""
+        the carry across calls.  The run's ring records the call's
+        iterations (``scale``: a mixed cycle's refresh norm)."""
         scfg = self.scfg
-        return pcg(ops, data, fext, carry["x"], prec, tol=tol,
-                   max_iter=min(self.cap, scfg.max_iter - total),
-                   glob_n_dof_eff=self.glob_n_dof_eff,
-                   max_stag_steps=scfg.max_stag_steps,
-                   max_iter_nominal=scfg.max_iter, carry_in=carry,
-                   return_carry=True, variant=self.variant,
-                   **(windows or {}))
+        res, carry = pcg(ops, data, fext, carry["x"], prec, tol=tol,
+                         max_iter=min(self.cap, scfg.max_iter - total),
+                         glob_n_dof_eff=self.glob_n_dof_eff,
+                         max_stag_steps=scfg.max_stag_steps,
+                         max_iter_nominal=scfg.max_iter, carry_in=carry,
+                         return_carry=True, variant=self.variant,
+                         trace_in=self.last_trace, trace_scale=scale,
+                         **(windows or {}))
+        return res, carry
 
     def run(self, data, fext, carry, normr0, n2b, prec,
             vlog: Optional[Callable[[str], None]] = None,
@@ -116,6 +132,8 @@ class ChunkedEngine:
         iterate; mixed: the last iterate whose f64 refresh was finite)."""
         vlog = vlog or (lambda s: None)
         self.restart_x = None
+        self.last_trace = (trace_init(self.trace_len, self.trace_dtype)
+                           if self.trace_len > 0 else None)
         n2b_f = float(n2b)
         tolb = self.scfg.tol * n2b_f
         cur = float(normr0)
@@ -148,8 +166,10 @@ class ChunkedEngine:
 
         def restore(st):
             """Snapshot state -> (x, r, normr, stall, total): the one
-            mixed restore of the resume and of the guard's re-dispatch."""
+            mixed restore of the resume and of the guard's re-dispatch
+            (the ring too, when both trace)."""
             dev = resilience.restore_device({k: st[k] for k in ("x", "r")})
+            self._restore_ring(st)
             return (dev["x"], dev["r"], f(np.asarray(st["normr"])),
                     int(np.asarray(st["stall"])),
                     int(np.asarray(st["total"])))
@@ -183,9 +203,12 @@ class ChunkedEngine:
                     if faults is not None:
                         faults.on_dispatch()
                     with self._disp("inner_cycle"):
+                        # inner iterations run on r / normr: the ring
+                        # records absolute residuals
                         res, c32 = self._capped(ops32, data32, rhat32, prec,
                                                 c32, tol_cycle, total,
-                                                mixed_windows(scfg))
+                                                mixed_windows(scfg),
+                                                scale=normr)
                         exec_n = int(c32["exec"])
                         total += exec_n
                         inner_flag = int(res.flag)
@@ -258,7 +281,7 @@ class ChunkedEngine:
             if resilience is not None and flag == 1:
                 resilience.after_chunk(lambda: dict(
                     kind="mixed", chunk=chunk_i, total=total, stall=stall,
-                    normr=normr, x=x, r=r))
+                    normr=normr, x=x, r=r, **self._ring_state()))
                 if faults is not None:
                     r = faults.at_boundary({"r": r})["r"]
         self.restart_x = good_x if good_x is not None else x
@@ -275,7 +298,9 @@ class ChunkedEngine:
 
         def restore(st):
             """Snapshot state -> (carry, total, relres): the one direct
-            restore of the resume and of the guard's re-dispatch."""
+            restore of the resume and of the guard's re-dispatch (the
+            ring too, when both trace)."""
+            self._restore_ring(st)
             c = resilience.restore_device({"carry": dict(st["carry"])})
             return (c["carry"], int(np.asarray(st["total"])),
                     float(np.asarray(st["carry"]["normr_act"])) / n2b_f)
@@ -315,7 +340,7 @@ class ChunkedEngine:
             if resilience is not None:
                 resilience.after_chunk(lambda: dict(
                     kind="direct", chunk=chunk_i, total=total,
-                    carry=carry))
+                    carry=carry, **self._ring_state()))
                 if faults is not None:
                     carry = faults.at_boundary(carry)
         if flag != 0:
@@ -337,6 +362,18 @@ class ChunkedEngine:
                 self._rec.event("resid_drift", drift=d)
                 self._rec.gauge("resid.drift", d)
         return x_fin, flag, relres, total
+
+
+    def _ring_state(self) -> dict:
+        """The ring's part of a snapshot state (nothing when off)."""
+        if self.last_trace is None:
+            return {}
+        return {"trace": self.last_trace.state()}
+
+    def _restore_ring(self, st) -> None:
+        """Restore the ring from a snapshot state that carries one."""
+        if self.last_trace is not None and "trace" in st:
+            self.last_trace.load_state(st["trace"])
 
 
 def auto_dispatch_cap(scfg, glob_n_dof: int, n_loc_dev: int,

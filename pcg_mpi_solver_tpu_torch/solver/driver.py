@@ -79,7 +79,14 @@ from pcg_mpi_solver_tpu_torch.cache.partition_cache import cached_partition
 from pcg_mpi_solver_tpu_torch.config import (
     RunConfig, SolverConfig, TimeHistoryConfig)
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
+from pcg_mpi_solver_tpu_torch.obs import perf as _perf
+from pcg_mpi_solver_tpu_torch.obs.flight import attach_flight
 from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
+from pcg_mpi_solver_tpu_torch.obs.profview import (
+    start_capture, stop_capture)
+from pcg_mpi_solver_tpu_torch.obs.trace import (
+    ConvergenceTrace, clamp_trace_len, empty_trace, trace_init,
+    unpack_trace)
 from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
 from pcg_mpi_solver_tpu_torch.ops.matvec import (
     Ops, bucketed_matvec, build_bucketed_blocks, device_data)
@@ -110,7 +117,7 @@ from pcg_mpi_solver_tpu_torch.solver.pcg import (
 from pcg_mpi_solver_tpu_torch.utils.checkpoint import (
     CheckpointManager, SnapshotStore, array_hash)
 from pcg_mpi_solver_tpu_torch.validate import (
-    PreflightError, check_rhs_block, run_mg_preflight)
+    PreflightError, check_rhs_block, run_preflight)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -199,16 +206,13 @@ def resolve_device(device=None) -> torch.device:
 # ROADMAP queue 1 item that brings it.  A value other than the JAX
 # package's default raises NotImplementedError naming the item.
 UNPORTED = {
-    ("solver", "trace_resid"): 14,
     ("run", "setup_shard"): 12,
-    **{("run", f): 14 for f in (
-        "preflight", "telemetry_path", "flight_path",
-        "telemetry_profile", "profile_dir", "comm_probe_iters")},
 }
 # The JAX package's calc vs comm-wait split (``measure_comm_split``) of a
-# one-device mesh, which the time data records: every part lives on the
-# one device, no collective runs, all is calc (the measured probe of a
-# multi-device mesh is ROADMAP queue 1 item 14)
+# one-device mesh, which the time data records when
+# ``RunConfig.comm_probe_iters`` > 0: every part lives on the one device,
+# no collective runs, all is calc (the probe of a multi-device mesh is
+# ROADMAP queue 1 item 12)
 ONE_DEVICE_COMM = {"comm_frac": 0.0, "full_s_per_iter": 0.0,
                    "calc_s_per_iter": 0.0}
 _DEFAULTS = {"run": RunConfig(), "solver": SolverConfig(),
@@ -340,20 +344,27 @@ class Solver(LadderPieces):
                  recorder: Optional[MetricsRecorder] = None):
         t0 = self._t_init0 = time.perf_counter()
         self.config = config or RunConfig()
-        # telemetry of the chunked path: dispatch spans, recovery,
-        # snapshot and fault events (a recorder without sinks by default)
+        # telemetry: an injected recorder wins; else the default one
+        # (stderr under PCG_TPU_VERBOSE=1, a JSONL sink at telemetry_path)
         self.recorder = recorder if recorder is not None \
-            else MetricsRecorder()
+            else MetricsRecorder.default(
+                jsonl_path=self.config.telemetry_path or None,
+                profile=True if self.config.telemetry_profile else None)
         self._rec = self.recorder
+        # the flight recorder's brackets around every dispatch
+        attach_flight(self._rec, self.config.flight_path, "solver",
+                      pcg_variant=self.config.solver.pcg_variant,
+                      precond=self.config.solver.precond)
         self._model = model              # the checkpoint fingerprint's
         self.device = resolve_device(device)
         n_parts = self.config.n_parts if n_parts is None else n_parts
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
         check_slice(self.config)
-        if self.config.solver.precond == "mg":
-            # the mg hierarchy's preflight, before the partition is built
-            run_mg_preflight(model, self.config)
+        # the preflight gate, before any partition is built (on this path
+        # snapshot_every counts chunks, so no n_steps in the context)
+        run_preflight(model, self.config, recorder=self._rec,
+                      context={"kind": "quasi_static"})
         self.backend = select_backend(model, self.config, n_parts, backend,
                                       elem_part)
         if (backend == "auto" and self.backend == "general"
@@ -499,6 +510,14 @@ class Solver(LadderPieces):
         self._dispatch_cap = auto_dispatch_cap(
             sc, self.pm.glob_n_dof, self.pm.n_loc * self.pm.n_parts,
             force_engage=hybrid)
+        # the convergence ring (obs/trace.py; 0 = off) and the dtype its
+        # norms unpack in: the dot dtype of the Krylov iterations (float32
+        # in the mixed inner cycles, rescaled to absolute residuals)
+        self.trace_len = (clamp_trace_len(sc.trace_resid, sc.max_iter)
+                          if sc.trace_resid > 0 else 0)
+        self._trace_dtype = torch.float32 if self.mixed else dot_dtype
+        self.last_trace: Optional[ConvergenceTrace] = None
+        self._ring = None               # the step's ring, until unpacked
         # settable: tests inject programmatically, PCG_TPU_FAULTS drives
         # drills
         self.fault_plan = FaultPlan.from_env(recorder=self._rec)
@@ -517,7 +536,8 @@ class Solver(LadderPieces):
                 ops32=self.ops32 if self.mixed else None,
                 recorder=self._rec, log=self.dispatch_log,
                 kmul64=(lambda _d, v: self._k64(v))
-                if self._refresh64 is not None else None)
+                if self._refresh64 is not None else None,
+                trace_len=self.trace_len, trace_dtype=self._trace_dtype)
         self.flags: List[int] = []
         self.relres: List[float] = []
         self.iters: List[int] = []
@@ -547,6 +567,33 @@ class Solver(LadderPieces):
         self._rec.gauge("setup.cache", self.setup_cache)
         self._rec.gauge("setup.partition_build_s",
                         round(self.partition_build_s, 3))
+        self._init_cost_model()
+
+    def _init_cost_model(self) -> None:
+        """The analytic cost model of this solve (``obs/perf.py``, the
+        profile of this solver's device) as a ``cost_model`` event and
+        ``perf.*`` gauges; an unknown variant or preconditioner is a loud
+        KeyError."""
+        self._perf_shape = _perf.shape_from_solver(self)
+        self._perf_profile = _perf.resolve_profile(self.device.type)
+        self._cost_models_by_width = {}
+        self._cost_model = self._cost_model_at(self.config.solver.nrhs)
+        _perf.emit_cost_model(self._rec, self._cost_model)
+
+    def _cost_model_at(self, nrhs: int) -> dict:
+        """The cost model at block width ``nrhs`` (one table walk a width,
+        kept)."""
+        nrhs = max(1, int(nrhs))
+        if nrhs not in self._cost_models_by_width:
+            sc = self.config.solver
+            self._cost_models_by_width[nrhs] = _perf.cost_model(
+                self._perf_shape, sc.pcg_variant, sc.precond, nrhs,
+                self._perf_profile)
+        return self._cost_models_by_width[nrhs]
+
+    def predicted_ms_per_iter(self, nrhs: int = 1) -> float:
+        """The cost model's ms/iter at block width ``nrhs``."""
+        return float(self._cost_model_at(nrhs)["predicted_ms_per_iter"])
 
     def _partition_cached(self, label: str, build: Callable, *,
                           n_parts: int, method: str = "n/a",
@@ -691,10 +738,12 @@ class Solver(LadderPieces):
         ``pcg`` / ``pcg_mixed`` call."""
         t0 = time.perf_counter()
         delta = float(delta)
+        self._ring = None
         if self._dispatch_cap > 0:
             flag, relres, iters = self._step_chunked(delta)
         else:
-            flag, relres, iters = self._step_oneshot(delta)
+            with self._rec.dispatch("step"):
+                flag, relres, iters = self._step_oneshot(delta)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -704,6 +753,19 @@ class Solver(LadderPieces):
         self.iters.append(out.iters)
         self.step_times.append(wall)
         self._proc_step_times.append(wall)
+        step_i = len(self.flags)
+        # time_to_tol_s: wall to a converged step, null on any other flag
+        self._rec.event("step", step=step_i, flag=out.flag,
+                        relres=out.relres, iters=out.iters,
+                        wall_s=round(wall, 6),
+                        time_to_tol_s=(round(wall, 6) if out.flag == 0
+                                       else None))
+        if self.trace_len:
+            self.last_trace = (unpack_trace(self._ring)
+                               if self._ring is not None else empty_trace())
+            self._ring = None
+            self._rec.event("resid_trace",
+                            **self.last_trace.to_event_fields(step_i))
         return out
 
     def _step_oneshot(self, delta: float):
@@ -711,6 +773,9 @@ class Solver(LadderPieces):
         udi, fext, x0 = self._lift(delta)
         glob_n_eff = self.pm.glob_n_dof_eff
         prec = self._make_prec(sc.precond)
+        ring = (trace_init(self.trace_len, self._trace_dtype)
+                if self.trace_len else None)
+        self._ring = ring
         if self.mixed:
             res = pcg_mixed(
                 self.ops32, self.data32, self.ops, self.data,
@@ -720,6 +785,7 @@ class Solver(LadderPieces):
                 max_stag_steps=sc.max_stag_steps,
                 inner_tol=sc.inner_tol,
                 variant=sc.pcg_variant,
+                trace_in=ring,
                 **mixed_windows(sc),
             )
         else:
@@ -729,6 +795,7 @@ class Solver(LadderPieces):
                 glob_n_dof_eff=glob_n_eff,
                 max_stag_steps=sc.max_stag_steps,
                 variant=sc.pcg_variant,
+                trace_in=ring,
             )
         self.un = res.x + udi
         return res.flag, res.relres, res.iters
@@ -775,13 +842,16 @@ class Solver(LadderPieces):
 
         data = {"f64": self.data, "f32": self.data32} if self.mixed \
             else self.data
-        _engine, x_fin, flag, relres, total = run_with_recovery(
+        engine, x_fin, flag, relres, total = run_with_recovery(
             self._engine, data, fext, carry, normr0, n2b, prec,
             scfg=sc, mixed=self.mixed, recorder=rec,
             hooks=RecoveryHooks(restart=restart, cold_restart=cold_restart,
                                 fallback_prec=self._fallback_prec,
                                 escalation=self._escalation),
             resilience=ctx)
+        # the ring of the engine that ran the final attempt (none after
+        # an escalation, as in the JAX package)
+        self._ring = engine.last_trace
         if ctx is not None:
             ctx.discard()       # the step is complete: its snapshot goes
         self.un = x_fin + udi
@@ -897,6 +967,13 @@ class Solver(LadderPieces):
             self._maybe_export(store, 0)
         if t_start == 1:
             self._probe_u = []
+        # profile_dir: a torch.profiler capture around the steps
+        prof_dir = self.config.profile_dir
+        if prof_dir and speed:
+            warnings.warn("profile_dir is ignored in speed-test mode "
+                          "(speed_test disables all I/O)")
+        prof = start_capture(self.device) if prof_dir and not speed \
+            else None
         results = []
         try:
             for t in range(t_start, len(deltas)):
@@ -913,6 +990,11 @@ class Solver(LadderPieces):
                     on_step(t, res)
         finally:
             self._resume_pending = False
+            if prof is not None:
+                # the pointer post-mortems follow to the artifact
+                art = stop_capture(prof, prof_dir)
+                self._rec.event("profile_capture", path=art, source="solve",
+                                steps=len(results))
         if do_export:
             store.write_time_list(self._export_times)
         if do_plot and self._probe_u:
@@ -920,8 +1002,12 @@ class Solver(LadderPieces):
             store.write_plot_data(times, np.stack(self._probe_u, axis=1),
                                   th.probe_dofs)
         if store is not None and not speed:
+            comm = (ONE_DEVICE_COMM if self.config.comm_probe_iters > 0
+                    else None)
             store.write_time_data(self.pm.n_parts,
-                                  self.time_data(t_prep, ONE_DEVICE_COMM))
+                                  self.time_data(t_prep, comm))
+        # the end-of-run counters, gauges and dispatch attribution
+        self._rec.emit_run_summary()
         return results
 
     def _maybe_export(self, store, t: int) -> None:

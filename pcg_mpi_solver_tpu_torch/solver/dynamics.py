@@ -30,6 +30,7 @@ import torch
 
 from pcg_mpi_solver_tpu_torch.config import RunConfig
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
+from pcg_mpi_solver_tpu_torch.obs.flight import attach_flight
 from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
@@ -39,7 +40,7 @@ from pcg_mpi_solver_tpu_torch.solver.backends import select_time_backend
 from pcg_mpi_solver_tpu_torch.solver.driver import (
     _DTYPES, check_slice, owned_global, resolve_device)
 from pcg_mpi_solver_tpu_torch.utils.checkpoint import SnapshotStore
-from pcg_mpi_solver_tpu_torch.validate import run_time_preflight
+from pcg_mpi_solver_tpu_torch.validate import run_preflight
 
 
 def stable_dt(model: ModelData, safety: float = 0.9) -> float:
@@ -75,9 +76,13 @@ class DynamicsSolver:
                  backend: str = "auto",
                  recorder: Optional[MetricsRecorder] = None, device=None):
         self.config = config or RunConfig()
+        # telemetry and the flight recorder, wired as Solver's
         self.recorder = recorder if recorder is not None \
-            else MetricsRecorder()
+            else MetricsRecorder.default(
+                jsonl_path=self.config.telemetry_path or None,
+                profile=True if self.config.telemetry_profile else None)
         self._rec = self.recorder
+        attach_flight(self._rec, self.config.flight_path, "dynamics")
         self._model = model              # the checkpoint fingerprint's
         self.device = resolve_device(device)
         check_slice(self.config)
@@ -92,9 +97,9 @@ class DynamicsSolver:
         self.damping = float(damping)
         # an explicit caller dt above the CFL bound fails here; a model
         # file's dt only warns (in the preflight event)
-        run_time_preflight(model, self.config,
-                           {"kind": "dynamics", "dt": self.dt,
-                            "dt_source": dt_source}, recorder=self._rec)
+        run_preflight(model, self.config, recorder=self._rec,
+                      context={"kind": "dynamics", "dt": self.dt,
+                               "dt_source": dt_source})
         self.dtype = _DTYPES[self.config.solver.dtype]
         # the checkpoint fingerprint's fields: no mixed shadow, no mg, no
         # refresh operator
@@ -311,6 +316,7 @@ class DynamicsSolver:
                 if st is not None:
                     u, v = st["u"], st["v"]
         self.u, self.v = u, v
+        self._rec.emit_run_summary()
         probe_u = (_probe_cat().T[:len(self._probe)] if len(self._probe)
                    else np.zeros((0, n_steps)))
         return DynamicsResult(

@@ -37,7 +37,11 @@ import torch
 
 from pcg_mpi_solver_tpu_torch.config import RunConfig
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
+from pcg_mpi_solver_tpu_torch.obs.flight import attach_flight
 from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
+from pcg_mpi_solver_tpu_torch.obs.trace import (
+    ConvergenceTrace, clamp_trace_len, empty_trace, trace_init,
+    unpack_trace)
 from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
 from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
 from pcg_mpi_solver_tpu_torch.ops.precond import invert_node_blocks
@@ -56,7 +60,7 @@ from pcg_mpi_solver_tpu_torch.solver.driver import (
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
     _np_type, _read, cold_carry, pcg, pcg_mixed)
 from pcg_mpi_solver_tpu_torch.utils.checkpoint import SnapshotStore
-from pcg_mpi_solver_tpu_torch.validate import run_time_preflight
+from pcg_mpi_solver_tpu_torch.validate import run_preflight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,17 +130,22 @@ class NewmarkSolver(LadderPieces):
                  recorder: Optional[MetricsRecorder] = None, device=None):
         self.config = config or RunConfig()
         sc = self.config.solver
+        # telemetry and the flight recorder, wired as Solver's
         self.recorder = recorder if recorder is not None \
-            else MetricsRecorder()
+            else MetricsRecorder.default(
+                jsonl_path=self.config.telemetry_path or None,
+                profile=True if self.config.telemetry_profile else None)
         self._rec = self.recorder
+        attach_flight(self._rec, self.config.flight_path, "newmark",
+                      pcg_variant=sc.pcg_variant, precond=sc.precond)
         self._model = model              # the checkpoint fingerprint's
         self.device = resolve_device(device)
         check_slice(self.config)
         n_parts = self.config.n_parts if n_parts is None else n_parts
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
-        run_time_preflight(model, self.config, {"kind": "newmark"},
-                           recorder=self._rec)
+        run_preflight(model, self.config, recorder=self._rec,
+                      context={"kind": "newmark"})
         if beta <= 0:
             raise ValueError("NewmarkSolver requires beta > 0 (beta == 0 is "
                              "the explicit path: solver/dynamics.py)")
@@ -239,6 +248,12 @@ class NewmarkSolver(LadderPieces):
             torch.cuda.synchronize(self.device)
         self.upload_s = time.perf_counter() - t_up
 
+        # the convergence ring (trace_resid), as Solver's
+        self.trace_len = (clamp_trace_len(sc.trace_resid, sc.max_iter)
+                          if sc.trace_resid > 0 else 0)
+        self._trace_dtype = torch.float32 if self.mixed else dot_dtype
+        self.last_trace: Optional[ConvergenceTrace] = None
+        self._ring = None
         # the chunked path at the JAX package's auto cap (4 M dofs)
         self._dispatch_cap = auto_dispatch_cap(
             sc, pm.glob_n_dof, pm.n_loc * pm.n_parts)
@@ -249,7 +264,8 @@ class NewmarkSolver(LadderPieces):
                 ops=self.ops, scfg=sc, glob_n_dof_eff=pm.glob_n_dof_eff,
                 cap=self._dispatch_cap, mixed=self.mixed,
                 ops32=self.ops32 if self.mixed else None,
-                recorder=self._rec, log=self.dispatch_log)
+                recorder=self._rec, log=self.dispatch_log,
+                trace_len=self.trace_len, trace_dtype=self._trace_dtype)
         self._esc_engine = None
         # settable: tests inject programmatically, PCG_TPU_FAULTS drives
         # drills (the step domain too, ``kill@s:N``)
@@ -301,18 +317,22 @@ class NewmarkSolver(LadderPieces):
         udi, fext = self._effective_force(delta)
         x0 = self.data["eff"] * self.u
         glob_n_eff = self.pm.glob_n_dof_eff
+        ring = (trace_init(self.trace_len, self._trace_dtype)
+                if self.trace_len else None)
+        self._ring = ring
         if self.mixed:
             res = pcg_mixed(
                 self.ops32, self.data32, self.ops, self.data, fext, x0,
                 self._prec, tol=sc.tol, max_iter=sc.max_iter,
                 glob_n_dof_eff=glob_n_eff, max_stag_steps=sc.max_stag_steps,
-                inner_tol=sc.inner_tol, variant=sc.pcg_variant)
+                inner_tol=sc.inner_tol, variant=sc.pcg_variant,
+                trace_in=ring)
         else:
             res = pcg(self.ops, self.data, fext, x0, self._prec,
                       tol=sc.tol, max_iter=sc.max_iter,
                       glob_n_dof_eff=glob_n_eff,
                       max_stag_steps=sc.max_stag_steps,
-                      variant=sc.pcg_variant)
+                      variant=sc.pcg_variant, trace_in=ring)
         self._kinematics(res.x, udi, delta)
         return res.flag, res.relres, res.iters
 
@@ -356,7 +376,7 @@ class NewmarkSolver(LadderPieces):
 
             data = ({"f64": self.data, "f32": self.data32} if self.mixed
                     else self.data)
-            _eng, x_fin, flag, relres, total = run_with_recovery(
+            eng, x_fin, flag, relres, total = run_with_recovery(
                 self._engine, data, fext, carry, normr0, n2b, self._prec,
                 scfg=sc, mixed=self.mixed, recorder=rec,
                 hooks=RecoveryHooks(restart=restart,
@@ -364,6 +384,7 @@ class NewmarkSolver(LadderPieces):
                                     fallback_prec=self._fallback_prec,
                                     escalation=self._escalation),
                 resilience=self._make_resilience())
+            self._ring = eng.last_trace
         self._kinematics(x_fin, udi, delta)
         return flag, relres, total
 
@@ -417,10 +438,12 @@ class NewmarkSolver(LadderPieces):
         ``pcg_mixed`` call on A."""
         t0 = time.perf_counter()
         delta = float(delta_next)
+        self._ring = None
         if self._dispatch_cap > 0:
             flag, relres, iters = self._step_chunked(delta)
         else:
-            flag, relres, iters = self._step_oneshot(delta)
+            with self._rec.dispatch("step"):
+                flag, relres, iters = self._step_oneshot(delta)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -428,9 +451,16 @@ class NewmarkSolver(LadderPieces):
         self.flags.append(res.flag)
         self.relres.append(res.relres)
         self.iters.append(res.iters)
-        self._rec.event("step", step=len(self.flags), flag=res.flag,
+        step_i = len(self.flags)
+        self._rec.event("step", step=step_i, flag=res.flag,
                         relres=res.relres, iters=res.iters,
                         wall_s=round(wall, 6))
+        if self.trace_len:
+            self.last_trace = (unpack_trace(self._ring)
+                               if self._ring is not None else empty_trace())
+            self._ring = None
+            self._rec.event("resid_trace",
+                            **self.last_trace.to_event_fields(step_i))
         return res
 
     def run(self, load_factor: Sequence[float],
@@ -490,6 +520,7 @@ class NewmarkSolver(LadderPieces):
                 st = guard.boundary(t, lambda: self._history_state(t, deltas))
                 if st is not None:
                     self.u, self.v, self.w = st["u"], st["v"], st["w"]
+        self._rec.emit_run_summary()
         return results
 
     def displacement_global(self) -> np.ndarray:

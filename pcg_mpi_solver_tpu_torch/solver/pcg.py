@@ -53,6 +53,7 @@ Iteration counts differ from classic by O(1).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -105,6 +106,28 @@ class PCGResult(NamedTuple):
     # blocked solves (pcg_many, pcg_mixed_many): the lockstep trips, one
     # blocked storage-dtype matvec each
     trips: int = 0
+
+
+# The profiler ranges of a trip's phases (``obs/profview.PHASE_SCOPES``):
+# entered only while a profiler capture is on; otherwise every scope is
+# this one shared null context.
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _no_range(_name: str):
+    return _NO_RANGE
+
+
+def phase_scopes():
+    """``scope(name)`` for the phase ranges ``pcg/matvec``,
+    ``pcg/precond``, ``pcg/reduce`` and ``pcg/axpy``: a
+    ``torch.profiler.record_function`` range while a profiler capture is
+    on (decided once a call), else a shared null context."""
+    if torch.autograd._profiler_enabled():
+        from torch.profiler import record_function
+
+        return record_function
+    return _no_range
 
 
 def _np_type(dtype: torch.dtype):
@@ -229,6 +252,7 @@ class _Carry:
     p: torch.Tensor
     rho: object               # 0-d dot-dtype tensor on the device (classic,
                               # fused); numpy scalar (pipelined)
+    rho_h: object             # rho on the host (dot dtype)
     i: int
     flag: int
     stag: int
@@ -280,6 +304,8 @@ def pcg(
     progress_window: int = 0,
     progress_ratio: float = 0.7,
     progress_min_gain: float = 30.0,
+    trace_in=None,
+    trace_scale=None,
 ):
     """Returns PCGResult, or (PCGResult, carry) with ``return_carry``.
 
@@ -308,7 +334,17 @@ def pcg(
     cycle already contracted ||fext|| by ``progress_min_gain``.  Their
     clocks ride the carry (``since_best``, ``best_at_reset``,
     ``win_start``, ``win_count``), so capped calls resume them exactly;
-    a check forced by the pipelined cadence alone does not tick them."""
+    a check forced by the pipelined cadence alone does not tick them.
+
+    ``trace_in`` (an ``obs/trace.py`` ring) records (normr, rho, stag,
+    flag) once per committed iteration, as the JAX package's ring does
+    (its slots: the epilogue of an iterate, immediate or by the deferred
+    check with the true residual, and the breakdown trip with its dying
+    flag; a lagged trip right after a failed check resolves no new
+    iterate and records nothing), in place: capped calls in sequence
+    pass the same ring.  ``trace_scale`` rescales the recorded norms (a
+    mixed inner cycle iterates on r / ||r||: scale = ||r||).  A record
+    is a host row write, never a device operation or a read."""
     if variant not in VALID_PCG_VARIANTS:
         raise ValueError(f"pcg variant must be one of "
                          f"{VALID_PCG_VARIANTS}, got {variant!r}")
@@ -323,17 +359,25 @@ def pcg(
     eff = data["eff"]
     w = data["weight"] * eff
     eps = f(np.finfo(fs).eps)
+    scope = phase_scopes()
+    ring = trace_in
+
+    def record(normr, rho_h, stag, flag):
+        if ring is not None:
+            ring.record(normr, rho_h, stag, flag, trace_scale)
 
     # MATLAB: maxmsteps = min([floor(n/50), 5, n-maxit])
     nominal = max_iter_nominal if max_iter_nominal is not None else max_iter
     maxmsteps = min(glob_n_dof_eff // 50, 5, glob_n_dof_eff - nominal)
 
-    n2b = np.sqrt(f(_read(ops.wdot(w, fext, fext))[0]))
+    with scope("pcg/reduce"):
+        n2b = np.sqrt(f(_read(ops.wdot(w, fext, fext))[0]))
     tolb = f(tol) * n2b
 
     def amul(v):
         """Assembled K.v restricted to effective dofs."""
-        return eff * ops.matvec(data, v)
+        with scope("pcg/matvec"):
+            return eff * ops.matvec(data, v)
 
     if warm:
         x0, r0 = carry_in["x"], carry_in["r"]
@@ -342,7 +386,8 @@ def pcg(
         r0, normr0 = fext, n2b
     else:
         r0 = fext - amul(x0)
-        normr0 = np.sqrt(f(_read(ops.wdot(w, r0, r0))[0]))
+        with scope("pcg/reduce"):
+            normr0 = np.sqrt(f(_read(ops.wdot(w, r0, r0))[0]))
 
     zero_rhs = bool(n2b == 0)
     # a resumed recurrence variant's norm is its predecessor iterate's
@@ -353,7 +398,8 @@ def pcg(
     def dev_scalar(v):
         return torch.tensor(_host(v), dtype=dd, device=fext.device)
 
-    c = _Carry(x=x0, r=r0, p=st["p"], rho=dev_scalar(st["rho"]), i=0,
+    c = _Carry(x=x0, r=r0, p=st["p"], rho=dev_scalar(st["rho"]),
+               rho_h=f(_host(st["rho"])), i=0,
                flag=0 if (zero_rhs or initial_ok) else 1,
                stag=int(_host(st["stag"])),
                moresteps=int(_host(st["moresteps"])), iter_out=0,
@@ -378,8 +424,8 @@ def pcg(
         c.rho = f(_host(st["rho"]))
         early = _EarlyRead(fext.device, 6)
 
-    def resolve(x, r, p, rho, stag, normr_act, candidate, advance=True,
-                extra=None, tick=True):
+    def resolve(x, r, p, rho, rho_h, stag, normr_act, candidate,
+                advance=True, extra=None, tick=True, rec=True):
         """Iteration epilogue: stag reset / MoreSteps / min-residual
         bookkeeping and the flag decision; ``candidate`` marks a
         true-residual check (then ``normr_act`` is the recomputed actual
@@ -389,7 +435,8 @@ def pcg(
         fresh update.  ``advance=False`` keeps ``i`` (a lagged check
         committed no update).  ``tick=False`` (a check forced by the
         pipelined cadence alone) freezes the windows' clocks and their
-        verdicts."""
+        verdicts.  ``rec=False`` (a lagged trip whose iterate a failed
+        check already resolved) writes no trace record."""
         i = c.i
         converged = candidate and bool(normr_act <= tolb)
         failed_check = candidate and not converged
@@ -422,7 +469,9 @@ def pcg(
         stagnated = stag >= max_stag_steps and live
         c.flag = 0 if converged else 3 if (
             toosmall or stagnated or plateaued or no_progress) else 1
-        c.x, c.r, c.p, c.rho, c.stag = x, r, p, rho, stag
+        if rec:
+            record(normr_act, rho_h, stag, c.flag)
+        c.x, c.r, c.p, c.rho, c.rho_h, c.stag = x, r, p, rho, rho_h, stag
         c.iter_out = i
         c.i = i if (c.flag != 1 or not advance) else i + 1
         c.normr_act = normr_act
@@ -432,32 +481,40 @@ def pcg(
 
     def true_norm(x):
         """(fext - A.x, its norm): the deferred check's actual residual."""
-        r_true = fext - amul(x)
-        return r_true, np.sqrt(f(_read(ops.wdot(w, r_true, r_true))[0]))
+        kx = amul(x)
+        with scope("pcg/reduce"):
+            r_true = fext - kx
+            return r_true, np.sqrt(f(_read(ops.wdot(w, r_true, r_true))[0]))
 
     def classic_check():
         # recompute the ACTUAL residual of the committed iterate before
         # declaring convergence
         r_true, normr_act = true_norm(c.x)
-        resolve(c.x, r_true, c.p, c.rho, c.stag, normr_act, True)
+        resolve(c.x, r_true, c.p, c.rho, c.rho_h, c.stag, normr_act, True)
 
     def classic_trip():
         i = c.i
-        z = ops.apply_prec(inv_diag, c.r, data)
-        inf_loc = torch.isinf(z).any()
-        red = ops.wdots(w, [(z, c.r)], extra=[inf_loc])
-        rho = red[0]
-        beta = (rho / c.rho).to(dt)
+        with scope("pcg/precond"):
+            z = ops.apply_prec(inv_diag, c.r, data)
+        with scope("pcg/reduce"):
+            inf_loc = torch.isinf(z).any()
+            red = ops.wdots(w, [(z, c.r)], extra=[inf_loc])
+            rho = red[0]
+            beta = (rho / c.rho).to(dt)
         # a resumed call continues the direction recurrence on its first
         # trip (and tests its beta there)
         first = i == 0 and not warm
-        p = z if first else z + beta * c.p
+        with scope("pcg/axpy"):
+            p = z if first else z + beta * c.p
         q = amul(p)
-        pq = ops.wdot(w, p, q)
-        alpha = (rho / pq).to(dt)
-        r = c.r - alpha * q
-        sq = ops.wdots(w, [(p, p), (c.x, c.x), (r, r)])
-        v = _read(rho, red[1], beta, pq, alpha, sq[0], sq[1], sq[2])
+        with scope("pcg/reduce"):
+            pq = ops.wdot(w, p, q)
+            alpha = (rho / pq).to(dt)
+        with scope("pcg/axpy"):
+            r = c.r - alpha * q
+        with scope("pcg/reduce"):
+            sq = ops.wdots(w, [(p, p), (c.x, c.x), (r, r)])
+            v = _read(rho, red[1], beta, pq, alpha, sq[0], sq[1], sq[2])
         rho_h, beta_h, pq_h, alpha_h = f(v[0]), fs(v[2]), f(v[3]), fs(v[4])
         flag2 = bool(v[1] > 0)
         breakdown = (rho_h == 0 or np.isinf(rho_h)
@@ -466,23 +523,26 @@ def pcg(
         if flag2 or breakdown:
             c.flag = 2 if flag2 else 4
             c.iter_out = i
-            c.rho = rho
+            # the dying trip's record: the last norm, this trip's rho
+            record(c.normr_act, rho_h, c.stag, c.flag)
+            c.rho, c.rho_h = rho, rho_h
             return
 
         normp, normx, normr = (np.sqrt(f(v[5])), np.sqrt(f(v[6])),
                                np.sqrt(f(v[7])))
         stag = c.stag + 1 if normp * f(abs(alpha_h)) < eps * normx else 0
-        x = c.x + alpha * p
+        with scope("pcg/axpy"):
+            x = c.x + alpha * p
         candidate = (normr <= tolb or stag >= max_stag_steps
                      or c.moresteps > 0)
         if candidate:
             # COMMIT the iterate but defer the epilogue to the next trip's
             # true-residual check; i, flag and the bookkeeping wait
-            c.x, c.r, c.p, c.rho, c.stag = x, r, p, rho, stag
+            c.x, c.r, c.p, c.rho, c.rho_h, c.stag = x, r, p, rho, rho_h, stag
             c.iter_out = i
             c.mode = 1
         else:
-            resolve(x, r, p, rho, stag, normr, False)
+            resolve(x, r, p, rho, rho_h, stag, normr, False)
 
     def lagged_stag(normr, normp, normx):
         """(already, stag, natural candidacy) of the lagged iterate: the
@@ -512,6 +572,8 @@ def pcg(
                      or np.isinf(alpha))
         if (flag2 or breakdown) and not candidate:
             c.flag, c.iter_out, c.rho = (2 if flag2 else 4), i, rho
+            c.rho_h = rho_h
+            record(normr, rho_h, stag, c.flag)
             return True
         if candidate:
             c.stag, c.iter_out, c.mode, c.chk_normr = stag, i, 1, normr
@@ -535,30 +597,34 @@ def pcg(
         if pipelined:
             extra.update(init=1, sc=0, chk_forced=0)
         natural = c.chk_forced == 0
-        resolve(c.x, r_true, c.p, c.rho, c.stag, normr_act, natural,
-                advance=False, extra=extra, tick=natural)
+        resolve(c.x, r_true, c.p, c.rho, c.rho_h, c.stag, normr_act,
+                natural, advance=False, extra=extra, tick=natural)
         if c.flag == 1 and drift >= drift_limit:
             c.flag = DRIFT_FLAG
 
     def fused_trip():
         i = c.i
-        z = ops.apply_prec(inv_diag, c.r, data)
+        with scope("pcg/precond"):
+            z = ops.apply_prec(inv_diag, c.r, data)
         wz = amul(z)
-        inf_loc = torch.isinf(z).any()
-        red = ops.wdots(w, [(c.r, z), (z, wz), (c.r, c.r), (c.p, c.p),
-                            (c.x, c.x)], extra=[inf_loc])
-        rho, mu = red[0], red[1]
-        # Chronopoulos–Gear scalars on the device, in the dot dtype
-        beta = rho / c.rho
-        pq = mu - beta * rho / c.alpha
-        alpha = rho / pq
+        with scope("pcg/reduce"):
+            inf_loc = torch.isinf(z).any()
+            red = ops.wdots(w, [(c.r, z), (z, wz), (c.r, c.r), (c.p, c.p),
+                                (c.x, c.x)], extra=[inf_loc])
+            rho, mu = red[0], red[1]
+            # Chronopoulos–Gear scalars on the device, in the dot dtype
+            beta = rho / c.rho
+            pq = mu - beta * rho / c.alpha
+            alpha = rho / pq
         # the update, queued speculatively (dropped on a candidate trip)
-        beta_dt, alpha_dt = beta.to(dt), alpha.to(dt)
-        p = z + beta_dt * c.p
-        q = wz + beta_dt * c.q
-        x = c.x + alpha_dt * p
-        r = c.r - alpha_dt * q
-        v = _read(red, beta, pq, alpha)
+        with scope("pcg/axpy"):
+            beta_dt, alpha_dt = beta.to(dt), alpha.to(dt)
+            p = z + beta_dt * c.p
+            q = wz + beta_dt * c.q
+            x = c.x + alpha_dt * p
+            r = c.r - alpha_dt * q
+        with scope("pcg/reduce"):
+            v = _read(red, beta, pq, alpha)
         normr, normp, normx = (np.sqrt(f(v[2])), np.sqrt(f(v[3])),
                                np.sqrt(f(v[4])))
         flag2 = bool(v[5] > 0)
@@ -567,27 +633,31 @@ def pcg(
         if lagged_stop(i, (f(v[0]), f(v[6]), f(v[7]), alpha_h), rho, stag,
                        normr, flag2, natural and not already):
             return
-        resolve(c.x, c.r, c.p, rho, stag, normr, False,
+        resolve(c.x, c.r, c.p, rho, f(v[0]), stag, normr, False,
                 extra=dict(x=x, r=r, p=p, q=q, alpha=alpha, alpha_h=alpha_h,
-                           fresh=1))
+                           fresh=1), rec=not already)
 
     def pipelined_trip():
         i = c.i
         if c.init:
             # priming: u0 = M^-1.r0, w0 = A.u0; nothing else is committed
-            c.u = ops.apply_prec(inv_diag, c.r, data)
+            with scope("pcg/precond"):
+                c.u = ops.apply_prec(inv_diag, c.r, data)
             c.w = amul(c.u)
             c.init = 0
             return
         # the ONE reduction, on carry leaves only, queued first and read
         # back while the trip's preconditioner and stencil run
-        inf_loc = torch.isinf(c.u).any()
-        red = ops.wdots(w, [(c.r, c.u), (c.w, c.u), (c.r, c.r),
-                            (c.p, c.p), (c.x, c.x)], extra=[inf_loc])
-        early.start(red)
-        m = ops.apply_prec(inv_diag, c.w, data)
+        with scope("pcg/reduce"):
+            inf_loc = torch.isinf(c.u).any()
+            red = ops.wdots(w, [(c.r, c.u), (c.w, c.u), (c.r, c.r),
+                                (c.p, c.p), (c.x, c.x)], extra=[inf_loc])
+            early.start(red)
+        with scope("pcg/precond"):
+            m = ops.apply_prec(inv_diag, c.w, data)
         km = amul(m)
-        v = early.wait()
+        with scope("pcg/reduce"):
+            v = early.wait()
         gamma, delta = f(v[0]), f(v[1])
         normr, normp, normx = (np.sqrt(f(v[2])), np.sqrt(f(v[3])),
                                np.sqrt(f(v[4])))
@@ -604,14 +674,16 @@ def pcg(
                        flag2, candidate, forced and not natural):
             return
         b, a = float(fs(beta)), float(fs(alpha))
-        p = c.u + b * c.p           # p = 0 cold => p = u
-        s = c.w + b * c.s           # A.p by recurrence
-        q = m + b * c.q             # M^-1.s by recurrence
-        z = km + b * c.z            # A.q by recurrence
-        resolve(c.x, c.r, c.p, gamma, stag, normr, False,
-                extra=dict(x=c.x + a * p, r=c.r - a * s, p=p, s=s, q=q, z=z,
-                           u=c.u - a * q, w=c.w - a * z, alpha_h=alpha,
-                           fresh=1, sc=c.sc + 1))
+        with scope("pcg/axpy"):
+            p = c.u + b * c.p           # p = 0 cold => p = u
+            s = c.w + b * c.s           # A.p by recurrence
+            q = m + b * c.q             # M^-1.s by recurrence
+            z = km + b * c.z            # A.q by recurrence
+            upd = dict(x=c.x + a * p, r=c.r - a * s, p=p, s=s, q=q, z=z,
+                       u=c.u - a * q, w=c.w - a * z)
+        resolve(c.x, c.r, c.p, gamma, gamma, stag, normr, False,
+                extra=dict(upd, alpha_h=alpha, fresh=1, sc=c.sc + 1),
+                rec=not already)
 
     trip, check = {"classic": (classic_trip, classic_check),
                    "fused": (fused_trip, lagged_check),
@@ -677,6 +749,7 @@ def pcg_mixed(
     progress_window: int = 0,
     progress_ratio: float = 0.7,
     progress_min_gain: float = 30.0,
+    trace_in=None,
 ) -> PCGResult:
     """Mixed-precision PCG by iterative refinement: f32 Krylov cycles on
     the NORMALIZED residual r/||r||, with the true residual recomputed and
@@ -686,7 +759,10 @@ def pcg_mixed(
     cycle failed to halve it (stall); 2 after an inner inf-preconditioner
     exit; 1 when ``max_outer`` cycles or ``max_iter`` inner iterations are
     spent.  ``iters`` is the total of executed inner iterations.  The
-    windows (``pcg``) run in every inner cycle."""
+    windows (``pcg``) run in every inner cycle.  ``trace_in`` (an
+    ``obs/trace.py`` ring of float32) records the inner iterations,
+    rescaled by each cycle's float64 refresh norm so the trace reads as
+    absolute residuals across cycles."""
     eff64 = data64["eff"]
     w64 = data64["weight"] * eff64
     f = _np_type(ops64.dot_dtype)
@@ -732,6 +808,8 @@ def pcg_mixed(
                 return_carry=True,
                 x0_zero=True,
                 variant=variant,
+                trace_in=trace_in,
+                trace_scale=normr,
                 **windows,
             )
             # return_carry skips the min-residual finalize: on a

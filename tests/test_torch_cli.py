@@ -4,7 +4,10 @@ cpu`` (ingest -> partition -> solve -> export on a model written in the
 reference's MDF format, the cube, Poisson and octree demos, the speed
 test, the backend flag), a bundle the JAX package wrote, one run as a
 subprocess, and every subcommand the port does not have yet refused with
-its ROADMAP queue 1 item.
+its ROADMAP queue 1 item.  The observability subcommands (``summary``,
+``telemetry-merge``, ``perf-report``, ``prof-report``) and the per-run
+telemetry flags run against the JAX package's CLI where both read the
+same files.
 
 The time-history subcommands run on an ingested 4x3x3 bundle against the
 JAX package's CLI on the same scratch directory (2 parts): ``dynamics``
@@ -169,8 +172,6 @@ def test_unported_subcommands_name_their_item(cmd):
 
 @pytest.mark.parametrize("argv,item", [
     (["solve", "sc", "1", "--resume-elastic"], 12),
-    (["solve", "{scratch}", "1", "--telemetry-out", "t.jsonl"], 14),
-    (["solve", "{scratch}", "1", "--trace-resid", "8"], 14),
 ])
 def test_unported_flags_name_their_item(tmp_path, argv, item):
     archive, scratch = _bundle(tmp_path, make_cube_model(3, 3, 3))
@@ -178,7 +179,136 @@ def test_unported_flags_name_their_item(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
         main([a.format(scratch=scratch) for a in argv] + (
             CPU if argv[0] == "solve" else []))
-    assert len(REFUSED) == 14 and set(REFUSED.values()) == {1, 14}
+    assert len(REFUSED) == 10 and set(REFUSED.values()) == {1, 14}
+
+
+@pytest.fixture
+def telemetry_run(tmp_path, capsys):
+    """A chunked CPU solve of an ingested cube with every telemetry flag:
+    (scratch, telemetry file, flight file, its printed output)."""
+    archive, scratch = _bundle(tmp_path, make_cube_model(
+        4, 3, 3, heterogeneous=True))
+    main(["ingest", archive, scratch])
+    capsys.readouterr()
+    tel, fl = str(tmp_path / "run.jsonl"), str(tmp_path / "flight.jsonl")
+    main(["solve", scratch, "1", "--tol", "1e-8", "--precision", "mixed",
+          "--telemetry-out", tel, "--flight-out", fl, "--trace-resid", "32",
+          "--summary", "--profile-spans", "--preflight", "warn",
+          "--profile-dir", str(tmp_path / "prof")] + CPU)
+    return scratch, tel, fl, capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", ["--telemetry-out", "--trace-resid",
+                                  "--flight-out", "--summary",
+                                  "--profile-spans", "--preflight",
+                                  "--profile-dir"])
+def test_run_flags_take_effect(telemetry_run, flag):
+    """Each per-run telemetry flag shows in what the solve left behind."""
+    import json
+
+    scratch, tel, fl, out = telemetry_run
+    events = [json.loads(ln) for ln in open(tel)]
+    kinds = [e["kind"] for e in events]
+    if flag == "--telemetry-out":
+        assert kinds[-1] == "run_summary" and "step" in kinds
+        assert f">telemetry: {tel}" in out
+    elif flag == "--trace-resid":
+        rt = [e for e in events if e["kind"] == "resid_trace"]
+        assert len(rt) == 1 and len(rt[0]["normr"]) == 32
+    elif flag == "--flight-out":
+        from pcg_mpi_solver_tpu.obs.flight import flight_verdict_path
+
+        assert flight_verdict_path(fl)["verdict"] == "clean"
+    elif flag == "--summary":
+        assert "dispatch                  calls" in out
+    elif flag == "--profile-spans":
+        from pcg_mpi_solver_tpu_torch.obs.profview import (
+            find_trace_files, read_trace_events)
+
+        evs, _ = read_trace_events(find_trace_files(
+            os.path.join(os.path.dirname(tel), "prof"))[0])
+        assert any(str(e.get("name", "")).startswith("pcg-tpu/")
+                   for e in evs)
+    elif flag == "--preflight":
+        pre = [e for e in events if e["kind"] == "preflight"]
+        assert pre and pre[0]["policy"] == "warn"
+    else:
+        caps = [e for e in events if e["kind"] == "profile_capture"]
+        assert caps and caps[0]["source"] == "solve"
+
+
+def _merge_shards(tmp_path):
+    import json
+
+    for idx in (0, 1):
+        lines = [json.dumps({"schema": "pcg-tpu-telemetry/1",
+                             "t": 10.0 + k + 3 * idx, "kind": "dispatch",
+                             "name": "cycle", "wall_s": 0.1,
+                             "cold": k == 0}) for k in range(3)]
+        (tmp_path / f"m.p{idx}.jsonl").write_text("\n".join(lines) + "\n")
+    return str(tmp_path / "m.jsonl")
+
+
+@pytest.mark.parametrize("cmd", ["summary", "telemetry-merge",
+                                 "perf-report", "prof-report"])
+def test_obs_subcommands_against_jax(tmp_path, capsys, telemetry_run, cmd):
+    """The four observability subcommands: summary and telemetry-merge
+    print (and write) what the JAX package's print on the same files;
+    perf-report prints the phase table with the cost-model column of the
+    JAX package's model of the same cube; prof-report reads the solve's
+    capture back, and degrades on a truncated trace as JAX's does."""
+    scratch, tel, fl, _out = telemetry_run
+    if cmd == "summary":
+        main(["summary", tel, fl])
+        ours = capsys.readouterr().out
+        jax_main(["summary", tel, fl])
+        assert ours == capsys.readouterr().out
+        assert "flight verdict: clean" in ours
+    elif cmd == "telemetry-merge":
+        base = _merge_shards(tmp_path)
+        for fn, out in ((main, "ours.jsonl"), (jax_main, "theirs.jsonl")):
+            fn(["telemetry-merge", base, "--out", str(tmp_path / out),
+                "--align", "collectives"])
+        text = capsys.readouterr().out.replace("theirs", "ours")
+        half = len(text) // 2
+        assert text[:half] == text[half:] and "3 matched anchor" in text
+        assert (tmp_path / "ours.jsonl").read_text() == \
+            (tmp_path / "theirs.jsonl").read_text()
+    elif cmd == "perf-report":
+        from pcg_mpi_solver_tpu.models.synthetic import make_cube_model as jc
+        from pcg_mpi_solver_tpu.obs import perf as jperf
+        from pcg_mpi_solver_tpu.parallel.mesh import make_mesh
+        from pcg_mpi_solver_tpu.solver.driver import Solver as JaxSolver
+
+        main(["perf-report", "--nx", "4", "--reps", "1", "--inner", "2"]
+             + CPU)
+        out = capsys.readouterr().out
+        js = JaxSolver(jc(4, 0, 0, E=30e9, nu=0.2, load="traction",
+                          load_value=1e6, heterogeneous=True),
+                       mesh=make_mesh(1), n_parts=1, backend="general")
+        cm = jperf.cost_model(jperf.shape_from_solver(js), "classic",
+                              "jacobi", 1, jperf.resolve_profile("cpu"))
+        for ph in jperf.PHASES:
+            row = [ln for ln in out.splitlines() if ln.startswith(ph)][0]
+            assert float(row.split()[1]) == round(
+                cm["phases"][ph]["model_ms"], 4)
+        assert ">whole-iteration anchor" in out
+    else:
+        prof = os.path.join(os.path.dirname(tel), "prof")
+        main(["prof-report", prof])
+        out = capsys.readouterr().out
+        assert "verdict:" in out and "busy:" in out
+        bad = tmp_path / "cut" / "x.trace.json.gz"
+        bad.parent.mkdir()
+        import gzip
+
+        with gzip.open(bad, "wt") as f:
+            f.write('{"traceEvents": [{"ph": "X", ')
+        main(["prof-report", str(bad)])
+        ours = capsys.readouterr().out.splitlines()[-1]
+        jax_main(["prof-report", str(bad)])
+        assert ours == capsys.readouterr().out.splitlines()[-1]
+        assert ours.startswith("verdict: degraded: truncated/invalid")
 
 
 DYN_CUBE = dict(E=100.0, nu=0.25, rho=1.0, load="traction", load_value=1.0,
@@ -270,13 +400,21 @@ def test_cli_time_snapshot_resume(time_bundle, capsys, monkeypatch, cmd,
         np.load(f"{scratch}/Results_Run1/{name}.npy"))
 
 
-@pytest.mark.parametrize("argv", [
-    ["dynamics", "{scratch}", "1", "--n-steps", "2", "--telemetry-out",
-     "t.jsonl"],
-    ["newmark", "{scratch}", "1", "--n-steps", "2", "--preflight", "warn"],
-])
-def test_time_subcommands_refuse_unported_flags(tmp_path, argv):
+@pytest.mark.parametrize("cmd", ["dynamics", "newmark"])
+def test_time_subcommands_take_telemetry_flags(tmp_path, capsys, cmd):
+    """The time-history subcommands write the telemetry stream (ending
+    in the run summary, every event valid for the JAX package) and a
+    clean flight file under the JAX package's flags."""
+    from pcg_mpi_solver_tpu.obs.flight import flight_verdict_path
+    from pcg_mpi_solver_tpu.obs.schema import validate_jsonl_text
+
     archive, scratch = _bundle(tmp_path, make_cube_model(3, 3, 3))
     main(["ingest", archive, scratch])
-    with pytest.raises(NotImplementedError, match=r"item 14\b"):
-        main([a.format(scratch=scratch) for a in argv] + CPU)
+    tel, fl = str(tmp_path / "t.jsonl"), str(tmp_path / "f.jsonl")
+    main([cmd, scratch, "1", "--n-steps", "2", "--telemetry-out", tel,
+          "--flight-out", fl, "--preflight", "warn", "--summary"] + CPU)
+    assert ">success!" in capsys.readouterr().out
+    text = open(tel).read()
+    assert validate_jsonl_text(text) == []
+    assert '"run_summary"' in text.splitlines()[-1]
+    assert flight_verdict_path(fl)["verdict"] == "clean"

@@ -56,11 +56,7 @@ def changed(section, field, value):
 
 
 # a non-default value for each unported field
-OTHER = {"trace_resid": 64, "setup_shard": "off",
-         "preflight": "off",
-         "telemetry_path": "t.jsonl", "flight_path": "f.jsonl",
-         "telemetry_profile": True, "profile_dir": "prof",
-         "comm_probe_iters": 0}
+OTHER = {"setup_shard": "off"}
 CASES = sorted(UNPORTED.items())
 
 
@@ -77,6 +73,71 @@ def test_unported_field_raises_with_its_item(key, item):
         Solver(make_cube_model(4, 3, 3), changed(section, field,
                                                  OTHER[field]),
                device="cpu")
+
+
+def _check_trace_resid(s, tmp_path):
+    assert s.last_trace.n_recorded == s.iters[0]
+
+
+def _check_jsonl(name):
+    def check(s, tmp_path):
+        s.recorder.close()
+        assert (tmp_path / name).read_text().strip()
+    return check
+
+
+def _check_profile_spans(s, tmp_path):
+    assert s.recorder.profile_spans
+
+
+def _check_profile_dir(s, tmp_path):
+    from pcg_mpi_solver_tpu_torch.obs.profview import find_trace_files
+
+    assert find_trace_files(str(tmp_path / "prof"))
+
+
+def _check_preflight_off(s, tmp_path):
+    assert "preflight.runs" not in s.recorder.counters
+
+
+# each field the slice ported, set away from its default, with what
+# shows that it took effect
+PORTED = {
+    ("solver", "trace_resid"): (64, _check_trace_resid),
+    ("run", "telemetry_path"): ("t.jsonl", _check_jsonl("t.jsonl")),
+    ("run", "flight_path"): ("f.jsonl", _check_jsonl("f.jsonl")),
+    ("run", "telemetry_profile"): (True, _check_profile_spans),
+    ("run", "profile_dir"): ("prof", _check_profile_dir),
+    ("run", "preflight"): ("off", _check_preflight_off),
+    ("run", "comm_probe_iters"): (0, None),
+}
+
+
+@pytest.mark.parametrize("key", sorted(PORTED),
+                         ids=[f"{s}.{f}" for s, f in sorted(PORTED)])
+def test_ported_field_takes_effect(tmp_path, key):
+    """The fields this slice took out of UNPORTED build a Solver and do
+    what they say (paths under the test's directory)."""
+    section, field = key
+    value, check = PORTED[key]
+    if isinstance(value, str) and value.endswith(("jsonl", "prof")):
+        value = str(tmp_path / value)
+    assert key not in UNPORTED
+    cfg = changed(section, field, value)
+    cfg.scratch_path = str(tmp_path / "out")
+    s = Solver(make_cube_model(4, 3, 3), cfg, device="cpu")
+    if field == "comm_probe_iters":
+        from pcg_mpi_solver_tpu_torch.solver.driver import ONE_DEVICE_COMM
+
+        # the time data's comm split: none at 0, the one-device split else
+        assert s.time_data(0.0, None)["CommProbe"] == {}
+        assert s.time_data(0.0, ONE_DEVICE_COMM)["CommProbe"] == \
+            ONE_DEVICE_COMM
+        assert s.step(1.0).flag == 0
+        return
+    s.solve()
+    assert s.flags == [0]
+    check(s, tmp_path)
 
 
 @pytest.mark.parametrize("section,field,value,match", [

@@ -17,8 +17,10 @@ nodal fields against the CPU's (two exports bitwise), the mixed
 shell's windows against the CPU, and the time integrators (Newmark and
 explicit dynamics on the card against the CPU, their level batches'
 launches counted on the hybrid backend), a solve on the native graph
-partition against the CPU, and a warm partition-cache Solver against the
-cold one.  They carry the
+partition against the CPU, a warm partition-cache Solver against the
+cold one, and the convergence ring and a profile capture on the card (a
+traced solve bitwise the untraced one, with as many synchronising calls;
+v6 in the matvec phase).  They carry the
 ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
@@ -1288,3 +1290,71 @@ def test_warm_cache_solver_on_card_equals_cold(cuda_device, tmp_path,
             np.testing.assert_array_equal(a, b)
     assert (f0, i0) == (f1, i1) and f0 == 0
     np.testing.assert_array_equal(u0, u1)
+
+
+def _sync_count(run):
+    """``run()`` under torch's CUDA sync debug mode: (its result, the
+    synchronising calls it made)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # one warning a synchronising call (the mode's own notice, once a
+    # process, is not one)
+    return out, sum(str(w.message).startswith("called a synchronizing CUDA")
+                    for w in caught)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,cap", [("direct", 0), ("mixed", 0),
+                                      ("mixed", 40)])
+def test_traced_solve_on_card_is_untraced_solve(cuda_device, mode, cap):
+    """The convergence ring on the card: flag, iterations and u bitwise
+    the untraced solve's, the same number of synchronising calls (a
+    record is a host row write), every iteration recorded."""
+    model = make_cube_model(12, 6, 5, heterogeneous=True)
+    out = {}
+    for ring in (0, 4000):
+        s = Solver(model, RunConfig(solver=SolverConfig(
+            tol=1e-8, precision_mode=mode, iters_per_dispatch=cap,
+            trace_resid=ring)), device=cuda_device)
+        s.step(1.0)                     # the kernels' first launches
+        s.reset_state()
+        r, n = _sync_count(lambda: s.step(1.0))
+        out[ring] = (r, s.un.clone(), n, s.last_trace)
+    (ra, ua, na, _ta), (rb, ub, nb, tb) = out[0], out[4000]
+    assert (ra.flag, ra.iters) == (rb.flag, rb.iters) and ra.flag == 0
+    assert torch.equal(ua, ub) and na == nb > 0
+    assert tb.n_recorded == rb.iters and not tb.truncated
+
+
+@pytest.mark.cuda
+def test_profile_capture_on_card_puts_v6_in_matvec(cuda_device, tmp_path):
+    """A torch.profiler capture of a solve on the card read back by
+    ``obs/profview.py``: every float32 v6 launch in the matvec phase,
+    every phase with device time, the verdict clean."""
+    from pcg_mpi_solver_tpu_torch.obs import profview
+
+    s = Solver(make_cube_model(12, 6, 5, heterogeneous=True),
+               RunConfig(solver=SolverConfig(tol=1e-8,
+                                             precision_mode="mixed")),
+               device=cuda_device)
+    cap = profview.capture_solve_profile(s, str(tmp_path))
+    rep = profview.profile_report(cap["artifact"])
+    evs, _ = profview.read_trace_events(
+        profview.find_trace_files(cap["artifact"])[0])
+    # v6's float launches: the f32 inner iterations' (the float64
+    # refreshes of the mixed shell run outside pcg's phases, as in JAX)
+    v6 = [op for op in profview.device_ops(evs)
+          if "structured_matvec_kernel" in op["name"]
+          and "FfmaProduct" in op["name"]]
+    assert v6 and all(op["label"] == "pcg/matvec" for op in v6)
+    assert rep["verdict"] == "ok"
+    for ph in ("matvec", "precond", "reduction", "axpy"):
+        assert rep["phases"][ph]["events"] > 0, ph

@@ -212,7 +212,7 @@ def test_backend_rule(octrees, cubes, monkeypatch):
         select_time_backend(cubes[1], 2, backend="structured", **kw)
 
 
-def test_refusals(cubes):
+def test_refusals(cubes, tmp_path):
     dt = stable_dt(cubes[1], safety=0.5)
     with pytest.raises(ValueError, match="probe dof"):
         DynamicsSolver(cubes[1], RunConfig(), device="cpu", dt=dt,
@@ -220,9 +220,11 @@ def test_refusals(cubes):
     with pytest.raises(NotImplementedError, match="pallas='interpret'"):
         DynamicsSolver(cubes[1], RunConfig(solver=SolverConfig(
             pallas="interpret")), device="cpu", dt=dt)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DynamicsSolver(cubes[1], RunConfig(telemetry_path="t.jsonl"),
-                       device="cpu", dt=dt)
+    # the telemetry stream is ported: the run ends it with its summary
+    tel = tmp_path / "t.jsonl"
+    DynamicsSolver(cubes[1], RunConfig(telemetry_path=str(tel)),
+                   device="cpu", dt=dt).run(2)
+    assert '"run_summary"' in tel.read_text().splitlines()[-1]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DynamicsSolver(cubes[1], RunConfig(), dt=dt)
