@@ -75,6 +75,25 @@ Phases (any failed check raises, so the script exits non-zero):
                 profiled lockstep trips at R = 4 beside classic's phase-4
                 window, 20 of the mg block; two 12x6x5 blocks bitwise
                 equal;
+  4m. serve   — right after phase 4d, on its flagship Solver: the solve
+                service (``serve/``), ``ServeDaemon(widths=(1, 2, 4),
+                queue_max=8)`` over a spool of nine jobs
+                (``SERVE_JOBS``: scales 1, 2, 0.5 and -1 packed as one
+                width-4 block; a ``nan@job:`` poisoned job beside the
+                F_y ``rhs`` job; an ``exc@job:`` job; a deadline the cost
+                model cannot meet; a spec with neither scale nor rhs):
+                each block's width, lockstep trips, ms a trip, wall
+                against the admission price and its v6 launches (float32
+                >= trips, every other float32 counter 0); each job's
+                verdict, one result file and one terminal journal record
+                each; x(2F) = 2 x(F) bit for bit; the scale-1 job against
+                4d's width-1 [F] block (equal iterations, 1e-12 of
+                max|u|, bitwise printed); the kill drill: a ``cli serve
+                --synthetic 48,32,32`` child held in its first block by
+                ``sleep@job:0``, SIGKILLed once its journal shows the
+                block packed, a daemon restarted in this process over the
+                same spool on a Solver that ran ``warmup()`` (its
+                seconds): both jobs end exactly once with their ordinals;
   4e. general — the general (pattern-type) backend (mixed, jacobi,
                 classic, tol 1e-7), run right after phase 4g, before any
                 profiler window (one slows every solve after it): the
@@ -126,27 +145,30 @@ Phases (any failed check raises, so the script exits non-zero):
                 JAX package's 1145 iterations.  After phase 4d: kernels
                 and launches a float32 hybrid matvec, 100 profiled inner
                 iterations;
-  4j. time   — run right after phase 4h, on 4e's 22^3/L4 octree model
-                object: ``NewmarkSolver`` (mixed, jacobi, classic, tol
-                1e-7, dt = 50 x ``stable_dt``, load factors 0.5, 1, 1) on
-                the auto backend (general) and on backend="hybrid", both
-                chunked at the auto cap: each step's flag, relres,
-                iterations, ms/iter and seconds, partition and upload
-                seconds, cap and dispatches; the hybrid's iterations
-                within max(3, 5 %) of the general's a step, its u within
-                1e-6 of max|u|, its selected float32 kernel launched at
-                least levels x inner iterations times and v6's float64
-                kernel at least once; ``DynamicsSolver`` (dt =
-                stable_dt, 500 steps, damping 0.1, two probes, a frame
-                every 250) in float64 on the auto backend and in float32
-                on the hybrid one: finite, two frames, seconds a step,
+  4j. time   — run right after phase 4h: ``NewmarkSolver`` (mixed,
+                jacobi, classic, tol 1e-7, dt = 50 x ``stable_dt``, load
+                factors 0.5, 1, 1) on 4e's 22^3/L4 octree model object on
+                the auto backend (general), chunked at the auto cap, then
+                on the 6^3 octree on the general backend and on
+                backend="hybrid" (cut from 22^3 to make room for phase
+                4m; 4h measures the 22^3 hybrid path): each step's flag,
+                relres, iterations, ms/iter and seconds, partition and
+                upload seconds, cap and dispatches; the hybrid's
+                iterations within max(3, 5 %) of the general's a step,
+                its u within 1e-6 of max|u|, its selected float32 kernel
+                launched at least levels x inner iterations times and
+                v6's float64 kernel at least once; ``DynamicsSolver``
+                (dt = stable_dt, 500 steps, damping 0.1, two probes, a
+                frame every 250) in float64 on the 22^3 octree's auto
+                backend, and on the 6^3 octree in float64 on the general
+                and the hybrid backends (within 1e-9 of max|u|, v6's
+                double kernel exactly levels x steps times) and in
+                float32 on the hybrid one (its selected kernel exactly
+                levels x steps times, its probes against the float64
+                general ones): finite, two frames, seconds a step,
                 chunks and their host reads (torch's sync debug mode
                 counts every synchronising call: one a chunk, one a frame
-                and the final fetch), the hybrid's selected kernel
-                launched exactly levels x 500 times, its probes against
-                the float64 ones; the 6^3 octree's float64 explicit
-                hybrid against general over 200 steps (1e-9 of max|u|,
-                v6's double kernel levels x steps times);
+                and the final fetch);
   4k. graph cache — run right after phase 4j, on 4e's octree model and
                 Solvers: the octree at ``GRAPH_PARTS`` (8) parts under
                 partition_method="graph" (the native partitioner, built
@@ -250,7 +272,8 @@ escalating solve, float64 of phase 4g's chunked block; every record's
 ``launches_hybrid`` from phase 4h's flagship solve and ``hybrid_levels``
 from its level batches, ``launches_newmark`` and ``launches_dynamics``
 from phase 4j's Newmark runs and explicit runs, ``launches_graph`` from
-phase 4k's 8-part hybrid solve), the last line
+phase 4k's 8-part hybrid solve, ``launches_serve`` from phase 4m's
+flagship blocks), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -453,16 +476,14 @@ CLI_EXPLICIT_STEPS = 100
 # factors, and the explicit steps
 TIME_CHECK_DELTAS = (0.5, 1.0, 1.0, 0.7, 0.3)
 TIME_CHECK_STEPS = 100
-# phase 4j: the time integrators on the octree flagship.  Newmark's dt is
-# 50 x the explicit CFL bound (tests/test_newmark.py::
+# phase 4j: the time integrators on the octree flagship and its 6^3 cut.
+# Newmark's dt is 50 x the explicit CFL bound (tests/test_newmark.py::
 # test_newmark_unconditional_stability's factor) over three load factors;
-# the explicit runs take the CFL dt over 500 steps with a frame every 250;
-# the 6^3 octree's hybrid against general over 200 steps
+# the explicit runs take the CFL dt over 500 steps with a frame every 250
 TIME_NEWMARK_DT_FACTOR = 50.0
 TIME_NEWMARK_DELTAS = (0.5, 1.0, 1.0)
 TIME_EXPLICIT_STEPS = 500
 TIME_EXPLICIT_EXPORT = 250
-TIME_SMALL_STEPS = 200
 # phase 4k: the native graph partition and the partition cache.  The
 # octree flagship at 8 parts (BASELINE config 3's 8-way METIS split) under
 # partition_method="graph", beside the one-part RCB partition's 21.42 s
@@ -1656,8 +1677,9 @@ def phase_many(torch, np, models, classic_iters, classic_profile):
     float32 matvec at R = 4 against four single launches at 150^3; 100
     lockstep trips at R = 4 under the profiler beside classic's phase-4
     window, and 20 of the mg block; two 12x6x5 blocks on the card
-    bitwise equal.  Returns
-    {"<cells> <precond> R=<width>": launch counts of that solve}."""
+    bitwise equal.  Returns ({"<cells> <precond> R=<width>": launch
+    counts of that solve}, phase 4m's inputs: the flagship jacobi Solver,
+    its model, F_y, and the width-1 [F] block's u and iterations)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.models import make_cube_model
     from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
@@ -1666,7 +1688,7 @@ def phase_many(torch, np, models, classic_iters, classic_profile):
 
     kw = dict(FLAGSHIP)
     kw.pop("nx")
-    launches_by, solvers, width1 = {}, {}, {}
+    launches_by, solvers, width1, serve = {}, {}, {}, {}
     for cells, precond, cols in MANY_SOLVES:
         if cells not in models:
             models[cells] = make_cube_model(cells, **kw)
@@ -1712,6 +1734,10 @@ def phase_many(torch, np, models, classic_iters, classic_profile):
                                  f"misshapen")
         if R == 1:
             width1[(cells, precond)] = rate
+        if (cells, precond, cols) == MANY_SOLVES[0]:
+            # phase 4m's reference: the flagship's width-1 [F] block
+            serve.update(model=model, F_y=Fy, u_F=u[:, 0].copy(),
+                         iters_F=int(res.iters[0]))
         base = width1.get((cells, precond))
         base_txt = (f"{rate / base:.3f}x the width-1 block's "
                     f"{base:.4e} dof*iter/s" if base and R > 1 else
@@ -1784,6 +1810,8 @@ def phase_many(torch, np, models, classic_iters, classic_profile):
         f"{prof['kernels']:.1f} kernels a trip (classic R=1, phase 4: "
         f"{p['busy']:.4f} ms/iter, idle {p['idle']:.1%}, "
         f"{p['per_trip']:.1f} kernels a trip)")
+    # phase 4m serves jobs on this Solver
+    serve["solver"] = solver
     del solver
     # the mg block's trip: the V-cycle's ops carry both columns, so its
     # kernels a trip are the width-1 iteration's (phase 4b's mg profile)
@@ -1811,7 +1839,288 @@ def phase_many(torch, np, models, classic_iters, classic_profile):
     if not same or any(runs[0][0][0]):
         raise AssertionError("two blocked solves on the card differ or did "
                              "not converge")
-    return launches_by
+    return launches_by, serve
+
+
+# phase 4m: the solve service on 4d's flagship Solver.  Jobs in
+# submission order (the admission ordinals 0-6; the last two are
+# rejected and take none): four load scales packed into one width-4
+# block, a NaN-poisoned job beside the F_y rhs job, a job failed by an
+# injected exception, one whose deadline the cost model cannot meet and
+# one spec with neither scale nor rhs.
+SERVE_WIDTHS = (1, 2, 4)
+SERVE_QUEUE_MAX = 8
+SERVE_JOBS = (("s1", {"scale": 1.0}), ("s2", {"scale": 2.0}),
+              ("s05", {"scale": 0.5}), ("sm1", {"scale": -1.0}),
+              ("poison", {"scale": 1.0}), ("fy", {"rhs": "F_y.npy"}),
+              ("boom", {"scale": 1.0}),
+              ("rush", {"scale": 1.0, "deadline_s": 1e-3}),
+              ("nospec", {"deadline_s": 60.0}))
+SERVE_FAULTS = "nan@job:4,exc@job:6"
+# the verdict each job must end with (a prefix for the named failures)
+SERVE_VERDICTS = {"s1": "converged", "s2": "converged",
+                  "s05": "converged", "sm1": "converged",
+                  "poison": "rhs_nonfinite", "fy": "converged",
+                  "boom": "injected:",
+                  "rush": "rejected: deadline_infeasible",
+                  "nospec": "rejected: bad_spec"}
+# the kill drill: the JAX package's SIGKILL test's daemon on a 48x32x32
+# cube, held inside its first block by a sleep at job ordinal 0
+SERVE_DRILL_CELLS = (48, 32, 32)
+SERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_serve")
+
+
+def _terminal_counts(journal_file):
+    """{job: terminal journal records} over a whole journal."""
+    from pcg_mpi_solver_tpu_torch.serve.journal import (
+        TERMINAL_OPS, read_journal)
+
+    counts = {}
+    for ev in read_journal(journal_file)[0]:
+        if ev.get("op") in TERMINAL_OPS and isinstance(ev.get("job"), str):
+            counts[ev["job"]] = counts.get(ev["job"], 0) + 1
+    return counts
+
+
+def _serve_child(spool):
+    """Start the kill drill's daemon: ``cli serve --synthetic 48,32,32
+    --widths 1,2`` on the card, held inside its first block by
+    ``sleep@job:0`` (600 s).  Returns (process, its log file)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = open(os.path.join(SERVE_DIR, "drill_child.log"), "w")
+    env = dict(os.environ, PYTHONPATH=root, PCG_TPU_FAULTS="sleep@job:0",
+               PCG_TPU_FAULT_SLEEP_S="600")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pcg_mpi_solver_tpu_torch.cli", "serve",
+         "--spool", spool, "--synthetic",
+         ",".join(map(str, SERVE_DRILL_CELLS)), "--widths", "1,2",
+         "--poll-s", "0.01"],
+        cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def phase_serve(torch, np, inputs):
+    """Phase 4m: the solve service (``serve/``) on phase 4d's flagship
+    Solver (mixed, classic, jacobi, tol 1e-7, v6): ``ServeDaemon(widths=
+    SERVE_WIDTHS, queue_max=SERVE_QUEUE_MAX)`` over a spool fed with
+    ``SERVE_JOBS`` under ``SERVE_FAULTS``, driven through its own steps
+    (``poll_once``, ``serve_block`` a block with the launch counts set to
+    0 just before and read just after, ``run`` to drain).  Each block's
+    width, lockstep trips, ms a trip, wall against the admission price
+    (the cost model at the widest width x the JAX flagship's 3334
+    iterations) and launches (v6 float32 >= trips, every other float32
+    counter 0); each job's verdict (``SERVE_VERDICTS``), one result file
+    and one terminal journal record each; x(2F) = 2 x(F) bit for bit;
+    the scale-1 job against 4d's width-1 [F] block (equal iterations,
+    max|du| <= 1e-12 max|u|, bitwise printed).  Then the kill drill: a
+    ``cli serve`` child on the 48x32x32 cube (started first, so its
+    start overlaps the flagship blocks) SIGKILLed once its journal shows
+    the block packed, and a daemon started in this process over the same
+    spool on a Solver that ran ``warmup()``: both jobs end exactly once,
+    with their original ordinals.  Returns the flagship blocks' launch
+    counts {(variant, dtype): n}."""
+    import signal
+
+    from pcg_mpi_solver_tpu_torch.serve import jobs as sjobs
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR)
+    drill = os.path.join(SERVE_DIR, "drill")
+    for t, (job, sc) in enumerate((("k0", 1.0), ("k1", 2.0))):
+        sjobs.submit(drill, {"job": job, "scale": sc}, submit_t=float(t))
+    child, log = _serve_child(drill)
+    try:
+        counts = _serve_flagship(torch, np, inputs)
+        _serve_drill(torch, np, drill, child)
+    finally:
+        if child.poll() is None:
+            child.send_signal(signal.SIGKILL)
+            child.wait()
+        log.close()
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return counts
+
+
+def _serve_flagship(torch, np, inputs):
+    """Phase 4m's flagship daemon (see :func:`phase_serve`)."""
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.resilience import FaultPlan
+    from pcg_mpi_solver_tpu_torch.serve import jobs as sjobs
+    from pcg_mpi_solver_tpu_torch.serve.admission import price_admission
+    from pcg_mpi_solver_tpu_torch.serve.daemon import ServeDaemon
+
+    solver, model = inputs["solver"], inputs["model"]
+    spool = os.path.join(SERVE_DIR, "flagship")
+    sjobs.ensure_spool(spool)
+    np.save(os.path.join(SERVE_DIR, "F_y.npy"), inputs["F_y"])
+    for t, (job, spec) in enumerate(SERVE_JOBS):
+        spec = dict(spec, job=job, submit_t=float(t))
+        if "rhs" in spec:
+            spec["rhs"] = os.path.join(SERVE_DIR, spec["rhs"])
+        spec.setdefault("deadline_s", sjobs.DEFAULT_DEADLINE_S)
+        # written as a client would, check_spec's rejections included
+        sjobs.write_json_atomic(
+            os.path.join(sjobs.incoming_dir(spool), f"{job}.json"), spec)
+    d = ServeDaemon(solver, spool, queue_max=SERVE_QUEUE_MAX,
+                    widths=SERVE_WIDTHS, expected_iters=JAX_FLAGSHIP_ITERS,
+                    fault_plan=FaultPlan(SERVE_FAULTS,
+                                         recorder=solver.recorder))
+    price = price_admission(solver.predicted_ms_per_iter(max(SERVE_WIDTHS)),
+                            JAX_FLAGSHIP_ITERS)
+    admitted = d.poll_once()
+    say(f"serve {FLAGSHIP['nx']}^3: {len(SERVE_JOBS)} jobs submitted, "
+        f"{admitted} admitted; admission price {price:.3f} s a block (cost "
+        f"model {solver.predicted_ms_per_iter(max(SERVE_WIDTHS)):.4f} "
+        f"ms/iter at width {max(SERVE_WIDTHS)} x {JAX_FLAGSHIP_ITERS} "
+        f"expected iterations); faults {SERVE_FAULTS}")
+    seen = []
+    solve_many = solver.solve_many
+
+    def observed(fb, **kw):
+        seen.append(solve_many(fb, **kw))
+        return seen[-1]
+
+    solver.solve_many = observed
+    total = {}
+    try:
+        while d.admission.queue:
+            blk, n_seen = d.blocks, len(seen)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            taken = d.serve_block()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            f32, f64 = counts[("v6", "float32")], counts[("v6", "float64")]
+            others = {k: v for k, v in counts.items() if v and k not in (
+                ("v6", "float32"), ("v6", "float64"))}
+            if len(seen) == n_seen:
+                say(f"serve block {blk}: packed {taken}, dispatched 0 (every "
+                    f"job failed at the service boundary), wall "
+                    f"{wall:.3f} s; launches f32 {f32}, f64 {f64}")
+                if f32 or f64 or others:
+                    raise AssertionError(f"serve block {blk}: launches "
+                                         f"without a dispatch: {counts}")
+                continue
+            res = seen[-1]
+            ms_trip = res.solve_wall_s / max(res.trips, 1) * 1e3
+            model_s = solver.predicted_ms_per_iter(res.nrhs) * res.trips / 1e3
+            say(f"serve block {blk}: packed {taken}, width {res.nrhs}, "
+                f"{res.trips} lockstep trips, {ms_trip:.4f} ms a trip, wall "
+                f"{wall:.3f} s against the admission price {price:.3f} s "
+                f"({wall / price:.2f}x; the cost model at width {res.nrhs} x "
+                f"these trips {model_s:.3f} s, {wall / model_s:.2f}x); of "
+                f"the wall: Krylov {res.solve_wall_s:.3f} s, the rest of "
+                f"solve_many {res.wall_s - res.solve_wall_s:.3f} s, the "
+                f"daemon's host work (load columns, fetch, .npy and result "
+                f"files, journal) {wall - res.wall_s:.3f} s; launches v6 "
+                f"f32 {f32}, f64 {f64}, other f32 {sum(others.values())}")
+            if f32 < res.trips or others:
+                raise AssertionError(f"serve block {blk}: not one v6 launch "
+                                     f"a trip: {counts}, {res.trips} trips")
+        reason = d.run(idle_exit_s=0.0, install_signals=False)
+    finally:
+        del solver.solve_many
+    results = {job: sjobs.read_result(spool, job) for job, _ in SERVE_JOBS}
+    for job, _spec in SERVE_JOBS:
+        r = results[job] or {}
+        extra = (f", flag {r['flag']}, iterations {r['iters']}, relres "
+                 f"{r['relres']:.4e}, block {r['block']} of width "
+                 f"{r['width']}, deadline met {r['deadline_met']}"
+                 if "flag" in r else "")
+        say(f"serve job {job}: verdict {r.get('verdict')!r}{extra}")
+    counts = _terminal_counts(sjobs.journal_path(spool))
+    say(f"serve {FLAGSHIP['nx']}^3: drained ({reason}), "
+        f"{d.jobs_done} done, {d.jobs_failed} failed, {d.blocks} blocks; "
+        f"terminal journal records a job {sorted(set(counts.values()))}")
+    bad = [job for job, want in SERVE_VERDICTS.items()
+           if not str((results[job] or {}).get("verdict")).startswith(want)]
+    if bad or counts != {job: 1 for job, _ in SERVE_JOBS}:
+        raise AssertionError(f"serve: verdicts of {bad} wrong, or not one "
+                             f"terminal record a job: {counts}")
+    u = {job: np.load(sjobs.solution_path(spool, job))
+         for job in ("s1", "s2", "s05", "sm1", "fy")}
+    exact = {name: bool(np.array_equal(u[job], k * u["s1"]))
+             for name, job, k in (("2F", "s2", 2.0), ("0.5F", "s05", 0.5),
+                                  ("-F", "sm1", -1.0))}
+    say(f"serve {FLAGSHIP['nx']}^3: x(2F) = 2 x(F) bit for bit: "
+        f"{exact['2F']}; x(0.5F) = 0.5 x(F): {exact['0.5F']}; x(-F) = "
+        f"-x(F): {exact['-F']}")
+    if not exact["2F"]:
+        raise AssertionError("serve: x(2F) is not exactly 2 x(F)")
+    u_ref, it_ref = inputs["u_F"], inputs["iters_F"]
+    du = float(np.abs(u["s1"] - u_ref).max() / np.abs(u_ref).max())
+    same = bool(np.array_equal(u["s1"], u_ref))
+    it = results["s1"]["iters"]
+    say(f"serve {FLAGSHIP['nx']}^3: the scale-1 job (width "
+        f"{results['s1']['width']}) against 4d's width-1 [F]: iterations "
+        f"{it} against {it_ref}, max|du| {du:.3e} of max|u| (tol 1e-12), "
+        f"{'bitwise equal' if same else 'NOT bitwise equal'}")
+    if it != it_ref or not du <= 1e-12:
+        raise AssertionError("serve: the scale-1 job differs from its "
+                             "width-1 solve")
+    return total
+
+
+def _serve_drill(torch, np, drill, child):
+    """Phase 4m's kill drill (see :func:`phase_serve`)."""
+    import signal
+
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.resilience import FaultPlan
+    from pcg_mpi_solver_tpu_torch.serve import jobs as sjobs
+    from pcg_mpi_solver_tpu_torch.serve.daemon import ServeDaemon
+    from pcg_mpi_solver_tpu_torch.serve.journal import (
+        TERMINAL_OPS, read_journal)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    journal = sjobs.journal_path(drill)
+    t0 = time.perf_counter()
+    while not (os.path.exists(journal) and any(
+            ev.get("op") == "packed" for ev in read_journal(journal)[0])):
+        if child.poll() is not None or time.perf_counter() - t0 > 300:
+            raise AssertionError(f"serve drill: the child ended "
+                                 f"({child.returncode}) before packing")
+        time.sleep(0.05)
+    child.send_signal(signal.SIGKILL)
+    child.wait(timeout=60)
+    t_kill = time.perf_counter() - t0
+    events = read_journal(journal)[0]
+    if any(ev.get("op") in TERMINAL_OPS + ("drain",) for ev in events):
+        raise AssertionError("serve drill: a job ended before the kill")
+    cells = SERVE_DRILL_CELLS
+    # the CLI's --synthetic cube and its default settings
+    s = Solver(make_cube_model(*cells, E=30e9, nu=0.2, load="traction",
+                               load_value=1e6, heterogeneous=True),
+               RunConfig(solver=SolverConfig(tol=1e-7, max_iter=10000)))
+    t1 = time.perf_counter()
+    s.warmup()
+    warm = time.perf_counter() - t1
+    plan = FaultPlan("sleep@job:0")
+    plan.sleep_s = 0.0      # replay fires it again (never dispatched)
+    d = ServeDaemon(s, drill, widths=(1, 2), fault_plan=plan)
+    ordinals = [e["ordinal"] for e in d.admission.queue]
+    reason = d.run(idle_exit_s=0.0, install_signals=False)
+    res = {j: sjobs.read_result(drill, j) for j in ("k0", "k1")}
+    counts = _terminal_counts(journal)
+    u0, u1 = (np.load(sjobs.solution_path(drill, j)) for j in ("k0", "k1"))
+    say(f"serve drill {'x'.join(map(str, cells))}: child SIGKILLed "
+        f"inside block 0 (packed, no terminal record; waited "
+        f"{t_kill:.1f} s for it); restarted in-process: warmup "
+        f"{warm:.3f} s, replayed ordinals {ordinals}, drained ({reason}); "
+        f"verdicts {[res[j]['verdict'] for j in ('k0', 'k1')]}, iterations "
+        f"{[res[j]['iters'] for j in ('k0', 'k1')]}; terminal records "
+        f"{counts}; x(2F) = 2 x(F) bit for bit: "
+        f"{bool(np.array_equal(u1, 2 * u0))}")
+    if (ordinals != [0, 1] or counts != {"k0": 1, "k1": 1}
+            or not all(r and r["ok"] for r in res.values())):
+        raise AssertionError("serve drill: not exactly once")
 
 
 def _matvec_kernels(torch, fn, reps: int = 5):
@@ -2512,24 +2821,79 @@ def _explicit_run(torch, np, solver, tag, n_steps, export_every):
     return res, counts, wall
 
 
+def _newmark_pair(torch, np, model, n, cfg, tol, add_to):
+    """Newmark on ``model`` (the n^3 octree) on the general backend and on
+    backend="hybrid", both at ``TIME_NEWMARK_DT_FACTOR`` x stable_dt: the
+    hybrid's iterations a step within max(3, 5 %) of the general's, its u
+    within 1e-6 of max|u|, its selected float32 kernel launched at least
+    levels x inner iterations times and v6's float64 kernel at least
+    once.  Launch counts are added into ``add_to``."""
+    import warnings
+
+    from pcg_mpi_solver_tpu_torch.solver import NewmarkSolver, stable_dt
+
+    dt = TIME_NEWMARK_DT_FACTOR * stable_dt(model)
+    runs = {}
+    for backend in ("general", "hybrid"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the auto gate's note
+            s = NewmarkSolver(model, cfg, dt=dt, backend=backend)
+        tag = f"time octree {n}^3 newmark {s.backend}"
+        res, counts = _newmark_steps(torch, np, s, tag, tol)
+        add_to(counts)
+        runs[s.backend] = (res, s.displacement_global())
+        if backend == "hybrid":
+            n_lv = len(s.ops.level_dims)
+            f32 = counts[(s.kernel_variant, "float32")]
+            f64 = counts[("v6", "float64")]
+            inner = sum(r.iters for r in res)
+            say(f"{tag}: {s.kernel_variant} float32 launches {f32} >= "
+                f"{n_lv} levels x {inner} inner iterations; v6 float64 "
+                f"launches {f64} (the refresh on the level grids, "
+                f"f64_refresh {s.f64_refresh})")
+            if f32 < n_lv * inner or f64 <= 0:
+                raise AssertionError(f"{tag}: launches {f32} float32, "
+                                     f"{f64} float64")
+        del s
+        torch.cuda.empty_cache()
+    (res_g, u_g), (res_h, u_h) = runs["general"], runs["hybrid"]
+    du = float(np.abs(u_h - u_g).max() / np.abs(u_g).max())
+    its_g, its_h = [r.iters for r in res_g], [r.iters for r in res_h]
+    say(f"time octree {n}^3 newmark hybrid against general: iterations "
+        f"{its_h} against {its_g}, seconds "
+        f"{[round(r.wall_s, 3) for r in res_h]} against "
+        f"{[round(r.wall_s, 3) for r in res_g]}; u differs by {du:.3e} of "
+        f"max|u| (tol 1e-6)")
+    if any(abs(a - b) > max(3, ITERS_TOL * b) for a, b in zip(its_h, its_g)):
+        raise AssertionError("time newmark: hybrid iterations outside "
+                             "max(3, 5 %) of the general backend's")
+    if not du <= 1e-6:
+        raise AssertionError(f"time newmark: hybrid u differs by {du:.3e}")
+
+
+def _explicit_probes(np, model):
+    """Two probe dofs: the largest load and the middle effective dof."""
+    return (int(np.argmax(np.abs(model.F))),
+            int(model.dof_eff[len(model.dof_eff) // 2]))
+
+
 def phase_time(torch, np, general, octrees):
-    """Phase 4j: the time integrators on 4e's 22^3/L4 octree model object,
-    right after phase 4h, before any profiler window:
+    """Phase 4j: the time integrators, right after phase 4h, before any
+    profiler window, on 4e's 22^3/L4 octree model object and the 6^3
+    octree (the hybrid runs, cut to 6^3 to make room for phase 4m; the
+    22^3 hybrid path stays measured by 4h):
     1. Newmark (mixed, jacobi, classic, tol 1e-7, dt = 50 x stable_dt,
-       steps ``TIME_NEWMARK_DELTAS``) on the auto backend (general) and on
-       backend="hybrid", both on the chunked path at the auto cap: flag 0
-       and relres <= tol every step; the hybrid's iterations a step within
-       max(3, 5 %) of the general's, its u within 1e-6 of max|u|; its
-       selected float32 kernel launched at least levels x inner
-       iterations times, v6's float64 kernel at least once;
+       steps ``TIME_NEWMARK_DELTAS``) on the 22^3 octree's auto backend
+       (general, chunked at the auto cap); then on the 6^3 octree on the
+       general backend and on backend="hybrid" (:func:`_newmark_pair`);
+       flag 0 and relres <= tol every step;
     2. explicit dynamics (dt = stable_dt, ``TIME_EXPLICIT_STEPS`` steps,
-       damping 0.1, two probes, a frame every ``TIME_EXPLICIT_EXPORT``):
-       float64 on the auto backend (general), float32 on the hybrid
-       backend, whose selected kernel must launch exactly levels x steps
-       times; one host read a chunk; the float32 probes against the
-       float64 ones printed;
-    3. the 6^3 octree's explicit float64 hybrid against its general run
-       (``TIME_SMALL_STEPS`` steps, within 1e-9 of max|u|).
+       damping 0.1, two probes, a frame every ``TIME_EXPLICIT_EXPORT``,
+       one host read a chunk): float64 on the 22^3 octree's auto backend
+       (general); on the 6^3 octree float64 general and hybrid (within
+       1e-9 of max|u|; v6's double kernel exactly levels x steps times)
+       and float32 hybrid (its selected kernel exactly levels x steps
+       times; its probes against the float64 general ones printed).
     Returns the launch counts {(variant, dtype): n} of the Newmark runs
     and of the explicit runs."""
     import warnings
@@ -2547,107 +2911,64 @@ def phase_time(torch, np, general, octrees):
         f"s; Newmark dt = {TIME_NEWMARK_DT_FACTOR:g} x stable_dt; {smi}")
     newmark, explicit = {}, {}
 
-    def add(into, counts):
-        for k, v in counts.items():
-            into[k] = into.get(k, 0) + v
+    def adder(into):
+        def add(counts):
+            for k, v in counts.items():
+                into[k] = into.get(k, 0) + v
+        return add
 
-    # 1. Newmark, general (auto) then hybrid
-    runs = {}
-    for backend in ("auto", "hybrid"):
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")     # the auto gate's note
-            s = NewmarkSolver(model, cfg, dt=TIME_NEWMARK_DT_FACTOR * dt_cfl,
-                              backend=backend)
-        tag = f"time octree {n}^3 newmark {s.backend}"
-        res, counts = _newmark_steps(torch, np, s, tag, tol)
-        add(newmark, counts)
-        runs[s.backend] = (res, s.displacement_global(), counts, s)
-        if backend == "hybrid":
-            n_lv = len(s.ops.level_dims)
-            f32 = counts[(s.kernel_variant, "float32")]
-            f64 = counts[("v6", "float64")]
-            inner = sum(r.iters for r in res)
-            say(f"{tag}: {s.kernel_variant} float32 launches {f32} >= "
-                f"{n_lv} levels x {inner} inner iterations; v6 float64 "
-                f"launches {f64} (the refresh on the level grids, "
-                f"f64_refresh {s.f64_refresh})")
-            if f32 < n_lv * inner or f64 <= 0:
-                raise AssertionError(f"{tag}: launches {f32} float32, "
-                                     f"{f64} float64")
-        del s
-        torch.cuda.empty_cache()
-    (res_g, u_g, _cg, _s), (res_h, u_h, _ch, _s2) = (runs["general"],
-                                                     runs["hybrid"])
-    du = float(np.abs(u_h - u_g).max() / np.abs(u_g).max())
-    its_g, its_h = [r.iters for r in res_g], [r.iters for r in res_h]
-    say(f"time octree {n}^3 newmark hybrid against general: iterations "
-        f"{its_h} against {its_g}, seconds "
-        f"{[round(r.wall_s, 3) for r in res_h]} against "
-        f"{[round(r.wall_s, 3) for r in res_g]}; u differs by {du:.3e} of "
-        f"max|u| (tol 1e-6)")
-    if any(abs(a - b) > max(3, ITERS_TOL * b) for a, b in zip(its_h, its_g)):
-        raise AssertionError("time newmark: hybrid iterations outside "
-                             "max(3, 5 %) of the general backend's")
-    if not du <= 1e-6:
-        raise AssertionError(f"time newmark: hybrid u differs by {du:.3e}")
-    del runs
+    # 1. Newmark: the 22^3 octree on the auto backend (general), then the
+    # 6^3 octree's hybrid against its general
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the auto gate's note
+        s = NewmarkSolver(model, cfg, dt=TIME_NEWMARK_DT_FACTOR * dt_cfl)
+    _res, counts = _newmark_steps(
+        torch, np, s, f"time octree {n}^3 newmark {s.backend}", tol)
+    adder(newmark)(counts)
+    del s
+    torch.cuda.empty_cache()
+    n6 = OCTREE_PARITY_N
+    m6 = octrees.get(n6)[0]
+    _newmark_pair(torch, np, m6, n6, cfg, tol, adder(newmark))
 
-    # 2. explicit dynamics: float64 general (auto), float32 hybrid
-    probes = (int(np.argmax(np.abs(model.F))),
-              int(model.dof_eff[len(model.dof_eff) // 2]))
+    # 2. explicit dynamics: float64 on the 22^3 general (auto) backend;
+    # the 6^3 octree's float64 general and hybrid and float32 hybrid
     out = {}
-    for backend, dtype in (("auto", "float64"), ("hybrid", "float32")):
+    for mdl, k, backend, dtype in ((model, n, "auto", "float64"),
+                                   (m6, n6, "general", "float64"),
+                                   (m6, n6, "hybrid", "float64"),
+                                   (m6, n6, "hybrid", "float32")):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            s = DynamicsSolver(model, RunConfig(solver=SolverConfig(
-                dtype=dtype)), dt=dt_cfl, damping=0.1, probe_dofs=probes,
-                backend=backend)
-        tag = f"time octree {n}^3 explicit {s.backend} {dtype}"
+            s = DynamicsSolver(mdl, RunConfig(solver=SolverConfig(
+                dtype=dtype)), dt=stable_dt(mdl), damping=0.1,
+                probe_dofs=_explicit_probes(np, mdl), backend=backend)
+        tag = f"time octree {k}^3 explicit {s.backend} {dtype}"
         res, counts, _w = _explicit_run(torch, np, s, tag,
                                         TIME_EXPLICIT_STEPS,
                                         TIME_EXPLICIT_EXPORT)
-        add(explicit, counts)
+        adder(explicit)(counts)
         if s.backend == "hybrid":
             n_lv = len(s.ops.level_dims)
-            got = counts[(s.kernel_variant, dtype)]
-            say(f"{tag}: {s.kernel_variant} {dtype} launches {got} == "
-                f"{n_lv} levels x {TIME_EXPLICIT_STEPS} steps")
+            got = counts[(s.kernel_variant if dtype == "float32" else "v6",
+                          dtype)]
+            say(f"{tag}: {got} launches == {n_lv} levels x "
+                f"{TIME_EXPLICIT_STEPS} steps")
             if got != n_lv * TIME_EXPLICIT_STEPS:
                 raise AssertionError(f"{tag}: {got} launches, not "
                                      f"{n_lv * TIME_EXPLICIT_STEPS}")
-        out[dtype] = res
+        out[(k, s.backend, dtype)] = res
         del s
         torch.cuda.empty_cache()
-    p64, p32 = out["float64"].probe_u, out["float32"].probe_u
+    g64 = out[(n6, "general", "float64")]
+    h64 = out[(n6, "hybrid", "float64")]
+    d6 = float(np.abs(h64.u - g64.u).max() / np.abs(g64.u).max())
+    p64, p32 = g64.probe_u, out[(n6, "hybrid", "float32")].probe_u
     dp = float(np.abs(p32 - p64).max() / np.abs(p64).max())
-    say(f"time octree {n}^3 explicit: float32 hybrid probes against "
-        f"float64 general: max difference {dp:.3e} of max|probe| "
-        f"({np.abs(p64).max():.4e} m)")
-
-    # 3. the 6^3 octree: float64 hybrid against general, the v6 double
-    # kernel on its level batches
-    n6 = OCTREE_PARITY_N
-    m6 = octrees.get(n6)[0]
-    dt6 = stable_dt(m6)
-    u6 = {}
-    for backend in ("general", "hybrid"):
-        s = DynamicsSolver(m6, RunConfig(), dt=dt6, damping=0.1,
-                           backend=backend)
-        res, counts = _time_launches(
-            torch, lambda: s.run(TIME_SMALL_STEPS))
-        add(explicit, counts)
-        u6[backend] = res.u
-        if backend == "hybrid":
-            n_lv = len(s.ops.level_dims)
-            got = counts[("v6", "float64")]
-            if got != n_lv * TIME_SMALL_STEPS:
-                raise AssertionError(f"time octree {n6}^3: {got} v6 "
-                                     f"float64 launches")
-    d6 = float(np.abs(u6["hybrid"] - u6["general"]).max()
-               / np.abs(u6["general"]).max())
-    say(f"time octree {n6}^3 explicit float64: hybrid against general "
-        f"over {TIME_SMALL_STEPS} steps: {d6:.3e} of max|u| (tol 1e-9); "
-        f"v6 float64 launches {n_lv} levels x {TIME_SMALL_STEPS}")
+    say(f"time octree {n6}^3 explicit: float64 hybrid against general over "
+        f"{TIME_EXPLICIT_STEPS} steps: {d6:.3e} of max|u| (tol 1e-9); "
+        f"float32 hybrid probes against float64 general: max difference "
+        f"{dp:.3e} of max|probe| ({np.abs(p64).max():.4e} m)")
     if not d6 <= 1e-9:
         raise AssertionError(f"time octree {n6}^3: hybrid differs by "
                              f"{d6:.3e}")
@@ -4085,10 +4406,15 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
                                       classic["profile"])
     lap("4c variants")
     # 4d. blocked right-hand sides at full size
-    many_launches = phase_many(torch, np, models, classic_iters,
-                               classic["profile"])
+    many_launches, serve_inputs = phase_many(torch, np, models,
+                                             classic_iters,
+                                             classic["profile"])
     del models
     lap("4d many")
+    # 4m. the solve service on 4d's flagship Solver
+    serve_launches = phase_serve(torch, np, serve_inputs)
+    del serve_inputs
+    lap("4m serve")
     # 4e's kernel counts and profile, after every other profiled window
     phase_general_profile(torch, general, classic["ms_iter"])
     del general
@@ -4133,6 +4459,9 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
             # phase 4k: the 8-part graph-partitioned hybrid solve
             records[-1]["launches_graph"] = \
                 graph_launches.get((variant, dtype), 0)
+            # phase 4m: the flagship daemon's blocks
+            records[-1]["launches_serve"] = \
+                serve_launches.get((variant, dtype), 0)
             if variant == "v6":
                 records[-1]["launches_preconditioners"] = {
                     path: counts[("v6", dtype)]

@@ -16,9 +16,17 @@ CLI, the JAX package's ``pcg_mpi_solver_tpu/cli.py`` with its flags.
     python -m pcg_mpi_solver_tpu_torch.cli telemetry-merge <run.jsonl> --out M.jsonl
     python -m pcg_mpi_solver_tpu_torch.cli perf-report [scratch] [--nx N] [options]
     python -m pcg_mpi_solver_tpu_torch.cli prof-report <trace or capture dir>
+    python -m pcg_mpi_solver_tpu_torch.cli validate  <scratch> [--preflight=]
+    python -m pcg_mpi_solver_tpu_torch.cli warmup    [scratch] --cache-dir D [options]
+    python -m pcg_mpi_solver_tpu_torch.cli watch     <run.jsonl> [--once]
+    python -m pcg_mpi_solver_tpu_torch.cli serve     --spool DIR [scratch | --synthetic NX,NY,NZ] [options]
+    python -m pcg_mpi_solver_tpu_torch.cli submit    --spool DIR --scale S | --rhs F.npy
+    python -m pcg_mpi_solver_tpu_torch.cli jobs      --spool DIR
 
-``solve``, ``solve-many``, ``dynamics``, ``newmark``, ``demo`` and
-``perf-report`` run on the card unless ``--device cpu`` is given.
+``solve``, ``solve-many``, ``dynamics``, ``newmark``, ``demo``,
+``perf-report``, ``warmup`` and ``serve`` run on the card unless
+``--device cpu`` is given; ``submit``, ``jobs`` and ``watch`` load no
+torch (they work on a machine without the accelerator environment).
 Settings come from ``--settings settings.json`` (the shape of the
 reference's GlobSettings: TimeHistoryParam/SolverParam,
 run_basic_script.bash:30-49) or per-flag overrides.  ``--cache-dir``
@@ -36,16 +44,12 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
 # subcommand -> the ROADMAP queue 1 item that ports it
-REFUSED = {
-    "bench": 1,
-    **{c: 14 for c in (
-        "serve", "submit", "jobs", "warmup", "lint", "fleet-report",
-        "watch", "trend", "validate")},
-}
+REFUSED = {"bench": 1, "trend": 1, "fleet-report": 12, "lint": 14}
 # the multi-process build (Solver.resume_elastic, the sharded ingest)
 ELASTIC_ITEM = 12
 
@@ -589,6 +593,238 @@ def cmd_prof_report(args):
         print(f">telemetry: {args.telemetry_out}")
 
 
+def cmd_serve(args):
+    """Run the solve service (``serve/``): one partitioned operator on the
+    card serving filesystem-submitted jobs exactly once.
+
+    The daemon polls ``--spool``/incoming for specs (``submit``), prices
+    each admission with the cost model against the job's deadline, packs
+    jobs into standard nrhs widths and dispatches each block through
+    ``Solver.solve_many`` (on the card one kernel launch over the block's
+    slabs a matvec); a poisoned job fails alone while its co-batched jobs
+    finish.  Every lifecycle step is an fsync'd record in
+    ``spool/journal.jsonl``; a daemon started again over the same spool
+    replays it (no job lost, none solved twice).  SIGTERM drains; watch
+    the journal with ``watch spool/journal.jsonl``."""
+    from pcg_mpi_solver_tpu_torch.serve.daemon import ServeDaemon
+    from pcg_mpi_solver_tpu_torch.solver.driver import Solver
+
+    cfg = _load_settings(args.settings, args)
+    if args.synthetic:
+        from pcg_mpi_solver_tpu_torch.models import make_cube_model
+
+        try:
+            dims = [int(v) for v in args.synthetic.split(",")]
+        except ValueError:
+            raise SystemExit(f"serve: --synthetic {args.synthetic!r} is "
+                             "not NX[,NY,NZ]")
+        dims += [0] * (3 - len(dims))
+        model = make_cube_model(dims[0], dims[1], dims[2], E=30e9,
+                                nu=0.2, load="traction", load_value=1e6,
+                                heterogeneous=True)
+    elif args.scratch:
+        from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+
+        cfg.scratch_path = args.scratch
+        model = read_mdf(_mdf_path(args.scratch))
+    else:
+        raise SystemExit("serve: pass a <scratch> dir or --synthetic NX")
+    try:
+        widths = sorted({int(v) for v in args.widths.split(",")})
+    except ValueError:
+        raise SystemExit(f"serve: --widths {args.widths!r} is not a "
+                         "comma-separated list of ints")
+    n_parts = args.n_parts or 1
+    print(f">serve: building {model.n_dof} dofs on "
+          f"{args.device or 'cuda'}, {n_parts} parts..", flush=True)
+    s = Solver(model, cfg, n_parts=n_parts,
+               elem_part=(_elem_part(n_parts, args.scratch)
+                          if args.scratch and not args.synthetic else None),
+               backend=args.backend, device=args.device)
+    daemon = ServeDaemon(
+        s, args.spool, queue_max=args.queue_max, widths=widths,
+        expected_iters=args.expected_iters, poll_s=args.poll_s)
+    print(f">serve: spool={args.spool} queue_max={args.queue_max} "
+          f"widths={daemon.widths} backend={s.backend} (SIGTERM drains; "
+          f"journal={daemon.journal.path})", flush=True)
+    reason = daemon.run(max_blocks=args.max_blocks,
+                        idle_exit_s=args.idle_exit_s)
+    print(f">serve: drained ({reason}) — {daemon.jobs_done} done, "
+          f"{daemon.jobs_failed} failed, "
+          f"{daemon.admission.shed_count} shed, "
+          f"{daemon.blocks} block(s)")
+    _finish_telemetry(s, args)
+    print(">success!")
+
+
+def cmd_submit(args):
+    """Submit one job to a spool (loads no torch).  Prints the job id;
+    every submitted job gets ``spool/results/<job>.json`` with a named
+    verdict."""
+    from pcg_mpi_solver_tpu_torch.serve import jobs as sjobs
+
+    spec = {"deadline_s": args.deadline_s}
+    if args.job_id:
+        spec["job"] = args.job_id
+    if args.rhs is not None:
+        spec["rhs"] = args.rhs
+    if args.scale is not None:
+        spec["scale"] = args.scale
+    try:
+        job = sjobs.submit(args.spool, spec)
+    except ValueError as e:
+        raise SystemExit(f"submit: {e}")
+    print(f">submitted {job} -> {sjobs.result_path(args.spool, job)}")
+
+
+def cmd_jobs(args):
+    """The job table of a spool, folded from the journal (loads no
+    torch): on a live daemon's spool (the journal is append-only and read
+    tolerantly) and on a crashed one (what would replay)."""
+    from pcg_mpi_solver_tpu_torch.serve import jobs as sjobs
+    from pcg_mpi_solver_tpu_torch.serve.journal import (
+        read_journal, replay_jobs)
+
+    path = sjobs.journal_path(args.spool)
+    if not os.path.exists(path):
+        raise SystemExit(f"jobs: no journal at {path}")
+    events, truncated = read_journal(path)
+    states = replay_jobs(events)
+    if truncated:
+        print(f">warning: {truncated} torn journal line(s) skipped")
+    print(f">{'job':12s} {'ordinal':>7s} {'state':12s} verdict")
+    for st in sorted(states.values(),
+                     key=lambda s: (s["ordinal"] is None,
+                                    s["ordinal"] or 0)):
+        o = "-" if st["ordinal"] is None else str(st["ordinal"])
+        print(f">{st['job']:12s} {o:>7s} {st['op'] or '?':12s} "
+              f"{st['verdict'] or ''}")
+    n_term = sum(st["terminal"] for st in states.values())
+    print(f">{len(states)} job(s), {n_term} terminal, "
+          f"{len(states) - n_term} in flight")
+
+
+def cmd_watch(args):
+    """Live monitor (``obs/watch.py``, loads no torch): tail the flight or
+    telemetry JSONL shards of a running solve or a serve journal:
+    progress, the stall alarm (every shard silent past the threshold),
+    the cost-model x observed-rate ETA.  ``--once`` prints one snapshot
+    and exits (3 when it is a stall); otherwise it polls until done or
+    interrupted.  It only reads the watched stream."""
+    from pcg_mpi_solver_tpu_torch.obs import watch
+
+    rec = None
+    if args.telemetry_out:
+        from pcg_mpi_solver_tpu_torch.obs.metrics import (
+            JsonlSink, MetricsRecorder)
+
+        rec = MetricsRecorder(sinks=[JsonlSink(args.telemetry_out)])
+    stalled = False
+    try:
+        while True:
+            snap = watch.watch_snapshot(args.path,
+                                        stall_after_s=args.stall_after,
+                                        tol=args.tol)
+            print(watch.format_watch(snap), flush=True)
+            if rec is not None:
+                watch.emit_watch_events(rec, snap)
+            stalled = snap["status"] == "stalled"
+            if args.once or snap["status"] == "done":
+                break
+            try:
+                time.sleep(args.interval)
+            except KeyboardInterrupt:
+                break
+            print(flush=True)
+    finally:
+        if rec is not None:
+            rec.close()
+            print(f">telemetry: {args.telemetry_out}")
+    if stalled and args.once:
+        raise SystemExit(3)
+
+
+def cmd_validate(args):
+    """The preflight checks (``validate/``) against a scratch model, each
+    reported: the dry run of the gate the solvers apply at construction.
+    The --preflight policy sets the exit code as it sets the gate: fail
+    (default) exits non-zero on a failed check, warn reports and exits 0,
+    off checks nothing."""
+    from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+    from pcg_mpi_solver_tpu_torch.validate import (
+        preflight_checks, resolve_policy)
+
+    pol = resolve_policy(getattr(args, "preflight", None))
+    if pol == "off":
+        print(">validate: preflight policy is off; nothing checked")
+        return
+    cfg = _load_settings(args.settings, args)
+    model = read_mdf(_mdf_path(args.scratch))
+    print(f">preflight: {model.n_elem} elems / {model.n_dof} dofs")
+    results = preflight_checks(model, cfg, context={"kind": "validate"})
+    n_fail = 0
+    for r in results:
+        tag = {"ok": "  ok ", "warn": " WARN", "fail": " FAIL"}[r.status]
+        n_fail += r.status == "fail"
+        print(f">[{tag}] {r.name}" + (f": {r.detail}" if r.detail else ""))
+    if n_fail and pol == "fail":
+        raise SystemExit(f"validate: {n_fail} failed check(s)")
+    if n_fail:
+        print(f">validate: {n_fail} failed check(s) (policy={pol}; "
+              "exit 0)")
+    else:
+        print(">validate: all checks passed")
+
+
+def cmd_warmup(args):
+    """Pay a model's setup before the solve that needs it: the partitions
+    (and the mg hierarchy) into the partition cache, the CUDA libraries
+    the solve launches built or loaded, each operator applied once
+    (``Solver.warmup``), so a later solve with the SAME --cache-dir
+    starts warm."""
+    from pcg_mpi_solver_tpu_torch.cache.partition_cache import format_stats
+    from pcg_mpi_solver_tpu_torch.solver.driver import Solver
+
+    cfg = _load_settings(args.settings, args)
+    if not cfg.cache_dir:
+        # a warmup into a dir the later solve does not read is worse than
+        # none
+        raise SystemExit(
+            "warmup: pass --cache-dir DIR (or set PCG_TPU_CACHE_DIR) — "
+            "and run the solve with the SAME dir to use the baked caches")
+    if args.demo_nx:
+        from pcg_mpi_solver_tpu_torch.models import make_cube_model
+
+        model = make_cube_model(args.demo_nx, 0, 0, E=30e9, nu=0.2,
+                                load="traction", load_value=1e6,
+                                heterogeneous=True)
+    elif args.scratch:
+        from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf
+
+        cfg.scratch_path = args.scratch
+        model = read_mdf(_mdf_path(args.scratch))
+    else:
+        raise SystemExit("warmup: pass a <scratch> dir or --demo-nx N")
+    n_parts = args.n_parts or 1
+    # the scratch MeshPart map belongs to the scratch model, never to a
+    # --demo-nx cube
+    elem_part = None if args.demo_nx else _elem_part(n_parts, args.scratch)
+    print(f">warming {model.n_dof} dofs on {args.device or 'cuda'}, "
+          f"{n_parts} parts ({cfg.solver.precision_mode} precision) into "
+          f"{cfg.cache_dir} ..")
+    s = Solver(model, cfg, n_parts=n_parts, elem_part=elem_part,
+               backend=args.backend, device=args.device)
+    print(f">backend: {s.backend}  setup: {s.setup_s:.2f}s "
+          f"({s.setup_cache} partition)")
+    t0 = time.perf_counter()
+    s.warmup()
+    print(f">warmup: {time.perf_counter() - t0:.2f}s (kernels, first "
+          f"operator applications)")
+    _finish_telemetry(s, args)
+    print(format_stats(cfg.cache_dir))
+    print(">warm path ready")
+
+
 def cmd_refused(args):
     item = REFUSED[args.cmd]
     raise NotImplementedError(
@@ -888,6 +1124,122 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch completions before ordering (events "
                         "gain t_aligned; t is kept)")
     p.set_defaults(fn=cmd_telemetry_merge)
+
+    p = sub.add_parser("validate",
+                       help="run the preflight checks against a scratch "
+                            "model (dry run; no partition, no solve)")
+    p.add_argument("scratch")
+    p.add_argument("--settings", default=None)
+    p.add_argument("--tol", type=float, default=None)
+    p.add_argument("--max-iter", type=int, default=None)
+    p.add_argument("--precision", choices=["direct", "mixed"], default=None)
+    _add_preflight_flag(p)
+    p.set_defaults(fn=cmd_validate)
+
+    p = sub.add_parser("warmup",
+                       help="pay a model's setup before a solve: the "
+                            "partition cache filled, the kernels built, "
+                            "the operators applied once")
+    p.add_argument("scratch", nargs="?", default=None,
+                   help="scratch dir with an ingested MDF model (or use "
+                        "--demo-nx)")
+    p.add_argument("--demo-nx", type=int, default=0,
+                   help="warm a synthetic nx^3 cube instead of a scratch "
+                        "model")
+    p.add_argument("--n-parts", type=int, default=None)
+    _add_solver_flags(p)
+    p.add_argument("--backend", choices=BACKENDS, default="auto")
+    _add_run_flags(p)
+    p.set_defaults(fn=cmd_warmup)
+
+    p = sub.add_parser("watch",
+                       help="live run monitor: tail the flight/telemetry "
+                            "JSONL shards of a running solve or a serve "
+                            "journal: progress, stall alarm, cost-model x "
+                            "observed-rate ETA")
+    p.add_argument("path", metavar="FILE.jsonl",
+                   help="base telemetry/flight path; on-disk .p<N> "
+                        "shards are tailed together")
+    p.add_argument("--once", action="store_true",
+                   help="print one snapshot and exit (exit 3 when it is "
+                        "a stall)")
+    p.add_argument("--interval", type=float, default=5.0,
+                   help="poll interval in seconds (default 5)")
+    p.add_argument("--stall-after", type=float, default=None,
+                   metavar="S",
+                   help="flag a stall when ALL shards are silent this "
+                        "long (default: 3x the flight heartbeat "
+                        "cadence)")
+    p.add_argument("--tol", type=float, default=1e-8,
+                   help="convergence target the ETA aims the observed "
+                        "rate at (the stream does not carry the run's "
+                        "tol; default matches SolverConfig)")
+    p.add_argument("--telemetry-out", default=None, metavar="FILE.jsonl",
+                   help="emit watch/stall events here (never to the "
+                        "watched stream)")
+    p.set_defaults(fn=cmd_watch)
+
+    p = sub.add_parser("serve",
+                       help="solve service: admit filesystem-submitted "
+                            "jobs against one operator on the card "
+                            "(cost-model deadline pricing, bounded queue "
+                            "with load shedding, nrhs packing, crash-"
+                            "durable exactly-once journal)")
+    p.add_argument("scratch", nargs="?", default=None,
+                   help="scratch dir with an ingested model (or use "
+                        "--synthetic)")
+    p.add_argument("--spool", required=True, metavar="DIR",
+                   help="service root: incoming/, results/, "
+                        "journal.jsonl")
+    p.add_argument("--synthetic", default=None, metavar="NX[,NY,NZ]",
+                   help="serve a synthetic heterogeneous cube instead "
+                        "of a scratch model")
+    p.add_argument("--queue-max", type=int, default=16,
+                   help="bounded admission queue depth (default 16); "
+                        "arrivals beyond it shed past-deadline jobs or "
+                        "are rejected queue_full")
+    p.add_argument("--widths", default="1,2,4,8",
+                   help="standard nrhs block widths jobs are packed "
+                        "into (default 1,2,4,8)")
+    p.add_argument("--expected-iters", type=int, default=None,
+                   help="iteration count admission prices deadlines "
+                        "against (default: the solver max_iter cap)")
+    p.add_argument("--poll-s", type=float, default=0.05,
+                   help="incoming-directory poll interval (default 0.05)")
+    p.add_argument("--idle-exit-s", type=float, default=None,
+                   help="drain after this long idle (default: serve "
+                        "until SIGTERM)")
+    p.add_argument("--max-blocks", type=int, default=None,
+                   help="drain after dispatching N blocks")
+    p.add_argument("--n-parts", type=int, default=None)
+    _add_solver_flags(p)
+    p.add_argument("--backend", choices=BACKENDS, default="auto")
+    _add_run_flags(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("submit",
+                       help="submit one job to a solve-service spool "
+                            "(atomic drop; loads no torch)")
+    p.add_argument("--spool", required=True, metavar="DIR")
+    p.add_argument("--scale", type=float, default=None,
+                   help="load case = scale * the model's reference "
+                        "load F")
+    p.add_argument("--rhs", default=None, metavar="FILE.npy",
+                   help="load case = an (n_dof,) .npy column (exactly "
+                        "one of --scale / --rhs)")
+    p.add_argument("--deadline-s", type=float, default=3600.0,
+                   help="relative deadline admission prices against "
+                        "(default 3600)")
+    p.add_argument("--job-id", default=None,
+                   help="explicit job id (default: generated); a "
+                        "consumed id submitted again is dropped")
+    p.set_defaults(fn=cmd_submit)
+
+    p = sub.add_parser("jobs",
+                       help="job table of a solve-service spool, folded "
+                            "from its journal (loads no torch)")
+    p.add_argument("--spool", required=True, metavar="DIR")
+    p.set_defaults(fn=cmd_jobs)
 
     for name, item in REFUSED.items():
         p = sub.add_parser(name, help=f"not ported (ROADMAP queue 1 item "

@@ -39,15 +39,15 @@ package goes to the device through :func:`tree_from_numpy`.  The lattice
 is a structured grid's (``model.grid``) or an octree's (``model.octree``:
 its leaves paint the unit-lattice stiffness field, and the hierarchy
 serves the general backend, whose node rows are ``Ops._as_node3``'s).
-The JAX package's setup telemetry (the ``mg_setup`` event and
-``check_mg_interval``; ROADMAP queue 1 item 14.3) is not ported.  The
-recovery ladder's demotion to scalar Jacobi is :func:`fallback_operand`.
+The setup ends in :func:`install_lam_and_report`, as the JAX package's
+does: the ``mg_setup`` event and ``validate.check_mg_interval``'s
+warning.  The recovery ladder's demotion to scalar Jacobi is
+:func:`fallback_operand`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import warnings
 from typing import List, Optional, Tuple
 
@@ -707,34 +707,35 @@ def estimate_fine_lam(ops, data: dict, iters: int = MG_POWER_ITERS) -> float:
     return MG_LAM_SAFETY * lam
 
 
-def interval_warning(lmin: float, lmax: float) -> Optional[str]:
-    """The JAX package's ``mg_cheb_interval`` check
-    (``validate/preflight.py::check_mg_interval``) on the coarsest level's
-    [lambda_min, lambda_max]: the warning text, or None when the interval
-    is sound.  A warning, never a failure: a degenerate interval gives a
-    weak but valid preconditioner."""
-    if not (math.isfinite(lmax) and lmax > 0):
-        return (f"estimated lambda_max={lmax!r} is not a positive finite "
-                "number; the Chebyshev smoother interval is meaningless")
-    lo = max(float(lmin), 0.0)
-    if lo > 0 and lmax / lo < 1.05:
-        return (f"estimated Chebyshev interval is degenerate "
-                f"(lambda_max/lambda_min = {lmax / lo:.4f} < 1.05): the "
-                "level operator is numerically a multiple of its diagonal "
-                "— the mg coarse correction adds ~nothing over Jacobi")
-    return None
+def install_lam_and_report(setup: MGSetup, lam_fine: float, *, trees,
+                           recorder, wall_s: float,
+                           cached: bool) -> np.ndarray:
+    """The end of the mg setup, shared by ``Solver`` and ``NewmarkSolver``
+    (the JAX package's ``install_lam_and_report``): install the per-level
+    bounds ``[lam_fine, *coarse_lams]`` into each device tree's ``mg`` (at
+    that tree's precision: the float64 tree and the mixed solve's float32
+    shadow), warn on a degenerate coarsest Chebyshev interval
+    (``validate.check_mg_interval``, a warning and never a failure), emit
+    the ``mg_setup`` event (levels, degree, dims, bounds, the interval's
+    status, whether the fine bound came from the cache, ``wall_s``: the
+    host hierarchy plus the fine bound) and the ``mg.levels`` gauge.
+    Returns the float64 bounds."""
+    from pcg_mpi_solver_tpu_torch.validate import check_mg_interval
 
-
-def install_lam(setup: MGSetup, lam_fine: float, trees) -> np.ndarray:
-    """Install the per-level bounds ``[lam_fine, *coarse_lams]`` into each
-    device tree's ``mg`` (at that tree's precision: the float64 tree and
-    the mixed solve's float32 shadow) and warn on a degenerate coarsest
-    interval.  Returns the float64 vector."""
     lam = np.asarray([lam_fine] + list(setup.coarse_lams), np.float64)
     for t in trees:
         t["mg"]["lam"] = lam.astype(t["mg"]["lam"].dtype)
-    msg = interval_warning(setup.lam_min_coarse,
-                           setup.coarse_lams[-1] / MG_LAM_SAFETY)
-    if msg is not None:
-        warnings.warn(f"[mg_cheb_interval] {msg}")
+    chk = check_mg_interval(setup.lam_min_coarse,
+                            setup.coarse_lams[-1] / MG_LAM_SAFETY)
+    if chk.status == "warn":
+        warnings.warn(f"[{chk.name}] {chk.detail}")
+    recorder.event(
+        "mg_setup", levels=int(setup.meta["levels"]),
+        degree=int(setup.meta["degree"]),
+        dims=list(setup.meta["dims"]),
+        lam_fine=round(lam_fine, 6),
+        lam_coarse=[round(v, 6) for v in setup.coarse_lams],
+        interval=chk.status, cached=bool(cached),
+        wall_s=round(wall_s, 6))
+    recorder.gauge("mg.levels", int(setup.meta["levels"]))
     return lam

@@ -16,7 +16,7 @@ the JAX package's grammar:
     count    := consecutive firings (default 1; "exc@3*2" also fails the
                 first retry of dispatch 3)
 
-Four counter domains fire in the port.  The first two are monotone over
+Five counter domains fire in the port.  The first two are monotone over
 the life of the plan (they keep running across recovery restarts, so a
 second fault can be aimed at a later ladder rung):
 
@@ -44,9 +44,13 @@ kinematic state ``u``, ``kill`` raises.  The explicit driver ends its
 device chunk at the next pending step fault
 (:meth:`FaultPlan.next_step_fault`), so the fault's timestep is a host
 boundary; a rollback or resume that replays past it does not fire it
-again.  The job (``job:``) domain parses as in the JAX package and counts
-towards :attr:`FaultPlan.armed`, but no path of the port consumes it yet:
-it belongs to the solve service (ROADMAP queue 1 item 14.3).  The rank
+again.  The JOB domain (``job:``, as ``exc@job:1`` or ``nan@job:0``) is
+indexed by a solve-service job's absolute admission ordinal: the daemon
+(``serve/daemon.py``) calls :meth:`FaultPlan.at_job` for each job of a
+packed block before it dispatches the block (``sleep`` delays the block,
+``nan`` poisons that job's load column, ``exc`` fails that job alone),
+and journal replay drops the faults of ordinals a killed daemon already
+passed (:meth:`FaultPlan.replay_consume_job`).  The rank
 (``rank:``) domain rides the dispatch and boundary counters of one
 process: the port runs in one (index 0), so a fault aimed at rank 0 fires
 as its unprefixed twin and one aimed at any other rank never lands
@@ -205,6 +209,11 @@ class FaultPlan:
         """Any step-domain fault still pending."""
         return any(self._step_faults.values())
 
+    @property
+    def job_armed(self) -> bool:
+        """Any job-domain (service-boundary) fault still pending."""
+        return any(self._job_faults.values())
+
     def next_step_fault(self, after: int) -> Optional[int]:
         """Smallest pending step-domain index > ``after``, or None: the
         explicit time loop ends its device chunk there, so the fault's
@@ -345,6 +354,50 @@ class FaultPlan:
         if pending[col] <= 0:
             del pending[col]
         return True
+
+
+    def _take_job(self, mode: str, job: int) -> bool:
+        pending = self._job_faults.get(mode, {})
+        if pending.get(job, 0) <= 0:
+            return False
+        pending[job] -= 1
+        if pending[job] <= 0:
+            del pending[job]
+        return True
+
+    def at_job(self, ordinal: int) -> Optional[str]:
+        """Called by the solve service before it dispatches the block that
+        holds the job of absolute admission ordinal ``ordinal``.  Fires
+        straggler first, as :meth:`at_boundary` does: ``sleep`` delays the
+        host (the whole block arrives late: the window a SIGKILL drill
+        fires inside), then ``nan`` returns ``"nan"`` (the caller poisons
+        that job's load column), then ``exc`` raises
+        :class:`InjectedDispatchError` (the job fails by name, its
+        co-batched jobs dispatch).  An ordinal never admitted never reaches
+        this hook."""
+        poison = None
+        if self._take_job("sleep", ordinal):
+            self._fire("sleep", "job", ordinal)
+            time.sleep(self.sleep_s)
+        if self._take_job("nan", ordinal):
+            self._fire("nan", "job", ordinal)
+            poison = "nan"
+        if self._take_job("exc", ordinal):
+            self._fire("exc", "job", ordinal)
+            raise InjectedDispatchError(
+                f"injected service-boundary failure for job ordinal "
+                f"{ordinal} (PCG_TPU_FAULTS job domain)")
+        return poison
+
+    def replay_consume_job(self, ordinal: int) -> None:
+        """Journal replay: drop every pending job-domain fault aimed at
+        ``ordinal`` without firing or recording it.  A restarted daemon
+        parses ``PCG_TPU_FAULTS`` into a fresh plan, but the journal shows
+        that ordinal already passed the service boundary (a ``dispatched``
+        or terminal record): the dead process consumed its fault, and an
+        absolutely indexed fault never fires twice."""
+        for pending in self._job_faults.values():
+            pending.pop(ordinal, None)
 
 
 def _poison(carry: dict, mode: str, leaf: str = "r") -> dict:

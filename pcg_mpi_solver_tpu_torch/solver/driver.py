@@ -492,13 +492,18 @@ class Solver(LadderPieces):
         if self.mg_setup is not None:
             # the fine level's Chebyshev bound: power-iteration matvecs on
             # the uploaded storage-dtype operator, installed with the
-            # coarse bounds into every tree
+            # coarse bounds into every tree; the mg_setup event and the
+            # interval check (the JAX package's _finish_mg_setup)
             t_lam = time.perf_counter()
+            hit0 = self._rec.counters.get("cache.partition.hit", 0)
             lam_fine = self._fine_lam_cached()
-            self.mg_lam = mgmod.install_lam(
-                self.mg_setup, lam_fine,
-                [self.data] + ([self.data32] if self.mixed else []))
             self.mg_lam_s = time.perf_counter() - t_lam
+            self.mg_lam = mgmod.install_lam_and_report(
+                self.mg_setup, lam_fine,
+                trees=[self.data] + ([self.data32] if self.mixed else []),
+                recorder=self._rec, wall_s=self.mg_setup_s + self.mg_lam_s,
+                cached=self._rec.counters.get("cache.partition.hit", 0)
+                > hit0)
 
         # Initial state: deterministic zeros.
         self.reset_state()
@@ -594,6 +599,38 @@ class Solver(LadderPieces):
     def predicted_ms_per_iter(self, nrhs: int = 1) -> float:
         """The cost model's ms/iter at block width ``nrhs``."""
         return float(self._cost_model_at(nrhs)["predicted_ms_per_iter"])
+
+    def warmup(self) -> None:
+        """Pay the engaged path's first-use work without running a solve
+        (the JAX package's ``Solver.warmup``, which compiles the step
+        programs; the port has no compile step).  On the card it builds,
+        or loads from ``build/torch_kernels/``, every CUDA library the
+        path launches (the selected float32 variant and v6's double
+        kernel on the slab and hybrid backends); it builds the native
+        library when the partition method needs it; and it applies each
+        operator the path uses (the storage-dtype one, and the float32
+        one of a mixed solve) to a zero vector, so the first solve pays
+        no lazy module load or allocator growth.  ``un``, the
+        convergence ring and the solve history are untouched.  CLI:
+        ``warmup``."""
+        from pcg_mpi_solver_tpu_torch.ops.kernels import load_kernel
+
+        with self._rec.span("warmup", emit=True):
+            if (self.config.partition_method in ("graph", "auto")
+                    and not native.disabled()):
+                native.load()
+            if self.device.type == "cuda" and self.backend != "general":
+                for lib in (VARIANTS[self.kernel_variant][0],
+                            "structured_matvec"):
+                    load_kernel(lib)
+            zero = torch.zeros_like(self.un)
+            self._k64(zero)
+            if self.mixed:
+                self.ops32.matvec(self.data32, zero.to(torch.float32))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self._rec.note("warmup complete (kernels loaded, operators "
+                       "applied once)")
 
     def _partition_cached(self, label: str, build: Callable, *,
                           n_parts: int, method: str = "n/a",

@@ -232,12 +232,16 @@ class NewmarkSolver(LadderPieces):
             self.data32 = mgmod.cast_tree(data, torch.float32)
             self.ops32 = MassShiftedOps(mk_ops(torch.float32), cshift)
         if self.mg_setup is not None:
-            # the fine Chebyshev bound of the SHIFTED operator
+            # the fine Chebyshev bound of the SHIFTED operator (no
+            # partition cache on the time solvers, as in the JAX package)
             t_lam = time.perf_counter()
-            self.mg_lam = mgmod.install_lam(
-                self.mg_setup, mgmod.estimate_fine_lam(self.ops, self.data),
-                [self.data] + ([self.data32] if self.mixed else []))
+            lam_fine = mgmod.estimate_fine_lam(self.ops, self.data)
             self.mg_lam_s = time.perf_counter() - t_lam
+            self.mg_lam = mgmod.install_lam_and_report(
+                self.mg_setup, lam_fine,
+                trees=[self.data] + ([self.data32] if self.mixed else []),
+                recorder=self._rec, wall_s=self.mg_setup_s + self.mg_lam_s,
+                cached=False)
         self.u = torch.zeros((pm.n_parts, pm.n_loc), dtype=self.dtype,
                              device=self.device)
         self.v = torch.zeros_like(self.u)

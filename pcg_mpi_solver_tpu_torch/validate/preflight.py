@@ -370,6 +370,29 @@ def _check_mg_replication(model, scfg) -> CheckResult:
     return CheckResult("mg_replication", "ok")
 
 
+def check_mg_interval(lmin: float, lmax: float) -> CheckResult:
+    """The mg smoother's degenerate Chebyshev interval: the setup's
+    estimates [lambda_min, lambda_max] of the coarsest level's D^-1 A.  A
+    ratio under 1.05 means the level operator is numerically a multiple
+    of its diagonal, so the coarse correction adds nothing (the hierarchy
+    coarsened into triviality, or the estimates failed).  Warn, never
+    fail: the V-cycle stays a valid, weak, SPD preconditioner."""
+    if not (math.isfinite(lmax) and lmax > 0):
+        return CheckResult(
+            "mg_cheb_interval", "warn",
+            f"estimated lambda_max={lmax!r} is not a positive finite "
+            "number; the Chebyshev smoother interval is meaningless")
+    lo = max(float(lmin), 0.0)
+    if lo > 0 and lmax / lo < 1.05:
+        return CheckResult(
+            "mg_cheb_interval", "warn",
+            f"estimated Chebyshev interval is degenerate "
+            f"(lambda_max/lambda_min = {lmax / lo:.4f} < 1.05): the "
+            "level operator is numerically a multiple of its diagonal "
+            "— the mg coarse correction adds ~nothing over Jacobi")
+    return CheckResult("mg_cheb_interval", "ok")
+
+
 def check_rhs_block(fexts: Any, n_dof: int) -> List[CheckResult]:
     """Per-column validation of a blocked right-hand side (the
     ``Solver.solve_many`` request gate): shape contract per RHS and a

@@ -4,7 +4,11 @@ cpu`` (ingest -> partition -> solve -> export on a model written in the
 reference's MDF format, the cube, Poisson and octree demos, the speed
 test, the backend flag), a bundle the JAX package wrote, one run as a
 subprocess, and every subcommand the port does not have yet refused with
-its ROADMAP queue 1 item.  The observability subcommands (``summary``,
+its ROADMAP queue 1 item.  The service subcommands (``submit``, ``serve
+--device cpu``, ``jobs``, ``watch --once``) drive a spool end to end,
+``jobs`` and ``watch`` printing what the JAX package's print; ``validate``
+prints JAX's checks on one bundle; ``warmup`` fills the cache the later
+solve reads, and ``Solver.warmup`` leaves a solve bitwise.  The observability subcommands (``summary``,
 ``telemetry-merge``, ``perf-report``, ``prof-report``) and the per-run
 telemetry flags run against the JAX package's CLI where both read the
 same files.
@@ -179,7 +183,189 @@ def test_unported_flags_name_their_item(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
         main([a.format(scratch=scratch) for a in argv] + (
             CPU if argv[0] == "solve" else []))
-    assert len(REFUSED) == 10 and set(REFUSED.values()) == {1, 14}
+    assert len(REFUSED) == 4 and set(REFUSED.values()) == {1, 12, 14}
+
+
+# ----------------------------------------------------------------------
+# the service and operator subcommands: serve, submit, jobs, watch,
+# validate, warmup
+# ----------------------------------------------------------------------
+
+def _submit_three(spool):
+    """The CPU drive's three jobs: two tenants and one deadline no cost
+    model can meet."""
+    for argv in (["--scale", "1.0", "--job-id", "tenant-a"],
+                 ["--scale", "2.0", "--job-id", "tenant-b"],
+                 ["--scale", "1.0", "--deadline-s", "1e-7", "--job-id",
+                  "rush"]):
+        main(["submit", "--spool", spool] + argv)
+
+
+@pytest.fixture
+def served(tmp_path, capsys, monkeypatch):
+    """``submit`` three jobs and ``serve --device cpu`` them (``exc@job:1``
+    fails tenant-b by name) until idle: (spool, serve's output)."""
+    import signal
+
+    spool = str(tmp_path / "spool")
+    _submit_three(spool)
+    capsys.readouterr()
+    monkeypatch.setenv("PCG_TPU_FAULTS", "exc@job:1")
+    handler = signal.getsignal(signal.SIGTERM)
+    try:
+        main(["serve", "--spool", spool, "--synthetic", "6,5,5",
+              "--widths", "1,2,4", "--idle-exit-s", "0.5", "--n-parts", "2",
+              "--poll-s", "0.01"] + CPU)
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    return spool, capsys.readouterr().out
+
+
+def test_cli_submit(tmp_path, capsys):
+    """``submit`` drops an atomic spec the JAX package's spool reader
+    lists; a spec with neither --scale nor --rhs exits by name."""
+    from pcg_mpi_solver_tpu.serve import jobs as jax_jobs
+
+    spool = str(tmp_path / "spool")
+    _submit_three(spool)
+    out = capsys.readouterr().out
+    assert out.count(">submitted") == 3 and "tenant-a" in out
+    listed = [spec["job"] for _p, spec in jax_jobs.list_incoming(spool)]
+    assert listed == ["tenant-a", "tenant-b", "rush"]
+    with pytest.raises(SystemExit, match="exactly one of scale / rhs"):
+        main(["submit", "--spool", spool])
+
+
+def test_cli_serve(served):
+    """The daemon serves tenant-a (a solution column), fails tenant-b by
+    the injected fault's name, rejects rush at the door, and drains."""
+    from pcg_mpi_solver_tpu_torch.serve import jobs as sjobs
+
+    spool, out = served
+    assert ">serve: drained (idle) — 1 done, 1 failed" in out
+    assert ">success!" in out and "backend=structured" in out
+    a = sjobs.read_result(spool, "tenant-a")
+    assert a["ok"] and a["verdict"] == "converged" and a["flag"] == 0
+    assert np.isfinite(np.load(sjobs.solution_path(spool, "tenant-a"))).all()
+    assert sjobs.read_result(spool, "tenant-b")["verdict"].startswith(
+        "injected: ")
+    assert sjobs.read_result(spool, "rush")["verdict"] == \
+        "rejected: deadline_infeasible"
+
+
+def test_cli_jobs_matches_jax(served, capsys):
+    """``jobs`` prints the JAX package's table of the same journal."""
+    spool, _out = served
+    main(["jobs", "--spool", spool])
+    ours = capsys.readouterr().out
+    jax_main(["jobs", "--spool", spool])
+    assert ours == capsys.readouterr().out
+    assert ">3 job(s), 3 terminal, 0 in flight" in ours
+    with pytest.raises(SystemExit, match="no journal"):
+        main(["jobs", "--spool", spool + "-none"])
+
+
+def test_cli_watch_once_matches_jax(served, capsys):
+    """``watch --once`` on the drained journal: DONE with the serve
+    counts, as JAX's watch prints (clock lines apart), exit 0."""
+    spool, _out = served
+    path = os.path.join(spool, "journal.jsonl")
+    main(["watch", path, "--once"])
+    ours = capsys.readouterr().out
+    jax_main(["watch", path, "--once"])
+    theirs = capsys.readouterr().out
+
+    def steady(text):
+        return [ln for ln in text.splitlines() if " ago" not in ln]
+
+    assert steady(ours) == steady(theirs)
+    assert "status: DONE" in ours and "serve drained (idle)" in ours
+    assert "done=1" in ours and "failed=1" in ours and "rejected=1" in ours
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--precision", "mixed", "--tol", "1e-12"],
+    ["--preflight", "warn", "--tol", "1e-20"],
+    ["--preflight", "off"]])
+def test_cli_validate_matches_jax(tmp_path, capsys, argv):
+    """``validate`` on one JAX-written MDF bundle: the JAX package's check
+    names, statuses and details line for line, under each policy."""
+    archive, scratch = _bundle(tmp_path, jax_cube(4, 3, 3, seed=1,
+                                                  heterogeneous=True),
+                               write=jax_write_mdf)
+    main(["ingest", archive, scratch])
+    capsys.readouterr()
+    main(["validate", scratch] + argv)
+    ours = capsys.readouterr().out
+    jax_main(["validate", scratch] + argv)
+    assert ours == capsys.readouterr().out
+    assert ">preflight:" in ours or "policy is off" in ours
+
+
+def test_cli_validate_fails_a_bad_model_as_jax(tmp_path, capsys):
+    model = jax_cube(4, 3, 3, heterogeneous=True)
+    model.F[5] = np.nan
+    archive, scratch = _bundle(tmp_path, model, write=jax_write_mdf)
+    main(["ingest", archive, scratch])
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as ours:
+        main(["validate", scratch])
+    out = capsys.readouterr().out
+    with pytest.raises(SystemExit) as theirs:
+        jax_main(["validate", scratch])
+    assert out == capsys.readouterr().out and " FAIL" in out
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_cli_warmup(tmp_path, capsys):
+    """``warmup`` fills the cache the later solve reads (its Solver comes
+    up warm); without --cache-dir it exits by name, as JAX's does."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    archive, scratch = _bundle(tmp_path, make_cube_model(
+        4, 4, 4, heterogeneous=True))
+    main(["ingest", archive, scratch])
+    with pytest.raises(SystemExit, match="--cache-dir"):
+        main(["warmup", scratch] + CPU)
+    cache = str(tmp_path / "cache")
+    main(["warmup", scratch, "--cache-dir", cache, "--n-parts", "2",
+          "--precision", "mixed", "--precond", "mg"] + CPU)
+    out = capsys.readouterr().out
+    assert "(cold partition)" in out and ">warm path ready" in out
+    s = Solver(read_mdf(f"{scratch}/ModelData/MDF"), RunConfig(
+        cache_dir=cache, solver=SolverConfig(precision_mode="mixed",
+                                             precond="mg")),
+        n_parts=2, device="cpu")
+    assert s.setup_cache == "warm"
+
+
+@pytest.mark.parametrize("mode,precond", [("direct", "jacobi"),
+                                          ("mixed", "mg")])
+def test_warmup_leaves_the_solve_bitwise(mode, precond):
+    """``Solver.warmup()`` leaves ``un``, the trace ring and the history
+    untouched, and a solve after it is bit for bit one without it."""
+    import torch
+
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    model = make_cube_model(8, 4, 4, heterogeneous=True)
+    out = []
+    for warm in (True, False):
+        s = Solver(model, RunConfig(solver=SolverConfig(
+            tol=1e-8, precision_mode=mode, precond=precond,
+            trace_resid=16)), n_parts=2, device="cpu")
+        if warm:
+            un = s.un.clone()
+            s.warmup()
+            assert torch.equal(s.un, un) and s.last_trace is None
+            assert s.flags == [] and s.iters == []
+        r = s.step(1.0)
+        out.append((r.flag, r.iters, r.relres, s.un.clone()))
+    (fa, ia, ra, ua), (fb, ib, rb, ub) = out
+    assert (fa, ia, ra) == (fb, ib, rb) and fa == 0
+    assert torch.equal(ua, ub)
 
 
 @pytest.fixture

@@ -18,9 +18,10 @@ shell's windows against the CPU, and the time integrators (Newmark and
 explicit dynamics on the card against the CPU, their level batches'
 launches counted on the hybrid backend), a solve on the native graph
 partition against the CPU, a warm partition-cache Solver against the
-cold one, and the convergence ring and a profile capture on the card (a
+cold one, the convergence ring and a profile capture on the card (a
 traced solve bitwise the untraced one, with as many synchronising calls;
-v6 in the matvec phase).  They carry the
+v6 in the matvec phase), and a served block of the solve service against
+its jobs' width-1 solves.  They carry the
 ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
@@ -1358,3 +1359,41 @@ def test_profile_capture_on_card_puts_v6_in_matvec(cuda_device, tmp_path):
     assert rep["verdict"] == "ok"
     for ph in ("matvec", "precond", "reduction", "axpy"):
         assert rep["phases"][ph]["events"] > 0, ph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct", "mixed"])
+def test_served_block_on_card_matches_width1_solves(cuda_device, tmp_path,
+                                                    mode):
+    """The solve service on the card: two jobs (scales 1 and 2) served as
+    ONE width-2 block through ``Solver.solve_many`` (one v6 launch a
+    lockstep trip), each job's solution within 1e-12 of max|u| of its
+    width-1 ``solve_many``, with equal iterations."""
+    from pcg_mpi_solver_tpu_torch.resilience import FaultPlan
+    from pcg_mpi_solver_tpu_torch.serve import jobs as sjobs
+    from pcg_mpi_solver_tpu_torch.serve.daemon import ServeDaemon
+
+    model = make_cube_model(12, 6, 5, heterogeneous=True)
+    s = Solver(model, RunConfig(solver=SolverConfig(
+        tol=1e-8, precision_mode=mode)), device=cuda_device)
+    spool = str(tmp_path / "spool")
+    for t, (job, sc) in enumerate((("a", 1.0), ("b", 2.0))):
+        sjobs.submit(spool, {"job": job, "scale": sc}, submit_t=float(t))
+    d = ServeDaemon(s, spool, widths=(1, 2), fault_plan=FaultPlan(""))
+    d.poll_once()
+    name = "float32" if mode == "mixed" else "float64"
+    before = smv.LAUNCHES[("v6", name)]
+    assert d.serve_block() == 2
+    torch.cuda.synchronize()
+    launched = smv.LAUNCHES[("v6", name)] - before
+    assert d.run(idle_exit_s=0.0, install_signals=False) == "idle"
+    F = np.asarray(model.F)
+    for job, sc in (("a", 1.0), ("b", 2.0)):
+        res = sjobs.read_result(spool, job)
+        assert res["ok"] and res["width"] == 2
+        ref = s.solve_many(F * sc)
+        u_ref = s.displacement_global_many(ref.x)[:, 0]
+        u = np.load(sjobs.solution_path(spool, job))
+        assert res["iters"] == int(ref.iters[0])
+        assert np.abs(u - u_ref).max() <= 1e-12 * np.abs(u_ref).max()
+    assert launched >= res["iters"]

@@ -48,6 +48,11 @@ TIME_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.solver.{m}" for m in (
 NATIVE_CACHE_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
     "native", "cache", "cache.keys", "cache.partition_cache"))
 
+# the solve service and the live monitor
+SERVE_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
+    "serve", "serve.jobs", "serve.journal", "serve.packer",
+    "serve.admission", "serve.daemon", "obs.watch"))
+
 # what a spawned VTK export worker imports (vtk/export.py's pool): numpy
 # only, so a worker never loads torch or initialises CUDA
 WORKER_PROBE = r"""
@@ -78,6 +83,7 @@ def test_port_imports_no_jax():
     assert set(EXPORT_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(TIME_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(NATIVE_CACHE_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(SERVE_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
 
 
