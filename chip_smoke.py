@@ -147,11 +147,11 @@ Phases (any failed check raises, so the script exits non-zero):
                 iterations;
   4j. time   — run right after phase 4h: ``NewmarkSolver`` (mixed,
                 jacobi, classic, tol 1e-7, dt = 50 x ``stable_dt``, load
-                factors 0.5, 1, 1) on 4e's 22^3/L4 octree model object on
-                the auto backend (general), chunked at the auto cap, then
-                on the 6^3 octree on the general backend and on
-                backend="hybrid" (cut from 22^3 to make room for phase
-                4m; 4h measures the 22^3 hybrid path): each step's flag,
+                factors 0.5, 1, 1) on the 6^3 octree on the general
+                backend and on backend="hybrid", chunked at
+                ``TIME_NEWMARK_CAP`` (cut from 22^3 to keep the script
+                near 1000 s; 4h measures the 22^3 hybrid path, 4e the
+                22^3 general one): each step's flag,
                 relres, iterations, ms/iter and seconds, partition and
                 upload seconds, cap and dispatches; the hybrid's
                 iterations within max(3, 5 %) of the general's a step,
@@ -159,9 +159,9 @@ Phases (any failed check raises, so the script exits non-zero):
                 launched at least levels x inner iterations times and
                 v6's float64 kernel at least once; ``DynamicsSolver``
                 (dt = stable_dt, 500 steps, damping 0.1, two probes, a
-                frame every 250) in float64 on the 22^3 octree's auto
-                backend, and on the 6^3 octree in float64 on the general
-                and the hybrid backends (within 1e-9 of max|u|, v6's
+                frame every 250) on the 6^3 octree in float64 on the
+                general and the hybrid backends (the 22^3 float64 run
+                was cut to make room for phase 4n) (within 1e-9 of max|u|, v6's
                 double kernel exactly levels x steps times) and in
                 float32 on the hybrid one (its selected kernel exactly
                 levels x steps times, its probes against the float64
@@ -184,9 +184,11 @@ Phases (any failed check raises, so the script exits non-zero):
                 cold one's); the 6^3 octree on the hybrid backend at 8
                 parts under "graph" (iterations within max(3, 5 %) of the
                 one-part hybrid's 1149, v6 launched at least levels x
-                iterations times); 4e's mg Solver built again warm (the
-                hierarchy's seconds cold and warm, equal array for
-                array); then the scratch cache is removed;
+                iterations times); 4e's 6^3 mg Solver built again, warm
+                from 4e's entry (hierarchy and bounds equal array for
+                array, the solve bitwise the cold one's; the 22^3 mg
+                Solver warm was cut to make room for phase 4n); then
+                the scratch cache is removed;
   4g. many chunked — run right after phase 3, before 4e (it needs no
                 octree, so it runs while the octree flagship's child
                 builds): the chunked blocked path
@@ -243,6 +245,25 @@ Phases (any failed check raises, so the script exits non-zero):
                 the 12x6x5 cube, the card against the CPU (1e-10 of
                 max|u|; Newmark iterations +-1 a step direct, the mixed
                 totals printed with their inner cycles);
+  4n. multi-process — after phase 5, before 4l: two ranks of a
+                ``torch.distributed`` gloo group on the one card
+                (``PCG_TPU_COORDINATOR`` / ``PCG_TPU_NUM_PROCS`` /
+                ``PCG_TPU_PROC_ID``, children of this script): the 150^3
+                flagship (structured, v6, mixed, jacobi, classic, the
+                chunked path) at ``MP_PARTS`` parts over the two ranks,
+                its flag, iterations (within one of this process's
+                ``MP_PARTS``-part solve on the card and within 5 % of the
+                JAX package's 3334), the same result line on both ranks,
+                u against the one-process solution (``MP_U_TOL`` of
+                max|u|), ms/iter, the collectives an iteration and halo
+                bytes a matvec, and v6's launches on each rank; then, in
+                the same ranks, a general cube solve, a hybrid solve of
+                the 6^3 octree and a block3 Newmark run, each against one
+                process on the card; then the kill drill: ``kill@rank:1``
+                under a ``MP_DEADLINE_S`` deadline, rank 0 raising
+                ``DeadPeerError`` naming rank 1 within it and leaving a
+                committed snapshot epoch, which ``resume_elastic`` takes
+                onto this one process to the uninterrupted flag;
   4l. telemetry — last, after every timed solve a profiler window could
                 slow: the flagship (mixed, classic, jacobi, v6, chunked at
                 the auto cap) through two Solvers, the ring off and
@@ -273,7 +294,8 @@ escalating solve, float64 of phase 4g's chunked block; every record's
 from its level batches, ``launches_newmark`` and ``launches_dynamics``
 from phase 4j's Newmark runs and explicit runs, ``launches_graph`` from
 phase 4k's 8-part hybrid solve, ``launches_serve`` from phase 4m's
-flagship blocks), the last line
+flagship blocks; v6's ``launches_multiprocess`` by rank from phase 4n's
+two-rank flagship solve), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -404,6 +426,15 @@ ITERS_TOL = 0.05        # flagship iterations within 5 % of JAX's
 # 5,670,981 dofs
 OCTREE_FLAGSHIP = dict(n=22, max_level=4, n_incl=6, seed=2, E=30e9, nu=0.2,
                        load="traction", load_value=1e6)
+# phase 4n: the parts over the two ranks (6, three slabs a rank: the
+# structured slab needs a part count that divides nx = 150, which 8 does
+# not; at 8 the flagship routes to the general backend), u's tolerance
+# against the one-process solution (of max|u|), the kill drill's
+# collective deadline, and each spawn's bound
+MP_PARTS = 6
+MP_U_TOL = 1e-4
+MP_DEADLINE_S = 10.0
+MP_SPAWN_TIMEOUT_S = 400.0
 # its two-part operator check on a small octree of the same arguments
 OCTREE_P2 = dict(n=3, max_level=3)
 # the octree whose iterations are held to the JAX package's count
@@ -482,6 +513,10 @@ TIME_CHECK_STEPS = 100
 # the explicit runs take the CFL dt over 500 steps with a frame every 250
 TIME_NEWMARK_DT_FACTOR = 50.0
 TIME_NEWMARK_DELTAS = (0.5, 1.0, 1.0)
+# the 6^3 Newmark's chunk cap: each step (176-193 iterations) runs on
+# the chunked path, which the 22^3 run drove at the auto cap before it
+# was cut to keep the script near 1000 s
+TIME_NEWMARK_CAP = 100
 TIME_EXPLICIT_STEPS = 500
 TIME_EXPLICIT_EXPORT = 250
 # phase 4k: the native graph partition and the partition cache.  The
@@ -2360,10 +2395,10 @@ def phase_general(torch, np, cube_model, octrees):
     torch.cuda.empty_cache()
 
     # 5. mg on the octree lattices: the flagship octree and the 6^3 one
-    octree_mg = phase_general_mg(torch, np, model, n, solver, res_j, ms_j,
-                                 bar, octrees)
+    octree_mg, octree6_mg = phase_general_mg(torch, np, model, n, solver,
+                                             res_j, ms_j, bar, octrees)
     return dict(cube_ms=cube_ms, octree=solver, n=n, octree_mg=octree_mg,
-                model=model, res=res_j, ms=ms_j)
+                octree6_mg=octree6_mg, model=model, res=res_j, ms=ms_j)
 
 
 def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar,
@@ -2374,7 +2409,9 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar,
     hierarchy's host seconds and the fine bound's, iterations, ms/iter
     and time to tol beside jacobi's, the two solutions' difference; then
     the 6^3 octree under mg within max(3, 5 %) of the JAX package's
-    count.  Returns the flagship's mg Solver (profiled after phase 4d)."""
+    count.  Returns the flagship's mg Solver (profiled after phase 4d)
+    and the 6^3 mg Solver's cold setup (cache state, hierarchy, bounds,
+    seconds, flag, iterations and u), which phase 4k loads warm."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
     from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
@@ -2425,9 +2462,12 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar,
         raise AssertionError(f"octree {n6}^3 mg: {res6.iters} iterations, "
                              f"outside max(3, 5 %) of "
                              f"{JAX_OCTREE6_MG_ITERS}")
+    mg6 = dict(cfg=cfg, cache=s6.setup_cache, setup=s6.mg_setup,
+               lam=s6.mg_lam, setup_s=s6.mg_setup_s, lam_s=s6.mg_lam_s,
+               res=res6, u=s6.displacement_global())
     del s6
     torch.cuda.empty_cache()
-    return smg
+    return smg, mg6
 
 
 def phase_general_profile(torch, general, v6_ms_iter):
@@ -2841,6 +2881,10 @@ def _newmark_pair(torch, np, model, n, cfg, tol, add_to):
         tag = f"time octree {n}^3 newmark {s.backend}"
         res, counts = _newmark_steps(torch, np, s, tag, tol)
         add_to(counts)
+        calls = [k for k, _n, _f in s.dispatch_log if k != "refine"]
+        if cfg.solver.iters_per_dispatch > 0 and len(calls) < 2:
+            raise AssertionError(f"{tag}: the last step ran "
+                                 f"{len(calls)} capped dispatch(es)")
         runs[s.backend] = (res, s.displacement_global())
         if backend == "hybrid":
             n_lv = len(s.ops.level_dims)
@@ -2877,20 +2921,19 @@ def _explicit_probes(np, model):
             int(model.dof_eff[len(model.dof_eff) // 2]))
 
 
-def phase_time(torch, np, general, octrees):
+def phase_time(torch, np, octrees):
     """Phase 4j: the time integrators, right after phase 4h, before any
-    profiler window, on 4e's 22^3/L4 octree model object and the 6^3
-    octree (the hybrid runs, cut to 6^3 to make room for phase 4m; the
-    22^3 hybrid path stays measured by 4h):
+    profiler window, on the 6^3 octree (cut from 22^3 to make room for
+    phases 4m and 4n; 4h and 4e measure the 22^3 hybrid and general
+    paths):
     1. Newmark (mixed, jacobi, classic, tol 1e-7, dt = 50 x stable_dt,
-       steps ``TIME_NEWMARK_DELTAS``) on the 22^3 octree's auto backend
-       (general, chunked at the auto cap); then on the 6^3 octree on the
-       general backend and on backend="hybrid" (:func:`_newmark_pair`);
-       flag 0 and relres <= tol every step;
+       steps ``TIME_NEWMARK_DELTAS``, chunked at ``TIME_NEWMARK_CAP``)
+       on the general backend and on backend="hybrid"
+       (:func:`_newmark_pair`); flag 0 and relres <= tol every step;
     2. explicit dynamics (dt = stable_dt, ``TIME_EXPLICIT_STEPS`` steps,
        damping 0.1, two probes, a frame every ``TIME_EXPLICIT_EXPORT``,
-       one host read a chunk): float64 on the 22^3 octree's auto backend
-       (general); on the 6^3 octree float64 general and hybrid (within
+       one host read a chunk): on the 6^3 octree float64 general and
+       hybrid (within
        1e-9 of max|u|; v6's double kernel exactly levels x steps times)
        and float32 hybrid (its selected kernel exactly levels x steps
        times; its probes against the float64 general ones printed).
@@ -2900,15 +2943,12 @@ def phase_time(torch, np, general, octrees):
 
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
     from pcg_mpi_solver_tpu_torch.solver import (
-        DynamicsSolver, NewmarkSolver, stable_dt)
+        DynamicsSolver, stable_dt)
 
-    model, n = general["model"], general["n"]
-    smi = nvidia_smi_line()
     tol = 1e-7
-    cfg = RunConfig(solver=SolverConfig(tol=tol, precision_mode="mixed"))
-    dt_cfl = stable_dt(model)
-    say(f"time octree {n}^3: {model.n_dof} dofs, stable_dt {dt_cfl:.4e} "
-        f"s; Newmark dt = {TIME_NEWMARK_DT_FACTOR:g} x stable_dt; {smi}")
+    cfg = RunConfig(solver=SolverConfig(
+        tol=tol, precision_mode="mixed",
+        iters_per_dispatch=TIME_NEWMARK_CAP))
     newmark, explicit = {}, {}
 
     def adder(into):
@@ -2917,25 +2957,19 @@ def phase_time(torch, np, general, octrees):
                 into[k] = into.get(k, 0) + v
         return add
 
-    # 1. Newmark: the 22^3 octree on the auto backend (general), then the
-    # 6^3 octree's hybrid against its general
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")     # the auto gate's note
-        s = NewmarkSolver(model, cfg, dt=TIME_NEWMARK_DT_FACTOR * dt_cfl)
-    _res, counts = _newmark_steps(
-        torch, np, s, f"time octree {n}^3 newmark {s.backend}", tol)
-    adder(newmark)(counts)
-    del s
-    torch.cuda.empty_cache()
+    # 1. Newmark: the 6^3 octree's hybrid against its general, chunked
     n6 = OCTREE_PARITY_N
     m6 = octrees.get(n6)[0]
+    say(f"time octree {n6}^3: {m6.n_dof} dofs, stable_dt "
+        f"{stable_dt(m6):.4e} s; Newmark dt = {TIME_NEWMARK_DT_FACTOR:g} x "
+        f"stable_dt, chunk cap {TIME_NEWMARK_CAP}; {nvidia_smi_line()}")
     _newmark_pair(torch, np, m6, n6, cfg, tol, adder(newmark))
 
-    # 2. explicit dynamics: float64 on the 22^3 general (auto) backend;
-    # the 6^3 octree's float64 general and hybrid and float32 hybrid
+    # 2. explicit dynamics: the 6^3 octree's float64 general and hybrid
+    # and float32 hybrid (the 22^3 general float64 run, and its 22.6 s
+    # partition, went to make room for phase 4n)
     out = {}
-    for mdl, k, backend, dtype in ((model, n, "auto", "float64"),
-                                   (m6, n6, "general", "float64"),
+    for mdl, k, backend, dtype in ((m6, n6, "general", "float64"),
                                    (m6, n6, "hybrid", "float64"),
                                    (m6, n6, "hybrid", "float32")):
         with warnings.catch_warnings():
@@ -3057,8 +3091,11 @@ def phase_graph_cache(torch, np, general, octrees):
     3. the 6^3 octree on the hybrid backend at ``GRAPH_PARTS`` parts under
        "graph": flag, iterations beside the one-part hybrid's, v6 launched
        at least levels x iterations times;
-    4. 4e's mg Solver built again, warm: the hierarchy's seconds cold and
-       warm, the hierarchy and its bounds equal array for array.
+    4. 4e's 6^3 mg Solver built again, warm from the entry 4e stored:
+       ``setup_cache`` cold then warm, the hierarchy and the bounds equal
+       array for array, their seconds cold and warm, the solve's flag,
+       iterations and u bitwise the cold one's.  (The 22^3 mg Solver
+       warm, 13.2 s, went to make room for phase 4n.)
     Returns the slab kernels' launch counts over step 3 (the only step
     that launches them)."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig, native
@@ -3188,22 +3225,30 @@ def phase_graph_cache(torch, np, general, octrees):
     del s6
     torch.cuda.empty_cache()
 
-    # 4. 4e's mg Solver again, warm
-    smg = general["octree_mg"]
+    # 4. 4e's 6^3 mg Solver again, warm
+    mg6 = general["octree6_mg"]
     t0 = time.perf_counter()
-    wmg = Solver(model, RunConfig(
-        cache_dir=CACHE_DIR, solver=SolverConfig(
-            tol=1e-7, precision_mode="mixed", precond="mg")))
+    wmg = Solver(octrees.get(n6)[0], mg6["cfg"])
     wmg_s = time.perf_counter() - t0
-    say(f"graph octree {n}^3 mg: setup cache {smg.setup_cache}, then "
-        f"{wmg.setup_cache}; hierarchy {smg.mg_setup_s:.2f} s cold (61.76 "
-        f"s recorded), {wmg.mg_setup_s:.2f} s warm; fine bound "
-        f"{smg.mg_lam_s:.2f} s cold, {wmg.mg_lam_s:.2f} s warm; warm Solver "
-        f"{wmg_s:.2f} s")
-    if wmg.setup_cache != "warm":
+    say(f"octree {n6}^3 mg: setup cache {mg6['cache']}, then "
+        f"{wmg.setup_cache}; hierarchy {mg6['setup_s']:.3f} s cold, "
+        f"{wmg.mg_setup_s:.3f} s warm; fine bound {mg6['lam_s']:.3f} s "
+        f"cold, {wmg.mg_lam_s:.3f} s warm; warm Solver {wmg_s:.2f} s")
+    if (mg6["cache"], wmg.setup_cache) != ("cold", "warm"):
         raise AssertionError("octree mg: the cache did not warm")
-    _same_arrays(np, wmg.mg_setup, smg.mg_setup, "warm mg hierarchy")
-    _same_arrays(np, wmg.mg_lam, smg.mg_lam, "warm mg bounds")
+    _same_arrays(np, wmg.mg_setup, mg6["setup"], "warm mg hierarchy")
+    _same_arrays(np, wmg.mg_lam, mg6["lam"], "warm mg bounds")
+    res_w, _ms, _cyc = _general_solve(
+        torch, np, wmg, f"octree {n6}^3 mg, warm",
+        OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
+    same_u = bool(np.array_equal(wmg.displacement_global(), mg6["u"]))
+    say(f"octree {n6}^3 mg, warm: (flag, iterations) ({res_w.flag}, "
+        f"{res_w.iters}) against cold ({mg6['res'].flag}, "
+        f"{mg6['res'].iters}), u bitwise equal: {same_u}")
+    if (res_w.flag, res_w.iters) != (mg6["res"].flag, mg6["res"].iters) \
+            or not same_u:
+        raise AssertionError("octree mg: the warm solve is not the cold "
+                             "one's")
     del wmg
     torch.cuda.empty_cache()
     return launches
@@ -4289,6 +4334,359 @@ def time_card_vs_cpu(torch, np, kw):
                              "the CPU")
 
 
+MP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke_mp")
+
+# a rank of phase 4n: joins the group from the PCG_TPU_* variables
+_MP_CHILD = r"""
+import sys
+import chip_smoke
+sys.exit(chip_smoke.multiprocess_child(*sys.argv[1:]))
+"""
+
+
+def _mp_spawn(mode: str, env_extra=None):
+    """Start phase 4n's two ranks in ``mode``; their output goes to files
+    under ``MP_DIR``.  Returns (processes, log paths)."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+            PCG_TPU_COORDINATOR=f"127.0.0.1:{port}", PCG_TPU_NUM_PROCS="2",
+            PCG_TPU_PROC_ID=str(rank), **(env_extra or {}))
+        log = os.path.join(MP_DIR, f"{mode}{rank}.log")
+        logs.append(log)
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _MP_CHILD, MP_DIR, mode], cwd=root,
+                env=env, stdout=f, stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def _mp_wait(procs, logs, tag: str, expect_rc=(0, 0)):
+    """Wait for phase 4n's ranks (killing them at ``MP_SPAWN_TIMEOUT_S``);
+    returns each rank's ``MP`` JSON records."""
+    deadline = time.time() + MP_SPAWN_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        text = open(log).read()
+        if p.returncode != expect_rc[rank]:
+            raise AssertionError(f"multi-process {tag}: rank {rank} exited "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+        out.append([json.loads(ln[3:]) for ln in text.splitlines()
+                    if ln.startswith("MP ")])
+    return out
+
+
+def _mp_configs():
+    """Phase 4n's Solver configurations by run, the same in the ranks
+    and in this process."""
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+
+    return {
+        "flagship": RunConfig(solver=SolverConfig(
+            tol=1e-7, precision_mode="mixed")),
+        "general": RunConfig(solver=SolverConfig(tol=1e-8, max_iter=500)),
+        "hybrid": RunConfig(solver=SolverConfig(
+            tol=1e-7, precision_mode="mixed")),
+    }
+
+
+def _mp_small_models():
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.models.octree import make_octree_model
+
+    kw = dict(OCTREE_FLAGSHIP)
+    kw.pop("n")
+    n = OCTREE_PARITY_N
+    return {"general": make_cube_model(6, 4, 4, heterogeneous=True),
+            "hybrid": make_octree_model(n, n, n, **kw)}
+
+
+def _mp_newmark(model, mesh=None, device=None):
+    from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+    from pcg_mpi_solver_tpu_torch.solver import NewmarkSolver
+
+    nm = NewmarkSolver(model, RunConfig(solver=SolverConfig(
+        tol=1e-10, max_iter=1000, precond="block3")), n_parts=MP_PARTS,
+        dt=0.2, damping=0.1, mesh=mesh, device=device)
+    res = nm.run([0.5, 1.0, 1.0])
+    return ([r.flag for r in res], [r.iters for r in res],
+            float(abs(nm.state_global()[0]).sum()))
+
+
+def _mp_kill_config(scratch):
+    from pcg_mpi_solver_tpu_torch import (
+        RunConfig, SolverConfig, TimeHistoryConfig)
+
+    return RunConfig(scratch_path=scratch, run_id="kill", snapshot_every=1,
+                     flight_path=os.path.join(scratch, "flight.jsonl"),
+                     solver=SolverConfig(tol=1e-8, max_iter=2000,
+                                         iters_per_dispatch=25),
+                     time_history=TimeHistoryConfig(
+                         time_step_delta=[0.0, 1.0]))
+
+
+def multiprocess_child(out_dir: str, mode: str) -> int:
+    """One rank of phase 4n (``_MP_CHILD``).  ``main``: the flagship over
+    the group, then the small parity runs; ``kill``: the kill drill.
+    Each result is a line ``MP {json}``."""
+    import numpy as np
+    import torch
+
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.parallel.distributed import (
+        init_distributed, make_global_mesh)
+    from pcg_mpi_solver_tpu_torch.resilience import (
+        DeadPeerError, SimulatedKill)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = init_distributed()
+    mesh = make_global_mesh()
+    grp = mesh.group
+
+    def emit(**kw):
+        print("MP " + json.dumps(dict(rank=rank, **kw)), flush=True)
+
+    if mode == "kill":
+        model = make_cube_model(16, 8, 8, heterogeneous=True)
+        cfg = _mp_kill_config(os.path.join(out_dir, "kill"))
+        s = Solver(model, cfg, n_parts=MP_PARTS, mesh=mesh,
+                   backend="general")
+        t0 = time.perf_counter()
+        try:
+            res = s.solve()[-1]
+            emit(outcome="done", flag=res.flag)
+            return 0
+        except SimulatedKill:
+            # the wall clock, shared by both ranks on this host: rank 0's
+            # detection is its own raise less this instant
+            emit(outcome="killed", ckpt=cfg.checkpoint_path, t=time.time())
+            sys.stdout.flush()
+            os._exit(0)
+        except DeadPeerError as e:
+            emit(outcome="deadpeer", waited=time.perf_counter() - t0,
+                 t=time.time(), msg=str(e))
+            sys.stdout.flush()
+            os._exit(0)
+
+    cfgs = _mp_configs()
+    kw = dict(FLAGSHIP)
+    nx = kw.pop("nx")
+    t0 = time.perf_counter()
+    model = make_cube_model(nx, **kw)
+    t1 = time.perf_counter()
+    s = Solver(model, cfgs["flagship"], n_parts=MP_PARTS, mesh=mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grp.reset_counts()
+    reset_launch_counts()
+    res = s.solve()[-1]
+    torch.cuda.synchronize()
+    launches = {f"{v} {d}": n for (v, d), n in LAUNCHES.items() if n}
+    counts = dict(grp.counts)
+    wait_s = grp.wait_s
+    u = s.displacement_global()
+    if rank == 0:
+        np.save(os.path.join(out_dir, "flagship_u.npy"), u)
+    emit(run="flagship", flag=res.flag, iters=res.iters,
+         relres=float(res.relres), wall=res.wall_s,
+         ms_iter=res.wall_s / res.iters * 1e3, backend=s.backend,
+         parts=list(s._part_range), device=str(s.device),
+         cap=s._dispatch_cap, model_s=t1 - t0, setup_s=t2 - t1,
+         partition_s=s.partition_build_s, counts=counts, wait_s=wait_s,
+         launches=launches, u_sum=float(np.abs(u).sum()))
+    del s, u
+    torch.cuda.empty_cache()
+    for name, model in _mp_small_models().items():
+        s = Solver(model, cfgs[name], n_parts=MP_PARTS, mesh=mesh,
+                   backend=name)
+        reset_launch_counts()
+        r = s.step(1.0)
+        u = s.displacement_global()
+        emit(run=name, flag=r.flag, iters=r.iters, relres=float(r.relres),
+             u_max=float(np.abs(u).max()),
+             launches={f"{v} {d}": n for (v, d), n in LAUNCHES.items()
+                       if n})
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"{name}_u.npy"), u)
+        if name == "general":
+            flags, iters, cs = _mp_newmark(model, mesh=mesh)
+            emit(run="newmark", flags=flags, iters=iters, cs=cs)
+    return 0
+
+
+def phase_multiprocess(torch, np, flagship_model):
+    """Phase 4n (module docstring).  Returns {rank: launch counts} of the
+    two-rank flagship solve."""
+    from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
+        LAUNCHES, reset_launch_counts)
+    from pcg_mpi_solver_tpu_torch.solver import Solver
+
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    os.makedirs(MP_DIR)
+    cfgs = _mp_configs()
+    procs, logs = _mp_spawn("main")
+    try:
+        # this process's MP_PARTS-part flagship, built while the ranks
+        # build theirs (host work), solved after they finish (the card)
+        t0 = time.perf_counter()
+        one = Solver(flagship_model, cfgs["flagship"], n_parts=MP_PARTS)
+        if one.backend != "structured":
+            raise AssertionError(f"multi-process: {MP_PARTS} parts put "
+                                 f"the flagship on the {one.backend} "
+                                 f"backend")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    ranks = _mp_wait(procs, logs, "main")
+    by = [{rec["run"]: rec for rec in recs} for recs in ranks]
+    f0, f1 = by[0]["flagship"], by[1]["flagship"]
+    for rank, f in enumerate((f0, f1)):
+        say(f"multi-process: rank {rank} on {f['device']} parts "
+            f"{f['parts']}: model {f['model_s']:.2f} s, setup "
+            f"{f['setup_s']:.2f} s (partition {f['partition_s']:.2f} s); "
+            f"flag {f['flag']}, iterations {f['iters']}, relres "
+            f"{f['relres']:.4e}, {f['ms_iter']:.4f} ms/iter "
+            f"({f['wall']:.3f} s), cap {f['cap']}; collectives "
+            f"{f['counts']}, {f['wait_s']:.3f} s in them; launches "
+            f"{f['launches']}")
+    same = {k: f0[k] for k in ("flag", "iters", "relres", "u_sum")}
+    if same != {k: f1[k] for k in same}:
+        raise AssertionError(f"multi-process: the ranks disagree: {f0} "
+                             f"vs {f1}")
+    c = f0["counts"]
+    mv = f0["launches"].get("v6 float32", 0) \
+        + f0["launches"].get("v6 float64", 0)
+    say(f"multi-process: per iteration {c['all_reduce'] / f0['iters']:.3f} "
+        f"all-reduces, {c['halo'] / f0['iters']:.3f} plane exchanges "
+        f"({c['halo_msgs']} messages); {c['halo_bytes'] / max(c['halo'], 1):.0f}"
+        f" halo bytes a matvec from rank 0; {mv} v6 launches on rank 0")
+    if c["halo"] < mv or f0["launches"].get("v6 float32", 0) < f0["iters"]:
+        raise AssertionError("multi-process: the flagship did not run v6 "
+                             "under the halo exchange")
+    reset_launch_counts()
+    r1 = one.solve()[-1]
+    torch.cuda.synchronize()
+    one_launches = {f"{v} {d}": n for (v, d), n in LAUNCHES.items() if n}
+    say(f"multi-process: one process, {MP_PARTS} parts: build "
+        f"{build_s:.2f} s; flag {r1.flag}, iterations {r1.iters}, relres "
+        f"{r1.relres:.4e}, {r1.wall_s / r1.iters * 1e3:.4f} ms/iter "
+        f"({r1.wall_s:.3f} s); launches {one_launches}")
+    if f0["flag"] != 0 or r1.flag != 0:
+        raise AssertionError("multi-process: the flagship did not converge")
+    if abs(f0["iters"] - r1.iters) > 1:
+        raise AssertionError(f"multi-process: {f0['iters']} iterations "
+                             f"against one process's {r1.iters}")
+    if abs(f0["iters"] - JAX_FLAGSHIP_ITERS) > ITERS_TOL * JAX_FLAGSHIP_ITERS:
+        raise AssertionError(f"multi-process: {f0['iters']} iterations, not "
+                             f"within {ITERS_TOL:.0%} of "
+                             f"{JAX_FLAGSHIP_ITERS}")
+    u1 = one.displacement_global()
+    u2 = np.load(os.path.join(MP_DIR, "flagship_u.npy"))
+    diff = float(np.abs(u2 - u1).max() / np.abs(u1).max())
+    say(f"multi-process: u of two ranks against one process: "
+        f"{diff:.3e} of max|u| (tolerance {MP_U_TOL:g})")
+    if not np.isfinite(u2).all() or diff > MP_U_TOL:
+        raise AssertionError("multi-process: u disagrees")
+    del one, u1, u2
+    torch.cuda.empty_cache()
+    # the small parity runs: the same configurations in this process
+    for name, model in _mp_small_models().items():
+        got0, got1 = by[0][name], by[1][name]
+        s = Solver(model, cfgs[name], n_parts=MP_PARTS, backend=name)
+        reset_launch_counts()
+        r = s.step(1.0)
+        u = s.displacement_global()
+        ur = np.load(os.path.join(MP_DIR, f"{name}_u.npy"))
+        d = float(np.abs(ur - u).max() / np.abs(u).max())
+        say(f"multi-process {name}: two ranks flag {got0['flag']}, "
+            f"iterations {got0['iters']} (rank 1 {got1['iters']}), relres "
+            f"{got0['relres']:.4e}, launches {got0['launches']}; one "
+            f"process flag {r.flag}, iterations {r.iters}; u differs by "
+            f"{d:.3e} of max|u|")
+        if (got0 != dict(got1, rank=0) or got0["flag"] != 0 or r.flag != 0
+                or abs(got0["iters"] - r.iters) > 1 or d > MP_U_TOL):
+            raise AssertionError(f"multi-process {name}: parity failed")
+        if name == "hybrid" and not got0["launches"].get("v6 float32"):
+            raise AssertionError("multi-process hybrid: no v6 launch")
+        if name == "general":
+            flags, iters, cs = _mp_newmark(model)
+            nm0, nm1 = by[0]["newmark"], by[1]["newmark"]
+            say(f"multi-process newmark: two ranks flags {nm0['flags']} "
+                f"iterations {nm0['iters']} cs {nm0['cs']:.12e}; one "
+                f"process flags {flags} iterations {iters} cs {cs:.12e}")
+            if (nm0 != dict(nm1, rank=0) or set(flags) != {0}
+                    or set(nm0["flags"]) != {0}
+                    or not np.isclose(nm0["cs"], cs, rtol=1e-9)):
+                raise AssertionError("multi-process newmark: parity failed")
+    # the kill drill, then the elastic resume here
+    procs, logs = _mp_spawn("kill", {
+        "PCG_TPU_COLLECTIVE_DEADLINE_S": str(MP_DEADLINE_S),
+        "PCG_TPU_FLIGHT_HEARTBEAT_S": "0.2",
+        "PCG_TPU_FAULTS": "kill@rank:1:2"})
+    kill = _mp_wait(procs, logs, "kill")
+    k0, k1 = kill[0][-1], kill[1][-1]
+    if k1["outcome"] != "killed" or k0["outcome"] != "deadpeer":
+        raise AssertionError(f"multi-process kill drill: rank 0 {k0}, "
+                             f"rank 1 {k1}")
+    detect = k0["t"] - k1["t"]
+    say(f"multi-process kill drill: rank 1 killed; rank 0 raised "
+        f"DeadPeerError {detect:.3f} s after the kill (deadline "
+        f"{MP_DEADLINE_S:g} s, margin {MP_DEADLINE_S - detect:.3f} s; "
+        f"{k0['waited']:.2f} s into its solve): {k0['msg']}")
+    if ("suspected dead peer: process 1" not in k0["msg"]
+            or detect > MP_DEADLINE_S):
+        raise AssertionError("multi-process kill drill: no dead peer named "
+                             "within the deadline")
+    import glob as _glob
+
+    epochs = _glob.glob(os.path.join(k1["ckpt"], "snap_COMMIT_e*.json"))
+    if not epochs:
+        raise AssertionError("multi-process kill drill: no committed epoch")
+    from pcg_mpi_solver_tpu_torch.models import make_cube_model
+
+    model = make_cube_model(16, 8, 8, heterogeneous=True)
+    ref = Solver(model, _mp_kill_config(os.path.join(MP_DIR, "ref")),
+                 n_parts=MP_PARTS, backend="general").solve()[-1]
+    el = Solver(model, _mp_kill_config(os.path.join(MP_DIR, "el")),
+                n_parts=MP_PARTS, backend="general")
+    got = el.resume_elastic(k1["ckpt"])[-1]
+    say(f"multi-process elastic resume onto one process from "
+        f"{len(epochs)} committed epoch(s): flag {got.flag}, iterations "
+        f"{got.iters} (uninterrupted: flag {ref.flag}, {ref.iters}); "
+        f"elastic_resume events "
+        f"{el.recorder.counters.get('resilience.elastic_resume', 0)}")
+    if (got.flag != ref.flag or abs(got.iters - ref.iters) > 1
+            or not el.recorder.counters.get("resilience.elastic_resume")):
+        raise AssertionError("multi-process: the elastic resume failed")
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    return {rank: {tuple(k.split()): n for k, n in recs[0]["launches"].items()}
+            | {("v6", d): recs[0]["launches"].get(f"v6 {d}", 0)
+               for d in ("float32", "float64")}
+            for rank, recs in enumerate(ranks)}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4380,7 +4778,7 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
     lap("4h hybrid")
     # 4j. the time integrators on 4e's octree model, before any profiler
     # window
-    time_launches = phase_time(torch, np, general, octrees)
+    time_launches = phase_time(torch, np, octrees)
     lap("4j time")
     # 4k. the native graph partition and the partition cache on 4e's
     # octree model and Solvers, then the scratch cache goes
@@ -4426,6 +4824,10 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
     # 5. direct f64 and card-vs-cpu checks
     phase_checks(torch, np)
     lap("5 checks")
+    # 4n. the multi-process path: the flagship over two ranks, the
+    # small parity solves, the kill drill and the elastic resume
+    mp_launches = phase_multiprocess(torch, np, flagship_model)
+    lap("4n multi-process")
     # 4l. observability on the flagship, after every timed solve a
     # profiler window could slow (its capture comes last)
     phase_telemetry(torch, np, flagship_model, capture)
@@ -4476,6 +4878,9 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
                     resilience_launches[("v6", dtype)]
                 records[-1]["launches_many_chunked"] = \
                     many_chunked_launches[("v6", dtype)]
+                records[-1]["launches_multiprocess"] = {
+                    f"rank{r}": n[("v6", dtype)]
+                    for r, n in sorted(mp_launches.items())}
                 if dtype == "float32":
                     records[-1]["launches_oneshot"] = \
                         classic["oneshot"]["f32"]

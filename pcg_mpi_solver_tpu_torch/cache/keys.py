@@ -11,10 +11,10 @@ entry that other code built.  The package name keeps the port's entries apart fr
 directory: each package pickles its own classes, and a JAX entry loaded
 here would import JAX.
 
-The port of ``pcg_mpi_solver_tpu/cache/keys.py``'s monolithic key
+The port of ``pcg_mpi_solver_tpu/cache/keys.py``'s keys
 (``_hash_update``, ``model_fingerprint``, ``array_hash``, ``_digest``,
-``partition_cache_key``); the shard and glue keys belong to the
-multi-process build, ROADMAP queue 1 item 12.
+``partition_cache_key``, and the shard-addressed ``partition_shard_key``
+and ``partition_glue_key`` of the multi-process build).
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ CODE_SOURCES = tuple(sorted(
     + list((_PKG / "parallel").glob("*.py"))
     + [_PKG / "ops" / f for f in ("matvec.py", "mg.py", "precond.py",
                                   "structured_matvec.py")]
+    + [_PKG / "cache" / "shards.py"]
     + list((_PKG / "native").glob("*.cpp"))
     + list((_PKG / "csrc").glob("*.cu*"))))
 
@@ -135,6 +136,57 @@ def partition_cache_key(model_fp: str, *, n_parts: int, backend: str,
     levels, ...)."""
     return _digest({
         "kind": "partition",
+        "model": model_fp,
+        "n_parts": int(n_parts),
+        "backend": backend,
+        "dtype": dtype,
+        "method": method,
+        "elem_part": elem_part_hash,
+        "pad_multiple": int(pad_multiple),
+        "extra": extra or {},
+    })
+
+
+def partition_shard_key(model_fp: str, *, n_parts: int, part_idx: int,
+                        backend: str, dtype: str, method: str = "n/a",
+                        elem_part_hash: Optional[str] = None,
+                        pad_multiple: int = 8,
+                        extra: Optional[Dict[str, Any]] = None) -> str:
+    """Key for ONE part's rows of a shard-addressed partition entry: the
+    monolithic :func:`partition_cache_key` payload plus the
+    structural ``part_idx`` component, so N processes each read only
+    their own parts' entries on a warm start; two parts of one partition
+    never collide on one entry."""
+    if not (0 <= int(part_idx) < int(n_parts)):
+        raise KeyError(
+            f"partition_shard_key: part_idx {part_idx} outside "
+            f"[0, {n_parts})")
+    return _digest({
+        "kind": "partition-shard",
+        "model": model_fp,
+        "n_parts": int(n_parts),
+        "part_idx": int(part_idx),
+        "backend": backend,
+        "dtype": dtype,
+        "method": method,
+        "elem_part": elem_part_hash,
+        "pad_multiple": int(pad_multiple),
+        "extra": extra or {},
+    })
+
+
+def partition_glue_key(model_fp: str, *, n_parts: int, backend: str,
+                       dtype: str, method: str = "n/a",
+                       elem_part_hash: Optional[str] = None,
+                       pad_multiple: int = 8,
+                       extra: Optional[Dict[str, Any]] = None) -> str:
+    """Key for the GLUE entry of a shard-addressed partition: the global
+    layout (PartitionLayout, scalars, shared element matrices) every
+    process loads alongside its own part entries.  Same payload as the
+    per-part keys minus ``part_idx`` — distinct ``kind`` so glue can
+    never collide with a part entry or a legacy monolithic one."""
+    return _digest({
+        "kind": "partition-glue",
         "model": model_fp,
         "n_parts": int(n_parts),
         "backend": backend,

@@ -9,9 +9,10 @@ is removed.  Layout: ``<cache_dir>/partition/<key>.zpkl``.
 
 The port of ``pcg_mpi_solver_tpu/cache/partition_cache.py``'s monolithic
 store (``load_partition``, ``store_partition``, ``evict_lru``,
-``cached_partition``, ``cache_stats``, ``format_stats``); the
-shard-addressed ``cached_partition_shards`` belongs to the
-multi-process build, ROADMAP queue 1 item 12.
+``cached_partition``, ``cache_stats``, ``format_stats``) and its
+shard-addressed ``cached_partition_shards``: a glue entry plus one entry
+a part (``cache/shards.py``), so each process of a multi-process run
+loads only its own parts.
 """
 
 from __future__ import annotations
@@ -131,6 +132,94 @@ def cached_partition(cache_dir: str, key: str, build: Callable[[], Any],
         recorder.inc("cache.partition.miss")
         recorder.event("cache", name=f"partition.{label}", hit=False,
                        key=key, stored=stored,
+                       wall_s=round(time.perf_counter() - t0, 6))
+    return pm
+
+
+def cached_partition_shards(cache_dir: str, *, glue_key: str,
+                            part_keys: Dict[int, str], builder,
+                            split, join,
+                            legacy_key: Optional[str] = None,
+                            comm=None, recorder=None,
+                            label: str = "partition"):
+    """Shard-addressed load-or-build.
+
+    Warm path: load the glue entry + ONLY the entries named in
+    ``part_keys`` (this process's parts) and ``join`` them — zero build
+    work, and the bytes read scale with parts-per-process, not model
+    size.  Legacy shim: when any shard entry misses but ``legacy_key``
+    (the monolithic :func:`partition_cache_key`) hits, the monolithic
+    object is served as-is — pre-shard caches stay warm.  Cold path:
+    ``builder()`` builds (possibly only this process's part range), then
+    ``split`` publishes the glue + one entry per key in ``part_keys``
+    (each process persists exactly the parts it built; under a
+    multi-process cold start the processes collectively tile the whole
+    partition).
+
+    ``comm`` (``parallel/distributed.HostComm`` across processes): the
+    warm-vs-cold decision GATES a collective code path (the cold
+    builder runs the layout exchange), so it must be AGREED across the
+    group — a process whose entries were concurrently evicted (or whose
+    store failed on a full disk) must not build-and-exchange while its
+    peers skip ahead to later collectives (mispaired allgathers hang
+    the group).  With ``comm`` set, one small reduce decides: warm only
+    if EVERY process can serve warm (shard entries or the legacy
+    monolithic); otherwise every process builds.
+
+    Emits ONE ``cache`` event (hit = fully-warm) with the per-entry read
+    accounting the sharded-warm-start tests assert on; counters follow
+    :func:`cached_partition` (`cache.partition.hit`/`miss`)."""
+    t0 = time.perf_counter()
+    glue = load_partition(cache_dir, glue_key)
+    shards, missing = {}, []
+    if glue is not None:
+        for p, key in part_keys.items():
+            sh = load_partition(cache_dir, key)
+            if sh is None:
+                missing.append(p)
+                break
+            shards[p] = sh
+    shard_warm = glue is not None and not missing
+    legacy_pm = None
+    if not shard_warm and legacy_key is not None:
+        legacy_pm = load_partition(cache_dir, legacy_key)
+    can_serve = shard_warm or legacy_pm is not None
+    if comm is not None and getattr(comm, "n_procs", 1) > 1:
+        # warm/cold gates collective code paths — group-agreed (min:
+        # all ranks must be able to serve warm)
+        from pcg_mpi_solver_tpu_torch.parallel.consensus import agree_flag
+
+        can_serve = agree_flag(comm, can_serve)
+    if can_serve and shard_warm:
+        pm = join(glue, shards)
+        if recorder is not None:
+            recorder.inc("cache.partition.hit")
+            recorder.event("cache", name=f"partition.{label}", hit=True,
+                           key=glue_key, shard=True,
+                           entries=1 + len(shards),
+                           parts=sorted(part_keys),
+                           wall_s=round(time.perf_counter() - t0, 6))
+        return pm
+    if can_serve and legacy_pm is not None:
+        if recorder is not None:
+            recorder.inc("cache.partition.hit")
+            recorder.event("cache", name=f"partition.{label}",
+                           hit=True, key=legacy_key, shard=False,
+                           legacy=True,
+                           wall_s=round(time.perf_counter() - t0, 6))
+        return legacy_pm
+    pm = builder()
+    glue, built = split(pm)
+    keys = dict(part_keys)
+    stored = store_partition(cache_dir, glue_key, glue)
+    for p, key in keys.items():
+        if p in built:
+            stored = store_partition(cache_dir, key, built[p]) and stored
+    if recorder is not None:
+        recorder.inc("cache.partition.miss")
+        recorder.event("cache", name=f"partition.{label}", hit=False,
+                       key=glue_key, shard=True, stored=stored,
+                       parts=sorted(keys),
                        wall_s=round(time.perf_counter() - t0, 6))
     return pm
 

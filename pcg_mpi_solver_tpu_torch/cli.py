@@ -16,6 +16,7 @@ CLI, the JAX package's ``pcg_mpi_solver_tpu/cli.py`` with its flags.
     python -m pcg_mpi_solver_tpu_torch.cli telemetry-merge <run.jsonl> --out M.jsonl
     python -m pcg_mpi_solver_tpu_torch.cli perf-report [scratch] [--nx N] [options]
     python -m pcg_mpi_solver_tpu_torch.cli prof-report <trace or capture dir>
+    python -m pcg_mpi_solver_tpu_torch.cli fleet-report <capture root>
     python -m pcg_mpi_solver_tpu_torch.cli validate  <scratch> [--preflight=]
     python -m pcg_mpi_solver_tpu_torch.cli warmup    [scratch] --cache-dir D [options]
     python -m pcg_mpi_solver_tpu_torch.cli watch     <run.jsonl> [--once]
@@ -34,7 +35,11 @@ run_basic_script.bash:30-49) or per-flag overrides.  ``--cache-dir``
 content-addressed cache (``cache/``).  The per-run telemetry flags
 (``--telemetry-out``, ``--trace-resid``, ``--flight-out``,
 ``--profile-spans``, ``--summary``, ``--preflight``, ``solve``'s
-``--profile-dir``) are the JAX package's.  Its other subcommands are
+``--profile-dir``) are the JAX package's.  ``solve`` joins a
+multi-process run when ``PCG_TPU_COORDINATOR``, ``PCG_TPU_NUM_PROCS``
+and ``PCG_TPU_PROC_ID`` are set (``parallel/distributed.init_distributed``:
+every rank runs the same command), and ``--resume-elastic`` continues a
+run of another process count.  The JAX package's other subcommands are
 refused with the ROADMAP queue 1 item that brings them (:data:`REFUSED`).
 """
 
@@ -49,9 +54,7 @@ import time
 import numpy as np
 
 # subcommand -> the ROADMAP queue 1 item that ports it
-REFUSED = {"bench": 1, "trend": 1, "fleet-report": 12, "lint": 14}
-# the multi-process build (Solver.resume_elastic, the sharded ingest)
-ELASTIC_ITEM = 12
+REFUSED = {"bench": 1, "trend": 1, "lint": 14}
 
 
 def _load_settings(path, args):
@@ -162,10 +165,12 @@ def cmd_solve(args):
     from pcg_mpi_solver_tpu_torch.solver.driver import Solver
     from pcg_mpi_solver_tpu_torch.utils.io import RunStore
 
-    if args.resume_elastic is not None:
-        raise NotImplementedError(
-            f"--resume-elastic resumes a multi-process run (ROADMAP queue "
-            f"1 item {ELASTIC_ITEM})")
+    from pcg_mpi_solver_tpu_torch.parallel.distributed import (
+        init_distributed)
+
+    # a multi-process run: every rank runs this command with
+    # PCG_TPU_COORDINATOR / PCG_TPU_NUM_PROCS / PCG_TPU_PROC_ID set
+    init_distributed()
     cfg = _load_settings(args.settings, args)
     cfg.scratch_path = args.scratch
     cfg.run_id = args.run_id
@@ -185,8 +190,12 @@ def cmd_solve(args):
                backend=args.backend, device=args.device)
     print(f">backend: {s.backend}")
     store = RunStore(cfg.result_path, cfg.model_name)
-    res = s.solve(store=None if cfg.speed_test else store,
-                  resume=bool(args.resume))
+    out_store = None if cfg.speed_test else store
+    if args.resume_elastic is not None:
+        # a committed epoch of a run on another process count
+        res = s.resume_elastic(args.resume_elastic or None, store=out_store)
+    else:
+        res = s.solve(store=out_store, resume=bool(args.resume))
     # with --resume, earlier steps were restored: label the ones run
     t_first = len(s.flags) - len(res) + 1
     for t, r in enumerate(res, t_first):
@@ -825,6 +834,33 @@ def cmd_warmup(args):
     print(">warm path ready")
 
 
+def cmd_fleet_report(args):
+    """Cross-process collective-skew attribution (``obs/fleet.py``):
+    align the per-rank capture subdirs (``p<idx>/``) of a multi-process
+    solve's ``--profile-dir`` on matched collective ends, split each
+    collective into transport and wait, and name the straggler per
+    phase.  Offline; a single-process capture or a collective-free trace
+    degrades to a named verdict."""
+    from pcg_mpi_solver_tpu_torch.obs import fleet
+
+    rep = fleet.fleet_report(args.path)
+    print(fleet.format_fleet_report(rep))
+    if args.json:
+        with open(args.json, "w", encoding="utf-8") as f:
+            json.dump(rep, f, indent=1, sort_keys=True)
+        print(f">json: {args.json}")
+    if args.telemetry_out:
+        from pcg_mpi_solver_tpu_torch.obs.metrics import (
+            JsonlSink, MetricsRecorder)
+
+        rec = MetricsRecorder(sinks=[JsonlSink(args.telemetry_out)])
+        fleet.emit_fleet_report(rec, rep)
+        rec.close()
+        print(f">telemetry: {args.telemetry_out}")
+    if rep["n_processes"] == 0:
+        raise SystemExit(2)
+
+
 def cmd_refused(args):
     item = REFUSED[args.cmd]
     raise NotImplementedError(
@@ -953,8 +989,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_resilience_flags(p, "mid-Krylov chunk boundaries")
     p.add_argument("--resume-elastic", default=None, metavar="DIR",
                    nargs="?", const="",
-                   help="resume a multi-process run on this process count "
-                        f"(ROADMAP queue 1 item {ELASTIC_ITEM})")
+                   help="resume a run of another process count on this "
+                        "one, from DIR (default: this config's checkpoint "
+                        "dir)")
     p.add_argument("--backend", choices=BACKENDS, default="auto")
     p.add_argument("--profile-dir", default=None)
     _add_run_flags(p)
@@ -1240,6 +1277,21 @@ def build_parser() -> argparse.ArgumentParser:
                             "from its journal (loads no torch)")
     p.add_argument("--spool", required=True, metavar="DIR")
     p.set_defaults(fn=cmd_jobs)
+
+    p = sub.add_parser("fleet-report",
+                       help="cross-process collective-skew attribution "
+                            "over a multi-process capture root (p<idx>/ "
+                            "subdirs): clock-align on matched collective "
+                            "ends, split transport vs wait, name the "
+                            "straggler per phase (offline)")
+    p.add_argument("path", help="capture root holding the per-rank "
+                                "p<idx>/ subdirs (the --profile-dir)")
+    p.add_argument("--json", default=None, metavar="FILE.json",
+                   help="also write the full report as JSON")
+    p.add_argument("--telemetry-out", default=None, metavar="FILE.jsonl",
+                   help="also emit the fleet_report event and fleet.* "
+                        "gauges here")
+    p.set_defaults(fn=cmd_fleet_report)
 
     for name, item in REFUSED.items():
         p = sub.add_parser(name, help=f"not ported (ROADMAP queue 1 item "

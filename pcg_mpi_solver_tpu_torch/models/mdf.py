@@ -36,8 +36,9 @@ The writer emits the same schema from a ModelData (round-trip tested), so
 synthetic models can feed the reference and vice versa.
 
 The JAX package's ``models/mdf.py`` (its copy here: a bundle either writes
-reads back in the other, field for field); the streamed slab ingest waits
-for the multi-process build (:data:`SHARDED_ITEM`).
+reads back in the other, field for field), with the streamed slab ingest
+of the multi-process build (:func:`slab_elem_ids`, :func:`read_mdf_slab`:
+one process's slab as a ``ModelData`` view over memmapped arrays).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from typing import Optional
 import numpy as np
 import scipy.io
 
-from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
+from pcg_mpi_solver_tpu_torch.models.model_data import ModelData, SparseVec
 
 
 def _offsets_to_csr(flat, offset2):
@@ -412,28 +413,249 @@ class IngestStats:
                               self.retained_bytes + self._transient)
 
 
-# The streamed slab ingest (slab_elem_ids, read_mdf_slab, SparseVec) builds
-# one process's share of an N-way sharded setup: it comes with the
-# multi-process build, ROADMAP queue 1 item 12.
-SHARDED_ITEM = 12
+def _mm(path, dtype, shape=None, order="C"):
+    """Read-only memmap of one MDF .bin array: fancy-indexed gathers
+    touch only the selected pages — the mechanism that keeps slab
+    ingest's peak memory at slab size."""
+    mm = np.memmap(path, dtype=dtype, mode="r")
+    if shape is not None:
+        mm = mm[: int(np.prod(shape))].reshape(shape, order=order)
+    return mm
 
 
 def slab_elem_ids(mdf_path: str, slab_idx: int, n_slabs: int,
                   chunk_elems: int = 250_000,
                   stats: Optional[IngestStats] = None) -> np.ndarray:
-    """Element ids of one coarse slab of a sharded ingest: not ported."""
-    raise NotImplementedError(
-        f"slab_elem_ids belongs to the sharded (multi-process) ingest, "
-        f"ROADMAP queue 1 item {SHARDED_ITEM}; use read_mdf")
+    """Element ids of one coarse slab: the SAME cut as
+    ``parallel/partition.coarse_slab_cut`` (dominant centroid axis,
+    stable sort, balanced contiguous chunks), with the axis extents
+    found by a CHUNKED pass over ``sctrs`` so full coordinates are never
+    materialized.  The one O(n_elem) transient is the chosen axis's
+    scalar column (the sort key).  Returns SORTED ascending global ids
+    (gather locality)."""
+    glob_n = scipy.io.loadmat(os.path.join(mdf_path, "GlobN.mat"))["Data"][0]
+    n_elem = int(glob_n[0])
+    if not (0 <= slab_idx < n_slabs):
+        raise ValueError(f"slab_idx {slab_idx} outside [0, {n_slabs})")
+    if n_slabs == 1:
+        return np.arange(n_elem, dtype=np.int64)
+    # sctrs is F-order (n_elem, 3): each axis is one contiguous column
+    sc = _mm(os.path.join(mdf_path, "sctrs.bin"), np.float64,
+             (n_elem, 3), "F")
+    ext = np.zeros(3)
+    for a in range(3):
+        amin, amax = np.inf, -np.inf
+        for i in range(0, n_elem, chunk_elems):
+            col = np.asarray(sc[i:i + chunk_elems, a])
+            if stats is not None:
+                stats.transient(col.nbytes)
+            amin = min(amin, float(col.min()))
+            amax = max(amax, float(col.max()))
+        ext[a] = amax - amin
+    axis = int(np.argmax(ext))
+    coord = np.asarray(sc[:, axis])          # ONE scalar column, transient
+    if stats is not None:
+        stats.transient(coord.nbytes)
+    order = np.argsort(coord, kind="stable")
+    if stats is not None:
+        stats.transient(coord.nbytes + order.nbytes)
+    lo = int(round(n_elem * slab_idx / n_slabs))
+    hi = int(round(n_elem * (slab_idx + 1) / n_slabs))
+    return np.sort(order[lo:hi]).astype(np.int64)
 
 
 def read_mdf_slab(mdf_path: str, slab_idx: int, n_slabs: int,
                   chunk_elems: int = 250_000,
                   stats: Optional[IngestStats] = None) -> ModelData:
-    """Streamed slab ingest of an MDF bundle: not ported."""
-    raise NotImplementedError(
-        f"read_mdf_slab belongs to the sharded (multi-process) ingest, "
-        f"ROADMAP queue 1 item {SHARDED_ITEM}; use read_mdf")
+    """Streamed slab ingest of an MDF bundle: a ModelData VIEW holding
+    only slab ``slab_idx`` of ``n_slabs`` — per-element arrays cover the
+    slab's elements (``elem_ids`` maps to global ids, ``n_elem`` is the
+    slab count), nodal arrays are :class:`SparseVec` restrictions to the
+    dofs/nodes the slab references.  Global counts/ids are untouched, so
+    ``partition_model(part_range=..., comm=...)`` consumes the view
+    directly (elem_part slab-positional) and the interface reduction
+    still runs on global ids.  Bundles with cohesive interface elements
+    or octree sidecars need the full reader (their structures are not
+    slab-separable); ``Grid.npz`` passes through.
+
+    Peak host memory: O(slab + chunk) for connectivity/coordinates (the
+    asserted bound — ``stats.peak_bytes``), plus three O(n) transients:
+    the coarse-cut sort key, its argsort, and the effective-dof id list
+    it intersects."""
+    stats = stats if stats is not None else IngestStats()
+    p = lambda name: os.path.join(mdf_path, name)
+    if os.path.exists(p("Intfc.npz")):
+        raise NotImplementedError(
+            "read_mdf_slab: cohesive interface elements are not "
+            "slab-separable (their anchor elements cross slabs); use "
+            "read_mdf")
+    if os.path.exists(p("Octree.npz")):
+        raise NotImplementedError(
+            "read_mdf_slab: octree-lattice models route to the hybrid "
+            "backend, which needs the full model; use read_mdf")
+    glob_n = scipy.io.loadmat(p("GlobN.mat"))["Data"][0]
+    n_elem = int(glob_n[0])
+    n_dof = int(glob_n[1])
+    n_node = n_dof // 3
+    n_dof_flat = int(glob_n[2])
+    n_node_flat = int(glob_n[3])
+    n_dof_eff = int(glob_n[4])
+    n_fixed = int(glob_n[8])
+
+    e = slab_elem_ids(mdf_path, slab_idx, n_slabs, chunk_elems, stats)
+    ne = len(e)
+
+    # ---- per-element scalars (memmap row gathers) ---------------------
+    elem_type = np.asarray(_mm(p("Type.bin"), np.int32)[:n_elem][e])
+    level = np.asarray(_mm(p("Level.bin"), np.float64)[:n_elem][e])
+    ck = np.asarray(_mm(p("Ck.bin"), np.float64)[:n_elem][e])
+    cm = np.asarray(_mm(p("Cm.bin"), np.float64)[:n_elem][e])
+    ce = np.asarray(_mm(p("Ce.bin"), np.float64)[:n_elem][e])
+    poly_mat = np.asarray(_mm(p("PolyMat.bin"), np.int32)[:n_elem][e])
+    sctrs = np.asarray(_mm(p("sctrs.bin"), np.float64,
+                           (n_elem, 3), "F")[e])
+    stats.retain(elem_type, level, ck, cm, ce, poly_mat, sctrs, e)
+
+    # ---- slab CSR connectivity (chunked ragged gather) ----------------
+    def slab_csr(flat_name, off_name, dtype, n_flat):
+        off2 = _mm(p(off_name), np.int64, (n_elem, 2), "F")
+        starts = np.asarray(off2[e, 0])
+        ends = np.asarray(off2[e, 1]) + 1
+        lens = ends - starts
+        offset = np.concatenate([[0], np.cumsum(lens)])
+        flat_mm = _mm(p(flat_name), dtype)
+        out = np.empty(int(offset[-1]), dtype=dtype)
+        for i in range(0, ne, chunk_elems):
+            j = min(i + chunk_elems, ne)
+            idx = _ragged_index(starts[i:j], lens[i:j])
+            stats.transient(idx.nbytes)
+            out[offset[i]:offset[j]] = flat_mm[idx]
+        return out, offset
+
+    nodes_flat_raw, nodes_offset = slab_csr(
+        "NodeGlbFlat.bin", "NodeGlbOffset.bin", np.int32, n_node_flat)
+    dofs_flat_raw, dofs_offset = slab_csr(
+        "DofGlbFlat.bin", "DofGlbOffset.bin", np.int32, n_dof_flat)
+    signs_flat, signs_offset = slab_csr(
+        "SignFlat.bin", "SignOffset.bin", np.int8, n_dof_flat)
+    if not np.array_equal(signs_offset, dofs_offset):
+        raise ValueError("SignOffset inconsistent with DofGlbOffset")
+    nodes_flat = nodes_flat_raw.astype(np.int64)
+    dofs_flat = dofs_flat_raw.astype(np.int64)
+    stats.retain(nodes_flat, nodes_offset, dofs_flat, dofs_offset,
+                 signs_flat)
+
+    # ---- referenced nodal entries (sparse restriction) ----------------
+    ref_dofs = np.unique(dofs_flat)
+    ref_nodes = np.unique(nodes_flat)
+
+    def sparse(name, ids):
+        mm = _mm(p(name + ".bin"), np.float64)
+        vals = np.asarray(mm[:n_dof][ids])
+        stats.retain(vals)
+        return SparseVec(ids, vals, n_dof, strict=False)
+
+    F = sparse("F", ref_dofs)
+    Ud = sparse("Ud", ref_dofs)
+    Vd = sparse("Vd", ref_dofs)
+    diag_m = sparse("DiagM", ref_dofs)
+    if os.path.exists(p("nodes.bin")):
+        nc = _mm(p("nodes.bin"), np.float64, (n_node, 3), "F")
+        nc_vals = np.asarray(nc[ref_nodes])
+        if os.path.exists(p("NodeCoordVec.bin")):
+            # same legacy-layout cross-check as read_mdf, on the slab's
+            # rows only: NodeCoordVec is the C-order ravel of the
+            # coords in BOTH layouts — a pre-fix row-major nodes.bin
+            # must be detected, not silently transposed
+            ncv = _mm(p("NodeCoordVec.bin"), np.float64)
+            ref = np.asarray(ncv[(3 * ref_nodes[:, None]
+                                  + np.arange(3)).ravel()]).reshape(-1, 3)
+            if not np.array_equal(nc_vals, ref):
+                legacy = np.asarray(
+                    _mm(p("nodes.bin"), np.float64,
+                        (n_node, 3))[ref_nodes])
+                if np.array_equal(legacy, ref):
+                    nc_vals = legacy
+                else:
+                    raise ValueError(
+                        "nodes.bin matches neither the reference's "
+                        "column-major layout nor the legacy row-major "
+                        "layout (cross-checked against "
+                        "NodeCoordVec.bin on the slab's nodes)")
+    else:
+        nc = _mm(p("NodeCoordVec.bin"), np.float64).reshape(n_node, 3)
+        nc_vals = np.asarray(nc[ref_nodes])
+    stats.retain(nc_vals)
+    node_coords = SparseVec(ref_nodes, nc_vals, n_node)
+
+    # dof id lists restricted to the slab's referenced dofs (the full
+    # list is the third O(n) transient — ids only, 4 bytes/entry)
+    eff_all = np.asarray(_mm(p("DofEff.bin"), np.int32)[:n_dof_eff],
+                         dtype=np.int64)
+    stats.transient(eff_all.nbytes)
+    dof_eff = np.intersect1d(eff_all, ref_dofs)
+    fixed_all = np.asarray(_mm(p("FixedDof.bin"), np.int32)[:n_fixed],
+                           dtype=np.int64)
+    stats.transient(fixed_all.nbytes)
+    fixed_dof = np.intersect1d(fixed_all, ref_dofs)
+    stats.retain(dof_eff, fixed_dof)
+
+    # ---- element library / materials / dt (small, full read) ----------
+    Ke = scipy.io.loadmat(p("Ke.mat"))["Data"][0]
+    Me = (scipy.io.loadmat(p("Me.mat"))["Data"][0]
+          if os.path.exists(p("Me.mat")) else None)
+    Se = (scipy.io.loadmat(p("Se.mat"))["Data"][0]
+          if os.path.exists(p("Se.mat")) else None)
+    elem_lib = {}
+    for t in range(len(Ke)):
+        Ket = np.asarray(Ke[t], float)
+        elem_lib[t] = {
+            "Ke": Ket, "diagKe": np.diag(Ket).copy(),
+            "Me": np.asarray(Me[t], float) if Me is not None else None,
+            "Se": np.asarray(Se[t], float) if Se is not None else None,
+            "n_nodes": Ket.shape[0] // 3,
+        }
+    mat_raw = scipy.io.loadmat(p("MatProp.mat"),
+                               struct_as_record=False)["Data"][0]
+    mat_prop = [{"E": float(m.__dict__["E"][0][0]),
+                 "Pos": float(m.__dict__["Pos"][0][0]),
+                 "Rho": float(m.__dict__["Rho"][0][0])}
+                for m in mat_raw]
+    dt = (float(scipy.io.loadmat(p("dt.mat"))["Data"][0][0])
+          if os.path.exists(p("dt.mat")) else 1.0)
+    grid = None
+    if os.path.exists(p("Grid.npz")):
+        with np.load(p("Grid.npz")) as z:
+            grid = (int(z["nx"]), int(z["ny"]), int(z["nz"]),
+                    float(z["h"]))
+
+    return ModelData(
+        n_elem=ne, n_node=n_node, n_dof=n_dof,
+        node_coords=node_coords, F=F, Ud=Ud, Vd=Vd, diag_M=diag_m,
+        fixed_dof=fixed_dof, dof_eff=dof_eff,
+        elem_type=elem_type,
+        elem_nodes_flat=nodes_flat, elem_nodes_offset=nodes_offset,
+        elem_dofs_flat=dofs_flat, elem_dofs_offset=dofs_offset,
+        elem_sign_flat=signs_flat.astype(bool),
+        ck=ck, cm=cm, ce=ce, level=level, poly_mat=poly_mat,
+        sctrs=sctrs, elem_lib=elem_lib, mat_prop=mat_prop, dt=dt,
+        grid=grid, elem_ids=e, glob_n_elem=n_elem,
+    )
+
+
+def _ragged_index(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Flat gather indices of the ragged slices [s, s+l) — repeat-based
+    (zero-length slices pass through correctly; the cumsum-walk idiom
+    ``parallel/partition._csr_take`` uses mis-steps on them)."""
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    starts = np.asarray(starts, dtype=np.int64)
+    lens = np.asarray(lens, dtype=np.int64)
+    offset = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    return (np.repeat(starts, lens)
+            + np.arange(total, dtype=np.int64)
+            - np.repeat(offset, lens))
 
 
 def ingest_archive(archive_path: str, scratch_path: str,

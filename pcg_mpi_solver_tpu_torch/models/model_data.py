@@ -17,14 +17,73 @@ import numpy as np
 
 
 class SparseVec:
-    """A nodal array restricted to one slab's ids (the JAX package's
-    ``SparseVec``), which only the sharded slab ingest builds: ROADMAP
-    queue 1 item 12."""
+    """Sparse view of a global ``(n,[k])`` nodal array restricted to a
+    sorted id subset (the JAX package's ``SparseVec``) — the slab-ingest
+    representation of F/Ud/diag_M/node_coords (models/mdf.read_mdf_slab):
+    a process holding only its slab's referenced dofs still serves the
+    ``model.F[global_ids]`` gathers the partition build performs, without
+    ever materializing the full vector.  Lookups outside the restriction return ``fill``
+    (never legitimately read by a build restricted to the same slab —
+    asserted in tests via ``strict=True``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SparseVec belongs to the sharded (multi-process) ingest, "
-            "ROADMAP queue 1 item 12")
+    __slots__ = ("ids", "vals", "n", "fill", "strict")
+
+    def __init__(self, ids: np.ndarray, vals: np.ndarray, n: int,
+                 fill: float = 0.0, strict: bool = False):
+        self.ids = np.asarray(ids)
+        self.vals = np.asarray(vals)
+        if len(self.ids) != len(self.vals):
+            raise ValueError("SparseVec: ids/vals length mismatch")
+        if len(self.ids) > 1 and not bool(np.all(np.diff(self.ids) > 0)):
+            raise ValueError("SparseVec: ids must be strictly increasing")
+        self.n = int(n)
+        self.fill = fill
+        self.strict = bool(strict)
+
+    def __len__(self) -> int:
+        return self.n
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def shape(self):
+        return (self.n,) + self.vals.shape[1:]
+
+    def __getitem__(self, idx):
+        idx = np.asarray(idx)
+        scalar = idx.ndim == 0
+        flat = np.atleast_1d(idx).astype(np.int64).ravel()
+        if len(self.ids) == 0:
+            hit = np.zeros(len(flat), dtype=bool)
+            posc = np.zeros(len(flat), dtype=np.int64)
+        else:
+            pos = np.searchsorted(self.ids, flat)
+            posc = np.minimum(pos, len(self.ids) - 1)
+            hit = self.ids[posc] == flat
+        if self.strict and not hit.all():
+            missing = flat[~hit][:5]
+            raise IndexError(
+                f"SparseVec: lookup outside the slab restriction "
+                f"(ids {missing.tolist()}...)")
+        out = self.vals[posc].copy()
+        out[~hit] = self.fill
+        # idx.shape (not atleast_1d) so a scalar lookup returns a scalar
+        # (0-d -> [()]), matching the dense-array contract exactly
+        out = out.reshape(idx.shape + self.vals.shape[1:])
+        return out[()] if scalar else out
+
+    def materialize(self) -> np.ndarray:
+        """Dense global array (testing/small models only)."""
+        out = np.full((self.n,) + self.vals.shape[1:], self.fill,
+                      dtype=self.vals.dtype)
+        out[self.ids] = self.vals
+        return out
+
+    def __repr__(self) -> str:       # deterministic (hash-friendly)
+        return (f"SparseVec(n={self.n}, nnz={len(self.ids)}, "
+                f"dtype={self.vals.dtype})")
 
 
 @dataclasses.dataclass

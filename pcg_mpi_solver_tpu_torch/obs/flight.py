@@ -430,7 +430,7 @@ def attach_flight(recorder, path: Optional[str], component: str,
     if not fp:
         return None
     try:
-        shard = ingest_and_rotate(fp, recorder.note)
+        shard = ingest_and_rotate(shard_jsonl_path(fp), recorder.note)
         fl = FlightRecorder(shard, meta={"component": component, **meta})
         recorder.flight = fl
         return fl
@@ -444,12 +444,18 @@ def attach_flight(recorder, path: Optional[str], component: str,
 # Per-process telemetry shards + the merge aggregator.
 # ---------------------------------------------------------------------------
 
-def shard_jsonl_path(path: str, process_index: int = 0,
-                     process_count: int = 1) -> str:
+def shard_jsonl_path(path: str, process_index: Optional[int] = None,
+                     process_count: Optional[int] = None) -> str:
     """Per-process shard name of a JSONL path in a multi-process run:
     ``run.jsonl`` -> ``run.p3.jsonl`` on process 3; unchanged in a
-    one-process run (the port's), so single-process workflows keep their
-    exact file names."""
+    one-process run, so single-process workflows keep their exact file
+    names.  The index and count default to the ``torch.distributed``
+    group's (one process without a group)."""
+    if process_index is None or process_count is None:
+        from pcg_mpi_solver_tpu_torch.parallel import distributed
+
+        process_index = distributed.process_index()
+        process_count = distributed.process_count()
     if int(process_count) <= 1:
         return path
     root, ext = os.path.splitext(path)

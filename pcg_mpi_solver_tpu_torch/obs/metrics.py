@@ -132,7 +132,12 @@ class MetricsRecorder:
         ranges when asked for (or under ``PCG_TPU_PROFILE_SPANS=1``)."""
         sinks: List[Any] = [EnvGatedStderrSink()]
         if jsonl_path:
-            sinks.append(JsonlSink(jsonl_path))
+            # each process of a multi-process run appends to its own
+            # shard (run.jsonl -> run.p<idx>.jsonl); `telemetry-merge`
+            # reassembles them
+            from pcg_mpi_solver_tpu_torch.obs.flight import shard_jsonl_path
+
+            sinks.append(JsonlSink(shard_jsonl_path(jsonl_path)))
         if profile is None:
             profile = os.environ.get("PCG_TPU_PROFILE_SPANS") == "1"
         return cls(sinks=sinks, profile_spans=bool(profile))

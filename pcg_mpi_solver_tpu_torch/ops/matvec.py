@@ -14,8 +14,10 @@ backend (``parallel/structured.py::StructuredOps``) overrides the
 operator.  Vectors are ``(P, n_loc)`` tensors with one row per part; a
 block of R right-hand sides is ``(R, P, n_loc)``, the column axis leading
 (the JAX package carries it trailing, ``(P, n_loc, R)``), so a column is
-one contiguous vector.  The parts of one process are all on one device,
-so the cross-process reduction (``_psum``) is the identity.
+one contiguous vector.  The parts of one process are all on one device;
+across processes (``parallel/distributed.py``) each rank holds its block
+of parts, and ``_psum`` sums over ranks through the group's
+collectives (the identity with one process).
 
 The general matvec computes what the JAX package's per-type loop does:
 per element ``v = S Ke (ck S u)`` with u gathered from the element's node
@@ -77,29 +79,43 @@ class Ops:
     buckets: Tuple[Tuple[int, int, int, int, int], ...] = ()
     n_vrows: int = 0
     ell_k: int = 0
+    # the collectives of a multi-process solve (parallel/distributed.Group;
+    # None with one process)
+    group: Optional[object] = dataclasses.field(default=None, compare=False,
+                                                repr=False)
 
     @classmethod
     def from_model(cls, pm: PartitionedModel,
                    dot_dtype: torch.dtype = torch.float64,
-                   mg_degree: int = 2, bucket_values: float = None):
+                   mg_degree: int = 2, bucket_values: float = None,
+                   group=None):
         """The general operator's static layout for ``pm`` (the same
-        :func:`plan_buckets` grouping :func:`device_data` uploads)."""
+        :func:`plan_buckets` grouping :func:`device_data` uploads); under
+        several processes ``pm`` is the rank's ``local_view`` and ``group``
+        its collectives."""
         lay = _layout(pm, bucket_values)
         return cls(n_loc=pm.n_loc, n_iface=pm.n_iface,
                    n_node_loc=pm.n_node_loc, n_node_iface=pm.n_node_iface,
                    dot_dtype=dot_dtype, mg_degree=mg_degree,
                    n_parts=pm.n_parts, row_width=lay.width,
                    buckets=tuple(lay.shapes), n_vrows=lay.n_vrows,
-                   ell_k=lay.K)
+                   ell_k=lay.K, group=group)
 
     @property
     def use_node_ell(self) -> bool:
         return self.row_width == 3
 
+    @property
+    def multi(self) -> bool:
+        """True when the parts are split over several processes."""
+        return self.group is not None and self.group.world > 1
+
     def _psum(self, x: torch.Tensor) -> torch.Tensor:
-        """Cross-process sum: the identity while the port runs in one
-        process (multi-process sharding is ROADMAP queue 1 item 12)."""
-        return x
+        """Cross-process sum: one all-reduce over the group (the same
+        bits on every rank), the identity with one process."""
+        if not self.multi:
+            return x
+        return self.group.psum(x)
 
     def _as_node3(self, v: torch.Tensor) -> torch.Tensor:
         """([R,] P, n_loc) dof vector -> ([R,] P, n_node_loc, 3) node rows
@@ -146,14 +162,17 @@ class Ops:
         """Sum the partial values of ids shared by several parts.  ``y``
         is (R, P * n, c): the shared entries are gathered (``src``), each
         global id sums its contributors over ``ell`` (part order, padded
-        slots read an appended zero), and the sums are written back to
-        every copy (``index_copy_``, distinct positions).  No float
-        atomics: the same bits on every run."""
+        slots read an appended zero), the global shared-id vector is
+        summed over ranks (ONE all-reduce, whatever R; the JAX package's
+        scatter / psum / gather, ``ops/matvec.py:249-276``), and the sums
+        are written back to every copy (``index_copy_``, distinct
+        positions).  No float atomics: the same bits on every run."""
         R, _, c = y.shape
         vals = y.index_select(1, amap["src"])
         ext = torch.cat([vals, vals.new_zeros((R, 1, c))], dim=1)
         glob = ext.index_select(1, amap["ell"].reshape(-1)).reshape(
             R, n_glob, -1, c).sum(dim=2)
+        glob = self._psum(glob)
         return y.index_copy(1, amap["dst"], glob.index_select(1,
                                                               amap["slot"]))
 

@@ -468,6 +468,17 @@ def restriction_gather(gidx, gw, n_coarse: int):
     return ridx, rw
 
 
+def local_tree(tree: dict, lo: int, hi: int) -> dict:
+    """An ``MGSetup.tree`` with its fine transfer (the only per-part
+    leaves, ``(P, n_node_loc, 8)``) cut to parts ``[lo, hi)``: a rank's
+    hierarchy, the coarse levels replicated.  The full range returns
+    ``tree`` itself."""
+    fine = tree["fine"]
+    if (lo, hi) == (0, fine["gidx"].shape[0]):
+        return tree
+    return dict(tree, fine={k: v[lo:hi] for k, v in fine.items()})
+
+
 def tree_from_numpy(tree: dict, dtype: torch.dtype, device) -> dict:
     """The port's ``data["mg"]`` from an ``MGSetup.tree`` of numpy arrays
     (built by :func:`build_mg_host` or by the JAX package): float leaves
@@ -648,7 +659,10 @@ def _vcycle(ops, data: dict, m: dict, r: torch.Tensor):
     # defect, owner-weighted, restricted into the first coarse level
     s = r - amul(z)
     s3 = ops._as_node3(s) * data["node_weight"][..., None]
-    sc = _restrict(mg["fine"], s3.reshape(*r.shape[:-2], -1, 3))
+    # across processes each rank restricts its own parts' rows and the
+    # replicated first-coarse vector sums over ranks (the JAX package's
+    # one restriction psum a cycle)
+    sc = ops._psum(_restrict(mg["fine"], s3.reshape(*r.shape[:-2], -1, 3)))
     zc = _coarse_vcycle(mg, 0, sc, degree)
     # prolongation back to the part-local fine layout: a local gather
     z = z + eff * ops._from_node3(_prolong(mg["fine"], zc))

@@ -472,7 +472,7 @@ class HybridOps(Ops):
                     dot_dtype: torch.dtype = torch.float64,
                     mg_degree: int = 2, variant: str = "v6",
                     planes: Optional[int] = None,
-                    combine: Optional[str] = None):
+                    combine: Optional[str] = None, group=None):
         if combine is None:
             combine = hybrid_combine_mode()
         if combine not in ("gather", "scatter"):
@@ -482,7 +482,7 @@ class HybridOps(Ops):
         if cm is None:
             combine = "scatter"     # no maps built (no levels)
         base = Ops.from_model(hp.pm, dot_dtype=dot_dtype,
-                              mg_degree=mg_degree)
+                              mg_degree=mg_degree, group=group)
         return cls(**{f.name: getattr(base, f.name)
                       for f in dataclasses.fields(Ops)},
                    level_dims=tuple((lv.nb, lv.bx, lv.by, lv.bz)

@@ -107,7 +107,7 @@ def coarse_slab_cut(centroids: np.ndarray, n_slabs: int) -> np.ndarray:
 
 
 def two_level_partition(centroids: np.ndarray, n_parts: int,
-                        n_slabs: int = 1) -> np.ndarray:
+                        n_slabs: int = 1, refine=None) -> np.ndarray:
     """Two-level METIS-style element partition (the sharded-setup path):
     a cheap coarse slab cut (:func:`coarse_slab_cut`) into
     ``n_slabs`` contiguous slabs along the dominant axis, then an
@@ -116,9 +116,14 @@ def two_level_partition(centroids: np.ndarray, n_parts: int,
     refine (and renumber, and block-build) its own slab.  ``n_slabs=1``
     degenerates to plain RCB.  Deterministic for fixed inputs; the slab
     count is a cache-key component (the resulting partition differs
-    between slab counts).  (The JAX package's ``refine`` argument, which
-    leaves other processes' slabs unrefined, belongs to the sharded build,
-    ROADMAP queue 1 item 12.)"""
+    between slab counts).
+
+    ``refine`` (iterable of slab ids, None = all): slabs NOT listed keep
+    their coarse label ``slab_id * parts_per_slab`` instead of the RCB
+    refinement — the sharded build refines only its own slab(s);
+    unrefined labels are exact at slab granularity, so any consumer
+    restricted to the refined slabs' parts sees the identical map the
+    full refinement would give."""
     if n_parts % max(n_slabs, 1) != 0:
         raise ValueError(
             f"two_level_partition: n_parts={n_parts} must be divisible "
@@ -127,9 +132,13 @@ def two_level_partition(centroids: np.ndarray, n_parts: int,
     pps = n_parts // n_slabs
     slab = coarse_slab_cut(centroids, n_slabs)
     part = np.zeros(len(centroids), dtype=np.int32)
+    refine_set = set(range(n_slabs)) if refine is None else set(refine)
     for s in range(n_slabs):
         idx = np.where(slab == s)[0]
-        part[idx] = s * pps + rcb_partition(centroids[idx], pps)
+        if s in refine_set:
+            part[idx] = s * pps + rcb_partition(centroids[idx], pps)
+        else:
+            part[idx] = s * pps
     return part
 
 
@@ -282,8 +291,8 @@ class PartitionedModel:
 class SerialComm:
     """No-op reduction group: the single-process degenerate of the
     sharded-build exchange protocol (every reduction input already IS
-    the global value).  A multi-process twin comes with sharding
-    (ROADMAP queue 1 item 12)."""
+    the global value).  The multi-process twin is
+    ``parallel/distributed.HostComm`` (a gloo all-gather)."""
 
     n_procs = 1
 
@@ -469,22 +478,41 @@ def partition_model(
     the ELL; the hybrid backend (``parallel/hybrid.py``) applies their
     stiffness through its level grids.  A filter that leaves no type block
     gives ``ell`` None and empty ``type_blocks``, as in the JAX package.
-    The JAX package's sharded-setup arguments are refused: ``part_range``,
-    ``comm`` and ``layout`` belong to multi-process sharding (ROADMAP
-    queue 1 item 12)."""
-    for name, value, item in (("part_range", part_range, 12),
-                              ("comm", comm, 12), ("layout", layout, 12)):
-        if value is not None:
-            raise NotImplementedError(
-                f"partition_model({name}=...) is not ported yet (ROADMAP "
-                f"queue 1 item {item})")
+
+    Sharded setup: with ``part_range=(lo, hi)`` only the per-part
+    structures of parts [lo, hi) are built; rows outside the range stay at
+    their padding values (weight 0, dof_gid -1, index maps at their
+    out-of-range sentinels), so an N-process run builds its own block of
+    parts.  The global layout (padded sizes, the shared-dof interface set
+    and owners) is merged from per-process count/owner reductions through
+    ``comm`` (``SerialComm`` when None; ``parallel/distributed.HostComm``
+    across processes).  A precomputed ``layout`` (the shard cache's glue,
+    or a prior build's ``pm.layout``) skips every exchange.  The rows of a
+    range build are the full build's, bit for bit.
+
+    ``model`` may be a slab-ingested view (``models/mdf.read_mdf_slab``):
+    per-element arrays then cover only the slab's elements
+    (``elem_part`` must be slab-positional) while nodal lookups resolve
+    through the slab's sparse vectors."""
     if elem_part is None:
         if getattr(model, "elem_ids", None) is not None:
             raise ValueError(
                 "partition_model: a slab-ingested model view needs an "
-                "explicit slab-positional elem_part")
-        elem_part = make_elem_part(model, n_parts, method=method,
-                                   n_slabs=slab2_slabs)
+                "explicit slab-positional elem_part (use "
+                "slab_local_parts)")
+        if (method == "slab2" and slab2_slabs > 1
+                and part_range is not None
+                and not getattr(model, "intfc_elems", None)):
+            # sharded fast path: refine only the slabs overlapping this
+            # process's parts (spring models read labels of any slab)
+            pps = n_parts // slab2_slabs
+            elem_part = two_level_partition(
+                model.sctrs, n_parts, slab2_slabs,
+                refine=range(part_range[0] // pps,
+                             -(-part_range[1] // pps)))
+        else:
+            elem_part = make_elem_part(model, n_parts, method=method,
+                                       n_slabs=slab2_slabs)
     elem_part = np.asarray(elem_part)
     if elem_part.shape != (model.n_elem,):
         raise ValueError(f"elem_part must be ({model.n_elem},), got "
@@ -494,9 +522,13 @@ def partition_model(
         raise ValueError(f"elem_part values must lie in [0, {n_parts})")
 
     P = n_parts
-    lo, hi = 0, P
+    if part_range is None:
+        part_range = (0, P)
+    lo, hi = int(part_range[0]), int(part_range[1])
+    if not (0 <= lo < hi <= P):
+        raise ValueError(f"part_range {part_range} outside [0, {P})")
     local = range(lo, hi)
-    comm = SerialComm()
+    comm = comm or SerialComm()
     type_ids = sorted(model.elem_lib.keys())
     # Per-part element id lists (LOCAL parts only — under a sharded build
     # the other parts' elements are never touched; ids are positional in
@@ -552,10 +584,11 @@ def partition_model(
             per_t[t] = e
         type_elems[p] = per_t
 
-    layout = _compute_layout(
-        model, P, local, type_elems, dof_gids, node_gids, type_ids,
-        spr_part, len(spr_ga), pad_multiple, comm,
-        nl_elems_ok=nl_elems_ok)
+    if layout is None:
+        layout = _compute_layout(
+            model, P, local, type_elems, dof_gids, node_gids, type_ids,
+            spr_part, len(spr_ga), pad_multiple, comm,
+            nl_elems_ok=nl_elems_ok)
     n_loc, n_node_loc = layout.n_loc, layout.n_node_loc
     node_layout = layout.node_layout
     ndof_p, nnode_p = layout.ndof_p, layout.nnode_p

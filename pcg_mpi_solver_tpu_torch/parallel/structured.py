@@ -6,7 +6,9 @@ plane, which is owned by the lower slab (owner weight 1) and whose two
 copies hold partial sums after the local matvec until ``_halo`` combines
 them.  On one device the parts are rows of one ``(P, n_loc)`` tensor, and
 the halo is a shift over the part axis — the JAX package's unsharded
-multi-part view.  A block of R right-hand sides is ``(R, P, n_loc)``: its
+multi-part view; across processes each rank holds its block of slabs and
+the planes at its ends cross to the neighbouring ranks
+(``parallel/distributed.Group.exchange_planes``).  A block of R right-hand sides is ``(R, P, n_loc)``: its
 matvec is one kernel launch over the R * P slabs, with the cell scales
 repeated once per block width (:func:`block_data`), and its halo
 combines planes within each column only.
@@ -251,12 +253,12 @@ class StructuredOps(Ops):
     def from_partition(cls, sp: StructuredPartition,
                        dot_dtype: torch.dtype = torch.float64,
                        variant: str = "v6", planes: Optional[int] = None,
-                       mg_degree: int = 2):
+                       mg_degree: int = 2, group=None):
         return cls(n_loc=sp.n_loc, n_iface=0,
                    n_node_loc=sp.n_node_loc, n_node_iface=0,
                    dot_dtype=dot_dtype, mg_degree=mg_degree,
                    nxc=sp.nxc, ny=sp.ny, nz=sp.nz, n_parts=sp.n_parts,
-                   variant=variant, planes=planes)
+                   variant=variant, planes=planes, group=group)
 
     def block_data(self, data: dict, R: int) -> dict:
         return block_data(data, R)
@@ -270,15 +272,26 @@ class StructuredOps(Ops):
         """Combine partial sums on shared slab-boundary planes: part p's
         last plane adds into part p+1's first and vice versa.  ``yg`` is
         ([R,] P, C, nx+1, ny+1, nz+1); the exchange runs along the part
-        axis of each column alone."""
-        if self.n_parts == 1:
+        axis of each column alone.  Across processes the planes at a
+        rank's ends come from its neighbours: one exchange of two
+        messages (the JAX package's ``ppermute`` pair,
+        ``parallel/structured.py:204-206``) carries the whole block,
+        whatever R; between parts of one rank it stays a shift."""
+        P = self.n_parts
+        if P == 1 and not self.multi:
             return yg
         up = yg[..., -1, :, :]           # (..., P, C, ny+1, nz+1)
         dn = yg[..., 0, :, :]
         zero = torch.zeros_like(up.narrow(-4, 0, 1))
-        from_left = torch.cat([zero, up.narrow(-4, 0, self.n_parts - 1)],
-                              dim=-4)
-        from_right = torch.cat([dn.narrow(-4, 1, self.n_parts - 1), zero],
+        left_in = right_in = None
+        if self.multi:
+            left_in, right_in = self.group.exchange_planes(
+                dn.narrow(-4, 0, 1).contiguous(),
+                up.narrow(-4, P - 1, 1).contiguous())
+        from_left = torch.cat([zero if left_in is None else left_in,
+                               up.narrow(-4, 0, P - 1)], dim=-4)
+        from_right = torch.cat([dn.narrow(-4, 1, P - 1),
+                                zero if right_in is None else right_in],
                                dim=-4)
         yg = yg.clone()
         yg[..., 0, :, :] += from_left

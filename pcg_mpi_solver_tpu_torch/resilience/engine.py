@@ -6,9 +6,10 @@ and :func:`run_with_recovery` for a single right-hand side;
 :func:`run_many_with_recovery`, its blocked twin with one ladder a column;
 :func:`kinematic_state_io` and :class:`TimeHistoryGuard`, the timestep
 snapshots, step faults and NaN rollback of the time-history drivers
-``solver/dynamics.py`` and ``solver/newmark.py``).  The group consensus
-of a multi-process run (every rank takes the same ladder branch) is the
-identity in the port's one process.
+``solver/dynamics.py`` and ``solver/newmark.py``).  Across processes
+the ladder's triggers are group-agreed (``parallel/consensus.py``), so
+every rank takes the same branch; with one process the agreement is the
+identity.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from pcg_mpi_solver_tpu_torch.parallel.consensus import (
+    agree_trigger, agree_triggers)
 from pcg_mpi_solver_tpu_torch.resilience.recovery import (
     RecoveryLadder, breakdown_trigger, column_trigger, is_device_loss)
 
@@ -55,6 +58,7 @@ def run_with_recovery(engine, data, fext, carry, normr0, n2b, prec, *,
     relres, total)``."""
     rec = recorder
     note = rec.note if rec is not None else (lambda s: None)
+    comm = getattr(resilience, "comm", None)
     eng, eng_data, eng_prec = engine, data, prec
     ladder = None
     total = int(total0)
@@ -73,6 +77,15 @@ def run_with_recovery(engine, data, fext, carry, normr0, n2b, prec, *,
             if scfg.max_recoveries <= 0 or not is_device_loss(e):
                 raise
             trigger, restart_x, err = "device_loss", None, e
+        # group consensus: every rank takes the SAME ladder branch (a
+        # divergent branch pairs a live collective against a missing
+        # one): the max-reduce of the encoded triggers lets one rank's
+        # breakdown drive every rank's ladder
+        trigger = agree_trigger(comm, trigger)
+        if trigger == "device_loss" and err is None:
+            # another rank lost its device: only the cold start state is
+            # the same on every rank
+            restart_x = None
         if trigger is None:
             break
         if ladder is None:
@@ -83,6 +96,13 @@ def run_with_recovery(engine, data, fext, carry, normr0, n2b, prec, *,
         if action is None:              # recovery budget spent
             if err is not None:
                 raise err
+            if trigger == "device_loss":
+                # agreed loss seen on another rank: returning normally
+                # while that rank raises would split the group
+                raise RuntimeError(
+                    "group-agreed device loss with the recovery budget "
+                    f"spent ({ladder.attempt} attempts); the failing "
+                    "rank carries the original error")
             note(f"recovery budget exhausted ({ladder.attempt} "
                  f"attempts); reporting flag={flag} relres={relres:.3e}")
             break
@@ -242,6 +262,14 @@ def run_many_with_recovery(carry, *, scfg, nrhs: int, hooks, recorder,
             t = column_trigger(int(flags[k]), float(normr[k]))
             if t is not None:
                 triggers[k] = t
+        # group consensus: one packed max-reduce, so every rank drives
+        # the same per-column ladders
+        comm = getattr(resilience, "comm", None)
+        if comm is not None and getattr(comm, "n_procs", 1) > 1:
+            triggers = {k: t
+                        for k, t in agree_triggers(comm, triggers,
+                                                   R).items()
+                        if k not in quarantined}
         if triggers:
             restart_m = np.zeros(R, bool)
             fb_m = np.zeros(R, bool)
@@ -306,22 +334,29 @@ def run_many_with_recovery(carry, *, scfg, nrhs: int, hooks, recorder,
 # Snapshot state transfer and the timestep-granular harness
 # ----------------------------------------------------------------------
 
-def kinematic_state_io(device, dtype: torch.dtype, device_keys):
+def kinematic_state_io(device, dtype: torch.dtype, device_keys,
+                       mesh=None):
     """``(fetch, put)`` closures for a flat state dict whose
     ``device_keys`` leaves are (n_parts, n_loc) tensors on ``device`` (the
     kinematic state) and whose other leaves are host numpy (histories,
     counters, schedules).  ``fetch`` copies the tensors to host numpy;
     ``put`` uploads them to ``device`` in ``dtype``, bitwise, and passes
-    the host leaves through."""
+    the host leaves through.  Across processes (``mesh``) ``fetch``
+    gathers every rank's rows (a collective) and ``put`` uploads this
+    rank's."""
+    from pcg_mpi_solver_tpu_torch.parallel.distributed import (
+        fetch_global, put_sharded)
+
     device_keys = frozenset(device_keys)
 
     def fetch(state: Dict[str, Any]) -> Dict[str, Any]:
-        return {k: (v.detach().to("cpu", copy=True).numpy()
-                    if k in device_keys else np.asarray(v))
+        return {k: (fetch_global(v, mesh) if k in device_keys
+                    else np.asarray(v))
                 for k, v in state.items()}
 
     def put(state: Dict[str, Any]) -> Dict[str, Any]:
-        return {k: (torch.as_tensor(np.array(v), dtype=dtype, device=device)
+        return {k: (put_sharded(np.array(v), mesh, dtype=dtype,
+                                device=device)
                     if k in device_keys else v)
                 for k, v in state.items()}
 

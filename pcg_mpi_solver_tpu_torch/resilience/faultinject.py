@@ -50,11 +50,16 @@ indexed by a solve-service job's absolute admission ordinal: the daemon
 packed block before it dispatches the block (``sleep`` delays the block,
 ``nan`` poisons that job's load column, ``exc`` fails that job alone),
 and journal replay drops the faults of ordinals a killed daemon already
-passed (:meth:`FaultPlan.replay_consume_job`).  The rank
-(``rank:``) domain rides the dispatch and boundary counters of one
-process: the port runs in one (index 0), so a fault aimed at rank 0 fires
-as its unprefixed twin and one aimed at any other rank never lands
-(multi-process runs are item 12).
+passed (:meth:`FaultPlan.replay_consume_job`).  The RANK domain
+(``rank:``, as ``kill@rank:1``, ``exc@rank:0`` or ``sleep@rank:1:3``;
+an omitted index is 0) gates a dispatch/boundary-counter fault on ONE
+process of a multi-process run, so distributed drills are deterministic:
+every process parses the same spec (``PCG_TPU_FAULTS`` is shared), but
+the fault fires only on the process whose ``torch.distributed`` rank
+matches (rank 0 without a group).  ``exc`` rides the dispatch counter,
+the other modes the boundary counter, like their unprefixed twins.  A
+rank at or past the process count cannot land (neither consumed nor
+recorded); a fault aimed at another live rank stays pending here.
 
 Modes: ``exc`` raises :class:`InjectedDispatchError` (device loss: the
 dispatch guard re-dispatches from a snapshot, else the ladder restarts
@@ -80,10 +85,6 @@ MODES = ("kill", "exc", "nan", "inf", "rho0", "sleep")
 _STEP_MODES = ("kill", "nan", "inf")
 _COL_MODES = ("nan", "inf", "rho0")
 _JOB_MODES = ("exc", "nan", "sleep")
-
-# the port's process index (one process; multi-process is ROADMAP queue 1
-# item 12): a rank-domain fault aimed elsewhere stays pending
-_PROCESS = 0
 
 
 class SimulatedKill(BaseException):
@@ -231,12 +232,25 @@ class FaultPlan:
             del pending[idx]
         return True
 
+    @staticmethod
+    def _process_slot():
+        """``(rank, world size)`` of the ``torch.distributed`` group, the
+        single-process identity without one."""
+        from pcg_mpi_solver_tpu_torch.parallel.distributed import (
+            process_count, process_index)
+
+        return process_index(), process_count()
+
     def _take_rank(self, mode: str, idx: int) -> bool:
-        """Consume a rank-domain fault of ``mode`` at counter position
-        ``idx`` aimed at this process (index 0 of 1)."""
+        """Consume a pending rank-domain fault of ``mode`` at counter
+        position ``idx`` aimed at THIS process; True when it fires here.
+        A rank at or past the process count cannot land (neither
+        consumed nor recorded); a fault aimed at another live rank stays
+        pending on this process."""
         pending = self._rank_faults.get(mode, {})
-        key = (_PROCESS, idx)
-        if pending.get(key, 0) <= 0:
+        here, n_procs = self._process_slot()
+        key = (here, idx)
+        if here >= n_procs or pending.get(key, 0) <= 0:
             return False
         pending[key] -= 1
         if pending[key] <= 0:

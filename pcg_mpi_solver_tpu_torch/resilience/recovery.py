@@ -193,9 +193,10 @@ class ResilienceContext:
 
     ``fetch_state`` / ``put_state`` are driver-supplied closures mapping a
     device state dict to host numpy and back.  ``comm`` is the host
-    collective group of a multi-process run: None in the port's one
-    process (ROADMAP queue 1 item 12), so :meth:`sync_boundary` does
-    nothing."""
+    collective group of a multi-process run
+    (``resilience/distributed.GuardedComm``; None with one process): the
+    chunk-boundary liveness probe (:meth:`sync_boundary`) and the recovery
+    engine's consensus agreements run on it."""
 
     def __init__(self, *, store=None, step: int = 0, snapshot_every: int = 0,
                  fetch_state: Callable[[Any], Any] = None,

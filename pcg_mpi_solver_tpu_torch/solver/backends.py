@@ -23,6 +23,7 @@ import torch
 
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
 from pcg_mpi_solver_tpu_torch.ops.matvec import Ops, device_data
+from pcg_mpi_solver_tpu_torch.parallel.distributed import local_view
 from pcg_mpi_solver_tpu_torch.parallel.hybrid import (
     HybridOps, can_hybrid, device_data_hybrid, partition_hybrid)
 from pcg_mpi_solver_tpu_torch.parallel.partition import partition_model
@@ -37,7 +38,7 @@ HYBRID_GATE_NOTE = (
 def select_time_backend(model: ModelData, n_parts: int, *,
                         partition_method: str, device: torch.device,
                         backend: str = "auto", kernel=None,
-                        mg_degree: int = 2):
+                        mg_degree: int = 2, mesh=None):
     """Resolve ``backend`` ("auto" | "hybrid" | "general") for ``model``:
     auto takes the general backend unless ``PCG_TPU_ENABLE_HYBRID=1``
     (and warns when the model could run on the hybrid one).
@@ -46,7 +47,9 @@ def select_time_backend(model: ModelData, n_parts: int, *,
     the hybrid level batches (``selected_variant``, ``pallas_planes``).
     Returns ``(name, pm, mk_ops, mk_data)``: ``mk_ops(dot_dtype)`` builds
     the operator, ``mk_data(dtype)`` uploads the device tree to
-    ``device``."""
+    ``device``.  Across processes (``mesh``, a ``parallel.mesh.Mesh``)
+    ``pm`` is the whole partition and both build on this rank's
+    ``local_view`` of it, the operator with the group's collectives."""
     if backend not in TIME_BACKENDS:
         raise ValueError(f"backend must be 'auto'|'hybrid'|'general', "
                          f"got {backend!r}")
@@ -57,17 +60,22 @@ def select_time_backend(model: ModelData, n_parts: int, *,
             and os.environ.get("PCG_TPU_ENABLE_HYBRID") != "1":
         warnings.warn(HYBRID_GATE_NOTE)
         backend = "general"
+    group = getattr(mesh, "group", None)
+    rng = mesh.part_range(n_parts) if mesh is not None else (0, n_parts)
     if backend in ("auto", "hybrid") and can_hybrid(model):
         pm = partition_hybrid(model, n_parts, method=partition_method)
+        loc = local_view(pm, *rng)
 
         def mk_ops(dd):
-            return HybridOps.from_hybrid(pm, dot_dtype=dd,
-                                         mg_degree=mg_degree,
+            return HybridOps.from_hybrid(loc, dot_dtype=dd,
+                                         mg_degree=mg_degree, group=group,
                                          **(kernel or {}))
 
         return ("hybrid", pm, mk_ops,
-                lambda dt: device_data_hybrid(pm, dt, device))
+                lambda dt: device_data_hybrid(loc, dt, device))
     pm = partition_model(model, n_parts, method=partition_method)
+    loc = local_view(pm, *rng)
     return ("general", pm,
-            lambda dd: Ops.from_model(pm, dot_dtype=dd, mg_degree=mg_degree),
-            lambda dt: device_data(pm, dt, device))
+            lambda dd: Ops.from_model(loc, dot_dtype=dd, mg_degree=mg_degree,
+                                      group=group),
+            lambda dt: device_data(loc, dt, device))

@@ -57,8 +57,24 @@ fine bound come from the content-addressed partition cache (``cache/``)
 under the JAX package's monolithic keys; ``setup_cache`` says whether
 they came "cold" or "warm" ("off" without a cache).
 
-The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card, the default raises instead of quietly running on the CPU.
+Across processes (``mesh=`` a ``parallel.mesh.Mesh`` of a
+``torch.distributed`` gloo group, by default the group's own,
+``parallel/distributed.py``) each rank holds its contiguous block of the
+parts on its own device: the host partition stays global (built whole,
+or, under ``RunConfig.setup_shard``, only the rank's parts, with the
+export glue exchanged), and the device tree is the rank's ``local_view``
+of it.  The interface assembly, the scalar reductions and the mg
+restriction sum over ranks (``Ops._psum``), the structured halo crosses
+rank boundaries as a plane exchange, the recovery ladder's verdicts are
+group-agreed (``parallel/consensus.py``), the host collectives of the
+dispatch path run under ``resilience/distributed.GuardedComm`` (a dead
+peer raises ``DeadPeerError``), mid-solve snapshots are group-consistent
+epochs (``GroupSnapshotStore``), and ``resume_elastic`` restores a
+committed N-rank epoch onto any process count.
+
+The solver runs on ``cuda`` (``cuda:(rank % device_count)`` across
+processes) unless the caller passes ``device="cpu"``; without a card,
+the default raises instead of quietly running on the CPU.
 """
 
 from __future__ import annotations
@@ -74,8 +90,12 @@ import torch
 
 from pcg_mpi_solver_tpu_torch import native
 from pcg_mpi_solver_tpu_torch.cache.keys import (
-    array_hash as cache_array_hash, model_fingerprint, partition_cache_key)
-from pcg_mpi_solver_tpu_torch.cache.partition_cache import cached_partition
+    array_hash as cache_array_hash, model_fingerprint, partition_cache_key,
+    partition_glue_key, partition_shard_key)
+from pcg_mpi_solver_tpu_torch.cache.partition_cache import (
+    cached_partition, cached_partition_shards)
+from pcg_mpi_solver_tpu_torch.cache.shards import (
+    join_mg, join_partition, split_mg, split_partition)
 from pcg_mpi_solver_tpu_torch.config import (
     RunConfig, SolverConfig, TimeHistoryConfig)
 from pcg_mpi_solver_tpu_torch.models.model_data import ModelData
@@ -97,6 +117,10 @@ from pcg_mpi_solver_tpu_torch.ops.precond import fallback_kind, make_prec
 from pcg_mpi_solver_tpu_torch.ops.stress import nodal_export_fields
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
+from pcg_mpi_solver_tpu_torch.parallel.consensus import agree_flag
+from pcg_mpi_solver_tpu_torch.parallel.distributed import (
+    HostComm, fetch_addressable, fetch_global, gather_owned_global,
+    local_view, make_global_mesh, process_count, process_index)
 from pcg_mpi_solver_tpu_torch.parallel.hybrid import (
     HybridOps, can_hybrid, device_data_hybrid, partition_env_knobs,
     partition_hybrid)
@@ -178,16 +202,6 @@ class ManySolveResult:
         return int(len(self.flags))
 
 
-def owned_global(pm, u) -> np.ndarray:
-    """A part-local vector (n_parts, n_loc) (a tensor or host array) as the
-    global host vector (n_dof,): each dof from the part that owns it."""
-    un = u.cpu().numpy() if isinstance(u, torch.Tensor) else np.asarray(u)
-    out = np.zeros(pm.glob_n_dof, dtype=un.dtype)
-    m = (pm.weight > 0) & (pm.dof_gid >= 0)
-    out[pm.dof_gid[m]] = un[m]
-    return out
-
-
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card; a CUDA device without CUDA raises.  The
     one device rule of ``Solver``, ``DynamicsSolver`` and
@@ -202,36 +216,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# Config fields whose option is not ported yet: (section, field) -> the
-# ROADMAP queue 1 item that brings it.  A value other than the JAX
-# package's default raises NotImplementedError naming the item.
-UNPORTED = {
-    ("run", "setup_shard"): 12,
-}
 # The JAX package's calc vs comm-wait split (``measure_comm_split``) of a
-# one-device mesh, which the time data records when
+# one-process run, which the time data records when
 # ``RunConfig.comm_probe_iters`` > 0: every part lives on the one device,
-# no collective runs, all is calc (the probe of a multi-device mesh is
-# ROADMAP queue 1 item 12)
+# no collective runs, all is calc (``Solver.measure_comm_split`` measures
+# the split of a multi-process run)
 ONE_DEVICE_COMM = {"comm_frac": 0.0, "full_s_per_iter": 0.0,
                    "calc_s_per_iter": 0.0}
-_DEFAULTS = {"run": RunConfig(), "solver": SolverConfig(),
-             "time_history": TimeHistoryConfig()}
+SETUP_SHARD = ("auto", "on", "off")
 
 
 def check_slice(config: RunConfig) -> None:
-    """Raise NotImplementedError for anything outside the ported slice,
-    naming the ROADMAP queue 1 item that brings it: the one check of
+    """Raise for a config the port cannot honour: the one check of
     ``Solver``, ``DynamicsSolver`` and ``NewmarkSolver``."""
-    sections = {"run": config, "solver": config.solver,
-                "time_history": config.time_history}
-    for (section, field), item in UNPORTED.items():
-        value = getattr(sections[section], field)
-        if value != getattr(_DEFAULTS[section], field):
-            raise NotImplementedError(
-                f"{section}.{field}={value!r} is not ported yet (ROADMAP "
-                f"queue 1 item {item}); only the default "
-                f"{getattr(_DEFAULTS[section], field)!r} is")
+    if config.setup_shard not in SETUP_SHARD:
+        raise ValueError(f"RunConfig.setup_shard must be 'auto'|'on'|'off', "
+                         f"got {config.setup_shard!r}")
     sc = config.solver
     if sc.pallas in ("off", "interpret"):
         raise NotImplementedError(
@@ -335,13 +335,15 @@ class LadderPieces:
 
 
 class Solver(LadderPieces):
-    """Owns the partitioned model on one device and runs time steps."""
+    """Owns the partitioned model on one device (each rank its block of
+    the parts across processes) and runs time steps."""
 
     def __init__(self, model: ModelData, config: Optional[RunConfig] = None,
                  n_parts: Optional[int] = None, device=None,
                  backend: str = "auto",
                  elem_part: Optional[np.ndarray] = None,
-                 recorder: Optional[MetricsRecorder] = None):
+                 recorder: Optional[MetricsRecorder] = None,
+                 mesh=None):
         t0 = self._t_init0 = time.perf_counter()
         self.config = config or RunConfig()
         # telemetry: an injected recorder wins; else the default one
@@ -356,10 +358,21 @@ class Solver(LadderPieces):
                       pcg_variant=self.config.solver.pcg_variant,
                       precond=self.config.solver.precond)
         self._model = model              # the checkpoint fingerprint's
-        self.device = resolve_device(device)
+        # the process group's parts mesh (one process without a group);
+        # a rank computes on its own card unless the caller says cpu
+        self.mesh = mesh if mesh is not None else make_global_mesh()
+        self.device = resolve_device(device if device is not None
+                                     else self.mesh.device)
         n_parts = self.config.n_parts if n_parts is None else n_parts
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
+        if n_parts % self.mesh.world != 0:
+            raise ValueError(f"n_parts={n_parts} must be a multiple of the "
+                             f"process count {self.mesh.world}")
+        self._part_range = self.mesh.part_range(n_parts)
+        self._group = self.mesh.group
+        if self._group is not None:
+            self._group.recorder = self._rec
         check_slice(self.config)
         # the preflight gate, before any partition is built (on this path
         # snapshot_every counts chunks, so no n_steps in the context)
@@ -413,17 +426,29 @@ class Solver(LadderPieces):
         # seconds spent building partitions (cold builds only, as the JAX
         # package counts them: the main partition and the refresh's)
         self.partition_build_s = 0.0
+        # the guarded host collectives of the dispatch path (None with one
+        # process); the group's own collectives classify a dead peer too
+        self._group_comm = None
+        self._elastic_dir = None        # resume_elastic() arms it
+        self._setup_shard_engage(model, n_parts)
+        if self._group is not None:
+            self._group.guard = self._collective_comm()
         mg_degree = int(sc.mg_smooth_degree)
         method = self.config.partition_method
         if general:
+            # the two-level split's slab count is one slab a process, a
+            # function of the process topology alone (toggling
+            # setup_shard must not change the element partition)
+            slabs = process_count()
             self.pm = self._partition_cached(
                 "general",
-                lambda: partition_model(model, n_parts, elem_part=elem_part,
-                                        method=method),
+                lambda part_range=None: partition_model(
+                    model, n_parts, elem_part=elem_part, method=method,
+                    part_range=part_range, comm=self._setup_comm,
+                    slab2_slabs=slabs if method == "slab2" else 1),
                 n_parts=n_parts, method=method, elem_part=elem_part,
-                # the JAX package keys the two-level split's slab count
-                # (one slab a process: 1 here)
-                extra={"slab2_slabs": 1} if method == "slab2" else None)
+                extra={"slab2_slabs": slabs} if method == "slab2" else None,
+                shard=True)
         elif hybrid:
             self.pm = self._partition_cached(
                 "hybrid",
@@ -433,33 +458,45 @@ class Solver(LadderPieces):
                 extra=partition_env_knobs())
         else:
             self.pm = self._partition_cached(
-                "structured", lambda: partition_structured(model, n_parts),
-                n_parts=n_parts)
+                "structured",
+                lambda part_range=None: partition_structured(
+                    model, n_parts, part_range=part_range),
+                n_parts=n_parts, shard=True)
+        if self._setup_range is not None:
+            # the export glue (owner masks and global id maps) of every
+            # rank's parts: the global views read all rows
+            self._exchange_export_glue(self.pm)
+        # the rank's block of parts: the host data its device tree is
+        # built from (the partition itself with one process)
+        self._pm_dev = local_view(self.pm, *self._part_range)
+        grp = self._group
         # the refresh's full general partition (hybrid, mixed)
         self.refresh_partition_s = 0.0
         pm_full = None
         if self.f64_refresh != "stencil":
             t_full = time.perf_counter()
-            pm_full = self._refresh_partition(model, n_parts)
+            pm_full = local_view(self._refresh_partition(model, n_parts),
+                                 *self._part_range)
             self.refresh_partition_s = time.perf_counter() - t_full
         t_up = time.perf_counter()
         self._refresh64 = None
+        pmd = self._pm_dev
         if general:
-            self.ops = Ops.from_model(self.pm, dot_dtype=dot_dtype,
-                                      mg_degree=mg_degree)
-            self.data = device_data(self.pm, self.dtype, self.device)
+            self.ops = Ops.from_model(pmd, dot_dtype=dot_dtype,
+                                      mg_degree=mg_degree, group=grp)
+            self.data = device_data(pmd, self.dtype, self.device)
         elif hybrid:
             self.ops = HybridOps.from_hybrid(
-                self.pm, dot_dtype=dot_dtype, mg_degree=mg_degree,
+                pmd, dot_dtype=dot_dtype, mg_degree=mg_degree, group=grp,
                 **(kernel if self.dtype == torch.float32 else {}))
-            self.data = device_data_hybrid(self.pm, self.dtype, self.device)
+            self.data = device_data_hybrid(pmd, self.dtype, self.device)
             if pm_full is not None:
                 self._refresh64 = self._refresh_operator(pm_full)
         else:
             self.ops = StructuredOps.from_partition(
-                self.pm, dot_dtype=dot_dtype, mg_degree=mg_degree,
+                pmd, dot_dtype=dot_dtype, mg_degree=mg_degree, group=grp,
                 **(kernel if self.dtype == torch.float32 else {}))
-            self.data = device_data_structured(self.pm, self.dtype,
+            self.data = device_data_structured(pmd, self.dtype,
                                                self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -473,7 +510,8 @@ class Solver(LadderPieces):
             t_mg = time.perf_counter()
             self.mg_setup = self._build_mg_cached(model, sc)
             self.data["mg"] = mgmod.tree_from_numpy(
-                self.mg_setup.tree, self.dtype, self.device)
+                mgmod.local_tree(self.mg_setup.tree, *self._part_range),
+                self.dtype, self.device)
             self.mg_setup_s = time.perf_counter() - t_mg
         if self.mixed:
             # f32 shadow of the float leaves (the f32 inner cycles' data);
@@ -487,8 +525,8 @@ class Solver(LadderPieces):
                     self.ops, dot_dtype=torch.float32, **kernel)
             else:
                 self.ops32 = StructuredOps.from_partition(
-                    self.pm, dot_dtype=torch.float32, mg_degree=mg_degree,
-                    **kernel)
+                    pmd, dot_dtype=torch.float32, mg_degree=mg_degree,
+                    group=grp, **kernel)
         if self.mg_setup is not None:
             # the fine level's Chebyshev bound: power-iteration matvecs on
             # the uploaded storage-dtype operator, installed with the
@@ -511,10 +549,11 @@ class Solver(LadderPieces):
 
         # ---- the chunked path (solver/chunked.py) and the resilience
         # subsystem (resilience/): the JAX package's auto cap engages at
-        # 4 M dofs; one device holds every part's rows
+        # 4 M dofs over the whole model (the same cap on every rank)
         self._dispatch_cap = auto_dispatch_cap(
             sc, self.pm.glob_n_dof, self.pm.n_loc * self.pm.n_parts,
             force_engage=hybrid)
+
         # the convergence ring (obs/trace.py; 0 = off) and the dtype its
         # norms unpack in: the dot dtype of the Krylov iterations (float32
         # in the mixed inner cycles, rescaled to absolute residuals)
@@ -572,6 +611,14 @@ class Solver(LadderPieces):
         self._rec.gauge("setup.cache", self.setup_cache)
         self._rec.gauge("setup.partition_build_s",
                         round(self.partition_build_s, 3))
+        if self._setup_range is not None:
+            # which parts this process built or loaded, and whether warm
+            self._rec.event(
+                "setup_shard", parts=list(self._setup_range),
+                n_parts=int(self.pm.n_parts),
+                cold=self.setup_cache != "warm",
+                partition_build_s=round(self.partition_build_s, 6),
+                setup_s=round(self.setup_s, 6))
         self._init_cost_model()
 
     def _init_cost_model(self) -> None:
@@ -632,20 +679,86 @@ class Solver(LadderPieces):
         self._rec.note("warmup complete (kernels loaded, operators "
                        "applied once)")
 
+    def _setup_shard_engage(self, model: ModelData, n_parts: int) -> None:
+        """The sharded setup (JAX ``driver.py:288-391``): with several
+        processes and ``setup_shard`` not "off", the structured and
+        general backends build (or load) only this rank's parts, the
+        layout merged through ``HostComm`` reductions.  The engage
+        decision gates collective code paths, so it is group-agreed.  The
+        hybrid backend keeps the whole build, as in the JAX package."""
+        self._setup_range = None
+        self._setup_comm = None
+        if (self.config.setup_shard == "off" or self.mesh.world <= 1
+                or self.backend not in ("general", "structured")):
+            return
+        comm = HostComm()
+        if agree_flag(comm, True):
+            self._setup_range = self._part_range
+            self._setup_comm = comm
+
+    def _exchange_export_glue(self, pm) -> None:
+        """Sharded setup: gather every rank's rows of the export glue
+        (owner weights and global id maps), so the host-side global views
+        (``gather_owned_global``, ``owner_mask``, the ``solve_many``
+        staging, the export maps) keep their all-parts contract while the
+        heavy per-part structures stay local.  Two collectives: one int64
+        buffer (ranges and id maps), one float64 (the weights)."""
+        lo, hi = self._setup_range
+        comm = self._setup_comm
+        names = ("dof_gid", "node_gid", "weight", "node_weight")
+        arrs = {n: np.asarray(getattr(pm, n)) for n in names
+                if getattr(pm, n, None) is not None}
+        ints = np.concatenate(
+            [np.asarray([lo, hi], dtype=np.int64)]
+            + [arrs[n][lo:hi].ravel().astype(np.int64)
+               for n in ("dof_gid", "node_gid") if n in arrs])
+        flts = np.concatenate(
+            [arrs[n][lo:hi].ravel().astype(np.float64)
+             for n in ("weight", "node_weight") if n in arrs]
+            or [np.zeros(0)])
+        g_int, g_flt = comm.allgather(ints), comm.allgather(flts)
+        for proc in range(g_int.shape[0]):
+            a, b = int(g_int[proc, 0]), int(g_int[proc, 1])
+            pos_i, pos_f = 2, 0
+            for n in names:
+                if n not in arrs:
+                    continue
+                full = arrs[n]
+                rows = (b - a,) + full.shape[1:]
+                cnt = int(np.prod(rows))
+                if n in ("dof_gid", "node_gid"):
+                    blk = g_int[proc, pos_i:pos_i + cnt]
+                    pos_i += cnt
+                else:
+                    blk = g_flt[proc, pos_f:pos_f + cnt]
+                    pos_f += cnt
+                full[a:b] = blk.reshape(rows).astype(full.dtype)
+        for n, full in arrs.items():
+            setattr(pm, n, full)
+
     def _partition_cached(self, label: str, build: Callable, *,
                           n_parts: int, method: str = "n/a",
-                          elem_part=None, extra=None):
-        """A partition from the cache under the JAX package's monolithic
-        key (``driver.py:1019-1066``), else ``build()``, timed into
+                          elem_part=None, extra=None, shard: bool = False):
+        """A partition from the cache, else ``build()``, timed into
         ``partition_build_s``.  The key covers the model's content,
         n_parts, backend, dtype, the method ('auto' resolved to whether
         the native partitioner is on), an explicit elem_part's hash and
         the backend's layout knobs.  The entry's key is the partition's
-        identity for entries derived from it (the mg hierarchy)."""
+        identity for entries derived from it (the mg hierarchy).
+
+        ``shard=True`` (the structured and general backends) passes the
+        sharded setup's part range to ``build(part_range=...)`` and,
+        across processes with a cache, goes through the shard-addressed
+        store (a glue entry and one entry a part, ``cache/shards.py``), so
+        a warm rank reads only its own parts; an entry under the
+        monolithic key (the JAX package's ``driver.py:1019-1066``) still
+        loads.  One process keeps the monolithic entry."""
+        part_range = self._setup_range if shard else None
+
         def timed_build():
             t0 = time.perf_counter()
             with self._rec.span("partition_build"):
-                pm = build()
+                pm = build(part_range=part_range) if shard else build()
             self.partition_build_s += time.perf_counter() - t0
             return pm
 
@@ -655,15 +768,27 @@ class Solver(LadderPieces):
         if method == "auto" and elem_part is None:
             # the resolved choice keys the entry, not the knob
             extra["native"] = bool(native.available())
-        key = partition_cache_key(
-            self._model_fp, n_parts=int(n_parts), backend=label,
+        key_kw = dict(
+            n_parts=int(n_parts), backend=label,
             dtype=_dtype_name(self.dtype), method=method,
             elem_part_hash=(cache_array_hash(elem_part)
                             if elem_part is not None else None),
             extra=extra)
+        key = partition_cache_key(self._model_fp, **key_kw)
         self._partition_cache_id = key
-        return cached_partition(self._cache_dir, key, timed_build,
-                                recorder=self._rec, label=label)
+        if not shard or self.mesh.world == 1:
+            return cached_partition(self._cache_dir, key, timed_build,
+                                    recorder=self._rec, label=label)
+        lo, hi = part_range if part_range is not None else (0, n_parts)
+        part_keys = {p: partition_shard_key(self._model_fp, part_idx=p,
+                                            **key_kw)
+                     for p in range(lo, hi)}
+        return cached_partition_shards(
+            self._cache_dir,
+            glue_key=partition_glue_key(self._model_fp, **key_kw),
+            part_keys=part_keys, builder=timed_build,
+            split=split_partition, join=join_partition, legacy_key=key,
+            comm=self._setup_comm, recorder=self._rec, label=label)
 
     def _build_mg_cached(self, model: ModelData, sc: SolverConfig):
         """The host mg hierarchy, from the cache when a cache dir is set
@@ -679,15 +804,29 @@ class Solver(LadderPieces):
 
         if not self._cache_dir:
             return build()
-        key = partition_cache_key(
-            self._model_fp, n_parts=int(self.pm.n_parts),
+        key_kw = dict(
+            n_parts=int(self.pm.n_parts),
             backend=f"mg-{self.backend}", dtype=_dtype_name(self.dtype),
             extra={"levels": int(sc.mg_levels),
                    "degree": int(sc.mg_smooth_degree),
                    "max_replicated_dofs": int(sc.mg_max_replicated_dofs),
                    "partition": self._partition_cache_id})
-        return cached_partition(self._cache_dir, key, build,
-                                recorder=self._rec, label="mg")
+        key = partition_cache_key(self._model_fp, **key_kw)
+        if self.mesh.world == 1:
+            return cached_partition(self._cache_dir, key, build,
+                                    recorder=self._rec, label="mg")
+        # across processes: the fine transfers a part, each rank its own
+        lo, hi = self._part_range
+        part_keys = {p: partition_shard_key(self._model_fp, part_idx=p,
+                                            **key_kw)
+                     for p in range(lo, hi)}
+        return cached_partition_shards(
+            self._cache_dir,
+            glue_key=partition_glue_key(self._model_fp, **key_kw),
+            part_keys=part_keys, builder=build,
+            split=lambda st: split_mg(st, (lo, hi)), join=join_mg,
+            legacy_key=key, comm=self._collective_comm(),
+            recorder=self._rec, label="mg")
 
     def _fine_lam_cached(self) -> float:
         """The fine level's Chebyshev bound (power-iteration matvecs on
@@ -707,8 +846,9 @@ class Solver(LadderPieces):
         return float(entry["lam"])
 
     def reset_state(self) -> None:
-        """Zero the solution (the state before the first step)."""
-        self.un = torch.zeros((self.pm.n_parts, self.pm.n_loc),
+        """Zero the solution (the state before the first step): this
+        rank's rows."""
+        self.un = torch.zeros((self._pm_dev.n_parts, self.pm.n_loc),
                               dtype=self.dtype, device=self.device)
 
     def _refresh_partition(self, model: ModelData, n_parts: int):
@@ -740,11 +880,11 @@ class Solver(LadderPieces):
             rops = Ops(n_loc=pm_full.n_loc, n_iface=pm_full.n_iface,
                        n_node_loc=pm_full.n_node_loc,
                        n_node_iface=pm_full.n_node_iface,
-                       n_parts=pm_full.n_parts)
+                       n_parts=pm_full.n_parts, group=self._group)
             rdata = build_bucketed_blocks(pm_full, torch.float64,
                                           self.device)
             return lambda v: bucketed_matvec(rops, rdata, v)
-        rops = Ops.from_model(pm_full)
+        rops = Ops.from_model(pm_full, group=self._group)
         rdata = device_data(pm_full, torch.float64, self.device)
         return lambda v: rops.matvec(rdata, v)
 
@@ -897,9 +1037,51 @@ class Solver(LadderPieces):
     # ------------------------------------------------------------------
     # Resilience (resilience/): the context and the recovery pieces
     # ------------------------------------------------------------------
+    def _collective_comm(self):
+        """The guarded host-collective group of the dispatch path
+        (``resilience/distributed.GuardedComm``), built once; None with
+        one process.  Every multi-process run gets one: the consensus
+        agreements it carries are correctness-critical.  Only the
+        deadline watchdog is opt-in (``PCG_TPU_COLLECTIVE_DEADLINE_S``);
+        without it collectives run inline, and a dead peer's transport
+        error still becomes ``DeadPeerError``."""
+        if self.mesh.world <= 1:
+            return None
+        if self._group_comm is None:
+            from pcg_mpi_solver_tpu_torch.resilience.distributed import (
+                GuardedComm, collective_deadline_s)
+
+            self._group_comm = GuardedComm(
+                self._setup_comm or HostComm(),
+                deadline_s=collective_deadline_s(), recorder=self._rec,
+                index=self.mesh.rank)
+        return self._group_comm
+
+    def _elastic_point(self, store):
+        """A group store pointed at an armed elastic resume's directory
+        (the dead group's): its continuation epochs number past the ones
+        committed there."""
+        if self._elastic_dir is not None:
+            store.path = self._elastic_dir
+            store._epoch = store._scan_next_epoch()
+        return store
+
     def _snapshot_store(self) -> SnapshotStore:
+        """The step's mid-solve snapshot store, built once: across
+        processes (or under an armed elastic resume) the group-consistent
+        epoch store, else the per-file one."""
         if self._snap_store is None:
-            self._snap_store = SnapshotStore.for_solver(self)
+            if self.mesh.world > 1 or self._elastic_dir is not None:
+                from pcg_mpi_solver_tpu_torch.resilience.distributed import (
+                    GroupSnapshotStore)
+
+                self._snap_store = self._elastic_point(
+                    GroupSnapshotStore.for_solver(
+                        self, comm=self._collective_comm(),
+                        recorder=self._rec,
+                        elastic=self._elastic_dir is not None))
+            else:
+                self._snap_store = SnapshotStore.for_solver(self)
         return self._snap_store
 
     def _make_resilience(self) -> Optional[ResilienceContext]:
@@ -916,8 +1098,9 @@ class Solver(LadderPieces):
         the subsystem is off (no store, no ladder budget, no fault
         plan)."""
         sc = self.config.solver
+        comm = self._collective_comm()
         if store is None and sc.max_recoveries <= 0 \
-                and self.fault_plan is None:
+                and self.fault_plan is None and comm is None:
             return None
         return ResilienceContext(
             store=store, step=step,
@@ -927,15 +1110,23 @@ class Solver(LadderPieces):
                                 deadline_s=retry_deadline_s(),
                                 recorder=self._rec),
             faults=self.fault_plan, recorder=self._rec, resume=resume,
-            ladder_armed=sc.max_recoveries > 0)
+            ladder_armed=sc.max_recoveries > 0, comm=comm)
 
     def _fetch_state(self, state):
         """Device state tree -> host numpy (tensors copied off the
-        device; numbers and tags as they are)."""
+        device; numbers and tags as they are).  Across processes each
+        vector is gathered whole to every rank (a collective): the parts
+        axis of (P, n_loc) and of a blocked (R, P, n_loc)."""
         if isinstance(state, dict):
             return {k: self._fetch_state(v) for k, v in state.items()}
         if isinstance(state, torch.Tensor):
-            return state.detach().to("cpu", copy=True).numpy()
+            t = state.detach()
+            if self.mesh.world > 1 and t.dim() >= 2:
+                if t.dim() == 3:
+                    return np.ascontiguousarray(np.moveaxis(fetch_global(
+                        t.transpose(0, 1).contiguous(), self.mesh), 1, 0))
+                return fetch_global(t, self.mesh)
+            return t.to("cpu", copy=True).numpy()
         if isinstance(state, (int, float, bool, str)):
             return state
         return np.asarray(state)
@@ -943,14 +1134,77 @@ class Solver(LadderPieces):
     def _put_state(self, state):
         """Host numpy state tree -> the solver's device: the vectors ((P,
         n_loc), or (R, P, n_loc) in a blocked carry) become tensors in
-        their own dtype, bitwise; scalars and (R,) leaves stay on the
-        host, tags pass through."""
+        their own dtype, bitwise, each rank its rows of the parts axis;
+        scalars and (R,) leaves stay on the host, tags pass through."""
         if isinstance(state, dict):
             return {k: self._put_state(v) for k, v in state.items()}
         a = np.asarray(state)
         if a.ndim >= 2:
-            return torch.as_tensor(a.copy(), device=self.device)
+            lo, hi = self._part_range
+            a = a[lo:hi] if a.ndim == 2 else a[:, lo:hi]
+            return torch.as_tensor(np.array(a), device=self.device)
         return state
+
+    def measure_comm_split(self, n_iters: Optional[int] = None) -> dict:
+        """The calc vs comm-wait split of a PCG iteration (the JAX
+        package's ``measure_comm_split``; the reference brackets every MPI
+        call with host timers, pcg_solver.py:631-641): ``n_iters`` of the
+        iteration body (one assembled matvec and the classic loop's three
+        scalar reductions) timed once with the group's collectives and
+        once on a copy of the operator without them (the same local
+        work); the difference is collective time.  One process:
+        ``ONE_DEVICE_COMM``.  Returns {"comm_frac", "full_s_per_iter",
+        "calc_s_per_iter"}."""
+        if n_iters is None:
+            n_iters = max(int(self.config.comm_probe_iters), 1)
+        if self.mesh.world <= 1:
+            return dict(ONE_DEVICE_COMM)
+        ops, d = (self.ops32, self.data32) if self.mixed \
+            else (self.ops, self.data)
+        eff = d["eff"]
+        w = d["weight"] * eff
+
+        def run(o) -> float:
+            x = eff.clone()
+            if o.multi:
+                self._group.barrier()
+            t0 = time.perf_counter()
+            for _ in range(n_iters):
+                q = eff * o.matvec(d, x)
+                o.wdot(w, x, q)
+                pq = o.wdot(w, q, q)
+                o.wdots(w, [(x, x), (q, q), (x, q)])
+                x = (q / torch.sqrt(torch.clamp(pq, min=1e-30))).to(x.dtype)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter() - t0
+
+        local = dataclasses.replace(ops, group=None)
+        run(ops)                                  # the first use's setup
+        full, calc = run(ops), run(local)
+        frac = max(0.0, 1.0 - calc / full) if full > 0 else 0.0
+        return {"comm_frac": float(frac),
+                "full_s_per_iter": full / n_iters,
+                "calc_s_per_iter": calc / n_iters}
+
+    def resume_elastic(self, snapshot_dir: Optional[str] = None,
+                       **solve_kw) -> List[StepResult]:
+        """Resume a multi-process run's persisted state on another
+        (typically smaller) process count (JAX ``driver.py:2215``).  The
+        group snapshot epochs carry each rank's part rows and the step
+        checkpoints the globally fetched state, so a committed N-rank
+        epoch joins into the full state on any process count; the
+        fingerprint mismatch confined to ``n_procs`` becomes an
+        ``elastic_resume`` event instead of a refusal.  ``snapshot_dir``
+        is the dead group's checkpoint directory (None: this config's
+        ``checkpoint_path``); other keywords pass to :meth:`solve`."""
+        self._elastic_dir = snapshot_dir or self.config.checkpoint_path
+        self._snap_store = None
+        try:
+            return self.solve(resume=True, **solve_kw)
+        finally:
+            self._elastic_dir = None
+            self._snap_store = None
 
     def solve(self, on_step: Optional[Callable[[int, StepResult], None]]
               = None, store=None, resume: bool = False) -> List[StepResult]:
@@ -986,7 +1240,10 @@ class Solver(LadderPieces):
         if every > 0 or resume:
             ckpt = CheckpointManager(self.config.checkpoint_path)
         if resume:
-            t_done = ckpt.restore(self)
+            if self._elastic_dir is not None:
+                ckpt = CheckpointManager(self._elastic_dir)
+            t_done = ckpt.restore(self, elastic=self._elastic_dir is not None,
+                                  recorder=self._rec)
             if t_done is not None:
                 t_start = t_done + 1
         self._resume_pending = bool(resume)
@@ -996,6 +1253,10 @@ class Solver(LadderPieces):
             # on resume the run dir (maps and frames so far) must survive;
             # prepare() would rotate it away
             store.prepare()
+            if self.mesh.world > 1:
+                # prepare() rotates an old run dir on the primary: no
+                # rank's shard write may race it
+                self._group.barrier()
             store.write_map("Dof", self.export_dof_map())
             if self._nodal_vars():
                 store.write_map("NodeId", self.export_node_map())
@@ -1009,6 +1270,10 @@ class Solver(LadderPieces):
         if prof_dir and speed:
             warnings.warn("profile_dir is ignored in speed-test mode "
                           "(speed_test disables all I/O)")
+        if prof_dir and self.mesh.world > 1:
+            # one capture directory a rank (the p<N>/ naming of
+            # obs/fleet.py)
+            prof_dir = os.path.join(prof_dir, f"p{self.mesh.rank}")
         prof = start_capture(self.device) if prof_dir and not speed \
             else None
         results = []
@@ -1039,8 +1304,8 @@ class Solver(LadderPieces):
             store.write_plot_data(times, np.stack(self._probe_u, axis=1),
                                   th.probe_dofs)
         if store is not None and not speed:
-            comm = (ONE_DEVICE_COMM if self.config.comm_probe_iters > 0
-                    else None)
+            comm = (self.measure_comm_split()
+                    if self.config.comm_probe_iters > 0 else None)
             store.write_time_data(self.pm.n_parts,
                                   self.time_data(t_prep, comm))
         # the end-of-run counters, gauges and dispatch attribution
@@ -1059,12 +1324,25 @@ class Solver(LadderPieces):
             return
         t0 = time.perf_counter()
         k = self._export_count
+        P = int(self.pm.n_parts)
+        multi = self.mesh.world > 1
         if "U" in self._export_vars():
-            store.write_frame("U", k, self.displacement_owned())
+            if multi:
+                # each rank writes its own block of parts (the
+                # reference's writeMPIFile_parallel, pcg_solver.py:869)
+                vals, p0, p1 = self.displacement_owned_local()
+                store.write_frame_shard("U", k, vals, p0, p1, P)
+            else:
+                store.write_frame("U", k, self.displacement_owned())
         if [v for v in self._nodal_vars() if v != "NS"]:
             mask = self.node_owner_mask()
             for var, arr in self._nodal_fields().items():
-                store.write_frame(var, k, arr.cpu().numpy()[mask])
+                rows, p0, p1 = fetch_addressable(arr, self.mesh)
+                if multi:
+                    store.write_frame_shard(var, k, rows[mask[p0:p1]],
+                                            p0, p1, P)
+                else:
+                    store.write_frame(var, k, rows[mask])
         if "NS" in self._export_vars():
             store.write_frame("NS", k,
                               self._nonlocal_field()[self.export_node_map()])
@@ -1172,14 +1450,22 @@ class Solver(LadderPieces):
 
     def displacement_owned(self) -> np.ndarray:
         """Owner-masked local solution values, in part order (the frame's
-        'U_i' payload, pcg_solver.py:869)."""
-        return self.un.cpu().numpy()[self.owner_mask()]
+        'U_i' payload, pcg_solver.py:869); across processes every rank's
+        rows are gathered first."""
+        return fetch_global(self.un, self.mesh)[self.owner_mask()]
+
+    def displacement_owned_local(self):
+        """This rank's slice of :meth:`displacement_owned`, without a
+        collective: ``(values, p0, p1)`` for parts [p0, p1).  The slices
+        of all ranks in part order are ``displacement_owned()``."""
+        rows, p0, p1 = fetch_addressable(self.un, self.mesh)
+        return rows[self.owner_mask()[p0:p1]], p0, p1
 
     def max_block_width(self) -> int:
         """The widest block ``solve_many`` takes for this model: a blocked
-        matvec's node grid (R * n_parts * n_loc entries) must stay below
-        2^31, the kernels' 32-bit indexing."""
-        return (2**31 - 1) // (self.pm.n_parts * self.pm.n_loc)
+        matvec's node grid (R * n_parts * n_loc entries, this rank's
+        parts) must stay below 2^31, the kernels' 32-bit indexing."""
+        return (2**31 - 1) // (self._pm_dev.n_parts * self.pm.n_loc)
 
     def _block_trees(self, R: int):
         """The device trees of blocks of width ``R`` (cell scales repeated
@@ -1237,7 +1523,7 @@ class Solver(LadderPieces):
                 f"{self.max_block_width()} columns a block")
         # global columns -> the port's (R, P, n_loc) block; shared slab
         # planes carry their value on both parts, padded slots read 0
-        gid = pm.dof_gid
+        gid = pm.dof_gid[slice(*self._part_range)]
         loc = fb[np.clip(gid, 0, None), :] * (gid >= 0)[..., None]
         fb_dev = torch.as_tensor(np.ascontiguousarray(np.moveaxis(loc, -1, 0)),
                                  dtype=self.dtype, device=self.device)
@@ -1355,6 +1641,19 @@ class Solver(LadderPieces):
         return bool(sc.max_recoveries > 0
                     and fallback_kind(sc.precond) is not None)
 
+    def _many_store(self, R: int, rhs_hash: str) -> SnapshotStore:
+        """The blocked solve's snapshot store: the group-consistent epoch
+        store across processes (or under an armed elastic resume), else
+        the per-file one."""
+        if self.mesh.world > 1 or self._elastic_dir is not None:
+            from pcg_mpi_solver_tpu_torch.resilience.distributed import (
+                GroupSnapshotStore)
+
+            return self._elastic_point(GroupSnapshotStore.for_many_solver(
+                self, R, rhs_hash=rhs_hash, comm=self._collective_comm(),
+                recorder=self._rec, elastic=self._elastic_dir is not None))
+        return SnapshotStore.for_many_solver(self, R, rhs_hash=rhs_hash)
+
     def _solve_many_chunked(self, fb_dev, data, R: int, resume: bool,
                             rhs_hash: str = ""):
         """The chunked blocked solve (JAX ``driver.py:1816-1970``,
@@ -1373,8 +1672,8 @@ class Solver(LadderPieces):
         cap = self._dispatch_cap
         use_fb = self._many_use_fb()
         every = int(self.config.snapshot_every)
-        store = (SnapshotStore.for_many_solver(self, R, rhs_hash=rhs_hash)
-                 if (every > 0 or resume) else None)
+        store = (self._many_store(R, rhs_hash) if (every > 0 or resume)
+                 else None)
         f = _np_type(self.ops.dot_dtype)
         trips = [0]
         with rec.dispatch("many_start"):
@@ -1430,15 +1729,12 @@ class Solver(LadderPieces):
     def displacement_global_many(self, x) -> np.ndarray:
         """A blocked solution (n_parts, n_loc, nrhs) (``ManySolveResult.x``)
         as global host columns (n_dof, nrhs): one fetch, owner-masked."""
-        pm = self.pm
-        xn = x.cpu().numpy() if isinstance(x, torch.Tensor) \
+        xn = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
             else np.asarray(x)
-        out = np.zeros((pm.glob_n_dof, xn.shape[-1]), dtype=xn.dtype)
-        m = (pm.weight > 0) & (pm.dof_gid >= 0)
-        out[pm.dof_gid[m]] = xn[m]
-        return out
+        return gather_owned_global(self.pm, xn, self.mesh)
 
     def displacement_global(self) -> np.ndarray:
         """Full global solution vector (n_dof,), assembled on the host from
-        the owner-weighted local rows."""
-        return owned_global(self.pm, self.un)
+        the owner-weighted local rows (of every rank: a collective across
+        processes)."""
+        return gather_owned_global(self.pm, self.un, self.mesh)

@@ -34,11 +34,13 @@ from pcg_mpi_solver_tpu_torch.obs.flight import attach_flight
 from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
+from pcg_mpi_solver_tpu_torch.parallel.distributed import (
+    gather_owned_global, make_global_mesh)
 from pcg_mpi_solver_tpu_torch.resilience import (
     FaultPlan, TimeHistoryGuard, kinematic_state_io)
 from pcg_mpi_solver_tpu_torch.solver.backends import select_time_backend
 from pcg_mpi_solver_tpu_torch.solver.driver import (
-    _DTYPES, check_slice, owned_global, resolve_device)
+    _DTYPES, check_slice, resolve_device)
 from pcg_mpi_solver_tpu_torch.utils.checkpoint import SnapshotStore
 from pcg_mpi_solver_tpu_torch.validate import run_preflight
 
@@ -74,7 +76,8 @@ class DynamicsSolver:
                  n_parts: Optional[int] = None, dt: Optional[float] = None,
                  damping: float = 0.0, probe_dofs: Sequence[int] = (),
                  backend: str = "auto",
-                 recorder: Optional[MetricsRecorder] = None, device=None):
+                 recorder: Optional[MetricsRecorder] = None, device=None,
+                 mesh=None):
         self.config = config or RunConfig()
         # telemetry and the flight recorder, wired as Solver's
         self.recorder = recorder if recorder is not None \
@@ -84,11 +87,15 @@ class DynamicsSolver:
         self._rec = self.recorder
         attach_flight(self._rec, self.config.flight_path, "dynamics")
         self._model = model              # the checkpoint fingerprint's
-        self.device = resolve_device(device)
+        # the process group's parts mesh, as Solver's
+        self.mesh = mesh if mesh is not None else make_global_mesh()
+        self.device = resolve_device(device if device is not None
+                                     else self.mesh.device)
         check_slice(self.config)
         n_parts = self.config.n_parts if n_parts is None else n_parts
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
+        self._part_range = self.mesh.part_range(n_parts)
         dt_source = ("arg" if dt is not None else
                      "model" if model.dt and model.dt > 0 else "cfl")
         self.dt = float(dt if dt is not None else
@@ -114,7 +121,7 @@ class DynamicsSolver:
             model, n_parts, partition_method=self.config.partition_method,
             device=self.device, backend=backend,
             kernel=dict(variant=self.kernel_variant,
-                        planes=self.kernel_planes))
+                        planes=self.kernel_planes), mesh=self.mesh)
         # seconds building the partition (no cache here, as in the JAX
         # package: every build is cold, as Solver counts its cold builds)
         self.partition_build_s = time.perf_counter() - t_part
@@ -127,12 +134,14 @@ class DynamicsSolver:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                    device=self.device)
 
-        # the assembled lumped mass, sliced per part (zero-mass dofs get 0)
-        data["inv_M"] = put(np.where(pm.inv_diag_M > 0, pm.inv_diag_M, 0.0),
-                            self.dtype)
+        # the assembled lumped mass, sliced per part (zero-mass dofs get
+        # 0); this rank's rows across processes
+        rows = slice(*self._part_range)
+        data["inv_M"] = put(np.where(pm.inv_diag_M > 0, pm.inv_diag_M,
+                                     0.0)[rows], self.dtype)
         gid = pm.dof_gid
         data["Vd"] = put(np.where(gid >= 0, model.Vd[np.maximum(gid, 0)],
-                                  0.0), self.dtype)
+                                  0.0)[rows], self.dtype)
         # probe maps: the local index of each probe dof on the one part
         # that owns it, and the owner mask
         self._probe = np.asarray(probe_dofs, dtype=np.int64)
@@ -147,12 +156,12 @@ class DynamicsSolver:
                     "(out of range or Dirichlet-constrained everywhere)")
             p, i = hits[0]
             pidx[p, j], pmask[p, j] = i, 1.0
-        data["probe_idx"] = put(pidx, torch.int64)
-        data["probe_mask"] = put(pmask, self.dtype)
+        data["probe_idx"] = put(pidx[rows], torch.int64)
+        data["probe_mask"] = put(pmask[rows], self.dtype)
         data["fix"] = 1.0 - data["eff"]
         self.data = data
-        self.u = torch.zeros((pm.n_parts, pm.n_loc), dtype=self.dtype,
-                             device=self.device)
+        self.u = torch.zeros((rows.stop - rows.start, pm.n_loc),
+                             dtype=self.dtype, device=self.device)
         self.v = torch.zeros_like(self.u)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -186,7 +195,14 @@ class DynamicsSolver:
             torch.sum(torch.gather(u, 1, d["probe_idx"]) * d["probe_mask"],
                       dim=0, out=probe[i])
         ok = torch.isfinite(u).all().to(self.dtype).reshape(1)
-        return u, v, torch.cat([probe.reshape(-1), ok]).cpu().numpy()
+        out = torch.cat([probe.reshape(-1), ok])
+        if self.ops.multi:
+            # each probe is owned by one rank: the sum is its value; the
+            # state is finite when every rank's is
+            out = self.ops._psum(out).cpu().numpy()
+            out[-1] = float(out[-1] == self.mesh.world)
+            return u, v, out
+        return u, v, out.cpu().numpy()
 
     def _make_guard(self, resume: bool) -> Optional[TimeHistoryGuard]:
         """The timestep-granular harness: ``config.snapshot_every``
@@ -199,7 +215,8 @@ class DynamicsSolver:
             return None
         store = (SnapshotStore.for_time_solver(self)
                  if every > 0 or resume else None)
-        fetch, put = kinematic_state_io(self.device, self.dtype, ("u", "v"))
+        fetch, put = kinematic_state_io(self.device, self.dtype, ("u", "v"),
+                                        mesh=self.mesh)
         return TimeHistoryGuard(
             store=store, snapshot_every=every, fetch_state=fetch,
             put_state=put, recorder=self._rec, faults=plan,
@@ -303,7 +320,7 @@ class DynamicsSolver:
                 probe_chunks.append(pr)
             if export_every > 0 and (done % export_every == 0
                                      or done == n_steps):
-                frames.append(owned_global(self.pm, u))
+                frames.append(gather_owned_global(self.pm, u, self.mesh))
                 frame_steps.append(done)
             if guard is not None:
                 st = guard.boundary(done, lambda: {
@@ -320,7 +337,7 @@ class DynamicsSolver:
         probe_u = (_probe_cat().T[:len(self._probe)] if len(self._probe)
                    else np.zeros((0, n_steps)))
         return DynamicsResult(
-            u=owned_global(self.pm, u),
+            u=gather_owned_global(self.pm, u, self.mesh),
             probe_t=(np.arange(n_steps) + 1) * self.dt,
             probe_u=probe_u, frames=frames,
             frame_times=[s * self.dt for s in frame_steps])

@@ -47,6 +47,8 @@ from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
 from pcg_mpi_solver_tpu_torch.ops.precond import invert_node_blocks
 from pcg_mpi_solver_tpu_torch.ops.structured_matvec import (
     VARIANTS, pallas_planes, selected_variant)
+from pcg_mpi_solver_tpu_torch.parallel.distributed import (
+    gather_owned_global, make_global_mesh)
 from pcg_mpi_solver_tpu_torch.resilience import (
     DispatchGuard, FaultPlan, RecoveryHooks, ResilienceContext,
     TimeHistoryGuard, kinematic_state_io, retry_deadline_s,
@@ -55,7 +57,7 @@ from pcg_mpi_solver_tpu_torch.solver.backends import select_time_backend
 from pcg_mpi_solver_tpu_torch.solver.chunked import (
     ChunkedEngine, auto_dispatch_cap)
 from pcg_mpi_solver_tpu_torch.solver.driver import (
-    _DTYPES, LadderPieces, StepResult, check_slice, owned_global,
+    _DTYPES, LadderPieces, StepResult, check_slice,
     resolve_device)
 from pcg_mpi_solver_tpu_torch.solver.pcg import (
     _np_type, _read, cold_carry, pcg, pcg_mixed)
@@ -127,7 +129,8 @@ class NewmarkSolver(LadderPieces):
                  n_parts: Optional[int] = None, dt: float = 1.0,
                  beta: float = 0.25, gamma: float = 0.5,
                  damping: float = 0.0, backend: str = "auto",
-                 recorder: Optional[MetricsRecorder] = None, device=None):
+                 recorder: Optional[MetricsRecorder] = None, device=None,
+                 mesh=None):
         self.config = config or RunConfig()
         sc = self.config.solver
         # telemetry and the flight recorder, wired as Solver's
@@ -139,11 +142,15 @@ class NewmarkSolver(LadderPieces):
         attach_flight(self._rec, self.config.flight_path, "newmark",
                       pcg_variant=sc.pcg_variant, precond=sc.precond)
         self._model = model              # the checkpoint fingerprint's
-        self.device = resolve_device(device)
+        # the process group's parts mesh, as Solver's
+        self.mesh = mesh if mesh is not None else make_global_mesh()
+        self.device = resolve_device(device if device is not None
+                                     else self.mesh.device)
         check_slice(self.config)
         n_parts = self.config.n_parts if n_parts is None else n_parts
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
+        self._part_range = self.mesh.part_range(n_parts)
         run_preflight(model, self.config, recorder=self._rec,
                       context={"kind": "newmark"})
         if beta <= 0:
@@ -182,7 +189,7 @@ class NewmarkSolver(LadderPieces):
         self.backend, self.pm, mk_ops, mk_data = select_time_backend(
             model, n_parts, partition_method=self.config.partition_method,
             device=self.device, backend=backend, kernel=kernel,
-            mg_degree=mg_degree)
+            mg_degree=mg_degree, mesh=self.mesh)
         # seconds building the partition (no cache here, as in the JAX
         # package: every build is cold, as Solver counts its cold builds)
         self.partition_build_s = time.perf_counter() - t_part
@@ -207,7 +214,7 @@ class NewmarkSolver(LadderPieces):
         self.ops = MassShiftedOps(self.base_ops, cshift)
         # the assembled lumped mass on every copy of a dof (zero-mass dofs
         # stay 0: A = K there, still SPD) and the prescribed velocity
-        gid = pm.dof_gid
+        gid = pm.dof_gid[slice(*self._part_range)]
 
         def local(v):
             return torch.as_tensor(
@@ -223,8 +230,9 @@ class NewmarkSolver(LadderPieces):
             self.mg_setup = mgmod.build_mg_host(
                 model, pm, n_levels=int(sc.mg_levels), degree=mg_degree,
                 max_replicated_dofs=int(sc.mg_max_replicated_dofs))
-            data["mg"] = mgmod.tree_from_numpy(self.mg_setup.tree,
-                                               self.dtype, self.device)
+            data["mg"] = mgmod.tree_from_numpy(
+                mgmod.local_tree(self.mg_setup.tree, *self._part_range),
+                self.dtype, self.device)
             self.mg_setup_s = time.perf_counter() - t_mg
         self.data = data
         if self.mixed:
@@ -242,7 +250,8 @@ class NewmarkSolver(LadderPieces):
                 trees=[self.data] + ([self.data32] if self.mixed else []),
                 recorder=self._rec, wall_s=self.mg_setup_s + self.mg_lam_s,
                 cached=False)
-        self.u = torch.zeros((pm.n_parts, pm.n_loc), dtype=self.dtype,
+        lo, hi = self._part_range
+        self.u = torch.zeros((hi - lo, pm.n_loc), dtype=self.dtype,
                              device=self.device)
         self.v = torch.zeros_like(self.u)
         self.w = torch.zeros_like(self.u)
@@ -420,7 +429,7 @@ class NewmarkSolver(LadderPieces):
         store = (SnapshotStore.for_time_solver(self)
                  if every > 0 or resume else None)
         fetch, put = kinematic_state_io(self.device, self.dtype,
-                                        ("u", "v", "w"))
+                                        ("u", "v", "w"), mesh=self.mesh)
         return TimeHistoryGuard(
             store=store, snapshot_every=every, fetch_state=fetch,
             put_state=put, recorder=self._rec, faults=plan,
@@ -528,9 +537,10 @@ class NewmarkSolver(LadderPieces):
         return results
 
     def displacement_global(self) -> np.ndarray:
-        return owned_global(self.pm, self.u)
+        return gather_owned_global(self.pm, self.u, self.mesh)
 
     def state_global(self):
-        """(u, v, w) as global host vectors."""
-        return tuple(owned_global(self.pm, a)
+        """(u, v, w) as global host vectors (a collective fetch across
+        processes)."""
+        return tuple(gather_owned_global(self.pm, a, self.mesh)
                      for a in (self.u, self.v, self.w))

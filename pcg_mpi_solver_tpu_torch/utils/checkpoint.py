@@ -80,11 +80,17 @@ def _np_dtype_name(dtype) -> str:
     return str(torch.empty((), dtype=dtype).numpy().dtype)
 
 
+def _process_count() -> int:
+    from pcg_mpi_solver_tpu_torch.parallel.distributed import process_count
+
+    return process_count()
+
+
 def _fingerprint(solver) -> dict:
     """Everything that must not drift between a checkpoint and its
     resume, under the JAX package's field names.  Fields of options the
-    port does not run take their one value (``trace_len`` 0, ``n_procs``
-    1).  ``matvec_form`` is "gse" on the structured and hybrid backends
+    port does not run take their one value (``trace_len`` 0); ``n_procs``
+    is the size of the process group.  ``matvec_form`` is "gse" on the structured and hybrid backends
     (the port's slab product sums each cell's corner contributions per
     node, the JAX package's default gse form) and "n/a" on the general
     one; ``pallas`` names the float32 kernel variant when a float32 slab
@@ -125,7 +131,7 @@ def _fingerprint(solver) -> dict:
                         float(sc.mixed_progress_ratio),
                         float(sc.mixed_progress_min_gain)],
         "trace_len": 0,
-        "n_procs": 1,
+        "n_procs": _process_count(),
         "deltas": [float(d) for d in th.time_step_delta],
         "export": [bool(th.export_flag), int(th.export_frame_rate),
                    [int(f) for f in th.export_frames], th.export_vars],
@@ -147,8 +153,10 @@ def state_dict(solver) -> dict:
     """Everything needed to continue ``solve()`` after a step (the JAX
     package's keys): the solution, the step history and the export
     counters, frame times and probe history."""
+    from pcg_mpi_solver_tpu_torch.parallel.distributed import fetch_global
+
     return {
-        "un": solver.un.cpu().numpy(),
+        "un": fetch_global(solver.un, getattr(solver, "mesh", None)),
         "flags": np.asarray(solver.flags, dtype=np.int64),
         "relres": np.asarray(solver.relres, dtype=np.float64),
         "iters": np.asarray(solver.iters, dtype=np.int64),
@@ -162,8 +170,11 @@ def state_dict(solver) -> dict:
 
 
 def load_state_dict(solver, state: dict) -> None:
-    solver.un = torch.as_tensor(np.array(state["un"]), dtype=solver.dtype,
-                                device=solver.device)
+    from pcg_mpi_solver_tpu_torch.parallel.distributed import put_sharded
+
+    solver.un = put_sharded(np.array(state["un"]),
+                            getattr(solver, "mesh", None),
+                            dtype=solver.dtype, device=solver.device)
     solver.flags = [int(v) for v in state["flags"]]
     solver.relres = [float(v) for v in state["relres"]]
     solver.iters = [int(v) for v in state["iters"]]
@@ -208,9 +219,14 @@ class CheckpointManager:
 
     def save(self, solver, t: int) -> str:
         """Checkpoint the solver state after completed step ``t`` and
-        point ``latest`` at it."""
+        point ``latest`` at it.  Across processes the state fetch is a
+        collective every rank runs; only the primary (rank 0) writes."""
+        from pcg_mpi_solver_tpu_torch.utils.io import is_primary
+
         payload = dict(state_dict(solver))
         out = self._ckpt_file(t)
+        if not is_primary():
+            return out
         os.makedirs(self.path, exist_ok=True)
         payload["t"] = np.int64(t)
         payload["fingerprint"] = _encode_fingerprint(_fingerprint(solver))
@@ -259,10 +275,15 @@ class CheckpointManager:
             return t
         return None
 
-    def restore(self, solver, t: Optional[int] = None) -> Optional[int]:
+    def restore(self, solver, t: Optional[int] = None, *,
+                elastic: bool = False,
+                recorder=None) -> Optional[int]:
         """Load the checkpoint of step ``t`` (default: the latest) into
         ``solver``.  Returns the restored step, or None when there is
-        none; raises ValueError on a fingerprint mismatch."""
+        none; raises ValueError on a fingerprint mismatch, except one
+        confined to ``n_procs`` under ``elastic=True``: a checkpoint holds
+        the globally fetched state, so it restores exactly onto another
+        process count, recorded as an ``elastic_resume`` event."""
         if t is None:
             t = self.latest_step()
             if t is None:
@@ -273,8 +294,17 @@ class CheckpointManager:
             if saved != want:
                 diffs = {k: (saved.get(k), want[k]) for k in want
                          if saved.get(k) != want[k]}
-                raise ValueError(
-                    f"checkpoint/solver mismatch (saved, current): {diffs}")
+                if elastic and set(diffs) == {"n_procs"}:
+                    if recorder is not None:
+                        recorder.event(
+                            "elastic_resume",
+                            from_procs=int(saved.get("n_procs", -1)),
+                            to_procs=int(want["n_procs"]), prefix="ckpt")
+                        recorder.inc("resilience.elastic_resume")
+                else:
+                    raise ValueError(
+                        f"checkpoint/solver mismatch (saved, current): "
+                        f"{diffs}")
             load_state_dict(solver, {k: z[k] for k in z.files
                                      if k not in ("t", "fingerprint")})
         return t
@@ -396,8 +426,14 @@ class SnapshotStore:
         return None
 
     def save(self, t: int, state: Dict[str, Any]) -> str:
-        """Persist the host numpy state tree of in-flight step ``t``."""
+        """Persist the host numpy state tree of in-flight step ``t``
+        (across processes the caller's state fetch is a collective; only
+        the primary writes)."""
+        from pcg_mpi_solver_tpu_torch.utils.io import is_primary
+
         out = self._file(t)
+        if not is_primary():
+            return out
         os.makedirs(self.path, exist_ok=True)
         flat = _flatten(state)
         flat["__t"] = np.int64(t)
@@ -424,21 +460,38 @@ class SnapshotStore:
                           "step from its start state")
             return None
         flat.pop("__t", None)
-        if self.fingerprint is not None and \
-                "many_fallback" in self.fingerprint:
+        self._reconcile_fingerprint(saved)
+        return _unflatten(flat)
+
+    def _reconcile_fingerprint(self, saved: dict) -> None:
+        """Compare a record's saved fingerprint with this store's,
+        handing a mismatch to :meth:`_fingerprint_mismatch` (shared by the
+        per-file reads and the epoch-shard joins of
+        ``resilience/distributed.GroupSnapshotStore``)."""
+        if self.fingerprint is None:
+            return
+        if "many_fallback" in self.fingerprint:
             # a blocked record older than the field came from a cycle
             # without the fallback operand (the JAX package's default)
             saved.setdefault("many_fallback", False)
-        if self.fingerprint is not None and saved != self.fingerprint:
+        if saved != self.fingerprint:
             diffs = {k: (saved.get(k), self.fingerprint[k])
                      for k in self.fingerprint
                      if saved.get(k) != self.fingerprint[k]}
-            raise ValueError(
-                f"mid-solve snapshot/solver mismatch (saved, current): "
-                f"{diffs}")
-        return _unflatten(flat)
+            self._fingerprint_mismatch(saved, diffs)
+
+    def _fingerprint_mismatch(self, saved: dict, diffs: dict) -> None:
+        """The base store refuses every mismatch; the group store's
+        elastic path takes an ``n_procs``-only one as a named event."""
+        raise ValueError(
+            f"mid-solve snapshot/solver mismatch (saved, current): "
+            f"{diffs}")
 
     def discard(self, t: int) -> None:
+        from pcg_mpi_solver_tpu_torch.utils.io import is_primary
+
+        if not is_primary():
+            return
         try:
             os.remove(self._file(t))
         except OSError:

@@ -29,9 +29,11 @@ import numpy as np
 def is_primary() -> bool:
     """True on the one process that performs result-file writes (the
     reference gates shared-file writes on rank 0 / uses MPI-IO offsets,
-    file_operations.py:348-396).  The port runs one process (the
-    multi-process build is ROADMAP queue 1 item 12), so always True."""
-    return True
+    file_operations.py:348-396): rank 0 of the ``torch.distributed``
+    group writes, every rank computes; True without a group."""
+    from pcg_mpi_solver_tpu_torch.parallel.distributed import process_index
+
+    return process_index() == 0
 
 
 def exportz(filename: str, data) -> None:

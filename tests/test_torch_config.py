@@ -1,8 +1,7 @@
 """The port's config dataclasses against the JAX package's: the same
 field names with the same defaults, so a config written for the JAX
-package builds in the port; and a value the port cannot honour raises
-NotImplementedError in ``Solver`` naming the ROADMAP queue 1 item that
-brings it, while names, paths and no-op switches are accepted."""
+package builds in the port; each field the port took over does what it
+says, and a value outside a field's choices raises in ``Solver``."""
 
 import dataclasses
 
@@ -13,7 +12,6 @@ import pcg_mpi_solver_tpu_torch.config as config
 from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig, TimeHistoryConfig
 from pcg_mpi_solver_tpu_torch.models import make_cube_model
 from pcg_mpi_solver_tpu_torch.solver import Solver
-from pcg_mpi_solver_tpu_torch.solver.driver import UNPORTED
 
 CLASSES = ["SolverConfig", "TimeHistoryConfig", "RunConfig"]
 
@@ -55,23 +53,11 @@ def changed(section, field, value):
     return RunConfig(time_history=TimeHistoryConfig(**{field: value}))
 
 
-# a non-default value for each unported field
-OTHER = {"setup_shard": "off"}
-CASES = sorted(UNPORTED.items())
-
-
-def test_every_unported_field_has_a_case():
-    assert {f for (_s, f) in UNPORTED} == set(OTHER)
-
-
-@pytest.mark.parametrize("key,item", CASES,
-                         ids=[f"{s}.{f}" for (s, f), _i in CASES])
-def test_unported_field_raises_with_its_item(key, item):
-    section, field = key
-    with pytest.raises(NotImplementedError,
-                       match=rf"{field}=.*ROADMAP queue 1 item {item}\b"):
-        Solver(make_cube_model(4, 3, 3), changed(section, field,
-                                                 OTHER[field]),
+def test_setup_shard_rejects_an_unknown_value():
+    """RunConfig.setup_shard takes 'auto', 'on' or 'off', as in the JAX
+    package (``driver.py:288-291``)."""
+    with pytest.raises(ValueError, match="setup_shard"):
+        Solver(make_cube_model(4, 3, 3), RunConfig(setup_shard="always"),
                device="cpu")
 
 
@@ -100,6 +86,11 @@ def _check_preflight_off(s, tmp_path):
     assert "preflight.runs" not in s.recorder.counters
 
 
+def _check_one_process_setup(s, tmp_path):
+    # one process: the whole build, whatever the setting
+    assert s._setup_range is None and s.pm.part_range in (None, (0, 1))
+
+
 # each field the slice ported, set away from its default, with what
 # shows that it took effect
 PORTED = {
@@ -110,19 +101,19 @@ PORTED = {
     ("run", "profile_dir"): ("prof", _check_profile_dir),
     ("run", "preflight"): ("off", _check_preflight_off),
     ("run", "comm_probe_iters"): (0, None),
+    ("run", "setup_shard"): ("off", _check_one_process_setup),
 }
 
 
 @pytest.mark.parametrize("key", sorted(PORTED),
                          ids=[f"{s}.{f}" for s, f in sorted(PORTED)])
 def test_ported_field_takes_effect(tmp_path, key):
-    """The fields this slice took out of UNPORTED build a Solver and do
-    what they say (paths under the test's directory)."""
+    """The fields the port took over build a Solver and do what they
+    say (paths under the test's directory)."""
     section, field = key
     value, check = PORTED[key]
     if isinstance(value, str) and value.endswith(("jsonl", "prof")):
         value = str(tmp_path / value)
-    assert key not in UNPORTED
     cfg = changed(section, field, value)
     cfg.scratch_path = str(tmp_path / "out")
     s = Solver(make_cube_model(4, 3, 3), cfg, device="cpu")

@@ -20,8 +20,10 @@ launches counted on the hybrid backend), a solve on the native graph
 partition against the CPU, a warm partition-cache Solver against the
 cold one, the convergence ring and a profile capture on the card (a
 traced solve bitwise the untraced one, with as many synchronising calls;
-v6 in the matvec phase), and a served block of the solve service against
-its jobs' width-1 solves.  They carry the
+v6 in the matvec phase), a served block of the solve service against
+its jobs' width-1 solves, and two ranks over gloo on the one card (a
+structured matvec bitwise the one-process one, a solve within one
+iteration of it).  They carry the
 ``cuda`` marker and skip with a reason where
 ``torch.cuda.is_available()`` is False.  This file imports no JAX (the
 machine with the card has none); there, run it without the repository's
@@ -1397,3 +1399,69 @@ def test_served_block_on_card_matches_width1_solves(cuda_device, tmp_path,
         assert res["iters"] == int(ref.iters[0])
         assert np.abs(u - u_ref).max() <= 1e-12 * np.abs(u_ref).max()
     assert launched >= res["iters"]
+
+
+_CHILD_CARD = r"""
+import numpy as np
+from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
+from pcg_mpi_solver_tpu_torch.models import make_cube_model
+from pcg_mpi_solver_tpu_torch.parallel.distributed import fetch_global
+from pcg_mpi_solver_tpu_torch.solver import Solver
+
+OUT, MODE = sys.argv[4], sys.argv[5]
+model = make_cube_model(16, 6, 6, heterogeneous=True)
+if MODE == "matvec":
+    s = Solver(model, RunConfig(solver=SolverConfig(
+        dtype="float32", precision_mode="direct")), mesh=mesh, n_parts=8,
+        backend="structured")
+    x = np.random.default_rng(0).standard_normal(
+        (8, s.pm.n_loc)).astype(np.float32)
+    lo, hi = s._part_range
+    xt = torch.as_tensor(x[lo:hi], device=s.device) * s.data["eff"]
+    y = fetch_global(s.ops.matvec(s.data, xt), mesh)
+    if pid == 0:
+        np.save(os.path.join(OUT, "y.npy"), y)
+    print(f"RESULT {pid} device={s.device}", flush=True)
+else:
+    s = Solver(model, RunConfig(solver=SolverConfig(tol=1e-8,
+                                                    max_iter=2000)),
+               mesh=mesh, n_parts=8, backend="structured")
+    r = s.step(1.0)
+    u = s.displacement_global()
+    print(f"RESULT {pid} flag={r.flag} iters={r.iters} "
+          f"cs={float(np.abs(u).sum()):.10e}", flush=True)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["matvec", "solve"])
+def test_two_rank_structured_on_card(cuda_device, tmp_path, mode):
+    """Two ranks over gloo on the one card: the float32 slab matvec (v6,
+    the halo's planes staged through pinned host buffers) is bitwise the
+    one-process matvec; the mixed v6 solve gives the one-process flag,
+    its iterations within one (only the cross-rank sum order differs),
+    and the same result line on both ranks."""
+    from test_torch_distributed import run_ranks
+
+    model = make_cube_model(16, 6, 6, heterogeneous=True)
+    results = run_ranks(tmp_path, _CHILD_CARD, 2, [tmp_path, mode])
+    assert len(results) == 2
+    if mode == "matvec":
+        assert all("device=cuda:0" in r for r in results)
+        s = Solver(model, RunConfig(solver=SolverConfig(
+            dtype="float32", precision_mode="direct")), n_parts=8,
+            backend="structured")
+        x = np.random.default_rng(0).standard_normal(
+            (8, s.pm.n_loc)).astype(np.float32)
+        xt = torch.as_tensor(x, device=s.device) * s.data["eff"]
+        y = s.ops.matvec(s.data, xt).cpu().numpy()
+        np.testing.assert_array_equal(np.load(tmp_path / "y.npy"), y)
+        return
+    assert results[0].split(" ", 2)[2] == results[1].split(" ", 2)[2]
+    s = Solver(model, RunConfig(solver=SolverConfig(tol=1e-8,
+                                                    max_iter=2000)),
+               n_parts=8, backend="structured")
+    ref = s.step(1.0)
+    assert "flag=0" in results[0] and ref.flag == 0
+    iters = int(results[0].split("iters=")[1].split()[0])
+    assert abs(iters - ref.iters) <= 1

@@ -94,10 +94,18 @@ def test_ingest_archive_and_refusals(tmp_path):
     assert os.path.relpath(got, tmp_path / "scratch") == os.path.relpath(
         want, tmp_path / "scratch_j") == os.path.join("ModelData", "MDF")
     assert_same(mdf.read_mdf(got), jax_mdf.read_mdf(want), "ingest")
-    for fn in (lambda: mdf.read_mdf_slab(got, 0, 2),
-               lambda: mdf.slab_elem_ids(got, 0, 2),
-               lambda: SparseVec(np.arange(2), np.zeros(2), 4)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+    # the sharded ingest (once refused, naming ROADMAP queue 1 item 12):
+    # the same slab ids and the same sparse slab view as the JAX package
+    for k in range(2):
+        np.testing.assert_array_equal(mdf.slab_elem_ids(got, k, 2),
+                                      jax_mdf.slab_elem_ids(want, k, 2))
+        mt, mj = mdf.read_mdf_slab(got, k, 2), jax_mdf.read_mdf_slab(want,
+                                                                     k, 2)
+        np.testing.assert_array_equal(mt.elem_ids, mj.elem_ids)
+        for name in ("F", "Ud", "node_coords"):
+            np.testing.assert_array_equal(getattr(mt, name).materialize(),
+                                          getattr(mj, name).materialize())
+    sv = SparseVec(np.arange(2), np.ones(2), 4)
+    np.testing.assert_array_equal(sv[np.arange(4)], [1.0, 1.0, 0.0, 0.0])
     with pytest.raises(ValueError, match="scalar"):
         mdf.write_mdf(make_poisson_model(2, 2, 2), str(tmp_path / "p"))

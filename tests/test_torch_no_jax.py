@@ -53,6 +53,13 @@ SERVE_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
     "serve", "serve.jobs", "serve.journal", "serve.packer",
     "serve.admission", "serve.daemon", "obs.watch"))
 
+# multi-process sharding: the mesh, the collectives, the consensus, the
+# shard cache, the dead-peer guard and group snapshots, the fleet report
+# and the setup ladder
+SHARD_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
+    "parallel.mesh", "parallel.distributed", "parallel.consensus",
+    "cache.shards", "resilience.distributed", "obs.fleet", "setup_ladder"))
+
 # what a spawned VTK export worker imports (vtk/export.py's pool): numpy
 # only, so a worker never loads torch or initialises CUDA
 WORKER_PROBE = r"""
@@ -84,6 +91,7 @@ def test_port_imports_no_jax():
     assert set(TIME_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(NATIVE_CACHE_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(SERVE_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(SHARD_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
 
 

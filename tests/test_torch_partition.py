@@ -171,15 +171,34 @@ def test_partition_from_numpy_round_trip():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(part_range=(0, 1)), 12),
-    (dict(comm=object()), 12),
-    (dict(layout=object()), 12),
+    (dict(part_range=(1, 2)), 12),
+    (dict(comm="serial"), 12),
+    (dict(layout="full"), 12),
 ])
 def test_partition_refusals_name_their_items(kw, item):
+    """The sharded-setup arguments that ROADMAP queue 1 item ``item``
+    brought (once refused, naming it) build what the full build does: a
+    ``part_range`` build's rows are the full build's, bit for bit (on the
+    full build's layout, which one process alone cannot merge); an
+    explicit one-process comm, or the full build's own layout, give the
+    full build."""
+    from pcg_mpi_solver_tpu_torch.parallel.partition import SerialComm
+
+    assert item == 12
     _mj, mt = build("octree_l2")
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP queue 1 item {item}\b"):
-        partition_model(mt, 2, **kw)
+    full = partition_model(mt, 2)
+    if "part_range" in kw:
+        pm = partition_model(mt, 2, layout=full.layout, **kw)
+        assert pm.part_range == (1, 2)
+        for name in ("weight", "dof_gid", "node_gid", "eff", "F",
+                     "iface_local", "iface_slot", "ell"):
+            np.testing.assert_array_equal(getattr(pm, name)[1],
+                                          getattr(full, name)[1])
+        assert (pm.dof_gid[0] == -1).all() and (pm.weight[0] == 0).all()
+        return
+    arg = SerialComm() if "comm" in kw else full.layout
+    pm = partition_model(mt, 2, **{next(iter(kw)): arg})
+    assert_same(pm, full, "sharded argument")
 
 
 def test_single_part_takes_every_method_as_jax_does():

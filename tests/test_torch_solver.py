@@ -124,35 +124,39 @@ def test_general_backend_models_solve(dims, kw, n_parts):
 
 
 def _refuse(where):
-    """The text of the port's refusal at ``where``: for the single-process
-    psum, its docstring; for the others, the message they raise."""
+    """The text of what stands where the port once refused: the
+    docstring of ``Ops._psum``, or the ``part_range`` of the partition
+    that ``partition_model`` builds with the argument (each of these
+    raised NotImplementedError naming ROADMAP queue 1 item 12 before the
+    item was ported)."""
     from pcg_mpi_solver_tpu_torch.models import make_octree_model
     from pcg_mpi_solver_tpu_torch.ops.matvec import Ops
-    from pcg_mpi_solver_tpu_torch.parallel.partition import partition_model
+    from pcg_mpi_solver_tpu_torch.parallel.partition import (
+        SerialComm, partition_model)
 
     if where == "psum":
         return Ops._psum.__doc__
     octree = make_octree_model(2, 2, 2, max_level=2, n_incl=2, seed=3)
     calls = {
         "part_range": lambda: partition_model(octree, 2, part_range=(0, 1)),
-        "comm": lambda: partition_model(octree, 2, comm=object()),
-        "layout": lambda: partition_model(octree, 2, layout=object()),
+        "comm": lambda: partition_model(octree, 2, comm=SerialComm()),
+        "layout": lambda: partition_model(
+            octree, 2, layout=partition_model(octree, 2).layout),
     }
-    with pytest.raises(NotImplementedError) as err:
-        calls[where]()
-    return str(err.value)
+    return f"part_range={calls[where]().part_range}"
 
 
 @pytest.mark.parametrize("where,items", [
-    ("psum", [r"sharding is ROADMAP queue 1 item 12\b"]),
-    ("part_range", [r"ROADMAP queue 1 item 12\b"]),
-    ("comm", [r"ROADMAP queue 1 item 12\b"]),
-    ("layout", [r"ROADMAP queue 1 item 12\b"]),
+    ("psum", [r"one all-reduce over the group", r"identity with one"]),
+    ("part_range", [r"part_range=\(0, 1\)"]),
+    ("comm", [r"part_range=\(0, 2\)"]),
+    ("layout", [r"part_range=\(0, 2\)"]),
 ])
 def test_module_refusals_name_their_queue_items(where, items):
-    """Each refusal inside the port's modules (outside solver/driver.py's
-    option refusals, which tests/test_torch_config.py checks) names the
-    ROADMAP queue 1 item that owns what it refuses: sharding 12."""
+    """What ROADMAP queue 1 item 12 (multi-process sharding) brought in
+    place of the refusals inside the port's modules: ``Ops._psum`` sums
+    over the process group, and ``partition_model`` takes the sharded
+    setup's ``part_range``, ``comm`` and ``layout``."""
     text = " ".join(_refuse(where).split())
     for item in items:
         assert re.search(item, text), (where, text)
