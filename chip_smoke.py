@@ -106,24 +106,21 @@ Phases (any failed check raises, so the script exits non-zero):
                 operator on the card against the CPU's float64 (float64
                 1e-12, float32 2e-5 of max|y|; two card matvecs bitwise
                 equal; times) and the same at two parts on a 3^3 octree;
-                the bucket grouping of one bucket a sign sub-type timed
-                beside the default (``BUCKET_VALUES_CHOICES``);
+                the default bucket grouping's float32 matvec timed
+                (``BUCKET_VALUES_CHOICES``);
                 the 6^3 octree within max(3, 5 %) of the JAX package's
-                1144 iterations; then the 22^3 octree under mg (the
-                hierarchy from its 352^3 lattice: level dims, replicated
-                dofs, host seconds of the hierarchy and of the fine bound,
-                iterations, ms/iter and time to tol beside jacobi's, the
-                solutions' difference) and the 6^3 octree under mg within
-                max(3, 5 %) of the JAX package's 28.  The octree
+                1144 iterations; then the 6^3 octree under mg within
+                max(3, 5 %) of the JAX package's 28 (the 22^3 octree's mg
+                solve, whose hierarchy took ~62 s of host, went to make
+                room for the lint phase).  The octree
                 models (22^3 and 6^3) are built in child processes
                 started with the run, beside phases 3 and 4e's cube, and
                 shared by phases 4e to 4k.  The octree's
-                jacobi and mg Solvers start the scratch partition cache
-                (``CACHE_DIR``): the mg Solver reads jacobi's partition
-                from it.  After phase 4d: the
+                jacobi Solver and the 6^3 mg Solver start the scratch
+                partition cache (``CACHE_DIR``).  After phase 4d: the
                 cube's ms/iter beside phase 4's v6, kernels and launches a
                 float32 octree matvec, 100 profiled inner iterations, and
-                20 of the octree's mg solve;
+                20 of the 6^3 octree's mg solve;
   4h. hybrid  — run right after phase 4e, on its 22^3/L4 octree model
                 object: Solver(backend="hybrid") (mixed, jacobi, classic,
                 tol 1e-7) with the seconds of ``partition_hybrid``, of
@@ -284,7 +281,17 @@ Phases (any failed check raises, so the script exits non-zero):
                 a long process's trace can miss device events) read back
                 by ``obs/profview.py``: the phase split, every v6 launch
                 of the window in the trace and in matvec, the phase sum
-                plus ``other`` within 2 % of the window's device time.
+                plus ``other`` within 2 % of the window's device time;
+  4o. lint    — after 4l (its recordings run under torch.profiler): the
+                contract lint (``analysis/``, ``run_lint(fast=True,
+                device="cuda")``) with its trip rules recorded by two gloo
+                ranks on ``cuda:(rank % device_count)``, exit 0 required;
+                each program's per-trip counts (all-reduces, plane
+                exchanges, host reads, aten ops, launches) on their own
+                lines, v6 launched once a matvec on the structured
+                programs; then one seeded violation on the card: an extra
+                ``_read`` a trip injected through the recorder's probe
+                hook, which the hot-loop-purity rule must report.
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
 preconditioner solve of phase 4b, by variant solve of phase 4c, by
@@ -295,7 +302,8 @@ from its level batches, ``launches_newmark`` and ``launches_dynamics``
 from phase 4j's Newmark runs and explicit runs, ``launches_graph`` from
 phase 4k's 8-part hybrid solve, ``launches_serve`` from phase 4m's
 flagship blocks; v6's ``launches_multiprocess`` by rank from phase 4n's
-two-rank flagship solve), the last line
+two-rank flagship solve, and v6 float32's ``launches_lint``, phase 4o's
+structured float32 trips by kind on rank 0), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -462,10 +470,10 @@ JAX_OCTREE6_HYBRID_ITERS = 1145
 # the general matvec on the card against the CPU's float64, x max|y|
 OPERATOR_TOL = {"float64": 1e-12, "float32": 2e-5}
 # bucket groupings (plan_buckets' cost of a bucket, in element values)
-# timed on the octree's operator; 0 = one bucket a sign sub-type, beside
-# the default (500,000 and 8,000,000 went to make room for the telemetry
-# phase)
-BUCKET_VALUES_CHOICES = (0, 2_000_000)
+# timed on the octree's operator: the default alone (500,000 and 8,000,000
+# went to make room for the telemetry phase, 0 = one bucket a sign
+# sub-type for the lint phase)
+BUCKET_VALUES_CHOICES = (2_000_000,)
 # phase 4i: the nodal export fields (the export variables D ES PS PE) and
 # their tolerance against the host float64 oracle, x max|field| (both
 # float64; the card sums in another order)
@@ -2394,61 +2402,25 @@ def phase_general(torch, np, cube_model, octrees):
     del s6
     torch.cuda.empty_cache()
 
-    # 5. mg on the octree lattices: the flagship octree and the 6^3 one
-    octree_mg, octree6_mg = phase_general_mg(torch, np, model, n, solver,
-                                             res_j, ms_j, bar, octrees)
+    # 5. mg on the 6^3 octree's lattice
+    octree_mg, octree6_mg = phase_general_mg(torch, np, octrees)
     return dict(cube_ms=cube_ms, octree=solver, n=n, octree_mg=octree_mg,
                 octree6_mg=octree6_mg, model=model, res=res_j, ms=ms_j)
 
 
-def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar,
-                     octrees):
-    """Phase 4e, its mg part: the octree flagship under precond="mg"
-    (mixed, classic, auto backend -> general; the hierarchy from the
-    octree lattice): lattice and level dims, replicated dofs, the
-    hierarchy's host seconds and the fine bound's, iterations, ms/iter
-    and time to tol beside jacobi's, the two solutions' difference; then
-    the 6^3 octree under mg within max(3, 5 %) of the JAX package's
-    count.  Returns the flagship's mg Solver (profiled after phase 4d)
-    and the 6^3 mg Solver's cold setup (cache state, hierarchy, bounds,
-    seconds, flag, iterations and u), which phase 4k loads warm."""
+def phase_general_mg(torch, np, octrees):
+    """Phase 4e, its mg part: the 6^3 octree under precond="mg" (mixed,
+    classic, auto backend -> general; the hierarchy from the octree
+    lattice) within max(3, 5 %) of the JAX package's count.  Returns the
+    mg Solver (profiled after phase 4d) and its cold setup (cache state,
+    hierarchy, bounds, seconds, flag, iterations and u), which phase 4k
+    loads warm."""
     from pcg_mpi_solver_tpu_torch import RunConfig, SolverConfig
-    from pcg_mpi_solver_tpu_torch.obs.metrics import MetricsRecorder
-    from pcg_mpi_solver_tpu_torch.ops import mg as mgmod
     from pcg_mpi_solver_tpu_torch.solver import Solver
 
     cfg = RunConfig(cache_dir=CACHE_DIR,
                     solver=SolverConfig(tol=1e-7, precision_mode="mixed",
                                         precond="mg"))
-    t0 = time.perf_counter()
-    ev = _Events()
-    smg = Solver(model, cfg, recorder=MetricsRecorder(sinks=[ev]))
-    build = time.perf_counter() - t0
-    dims = tuple(smg.mg_setup.meta["dims"])
-    levels = [tuple(lev["ck"].shape) for lev in smg.mg_setup.tree["levels"]]
-    rep_dofs = sum(mgmod.level_replicated_dofs(levels))
-    say(f"octree {n}^3 mg: backend {smg.backend}; lattice {dims}, levels "
-        f"{levels}, replicated coarse dofs {rep_dofs} "
-        f"({rep_dofs / model.n_dof:.2f}x the fine mesh's {model.n_dof}); "
-        f"hierarchy host {smg.mg_setup_s:.2f} s, fine bound "
-        f"{smg.mg_lam_s:.2f} s (lam {smg.mg_lam[0]:.4e}), partition "
-        f"{ev.cache_wall('general'):.2f} s ({smg.setup_cache} cache: the "
-        f"partition from jacobi's entry), upload {smg.upload_s:.2f} s, "
-        f"Solver {build:.2f} s; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    res_m, ms_m, _c = _general_solve(torch, np, smg, f"octree {n}^3 mg",
-                                     bar)
-    um, uj = smg.displacement_global(), jacobi.displacement_global()
-    du = float(np.abs(um - uj).max() / np.abs(uj).max())
-    say(f"octree {n}^3 mg against jacobi: {res_m.iters} against "
-        f"{res_j.iters} iterations, {ms_m:.4f} against {ms_j:.4f} ms/iter, "
-        f"time to tol {res_m.wall_s:.3f} against {res_j.wall_s:.3f} s "
-        f"({res_j.wall_s / res_m.wall_s:.2f}x), with setup "
-        f"{res_m.wall_s + smg.mg_setup_s + smg.mg_lam_s:.3f} s; solutions "
-        f"differ by {du:.3e} of max|u|; {nvidia_smi_line()}")
-    if not du <= 1e-4:
-        raise AssertionError(f"octree mg: solution differs from jacobi's by "
-                             f"{du:.3e} of max|u|")
     n6 = OCTREE_PARITY_N
     s6 = Solver(octrees.get(n6)[0], cfg)
     res6, _ms6, _cyc6 = _general_solve(
@@ -2457,7 +2429,9 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar,
     win = max(3, ITERS_TOL * JAX_OCTREE6_MG_ITERS)
     say(f"octree {n6}^3 mg: {res6.iters} iterations against the JAX "
         f"package's {JAX_OCTREE6_MG_ITERS} (window +-{win:g}); levels "
-        f"{[tuple(lev['ck'].shape) for lev in s6.mg_setup.tree['levels']]}")
+        f"{[tuple(lev['ck'].shape) for lev in s6.mg_setup.tree['levels']]}; "
+        f"hierarchy host {s6.mg_setup_s:.2f} s, fine bound "
+        f"{s6.mg_lam_s:.2f} s")
     if abs(res6.iters - JAX_OCTREE6_MG_ITERS) > win:
         raise AssertionError(f"octree {n6}^3 mg: {res6.iters} iterations, "
                              f"outside max(3, 5 %) of "
@@ -2465,9 +2439,7 @@ def phase_general_mg(torch, np, model, n, jacobi, res_j, ms_j, bar,
     mg6 = dict(cfg=cfg, cache=s6.setup_cache, setup=s6.mg_setup,
                lam=s6.mg_lam, setup_s=s6.mg_setup_s, lam_s=s6.mg_lam_s,
                res=res6, u=s6.displacement_global())
-    del s6
-    torch.cuda.empty_cache()
-    return smg, mg6
+    return s6, mg6
 
 
 def phase_general_profile(torch, general, v6_ms_iter):
@@ -2485,7 +2457,7 @@ def phase_general_profile(torch, general, v6_ms_iter):
         f"{nvidia_smi_line()}")
     profile_inner(torch, solver, tag=f"general profile octree {n}^3")
     profile_inner(torch, general["octree_mg"], iters=20,
-                  tag=f"general profile octree {n}^3 mg")
+                  tag=f"general profile octree {OCTREE_PARITY_N}^3 mg")
     hy = general.get("hybrid")
     if hy is not None:
         kern, launches = _matvec_kernels(torch, lambda: hy.ops32.matvec(
@@ -4687,6 +4659,51 @@ def phase_multiprocess(torch, np, flagship_model):
             for rank, recs in enumerate(ranks)}
 
 
+def phase_lint(torch, np):
+    """Phase 4o (module docstring).  Returns {trip kind: v6 float32
+    launches} of the structured float32 program on rank 0."""
+    from pcg_mpi_solver_tpu_torch.analysis import engine
+    from pcg_mpi_solver_tpu_torch.analysis import programs as ap
+    from pcg_mpi_solver_tpu_torch.analysis.rules_trip import (
+        check_hot_loop_purity)
+
+    t0 = time.perf_counter()
+    report = engine.run_lint(fast=True, device="cuda")
+    for line in report.render().splitlines():
+        say(f"lint: {line}")
+    if report.exit_code != 0:
+        raise AssertionError(f"lint: exit {report.exit_code} on the card")
+    progs = ap.build_programs(fast=True, device="cuda")    # recorded above
+    ap.print_counts(progs, say)
+    say(f"lint: {len(progs)} programs recorded by two ranks, "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for p in progs:
+        if p.backend != "structured":
+            continue
+        for kind, trip in p.trips.items():
+            n = trip.launches().get("v6 float32", 0)
+            if n != p.launches[kind] or n < 1:
+                raise AssertionError(
+                    f"lint: {p.name} rank {p.rank} {kind}: {n} v6 f32 "
+                    f"launches, {p.launches[kind]} declared")
+            if p.rank == 0 and p.role == "f32":
+                launches[kind] = n
+    if not launches:
+        raise AssertionError("lint: no structured float32 program ran")
+    # the seeded violation: one more host read a trip, through the probe
+    # hook, on a one-process two-part general Solver on the card
+    spec = dict(backend="general", variant="classic", nrhs=1, role="f64",
+                precond="jacobi")
+    s = ap.build_solver("general", device="cuda", n_parts=2)
+    seeded = ap.record_program(s, spec, inject_read=True)
+    found = check_hot_loop_purity(seeded)
+    if not found:
+        raise AssertionError("lint: the seeded extra _read did not fire")
+    say(f"lint: seeded extra _read fired: {found[0]}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4833,6 +4850,10 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
     phase_telemetry(torch, np, flagship_model, capture)
     del flagship_model
     lap("4l telemetry")
+    # 4o. the contract lint on the card, last (its recordings run under
+    # torch.profiler)
+    lint_launches = phase_lint(torch, np)
+    lap("4o lint")
 
     records = []
     for variant in F32_VARIANTS:
@@ -4881,6 +4902,8 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
                 records[-1]["launches_multiprocess"] = {
                     f"rank{r}": n[("v6", dtype)]
                     for r, n in sorted(mp_launches.items())}
+                if dtype == "float32":
+                    records[-1]["launches_lint"] = lint_launches
                 if dtype == "float32":
                     records[-1]["launches_oneshot"] = \
                         classic["oneshot"]["f32"]

@@ -23,10 +23,11 @@ CLI, the JAX package's ``pcg_mpi_solver_tpu/cli.py`` with its flags.
     python -m pcg_mpi_solver_tpu_torch.cli serve     --spool DIR [scratch | --synthetic NX,NY,NZ] [options]
     python -m pcg_mpi_solver_tpu_torch.cli submit    --spool DIR --scale S | --rhs F.npy
     python -m pcg_mpi_solver_tpu_torch.cli jobs      --spool DIR
+    python -m pcg_mpi_solver_tpu_torch.cli lint      [--fast] [--device cpu] [--json F] [--rules ID,...]
 
 ``solve``, ``solve-many``, ``dynamics``, ``newmark``, ``demo``,
-``perf-report``, ``warmup`` and ``serve`` run on the card unless
-``--device cpu`` is given; ``submit``, ``jobs`` and ``watch`` load no
+``perf-report``, ``warmup``, ``serve`` and ``lint`` (its trip rules,
+``analysis/``) run on the card unless ``--device cpu`` is given; ``submit``, ``jobs`` and ``watch`` load no
 torch (they work on a machine without the accelerator environment).
 Settings come from ``--settings settings.json`` (the shape of the
 reference's GlobSettings: TimeHistoryParam/SolverParam,
@@ -54,7 +55,7 @@ import time
 import numpy as np
 
 # subcommand -> the ROADMAP queue 1 item that ports it
-REFUSED = {"bench": 1, "trend": 1, "lint": 14}
+REFUSED = {"bench": 1, "trend": 1}
 
 
 def _load_settings(path, args):
@@ -861,6 +862,19 @@ def cmd_fleet_report(args):
         raise SystemExit(2)
 
 
+def cmd_lint(args):
+    """Contract lint (``analysis/``): prove the port's structural claims
+    on recorded trips of real solves — collectives and host reads a
+    trip, dtype discipline, the carry handoff, fingerprint and key
+    completeness — plus the source and artifact lints; exit 0 = every
+    invariant holds, 1 = findings, 2 = a rule could not run."""
+    from pcg_mpi_solver_tpu_torch.analysis.__main__ import run
+
+    rc = run(args)
+    if rc:
+        raise SystemExit(rc)
+
+
 def cmd_refused(args):
     item = REFUSED[args.cmd]
     raise NotImplementedError(
@@ -1292,6 +1306,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also emit the fleet_report event and fleet.* "
                         "gauges here")
     p.set_defaults(fn=cmd_fleet_report)
+
+    p = sub.add_parser("lint",
+                       help="contract lint (analysis/): collective budgets "
+                            "a trip, host reads, dtype discipline, carry "
+                            "handoff and fingerprint/key completeness on "
+                            "recorded trips, plus source/artifact lints")
+    # one option surface with `python -m pcg_mpi_solver_tpu_torch.analysis`
+    # (analysis/ imports load no torch)
+    from pcg_mpi_solver_tpu_torch.analysis.__main__ import add_lint_args
+
+    add_lint_args(p)
+    p.set_defaults(fn=cmd_lint)
 
     for name, item in REFUSED.items():
         p = sub.add_parser(name, help=f"not ported (ROADMAP queue 1 item "

@@ -37,8 +37,13 @@ REDUCED_SCALARS = 6
 # reductions, the recurrence variants' one), full-length vector updates
 # an iteration (classic p, x, r; fused p, q, x, r; pipelined p, s, q, z,
 # x, r, u, w: solver/pcg.py's trips), the mg V-cycle's assembled matvecs
-# and restriction psum an apply, and one halo exchange's ppermutes.
+# and restriction psum an apply, and one halo exchange's ppermutes.  The
+# port's operator reads its collective budgets from these same tables
+# (ops/matvec.py: the comm.* gauges and the contract lint's budget).
 PCG_SCALAR_PSUMS = {"classic": 3, "fused": 1, "pipelined": 1}
+# the deferred true-residual check's own norm reduction (ops/matvec.py
+# budgets it a check trip)
+PCG_DEFERRED_CHECK_PSUMS = 1
 PCG_VECTOR_AXPYS = {"classic": 3, "fused": 4, "pipelined": 8}
 MG_RESTRICT_PSUMS = 1
 PRECOND_CYCLE_MATVECS = {"jacobi": 0, "block3": 0}

@@ -49,9 +49,51 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from pcg_mpi_solver_tpu_torch.obs.perf import (
+    PCG_DEFERRED_CHECK_PSUMS, PCG_SCALAR_PSUMS, precond_cycle_cost)
 from pcg_mpi_solver_tpu_torch.ops.mg import mg_apply
 from pcg_mpi_solver_tpu_torch.ops.precond import invert_node_blocks
 from pcg_mpi_solver_tpu_torch.parallel.partition import PartitionedModel
+
+# ---------------------------------------------------------------------------
+# Declared collectives of the PCG loop (the JAX package's
+# ``ops/matvec.py:41-140``): the tables of obs/perf.py
+# (``PCG_SCALAR_PSUMS``: classic's three scalar reductions a trip, the
+# recurrence variants' one; ``precond_cycle_cost``: the mg V-cycle's
+# 2 * degree assembled matvecs and ``MG_RESTRICT_PSUMS`` a apply), read
+# by the ``comm.*`` gauges (:meth:`Ops.comm_estimate`), by the cost
+# model, and by the contract lint's collective-budget rule
+# (:meth:`Ops.trip_collective_budget`, analysis/rules_trip.py), which
+# holds them against the collectives a recorded trip ran.
+#
+# The JAX package budgets one traced loop body, which holds every branch;
+# the port's host-driven loop runs only the branch a trip takes, so its
+# budget is a trip's, by kind (``TRIP_KINDS``): an ``iterate`` trip, a
+# ``check`` trip (the deferred true-residual check, whose recomputed
+# norm costs ``PCG_DEFERRED_CHECK_PSUMS`` more) and the pipelined
+# variant's ``prime`` trip (u = M^-1 r, w = A u).  A blocked solve's
+# trip runs the whole body for every column, so its check rides a full
+# trip (and its budget is the JAX package's body budget), while a
+# single-column check is a trip of its own: one matvec and its norm.
+# ---------------------------------------------------------------------------
+TRIP_KINDS = ("iterate", "check", "prime")
+
+
+def trip_shape(variant: str, kind: str = "iterate",
+               blocked: bool = False) -> Tuple[int, int, int]:
+    """(assembled matvecs, preconditioner applies, scalar all-reduces) of
+    one trip of ``solver/pcg.py``'s loop.  Unknown names raise
+    ``KeyError``."""
+    scalar = PCG_SCALAR_PSUMS[variant]
+    if kind == "iterate":
+        return 1, 1, scalar
+    if kind == "check":
+        return ((1, 1, scalar + PCG_DEFERRED_CHECK_PSUMS) if blocked
+                else (1, 0, PCG_DEFERRED_CHECK_PSUMS))
+    if kind == "prime" and variant == "pipelined":
+        return (1, 1, scalar) if blocked else (1, 1, 0)
+    raise KeyError(f"no {kind!r} trip in the {variant!r} loop")
+
 
 # row stride (elements) of the per-column dot buffer on the card: 256
 # bytes in float32, 512 in float64
@@ -79,6 +121,9 @@ class Ops:
     buckets: Tuple[Tuple[int, int, int, int, int], ...] = ()
     n_vrows: int = 0
     ell_k: int = 0
+    # first-coarse vector length of the mg hierarchy (ops/mg.coarse_dofs),
+    # the restriction all-reduce's payload in :meth:`comm_estimate`
+    mg_coarse_dofs: int = 0
     # the collectives of a multi-process solve (parallel/distributed.Group;
     # None with one process)
     group: Optional[object] = dataclasses.field(default=None, compare=False,
@@ -116,6 +161,79 @@ class Ops:
         if not self.multi:
             return x
         return self.group.psum(x)
+
+    # -- declared collectives (module tables above) ----------------------
+    def halo_per_matvec(self) -> Tuple[int, int]:
+        """(plane exchanges, messages this rank sends) of one assembled
+        matvec: none on the general operator, whose parts meet in the
+        interface all-reduce (StructuredOps overrides it)."""
+        return 0, 0
+
+    def comm_estimate(self, storage_dtype=None, variant: str = "classic",
+                      precond: str = "jacobi") -> dict:
+        """Per-iteration collective estimate for the ``comm.*`` telemetry
+        gauges, the JAX package's ``Ops.comm_estimate`` (its
+        ``ops/matvec.py:597-642``): the variant's scalar reductions, one
+        interface all-reduce per assembled matvec when the partition has
+        shared dofs (the body's and the mg V-cycle's 2 * degree), the
+        restriction's; ``bytes_per_iter_est`` is this rank's payload
+        (interface vector, the replicated first-coarse vector, six
+        reduced scalars), not link traffic.  ``storage_dtype`` (a torch
+        dtype or its name) sizes the vectors, else the dot dtype."""
+        def itemsize(dt):
+            if isinstance(dt, str):
+                dt = getattr(torch, dt)
+            return torch.empty((), dtype=dt).element_size()
+
+        size = itemsize(storage_dtype if storage_dtype is not None
+                        else self.dot_dtype)
+        dot_bytes = itemsize(self.dot_dtype)
+        n_iface = int(self.n_iface)
+        mv_extra, ps_extra = precond_cycle_cost(precond, self.mg_degree)
+        return {
+            "pcg_variant": variant,
+            "precond": precond,
+            "psums_per_iter": (PCG_SCALAR_PSUMS[variant]
+                               + ((1 + mv_extra) if n_iface else 0)
+                               + ps_extra),
+            "iface_dofs": n_iface,
+            "reduce_scalars_per_iter": 6,
+            "bytes_per_iter_est": (n_iface * size * (1 + mv_extra)
+                                   + ps_extra * int(self.mg_coarse_dofs)
+                                   * size + 6 * dot_bytes),
+        }
+
+    def trip_collective_budget(self, variant: str = "classic",
+                               precond: str = "jacobi",
+                               kind: str = "iterate",
+                               blocked: bool = False) -> dict:
+        """The collectives this rank runs on one trip of ``kind``
+        (:func:`trip_shape`), as ``parallel/distributed.Group.counts``
+        tallies them: ``all_reduce`` (the scalar reductions, one
+        interface all-reduce per assembled matvec when the partition has
+        shared dofs, the mg restriction's), ``halo`` (plane exchanges)
+        and ``halo_msgs``.  Every count is 0 with one process, whose sums
+        are the identity.  The same at every block width: a blocked
+        trip's reductions carry every column in one all-reduce."""
+        mv, applies, scalar = trip_shape(variant, kind, blocked)
+        mv_extra, ps_extra = precond_cycle_cost(precond, self.mg_degree)
+        if not self.multi:
+            return {"all_reduce": 0, "halo": 0, "halo_msgs": 0}
+        matvecs = mv + applies * mv_extra
+        exchanges, msgs = self.halo_per_matvec()
+        return {"all_reduce": (scalar + applies * ps_extra
+                               + (matvecs if self.n_iface else 0)),
+                "halo": matvecs * exchanges,
+                "halo_msgs": matvecs * msgs}
+
+    def body_collective_budget(self, variant: str = "classic",
+                               precond: str = "jacobi") -> dict:
+        """The JAX package's loop-body budget (its
+        ``ops/matvec.py:644-668``: every branch of the body), which is the
+        port's blocked check trip: a full trip with the deferred check
+        riding it."""
+        return self.trip_collective_budget(variant, precond, "check",
+                                           blocked=True)
 
     def _as_node3(self, v: torch.Tensor) -> torch.Tensor:
         """([R,] P, n_loc) dof vector -> ([R,] P, n_node_loc, 3) node rows

@@ -268,6 +268,15 @@ class StructuredOps(Ops):
         return x.reshape(*x.shape[:-1], 3, self.nxc + 1, self.ny + 1,
                          self.nz + 1)
 
+    def halo_per_matvec(self):
+        """One plane exchange a matvec across processes, one message to
+        each neighbouring rank (the JAX package's
+        ``STENCIL_HALO_PPERMUTES`` pair, summed over a two-rank slab)."""
+        if not self.multi:
+            return 0, 0
+        r, W = self.group.rank, self.group.world
+        return 1, int(r > 0) + int(r < W - 1)
+
     def _halo(self, yg: torch.Tensor) -> torch.Tensor:
         """Combine partial sums on shared slab-boundary planes: part p's
         last plane adds into part p+1's first and vice versa.  ``yg`` is

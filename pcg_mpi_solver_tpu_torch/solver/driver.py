@@ -619,6 +619,17 @@ class Solver(LadderPieces):
                 cold=self.setup_cache != "warm",
                 partition_build_s=round(self.partition_build_s, 6),
                 setup_s=round(self.setup_s, 6))
+        # the per-iteration collective estimate from the ops shapes (the
+        # JAX package's comm.* gauges): the Krylov iterations' ops, the
+        # float32 ones in mixed, and the mg restriction's payload
+        est_ops = self.ops32 if self.mixed else self.ops
+        if self.mg_setup is not None:
+            est_ops = dataclasses.replace(
+                est_ops, mg_coarse_dofs=mgmod.coarse_dofs(self.mg_setup.meta))
+        for k, v in est_ops.comm_estimate(
+                storage_dtype=torch.float32 if self.mixed else self.dtype,
+                variant=sc.pcg_variant, precond=sc.precond).items():
+            self._rec.gauge(f"comm.{k}", v)
         self._init_cost_model()
 
     def _init_cost_model(self) -> None:
@@ -703,6 +714,9 @@ class Solver(LadderPieces):
         staging, the export maps) keep their all-parts contract while the
         heavy per-part structures stay local.  Two collectives: one int64
         buffer (ranges and id maps), one float64 (the weights)."""
+        # consensus-exempt: unconditional data movement: every rank gets
+        # here once _setup_shard_engage's agree_flag engaged the sharded
+        # setup, and nothing branches on what it gathers
         lo, hi = self._setup_range
         comm = self._setup_comm
         names = ("dof_gid", "node_gid", "weight", "node_weight")
@@ -919,6 +933,11 @@ class Solver(LadderPieces):
         if self._dispatch_cap > 0:
             flag, relres, iters = self._step_chunked(delta)
         else:
+            # recovery-exempt: the one-shot path (below the dispatch cap)
+            # has no chunk boundary and no snapshot to re-dispatch from;
+            # its flag reports a breakdown, as the JAX package's one-shot
+            # step does, and the chunked path (iters_per_dispatch > 0, or
+            # 4 M dofs and more) carries the recovery ladder
             with self._rec.dispatch("step"):
                 flag, relres, iters = self._step_oneshot(delta)
         if self.device.type == "cuda":
@@ -1167,6 +1186,9 @@ class Solver(LadderPieces):
         def run(o) -> float:
             x = eff.clone()
             if o.multi:
+                # consensus-exempt: the barrier carries no verdict; every
+                # rank runs the probe (mesh.world and comm_probe_iters are
+                # the same on every rank)
                 self._group.barrier()
             t0 = time.perf_counter()
             for _ in range(n_iters):
@@ -1255,7 +1277,11 @@ class Solver(LadderPieces):
             store.prepare()
             if self.mesh.world > 1:
                 # prepare() rotates an old run dir on the primary: no
-                # rank's shard write may race it
+                # rank's shard write may race it.
+                # consensus-exempt: no verdict: every rank reaches it, as
+                # do_export is the configuration's and t_start the step of
+                # the checkpoint directory every rank reads before any
+                # rank writes to it
                 self._group.barrier()
             store.write_map("Dof", self.export_dof_map())
             if self._nodal_vars():

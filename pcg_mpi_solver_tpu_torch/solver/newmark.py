@@ -455,6 +455,11 @@ class NewmarkSolver(LadderPieces):
         if self._dispatch_cap > 0:
             flag, relres, iters = self._step_chunked(delta)
         else:
+            # recovery-exempt: the one-shot path has no chunk boundary
+            # and no snapshot to re-dispatch from; its flag reports a
+            # breakdown (run()'s timestep guard, when snapshots or faults
+            # arm it, rolls a NaN step back), and the chunked path
+            # carries the recovery ladder
             with self._rec.dispatch("step"):
                 flag, relres, iters = self._step_oneshot(delta)
         if self.device.type == "cuda":

@@ -130,6 +130,26 @@ def phase_scopes():
     return _no_range
 
 
+# The trip probe of the contract lint (analysis/trip.py): when set,
+# called with the kind of each trip before the trip runs ("iterate",
+# "check" or "prime"; ``ops/matvec.TRIP_KINDS``) and with "end" when a
+# loop exits, so a recording can cut its log into trips.  None costs one
+# test a trip.
+TRIP_PROBE = None
+
+
+def trip_host_reads(variant: str, kind: str, blocked: bool) -> int:
+    """Host reads (device->host syncs) one trip of ``kind`` declares: one,
+    except a single-column pipelined priming trip, which reads nothing,
+    and a blocked pipelined check trip, which reads its true residual
+    after the early read of its reduction."""
+    if kind == "prime" and not blocked:
+        return 0
+    if kind == "check" and blocked and variant == "pipelined":
+        return 2
+    return 1
+
+
 def _np_type(dtype: torch.dtype):
     """The numpy scalar type of a torch float dtype (host arithmetic in the
     device program's precision)."""
@@ -689,10 +709,15 @@ def pcg(
                    "fused": (fused_trip, lagged_check),
                    "pipelined": (pipelined_trip, lagged_check)}[variant]
     while c.flag == 1 and c.i < max_iter:
+        if TRIP_PROBE is not None:
+            TRIP_PROBE("check" if c.mode == 1 else
+                       "prime" if pipelined and c.init else "iterate")
         if c.mode == 1:
             check()
         else:
             trip()
+    if TRIP_PROBE is not None:
+        TRIP_PROBE("end")
 
     # ---- finalize: on a non-converged exit return the minimal-residual
     # iterate when it has the smaller true residual (MATLAB pcg); a lagged
@@ -1021,6 +1046,7 @@ def pcg_many(
     w = data["weight"] * eff
     eps = f(np.finfo(fs).eps)
     max_iter = np.broadcast_to(np.asarray(max_iter, np.int64), (R,))
+    scope = phase_scopes()
 
     nominal = max_iter_nominal if max_iter_nominal is not None else max_iter
     maxmsteps = np.minimum(min(glob_n_dof_eff // 50, 5),
@@ -1028,14 +1054,16 @@ def pcg_many(
 
     def norms(*ts):
         """sqrt of squared norms read back, in the dot dtype."""
-        return np.sqrt(_read_rows(R, *ts).astype(f))
+        with scope("pcg/reduce"):
+            return np.sqrt(_read_rows(R, *ts).astype(f))
 
     n2b = norms(ops.wdot_many(w, fext, fext))[0]
     tolb = np.asarray(tol, f) * n2b
 
     def amul(v):
         """Assembled K.v restricted to effective dofs."""
-        return eff * ops.matvec(data, v)
+        with scope("pcg/matvec"):
+            return eff * ops.matvec(data, v)
 
     warm = carry_in is not None
     frozen0 = np.zeros(R, bool)
@@ -1068,11 +1096,12 @@ def pcg_many(
     def precond(src):
         """M^-1 src: the primary operand, and the fallback on the columns
         the ladder moved to it."""
-        if fb_masks is None:
-            return ops.apply_prec(inv_diag, src, data)
-        return fb_masks.sel(
-            "fb", lambda: ops.apply_prec(inv_diag_fb, src, data),
-            lambda: ops.apply_prec(inv_diag, src, data))
+        with scope("pcg/precond"):
+            if fb_masks is None:
+                return ops.apply_prec(inv_diag, src, data)
+            return fb_masks.sel(
+                "fb", lambda: ops.apply_prec(inv_diag_fb, src, data),
+                lambda: ops.apply_prec(inv_diag, src, data))
 
     def active():
         return (c["flag"] == 1) & (c["i"] < max_iter)
@@ -1181,11 +1210,12 @@ def pcg_many(
         """Device commits of one trip: ``fields`` maps a carry leaf to a
         list of (mask key, new value or callable) applied in order, the
         first matching mask winning; the masks are in ``nxt``."""
-        for k, sources in fields.items():
-            v = c[k]
-            for key, new in reversed(sources):
-                v = nxt.sel(key, new, v)
-            c[k] = v
+        with scope("pcg/axpy"):
+            for k, sources in fields.items():
+                v = c[k]
+                for key, new in reversed(sources):
+                    v = nxt.sel(key, new, v)
+                c[k] = v
 
     def classic_trip():
         act = active()
@@ -1193,24 +1223,31 @@ def pcg_many(
         it_m = act & ~is_check
         x, r, p = c["x"], c["r"], c["p"]
         z = precond(r)
-        inf_col = torch.isinf(z).any(dim=(-2, -1))
-        red = ops.wdots_many(w, [(z, r)], extra=[inf_col])
-        rho_new = red[0]
-        beta = (rho_new / c["rho"]).to(dt)
-        p_new = masks.sel("i0", z, lambda: z + beta[:, None, None] * p)
+        with scope("pcg/reduce"):
+            inf_col = torch.isinf(z).any(dim=(-2, -1))
+            red = ops.wdots_many(w, [(z, r)], extra=[inf_col])
+            rho_new = red[0]
+            beta = (rho_new / c["rho"]).to(dt)
+        with scope("pcg/axpy"):
+            p_new = masks.sel("i0", z, lambda: z + beta[:, None, None] * p)
         # the ONE blocked stencil application: check columns ride their
         # committed iterate through it (q_j = A.x_j there)
         q = amul(masks.sel("chk", x, p_new))
-        pq = ops.wdot_many(w, p_new, q)
-        alpha = (rho_new / pq).to(dt)
-        r_upd = r - alpha[:, None, None] * q
-        sq = ops.wdots_many(w, [(p_new, p_new), (x, x), (r_upd, r_upd)])
-        x_upd = x + alpha[:, None, None] * p_new
-        ts = [red, beta, pq, alpha, sq]
-        if is_check.any():
-            r_true, nchk = check_norm(q)
-            ts.append(nchk)
-        v = _read_rows(R, *ts)
+        with scope("pcg/reduce"):
+            pq = ops.wdot_many(w, p_new, q)
+            alpha = (rho_new / pq).to(dt)
+        with scope("pcg/axpy"):
+            r_upd = r - alpha[:, None, None] * q
+        with scope("pcg/reduce"):
+            sq = ops.wdots_many(w, [(p_new, p_new), (x, x), (r_upd, r_upd)])
+        with scope("pcg/axpy"):
+            x_upd = x + alpha[:, None, None] * p_new
+        with scope("pcg/reduce"):
+            ts = [red, beta, pq, alpha, sq]
+            if is_check.any():
+                r_true, nchk = check_norm(q)
+                ts.append(nchk)
+            v = _read_rows(R, *ts)
         with np.errstate(all="ignore"):
             rho_h, flag2 = v[0].astype(f), v[1] > 0
             beta_h, pq_h, alpha_h = v[2].astype(fs), v[3].astype(f), \
@@ -1259,27 +1296,30 @@ def pcg_many(
         x, r, p = c["x"], c["r"], c["p"]
         z = precond(r)
         kop = amul(masks.sel("chk", x, z))  # A.z; A.x on check columns
-        inf_col = torch.isinf(z).any(dim=(-2, -1))
-        red = ops.wdots_many(w, [(r, z), (z, kop), (r, r), (p, p), (x, x)],
-                             extra=[inf_col])
-        rho, mu = red[0], red[1]
-        # Chronopoulos–Gear scalars on the device, in the dot dtype
-        beta = rho / c["rho"]
-        pq = mu - beta * rho / c["alpha"]
-        alpha = rho / pq
+        with scope("pcg/reduce"):
+            inf_col = torch.isinf(z).any(dim=(-2, -1))
+            red = ops.wdots_many(w, [(r, z), (z, kop), (r, r), (p, p),
+                                     (x, x)], extra=[inf_col])
+            rho, mu = red[0], red[1]
+            # Chronopoulos–Gear scalars on the device, in the dot dtype
+            beta = rho / c["rho"]
+            pq = mu - beta * rho / c["alpha"]
+            alpha = rho / pq
         # the update, queued speculatively (dropped on all but the
         # resolved columns)
-        beta_dt = beta.to(dt)[:, None, None]
-        alpha_dt = alpha.to(dt)[:, None, None]
-        p2 = z + beta_dt * p
-        q2 = kop + beta_dt * c["q"]
-        x2 = x + alpha_dt * p2
-        r2 = r - alpha_dt * q2
-        ts = [red, beta, pq, alpha]
-        if is_check.any():
-            r_true, nchk = check_norm(kop)
-            ts.append(nchk)
-        v = _read_rows(R, *ts)
+        with scope("pcg/axpy"):
+            beta_dt = beta.to(dt)[:, None, None]
+            alpha_dt = alpha.to(dt)[:, None, None]
+            p2 = z + beta_dt * p
+            q2 = kop + beta_dt * c["q"]
+            x2 = x + alpha_dt * p2
+            r2 = r - alpha_dt * q2
+        with scope("pcg/reduce"):
+            ts = [red, beta, pq, alpha]
+            if is_check.any():
+                r_true, nchk = check_norm(kop)
+                ts.append(nchk)
+            v = _read_rows(R, *ts)
         i = c["i"]
         with np.errstate(all="ignore"):
             normr, normp, normx = np.sqrt(v[2:5].astype(f))
@@ -1333,10 +1373,11 @@ def pcg_many(
         x, r, p, u, wv = c["x"], c["r"], c["p"], c["u"], c["w"]
         # the ONE reduction, on carry leaves only, queued first and read
         # back while the trip's preconditioner and stencil run
-        inf_col = torch.isinf(u).any(dim=(-2, -1))
-        red = ops.wdots_many(w, [(r, u), (wv, u), (r, r), (p, p), (x, x)],
-                             extra=[inf_col])
-        early.start(red.reshape(-1))
+        with scope("pcg/reduce"):
+            inf_col = torch.isinf(u).any(dim=(-2, -1))
+            red = ops.wdots_many(w, [(r, u), (wv, u), (r, r), (p, p),
+                                     (x, x)], extra=[inf_col])
+            early.start(red.reshape(-1))
         # priming columns precondition their residual, the others w
         m = precond(masks.sel("init", r, wv))
         kop = amul(masks.sel("chk", x, m))
@@ -1344,20 +1385,22 @@ def pcg_many(
             # GV scalars on the device (the host takes the same IEEE
             # operations on the read values below) and the update, queued
             # speculatively
-            gamma, delta = red[0], red[1]
-            beta = gamma / c["rho"]
-            alpha = gamma / (delta - beta * gamma / c["alpha"])
-            b = beta.to(dt)[:, None, None]
-            a = alpha.to(dt)[:, None, None]
-            p2 = u + b * p              # p = 0 cold => p = u
-            s2 = wv + b * c["s"]        # A.p by recurrence
-            q2 = m + b * c["q"]         # M^-1.s by recurrence
-            z2 = kop + b * c["z"]       # A.q by recurrence
-            x2, r2 = x + a * p2, r - a * s2
-            u2, w2 = u - a * q2, wv - a * z2
-        if is_check.any():
-            r_true, nchk = check_norm(kop)
-        v = early.wait().reshape(-1, R)
+            with scope("pcg/axpy"):
+                gamma, delta = red[0], red[1]
+                beta = gamma / c["rho"]
+                alpha = gamma / (delta - beta * gamma / c["alpha"])
+                b = beta.to(dt)[:, None, None]
+                a = alpha.to(dt)[:, None, None]
+                p2 = u + b * p              # p = 0 cold => p = u
+                s2 = wv + b * c["s"]        # A.p by recurrence
+                q2 = m + b * c["q"]         # M^-1.s by recurrence
+                z2 = kop + b * c["z"]       # A.q by recurrence
+                x2, r2 = x + a * p2, r - a * s2
+                u2, w2 = u - a * q2, wv - a * z2
+        with scope("pcg/reduce"):
+            if is_check.any():
+                r_true, nchk = check_norm(kop)
+            v = early.wait().reshape(-1, R)
         i = c["i"]
         with np.errstate(all="ignore"):
             gamma_h, delta_h = v[0].astype(f), v[1].astype(f)
@@ -1395,7 +1438,8 @@ def pcg_many(
                 # the deferred check with true-residual replacement: the
                 # column re-primes u and w next trip; a check forced by
                 # the cadence alone is no candidate
-                normr_chk = np.sqrt(_read_rows(R, nchk)[0].astype(f))
+                with scope("pcg/reduce"):
+                    normr_chk = np.sqrt(_read_rows(R, nchk)[0].astype(f))
                 natural_chk = c["chk_forced"] == 0
                 chk = resolve(normr_chk, natural_chk, c["stag"], i,
                               tick=natural_chk)
@@ -1425,8 +1469,15 @@ def pcg_many(
             "pipelined": pipelined_trip}[variant]
     trips = 0
     while active().any():
+        if TRIP_PROBE is not None:
+            act = active()
+            TRIP_PROBE("check" if ((c["mode"] == 1) & act).any() else
+                       "prime" if pipelined and ((c["init"] > 0) & act).any()
+                       else "iterate")
         masks = trip()
         trips += 1
+    if TRIP_PROBE is not None:
+        TRIP_PROBE("end")
 
     # ---- finalize, per column: a failed column returns its min-residual
     # iterate where its true residual is the smaller one or its own went

@@ -166,11 +166,23 @@ def test_cli_runs_as_a_module(tmp_path):
     assert "flag=0" in out.stdout and ">success!" in out.stdout
 
 
-@pytest.mark.parametrize("cmd", sorted(set(REFUSED) | {"fleet-report"}))
+@pytest.mark.parametrize("cmd", sorted(set(REFUSED) | {"fleet-report",
+                                                      "lint"}))
 def test_unported_subcommands_name_their_item(cmd, tmp_path, capsys):
     """The subcommands still refused name their ROADMAP queue 1 item;
     ``fleet-report`` (item 12, once refused) reads a capture root, and an
-    empty one is a named degraded verdict with exit status 2."""
+    empty one is a named degraded verdict with exit status 2; ``lint``
+    (item 14, once refused) lists the JAX package's rule ids and runs
+    clean on the CPU, its trip rules recorded by two gloo ranks."""
+    if cmd == "lint":
+        main([cmd, "--list-rules"])
+        ids = {ln.split()[0] for ln in capsys.readouterr().out.splitlines()}
+        assert len(ids) == 15 and "collective-budget" in ids
+        main([cmd, "--fast", "--device", "cpu"])       # exit 0: returns
+        out = capsys.readouterr().out
+        assert "12 rule(s), 0 error(s)" in out, out
+        assert "0 engine error(s)" in out, out
+        return
     if cmd == "fleet-report":
         with pytest.raises(SystemExit) as err:
             main([cmd, str(tmp_path)])
@@ -197,7 +209,7 @@ def test_unported_flags_name_their_item(tmp_path, capsys, argv, item):
     capsys.readouterr()
     main([a.format(scratch=scratch) for a in argv] + CPU)
     assert ">success!" in capsys.readouterr().out
-    assert len(REFUSED) == 3 and set(REFUSED.values()) == {1, 14}
+    assert len(REFUSED) == 2 and set(REFUSED.values()) == {1}
 
 
 # ----------------------------------------------------------------------

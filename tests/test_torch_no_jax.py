@@ -60,6 +60,26 @@ SHARD_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
     "parallel.mesh", "parallel.distributed", "parallel.consensus",
     "cache.shards", "resilience.distributed", "obs.fleet", "setup_ladder"))
 
+# the contract lint
+ANALYSIS_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.analysis.{m}" for m in (
+    "engine", "trip", "programs", "rules_trip", "rules_ast", "rules_config",
+    "rules_artifacts", "collectives", "__main__"))
+
+# importing the lint loads neither torch nor JAX: it is built before a
+# rule decides to record
+ANALYSIS_PROBE = r"""
+import sys
+import pcg_mpi_solver_tpu_torch.analysis
+from pcg_mpi_solver_tpu_torch.analysis import (engine, rules_ast,
+    rules_artifacts, rules_config, rules_trip, trip, programs, collectives)
+from pcg_mpi_solver_tpu_torch.analysis.__main__ import build_parser
+build_parser()
+engine.list_rules()
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("torch", "jax", "jaxlib",
+                                             "pcg_mpi_solver_tpu"))))
+"""
+
 # what a spawned VTK export worker imports (vtk/export.py's pool): numpy
 # only, so a worker never loads torch or initialises CUDA
 WORKER_PROBE = r"""
@@ -92,7 +112,16 @@ def test_port_imports_no_jax():
     assert set(NATIVE_CACHE_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(SERVE_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(SHARD_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(ANALYSIS_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
+
+
+def test_analysis_imports_no_torch():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", ANALYSIS_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert out.stdout.strip() == "", out.stdout
 
 
 def test_export_worker_imports_no_torch():
