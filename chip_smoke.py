@@ -166,26 +166,27 @@ Phases (any failed check raises, so the script exits non-zero):
                 chunks and their host reads (torch's sync debug mode
                 counts every synchronising call: one a chunk, one a frame
                 and the final fetch);
-  4k. graph cache — run right after phase 4j, on 4e's octree model and
-                Solvers: the octree at ``GRAPH_PARTS`` (8) parts under
-                partition_method="graph" (the native partitioner, built
-                with g++ at first use), general backend, mixed, cold into
-                the scratch cache: the seconds of ``part_mesh_dual`` and
-                of the partition beside the one-part RCB's, part sizes
-                (none empty, within 10 % of the ideal), the dual graph's
-                edge cut and the interface dofs beside RCB's at 8 parts,
-                the element map's sha256, flag, iterations (within max(3,
-                5 %) of 4e's one-part solve), ms/iter; the same Solver
-                warm (``setup_cache`` cold then warm, the partition equal
-                array for array, load seconds, the solve bitwise the
-                cold one's); the 6^3 octree on the hybrid backend at 8
-                parts under "graph" (iterations within max(3, 5 %) of the
-                one-part hybrid's 1149, v6 launched at least levels x
-                iterations times); 4e's 6^3 mg Solver built again, warm
-                from 4e's entry (hierarchy and bounds equal array for
-                array, the solve bitwise the cold one's; the 22^3 mg
-                Solver warm was cut to make room for phase 4n); then
-                the scratch cache is removed;
+  4k. graph cache — run right after phase 4j, on 4e's 6^3 octree model
+                and Solvers: the 6^3 octree at ``GRAPH_PARTS`` (8) parts
+                under partition_method="graph" (the native partitioner,
+                built with g++ at first use), general backend, mixed, cold
+                into the scratch cache: the seconds of ``part_mesh_dual``
+                and of the partition beside 4e's one-part RCB's, part
+                sizes (none empty, within 10 % of the ideal), the dual
+                graph's edge cut and the interface dofs beside RCB's at
+                8 parts, the element map's sha256, flag, iterations
+                (within max(3, 5 %) of 4e's one-part solve), ms/iter; the
+                same Solver warm (``setup_cache`` cold then warm, the
+                partition equal array for array, load seconds, the solve
+                bitwise the cold one's); the 6^3 octree on the hybrid
+                backend at 8 parts under "graph" (iterations within
+                max(3, 5 %) of the one-part hybrid's 1149, v6 launched at
+                least levels x iterations times); 4e's 6^3 mg Solver built
+                again, warm from 4e's entry (hierarchy and bounds equal
+                array for array, the solve bitwise the cold one's); then
+                the scratch cache is removed.  (The 22^3 octree's graph
+                Solvers went to make room for phase 4p, the 22^3 mg
+                Solver warm for phase 4n);
   4g. many chunked — run right after phase 3, before 4e (it needs no
                 octree, so it runs while the octree flagship's child
                 builds): the chunked blocked path
@@ -291,7 +292,24 @@ Phases (any failed check raises, so the script exits non-zero):
                 lines, v6 launched once a matvec on the structured
                 programs; then one seeded violation on the card: an extra
                 ``_read`` a trip injected through the recorder's probe
-                hook, which the hot-loop-purity rule must report.
+                hook, which the hot-loop-purity rule must report;
+  4p. bench   — last, in child processes as a user runs them: ``python -m
+                pcg_mpi_solver_tpu_torch.bench`` with its defaults (the
+                150^3 flagship, mixed, classic, jacobi, v6, chunked at the
+                auto cap; ``BENCH_MODEL_CACHE=0``: no multi-GB model
+                pickle is written): exactly one stdout line that the port's
+                ``validate_bench_line`` passes, flag 0, relres <= 1e-7,
+                iterations within 5 % of 3334, n_dof the flagship's (a
+                ladder step-down fails the phase), platform "gpu", the
+                card's nvidia-smi line as device, a live numpy baseline,
+                and its ``# launches`` line with v6 float32 >= iterations
+                and every other float32 kernel at 0; then ``BENCH_SERVE=1``
+                (one valid line, value > 0, nothing shed); then ``cli trend
+                --fresh`` of the flagship line over the repository's
+                ``BENCH_r*.json`` (read, never written), which must pair
+                the line with no round of another platform (JAX's key,
+                without the platform, would pair it with BENCH_r05's TPU
+                line: printed).
 The line before the last is the per-kernel JSON record (one per variant
 and dtype, launch counts from the solve under that variant; v6's also by
 preconditioner solve of phase 4b, by variant solve of phase 4c, by
@@ -302,8 +320,9 @@ from its level batches, ``launches_newmark`` and ``launches_dynamics``
 from phase 4j's Newmark runs and explicit runs, ``launches_graph`` from
 phase 4k's 8-part hybrid solve, ``launches_serve`` from phase 4m's
 flagship blocks; v6's ``launches_multiprocess`` by rank from phase 4n's
-two-rank flagship solve, and v6 float32's ``launches_lint``, phase 4o's
-structured float32 trips by kind on rank 0), the last line
+two-rank flagship solve, v6 float32's ``launches_lint``, phase 4o's
+structured float32 trips by kind on rank 0, and every record's
+``launches_bench``, phase 4p's timed bench solve), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 1
 and prints no result.
 """
@@ -527,15 +546,14 @@ TIME_NEWMARK_DELTAS = (0.5, 1.0, 1.0)
 TIME_NEWMARK_CAP = 100
 TIME_EXPLICIT_STEPS = 500
 TIME_EXPLICIT_EXPORT = 250
-# phase 4k: the native graph partition and the partition cache.  The
-# octree flagship at 8 parts (BASELINE config 3's 8-way METIS split) under
-# partition_method="graph", beside the one-part RCB partition's 21.42 s
-# (PERF.md §5); the 6^3 octree on the hybrid backend at 8 parts, beside
-# the one-part hybrid's 1149 iterations (PERF.md §5); phase 4e's octree
+# phase 4k: the native graph partition and the partition cache.  The 6^3
+# octree at 8 parts (BASELINE config 3's 8-way METIS split) under
+# partition_method="graph", on the general backend beside 4e's one-part
+# RCB Solver of the same model, and on the hybrid backend beside the
+# one-part hybrid's 1149 iterations (PERF.md §5); phase 4e's octree
 # Solvers and 4k's share one scratch cache directory under build/,
 # removed after 4k
 GRAPH_PARTS = 8
-ONE_PART_RCB_PARTITION_S = 21.42
 HYBRID6_ONE_PART_ITERS = 1149
 CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "chip_smoke_cache")
@@ -2390,9 +2408,11 @@ def phase_general(torch, np, cube_model, octrees):
     # 4. the 6^3 octree against the JAX package's count
     n6 = OCTREE_PARITY_N
     s6 = Solver(octrees.get(n6)[0], cfg)
-    res6, _ms6, _cyc6 = _general_solve(
+    res6, ms6, _cyc6 = _general_solve(
         torch, np, s6, f"octree {n6}^3",
         OCTREE_FLAGSHIP["load_value"] * n6 / OCTREE_FLAGSHIP["E"])
+    # phase 4k's one-part reference for its 8-part graph partition
+    octree6 = dict(res=res6, ms=ms6, partition_s=s6.partition_build_s)
     win = max(3, ITERS_TOL * JAX_OCTREE6_ITERS)
     say(f"octree {n6}^3: {res6.iters} iterations against the JAX "
         f"package's {JAX_OCTREE6_ITERS} (window +-{win:g})")
@@ -2405,7 +2425,8 @@ def phase_general(torch, np, cube_model, octrees):
     # 5. mg on the 6^3 octree's lattice
     octree_mg, octree6_mg = phase_general_mg(torch, np, octrees)
     return dict(cube_ms=cube_ms, octree=solver, n=n, octree_mg=octree_mg,
-                octree6_mg=octree6_mg, model=model, res=res_j, ms=ms_j)
+                octree6=octree6, octree6_mg=octree6_mg, model=model,
+                res=res_j, ms=ms_j)
 
 
 def phase_general_mg(torch, np, octrees):
@@ -3048,15 +3069,17 @@ def _same_arrays(np, a, b, where):
 
 def phase_graph_cache(torch, np, general, octrees):
     """Phase 4k, the native graph partitioner and the partition cache, on
-    4e's 22^3/L4 octree model object:
+    the 6^3/L4 octree model object (the 22^3 octree's 8-part graph
+    Solvers, ~67 s cold and ~7 s warm on the card's host with two ~6 s
+    solves, went to make room for phase 4p; PERF.md keeps their numbers):
     1. a general mixed Solver (jacobi, classic, tol 1e-7) at
        ``GRAPH_PARTS`` parts under partition_method="graph", cold into
        ``CACHE_DIR``: the seconds of ``part_mesh_dual`` and of the whole
-       partition (beside the one-part RCB's, recorded and 4e's), the part sizes
-       (none empty, within the JAX package's 10 % balance), the dual
-       graph's edge cut and the interface dofs beside RCB's at the same
-       parts, the sha256 of the element map; its solve within max(3, 5 %)
-       of 4e's one-part iterations;
+       partition (beside 4e's one-part RCB partition of the same model),
+       the part sizes (none empty, within the JAX package's 10 % balance),
+       the dual graph's edge cut and the interface dofs beside RCB's at
+       the same parts, the sha256 of the element map; its solve within
+       max(3, 5 %) of 4e's one-part iterations;
     2. the same Solver again, warm: ``setup_cache`` cold then warm, the
        partition equal array for array, the load seconds, the solve's
        flag, iterations and u bitwise the cold one's;
@@ -3075,8 +3098,9 @@ def phase_graph_cache(torch, np, general, octrees):
     from pcg_mpi_solver_tpu_torch.parallel.partition import rcb_partition
     from pcg_mpi_solver_tpu_torch.solver import Solver
 
-    model, n, P = general["model"], general["n"], GRAPH_PARTS
-    one = general["octree"]
+    n, P = OCTREE_PARITY_N, GRAPH_PARTS
+    model = octrees.get(n)[0]
+    one = general["octree6"]
     smi = nvidia_smi_line()
     cfg = RunConfig(partition_method="graph", cache_dir=CACHE_DIR,
                     solver=SolverConfig(tol=1e-7, precision_mode="mixed"))
@@ -3108,8 +3132,7 @@ def phase_graph_cache(torch, np, general, octrees):
     digest = hashlib.sha256(np.ascontiguousarray(ep).tobytes()).hexdigest()
     say(f"graph octree {n}^3 at {P} parts: part_mesh_dual {pmd_s[0]:.2f} s, "
         f"partition_model {cold.partition_build_s:.2f} s (one-part RCB "
-        f"{ONE_PART_RCB_PARTITION_S} s recorded, {one.partition_build_s:.2f} "
-        f"s in 4e), "
+        f"{one['partition_s']:.2f} s in 4e), "
         f"upload {cold.upload_s:.2f} s, cold Solver (build + store) "
         f"{cold_s:.2f} s; part sizes {counts.tolist()} (ideal "
         f"{model.n_elem / P:.1f}); element map sha256 {digest}")
@@ -3132,11 +3155,11 @@ def phase_graph_cache(torch, np, general, octrees):
     res_c, ms_c, cyc_c = _general_solve(torch, np, cold,
                                         f"graph octree {n}^3 at {P} parts",
                                         bar)
-    res1 = general["res"]
+    res1 = one["res"]
     win = max(3, ITERS_TOL * res1.iters)
     say(f"graph octree {n}^3 at {P} parts: {res_c.iters} iterations against "
         f"the one-part solve's {res1.iters} (window +-{win:g}); {ms_c:.4f} "
-        f"against {general['ms']:.4f} ms/iter; {smi}")
+        f"against {one['ms']:.4f} ms/iter; {smi}")
     if abs(res_c.iters - res1.iters) > win:
         raise AssertionError(f"graph octree: {res_c.iters} iterations, "
                              f"outside max(3, 5 %) of {res1.iters}")
@@ -3173,9 +3196,9 @@ def phase_graph_cache(torch, np, general, octrees):
     torch.cuda.empty_cache()
 
     # 3. the 6^3 octree on the hybrid backend at 8 parts
-    n6 = OCTREE_PARITY_N
+    n6 = n
     t0 = time.perf_counter()
-    s6 = Solver(octrees.get(n6)[0],
+    s6 = Solver(model,
                 dataclasses.replace(cfg, cache_dir=""), n_parts=P,
                 backend="hybrid")
     ep6 = np.ascontiguousarray(s6.pm.elem_part)
@@ -4704,6 +4727,148 @@ def phase_lint(torch, np):
     return launches
 
 
+# phase 4p: the port's bench in child processes; their working directory
+# (the flight file, the serve artifact, the fresh line) under build/
+BENCH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_bench")
+BENCH_TIMEOUT_S = 300
+BENCH_RELRES = 1e-7
+
+
+def _bench_child(tag, env_extra):
+    """Run ``python -m pcg_mpi_solver_tpu_torch.bench`` (the defaults plus
+    ``env_extra``) in ``BENCH_DIR``; require exit 0 and exactly one
+    stdout line that the port's schema passes.  Returns (line, stderr,
+    seconds); both streams also go to ``BENCH_DIR/<tag>.out|.err``."""
+    from pcg_mpi_solver_tpu_torch.obs.schema import validate_bench_line
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "PCG_TPU_"))}
+    env.update(env_extra, BENCH_MODEL_CACHE="0",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m",
+                        "pcg_mpi_solver_tpu_torch.bench"], cwd=BENCH_DIR,
+                       env=env, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for ext, text in (("out", p.stdout), ("err", p.stderr)):
+        with open(os.path.join(BENCH_DIR, f"{tag}.{ext}"), "w") as f:
+            f.write(text)
+    if p.returncode != 0:
+        raise AssertionError(f"bench {tag}: exit {p.returncode}; stdout "
+                             f"{p.stdout[-600:]!r}; stderr "
+                             f"{p.stderr[-1500:]!r}")
+    lines = [ln for ln in p.stdout.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"bench {tag}: {len(lines)} stdout lines, "
+                             f"not one: {p.stdout[-600:]!r}")
+    line = json.loads(lines[0])
+    errs = validate_bench_line(line)
+    if errs:
+        raise AssertionError(f"bench {tag}: schema errors {errs}")
+    return line, p.stderr, secs
+
+
+def phase_bench(flagship_dofs: int, smi: str):
+    """Phase 4p (module docstring).  Returns the bench's timed solve's
+    launch counts {(variant, dtype): n}."""
+    from pcg_mpi_solver_tpu_torch.obs import trend
+
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    os.makedirs(BENCH_DIR)
+    # the flagship line
+    line, err, secs = _bench_child("flagship", {})
+    d = line["detail"]
+    tag = "# launches: "
+    found = [ln.split(tag, 1)[1] for ln in err.splitlines() if tag in ln]
+    if len(found) != 1:
+        raise AssertionError(f"bench: {len(found)} '{tag}' lines")
+    counts = json.loads(found[0])
+    say(f"bench: value {line['value']:.6e} {line['unit']}, vs_baseline "
+        f"{line['vs_baseline']} (numpy baseline "
+        f"{d['numpy_ref_ns_per_dof_iter']} ns/dof*iter, "
+        f"{d['ref_measured_on']}, {d['baseline_source']}); "
+        f"{d['ms_per_iter']} ms/iter, {d['iters']} iterations, flag "
+        f"{d['flag']}, relres {d['relres']:.4e}, solve {d['solve_wall_s']} "
+        f"s; setup {d['setup_s']} s (partition {d['partition_s']} s, first "
+        f"iteration at {d['time_to_first_iter_s']} s); model "
+        f"{d['phases'].get('model_gen')} s; child {secs:.1f} s; device "
+        f"{d['device']}")
+    say(f"bench: launches {counts}; predicted {d['predicted_ms_per_iter']} "
+        f"ms/iter (measured/predicted {d['model_ratio']}); phases "
+        f"{d['phases']}")
+    problems = []
+    if d["flag"] != 0 or d["relres"] > BENCH_RELRES:
+        problems.append(f"flag {d['flag']}, relres {d['relres']}")
+    if abs(d["iters"] - JAX_FLAGSHIP_ITERS) > ITERS_TOL * JAX_FLAGSHIP_ITERS:
+        problems.append(f"{d['iters']} iterations, not within "
+                        f"{ITERS_TOL:.0%} of {JAX_FLAGSHIP_ITERS}")
+    if d["n_dof"] != flagship_dofs:
+        problems.append(f"n_dof {d['n_dof']}, not the flagship's "
+                        f"{flagship_dofs} (a ladder rung stepped down)")
+    if (d["platform"], d["baseline_source"]) != ("gpu", "measured-live"):
+        problems.append(f"platform {d['platform']!r}, baseline "
+                        f"{d['baseline_source']!r}")
+    if d["device"] != smi or not line["value"] > 0:
+        problems.append(f"device {d['device']!r}, value {line['value']}")
+    if counts.get("v6 float32", 0) < d["iters"] or any(
+            n for k, n in counts.items()
+            if k.endswith("float32") and k != "v6 float32"):
+        problems.append(f"launches {counts}")
+    if problems:
+        raise AssertionError("bench: " + "; ".join(problems))
+
+    # the serve leg
+    out = os.path.join(BENCH_DIR, "serve.json")
+    serve, _err, secs = _bench_child("serve", {"BENCH_SERVE": "1",
+                                               "BENCH_SERVE_OUT": out})
+    sd = serve["detail"]
+    say(f"bench serve: value {serve['value']} {serve['unit']}, vs_baseline "
+        f"(packed over one at a time) {serve['vs_baseline']}; serial "
+        f"{sd['jobs_per_s_serial']} jobs/s; {sd['n_jobs']} jobs of "
+        f"{sd['n_dof']} dofs in {sd['blocks']} blocks (serial "
+        f"{sd['blocks_serial']}), widest {sd['nrhs']}, queue depth "
+        f"{sd['queue_depth_max']}, shed {sd['jobs_shed']}, failed "
+        f"{sd['jobs_failed']}; child {secs:.1f} s; {sd['device']}")
+    if (serve["metric"] != "serve_jobs_per_s" or not serve["value"] > 0
+            or sd["jobs_shed"] or sd["jobs_failed"]
+            or sd["platform"] != "gpu"):
+        raise AssertionError(f"bench serve: {serve}")
+
+    # the trend sentinel over the committed rounds, the fresh line newest
+    root = os.path.dirname(os.path.abspath(__file__))
+    fresh = os.path.join(BENCH_DIR, "fresh.json")
+    with open(fresh, "w") as f:
+        f.write(json.dumps(line) + "\n")
+    p = subprocess.run([sys.executable, "-m", "pcg_mpi_solver_tpu_torch.cli",
+                        "trend", "--fresh", fresh], cwd=root,
+                       capture_output=True, text=True, timeout=120)
+    verdict = [ln for ln in p.stdout.splitlines()
+               if ln.startswith("trend verdict: ")]
+    say(f"bench trend: exit {p.returncode}; "
+        + (verdict[0] if verdict else p.stdout[-300:]))
+    rep = trend.trend_report(trend.default_series(root), fresh=fresh)
+    mine = [g for g in rep["legs"] if g["new_round"] == "fresh.json"]
+    # JAX's identity of a line (without platform and device) would pair
+    # the flagship line with the TPU round of the same shape
+    jax_key = trend.leg_key(line)[:8]
+    tpu = sorted({os.path.basename(src) for src in trend.default_series(root)
+                  for ln in trend.iter_bench_lines(src)
+                  if trend.leg_key(ln)[:8] == jax_key
+                  and trend.platform_class(ln) != "gpu"})
+    say(f"bench trend: the flagship line's leg {[g['verdict'] for g in mine]}"
+        f" (rounds of another platform with its shape: {tpu}, not paired)")
+    if p.returncode not in (0, 1) or [g["verdict"] for g in mine] != \
+            ["single"]:
+        raise AssertionError(f"bench trend: exit {p.returncode}, legs "
+                             f"{mine}")
+    return {tuple(k.split(" ")): n for k, n in counts.items()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4775,6 +4940,7 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
     nx = kw.pop("nx")
     t0 = time.perf_counter()
     flagship_model = make_cube_model(nx, **kw)
+    flagship_dofs = flagship_model.n_dof
     say(f"main: cube {nx}^3, {flagship_model.n_dof} dofs; model build "
         f"{time.perf_counter() - t0:.2f} s")
     # 4g. the chunked blocked path, before any profiler window, and
@@ -4854,6 +5020,9 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
     # torch.profiler)
     lint_launches = phase_lint(torch, np)
     lap("4o lint")
+    # 4p. the port's bench in child processes, as a user runs it
+    bench_launches = phase_bench(flagship_dofs, smi)
+    lap("4p bench")
 
     records = []
     for variant in F32_VARIANTS:
@@ -4885,6 +5054,9 @@ def _phases(torch, np, kind, smi, rates, t_start, octrees,
             # phase 4m: the flagship daemon's blocks
             records[-1]["launches_serve"] = \
                 serve_launches.get((variant, dtype), 0)
+            # phase 4p: the bench's timed flagship solve
+            records[-1]["launches_bench"] = \
+                bench_launches.get((variant, dtype), 0)
             if variant == "v6":
                 records[-1]["launches_preconditioners"] = {
                     path: counts[("v6", dtype)]

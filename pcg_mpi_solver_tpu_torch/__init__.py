@@ -38,7 +38,10 @@ snapshots, step faults and NaN rollback
 (``resilience.TimeHistoryGuard``); the native dual-graph partitioner
 (``native``, built with g++ at first use; ``partition_method="graph"``
 and ``"auto"``) and the content-addressed partition cache behind
-``RunConfig.cache_dir`` (``cache``).
+``RunConfig.cache_dir`` (``cache``); and the bench (``python -m
+pcg_mpi_solver_tpu_torch.bench``: one JSON line of dof-iterations a
+second on the card against a live numpy baseline, ``solver.numpy_ref``;
+its serve leg ``serve.bench``; the trend sentinel ``obs.trend``).
 """
 
 from pcg_mpi_solver_tpu_torch.config import (

@@ -5,11 +5,9 @@ Port of ``pcg_mpi_solver_tpu/analysis/rules_artifacts.py``:
 
 * ``telemetry-schema`` — a telemetry JSONL the port writes in a real CPU
   run (one quasi-static solve, ``RunConfig.telemetry_path``) validates
-  line by line; the committed ``BENCH_*.json`` artifacts are checked as
-  far as the port's schema declares their contract: each must be a JSON
-  object, and its bench line validates once the schema carries the
-  bench-line half (``validate_bench_text``, which comes with the port's
-  benchmark).  Nothing is loosened to make a file pass;
+  line by line; each committed ``BENCH_*.json`` artifact must be a JSON
+  object whose bench line validates (``validate_bench_text``).  Nothing
+  is loosened to make a file pass;
 * ``doc-schema-sync`` — every kind of the port's ``EVENT_KINDS`` has a
   row in ``docs/OBSERVABILITY.md``'s event table (read, never edited).
 """
@@ -43,8 +41,7 @@ def check_bench_file(path: str) -> List[str]:
         return [f"unreadable ({e})"]
     if not isinstance(doc, dict):
         return [f"not a JSON object ({type(doc).__name__})"]
-    validate = getattr(schema, "validate_bench_text", None)
-    return list(validate(text)) if validate is not None else []
+    return schema.validate_bench_text(text)
 
 
 def telemetry_run_text() -> str:
@@ -70,8 +67,8 @@ def check_jsonl_text(text: str) -> List[str]:
 
 @rule("telemetry-schema", kind="artifact", fast=True,
       doc="a telemetry JSONL the port writes in a CPU run validates "
-          "against obs/schema.py, and the committed BENCH_*.json "
-          "artifacts as far as the port's schema declares their contract")
+          "against obs/schema.py, and so does every committed "
+          "BENCH_*.json artifact's bench line")
 def telemetry_schema_rule(ctx) -> List[Finding]:
     findings = []
     text = telemetry_run_text()

@@ -24,11 +24,15 @@ CLI, the JAX package's ``pcg_mpi_solver_tpu/cli.py`` with its flags.
     python -m pcg_mpi_solver_tpu_torch.cli submit    --spool DIR --scale S | --rhs F.npy
     python -m pcg_mpi_solver_tpu_torch.cli jobs      --spool DIR
     python -m pcg_mpi_solver_tpu_torch.cli lint      [--fast] [--device cpu] [--json F] [--rules ID,...]
+    python -m pcg_mpi_solver_tpu_torch.cli bench     (BENCH_* environment knobs, bench.py)
+    python -m pcg_mpi_solver_tpu_torch.cli trend     [BENCH_rNN.json ...] [--fresh F] [--threshold T]
 
 ``solve``, ``solve-many``, ``dynamics``, ``newmark``, ``demo``,
 ``perf-report``, ``warmup``, ``serve`` and ``lint`` (its trip rules,
-``analysis/``) run on the card unless ``--device cpu`` is given; ``submit``, ``jobs`` and ``watch`` load no
-torch (they work on a machine without the accelerator environment).
+``analysis/``) run on the card unless ``--device cpu`` is given, and
+``bench`` unless ``BENCH_FORCE_CPU=1`` is set; ``submit``, ``jobs``,
+``watch`` and ``trend`` load no torch (they work on a machine without
+the accelerator environment).
 Settings come from ``--settings settings.json`` (the shape of the
 reference's GlobSettings: TimeHistoryParam/SolverParam,
 run_basic_script.bash:30-49) or per-flag overrides.  ``--cache-dir``
@@ -40,8 +44,7 @@ content-addressed cache (``cache/``).  The per-run telemetry flags
 multi-process run when ``PCG_TPU_COORDINATOR``, ``PCG_TPU_NUM_PROCS``
 and ``PCG_TPU_PROC_ID`` are set (``parallel/distributed.init_distributed``:
 every rank runs the same command), and ``--resume-elastic`` continues a
-run of another process count.  The JAX package's other subcommands are
-refused with the ROADMAP queue 1 item that brings them (:data:`REFUSED`).
+run of another process count.
 """
 
 from __future__ import annotations
@@ -53,10 +56,6 @@ import sys
 import time
 
 import numpy as np
-
-# subcommand -> the ROADMAP queue 1 item that ports it
-REFUSED = {"bench": 1, "trend": 1}
-
 
 def _load_settings(path, args):
     from pcg_mpi_solver_tpu_torch.config import (
@@ -875,11 +874,28 @@ def cmd_lint(args):
         raise SystemExit(rc)
 
 
-def cmd_refused(args):
-    item = REFUSED[args.cmd]
-    raise NotImplementedError(
-        f"subcommand {args.cmd!r} is not ported yet (ROADMAP queue 1 item "
-        f"{item})")
+def cmd_bench(args):
+    """The bench (``bench.py``): one JSON line on stdout, configured by
+    its BENCH_* environment knobs."""
+    from pcg_mpi_solver_tpu_torch.bench import main as bench_main
+
+    bench_main()
+
+
+def cmd_trend(args):
+    """Bench-trend regression sentinel (``obs/trend.py``): match legs
+    across round artifacts (plus an optional fresh one) by shape,
+    configuration and platform, and print per-leg deltas with threshold
+    verdicts.  Exit 1 = at least one matched leg regressed; exit 2 =
+    nothing to compare."""
+    from pcg_mpi_solver_tpu_torch.obs import trend
+
+    thr = (args.threshold if args.threshold is not None
+           else trend.DEFAULT_THRESHOLD)
+    rc = trend.main_cli(list(args.artifacts), fresh=args.fresh,
+                        threshold=thr)
+    if rc:
+        raise SystemExit(rc)
 
 
 def _add_solver_flags(p, precision_default=None) -> None:
@@ -1319,19 +1335,34 @@ def build_parser() -> argparse.ArgumentParser:
     add_lint_args(p)
     p.set_defaults(fn=cmd_lint)
 
-    for name, item in REFUSED.items():
-        p = sub.add_parser(name, help=f"not ported (ROADMAP queue 1 item "
-                                      f"{item})")
-        p.set_defaults(fn=cmd_refused)
+    bench_help = ("benchmark harness (bench.py): prints one JSON line; "
+                  "configured by BENCH_* environment variables, on the "
+                  "card unless BENCH_FORCE_CPU=1")
+    p = sub.add_parser("bench", help=bench_help, description=bench_help)
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("trend",
+                       help="bench-trend regression sentinel: match legs "
+                            "across BENCH_r*.json round artifacts (by "
+                            "shape/variant/precond/nrhs/platform/device) "
+                            "and print threshold-based regressed/improved/"
+                            "flat verdicts; exit 1 on a regression "
+                            "(loads no torch)")
+    p.add_argument("artifacts", nargs="*", metavar="BENCH_rNN.json",
+                   help="round artifacts in round order (default: "
+                        "./BENCH_r*.json sorted)")
+    p.add_argument("--fresh", default=None, metavar="FILE.json",
+                   help="a fresh artifact (raw bench line or round "
+                        "wrapper) appended as the newest round")
+    p.add_argument("--threshold", type=float, default=None,
+                   help="relative change separating flat from "
+                        "regressed/improved (default 0.10)")
+    p.set_defaults(fn=cmd_trend)
     return ap
 
 
 def main(argv=None):
-    ap = build_parser()
-    # a refused subcommand takes whatever arguments the JAX package's does
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.fn is not cmd_refused:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 

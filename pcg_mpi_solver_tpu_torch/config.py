@@ -1,13 +1,14 @@
 """Typed configuration of the PyTorch port.
 
 Every field of ``pcg_mpi_solver_tpu/config.py``, with the JAX package's
-default, so a config written for the JAX package builds here too.  A
-field whose option is not ported yet keeps its name: ``Solver`` raises
-``NotImplementedError`` naming the ROADMAP queue item that brings it when
-the value asks for that option (``solver/driver.py``, ``UNPORTED``),
-instead of ignoring it.  Names that do not change the solve are accepted
-as they are; ``RunConfig.checkpoint_path`` (under ``scratch_path``) is
-where step checkpoints and mid-solve snapshots go.
+default, so a config written for the JAX package builds here too.  One
+value is refused rather than ignored: ``SolverConfig.pallas`` "off" or
+"interpret", for which ``solver/driver.py::check_slice`` raises
+``NotImplementedError`` (the port has no XLA path and no interpreter; its
+CUDA kernels run on the card and their plain versions on the CPU).  Names
+that do not change the solve are accepted as they are;
+``RunConfig.checkpoint_path`` (under ``scratch_path``) is where step
+checkpoints and mid-solve snapshots go.
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-# Canonical name sets, copied from the JAX package so an unknown name is a
-# ValueError at construction while a known-but-unported one reaches the
-# solver's NotImplementedError.
+# Canonical name sets, copied from the JAX package, so an unknown name is a
+# ValueError at construction.
 PCG_VARIANTS = ("classic", "fused", "pipelined")
 PRECONDS = ("jacobi", "block3", "mg")
 PRECISION_MODES = ("direct", "mixed")

@@ -1,15 +1,22 @@
-"""Telemetry event schema: the versioned contract of every event a
-``MetricsRecorder`` emits.
+"""Telemetry schemas: the versioned contracts of the telemetry events a
+``MetricsRecorder`` emits and of the bench's result line.
 
-Port of the telemetry half of ``pcg_mpi_solver_tpu/obs/schema.py``
-(``TELEMETRY_SCHEMA``, ``EVENT_KINDS``, ``validate_event``,
-``validate_jsonl_text``), with the same schema tag, so one consumer reads
-both packages' streams.  Every event carries ``schema`` / ``t`` (unix
-seconds) / ``kind``; the per-kind required fields are in
-:data:`EVENT_KINDS`.  Unknown kinds and extra fields are allowed
-(forward compatibility): validators reject only missing required fields
-or a schema version they do not speak.  The bench-line half of the JAX
-module comes with the port's benchmark.
+Port of ``pcg_mpi_solver_tpu/obs/schema.py``, with the same schema tags,
+so one consumer reads both packages' streams and lines.
+
+* **Telemetry events** (``TELEMETRY_SCHEMA``, ``EVENT_KINDS``,
+  ``validate_event``, ``validate_jsonl_text``): every event carries
+  ``schema`` / ``t`` (unix seconds) / ``kind``; the per-kind required
+  fields are in :data:`EVENT_KINDS`.
+* **Bench result lines** (``BENCH_SCHEMA``, ``validate_bench_line``,
+  ``validate_bench_text``): the one-line JSON of ``bench.py`` and
+  ``serve/bench.py`` (``{"metric", "value", "unit", "vs_baseline",
+  "detail"}``); committed pre-schema artifacts (``BENCH_r0*.json``) stay
+  valid as legacy lines.
+
+Unknown kinds and extra fields are allowed (forward compatibility):
+validators reject only missing required fields, mistyped typed fields or
+a schema version they do not speak.  Imports neither torch nor numpy.
 """
 
 from __future__ import annotations
@@ -17,10 +24,14 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, List
 
+from pcg_mpi_solver_tpu_torch.config import PCG_VARIANTS
+
 # Bump the integer suffix on any BREAKING change (key removal/retyping);
 # additive fields do not bump.
 TELEMETRY_SCHEMA = "pcg-tpu-telemetry/1"
+BENCH_SCHEMA = "pcg-tpu-bench/1"
 KNOWN_TELEMETRY_SCHEMAS = (TELEMETRY_SCHEMA,)
+KNOWN_BENCH_SCHEMAS = (BENCH_SCHEMA,)
 
 # kind -> required field names (beyond the base schema/t/kind triplet).
 EVENT_KINDS: Dict[str, tuple] = {
@@ -184,6 +195,40 @@ EVENT_KINDS: Dict[str, tuple] = {
     "run_summary": ("counters", "gauges"),
 }
 
+BENCH_REQUIRED = ("metric", "value", "unit", "vs_baseline")
+
+# Optional ``detail`` fields that are numeric or null WHEN present (absent
+# from pre-schema lines): the warm-path setup attribution (``setup_s``,
+# ``time_to_first_iter_s``: null when no dispatch ran), the measured
+# block width and batched throughput (``nrhs``, ``nrhs_planned``,
+# ``dof_iter_rhs_per_s``, ``nrhs_quarantined``, ``nrhs_recoveries``),
+# time to solution (``time_to_tol_s``: null when the solve did not reach
+# tol, ``iters``), the cost model's verdict (``predicted_ms_per_iter``,
+# ``model_ratio``), the setup ladder's fields (``procs``,
+# ``partition_build_s``, ``partition_serial_s``, ``cold_setup_s``,
+# ``warm_setup_s``, ``ingest_peak_bytes``), the profiled leg's
+# (``measured_ms_per_iter_matvec``, ``overlap_frac``, ``skew_frac``,
+# ``straggler_rank``: absent, not null, when no capture measured them)
+# and the serve leg's (``jobs_per_s``, ``jobs_per_s_serial``,
+# ``queue_depth_max``, ``jobs_shed``: absent on every other leg).
+BENCH_DETAIL_NUMERIC = ("setup_s", "time_to_first_iter_s", "nrhs",
+                        "nrhs_planned", "dof_iter_rhs_per_s",
+                        "nrhs_quarantined", "nrhs_recoveries",
+                        "time_to_tol_s", "iters",
+                        "predicted_ms_per_iter", "model_ratio",
+                        "procs", "partition_build_s",
+                        "partition_serial_s", "cold_setup_s",
+                        "warm_setup_s", "ingest_peak_bytes",
+                        "measured_ms_per_iter_matvec", "overlap_frac",
+                        "skew_frac", "straggler_rank",
+                        "jobs_per_s", "jobs_per_s_serial",
+                        "queue_depth_max", "jobs_shed")
+# ``setup_cache``: the partition cache's attribution (cache/)
+BENCH_SETUP_CACHE_VALUES = ("off", "cold", "warm")
+# ``pcg_variant``: the engaged PCG loop formulation, from the canonical
+# name table (a line claiming a variant no loop knows is a schema error)
+BENCH_PCG_VARIANT_VALUES = PCG_VARIANTS
+
 
 def validate_event(ev: Any) -> List[str]:
     """Validate one telemetry event dict; returns a list of error strings
@@ -206,6 +251,68 @@ def validate_event(ev: Any) -> List[str]:
         if field not in ev:
             errs.append(f"kind={kind}: missing required field {field!r}")
     return errs
+
+
+def validate_bench_line(d: Any) -> List[str]:
+    """Validate one bench result object (the parsed one-line JSON);
+    returns a list of error strings (empty = valid)."""
+    errs: List[str] = []
+    if not isinstance(d, dict):
+        return [f"bench line is not an object: {type(d).__name__}"]
+    for field in BENCH_REQUIRED:
+        if field not in d:
+            errs.append(f"missing required key {field!r}")
+    if "value" in d and not isinstance(d["value"], (int, float)):
+        errs.append(f"'value' is not numeric: {d['value']!r}")
+    schema = d.get("schema")
+    if schema is not None and schema not in KNOWN_BENCH_SCHEMAS:
+        errs.append(f"unknown bench schema {schema!r}")
+    detail = d.get("detail")
+    if isinstance(detail, dict):
+        for field in BENCH_DETAIL_NUMERIC:
+            if field in detail and detail[field] is not None \
+                    and not isinstance(detail[field], (int, float)):
+                errs.append(f"detail.{field} is not numeric/null: "
+                            f"{detail[field]!r}")
+        sc = detail.get("setup_cache")
+        if sc is not None and sc not in BENCH_SETUP_CACHE_VALUES:
+            errs.append(f"detail.setup_cache not in "
+                        f"{BENCH_SETUP_CACHE_VALUES}: {sc!r}")
+        pv = detail.get("pcg_variant")
+        if pv is not None and pv not in BENCH_PCG_VARIANT_VALUES:
+            errs.append(f"detail.pcg_variant not in "
+                        f"{BENCH_PCG_VARIANT_VALUES}: {pv!r}")
+    # a schema-less line is a legacy (pre-schema) artifact: still valid
+    return errs
+
+
+def _find_bench_payload(doc: Any) -> Any:
+    """The metric object of a ``BENCH_*.json`` artifact: the raw
+    one-line dict, or the round wrapper's ``parsed``."""
+    if isinstance(doc, dict) and "metric" in doc:
+        return doc
+    if isinstance(doc, dict) and isinstance(doc.get("parsed"), dict):
+        return doc["parsed"]
+    return None
+
+
+def validate_bench_text(text: str) -> List[str]:
+    """Validate a ``BENCH_*.json`` artifact (a raw line or a round wrapper
+    ``{"n", "cmd", "rc", "tail", "parsed"}``).  A wrapper of a failed run
+    (``rc`` != 0, ``parsed`` null) is a legitimate artifact; only one that
+    claims success must carry a valid payload."""
+    try:
+        doc = json.loads(text)
+    except ValueError as e:
+        return [f"not JSON ({e})"]
+    payload = _find_bench_payload(doc)
+    if payload is None:
+        if (isinstance(doc, dict) and "rc" in doc and "parsed" in doc
+                and doc.get("parsed") is None and doc.get("rc") != 0):
+            return []
+        return ["no bench metric object found (neither top-level nor "
+                "under 'parsed')"]
+    return validate_bench_line(payload)
 
 
 def validate_jsonl_text(text: str) -> List[str]:

@@ -47,10 +47,6 @@ import sys
 import tempfile
 import time
 
-#: schema tag of the ladder's lines and artifact (the port's bench line
-#: schema comes with its bench entry)
-LADDER_SCHEMA = "pcg-tpu-torch-setup-ladder/1"
-
 # Child process body: one rank of a rung.  Builds the (deterministic)
 # synthetic model itself, constructs a COLD sharded Solver against the
 # shared cache dir, then a WARM one, asserting the warm start built
@@ -213,6 +209,7 @@ def _run_rungs(rungs, nx, ppp, cache_dir, out_path, timeout_s, lines,
                device):
     from pcg_mpi_solver_tpu_torch.models.mdf import write_mdf
     from pcg_mpi_solver_tpu_torch.models.synthetic import make_cube_model
+    from pcg_mpi_solver_tpu_torch.obs.schema import BENCH_SCHEMA
     from pcg_mpi_solver_tpu_torch.parallel.partition import partition_model
 
     for n in rungs:
@@ -232,7 +229,7 @@ def _run_rungs(rungs, nx, ppp, cache_dir, out_path, timeout_s, lines,
                         timeout_s=timeout_s, device=device)
         par_s = max(r["cold"]["partition_build_s"] for r in res)
         line = {
-            "schema": LADDER_SCHEMA,
+            "schema": BENCH_SCHEMA,
             "metric": "setup_partition_build",
             "value": round(par_s, 4),
             "unit": "s",
@@ -256,7 +253,7 @@ def _run_rungs(rungs, nx, ppp, cache_dir, out_path, timeout_s, lines,
         }
         print(json.dumps(line), flush=True)
         lines.append(line)
-    artifact = {"schema": LADDER_SCHEMA, "metric": "setup_ladder",
+    artifact = {"schema": BENCH_SCHEMA, "metric": "setup_ladder",
                 "value": lines[-1]["vs_baseline"] if lines else 0.0,
                 "unit": "x_vs_serial",
                 "vs_baseline": lines[-1]["vs_baseline"] if lines else 0.0,

@@ -3,8 +3,8 @@ the CPU: the JAX package's ``tests/test_cli.py`` cases with ``--device
 cpu`` (ingest -> partition -> solve -> export on a model written in the
 reference's MDF format, the cube, Poisson and octree demos, the speed
 test, the backend flag), a bundle the JAX package wrote, one run as a
-subprocess, and every subcommand the port does not have yet refused with
-its ROADMAP queue 1 item.  The service subcommands (``submit``, ``serve
+subprocess, and the subcommands once refused (``bench``, ``trend``,
+``fleet-report``, ``lint``) run.  The service subcommands (``submit``, ``serve
 --device cpu``, ``jobs``, ``watch --once``) drive a spool end to end,
 ``jobs`` and ``watch`` printing what the JAX package's print; ``validate``
 prints JAX's checks on one bundle; ``warmup`` fills the cache the later
@@ -22,6 +22,7 @@ JAX package's CLI on the same scratch directory (2 parts): ``dynamics``
 within 1e-9 * max|u|; both killed at a step by ``PCG_TPU_FAULTS`` and
 continued with ``--resume``, bitwise the uninterrupted run."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -34,7 +35,8 @@ import pytest
 from pcg_mpi_solver_tpu.cli import main as jax_main
 from pcg_mpi_solver_tpu.models.mdf import write_mdf as jax_write_mdf
 from pcg_mpi_solver_tpu.models.synthetic import make_cube_model as jax_cube
-from pcg_mpi_solver_tpu_torch.cli import REFUSED, main
+import pcg_mpi_solver_tpu_torch.cli as cli_mod
+from pcg_mpi_solver_tpu_torch.cli import main
 from pcg_mpi_solver_tpu_torch.models import make_cube_model, make_octree_model
 from pcg_mpi_solver_tpu_torch.models.mdf import read_mdf, write_mdf
 from pcg_mpi_solver_tpu_torch.resilience import SimulatedKill
@@ -166,14 +168,37 @@ def test_cli_runs_as_a_module(tmp_path):
     assert "flag=0" in out.stdout and ">success!" in out.stdout
 
 
-@pytest.mark.parametrize("cmd", sorted(set(REFUSED) | {"fleet-report",
-                                                      "lint"}))
+@pytest.mark.parametrize("cmd", ["bench", "fleet-report", "lint", "trend"])
 def test_unported_subcommands_name_their_item(cmd, tmp_path, capsys):
-    """The subcommands still refused name their ROADMAP queue 1 item;
-    ``fleet-report`` (item 12, once refused) reads a capture root, and an
-    empty one is a named degraded verdict with exit status 2; ``lint``
-    (item 14, once refused) lists the JAX package's rule ids and runs
-    clean on the CPU, its trip rules recorded by two gloo ranks."""
+    """The subcommands once refused with a ROADMAP queue 1 item run:
+    ``fleet-report`` (item 12) reads a capture root, and an empty one is
+    a named degraded verdict with exit status 2; ``lint`` (item 14) lists
+    the JAX package's rule ids and runs clean on the CPU, its trip rules
+    recorded by two gloo ranks; ``bench`` (item 1) parses its options
+    (the bench itself: ``tests/test_torch_bench.py``); ``trend`` (item
+    1) over a series whose newest round regressed exits 1."""
+    if cmd == "bench":
+        with pytest.raises(SystemExit) as err:
+            main([cmd, "--help"])
+        assert err.value.code == 0
+        assert "BENCH_FORCE_CPU" in capsys.readouterr().out
+        return
+    if cmd == "trend":
+        def line(value):
+            return json.dumps({"metric": "pcg_dof_iterations_per_second",
+                               "value": value, "unit": "dof*iter/s",
+                               "vs_baseline": 1.0,
+                               "detail": {"n_dof": 375, "model": "cube",
+                                          "platform": "cpu"}})
+
+        (tmp_path / "BENCH_r01.json").write_text(line(2.0e6))
+        (tmp_path / "BENCH_r02.json").write_text(line(1.0e6))
+        with pytest.raises(SystemExit) as err:
+            main([cmd, str(tmp_path / "BENCH_r01.json"),
+                  str(tmp_path / "BENCH_r02.json")])
+        assert err.value.code == 1
+        assert "REGRESSED" in capsys.readouterr().out
+        return
     if cmd == "lint":
         main([cmd, "--list-rules"])
         ids = {ln.split()[0] for ln in capsys.readouterr().out.splitlines()}
@@ -188,11 +213,6 @@ def test_unported_subcommands_name_their_item(cmd, tmp_path, capsys):
             main([cmd, str(tmp_path)])
         assert err.value.code == 2
         assert "verdict: degraded" in capsys.readouterr().out
-        return
-    with pytest.raises(NotImplementedError,
-                       match=rf"{cmd}.*ROADMAP queue 1 item "
-                             rf"{REFUSED[cmd]}\b"):
-        main([cmd, "--spool", "x", "some", "args"])
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -209,7 +229,8 @@ def test_unported_flags_name_their_item(tmp_path, capsys, argv, item):
     capsys.readouterr()
     main([a.format(scratch=scratch) for a in argv] + CPU)
     assert ">success!" in capsys.readouterr().out
-    assert len(REFUSED) == 2 and set(REFUSED.values()) == {1}
+    # no subcommand is refused any more
+    assert not hasattr(cli_mod, "REFUSED")
 
 
 # ----------------------------------------------------------------------

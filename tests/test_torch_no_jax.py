@@ -65,6 +65,10 @@ ANALYSIS_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.analysis.{m}" for m in (
     "engine", "trip", "programs", "rules_trip", "rules_ast", "rules_config",
     "rules_artifacts", "collectives", "__main__"))
 
+# the bench family
+BENCH_MODULES = tuple(f"pcg_mpi_solver_tpu_torch.{m}" for m in (
+    "bench", "solver.numpy_ref", "obs.trend", "serve.bench"))
+
 # importing the lint loads neither torch nor JAX: it is built before a
 # rule decides to record
 ANALYSIS_PROBE = r"""
@@ -113,6 +117,7 @@ def test_port_imports_no_jax():
     assert set(SERVE_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(SHARD_MODULES) <= set(lines[2].split(",")), lines[2]
     assert set(ANALYSIS_MODULES) <= set(lines[2].split(",")), lines[2]
+    assert set(BENCH_MODULES) <= set(lines[2].split(",")), lines[2]
     assert bad == "", f"importing the port loaded {bad}"
 
 
